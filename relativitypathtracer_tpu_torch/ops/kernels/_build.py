@@ -1,0 +1,123 @@
+"""Build, load and launch the port's CUDA kernels (csrc/*.cu).
+
+One nvcc call compiles every source into one shared library with a plain C
+interface, loaded with ctypes (no PyTorch headers, so the build takes
+seconds). The build runs at first use, inside the checkout under
+build/kernels/, keyed by a hash of the sources and flags: a library built
+from other sources is never loaded, it is rebuilt.
+
+Every launch goes through `launch`, which counts it in LAUNCHES (one plain
+integer per kernel, so a run can show which kernels its path went through),
+passes PyTorch's current stream, and raises if the C entry reports a CUDA
+error.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+
+import torch
+
+CSRC = pathlib.Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+# C entry -> argument kinds: p pointer, i int, f float. Every entry ends with
+# the stream (a pointer) and returns the cudaError_t of its launch.
+_SIGNATURES = {
+    "rpt_shadow_chain": "pipppppfipppppp",
+    "rpt_analytic_nearest": "piipippppp",
+    "rpt_shared_walk": "pppppppiipppppp",
+    "rpt_general_walk": "pppppppiipp",
+}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+
+LAUNCHES: collections.Counter = collections.Counter()
+
+_lib = None
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def build() -> pathlib.Path:
+    """Compile csrc/*.cu into build/kernels/librpt_kernels-<hash>.so unless
+    that library already exists; return its path."""
+    so = BUILD_DIR / f"librpt_kernels-{source_hash()}.so"
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, so)
+    for old in BUILD_DIR.glob("librpt_kernels-*.so"):
+        if old != so:
+            old.unlink()
+    return so
+
+
+def library():
+    """The loaded kernel library, built first if needed."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, kinds in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = [_CTYPES[k] for k in kinds]
+            fn.restype = ctypes.c_int
+        lib.rpt_error_string.argtypes = [ctypes.c_int]
+        lib.rpt_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check_cuda(name: str, *specs) -> None:
+    """specs: (tensor, dtype, shape) triples. Raise unless every tensor is a
+    contiguous CUDA tensor of that dtype and shape, all on one device."""
+    dev = specs[0][0].device
+    for x, dtype, shape in specs:
+        if x.device != dev or x.device.type != "cuda":
+            raise ValueError(f"{name}: every input must be on one CUDA device, got {x.device}")
+        if x.dtype != dtype:
+            raise TypeError(f"{name}: expected {dtype}, got {x.dtype}")
+        if tuple(x.shape) != tuple(shape):
+            raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+
+
+def launch(name: str, *args) -> None:
+    """Call C entry `name` with tensors as device pointers, then the current
+    stream; count the launch; raise on a CUDA error."""
+    lib = library()
+    c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    stream = torch.cuda.current_stream().cuda_stream
+    LAUNCHES[name] += 1
+    rc = getattr(lib, name)(*c_args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc}: {lib.rpt_error_string(rc).decode()}")

@@ -1,0 +1,231 @@
+"""The wavefront renderer: one call renders one frame.
+
+Torch counterpart of `relativitypathtracer_tpu.render` for this slice of
+the port: per-object boost algebra each frame (`object_frames`), camera rays
+in 32x32-tile order so every 1024-ray block is a compact screen tile, the
+analytic nearest hit (K3), one mesh's primary walk (K5), flat colour,
+proper-time flash, ambient and emissive terms, and per light the shadow chain
+(K1) and the mesh shadow walk (K6); then Hable tonemap, unswizzle and crop.
+Semantics mirror trace()/intersect_scene()/sample_light()
+(opencl_kernel.cl:361-604). Rays sit on the last axis: (3, N), (4, N).
+
+Routes the JAX package has and this slice has not raise NotImplementedError
+naming the kernels they wait for (see ROADMAP.md, Queue 2).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .models.scene import Scene, SceneMeta
+from .ops.camera import camera_ray_dirs
+from .ops.intersect import INF, normalize3
+from .ops.kernels.analytic_kernels import analytic_nearest_shared, pack_analytic_params
+from .ops.kernels.shadow_chain import pack_chain_mats, pack_light_row, shadow_chain
+from .ops.mesh_intersect import mesh_intersect_shared, mesh_min_t_general
+from .ops.relmath import lorentz, matmul4, transform4
+from .ops.tonemap import tonemap
+
+MISS_COLOR = (0.15, 0.15, 0.25)
+TILE = 32  # pixel tile edge: one tile is one 1024-ray kernel block
+
+
+class FrameState(NamedTuple):
+    """Per-frame camera state (Render.cpp:10-11): cam_velocity (3,) in units
+    of c and cam_pos (4,) = (t, x, y, z); scene time is cam_pos[0]."""
+
+    cam_velocity: torch.Tensor
+    cam_pos: torch.Tensor
+
+    @staticmethod
+    def initial(device="cpu"):
+        return FrameState(torch.zeros(3, device=device), torch.zeros(4, device=device))
+
+
+def object_frames(objects, state: FrameState):
+    """(L, inv_L, stat_cam) per object (Render.cpp:179-200):
+    L = L(v_obj) @ L(-v_cam) maps the camera frame to the rest frame,
+    inv_L = L(v_cam) @ L(-v_obj) maps back, stat_cam = L @ cam_pos."""
+    L = matmul4(lorentz(objects.velocity), lorentz(-state.cam_velocity)[None])
+    inv_L = matmul4(lorentz(state.cam_velocity)[None], lorentz(-objects.velocity))
+    return L, inv_L, transform4(L, state.cam_pos[None, :])
+
+
+def _merge_best(best, cand):
+    take = cand[0] < best[0]
+    return (torch.where(take, cand[0], best[0]),
+            torch.where(take[None, :], cand[1], best[1]),
+            torch.where(take[None, :], cand[2], best[2]),
+            torch.where(take, cand[3], best[3]))
+
+
+def mesh_perm_tensors(meta: SceneMeta, device):
+    """Each mesh object's Morton triangle order as a device tensor, made once
+    per renderer (the JAX package folds them into its compiled frame)."""
+    return tuple(torch.as_tensor(p, dtype=torch.long, device=device) for p in meta.mesh_perms)
+
+
+def intersect_scene(scene: Scene, meta: SceneMeta, L, stat_cam, dir4, perms):
+    """Nearest hit over all objects for rays from the camera origin.
+    dir4: (4, N) = (interval, unit camera dir); perms from mesh_perm_tensors.
+    Returns (t, normal (3, N) in the hit object's rest frame, uv (2, N),
+    obj (N,) int32, did_hit)."""
+    objects = scene.objects
+    n = dir4.shape[1]
+    dev = dir4.device
+    best = (torch.full((n,), INF, device=dev), torch.zeros((3, n), device=dev),
+            torch.zeros((2, n), device=dev), torch.zeros((n,), dtype=torch.int32, device=dev))
+    ids = tuple(meta.sphere_ids) + tuple(meta.cube_ids)
+    if ids:
+        params = pack_analytic_params(L, objects.inv_m, stat_cam, ids)
+        best = _merge_best(best, analytic_nearest_shared(
+            params, dir4, len(meta.sphere_ids), len(meta.cube_ids)))
+    if len(meta.mesh_ids) > 1:
+        raise NotImplementedError("more than one mesh object needs K9 (and K10)")
+    for k, i in enumerate(meta.mesh_ids):
+        d4 = L[i] @ dir4
+        t, nrm, uv, _ = mesh_intersect_shared(
+            scene.mesh, objects.m[i], objects.inv_m[i], stat_cam[i, 1:4], d4[1:4], perms[k],
+            scene.mesh_static[k])
+        best = _merge_best(best, (t, nrm, uv, torch.full((n,), i, dtype=torch.int32, device=dev)))
+    t, normal, uv, obj = best
+    return t, normal, uv, obj, t < INF
+
+
+def scene_min_t(scene: Scene, meta: SceneMeta, L, origins4, dir3, interval: int,
+                exclude_id: int, tmax, perms):
+    """Min hit parameter over all objects but `exclude_id` for shadow rays
+    with per-lane origins (sample_light, opencl_kernel.cl:488-545), searched
+    up to tmax (N,); lanes with tmax 0 are masked."""
+    n = origins4.shape[1]
+    dir4 = torch.cat([torch.full((1, n), float(interval), device=dir3.device),
+                      normalize3(dir3)], dim=0)
+    if any(i != exclude_id for i in tuple(meta.sphere_ids) + tuple(meta.cube_ids)):
+        raise NotImplementedError("analytic occluders need K7")
+    if len(meta.mesh_ids) > 1:
+        raise NotImplementedError("more than one mesh object needs K10")
+    best = torch.full((n,), INF, device=dir3.device)
+    for k, i in enumerate(meta.mesh_ids):
+        if i == exclude_id:
+            continue
+        o4 = L[i] @ origins4
+        d4 = L[i] @ dir4
+        best = torch.minimum(best, mesh_min_t_general(
+            scene.mesh, scene.objects.m[i], scene.objects.inv_m[i], o4[1:4], d4[1:4], perms[k],
+            scene.mesh_static[k], tmax))
+    return best
+
+
+def shade(scene: Scene, meta: SceneMeta, L, inv_L, stat_cam, dirs, interval: int, perms):
+    """Full trace of unit camera dirs (3, N): nearest hit, flat colour and
+    proper-time flash, ambient and emissive terms, and per light the direct
+    term behind a 4D shadow ray. Returns (color (3, N), aux) with aux counts
+    hits, shadow_rays (lanes a light's shadow ray was traced for) and
+    lit_rays (those the light reached)."""
+    if meta.textured_ids:
+        raise NotImplementedError("textured objects need K2 (small atlas), K8 (larger) "
+                                  "and the packed-atlas route")
+    objects = scene.objects
+    n = dirs.shape[1]
+    dev = dirs.device
+    dir4 = torch.cat([torch.full((1, n), float(interval), device=dev), dirs], dim=0)
+    t, normal, _, obj, did_hit = intersect_scene(scene, meta, L, stat_cam, dir4, perms)
+    obj_l = obj.long()
+
+    # Untextured scene: the JAX package fetches a texel for every lane and
+    # then keeps the flat colour on every lane; here no fetch is made.
+    hit_color = objects.color.T[:, obj_l]
+    if meta.any_flash:
+        period = objects.flash_period[obj_l]
+        duration = objects.flash_duration[obj_l]
+        event_t = stat_cam[obj_l, 0] + (L[obj_l, 0, :].T * dir4).sum(dim=0) * t
+        safe_period = torch.where(period > 0, period, 1.0)
+        flashing = (period > 0) & (
+            event_t - safe_period * torch.floor(event_t / safe_period) < duration)
+        hit_color = torch.where(flashing[None, :], hit_color * 2.0, hit_color)
+
+    ambient = scene.ambient if interval != 0 else torch.ones((), device=dev)
+    color = hit_color * ambient
+    color = color + torch.where(objects.light[obj_l][None, :], hit_color, 0.0)
+
+    shadow_rays = torch.zeros((), dtype=torch.int64, device=dev)
+    lit_rays = torch.zeros((), dtype=torch.int64, device=dev)
+    if interval != 0 and meta.light_ids:
+        mats = pack_chain_mats(L, inv_L, stat_cam)
+        for i in meta.light_ids:
+            light_row = pack_light_row(L[i], inv_L[i], objects.m[i][:3, 3])
+            hit_pos, ld3, ndotl, tmax, llen = shadow_chain(
+                mats, light_row, dir4, t, normal, obj, interval)
+            relevant = did_hit & (obj != i) & (ndotl > 0)
+            occ_t = scene_min_t(scene, meta, L, hit_pos, ld3, interval, i,
+                                torch.where(relevant, tmax, 0.0), perms)
+            falloff = 1.0 / (1.0 + 0.1 * llen + 0.01 * (llen * llen))
+            contrib = (ndotl * falloff)[None, :] * hit_color * objects.color[i][:, None]
+            mask = relevant & objects.light[i] & (occ_t >= tmax)
+            color = color + torch.where(mask[None, :], contrib, 0.0)
+            shadow_rays = shadow_rays + relevant.sum()
+            lit_rays = lit_rays + mask.sum()
+
+    miss = torch.tensor(MISS_COLOR, device=dev)
+    color = torch.where(did_hit[None, :], color, miss[:, None])
+    return color, {"hits": did_hit.sum(), "shadow_rays": shadow_rays, "lit_rays": lit_rays}
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def tile_swizzle(img_vec, ph: int, pw: int):
+    """(k, ph*pw) row-major pixels -> 32x32 tiles, quadrant-major within each
+    tile (four 16x16 quadrants of 256 lanes), as the JAX package orders them."""
+    k = img_vec.shape[0]
+    h = TILE // 2
+    x = img_vec.reshape(k, ph // TILE, 2, h, pw // TILE, 2, h)
+    return x.permute(0, 1, 4, 2, 5, 3, 6).reshape(k, ph * pw)
+
+
+def tile_unswizzle(img_vec, ph: int, pw: int):
+    """Inverse of tile_swizzle."""
+    k = img_vec.shape[0]
+    h = TILE // 2
+    x = img_vec.reshape(k, ph // TILE, pw // TILE, 2, 2, h, h)
+    return x.permute(0, 1, 3, 5, 2, 4, 6).reshape(k, ph * pw)
+
+
+def build_render_fn(meta: SceneMeta, width: int, height: int, interval: int,
+                    msaa: int = 1, with_aux: bool = False, device="cpu"):
+    """A frame renderer for (scene meta, resolution, interval) on `device`:
+    render(scene, state) -> (H, W, 3) float image in bottom-up row order, and
+    the aux counts when with_aux. The pixel grid is padded to 32x32 tiles and
+    traced in tile order; the padding is cropped after shading."""
+    if msaa != 1:
+        raise NotImplementedError("msaa > 1 is not ported yet")
+    # Full fp32 products: PERF.md "What lost" records that reduced-precision
+    # matrix products (bf16 passes on the TPU, TF32 here) broke parity with
+    # the fp32 reference.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ph = _round_up(height, TILE)
+    pw = _round_up(width, TILE)
+    dirs = tile_swizzle(camera_ray_dirs(width, height, pw, ph, device=device)
+                        .reshape(-1, 3).T, ph, pw).contiguous()
+    perms = mesh_perm_tensors(meta, device)
+
+    def render(scene: Scene, state: FrameState):
+        L, inv_L, stat_cam = object_frames(scene.objects, state)
+        color, aux = shade(scene, meta, L, inv_L, stat_cam, dirs, interval, perms)
+        img = tonemap(tile_unswizzle(color, ph, pw).T, scene.white_point)
+        img = img.reshape(ph, pw, 3)[:height, :width]
+        return (img, aux) if with_aux else img
+
+    return render
+
+
+def render_frame(scene: Scene, meta: SceneMeta, state: FrameState, width: int, height: int,
+                 interval: int | None = None, device="cpu"):
+    """Convenience single-frame entry point."""
+    if interval is None:
+        interval = meta.default_interval
+    return build_render_fn(meta, width, height, int(interval), device=device)(scene, state)

@@ -1,0 +1,90 @@
+"""The port's K3 (analytic nearest hit) against the JAX package's Pallas
+kernel in interpret mode.
+
+With 5 or more objects of a kind the JAX kernel walks per-block culled live
+lists in bucket-floor order; the port walks every object in id order. The
+two agree except at exact ties of t (object ids may then differ, at most
+0.1% of lanes).
+
+Tolerances. XLA on the CPU contracts a * b + c into one FMA (about a quarter
+of such products then differ by an ulp); the port rounds twice, as the card
+does under -fmad=false. Near-grazing hits magnify that ulp, and so does the
+cancellation in a far object's object-space hit point. So: t within rtol
+1e-5, normal and uv within 1e-5 (the port forms the spherical UVs itself),
+on 99% (t) and 95% (normal, uv) of the hit lanes, all within 2e-4; and the
+port's 99th-percentile error against a float64 evaluation of the same walk
+is at most twice the JAX kernel's.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch_port_fixtures import assert_mostly_close, t, tie_flip_frac
+
+from relativitypathtracer_tpu.ops import relmath as jrel
+from relativitypathtracer_tpu.ops.pallas import analytic_kernels as jak
+from relativitypathtracer_tpu_torch.ops.kernels import analytic_kernels as pak
+
+
+def _frame_inputs(rng, n_spheres, n_cubes, interval):
+    """Objects in front of the camera, some moving; their frame matrices as
+    the renderer forms them; camera 4-dirs (interval, unit dir)."""
+    G = n_spheres + n_cubes
+    L, inv_m, stat = [], [], []
+    for g in range(G):
+        pos = np.array([rng.uniform(-2.0, 2.0), rng.uniform(-1.5, 1.5),
+                        rng.uniform(3.0, 7.0)], np.float32)
+        m = jrel.trs(pos, np.float32(rng.uniform(0, 3)), rng.normal(size=3).astype(np.float32),
+                     rng.uniform(0.5, 1.2, 3).astype(np.float32))
+        inv_m.append(np.asarray(jrel.inverse4(m)))
+        v = (rng.normal(size=3) * 0.2).astype(np.float32) if g % 2 else np.zeros(3, np.float32)
+        L.append(np.asarray(jrel.lorentz(v)))
+        stat.append(np.zeros(4, np.float32))
+    L, inv_m, stat = np.stack(L), np.stack(inv_m), np.stack(stat)
+    n = 4096
+    d = rng.normal(size=(3, n)).astype(np.float32) * 0.35
+    d[2] = 1.0
+    d /= np.linalg.norm(d, axis=0)
+    dir4 = np.concatenate([np.full((1, n), float(interval), np.float32), d])
+    return L, inv_m, stat, dir4
+
+
+@pytest.mark.parametrize("n_spheres,n_cubes,interval", [
+    (1, 0, -1),  # the slice: one light sphere
+    (6, 2, -1),  # spheres through the JAX culled walk
+    (2, 7, 0),  # cubes through the JAX culled walk, interval 0
+    (5, 5, -1),  # both kinds culled
+], ids=["one_sphere", "spheres_culled", "cubes_culled", "both_culled"])
+def test_analytic_nearest_matches_interpret_kernel(n_spheres, n_cubes, interval):
+    rng = np.random.default_rng(100 + n_spheres * 10 + n_cubes)
+    L, inv_m, stat, dir4 = _frame_inputs(rng, n_spheres, n_cubes, interval)
+    ids = tuple(range(n_spheres + n_cubes))
+    params = np.asarray(jak.pack_analytic_params(jnp.asarray(L), jnp.asarray(inv_m),
+                                                 jnp.asarray(stat), ids))
+    pparams = pak.pack_analytic_params(t(L), t(inv_m), t(stat), ids)
+    np.testing.assert_allclose(pparams.numpy(), params, rtol=1e-6, atol=1e-6)
+
+    jt, jn, juv, jo = (np.asarray(x) for x in jak.analytic_nearest_shared(
+        params, dir4, n_spheres, n_cubes, interval, interpret=True))
+    pt_, pn, puv, po = (x.numpy() for x in pak.analytic_nearest_shared(
+        t(params), t(dir4), n_spheres, n_cubes))
+    hit = jt < 1e19
+    assert hit.any() and not hit.all()
+    assert np.array_equal(pt_ < 1e19, hit)
+    assert tie_flip_frac(po[hit], jo[hit]) <= 1e-3
+    same = hit & (po == jo)
+    assert_mostly_close(pt_[same], jt[same], 1e-5, 0.01, 2e-4, rel=True)
+    assert_mostly_close(pn[:, same], jn[:, same], 1e-5, 0.05, 2e-4)
+    assert_mostly_close(puv[:, same], juv[:, same], 1e-5, 0.05, 2e-4)
+    assert np.all(po[~hit] == 0) and np.all(pn[:, ~hit] == 0.0)
+
+    # Accuracy against the same walk in float64: the port's typical error is
+    # of the JAX kernel's size.
+    qt, qn, quv, qo = (x.numpy() for x in pak.analytic_nearest_plain(
+        t(params, torch.float64), t(dir4, torch.float64), n_spheres, n_cubes))
+    ok = same & (qo == jo)
+    for got, want, ref in ((pt_, jt, qt), (pn, jn, qn), (puv, juv, quv)):
+        err_port = np.percentile(np.abs(got[..., ok] - ref[..., ok]), 99)
+        err_jax = np.percentile(np.abs(want[..., ok] - ref[..., ok]), 99)
+        assert err_port <= 2.0 * err_jax + 1e-6, (err_port, err_jax)

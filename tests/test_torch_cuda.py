@@ -1,0 +1,202 @@
+"""The port's CUDA kernels against their plain PyTorch twins, on the card.
+
+Marked `cuda`: each test asks the `cuda` fixture for the device and skips
+where there is none, so this file passes nothing on a CPU-only host. It
+imports no JAX. On a machine with an NVIDIA GPU (and no JAX) run it with
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+Kernel and twin run the same fp32 operations in the same order (the kernels
+are built with -fmad=false), so they agree to the last bit except where a
+library function differs (atan2/asin in the spherical UVs) and at exact ties.
+"""
+
+import numpy as np
+import pytest
+import torch
+from torch_port_fixtures import soup
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def fixture_scene(cuda, tmp_path_factory):
+    import relativitypathtracer_tpu_torch as pt
+    from relativitypathtracer_tpu_torch.utils.demo_scene import write_demo_scene
+
+    host = pt.load_scene_file(write_demo_scene(str(tmp_path_factory.mktemp("fx")), 3))
+    return host, pt.build_scene(host, device=cuda)
+
+
+def _launches(name):
+    from relativitypathtracer_tpu_torch.ops.kernels import _build
+
+    return _build.LAUNCHES[name]
+
+
+def _soup_lists(dev, shadow: bool, T=600, n=8192, seed=0):
+    from relativitypathtracer_tpu_torch.ops import mesh_intersect as mi
+    from relativitypathtracer_tpu_torch.ops.kernels import mesh_kernels as mk
+    from relativitypathtracer_tpu_torch.models.scene import MeshArrays
+
+    rng = np.random.default_rng(seed)
+    verts, tri_v = soup(rng, T)
+    mesh = MeshArrays(torch.as_tensor(verts, device=dev), torch.as_tensor(tri_v, device=dev),
+                      *([None] * 11))
+    perm = torch.arange(T, device=dev)
+    T_pad = mi.padded_tri_count(T)
+    A, B, C = mi.mesh_tri_vertices(mesh, perm)
+    spheres = mk.chunk_spheres(A, B, C, T_pad)
+    d = torch.as_tensor(rng.normal(size=(3, n)), dtype=torch.float32, device=dev)
+    if not shadow:
+        d[2] = d[2].abs() + 0.5
+        d = d / d.norm(dim=0)
+        ro = torch.tensor([0.0, 0.0, -6.0], device=dev)
+        consts, c_t, _, _ = mi.shared_origin_constants(mesh, ro, perm)
+        order, minds, counts = mk.live_chunk_lists(spheres, d, ro[:, None].expand(3, n))
+        lo, hi = mk._box_of(spheres)
+        attrs = torch.as_tensor(rng.normal(size=(T_pad, 15)), dtype=torch.float32, device=dev)
+        return (order, minds, counts, torch.cat([lo, hi, ro]), mk.shared_tri_rows(consts, c_t),
+                attrs, d.contiguous())
+    d = d / d.norm(dim=0)
+    o = torch.as_tensor(rng.uniform(-3, 3, (3, n)), dtype=torch.float32, device=dev)
+    r10 = torch.cat([d, torch.linalg.cross(o, d, dim=0), o, torch.ones_like(d[:1])]).contiguous()
+    valid = torch.as_tensor(rng.uniform(size=n) > 0.2, device=dev)
+    tmax = torch.where(valid, torch.as_tensor(rng.uniform(1, 9, n), dtype=torch.float32,
+                                              device=dev), 0.0)
+    tcut = torch.where(valid, torch.clamp(tmax * 0.999 - 1e-3, min=0.0), 0.0)
+    tmax2 = torch.stack([tmax, tcut]).contiguous()
+    lo, hi = mk._box_of(spheres)
+    order, minds, counts = mk.live_chunk_lists(
+        spheres, r10[0:3], r10[6:9], valid=valid,
+        lane_bound=mk._general_lane_bound(tmax, r10, lo, hi))
+    cols = mi.general_ray_constants(mesh, perm)
+    return (order, minds, counts, torch.cat([lo, hi]), mk.general_tri_rows(cols), r10, tmax2)
+
+
+def test_shared_walk_kernel_matches_twin(cuda):
+    from relativitypathtracer_tpu_torch.ops.kernels import mesh_kernels as mk
+
+    args = _soup_lists(cuda, shadow=False)
+    before = _launches("rpt_shared_walk")
+    gt, gu, gv, gtri, gattr = mk.shared_walk(*args)
+    torch.cuda.synchronize()
+    assert _launches("rpt_shared_walk") == before + 1
+    wt, wu, wv, wtri, wattr = mk.shared_walk_plain(*args)
+    hit = wtri >= 0
+    assert hit.any() and torch.equal(gtri >= 0, hit)
+    assert float((gtri != wtri).float().mean()) <= 1e-3
+    same = hit & (gtri == wtri)
+    for g, w in ((gt, wt), (gu, wu), (gv, wv)):
+        torch.testing.assert_close(g[same], w[same], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(gattr[:, same], wattr[:, same], rtol=0, atol=1e-4)
+
+
+def test_general_walk_kernel_matches_twin(cuda):
+    from relativitypathtracer_tpu_torch.ops.kernels import mesh_kernels as mk
+
+    args = _soup_lists(cuda, shadow=True)
+    got = mk.general_walk(*args)
+    want = mk.general_walk_plain(*args)
+    tmax = args[6][0]
+    rel = tmax > 0
+    assert torch.equal((got >= tmax)[rel], (want >= tmax)[rel])
+    assert bool((got <= tmax).all())
+    assert int((want < tmax)[rel].sum()) > 50 and int((want >= tmax)[rel].sum()) > 50
+
+
+@pytest.mark.parametrize("n_spheres,n_cubes", [(1, 0), (6, 5)])
+def test_analytic_kernel_matches_twin(cuda, n_spheres, n_cubes):
+    from relativitypathtracer_tpu_torch.ops import relmath
+    from relativitypathtracer_tpu_torch.ops.kernels import analytic_kernels as ak
+
+    rng = np.random.default_rng(n_spheres + 10 * n_cubes)
+    G = n_spheres + n_cubes
+    pos = np.stack([rng.uniform(-2, 2, G), rng.uniform(-1.5, 1.5, G), rng.uniform(3, 7, G)], 1)
+    m = torch.stack([relmath.trs(p.astype(np.float32), np.float32(rng.uniform(0, 3)),
+                                 rng.normal(size=3).astype(np.float32),
+                                 rng.uniform(0.5, 1.2, 3).astype(np.float32)) for p in pos])
+    vel = torch.as_tensor(rng.normal(size=(G, 3)) * 0.2, dtype=torch.float32)
+    L, inv_m = relmath.lorentz(vel).to(cuda), relmath.inverse4(m).to(cuda)
+    params = ak.pack_analytic_params(L, inv_m, torch.zeros((G, 4), device=cuda), tuple(range(G)))
+    n = 65536
+    d = torch.as_tensor(rng.normal(size=(3, n)) * 0.35, dtype=torch.float32, device=cuda)
+    d[2] = 1.0
+    dir4 = torch.cat([torch.full((1, n), -1.0, device=cuda), d / d.norm(dim=0)]).contiguous()
+    gt, gn, guv, go = ak.analytic_nearest_shared(params, dir4, n_spheres, n_cubes)
+    wt, wn, wuv, wo = ak.analytic_nearest_plain(params, dir4, n_spheres, n_cubes)
+    hit = wt < 1e19
+    assert hit.any() and torch.equal(gt < 1e19, hit)
+    assert float((go != wo).float().mean()) <= 1e-3
+    same = hit & (go == wo)
+    torch.testing.assert_close(gt[same], wt[same], rtol=1e-5, atol=0)
+    torch.testing.assert_close(gn[:, same], wn[:, same], rtol=0, atol=1e-5)
+    torch.testing.assert_close(guv[:, same], wuv[:, same], rtol=0, atol=1e-5)
+
+
+def test_shadow_chain_kernel_matches_twin(cuda):
+    from relativitypathtracer_tpu_torch.ops import relmath
+    from relativitypathtracer_tpu_torch.ops.kernels import shadow_chain as sc
+
+    rng = np.random.default_rng(3)
+    O, n, light = 3, 65536, 2
+    vel = torch.as_tensor(rng.normal(size=(O, 3)) * 0.25, dtype=torch.float32)
+    vel[light] = 0.0
+    L, inv_L = relmath.lorentz(vel), relmath.lorentz(-vel)
+    stat = relmath.transform4(L, torch.tensor([[0.3, 0.1, 0.0, 0.2]]))
+    mats = sc.pack_chain_mats(L, inv_L, stat).to(cuda)
+    row = sc.pack_light_row(L[light], inv_L[light], torch.tensor([0.5, 2.0, 4.0])).to(cuda)
+    d = torch.as_tensor(rng.normal(size=(3, n)) * 0.4, dtype=torch.float32)
+    d[2] = 1.0
+    dir4 = torch.cat([torch.full((1, n), -1.0), d / d.norm(dim=0)]).to(cuda)
+    t = torch.as_tensor(rng.uniform(2, 8, n), dtype=torch.float32)
+    t[torch.as_tensor(rng.uniform(size=n) < 0.2)] = 1e20
+    nrm = torch.as_tensor(rng.normal(size=(3, n)), dtype=torch.float32)
+    nrm = (nrm / nrm.norm(dim=0)).to(cuda)
+    obj = torch.as_tensor(rng.integers(0, O, n), dtype=torch.int32).to(cuda)
+    args = (mats, row, dir4, t.to(cuda), nrm, obj, -1)
+    got, want = sc.shadow_chain(*args), sc.shadow_chain_plain(*args)
+    rel = (args[3] < 1e20) & (obj != light) & (want[2] > 0)
+    assert int(rel.sum()) > n // 4
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g[..., rel], w[..., rel], rtol=1e-5, atol=1e-6)
+
+
+def test_card_frame_matches_cpu_frame(cuda, fixture_scene):
+    """The fixture at 256x192, moving camera: the card's frame (the four
+    kernels) against the port's CPU frame (their twins), parity rule."""
+    import relativitypathtracer_tpu_torch as pt
+
+    host, (scene, meta) = fixture_scene
+    state = ((0.3, 0.0, 0.4), (0.7, 0.0, 0.0, 0.0))
+    card = pt.build_render_fn(meta, 256, 192, -1, with_aux=True, device=cuda)
+    img, aux = card(scene, pt.FrameState(torch.tensor(state[0], device=cuda),
+                                         torch.tensor(state[1], device=cuda)))
+    cpu_scene, cpu_meta = pt.build_scene(host)
+    ref, ref_aux = pt.build_render_fn(cpu_meta, 256, 192, -1, with_aux=True)(
+        cpu_scene, pt.FrameState(torch.tensor(state[0]), torch.tensor(state[1])))
+    diff = (img.cpu() - ref).abs().amax(dim=-1)
+    assert float((diff > 1e-3).float().mean()) <= 0.002
+    assert int(aux["hits"]) > 0 and int(aux["shadow_rays"]) > 0
+
+
+def test_wrapper_checks_dtype_and_shape(cuda):
+    from relativitypathtracer_tpu_torch.ops.kernels import shadow_chain as sc
+
+    n = 64
+    args = [torch.zeros((40, 2), device=cuda), torch.zeros((1, 36), device=cuda),
+            torch.zeros((4, n), device=cuda), torch.zeros(n, device=cuda),
+            torch.zeros((3, n), device=cuda), torch.zeros(n, dtype=torch.int64, device=cuda), -1]
+    with pytest.raises(TypeError):
+        sc.shadow_chain(*args)
+    args[5] = torch.zeros(n, dtype=torch.int32, device=cuda)
+    args[1] = torch.zeros((1, 35), device=cuda)
+    with pytest.raises(ValueError):
+        sc.shadow_chain(*args)

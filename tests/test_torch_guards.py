@@ -1,0 +1,89 @@
+"""Guards of the port: it imports without JAX, chip_smoke.py has no CPU
+fallback, and the CLI renders through the entry points a user calls."""
+
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _env(**extra):
+    env = dict(os.environ, PYTHONPATH=str(REPO), **extra)
+    env.pop("XLA_FLAGS", None)
+    return env
+
+
+def test_port_imports_without_jax():
+    code = ("import sys, relativitypathtracer_tpu_torch, relativitypathtracer_tpu_torch.cli, "
+            "relativitypathtracer_tpu_torch.utils.demo_scene; "
+            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+            "or m.startswith('relativitypathtracer_tpu.') or m == 'relativitypathtracer_tpu'); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_port_sources_name_no_jax_import():
+    for path in (REPO / "relativitypathtracer_tpu_torch").rglob("*.py"):
+        for line in path.read_text().splitlines():
+            s = line.strip()
+            assert not (s.startswith(("import jax", "from jax"))
+                        or "relativitypathtracer_tpu." in s and s.startswith(("import", "from"))
+                        or s.startswith("from relativitypathtracer_tpu import")), (path, line)
+
+
+def test_chip_smoke_fails_without_a_card():
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                          env=_env(CUDA_VISIBLE_DEVICES=""), capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+def test_cli_renders_the_fixture_on_cpu(tmp_path):
+    from relativitypathtracer_tpu_torch.utils.demo_scene import write_demo_scene
+
+    scene = write_demo_scene(str(tmp_path), 2)
+    out = tmp_path / "frame.png"
+    proc = subprocess.run(
+        [sys.executable, "-m", "relativitypathtracer_tpu_torch.cli", "--scene", scene,
+         "--size", "64x48", "--frames", "2", "--velocity", "0.5,0,0", "--out", str(out),
+         "--metrics", "--device", "cpu"],
+        cwd=REPO, env=_env(), capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    metrics = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert metrics["frames"] == 2 and metrics["device"] == "cpu"
+    assert metrics["rays_last_frame"] > 64 * 48
+    assert out.stat().st_size > 0
+
+
+def test_wrappers_never_fall_back_off_the_cpu():
+    """A wrapper takes its plain twin only for CPU tensors: any other device
+    either launches the CUDA kernel or raises (here, meta tensors raise
+    before any build or launch)."""
+    from relativitypathtracer_tpu_torch.ops.kernels import (
+        analytic_kernels, mesh_kernels, shadow_chain)
+
+    def m(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    i32 = torch.int32
+    calls = [
+        lambda: mesh_kernels.shared_walk(m(1, 4, dtype=i32), m(1, 4), m(1, dtype=i32), m(9),
+                                         m(128, 10), m(128, 15), m(3, 1024)),
+        lambda: mesh_kernels.general_walk(m(1, 4, dtype=i32), m(1, 4), m(1, dtype=i32), m(6),
+                                          m(128, 20), m(10, 1024), m(2, 1024)),
+        lambda: analytic_kernels.analytic_nearest_shared(m(1, 32), m(4, 64), 1, 0),
+        lambda: shadow_chain.shadow_chain(m(40, 2), m(1, 36), m(4, 64), m(64), m(3, 64),
+                                          m(64, dtype=i32), -1),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="CUDA device"):
+            call()

@@ -1,0 +1,226 @@
+"""The port's mesh walks (K5, K6) and their live-chunk lists against the JAX
+package's Pallas kernels in interpret mode, on a random soup and on the
+fixture. The port's plain twins are what a CPU tensor runs.
+
+Tolerances: t rtol 1e-5; triangle ids equal except tie flips (at most 0.1%
+of lanes); attributes atol 1e-4 (the TPU selects them through hi/lo bf16
+products, about |x| * 2^-16; the port loads the fp32 row); shadow walks by
+their lit mask, never raw t (a retired lane may return any hit below tcut).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch_port_fixtures import build_both, soup, t, tie_flip_frac, write_fixture
+
+from relativitypathtracer_tpu.models.scene import MeshArrays as JMeshArrays
+from relativitypathtracer_tpu.ops import mesh_intersect as jmi
+from relativitypathtracer_tpu.ops.pallas import mesh_kernels as jmk
+from relativitypathtracer_tpu_torch.ops import mesh_intersect as pmi
+from relativitypathtracer_tpu_torch.ops.kernels import mesh_kernels as pmk
+
+
+def _soup_mesh(rng, T):
+    """A random soup as the JAX package's MeshArrays (no octree)."""
+    verts, tri_v = soup(rng, T)
+    z = np.zeros((T, 3), np.int32)
+    return JMeshArrays(verts, tri_v, z, z, np.zeros((1, 2), np.float32),
+                       np.ones((1, 3), np.float32), *([None] * 7))
+
+
+@pytest.fixture(scope="module")
+def fixture_scenes(tmp_path_factory):
+    return build_both(write_fixture(tmp_path_factory, 3))
+
+
+def _shared_inputs(rng, T=300, n=3072):
+    """Soup constants from the JAX package (fed to both), rays from (0, 0, -6)."""
+    jmesh = _soup_mesh(rng, T)
+    ro = np.array([0.0, 0.0, -6.0], np.float32)
+    d = rng.normal(size=(3, n)).astype(np.float32)
+    d[2] = np.abs(d[2]) + 0.5
+    d /= np.linalg.norm(d, axis=0)
+    perm = jnp.arange(T, dtype=jnp.int32)
+    consts, c_t, _, T_pad = jmi.shared_origin_constants(jmesh, (0, T), jnp.asarray(ro), perm)
+    A, B, C = jmi.mesh_tri_vertices(jmesh, (0, T), perm)
+    spheres = jmk.chunk_spheres(A, B, C, T, T_pad)
+    rng2 = np.random.default_rng(99)
+    attrs = rng2.normal(size=(T_pad, 15)).astype(np.float32)
+    return [np.asarray(x) for x in (consts, c_t, spheres)] + [attrs, d, ro]
+
+
+def _compare_shared(consts, c_t, spheres, attrs, d, ro):
+    want = jmk.shared_nearest_hit(consts, c_t, attrs, spheres, d, ro, interpret=True)
+    jt, ju, jv, jtri, jattr = (np.asarray(x) for x in want)
+    pt_, pu, pv, ptri, pattr = (x.numpy() for x in pmk.shared_nearest_hit(
+        t(consts), t(c_t), t(attrs), t(spheres), t(d), t(ro)))
+    hit = jtri >= 0
+    assert hit.any() and np.array_equal(ptri >= 0, hit)
+    same = ptri == jtri
+    assert tie_flip_frac(ptri, jtri) <= 1e-3
+    np.testing.assert_allclose(pt_[hit], jt[hit], rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(pu[same & hit], ju[same & hit], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(pv[same & hit], jv[same & hit], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(pattr[:, same], jattr[:, same], atol=1e-4)
+    assert np.all(pattr[:, ~hit] == 0.0)
+
+
+def test_shared_walk_matches_interpret_kernel_on_soup():
+    _compare_shared(*_shared_inputs(np.random.default_rng(7)))
+
+
+def test_shared_walk_matches_interpret_kernel_on_fixture(fixture_scenes):
+    """The fixture's mesh seen from its camera event at 64x48 rays."""
+    (js, jm), (ps, pm) = fixture_scenes
+    static = js.mesh_static[0]
+    perm = jnp.asarray(jm.mesh_perms[0], jnp.int32)
+    ro = np.array([-1.0, 0.1, -3.0], np.float32) / 1.25
+    rng = np.random.default_rng(8)
+    d = rng.normal(size=(3, 3072)).astype(np.float32) * 0.25
+    d[2] = 1.0
+    d /= np.linalg.norm(d, axis=0)
+    consts, c_t, _, _ = jmi.shared_origin_constants(js.mesh, (0, 0), jnp.asarray(ro), perm)
+    _compare_shared(np.asarray(consts), np.asarray(c_t), np.asarray(static.spheres),
+                    np.asarray(static.attrs), d, ro)
+
+
+def test_mesh_constants_match_jax(fixture_scenes):
+    (js, jm), (ps, pm) = fixture_scenes
+    ro = np.array([0.3, -0.2, -2.5], np.float32)
+    jperm = jnp.asarray(jm.mesh_perms[0], jnp.int32)
+    pperm = torch.as_tensor(pm.mesh_perms[0])
+    jc, jct, jT, jTp = jmi.shared_origin_constants(js.mesh, (0, 0), jnp.asarray(ro), jperm)
+    pc, pct, pT, pTp = pmi.shared_origin_constants(ps.mesh, t(ro), pperm)
+    assert (pT, pTp) == (jT, jTp) == (1280, 1280)
+    np.testing.assert_allclose(pc.numpy(), np.asarray(jc), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(pct.numpy(), np.asarray(jct), rtol=1e-6, atol=1e-6)
+    jA = jmi.mesh_tri_vertices(js.mesh, (0, 0), jperm)
+    pA = pmi.mesh_tri_vertices(ps.mesh, pperm)
+    for a, b in zip(pA, jA):
+        assert np.array_equal(a.numpy(), np.asarray(b))
+    assert np.array_equal(pmi.tri_attr_matrix(ps.mesh, pperm, 1280).numpy(),
+                          np.asarray(jmi.tri_attr_matrix(js.mesh, (0, 0), 1280, jperm)))
+    assert np.array_equal(pmi.general_ray_constants(ps.mesh, pperm).numpy(),
+                          np.asarray(jmi.general_ray_constants(js.mesh, (0, 0), jperm)[0]))
+
+
+def _lists_inputs(rng, shadow: bool, n=4096):
+    verts, tri_v = soup(rng, 300)
+    A, B, C = (verts[tri_v[:, k]] for k in range(3))
+    spheres = np.asarray(jmk.chunk_spheres(A, B, C, 300, 512))
+    if not shadow:
+        d = rng.normal(size=(3, n)).astype(np.float32)
+        d[2] = np.abs(d[2]) + 0.5
+        d /= np.linalg.norm(d, axis=0)
+        o = np.broadcast_to(np.array([[0.0], [0.0], [-6.0]], np.float32), (3, n)).copy()
+        return spheres, d, o, None, None
+    o = rng.uniform(-3, 3, (3, n)).astype(np.float32)
+    d = rng.normal(size=(3, n)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=0)
+    valid = rng.uniform(size=n) > 0.3
+    valid[:256] = False  # two all-masked sub-cones
+    bound = np.where(valid, rng.uniform(0.2, 5.0, n), 0.0).astype(np.float32)
+    return spheres, d, o, valid, bound
+
+
+@pytest.mark.parametrize("shadow", [False, True], ids=["shared", "shadow"])
+def test_live_chunk_lists_match_jax(shadow):
+    """counts and the live set exact; order and minds too where the floors
+    agree (a 1-ulp difference of a cone reduction may move a chunk across a
+    bucket edge; that stays below 1% of live entries)."""
+    spheres, d, o, valid, bound = _lists_inputs(np.random.default_rng(9), shadow)
+    jo, jmn, jc = (np.asarray(x) for x in jmk.live_chunk_lists(
+        spheres, d, o, valid=None if valid is None else jnp.asarray(valid),
+        lane_bound=None if bound is None else jnp.asarray(bound)))
+    po, pmn, pc = pmk.live_chunk_lists(
+        t(spheres), t(d), t(o), valid=None if valid is None else t(valid),
+        lane_bound=None if bound is None else t(bound))
+    jo, jmn, jc = jo[:, 0, :], jmn[:, 0, :], jc[:, 0, 0]
+    po, pmn, pc = po.numpy(), pmn.numpy(), pc.numpy()
+    assert np.array_equal(pc, jc) and jc.sum() > 0
+    live = np.arange(jo.shape[1])[None, :] < jc[:, None]
+    for b in range(jo.shape[0]):
+        assert set(po[b, live[b]]) == set(jo[b, live[b]])
+    assert np.mean(po[live] != jo[live]) <= 0.01
+    rows = np.arange(jo.shape[0])[:, None]
+    np.testing.assert_allclose(pmn[rows, po][live], jmn[rows, jo][live], rtol=1e-6, atol=1e-6)
+
+
+def test_bucket_order_scatter_inversion_equals_one_hot():
+    """The port inverts the counting-sort permutation with scatter_; the JAX
+    package with a (B, C, C) one-hot sum. Same mind/overlap -> same lists."""
+    rng = np.random.default_rng(10)
+    mind = rng.uniform(0.0, 5.0, (24, 40)).astype(np.float32)
+    mind[3] = 1.0  # all ties: stable order by chunk id
+    overlap = rng.uniform(size=(24, 40)) > 0.4
+    overlap[5] = False  # a block with nothing live
+    jo, jk, jc = (np.asarray(x) for x in jmk.bucket_order(jnp.asarray(mind),
+                                                          jnp.asarray(overlap)))
+    po, pk, pc = pmk.bucket_order(t(mind), t(overlap))
+    assert np.array_equal(po.numpy(), jo[:, 0, :])
+    assert np.array_equal(pc.numpy(), jc[:, 0, 0])
+    np.testing.assert_array_equal(pk.numpy(), jk[:, 0, :])
+
+
+def _general_inputs(rng, T=200, n=3072):
+    jmesh = _soup_mesh(rng, T)
+    perm = jnp.arange(T, dtype=jnp.int32)
+    cols, _, T_pad = jmi.general_ray_constants(jmesh, (0, T), perm)
+    A, B, C = jmi.mesh_tri_vertices(jmesh, (0, T), perm)
+    spheres = jmk.chunk_spheres(A, B, C, T, T_pad)
+    o = rng.uniform(-3, 3, (3, n)).astype(np.float32)
+    d = rng.normal(size=(3, n)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=0)
+    mom = np.cross(o.T, d.T).T.astype(np.float32)
+    r10 = np.concatenate([d, mom, o, np.ones((1, n), np.float32)]).astype(np.float32)
+    tmax = rng.uniform(1.0, 9.0, n).astype(np.float32)
+    valid = rng.uniform(size=n) > 0.2
+    tmax = np.where(valid, tmax, 0.0).astype(np.float32)
+    tcut = np.where(valid, np.maximum(tmax * 0.999 - 1e-3, 0.0), 0.0).astype(np.float32)
+    return np.asarray(cols), np.asarray(spheres), r10, tmax, valid, tcut
+
+
+def test_general_walk_matches_interpret_kernel_lit_mask():
+    cols, spheres, r10, tmax, valid, tcut = _general_inputs(np.random.default_rng(11))
+    want = np.asarray(jmk.general_min_t(cols, spheres, r10, jnp.asarray(tmax),
+                                        valid=jnp.asarray(valid), tcut_obj=jnp.asarray(tcut),
+                                        interpret=True))
+    got = pmk.general_min_t(t(cols), t(spheres), t(r10), t(tmax), t(valid), t(tcut)).numpy()
+    lit_w, lit_g = want >= tmax, got >= tmax
+    assert np.array_equal(lit_g[valid], lit_w[valid])
+    assert lit_w[valid].sum() > 50 and (~lit_w[valid]).sum() > 50  # both verdicts occur
+    assert np.all(got <= tmax)  # the result is min(hit, tmax)
+
+
+def test_general_walk_exact_below_tcut_free_lanes():
+    """With tcut 0 (no retirement) the walk is an exact bounded min-t."""
+    cols, spheres, r10, tmax, valid, _ = _general_inputs(np.random.default_rng(12))
+    zero = np.zeros_like(tmax)
+    want = np.asarray(jmk.general_min_t(cols, spheres, r10, jnp.asarray(tmax),
+                                        valid=jnp.asarray(valid), tcut_obj=jnp.asarray(zero),
+                                        interpret=True))
+    got = pmk.general_min_t(t(cols), t(spheres), t(r10), t(tmax), t(valid), t(zero)).numpy()
+    np.testing.assert_allclose(got[valid], want[valid], rtol=1e-5, atol=1e-6)
+
+
+def test_mesh_min_t_general_matches_jax_jnp_truth(fixture_scenes):
+    """Shadow rays from points around the fixture mesh: the port's bounded
+    walk agrees with the JAX package's unculled jnp scan on every verdict."""
+    (js, jm), (ps, pm) = fixture_scenes
+    rng = np.random.default_rng(13)
+    n = 2048
+    m4, inv_m = np.asarray(js.objects.m[0]), np.asarray(js.objects.inv_m[0])
+    o = (m4[:3, 3][:, None] + rng.normal(size=(3, n)) * 1.6).astype(np.float32)
+    d = rng.normal(size=(3, n)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=0)
+    tmax = np.where(rng.uniform(size=n) > 0.1, rng.uniform(0.5, 4.0, n), 0.0).astype(np.float32)
+    truth = np.asarray(jmi.mesh_min_t_general(
+        js.mesh, (0, 0), m4, inv_m, o, d, use_pallas=False,
+        perm=jnp.asarray(jm.mesh_perms[0], jnp.int32)))
+    got = pmi.mesh_min_t_general(ps.mesh, t(m4), t(inv_m), t(o), t(d),
+                                 torch.as_tensor(pm.mesh_perms[0]), ps.mesh_static[0],
+                                 t(tmax)).numpy()
+    rel = tmax > 0
+    assert np.array_equal((got >= tmax)[rel], (truth >= tmax)[rel])
+    assert 0.05 < (truth < tmax)[rel].mean() < 0.95
