@@ -4,31 +4,44 @@
 Run from the repository root:  python3 chip_smoke.py
 
 It needs a CUDA device and nvcc, and fails (non-zero exit, no result line)
-without them. In order it:
-  1. builds the port's CUDA kernels from relativitypathtracer_tpu_torch/csrc;
-  2. writes the procedural fixture (utils/demo_scene, subdivision level 4:
-     one 5,120-triangle mesh moving at 0.5c and one light sphere) and loads it
-     through load_scene_file -> build_scene(device="cuda") -> build_render_fn
-     at 1024x768, interval -1 (light propagation and shadows on);
-  3. renders 3 frames with advancing time, the last with the camera moving at
-     0.5c, and checks the image and the counts, and that each of the path's
-     four kernels (K1 shadow chain, K3 analytic nearest hit, K5 mesh primary
-     walk, K6 mesh shadow walk) was launched;
-  4. runs each kernel against its plain PyTorch twin, both on the card, on
-     the inputs the first frame gave it, and times both (CUDA events,
-     median of 20 runs);
-  5. renders the same frame with the port on the CPU (the plain twins) and
+without them. It builds the port's CUDA kernels from
+relativitypathtracer_tpu_torch/csrc, then drives three paths, each a
+procedural fixture (utils/demo_scene) loaded through load_scene_file ->
+build_scene -> build_render_fn at 1024x768, interval -1 (light propagation
+and shadows on):
+  blob      one untextured 5,120-triangle mesh moving at 0.5c and a light
+            sphere: K1 shadow chain, K3 analytic nearest hit, K5 mesh
+            primary walk, K6 mesh shadow walk;
+  textured  the same mesh with a 32x32 texture (512-row footprint atlas),
+            bench.py's main path: K1, K2 footprint fetch, K3, K5, K6;
+  cubes     nine cubes (eight sharing a 256x256 texture, a 32,768-row
+            atlas, one row moving at 0.6c), a floor cube and a light
+            sphere: K1, K3, K7 analytic occlusion, K8 footprint fetch.
+For each path it:
+  1. renders 3 frames with advancing time, the last with the camera moving
+     at 0.5c, with every launch count set to 0 just before and read just
+     after, and checks the image, the counts, and that each of the path's
+     kernels was launched;
+  2. runs each kernel against its plain PyTorch twin, both on the card, on
+     the inputs the first frame gave it, and times both (CUDA events, median
+     of 20 runs; the kernel's launches replayed from a CUDA graph, each on
+     its own copy of the inputs so that none is in L2 when its launch comes,
+     so its time is the device's from memory); computes each kernel's bound
+     from those inputs;
+  3. renders the last frame with the port on the CPU (the plain twins) and
      holds the card's frame to it under the parity rule (at most 0.2% of
-     pixels off by more than 1e-3);
-  6. times the frame (p50/p95 over 60 frames after warm-up, CUDA events) and
-     reports Mrays/s counting primary plus shadow rays.
-It prints the kernels' JSON line, the card's name and power limit, and as
-its last line {"ok": true, "device": {...}}. Any failed check raises.
+     pixels off by more than 1e-3); the blob path at 512x384;
+  4. times the frame (p50/p95 over 60 frames after 5 warm-up frames, CUDA
+     events) and reports Mrays/s counting primary plus shadow rays.
+Last, it renders the textured path at msaa 2, 512x384, and holds it to its
+CPU frame. It prints the kernels' JSON line, the card's name and power limit,
+and as its last line {"ok": true, "device": {...}}. Any failed check raises.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -37,16 +50,33 @@ import time
 WIDTH, HEIGHT = 1024, 768
 LEVEL = 4
 DEVICE = "cuda"
-REPLACES = {  # C entry -> (id, source, TPU kernel it replaces)
-    "rpt_shadow_chain": ("K1", "relativitypathtracer_tpu_torch/csrc/shadow_chain.cu",
-                         "relativitypathtracer_tpu/ops/pallas/shadow_chain.py:50"),
-    "rpt_analytic_nearest": ("K3", "relativitypathtracer_tpu_torch/csrc/analytic_kernels.cu",
-                             "relativitypathtracer_tpu/ops/pallas/analytic_kernels.py:308"),
-    "rpt_shared_walk": ("K5", "relativitypathtracer_tpu_torch/csrc/mesh_kernels.cu",
-                        "relativitypathtracer_tpu/ops/pallas/mesh_kernels.py:514"),
-    "rpt_general_walk": ("K6", "relativitypathtracer_tpu_torch/csrc/mesh_kernels.cu",
-                         "relativitypathtracer_tpu/ops/pallas/mesh_kernels.py:825"),
+INF = 1e20
+PEAK_OPS = 67e12  # H100 SXM fp32 outside the tensor cores, operations/s
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
+L2_BYTES = 50 * 2**20  # H100 L2
+PKG = "relativitypathtracer_tpu_torch/csrc/"
+TPU = "relativitypathtracer_tpu/ops/pallas/"
+# launch-count key -> (id, source, TPU kernel it replaces)
+KERNELS = {
+    "rpt_shadow_chain": ("K1", PKG + "shadow_chain.cu", TPU + "shadow_chain.py:50"),
+    "rpt_footprint_sample/small": ("K2", PKG + "texture_kernels.cu", TPU + "texture_kernel.py:76"),
+    "rpt_analytic_nearest": ("K3", PKG + "analytic_kernels.cu", TPU + "analytic_kernels.py:308"),
+    "rpt_shared_walk": ("K5", PKG + "mesh_kernels.cu", TPU + "mesh_kernels.py:514"),
+    "rpt_general_walk": ("K6", PKG + "mesh_kernels.cu", TPU + "mesh_kernels.py:825"),
+    "rpt_analytic_min_t": ("K7", PKG + "analytic_kernels.cu", TPU + "analytic_kernels.py:521"),
+    "rpt_footprint_sample/windowed": ("K8", PKG + "texture_kernels.cu",
+                                      TPU + "texture_kernel.py:226"),
 }
+PATHS = {  # path -> (demo scene kind, kernels it runs, CPU parity size)
+    "blob": ("blob", ("rpt_shadow_chain", "rpt_analytic_nearest", "rpt_shared_walk",
+                      "rpt_general_walk"), (512, 384)),
+    "textured": ("textured", ("rpt_shadow_chain", "rpt_footprint_sample/small",
+                              "rpt_analytic_nearest", "rpt_shared_walk", "rpt_general_walk"),
+                 (WIDTH, HEIGHT)),
+    "cubes": ("cubes", ("rpt_shadow_chain", "rpt_analytic_nearest", "rpt_analytic_min_t",
+                        "rpt_footprint_sample/windowed"), (WIDTH, HEIGHT)),
+}
+REPORT_FROM = {"K7": "cubes", "K8": "cubes"}  # other kernels report the textured path
 
 
 class CheckFailed(RuntimeError):
@@ -78,172 +108,161 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 2) -> float:
     return times[len(times) // 2]
 
 
-def main() -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this check runs only on an NVIDIA GPU",
-              file=sys.stderr)
-        return 1
-    import relativitypathtracer_tpu_torch as pt
-    from relativitypathtracer_tpu_torch import render as prender
-    from relativitypathtracer_tpu_torch.ops.kernels import _build
-    from relativitypathtracer_tpu_torch.ops.kernels import analytic_kernels as ak
-    from relativitypathtracer_tpu_torch.ops.kernels import mesh_kernels as mk
-    from relativitypathtracer_tpu_torch.ops.kernels import shadow_chain as sc
-    from relativitypathtracer_tpu_torch.utils.demo_scene import write_demo_scene
-
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True).stdout.strip().splitlines()[0]
-    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-
-    t0 = time.perf_counter()
-    lib_path = _build.build()
-    _build.library()
-    log(f"build: {time.perf_counter() - t0:.1f} s -> {lib_path.name}")
-
-    dev = torch.device(DEVICE)
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        host = pt.load_scene_file(write_demo_scene(tmp, LEVEL))
-        scene, meta = pt.build_scene(host, device=dev)
-        log(f"scene: {meta.num_tris} triangles, {len(meta.sphere_ids)} sphere(s), "
-            f"lights {meta.light_ids}, built in {time.perf_counter() - t0:.1f} s")
-    check(meta.num_tris == 20 * 4 ** LEVEL and meta.light_ids, "fixture shape")
-    render = pt.build_render_fn(meta, WIDTH, HEIGHT, -1, with_aux=True, device=dev)
-    states = [
-        pt.FrameState(torch.zeros(3, device=dev), torch.tensor([0.0, 0, 0, 0], device=dev)),
-        pt.FrameState(torch.zeros(3, device=dev), torch.tensor([1 / 30, 0, 0, 0], device=dev)),
-        pt.FrameState(torch.tensor([0.5, 0.0, 0.0], device=dev),
-                      torch.tensor([2 / 30, 0, 0, 0], device=dev)),
-    ]
-
-    # Record each kernel's inputs during the first frame (the wrappers are
-    # looked up through these module attributes on the main path).
-    captured, recording = {}, [True]
-    hooks = [(prender, "shadow_chain", "rpt_shadow_chain"),
-             (prender, "analytic_nearest_shared", "rpt_analytic_nearest"),
-             (mk, "shared_walk", "rpt_shared_walk"),
-             (mk, "general_walk", "rpt_general_walk")]
-    originals = {}
-    for mod, attr, name in hooks:
-        fn = getattr(mod, attr)
-        originals[name] = fn
-
-        def rec(*args, _fn=fn, _name=name):
-            if recording[0] and _name not in captured:
-                captured[_name] = args
-            return _fn(*args)
-
-        setattr(mod, attr, rec)
-
-    # --- the main path: three frames --------------------------------------
+def kernel_ms(torch, fn, args, reps: int = 20) -> float:
+    """Median device milliseconds of one launch of fn(*args), its inputs read
+    from memory: launches captured in one CUDA graph and replayed between
+    two CUDA events, so that the wrapper's host work (argument checks,
+    allocation, the ctypes call) stays out of the interval; each launch reads
+    its own copy of the tensor inputs, with copies enough (at least 10, and
+    together four times the L2) that none is left in L2 when its launch comes
+    round again. A single call bracketed by events measures the host work
+    too, which for a kernel of 10-30 us is as long as the kernel; replaying
+    one set of inputs reads them from L2 where they fit in it."""
+    size = nbytes(*(a for a in args if torch.is_tensor(a)))
+    copies = max(10, math.ceil(4 * L2_BYTES / size))
+    sets = [[a.clone() if torch.is_tensor(a) else a for a in args] for _ in range(copies)]
+    fn(*sets[0])
     torch.cuda.synchronize()
-    _build.LAUNCHES.clear()
-    frames = []
-    for i, st in enumerate(states):
-        img, aux = render(scene, st)
-        if i == 0:
-            recording[0] = False
-        frames.append((img, {k: int(v) for k, v in aux.items()}))
-    torch.cuda.synchronize()
-    launches = dict(_build.LAUNCHES)
-    for mod, attr, name in hooks:
-        setattr(mod, attr, originals[name])
-    log(f"main path launches: {launches}")
-    for img, aux in frames:
-        check(tuple(img.shape) == (HEIGHT, WIDTH, 3), f"image shape {tuple(img.shape)}")
-        check(bool(torch.isfinite(img).all()), "non-finite pixels")
-        check(aux["hits"] > 0 and aux["shadow_rays"] > 0, f"counts {aux}")
-        check(0 < aux["lit_rays"] < aux["shadow_rays"], f"no lit or no occluded lanes: {aux}")
-        log(f"frame: {aux}, mean {float(img.mean()):.6f}")
-    for name in REPLACES:
-        check(launches.get(name, 0) > 0, f"{name} was not launched on the main path")
-        check(name in captured, f"{name}: no inputs captured")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for one in sets:
+            fn(*one)
+    ms = time_ms(torch, graph.replay, reps) / copies
+    del graph, sets
+    return ms
 
-    # --- each kernel against its plain twin, on the card ------------------
-    INF = 1e20
-    results = {}
 
-    def record(name, err, fn, plain):
-        results[name] = {"max_abs_err": err, "ms": time_ms(torch, fn),
-                         "plain_ms": time_ms(torch, plain)}
-        log(f"{name}: max_abs_err {err:.3e}, kernel {results[name]['ms']:.4f} ms, "
-            f"plain {results[name]['plain_ms']:.4f} ms")
+def bound(ops: float, nbytes: float) -> tuple[float, str]:
+    """The least time (ms) the card could take: the larger of operations over
+    the fp32 peak and bytes (each input read once, each output written once)
+    over the memory rate."""
+    t_ops, t_bytes = ops / PEAK_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
-    args = captured["rpt_shadow_chain"]
-    got = originals["rpt_shadow_chain"](*args)
-    want = sc.shadow_chain_plain(*args)
-    light = meta.light_ids[0]
-    relevant = (args[3] < INF) & (args[5] != light) & (want[2] > 0)
-    check(int(relevant.sum()) > 0, "K1: no relevant lanes")
-    err = 0.0
-    for g, w in zip(got, want):
-        check(torch.allclose(g[..., relevant], w[..., relevant], rtol=1e-5, atol=1e-6),
-              "K1 disagrees with its twin")
-        err = max(err, float((g[..., relevant] - w[..., relevant]).abs().max()))
-    record("rpt_shadow_chain", err, lambda: originals["rpt_shadow_chain"](*args),
-           lambda: sc.shadow_chain_plain(*args))
 
-    args3 = captured["rpt_analytic_nearest"]
-    gt, gn, guv, go = originals["rpt_analytic_nearest"](*args3)
-    wt, wn, wuv, wo = ak.analytic_nearest_plain(*args3)
-    hit = wt < INF
-    check(bool(torch.equal(gt < INF, hit)) and int(hit.sum()) > 0, "K3 hit masks")
-    check(float((go[hit] != wo[hit]).float().mean()) <= 1e-3, "K3 object ids")
-    same = hit & (go == wo)
-    check(torch.allclose(gt[same], wt[same], rtol=1e-5), "K3 t")
-    check(torch.allclose(gn[:, same], wn[:, same], atol=1e-5), "K3 normal")
-    check(torch.allclose(guv[:, same], wuv[:, same], atol=1e-5), "K3 uv")
-    err = max(float((gt[same] - wt[same]).abs().max()), float((gn - wn)[:, same].abs().max()),
-              float((guv - wuv)[:, same].abs().max()))
-    record("rpt_analytic_nearest", err, lambda: originals["rpt_analytic_nearest"](*args3),
-           lambda: ak.analytic_nearest_plain(*args3))
+def nbytes(*tensors) -> int:
+    return sum(x.numel() * x.element_size() for x in tensors)
 
-    args5 = captured["rpt_shared_walk"]
-    gt, gu, gv, gtri, gattr = originals["rpt_shared_walk"](*args5)
-    wt, wu, wv, wtri, wattr = mk.shared_walk_plain(*args5)
-    hit = wtri >= 0
-    check(bool(torch.equal(gtri >= 0, hit)) and int(hit.sum()) > 0, "K5 hit masks")
-    check(float((gtri != wtri).float().mean()) <= 1e-3, "K5 triangle ids")
-    same = hit & (gtri == wtri)
-    check(torch.allclose(gt[same], wt[same], rtol=1e-5), "K5 t")
-    check(torch.allclose(gattr[:, same], wattr[:, same], atol=1e-4), "K5 attributes")
-    err = max(float((gt[same] - wt[same]).abs().max()),
-              float((gattr - wattr)[:, same].abs().max()))
-    record("rpt_shared_walk", err, lambda: originals["rpt_shared_walk"](*args5),
-           lambda: mk.shared_walk_plain(*args5))
 
-    args6 = captured["rpt_general_walk"]
-    got6 = originals["rpt_general_walk"](*args6)
-    want6 = mk.general_walk_plain(*args6)
-    tmax = args6[6][0]
-    masked = tmax > 0
-    check(int(masked.sum()) > 0, "K6: no shadow lanes")
-    check(bool(torch.equal((got6 >= tmax)[masked], (want6 >= tmax)[masked])), "K6 lit masks")
-    err = float((got6 - want6).abs().max())
-    record("rpt_general_walk", err, lambda: originals["rpt_general_walk"](*args6),
-           lambda: mk.general_walk_plain(*args6))
-    del captured
+def compare_kernels(torch, pt_mods, meta, captured, originals, names):
+    """Each kernel of `names` against its plain twin on its captured
+    first-frame inputs: checks, error, kernel/plain ms, bound."""
+    ak, mk, sc, tk = pt_mods
+    out = {}
 
-    # --- the card's frame against the port's CPU frame --------------------
+    def record(name, err, fn, args, plain, ops, moved):
+        b_ms, b_by = bound(ops, moved)
+        out[name] = {"max_abs_err": err, "ms": kernel_ms(torch, fn, args),
+                     "plain_ms": time_ms(torch, lambda: plain(*args)), "bound_ms": b_ms,
+                     "bound_by": b_by}
+        log(f"  {name}: max_abs_err {err:.3e}, kernel {out[name]['ms']:.4f} ms (one wrapper "
+            f"call {time_ms(torch, lambda: fn(*args)):.4f} ms), plain "
+            f"{out[name]['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), share "
+            f"{b_ms / out[name]['ms']:.1%}")
+
+    for name in names:
+        args = captured[name]
+        fn = originals[name]
+        if name == "rpt_shadow_chain":
+            got, want = fn(*args), sc.shadow_chain_plain(*args)
+            light = meta.light_ids[0]
+            relevant = (args[3] < INF) & (args[5] != light) & (want[2] > 0)
+            check(int(relevant.sum()) > 0, "K1: no relevant lanes")
+            err = 0.0
+            for g, w in zip(got, want):
+                check(torch.allclose(g[..., relevant], w[..., relevant], rtol=1e-5, atol=1e-6),
+                      "K1 disagrees with its twin")
+                err = max(err, float((g[..., relevant] - w[..., relevant]).abs().max()))
+            n = args[2].shape[1]
+            record(name, err, fn, args, sc.shadow_chain_plain, 150.0 * n,
+                   nbytes(*args[:6]) + 40 * n)
+        elif name == "rpt_analytic_nearest":
+            gt, gn, guv, go = fn(*args)
+            wt, wn, wuv, wo = ak.analytic_nearest_plain(*args)
+            # Same fp32 operations in the same order: t, normal and object id
+            # bit for bit; the spherical uv within 1e-5 (CUDA's atan2f/asinf
+            # and PyTorch's differ in the last bits).
+            check(torch.equal(gt, wt) and torch.equal(gn, wn) and torch.equal(go, wo),
+                  "K3 t, normal or object id differ from its twin")
+            hit = wt < INF
+            check(int(hit.sum()) > 0, "K3: no hits")
+            err = float((guv - wuv)[:, hit].abs().max())
+            check(err <= 1e-5, f"K3 uv off its twin by {err}")
+            n, G = args[1].shape[1], args[0].shape[0]
+            record(name, err, fn, args, ak.analytic_nearest_plain, 60.0 * G * n,
+                   nbytes(args[0], args[1]) + 28 * n)
+        elif name == "rpt_shared_walk":
+            gt, gu, gv, gtri, gattr = fn(*args)
+            wt, wu, wv, wtri, wattr = mk.shared_walk_plain(*args)
+            hit = wtri >= 0
+            check(bool(torch.equal(gtri >= 0, hit)) and int(hit.sum()) > 0, "K5 hit masks")
+            check(float((gtri != wtri).float().mean()) <= 1e-3, "K5 triangle ids")
+            same = hit & (gtri == wtri)
+            check(torch.allclose(gt[same], wt[same], rtol=1e-5), "K5 t")
+            check(torch.allclose(gattr[:, same], wattr[:, same], atol=1e-4), "K5 attributes")
+            err = max(float((gt[same] - wt[same]).abs().max()),
+                      float((gattr - wattr)[:, same].abs().max()))
+            n = args[6].shape[1]
+            tests = float(args[2].sum()) * 32 * 1024  # live chunks x 32 tris x 1024 lanes
+            record(name, err, fn, args, mk.shared_walk_plain, 29.0 * tests,
+                   nbytes(*args) + 76 * n)
+        elif name == "rpt_general_walk":
+            got, want = fn(*args), mk.general_walk_plain(*args)
+            tmax = args[6][0]
+            masked = tmax > 0
+            check(int(masked.sum()) > 0, "K6: no shadow lanes")
+            check(bool(torch.equal((got >= tmax)[masked], (want >= tmax)[masked])),
+                  "K6 lit masks")
+            n, blocks = args[5].shape[1], args[2].shape[0]
+            # live chunks x 32 tris x the block's lanes with tmax > 0: a lane
+            # with tmax == 0 needs no test (its result is min(bt, 0))
+            lanes = masked.reshape(blocks, -1).sum(dim=1)
+            tests = float((args[2].double() * lanes).sum()) * 32
+            record(name, float((got - want).abs().max()), fn, args, mk.general_walk_plain,
+                   47.0 * tests, nbytes(*args) + 4 * n)
+        elif name.startswith("rpt_footprint_sample/"):
+            (got, gq), (want, wq) = fn(*args, with_quads=True), tk.footprint_fetch_plain(*args)
+            check(bool(torch.equal(gq, wq)), f"{name}: the kernel read other atlas rows")
+            err = float((got - want).abs().max())
+            check(err <= 1e-5, f"{name}: RGB off its twin by {err}")
+            n = args[3].shape[1]
+            record(name, err, fn, args, tk.footprint_fetch_plain, 60.0 * n,
+                   nbytes(*args) + 12 * n)
+        elif name == "rpt_analytic_min_t":
+            got, want = fn(*args), ak.analytic_min_t_plain(*args)
+            tmax = args[5]
+            rel = tmax > 0
+            check(int(rel.sum()) > 0, "K7: no shadow lanes")
+            check(bool(torch.equal((got >= tmax)[rel], (want >= tmax)[rel])), "K7 lit masks")
+            occ = rel & (want < tmax)
+            check(int(occ.sum()) > 0, "K7: no occluded lanes")
+            err = float((got[occ] - want[occ]).abs().max())
+            check(torch.allclose(got[occ], want[occ], rtol=1e-5), f"K7 t off by {err}")
+            n, G = tmax.shape[0], args[0].shape[0]
+            record(name, err, fn, args, ak.analytic_min_t_plain, 100.0 * G * float(rel.sum()),
+                   nbytes(args[0], args[1], args[2], tmax) + 4 * n)
+    return out
+
+
+def parity(torch, pt, host, state, card_img, card_aux, size, msaa=1):
+    """Render `state` with the port on the CPU at `size` and hold the card's
+    image to it under the parity rule."""
     t0 = time.perf_counter()
     cpu_scene, cpu_meta = pt.build_scene(host, device="cpu")
-    cpu_render = pt.build_render_fn(cpu_meta, WIDTH, HEIGHT, -1, with_aux=True, device="cpu")
-    cpu_state = pt.FrameState(states[2].cam_velocity.cpu(), states[2].cam_pos.cpu())
-    cpu_img, cpu_aux = cpu_render(cpu_scene, cpu_state)
-    cpu_s = time.perf_counter() - t0
-    card_img, card_aux = frames[2]
+    cpu_render = pt.build_render_fn(cpu_meta, size[0], size[1], -1, msaa, with_aux=True,
+                                    device="cpu")
+    cpu_img, cpu_aux = cpu_render(cpu_scene, pt.FrameState(state.cam_velocity.cpu(),
+                                                           state.cam_pos.cpu()))
     diff = (card_img.cpu() - cpu_img).abs().amax(dim=-1)
     frac_bad = float((diff > 1e-3).float().mean())
-    log(f"card vs CPU frame at {WIDTH}x{HEIGHT}: frac_bad {frac_bad:.6f}, max diff "
-        f"{float(diff.max()):.3e}; CPU {cpu_s:.1f} s, card counts {card_aux}, "
-        f"CPU counts {({k: int(v) for k, v in cpu_aux.items()})}")
+    log(f"  card vs CPU frame at {size[0]}x{size[1]}, msaa {msaa}: frac_bad {frac_bad:.6f}, "
+        f"max diff {float(diff.max()):.3e}; CPU {time.perf_counter() - t0:.1f} s, card counts "
+        f"{({k: int(v) for k, v in card_aux.items()})}, CPU counts "
+        f"{({k: int(v) for k, v in cpu_aux.items()})}")
     check(frac_bad <= 0.002, f"card frame off the CPU frame on {frac_bad:.4%} of pixels")
 
-    # --- frame time --------------------------------------------------------
-    state = states[2]
+
+def frame_time(torch, render, scene, state, card):
     for _ in range(5):
         render(scene, state)
     times = []
@@ -257,17 +276,137 @@ def main() -> int:
     times.sort()
     p50, p95 = times[len(times) // 2], times[int(0.95 * (len(times) - 1))]
     rays = WIDTH * HEIGHT + int(aux["shadow_rays"])
-    log(f"frame {WIDTH}x{HEIGHT} on {card}: p50 {p50:.3f} ms, p95 {p95:.3f} ms, "
+    log(f"  frame {WIDTH}x{HEIGHT} on {card}: p50 {p50:.3f} ms, p95 {p95:.3f} ms, "
         f"{rays / (p50 * 1e3):.2f} Mrays/s ({rays} rays: primary + {int(aux['shadow_rays'])}"
         f" shadow), peak memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
 
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs only on an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    import relativitypathtracer_tpu_torch as pt
+    from relativitypathtracer_tpu_torch import render as prender
+    from relativitypathtracer_tpu_torch.ops.kernels import _build
+    from relativitypathtracer_tpu_torch.ops.kernels import analytic_kernels as ak
+    from relativitypathtracer_tpu_torch.ops.kernels import mesh_kernels as mk
+    from relativitypathtracer_tpu_torch.ops.kernels import shadow_chain as sc
+    from relativitypathtracer_tpu_torch.ops.kernels import texture_kernel as tk
+    from relativitypathtracer_tpu_torch.utils.demo_scene import write_demo_scene
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    t0 = time.perf_counter()
+    lib_path = _build.build()
+    _build.library()
+    log(f"build: {time.perf_counter() - t0:.1f} s -> {lib_path.name}")
+
+    dev = torch.device(DEVICE)
+    states = [
+        pt.FrameState(torch.zeros(3, device=dev), torch.tensor([0.0, 0, 0, 0], device=dev)),
+        pt.FrameState(torch.zeros(3, device=dev), torch.tensor([1 / 30, 0, 0, 0], device=dev)),
+        pt.FrameState(torch.tensor([0.5, 0.0, 0.0], device=dev),
+                      torch.tensor([2 / 30, 0, 0, 0], device=dev)),
+    ]
+    # The wrappers the main path calls, by the module attribute it calls
+    # them through; hooks record each one's first-frame inputs.
+    hooks = {"rpt_shadow_chain": (prender, "shadow_chain"),
+             "rpt_analytic_nearest": (prender, "analytic_nearest_shared"),
+             "rpt_shared_walk": (mk, "shared_walk"),
+             "rpt_general_walk": (mk, "general_walk"),
+             "rpt_analytic_min_t": (prender, "analytic_min_t_general"),
+             "rpt_footprint_sample": (prender, "footprint_fetch")}
+    originals = {name: getattr(mod, attr) for name, (mod, attr) in hooks.items()}
+    results, launches_by_path, hosts = {}, {}, {}
+
+    for path, (kind, names, cpu_size) in PATHS.items():
+        log(f"--- path {path} ---")
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            host = pt.load_scene_file(write_demo_scene(tmp, LEVEL, kind))
+            scene, meta = pt.build_scene(host, device=dev)
+        hosts[path] = host
+        log(f"  scene: {meta.num_tris} triangles, spheres {meta.sphere_ids}, cubes "
+            f"{meta.cube_ids}, textured {meta.textured_ids}, atlas "
+            f"{tuple(scene.tex_quads.shape)}, lights {meta.light_ids}, built in "
+            f"{time.perf_counter() - t0:.1f} s")
+        check(meta.light_ids and (kind == "cubes" or meta.num_tris == 20 * 4 ** LEVEL),
+              "fixture shape")
+        render = pt.build_render_fn(meta, WIDTH, HEIGHT, -1, with_aux=True, device=dev)
+
+        captured, recording = {}, [True]
+        for name, (mod, attr) in hooks.items():
+            def rec(*args, _fn=originals[name], _name=name):
+                if _name == "rpt_footprint_sample":
+                    _name += "/" + tk.texture_route(args[0].shape[0])
+                if recording[0] and _name not in captured:
+                    captured[_name] = args
+                return _fn(*args)
+
+            setattr(mod, attr, rec)
+
+        # --- the path: three frames, counts from 0 ---------------------------
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        frames = []
+        for i, st in enumerate(states):
+            img, aux = render(scene, st)
+            if i == 0:
+                recording[0] = False
+            frames.append((img, {k: int(v) for k, v in aux.items()}))
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        for name, (mod, attr) in hooks.items():
+            setattr(mod, attr, originals[name])
+        launches_by_path[path] = launches
+        log(f"  launches: {launches}")
+        for img, aux in frames:
+            check(tuple(img.shape) == (HEIGHT, WIDTH, 3), f"image shape {tuple(img.shape)}")
+            check(bool(torch.isfinite(img).all()), "non-finite pixels")
+            check(aux["hits"] > 0 and aux["shadow_rays"] > 0, f"counts {aux}")
+            check(0 < aux["lit_rays"] < aux["shadow_rays"], f"no lit or no occluded lanes: {aux}")
+            log(f"  frame: {aux}, mean {float(img.mean()):.6f}")
+        for name in names:
+            check(launches.get(name, 0) > 0, f"{path}: {name} was not launched")
+            check(name in captured, f"{path}: {name}: no inputs captured")
+        for name in launches:
+            check(name in names, f"{path}: unexpected launches of {name}")
+
+        originals_by_key = {n: originals[n.split("/")[0]] for n in names}
+        results[path] = compare_kernels(torch, (ak, mk, sc, tk), meta, captured,
+                                        originals_by_key, names)
+        del captured
+
+        img, aux = frames[2]
+        if cpu_size != (WIDTH, HEIGHT):
+            small = pt.build_render_fn(meta, cpu_size[0], cpu_size[1], -1, with_aux=True,
+                                       device=dev)
+            img, aux = small(scene, states[2])
+        parity(torch, pt, host, states[2], img, aux, cpu_size)
+        frame_time(torch, render, scene, states[2], card)
+
+    log("--- path textured, msaa 2, 512x384 ---")
+    scene, meta = pt.build_scene(hosts["textured"], device=dev)
+    img, aux = pt.build_render_fn(meta, 512, 384, -1, 2, with_aux=True, device=dev)(
+        scene, states[2])
+    check(bool(torch.isfinite(img).all()) and int(aux["hits"]) > 0, f"msaa 2 frame {aux}")
+    parity(torch, pt, hosts["textured"], states[2], img, aux, (512, 384), msaa=2)
+
     kernels = []
-    for name, (kid, source, replaces) in REPLACES.items():
-        r = results[name]
+    for name, (kid, source, replaces) in KERNELS.items():
+        path = REPORT_FROM.get(kid, "textured")
+        r = results[path][name]
         kernels.append({"name": f"{kid} {name}", "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces, "launches": launches_by_path[path][name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"]})
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": None, "path": path})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

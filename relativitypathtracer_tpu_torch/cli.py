@@ -5,7 +5,7 @@ optionally print per-frame timing as JSON:
 
   python -m relativitypathtracer_tpu_torch.cli --scene Scenes/scene.txt \\
       --size 1024x768 --frames 10 --out out.png [--time 0] [--dt 0.0333] \\
-      [--velocity 0.5,0,0] [--metrics] [--device cuda]
+      [--velocity 0.5,0,0] [--interval -1|0] [--msaa 2] [--metrics] [--device cuda]
 
 --scene '-' reads the scene DSL from stdin. On a CUDA device frame times
 come from CUDA events; on the CPU (the plain twins) from the host clock.
@@ -18,7 +18,7 @@ import json
 import sys
 import time
 
-import numpy as np
+from .device import DEFAULT_DEVICE
 
 
 def _parse_size(s: str):
@@ -42,12 +42,18 @@ def main(argv=None) -> int:
     ap.add_argument("--dt", type=float, default=1.0 / 30.0, help="per-frame time step")
     ap.add_argument("--velocity", type=_parse_vec3, default=[0.0, 0.0, 0.0],
                     help="camera 3-velocity (units of c)")
+    ap.add_argument("--interval", type=int, default=None, choices=(-1, 0),
+                    help="override light-propagation interval")
+    ap.add_argument("--msaa", type=int, default=1, help="samples per pixel axis")
     ap.add_argument("--out", default=None, help="output PNG (last frame)")
     ap.add_argument("--metrics", action="store_true", help="print timing JSON")
-    ap.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    ap.add_argument("--device", default=DEFAULT_DEVICE,
+                    help=f"torch device (default {DEFAULT_DEVICE})")
     args = ap.parse_args(argv)
     if args.frames < 1:
         ap.error(f"--frames must be >= 1 (got {args.frames})")
+    if args.msaa < 1:
+        ap.error(f"--msaa must be >= 1 (got {args.msaa})")
 
     import torch
 
@@ -72,7 +78,8 @@ def main(argv=None) -> int:
         return 1
     scene, meta = build_scene(host, device=device)
     width, height = _parse_size(args.size)
-    render = build_render_fn(meta, width, height, meta.default_interval, with_aux=True,
+    interval = meta.default_interval if args.interval is None else args.interval
+    render = build_render_fn(meta, width, height, interval, args.msaa, with_aux=True,
                              device=device)
     vel = torch.tensor(args.velocity, dtype=torch.float32, device=device)
     on_card = device.type == "cuda"
@@ -97,7 +104,7 @@ def main(argv=None) -> int:
         write_png(args.out, img.cpu().numpy())
     if args.metrics:
         p50 = sorted(timings)[len(timings) // 2]
-        rays = width * height + shadow_rays
+        rays = width * height * args.msaa * args.msaa + shadow_rays
         print(json.dumps({
             "width": width, "height": height, "frames": args.frames,
             "first_ms": timings[0], "p50_ms": p50, "best_ms": min(timings),

@@ -17,6 +17,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..device import DEFAULT_DEVICE
+from ..ops.texture_layout import (
+    MAX_TILES_PER_AXIS, region_quads, region_tile_grid, texture_table, tile_slot)
+
 SPHERE = 0
 CUBE = 1
 MESH = 2
@@ -77,6 +81,7 @@ class Scene(NamedTuple):
     textures_packed: torch.Tensor  # (R, 8) int32 texels R | G << 8 | B << 16
     tex_quads: torch.Tensor  # (Rq, 8) int32 footprint atlas
     tex_fp: torch.Tensor  # (O, 6) int32 footprint regions [base rx ry wb rw rh]
+    tex_table: torch.Tensor  # (O, 11) int32 footprint-fetch constants (texture_table)
     mesh_static: tuple  # MeshStatic per mesh object (meta.mesh_ids order)
     white_point: torch.Tensor  # (3,) f32
     ambient: torch.Tensor  # () f32
@@ -133,9 +138,6 @@ def _footprint_atlas(packed_texels: np.ndarray, texture_values: list, regions: l
     """Each region's exact 4-tap bilinear footprint per integer (x0, y0), in
     16x16-texel Morton-ordered tiles (opencl_kernel.cl:427-470). Returns
     ((Rq, 8) u32 atlas, {region: (base, rx, ry, wb)})."""
-    from ..ops.texture_layout import (
-        MAX_TILES_PER_AXIS, region_quads, region_tile_grid, tile_slot)
-
     quads = []
     params = {}
     total = 0
@@ -196,7 +198,7 @@ def _mesh_static(mesh: MeshArrays, perm: tuple) -> MeshStatic:
     )
 
 
-def build_scene(host, device="cpu") -> tuple[Scene, SceneMeta]:
+def build_scene(host, device=DEFAULT_DEVICE) -> tuple[Scene, SceneMeta]:
     """Convert a parsed HostScene (models.dsl) into tensors on `device` + meta."""
     o = host.objects
     num = len(o)
@@ -345,21 +347,25 @@ def _to_device(src, device) -> Scene:
     int_objects = dict.fromkeys(("obj_type", "mesh_root", "tex_offset", "tex_w", "tex_h"), i32)
     int_mesh = dict.fromkeys(("tri_v", "tri_uv", "tri_n", "node_tris_index", "node_tris_count",
                               "node_children", "node_neighbors", "oct_tris"), i32)
+    objects = conv(ObjectsSoA, src.objects, {**int_objects, "light": torch.bool})
+    tex_fp = _tensor(src.tex_fp, device, i32)
     return Scene(
-        objects=conv(ObjectsSoA, src.objects, {**int_objects, "light": torch.bool}),
+        objects=objects,
         mesh=conv(MeshArrays, src.mesh, int_mesh),
         textures=_tensor(src.textures, device, torch.uint8),
         # packed texels are < 2^24: int32 holds the uint32 values exactly
         textures_packed=_tensor(np.asarray(src.textures_packed, np.int64), device, i32),
         tex_quads=_tensor(np.asarray(src.tex_quads, np.int64), device, i32),
-        tex_fp=_tensor(src.tex_fp, device, i32),
+        tex_fp=tex_fp,
+        # per scene, not per frame: the table is some 50 small ops
+        tex_table=texture_table(objects.tex_w, objects.tex_h, tex_fp),
         mesh_static=tuple(conv(MeshStatic, ms, {}) for ms in src.mesh_static),
         white_point=_tensor(src.white_point, device, f32),
         ambient=_tensor(src.ambient, device, f32),
     )
 
 
-def scene_from_numpy(arrays, device="cpu") -> Scene:
+def scene_from_numpy(arrays, device=DEFAULT_DEVICE) -> Scene:
     """The port's Scene from the JAX package's Scene with numpy leaves
     (e.g. `jax.tree.map(np.asarray, scene)`), so tests can feed identical
     state to both packages. The multi-mesh pool is refused (K9/K10 are not

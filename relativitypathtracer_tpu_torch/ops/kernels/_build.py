@@ -7,7 +7,8 @@ build/kernels/, keyed by a hash of the sources and flags: a library built
 from other sources is never loaded, it is rebuilt.
 
 Every launch goes through `launch`, which counts it in LAUNCHES (one plain
-integer per kernel, so a run can show which kernels its path went through),
+integer per kernel, or per route where one C entry stands for two TPU
+kernels, so a run can show which kernels its path went through),
 passes PyTorch's current stream, and raises if the C entry reports a CUDA
 error.
 """
@@ -36,6 +37,8 @@ _SIGNATURES = {
     "rpt_analytic_nearest": "piipippppp",
     "rpt_shared_walk": "pppppppiipppppp",
     "rpt_general_walk": "pppppppiipp",
+    "rpt_footprint_sample": "pipippippp",
+    "rpt_analytic_min_t": "piipppipp",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
@@ -111,13 +114,14 @@ def check_cuda(name: str, *specs) -> None:
             raise ValueError(f"{name}: inputs must be contiguous")
 
 
-def launch(name: str, *args) -> None:
-    """Call C entry `name` with tensors as device pointers, then the current
-    stream; count the launch; raise on a CUDA error."""
+def launch(name: str, *args, key: str | None = None) -> None:
+    """Call C entry `name` with tensors as device pointers (None as a null
+    pointer), then the current stream; count the launch under `key` (default
+    `name`); raise on a CUDA error."""
     lib = library()
     c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     stream = torch.cuda.current_stream().cuda_stream
-    LAUNCHES[name] += 1
+    LAUNCHES[key or name] += 1
     rc = getattr(lib, name)(*c_args, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc}: {lib.rpt_error_string(rc).decode()}")

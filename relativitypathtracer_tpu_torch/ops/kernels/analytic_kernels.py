@@ -1,15 +1,18 @@
-"""Analytic primitives (spheres, cubes): K3, the shared-origin nearest hit.
+"""Analytic primitives (spheres, cubes): K3, the shared-origin nearest hit,
+and K7, the occlusion min-t of shadow rays with per-lane origins.
 
 Torch counterpart of `relativitypathtracer_tpu.ops.pallas.analytic_kernels`
-(`pack_analytic_params`, `_finish_uv`, `analytic_nearest_shared`). Each
-object's frame chain (Lorentz boost, then inverse model matrix) is fused into
-one 32-float row per frame, so rays enter in the camera frame. Geometry as
+(`pack_analytic_params`, `pack_analytic_params_general`, `_finish_uv`,
+`analytic_nearest_shared`, `analytic_min_t_general`). Each object's frame
+chain (Lorentz boost, then inverse model matrix) is fused into one 32-float
+row per frame, so rays enter in the camera frame. Geometry as
 intersect_sphere / intersect_cube (opencl_kernel.cl:312-359).
 
-`analytic_nearest_shared` launches the CUDA kernel
-(csrc/analytic_kernels.cu) on CUDA tensors and calls its plain twin
-`analytic_nearest_plain` on CPU tensors. Both walk every object, spheres
-before cubes, and compute the spherical UVs themselves.
+`analytic_nearest_shared` and `analytic_min_t_general` launch their CUDA
+kernels (csrc/analytic_kernels.cu) on CUDA tensors and call their plain twins
+`analytic_nearest_plain` and `analytic_min_t_plain` on CPU tensors. All walk
+every object, spheres before cubes (the JAX kernels walk per-block culled
+lists from 5 objects of a kind on); K3 computes the spherical UVs itself.
 """
 
 from __future__ import annotations
@@ -40,6 +43,18 @@ def pack_analytic_params(L, inv_m, stat_cam, ids):
     return torch.nn.functional.pad(rows, (0, PARAM_COLS - rows.shape[1])).contiguous()
 
 
+def pack_analytic_params_general(L, inv_m, ids):
+    """pack_analytic_params for rays with per-lane origins: columns [12:15)
+    hold inv_m's translation, and the kernel forms ro = A @ o4 + b."""
+    idx = torch.as_tensor(ids, dtype=torch.long, device=L.device)
+    R = inv_m[idx][:, :3, :3]
+    A = torch.einsum("gij,gjk->gik", R, L[idx][:, 1:4, :])
+    nt = R.transpose(1, 2).reshape(-1, 9)
+    rows = torch.cat([A.reshape(-1, 12), inv_m[idx][:, :3, 3], nt,
+                      idx.to(torch.float32)[:, None]], dim=1)
+    return torch.nn.functional.pad(rows, (0, PARAM_COLS - rows.shape[1])).contiguous()
+
+
 def _finish_uv(kind, s3):
     """Spherical UVs from the winner's object-space point (kind 0), or the
     cube UVs the walk already formed (kind 1)."""
@@ -60,6 +75,42 @@ def _rows3(p, base: int, stride: int, v):
     return out
 
 
+def _sphere_hit(ro, dh):
+    """Unit-sphere hit in object space; ro, dh: 3 lists of (N,) (or scalar)
+    origin and unit direction components. Returns (dist along dh, valid)."""
+    b = -(ro[0] * dh[0] + ro[1] * dh[1] + ro[2] * dh[2])
+    c = ro[0] * ro[0] + ro[1] * ro[1] + ro[2] * ro[2] - 1.0
+    disc = b * b - c
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    near = b - sq
+    far = b + sq
+    use_near = near > EPSILON
+    return torch.where(use_near, near, far), (disc >= 0.0) & (use_near | (far > EPSILON))
+
+
+def _cube_hit(ro, dh):
+    """Unit-cube [-1, 1]^3 slab hit. Returns (dist, valid, nin: the hit
+    face's object-space normal as 3 (N,) components, one non-zero)."""
+    inside = torch.maximum(torch.maximum(torch.abs(ro[0]), torch.abs(ro[1])),
+                           torch.abs(ro[2])) < 1.0
+    winding = torch.where(inside, -1.0, 1.0)
+    sgn = [-torch.sign(dh[k]) for k in range(3)]
+    dc = [(winding * sgn[k] - ro[k]) / dh[k] for k in range(3)]
+
+    def face(ax, a1, a2):
+        p1 = (ro[a1] + dh[a1] * dc[ax]).abs()
+        p2 = (ro[a2] + dh[a2] * dc[ax]).abs()
+        return (dc[ax] >= 0.0) & (p1 < 1.0) & (p2 < 1.0)
+
+    tx, ty, tz = face(0, 1, 2), face(1, 2, 0), face(2, 0, 1)
+    zero = torch.zeros_like(dc[0])
+    nin = [torch.where(tx, sgn[0], zero), torch.where(~tx & ty, sgn[1], zero),
+           torch.where(~tx & ~ty & tz, sgn[2], zero)]
+    dist = torch.where(nin[0] != 0.0, dc[0], torch.where(nin[1] != 0.0, dc[1], dc[2]))
+    valid = (nin[0] != 0.0) | (nin[1] != 0.0) | (nin[2] != 0.0)
+    return dist, valid, nin
+
+
 def analytic_nearest_plain(params, dir4, n_spheres: int, n_cubes: int):
     """Plain twin of the K3 kernel: every object in order, strict <.
     Returns (t (N,), normal (3, N), uv (2, N), obj (N,) int32)."""
@@ -78,39 +129,16 @@ def analytic_nearest_plain(params, dir4, n_spheres: int, n_cubes: int):
         dh = [dk / scale for dk in d]
         ro = [p[12 + k] for k in range(3)]
         if g < n_spheres:
-            b = -(ro[0] * dh[0] + ro[1] * dh[1] + ro[2] * dh[2])
-            c = ro[0] * ro[0] + ro[1] * ro[1] + ro[2] * ro[2] - 1.0
-            disc = b * b - c
-            sq = torch.sqrt(torch.clamp(disc, min=0.0))
-            near = b - sq
-            far = b + sq
-            use_near = near > EPSILON
-            dist = torch.where(use_near, near, far)
-            valid = (disc >= 0.0) & (use_near | (far > EPSILON))
+            dist, valid = _sphere_hit(ro, dh)
             s3 = [ro[k] + dh[k] * dist for k in range(3)]
             nin = s3
         else:
-            inside = torch.maximum(torch.maximum(ro[0].abs(), ro[1].abs()), ro[2].abs()) < 1.0
-            winding = torch.where(inside, -1.0, 1.0)
-            sgn = [-torch.sign(dh[k]) for k in range(3)]
-            dc = [(winding * sgn[k] - ro[k]) / dh[k] for k in range(3)]
-
-            def face(ax, a1, a2):
-                p1 = (ro[a1] + dh[a1] * dc[ax]).abs()
-                p2 = (ro[a2] + dh[a2] * dc[ax]).abs()
-                return (dc[ax] >= 0.0) & (p1 < 1.0) & (p2 < 1.0)
-
-            tx, ty, tz = face(0, 1, 2), face(1, 2, 0), face(2, 0, 1)
-            zero = torch.zeros_like(dc[0])
-            nin = [torch.where(tx, sgn[0], zero), torch.where(~tx & ty, sgn[1], zero),
-                   torch.where(~tx & ~ty & tz, sgn[2], zero)]
+            dist, valid, nin = _cube_hit(ro, dh)
             on_x, on_y = nin[0] != 0.0, nin[1] != 0.0
-            dist = torch.where(on_x, dc[0], torch.where(on_y, dc[1], dc[2]))
-            valid = on_x | on_y | (nin[2] != 0.0)
             pt = [ro[k] + dh[k] * dist for k in range(3)]
             u = torch.where(on_x, pt[1], pt[0])
             v = torch.where(on_x | on_y, pt[2], pt[1])
-            s3 = [(u + 1.0) / 2.0, (v + 1.0) / 2.0, zero]
+            s3 = [(u + 1.0) / 2.0, (v + 1.0) / 2.0, torch.zeros_like(dist)]
         nt = _rows3(p, 15, 3, nin)
         inv = 1.0 / torch.sqrt(nt[0] * nt[0] + nt[1] * nt[1] + nt[2] * nt[2])
         t = torch.where(valid, dist / scale, INF)
@@ -142,3 +170,39 @@ def analytic_nearest_shared(params, dir4, n_spheres: int, n_cubes: int):
     uv = torch.empty((2, n), dtype=torch.float32, device=dir4.device)
     launch("rpt_analytic_nearest", params, n_spheres, n_cubes, dir4, n, t, obj, nrm, uv)
     return t, nrm, uv, obj
+
+
+def analytic_min_t_plain(params, origins4, dir4, n_spheres: int, n_cubes: int, tmax):
+    """Plain twin of the K7 kernel: the minimum hit parameter over every
+    object, INF on lanes with tmax == 0 (their result is not read)."""
+    w = [dir4[i] for i in range(4)]
+    o = [origins4[i] for i in range(4)]
+    best = torch.full(tmax.shape, INF, device=tmax.device, dtype=dir4.dtype)
+    for g in range(n_spheres + n_cubes):
+        p = params[g]
+        d = _rows3(p, 0, 4, w)
+        ro = [r + p[12 + k] for k, r in enumerate(_rows3(p, 0, 4, o))]
+        scale = torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
+        dh = [dk / scale for dk in d]
+        dist, valid = _sphere_hit(ro, dh) if g < n_spheres else _cube_hit(ro, dh)[:2]
+        best = torch.minimum(best, torch.where(valid, dist / scale, INF))
+    return torch.where(tmax == 0.0, INF, best)
+
+
+def analytic_min_t_general(params, origins4, dir4, n_spheres: int, n_cubes: int, tmax):
+    """Min hit parameter over spheres and cubes for shadow rays with per-lane
+    origins. params: (G, PARAM_COLS) from pack_analytic_params_general (the
+    light left out by omitting its row); origins4, dir4: (4, N) camera frame;
+    tmax: (N,) search bound, 0 on masked lanes. Returns (N,) f32: the nearest
+    hit, INF where none (and on masked lanes). Callers test t < tmax."""
+    if dir4.device.type == "cpu":
+        return analytic_min_t_plain(params, origins4, dir4, n_spheres, n_cubes, tmax)
+    origins4, dir4, tmax = origins4.contiguous(), dir4.contiguous(), tmax.contiguous()
+    n = dir4.shape[1]
+    check_cuda("analytic_min_t_general",
+               (params, torch.float32, (n_spheres + n_cubes, PARAM_COLS)),
+               (origins4, torch.float32, (4, n)), (dir4, torch.float32, (4, n)),
+               (tmax, torch.float32, (n,)))
+    t = torch.empty(n, dtype=torch.float32, device=dir4.device)
+    launch("rpt_analytic_min_t", params, n_spheres, n_cubes, origins4, dir4, tmax, n, t)
+    return t

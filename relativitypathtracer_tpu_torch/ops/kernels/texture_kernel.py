@@ -1,0 +1,134 @@
+"""Footprint-atlas texel fetch: K2 (small atlases) and K8 (larger), one kernel.
+
+Torch counterpart of `relativitypathtracer_tpu.ops.pallas.texture_kernel`
+(`_address_lanes`, `footprint_sample_small`, `footprint_sample_windowed`,
+`texture_route`). Each footprint-atlas row holds two footprint quads: the four
+texels [(x0,y0), (x1,y0), (x1,y1), (x2,y1)] of the reference's bilinear taps
+(opencl_kernel.cl:427-470), with its border clamp already applied when the
+atlas was built (models.scene._footprint_atlas). A fetch is the Morton
+address of (x0, y0), one row read, and the reference's weighting.
+
+On the TPU, K2 is a one-hot MXU product over a VMEM-resident atlas of at
+most MAX_ROWS rows and K8 walks larger atlases in DMA windows, because the TPU
+has no fast gather. The card has one: a MID atlas (65,536 rows x 32 B = 2 MB)
+sits in the 50 MB L2 many times over, so one direct-gather CUDA kernel
+(csrc/texture_kernels.cu) computes both, on every atlas size. `texture_route`
+therefore sends MID and BIG atlases alike to that kernel (the JAX package
+sends BIG ones to an XLA gather); the route only names the TPU kernel a
+launch stands for, in the launch counts.
+
+`footprint_fetch` is the renderer's form: a per-object table (O, TABLE_COLS)
+and each lane's object id, so the per-object selection happens inside the
+kernel. `footprint_sample_small` / `footprint_sample_windowed` keep the JAX
+package's per-lane signature. All launch the CUDA kernel on CUDA tensors and
+call the plain twin `footprint_fetch_plain` on CPU tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..texture_layout import TABLE_COLS, tile_params, tile_slot, tile_slot_fast
+from ._build import check_cuda, launch
+
+MAX_ROWS = 1024  # the JAX package's small-atlas (K2) limit
+
+
+def texture_route(rq: int) -> str:
+    """The TPU kernel an Rq-row footprint atlas's fetch stands for: "small"
+    (K2) up to MAX_ROWS rows, "windowed" (K8) above. Both run the same CUDA
+    kernel; the JAX package's third route, an XLA gather for atlases over
+    65,536 rows, is not taken (see the module docstring)."""
+    return "small" if rq <= MAX_ROWS else "windowed"
+
+
+def _address_lanes(quads_rows: int, fp, width, height, uv):
+    """Footprint addressing of every lane, as the JAX package's: uv to the
+    atlas row and half. fp is (6, N) [base rx ry wb rw rh] or (9, N) with the
+    tile_params rows [sm1 ss r16] appended. Returns (addr_i (2, N) int32 rows
+    [row, hi_half], addr_f (2, N) f32 rows [u_ratio, v_ratio])."""
+    w, h = width, height
+    u = w.to(torch.float32) * uv[0]
+    v = h.to(torch.float32) * (1.0 - uv[1])
+    x = torch.minimum(torch.floor(u).to(torch.int32), w - 1)
+    y = torch.minimum(torch.floor(v).to(torch.int32), h - 1)
+    u_ratio = u - x.to(torch.float32)
+    v_ratio = v - y.to(torch.float32)
+    x0 = torch.minimum(torch.clamp(x, min=0), w - 1)
+    y0 = torch.minimum(torch.clamp(y, min=0), h - 1)
+    base, rx, ry, wb, rw, rh = fp[0], fp[1], fp[2], fp[3], fp[4], fp[5]
+    lx = torch.minimum(torch.clamp(x0 - rx, min=0), torch.clamp(rw - 1, min=0))
+    ly = torch.minimum(torch.clamp(y0 - ry, min=0), torch.clamp(rh - 1, min=0))
+    if fp.shape[0] >= 9:
+        slot = tile_slot_fast(lx, ly, fp[6], fp[7], fp[8])
+    else:
+        slot = tile_slot(lx, ly, wb, rh)
+    idx4 = torch.clamp((base + slot) * 4, 0, quads_rows * 8 - 4)
+    addr_i = torch.stack([idx4 >> 3, ((idx4 & 7) >= 4).to(torch.int32)])
+    return addr_i, torch.stack([u_ratio, v_ratio])
+
+
+def _fetch_mix(quads, addr_i, addr_f):
+    """Read each lane's footprint quad and weight its four taps in the
+    reference order. quads: (Rq, 8) int32 packed texels R | G << 8 | B << 16.
+    Returns (3, N) f32 RGB in [0, 1]."""
+    quad = quads.view(-1, 2, 4)[addr_i[0].long(), addr_i[1].long()].T  # (4, N)
+    u_ratio, v_ratio = addr_f[0], addr_f[1]
+    u_opp = 1.0 - u_ratio
+    v_opp = 1.0 - v_ratio
+
+    def texel(k):
+        q = quad[k]
+        rgb = torch.stack([q & 0xFF, (q >> 8) & 0xFF, (q >> 16) & 0xFF])
+        return rgb.to(torch.float32) / 255.0
+
+    row1 = texel(0) * u_opp + texel(1) * u_ratio
+    row2 = texel(2) * u_ratio + texel(3) * u_opp
+    return row1 * v_opp + row2 * v_ratio
+
+
+def footprint_fetch_plain(quads, table, obj, uv):
+    """Plain twin of the kernel. Returns (rgb (3, N) f32, quad (N,) int32: the
+    footprint quad each lane read, 2 * row + hi_half)."""
+    sel = table[obj.long()].T  # (TABLE_COLS, N)
+    addr_i, addr_f = _address_lanes(quads.shape[0], sel[2:], sel[0], sel[1], uv)
+    return _fetch_mix(quads, addr_i, addr_f), addr_i[0] * 2 + addr_i[1]
+
+
+def footprint_fetch(quads, table, obj, uv, with_quads: bool = False):
+    """Bilinear texel of every lane from the footprint atlas. quads: (Rq, 8)
+    int32; table: (O, TABLE_COLS) int32 from texture_layout.texture_table (or
+    one row per lane); obj: (N,) int32 row of `table` per lane; uv: (2, N) f32. Returns
+    (3, N) f32 RGB, and with `with_quads` also the (N,) int32 quad index each
+    lane read. The launch counts under texture_route's route for Rq."""
+    if uv.device.type == "cpu":
+        rgb, quad = footprint_fetch_plain(quads, table, obj, uv)
+        return (rgb, quad) if with_quads else rgb
+    uv = uv.contiguous()
+    n, rq = uv.shape[1], quads.shape[0]
+    check_cuda("footprint_fetch", (quads, torch.int32, (rq, 8)),
+               (table, torch.int32, (table.shape[0], TABLE_COLS)), (obj, torch.int32, (n,)),
+               (uv, torch.float32, (2, n)))
+    if quads.data_ptr() % 16:
+        raise ValueError("footprint_fetch: the atlas must be 16-byte aligned")
+    rgb = torch.empty((3, n), dtype=torch.float32, device=uv.device)
+    quad = torch.empty(n, dtype=torch.int32, device=uv.device) if with_quads else None
+    launch("rpt_footprint_sample", quads, rq, table, table.shape[0], obj, uv, n, rgb, quad,
+           key=f"rpt_footprint_sample/{texture_route(rq)}")
+    return (rgb, quad) if with_quads else rgb
+
+
+def footprint_sample_small(quads, fp, width, height, uv):
+    """The JAX package's per-lane signature: quads (Rq, 8) int32, fp (6|9, N)
+    int32, width/height (N,) int32, uv (2, N). Returns (3, N) RGB. Runs the
+    fetch with one table row per lane."""
+    if fp.shape[0] < 9:
+        fp = torch.cat([fp, torch.stack(tile_params(fp[3], fp[5]))])
+    table = torch.cat([width[None], height[None], fp]).T.to(torch.int32).contiguous()
+    obj = torch.arange(uv.shape[1], dtype=torch.int32, device=uv.device)
+    return footprint_fetch(quads, table, obj, uv)
+
+
+def footprint_sample_windowed(quads, fp, width, height, uv):
+    """footprint_sample_small for atlases over MAX_ROWS rows: the same kernel."""
+    return footprint_sample_small(quads, fp, width, height, uv)

@@ -12,11 +12,16 @@ build) and torch tensors (samplers). Axes support up to 256 tiles
 
 Addressing parameters come from the per-object fp row [base rx ry wb rw rh]
 (models.scene): wb = ceil(rw/16) tiles per row, rh = region texel height.
+`texture_table`, the port's own, packs them per object for the fetch kernel.
 """
 
 from __future__ import annotations
 
+import torch
+
 MAX_TILES_PER_AXIS = 256  # 8-bit Morton interleave -> textures <= 4096 px
+# per-object fetch-table row: [tex_w tex_h | fp: base rx ry wb rw rh | sm1 ss r16]
+TABLE_COLS = 11
 
 
 def _next_pow2(x):
@@ -98,3 +103,12 @@ def region_quads(wb, rh):
     """Total footprint quads a region occupies (padded pow2 tile grid)."""
     wb2, hb2 = region_tile_grid(wb, rh)
     return wb2 * hb2 * 256
+
+
+def texture_table(tex_w, tex_h, tex_fp):
+    """(O, TABLE_COLS) int32 per-object fetch constants from the scene's
+    per-object texture sizes (clamped to at least 1, as the renderer clamps
+    them) and footprint regions (O, 6), with the tile_params columns."""
+    sm1, ss, r16 = tile_params(tex_fp[:, 3], tex_fp[:, 5])
+    cols = [torch.clamp(tex_w, min=1), torch.clamp(tex_h, min=1), *tex_fp.T, sm1, ss, r16]
+    return torch.stack(cols, dim=1).to(torch.int32).contiguous()

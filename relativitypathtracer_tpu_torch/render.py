@@ -1,16 +1,19 @@
 """The wavefront renderer: one call renders one frame.
 
-Torch counterpart of `relativitypathtracer_tpu.render` for this slice of
-the port: per-object boost algebra each frame (`object_frames`), camera rays
-in 32x32-tile order so every 1024-ray block is a compact screen tile, the
-analytic nearest hit (K3), one mesh's primary walk (K5), flat colour,
-proper-time flash, ambient and emissive terms, and per light the shadow chain
-(K1) and the mesh shadow walk (K6); then Hable tonemap, unswizzle and crop.
-Semantics mirror trace()/intersect_scene()/sample_light()
-(opencl_kernel.cl:361-604). Rays sit on the last axis: (3, N), (4, N).
+Torch counterpart of `relativitypathtracer_tpu.render`: per-object boost
+algebra each frame (`object_frames`), camera rays in 32x32-tile order so
+every 1024-ray block is a compact screen tile, the analytic nearest hit (K3),
+one mesh's primary walk (K5), the texel fetch (K2/K8 through the footprint
+atlas, or the packed-atlas gather) or flat colour, proper-time flash, ambient
+and emissive terms, and per light the shadow chain (K1), the analytic
+occlusion walk (K7) and the mesh shadow walk (K6); then the MSAA sample
+average, Hable tonemap, unswizzle and crop. Semantics mirror
+trace()/intersect_scene()/sample_light() (opencl_kernel.cl:361-604). Rays
+sit on the last axis: (3, N), (4, N).
 
-Routes the JAX package has and this slice has not raise NotImplementedError
-naming the kernels they wait for (see ROADMAP.md, Queue 2).
+Routes the JAX package has and the port has not yet (several meshes, the
+large-mesh tier) raise NotImplementedError naming the kernels they wait for
+(see ROADMAP.md, Queue 2).
 """
 
 from __future__ import annotations
@@ -19,13 +22,18 @@ from typing import NamedTuple
 
 import torch
 
+from .device import DEFAULT_DEVICE
 from .models.scene import Scene, SceneMeta
 from .ops.camera import camera_ray_dirs
 from .ops.intersect import INF, normalize3
-from .ops.kernels.analytic_kernels import analytic_nearest_shared, pack_analytic_params
+from .ops.kernels.analytic_kernels import (
+    analytic_min_t_general, analytic_nearest_shared, pack_analytic_params,
+    pack_analytic_params_general)
 from .ops.kernels.shadow_chain import pack_chain_mats, pack_light_row, shadow_chain
+from .ops.kernels.texture_kernel import footprint_fetch
 from .ops.mesh_intersect import mesh_intersect_shared, mesh_min_t_general
 from .ops.relmath import lorentz, matmul4, transform4
+from .ops.texture_sample import bilinear_sample_packed
 from .ops.tonemap import tonemap
 
 MISS_COLOR = (0.15, 0.15, 0.25)
@@ -40,7 +48,7 @@ class FrameState(NamedTuple):
     cam_pos: torch.Tensor
 
     @staticmethod
-    def initial(device="cpu"):
+    def initial(device=DEFAULT_DEVICE):
         return FrameState(torch.zeros(3, device=device), torch.zeros(4, device=device))
 
 
@@ -102,11 +110,14 @@ def scene_min_t(scene: Scene, meta: SceneMeta, L, origins4, dir3, interval: int,
     n = origins4.shape[1]
     dir4 = torch.cat([torch.full((1, n), float(interval), device=dir3.device),
                       normalize3(dir3)], dim=0)
-    if any(i != exclude_id for i in tuple(meta.sphere_ids) + tuple(meta.cube_ids)):
-        raise NotImplementedError("analytic occluders need K7")
     if len(meta.mesh_ids) > 1:
         raise NotImplementedError("more than one mesh object needs K10")
     best = torch.full((n,), INF, device=dir3.device)
+    sph = tuple(i for i in meta.sphere_ids if i != exclude_id)
+    cub = tuple(i for i in meta.cube_ids if i != exclude_id)
+    if sph or cub:  # the light is left out by omitting its params row
+        params = pack_analytic_params_general(L, scene.objects.inv_m, sph + cub)
+        best = analytic_min_t_general(params, origins4, dir4, len(sph), len(cub), tmax)
     for k, i in enumerate(meta.mesh_ids):
         if i == exclude_id:
             continue
@@ -119,24 +130,33 @@ def scene_min_t(scene: Scene, meta: SceneMeta, L, origins4, dir3, interval: int,
 
 
 def shade(scene: Scene, meta: SceneMeta, L, inv_L, stat_cam, dirs, interval: int, perms):
-    """Full trace of unit camera dirs (3, N): nearest hit, flat colour and
-    proper-time flash, ambient and emissive terms, and per light the direct
-    term behind a 4D shadow ray. Returns (color (3, N), aux) with aux counts
-    hits, shadow_rays (lanes a light's shadow ray was traced for) and
-    lit_rays (those the light reached)."""
-    if meta.textured_ids:
-        raise NotImplementedError("textured objects need K2 (small atlas), K8 (larger) "
-                                  "and the packed-atlas route")
+    """Full trace of unit camera dirs (3, N): nearest hit, texel or flat
+    colour and proper-time flash, ambient and emissive terms, and per light
+    the direct term behind a 4D shadow ray. Returns (color (3, N), aux) with
+    aux counts hits, shadow_rays (lanes a light's shadow ray was traced for)
+    and lit_rays (those the light reached)."""
     objects = scene.objects
     n = dirs.shape[1]
     dev = dirs.device
     dir4 = torch.cat([torch.full((1, n), float(interval), device=dev), dirs], dim=0)
-    t, normal, _, obj, did_hit = intersect_scene(scene, meta, L, stat_cam, dir4, perms)
+    t, normal, uv, obj, did_hit = intersect_scene(scene, meta, L, stat_cam, dir4, perms)
     obj_l = obj.long()
 
-    # Untextured scene: the JAX package fetches a texel for every lane and
-    # then keeps the flat colour on every lane; here no fetch is made.
+    # Per-object attributes by integer gathers (the JAX package's f32
+    # one-hot select rounds tex_offset past 2^24; ROADMAP Queue 3).
     hit_color = objects.color.T[:, obj_l]
+    if meta.textured_ids:
+        tex_off = objects.tex_offset[obj_l]
+        if meta.use_footprint_tex:
+            tex_rgb = footprint_fetch(scene.tex_quads, scene.tex_table, obj, uv)
+        else:
+            tex_rgb = bilinear_sample_packed(
+                scene.textures_packed, torch.clamp(tex_off, min=0) // 3,
+                torch.clamp(objects.tex_w[obj_l], min=1),
+                torch.clamp(objects.tex_h[obj_l], min=1), uv)
+        hit_color = torch.where((tex_off != -1)[None, :], tex_rgb, hit_color)
+    # An untextured scene makes no fetch (the JAX package fetches a texel for
+    # every lane and then keeps the flat colour on every lane).
     if meta.any_flash:
         period = objects.flash_period[obj_l]
         duration = objects.flash_duration[obj_l]
@@ -195,13 +215,16 @@ def tile_unswizzle(img_vec, ph: int, pw: int):
 
 
 def build_render_fn(meta: SceneMeta, width: int, height: int, interval: int,
-                    msaa: int = 1, with_aux: bool = False, device="cpu"):
-    """A frame renderer for (scene meta, resolution, interval) on `device`:
-    render(scene, state) -> (H, W, 3) float image in bottom-up row order, and
-    the aux counts when with_aux. The pixel grid is padded to 32x32 tiles and
-    traced in tile order; the padding is cropped after shading."""
-    if msaa != 1:
-        raise NotImplementedError("msaa > 1 is not ported yet")
+                    msaa: int = 1, with_aux: bool = False, device=DEFAULT_DEVICE):
+    """A frame renderer for (scene meta, resolution, interval, msaa) on
+    `device`: render(scene, state) -> (H, W, 3) float image in bottom-up row
+    order, and the aux counts when with_aux (summed over the msaa**2 sample
+    sets). The pixel grid is padded to 32x32 tiles and traced in tile order;
+    the padding is cropped after shading. With msaa > 1, one shade pass per
+    sample set, colours averaged: the JAX package's default per-sample loop
+    (opencl_kernel.cl:642-648)."""
+    if msaa < 1:
+        raise ValueError(f"msaa must be >= 1, got {msaa}")
     # Full fp32 products: PERF.md "What lost" records that reduced-precision
     # matrix products (bf16 passes on the TPU, TF32 here) broke parity with
     # the fp32 reference.
@@ -209,13 +232,20 @@ def build_render_fn(meta: SceneMeta, width: int, height: int, interval: int,
     torch.backends.cudnn.allow_tf32 = False
     ph = _round_up(height, TILE)
     pw = _round_up(width, TILE)
-    dirs = tile_swizzle(camera_ray_dirs(width, height, pw, ph, device=device)
-                        .reshape(-1, 3).T, ph, pw).contiguous()
+    samples = camera_ray_dirs(width, height, msaa, pw, ph, device=device).reshape(
+        msaa * msaa, -1, 3)
+    dirs = [tile_swizzle(d.T, ph, pw).contiguous() for d in samples]
     perms = mesh_perm_tensors(meta, device)
 
     def render(scene: Scene, state: FrameState):
         L, inv_L, stat_cam = object_frames(scene.objects, state)
-        color, aux = shade(scene, meta, L, inv_L, stat_cam, dirs, interval, perms)
+        color, aux = shade(scene, meta, L, inv_L, stat_cam, dirs[0], interval, perms)
+        for d in dirs[1:]:
+            c, a = shade(scene, meta, L, inv_L, stat_cam, d, interval, perms)
+            color = color + c
+            aux = {k: aux[k] + a[k] for k in aux}
+        if len(dirs) > 1:
+            color = color / float(len(dirs))
         img = tonemap(tile_unswizzle(color, ph, pw).T, scene.white_point)
         img = img.reshape(ph, pw, 3)[:height, :width]
         return (img, aux) if with_aux else img
@@ -224,8 +254,8 @@ def build_render_fn(meta: SceneMeta, width: int, height: int, interval: int,
 
 
 def render_frame(scene: Scene, meta: SceneMeta, state: FrameState, width: int, height: int,
-                 interval: int | None = None, device="cpu"):
+                 interval: int | None = None, msaa: int = 1, device=DEFAULT_DEVICE):
     """Convenience single-frame entry point."""
     if interval is None:
         interval = meta.default_interval
-    return build_render_fn(meta, width, height, int(interval), device=device)(scene, state)
+    return build_render_fn(meta, width, height, int(interval), msaa, device=device)(scene, state)

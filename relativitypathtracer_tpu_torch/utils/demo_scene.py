@@ -1,15 +1,26 @@
-"""Procedural fixture for the port's main path: a bumpy mesh and a light.
+"""Procedural fixtures for the port's paths, written as scene files.
 
-It stands in for bunny.txt's structure without its texture: one OBJ mesh of
-20 * 4**level triangles (level 4 gives 5,120, the same padded size and chunk
-count as bunny's 4,968) and one emissive light sphere, with light
-propagation and shadows on. The mesh is an icosphere displaced radially so
-that its bumps shadow their neighbours, and it moves at 0.5c, so every frame
-exercises the boost chain. The files are written in the layout
-`load_scene_file` resolves (Scenes/ and Models/ side by side) and go through
-the ordinary parse -> build_scene -> build_render_fn entry points.
+Three scenes, each a directory in the layout `load_scene_file` resolves
+(Scenes/, Models/ and Textures/ side by side), so they go through the
+ordinary parse -> build_scene -> build_render_fn entry points. All run with
+light propagation and shadows on (no I command, so interval -1).
 
-Usage: python -m relativitypathtracer_tpu_torch.utils.demo_scene DIR [LEVEL]
+- "blob": bunny.txt's structure without its texture. One OBJ mesh of
+  20 * 4**level triangles (level 4 gives 5,120, the same padded size and
+  chunk count as bunny's 4,968) and one emissive light sphere. The mesh is an
+  icosphere displaced radially so that its bumps shadow their neighbours, and
+  it moves at 0.5c, so every frame exercises the boost chain.
+- "textured": bunny.txt's structure in full, which is bench.py's main path:
+  the same mesh written with spherical `vt` UVs and `f v/vt` faces, bound to
+  a 32x32 seeded texture (a P6 PPM). The mesh's footprint atlas is 512 rows,
+  within the small-atlas tier (K2).
+- "cubes": analytic objects with textures and shadows, as cubes.txt. Eight
+  cubes in two rows (one at rest, one moving at 0.6c) share one 256x256
+  seeded texture, whose footprint atlas is 32,768 rows (the MID tier, K8); an
+  untextured flat floor cube lies under them and a light sphere above, so
+  the cubes' shadows on the floor need the analytic occlusion walk (K7).
+
+Usage: python -m relativitypathtracer_tpu_torch.utils.demo_scene DIR [LEVEL] [KIND]
 """
 
 from __future__ import annotations
@@ -18,6 +29,9 @@ import math
 import os
 import sys
 
+import numpy as np
+
+from ..models.texture import write_ppm
 from .subdiv import subdivide, write_obj
 
 _T = (1.0 + math.sqrt(5.0)) / 2.0
@@ -29,53 +43,96 @@ _ICO_FACES = [(0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11),
               (3, 9, 4), (3, 4, 2), (3, 2, 6), (3, 6, 8), (3, 8, 9),
               (4, 9, 5), (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1)]
 
-# The scene: the mesh's rest-frame position sits right of centre so that,
-# seen along the past light cone at 0.5c, it appears near the middle of the
-# frame; the light sphere sits at rest above and left of where the mesh is
-# seen, so the bumps on the lit side shadow some of their neighbours.
-# No T (texture) and no I (interval 0) command.
-SCENE_TXT = """MModels/blob.obj
-Om0
+KINDS = ("blob", "textured", "cubes")
+SEED = 7  # the textures' numpy seed
+
+# The blob scenes: the mesh's rest-frame position sits right of centre so
+# that, seen along the past light cone at 0.5c, it appears near the middle of
+# the frame; the light sphere sits at rest above and left of where the mesh
+# is seen, so the bumps on the lit side shadow some of their neighbours.
+_BLOB_OBJECT = """Om0
  p1,-0.2,3.2,0,0,1,0,1.25,1.25,1.25
  c0.8,0.55,0.35
  v0.5,0,0
-Os
+"""
+_LIGHT = """Os
  l1
- p-1.6,1.4,2.4,0,0,0,0,0.2,0.2,0.2
+ p{},0,0,0,0,0.2,0.2,0.2
  c1,1,1
 A0.2
 R
 """
+SCENE_TXT = "MModels/blob.obj\n" + _BLOB_OBJECT + _LIGHT.format("-1.6,1.4,2.4")
+TEXTURED_TXT = ("TTextures/blob.ppm\nMModels/blob.obj\n" + _BLOB_OBJECT + " t0\n"
+                + _LIGHT.format("-1.6,1.4,2.4"))
+
+
+def _cubes_txt() -> str:
+    """Floor cube (object 0, untextured), eight textured cubes (1-8): the
+    row at rest in front, the row at 0.6c behind it, placed right of centre
+    so that it appears in frame along the past light cone; light sphere 9."""
+    lines = ["TTextures/cubes.ppm", "Oc", " p0,-1.3,7,0,0,1,0,7,0.1,6", " c0.55,0.6,0.5"]
+    for k in range(4):
+        lines += ["Oc", f" p{-2.1 + 1.4 * k:.2f},-0.75,5,{0.3 * k:.2f},0,1,0,0.45,0.45,0.45",
+                  " c1,1,1", " t0"]
+    for k in range(4):
+        lines += ["Oc", f" p{2.2 + 1.5 * k:.2f},0.3,8,{0.5 + 0.3 * k:.2f},1,1,0,0.5,0.5,0.5",
+                  " c1,1,1", " t0", " v0.6,0,0"]
+    return "\n".join(lines) + "\n" + _LIGHT.format("-2.5,2.2,3")
 
 
 def blob_mesh(level: int):
     """Icosphere subdivided `level` times, displaced radially by smooth bumps.
-    Returns (vertices, faces) with outward (counter-clockwise) winding."""
+    Returns (vertices, faces, uvs): outward (counter-clockwise) winding, and
+    each vertex's spherical (u, v) from its undisplaced direction."""
     verts = [tuple(float(c) for c in v) for v in _ICO_VERTS]
     verts, faces = subdivide(verts, list(_ICO_FACES), level)
-    out = []
+    out, uvs = [], []
     for x, y, z in verts:
         n = math.sqrt(x * x + y * y + z * z)
         ux, uy, uz = x / n, y / n, z / n
         r = 1.0 + 0.3 * math.sin(4.0 * ux + 1.0) * math.sin(4.0 * uy) * math.cos(3.0 * uz)
         out.append((ux * r, uy * r, uz * r))
-    return out, faces
+        uvs.append((0.5 + math.atan2(uz, ux) / (2.0 * math.pi), 0.5 + math.asin(uy) / math.pi))
+    return out, faces, uvs
 
 
-def write_demo_scene(root: str, level: int = 4) -> str:
-    """Write Scenes/scene.txt and Models/blob.obj under `root`; return the
-    scene file's path."""
-    scenes = os.path.join(root, "Scenes")
-    models = os.path.join(root, "Models")
-    os.makedirs(scenes, exist_ok=True)
-    os.makedirs(models, exist_ok=True)
-    verts, faces = blob_mesh(level)
-    write_obj(os.path.join(models, "blob.obj"), verts, faces)
-    path = os.path.join(scenes, "scene.txt")
+def demo_texture(size: int, seed: int = SEED) -> np.ndarray:
+    """(size, size, 3) uint8: a checker of 4x4-texel squares in seeded colours
+    with seeded per-texel noise, so that every bilinear tap differs."""
+    rng = np.random.default_rng(seed + size)
+    palette = rng.integers(40, 216, (8, 3))
+    ij = np.arange(size) // 4
+    square = (ij[:, None] * 3 + ij[None, :] * 5) % 8
+    noise = rng.integers(-40, 40, (size, size, 3))
+    return np.clip(palette[square] + noise, 0, 255).astype(np.uint8)
+
+
+def write_demo_scene(root: str, level: int = 4, kind: str = "blob") -> str:
+    """Write scene `kind` (one of KINDS) under `root`; return the scene file's
+    path. `level` is the blob mesh's subdivision level (unused by cubes)."""
+    if kind not in KINDS:
+        raise ValueError(f"unknown demo scene {kind!r}; expected one of {KINDS}")
+    dirs = {d: os.path.join(root, d) for d in ("Scenes", "Models", "Textures")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    if kind == "cubes":
+        write_ppm(os.path.join(dirs["Textures"], "cubes.ppm"), demo_texture(256))
+        text = _cubes_txt()
+    else:
+        verts, faces, uvs = blob_mesh(level)
+        textured = kind == "textured"
+        write_obj(os.path.join(dirs["Models"], "blob.obj"), verts, faces,
+                  uvs if textured else None)
+        if textured:
+            write_ppm(os.path.join(dirs["Textures"], "blob.ppm"), demo_texture(32))
+        text = TEXTURED_TXT if textured else SCENE_TXT
+    path = os.path.join(dirs["Scenes"], "scene.txt")
     with open(path, "w") as f:
-        f.write(SCENE_TXT)
+        f.write(text)
     return path
 
 
 if __name__ == "__main__":
-    print(write_demo_scene(sys.argv[1], int(sys.argv[2]) if len(sys.argv) > 2 else 4))
+    print(write_demo_scene(sys.argv[1], int(sys.argv[2]) if len(sys.argv) > 2 else 4,
+                           sys.argv[3] if len(sys.argv) > 3 else "blob"))

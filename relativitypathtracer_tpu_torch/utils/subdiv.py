@@ -1,6 +1,7 @@
 """Midpoint subdivision and OBJ writing for procedural meshes.
 
-Copy of `subdivide` and `write_obj` from `relativitypathtracer_tpu.utils.subdiv`:
+Copy of `subdivide` and `write_obj` from `relativitypathtracer_tpu.utils.subdiv`,
+with optional per-vertex UVs in `write_obj` for the textured fixture:
 the generated mesh is written as a plain OBJ and loaded through the normal
 loader, so smooth normals, the octree and scene construction follow the
 reference semantics (Render.cpp:436-538).
@@ -35,9 +36,16 @@ def subdivide(verts, faces, levels: int):
     return verts, faces
 
 
-def write_obj(path: str, verts, faces):
+def write_obj(path: str, verts, faces, uvs=None):
+    """Write an OBJ. With `uvs` (one (u, v) per vertex) it also writes `vt`
+    lines and `f v/vt` faces that reuse each vertex's index for its uv."""
     with open(path, "w") as f:
         for v in verts:
             f.write(f"v {v[0]:.9g} {v[1]:.9g} {v[2]:.9g}\n")
+        for uv in uvs or ():
+            f.write(f"vt {uv[0]:.9g} {uv[1]:.9g}\n")
         for a, b, c in faces:
-            f.write(f"f {a + 1} {b + 1} {c + 1}\n")
+            if uvs:
+                f.write(f"f {a + 1}/{a + 1} {b + 1}/{b + 1} {c + 1}/{c + 1}\n")
+            else:
+                f.write(f"f {a + 1} {b + 1} {c + 1}\n")

@@ -88,3 +88,53 @@ def test_analytic_nearest_matches_interpret_kernel(n_spheres, n_cubes, interval)
         err_port = np.percentile(np.abs(got[..., ok] - ref[..., ok]), 99)
         err_jax = np.percentile(np.abs(want[..., ok] - ref[..., ok]), 99)
         assert err_port <= 2.0 * err_jax + 1e-6, (err_port, err_jax)
+
+
+@pytest.mark.parametrize("n_spheres,n_cubes,interval", [
+    (0, 9, -1),  # the cubes fixture's occluders, through the JAX culled walk
+    (6, 2, -1),  # spheres culled
+    (5, 5, 0),  # both kinds culled, interval 0
+    (1, 2, -1),  # below the culling threshold: JAX's plain loops
+], ids=["cubes_culled", "spheres_culled", "both_culled", "unculled"])
+def test_analytic_min_t_matches_interpret_kernel(n_spheres, n_cubes, interval):
+    """K7's twin against analytic_min_t_general(interpret=True) on shadow
+    rays with their own origins. The JAX kernel may report any value >=
+    tmax where the nearest occluder lies beyond tmax, so the two are held on
+    the lit mask (t >= tmax) of the lanes with tmax > 0, and on t where the
+    JAX t < tmax: rtol 1e-5 on 99% of those lanes and 1e-3 on all, because
+    far and grazing hits are ill-conditioned in fp32 (the JAX kernel's own t
+    is off a float64 walk by up to 3.6e-4 here) and XLA contracts FMAs; and
+    the port's 99th-percentile error against the float64 walk is at most
+    twice the JAX kernel's. Masked lanes (tmax == 0) give INF."""
+    rng = np.random.default_rng(200 + n_spheres * 10 + n_cubes)
+    L, inv_m, _, _ = _frame_inputs(rng, n_spheres, n_cubes, interval)
+    n = 4096
+    o = np.stack([rng.uniform(-0.5, 0.5, n), rng.uniform(-2.5, 2.5, n),
+                  rng.uniform(-2.5, 2.5, n), rng.uniform(0.0, 9.0, n)]).astype(np.float32)
+    tgt = np.stack([rng.uniform(-3, 3, n), rng.uniform(-2, 2, n), rng.uniform(3, 8, n)])
+    d = (tgt - o[1:]).astype(np.float32)
+    d /= np.linalg.norm(d, axis=0)
+    dir4 = np.concatenate([np.full((1, n), float(interval), np.float32), d])
+    tmax = rng.uniform(1.0, 12.0, n).astype(np.float32)
+    tmax[rng.uniform(size=n) < 0.2] = 0.0
+    ids = tuple(range(n_spheres + n_cubes))
+    params = np.asarray(jak.pack_analytic_params_general(jnp.asarray(L), jnp.asarray(inv_m), ids))
+    pparams = pak.pack_analytic_params_general(t(L), t(inv_m), ids)
+    np.testing.assert_allclose(pparams.numpy(), params, rtol=1e-6, atol=1e-6)
+
+    want = np.asarray(jak.analytic_min_t_general(
+        params, o, dir4, n_spheres, n_cubes, interval, tmax=jnp.asarray(tmax), interpret=True))
+    got = pak.analytic_min_t_general(t(params), t(o), t(dir4), n_spheres, n_cubes,
+                                     t(tmax)).numpy()
+    rel = tmax > 0
+    assert np.array_equal((got >= tmax)[rel], (want >= tmax)[rel])
+    occ = rel & (want < tmax)
+    assert 50 < occ.sum() < rel.sum() - 50  # occluded and lit lanes both occur
+    assert_mostly_close(got[occ], want[occ], 1e-5, 0.01, 1e-3, rel=True)
+    assert np.all(got[~rel] == 1e20)
+    ref = pak.analytic_min_t_plain(t(params, torch.float64), t(o, torch.float64),
+                                   t(dir4, torch.float64), n_spheres, n_cubes,
+                                   t(tmax, torch.float64)).numpy()
+    err_port = np.percentile(np.abs(got[occ] - ref[occ]) / ref[occ], 99)
+    err_jax = np.percentile(np.abs(want[occ] - ref[occ]) / ref[occ], 99)
+    assert err_port <= 2.0 * err_jax + 1e-6, (err_port, err_jax)

@@ -139,6 +139,9 @@ def test_analytic_kernel_matches_twin(cuda, n_spheres, n_cubes):
     torch.testing.assert_close(gt[same], wt[same], rtol=1e-5, atol=0)
     torch.testing.assert_close(gn[:, same], wn[:, same], rtol=0, atol=1e-5)
     torch.testing.assert_close(guv[:, same], wuv[:, same], rtol=0, atol=1e-5)
+    # With its sphere and cube tests in __device__ functions shared with K7,
+    # K3 still runs its twin's fp32 operations in the same order.
+    assert torch.equal(gt, wt) and torch.equal(gn, wn) and torch.equal(go, wo)
 
 
 def test_shadow_chain_kernel_matches_twin(cuda):
@@ -179,12 +182,108 @@ def test_card_frame_matches_cpu_frame(cuda, fixture_scene):
     card = pt.build_render_fn(meta, 256, 192, -1, with_aux=True, device=cuda)
     img, aux = card(scene, pt.FrameState(torch.tensor(state[0], device=cuda),
                                          torch.tensor(state[1], device=cuda)))
-    cpu_scene, cpu_meta = pt.build_scene(host)
-    ref, ref_aux = pt.build_render_fn(cpu_meta, 256, 192, -1, with_aux=True)(
+    cpu_scene, cpu_meta = pt.build_scene(host, device="cpu")
+    ref, ref_aux = pt.build_render_fn(cpu_meta, 256, 192, -1, with_aux=True, device="cpu")(
         cpu_scene, pt.FrameState(torch.tensor(state[0]), torch.tensor(state[1])))
     diff = (img.cpu() - ref).abs().amax(dim=-1)
     assert float((diff > 1e-3).float().mean()) <= 0.002
     assert int(aux["hits"]) > 0 and int(aux["shadow_rays"]) > 0
+
+
+@pytest.mark.parametrize("w,h", [(32, 48), (256, 256), (1024, 640)],
+                         ids=["small_K2", "mid_K8", "big"])
+def test_footprint_kernel_matches_twin(cuda, w, h):
+    """K2/K8 on one region per atlas tier, the renderer's per-object form
+    (three objects, one untextured): the same atlas quad on every lane, RGB
+    within 1e-5; the launch counts under the atlas's route."""
+    from relativitypathtracer_tpu_torch.ops.kernels import texture_kernel as tk
+    from relativitypathtracer_tpu_torch.ops.texture_layout import region_quads, texture_table
+
+    rng = np.random.default_rng(w + h)
+    wb = -(-w // 16)
+    rows = int(region_quads(np.int64(wb), np.int64(h))) * 4 // 8
+    quads = torch.as_tensor(rng.integers(0, 2 ** 24, (rows, 8)), dtype=torch.int32, device=cuda)
+    fp = torch.tensor([[0, 0, 0, wb, w, h], [0, 0, 0, 0, 0, 0], [0, 3, 2, wb, w - 5, h - 4]],
+                      dtype=torch.int32, device=cuda)
+    table = texture_table(torch.tensor([w, 0, w], dtype=torch.int32, device=cuda),
+                          torch.tensor([h, 0, h], dtype=torch.int32, device=cuda), fp)
+    n = 200_000
+    obj = torch.as_tensor(rng.integers(0, 3, n), dtype=torch.int32, device=cuda)
+    uv = torch.as_tensor(rng.random((2, n)), dtype=torch.float32, device=cuda)
+    uv[0, :500], uv[1, 500:1000], uv[:, 1000:1100] = 1.0, 0.0, 0.0
+    key = "rpt_footprint_sample/" + tk.texture_route(rows)
+    before = _launches(key)
+    got, gq = tk.footprint_fetch(quads, table, obj, uv, with_quads=True)
+    torch.cuda.synchronize()
+    assert _launches(key) == before + 1
+    want, wq = tk.footprint_fetch_plain(quads, table, obj, uv)
+    assert torch.equal(gq, wq)
+    assert float((got - want).abs().max()) <= 1e-5
+    per_lane = tk.footprint_sample_small(quads, table[obj.long(), 2:].T.contiguous(),
+                                         table[obj.long(), 0], table[obj.long(), 1], uv)
+    assert torch.equal(per_lane, got)
+
+
+def test_analytic_min_t_kernel_matches_twin(cuda):
+    """K7 with 2 spheres and 9 cubes: identical lit masks on the lanes with
+    tmax > 0, t within rtol 1e-5 where an occluder lies nearer than tmax,
+    INF on masked lanes."""
+    from relativitypathtracer_tpu_torch.ops import relmath
+    from relativitypathtracer_tpu_torch.ops.kernels import analytic_kernels as ak
+
+    rng = np.random.default_rng(71)
+    G = 11
+    pos = np.stack([rng.uniform(-2, 2, G), rng.uniform(-1.5, 1.5, G), rng.uniform(3, 7, G)], 1)
+    m = torch.stack([relmath.trs(p.astype(np.float32), np.float32(rng.uniform(0, 3)),
+                                 rng.normal(size=3).astype(np.float32),
+                                 rng.uniform(0.5, 1.2, 3).astype(np.float32)) for p in pos])
+    vel = torch.as_tensor(rng.normal(size=(G, 3)) * 0.2, dtype=torch.float32)
+    L, inv_m = relmath.lorentz(vel).to(cuda), relmath.inverse4(m).to(cuda)
+    params = ak.pack_analytic_params_general(L, inv_m, tuple(range(G)))
+    n = 131072
+    o = torch.as_tensor(np.stack([rng.uniform(0, 9, n), rng.uniform(-0.5, 0.5, n),
+                                  rng.uniform(-2.5, 2.5, n), rng.uniform(-2.5, 2.5, n)]),
+                        dtype=torch.float32, device=cuda)
+    d = torch.as_tensor(rng.normal(size=(3, n)) * 0.4, dtype=torch.float32, device=cuda)
+    d[2] = 1.0
+    dir4 = torch.cat([torch.full((1, n), -1.0, device=cuda), d / d.norm(dim=0)]).contiguous()
+    tmax = torch.as_tensor(rng.uniform(1, 12, n), dtype=torch.float32, device=cuda)
+    tmax[torch.as_tensor(rng.uniform(size=n) < 0.2, device=cuda)] = 0.0
+    before = _launches("rpt_analytic_min_t")
+    got = ak.analytic_min_t_general(params, o, dir4, 2, 9, tmax)
+    torch.cuda.synchronize()
+    assert _launches("rpt_analytic_min_t") == before + 1
+    want = ak.analytic_min_t_plain(params, o, dir4, 2, 9, tmax)
+    rel = tmax > 0
+    assert torch.equal((got >= tmax)[rel], (want >= tmax)[rel])
+    occ = rel & (want < tmax)
+    assert int(occ.sum()) > 1000
+    torch.testing.assert_close(got[occ], want[occ], rtol=1e-5, atol=0)
+    assert bool((got[~rel] == 1e20).all())
+
+
+@pytest.mark.parametrize("kind", ["textured", "cubes"])
+def test_textured_card_frames_match_cpu_frames(cuda, tmp_path, kind):
+    """The textured (K2) and cubes (K7, K8) fixtures at 256x192, moving
+    camera: the card's frame against the port's CPU frame, parity rule, and
+    msaa 2 on the textured one."""
+    import relativitypathtracer_tpu_torch as pt
+    from relativitypathtracer_tpu_torch.utils.demo_scene import write_demo_scene
+
+    host = pt.load_scene_file(write_demo_scene(str(tmp_path), 3, kind))
+    state = ((0.3, 0.0, 0.4), (0.7, 0.0, 0.0, 0.0))
+    for msaa in (1, 2) if kind == "textured" else (1,):
+        scene, meta = pt.build_scene(host, device=cuda)
+        img, aux = pt.build_render_fn(meta, 256, 192, -1, msaa, with_aux=True, device=cuda)(
+            scene, pt.FrameState(torch.tensor(state[0], device=cuda),
+                                 torch.tensor(state[1], device=cuda)))
+        cpu_scene, cpu_meta = pt.build_scene(host, device="cpu")
+        ref, ref_aux = pt.build_render_fn(cpu_meta, 256, 192, -1, msaa, with_aux=True,
+                                          device="cpu")(
+            cpu_scene, pt.FrameState(torch.tensor(state[0]), torch.tensor(state[1])))
+        diff = (img.cpu() - ref).abs().amax(dim=-1)
+        assert float((diff > 1e-3).float().mean()) <= 0.002
+        assert int(aux["hits"]) == int(ref_aux["hits"]) > 0
 
 
 def test_wrapper_checks_dtype_and_shape(cuda):

@@ -64,12 +64,30 @@ def test_cli_renders_the_fixture_on_cpu(tmp_path):
     assert out.stat().st_size > 0
 
 
+def test_cli_renders_msaa_and_interval_on_cpu(tmp_path):
+    """--msaa 2 counts four primary rays per pixel; --interval 0 turns light
+    propagation and with it the shadow rays off."""
+    from relativitypathtracer_tpu_torch.utils.demo_scene import write_demo_scene
+
+    scene = write_demo_scene(str(tmp_path), 1, "textured")
+    runs = {}
+    for flags in (["--msaa", "2"], ["--interval", "0"]):
+        proc = subprocess.run(
+            [sys.executable, "-m", "relativitypathtracer_tpu_torch.cli", "--scene", scene,
+             "--size", "32x32", "--metrics", "--device", "cpu", *flags],
+            cwd=REPO, env=_env(), capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, proc.stderr
+        runs[flags[0]] = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert runs["--msaa"]["rays_last_frame"] > 4 * 32 * 32
+    assert runs["--interval"]["rays_last_frame"] == 32 * 32
+
+
 def test_wrappers_never_fall_back_off_the_cpu():
     """A wrapper takes its plain twin only for CPU tensors: any other device
     either launches the CUDA kernel or raises (here, meta tensors raise
     before any build or launch)."""
     from relativitypathtracer_tpu_torch.ops.kernels import (
-        analytic_kernels, mesh_kernels, shadow_chain)
+        analytic_kernels, mesh_kernels, shadow_chain, texture_kernel)
 
     def m(*shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device="meta")
@@ -83,6 +101,10 @@ def test_wrappers_never_fall_back_off_the_cpu():
         lambda: analytic_kernels.analytic_nearest_shared(m(1, 32), m(4, 64), 1, 0),
         lambda: shadow_chain.shadow_chain(m(40, 2), m(1, 36), m(4, 64), m(64), m(3, 64),
                                           m(64, dtype=i32), -1),
+        lambda: analytic_kernels.analytic_min_t_general(m(2, 32), m(4, 64), m(4, 64), 1, 1,
+                                                        m(64)),
+        lambda: texture_kernel.footprint_fetch(m(512, 8, dtype=i32), m(2, 11, dtype=i32),
+                                               m(64, dtype=i32), m(2, 64)),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="CUDA device"):

@@ -78,8 +78,17 @@ def test_object_frames_match_jax():
 def test_camera_ray_dirs_match_jax(size):
     w, h, pw, ph = size
     want = np.asarray(jcamera.camera_ray_dirs(w, h, 1, pad_width=pw, pad_height=ph))
-    got = pcamera.camera_ray_dirs(w, h, pw, ph).numpy()
+    got = pcamera.camera_ray_dirs(w, h, 1, pw, ph, device="cpu").numpy()
     assert got.shape == want.shape == (ph, pw, 3)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("msaa", [2, 3])
+def test_camera_ray_dirs_msaa_match_jax(msaa):
+    """msaa**2 sample sets at offsets k/msaa, x fastest: (msaa**2, H, W, 3)."""
+    want = np.asarray(jcamera.camera_ray_dirs(40, 24, msaa, pad_width=64, pad_height=32))
+    got = pcamera.camera_ray_dirs(40, 24, msaa, 64, 32, device="cpu").numpy()
+    assert got.shape == want.shape == (msaa * msaa, 32, 64, 3)
     np.testing.assert_allclose(got, want, **TOL)
 
 

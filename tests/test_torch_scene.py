@@ -73,7 +73,7 @@ def test_scene_from_numpy_round_trip(both):
     import jax
 
     (js, _), (ps, _) = both
-    carried = pt.scene_from_numpy(jax.tree.map(np.asarray, js))
+    carried = pt.scene_from_numpy(jax.tree.map(np.asarray, js), device="cpu")
     for path in _PATHS:
         a, b = _leaf(carried, path), _leaf(ps, path)
         assert a.dtype == b.dtype and torch.equal(a, b), path
@@ -82,7 +82,7 @@ def test_scene_from_numpy_round_trip(both):
 def test_scene_from_numpy_refuses_the_multi_mesh_pool(both):
     (js, _), _ = both
     with pytest.raises(NotImplementedError, match="K9"):
-        pt.scene_from_numpy(js._replace(mesh_batch=js.mesh_static[0]))
+        pt.scene_from_numpy(js._replace(mesh_batch=js.mesh_static[0]), device="cpu")
 
 
 def test_parse_scene_matrices_match_jax_on_rotations():
@@ -112,7 +112,7 @@ def test_textured_scene_atlas_matches_jax(tmp_path):
     text = ("Ta.png\nTb.png\nOs\n p0,0,5,0,0,1,0,1,1,1\n t0\nOc\n p2,0,6,0.3,0,1,0,1,1,1\n t1\n"
             "Oc\n p-2,0,6,0,0,1,0,1,1,1\n t0\nR\n")
     js, jm = jbuild(jparse(text, str(tmp_path)))
-    ps, pm = pt.build_scene(pt.parse_scene(text, str(tmp_path)))
+    ps, pm = pt.build_scene(pt.parse_scene(text, str(tmp_path)), device="cpu")
     assert pm.textured_ids == (0, 1, 2) and pm.use_footprint_tex == jm.use_footprint_tex
     for path in ("textures", "textures_packed", "tex_quads", "tex_fp", "objects.tex_offset",
                  "objects.tex_w", "objects.tex_h"):

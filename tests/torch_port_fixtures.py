@@ -21,14 +21,14 @@ def build_both(scene_path: str):
     import relativitypathtracer_tpu_torch as pt
 
     return (jx.build_scene(jx.load_scene_file(scene_path)),
-            pt.build_scene(pt.load_scene_file(scene_path)))
+            pt.build_scene(pt.load_scene_file(scene_path), device="cpu"))
 
 
-def write_fixture(tmp_path_factory, level: int = 3) -> str:
-    """The port's demo fixture (utils/demo_scene) in a fresh temp dir."""
+def write_fixture(tmp_path_factory, level: int = 3, kind: str = "blob") -> str:
+    """One of the port's demo fixtures (utils/demo_scene) in a fresh temp dir."""
     from relativitypathtracer_tpu_torch.utils.demo_scene import write_demo_scene
 
-    return write_demo_scene(str(tmp_path_factory.mktemp(f"fixture{level}")), level)
+    return write_demo_scene(str(tmp_path_factory.mktemp(f"fixture_{kind}{level}")), level, kind)
 
 
 def soup(rng, T: int):
