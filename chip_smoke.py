@@ -5,23 +5,31 @@ Run from the repository root:  python3 chip_smoke.py
 
 It needs a CUDA device and nvcc, and fails (non-zero exit, no result line)
 without them. It builds the port's CUDA kernels from
-relativitypathtracer_tpu_torch/csrc, then drives three paths, each a
+relativitypathtracer_tpu_torch/csrc, then drives five paths, each a
 procedural fixture (utils/demo_scene) loaded through load_scene_file ->
 build_scene -> build_render_fn at 1024x768, interval -1 (light propagation
 and shadows on):
-  blob      one untextured 5,120-triangle mesh moving at 0.5c and a light
-            sphere: K1 shadow chain, K3 analytic nearest hit, K5 mesh
-            primary walk, K6 mesh shadow walk;
-  textured  the same mesh with a 32x32 texture (512-row footprint atlas),
-            bench.py's main path: K1, K2 footprint fetch, K3, K5, K6;
-  cubes     nine cubes (eight sharing a 256x256 texture, a 32,768-row
-            atlas, one row moving at 0.6c), a floor cube and a light
-            sphere: K1, K3, K7 analytic occlusion, K8 footprint fetch.
+  blob       one untextured 5,120-triangle mesh moving at 0.5c and a light
+             sphere: K1 shadow chain, K3 analytic nearest hit, K5 mesh
+             primary walk, K6 mesh shadow walk;
+  textured   the same mesh with a 32x32 texture (512-row footprint atlas),
+             bench.py's main path: K1, K2 footprint fetch, K3, K5, K6;
+  cubes      nine cubes (eight sharing a 256x256 texture, a 32,768-row
+             atlas, one row moving at 0.6c), a floor cube and a light
+             sphere: K1, K3, K7 analytic occlusion, K8 footprint fetch;
+  instances  that mesh instanced four times (20,480 triangles in one pool of
+             640 chunks; different scales, two moving, one textured) and a
+             light sphere: K1, K2, K3, K9 batched primary walk, K10 batched
+             shadow walk, and never K5/K6;
+  large      the blob at level 7 (327,680 triangles, 10,240 chunks in 320
+             superchunks) moving at 0.5c and a light sphere: K1, K3, K11
+             large-tier primary walk, K12 large-tier shadow walk, and never
+             K5/K6.
 For each path it:
   1. renders 3 frames with advancing time, the last with the camera moving
      at 0.5c, with every launch count set to 0 just before and read just
      after, and checks the image, the counts, and that each of the path's
-     kernels was launched;
+     kernels was launched and no other;
   2. runs each kernel against its plain PyTorch twin, both on the card, on
      the inputs the first frame gave it, and times both (CUDA events, median
      of 20 runs; the kernel's launches replayed from a CUDA graph, each on
@@ -30,7 +38,8 @@ For each path it:
      from those inputs;
   3. renders the last frame with the port on the CPU (the plain twins) and
      holds the card's frame to it under the parity rule (at most 0.2% of
-     pixels off by more than 1e-3); the blob path at 512x384;
+     pixels off by more than 1e-3); blob and instances at 512x384, large at
+     256x192, the others at 1024x768;
   4. times the frame (p50/p95 over 60 frames after 5 warm-up frames, CUDA
      events) and reports Mrays/s counting primary plus shadow rays.
 Last, it renders the textured path at msaa 2, 512x384, and holds it to its
@@ -66,6 +75,10 @@ KERNELS = {
     "rpt_analytic_min_t": ("K7", PKG + "analytic_kernels.cu", TPU + "analytic_kernels.py:521"),
     "rpt_footprint_sample/windowed": ("K8", PKG + "texture_kernels.cu",
                                       TPU + "texture_kernel.py:226"),
+    "rpt_batched_shared_walk": ("K9", PKG + "mesh_batch.cu", TPU + "mesh_batch.py:169"),
+    "rpt_batched_general_walk": ("K10", PKG + "mesh_batch.cu", TPU + "mesh_batch.py:378"),
+    "rpt_large_shared_walk": ("K11", PKG + "mesh_kernels.cu", TPU + "mesh_large.py:147"),
+    "rpt_large_general_walk": ("K12", PKG + "mesh_kernels.cu", TPU + "mesh_large.py:338"),
 }
 PATHS = {  # path -> (demo scene kind, kernels it runs, CPU parity size)
     "blob": ("blob", ("rpt_shadow_chain", "rpt_analytic_nearest", "rpt_shared_walk",
@@ -75,8 +88,15 @@ PATHS = {  # path -> (demo scene kind, kernels it runs, CPU parity size)
                  (WIDTH, HEIGHT)),
     "cubes": ("cubes", ("rpt_shadow_chain", "rpt_analytic_nearest", "rpt_analytic_min_t",
                         "rpt_footprint_sample/windowed"), (WIDTH, HEIGHT)),
+    "instances": ("instances", ("rpt_shadow_chain", "rpt_footprint_sample/small",
+                                "rpt_analytic_nearest", "rpt_batched_shared_walk",
+                                "rpt_batched_general_walk"), (512, 384)),
+    "large": ("large", ("rpt_shadow_chain", "rpt_analytic_nearest", "rpt_large_shared_walk",
+                        "rpt_large_general_walk"), (256, 192)),
 }
-REPORT_FROM = {"K7": "cubes", "K8": "cubes"}  # other kernels report the textured path
+# other kernels report the textured path
+REPORT_FROM = {"K7": "cubes", "K8": "cubes", "K9": "instances", "K10": "instances",
+               "K11": "large", "K12": "large"}
 
 
 class CheckFailed(RuntimeError):
@@ -141,13 +161,14 @@ def bound(ops: float, nbytes: float) -> tuple[float, str]:
 
 
 def nbytes(*tensors) -> int:
-    return sum(x.numel() * x.element_size() for x in tensors)
+    """Bytes of the tensors among the arguments (the walks also take ints)."""
+    return sum(x.numel() * x.element_size() for x in tensors if hasattr(x, "numel"))
 
 
 def compare_kernels(torch, pt_mods, meta, captured, originals, names):
     """Each kernel of `names` against its plain twin on its captured
     first-frame inputs: checks, error, kernel/plain ms, bound."""
-    ak, mk, sc, tk = pt_mods
+    ak, mk, sc, tk, mb, ml = pt_mods
     out = {}
 
     def record(name, err, fn, args, plain, ops, moved):
@@ -241,7 +262,55 @@ def compare_kernels(torch, pt_mods, meta, captured, originals, names):
             n, G = tmax.shape[0], args[0].shape[0]
             record(name, err, fn, args, ak.analytic_min_t_plain, 100.0 * G * float(rel.sum()),
                    nbytes(args[0], args[1], args[2], tmax) + 4 * n)
+        elif name in ("rpt_batched_shared_walk", "rpt_large_shared_walk"):
+            batched = name == "rpt_batched_shared_walk"
+            plain = mb.batched_shared_walk_plain if batched else ml.large_shared_walk_plain
+            got, want = fn(*args), plain(*args)
+            gt, gtri, gattr, wt, wtri, wattr = got[0], got[3], got[-1], want[0], want[3], want[-1]
+            hit = wtri >= 0
+            kid = KERNELS[name][0]
+            check(bool(torch.equal(gtri >= 0, hit)) and int(hit.sum()) > 0, f"{kid} hit masks")
+            check(float((gtri != wtri).float().mean()) <= 1e-3, f"{kid} triangle ids")
+            if batched:
+                check(bool(torch.equal(got[4], want[4])), "K9 object slots")
+            same = hit & (gtri == wtri)
+            check(torch.allclose(gt[same], wt[same], rtol=1e-5), f"{kid} t")
+            check(torch.allclose(gattr[:, same], wattr[:, same], atol=1e-4), f"{kid} attributes")
+            err = max(float((gt[same] - wt[same]).abs().max()),
+                      float((gattr - wattr)[:, same].abs().max()))
+            # live chunks x 32 triangles x 1024 lanes, 29 operations a test
+            # (K9: one more, the scale to shared units)
+            n = args[8].shape[1] if batched else args[7].shape[1]
+            record(name, err, fn, args, plain, (30.0 if batched else 29.0) * 32 * 1024
+                   * float(live_chunks(ml, name, args).sum()), nbytes(*args) + 80 * n)
+        elif name in ("rpt_batched_general_walk", "rpt_large_general_walk"):
+            batched = name == "rpt_batched_general_walk"
+            plain = mb.batched_general_walk_plain if batched else ml.large_general_walk_plain
+            got, want = fn(*args), plain(*args)
+            tmax = args[9] if batched else args[7][0]
+            masked = tmax > 0
+            kid = KERNELS[name][0]
+            check(int(masked.sum()) > 0, f"{kid}: no shadow lanes")
+            check(bool(torch.equal((got >= tmax)[masked], (want >= tmax)[masked])),
+                  f"{kid} lit masks")
+            check(int((want < tmax)[masked].sum()) > 0, f"{kid}: no occluded lanes")
+            n = tmax.shape[0]
+            # live chunks x 32 triangles x the block's lanes with tmax > 0,
+            # 47 operations a test (K10: one more, the scale)
+            lanes = masked.reshape(-1, 1024).sum(dim=1)
+            tests = float((live_chunks(ml, name, args).double() * lanes).sum()) * 32
+            record(name, float((got - want).abs().max()), fn, args, plain,
+                   (48.0 if batched else 47.0) * tests, nbytes(*args) + 4 * n)
     return out
+
+
+def live_chunks(ml, name, args):
+    """(B,) live chunks in each block's list: the counts of the flat lists
+    (K9, K10); the set bits of the listed superchunks (K11, K12)."""
+    if name.startswith("rpt_batched"):
+        return args[2]
+    S, C = args[-3], args[-2]  # the walks end in (..., S, C, T)
+    return ml.super_cursor_lists(*args[:4], S, C)[2]
 
 
 def parity(torch, pt, host, state, card_img, card_aux, size, msaa=1):
@@ -292,10 +361,12 @@ def main() -> int:
     from relativitypathtracer_tpu_torch import render as prender
     from relativitypathtracer_tpu_torch.ops.kernels import _build
     from relativitypathtracer_tpu_torch.ops.kernels import analytic_kernels as ak
+    from relativitypathtracer_tpu_torch.ops.kernels import mesh_batch as mb
     from relativitypathtracer_tpu_torch.ops.kernels import mesh_kernels as mk
+    from relativitypathtracer_tpu_torch.ops.kernels import mesh_large as ml
     from relativitypathtracer_tpu_torch.ops.kernels import shadow_chain as sc
     from relativitypathtracer_tpu_torch.ops.kernels import texture_kernel as tk
-    from relativitypathtracer_tpu_torch.utils.demo_scene import write_demo_scene
+    from relativitypathtracer_tpu_torch.utils.demo_scene import LARGE_LEVEL, write_demo_scene
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -321,7 +392,11 @@ def main() -> int:
              "rpt_shared_walk": (mk, "shared_walk"),
              "rpt_general_walk": (mk, "general_walk"),
              "rpt_analytic_min_t": (prender, "analytic_min_t_general"),
-             "rpt_footprint_sample": (prender, "footprint_fetch")}
+             "rpt_footprint_sample": (prender, "footprint_fetch"),
+             "rpt_batched_shared_walk": (mb, "batched_shared_walk"),
+             "rpt_batched_general_walk": (mb, "batched_general_walk"),
+             "rpt_large_shared_walk": (ml, "large_shared_walk"),
+             "rpt_large_general_walk": (ml, "large_general_walk")}
     originals = {name: getattr(mod, attr) for name, (mod, attr) in hooks.items()}
     results, launches_by_path, hosts = {}, {}, {}
 
@@ -336,8 +411,15 @@ def main() -> int:
             f"{meta.cube_ids}, textured {meta.textured_ids}, atlas "
             f"{tuple(scene.tex_quads.shape)}, lights {meta.light_ids}, built in "
             f"{time.perf_counter() - t0:.1f} s")
-        check(meta.light_ids and (kind == "cubes" or meta.num_tris == 20 * 4 ** LEVEL),
-              "fixture shape")
+        tris = {"blob": 20 * 4 ** LEVEL, "textured": 20 * 4 ** LEVEL,
+                "instances": 20 * 4 ** LEVEL, "large": 20 * 4 ** LARGE_LEVEL}
+        check(meta.light_ids and meta.num_tris == tris.get(kind, meta.num_tris), "fixture shape")
+        if kind == "instances":  # four instances of one mesh in one pool of 640 chunks
+            check(len(meta.mesh_ids) == 4 and sum(meta.mesh_chunk_counts) == 640
+                  and scene.mesh_batch is not None, "instances: the fused pool")
+        if kind == "large":  # the large tier: 10,240 chunks, no pool
+            check(scene.mesh_static[0].gen_rec is not None
+                  and scene.mesh_static[0].spheres.shape[0] == 10240, "large: the large tier")
         render = pt.build_render_fn(meta, WIDTH, HEIGHT, -1, with_aux=True, device=dev)
 
         captured, recording = {}, [True]
@@ -379,7 +461,7 @@ def main() -> int:
             check(name in names, f"{path}: unexpected launches of {name}")
 
         originals_by_key = {n: originals[n.split("/")[0]] for n in names}
-        results[path] = compare_kernels(torch, (ak, mk, sc, tk), meta, captured,
+        results[path] = compare_kernels(torch, (ak, mk, sc, tk, mb, ml), meta, captured,
                                         originals_by_key, names)
         del captured
 

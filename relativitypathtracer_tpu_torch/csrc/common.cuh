@@ -44,6 +44,42 @@ __device__ __forceinline__ float box_bound(const float* lo, const float* hi,
   return (near <= far && far > 0.0f) ? far * 1.001f + 1e-3f : 0.0f;
 }
 
+// Moller-Trumbore acceptance in the TPU's form: one reciprocal 1/det, then
+// products (mesh_kernels._mt_mask).
+__device__ __forceinline__ bool mt_accept(float det, float un, float vn, float tn,
+                                          float* u, float* v, float* dist) {
+  const float inv = 1.0f / det;
+  *u = un * inv;
+  *v = vn * inv;
+  *dist = tn * inv;
+  return fabsf(det) >= kEps && *u >= 0.0f && *u <= 1.0f && *v >= 0.0f &&
+         *u + *v <= 1.0f && *dist >= 0.0f;
+}
+
+// One triangle against a ray from the shared origin: c is the row
+// [det(3) u(3) v(3) ct] of mesh_kernels.shared_tri_rows, d the unit
+// object-space direction. Sums run left to right, as the twins'.
+__device__ __forceinline__ bool shared_tri_test(const float* c, float dx, float dy, float dz,
+                                                float* u, float* v, float* dist) {
+  const float det = c[0] * dx + c[1] * dy + c[2] * dz;
+  const float un = c[3] * dx + c[4] * dy + c[5] * dz;
+  const float vn = c[6] * dx + c[7] * dy + c[8] * dz;
+  return mt_accept(det, un, vn, c[9], u, v, dist);
+}
+
+// One triangle against a general ray x = [d, o x d, o, 1]: c is the row
+// [det(3) u(6) v(6) t(4) pad] of mesh_kernels.general_tri_rows.
+__device__ __forceinline__ bool general_tri_test(const float* c, const float* x, float* dist) {
+  const float det = c[0] * x[0] + c[1] * x[1] + c[2] * x[2];
+  const float un = c[3] * x[0] + c[4] * x[1] + c[5] * x[2] + c[6] * x[3] + c[7] * x[4] +
+                   c[8] * x[5];
+  const float vn = c[9] * x[0] + c[10] * x[1] + c[11] * x[2] + c[12] * x[3] + c[13] * x[4] +
+                   c[14] * x[5];
+  const float tn = c[15] * x[6] + c[16] * x[7] + c[17] * x[8] + c[18] * x[9];
+  float u, v;
+  return mt_accept(det, un, vn, tn, &u, &v, dist);
+}
+
 // Max of `v` over the block; every thread gets the same value, so a loop
 // that tests it is uniform across the block. s_red holds one float per warp.
 template <int THREADS>

@@ -1,18 +1,24 @@
-// K5 and K6: the mesh walks over per-block live-chunk lists.
+// K5, K6, K11 and K12: the mesh walks over per-block live-chunk lists.
 //
 // Replaces relativitypathtracer_tpu/ops/pallas/mesh_kernels.py:
 //   _shared_kernel  (K5, wrapper shared_nearest_hit): nearest triangle hit of
 //                   primary rays that share one origin;
 //   _general_kernel (K6, wrapper general_min_t): min hit distance of shadow
 //                   rays with per-lane origins, bounded by tmax, with
-//                   occlusion retirement below tcut.
+//                   occlusion retirement below tcut;
+// and relativitypathtracer_tpu/ops/pallas/mesh_large.py, the large-mesh tier:
+//   _shared_large_kernel  (K11, wrapper large_shared_nearest_hit) and
+//   _general_large_kernel (K12, wrapper large_general_min_t): the same two
+//                   walks over a superchunk-ordered list with a per-(block,
+//                   chunk) liveness bitmask.
 //
 // What bounds them on this card: arithmetic and the walk's length, not
 // memory. A live chunk costs each ray 32 ray/triangle tests (about 30 fp32
-// operations and one IEEE division each) against 320 (K5) or 640 (K6) bytes
-// of constants that the whole block shares; rays, lists and outputs are read
-// and written once. The block-wide early-termination test needs every lane's
-// bound, so a block advances only as fast as its slowest warp.
+// operations and one IEEE division each) against 320 (shared) or 640
+// (general) bytes of constants that the whole block shares; rays, lists and
+// outputs are read and written once. The block-wide early-termination test
+// needs every lane's bound, so a block advances only as fast as its slowest
+// warp.
 //
 // Design: one CUDA block per 1024-ray block (the JAX package's ray block, so
 // block b's live list is the same array in both packages); 256 threads own
@@ -24,24 +30,119 @@
 // loop decision. The TPU's chunk pairing (a fix for TPU loop overhead) is not
 // copied: it never changes results. Acceptance uses the TPU's form: one
 // reciprocal 1/det, then u = u_num * inv, v = v_num * inv, dist = ct * inv,
-// with -fmad=false, so edge pixels decide as on the TPU. K5 loads the
-// winner's 15 attributes as one fp32 row at the end, where the TPU selects
-// them with hi/lo bf16 one-hot products (those carry about |x| * 2^-16).
+// with -fmad=false, so edge pixels decide as on the TPU. The shared walk
+// loads the winner's 15 attributes as one fp32 row at the end, where the TPU
+// selects them with hi/lo bf16 one-hot products (those carry about
+// |x| * 2^-16).
+//
+// One walk serves both tiers; only the list it is fed differs (the `List`
+// template parameter, whose `next` yields the next chunk to test or ends the
+// walk):
+//   FlatList   (K5, K6): chunk ids in front-to-back order; stop at the first
+//              chunk whose floor is not below the block bound.
+//   SuperList  (K11, K12): superchunk ids in front-to-back order; a cursor
+//              runs over the positions of the live supers (S chunks each),
+//              skips the chunks whose liveness bit is clear, and stops at the
+//              first live chunk whose super's floor is not below the bound.
+// The TPU streams the large tier's per-chunk records from HBM into VMEM with
+// double-buffered DMAs because its VMEM cannot hold them; here every chunk is
+// read from device memory into shared memory as in K5/K6 (the row layouts are
+// the same), so the large tier needs no records of its own. Triangles at or
+// past the real count T are masked as on the TPU (mesh_large.py:226); K5/K6
+// test whole chunks (their zero pad rows fail the det test anyway), with a
+// trip count the compiler knows, as before the large tier shared the walk.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kRays = rpt::kNB / kThreads;  // rays per thread
-constexpr int kShRow = 10;  // K5 triangle row: det(3) u(3) v(3) ct
-constexpr int kGenRow = 20;  // K6 triangle row: det(3) u(6) v(6) t(4) pad
+constexpr int kShRow = 10;  // shared triangle row: det(3) u(3) v(3) ct
+constexpr int kGenRow = 20;  // general triangle row: det(3) u(6) v(6) t(4) pad
 constexpr int kAttr = 15;
 
+// K5/K6 lists: order (B, C) chunk ids, minds (B, C) floors by chunk id,
+// counts (B,) live chunks.
+struct FlatList {
+  static constexpr bool kMaskTail = false;  // every chunk holds kTC triangles to test
+  const int* order;
+  const float* minds;
+  const int* counts;
+  int n_chunks;
+
+  struct Walk {
+    const int* ord;
+    const float* md;
+    int n_live;
+    int j;
+
+    // Strict <: a hit at dist == mb cannot beat any lane's bound.
+    __device__ bool next(float mb, int* k) {
+      if (j >= n_live) return false;
+      const int c = ord[j];
+      if (!(md[c] < mb)) return false;
+      ++j;
+      *k = c;
+      return true;
+    }
+  };
+
+  __device__ Walk at(int b) const {
+    const size_t row = static_cast<size_t>(b) * n_chunks;
+    return Walk{order + row, minds + row, counts[b], 0};
+  }
+};
+
+// K11/K12 lists: order (B, C_s) super ids, minds (B, C_s) floors by super
+// id, counts (B,) live supers, bits (B, W) liveness of chunk w * 32 + i in
+// bit i of word w (bit 31 is the sign bit). A super holds S consecutive
+// chunks; positions past the real chunk count C are dead (their bits are 0
+// by construction; the c < C test keeps the read inside the row).
+struct SuperList {
+  static constexpr bool kMaskTail = true;  // triangles at or past T are masked
+  const int* order;
+  const float* minds;
+  const int* counts;
+  const int* bits;
+  int n_super;
+  int n_words;
+  int S;
+  int C;
+
+  struct Walk {
+    const int* ord;
+    const float* md;
+    const int* bw;
+    int end;
+    int S;
+    int C;
+    int p;
+
+    __device__ bool next(float mb, int* k) {
+      int c = 0;
+      for (; p < end; ++p) {  // skip dead chunks
+        c = ord[p / S] * S + p % S;
+        if (c < C && ((bw[c >> 5] >> (c & 31)) & 1)) break;
+      }
+      if (p >= end) return false;
+      if (!(md[ord[p / S]] < mb)) return false;
+      ++p;
+      *k = c;
+      return true;
+    }
+  };
+
+  __device__ Walk at(int b) const {
+    const size_t row = static_cast<size_t>(b) * n_super;
+    return Walk{order + row, minds + row, bits + static_cast<size_t>(b) * n_words,
+                counts[b] * S, S, C, 0};
+  }
+};
+
+template <class List>
 __global__ void __launch_bounds__(kThreads)
-shared_walk_kernel(const int* __restrict__ order, const float* __restrict__ minds,
-                   const int* __restrict__ counts, const float* __restrict__ box,
-                   const float* __restrict__ tri, const float* __restrict__ attrs,
-                   const float* __restrict__ dh, int n, int n_chunks,
+shared_walk_kernel(List list, const float* __restrict__ box, const float* __restrict__ tri,
+                   const float* __restrict__ attrs, const float* __restrict__ dh, int n, int T,
                    float* __restrict__ t_out, float* __restrict__ u_out,
                    float* __restrict__ v_out, int* __restrict__ tri_out,
                    float* __restrict__ attr_out) {
@@ -73,33 +174,24 @@ shared_walk_kernel(const int* __restrict__ order, const float* __restrict__ mind
   // union box (bound 0) walks no chunk.
   float mb = rpt::block_max<kThreads>(local, s_red);
 
-  const int n_live = counts[b];
-  const int* ord = order + static_cast<size_t>(b) * n_chunks;
-  const float* md = minds + static_cast<size_t>(b) * n_chunks;
-  for (int j = 0; j < n_live; ++j) {
-    const int k = ord[j];
-    // Strict <: a hit at dist == mb cannot beat any lane's min(best, bound).
-    if (!(md[k] < mb)) break;
+  typename List::Walk walk = list.at(b);
+  int k;
+  while (walk.next(mb, &k)) {
     __syncthreads();  // the previous chunk's readers are done
     const float* src = tri + static_cast<size_t>(k) * rpt::kTC * kShRow;
     for (int e = threadIdx.x; e < rpt::kTC * kShRow; e += kThreads) s_tri[e] = src[e];
     __syncthreads();
+    // triangles below T; a compile-time kTC for K5/K6
+    const int n_tri = List::kMaskTail ? min(rpt::kTC, T - k * rpt::kTC) : rpt::kTC;
     local = 0.0f;
 #pragma unroll
     for (int r = 0; r < kRays; ++r) {
       float dmin = rpt::kInf, umin = 0.0f, vmin = 0.0f;
       int imin = 0;
-      for (int i = 0; i < rpt::kTC; ++i) {
-        const float* c = s_tri + i * kShRow;
-        const float det = c[0] * dx[r] + c[1] * dy[r] + c[2] * dz[r];
-        const float un = c[3] * dx[r] + c[4] * dy[r] + c[5] * dz[r];
-        const float vn = c[6] * dx[r] + c[7] * dy[r] + c[8] * dz[r];
-        const float inv = 1.0f / det;
-        const float u = un * inv;
-        const float v = vn * inv;
-        const float dist = c[9] * inv;
-        const bool ok = fabsf(det) >= rpt::kEps && u >= 0.0f && u <= 1.0f &&
-                        v >= 0.0f && u + v <= 1.0f && dist >= 0.0f;
+      for (int i = 0; i < n_tri; ++i) {
+        float u, v, dist;
+        const bool ok = rpt::shared_tri_test(s_tri + i * kShRow, dx[r], dy[r], dz[r],
+                                             &u, &v, &dist);
         // strict <: the first minimum wins, as jnp.argmin
         if (ok && dist < dmin) {
           dmin = dist;
@@ -134,12 +226,11 @@ shared_walk_kernel(const int* __restrict__ order, const float* __restrict__ mind
   }
 }
 
+template <class List>
 __global__ void __launch_bounds__(kThreads)
-general_walk_kernel(const int* __restrict__ order, const float* __restrict__ minds,
-                    const int* __restrict__ counts, const float* __restrict__ box,
-                    const float* __restrict__ rows, const float* __restrict__ r10,
-                    const float* __restrict__ tmax2, int n, int n_chunks,
-                    float* __restrict__ t_out) {
+general_walk_kernel(List list, const float* __restrict__ box, const float* __restrict__ rows,
+                    const float* __restrict__ r10, const float* __restrict__ tmax2, int n,
+                    int T, float* __restrict__ t_out) {
   __shared__ float s_tri[rpt::kTC * kGenRow];
   __shared__ float s_red[kThreads / 32];
   const int b = blockIdx.x;
@@ -165,36 +256,21 @@ general_walk_kernel(const int* __restrict__ order, const float* __restrict__ min
   // Blocks whose lanes are all masked (tmax 0) walk no chunk.
   float mb = rpt::block_max<kThreads>(local, s_red);
 
-  const int n_live = counts[b];
-  const int* ord = order + static_cast<size_t>(b) * n_chunks;
-  const float* md = minds + static_cast<size_t>(b) * n_chunks;
-  for (int j = 0; j < n_live; ++j) {
-    const int k = ord[j];
-    if (!(md[k] < mb)) break;
+  typename List::Walk walk = list.at(b);
+  int k;
+  while (walk.next(mb, &k)) {
     __syncthreads();
     const float* src = rows + static_cast<size_t>(k) * rpt::kTC * kGenRow;
     for (int e = threadIdx.x; e < rpt::kTC * kGenRow; e += kThreads) s_tri[e] = src[e];
     __syncthreads();
+    const int n_tri = List::kMaskTail ? min(rpt::kTC, T - k * rpt::kTC) : rpt::kTC;
     local = 0.0f;
 #pragma unroll
     for (int q = 0; q < kRays; ++q) {
       float cmin = rpt::kInf;
-      for (int i = 0; i < rpt::kTC; ++i) {
-        const float* c = s_tri + i * kGenRow;
-        const float* x = r[q];
-        const float det = c[0] * x[0] + c[1] * x[1] + c[2] * x[2];
-        const float un = c[3] * x[0] + c[4] * x[1] + c[5] * x[2] + c[6] * x[3] +
-                         c[7] * x[4] + c[8] * x[5];
-        const float vn = c[9] * x[0] + c[10] * x[1] + c[11] * x[2] + c[12] * x[3] +
-                         c[13] * x[4] + c[14] * x[5];
-        const float tn = c[15] * x[6] + c[16] * x[7] + c[17] * x[8] + c[18] * x[9];
-        const float inv = 1.0f / det;
-        const float u = un * inv;
-        const float v = vn * inv;
-        const float dist = tn * inv;
-        const bool ok = fabsf(det) >= rpt::kEps && u >= 0.0f && u <= 1.0f &&
-                        v >= 0.0f && u + v <= 1.0f && dist >= 0.0f;
-        if (ok) cmin = fminf(cmin, dist);
+      for (int i = 0; i < n_tri; ++i) {
+        float dist;
+        if (rpt::general_tri_test(s_tri + i * kGenRow, r[q], &dist)) cmin = fminf(cmin, dist);
       }
       bt[q] = fminf(bt[q], cmin);
       // A lane holding a hit below tcut is occluded whatever lies nearer:
@@ -211,19 +287,21 @@ general_walk_kernel(const int* __restrict__ order, const float* __restrict__ min
   }
 }
 
+cudaStream_t as_stream(void* stream) { return static_cast<cudaStream_t>(stream); }
+
 }  // namespace
 
 extern "C" int rpt_shared_walk(const void* order, const void* minds, const void* counts,
                                const void* box, const void* tri, const void* attrs,
                                const void* dh, int n, int n_chunks, void* t, void* u,
                                void* v, void* tri_out, void* attr, void* stream) {
-  shared_walk_kernel<<<n / rpt::kNB, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(order), static_cast<const float*>(minds),
-      static_cast<const int*>(counts), static_cast<const float*>(box),
-      static_cast<const float*>(tri), static_cast<const float*>(attrs),
-      static_cast<const float*>(dh), n, n_chunks, static_cast<float*>(t),
-      static_cast<float*>(u), static_cast<float*>(v), static_cast<int*>(tri_out),
-      static_cast<float*>(attr));
+  const FlatList list{static_cast<const int*>(order), static_cast<const float*>(minds),
+                      static_cast<const int*>(counts), n_chunks};
+  shared_walk_kernel<<<n / rpt::kNB, kThreads, 0, as_stream(stream)>>>(
+      list, static_cast<const float*>(box), static_cast<const float*>(tri),
+      static_cast<const float*>(attrs), static_cast<const float*>(dh), n,
+      n_chunks * rpt::kTC, static_cast<float*>(t), static_cast<float*>(u),
+      static_cast<float*>(v), static_cast<int*>(tri_out), static_cast<float*>(attr));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -231,11 +309,43 @@ extern "C" int rpt_general_walk(const void* order, const void* minds, const void
                                 const void* box, const void* rows, const void* r10,
                                 const void* tmax2, int n, int n_chunks, void* t,
                                 void* stream) {
-  general_walk_kernel<<<n / rpt::kNB, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(order), static_cast<const float*>(minds),
-      static_cast<const int*>(counts), static_cast<const float*>(box),
-      static_cast<const float*>(rows), static_cast<const float*>(r10),
-      static_cast<const float*>(tmax2), n, n_chunks, static_cast<float*>(t));
+  const FlatList list{static_cast<const int*>(order), static_cast<const float*>(minds),
+                      static_cast<const int*>(counts), n_chunks};
+  general_walk_kernel<<<n / rpt::kNB, kThreads, 0, as_stream(stream)>>>(
+      list, static_cast<const float*>(box), static_cast<const float*>(rows),
+      static_cast<const float*>(r10), static_cast<const float*>(tmax2), n,
+      n_chunks * rpt::kTC, static_cast<float*>(t));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int rpt_large_shared_walk(const void* order, const void* minds, const void* counts,
+                                     const void* bits, const void* box, const void* tri,
+                                     const void* attrs, const void* dh, int n, int n_super,
+                                     int n_words, int S, int C, int T, void* t, void* u,
+                                     void* v, void* tri_out, void* attr, void* stream) {
+  const SuperList list{static_cast<const int*>(order), static_cast<const float*>(minds),
+                       static_cast<const int*>(counts), static_cast<const int*>(bits),
+                       n_super, n_words, S, C};
+  shared_walk_kernel<<<n / rpt::kNB, kThreads, 0, as_stream(stream)>>>(
+      list, static_cast<const float*>(box), static_cast<const float*>(tri),
+      static_cast<const float*>(attrs), static_cast<const float*>(dh), n, T,
+      static_cast<float*>(t), static_cast<float*>(u), static_cast<float*>(v),
+      static_cast<int*>(tri_out), static_cast<float*>(attr));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int rpt_large_general_walk(const void* order, const void* minds, const void* counts,
+                                      const void* bits, const void* box, const void* rows,
+                                      const void* r10, const void* tmax2, int n, int n_super,
+                                      int n_words, int S, int C, int T, void* t,
+                                      void* stream) {
+  const SuperList list{static_cast<const int*>(order), static_cast<const float*>(minds),
+                       static_cast<const int*>(counts), static_cast<const int*>(bits),
+                       n_super, n_words, S, C};
+  general_walk_kernel<<<n / rpt::kNB, kThreads, 0, as_stream(stream)>>>(
+      list, static_cast<const float*>(box), static_cast<const float*>(rows),
+      static_cast<const float*>(r10), static_cast<const float*>(tmax2), n, T,
+      static_cast<float*>(t));
   return static_cast<int>(cudaGetLastError());
 }
 

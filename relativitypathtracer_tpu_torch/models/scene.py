@@ -3,9 +3,10 @@
 Torch counterpart of `relativitypathtracer_tpu.models.scene`. `build_scene`
 turns a parsed HostScene into the same structure of arrays as the JAX
 package (ObjectsSoA, MeshArrays, MeshStatic, Scene), as tensors on an explicit
-device, and a hashable `SceneMeta`. This slice covers one mesh object in the
-VMEM tier (T_pad <= LARGE_T); the large tier and the multi-mesh pool raise
-NotImplementedError with the kernels they wait for.
+device, and a hashable `SceneMeta`. A mesh whose padded triangle count is
+above `mesh_intersect.large_tier_threshold()` is built for the large tier
+(K11/K12); a scene with several mesh objects, none of them large, also gets
+the fused pool of the batched walks (K9/K10, `MeshBatchStatic`).
 """
 
 from __future__ import annotations
@@ -24,8 +25,6 @@ from ..ops.texture_layout import (
 SPHERE = 0
 CUBE = 1
 MESH = 2
-
-LARGE_T = 24576  # above this T_pad the JAX package takes its large-mesh tier
 
 
 class ObjectsSoA(NamedTuple):
@@ -70,8 +69,22 @@ class MeshStatic(NamedTuple):
     spheres: torch.Tensor  # (T_pad / TC, 4) chunk bounding spheres
     gen_cols: torch.Tensor  # (4 * T_pad, 10) factor-grouped Plucker operators
     gen_spheres: torch.Tensor  # (T_pad / TC_GEN, 4)
-    gen_rec: torch.Tensor | None = None  # large tier only (not ported yet)
-    attrs_split: torch.Tensor | None = None  # large tier only (not ported yet)
+    # Large tier only, and its marker (as in the JAX package): the (T_pad, 20)
+    # general triangle rows K12 reads. The JAX package's lane-major DMA
+    # records and bf16-split attributes have no counterpart: the port's large
+    # walks read the same rows as K5/K6.
+    gen_rec: torch.Tensor | None = None
+
+
+class MeshBatchStatic(NamedTuple):
+    """The fused pool of the batched walks (K9/K10): every mesh object's
+    constants concatenated in meta.mesh_ids order, the Plucker operators
+    regrouped by factor over the whole pool. Chunks per object are in
+    SceneMeta.mesh_chunk_counts."""
+
+    attrs: torch.Tensor  # (Tsum_pad, 15)
+    gen_cols: torch.Tensor  # (4 * Tsum_pad, 10)
+    spheres: torch.Tensor  # (C, 4) object-major
 
 
 class Scene(NamedTuple):
@@ -85,7 +98,7 @@ class Scene(NamedTuple):
     mesh_static: tuple  # MeshStatic per mesh object (meta.mesh_ids order)
     white_point: torch.Tensor  # (3,) f32
     ambient: torch.Tensor  # () f32
-    mesh_batch: None = None  # multi-mesh pool: K9/K10, not ported yet
+    mesh_batch: MeshBatchStatic | None = None  # the pool of several meshes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,22 +193,38 @@ def _footprint_atlas(packed_texels: np.ndarray, texture_values: list, regions: l
 
 
 def _mesh_static(mesh: MeshArrays, perm: tuple) -> MeshStatic:
-    from ..ops.kernels.mesh_kernels import chunk_spheres
+    from ..ops.kernels.mesh_kernels import chunk_spheres, general_tri_rows
     from ..ops.mesh_intersect import (
-        general_ray_constants, mesh_tri_vertices, padded_tri_count, tri_attr_matrix)
+        general_ray_constants, large_tier_threshold, mesh_tri_vertices, padded_tri_count,
+        tri_attr_matrix)
 
     perm_t = torch.as_tensor(perm, dtype=torch.long, device=mesh.vertices.device)
     T_pad = padded_tri_count(len(perm))
-    if T_pad > LARGE_T:
-        raise NotImplementedError(
-            f"mesh of T_pad={T_pad} > {LARGE_T} needs the large tier (K11, K12)")
     A, B, C = mesh_tri_vertices(mesh, perm_t)
+    gen_cols = general_ray_constants(mesh, perm_t)
     return MeshStatic(
         attrs=tri_attr_matrix(mesh, perm_t, T_pad),
         spheres=chunk_spheres(A, B, C, T_pad),
-        gen_cols=general_ray_constants(mesh, perm_t),
+        gen_cols=gen_cols,
         gen_spheres=chunk_spheres(A, B, C, T_pad),
+        gen_rec=general_tri_rows(gen_cols) if T_pad > large_tier_threshold() else None,
     )
+
+
+def _mesh_batch(mesh_static: tuple):
+    """(MeshBatchStatic, chunks per object) for several mesh objects none of
+    which is in the large tier, else (None, ())."""
+    from ..ops.kernels.mesh_kernels import TC
+
+    if len(mesh_static) < 2 or any(ms.gen_rec is not None for ms in mesh_static):
+        return None, ()
+    tpads = [ms.attrs.shape[0] for ms in mesh_static]
+    factors = [ms.gen_cols[f * tp:(f + 1) * tp] for f in range(4)
+               for ms, tp in zip(mesh_static, tpads)]
+    return (MeshBatchStatic(attrs=torch.cat([ms.attrs for ms in mesh_static]),
+                            gen_cols=torch.cat(factors),
+                            spheres=torch.cat([ms.spheres for ms in mesh_static])),
+            tuple(tp // TC for tp in tpads))
 
 
 def build_scene(host, device=DEFAULT_DEVICE) -> tuple[Scene, SceneMeta]:
@@ -284,8 +313,6 @@ def build_scene(host, device=DEFAULT_DEVICE) -> tuple[Scene, SceneMeta]:
             host.mesh.root_tri_lists.get(
                 int(mesh_root[i]), np.arange(rng[0], rng[1], dtype=np.int64))))
         for i, rng in zip(mesh_ids, tri_ranges))
-    if len(mesh_ids) > 1:
-        raise NotImplementedError("more than one mesh object needs K9, K10")
 
     arrays = SimpleNamespace(
         objects=ObjectsSoA(
@@ -306,8 +333,9 @@ def build_scene(host, device=DEFAULT_DEVICE) -> tuple[Scene, SceneMeta]:
         mesh_static=(),
     )
     scene = _to_device(arrays, device)
-    scene = scene._replace(mesh_static=tuple(
-        _mesh_static(scene.mesh, perm) for perm in perms))
+    mesh_static = tuple(_mesh_static(scene.mesh, perm) for perm in perms)
+    mesh_batch, chunk_counts = _mesh_batch(mesh_static)
+    scene = scene._replace(mesh_static=mesh_static, mesh_batch=mesh_batch)
 
     meta = SceneMeta(
         num_objects=num,
@@ -324,7 +352,7 @@ def build_scene(host, device=DEFAULT_DEVICE) -> tuple[Scene, SceneMeta]:
         max_octree_depth=int(getattr(oct, "max_depth", 0) if oct is not None else 0),
         use_footprint_tex=bool(quads.size * 4 <= 48 * 1024 * 1024),
         any_flash=bool((flash_period > 0).any()),
-        mesh_chunk_counts=(),
+        mesh_chunk_counts=chunk_counts,
         textured_ids=tuple(int(i) for i in np.nonzero(tex_offset != -1)[0]),
     )
     return scene, meta
@@ -362,14 +390,20 @@ def _to_device(src, device) -> Scene:
         mesh_static=tuple(conv(MeshStatic, ms, {}) for ms in src.mesh_static),
         white_point=_tensor(src.white_point, device, f32),
         ambient=_tensor(src.ambient, device, f32),
+        mesh_batch=None if getattr(src, "mesh_batch", None) is None
+        else conv(MeshBatchStatic, src.mesh_batch, {}),
     )
 
 
 def scene_from_numpy(arrays, device=DEFAULT_DEVICE) -> Scene:
     """The port's Scene from the JAX package's Scene with numpy leaves
     (e.g. `jax.tree.map(np.asarray, scene)`), so tests can feed identical
-    state to both packages. The multi-mesh pool is refused (K9/K10 are not
-    ported yet)."""
-    if getattr(arrays, "mesh_batch", None) is not None:
-        raise NotImplementedError("the multi-mesh pool needs K9, K10")
-    return _to_device(arrays, device)
+    state to both packages. The multi-mesh pool carries over as it is; a
+    large-tier mesh's records (lane-major, for the TPU's DMAs) become the
+    port's general triangle rows."""
+    from ..ops.kernels.mesh_kernels import general_tri_rows
+
+    scene = _to_device(arrays, device)
+    return scene._replace(mesh_static=tuple(
+        ms if ms.gen_rec is None else ms._replace(gen_rec=general_tri_rows(ms.gen_cols))
+        for ms in scene.mesh_static))

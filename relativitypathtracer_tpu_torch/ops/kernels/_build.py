@@ -1,10 +1,13 @@
 """Build, load and launch the port's CUDA kernels (csrc/*.cu).
 
-One nvcc call compiles every source into one shared library with a plain C
+Every source compiles in its own nvcc process, all started together, and
+one more call links the objects into one shared library with a plain C
 interface, loaded with ctypes (no PyTorch headers, so the build takes
 seconds). The build runs at first use, inside the checkout under
 build/kernels/, keyed by a hash of the sources and flags: a library built
-from other sources is never loaded, it is rebuilt.
+from other sources is never loaded, it is rebuilt. ptxas reports each
+kernel's registers, spills and shared memory; the report of the last build
+is kept in BUILD_LOG.
 
 Every launch goes through `launch`, which counts it in LAUNCHES (one plain
 integer per kernel, or per route where one C entry stands for two TPU
@@ -28,7 +31,7 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # C entry -> argument kinds: p pointer, i int, f float. Every entry ends with
 # the stream (a pointer) and returns the cudaError_t of its launch.
@@ -37,12 +40,17 @@ _SIGNATURES = {
     "rpt_analytic_nearest": "piipippppp",
     "rpt_shared_walk": "pppppppiipppppp",
     "rpt_general_walk": "pppppppiipp",
+    "rpt_large_shared_walk": "ppppppppiiiiiipppppp",
+    "rpt_large_general_walk": "ppppppppiiiiiipp",
+    "rpt_batched_shared_walk": "pppppppppiiippppppp",
+    "rpt_batched_general_walk": "ppppppppppiiipp",
     "rpt_footprint_sample": "pipippippp",
     "rpt_analytic_min_t": "piipppipp",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
 LAUNCHES: collections.Counter = collections.Counter()
+BUILD_LOG = ""
 
 _lib = None
 
@@ -65,18 +73,37 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _run_all(cmds) -> list[str]:
+    """Run the commands side by side; return their outputs, or raise with
+    the output of the first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+    return outs
+
+
 def build() -> pathlib.Path:
     """Compile csrc/*.cu into build/kernels/librpt_kernels-<hash>.so unless
     that library already exists; return its path."""
+    global BUILD_LOG
     so = BUILD_DIR / f"librpt_kernels-{source_hash()}.so"
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{so.stem}.{os.getpid()}"
+    sources = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    outs = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                     for src, o in zip(sources, objs)])
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+    for o in objs:
+        o.unlink()
+    BUILD_LOG = "\n".join(outs)
     os.replace(tmp, so)
     for old in BUILD_DIR.glob("librpt_kernels-*.so"):
         if old != so:

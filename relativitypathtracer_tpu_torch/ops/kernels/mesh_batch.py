@@ -1,0 +1,324 @@
+"""Mesh walks over every mesh object at once: K9 (primary) and K10 (shadow).
+
+Torch counterpart of `relativitypathtracer_tpu.ops.pallas.mesh_batch`. A
+scene with several mesh objects concatenates their Morton-ordered chunk
+constants into one pool (models.scene.MeshBatchStatic) with a chunk ->
+object table, so each ray block walks one live list over all objects:
+- each chunk is tested in its own object's rest frame: the kernels derive a
+  lane's object-frame ray from the camera-frame 4-dir (and 4-origin) and the
+  object's row of an (O, MAT_COLS) transform table;
+- distances from different frames are made comparable by a per-lane scale
+  s (object distance -> shared 4D ray parameter, t = dist * |M_R dh| /
+  |d3|), so the nearest-hit reduce, the walk bound and early termination
+  run in shared units;
+- the live lists (`live_chunk_lists_multi`) cull each object's chunks
+  against that object's cones and scale its floors by the block's minimum
+  per-lane s, a lower bound, so stopping on them stays sound.
+
+`batched_shared_walk` and `batched_general_walk` launch the CUDA kernels
+(csrc/mesh_batch.cu) on CUDA tensors; on CPU tensors they call their plain
+twins `batched_shared_walk_plain` / `batched_general_walk_plain`, which
+derive every object's rays for every lane with the kernels' operations in
+their order, then walk the same lists with the same early termination.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ._build import check_cuda, launch
+from .mesh_kernels import (
+    INF, N_ATTR, NB, TC, _box_bound, _box_of, _dot_rows, _mt, _pad_lanes, _round_up,
+    _sub_cone_cull, bucket_order, general_tri_rows, shared_tri_rows)
+
+# The per-object transform table: one row of MAT_COLS floats per mesh object.
+MAT_COLS = 40
+_A = 0  # 12: fused dir/origin transform inv_m[:3, :3] @ L[1:4, :], row-major
+_B = 12  # 3: inv_m translation (the origin's affine part)
+_RO = 15  # 3: the object-space camera origin (shared-origin walk; 0 for shadows)
+_MR = 18  # 9: m[:3, :3] row-major (object -> rest scale, for s)
+_L3 = 27  # 12: L[1:4, :] row-major (|d3|, for s)
+
+
+def mat_row(L, inv_m, m, ro=None):
+    """One object's MAT_COLS row from its frame matrix L, inverse model
+    matrix inv_m and model matrix m (each (4, 4)); ro (3,) the object-space
+    camera origin for the shared-origin walk."""
+    A = inv_m[:3, :3] @ L[1:4, :]
+    return torch.cat([A.reshape(12), inv_m[:3, 3], torch.zeros(3, device=L.device)
+                      if ro is None else ro, m[:3, :3].reshape(9), L[1:4, :].reshape(12),
+                      torch.zeros(MAT_COLS - 39, device=L.device)])
+
+
+def _mat_rows(m, base: int, vec, ncols: int = 4):
+    """[sum_j m[base + ncols * i + j] * vec[j] for i < 3], left to right."""
+    out = []
+    for i in range(3):
+        acc = m[base + ncols * i] * vec[0]
+        for j in range(1, ncols):
+            acc = acc + m[base + ncols * i + j] * vec[j]
+        out.append(acc)
+    return out
+
+
+def _len3(v):
+    return torch.sqrt(v[0] * v[0] + v[1] * v[1] + v[2] * v[2])
+
+
+def object_dirs(mats, dir4):
+    """Every object's unit object-space dirs and scales of the camera-frame
+    4-dirs dir4 (4, ...): (dh (O, 3, ...), s (O, ...)), with the kernels'
+    operations in their order (mesh_batch._fill_ray_scratch)."""
+    dhs, ss = [], []
+    for m in mats:
+        d = _mat_rows(m, _A, dir4)
+        dn = _len3(d)
+        dh = [x / dn for x in d]
+        d3n = _len3(_mat_rows(m, _L3, dir4))
+        ss.append(_len3(_mat_rows(m, _MR, dh, 3)) / d3n)
+        dhs.append(torch.stack(dh))
+    return torch.stack(dhs), torch.stack(ss)
+
+
+def object_rays(mats, origins4, dir4):
+    """Every object's general rays [dh, ro x dh, ro, 1] and scales of the
+    camera-frame 4-origins and 4-dirs (4, ...): (r10 (O, 10, ...), s (O, ...))."""
+    dh, s = object_dirs(mats, dir4)
+    rays = []
+    for m, d in zip(mats, dh):
+        ro = _mat_rows(m, _A, origins4)
+        ro = [ro[k] + m[_B + k] for k in range(3)]
+        mom = [ro[1] * d[2] - ro[2] * d[1], ro[2] * d[0] - ro[0] * d[2],
+               ro[0] * d[1] - ro[1] * d[0]]
+        rays.append(torch.cat([d, torch.stack(mom), torch.stack(ro), torch.ones_like(d[:1])]))
+    return torch.stack(rays), s
+
+
+def live_chunk_lists_multi(spheres, chunk_counts, d_os, o_os, s_os, valid=None, enabled=None,
+                           lane_bound_shared=None):
+    """Live lists over the concatenated pool. spheres (C, 4) object-space
+    chunk spheres, object-major; chunk_counts: chunks per object; d_os/o_os
+    (O, 3, n_pad) per-object dirs and origins; s_os (O, n_pad) scales;
+    valid (n_pad,) optional; enabled: per object, False keeps its chunks
+    dead (the light's own mesh for its shadow rays); lane_bound_shared
+    (n_pad,) optional bound in shared units, converted per object for the
+    segment cull. Floors come out in shared units: each object's scaled by
+    the block's minimum s over its valid lanes. Returns bucket_order's
+    (order, minds, counts)."""
+    O = d_os.shape[0]
+    B = d_os.shape[2] // NB
+    minds, overlaps = [], []
+    c0 = 0
+    for g in range(O):
+        nck = chunk_counts[g]
+        if enabled is not None and not enabled[g]:
+            minds.append(torch.full((B, nck), INF, device=spheres.device))
+            overlaps.append(torch.zeros((B, nck), dtype=torch.bool, device=spheres.device))
+            c0 += nck
+            continue
+        s = s_os[g].reshape(B, NB)
+        if valid is not None:
+            s = torch.where(valid.reshape(B, NB), s, INF)
+        lb = None
+        if lane_bound_shared is not None:
+            lb = lane_bound_shared / torch.clamp(s_os[g], min=1e-12)
+        mind_g, over_g = _sub_cone_cull(spheres[c0:c0 + nck], d_os[g], o_os[g], valid, lb)
+        c0 += nck
+        minds.append(mind_g * s.amin(dim=1, keepdim=True))
+        overlaps.append(over_g)
+    return bucket_order(torch.cat(minds, dim=1), torch.cat(overlaps, dim=1))
+
+
+def chunk_objects(chunk_counts, device):
+    """(C,) int32 object slot of every pool chunk."""
+    return torch.cat([torch.full((c,), g, dtype=torch.int32, device=device)
+                      for g, c in enumerate(chunk_counts)])
+
+
+def batched_shared_walk_plain(order, minds, counts, cobj, boxes, mats, tri, attrs, dir4_p):
+    """Plain twin of the K9 kernel. Returns (t in shared units, u, v, tri
+    (pool row), obj (slot), attr (15, n)); tri and obj are -1 on a miss."""
+    n_pad = dir4_p.shape[1]
+    B = n_pad // NB
+    dev = dir4_p.device
+    dh_all, s_all = object_dirs(mats, dir4_p.reshape(4, B, NB))  # (O, 3, B, NB), (O, B, NB)
+    bound = torch.zeros((B, NB), device=dev)
+    for g in range(mats.shape[0]):
+        bx = boxes[g]
+        bound = torch.maximum(bound, _box_bound(bx[0:3], bx[3:6], bx[6:9], dh_all[g]) * s_all[g])
+    mb = bound.amax(dim=1)
+    best_t = torch.full((B, NB), INF, device=dev)
+    best_u = torch.zeros((B, NB), device=dev)
+    best_v = torch.zeros((B, NB), device=dev)
+    best_tri = torch.full((B, NB), -1, dtype=torch.int32, device=dev)
+    best_obj = torch.full((B, NB), -1, dtype=torch.int32, device=dev)
+    rows = tri.reshape(-1, TC, 10)
+    running = torch.ones(B, dtype=torch.bool, device=dev)
+    blocks = torch.arange(B, device=dev)
+    for j in range(order.shape[1]):
+        k_all = order[:, j].long()
+        running &= (j < counts) & (minds[blocks, k_all] < mb)
+        idx = running.nonzero()[:, 0]
+        if idx.numel() == 0:
+            break
+        k = k_all[idx]
+        g = cobj[k].long()
+        c = rows[k]
+        d = dh_all[g, :, idx].permute(1, 0, 2)  # (3, b, NB)
+        dist, u, v = _mt(_dot_rows(c, 0, 3, d, 0), _dot_rows(c, 3, 6, d, 0),
+                         _dot_rows(c, 6, 9, d, 0), c[:, :, 9:10])
+        tsh = torch.where(dist < INF, dist * s_all[g, idx][:, None, :], INF)
+        arg = tsh.argmin(dim=1, keepdim=True)  # first minimum, as jnp.argmin
+        dmin = tsh.gather(1, arg)[:, 0]
+        bt = best_t[idx]
+        better = dmin < bt
+        best_t[idx] = torch.where(better, dmin, bt)
+        best_u[idx] = torch.where(better, u.gather(1, arg)[:, 0], best_u[idx])
+        best_v[idx] = torch.where(better, v.gather(1, arg)[:, 0], best_v[idx])
+        tri_id = (k[:, None] * TC + arg[:, 0]).to(torch.int32)
+        best_tri[idx] = torch.where(better, tri_id, best_tri[idx])
+        best_obj[idx] = torch.where(better, g[:, None].to(torch.int32), best_obj[idx])
+        mb[idx] = torch.minimum(best_t[idx], bound[idx]).amax(dim=1)
+    flat_tri = best_tri.reshape(-1)
+    attr = torch.where((flat_tri >= 0)[:, None], attrs[flat_tri.clamp(min=0).long()], 0.0)
+    return (best_t.reshape(-1), best_u.reshape(-1), best_v.reshape(-1), flat_tri,
+            best_obj.reshape(-1), attr.T.contiguous())
+
+
+def batched_shared_walk(order, minds, counts, cobj, boxes, mats, tri, attrs, dir4_p):
+    """K9 walk: the CUDA kernel on CUDA tensors, the plain twin on CPU
+    tensors. order/minds (B, C), counts (B,), cobj (C,) int32, boxes (O, 9)
+    [lo hi ro] per object, mats (O, MAT_COLS), tri (C * TC, 10), attrs
+    (C * TC, 15), dir4_p (4, B * NB) camera-frame 4-dirs."""
+    if dir4_p.device.type == "cpu":
+        return batched_shared_walk_plain(order, minds, counts, cobj, boxes, mats, tri, attrs,
+                                         dir4_p)
+    B, C = order.shape
+    O = mats.shape[0]
+    n_pad = B * NB
+    f32, i32 = torch.float32, torch.int32
+    check_cuda("batched_shared_walk", (order, i32, (B, C)), (minds, f32, (B, C)),
+               (counts, i32, (B,)), (cobj, i32, (C,)), (boxes, f32, (O, 9)),
+               (mats, f32, (O, MAT_COLS)), (tri, f32, (C * TC, 10)),
+               (attrs, f32, (C * TC, N_ATTR)), (dir4_p, f32, (4, n_pad)))
+    t = torch.empty(n_pad, dtype=f32, device=dir4_p.device)
+    u, v = torch.empty_like(t), torch.empty_like(t)
+    tri_out = torch.empty(n_pad, dtype=i32, device=dir4_p.device)
+    obj_out = torch.empty_like(tri_out)
+    attr = torch.empty((N_ATTR, n_pad), dtype=f32, device=dir4_p.device)
+    launch("rpt_batched_shared_walk", order, minds, counts, cobj, boxes, mats, tri, attrs,
+           dir4_p, n_pad, C, O, t, u, v, tri_out, obj_out, attr)
+    return t, u, v, tri_out, obj_out, attr
+
+
+def batched_general_walk_plain(order, minds, counts, cobj, boxes, mats, rows, o4_p, dir4_p,
+                               tmax_p):
+    """Plain twin of the K10 kernel: min(nearest hit, tmax) per lane in
+    shared units, with occlusion retirement on any hit below tmax."""
+    n_pad = dir4_p.shape[1]
+    B = n_pad // NB
+    dev = dir4_p.device
+    r_all, s_all = object_rays(mats, o4_p.reshape(4, B, NB), dir4_p.reshape(4, B, NB))
+    tmax = tmax_p.reshape(B, NB)
+    bound = torch.zeros((B, NB), device=dev)
+    for g in range(mats.shape[0]):
+        bound = torch.maximum(bound, _box_bound(boxes[g, 0:3], boxes[g, 3:6], r_all[g, 6:9],
+                                                r_all[g, 0:3]) * s_all[g])
+    teff = torch.minimum(tmax, bound)
+    mb = teff.amax(dim=1)
+    best_t = torch.full((B, NB), INF, device=dev)
+    crows = rows.reshape(-1, TC, 20)
+    running = torch.ones(B, dtype=torch.bool, device=dev)
+    blocks = torch.arange(B, device=dev)
+    for j in range(order.shape[1]):
+        k_all = order[:, j].long()
+        running &= (j < counts) & (minds[blocks, k_all] < mb)
+        idx = running.nonzero()[:, 0]
+        if idx.numel() == 0:
+            break
+        k = k_all[idx]
+        g = cobj[k].long()
+        c = crows[k]
+        x = r_all[g, :, idx].permute(1, 0, 2)  # (10, b, NB)
+        dist, _, _ = _mt(_dot_rows(c, 0, 3, x, 0), _dot_rows(c, 3, 9, x, 0),
+                         _dot_rows(c, 9, 15, x, 0), _dot_rows(c, 15, 19, x, 6))
+        tsh = torch.where(dist < INF, dist * s_all[g, idx][:, None, :], INF)
+        new_t = torch.minimum(best_t[idx], tsh.amin(dim=1))
+        best_t[idx] = new_t
+        live = torch.where(new_t < tmax[idx], 0.0, torch.minimum(new_t, teff[idx]))
+        mb[idx] = live.amax(dim=1)
+    return torch.minimum(best_t, tmax).reshape(-1)
+
+
+def batched_general_walk(order, minds, counts, cobj, boxes, mats, rows, o4_p, dir4_p, tmax_p):
+    """K10 walk: the CUDA kernel on CUDA tensors, the plain twin on CPU
+    tensors. boxes (O, 6) [lo hi] per object, rows (C * TC, 20), o4_p and
+    dir4_p (4, B * NB) camera-frame 4-origins and 4-dirs, tmax_p (B * NB,)
+    in shared units (0 masks a lane); the rest as `batched_shared_walk`."""
+    if dir4_p.device.type == "cpu":
+        return batched_general_walk_plain(order, minds, counts, cobj, boxes, mats, rows, o4_p,
+                                          dir4_p, tmax_p)
+    B, C = order.shape
+    O = mats.shape[0]
+    n_pad = B * NB
+    f32, i32 = torch.float32, torch.int32
+    check_cuda("batched_general_walk", (order, i32, (B, C)), (minds, f32, (B, C)),
+               (counts, i32, (B,)), (cobj, i32, (C,)), (boxes, f32, (O, 6)),
+               (mats, f32, (O, MAT_COLS)), (rows, f32, (C * TC, 20)),
+               (o4_p, f32, (4, n_pad)), (dir4_p, f32, (4, n_pad)), (tmax_p, f32, (n_pad,)))
+    t = torch.empty(n_pad, dtype=f32, device=dir4_p.device)
+    launch("rpt_batched_general_walk", order, minds, counts, cobj, boxes, mats, rows, o4_p,
+           dir4_p, tmax_p, n_pad, C, O, t)
+    return t
+
+
+def batched_nearest_shared(consts, attrs, spheres, boxes, mats, dir4, d_os, o_os, s_os,
+                           chunk_counts):
+    """Nearest hit over all mesh objects of rays sharing each object's
+    origin. consts (4 * Tsum_pad, 3) factor-grouped pool; attrs (Tsum_pad,
+    15); spheres (C, 4); boxes (O, 9); mats (O, MAT_COLS); dir4 (4, N)
+    camera 4-dirs; d_os/o_os (O, 3, N) and s_os (O, N) per-object dirs,
+    origins and scales for the list build. Returns (t in shared units, u,
+    v, tri (pool row), obj (slot), attr (15, N)); tri/obj -1 on a miss."""
+    Tsum_pad = attrs.shape[0]
+    n = dir4.shape[1]
+    n_pad = _round_up(n, NB)
+    order, minds, counts = live_chunk_lists_multi(
+        spheres, chunk_counts, _pad_lanes(d_os, n_pad, 1.0), _pad_lanes(o_os, n_pad),
+        _pad_lanes(s_os, n_pad, 1.0))
+    t, u, v, tri, obj, attr = batched_shared_walk(
+        order, minds, counts, chunk_objects(chunk_counts, dir4.device), boxes.contiguous(),
+        mats.contiguous(), shared_tri_rows(consts, consts[3 * Tsum_pad:, 0]),
+        attrs.contiguous(), _pad_lanes(dir4, n_pad, 1.0).contiguous())
+    return t[:n], u[:n], v[:n], tri[:n], obj[:n], attr[:, :n]
+
+
+def batched_min_t_general(cols, spheres, mats, origins4, dir4, d_os, o_os, s_os, tmax,
+                          chunk_counts, enabled=None, valid=None):
+    """Min hit over all mesh objects of shadow rays, in shared units. cols
+    (4 * Tsum_pad, 10) factor-grouped pool; origins4/dir4 (4, N) camera
+    4-origins and 4-dirs; tmax (N,) shared-unit bound (0 masks a lane);
+    enabled: per object, False leaves it out (a disabled object gets the
+    stand-in box [1 1 1 0 0 0] in the walk bound, as in the JAX package);
+    valid (N,) the lanes that shape the culling cones. Returns (N,)
+    min(t, tmax)."""
+    n = dir4.shape[1]
+    n_pad = _round_up(n, NB)
+    tmax_p = _pad_lanes(tmax, n_pad)
+    order, minds, counts = live_chunk_lists_multi(
+        spheres, chunk_counts, _pad_lanes(d_os, n_pad, 1.0), _pad_lanes(o_os, n_pad),
+        _pad_lanes(s_os, n_pad, 1.0), valid=None if valid is None else
+        _pad_lanes(valid, n_pad, False), enabled=enabled, lane_bound_shared=tmax_p)
+    boxes, c0 = [], 0
+    for g, nck in enumerate(chunk_counts):
+        sph = spheres[c0:c0 + nck]
+        c0 += nck
+        if enabled is not None and not enabled[g]:
+            boxes.append(torch.tensor([1.0, 1.0, 1.0, 0.0, 0.0, 0.0], device=spheres.device))
+            continue
+        boxes.append(torch.cat(_box_of(sph)))
+    t = batched_general_walk(
+        order, minds, counts, chunk_objects(chunk_counts, dir4.device), torch.stack(boxes),
+        mats.contiguous(), general_tri_rows(cols), _pad_lanes(origins4, n_pad).contiguous(),
+        _pad_lanes(dir4, n_pad, 1.0).contiguous(), tmax_p.contiguous())
+    return t[:n]

@@ -14,7 +14,13 @@ chunk's floor.
 (csrc/mesh_kernels.cu) on CUDA tensors; on CPU tensors they call their
 plain twins `shared_walk_plain` / `general_walk_plain`, which walk the same
 lists with the same early termination, vectorized over the blocks that are
-still walking.
+still walking (`walk_shared_lists`, `walk_general_lists`, which the large
+tier's twins share).
+
+The two-level lists of the large-mesh tier live here too, as in the JAX
+package: `live_chunk_lists2` (superchunk order reduced from the chunk-level
+cull), `live_chunk_lists3` (super-sphere cull, block-cone chunk bits),
+`super_spheres_of` and `pack_bits`; `mesh_large` picks between them.
 """
 
 from __future__ import annotations
@@ -166,6 +172,79 @@ def live_chunk_lists(spheres, dh_p, o_p, valid=None, lane_bound=None):
     return bucket_order(mind, overlap)
 
 
+def pack_bits(overlap):
+    """(B, C) bool -> (B, ceil(C / 32)) int32: bit k of word w is chunk
+    w * 32 + k; bit 31 is the sign bit, as the JAX package packs it."""
+    B, C = overlap.shape
+    words = -(-C // 32)
+    ov = torch.cat([overlap, overlap.new_zeros((B, words * 32 - C))], dim=1)
+    weights = torch.ones(32, dtype=torch.int64, device=overlap.device) << torch.arange(
+        32, device=overlap.device)
+    packed = (ov.reshape(B, words, 32).long() * weights).sum(dim=2)
+    return torch.where(packed >= 2 ** 31, packed - 2 ** 32, packed).to(torch.int32)
+
+
+def _pad_cols(x, width: int, value):
+    return torch.cat([x, torch.full((x.shape[0], width - x.shape[1]), value, dtype=x.dtype,
+                                    device=x.device)], dim=1)
+
+
+def live_chunk_lists2(spheres, dh_p, o_p, valid=None, lane_bound=None, s=8):
+    """Two-level lists: front-to-back order of superchunks of `s`
+    consecutive chunks, their floors reduced from the chunk-level cull (min
+    over the group's live chunks, any for overlap), and the chunk-level
+    overlap packed as bits. Returns (order (B, C_s), minds (B, C_s), counts
+    (B,), bits (B, ceil(C / 32)))."""
+    mind_c, over_c = _sub_cone_cull(spheres, dh_p, o_p, valid, lane_bound)
+    B, C = mind_c.shape
+    C_s = -(-C // s)
+    mind_g = _pad_cols(mind_c, C_s * s, INF)  # already INF where over_c is False
+    over_g = _pad_cols(over_c, C_s * s, False)
+    order, minds, counts = bucket_order(mind_g.reshape(B, C_s, s).amin(dim=2),
+                                        over_g.reshape(B, C_s, s).any(dim=2))
+    return order, minds, counts, pack_bits(over_c)
+
+
+def super_spheres_of(spheres, s):
+    """(C, 4) chunk spheres -> (ceil(C / s), 4) spheres each containing its
+    group of s consecutive chunks' spheres: centre of the group's extent box,
+    radius the farthest child surface; the pad entries of a ragged last group
+    are masked out."""
+    C = spheres.shape[0]
+    C_s = -(-C // s)
+    pad = C_s * s - C
+    c = torch.cat([spheres[:, :3], spheres.new_zeros((pad, 3))]).reshape(C_s, s, 3)
+    r = torch.cat([spheres[:, 3], spheres.new_zeros(pad)]).reshape(C_s, s)
+    real = (torch.arange(C_s * s, device=spheres.device) < C).reshape(C_s, s)
+    lo = torch.where(real[..., None], c - r[..., None], INF).amin(dim=1)
+    hi = torch.where(real[..., None], c + r[..., None], -INF).amax(dim=1)
+    center = 0.5 * (lo + hi)
+    dist = torch.sqrt(((c - center[:, None, :]) ** 2).sum(dim=-1))
+    rad = torch.where(real, dist + r, 0.0).amax(dim=1)
+    return torch.cat([center, rad[:, None]], dim=1)
+
+
+def live_chunk_lists3(spheres, dh_p, o_p, valid=None, lane_bound=None, s=128):
+    """live_chunk_lists2 for very large chunk counts: order, floors and
+    segment culling against the super spheres (sub-cone work (n_sub, C / s)
+    instead of (n_sub, C)), and the chunk bits from one block-cone pass.
+    The bit columns are padded to C_s * s, since the walk's cursor reaches
+    the pad positions of a ragged last super. Same outputs as lists2."""
+    mind_s, over_s = _sub_cone_cull(super_spheres_of(spheres, s), dh_p, o_p, valid, lane_bound)
+    order, minds, counts = bucket_order(mind_s, over_s)
+    B = dh_p.shape[1] // NB
+    d = dh_p.reshape(3, B, NB)
+    o = o_p.reshape(3, B, NB)
+    if valid is not None:
+        d, o = _mask_invalid_lanes(d, o, valid)
+    _, over_c = _cone_cull(spheres, d, o)
+    if valid is not None:
+        # an all-masked block's degenerate cone reads as overlapping all
+        over_c = over_c & valid.reshape(B, NB).any(dim=1)[:, None]
+    C_s = -(-spheres.shape[0] // s)
+    return order, minds, counts, pack_bits(_pad_cols(over_c, C_s * s, False))
+
+
 def _box_of(spheres):
     lo = (spheres[:, :3] - spheres[:, 3:4]).amin(dim=0)
     hi = (spheres[:, :3] + spheres[:, 3:4]).amax(dim=0)
@@ -211,16 +290,28 @@ def general_tri_rows(cols):
                       torch.zeros_like(cols[:T_pad, :1])], dim=1).contiguous()
 
 
-def _mt(det, un, vn, tn):
+def _mt(det, un, vn, tn, tri_ok=None):
     """Moller-Trumbore acceptance in the TPU's form (one reciprocal, then
-    products); returns (dist with INF where rejected, u, v)."""
+    products); returns (dist with INF where rejected, u, v). tri_ok, where
+    given, rejects the triangles it is False for."""
     inv_det = 1.0 / det
     u = un * inv_det
     v = vn * inv_det
     dist = tn * inv_det
     ok = ((det.abs() >= EPSILON) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
           & (u + v <= 1.0) & (dist >= 0.0))
+    if tri_ok is not None:
+        ok = ok & tri_ok
     return torch.where(ok, dist, INF), u, v
+
+
+def _below_t(k, T):
+    """(b, TC, 1) mask of the triangles of chunks k (b,) below the real
+    triangle count T, or None when T masks nothing."""
+    if T is None:
+        return None
+    i = torch.arange(TC, device=k.device)
+    return ((k[:, None] * TC + i[None, :]) < T)[:, :, None]
 
 
 def _dot_rows(rows, lo: int, hi: int, x, xlo: int):
@@ -232,9 +323,12 @@ def _dot_rows(rows, lo: int, hi: int, x, xlo: int):
     return acc
 
 
-def shared_walk_plain(order, minds, counts, box, tri, attrs, dh_p):
-    """Plain twin of the K5 kernel: the same walk, vectorized over the blocks
-    still walking. Returns (t, u, v, tri (int32, -1 on a miss), attr (15, n))."""
+def walk_shared_lists(chunks, floors, n_live, box, tri, attrs, dh_p, T=None):
+    """The shared-origin walk of K5 and K11, vectorized over the blocks
+    still walking: block b tests chunks[b, j] for j < n_live[b] in order and
+    stops at the first whose floors[b, j] is not below its bound. T masks
+    the triangles at or past it. Returns (t, u, v, tri (int32, -1 on a
+    miss), attr (15, n))."""
     n_pad = dh_p.shape[1]
     B = n_pad // NB
     dev = dh_p.device
@@ -247,18 +341,16 @@ def shared_walk_plain(order, minds, counts, box, tri, attrs, dh_p):
     best_tri = torch.full((B, NB), -1, dtype=torch.int32, device=dev)
     rows = tri.reshape(-1, TC, 10)
     running = torch.ones(B, dtype=torch.bool, device=dev)
-    blocks = torch.arange(B, device=dev)
-    for j in range(order.shape[1]):
-        k_all = order[:, j].long()
-        running &= (j < counts) & (minds[blocks, k_all] < mb)
+    for j in range(chunks.shape[1]):
+        running &= (j < n_live) & (floors[:, j] < mb)
         idx = running.nonzero()[:, 0]
         if idx.numel() == 0:
             break
-        k = k_all[idx]
+        k = chunks[idx, j].long()
         c = rows[k]
         d = dh[:, idx]
         dist, u, v = _mt(_dot_rows(c, 0, 3, d, 0), _dot_rows(c, 3, 6, d, 0),
-                         _dot_rows(c, 6, 9, d, 0), c[:, :, 9:10])
+                         _dot_rows(c, 6, 9, d, 0), c[:, :, 9:10], _below_t(k, T))
         arg = dist.argmin(dim=1, keepdim=True)  # first minimum, as jnp.argmin
         dmin = dist.gather(1, arg)[:, 0]
         bt = best_t[idx]
@@ -273,6 +365,13 @@ def shared_walk_plain(order, minds, counts, box, tri, attrs, dh_p):
     attr = torch.where((flat_tri >= 0)[:, None], attrs[flat_tri.clamp(min=0).long()], 0.0)
     return (best_t.reshape(-1), best_u.reshape(-1), best_v.reshape(-1), flat_tri,
             attr.T.contiguous())
+
+
+def shared_walk_plain(order, minds, counts, box, tri, attrs, dh_p):
+    """Plain twin of the K5 kernel: the walk of `walk_shared_lists` over
+    each block's live list, each chunk's floor read by its id."""
+    return walk_shared_lists(order, minds.gather(1, order.long()), counts, box, tri, attrs,
+                             dh_p)
 
 
 def shared_walk(order, minds, counts, box, tri, attrs, dh_p):
@@ -296,10 +395,10 @@ def shared_walk(order, minds, counts, box, tri, attrs, dh_p):
     return t, u, v, tri_out, attr
 
 
-def general_walk_plain(order, minds, counts, box, rows, r10_p, tmax2):
-    """Plain twin of the K6 kernel: the same bounded walk with occlusion
-    retirement, vectorized over the blocks still walking. Returns
-    min(nearest hit, tmax) per lane."""
+def walk_general_lists(chunks, floors, n_live, box, rows, r10_p, tmax2, T=None):
+    """The bounded shadow walk of K6 and K12 with occlusion retirement, over
+    lists given as in `walk_shared_lists`, vectorized over the blocks still
+    walking. Returns min(nearest hit, tmax) per lane."""
     n_pad = r10_p.shape[1]
     B = n_pad // NB
     dev = r10_p.device
@@ -311,22 +410,28 @@ def general_walk_plain(order, minds, counts, box, rows, r10_p, tmax2):
     best_t = torch.full((B, NB), INF, device=dev)
     crows = rows.reshape(-1, TC_GEN, 20)
     running = torch.ones(B, dtype=torch.bool, device=dev)
-    blocks = torch.arange(B, device=dev)
-    for j in range(order.shape[1]):
-        k_all = order[:, j].long()
-        running &= (j < counts) & (minds[blocks, k_all] < mb)
+    for j in range(chunks.shape[1]):
+        running &= (j < n_live) & (floors[:, j] < mb)
         idx = running.nonzero()[:, 0]
         if idx.numel() == 0:
             break
-        c = crows[k_all[idx]]
+        k = chunks[idx, j].long()
+        c = crows[k]
         x = r10[:, idx]
         dist, _, _ = _mt(_dot_rows(c, 0, 3, x, 0), _dot_rows(c, 3, 9, x, 0),
-                         _dot_rows(c, 9, 15, x, 0), _dot_rows(c, 15, 19, x, 6))
+                         _dot_rows(c, 9, 15, x, 0), _dot_rows(c, 15, 19, x, 6), _below_t(k, T))
         new_t = torch.minimum(best_t[idx], dist.amin(dim=1))
         best_t[idx] = new_t
         live = torch.where(new_t < tcut[idx], 0.0, torch.minimum(new_t, teff[idx]))
         mb[idx] = live.amax(dim=1)
     return torch.minimum(best_t, tmax).reshape(-1)
+
+
+def general_walk_plain(order, minds, counts, box, rows, r10_p, tmax2):
+    """Plain twin of the K6 kernel: the walk of `walk_general_lists` over
+    each block's live list, each chunk's floor read by its id."""
+    return walk_general_lists(order, minds.gather(1, order.long()), counts, box, rows, r10_p,
+                              tmax2)
 
 
 def general_walk(order, minds, counts, box, rows, r10_p, tmax2):

@@ -15,6 +15,11 @@ per-triangle constants):
 Triangles are taken in the mesh's Morton order (`perm`, absolute ids) and
 padded to a multiple of 256 with zero rows, which the det epsilon rejects.
 Rays are on the last axis: directions (3, N), origins (3,) or (3, N).
+
+A mesh in the large tier (its MeshStatic carries `gen_rec`, see
+models.scene) walks through K11/K12 instead of K5/K6. Several mesh objects
+with a fused pool (Scene.mesh_batch) go through K9/K10 in one walk
+(`mesh_intersect_shared_batched`, `mesh_min_t_general_batched`).
 """
 
 from __future__ import annotations
@@ -22,7 +27,19 @@ from __future__ import annotations
 import torch
 
 from .intersect import INF, apply_affine3, apply_linear3, apply_normal3, norm3, normalize3
-from .kernels.mesh_kernels import general_min_t, shared_nearest_hit
+from .kernels.mesh_batch import batched_min_t_general, batched_nearest_shared, mat_row
+from .kernels.mesh_kernels import _box_of, general_min_t, shared_nearest_hit
+from .kernels.mesh_large import LARGE_T, large_general_min_t, large_shared_nearest_hit
+
+# Tier override, read when a scene is built (models.scene): None takes the
+# large tier for T_pad > LARGE_T, True for every mesh (the tests force it on
+# small meshes), False as None, as in the JAX package.
+LARGE_MODE = None
+
+
+def large_tier_threshold() -> int:
+    """T_pad above which a mesh is built for the large tier."""
+    return -1 if LARGE_MODE else LARGE_T
 
 
 def _cross_cols(a, b):
@@ -102,9 +119,10 @@ def general_ray_constants(mesh, perm):
 
 def mesh_intersect_shared(mesh, m4, inv_m, o3, d3, perm, static):
     """Nearest hit of rays sharing the rest-frame origin o3 (3,) with dirs
-    d3 (3, N), through the K5 walk. Returns (t, normal (3, N), uv (2, N),
-    valid); t is the shared 4D ray parameter, converted through the world
-    distance as intersect_octree does (opencl_kernel.cl:301-303)."""
+    d3 (3, N), through the K5 walk (K11 in the large tier). Returns (t,
+    normal (3, N), uv (2, N), valid); t is the shared 4D ray parameter,
+    converted through the world distance as intersect_octree does
+    (opencl_kernel.cl:301-303)."""
     n = d3.shape[1]
     if tri_count(perm) == 0:
         dev = d3.device
@@ -113,9 +131,13 @@ def mesh_intersect_shared(mesh, m4, inv_m, o3, d3, perm, static):
     ro = apply_affine3(inv_m, o3)
     d = apply_linear3(inv_m, d3)
     dh = d / norm3(d)
-    consts, c_t, _, _ = shared_origin_constants(mesh, ro, perm)
-    bt, bu, bv, btri, battr = shared_nearest_hit(consts, c_t, static.attrs, static.spheres,
-                                                 dh, ro)
+    consts, c_t, T, _ = shared_origin_constants(mesh, ro, perm)
+    if static.gen_rec is not None:
+        bt, bu, bv, btri, battr = large_shared_nearest_hit(consts, c_t, static.attrs,
+                                                           static.spheres, dh, ro, T)
+    else:
+        bt, bu, bv, btri, battr = shared_nearest_hit(consts, c_t, static.attrs,
+                                                     static.spheres, dh, ro)
     valid = btri >= 0
     interp = battr[0:5] + bu * battr[5:10] + bv * battr[10:15]
     normal = normalize3(apply_normal3(inv_m, interp[0:3]))
@@ -127,7 +149,8 @@ def mesh_intersect_shared(mesh, m4, inv_m, o3, d3, perm, static):
 def mesh_min_t_general(mesh, m4, inv_m, o3, d3, perm, static, tmax):
     """Min hit parameter of rays with per-lane origins o3 (3, N) and dirs
     d3 (3, N), bounded by tmax (N,) in ray-parameter units, through the K6
-    walk. Lanes with tmax == 0 are masked: they leave the culling cones and
+    walk (K12 in the large tier, with static.gen_rec its triangle rows).
+    Lanes with tmax == 0 are masked: they leave the culling cones and
     keep an exact zero bound. A lane's result may be any value >= tmax when
     its nearest hit lies beyond tmax (callers test t < tmax)."""
     n = d3.shape[1]
@@ -148,7 +171,86 @@ def mesh_min_t_general(mesh, m4, inv_m, o3, d3, perm, static, tmax):
     tmax_base = tmax * norm3(d3) / norm3(apply_linear3(m4, dh))
     tmax_obj = torch.where(valid, tmax_base * 1.001 + 1e-3, 0.0)
     tcut_obj = torch.where(valid, torch.clamp(tmax_base * 0.999 - 1e-3, min=0.0), 0.0)
-    bt = general_min_t(static.gen_cols, static.gen_spheres, r10, tmax_obj, valid, tcut_obj)
+    if static.gen_rec is not None:
+        # The large tier's lists and bits are at TC granularity (static.spheres).
+        bt = large_general_min_t(static.gen_rec, static.spheres, r10, tmax_obj, valid,
+                                 tcut_obj, tri_count(perm))
+    else:
+        bt = general_min_t(static.gen_cols, static.gen_spheres, r10, tmax_obj, valid,
+                           tcut_obj)
     world_pt = apply_affine3(m4, ro + bt * dh)
     t = norm3(world_pt - o3) / norm3(d3)
     return torch.where(bt < INF, t, INF)
+
+
+def _object_scale(m4, dh, d3):
+    """Per-lane object distance -> shared ray parameter: |M_R dh| / |d3|."""
+    return norm3(apply_linear3(m4, dh)) / norm3(d3)
+
+
+def mesh_intersect_shared_batched(mesh, meta, batch, L, inv_ms, m4s, stat_cams, dir4, perms):
+    """Nearest hit over every mesh object in one K9 walk, for rays from each
+    object's camera event. batch: models.scene.MeshBatchStatic; L, inv_ms,
+    m4s (O_total, 4, 4) and stat_cams (O_total, 4) indexed by meta.mesh_ids;
+    dir4 (4, N) camera-frame 4-dirs; perms from render.mesh_perm_tensors.
+    Returns (t, normal (3, N) in the winner's rest frame, uv (2, N), obj
+    (N,) global id, valid), mergeable with the analytic candidates. t comes
+    out of the walk in shared units: it is not converted through the world
+    distance as in the one-mesh route."""
+    n = dir4.shape[1]
+    consts = ([], [], [], [])
+    boxes, mats, d_os, o_os, s_os = [], [], [], [], []
+    c0 = 0
+    for k, i in enumerate(meta.mesh_ids):
+        d4 = L[i] @ dir4
+        ro = apply_affine3(inv_ms[i], stat_cams[i, 1:4])
+        d = apply_linear3(inv_ms[i], d4[1:4])
+        dh = d / norm3(d)
+        cst, _, _, T_pad = shared_origin_constants(mesh, ro, perms[k])
+        for f in range(4):
+            consts[f].append(cst[f * T_pad:(f + 1) * T_pad])
+        d_os.append(dh)
+        o_os.append(ro[:, None].expand(3, n))
+        s_os.append(_object_scale(m4s[i], dh, d4[1:4]))
+        mats.append(mat_row(L[i], inv_ms[i], m4s[i], ro))
+        sph = batch.spheres[c0:c0 + meta.mesh_chunk_counts[k]]
+        c0 += meta.mesh_chunk_counts[k]
+        boxes.append(torch.cat([*_box_of(sph), ro]))
+    t, bu, bv, btri, slot, battr = batched_nearest_shared(
+        torch.cat(sum(consts, [])), batch.attrs, batch.spheres, torch.stack(boxes),
+        torch.stack(mats), dir4, torch.stack(d_os), torch.stack(o_os), torch.stack(s_os),
+        meta.mesh_chunk_counts)
+    valid = btri >= 0
+    interp = battr[0:5] + bu * battr[5:10] + bv * battr[10:15]
+    # The winner's normal transform and global id by integer gathers on its
+    # slot (the JAX package selects them with f32 one-hot products).
+    slot_l = slot.clamp(min=0).long()
+    ids = torch.as_tensor(meta.mesh_ids, dtype=torch.int32, device=dir4.device)
+    nt = torch.stack([inv_ms[i][:3, :3].T for i in meta.mesh_ids])[slot_l]  # (N, 3, 3)
+    n3 = interp[0:3]
+    normal = normalize3(torch.stack([nt[:, r, 0] * n3[0] + nt[:, r, 1] * n3[1]
+                                     + nt[:, r, 2] * n3[2] for r in range(3)]))
+    obj = torch.where(valid, ids[slot_l], 0)
+    return torch.where(valid, t, INF), normal, interp[3:5], obj, valid
+
+
+def mesh_min_t_general_batched(meta, batch, L, inv_ms, m4s, origins4, dir4, exclude_id, tmax):
+    """Min hit over every mesh object but `exclude_id` (the light) in one
+    K10 walk, for shadow rays with camera-frame 4-origins and 4-dirs (4, N),
+    bounded by tmax (N,) in shared units (0 masks a lane). Returns (N,)
+    min(t, tmax) in shared units."""
+    d_os, o_os, s_os, mats = [], [], [], []
+    for i in meta.mesh_ids:
+        o4 = L[i] @ origins4
+        d4 = L[i] @ dir4
+        ro = apply_affine3(inv_ms[i], o4[1:4])
+        d = apply_linear3(inv_ms[i], d4[1:4])
+        dh = d / norm3(d)
+        d_os.append(dh)
+        o_os.append(ro)
+        s_os.append(_object_scale(m4s[i], dh, d4[1:4]))
+        mats.append(mat_row(L[i], inv_ms[i], m4s[i]))
+    return batched_min_t_general(
+        batch.gen_cols, batch.spheres, torch.stack(mats), origins4, dir4, torch.stack(d_os),
+        torch.stack(o_os), torch.stack(s_os), tmax, meta.mesh_chunk_counts,
+        enabled=tuple(i != exclude_id for i in meta.mesh_ids), valid=tmax > 0.0)

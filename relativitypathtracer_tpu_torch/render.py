@@ -3,17 +3,19 @@
 Torch counterpart of `relativitypathtracer_tpu.render`: per-object boost
 algebra each frame (`object_frames`), camera rays in 32x32-tile order so
 every 1024-ray block is a compact screen tile, the analytic nearest hit (K3),
-one mesh's primary walk (K5), the texel fetch (K2/K8 through the footprint
-atlas, or the packed-atlas gather) or flat colour, proper-time flash, ambient
-and emissive terms, and per light the shadow chain (K1), the analytic
-occlusion walk (K7) and the mesh shadow walk (K6); then the MSAA sample
-average, Hable tonemap, unswizzle and crop. Semantics mirror
+the mesh primary walk, the texel fetch (K2/K8 through the footprint atlas,
+or the packed-atlas gather) or flat colour, proper-time flash, ambient and
+emissive terms, and per light the shadow chain (K1), the analytic occlusion
+walk (K7) and the mesh shadow walk; then the MSAA sample average, Hable
+tonemap, unswizzle and crop. Semantics mirror
 trace()/intersect_scene()/sample_light() (opencl_kernel.cl:361-604). Rays
 sit on the last axis: (3, N), (4, N).
 
-Routes the JAX package has and the port has not yet (several meshes, the
-large-mesh tier) raise NotImplementedError naming the kernels they wait for
-(see ROADMAP.md, Queue 2).
+The mesh walks, under the JAX package's conditions (render.py:230, :289):
+several mesh objects with a fused pool (Scene.mesh_batch) take one batched
+walk over all of them, K9 primary and K10 shadow; otherwise each mesh object
+walks on its own, K5/K6, or K11/K12 for a mesh in the large tier (whose
+scene builds no pool).
 """
 
 from __future__ import annotations
@@ -31,7 +33,9 @@ from .ops.kernels.analytic_kernels import (
     pack_analytic_params_general)
 from .ops.kernels.shadow_chain import pack_chain_mats, pack_light_row, shadow_chain
 from .ops.kernels.texture_kernel import footprint_fetch
-from .ops.mesh_intersect import mesh_intersect_shared, mesh_min_t_general
+from .ops.mesh_intersect import (
+    mesh_intersect_shared, mesh_intersect_shared_batched, mesh_min_t_general,
+    mesh_min_t_general_batched)
 from .ops.relmath import lorentz, matmul4, transform4
 from .ops.texture_sample import bilinear_sample_packed
 from .ops.tonemap import tonemap
@@ -90,8 +94,12 @@ def intersect_scene(scene: Scene, meta: SceneMeta, L, stat_cam, dir4, perms):
         params = pack_analytic_params(L, objects.inv_m, stat_cam, ids)
         best = _merge_best(best, analytic_nearest_shared(
             params, dir4, len(meta.sphere_ids), len(meta.cube_ids)))
-    if len(meta.mesh_ids) > 1:
-        raise NotImplementedError("more than one mesh object needs K9 (and K10)")
+    if len(meta.mesh_ids) > 1 and scene.mesh_batch is not None:
+        best = _merge_best(best, mesh_intersect_shared_batched(
+            scene.mesh, meta, scene.mesh_batch, L, objects.inv_m, objects.m, stat_cam, dir4,
+            perms)[:4])
+        t, normal, uv, obj = best
+        return t, normal, uv, obj, t < INF
     for k, i in enumerate(meta.mesh_ids):
         d4 = L[i] @ dir4
         t, nrm, uv, _ = mesh_intersect_shared(
@@ -110,14 +118,16 @@ def scene_min_t(scene: Scene, meta: SceneMeta, L, origins4, dir3, interval: int,
     n = origins4.shape[1]
     dir4 = torch.cat([torch.full((1, n), float(interval), device=dir3.device),
                       normalize3(dir3)], dim=0)
-    if len(meta.mesh_ids) > 1:
-        raise NotImplementedError("more than one mesh object needs K10")
     best = torch.full((n,), INF, device=dir3.device)
     sph = tuple(i for i in meta.sphere_ids if i != exclude_id)
     cub = tuple(i for i in meta.cube_ids if i != exclude_id)
     if sph or cub:  # the light is left out by omitting its params row
         params = pack_analytic_params_general(L, scene.objects.inv_m, sph + cub)
         best = analytic_min_t_general(params, origins4, dir4, len(sph), len(cub), tmax)
+    if len(meta.mesh_ids) > 1 and scene.mesh_batch is not None:
+        return torch.minimum(best, mesh_min_t_general_batched(
+            meta, scene.mesh_batch, L, scene.objects.inv_m, scene.objects.m, origins4, dir4,
+            exclude_id, tmax))
     for k, i in enumerate(meta.mesh_ids):
         if i == exclude_id:
             continue

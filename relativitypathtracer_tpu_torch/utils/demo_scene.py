@@ -1,6 +1,6 @@
 """Procedural fixtures for the port's paths, written as scene files.
 
-Three scenes, each a directory in the layout `load_scene_file` resolves
+Five scenes, each a directory in the layout `load_scene_file` resolves
 (Scenes/, Models/ and Textures/ side by side), so they go through the
 ordinary parse -> build_scene -> build_render_fn entry points. All run with
 light propagation and shadows on (no I command, so interval -1).
@@ -19,6 +19,19 @@ light propagation and shadows on (no I command, so interval -1).
   seeded texture, whose footprint atlas is 32,768 rows (the MID tier, K8); an
   untextured flat floor cube lies under them and a light sphere above, so
   the cubes' shadows on the floor need the analytic occlusion walk (K7).
+- "instances": one OBJ instanced four times (`Om0` four times, as the
+  reference's DSL allows), so the scene takes the batched walks (K9, K10):
+  at level 4 that is 4 x 5,120 = 20,480 triangles in a 640-chunk pool. The
+  instances differ in scale (one non-uniformly), so each has its own
+  object-to-shared scale s; one is at rest, one moves at 0.5c along x, one
+  at 0.7c along y, and a small textured one (the 32x32 texture of
+  "textured") hangs between the light and the instance at rest, so that
+  shadow rays from one instance find occluders in another's chunks.
+- "large": the blob at LARGE_LEVEL (327,680 triangles: T_pad 327,680 and
+  10,240 chunks, above LARGE_T, so the large-mesh tier K11/K12 with 320
+  superchunks of 32), moving at 0.5c, with the light sphere; `level` is not
+  read. The size class of a scanned or subdivided model of 10^5 to 10^6
+  triangles, as the JAX package's 317,952-triangle tier.
 
 Usage: python -m relativitypathtracer_tpu_torch.utils.demo_scene DIR [LEVEL] [KIND]
 """
@@ -43,8 +56,9 @@ _ICO_FACES = [(0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11),
               (3, 9, 4), (3, 4, 2), (3, 2, 6), (3, 6, 8), (3, 8, 9),
               (4, 9, 5), (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1)]
 
-KINDS = ("blob", "textured", "cubes")
+KINDS = ("blob", "textured", "cubes", "instances", "large")
 SEED = 7  # the textures' numpy seed
+LARGE_LEVEL = 7  # the "large" blob's subdivision level
 
 # The blob scenes: the mesh's rest-frame position sits right of centre so
 # that, seen along the past light cone at 0.5c, it appears near the middle of
@@ -65,6 +79,27 @@ R
 SCENE_TXT = "MModels/blob.obj\n" + _BLOB_OBJECT + _LIGHT.format("-1.6,1.4,2.4")
 TEXTURED_TXT = ("TTextures/blob.ppm\nMModels/blob.obj\n" + _BLOB_OBJECT + " t0\n"
                 + _LIGHT.format("-1.6,1.4,2.4"))
+# Four instances of one mesh: at rest; at 0.5c along x; at 0.7c along y (its
+# rest-frame position is high so that, seen along the past light cone, it
+# appears in frame); small and textured, between the light and the first.
+INSTANCES_TXT = """TTextures/blob.ppm
+MModels/blob.obj
+Om0
+ p-2.6,-0.9,4.0,0,0,1,0,1.0,1.0,1.0
+ c0.8,0.55,0.35
+Om0
+ p4.2,-0.6,4.6,0.6,0,1,0,1.3,1.3,1.3
+ c0.35,0.6,0.8
+ v0.5,0,0
+Om0
+ p0.2,7.4,6.2,0.4,1,0,0,1.2,0.9,1.4
+ c0.55,0.8,0.4
+ v0,0.7,0
+Om0
+ p-2.3,0.9,3.1,0,0,1,0,0.4,0.4,0.4
+ c1,1,1
+ t0
+""" + _LIGHT.format("-1.6,1.9,2.6")
 
 
 def _cubes_txt() -> str:
@@ -110,7 +145,8 @@ def demo_texture(size: int, seed: int = SEED) -> np.ndarray:
 
 def write_demo_scene(root: str, level: int = 4, kind: str = "blob") -> str:
     """Write scene `kind` (one of KINDS) under `root`; return the scene file's
-    path. `level` is the blob mesh's subdivision level (unused by cubes)."""
+    path. `level` is the blob mesh's subdivision level (unused by cubes and
+    large)."""
     if kind not in KINDS:
         raise ValueError(f"unknown demo scene {kind!r}; expected one of {KINDS}")
     dirs = {d: os.path.join(root, d) for d in ("Scenes", "Models", "Textures")}
@@ -120,13 +156,13 @@ def write_demo_scene(root: str, level: int = 4, kind: str = "blob") -> str:
         write_ppm(os.path.join(dirs["Textures"], "cubes.ppm"), demo_texture(256))
         text = _cubes_txt()
     else:
-        verts, faces, uvs = blob_mesh(level)
-        textured = kind == "textured"
+        verts, faces, uvs = blob_mesh(LARGE_LEVEL if kind == "large" else level)
+        textured = kind in ("textured", "instances")
         write_obj(os.path.join(dirs["Models"], "blob.obj"), verts, faces,
                   uvs if textured else None)
         if textured:
             write_ppm(os.path.join(dirs["Textures"], "blob.ppm"), demo_texture(32))
-        text = TEXTURED_TXT if textured else SCENE_TXT
+        text = {"textured": TEXTURED_TXT, "instances": INSTANCES_TXT}.get(kind, SCENE_TXT)
     path = os.path.join(dirs["Scenes"], "scene.txt")
     with open(path, "w") as f:
         f.write(text)

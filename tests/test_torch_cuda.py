@@ -11,6 +11,8 @@ are built with -fmad=false), so they agree to the last bit except where a
 library function differs (atan2/asin in the spherical UVs) and at exact ties.
 """
 
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -41,10 +43,14 @@ def _launches(name):
     return _build.LAUNCHES[name]
 
 
-def _soup_lists(dev, shadow: bool, T=600, n=8192, seed=0):
+def _soup_lists(dev, shadow: bool, T=600, n=8192, seed=0, large=False):
+    """K5 (K11 when large) or K6 (K12) walk arguments for a random soup; the
+    large tier's lists come from its own list function and the walk also takes
+    (S, C, T)."""
+    from relativitypathtracer_tpu_torch.models.scene import MeshArrays
     from relativitypathtracer_tpu_torch.ops import mesh_intersect as mi
     from relativitypathtracer_tpu_torch.ops.kernels import mesh_kernels as mk
-    from relativitypathtracer_tpu_torch.models.scene import MeshArrays
+    from relativitypathtracer_tpu_torch.ops.kernels import mesh_large as ml
 
     rng = np.random.default_rng(seed)
     verts, tri_v = soup(rng, T)
@@ -54,17 +60,19 @@ def _soup_lists(dev, shadow: bool, T=600, n=8192, seed=0):
     T_pad = mi.padded_tri_count(T)
     A, B, C = mi.mesh_tri_vertices(mesh, perm)
     spheres = mk.chunk_spheres(A, B, C, T_pad)
+    build = ml.large_live_lists if large else mk.live_chunk_lists
+    tail = (ml._super_s(spheres.shape[0]), spheres.shape[0], T) if large else ()
     d = torch.as_tensor(rng.normal(size=(3, n)), dtype=torch.float32, device=dev)
     if not shadow:
         d[2] = d[2].abs() + 0.5
         d = d / d.norm(dim=0)
         ro = torch.tensor([0.0, 0.0, -6.0], device=dev)
         consts, c_t, _, _ = mi.shared_origin_constants(mesh, ro, perm)
-        order, minds, counts = mk.live_chunk_lists(spheres, d, ro[:, None].expand(3, n))
+        lists = build(spheres, d, ro[:, None].expand(3, n))
         lo, hi = mk._box_of(spheres)
         attrs = torch.as_tensor(rng.normal(size=(T_pad, 15)), dtype=torch.float32, device=dev)
-        return (order, minds, counts, torch.cat([lo, hi, ro]), mk.shared_tri_rows(consts, c_t),
-                attrs, d.contiguous())
+        return (*lists, torch.cat([lo, hi, ro]), mk.shared_tri_rows(consts, c_t), attrs,
+                d.contiguous(), *tail)
     d = d / d.norm(dim=0)
     o = torch.as_tensor(rng.uniform(-3, 3, (3, n)), dtype=torch.float32, device=dev)
     r10 = torch.cat([d, torch.linalg.cross(o, d, dim=0), o, torch.ones_like(d[:1])]).contiguous()
@@ -74,11 +82,10 @@ def _soup_lists(dev, shadow: bool, T=600, n=8192, seed=0):
     tcut = torch.where(valid, torch.clamp(tmax * 0.999 - 1e-3, min=0.0), 0.0)
     tmax2 = torch.stack([tmax, tcut]).contiguous()
     lo, hi = mk._box_of(spheres)
-    order, minds, counts = mk.live_chunk_lists(
-        spheres, r10[0:3], r10[6:9], valid=valid,
-        lane_bound=mk._general_lane_bound(tmax, r10, lo, hi))
+    lists = build(spheres, r10[0:3], r10[6:9], valid=valid,
+                  lane_bound=mk._general_lane_bound(tmax, r10, lo, hi))
     cols = mi.general_ray_constants(mesh, perm)
-    return (order, minds, counts, torch.cat([lo, hi]), mk.general_tri_rows(cols), r10, tmax2)
+    return (*lists, torch.cat([lo, hi]), mk.general_tri_rows(cols), r10, tmax2, *tail)
 
 
 def test_shared_walk_kernel_matches_twin(cuda):
@@ -299,3 +306,202 @@ def test_wrapper_checks_dtype_and_shape(cuda):
     args[1] = torch.zeros((1, 35), device=cuda)
     with pytest.raises(ValueError):
         sc.shadow_chain(*args)
+
+
+def _batch_args(dev, O, shadow, T=300, n=8192):
+    """K9 (shadow False) or K10 walk arguments for O random soups in front
+    of the camera, each with its own rotation, non-uniform scale and
+    velocity; for K10 object 1 is disabled, as the light's own mesh is."""
+    from relativitypathtracer_tpu_torch.models.scene import MeshArrays
+    from relativitypathtracer_tpu_torch.ops import mesh_intersect as mi
+    from relativitypathtracer_tpu_torch.ops import relmath
+    from relativitypathtracer_tpu_torch.ops.kernels import mesh_batch as mb
+    from relativitypathtracer_tpu_torch.ops.kernels import mesh_kernels as mk
+
+    rng = np.random.default_rng(O + 10 * shadow)
+    f32 = np.float32
+    d = rng.normal(size=(3, n)) * 0.1
+    d[2] = 1.0
+    dir4 = torch.as_tensor(np.concatenate([np.full((1, n), -1.0), d / np.linalg.norm(d, axis=0)]),
+                           dtype=torch.float32, device=dev)
+    cam = torch.tensor([0.3, 0.1, -0.1, 0.0], device=dev)
+    rows, attrs, spheres, boxes, mats, counts = [], [], [], [], [], []
+    for g in range(O):
+        verts, tri_v = soup(rng, T)
+        mesh = MeshArrays(torch.as_tensor(verts * 0.5, device=dev),
+                          torch.as_tensor(tri_v, device=dev), *([None] * 11))
+        z = rng.uniform(6.0, 10.0)
+        m = relmath.trs(np.array([rng.uniform(-0.1, 0.1) * z, rng.uniform(-0.08, 0.08) * z, z],
+                                 f32), f32(rng.uniform(0, 3)), rng.normal(size=3).astype(f32),
+                        rng.uniform(0.6, 1.4, 3).astype(f32)).to(dev)
+        inv_m = relmath.inverse4(m)
+        L = relmath.lorentz(torch.as_tensor(rng.normal(size=3) * 0.05, dtype=torch.float32)).to(dev)
+        perm = torch.arange(T, device=dev)
+        T_pad = mi.padded_tri_count(T)
+        sph = mk.chunk_spheres(*mi.mesh_tri_vertices(mesh, perm), T_pad)
+        lo, hi = mk._box_of(sph)
+        if shadow:
+            rows.append(mk.general_tri_rows(mi.general_ray_constants(mesh, perm)))
+            mats.append(mb.mat_row(L, inv_m, m))
+            boxes.append(torch.cat([lo, hi]) if g != 1 else
+                         torch.tensor([1.0, 1.0, 1.0, 0.0, 0.0, 0.0], device=dev))
+        else:
+            ro = inv_m[:3, :3] @ (L @ cam)[1:4] + inv_m[:3, 3]
+            consts, c_t, _, _ = mi.shared_origin_constants(mesh, ro, perm)
+            rows.append(mk.shared_tri_rows(consts, c_t))
+            attrs.append(torch.as_tensor(rng.normal(size=(T_pad, 15)), dtype=torch.float32,
+                                         device=dev))
+            mats.append(mb.mat_row(L, inv_m, m, ro))
+            boxes.append(torch.cat([lo, hi, ro]))
+        spheres.append(sph)
+        counts.append(T_pad // mk.TC)
+    mats, spheres, cobj = torch.stack(mats), torch.cat(spheres), mb.chunk_objects(counts, dev)
+    if not shadow:
+        d_os, s_os = mb.object_dirs(mats, dir4)
+        lists = mb.live_chunk_lists_multi(spheres, counts, d_os, mats[:, 15:18, None].expand(O, 3, n),
+                                          s_os)
+        return (*lists, cobj, torch.stack(boxes), mats, torch.cat(rows), torch.cat(attrs), dir4)
+    o4 = torch.as_tensor(np.stack([rng.uniform(0.0, 0.5, n), rng.uniform(-1, 1, n),
+                                   rng.uniform(-1, 1, n), rng.uniform(0.0, 5.0, n)]),
+                         dtype=torch.float32, device=dev)
+    tmax = torch.as_tensor(rng.uniform(2.0, 14.0, n), dtype=torch.float32, device=dev)
+    tmax[torch.as_tensor(rng.uniform(size=n) < 0.2, device=dev)] = 0.0
+    r_all, s_os = mb.object_rays(mats, o4, dir4)
+    lists = mb.live_chunk_lists_multi(spheres, counts, r_all[:, 0:3], r_all[:, 6:9], s_os,
+                                      valid=tmax > 0, enabled=tuple(g != 1 for g in range(O)),
+                                      lane_bound_shared=tmax)
+    return (*lists, cobj, torch.stack(boxes), mats, torch.cat(rows), o4, dir4, tmax)
+
+
+@pytest.mark.parametrize("O", [2, 8])
+def test_batched_shared_walk_kernel_matches_twin(cuda, O):
+    """K9 on 2 and 8 objects: equal hit masks and object slots, triangle ids
+    on 99.9% of hits, t/u/v rtol 1e-5, attributes atol 1e-4."""
+    from relativitypathtracer_tpu_torch.ops.kernels import mesh_batch as mb
+
+    args = _batch_args(cuda, O, shadow=False)
+    before = _launches("rpt_batched_shared_walk")
+    got = mb.batched_shared_walk(*args)
+    torch.cuda.synchronize()
+    assert _launches("rpt_batched_shared_walk") == before + 1
+    want = mb.batched_shared_walk_plain(*args)
+    hit = want[3] >= 0
+    assert float(hit.float().mean()) > 0.1 and torch.equal(got[3] >= 0, hit)
+    assert torch.equal(got[4], want[4]) and len(set(want[4][hit].tolist())) == O
+    assert float((got[3] != want[3]).float().mean()) <= 1e-3
+    same = hit & (got[3] == want[3])
+    for g, w in zip(got[:3], want[:3]):
+        torch.testing.assert_close(g[same], w[same], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got[5][:, same], want[5][:, same], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("O", [2, 8])
+def test_batched_general_walk_kernel_matches_twin(cuda, O):
+    """K10 on 2 and 8 objects, one disabled: equal lit masks on the lanes
+    with tmax > 0, both verdicts present, the result min(hit, tmax)."""
+    from relativitypathtracer_tpu_torch.ops.kernels import mesh_batch as mb
+
+    args = _batch_args(cuda, O, shadow=True)
+    got, want = mb.batched_general_walk(*args), mb.batched_general_walk_plain(*args)
+    tmax = args[9]
+    rel = tmax > 0
+    assert torch.equal((got >= tmax)[rel], (want >= tmax)[rel])
+    assert bool((got <= tmax).all())
+    assert int((want < tmax)[rel].sum()) > 50 and int((want >= tmax)[rel].sum()) > 50
+
+
+@pytest.mark.parametrize("xl", [False, True], ids=["s32", "s128"])
+def test_large_walk_kernels_match_twins(cuda, monkeypatch, xl):
+    """K11 and K12 on a 3,000-triangle soup (96 chunks, the last 24
+    triangles masked by T) over superchunks of 32, and of 128 from the
+    super-sphere cull (SUPER_CULL_C forced to 0): K11 as K5's test, K12 as
+    K6's."""
+    from relativitypathtracer_tpu_torch.ops.kernels import mesh_large as ml
+
+    if xl:
+        monkeypatch.setattr(ml, "SUPER_CULL_C", 0)
+    args = _soup_lists(cuda, shadow=False, T=3000, seed=5, large=True)
+    assert args[-3] == (128 if xl else 32)
+    before = _launches("rpt_large_shared_walk")
+    got = ml.large_shared_walk(*args)
+    torch.cuda.synchronize()
+    assert _launches("rpt_large_shared_walk") == before + 1
+    want = ml.large_shared_walk_plain(*args)
+    hit = want[3] >= 0
+    assert hit.any() and torch.equal(got[3] >= 0, hit)
+    assert float((got[3] != want[3]).float().mean()) <= 1e-3
+    same = hit & (got[3] == want[3])
+    for g, w in zip(got[:3], want[:3]):
+        torch.testing.assert_close(g[same], w[same], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got[4][:, same], want[4][:, same], rtol=0, atol=1e-4)
+
+    args = _soup_lists(cuda, shadow=True, T=3000, seed=5, large=True)
+    got, want = ml.large_general_walk(*args), ml.large_general_walk_plain(*args)
+    tmax = args[7][0]
+    rel = tmax > 0
+    assert torch.equal((got >= tmax)[rel], (want >= tmax)[rel])
+    assert bool((got <= tmax).all())
+    assert int((want < tmax)[rel].sum()) > 50 and int((want >= tmax)[rel].sum()) > 50
+
+
+@pytest.mark.parametrize("kind", ["instances", "forced_large"])
+def test_batched_and_large_card_frames_match_cpu_frames(cuda, tmp_path, kind):
+    """The instances fixture (K9, K10) and the blob forced into the large
+    tier (K11, K12) at 256x192, moving camera: the card's frame against the
+    port's CPU frame, parity rule, equal counts; K5/K6 never launched."""
+    import relativitypathtracer_tpu_torch as pt
+    from relativitypathtracer_tpu_torch.ops import mesh_intersect as mi
+    from relativitypathtracer_tpu_torch.ops.kernels import _build
+    from relativitypathtracer_tpu_torch.utils.demo_scene import write_demo_scene
+
+    host = pt.load_scene_file(write_demo_scene(
+        str(tmp_path), 3, "instances" if kind == "instances" else "blob"))
+    mi.LARGE_MODE = kind == "forced_large" or None
+    try:
+        scene, meta = pt.build_scene(host, device=cuda)
+        cpu_scene, cpu_meta = pt.build_scene(host, device="cpu")
+    finally:
+        mi.LARGE_MODE = None
+    state = ((0.3, 0.0, 0.4), (0.7, 0.0, 0.0, 0.0))
+    before = collections.Counter(_build.LAUNCHES)
+    img, aux = pt.build_render_fn(meta, 256, 192, -1, with_aux=True, device=cuda)(
+        scene, pt.FrameState(torch.tensor(state[0], device=cuda),
+                             torch.tensor(state[1], device=cuda)))
+    torch.cuda.synchronize()
+    ran = {k for k, v in (_build.LAUNCHES - before).items() if v}
+    walks = ({"rpt_batched_shared_walk", "rpt_batched_general_walk"} if kind == "instances"
+             else {"rpt_large_shared_walk", "rpt_large_general_walk"})
+    assert walks <= ran and not ran & {"rpt_shared_walk", "rpt_general_walk"}
+    ref, ref_aux = pt.build_render_fn(cpu_meta, 256, 192, -1, with_aux=True, device="cpu")(
+        cpu_scene, pt.FrameState(torch.tensor(state[0]), torch.tensor(state[1])))
+    diff = (img.cpu() - ref).abs().amax(dim=-1)
+    assert float((diff > 1e-3).float().mean()) <= 0.002
+    assert {k: int(v) for k, v in aux.items()} == {k: int(v) for k, v in ref_aux.items()}
+    assert int(aux["hits"]) > 0 and 0 < int(aux["lit_rays"]) < int(aux["shadow_rays"])
+
+
+def test_xl_lists_on_the_large_fixture(cuda, tmp_path, monkeypatch):
+    """The level-7 fixture with the super-sphere cull forced (SUPER_CULL_C =
+    0): superchunks of 128, so 80 of them; its 512x384 frame against the
+    frame of the default lists (superchunks of 32), parity rule, equal
+    counts."""
+    import relativitypathtracer_tpu_torch as pt
+    from relativitypathtracer_tpu_torch.ops.kernels import mesh_large as ml
+    from relativitypathtracer_tpu_torch.utils.demo_scene import write_demo_scene
+
+    scene, meta = pt.build_scene(pt.load_scene_file(write_demo_scene(str(tmp_path), 4, "large")),
+                                 device=cuda)
+    state = pt.FrameState(torch.tensor([0.3, 0.0, 0.4], device=cuda),
+                          torch.tensor([0.7, 0.0, 0.0, 0.0], device=cuda))
+    render = pt.build_render_fn(meta, 512, 384, -1, with_aux=True, device=cuda)
+    base, base_aux = render(scene, state)
+    seen = []
+    real = ml.large_shared_walk
+    monkeypatch.setattr(ml, "SUPER_CULL_C", 0)
+    monkeypatch.setattr(ml, "large_shared_walk",
+                        lambda *a: seen.append((a[0].shape[1], a[-3])) or real(*a))
+    img, aux = render(scene, state)
+    assert seen == [(80, 128)]
+    diff = (img - base).abs().amax(dim=-1)
+    assert float((diff > 1e-3).float().mean()) <= 0.002
+    assert {k: int(v) for k, v in aux.items()} == {k: int(v) for k, v in base_aux.items()}

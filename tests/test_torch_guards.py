@@ -47,10 +47,11 @@ def test_chip_smoke_fails_without_a_card():
     assert '"ok": true' not in proc.stdout
 
 
-def test_cli_renders_the_fixture_on_cpu(tmp_path):
+@pytest.mark.parametrize("kind", ["blob", "instances"])
+def test_cli_renders_the_fixture_on_cpu(tmp_path, kind):
     from relativitypathtracer_tpu_torch.utils.demo_scene import write_demo_scene
 
-    scene = write_demo_scene(str(tmp_path), 2)
+    scene = write_demo_scene(str(tmp_path), 2, kind)
     out = tmp_path / "frame.png"
     proc = subprocess.run(
         [sys.executable, "-m", "relativitypathtracer_tpu_torch.cli", "--scene", scene,
@@ -87,7 +88,7 @@ def test_wrappers_never_fall_back_off_the_cpu():
     either launches the CUDA kernel or raises (here, meta tensors raise
     before any build or launch)."""
     from relativitypathtracer_tpu_torch.ops.kernels import (
-        analytic_kernels, mesh_kernels, shadow_chain, texture_kernel)
+        analytic_kernels, mesh_batch, mesh_kernels, mesh_large, shadow_chain, texture_kernel)
 
     def m(*shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device="meta")
@@ -105,6 +106,18 @@ def test_wrappers_never_fall_back_off_the_cpu():
                                                         m(64)),
         lambda: texture_kernel.footprint_fetch(m(512, 8, dtype=i32), m(2, 11, dtype=i32),
                                                m(64, dtype=i32), m(2, 64)),
+        lambda: mesh_batch.batched_shared_walk(
+            m(1, 8, dtype=i32), m(1, 8), m(1, dtype=i32), m(8, dtype=i32), m(2, 9),
+            m(2, mesh_batch.MAT_COLS), m(256, 10), m(256, 15), m(4, 1024)),
+        lambda: mesh_batch.batched_general_walk(
+            m(1, 8, dtype=i32), m(1, 8), m(1, dtype=i32), m(8, dtype=i32), m(2, 6),
+            m(2, mesh_batch.MAT_COLS), m(256, 20), m(4, 1024), m(4, 1024), m(1024)),
+        lambda: mesh_large.large_shared_walk(
+            m(1, 1, dtype=i32), m(1, 1), m(1, dtype=i32), m(1, 1, dtype=i32), m(9),
+            m(256, 10), m(256, 15), m(3, 1024), 32, 8, 256),
+        lambda: mesh_large.large_general_walk(
+            m(1, 1, dtype=i32), m(1, 1), m(1, dtype=i32), m(1, 1, dtype=i32), m(6),
+            m(256, 20), m(10, 1024), m(2, 1024), 32, 8, 256),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="CUDA device"):

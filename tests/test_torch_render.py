@@ -18,11 +18,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_port_fixtures import build_both, write_fixture
+from torch_port_fixtures import build_both, jax_frame, port_frame, write_fixture
 
 import relativitypathtracer_tpu_torch as pt
-from relativitypathtracer_tpu import render as jrender
-from relativitypathtracer_tpu.ops import mesh_intersect as jmi
 from relativitypathtracer_tpu_torch import render as prender
 
 W = H = 64
@@ -47,27 +45,6 @@ def cubes(tmp_path_factory):
     return build_both(write_fixture(tmp_path_factory, 3, "cubes"))
 
 
-def _jax_frame(js, jm, mode, state, size=(W, H), msaa=1):
-    """JAX frame and aux with the kernel routing forced to `mode`, caches
-    cleared on both sides (as conftest.render_with_mode does)."""
-    jmi.PALLAS_MODE = mode
-    jrender.build_render_fn.cache_clear()
-    try:
-        fn = jrender.build_render_fn(jm, size[0], size[1], -1, msaa, True)
-        img, aux = fn(js, jrender.FrameState(jnp.asarray(state[0], jnp.float32),
-                                             jnp.asarray(state[1], jnp.float32)))
-        return np.asarray(img), {k: int(v) for k, v in aux.items()}
-    finally:
-        jmi.PALLAS_MODE = None
-        jrender.build_render_fn.cache_clear()
-
-
-def _port_frame(ps, pm, state, size=(W, H), msaa=1):
-    fn = prender.build_render_fn(pm, size[0], size[1], -1, msaa, with_aux=True, device="cpu")
-    img, aux = fn(ps, prender.FrameState(torch.tensor(state[0]), torch.tensor(state[1])))
-    return img.numpy(), {k: int(v) for k, v in aux.items()}
-
-
 def _assert_parity(got, want, paux, jaux, shape=(H, W, 3), slack=0):
     """Parity rule, equal hits, and shadow_rays within `slack` lanes."""
     assert got.shape == want.shape == shape and np.isfinite(got).all()
@@ -90,8 +67,8 @@ def _slack(kind, aux):
 @pytest.mark.parametrize("state", list(STATES))
 def test_port_frame_matches_jax(scenes, mode, state):
     (js, jm), (ps, pm) = scenes
-    want, jaux = _jax_frame(js, jm, mode, STATES[state])
-    got, paux = _port_frame(ps, pm, STATES[state])
+    want, jaux = jax_frame(js, jm, STATES[state], mode)
+    got, paux = port_frame(ps, pm, STATES[state])
     assert got.shape == want.shape == (H, W, 3) and np.isfinite(got).all()
     diff = np.abs(got - want).max(axis=-1)
     assert float(np.mean(diff > 1e-3)) <= 0.002, f"{np.mean(diff > 1e-3):.4%} pixels off"
@@ -109,7 +86,7 @@ def test_untextured_scene_discards_the_texel_fetch(scenes, monkeypatch):
 
     (js, jm), _ = scenes
     assert jm.mesh_ids and np.all(np.asarray(js.objects.tex_offset) == -1)
-    base, _ = _jax_frame(js, jm, "interpret", STATES["rest"])
+    base, _ = jax_frame(js, jm, STATES["rest"], "interpret")
     calls = []
 
     def garbage(quads, fp, w, h, uv, interpret=False):
@@ -117,7 +94,7 @@ def test_untextured_scene_discards_the_texel_fetch(scenes, monkeypatch):
         return jnp.full((3, uv.shape[1]), 7.0, jnp.float32)
 
     monkeypatch.setattr(texture_kernel, "footprint_sample_small", garbage)
-    stubbed, _ = _jax_frame(js, jm, "interpret", STATES["rest"])
+    stubbed, _ = jax_frame(js, jm, STATES["rest"], "interpret")
     assert calls, "the JAX frame did not reach the small-atlas fetch"
     assert np.array_equal(stubbed, base)
 
@@ -130,8 +107,8 @@ def test_textured_fixture_frame_matches_jax(request, kind, mode, state):
     K7 (cubes) in interpret mode, or through its jnp gather and analytic
     loops; the port's through the plain twins of its CUDA kernels."""
     (js, jm), (ps, pm) = request.getfixturevalue(kind)
-    want, jaux = _jax_frame(js, jm, mode, STATES[state])
-    got, paux = _port_frame(ps, pm, STATES[state])
+    want, jaux = jax_frame(js, jm, STATES[state], mode)
+    got, paux = port_frame(ps, pm, STATES[state])
     _assert_parity(got, want, paux, jaux, slack=_slack(kind, jaux))
     assert paux["hits"] > 200 and 0 < paux["lit_rays"] < paux["shadow_rays"]
 
@@ -159,10 +136,10 @@ def test_fixture_atlases_and_routes(textured, cubes):
 def test_msaa2_frame_matches_jax(textured):
     """msaa 2 at 32x32: four sample sets averaged, counts summed."""
     (js, jm), (ps, pm) = textured
-    want, jaux = _jax_frame(js, jm, False, STATES["boosted"], (32, 32), 2)
-    got, paux = _port_frame(ps, pm, STATES["boosted"], (32, 32), 2)
+    want, jaux = jax_frame(js, jm, STATES["boosted"], False, (32, 32), 2)
+    got, paux = port_frame(ps, pm, STATES["boosted"], (32, 32), 2)
     _assert_parity(got, want, paux, jaux, (32, 32, 3))
-    one, oaux = _port_frame(ps, pm, STATES["boosted"], (32, 32), 1)
+    one, oaux = port_frame(ps, pm, STATES["boosted"], (32, 32), 1)
     assert paux["hits"] > 2 * oaux["hits"] and not np.array_equal(one, got)
 
 
@@ -174,8 +151,8 @@ def test_packed_route_matches_jax(request, kind):
     assert int(np.asarray(js.objects.tex_offset).max()) < 2 ** 24
     jm = dataclasses.replace(jm, use_footprint_tex=False)
     pm = dataclasses.replace(pm, use_footprint_tex=False)
-    want, jaux = _jax_frame(js, jm, False, STATES["rest"])
-    got, paux = _port_frame(ps, pm, STATES["rest"])
+    want, jaux = jax_frame(js, jm, STATES["rest"], False)
+    got, paux = port_frame(ps, pm, STATES["rest"])
     _assert_parity(got, want, paux, jaux, slack=_slack(kind, jaux))
 
 
@@ -193,10 +170,10 @@ def test_textured_objects_wait_for_k2(textured, monkeypatch):
         return real(quads, table, obj, uv)
 
     monkeypatch.setattr(prender, "footprint_fetch", spy)
-    base, _ = _port_frame(ps, pm, STATES["rest"], (32, 32))
+    base, _ = port_frame(ps, pm, STATES["rest"], (32, 32))
     assert calls == [("small", (2, ptk.TABLE_COLS))]
     monkeypatch.setattr(prender, "footprint_fetch", lambda *a: torch.zeros((3, a[3].shape[1])))
-    dark, _ = _port_frame(ps, pm, STATES["rest"], (32, 32))
+    dark, _ = port_frame(ps, pm, STATES["rest"], (32, 32))
     assert not np.array_equal(base, dark)
 
 
@@ -212,21 +189,34 @@ def test_analytic_occluders_wait_for_k7(cubes, monkeypatch):
         return real(params, o4, d4, n_spheres, n_cubes, tmax)
 
     monkeypatch.setattr(prender, "analytic_min_t_general", spy)
-    _, aux = _port_frame(ps, pm, STATES["rest"], (32, 32))
+    _, aux = port_frame(ps, pm, STATES["rest"], (32, 32))
     assert calls == [((9, 32), 0, 9)]
     assert 0 < aux["lit_rays"] < aux["shadow_rays"]
 
 
-def test_unported_routes_raise(scenes):
-    _, (ps, pm) = scenes
-    two_meshes = dataclasses.replace(pm, mesh_ids=(0, 0))
-    with pytest.raises(NotImplementedError, match="K9"):
-        prender.build_render_fn(two_meshes, 32, 32, -1, device="cpu")(
-            ps, prender.FrameState.initial("cpu"))
+def test_unported_routes_raise(scenes, tmp_path):
+    """The routes once refused now build and render: a scene with the blob
+    twice gets the fused pool of K9/K10, and a mesh of T_pad > 24,576 the
+    large tier's rows (K11/K12)."""
     from relativitypathtracer_tpu_torch.models.scene import _mesh_static
+    from relativitypathtracer_tpu_torch.utils.demo_scene import _BLOB_OBJECT, write_demo_scene
 
-    with pytest.raises(NotImplementedError, match="K11"):
-        _mesh_static(ps.mesh, tuple(range(30000)))
+    _, (ps, _) = scenes
+    path = write_demo_scene(str(tmp_path), 2)
+    with open(path) as f:
+        text = f.read()
+    with open(path, "w") as f:  # a second instance, left of the first
+        f.write(text.replace(_BLOB_OBJECT, _BLOB_OBJECT + _BLOB_OBJECT.replace(" p1,", " p-0.6,")))
+    two, meta = pt.build_scene(pt.load_scene_file(path), device="cpu")
+    assert len(meta.mesh_ids) == 2 and two.mesh_batch is not None
+    img, aux = port_frame(two, meta, STATES["rest"], (32, 32))
+    one, one_meta = pt.build_scene(pt.load_scene_file(write_demo_scene(str(tmp_path / "one"), 2)),
+                                   device="cpu")
+    _, one_aux = port_frame(one, one_meta, STATES["rest"], (32, 32))
+    assert np.isfinite(img).all() and aux["hits"] > one_aux["hits"]
+
+    big = _mesh_static(ps.mesh, tuple(i % 1280 for i in range(30000)))
+    assert big.gen_rec is not None and big.gen_rec.shape == (30208, 20)
 
 
 def test_render_frame_entry_point(scenes):

@@ -80,9 +80,19 @@ def test_scene_from_numpy_round_trip(both):
 
 
 def test_scene_from_numpy_refuses_the_multi_mesh_pool(both):
+    """The multi-mesh pool, once refused, now carries over as it is (K9/K10
+    read it): every field equal to the JAX package's."""
+    import jax
+
+    from relativitypathtracer_tpu.models.scene import MeshBatchStatic
+
     (js, _), _ = both
-    with pytest.raises(NotImplementedError, match="K9"):
-        pt.scene_from_numpy(js._replace(mesh_batch=js.mesh_static[0]), device="cpu")
+    ms = js.mesh_static[0]
+    pool = MeshBatchStatic(attrs=ms.attrs, gen_cols=ms.gen_cols, spheres=ms.spheres)
+    carried = pt.scene_from_numpy(jax.tree.map(np.asarray, js._replace(mesh_batch=pool)),
+                                  device="cpu")
+    for f in ("attrs", "gen_cols", "spheres"):
+        assert np.array_equal(getattr(carried.mesh_batch, f).numpy(), np.asarray(getattr(pool, f)))
 
 
 def test_parse_scene_matrices_match_jax_on_rotations():

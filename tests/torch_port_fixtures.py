@@ -60,3 +60,45 @@ def assert_mostly_close(got, want, tol: float, frac: float, hard: float, rel: bo
     err = np.abs(got - want) / np.maximum(scale, 1e-30) if rel else np.abs(got - want)
     assert err.max() <= hard, f"max err {err.max()} > {hard}"
     assert np.mean(err > tol) <= frac, f"{np.mean(err > tol):.4f} of entries > {tol}"
+
+
+def jax_frame(js, jm, state, mode="interpret", size=(64, 64), msaa=1, large=None):
+    """The JAX package's frame (H, W, 3) and aux counts at `size`, interval
+    -1, for state ((cam_velocity), (cam_pos)), its kernel routing forced to
+    `mode` and its LARGE_MODE to `large`, render caches cleared before and
+    after (as conftest.render_with_mode does)."""
+    import jax.numpy as jnp
+
+    from relativitypathtracer_tpu import render as jrender
+    from relativitypathtracer_tpu.ops import mesh_intersect as jmi
+
+    jmi.PALLAS_MODE, jmi.LARGE_MODE = mode, large
+    jrender.build_render_fn.cache_clear()
+    try:
+        fn = jrender.build_render_fn(jm, size[0], size[1], -1, msaa, True)
+        img, aux = fn(js, jrender.FrameState(jnp.asarray(state[0], jnp.float32),
+                                             jnp.asarray(state[1], jnp.float32)))
+        return np.asarray(img), {k: int(v) for k, v in aux.items()}
+    finally:
+        jmi.PALLAS_MODE = jmi.LARGE_MODE = None
+        jrender.build_render_fn.cache_clear()
+
+
+def port_frame(ps, pm, state, size=(64, 64), msaa=1):
+    """The port's frame and aux counts on the CPU, as jax_frame's."""
+    from relativitypathtracer_tpu_torch import render as prender
+
+    fn = prender.build_render_fn(pm, size[0], size[1], -1, msaa, with_aux=True, device="cpu")
+    img, aux = fn(ps, prender.FrameState(torch.tensor(state[0]), torch.tensor(state[1])))
+    return img.numpy(), {k: int(v) for k, v in aux.items()}
+
+
+def assert_frame_parity(got, want, paux, jaux):
+    """The parity rule of utils/parity.py (at most 0.2% of pixels off by more
+    than 1e-3), a mean difference under 1e-4, equal hit and shadow-ray
+    counts."""
+    assert got.shape == want.shape and got.shape[-1] == 3 and np.isfinite(got).all()
+    diff = np.abs(got - want)
+    assert float(np.mean(diff.max(axis=-1) > 1e-3)) <= 0.002
+    assert float(diff.mean()) < 1e-4, f"mean diff {diff.mean()}"
+    assert paux["hits"] == jaux["hits"] and paux["shadow_rays"] == jaux["shadow_rays"]

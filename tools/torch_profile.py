@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the port's frame time goes on the card, per demo path.
 
-    python tools/torch_profile.py [PATH ...]     (default: blob textured cubes)
+    python tools/torch_profile.py [PATH ...]  (default: all five paths)
 
 For each path of chip_smoke.py (utils/demo_scene at 1024x768, interval -1,
 the camera moving at 0.5c) it renders 5 warm-up frames, then times 30 frames
@@ -11,7 +11,14 @@ with torch.profiler. It prints one JSON line per path: the card, the frame
 time, the kernels launched per frame, the device busy time per frame (the
 union of kernel and copy intervals) and its share of the frame, each of the
 port's CUDA kernels' device time per frame, and the five other kernels with
-the most device time. Needs a CUDA device and nvcc.
+the most device time. K4, the live-chunk list build, is torch operations and
+not one kernel: every list build of one frame is captured and replayed 10
+times under the profiler alone, which gives its device time per frame
+(`k4`: builds per frame, device ms, and the bound of the same work: the
+spheres and rays read once and the lists written once over the memory rate,
+or about 30 operations per cone test of a (128-lane sub-cone, chunk) pair
+and 40 per (block, entry) of the counting sort over the fp32 rate, the
+larger of the two). Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -29,10 +36,31 @@ import torch
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 import relativitypathtracer_tpu_torch as pt  # noqa: E402
+from relativitypathtracer_tpu_torch.ops.kernels import mesh_batch as mb  # noqa: E402
+from relativitypathtracer_tpu_torch.ops.kernels import mesh_kernels as mk  # noqa: E402
+from relativitypathtracer_tpu_torch.ops.kernels import mesh_large as ml  # noqa: E402
 from relativitypathtracer_tpu_torch.utils.demo_scene import write_demo_scene  # noqa: E402
 
-PORT_KERNELS = ("shadow_chain_kernel", "footprint_kernel", "analytic_nearest_kernel",
-                "analytic_min_t_kernel", "shared_walk_kernel", "general_walk_kernel")
+# The port's kernels by what their trace names hold (a name may be mangled or
+# demangled; the walks of K5/K6 and K11/K12 are one template fed two lists).
+PORT_KERNELS = {"K1": ("shadow_chain_kernel",), "K2/K8": ("footprint_kernel",),
+                "K3": ("analytic_nearest_kernel",), "K7": ("analytic_min_t_kernel",),
+                "K5": ("shared_walk_kernel", "FlatList"), "K6": ("general_walk_kernel", "FlatList"),
+                "K11": ("shared_walk_kernel", "SuperList"),
+                "K12": ("general_walk_kernel", "SuperList"),
+                "K9": ("batched_shared_walk_kernel",), "K10": ("batched_general_walk_kernel",)}
+
+
+def _port_kernel(name: str):
+    """The id of the port kernel a trace name belongs to, or None."""
+    for kid, parts in PORT_KERNELS.items():
+        if all(p in name for p in parts) and ("batched" in name) == ("batched" in parts[0]):
+            return kid
+    return None
+# K4's entry points, by the module attribute the walks call them through
+LIST_BUILDS = ((mk, "live_chunk_lists"), (mb, "live_chunk_lists_multi"),
+               (ml, "large_live_lists"))
+PEAK_OPS, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM: fp32 outside the tensor cores, HBM3
 
 
 def _union_ms(intervals) -> float:
@@ -42,6 +70,57 @@ def _union_ms(intervals) -> float:
             total += b - max(a, end)
             end = b
     return total / 1e3
+
+
+def _device_ms(fn, reps: int) -> float:
+    """Device time of fn() (the sum of its CUDA kernels and copies) per rep."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.end - e.time_range.start for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / reps
+
+
+def _list_bound_ms(name, args, out) -> float:
+    """The least time of one list build (see the module docstring)."""
+    spheres = args[0]
+    rays = args[2] if name == "live_chunk_lists_multi" else args[1]
+    n_pad, C = rays.shape[-1], spheres.shape[0]
+    order, entries = out[0], out[0].numel()
+    B = order.shape[0]
+    pairs = n_pad // (mk.NB // mk.SUB) * C
+    if name == "large_live_lists" and C > ml.SUPER_CULL_C:  # super-sphere cull + block bits
+        pairs = n_pad // (mk.NB // mk.SUB) * order.shape[1] + B * C
+    moved = (spheres.numel() * 4 + sum(a.numel() * a.element_size() for a in args[1:]
+                                       if torch.is_tensor(a))
+             + sum(o.numel() * o.element_size() for o in out))
+    return max(moved / PEAK_BYTES, (30.0 * pairs + 40.0 * entries) / PEAK_OPS) * 1e3
+
+
+def list_build(render, scene, state, reps: int = 10) -> dict:
+    """K4 per frame: every list build of one frame captured, then replayed."""
+    calls, originals = [], {}
+    for mod, attr in LIST_BUILDS:
+        real = originals[(mod, attr)] = getattr(mod, attr)
+
+        def rec(*a, _real=real, _name=attr, **kw):
+            out = _real(*a, **kw)
+            calls.append((_real, _name, a, kw, out))
+            return out
+
+        setattr(mod, attr, rec)
+    try:
+        render(scene, state)
+    finally:
+        for (mod, attr), real in originals.items():
+            setattr(mod, attr, real)
+    torch.cuda.synchronize()
+    ms = _device_ms(lambda: [fn(*a, **kw) for fn, _, a, kw, _ in calls], reps)
+    return {"builds_per_frame": collections.Counter(c[1] for c in calls),
+            "device_ms_per_frame": ms,
+            "bound_ms_per_frame": sum(_list_bound_ms(n, a, o) for _, n, a, _, o in calls)}
 
 
 def profile_path(kind: str, card: str, timed: int = 30, traced: int = 10) -> dict:
@@ -74,13 +153,15 @@ def profile_path(kind: str, card: str, timed: int = 30, traced: int = 10) -> dic
         by_name[e.name] += (e.time_range.end - e.time_range.start) / 1e3 / traced
         launches += "memcpy" not in e.name.lower() and "memset" not in e.name.lower()
     busy = _union_ms(spans) / traced
-    port = {k: sum(v for n, v in by_name.items() if k in n) for k in PORT_KERNELS}
-    others = [(n, v) for n, v in by_name.most_common()
-              if not any(k in n for k in PORT_KERNELS)][:5]
+    port = collections.Counter()
+    for n, v in by_name.items():
+        if _port_kernel(n):
+            port[_port_kernel(n)] += v
+    others = [(n, v) for n, v in by_name.most_common() if not _port_kernel(n)][:5]
     return {"path": kind, "card": card, "wall_ms_per_frame": wall_ms,
             "kernels_per_frame": launches / traced, "busy_ms_per_frame": busy,
             "busy_share": busy / wall_ms, "port_kernels_ms_per_frame": port,
-            "top_other_ms_per_frame": others}
+            "top_other_ms_per_frame": others, "k4": list_build(render, scene, state)}
 
 
 def main() -> int:
@@ -91,7 +172,7 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
-    for kind in sys.argv[1:] or ("blob", "textured", "cubes"):
+    for kind in sys.argv[1:] or ("blob", "textured", "cubes", "instances", "large"):
         print(json.dumps(profile_path(kind, card)), flush=True)
     return 0
 
