@@ -31,7 +31,10 @@ For each path it:
      after, and checks the image, the counts, and that each of the path's
      kernels was launched and no other;
   2. runs each kernel against its plain PyTorch twin, both on the card, on
-     the inputs the first frame gave it, and times both (CUDA events, median
+     the inputs the first frame gave it (the shadow walks K6 and K12 equal
+     to it bit for bit, with the chunks they walked and the tests that
+     testing every lane would take against the active lanes' tests printed),
+     and times both (CUDA events, median
      of 20 runs; the kernel's launches replayed from a CUDA graph, each on
      its own copy of the inputs so that none is in L2 when its launch comes,
      so its time is the device's from memory); computes each kernel's bound
@@ -234,6 +237,8 @@ def compare_kernels(torch, pt_mods, meta, captured, originals, names):
             check(int(masked.sum()) > 0, "K6: no shadow lanes")
             check(bool(torch.equal((got >= tmax)[masked], (want >= tmax)[masked])),
                   "K6 lit masks")
+            check(bool(torch.equal(got, want)), "K6 differs from its twin")
+            walked_tests(torch, mk, ml, name, args, masked)
             n, blocks = args[5].shape[1], args[2].shape[0]
             # live chunks x 32 tris x the block's lanes with tmax > 0: a lane
             # with tmax == 0 needs no test (its result is min(bt, 0))
@@ -294,6 +299,9 @@ def compare_kernels(torch, pt_mods, meta, captured, originals, names):
             check(bool(torch.equal((got >= tmax)[masked], (want >= tmax)[masked])),
                   f"{kid} lit masks")
             check(int((want < tmax)[masked].sum()) > 0, f"{kid}: no occluded lanes")
+            if not batched:
+                check(bool(torch.equal(got, want)), "K12 differs from its twin")
+                walked_tests(torch, mk, ml, name, args, masked)
             n = tmax.shape[0]
             # live chunks x 32 triangles x the block's lanes with tmax > 0,
             # 47 operations a test (K10: one more, the scale)
@@ -302,6 +310,31 @@ def compare_kernels(torch, pt_mods, meta, captured, originals, names):
             record(name, float((got - want).abs().max()), fn, args, plain,
                    (48.0 if batched else 47.0) * tests, nbytes(*args) + 4 * n)
     return out
+
+
+def walked_tests(torch, mk, ml, name, args, active):
+    """K6/K12: the chunks each block walks (the twin's walk with its count
+    on; the kernel walks the same ones), and the ray/triangle tests of a
+    walk that tests every lane of a walking block (the design before the
+    shadow walk's redesign) against those of one that tests only the lanes
+    with tmax > 0 (the kernel's)."""
+    if name == "rpt_general_walk":
+        order, minds, counts = args[:3]
+        lists, rest, T = (order, minds.gather(1, order.long()), counts), args[3:], None
+    else:
+        lists, rest, T = ml.super_cursor_lists(*args[:4], args[8], args[9]), args[4:8], args[10]
+    _, walked = mk.walk_general_lists(*lists, *rest, T, walked=True)
+    lanes = active.reshape(-1, 1024).sum(dim=1)
+    per_block = walked * lanes
+    every, only = 32 * 1024 * int(walked.sum()), 32 * int(per_block.sum())
+    top = int(per_block.argmax())
+    log(f"  {KERNELS[name][0]} walk: {int(walked.sum())} chunks walked by "
+        f"{int((walked > 0).sum())} of {walked.numel()} blocks (most {int(walked.max())}), "
+        f"{int(active.sum())} active lanes, {int(lanes[walked > 0].sum())} of them in walking "
+        f"blocks; tests: every lane of a walking block {every:,}, active lanes only {only:,} "
+        f"({every / max(only, 1):.1f}x fewer); the block with most tests walks "
+        f"{int(walked[top])} chunks with {int(lanes[top])} active lanes "
+        f"({int(per_block[top]) / max(int(per_block.sum()), 1):.1%} of the tests)")
 
 
 def live_chunks(ml, name, args):

@@ -67,16 +67,20 @@ __device__ __forceinline__ bool shared_tri_test(const float* c, float dx, float 
   return mt_accept(det, un, vn, c[9], u, v, dist);
 }
 
-// One triangle against a general ray x = [d, o x d, o, 1]: c is the row
+// The four sums of a general ray x = [d, o x d, o, 1] against the row c
 // [det(3) u(6) v(6) t(4) pad] of mesh_kernels.general_tri_rows.
+__device__ __forceinline__ void general_tri_sums(const float* c, const float* x, float* det,
+                                                 float* un, float* vn, float* tn) {
+  *det = c[0] * x[0] + c[1] * x[1] + c[2] * x[2];
+  *un = c[3] * x[0] + c[4] * x[1] + c[5] * x[2] + c[6] * x[3] + c[7] * x[4] + c[8] * x[5];
+  *vn = c[9] * x[0] + c[10] * x[1] + c[11] * x[2] + c[12] * x[3] + c[13] * x[4] + c[14] * x[5];
+  *tn = c[15] * x[6] + c[16] * x[7] + c[17] * x[8] + c[18] * x[9];
+}
+
+// One triangle against a general ray: its sums, then the acceptance.
 __device__ __forceinline__ bool general_tri_test(const float* c, const float* x, float* dist) {
-  const float det = c[0] * x[0] + c[1] * x[1] + c[2] * x[2];
-  const float un = c[3] * x[0] + c[4] * x[1] + c[5] * x[2] + c[6] * x[3] + c[7] * x[4] +
-                   c[8] * x[5];
-  const float vn = c[9] * x[0] + c[10] * x[1] + c[11] * x[2] + c[12] * x[3] + c[13] * x[4] +
-                   c[14] * x[5];
-  const float tn = c[15] * x[6] + c[16] * x[7] + c[17] * x[8] + c[18] * x[9];
-  float u, v;
+  float det, un, vn, tn, u, v;
+  general_tri_sums(c, x, &det, &un, &vn, &tn);
   return mt_accept(det, un, vn, tn, &u, &v, dist);
 }
 

@@ -395,10 +395,13 @@ def shared_walk(order, minds, counts, box, tri, attrs, dh_p):
     return t, u, v, tri_out, attr
 
 
-def walk_general_lists(chunks, floors, n_live, box, rows, r10_p, tmax2, T=None):
+def walk_general_lists(chunks, floors, n_live, box, rows, r10_p, tmax2, T=None, walked=False):
     """The bounded shadow walk of K6 and K12 with occlusion retirement, over
     lists given as in `walk_shared_lists`, vectorized over the blocks still
-    walking. Returns min(nearest hit, tmax) per lane."""
+    walking. Every lane is tested; a lane with tmax <= 0 changes neither its
+    result (tmax) nor the walk, which the kernel relies on. Returns min(nearest
+    hit, tmax) per lane, and with `walked` also the chunks each block walked
+    ((B,) int64)."""
     n_pad = r10_p.shape[1]
     B = n_pad // NB
     dev = r10_p.device
@@ -410,11 +413,13 @@ def walk_general_lists(chunks, floors, n_live, box, rows, r10_p, tmax2, T=None):
     best_t = torch.full((B, NB), INF, device=dev)
     crows = rows.reshape(-1, TC_GEN, 20)
     running = torch.ones(B, dtype=torch.bool, device=dev)
+    n_walked = torch.zeros(B, dtype=torch.int64, device=dev)
     for j in range(chunks.shape[1]):
         running &= (j < n_live) & (floors[:, j] < mb)
         idx = running.nonzero()[:, 0]
         if idx.numel() == 0:
             break
+        n_walked[idx] += 1
         k = chunks[idx, j].long()
         c = crows[k]
         x = r10[:, idx]
@@ -424,7 +429,8 @@ def walk_general_lists(chunks, floors, n_live, box, rows, r10_p, tmax2, T=None):
         best_t[idx] = new_t
         live = torch.where(new_t < tcut[idx], 0.0, torch.minimum(new_t, teff[idx]))
         mb[idx] = live.amax(dim=1)
-    return torch.minimum(best_t, tmax).reshape(-1)
+    t = torch.minimum(best_t, tmax).reshape(-1)
+    return (t, n_walked) if walked else t
 
 
 def general_walk_plain(order, minds, counts, box, rows, r10_p, tmax2):

@@ -43,10 +43,22 @@ def _launches(name):
     return _build.LAUNCHES[name]
 
 
-def _soup_lists(dev, shadow: bool, T=600, n=8192, seed=0, large=False):
+# Shadow lanes by activity pattern (tmax > 0), for n lanes in blocks of 1024.
+ACTIVITY = {
+    "scattered": lambda rng, n: rng.uniform(size=n) < 0.05,
+    "one_per_block": lambda rng, n: np.isin(np.arange(n), np.arange(0, n, 1024)
+                                            + rng.integers(0, 1024, n // 1024)),
+    "all_masked": lambda rng, n: np.zeros(n, bool),
+    "all_active": lambda rng, n: np.ones(n, bool),
+}
+
+
+def _soup_lists(dev, shadow: bool, T=600, n=8192, seed=0, large=False, pattern=None):
     """K5 (K11 when large) or K6 (K12) walk arguments for a random soup; the
     large tier's lists come from its own list function and the walk also takes
-    (S, C, T)."""
+    (S, C, T). A shadow `pattern` of ACTIVITY picks the lanes with tmax > 0
+    ("all_active": tmax = INF and tcut = 0) and fills the other lanes' rays
+    with finite garbage."""
     from relativitypathtracer_tpu_torch.models.scene import MeshArrays
     from relativitypathtracer_tpu_torch.ops import mesh_intersect as mi
     from relativitypathtracer_tpu_torch.ops.kernels import mesh_kernels as mk
@@ -77,9 +89,16 @@ def _soup_lists(dev, shadow: bool, T=600, n=8192, seed=0, large=False):
     o = torch.as_tensor(rng.uniform(-3, 3, (3, n)), dtype=torch.float32, device=dev)
     r10 = torch.cat([d, torch.linalg.cross(o, d, dim=0), o, torch.ones_like(d[:1])]).contiguous()
     valid = torch.as_tensor(rng.uniform(size=n) > 0.2, device=dev)
-    tmax = torch.where(valid, torch.as_tensor(rng.uniform(1, 9, n), dtype=torch.float32,
-                                              device=dev), 0.0)
+    drawn = torch.as_tensor(rng.uniform(1, 9, n), dtype=torch.float32, device=dev)
+    if pattern is not None:
+        valid = torch.as_tensor(ACTIVITY[pattern](rng, n), device=dev)
+    tmax = torch.where(valid, drawn, 0.0)
     tcut = torch.where(valid, torch.clamp(tmax * 0.999 - 1e-3, min=0.0), 0.0)
+    if pattern is not None:
+        if pattern == "all_active":
+            tmax, tcut = torch.full_like(tmax, 1e20), torch.zeros_like(tcut)
+        garbage = torch.as_tensor(rng.uniform(-4, 4, (10, n)), dtype=torch.float32, device=dev)
+        r10 = torch.where(valid, r10, garbage).contiguous()
     tmax2 = torch.stack([tmax, tcut]).contiguous()
     lo, hi = mk._box_of(spheres)
     lists = build(spheres, r10[0:3], r10[6:9], valid=valid,
@@ -112,6 +131,7 @@ def test_general_walk_kernel_matches_twin(cuda):
     args = _soup_lists(cuda, shadow=True)
     got = mk.general_walk(*args)
     want = mk.general_walk_plain(*args)
+    assert torch.equal(got, want)
     tmax = args[6][0]
     rel = tmax > 0
     assert torch.equal((got >= tmax)[rel], (want >= tmax)[rel])
@@ -437,11 +457,49 @@ def test_large_walk_kernels_match_twins(cuda, monkeypatch, xl):
 
     args = _soup_lists(cuda, shadow=True, T=3000, seed=5, large=True)
     got, want = ml.large_general_walk(*args), ml.large_general_walk_plain(*args)
+    assert torch.equal(got, want)
     tmax = args[7][0]
     rel = tmax > 0
     assert torch.equal((got >= tmax)[rel], (want >= tmax)[rel])
     assert bool((got <= tmax).all())
     assert int((want < tmax)[rel].sum()) > 50 and int((want >= tmax)[rel].sum()) > 50
+
+
+@pytest.mark.parametrize("pattern", list(ACTIVITY))
+@pytest.mark.parametrize("walk", ["K6", "K12_s32", "K12_s128"])
+def test_shadow_walk_kernels_equal_twins_at_any_activity(cuda, monkeypatch, walk, pattern):
+    """K6 (600 triangles) and K12 (3,000 triangles, so the last 24 of 96
+    chunks' triangles are masked by T; superchunks of 32, and of 128 from the
+    super-sphere cull) equal their twins bit for bit at four activity
+    patterns: 5% of the lanes scattered, one lane per block, every lane
+    masked, every lane active. The masked lanes' rays are garbage."""
+    from relativitypathtracer_tpu_torch.ops.kernels import mesh_kernels as mk
+    from relativitypathtracer_tpu_torch.ops.kernels import mesh_large as ml
+
+    large = walk != "K6"
+    if walk == "K12_s128":
+        monkeypatch.setattr(ml, "SUPER_CULL_C", 0)
+    args = _soup_lists(cuda, shadow=True, T=3000 if large else 600, seed=7, large=large,
+                       pattern=pattern)
+    if large:
+        assert args[-3] == (128 if walk == "K12_s128" else 32)
+    key = "rpt_large_general_walk" if large else "rpt_general_walk"
+    fn = ml.large_general_walk if large else mk.general_walk
+    before = _launches(key)
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert _launches(key) == before + 1
+    want = (ml.large_general_walk_plain if large else mk.general_walk_plain)(*args)
+    assert torch.equal(got, want)
+    tmax = args[7 if large else 6][0]
+    active = tmax > 0
+    n_active = int(active.sum())
+    assert n_active == {"scattered": n_active, "one_per_block": 8, "all_masked": 0,
+                        "all_active": 8192}[pattern]
+    if pattern == "all_masked":
+        assert bool((got == 0.0).all())
+    if pattern in ("scattered", "all_active"):
+        assert int((want < tmax)[active].sum()) > 50 and int((want >= tmax)[active].sum()) > 50
 
 
 @pytest.mark.parametrize("kind", ["instances", "forced_large"])

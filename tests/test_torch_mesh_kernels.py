@@ -19,6 +19,7 @@ from relativitypathtracer_tpu.ops import mesh_intersect as jmi
 from relativitypathtracer_tpu.ops.pallas import mesh_kernels as jmk
 from relativitypathtracer_tpu_torch.ops import mesh_intersect as pmi
 from relativitypathtracer_tpu_torch.ops.kernels import mesh_kernels as pmk
+from relativitypathtracer_tpu_torch.ops.kernels import mesh_large as pml
 
 
 def _soup_mesh(rng, T):
@@ -163,7 +164,9 @@ def test_bucket_order_scatter_inversion_equals_one_hot():
     np.testing.assert_array_equal(pk.numpy(), jk[:, 0, :])
 
 
-def _general_inputs(rng, T=200, n=3072):
+def _general_inputs(rng, T=200, n=3072, cut=0.2):
+    """Shadow rays through a soup; the lanes whose uniform draw is at most
+    `cut` are masked (tmax = tcut = 0)."""
     jmesh = _soup_mesh(rng, T)
     perm = jnp.arange(T, dtype=jnp.int32)
     cols, _, T_pad = jmi.general_ray_constants(jmesh, (0, T), perm)
@@ -175,7 +178,7 @@ def _general_inputs(rng, T=200, n=3072):
     mom = np.cross(o.T, d.T).T.astype(np.float32)
     r10 = np.concatenate([d, mom, o, np.ones((1, n), np.float32)]).astype(np.float32)
     tmax = rng.uniform(1.0, 9.0, n).astype(np.float32)
-    valid = rng.uniform(size=n) > 0.2
+    valid = rng.uniform(size=n) > cut
     tmax = np.where(valid, tmax, 0.0).astype(np.float32)
     tcut = np.where(valid, np.maximum(tmax * 0.999 - 1e-3, 0.0), 0.0).astype(np.float32)
     return np.asarray(cols), np.asarray(spheres), r10, tmax, valid, tcut
@@ -202,6 +205,73 @@ def test_general_walk_exact_below_tcut_free_lanes():
                                         interpret=True))
     got = pmk.general_min_t(t(cols), t(spheres), t(r10), t(tmax), t(valid), t(zero)).numpy()
     np.testing.assert_allclose(got[valid], want[valid], rtol=1e-5, atol=1e-6)
+
+
+def _garbage_in_masked_lanes(r10, tmax, seed):
+    """r10 with the rays of the lanes at tmax == 0 replaced by finite seeded
+    garbage (not NaN, which torch.minimum would carry into the result)."""
+    out = r10.copy()
+    masked = tmax == 0.0
+    out[:, masked] = np.random.default_rng(seed).uniform(-4.0, 4.0, (10, int(masked.sum())))
+    return out
+
+
+@pytest.mark.parametrize("tier", ["flat", "large_s32"])
+def test_general_walk_ignores_the_rays_of_masked_lanes(tier):
+    """The fact the shadow-walk kernels rely on, pinned in the twins: with
+    about 5% of the lanes at tmax > 0, replacing the rays of the tmax == 0
+    lanes by garbage changes no bit of the result (K6's twin through
+    general_min_t on 800 triangles; K12's, large_general_walk_plain, through
+    large_general_min_t on a 3,000-triangle soup in superchunks of 32), the
+    masked lanes return tmax = 0, and the JAX package's interpret kernel on
+    the garbage rays agrees with the twin's lit mask."""
+    T = 800 if tier == "flat" else 3000
+    cols, spheres, r10, tmax, valid, tcut = _general_inputs(np.random.default_rng(14), T=T,
+                                                            cut=0.95)
+    dirty = _garbage_in_masked_lanes(r10, tmax, 15)
+    if tier == "flat":
+        def port(r):
+            return pmk.general_min_t(t(cols), t(spheres), t(r), t(tmax), t(valid),
+                                     t(tcut)).numpy()
+    else:
+        assert pml._super_s(spheres.shape[0]) == 32
+        rows = pmk.general_tri_rows(t(cols))
+
+        def port(r):
+            return pml.large_general_min_t(rows, t(spheres), t(r), t(tmax), t(valid), t(tcut),
+                                           T).numpy()
+    clean, got = port(r10), port(dirty)
+    assert 0.03 < valid.mean() < 0.07
+    assert np.array_equal(got.view(np.int32), clean.view(np.int32))
+    assert np.all(got[~valid] == 0.0)
+    lit = got >= tmax
+    assert lit[valid].sum() > 10 and (~lit[valid]).sum() > 10  # both verdicts occur
+    if tier == "flat":
+        want = np.asarray(jmk.general_min_t(cols, spheres, dirty, jnp.asarray(tmax),
+                                            valid=jnp.asarray(valid),
+                                            tcut_obj=jnp.asarray(tcut), interpret=True))
+        assert np.array_equal(lit[valid], (want >= tmax)[valid])
+
+
+def test_walk_general_lists_counts_the_walked_chunks():
+    """walked=True also returns each block's walked chunks, at most its live
+    count, none for a block whose lanes are all masked; the result is the
+    same."""
+    cols, spheres, r10, tmax, valid, tcut = _general_inputs(np.random.default_rng(16))
+    valid[:pmk.NB] = False  # block 0: every lane masked
+    tmax[:pmk.NB] = tcut[:pmk.NB] = 0.0
+    tmax2 = t(np.stack([tmax, tcut]))
+    lo, hi = pmk._box_of(t(spheres))
+    order, minds, counts = pmk.live_chunk_lists(
+        t(spheres), t(r10[0:3]), t(r10[6:9]), valid=t(valid),
+        lane_bound=pmk._general_lane_bound(tmax2[0], t(r10), lo, hi))
+    args = (torch.cat([lo, hi]), pmk.general_tri_rows(t(cols)), t(r10), tmax2)
+    want = pmk.general_walk_plain(order, minds, counts, *args)
+    got, walked = pmk.walk_general_lists(order, minds.gather(1, order.long()), counts, *args,
+                                         walked=True)
+    assert torch.equal(got, want)
+    assert walked.tolist()[0] == 0 and int(walked.sum()) > 0
+    assert bool((walked <= counts).all())
 
 
 def test_mesh_min_t_general_matches_jax_jnp_truth(fixture_scenes):
