@@ -31,9 +31,11 @@ For each path it:
      after, and checks the image, the counts, and that each of the path's
      kernels was launched and no other;
   2. runs each kernel against its plain PyTorch twin, both on the card, on
-     the inputs the first frame gave it (the shadow walks K6 and K12 equal
-     to it bit for bit, with the chunks they walked and the tests that
-     testing every lane would take against the active lanes' tests printed),
+     the inputs the first frame gave it (the mesh walks K5, K6, K11 and K12
+     equal to it bit for bit, with the chunks they walked printed: for K5
+     and K11 against the live chunks of the lists, with the heaviest
+     block's share of the tests; for K6 and K12 with the tests that testing
+     every lane would take against the active lanes' tests),
      and times both (CUDA events, median
      of 20 runs; the kernel's launches replayed from a CUDA graph, each on
      its own copy of the inputs so that none is in L2 when its launch comes,
@@ -215,21 +217,22 @@ def compare_kernels(torch, pt_mods, meta, captured, originals, names):
             n, G = args[1].shape[1], args[0].shape[0]
             record(name, err, fn, args, ak.analytic_nearest_plain, 60.0 * G * n,
                    nbytes(args[0], args[1]) + 28 * n)
-        elif name == "rpt_shared_walk":
-            gt, gu, gv, gtri, gattr = fn(*args)
-            wt, wu, wv, wtri, wattr = mk.shared_walk_plain(*args)
-            hit = wtri >= 0
-            check(bool(torch.equal(gtri >= 0, hit)) and int(hit.sum()) > 0, "K5 hit masks")
-            check(float((gtri != wtri).float().mean()) <= 1e-3, "K5 triangle ids")
-            same = hit & (gtri == wtri)
-            check(torch.allclose(gt[same], wt[same], rtol=1e-5), "K5 t")
-            check(torch.allclose(gattr[:, same], wattr[:, same], atol=1e-4), "K5 attributes")
-            err = max(float((gt[same] - wt[same]).abs().max()),
-                      float((gattr - wattr)[:, same].abs().max()))
-            n = args[6].shape[1]
-            tests = float(args[2].sum()) * 32 * 1024  # live chunks x 32 tris x 1024 lanes
-            record(name, err, fn, args, mk.shared_walk_plain, 29.0 * tests,
-                   nbytes(*args) + 76 * n)
+        elif name in ("rpt_shared_walk", "rpt_large_shared_walk"):
+            large = name == "rpt_large_shared_walk"
+            plain = ml.large_shared_walk_plain if large else mk.shared_walk_plain
+            walked, live = shared_walk_counts(torch, mk, ml, name, args)
+            got, want = fn(*args), plain(*args)
+            kid = KERNELS[name][0]
+            check(int((want[3] >= 0).sum()) > 0, f"{kid}: no hits")
+            for part, g, w in zip(("t", "u", "v", "triangle ids", "attributes"), got, want):
+                check(bool(torch.equal(g, w)), f"{kid} {part} differ from its twin")
+            err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
+            # every lane of a walking block is tested: 32 triangles x 1,024
+            # lanes a chunk, 29 operations a test; the walked chunks where
+            # the walk stops short of the lists by more than 5%
+            chunks = float(walked.sum() if walked.sum() < 0.95 * live.sum() else live.sum())
+            n = args[7 if large else 6].shape[1]
+            record(name, err, fn, args, plain, 29.0 * 32 * 1024 * chunks, nbytes(*args) + 76 * n)
         elif name == "rpt_general_walk":
             got, want = fn(*args), mk.general_walk_plain(*args)
             tmax = args[6][0]
@@ -267,26 +270,22 @@ def compare_kernels(torch, pt_mods, meta, captured, originals, names):
             n, G = tmax.shape[0], args[0].shape[0]
             record(name, err, fn, args, ak.analytic_min_t_plain, 100.0 * G * float(rel.sum()),
                    nbytes(args[0], args[1], args[2], tmax) + 4 * n)
-        elif name in ("rpt_batched_shared_walk", "rpt_large_shared_walk"):
-            batched = name == "rpt_batched_shared_walk"
-            plain = mb.batched_shared_walk_plain if batched else ml.large_shared_walk_plain
+        elif name == "rpt_batched_shared_walk":
+            plain = mb.batched_shared_walk_plain
             got, want = fn(*args), plain(*args)
             gt, gtri, gattr, wt, wtri, wattr = got[0], got[3], got[-1], want[0], want[3], want[-1]
             hit = wtri >= 0
-            kid = KERNELS[name][0]
-            check(bool(torch.equal(gtri >= 0, hit)) and int(hit.sum()) > 0, f"{kid} hit masks")
-            check(float((gtri != wtri).float().mean()) <= 1e-3, f"{kid} triangle ids")
-            if batched:
-                check(bool(torch.equal(got[4], want[4])), "K9 object slots")
+            check(bool(torch.equal(gtri >= 0, hit)) and int(hit.sum()) > 0, "K9 hit masks")
+            check(float((gtri != wtri).float().mean()) <= 1e-3, "K9 triangle ids")
+            check(bool(torch.equal(got[4], want[4])), "K9 object slots")
             same = hit & (gtri == wtri)
-            check(torch.allclose(gt[same], wt[same], rtol=1e-5), f"{kid} t")
-            check(torch.allclose(gattr[:, same], wattr[:, same], atol=1e-4), f"{kid} attributes")
+            check(torch.allclose(gt[same], wt[same], rtol=1e-5), "K9 t")
+            check(torch.allclose(gattr[:, same], wattr[:, same], atol=1e-4), "K9 attributes")
             err = max(float((gt[same] - wt[same]).abs().max()),
                       float((gattr - wattr)[:, same].abs().max()))
-            # live chunks x 32 triangles x 1024 lanes, 29 operations a test
-            # (K9: one more, the scale to shared units)
-            n = args[8].shape[1] if batched else args[7].shape[1]
-            record(name, err, fn, args, plain, (30.0 if batched else 29.0) * 32 * 1024
+            # live chunks x 32 triangles x 1024 lanes, 30 operations a test
+            n = args[8].shape[1]
+            record(name, err, fn, args, plain, 30.0 * 32 * 1024
                    * float(live_chunks(ml, name, args).sum()), nbytes(*args) + 80 * n)
         elif name in ("rpt_batched_general_walk", "rpt_large_general_walk"):
             batched = name == "rpt_batched_general_walk"
@@ -335,6 +334,27 @@ def walked_tests(torch, mk, ml, name, args, active):
         f"({every / max(only, 1):.1f}x fewer); the block with most tests walks "
         f"{int(walked[top])} chunks with {int(lanes[top])} active lanes "
         f"({int(per_block[top]) / max(int(per_block.sum()), 1):.1%} of the tests)")
+
+
+def shared_walk_counts(torch, mk, ml, name, args):
+    """K5/K11: the chunks each block walks (the twin's walk with its count
+    on; the kernel walks the same ones) against the live chunks of its list.
+    Every lane of a walking block is tested, so a block's tests are its
+    walked chunks x 32 x 1,024. Returns ((B,) walked, (B,) live)."""
+    if name == "rpt_shared_walk":
+        order, minds, counts = args[:3]
+        lists, rest, T = (order, minds.gather(1, order.long()), counts), args[3:7], None
+    else:
+        lists, rest, T = ml.super_cursor_lists(*args[:4], args[8], args[9]), args[4:8], args[10]
+    walked = mk.walk_shared_lists(*lists, *rest, T, walked=True)[-1]
+    live = lists[2].long()
+    top = int(walked.argmax())
+    log(f"  {KERNELS[name][0]} walk: {int(walked.sum())} chunks walked of {int(live.sum())} "
+        f"live in the lists ({int(walked.sum()) / max(int(live.sum()), 1):.1%}), by "
+        f"{int((walked > 0).sum())} of {walked.numel()} blocks (most {int(walked[top])}, of "
+        f"{int(live[top])} live in that block's list); the heaviest block holds "
+        f"{int(walked[top]) / max(int(walked.sum()), 1):.1%} of the tests")
+    return walked, live
 
 
 def live_chunks(ml, name, args):

@@ -56,14 +56,22 @@ __device__ __forceinline__ bool mt_accept(float det, float un, float vn, float t
          *u + *v <= 1.0f && *dist >= 0.0f;
 }
 
-// One triangle against a ray from the shared origin: c is the row
+// The three sums of a ray from the shared origin against the row c
 // [det(3) u(3) v(3) ct] of mesh_kernels.shared_tri_rows, d the unit
 // object-space direction. Sums run left to right, as the twins'.
+__device__ __forceinline__ void shared_tri_sums(const float* c, float dx, float dy, float dz,
+                                                float* det, float* un, float* vn) {
+  *det = c[0] * dx + c[1] * dy + c[2] * dz;
+  *un = c[3] * dx + c[4] * dy + c[5] * dz;
+  *vn = c[6] * dx + c[7] * dy + c[8] * dz;
+}
+
+// One triangle against a ray from the shared origin: its sums, then the
+// acceptance.
 __device__ __forceinline__ bool shared_tri_test(const float* c, float dx, float dy, float dz,
                                                 float* u, float* v, float* dist) {
-  const float det = c[0] * dx + c[1] * dy + c[2] * dz;
-  const float un = c[3] * dx + c[4] * dy + c[5] * dz;
-  const float vn = c[6] * dx + c[7] * dy + c[8] * dz;
+  float det, un, vn;
+  shared_tri_sums(c, dx, dy, dz, &det, &un, &vn);
   return mt_accept(det, un, vn, c[9], u, v, dist);
 }
 

@@ -323,12 +323,13 @@ def _dot_rows(rows, lo: int, hi: int, x, xlo: int):
     return acc
 
 
-def walk_shared_lists(chunks, floors, n_live, box, tri, attrs, dh_p, T=None):
+def walk_shared_lists(chunks, floors, n_live, box, tri, attrs, dh_p, T=None, walked=False):
     """The shared-origin walk of K5 and K11, vectorized over the blocks
     still walking: block b tests chunks[b, j] for j < n_live[b] in order and
     stops at the first whose floors[b, j] is not below its bound. T masks
     the triangles at or past it. Returns (t, u, v, tri (int32, -1 on a
-    miss), attr (15, n))."""
+    miss), attr (15, n)), and with `walked` also the chunks each block
+    walked ((B,) int64)."""
     n_pad = dh_p.shape[1]
     B = n_pad // NB
     dev = dh_p.device
@@ -341,11 +342,13 @@ def walk_shared_lists(chunks, floors, n_live, box, tri, attrs, dh_p, T=None):
     best_tri = torch.full((B, NB), -1, dtype=torch.int32, device=dev)
     rows = tri.reshape(-1, TC, 10)
     running = torch.ones(B, dtype=torch.bool, device=dev)
+    n_walked = torch.zeros(B, dtype=torch.int64, device=dev)
     for j in range(chunks.shape[1]):
         running &= (j < n_live) & (floors[:, j] < mb)
         idx = running.nonzero()[:, 0]
         if idx.numel() == 0:
             break
+        n_walked[idx] += 1
         k = chunks[idx, j].long()
         c = rows[k]
         d = dh[:, idx]
@@ -363,8 +366,9 @@ def walk_shared_lists(chunks, floors, n_live, box, tri, attrs, dh_p, T=None):
         mb[idx] = torch.minimum(best_t[idx], bound[idx]).amax(dim=1)
     flat_tri = best_tri.reshape(-1)
     attr = torch.where((flat_tri >= 0)[:, None], attrs[flat_tri.clamp(min=0).long()], 0.0)
-    return (best_t.reshape(-1), best_u.reshape(-1), best_v.reshape(-1), flat_tri,
-            attr.T.contiguous())
+    out = (best_t.reshape(-1), best_u.reshape(-1), best_v.reshape(-1), flat_tri,
+           attr.T.contiguous())
+    return (*out, n_walked) if walked else out
 
 
 def shared_walk_plain(order, minds, counts, box, tri, attrs, dh_p):

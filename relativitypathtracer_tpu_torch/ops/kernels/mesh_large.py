@@ -8,8 +8,8 @@ of S consecutive chunks, and a per-(block, chunk) overlap bitmask keeps the
 walk as tight as the chunk-level cull (`large_live_lists`). The kernels run
 a cursor over the positions of each block's live supers, skip the chunks
 whose bit is clear, and stop at the first live chunk whose super's floor is
-not below the block bound (K12 walks each super's bit words with a
-find-first-set, so its S is a multiple of 32).
+not below the block bound (both walk each super's bit words with a
+find-first-set, so S is a multiple of 32).
 
 The TPU streams per-chunk records from HBM into VMEM with double-buffered
 DMAs (its VMEM holds no large pool), packed lane-major because Mosaic
@@ -93,6 +93,8 @@ def large_shared_walk(order, minds, counts, bits, box, tri, attrs, dh_p, S: int,
     if dh_p.device.type == "cpu":
         return large_shared_walk_plain(order, minds, counts, bits, box, tri, attrs, dh_p, S,
                                        C, T)
+    if S % 32 != 0:
+        raise ValueError(f"large_shared_walk: S must be a multiple of 32, got {S}")
     B, C_s = order.shape
     W = bits.shape[1]
     n_pad = B * NB

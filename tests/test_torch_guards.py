@@ -122,3 +122,20 @@ def test_wrappers_never_fall_back_off_the_cpu():
     for call in calls:
         with pytest.raises(ValueError, match="CUDA device"):
             call()
+
+
+@pytest.mark.parametrize("walk", ["large_shared_walk", "large_general_walk"])
+def test_large_walks_refuse_partial_bit_words(walk):
+    """K11 and K12 walk a superchunk's bit words whole, so their wrappers
+    refuse an S that is not a multiple of 32 before any build or launch."""
+    from relativitypathtracer_tpu_torch.ops.kernels import mesh_large
+
+    def m(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    i32 = torch.int32
+    rest = ((m(9), m(256, 10), m(256, 15), m(3, 1024)) if walk == "large_shared_walk"
+            else (m(6), m(256, 20), m(10, 1024), m(2, 1024)))
+    with pytest.raises(ValueError, match="multiple of 32"):
+        getattr(mesh_large, walk)(m(1, 1, dtype=i32), m(1, 1), m(1, dtype=i32),
+                                  m(1, 1, dtype=i32), *rest, 48, 8, 256)

@@ -12,7 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_port_fixtures import build_both, soup, t, tie_flip_frac, write_fixture
+from torch_port_fixtures import (aim_at, build_both, soup, t, tie_flip_frac, tie_soup,
+                                 write_fixture)
 
 from relativitypathtracer_tpu.models.scene import MeshArrays as JMeshArrays
 from relativitypathtracer_tpu.ops import mesh_intersect as jmi
@@ -22,9 +23,10 @@ from relativitypathtracer_tpu_torch.ops.kernels import mesh_kernels as pmk
 from relativitypathtracer_tpu_torch.ops.kernels import mesh_large as pml
 
 
-def _soup_mesh(rng, T):
-    """A random soup as the JAX package's MeshArrays (no octree)."""
-    verts, tri_v = soup(rng, T)
+def _soup_mesh(rng, T, soup_arrays=None):
+    """A random soup (or the given (vertices, tri_v)) as the JAX package's
+    MeshArrays (no octree)."""
+    verts, tri_v = soup(rng, T) if soup_arrays is None else soup_arrays
     z = np.zeros((T, 3), np.int32)
     return JMeshArrays(verts, tri_v, z, z, np.zeros((1, 2), np.float32),
                        np.ones((1, 3), np.float32), *([None] * 7))
@@ -35,13 +37,19 @@ def fixture_scenes(tmp_path_factory):
     return build_both(write_fixture(tmp_path_factory, 3))
 
 
-def _shared_inputs(rng, T=300, n=3072):
-    """Soup constants from the JAX package (fed to both), rays from (0, 0, -6)."""
-    jmesh = _soup_mesh(rng, T)
+def _shared_inputs(rng, T=300, n=3072, ties=False):
+    """Soup constants from the JAX package (fed to both), rays from (0, 0, -6);
+    with `ties`, the tie soup and every ray aimed at a repeated triangle."""
     ro = np.array([0.0, 0.0, -6.0], np.float32)
-    d = rng.normal(size=(3, n)).astype(np.float32)
-    d[2] = np.abs(d[2]) + 0.5
-    d /= np.linalg.norm(d, axis=0)
+    if ties:
+        verts, tri_v, inside, across = tie_soup(rng, T)
+        jmesh = _soup_mesh(rng, T, (verts, tri_v))
+        d = aim_at(rng, verts, tri_v, rng.choice(np.concatenate([inside, across]), n), ro)
+    else:
+        jmesh = _soup_mesh(rng, T)
+        d = rng.normal(size=(3, n)).astype(np.float32)
+        d[2] = np.abs(d[2]) + 0.5
+        d /= np.linalg.norm(d, axis=0)
     perm = jnp.arange(T, dtype=jnp.int32)
     consts, c_t, _, T_pad = jmi.shared_origin_constants(jmesh, (0, T), jnp.asarray(ro), perm)
     A, B, C = jmi.mesh_tri_vertices(jmesh, (0, T), perm)
@@ -69,6 +77,42 @@ def _compare_shared(consts, c_t, spheres, attrs, d, ro):
 
 def test_shared_walk_matches_interpret_kernel_on_soup():
     _compare_shared(*_shared_inputs(np.random.default_rng(7)))
+
+
+def test_shared_walk_ties_match_interpret_kernel():
+    """The tie soup (a triangle repeated inside its chunk, another across two
+    chunks), every ray aimed at a repeated triangle: the twin's triangle ids
+    equal the interpret kernel's on every lane. Inside a chunk the first of
+    a pair wins (the first minimum, as jnp.argmin takes it); across two
+    chunks the one walked first (strict <)."""
+    rng = np.random.default_rng(17)
+    consts, c_t, spheres, attrs, d, ro = _shared_inputs(rng, ties=True)
+    want = jmk.shared_nearest_hit(consts, c_t, attrs, spheres, d, ro, interpret=True)
+    got = pmk.shared_nearest_hit(t(consts), t(c_t), t(attrs), t(spheres), t(d), t(ro))
+    jtri, ptri = np.asarray(want[3]), got[3].numpy()
+    assert np.array_equal(ptri, jtri)
+    _, _, inside, across = tie_soup(np.random.default_rng(17), 300)
+    assert np.isin(jtri, inside).mean() > 0.2 and not np.isin(jtri, inside + 1).any()
+    assert np.isin(jtri, np.concatenate([across, across + 31])).mean() > 0.2
+
+
+def test_walk_shared_lists_counts_the_walked_chunks():
+    """walked=True also returns each block's walked chunks, at most its live
+    count, none for a block whose rays all miss the union box (its lanes
+    keep t = INF, tri = -1); the result is the same."""
+    consts, c_t, spheres, attrs, d, ro = _shared_inputs(np.random.default_rng(18))
+    d[:, :pmk.NB] = np.array([[0.0], [0.0], [-1.0]], np.float32)  # block 0 looks away
+    dh_p, sph = t(d), t(spheres)
+    order, minds, counts = pmk.live_chunk_lists(sph, dh_p, t(ro)[:, None].expand_as(dh_p))
+    lo, hi = pmk._box_of(sph)
+    args = (torch.cat([lo, hi, t(ro)]), pmk.shared_tri_rows(t(consts), t(c_t)), t(attrs), dh_p)
+    want = pmk.shared_walk_plain(order, minds, counts, *args)
+    *got, walked = pmk.walk_shared_lists(order, minds.gather(1, order.long()), counts, *args,
+                                         walked=True)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert walked.tolist()[0] == 0 and int(walked.sum()) > 0
+    assert bool((walked <= counts).all())
+    assert bool((want[0][:pmk.NB] == pmk.INF).all()) and bool((want[3][:pmk.NB] == -1).all())
 
 
 def test_shared_walk_matches_interpret_kernel_on_fixture(fixture_scenes):

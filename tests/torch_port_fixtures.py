@@ -40,6 +40,37 @@ def soup(rng, T: int):
     return verts, np.stack([ids, ids + T, ids + 2 * T], axis=1)
 
 
+def repeat_for_ties(tri_v):
+    """Exact ties, made in tri_v (T, 3) in place: in every 32-triangle chunk
+    c (triangles in index order), triangle 32c + 1 repeats 32c (a tie inside
+    a chunk) and, where chunk c + 1 holds it, triangle 32(c + 1) + 2 repeats
+    32c + 3 (a tie across two chunks). Returns (inside, across): the first
+    triangle of each repeated pair, inside one chunk and across two."""
+    T = tri_v.shape[0]
+    first = np.arange(0, T, 32)
+    inside = first[first + 1 < T]
+    across = first[first + 34 < T] + 3
+    tri_v[inside + 1] = tri_v[inside]
+    tri_v[across + 31] = tri_v[across]
+    return inside, across
+
+
+def tie_soup(rng, T: int):
+    """soup() with the ties of repeat_for_ties: (vertices, tri_v, inside,
+    across)."""
+    verts, tri_v = soup(rng, T)
+    return (verts, tri_v, *repeat_for_ties(tri_v))
+
+
+def aim_at(rng, verts, tri_v, targets, ro):
+    """Unit directions from ro (3,) to a random interior point (barycentrics
+    0.1-0.45) of triangle targets[i], for each i: (3, len(targets))."""
+    a, b = rng.uniform(0.1, 0.45, (2, len(targets)))
+    A, B, C = (verts[tri_v[targets, k]] for k in range(3))
+    d = (A + a[:, None] * (B - A) + b[:, None] * (C - A) - ro).T
+    return (d / np.linalg.norm(d, axis=0)).astype(np.float32)
+
+
 def t(x, dtype=None):
     """numpy -> CPU tensor."""
     return torch.as_tensor(np.array(x, order="C"), dtype=dtype)
