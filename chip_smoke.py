@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (written for an H100).
 
-Run from the repository root:  python3 chip_smoke.py
+Run from the repository root:  python3 chip_smoke.py [PATH ...]
+
+With no argument (the check) it drives every path below; naming paths
+drives only those, and reports only their kernels (a development run).
 
 It needs a CUDA device and nvcc, and fails (non-zero exit, no result line)
 without them. It builds the port's CUDA kernels from
@@ -31,12 +34,13 @@ For each path it:
      after, and checks the image, the counts, and that each of the path's
      kernels was launched and no other;
   2. runs each kernel against its plain PyTorch twin, both on the card, on
-     the inputs the first frame gave it (the mesh walks K5, K6, K11 and K12
-     equal to it bit for bit, with the chunks they walked printed: for K5
-     and K11 against the live chunks of the lists, with the heaviest
-     block's share of the tests; for K6 and K12 with the tests that testing
-     every lane would take against the active lanes' tests),
-     and times both (CUDA events, median
+     the inputs the first frame gave it (the six mesh walks K5, K6, K9, K10,
+     K11 and K12 equal to it bit for bit, with the chunks they walked
+     printed: for K5, K9 and K11 against the live chunks of the lists, with
+     the heaviest block's share of the tests; for K6, K10 and K12 with the
+     tests that testing every lane would take against the active lanes'
+     tests; for K9 and K10 also how often a walk changes object), and
+     times both (CUDA events, median
      of 20 runs; the kernel's launches replayed from a CUDA graph, each on
      its own copy of the inputs so that none is in L2 when its launch comes,
      so its time is the device's from memory); computes each kernel's bound
@@ -217,38 +221,38 @@ def compare_kernels(torch, pt_mods, meta, captured, originals, names):
             n, G = args[1].shape[1], args[0].shape[0]
             record(name, err, fn, args, ak.analytic_nearest_plain, 60.0 * G * n,
                    nbytes(args[0], args[1]) + 28 * n)
-        elif name in ("rpt_shared_walk", "rpt_large_shared_walk"):
-            large = name == "rpt_large_shared_walk"
-            plain = ml.large_shared_walk_plain if large else mk.shared_walk_plain
-            walked, live = shared_walk_counts(torch, mk, ml, name, args)
+        elif name in ("rpt_shared_walk", "rpt_large_shared_walk", "rpt_batched_shared_walk"):
+            batched = name == "rpt_batched_shared_walk"
+            plain = {"rpt_shared_walk": mk.shared_walk_plain,
+                     "rpt_large_shared_walk": ml.large_shared_walk_plain,
+                     "rpt_batched_shared_walk": mb.batched_shared_walk_plain}[name]
+            walked, live = shared_walk_counts(torch, mk, ml, mb, name, args)
             got, want = fn(*args), plain(*args)
             kid = KERNELS[name][0]
             check(int((want[3] >= 0).sum()) > 0, f"{kid}: no hits")
-            for part, g, w in zip(("t", "u", "v", "triangle ids", "attributes"), got, want):
+            parts = ("t", "u", "v", "triangle ids", *(("object slots",) if batched else ()),
+                     "attributes")
+            for part, g, w in zip(parts, got, want):
                 check(bool(torch.equal(g, w)), f"{kid} {part} differ from its twin")
             err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
             # every lane of a walking block is tested: 32 triangles x 1,024
-            # lanes a chunk, 29 operations a test; the walked chunks where
-            # the walk stops short of the lists by more than 5%
+            # lanes a chunk, 29 operations a test (K9: one more, the scale);
+            # the walked chunks where the walk stops short of the lists by
+            # more than 5%
             chunks = float(walked.sum() if walked.sum() < 0.95 * live.sum() else live.sum())
-            n = args[7 if large else 6].shape[1]
-            record(name, err, fn, args, plain, 29.0 * 32 * 1024 * chunks, nbytes(*args) + 76 * n)
-        elif name == "rpt_general_walk":
-            got, want = fn(*args), mk.general_walk_plain(*args)
-            tmax = args[6][0]
-            masked = tmax > 0
-            check(int(masked.sum()) > 0, "K6: no shadow lanes")
-            check(bool(torch.equal((got >= tmax)[masked], (want >= tmax)[masked])),
-                  "K6 lit masks")
-            check(bool(torch.equal(got, want)), "K6 differs from its twin")
-            walked_tests(torch, mk, ml, name, args, masked)
-            n, blocks = args[5].shape[1], args[2].shape[0]
-            # live chunks x 32 tris x the block's lanes with tmax > 0: a lane
-            # with tmax == 0 needs no test (its result is min(bt, 0))
-            lanes = masked.reshape(blocks, -1).sum(dim=1)
-            tests = float((args[2].double() * lanes).sum()) * 32
-            record(name, float((got - want).abs().max()), fn, args, mk.general_walk_plain,
-                   47.0 * tests, nbytes(*args) + 4 * n)
+            n = args[-1].shape[1] if batched else args[7 if name == "rpt_large_shared_walk"
+                                                        else 6].shape[1]
+            record(name, err, fn, args, plain, (30.0 if batched else 29.0) * 32 * 1024 * chunks,
+                   nbytes(*args) + (80 if batched else 76) * n)
+            if batched:  # K9's other way to its first bound (csrc/mesh_batch.cu)
+                other = not mb.CLUSTER_FIRST_BOUND
+                alt = fn(*args, cluster_first=other)
+                check(all(bool(torch.equal(g, w)) for g, w in zip(alt, want)),
+                       "K9 differs from its twin with its other first bound")
+                alt_ms = kernel_ms(torch, lambda *a: fn(*a, cluster_first=other), args)
+                way = {True: "one cluster reduction", False: "every CTA over 1,024 lanes"}
+                log(f"  K9 first bound: {way[not other]} (the wrapper's) {out[name]['ms']:.4f} "
+                    f"ms, {way[other]} {alt_ms:.4f} ms")
         elif name.startswith("rpt_footprint_sample/"):
             (got, gq), (want, wq) = fn(*args, with_quads=True), tk.footprint_fetch_plain(*args)
             check(bool(torch.equal(gq, wq)), f"{name}: the kernel read other atlas rows")
@@ -270,97 +274,107 @@ def compare_kernels(torch, pt_mods, meta, captured, originals, names):
             n, G = tmax.shape[0], args[0].shape[0]
             record(name, err, fn, args, ak.analytic_min_t_plain, 100.0 * G * float(rel.sum()),
                    nbytes(args[0], args[1], args[2], tmax) + 4 * n)
-        elif name == "rpt_batched_shared_walk":
-            plain = mb.batched_shared_walk_plain
-            got, want = fn(*args), plain(*args)
-            gt, gtri, gattr, wt, wtri, wattr = got[0], got[3], got[-1], want[0], want[3], want[-1]
-            hit = wtri >= 0
-            check(bool(torch.equal(gtri >= 0, hit)) and int(hit.sum()) > 0, "K9 hit masks")
-            check(float((gtri != wtri).float().mean()) <= 1e-3, "K9 triangle ids")
-            check(bool(torch.equal(got[4], want[4])), "K9 object slots")
-            same = hit & (gtri == wtri)
-            check(torch.allclose(gt[same], wt[same], rtol=1e-5), "K9 t")
-            check(torch.allclose(gattr[:, same], wattr[:, same], atol=1e-4), "K9 attributes")
-            err = max(float((gt[same] - wt[same]).abs().max()),
-                      float((gattr - wattr)[:, same].abs().max()))
-            # live chunks x 32 triangles x 1024 lanes, 30 operations a test
-            n = args[8].shape[1]
-            record(name, err, fn, args, plain, 30.0 * 32 * 1024
-                   * float(live_chunks(ml, name, args).sum()), nbytes(*args) + 80 * n)
-        elif name in ("rpt_batched_general_walk", "rpt_large_general_walk"):
+        elif name in ("rpt_general_walk", "rpt_batched_general_walk", "rpt_large_general_walk"):
             batched = name == "rpt_batched_general_walk"
-            plain = mb.batched_general_walk_plain if batched else ml.large_general_walk_plain
+            plain = {"rpt_general_walk": mk.general_walk_plain,
+                     "rpt_batched_general_walk": mb.batched_general_walk_plain,
+                     "rpt_large_general_walk": ml.large_general_walk_plain}[name]
             got, want = fn(*args), plain(*args)
-            tmax = args[9] if batched else args[7][0]
+            tmax = args[9] if batched else args[6 if name == "rpt_general_walk" else 7][0]
             masked = tmax > 0
             kid = KERNELS[name][0]
             check(int(masked.sum()) > 0, f"{kid}: no shadow lanes")
             check(bool(torch.equal((got >= tmax)[masked], (want >= tmax)[masked])),
-                  f"{kid} lit masks")
+                   f"{kid} lit masks")
             check(int((want < tmax)[masked].sum()) > 0, f"{kid}: no occluded lanes")
-            if not batched:
-                check(bool(torch.equal(got, want)), "K12 differs from its twin")
-                walked_tests(torch, mk, ml, name, args, masked)
-            n = tmax.shape[0]
-            # live chunks x 32 triangles x the block's lanes with tmax > 0,
-            # 47 operations a test (K10: one more, the scale)
-            lanes = masked.reshape(-1, 1024).sum(dim=1)
-            tests = float((live_chunks(ml, name, args).double() * lanes).sum()) * 32
+            check(bool(torch.equal(got, want)), f"{kid} differs from its twin")
+            walked, lanes = walked_tests(torch, mk, ml, mb, name, args, masked)
+            # 32 triangles a chunk x the block's lanes with tmax > 0 (a lane
+            # with tmax == 0 needs no test: its result is min(bt, 0)), 47
+            # operations a test (K10: one more, the scale); the live chunks,
+            # or the walked ones where the walks stop short of the lists by
+            # more than 5%
+            live = float((live_chunks(ml, name, args).double() * lanes).sum()) * 32
+            walked = float((walked.double() * lanes).sum()) * 32
+            tests = walked if walked < 0.95 * live else live
             record(name, float((got - want).abs().max()), fn, args, plain,
-                   (48.0 if batched else 47.0) * tests, nbytes(*args) + 4 * n)
+                   (48.0 if batched else 47.0) * tests, nbytes(*args) + 4 * tmax.shape[0])
     return out
 
 
-def walked_tests(torch, mk, ml, name, args, active):
-    """K6/K12: the chunks each block walks (the twin's walk with its count
-    on; the kernel walks the same ones), and the ray/triangle tests of a
-    walk that tests every lane of a walking block (the design before the
-    shadow walk's redesign) against those of one that tests only the lanes
-    with tmax > 0 (the kernel's)."""
-    if name == "rpt_general_walk":
-        order, minds, counts = args[:3]
-        lists, rest, T = (order, minds.gather(1, order.long()), counts), args[3:], None
+def switches_note(mb, name, args, walked) -> str:
+    """K9/K10: how often the blocks' walks change object, from one walked
+    chunk to the next (each change is a switch of the per-object rays a
+    walk reads); empty for the one-mesh walks."""
+    if not name.startswith("rpt_batched"):
+        return ""
+    sw = mb.object_switches(args[0], args[3], walked)
+    return (f"; object switches {int(sw.sum())} in {int(walked.sum())} walked chunks (most "
+            f"{int(sw.max())} in one block, {int((sw > 0).sum())} blocks switch)")
+
+
+def walked_tests(torch, mk, ml, mb, name, args, active):
+    """K6/K12/K10: the chunks each block walks (the twin's walk with its
+    count on; the kernel walks the same ones), and the ray/triangle tests of
+    a walk that tests every lane of a walking block (the design before the
+    shadow walks' redesign) against those of one that tests only the lanes
+    with tmax > 0 (the kernel's). Returns ((B,) walked, (B,) active lanes)."""
+    if name == "rpt_batched_general_walk":
+        walked = mb.batched_general_walk_plain(*args, walked=True)[-1]
     else:
-        lists, rest, T = ml.super_cursor_lists(*args[:4], args[8], args[9]), args[4:8], args[10]
-    _, walked = mk.walk_general_lists(*lists, *rest, T, walked=True)
+        if name == "rpt_general_walk":
+            order, minds, counts = args[:3]
+            lists, rest, T = (order, minds.gather(1, order.long()), counts), args[3:], None
+        else:
+            lists = ml.super_cursor_lists(*args[:4], args[8], args[9])
+            rest, T = args[4:8], args[10]
+        _, walked = mk.walk_general_lists(*lists, *rest, T, walked=True)
     lanes = active.reshape(-1, 1024).sum(dim=1)
     per_block = walked * lanes
     every, only = 32 * 1024 * int(walked.sum()), 32 * int(per_block.sum())
     top = int(per_block.argmax())
-    log(f"  {KERNELS[name][0]} walk: {int(walked.sum())} chunks walked by "
+    log(f"  {KERNELS[name][0]} walk: {int(walked.sum())} chunks walked of "
+        f"{int(live_chunks(ml, name, args).sum())} live by "
         f"{int((walked > 0).sum())} of {walked.numel()} blocks (most {int(walked.max())}), "
         f"{int(active.sum())} active lanes, {int(lanes[walked > 0].sum())} of them in walking "
         f"blocks; tests: every lane of a walking block {every:,}, active lanes only {only:,} "
         f"({every / max(only, 1):.1f}x fewer); the block with most tests walks "
         f"{int(walked[top])} chunks with {int(lanes[top])} active lanes "
-        f"({int(per_block[top]) / max(int(per_block.sum()), 1):.1%} of the tests)")
+        f"({int(per_block[top]) / max(int(per_block.sum()), 1):.1%} of the tests)"
+        + switches_note(mb, name, args, walked))
+    return walked, lanes
 
 
-def shared_walk_counts(torch, mk, ml, name, args):
-    """K5/K11: the chunks each block walks (the twin's walk with its count
-    on; the kernel walks the same ones) against the live chunks of its list.
-    Every lane of a walking block is tested, so a block's tests are its
-    walked chunks x 32 x 1,024. Returns ((B,) walked, (B,) live)."""
-    if name == "rpt_shared_walk":
-        order, minds, counts = args[:3]
-        lists, rest, T = (order, minds.gather(1, order.long()), counts), args[3:7], None
+def shared_walk_counts(torch, mk, ml, mb, name, args):
+    """K5/K11/K9: the chunks each block walks (the twin's walk with its
+    count on; the kernel walks the same ones) against the live chunks of its
+    list. Every lane of a walking block is tested, so a block's tests are
+    its walked chunks x 32 x 1,024. Returns ((B,) walked, (B,) live)."""
+    if name == "rpt_batched_shared_walk":
+        walked, live = mb.batched_shared_walk_plain(*args, walked=True)[-1], args[2].long()
     else:
-        lists, rest, T = ml.super_cursor_lists(*args[:4], args[8], args[9]), args[4:8], args[10]
-    walked = mk.walk_shared_lists(*lists, *rest, T, walked=True)[-1]
-    live = lists[2].long()
+        if name == "rpt_shared_walk":
+            order, minds, counts = args[:3]
+            lists, rest, T = (order, minds.gather(1, order.long()), counts), args[3:7], None
+        else:
+            lists = ml.super_cursor_lists(*args[:4], args[8], args[9])
+            rest, T = args[4:8], args[10]
+        walked = mk.walk_shared_lists(*lists, *rest, T, walked=True)[-1]
+        live = lists[2].long()
     top = int(walked.argmax())
     log(f"  {KERNELS[name][0]} walk: {int(walked.sum())} chunks walked of {int(live.sum())} "
         f"live in the lists ({int(walked.sum()) / max(int(live.sum()), 1):.1%}), by "
         f"{int((walked > 0).sum())} of {walked.numel()} blocks (most {int(walked[top])}, of "
         f"{int(live[top])} live in that block's list); the heaviest block holds "
-        f"{int(walked[top]) / max(int(walked.sum()), 1):.1%} of the tests")
+        f"{int(walked[top]) / max(int(walked.sum()), 1):.1%} of the tests"
+        + switches_note(mb, name, args, walked))
     return walked, live
 
 
 def live_chunks(ml, name, args):
     """(B,) live chunks in each block's list: the counts of the flat lists
-    (K9, K10); the set bits of the listed superchunks (K11, K12)."""
-    if name.startswith("rpt_batched"):
+    (K5, K6, K9, K10); the set bits of the listed superchunks (K11, K12)."""
+    if not name.startswith("rpt_large"):
         return args[2]
     S, C = args[-3], args[-2]  # the walks end in (..., S, C, T)
     return ml.super_cursor_lists(*args[:4], S, C)[2]
@@ -406,6 +420,10 @@ def frame_time(torch, render, scene, state, card):
 def main() -> int:
     import torch
 
+    selected = sys.argv[1:] or list(PATHS)
+    if set(selected) - set(PATHS):
+        print(f"chip_smoke: paths are {', '.join(PATHS)}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on an NVIDIA GPU",
               file=sys.stderr)
@@ -453,7 +471,8 @@ def main() -> int:
     originals = {name: getattr(mod, attr) for name, (mod, attr) in hooks.items()}
     results, launches_by_path, hosts = {}, {}, {}
 
-    for path, (kind, names, cpu_size) in PATHS.items():
+    for path in selected:
+        kind, names, cpu_size = PATHS[path]
         log(f"--- path {path} ---")
         with tempfile.TemporaryDirectory() as tmp:
             t0 = time.perf_counter()
@@ -526,16 +545,19 @@ def main() -> int:
         parity(torch, pt, host, states[2], img, aux, cpu_size)
         frame_time(torch, render, scene, states[2], card)
 
-    log("--- path textured, msaa 2, 512x384 ---")
-    scene, meta = pt.build_scene(hosts["textured"], device=dev)
-    img, aux = pt.build_render_fn(meta, 512, 384, -1, 2, with_aux=True, device=dev)(
-        scene, states[2])
-    check(bool(torch.isfinite(img).all()) and int(aux["hits"]) > 0, f"msaa 2 frame {aux}")
-    parity(torch, pt, hosts["textured"], states[2], img, aux, (512, 384), msaa=2)
+    if "textured" in selected:
+        log("--- path textured, msaa 2, 512x384 ---")
+        scene, meta = pt.build_scene(hosts["textured"], device=dev)
+        img, aux = pt.build_render_fn(meta, 512, 384, -1, 2, with_aux=True, device=dev)(
+            scene, states[2])
+        check(bool(torch.isfinite(img).all()) and int(aux["hits"]) > 0, f"msaa 2 frame {aux}")
+        parity(torch, pt, hosts["textured"], states[2], img, aux, (512, 384), msaa=2)
 
     kernels = []
     for name, (kid, source, replaces) in KERNELS.items():
         path = REPORT_FROM.get(kid, "textured")
+        if path not in results:
+            continue
         r = results[path][name]
         kernels.append({"name": f"{kid} {name}", "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches_by_path[path][name],

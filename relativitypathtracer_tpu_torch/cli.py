@@ -1,20 +1,27 @@
 """Headless renderer CLI of the port.
 
-Render N frames of a scene to PNG with deterministic camera state, and
-optionally print per-frame timing as JSON:
+Render N frames of a scene to PNG/GIF with deterministic camera state, and
+optionally print timing as JSON:
 
   python -m relativitypathtracer_tpu_torch.cli --scene Scenes/scene.txt \\
-      --size 1024x768 --frames 10 --out out.png [--time 0] [--dt 0.0333] \\
-      [--velocity 0.5,0,0] [--interval -1|0] [--msaa 2] [--metrics] [--device cuda]
+      --size 1024x768 --frames 10 --out out.png [--gif out.gif] [--time 0] \\
+      [--dt 0.0333] [--paused] [--velocity 0.5,0,0] [--interval -1|0] [--msaa 2] \\
+      [--asset-root DIR] [--metrics] [--profile DIR] [--device cuda]
 
---scene '-' reads the scene DSL from stdin. On a CUDA device frame times
-come from CUDA events; on the CPU (the plain twins) from the host clock.
+--scene '-' reads the scene DSL from stdin. The flags and the --metrics keys
+are those of the JAX package's CLI, with their meaning there
+(`mrays_per_sec_p50` counts primary rays only); the port adds
+`rays_last_frame` and `mrays_per_sec_p50_with_shadow` (primary plus the last
+frame's shadow rays) and `device`. On a CUDA device frame times come from
+CUDA events; on the CPU (the plain twins) from the host clock. --profile
+writes a torch.profiler trace of the frame loop to DIR/trace.json.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -36,6 +43,7 @@ def _parse_vec3(s: str):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="relativitypathtracer_tpu_torch")
     ap.add_argument("--scene", required=True, help="scene DSL file, or '-' for stdin")
+    ap.add_argument("--asset-root", default=None, help="base dir for scene asset paths")
     ap.add_argument("--size", default="960x540", help="WxH (default 960x540)")
     ap.add_argument("--frames", type=int, default=1)
     ap.add_argument("--time", type=float, default=0.0, help="scene start time")
@@ -46,7 +54,11 @@ def main(argv=None) -> int:
                     help="override light-propagation interval")
     ap.add_argument("--msaa", type=int, default=1, help="samples per pixel axis")
     ap.add_argument("--out", default=None, help="output PNG (last frame)")
+    ap.add_argument("--gif", default=None, help="output animated GIF (all frames)")
+    ap.add_argument("--paused", action="store_true", help="do not advance scene time")
     ap.add_argument("--metrics", action="store_true", help="print timing JSON")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="write a torch.profiler trace of the frame loop to DIR/trace.json")
     ap.add_argument("--device", default=DEFAULT_DEVICE,
                     help=f"torch device (default {DEFAULT_DEVICE})")
     args = ap.parse_args(argv)
@@ -54,6 +66,8 @@ def main(argv=None) -> int:
         ap.error(f"--frames must be >= 1 (got {args.frames})")
     if args.msaa < 1:
         ap.error(f"--msaa must be >= 1 (got {args.msaa})")
+    if args.gif and args.dt <= 0:
+        ap.error(f"--gif needs --dt > 0 for its frame rate (got {args.dt})")
 
     import torch
 
@@ -61,7 +75,7 @@ def main(argv=None) -> int:
     from .models.dsl import SceneError
     from .models.obj_loader import ObjError
     from .models.texture import TextureError
-    from .utils.image import write_png
+    from .utils.image import write_gif, write_png
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -70,9 +84,9 @@ def main(argv=None) -> int:
         return 1
     try:
         if args.scene == "-":
-            host = parse_scene(sys.stdin.read(), ".", strict=False)
+            host = parse_scene(sys.stdin.read(), args.asset_root or ".", strict=False)
         else:
-            host = load_scene_file(args.scene, strict=False)
+            host = load_scene_file(args.scene, args.asset_root, strict=False)
     except (SceneError, ObjError, TextureError, OSError) as e:
         print(f"Error: {e}", file=sys.stderr)
         return 1
@@ -83,8 +97,15 @@ def main(argv=None) -> int:
                              device=device)
     vel = torch.tensor(args.velocity, dtype=torch.float32, device=device)
     on_card = device.type == "cuda"
+    profiler = None
+    if args.profile:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if on_card:
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.__enter__()
     t = args.time
-    timings, shadow_rays, img = [], 0, None
+    timings, frames, shadow_rays, img = [], [], 0, None
     for _ in range(args.frames):
         state = FrameState(vel, torch.tensor([t, 0.0, 0.0, 0.0], device=device))
         if on_card:
@@ -99,17 +120,29 @@ def main(argv=None) -> int:
             img, aux = render(scene, state)
             timings.append((time.perf_counter() - t0) * 1e3)
         shadow_rays = int(aux["shadow_rays"])
-        t += args.dt
+        if args.gif:
+            frames.append(img.cpu().numpy())
+        if not args.paused:
+            t += args.dt
+    if profiler is not None:
+        profiler.__exit__(None, None, None)
+        os.makedirs(args.profile, exist_ok=True)
+        profiler.export_chrome_trace(os.path.join(args.profile, "trace.json"))
     if args.out:
         write_png(args.out, img.cpu().numpy())
+    if args.gif:
+        write_gif(args.gif, frames, fps=1.0 / args.dt)
     if args.metrics:
         p50 = sorted(timings)[len(timings) // 2]
-        rays = width * height * args.msaa * args.msaa + shadow_rays
+        primary = width * height * args.msaa * args.msaa
+        rays = primary + shadow_rays
         print(json.dumps({
             "width": width, "height": height, "frames": args.frames,
             "first_ms": timings[0], "p50_ms": p50, "best_ms": min(timings),
-            "rays_last_frame": rays, "mrays_per_sec_p50": rays / (p50 * 1e3),
-            "device": torch.cuda.get_device_name(device) if on_card else "cpu",
+            "primary_rays": primary, "mrays_per_sec_p50": primary / (p50 * 1e3),
+            "platform": "gpu" if on_card else device.type,
+            "rays_last_frame": rays, "mrays_per_sec_p50_with_shadow": rays / (p50 * 1e3),
+            "device": torch.cuda.get_device_name(device) if on_card else device.type,
         }))
     return 0
 

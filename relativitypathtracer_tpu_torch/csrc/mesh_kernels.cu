@@ -117,74 +117,11 @@
 // large tier needs no records of its own. Triangles at or past the real count
 // T are masked as on the TPU (mesh_large.py:226); K5/K6 test whole chunks
 // (their zero pad rows fail the det test anyway).
-#include <cooperative_groups.h>
-
 #include <cstdint>
 
-#include "common.cuh"
+#include "walk.cuh"
 
 namespace {
-
-constexpr int kShRow = 10;   // shared triangle row: det(3) u(3) v(3) ct
-constexpr int kGenRow = 20;  // general triangle row: det(3) u(6) v(6) t(4) pad
-constexpr int kAttr = 15;
-
-// Both walks: a cluster of kCluster CTAs per 1024-ray block, each of kWarps
-// warps; at entry each thread reads kLanes lanes of the block, and each CTA
-// keeps at most kSlots of its rays.
-constexpr int kCluster = 8;
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kLanes = rpt::kNB / kThreads;
-constexpr int kSlots = rpt::kNB / kCluster;
-constexpr int kBatch = 4;  // rays a warp tests at once
-
-cudaStream_t as_stream(void* stream) { return static_cast<cudaStream_t>(stream); }
-
-// K5/K6 lists: order (B, C) chunk ids, minds (B, C) floors by chunk id,
-// counts (B,) live chunks.
-struct FlatList {
-  static constexpr bool kMaskTail = false;  // every chunk holds kTC triangles to test
-  const int* order;
-  const float* minds;
-  const int* counts;
-  int n_chunks;
-
-  // The copy of block b's list in shared memory: the live chunk ids in walk
-  // order, then their floors (stage_words() 32-bit words).
-  size_t stage_words() const { return 2 * static_cast<size_t>(n_chunks); }
-
-  __device__ void stage(int b, int* s) const {
-    const size_t row = static_cast<size_t>(b) * n_chunks;
-    float* fl = reinterpret_cast<float*>(s + n_chunks);
-    for (int e = threadIdx.x; e < counts[b]; e += blockDim.x) {
-      const int c = order[row + e];
-      s[e] = c;
-      fl[e] = minds[row + c];
-    }
-  }
-
-  // Yields the next chunk of the list and its floor; the caller stops on the
-  // floor.
-  struct Cursor {
-    const int* ids;
-    const float* fl;
-    int n_live;
-    int j;
-
-    __device__ bool advance(int* k, float* floor_out) {
-      if (j >= n_live) return false;
-      *k = ids[j];
-      *floor_out = fl[j];
-      ++j;
-      return true;
-    }
-  };
-
-  __device__ Cursor cursor(int b, const int* s) const {
-    return Cursor{s, reinterpret_cast<const float*>(s + n_chunks), counts[b], 0};
-  }
-};
 
 // K11/K12 lists: order (B, C_s) super ids, minds (B, C_s) floors by super
 // id, counts (B,) live supers, bits (B, W) liveness of chunk w * 32 + i in
@@ -259,69 +196,7 @@ struct SuperList {
   }
 };
 
-// Max over the cluster of the warp values each CTA left in its own `half`
-// (the shadow walk's first bound): each lane reads kCluster * kWarps / 32 of
-// them from the CTAs that hold them, then a warp reduction, so every thread
-// of the cluster gets the same value (the values are >= 0).
-__device__ __forceinline__ float cluster_max(cooperative_groups::cluster_group& cluster,
-                                             float* half, int lane) {
-  float m = 0.0f;
-#pragma unroll
-  for (int e = lane; e < kCluster * kWarps; e += 32) {
-    m = fmaxf(m, cluster.map_shared_rank(half, e / kWarps)[e % kWarps]);
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-  return m;
-}
-
-// Max of the kCluster * kWarps warp values pushed into this CTA's `all`
-// (the walks' per-chunk bound): local reads and a warp reduction.
-__device__ __forceinline__ float pushed_max(const float* all, int lane) {
-  float m = 0.0f;
-#pragma unroll
-  for (int e = lane; e < kCluster * kWarps; e += 32) m = fmaxf(m, all[e]);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-  return m;
-}
-
-// The cluster barrier in two halves (sm_90): arrive publishes this thread's
-// earlier writes, wait returns once every thread of the cluster arrived.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// Warp value `w` into slot `slot` of `all` in every CTA of the cluster: lane
-// r stores into CTA r (remote shared stores, which do not wait).
-__device__ __forceinline__ void push_to_cluster(cooperative_groups::cluster_group& cluster,
-                                                float* all, int slot, float w, int lane) {
-  if (lane < kCluster) cluster.map_shared_rank(all, lane)[slot] = w;
-}
-
 // --- the primary walk (K5, K11) -----------------------------------------------
-
-// A ray's running best: distance, barycentrics and triangle id (-1: none).
-struct __align__(16) Best {
-  float t, u, v;
-  int tri;
-};
-
-// Lane `lane`'s shared triangle row of chunk k: five 8-byte loads.
-__device__ __forceinline__ void load_shared_row(const float2* __restrict__ rows2, int k,
-                                                int lane, float* c) {
-  const float2* src = rows2 + (static_cast<size_t>(k) * rpt::kTC + lane) * (kShRow / 2);
-#pragma unroll
-  for (int i = 0; i < kShRow / 2; ++i) {
-    const float2 q = src[i];
-    c[2 * i] = q.x;
-    c[2 * i + 1] = q.y;
-  }
-}
 
 // This warp's rays against chunk k, lane i holding triangle i's row in c:
 // each ray's best goes from best_in to best_out; returns the max of the
@@ -484,20 +359,6 @@ shared_walk_kernel(List list, const float* __restrict__ box, const float* __rest
 }
 
 // --- the shadow walk (K6, K12) ------------------------------------------------
-
-// Lane `lane`'s triangle row of chunk k: five 16-byte loads.
-__device__ __forceinline__ void load_row(const float4* __restrict__ rows4, int k, int lane,
-                                         float* c) {
-  const float4* src = rows4 + (static_cast<size_t>(k) * rpt::kTC + lane) * (kGenRow / 4);
-#pragma unroll
-  for (int i = 0; i < kGenRow / 4; ++i) {
-    const float4 q = src[i];
-    c[4 * i] = q.x;
-    c[4 * i + 1] = q.y;
-    c[4 * i + 2] = q.z;
-    c[4 * i + 3] = q.w;
-  }
-}
 
 // This warp's rays against chunk k, lane i holding triangle i's row in c:
 // each ray's running min goes from bt_in to bt_out; returns the max of the
@@ -704,27 +565,6 @@ general_walk_kernel(List list, const float* __restrict__ box, const float* __res
       t_out[li] = tm[q];
     }
   }
-}
-
-// Opts `kernel` in to the most dynamic shared memory the card allows
-// (static and dynamic together, past the 48 KB default) on the first call;
-// *max_bytes keeps the dynamic bytes allowed.
-template <class Kernel>
-cudaError_t opt_in_shared(Kernel* kernel, int* max_bytes) {
-  if (*max_bytes >= 0) return cudaSuccess;
-  int dev = 0, optin = 0;
-  cudaFuncAttributes attr{};
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  }
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
-  const int dynamic = optin - static_cast<int>(attr.sharedSizeBytes);
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dynamic);
-  }
-  if (err == cudaSuccess) *max_bytes = dynamic;
-  return err;
 }
 
 // Launch shared_walk_kernel<List>, one cluster per 1024-ray block, with the

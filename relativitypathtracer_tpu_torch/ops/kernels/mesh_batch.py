@@ -16,10 +16,14 @@ object table, so each ray block walks one live list over all objects:
   per-lane s, a lower bound, so stopping on them stays sound.
 
 `batched_shared_walk` and `batched_general_walk` launch the CUDA kernels
-(csrc/mesh_batch.cu) on CUDA tensors; on CPU tensors they call their plain
-twins `batched_shared_walk_plain` / `batched_general_walk_plain`, which
-derive every object's rays for every lane with the kernels' operations in
-their order, then walk the same lists with the same early termination.
+(csrc/mesh_batch.cu: a cluster of 8 CTAs per ray block, a warp per ray,
+each CTA's per-object rays staged in shared memory) on CUDA tensors; on CPU
+tensors they call their plain twins `batched_shared_walk_plain` /
+`batched_general_walk_plain`, which derive every object's rays for every
+lane with the kernels' operations in their order, then walk the same lists
+with the same early termination. With `walked=True` the twins also return
+the chunks each block walked, and `object_switches` counts how often a walk
+changes object.
 """
 
 from __future__ import annotations
@@ -129,15 +133,23 @@ def live_chunk_lists_multi(spheres, chunk_counts, d_os, o_os, s_os, valid=None, 
     return bucket_order(torch.cat(minds, dim=1), torch.cat(overlaps, dim=1))
 
 
+# How K9 computes a block's first bound: True, each CTA of the cluster over
+# its own 128 rays and one cluster reduction; False, every CTA over all 1,024
+# (chip_smoke.py times both on the instances path).
+CLUSTER_FIRST_BOUND = True
+
+
 def chunk_objects(chunk_counts, device):
     """(C,) int32 object slot of every pool chunk."""
     return torch.cat([torch.full((c,), g, dtype=torch.int32, device=device)
                       for g, c in enumerate(chunk_counts)])
 
 
-def batched_shared_walk_plain(order, minds, counts, cobj, boxes, mats, tri, attrs, dir4_p):
+def batched_shared_walk_plain(order, minds, counts, cobj, boxes, mats, tri, attrs, dir4_p,
+                              walked=False):
     """Plain twin of the K9 kernel. Returns (t in shared units, u, v, tri
-    (pool row), obj (slot), attr (15, n)); tri and obj are -1 on a miss."""
+    (pool row), obj (slot), attr (15, n)); tri and obj are -1 on a miss.
+    With `walked`, also the chunks each block walked ((B,) int64)."""
     n_pad = dir4_p.shape[1]
     B = n_pad // NB
     dev = dir4_p.device
@@ -155,12 +167,14 @@ def batched_shared_walk_plain(order, minds, counts, cobj, boxes, mats, tri, attr
     rows = tri.reshape(-1, TC, 10)
     running = torch.ones(B, dtype=torch.bool, device=dev)
     blocks = torch.arange(B, device=dev)
+    n_walked = torch.zeros(B, dtype=torch.int64, device=dev)
     for j in range(order.shape[1]):
         k_all = order[:, j].long()
         running &= (j < counts) & (minds[blocks, k_all] < mb)
         idx = running.nonzero()[:, 0]
         if idx.numel() == 0:
             break
+        n_walked[idx] += 1
         k = k_all[idx]
         g = cobj[k].long()
         c = rows[k]
@@ -181,15 +195,20 @@ def batched_shared_walk_plain(order, minds, counts, cobj, boxes, mats, tri, attr
         mb[idx] = torch.minimum(best_t[idx], bound[idx]).amax(dim=1)
     flat_tri = best_tri.reshape(-1)
     attr = torch.where((flat_tri >= 0)[:, None], attrs[flat_tri.clamp(min=0).long()], 0.0)
-    return (best_t.reshape(-1), best_u.reshape(-1), best_v.reshape(-1), flat_tri,
-            best_obj.reshape(-1), attr.T.contiguous())
+    out = (best_t.reshape(-1), best_u.reshape(-1), best_v.reshape(-1), flat_tri,
+           best_obj.reshape(-1), attr.T.contiguous())
+    return (*out, n_walked) if walked else out
 
 
-def batched_shared_walk(order, minds, counts, cobj, boxes, mats, tri, attrs, dir4_p):
+def batched_shared_walk(order, minds, counts, cobj, boxes, mats, tri, attrs, dir4_p,
+                        cluster_first=CLUSTER_FIRST_BOUND):
     """K9 walk: the CUDA kernel on CUDA tensors, the plain twin on CPU
     tensors. order/minds (B, C), counts (B,), cobj (C,) int32, boxes (O, 9)
     [lo hi ro] per object, mats (O, MAT_COLS), tri (C * TC, 10), attrs
-    (C * TC, 15), dir4_p (4, B * NB) camera-frame 4-dirs."""
+    (C * TC, 15), dir4_p (4, B * NB) camera-frame 4-dirs. cluster_first
+    picks how the kernel computes a block's first bound (the results are the
+    same): each CTA over its own rays and one cluster reduction, or every
+    CTA over all 1,024 (csrc/mesh_batch.cu)."""
     if dir4_p.device.type == "cpu":
         return batched_shared_walk_plain(order, minds, counts, cobj, boxes, mats, tri, attrs,
                                          dir4_p)
@@ -207,14 +226,17 @@ def batched_shared_walk(order, minds, counts, cobj, boxes, mats, tri, attrs, dir
     obj_out = torch.empty_like(tri_out)
     attr = torch.empty((N_ATTR, n_pad), dtype=f32, device=dir4_p.device)
     launch("rpt_batched_shared_walk", order, minds, counts, cobj, boxes, mats, tri, attrs,
-           dir4_p, n_pad, C, O, t, u, v, tri_out, obj_out, attr)
+           dir4_p, n_pad, C, O, int(cluster_first), t, u, v, tri_out, obj_out, attr)
     return t, u, v, tri_out, obj_out, attr
 
 
 def batched_general_walk_plain(order, minds, counts, cobj, boxes, mats, rows, o4_p, dir4_p,
-                               tmax_p):
+                               tmax_p, walked=False):
     """Plain twin of the K10 kernel: min(nearest hit, tmax) per lane in
-    shared units, with occlusion retirement on any hit below tmax."""
+    shared units, with occlusion retirement on any hit below tmax. Every
+    lane is tested; a lane with tmax <= 0 changes neither its result (tmax)
+    nor the walk, which the kernel relies on. With `walked`, also the chunks
+    each block walked ((B,) int64)."""
     n_pad = dir4_p.shape[1]
     B = n_pad // NB
     dev = dir4_p.device
@@ -230,12 +252,14 @@ def batched_general_walk_plain(order, minds, counts, cobj, boxes, mats, rows, o4
     crows = rows.reshape(-1, TC, 20)
     running = torch.ones(B, dtype=torch.bool, device=dev)
     blocks = torch.arange(B, device=dev)
+    n_walked = torch.zeros(B, dtype=torch.int64, device=dev)
     for j in range(order.shape[1]):
         k_all = order[:, j].long()
         running &= (j < counts) & (minds[blocks, k_all] < mb)
         idx = running.nonzero()[:, 0]
         if idx.numel() == 0:
             break
+        n_walked[idx] += 1
         k = k_all[idx]
         g = cobj[k].long()
         c = crows[k]
@@ -247,7 +271,19 @@ def batched_general_walk_plain(order, minds, counts, cobj, boxes, mats, rows, o4
         best_t[idx] = new_t
         live = torch.where(new_t < tmax[idx], 0.0, torch.minimum(new_t, teff[idx]))
         mb[idx] = live.amax(dim=1)
-    return torch.minimum(best_t, tmax).reshape(-1)
+    t = torch.minimum(best_t, tmax).reshape(-1)
+    return (t, n_walked) if walked else t
+
+
+def object_switches(order, cobj, n_walked):
+    """(B,) int64: how often each block's walk changes object, from one
+    walked chunk to the next, over the first n_walked[b] entries of its list
+    order[b] (the walks' `walked` counts); cobj (C,) the chunk -> object
+    table."""
+    g = cobj[order.long()]  # (B, C) object of each list entry
+    change = g[:, 1:] != g[:, :-1]
+    pos = torch.arange(1, order.shape[1], device=order.device)
+    return (change & (pos[None, :] < n_walked[:, None])).sum(dim=1)
 
 
 def batched_general_walk(order, minds, counts, cobj, boxes, mats, rows, o4_p, dir4_p, tmax_p):

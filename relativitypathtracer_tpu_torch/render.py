@@ -20,6 +20,7 @@ scene builds no pool).
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -224,6 +225,24 @@ def tile_unswizzle(img_vec, ph: int, pw: int):
     return x.permute(0, 1, 3, 5, 2, 4, 6).reshape(k, ph * pw)
 
 
+@contextlib.contextmanager
+def full_precision():
+    """Full fp32 products inside the block: TF32 off for matmuls and cuDNN,
+    and the caller's two flags restored after it, also when it raises (the
+    JAX package scopes its `default_matmul_precision("highest")` to the
+    frame the same way). PERF.md "What lost" records that reduced-precision
+    matrix products (bf16 passes on the TPU, TF32 here) broke parity with
+    the fp32 reference."""
+    matmul, cudnn = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+        torch.backends.cudnn.allow_tf32 = cudnn
+
+
 def build_render_fn(meta: SceneMeta, width: int, height: int, interval: int,
                     msaa: int = 1, with_aux: bool = False, device=DEFAULT_DEVICE):
     """A frame renderer for (scene meta, resolution, interval, msaa) on
@@ -232,14 +251,10 @@ def build_render_fn(meta: SceneMeta, width: int, height: int, interval: int,
     sets). The pixel grid is padded to 32x32 tiles and traced in tile order;
     the padding is cropped after shading. With msaa > 1, one shade pass per
     sample set, colours averaged: the JAX package's default per-sample loop
-    (opencl_kernel.cl:642-648)."""
+    (opencl_kernel.cl:642-648). Each frame runs under `full_precision()`;
+    building the renderer changes no process-wide setting."""
     if msaa < 1:
         raise ValueError(f"msaa must be >= 1, got {msaa}")
-    # Full fp32 products: PERF.md "What lost" records that reduced-precision
-    # matrix products (bf16 passes on the TPU, TF32 here) broke parity with
-    # the fp32 reference.
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     ph = _round_up(height, TILE)
     pw = _round_up(width, TILE)
     samples = camera_ray_dirs(width, height, msaa, pw, ph, device=device).reshape(
@@ -248,6 +263,10 @@ def build_render_fn(meta: SceneMeta, width: int, height: int, interval: int,
     perms = mesh_perm_tensors(meta, device)
 
     def render(scene: Scene, state: FrameState):
+        with full_precision():
+            return _render(scene, state)
+
+    def _render(scene: Scene, state: FrameState):
         L, inv_L, stat_cam = object_frames(scene.objects, state)
         color, aux = shade(scene, meta, L, inv_L, stat_cam, dirs[0], interval, perms)
         for d in dirs[1:]:

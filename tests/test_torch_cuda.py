@@ -8,8 +8,8 @@ imports no JAX. On a machine with an NVIDIA GPU (and no JAX) run it with
 
 Kernel and twin run the same fp32 operations in the same order (the kernels
 are built with -fmad=false), so they agree to the last bit except where a
-library function differs (atan2/asin in the spherical UVs); the mesh walks
-K5, K6, K11 and K12 are held to that, ties included.
+library function differs (atan2/asin in the spherical UVs); the six mesh
+walks K5, K6, K9, K10, K11 and K12 are held to that, ties included.
 """
 
 import collections
@@ -62,8 +62,11 @@ ACTIVITY = {
 # column (x = 0.6-0.75 at its front) but through its union box, so those
 # lanes miss the mesh with a bound above 0; "all_miss": every ray
 # looking away from the union box; "ties": each ray aimed at a repeated
-# triangle (the column with repeat_for_ties).
-COVERAGE = ("all_hit", "silhouette", "all_miss", "ties")
+# triangle (the column with repeat_for_ties); "box_plane": the camera on the
+# union box's lo.x plane, the lower half of every block aimed at the front
+# third, the upper half with an exact-zero x direction, along that plane
+# (the 0 * inf slab case of mesh_kernels._safe_inv).
+COVERAGE = ("all_hit", "silhouette", "all_miss", "ties", "box_plane")
 
 
 def _column_soup(rng, T, pattern):
@@ -75,10 +78,14 @@ def _column_soup(rng, T, pattern):
     return verts, tri_v, repeat_for_ties(tri_v) if pattern == "ties" else None
 
 
-def _primary_dirs(rng, verts, tri_v, T, n, pattern, ties=None):
-    ro = np.array([0.0, 0.0, -6.0])
+def _primary_dirs(rng, verts, tri_v, T, n, pattern, ties=None, ro=(0.0, 0.0, -6.0)):
     aim = rng.choice(np.concatenate(ties), n) if pattern == "ties" else rng.integers(0, T // 3, n)
-    d = aim_at(rng, verts, tri_v, aim, ro)
+    d = aim_at(rng, verts, tri_v, aim, np.asarray(ro))
+    if pattern == "box_plane":
+        off = np.arange(n) % 1024 >= 512
+        p = np.stack([np.zeros(int(off.sum())), rng.normal(size=int(off.sum())) * 0.05,
+                      np.ones(int(off.sum()))])
+        d[:, off] = p / np.linalg.norm(p, axis=0)
     if pattern == "silhouette":
         off = np.arange(n) % 1024 >= 512
         m = int(off.sum())
@@ -120,9 +127,12 @@ def _soup_lists(dev, shadow: bool, T=600, n=8192, seed=0, large=False, pattern=N
     if not shadow:
         d[2] = d[2].abs() + 0.5
         d = d / d.norm(dim=0)
-        if pattern is not None:
-            d = torch.as_tensor(_primary_dirs(rng, verts, tri_v, T, n, pattern, ties), device=dev)
         ro = torch.tensor([0.0, 0.0, -6.0], device=dev)
+        if pattern == "box_plane":
+            ro[0] = mk._box_of(spheres)[0][0]
+        if pattern is not None:
+            d = torch.as_tensor(_primary_dirs(rng, verts, tri_v, T, n, pattern, ties,
+                                              ro.cpu().numpy()), device=dev)
         consts, c_t, _, _ = mi.shared_origin_constants(mesh, ro, perm)
         lists = build(spheres, d, ro[:, None].expand(3, n))
         lo, hi = mk._box_of(spheres)
@@ -368,106 +378,340 @@ def test_wrapper_checks_dtype_and_shape(cuda):
         sc.shadow_chain(*args)
 
 
-def _batch_args(dev, O, shadow, T=300, n=8192):
-    """K9 (shadow False) or K10 walk arguments for O random soups in front
-    of the camera, each with its own rotation, non-uniform scale and
-    velocity; for K10 object 1 is disabled, as the light's own mesh is."""
+def _batch_scene(dev, O, shadow, T, rng, kind=None):
+    """O random soups in front of the camera, each with its own rotation,
+    non-uniform scale and velocity (K9's objects carry their object-space
+    camera origin ro); for K10 object 1 is disabled, as the light's own mesh
+    is. kind "ties": every soup with the repeats of repeat_for_ties, and
+    object 1 a copy of object 0 (same soup, frame and motion: a tie across
+    objects on every hit there); kind "alternating": two copies of the
+    depth-sorted column of _column_soup (256 triangles: 8 chunks of 0.575
+    in depth), the second half a chunk deeper in the same frame, so the
+    lists alternate objects chunk by chunk, none disabled. Returns a dict of
+    the walks' per-object arguments."""
     from relativitypathtracer_tpu_torch.models.scene import MeshArrays
     from relativitypathtracer_tpu_torch.ops import mesh_intersect as mi
     from relativitypathtracer_tpu_torch.ops import relmath
     from relativitypathtracer_tpu_torch.ops.kernels import mesh_batch as mb
     from relativitypathtracer_tpu_torch.ops.kernels import mesh_kernels as mk
 
-    rng = np.random.default_rng(O + 10 * shadow)
     f32 = np.float32
-    d = rng.normal(size=(3, n)) * 0.1
-    d[2] = 1.0
-    dir4 = torch.as_tensor(np.concatenate([np.full((1, n), -1.0), d / np.linalg.norm(d, axis=0)]),
-                           dtype=torch.float32, device=dev)
     cam = torch.tensor([0.3, 0.1, -0.1, 0.0], device=dev)
-    rows, attrs, spheres, boxes, mats, counts = [], [], [], [], [], []
+    out = {k: [] for k in ("rows", "attrs", "spheres", "boxes", "mats", "counts", "ros")}
     for g in range(O):
-        verts, tri_v = soup(rng, T)
-        mesh = MeshArrays(torch.as_tensor(verts * 0.5, device=dev),
+        if kind == "alternating":
+            if g == 0:
+                verts, tri_v, _ = _column_soup(rng, T, None)
+                eye = torch.eye(4, device=dev)
+                m = relmath.trs(np.array([0.1, 0.0, 8.0], f32), f32(0.0), np.array([0, 0, 1], f32),
+                                np.array([1.0, 1.2, 1.0], f32)).to(dev)
+                frame = (eye, relmath.inverse4(m), m)
+            else:
+                verts = verts + np.array([0.0, 0.0, 0.2875], f32)
+            L, inv_m, m = frame
+            vscale = 1.0
+        elif kind == "ties" and g == 1:
+            L, inv_m, m = frame
+        else:
+            verts, tri_v = soup(rng, T)
+            if kind == "ties":
+                repeat_for_ties(tri_v)
+            z = rng.uniform(6.0, 10.0)
+            m = relmath.trs(np.array([rng.uniform(-0.1, 0.1) * z, rng.uniform(-0.08, 0.08) * z, z],
+                                     f32), f32(rng.uniform(0, 3)), rng.normal(size=3).astype(f32),
+                            rng.uniform(0.6, 1.4, 3).astype(f32)).to(dev)
+            inv_m = relmath.inverse4(m)
+            L = relmath.lorentz(torch.as_tensor(rng.normal(size=3) * 0.05,
+                                                dtype=torch.float32)).to(dev)
+            frame, vscale = (L, inv_m, m), 0.5
+        mesh = MeshArrays(torch.as_tensor(verts * vscale, device=dev),
                           torch.as_tensor(tri_v, device=dev), *([None] * 11))
-        z = rng.uniform(6.0, 10.0)
-        m = relmath.trs(np.array([rng.uniform(-0.1, 0.1) * z, rng.uniform(-0.08, 0.08) * z, z],
-                                 f32), f32(rng.uniform(0, 3)), rng.normal(size=3).astype(f32),
-                        rng.uniform(0.6, 1.4, 3).astype(f32)).to(dev)
-        inv_m = relmath.inverse4(m)
-        L = relmath.lorentz(torch.as_tensor(rng.normal(size=3) * 0.05, dtype=torch.float32)).to(dev)
         perm = torch.arange(T, device=dev)
         T_pad = mi.padded_tri_count(T)
         sph = mk.chunk_spheres(*mi.mesh_tri_vertices(mesh, perm), T_pad)
         lo, hi = mk._box_of(sph)
         if shadow:
-            rows.append(mk.general_tri_rows(mi.general_ray_constants(mesh, perm)))
-            mats.append(mb.mat_row(L, inv_m, m))
-            boxes.append(torch.cat([lo, hi]) if g != 1 else
-                         torch.tensor([1.0, 1.0, 1.0, 0.0, 0.0, 0.0], device=dev))
+            out["rows"].append(mk.general_tri_rows(mi.general_ray_constants(mesh, perm)))
+            out["mats"].append(mb.mat_row(L, inv_m, m))
+            out["boxes"].append(torch.cat([lo, hi]) if g != 1 or kind == "alternating" else
+                                torch.tensor([1.0, 1.0, 1.0, 0.0, 0.0, 0.0], device=dev))
         else:
             ro = inv_m[:3, :3] @ (L @ cam)[1:4] + inv_m[:3, 3]
             consts, c_t, _, _ = mi.shared_origin_constants(mesh, ro, perm)
-            rows.append(mk.shared_tri_rows(consts, c_t))
-            attrs.append(torch.as_tensor(rng.normal(size=(T_pad, 15)), dtype=torch.float32,
-                                         device=dev))
-            mats.append(mb.mat_row(L, inv_m, m, ro))
-            boxes.append(torch.cat([lo, hi, ro]))
-        spheres.append(sph)
-        counts.append(T_pad // mk.TC)
-    mats, spheres, cobj = torch.stack(mats), torch.cat(spheres), mb.chunk_objects(counts, dev)
+            out["rows"].append(mk.shared_tri_rows(consts, c_t))
+            out["attrs"].append(torch.as_tensor(rng.normal(size=(T_pad, 15)),
+                                                dtype=torch.float32, device=dev))
+            out["mats"].append(mb.mat_row(L, inv_m, m, ro))
+            out["boxes"].append(torch.cat([lo, hi, ro]))
+            out["ros"].append(ro)
+        out["spheres"].append(sph)
+        out["counts"].append(T_pad // mk.TC)
+    out["enabled"] = tuple(g != 1 or kind == "alternating" for g in range(O))
+    out["cobj"] = mb.chunk_objects(out["counts"], dev)
+    return out
+
+
+def _shared_args(sc, dir4):
+    """K9 walk arguments of the objects `sc` (_batch_scene) for camera
+    4-dirs dir4, with their live lists."""
+    from relativitypathtracer_tpu_torch.ops.kernels import mesh_batch as mb
+
+    mats, spheres = torch.stack(sc["mats"]), torch.cat(sc["spheres"])
+    d_os, s_os = mb.object_dirs(mats, dir4)
+    o_os = torch.stack(sc["ros"])[:, :, None].expand(len(mats), 3, dir4.shape[1])
+    lists = mb.live_chunk_lists_multi(spheres, sc["counts"], d_os, o_os, s_os)
+    return (*lists, sc["cobj"], torch.stack(sc["boxes"]), mats, torch.cat(sc["rows"]),
+            torch.cat(sc["attrs"]), dir4.contiguous())
+
+
+def _shadow_args(sc, o4, dir4, tmax):
+    """K10 walk arguments of the objects `sc` (_batch_scene) for camera
+    4-origins o4, 4-dirs dir4 and tmax, with their live lists."""
+    from relativitypathtracer_tpu_torch.ops.kernels import mesh_batch as mb
+
+    mats, spheres = torch.stack(sc["mats"]), torch.cat(sc["spheres"])
+    r_all, s_os = mb.object_rays(mats, o4, dir4)
+    lists = mb.live_chunk_lists_multi(spheres, sc["counts"], r_all[:, 0:3], r_all[:, 6:9], s_os,
+                                      valid=tmax > 0, enabled=sc["enabled"],
+                                      lane_bound_shared=tmax)
+    return (*lists, sc["cobj"], torch.stack(sc["boxes"]), mats, torch.cat(sc["rows"]),
+            o4.contiguous(), dir4.contiguous(), tmax.contiguous())
+
+
+def _dir4(dev, d):
+    """Camera 4-dirs (-1, unit d) of dirs d (3, n)."""
+    d = d / np.linalg.norm(d, axis=0)
+    return torch.as_tensor(np.concatenate([np.full((1, d.shape[1]), -1.0), d]),
+                           dtype=torch.float32, device=dev)
+
+
+def _batch_args(dev, O, shadow, T=300, n=8192):
+    """K9 (shadow False) or K10 walk arguments for O random soups
+    (_batch_scene) and n rays around the view axis; K10's origins spread
+    around the camera, 20% of its lanes masked (tmax 0)."""
+    rng = np.random.default_rng(O + 10 * shadow)
+    d = rng.normal(size=(3, n)) * 0.1
+    d[2] = 1.0
+    dir4 = _dir4(dev, d)
+    sc = _batch_scene(dev, O, shadow, T, rng)
     if not shadow:
-        d_os, s_os = mb.object_dirs(mats, dir4)
-        lists = mb.live_chunk_lists_multi(spheres, counts, d_os, mats[:, 15:18, None].expand(O, 3, n),
-                                          s_os)
-        return (*lists, cobj, torch.stack(boxes), mats, torch.cat(rows), torch.cat(attrs), dir4)
+        return _shared_args(sc, dir4)
     o4 = torch.as_tensor(np.stack([rng.uniform(0.0, 0.5, n), rng.uniform(-1, 1, n),
                                    rng.uniform(-1, 1, n), rng.uniform(0.0, 5.0, n)]),
                          dtype=torch.float32, device=dev)
     tmax = torch.as_tensor(rng.uniform(2.0, 14.0, n), dtype=torch.float32, device=dev)
     tmax[torch.as_tensor(rng.uniform(size=n) < 0.2, device=dev)] = 0.0
-    r_all, s_os = mb.object_rays(mats, o4, dir4)
-    lists = mb.live_chunk_lists_multi(spheres, counts, r_all[:, 0:3], r_all[:, 6:9], s_os,
-                                      valid=tmax > 0, enabled=tuple(g != 1 for g in range(O)),
-                                      lane_bound_shared=tmax)
-    return (*lists, cobj, torch.stack(boxes), mats, torch.cat(rows), o4, dir4, tmax)
+    return _shadow_args(sc, o4, dir4, tmax)
+
+
+def _first_bounds(args):
+    """K9's per-lane first bound of walk arguments `args`: the max over
+    objects of the union-box exit in shared units, as its twin computes it."""
+    from relativitypathtracer_tpu_torch.ops.kernels import mesh_batch as mb
+    from relativitypathtracer_tpu_torch.ops.kernels import mesh_kernels as mk
+
+    boxes, mats, dir4 = args[4], args[5], args[-1]
+    dh, s = mb.object_dirs(mats, dir4)
+    return torch.stack([mk._box_bound(bx[0:3], bx[3:6], bx[6:9], dh[g]) * s[g]
+                        for g, bx in enumerate(boxes)]).amax(dim=0)
+
+
+def _coverage_args(dev, O, pattern, T=300, n=8192):
+    """K9 walk arguments at a coverage pattern (COVERAGE, "alternating") for
+    O objects (_batch_scene): rays drawn around the view axis, classified
+    by the twin, and picked. "all_hit" and "ties": every lane a ray that
+    hits; "silhouette": the upper half of every block rays that miss every
+    mesh inside some union box (bound above 0), the lower half rays that
+    hit; "all_miss": every ray looking away; "alternating": the column
+    pair, rays along it."""
+    from relativitypathtracer_tpu_torch.ops.kernels import mesh_batch as mb
+
+    rng = np.random.default_rng(100 + O)
+    kind = pattern if pattern in ("ties", "alternating") else None
+    sc = _batch_scene(dev, O, False, 256 if kind == "alternating" else T, rng, kind)
+    spread = 0.012 if kind == "alternating" else 0.1
+    if pattern == "all_miss":
+        d = rng.normal(size=(3, n)) * 0.3
+        d[2] = -1.0
+        return _shared_args(sc, _dir4(dev, d))
+    d = rng.normal(size=(3, 8 * n)) * spread
+    d[2] = 1.0
+    pool = _shared_args(sc, _dir4(dev, d))
+    hit = (mb.batched_shared_walk_plain(*pool)[3] >= 0).cpu().numpy()
+    hits = np.flatnonzero(hit)
+    pick = rng.choice(hits, n)
+    if pattern == "silhouette":
+        edge = np.flatnonzero(~hit & (_first_bounds(pool) > 0).cpu().numpy())
+        upper = np.arange(n) % 1024 >= 512
+        pick[upper] = rng.choice(edge, int(upper.sum()))
+    return _shared_args(sc, pool[-1][:, torch.as_tensor(pick, device=dev)])
+
+
+def _activity_args(dev, O, pattern, T=300, n=8192):
+    """K10 walk arguments at an activity pattern (ACTIVITY, "alternating")
+    for O objects (_batch_scene, object 1 disabled), the masked lanes' rays
+    garbage (finite): origins spread around the camera, tmax 2-14;
+    "alternating": the column pair, rays from in front of it along it, every
+    lane active."""
+    rng = np.random.default_rng(200 + O)
+    alternating = pattern == "alternating"
+    sc = _batch_scene(dev, O, True, 256 if alternating else T, rng,
+                      "alternating" if alternating else None)
+    d = rng.normal(size=(3, n)) * (0.012 if alternating else 0.1)
+    d[2] = 1.0
+    dir4 = _dir4(dev, d)
+    o4 = torch.as_tensor(np.stack([rng.uniform(0.0, 0.5, n), rng.uniform(-1, 1, n),
+                                   rng.uniform(-1, 1, n), rng.uniform(0.0, 5.0, n)]),
+                         dtype=torch.float32, device=dev)
+    if alternating:
+        o4[1:3] = 0.0
+        o4[3] = 0.0
+    tmax = torch.as_tensor(rng.uniform(2.0, 14.0, n), dtype=torch.float32, device=dev)
+    active = torch.ones(n, dtype=torch.bool, device=dev) if alternating else torch.as_tensor(
+        ACTIVITY[pattern](rng, n), device=dev)
+    garbage = torch.as_tensor(rng.uniform(-4, 4, (8, n)), dtype=torch.float32, device=dev)
+    o4 = torch.where(active, o4, garbage[:4])
+    dir4 = torch.where(active, dir4, garbage[4:])
+    return _shadow_args(sc, o4, dir4, torch.where(active, tmax, 0.0))
+
+
+def _k9_equals_twin(args):
+    """K9 on args with each way of its first bound (cluster reduction, every
+    CTA over all lanes): two launches, every output equal to the twin's bit
+    for bit. Returns the twin's outputs."""
+    from relativitypathtracer_tpu_torch.ops.kernels import mesh_batch as mb
+
+    want = mb.batched_shared_walk_plain(*args)
+    for cluster_first in (True, False):
+        before = _launches("rpt_batched_shared_walk")
+        got = mb.batched_shared_walk(*args, cluster_first=cluster_first)
+        torch.cuda.synchronize()
+        assert _launches("rpt_batched_shared_walk") == before + 1
+        for part, g, w in zip(("t", "u", "v", "tri", "obj", "attr"), got, want):
+            assert torch.equal(g, w), (part, cluster_first)
+    return want
+
+
+def _k10_equals_twin(args):
+    """K10 on args: one launch, equal to the twin bit for bit. Returns the
+    twin's result."""
+    from relativitypathtracer_tpu_torch.ops.kernels import mesh_batch as mb
+
+    before = _launches("rpt_batched_general_walk")
+    got = mb.batched_general_walk(*args)
+    torch.cuda.synchronize()
+    assert _launches("rpt_batched_general_walk") == before + 1
+    want = mb.batched_general_walk_plain(*args)
+    assert torch.equal(got, want)
+    return want
 
 
 @pytest.mark.parametrize("O", [2, 8])
 def test_batched_shared_walk_kernel_matches_twin(cuda, O):
-    """K9 on 2 and 8 objects: equal hit masks and object slots, triangle ids
-    on 99.9% of hits, t/u/v rtol 1e-5, attributes atol 1e-4."""
-    from relativitypathtracer_tpu_torch.ops.kernels import mesh_batch as mb
-
-    args = _batch_args(cuda, O, shadow=False)
-    before = _launches("rpt_batched_shared_walk")
-    got = mb.batched_shared_walk(*args)
-    torch.cuda.synchronize()
-    assert _launches("rpt_batched_shared_walk") == before + 1
-    want = mb.batched_shared_walk_plain(*args)
+    """K9 on 2 and 8 objects: t, u, v, triangle ids, object slots and
+    attributes equal to the twin's bit for bit, with either first bound;
+    every object wins somewhere."""
+    want = _k9_equals_twin(_batch_args(cuda, O, shadow=False))
     hit = want[3] >= 0
-    assert float(hit.float().mean()) > 0.1 and torch.equal(got[3] >= 0, hit)
-    assert torch.equal(got[4], want[4]) and len(set(want[4][hit].tolist())) == O
-    assert float((got[3] != want[3]).float().mean()) <= 1e-3
-    same = hit & (got[3] == want[3])
-    for g, w in zip(got[:3], want[:3]):
-        torch.testing.assert_close(g[same], w[same], rtol=1e-5, atol=1e-6)
-    torch.testing.assert_close(got[5][:, same], want[5][:, same], rtol=0, atol=1e-4)
+    assert float(hit.float().mean()) > 0.1 and len(set(want[4][hit].tolist())) == O
 
 
 @pytest.mark.parametrize("O", [2, 8])
 def test_batched_general_walk_kernel_matches_twin(cuda, O):
-    """K10 on 2 and 8 objects, one disabled: equal lit masks on the lanes
-    with tmax > 0, both verdicts present, the result min(hit, tmax)."""
-    from relativitypathtracer_tpu_torch.ops.kernels import mesh_batch as mb
-
+    """K10 on 2 and 8 objects, one disabled: equal to the twin bit for bit,
+    both verdicts present, the result min(hit, tmax)."""
     args = _batch_args(cuda, O, shadow=True)
-    got, want = mb.batched_general_walk(*args), mb.batched_general_walk_plain(*args)
+    want = _k10_equals_twin(args)
     tmax = args[9]
     rel = tmax > 0
-    assert torch.equal((got >= tmax)[rel], (want >= tmax)[rel])
-    assert bool((got <= tmax).all())
+    assert bool((want <= tmax).all())
     assert int((want < tmax)[rel].sum()) > 50 and int((want >= tmax)[rel].sum()) > 50
+
+
+K9_CASES = [*((O, p) for O in (2, 8) for p in COVERAGE if p != "box_plane"), (2, "alternating"),
+            (120, "many_objects"), (2, "box_plane")]
+K10_CASES = [*((O, p) for O in (2, 8) for p in ACTIVITY), (2, "alternating"),
+             (40, "many_objects")]
+
+
+@pytest.mark.parametrize("O,pattern", K9_CASES, ids=[f"{p}-O{O}" for O, p in K9_CASES])
+def test_batched_shared_walk_kernel_equals_twin_at_any_coverage(cuda, O, pattern):
+    """K9 equal to its twin bit for bit at the coverage patterns of
+    _coverage_args on 2 and 8 objects (every lane hits; silhouette blocks;
+    every lane misses the union boxes; exact ties inside a chunk, across
+    chunks and across objects), on a pair whose lists alternate objects
+    chunk by chunk, on 120 objects (more than the 16 whose rays a CTA
+    stages at once, and more than the card's shared memory could hold at
+    once: the tiles are staged again as the walk moves between them), and
+    on box_plane_batch (rays along a union box's face with an exact-zero
+    direction component)."""
+    from torch_port_fixtures import box_plane_batch
+
+    from relativitypathtracer_tpu_torch.ops.kernels import mesh_batch as mb
+
+    if pattern == "box_plane":
+        seen = {}
+        real = mb.batched_shared_walk
+        mb.batched_shared_walk = lambda *a: seen.setdefault("args", a) and real(*a)
+        try:
+            mb.batched_nearest_shared(*box_plane_batch(cuda))
+        finally:
+            mb.batched_shared_walk = real
+        args = seen["args"]
+    elif pattern == "many_objects":
+        args = _batch_args(cuda, O, shadow=False, T=100, n=4096)
+    else:
+        args = _coverage_args(cuda, O, pattern)
+    want = _k9_equals_twin(args)
+    hit = (want[3] >= 0).reshape(-1, 1024)
+    *_, walked = mb.batched_shared_walk_plain(*args, walked=True)
+    switches = mb.object_switches(args[0], args[3], walked)
+    if pattern in ("all_hit", "ties"):
+        assert bool(hit.all())
+    if pattern == "silhouette":
+        assert bool(hit[:, :512].all()) and not bool(hit[:, 512:].any())
+    if pattern == "all_miss":
+        assert not bool(hit.any()) and int(walked.sum()) == 0
+    if pattern == "ties":
+        assert bool((want[4] == 0).any())  # object 1 repeats object 0: its hits tie there
+    if pattern == "alternating":
+        assert int(switches.sum()) * 2 > int(walked.sum()) > 0
+    if pattern == "many_objects":  # the walks move between tiles of 16 objects
+        assert len(set(want[4][want[4] >= 0].tolist())) > 16
+        assert int(mb.object_switches(args[0], args[3] // 16, walked).sum()) > 0
+    if pattern == "box_plane":
+        assert int(walked[1]) > 0 and not bool(hit[1].any())
+
+
+@pytest.mark.parametrize("O,pattern", K10_CASES, ids=[f"{p}-O{O}" for O, p in K10_CASES])
+def test_batched_general_walk_kernel_equals_twin_at_any_activity(cuda, O, pattern):
+    """K10 equal to its twin bit for bit at the four activity patterns on
+    2 and 8 objects (object 1 disabled; the masked lanes' rays garbage), on
+    a pair whose lists alternate objects chunk by chunk, and on 40 objects
+    (more than the 8 whose rays a CTA stages at once, and more than the
+    card's shared memory could hold at once)."""
+    from relativitypathtracer_tpu_torch.ops.kernels import mesh_batch as mb
+
+    if pattern == "many_objects":
+        args = _batch_args(cuda, O, shadow=True, T=100, n=4096)
+    else:
+        args = _activity_args(cuda, O, pattern)
+    want = _k10_equals_twin(args)
+    tmax = args[9]
+    active = tmax > 0
+    n_active = int(active.sum())
+    assert n_active == {"one_per_block": 8, "all_masked": 0, "all_active": 8192,
+                        "alternating": 8192}.get(pattern, n_active)
+    if pattern == "all_masked":
+        assert bool((want == 0.0).all())
+    if pattern in ("scattered", "all_active", "alternating", "many_objects"):
+        assert int((want < tmax)[active].sum()) > 20 and int((want >= tmax)[active].sum()) > 20
+    *_, walked = mb.batched_general_walk_plain(*args, walked=True)
+    if pattern == "alternating":
+        switches = mb.object_switches(args[0], args[3], walked)
+        assert int(switches.sum()) * 2 > int(walked.sum()) > 0
+    if pattern == "many_objects":  # the walks move between tiles of 8 objects
+        assert int(mb.object_switches(args[0], args[3] // 8, walked).sum()) > 0
 
 
 @pytest.mark.parametrize("xl", [False, True], ids=["s32", "s128"])
@@ -544,10 +788,12 @@ def test_shared_walk_kernels_equal_twins_at_any_coverage(cuda, monkeypatch, walk
     """K5 (600 triangles) and K11 (3,000 triangles, the last 24 of 96 chunks'
     triangles masked by T; superchunks of 32, and of 128 from the
     super-sphere cull) equal their twins bit for bit in t, u, v, triangle id
-    and attributes at four coverage patterns (COVERAGE): every lane hits;
+    and attributes at five coverage patterns (COVERAGE): every lane hits;
     half of every block's lanes miss the mesh inside its union box
     (silhouette blocks); every lane misses the union box; exact ties (a
-    triangle repeated inside its chunk and another across two chunks). On
+    triangle repeated inside its chunk and another across two chunks); half
+    of every block's rays along the union box's lo.x plane with an
+    exact-zero x direction, from a camera on that plane. On
     the first two, K5 and K11_s32 stop their walks early (12 of 24 and 64 of
     96 chunks), so a speculative chunk is dropped."""
     from relativitypathtracer_tpu_torch.ops.kernels import mesh_kernels as mk
@@ -576,6 +822,8 @@ def test_shared_walk_kernels_equal_twins_at_any_coverage(cuda, monkeypatch, walk
     if pattern == "all_miss":
         assert not bool(hit.any()) and bool((want[0] == 1e20).all())
         assert not bool(want[4].any())
+    if pattern == "box_plane":
+        assert bool(hit[:, :512].all()) and not bool(hit[:, 512:].any())
     if pattern == "ties":
         inside, across = _column_soup(np.random.default_rng(9), T, pattern)[2]
         tri = want[3].cpu().numpy()

@@ -296,3 +296,32 @@ def test_large_mode_is_read_at_scene_build(tmp_path):
         finally:
             pmi.LARGE_MODE = None
         assert (scene.mesh_static[0].gen_rec is not None) == large
+
+
+@pytest.mark.parametrize("s", [32, 128])
+def test_ragged_super_sphere_floors_stay_finite(s):
+    """The large tier's INF-radius super-sphere floors: a ragged last group
+    (C = 45 chunks in groups of s) masks its pad entries out of its sphere,
+    so its radius is the farthest real child's surface (finite, every child
+    inside), and the floor of that super in live_chunk_lists3 is a positive
+    distance, as in the JAX package; a radius of INF would floor it at 0 and
+    keep every block walking to it."""
+    spheres, d, o = _list_inputs(4)
+    sup = pmk.super_spheres_of(t(spheres), s).numpy()
+    last = sup[-1]
+    first = (len(sup) - 1) * s
+    children = spheres[first:]
+    assert np.isfinite(sup).all() and last[3] < 10.0
+    assert np.all(np.linalg.norm(children[:, :3] - last[:3], axis=1) + children[:, 3]
+                  <= last[3] * (1 + 1e-6))
+    np.testing.assert_allclose(sup, np.asarray(jmk.super_spheres_of(jnp.asarray(spheres), s)),
+                               rtol=1e-6, atol=1e-6)
+    po, pmn, pc, _ = pmk.live_chunk_lists3(t(spheres), t(d), t(o), s=s)
+    jo, jmn, jc, _ = (np.asarray(x) for x in jmk.live_chunk_lists3(
+        jnp.asarray(spheres), jnp.asarray(d), jnp.asarray(o), s=s))
+    last_id = len(sup) - 1
+    listed = po.numpy() == last_id
+    assert listed.any()
+    floors = pmn.numpy()[:, last_id]
+    assert np.isfinite(floors).all() and (floors > 0).all()
+    np.testing.assert_allclose(floors, jmn[:, 0, last_id], rtol=1e-6)

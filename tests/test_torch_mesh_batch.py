@@ -326,3 +326,147 @@ def test_scene_from_numpy_carries_the_pool(instances):
     a, aaux = port_frame(carried, pm, STATES["boosted"])
     b, baux = port_frame(ps, pm, STATES["boosted"])
     assert np.array_equal(a, b) and aaux == baux
+
+
+def _walk_args(shadow, O=3):
+    """The K9 (K10 when shadow) walk arguments of O random objects, as
+    batched_nearest_shared (batched_min_t_general) hands them to its walk;
+    for K9, block 0's rays look away from every object."""
+    seen = {}
+
+    def spy(*a):
+        seen["args"] = a
+        return real(*a)
+
+    if shadow:
+        *arrays, counts, enabled = _general_inputs(60 + O, O)
+        real = pmb.batched_general_walk
+        pmb.batched_general_walk = spy
+        try:
+            pmb.batched_min_t_general(*[t(a) for a in arrays], counts, enabled=enabled,
+                                      valid=t(arrays[-1] > 0))
+        finally:
+            pmb.batched_general_walk = real
+        return seen["args"]
+    args = list(_shared_inputs(70 + O, O))
+    args[5][1:, :pmb.NB] = np.array([[0.0], [0.0], [-1.0]], np.float32)
+    args = [t(a) if isinstance(a, np.ndarray) else a for a in args]
+    args[6], args[8] = pmb.object_dirs(args[4], args[5])
+    real = pmb.batched_shared_walk
+    pmb.batched_shared_walk = spy
+    try:
+        pmb.batched_nearest_shared(*args)
+    finally:
+        pmb.batched_shared_walk = real
+    return seen["args"]
+
+
+def _direct_walk_counts(shadow, args):
+    """Each block's walked chunks and object switches, one block at a time:
+    the walks' stopping rule written out as a plain loop over the block's
+    list (its floors read by chunk id, its bound the max over its lanes of
+    min(running min, union-box bound), for K10 with the retirement rule)."""
+    from relativitypathtracer_tpu_torch.ops.kernels import mesh_kernels as pmk
+
+    order, minds, counts, cobj, boxes, mats = args[:6]
+    walked, switches = [], []
+    for b in range(order.shape[0]):
+        lanes = slice(b * pmk.NB, (b + 1) * pmk.NB)
+        if shadow:
+            rows, o4, d4, tmax = args[6], args[7][:, lanes], args[8][:, lanes], args[9][lanes]
+            r, s = pmb.object_rays(mats, o4, d4)
+            bound = torch.stack([pmk._box_bound(boxes[g, 0:3], boxes[g, 3:6], r[g, 6:9],
+                                                r[g, 0:3]) * s[g] for g in range(len(mats))])
+            teff = torch.minimum(tmax, bound.amax(dim=0))
+            mb = teff.amax()
+        else:
+            rows, d4 = args[6], args[8][:, lanes]
+            dh, s = pmb.object_dirs(mats, d4)
+            bound = torch.stack([pmk._box_bound(boxes[g, 0:3], boxes[g, 3:6], boxes[g, 6:9],
+                                                dh[g]) * s[g] for g in range(len(mats))]).amax(0)
+            mb = bound.amax()
+        best = torch.full((pmk.NB,), pmk.INF)
+        n, sw, prev = 0, 0, None
+        for j in range(int(counts[b])):
+            k = int(order[b, j])
+            if not bool(minds[b, k] < mb):
+                break
+            g = int(cobj[k])
+            n, sw, prev = n + 1, sw + (prev is not None and g != prev), g
+            if shadow:
+                c = rows.reshape(-1, pmk.TC, 20)[k:k + 1]
+                x = r[g][:, None, :]
+                dist, _, _ = pmk._mt(pmk._dot_rows(c, 0, 3, x, 0), pmk._dot_rows(c, 3, 9, x, 0),
+                                     pmk._dot_rows(c, 9, 15, x, 0), pmk._dot_rows(c, 15, 19, x, 6))
+            else:
+                c = rows.reshape(-1, pmk.TC, 10)[k:k + 1]
+                x = dh[g][:, None, :]
+                dist, _, _ = pmk._mt(pmk._dot_rows(c, 0, 3, x, 0), pmk._dot_rows(c, 3, 6, x, 0),
+                                     pmk._dot_rows(c, 6, 9, x, 0), c[:, :, 9:10])
+            tsh = torch.where(dist < pmk.INF, dist * s[g][None, None, :], pmk.INF)
+            best = torch.minimum(best, tsh.amin(dim=1)[0])
+            if shadow:
+                mb = torch.where(best < tmax, 0.0, torch.minimum(best, teff)).amax()
+            else:
+                mb = torch.minimum(best, bound).amax()
+        walked.append(n)
+        switches.append(sw)
+    return walked, switches
+
+
+@pytest.mark.parametrize("shadow", [False, True], ids=["K9", "K10"])
+def test_batched_walks_count_the_walked_chunks(shadow):
+    """walked=True returns the same outputs plus each block's walked
+    chunks, equal to a count of the walk written out block by block, as are
+    object_switches' counts of the object changes along each walk; K9's
+    block that looks away walks nothing."""
+    args = _walk_args(shadow)
+    plain = pmb.batched_general_walk_plain if shadow else pmb.batched_shared_walk_plain
+    want = plain(*args)
+    *got, walked = plain(*args, walked=True)
+    if shadow:
+        assert torch.equal(got[0], want)
+    else:
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    direct, switches = _direct_walk_counts(shadow, args)
+    assert walked.tolist() == direct and sum(direct) > 0
+    assert pmb.object_switches(args[0], args[3], walked).tolist() == switches
+    assert sum(switches) > 0 and bool((walked <= args[2]).all())
+    if not shadow:
+        assert direct[0] == 0 and bool((want[3][:pmb.NB] == -1).all())
+
+
+def test_box_plane_lanes_keep_their_walk_in_k9():
+    """The 0 * inf slab NaN in K9's per-object box (box_plane_batch): block
+    1's rays run along object 0's lo.x plane with an exact-zero x
+    direction. Their bound stays the box exit (mesh_kernels._safe_inv), so
+    that block walks its list as the others do (a plain reciprocal makes
+    the slab NaN, the bound 0 and the walk empty); the twin's outputs match
+    the JAX package's interpret kernel on the same inputs."""
+    from torch_port_fixtures import box_plane_batch
+
+    from relativitypathtracer_tpu_torch.ops.kernels import mesh_kernels as pmk
+
+    inputs = box_plane_batch("cpu")
+    jt, _, _, jtri, jobj, _ = (np.asarray(x) for x in jmb.batched_nearest_shared(
+        *[jnp.asarray(x.numpy()) for x in inputs[:-1]], inputs[-1], interpret=True))
+    seen = {}
+    real = pmb.batched_shared_walk
+    pmb.batched_shared_walk = lambda *a: seen.setdefault("args", a) and real(*a)
+    try:
+        pt_, _, _, ptri, pobj, _ = (x.numpy() for x in pmb.batched_nearest_shared(*inputs))
+    finally:
+        pmb.batched_shared_walk = real
+    hit = jtri >= 0
+    assert hit.sum() > 100 and np.array_equal(ptri >= 0, hit) and np.array_equal(pobj, jobj)
+    assert tie_flip_frac(ptri, jtri) <= 1e-3
+    np.testing.assert_allclose(pt_[hit], jt[hit], rtol=1e-5)
+    *_, walked = pmb.batched_shared_walk_plain(*seen["args"], walked=True)
+    assert int(walked[1]) > 0
+    safe_inv = pmk._safe_inv
+    pmk._safe_inv = lambda d: 1.0 / d
+    try:
+        *_, naive = pmb.batched_shared_walk_plain(*seen["args"], walked=True)
+    finally:
+        pmk._safe_inv = safe_inv
+    assert int(naive[1]) == 0 and naive[0] == walked[0] and naive[2] == walked[2]

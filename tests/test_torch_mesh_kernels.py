@@ -338,3 +338,96 @@ def test_mesh_min_t_general_matches_jax_jnp_truth(fixture_scenes):
     rel = tmax > 0
     assert np.array_equal((got >= tmax)[rel], (truth >= tmax)[rel])
     assert 0.05 < (truth < tmax)[rel].mean() < 0.95
+
+
+def test_box_bound_keeps_zero_dirs_on_a_box_plane():
+    """The 0 * inf slab NaN (mesh_kernels._safe_inv): lanes with an
+    exact-zero direction component (+0.0 and -0.0) whose origin lies on
+    that axis's lo or hi plane, inside the other two slabs. A plain
+    reciprocal makes their slab 0 * inf = NaN; the port's bound is finite,
+    the box exit with its margin, as the JAX package's (_general_lane_bound,
+    the bound its walks compute in-kernel)."""
+    rng = np.random.default_rng(31)
+    lo, hi = np.array([-1.0, -1.5, 4.0], np.float32), np.array([1.0, 1.5, 8.0], np.float32)
+    o, d = [], []
+    for ax in range(3):
+        for plane in (lo, hi):
+            for zero in (0.0, -0.0):
+                p = rng.uniform(lo + 0.1, hi - 0.1).astype(np.float32)
+                p[ax] = plane[ax]
+                v = rng.normal(size=3).astype(np.float32)
+                v[ax] = zero
+                o.append(p)
+                d.append(v / np.linalg.norm(v))
+    o, d = np.stack(o, 1), np.stack(d, 1).astype(np.float32)
+    r10 = np.concatenate([d, np.zeros_like(d), o, np.ones_like(d[:1])]).astype(np.float32)
+    tmax = np.full(o.shape[1], pmk.INF, np.float32)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        naive = [(np.array([lo, hi])[:, ax, None] - o[ax]) * (1.0 / d[ax]) for ax in range(3)]
+    assert all(np.isnan(x).any(axis=0).sum() == 4 for x in naive)
+    want = np.asarray(jmk._general_lane_bound(jnp.asarray(tmax), jnp.asarray(r10),
+                                              jnp.asarray(lo), jnp.asarray(hi)))
+    got = pmk._general_lane_bound(t(tmax), t(r10), t(lo), t(hi)).numpy()
+    # the clamp reads a zero as +1e-12: a lane on a lo plane runs through the
+    # box, one on a hi plane leaves it at once (bound 0, no NaN either way)
+    on_lo = np.tile([True, True, False, False], 3)
+    assert np.isfinite(got).all() and (got[on_lo] > 0).all() and (got[~on_lo] == 0).all()
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    assert np.array_equal(pmk._box_bound(t(lo), t(hi), t(o), t(d)).numpy(), got)
+
+
+def test_shared_walk_keeps_box_plane_lanes():
+    """The same case through K5's walk: the shared origin on the union box's
+    lo.x plane, block 1's rays with an exact-zero x direction along it.
+    Their bound keeps the block walking (a plain reciprocal would stop it
+    at once), and the twin matches the interpret kernel on every lane."""
+    consts, c_t, spheres, attrs, d, ro = _shared_inputs(np.random.default_rng(32))
+    lo = np.asarray(pmk._box_of(t(spheres))[0])
+    ro = np.array([lo[0], 0.0, -6.0], np.float32)
+    perm = jnp.arange(300, dtype=jnp.int32)
+    rng = np.random.default_rng(33)
+    jmesh = _soup_mesh(np.random.default_rng(32), 300)
+    consts, c_t, _, _ = (np.asarray(x) for x in jmi.shared_origin_constants(
+        jmesh, (0, 300), jnp.asarray(ro), perm))
+    d[0, pmk.NB:2 * pmk.NB] = 0.0
+    d[1:, pmk.NB:2 * pmk.NB] = rng.normal(size=(2, pmk.NB)) * 0.1 + np.array([[0.0], [1.0]])
+    d /= np.linalg.norm(d, axis=0)
+    assert (d[0, pmk.NB:2 * pmk.NB] == 0.0).all()
+    _compare_shared(consts, c_t, spheres, attrs, d, ro)
+    dh_p, sph = t(d), t(spheres)
+    order, minds, counts = pmk.live_chunk_lists(sph, dh_p, t(ro)[:, None].expand_as(dh_p))
+    args = (torch.cat([t(lo), pmk._box_of(sph)[1], t(ro)]), pmk.shared_tri_rows(t(consts), t(c_t)),
+            t(attrs), dh_p)
+    *_, walked = pmk.walk_shared_lists(order, minds.gather(1, order.long()), counts, *args,
+                                       walked=True)
+    assert int(walked[1]) > 0
+
+
+def test_tail_triangles_past_the_last_whole_512_are_hit():
+    """The jnp tail-chunk drop (the JAX package's mesh_intersect_shared
+    scans chunks of gcd(tri_chunk, T_pad) triangles, since a floor-divided
+    count of 512-triangle chunks skipped triangles 512-767 of T_pad = 768):
+    T = 700 pads to 768, and rays aimed at triangles 512-699 hit them through
+    the port's walk (24 whole chunks of 32) as through the JAX package's jnp
+    scan at tri_chunk 512, with the same hit mask and t."""
+    rng = np.random.default_rng(34)
+    T, n = 700, 2048
+    verts, tri_v = soup(rng, T)
+    verts = verts + np.array([0.0, 0.0, 6.0], np.float32)
+    jmesh = _soup_mesh(rng, T, (verts, tri_v))
+    ro = np.zeros(3, np.float32)
+    d = aim_at(rng, verts, tri_v, rng.integers(512, T, n), ro)
+    eye = jnp.eye(4, dtype=jnp.float32)
+    perm = jnp.arange(T, dtype=jnp.int32)
+    jt, _, _, jvalid = (np.asarray(x) for x in jmi.mesh_intersect_shared(
+        jmesh, (0, T), eye, eye, jnp.asarray(ro), jnp.asarray(d), tri_chunk=512,
+        use_pallas=False, perm=perm))
+    consts, c_t, _, T_pad = jmi.shared_origin_constants(jmesh, (0, T), jnp.asarray(ro), perm)
+    assert T_pad == 768 and T_pad % 512 != 0
+    spheres = np.asarray(jmk.chunk_spheres(*jmi.mesh_tri_vertices(jmesh, (0, T), perm), T, T_pad))
+    attrs = np.zeros((T_pad, 15), np.float32)
+    pt_, _, _, ptri, _ = (x.numpy() for x in pmk.shared_nearest_hit(
+        t(np.asarray(consts)), t(np.asarray(c_t)), t(attrs), t(spheres), t(d), t(ro)))
+    assert jvalid.all() and np.array_equal(ptri >= 0, jvalid)
+    assert (ptri >= 512).mean() > 0.5
+    np.testing.assert_allclose(pt_, jt, rtol=1e-5)

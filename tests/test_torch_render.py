@@ -236,3 +236,39 @@ def test_entry_points_default_to_the_card():
     for fn in (pt.build_scene, pt.scene_from_numpy, pt.FrameState.initial, pt.build_render_fn,
                pt.render_frame, camera_ray_dirs):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+
+
+@pytest.mark.parametrize("raises", [False, True], ids=["frame", "frame_that_raises"])
+def test_full_precision_is_scoped_to_the_frame(scenes, raises, monkeypatch):
+    """TF32 is off for matmuls and cuDNN inside a frame only: a caller that
+    allows it finds both flags as it set them after building the renderer and
+    after a frame, also a frame that raises."""
+    _, (ps, pm) = scenes
+    flags = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = [f.allow_tf32 for f in flags]
+    seen = []
+    real = prender.object_frames
+
+    def spy(*a):
+        seen.append([f.allow_tf32 for f in flags])
+        if raises:
+            raise RuntimeError("frame failed")
+        return real(*a)
+
+    try:
+        for f in flags:
+            f.allow_tf32 = True
+        render = prender.build_render_fn(pm, 32, 32, -1, device="cpu")
+        assert [f.allow_tf32 for f in flags] == [True, True]
+        monkeypatch.setattr(prender, "object_frames", spy)
+        state = prender.FrameState.initial(device="cpu")
+        if raises:
+            with pytest.raises(RuntimeError, match="frame failed"):
+                render(ps, state)
+        else:
+            assert render(ps, state).shape == (32, 32, 3)
+        assert seen == [[False, False]]
+        assert [f.allow_tf32 for f in flags] == [True, True]
+    finally:
+        for f, v in zip(flags, saved):
+            f.allow_tf32 = v

@@ -133,3 +133,64 @@ def assert_frame_parity(got, want, paux, jaux):
     assert float(np.mean(diff.max(axis=-1) > 1e-3)) <= 0.002
     assert float(diff.mean()) < 1e-4, f"mean diff {diff.mean()}"
     assert paux["hits"] == jaux["hits"] and paux["shadow_rays"] == jaux["shadow_rays"]
+
+
+def box_plane_batch(dev, T: int = 200):
+    """Inputs of the port's mesh_batch.batched_nearest_shared (consts,
+    attrs, spheres, boxes, mats, dir4, d_os, o_os, s_os, chunk_counts) for
+    two objects, whose middle ray block runs along a box plane: object 0 sits
+    in the identity frame (at rest, unrotated, unscaled) with the shared
+    origin ro on the lo.x plane of its union box, and the 1,024 lanes of
+    block 1 have an exact-zero x direction (the identity frame keeps dh.x
+    exactly 0), so they lie in that plane, inside its y and z slabs: the
+    0 * inf slab case of mesh_kernels._safe_inv. Object 1 moves, is rotated
+    and scaled, and lies off to +x, out of block 1's way; blocks 0 and 2 look
+    at object 0."""
+    from relativitypathtracer_tpu_torch.models.scene import MeshArrays
+    from relativitypathtracer_tpu_torch.ops import mesh_intersect as mi
+    from relativitypathtracer_tpu_torch.ops import relmath
+    from relativitypathtracer_tpu_torch.ops.kernels import mesh_batch as mb
+    from relativitypathtracer_tpu_torch.ops.kernels import mesh_kernels as mk
+
+    rng = np.random.default_rng(23)
+    n = 3 * 1024
+    eye = torch.eye(4)
+    m1 = relmath.trs(np.array([6.0, 0.0, 8.0], np.float32), np.float32(0.7),
+                     np.array([0.3, 1.0, 0.2], np.float32), np.array([1.0, 0.8, 1.2], np.float32))
+    frames = [(eye, eye, eye), (relmath.lorentz(torch.tensor([0.0, 0.1, 0.0])),
+                                relmath.inverse4(m1), m1)]
+    meshes, spheres = [], []
+    for g in range(2):
+        verts, tri_v = soup(rng, T)
+        verts = verts * 0.5 + (np.array([0.0, 0.0, 8.0], np.float32) if g == 0 else 0.0)
+        meshes.append(MeshArrays(torch.as_tensor(verts), torch.as_tensor(tri_v), *([None] * 11)))
+        perm = torch.arange(T)
+        spheres.append(mk.chunk_spheres(*mi.mesh_tri_vertices(meshes[g], perm),
+                                        mi.padded_tri_count(T)))
+    lo0 = mk._box_of(spheres[0])[0]
+    cam = torch.tensor([0.0, float(lo0[0]), 0.0, 0.0])
+    d = rng.normal(size=(3, n)).astype(np.float32) * 0.1
+    d[0] += -float(lo0[0]) / 8.0
+    d[2] = 1.0
+    d[0, 1024:2048] = 0.0
+    d /= np.linalg.norm(d, axis=0)
+    dir4 = torch.as_tensor(np.concatenate([np.full((1, n), -1.0, np.float32), d]))
+    factors, attrs, boxes, mats, ros, counts = ([], [], [], []), [], [], [], [], []
+    for g, (L, inv_m, m) in enumerate(frames):
+        ro = inv_m[:3, :3] @ (L @ cam)[1:4] + inv_m[:3, 3]
+        consts, _, _, T_pad = mi.shared_origin_constants(meshes[g], ro, torch.arange(T))
+        for f in range(4):
+            factors[f].append(consts[f * T_pad:(f + 1) * T_pad])
+        attrs.append(torch.as_tensor(rng.normal(size=(T_pad, 15)), dtype=torch.float32))
+        boxes.append(torch.cat([*mk._box_of(spheres[g]), ro]))
+        mats.append(mb.mat_row(L, inv_m, m, ro))
+        ros.append(ro)
+        counts.append(T_pad // mk.TC)
+    assert float(ros[0][0]) == float(lo0[0]), "ro lies on object 0's lo.x plane"
+    mats = torch.stack(mats)
+    d_os, s_os = mb.object_dirs(mats, dir4)
+    assert bool((d_os[0, 0, 1024:2048] == 0.0).all()), "block 1 runs along the plane"
+    o_os = torch.stack(ros)[:, :, None].expand(2, 3, n).contiguous()
+    out = (torch.cat(sum(factors, [])), torch.cat(attrs), torch.cat(spheres), torch.stack(boxes),
+           mats, dir4, d_os, o_os, s_os)
+    return (*(x.to(dev) for x in out), tuple(counts))
