@@ -1,10 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (written for an H100).
 
-Run from the repository root:  python3 chip_smoke.py [PATH ...]
-
-With no argument (the check) it drives every path below; naming paths
-drives only those, and reports only their kernels (a development run).
+Run from the repository root:  python3 chip_smoke.py
 
 It needs a CUDA device and nvcc, and fails (non-zero exit, no result line)
 without them. It builds the port's CUDA kernels from
@@ -244,15 +241,6 @@ def compare_kernels(torch, pt_mods, meta, captured, originals, names):
                                                         else 6].shape[1]
             record(name, err, fn, args, plain, (30.0 if batched else 29.0) * 32 * 1024 * chunks,
                    nbytes(*args) + (80 if batched else 76) * n)
-            if batched:  # K9's other way to its first bound (csrc/mesh_batch.cu)
-                other = not mb.CLUSTER_FIRST_BOUND
-                alt = fn(*args, cluster_first=other)
-                check(all(bool(torch.equal(g, w)) for g, w in zip(alt, want)),
-                       "K9 differs from its twin with its other first bound")
-                alt_ms = kernel_ms(torch, lambda *a: fn(*a, cluster_first=other), args)
-                way = {True: "one cluster reduction", False: "every CTA over 1,024 lanes"}
-                log(f"  K9 first bound: {way[not other]} (the wrapper's) {out[name]['ms']:.4f} "
-                    f"ms, {way[other]} {alt_ms:.4f} ms")
         elif name.startswith("rpt_footprint_sample/"):
             (got, gq), (want, wq) = fn(*args, with_quads=True), tk.footprint_fetch_plain(*args)
             check(bool(torch.equal(gq, wq)), f"{name}: the kernel read other atlas rows")
@@ -420,10 +408,6 @@ def frame_time(torch, render, scene, state, card):
 def main() -> int:
     import torch
 
-    selected = sys.argv[1:] or list(PATHS)
-    if set(selected) - set(PATHS):
-        print(f"chip_smoke: paths are {', '.join(PATHS)}", file=sys.stderr)
-        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on an NVIDIA GPU",
               file=sys.stderr)
@@ -471,8 +455,7 @@ def main() -> int:
     originals = {name: getattr(mod, attr) for name, (mod, attr) in hooks.items()}
     results, launches_by_path, hosts = {}, {}, {}
 
-    for path in selected:
-        kind, names, cpu_size = PATHS[path]
+    for path, (kind, names, cpu_size) in PATHS.items():
         log(f"--- path {path} ---")
         with tempfile.TemporaryDirectory() as tmp:
             t0 = time.perf_counter()
@@ -545,19 +528,16 @@ def main() -> int:
         parity(torch, pt, host, states[2], img, aux, cpu_size)
         frame_time(torch, render, scene, states[2], card)
 
-    if "textured" in selected:
-        log("--- path textured, msaa 2, 512x384 ---")
-        scene, meta = pt.build_scene(hosts["textured"], device=dev)
-        img, aux = pt.build_render_fn(meta, 512, 384, -1, 2, with_aux=True, device=dev)(
-            scene, states[2])
-        check(bool(torch.isfinite(img).all()) and int(aux["hits"]) > 0, f"msaa 2 frame {aux}")
-        parity(torch, pt, hosts["textured"], states[2], img, aux, (512, 384), msaa=2)
+    log("--- path textured, msaa 2, 512x384 ---")
+    scene, meta = pt.build_scene(hosts["textured"], device=dev)
+    img, aux = pt.build_render_fn(meta, 512, 384, -1, 2, with_aux=True, device=dev)(
+        scene, states[2])
+    check(bool(torch.isfinite(img).all()) and int(aux["hits"]) > 0, f"msaa 2 frame {aux}")
+    parity(torch, pt, hosts["textured"], states[2], img, aux, (512, 384), msaa=2)
 
     kernels = []
     for name, (kid, source, replaces) in KERNELS.items():
         path = REPORT_FROM.get(kid, "textured")
-        if path not in results:
-            continue
         r = results[path][name]
         kernels.append({"name": f"{kid} {name}", "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches_by_path[path][name],

@@ -20,6 +20,7 @@ writes a torch.profiler trace of the frame loop to DIR/trace.json.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -97,35 +98,34 @@ def main(argv=None) -> int:
                              device=device)
     vel = torch.tensor(args.velocity, dtype=torch.float32, device=device)
     on_card = device.type == "cuda"
-    profiler = None
+    profiler = contextlib.nullcontext()
     if args.profile:
         activities = [torch.profiler.ProfilerActivity.CPU]
         if on_card:
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         profiler = torch.profiler.profile(activities=activities)
-        profiler.__enter__()
     t = args.time
     timings, frames, shadow_rays, img = [], [], 0, None
-    for _ in range(args.frames):
-        state = FrameState(vel, torch.tensor([t, 0.0, 0.0, 0.0], device=device))
-        if on_card:
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            start.record()
-            img, aux = render(scene, state)
-            end.record()
-            end.synchronize()
-            timings.append(start.elapsed_time(end))
-        else:
-            t0 = time.perf_counter()
-            img, aux = render(scene, state)
-            timings.append((time.perf_counter() - t0) * 1e3)
-        shadow_rays = int(aux["shadow_rays"])
-        if args.gif:
-            frames.append(img.cpu().numpy())
-        if not args.paused:
-            t += args.dt
-    if profiler is not None:
-        profiler.__exit__(None, None, None)
+    with profiler:
+        for _ in range(args.frames):
+            state = FrameState(vel, torch.tensor([t, 0.0, 0.0, 0.0], device=device))
+            if on_card:
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                img, aux = render(scene, state)
+                end.record()
+                end.synchronize()
+                timings.append(start.elapsed_time(end))
+            else:
+                t0 = time.perf_counter()
+                img, aux = render(scene, state)
+                timings.append((time.perf_counter() - t0) * 1e3)
+            shadow_rays = int(aux["shadow_rays"])
+            if args.gif:
+                frames.append(img.cpu().numpy())
+            if not args.paused:
+                t += args.dt
+    if args.profile:
         os.makedirs(args.profile, exist_ok=True)
         profiler.export_chrome_trace(os.path.join(args.profile, "trace.json"))
     if args.out:

@@ -19,7 +19,10 @@
 // What bounds them on this card: arithmetic and the walk's length, as for
 // K5/K6 (csrc/mesh_kernels.cu): 32 ray/triangle tests per walked chunk and
 // ray, plus one multiply by s. Rays, lists and outputs are read and written
-// once.
+// once. A block's list is copied into shared memory up to FlatList::
+// kStageMax entries (csrc/walk.cuh), which holds the instances path's whole
+// pool; a walk past them reads its list from global memory, so a pool of any
+// size runs.
 //
 // Design: the cluster walks of K5 and K6 (csrc/mesh_kernels.cu, whose note
 // describes them; the pieces they share are in csrc/walk.cuh). Each
@@ -63,12 +66,10 @@
 // its chunk's (cobj), read at the end with its 15 attributes as one fp32
 // row (the TPU selects them with hi/lo bf16 one-hot products). The block's
 // first bound (per lane the max over objects of the union-box exit times
-// s) is computed one of two ways, a template parameter the wrapper chooses:
-// every CTA over all 1,024 lanes (K5's way: every CTA takes the first
-// decision alike without a cluster barrier, so a block that misses every
-// union box writes its misses with none), or each CTA over its own lanes
-// and one cluster reduction (an eighth of the derivations, one cluster
-// barrier more). chip_smoke.py times both on the instances path.
+// s) is each CTA's max over its own 128 lanes, then one cluster reduction:
+// an eighth of the object_dir derivations that K5's way (every CTA over all
+// 1,024 lanes, no cluster barrier) takes, for one cluster barrier more; on
+// the instances path it ran K9 in 0.752 ms against 0.921 ms (PERF.md).
 //
 // K10, the shadow walk (K6's mapping). Most lanes cast no shadow ray
 // (tmax = 0); such a lane needs no test: its result min(bt, tmax) is tmax
@@ -255,7 +256,6 @@ __device__ __forceinline__ float test_batched_shared_chunk(const float* c, int k
 // ran it 9% faster on the instances path than three at 72 registers
 // (chip_smoke.py); a launch bound of three CTAs made K10 slower (80
 // registers, 174 bytes spilled), so K10 keeps the compiler's choice.
-template <bool kClusterFirst>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 4)
 batched_shared_walk_kernel(FlatList list, const int* __restrict__ cobj,
                            const float* __restrict__ boxes, const float* __restrict__ mats,
@@ -268,8 +268,7 @@ batched_shared_walk_kernel(FlatList list, const int* __restrict__ cobj,
   __shared__ float4 s_d4[kSlots];     // per ray of this CTA: its camera-frame 4-dir
   __shared__ float s_bound[kSlots];   // and its first bound
   __shared__ Best s_best[2][kSlots];  // two halves, see the walk
-  __shared__ float s_red[kWarps];
-  __shared__ float s_first[kWarps];   // warp values of the first bound (kClusterFirst)
+  __shared__ float s_first[kWarps];   // warp values of the first bound
   // every warp value of the cluster, pushed by its warp; two halves
   __shared__ float s_all[2][kCluster * kWarps];
   extern __shared__ float4 s_dir[];   // per-object dirs of the staged tile, then the list
@@ -284,35 +283,27 @@ batched_shared_walk_kernel(FlatList list, const int* __restrict__ cobj,
   // --- per-object dirs of tile 0, and the first bound ------------------------
   list.stage(b, s_list);
   float local = 0.0f;
-#pragma unroll
-  for (int q = 0; q < kLanes; ++q) {
-    const int e = q * kThreads + tid;  // lane of the block
-    const bool mine = e / kSlots == rank;
-    if (!kClusterFirst || mine) {
-      const size_t li = blk + e;
-      const float d4[4] = {dir4[li], dir4[n + li], dir4[2 * static_cast<size_t>(n) + li],
-                           dir4[3 * static_cast<size_t>(n) + li]};
-      // per lane the max over objects of the union-box exit in shared units
-      float bound = 0.0f;
-      for (int g = 0; g < n_obj; ++g) {
-        float dh[3], s;
-        object_dir(mats + static_cast<size_t>(g) * kMatCols, d4, dh, &s);
-        const float* bx = boxes + static_cast<size_t>(g) * 9;
-        bound = fmaxf(bound,
-                      rpt::box_bound(bx, bx + 3, bx[6], bx[7], bx[8], dh[0], dh[1], dh[2]) * s);
-        if (mine && g < tile) s_dir[g * kSlots + e % kSlots] = make_float4(dh[0], dh[1], dh[2], s);
-      }
-      if (mine) {
-        s_d4[e % kSlots] = as_float4(d4);
-        s_bound[e % kSlots] = bound;
-        s_best[0][e % kSlots] = Best{rpt::kInf, 0.0f, 0.0f, -1};
-      }
-      local = fmaxf(local, bound);
+  if (tid < kSlots) {
+    const size_t li = first + tid;
+    const float d4[4] = {dir4[li], dir4[n + li], dir4[2 * static_cast<size_t>(n) + li],
+                         dir4[3 * static_cast<size_t>(n) + li]};
+    // per lane the max over objects of the union-box exit in shared units
+    float bound = 0.0f;
+    for (int g = 0; g < n_obj; ++g) {
+      float dh[3], s;
+      object_dir(mats + static_cast<size_t>(g) * kMatCols, d4, dh, &s);
+      const float* bx = boxes + static_cast<size_t>(g) * 9;
+      bound = fmaxf(bound,
+                    rpt::box_bound(bx, bx + 3, bx[6], bx[7], bx[8], dh[0], dh[1], dh[2]) * s);
+      if (g < tile) s_dir[g * kSlots + tid] = make_float4(dh[0], dh[1], dh[2], s);
     }
+    s_d4[tid] = as_float4(d4);
+    s_bound[tid] = bound;
+    s_best[0][tid] = Best{rpt::kInf, 0.0f, 0.0f, -1};
+    local = bound;
   }
-  // both publish the staged rays, the bounds, s_best[0] and the list
-  float mb = kClusterFirst ? cluster_first_bound(cluster, s_first, local, warp, lane)
-                           : rpt::block_max<kThreads>(local, s_red);
+  // publishes the staged rays, the bounds, s_best[0] and the list
+  float mb = cluster_first_bound(cluster, s_first, local, warp, lane);
 
   // --- the walk -------------------------------------------------------------
   // Chunk j's bound goes out with a split cluster barrier: while it
@@ -326,8 +317,6 @@ batched_shared_walk_kernel(FlatList list, const int* __restrict__ cobj,
   int k, kn;
   float fl, fl_next;
   if (cursor.advance(&k, &fl) && fl < mb) {  // the same decision in every CTA
-    // This CTA runs: the cluster's pushes may start once every CTA arrived.
-    if (!kClusterFirst) cluster_arrive();
     float c[kShRow], cn[kShRow];
     load_shared_row(rows2, k, lane, c);
     bool more = cursor.advance(&kn, &fl_next);
@@ -341,7 +330,6 @@ batched_shared_walk_kernel(FlatList list, const int* __restrict__ cobj,
                                            s_best[0], s_best[1], warp, lane);
     cur = 1;
     int par = 0;
-    if (!kClusterFirst) cluster_wait();
     while (true) {
       // Two alternating halves of s_all: a half is written again only after
       // the next barrier, which every reader of it has passed.
@@ -378,11 +366,7 @@ batched_shared_walk_kernel(FlatList list, const int* __restrict__ cobj,
     // Every push into this CTA came before its pusher's last arrive, which
     // the last wait saw: no other CTA touches this one's shared memory now.
   }
-  if (kClusterFirst) {
-    cluster.sync();  // s_first stays until the cluster has read it
-  } else {
-    __syncthreads();  // every warp's s_best[cur]
-  }
+  cluster.sync();  // s_first stays until the cluster has read it
 
   // --- results: this CTA's lanes, each hit's object and attribute row -------
   const int s = tid % kSlots;
@@ -647,48 +631,31 @@ batched_general_walk_kernel(FlatList list, const int* __restrict__ cobj,
   }
 }
 
-// Launch batched_shared_walk_kernel<kClusterFirst>, one cluster per
-// 1024-ray block.
-template <bool kClusterFirst>
-int launch_batched_shared(const FlatList& list, const void* cobj, const void* boxes,
-                          const void* mats, const void* tri, const void* attrs,
-                          const void* dir4, int n, int n_obj, void* t, void* u, void* v,
-                          void* tri_out, void* obj_out, void* attr, void* stream) {
-  static int max_bytes = -1;
-  const cudaError_t err = opt_in_shared(batched_shared_walk_kernel<kClusterFirst>, &max_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int tile = n_obj < kTileSh ? n_obj : kTileSh;
-  const size_t bytes = sizeof(float4) * tile * kSlots + 4 * list.stage_words();
-  if (bytes > static_cast<size_t>(max_bytes)) return static_cast<int>(cudaErrorInvalidValue);
-  if (reinterpret_cast<uintptr_t>(tri) % sizeof(float2) != 0) {
-    return static_cast<int>(cudaErrorMisalignedAddress);
-  }
-  batched_shared_walk_kernel<kClusterFirst>
-      <<<n / rpt::kNB * kCluster, kThreads, bytes, as_stream(stream)>>>(
-          list, static_cast<const int*>(cobj), static_cast<const float*>(boxes),
-          static_cast<const float*>(mats), static_cast<const float*>(tri),
-          static_cast<const float*>(attrs), static_cast<const float*>(dir4), n, n_obj, tile,
-          static_cast<float*>(t), static_cast<float*>(u), static_cast<float*>(v),
-          static_cast<int*>(tri_out), static_cast<int*>(obj_out), static_cast<float*>(attr));
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" int rpt_batched_shared_walk(const void* order, const void* minds, const void* counts,
                                        const void* cobj, const void* boxes, const void* mats,
                                        const void* tri, const void* attrs, const void* dir4,
-                                       int n, int n_chunks, int n_obj, int cluster_first,
-                                       void* t, void* u, void* v, void* tri_out, void* obj_out,
-                                       void* attr, void* stream) {
+                                       int n, int n_chunks, int n_obj, void* t, void* u, void* v,
+                                       void* tri_out, void* obj_out, void* attr, void* stream) {
   if (n_obj < 1) return static_cast<int>(cudaErrorInvalidValue);
+  static int max_bytes = -1;
+  const cudaError_t err = opt_in_shared(batched_shared_walk_kernel, &max_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const FlatList list{static_cast<const int*>(order), static_cast<const float*>(minds),
                       static_cast<const int*>(counts), n_chunks};
-  return cluster_first
-             ? launch_batched_shared<true>(list, cobj, boxes, mats, tri, attrs, dir4, n, n_obj, t,
-                                           u, v, tri_out, obj_out, attr, stream)
-             : launch_batched_shared<false>(list, cobj, boxes, mats, tri, attrs, dir4, n, n_obj,
-                                            t, u, v, tri_out, obj_out, attr, stream);
+  const int tile = n_obj < kTileSh ? n_obj : kTileSh;
+  const size_t bytes = sizeof(float4) * tile * kSlots + 4 * list.stage_words();
+  if (reinterpret_cast<uintptr_t>(tri) % sizeof(float2) != 0) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  batched_shared_walk_kernel<<<n / rpt::kNB * kCluster, kThreads, bytes, as_stream(stream)>>>(
+      list, static_cast<const int*>(cobj), static_cast<const float*>(boxes),
+      static_cast<const float*>(mats), static_cast<const float*>(tri),
+      static_cast<const float*>(attrs), static_cast<const float*>(dir4), n, n_obj, tile,
+      static_cast<float*>(t), static_cast<float*>(u), static_cast<float*>(v),
+      static_cast<int*>(tri_out), static_cast<int*>(obj_out), static_cast<float*>(attr));
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int rpt_batched_general_walk(const void* order, const void* minds,
@@ -705,7 +672,6 @@ extern "C" int rpt_batched_general_walk(const void* order, const void* minds,
                       static_cast<const int*>(counts), n_chunks};
   const int tile = n_obj < kTileGen ? n_obj : kTileGen;
   const size_t bytes = sizeof(float4) * 3 * tile * kSlots + 4 * list.stage_words();
-  if (bytes > static_cast<size_t>(max_bytes)) return static_cast<int>(cudaErrorInvalidValue);
   if (reinterpret_cast<uintptr_t>(rows) % sizeof(float4) != 0) {
     return static_cast<int>(cudaErrorMisalignedAddress);
   }

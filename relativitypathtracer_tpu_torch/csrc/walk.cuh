@@ -28,47 +28,74 @@ constexpr int kBatch = 4;  // rays a warp tests at once
 inline cudaStream_t as_stream(void* stream) { return static_cast<cudaStream_t>(stream); }
 
 // K5/K6 lists: order (B, C) chunk ids, minds (B, C) floors by chunk id,
-// counts (B,) live chunks.
+// counts (B,) live chunks. K9/K10 walk the same lists over a pool of any
+// size, so shared memory holds a bounded head of a block's list and the
+// cursor reads the entries past it from global memory.
 struct FlatList {
   static constexpr bool kMaskTail = false;  // every chunk holds kTC triangles to test
+  // Entries of a block's list staged in shared memory: every list of a mesh
+  // below the large tier's 768 chunks (K5/K6), and the pools of a few such
+  // meshes (K9/K10), fits whole.
+  static constexpr int kStageMax = 1024;
   const int* order;
   const float* minds;
   const int* counts;
   int n_chunks;
 
-  // The copy of block b's list in shared memory: the live chunk ids in walk
-  // order, then their floors (stage_words() 32-bit words).
-  size_t stage_words() const { return 2 * static_cast<size_t>(n_chunks); }
+  __host__ __device__ int n_staged() const {
+    return n_chunks < kStageMax ? n_chunks : kStageMax;
+  }
+
+  // The copy of the head of block b's list in shared memory: its first
+  // n_staged() live chunk ids in walk order, their floors, then the global
+  // rows of its ids and floors (two pointers) for the entries past them
+  // (stage_words() 32-bit words).
+  size_t stage_words() const { return 2 * static_cast<size_t>(n_staged()) + 4; }
 
   __device__ void stage(int b, int* s) const {
     const size_t row = static_cast<size_t>(b) * n_chunks;
-    float* fl = reinterpret_cast<float*>(s + n_chunks);
-    for (int e = threadIdx.x; e < counts[b]; e += blockDim.x) {
+    const int n_st = n_staged();
+    float* fl = reinterpret_cast<float*>(s + n_st);
+    const int n = counts[b] < n_st ? counts[b] : n_st;
+    for (int e = threadIdx.x; e < n; e += blockDim.x) {
       const int c = order[row + e];
       s[e] = c;
       fl[e] = minds[row + c];
     }
+    if (threadIdx.x == 0) {
+      const void** rows = reinterpret_cast<const void**>(s + 2 * n_st);
+      rows[0] = order + row;
+      rows[1] = minds + row;
+    }
   }
 
-  // Yields the next chunk of the list and its floor; the caller stops on the
-  // floor.
+  // Yields the next chunk of the list and its floor, from the staged head
+  // or past it from global memory (every thread reads the same entry); the
+  // caller stops on the floor.
   struct Cursor {
-    const int* ids;
-    const float* fl;
+    const int* s;  // the staged copy
+    int n_staged;
     int n_live;
     int j;
 
     __device__ bool advance(int* k, float* floor_out) {
       if (j >= n_live) return false;
-      *k = ids[j];
-      *floor_out = fl[j];
+      if (j < n_staged) {
+        *k = s[j];
+        *floor_out = reinterpret_cast<const float*>(s + n_staged)[j];
+      } else {
+        const void* const* rows = reinterpret_cast<const void* const*>(s + 2 * n_staged);
+        const int c = static_cast<const int*>(rows[0])[j];
+        *k = c;
+        *floor_out = static_cast<const float*>(rows[1])[c];
+      }
       ++j;
       return true;
     }
   };
 
   __device__ Cursor cursor(int b, const int* s) const {
-    return Cursor{s, reinterpret_cast<const float*>(s + n_chunks), counts[b], 0};
+    return Cursor{s, n_staged(), counts[b], 0};
   }
 };
 

@@ -42,7 +42,7 @@ _SIGNATURES = {
     "rpt_general_walk": "pppppppiipp",
     "rpt_large_shared_walk": "ppppppppiiiiiipppppp",
     "rpt_large_general_walk": "ppppppppiiiiiipp",
-    "rpt_batched_shared_walk": "pppppppppiiiippppppp",
+    "rpt_batched_shared_walk": "pppppppppiiippppppp",
     "rpt_batched_general_walk": "ppppppppppiiipp",
     "rpt_footprint_sample": "pipippippp",
     "rpt_analytic_min_t": "piipppipp",

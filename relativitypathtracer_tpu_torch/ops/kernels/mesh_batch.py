@@ -133,12 +133,6 @@ def live_chunk_lists_multi(spheres, chunk_counts, d_os, o_os, s_os, valid=None, 
     return bucket_order(torch.cat(minds, dim=1), torch.cat(overlaps, dim=1))
 
 
-# How K9 computes a block's first bound: True, each CTA of the cluster over
-# its own 128 rays and one cluster reduction; False, every CTA over all 1,024
-# (chip_smoke.py times both on the instances path).
-CLUSTER_FIRST_BOUND = True
-
-
 def chunk_objects(chunk_counts, device):
     """(C,) int32 object slot of every pool chunk."""
     return torch.cat([torch.full((c,), g, dtype=torch.int32, device=device)
@@ -200,15 +194,11 @@ def batched_shared_walk_plain(order, minds, counts, cobj, boxes, mats, tri, attr
     return (*out, n_walked) if walked else out
 
 
-def batched_shared_walk(order, minds, counts, cobj, boxes, mats, tri, attrs, dir4_p,
-                        cluster_first=CLUSTER_FIRST_BOUND):
+def batched_shared_walk(order, minds, counts, cobj, boxes, mats, tri, attrs, dir4_p):
     """K9 walk: the CUDA kernel on CUDA tensors, the plain twin on CPU
     tensors. order/minds (B, C), counts (B,), cobj (C,) int32, boxes (O, 9)
     [lo hi ro] per object, mats (O, MAT_COLS), tri (C * TC, 10), attrs
-    (C * TC, 15), dir4_p (4, B * NB) camera-frame 4-dirs. cluster_first
-    picks how the kernel computes a block's first bound (the results are the
-    same): each CTA over its own rays and one cluster reduction, or every
-    CTA over all 1,024 (csrc/mesh_batch.cu)."""
+    (C * TC, 15), dir4_p (4, B * NB) camera-frame 4-dirs."""
     if dir4_p.device.type == "cpu":
         return batched_shared_walk_plain(order, minds, counts, cobj, boxes, mats, tri, attrs,
                                          dir4_p)
@@ -226,7 +216,7 @@ def batched_shared_walk(order, minds, counts, cobj, boxes, mats, tri, attrs, dir
     obj_out = torch.empty_like(tri_out)
     attr = torch.empty((N_ATTR, n_pad), dtype=f32, device=dir4_p.device)
     launch("rpt_batched_shared_walk", order, minds, counts, cobj, boxes, mats, tri, attrs,
-           dir4_p, n_pad, C, O, int(cluster_first), t, u, v, tri_out, obj_out, attr)
+           dir4_p, n_pad, C, O, t, u, v, tri_out, obj_out, attr)
     return t, u, v, tri_out, obj_out, attr
 
 

@@ -387,8 +387,10 @@ def _batch_scene(dev, O, shadow, T, rng, kind=None):
     objects on every hit there); kind "alternating": two copies of the
     depth-sorted column of _column_soup (256 triangles: 8 chunks of 0.575
     in depth), the second half a chunk deeper in the same frame, so the
-    lists alternate objects chunk by chunk, none disabled. Returns a dict of
-    the walks' per-object arguments."""
+    lists alternate objects chunk by chunk, none disabled; kind "sparse":
+    each soup's triangles shrunk 50x about their first vertex, so most rays
+    pass through every object and the walks run long. Returns a dict of the
+    walks' per-object arguments."""
     from relativitypathtracer_tpu_torch.models.scene import MeshArrays
     from relativitypathtracer_tpu_torch.ops import mesh_intersect as mi
     from relativitypathtracer_tpu_torch.ops import relmath
@@ -416,6 +418,9 @@ def _batch_scene(dev, O, shadow, T, rng, kind=None):
             verts, tri_v = soup(rng, T)
             if kind == "ties":
                 repeat_for_ties(tri_v)
+            if kind == "sparse":
+                first = np.tile(verts[:T], (2, 1))
+                verts[T:] = first + (verts[T:] - first) * 0.02
             z = rng.uniform(6.0, 10.0)
             m = relmath.trs(np.array([rng.uniform(-0.1, 0.1) * z, rng.uniform(-0.08, 0.08) * z, z],
                                      f32), f32(rng.uniform(0, 3)), rng.normal(size=3).astype(f32),
@@ -485,15 +490,15 @@ def _dir4(dev, d):
                            dtype=torch.float32, device=dev)
 
 
-def _batch_args(dev, O, shadow, T=300, n=8192):
+def _batch_args(dev, O, shadow, T=300, n=8192, kind=None):
     """K9 (shadow False) or K10 walk arguments for O random soups
-    (_batch_scene) and n rays around the view axis; K10's origins spread
-    around the camera, 20% of its lanes masked (tmax 0)."""
+    (_batch_scene, of `kind`) and n rays around the view axis; K10's origins
+    spread around the camera, 20% of its lanes masked (tmax 0)."""
     rng = np.random.default_rng(O + 10 * shadow)
     d = rng.normal(size=(3, n)) * 0.1
     d[2] = 1.0
     dir4 = _dir4(dev, d)
-    sc = _batch_scene(dev, O, shadow, T, rng)
+    sc = _batch_scene(dev, O, shadow, T, rng, kind)
     if not shadow:
         return _shared_args(sc, dir4)
     o4 = torch.as_tensor(np.stack([rng.uniform(0.0, 0.5, n), rng.uniform(-1, 1, n),
@@ -576,42 +581,47 @@ def _activity_args(dev, O, pattern, T=300, n=8192):
 
 
 def _k9_equals_twin(args):
-    """K9 on args with each way of its first bound (cluster reduction, every
-    CTA over all lanes): two launches, every output equal to the twin's bit
-    for bit. Returns the twin's outputs."""
+    """K9 on args: one launch, every output equal to the twin's bit for bit.
+    Returns the twin's outputs and the chunks each block walked."""
     from relativitypathtracer_tpu_torch.ops.kernels import mesh_batch as mb
 
-    want = mb.batched_shared_walk_plain(*args)
-    for cluster_first in (True, False):
-        before = _launches("rpt_batched_shared_walk")
-        got = mb.batched_shared_walk(*args, cluster_first=cluster_first)
-        torch.cuda.synchronize()
-        assert _launches("rpt_batched_shared_walk") == before + 1
-        for part, g, w in zip(("t", "u", "v", "tri", "obj", "attr"), got, want):
-            assert torch.equal(g, w), (part, cluster_first)
-    return want
+    before = _launches("rpt_batched_shared_walk")
+    got = mb.batched_shared_walk(*args)
+    torch.cuda.synchronize()
+    assert _launches("rpt_batched_shared_walk") == before + 1
+    *want, walked = mb.batched_shared_walk_plain(*args, walked=True)
+    for part, g, w in zip(("t", "u", "v", "tri", "obj", "attr"), got, want):
+        assert torch.equal(g, w), part
+    return want, walked
 
 
 def _k10_equals_twin(args):
     """K10 on args: one launch, equal to the twin bit for bit. Returns the
-    twin's result."""
+    twin's result and the chunks each block walked."""
     from relativitypathtracer_tpu_torch.ops.kernels import mesh_batch as mb
 
     before = _launches("rpt_batched_general_walk")
     got = mb.batched_general_walk(*args)
     torch.cuda.synchronize()
     assert _launches("rpt_batched_general_walk") == before + 1
-    want = mb.batched_general_walk_plain(*args)
+    want, walked = mb.batched_general_walk_plain(*args, walked=True)
     assert torch.equal(got, want)
-    return want
+    return want, walked
+
+
+# A pool of 33 objects of 768 chunks (the most a mesh below the large tier
+# holds): 25,344 chunks, whose live lists run past the head that the walks
+# stage in shared memory (FlatList::kStageMax, csrc/walk.cuh).
+LARGE_POOL = {"T": 24_576, "n": 2048, "kind": "sparse"}
+STAGE_MAX = 1024
 
 
 @pytest.mark.parametrize("O", [2, 8])
 def test_batched_shared_walk_kernel_matches_twin(cuda, O):
     """K9 on 2 and 8 objects: t, u, v, triangle ids, object slots and
-    attributes equal to the twin's bit for bit, with either first bound;
-    every object wins somewhere."""
-    want = _k9_equals_twin(_batch_args(cuda, O, shadow=False))
+    attributes equal to the twin's bit for bit; every object wins
+    somewhere."""
+    want, _ = _k9_equals_twin(_batch_args(cuda, O, shadow=False))
     hit = want[3] >= 0
     assert float(hit.float().mean()) > 0.1 and len(set(want[4][hit].tolist())) == O
 
@@ -621,7 +631,7 @@ def test_batched_general_walk_kernel_matches_twin(cuda, O):
     """K10 on 2 and 8 objects, one disabled: equal to the twin bit for bit,
     both verdicts present, the result min(hit, tmax)."""
     args = _batch_args(cuda, O, shadow=True)
-    want = _k10_equals_twin(args)
+    want, _ = _k10_equals_twin(args)
     tmax = args[9]
     rel = tmax > 0
     assert bool((want <= tmax).all())
@@ -629,9 +639,9 @@ def test_batched_general_walk_kernel_matches_twin(cuda, O):
 
 
 K9_CASES = [*((O, p) for O in (2, 8) for p in COVERAGE if p != "box_plane"), (2, "alternating"),
-            (120, "many_objects"), (2, "box_plane")]
+            (120, "many_objects"), (2, "box_plane"), (33, "large_pool")]
 K10_CASES = [*((O, p) for O in (2, 8) for p in ACTIVITY), (2, "alternating"),
-             (40, "many_objects")]
+             (40, "many_objects"), (33, "large_pool")]
 
 
 @pytest.mark.parametrize("O,pattern", K9_CASES, ids=[f"{p}-O{O}" for O, p in K9_CASES])
@@ -642,9 +652,10 @@ def test_batched_shared_walk_kernel_equals_twin_at_any_coverage(cuda, O, pattern
     chunks and across objects), on a pair whose lists alternate objects
     chunk by chunk, on 120 objects (more than the 16 whose rays a CTA
     stages at once, and more than the card's shared memory could hold at
-    once: the tiles are staged again as the walk moves between them), and
-    on box_plane_batch (rays along a union box's face with an exact-zero
-    direction component)."""
+    once: the tiles are staged again as the walk moves between them), on
+    box_plane_batch (rays along a union box's face with an exact-zero
+    direction component), and on a pool of 25,344 chunks (LARGE_POOL) whose
+    walks read their lists past the staged head from global memory."""
     from torch_port_fixtures import box_plane_batch
 
     from relativitypathtracer_tpu_torch.ops.kernels import mesh_batch as mb
@@ -660,11 +671,12 @@ def test_batched_shared_walk_kernel_equals_twin_at_any_coverage(cuda, O, pattern
         args = seen["args"]
     elif pattern == "many_objects":
         args = _batch_args(cuda, O, shadow=False, T=100, n=4096)
+    elif pattern == "large_pool":
+        args = _batch_args(cuda, O, shadow=False, **LARGE_POOL)
     else:
         args = _coverage_args(cuda, O, pattern)
-    want = _k9_equals_twin(args)
+    want, walked = _k9_equals_twin(args)
     hit = (want[3] >= 0).reshape(-1, 1024)
-    *_, walked = mb.batched_shared_walk_plain(*args, walked=True)
     switches = mb.object_switches(args[0], args[3], walked)
     if pattern in ("all_hit", "ties"):
         assert bool(hit.all())
@@ -681,22 +693,28 @@ def test_batched_shared_walk_kernel_equals_twin_at_any_coverage(cuda, O, pattern
         assert int(mb.object_switches(args[0], args[3] // 16, walked).sum()) > 0
     if pattern == "box_plane":
         assert int(walked[1]) > 0 and not bool(hit[1].any())
+    if pattern == "large_pool":
+        assert args[3].numel() > 25_000 and int(walked.max()) > STAGE_MAX and bool(hit.any())
 
 
 @pytest.mark.parametrize("O,pattern", K10_CASES, ids=[f"{p}-O{O}" for O, p in K10_CASES])
 def test_batched_general_walk_kernel_equals_twin_at_any_activity(cuda, O, pattern):
     """K10 equal to its twin bit for bit at the four activity patterns on
     2 and 8 objects (object 1 disabled; the masked lanes' rays garbage), on
-    a pair whose lists alternate objects chunk by chunk, and on 40 objects
+    a pair whose lists alternate objects chunk by chunk, on 40 objects
     (more than the 8 whose rays a CTA stages at once, and more than the
-    card's shared memory could hold at once)."""
+    card's shared memory could hold at once), and on a pool of 25,344
+    chunks (LARGE_POOL) whose walks read their lists past the staged head
+    from global memory."""
     from relativitypathtracer_tpu_torch.ops.kernels import mesh_batch as mb
 
     if pattern == "many_objects":
         args = _batch_args(cuda, O, shadow=True, T=100, n=4096)
+    elif pattern == "large_pool":
+        args = _batch_args(cuda, O, shadow=True, **LARGE_POOL)
     else:
         args = _activity_args(cuda, O, pattern)
-    want = _k10_equals_twin(args)
+    want, walked = _k10_equals_twin(args)
     tmax = args[9]
     active = tmax > 0
     n_active = int(active.sum())
@@ -704,14 +722,15 @@ def test_batched_general_walk_kernel_equals_twin_at_any_activity(cuda, O, patter
                         "alternating": 8192}.get(pattern, n_active)
     if pattern == "all_masked":
         assert bool((want == 0.0).all())
-    if pattern in ("scattered", "all_active", "alternating", "many_objects"):
+    if pattern in ("scattered", "all_active", "alternating", "many_objects", "large_pool"):
         assert int((want < tmax)[active].sum()) > 20 and int((want >= tmax)[active].sum()) > 20
-    *_, walked = mb.batched_general_walk_plain(*args, walked=True)
     if pattern == "alternating":
         switches = mb.object_switches(args[0], args[3], walked)
         assert int(switches.sum()) * 2 > int(walked.sum()) > 0
     if pattern == "many_objects":  # the walks move between tiles of 8 objects
         assert int(mb.object_switches(args[0], args[3] // 8, walked).sum()) > 0
+    if pattern == "large_pool":
+        assert args[3].numel() > 25_000 and int(walked.max()) > STAGE_MAX
 
 
 @pytest.mark.parametrize("xl", [False, True], ids=["s32", "s128"])
