@@ -10,21 +10,22 @@ procedural fixture (utils/demo_scene) loaded through load_scene_file ->
 build_scene -> build_render_fn at 1024x768, interval -1 (light propagation
 and shadows on):
   blob       one untextured 5,120-triangle mesh moving at 0.5c and a light
-             sphere: K1 shadow chain, K3 analytic nearest hit, K5 mesh
-             primary walk, K6 mesh shadow walk;
+             sphere: K1 shadow chain, K3 analytic nearest hit, K4 live-chunk
+             list build (two kernels: the cull and the counting sort), K5
+             mesh primary walk, K6 mesh shadow walk;
   textured   the same mesh with a 32x32 texture (512-row footprint atlas),
-             bench.py's main path: K1, K2 footprint fetch, K3, K5, K6;
+             bench.py's main path: K1, K2 footprint fetch, K3, K4, K5, K6;
   cubes      nine cubes (eight sharing a 256x256 texture, a 32,768-row
              atlas, one row moving at 0.6c), a floor cube and a light
              sphere: K1, K3, K7 analytic occlusion, K8 footprint fetch;
   instances  that mesh instanced four times (20,480 triangles in one pool of
              640 chunks; different scales, two moving, one textured) and a
-             light sphere: K1, K2, K3, K9 batched primary walk, K10 batched
-             shadow walk, and never K5/K6;
+             light sphere: K1, K2, K3, K4 (the pool's lists), K9 batched
+             primary walk, K10 batched shadow walk, and never K5/K6;
   large      the blob at level 7 (327,680 triangles, 10,240 chunks in 320
-             superchunks) moving at 0.5c and a light sphere: K1, K3, K11
-             large-tier primary walk, K12 large-tier shadow walk, and never
-             K5/K6.
+             superchunks) moving at 0.5c and a light sphere: K1, K3, K4 (the
+             two-level lists), K11 large-tier primary walk, K12 large-tier
+             shadow walk, and never K5/K6.
 For each path it:
   1. renders 3 frames with advancing time, the last with the camera moving
      at 0.5c, with every launch count set to 0 just before and read just
@@ -41,7 +42,10 @@ For each path it:
      of 20 runs; the kernel's launches replayed from a CUDA graph, each on
      its own copy of the inputs so that none is in L2 when its launch comes,
      so its time is the device's from memory); computes each kernel's bound
-     from those inputs;
+     from those inputs; then holds every list build of the first frame (K4
+     with its cone table, through the list function the walks call) to its
+     twin on the same inputs, to the bit, and prints K4's builds, device ms
+     and the twin's ms per frame with their bound;
   3. renders the last frame with the port on the CPU (the plain twins) and
      holds the card's frame to it under the parity rule (at most 0.2% of
      pixels off by more than 1e-3); blob and instances at 512x384, large at
@@ -71,11 +75,14 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 L2_BYTES = 50 * 2**20  # H100 L2
 PKG = "relativitypathtracer_tpu_torch/csrc/"
 TPU = "relativitypathtracer_tpu/ops/pallas/"
+K4_TPU = TPU + "mesh_kernels.py:389 (XLA)"
 # launch-count key -> (id, source, TPU kernel it replaces)
 KERNELS = {
     "rpt_shadow_chain": ("K1", PKG + "shadow_chain.cu", TPU + "shadow_chain.py:50"),
     "rpt_footprint_sample/small": ("K2", PKG + "texture_kernels.cu", TPU + "texture_kernel.py:76"),
     "rpt_analytic_nearest": ("K3", PKG + "analytic_kernels.cu", TPU + "analytic_kernels.py:308"),
+    "rpt_live_cull": ("K4", PKG + "live_lists.cu", K4_TPU),
+    "rpt_bucket_order": ("K4", PKG + "live_lists.cu", K4_TPU),
     "rpt_shared_walk": ("K5", PKG + "mesh_kernels.cu", TPU + "mesh_kernels.py:514"),
     "rpt_general_walk": ("K6", PKG + "mesh_kernels.cu", TPU + "mesh_kernels.py:825"),
     "rpt_analytic_min_t": ("K7", PKG + "analytic_kernels.cu", TPU + "analytic_kernels.py:521"),
@@ -86,23 +93,24 @@ KERNELS = {
     "rpt_large_shared_walk": ("K11", PKG + "mesh_kernels.cu", TPU + "mesh_large.py:147"),
     "rpt_large_general_walk": ("K12", PKG + "mesh_kernels.cu", TPU + "mesh_large.py:338"),
 }
+K4 = ("rpt_live_cull", "rpt_bucket_order")
 PATHS = {  # path -> (demo scene kind, kernels it runs, CPU parity size)
-    "blob": ("blob", ("rpt_shadow_chain", "rpt_analytic_nearest", "rpt_shared_walk",
+    "blob": ("blob", ("rpt_shadow_chain", "rpt_analytic_nearest", *K4, "rpt_shared_walk",
                       "rpt_general_walk"), (512, 384)),
     "textured": ("textured", ("rpt_shadow_chain", "rpt_footprint_sample/small",
-                              "rpt_analytic_nearest", "rpt_shared_walk", "rpt_general_walk"),
-                 (WIDTH, HEIGHT)),
+                              "rpt_analytic_nearest", *K4, "rpt_shared_walk",
+                              "rpt_general_walk"), (WIDTH, HEIGHT)),
     "cubes": ("cubes", ("rpt_shadow_chain", "rpt_analytic_nearest", "rpt_analytic_min_t",
                         "rpt_footprint_sample/windowed"), (WIDTH, HEIGHT)),
     "instances": ("instances", ("rpt_shadow_chain", "rpt_footprint_sample/small",
-                                "rpt_analytic_nearest", "rpt_batched_shared_walk",
+                                "rpt_analytic_nearest", *K4, "rpt_batched_shared_walk",
                                 "rpt_batched_general_walk"), (512, 384)),
-    "large": ("large", ("rpt_shadow_chain", "rpt_analytic_nearest", "rpt_large_shared_walk",
-                        "rpt_large_general_walk"), (256, 192)),
+    "large": ("large", ("rpt_shadow_chain", "rpt_analytic_nearest", *K4,
+                        "rpt_large_shared_walk", "rpt_large_general_walk"), (256, 192)),
 }
 # other kernels report the textured path
-REPORT_FROM = {"K7": "cubes", "K8": "cubes", "K9": "instances", "K10": "instances",
-               "K11": "large", "K12": "large"}
+REPORT_FROM = {"K4": "large", "K7": "cubes", "K8": "cubes", "K9": "instances",
+               "K10": "instances", "K11": "large", "K12": "large"}
 
 
 class CheckFailed(RuntimeError):
@@ -171,6 +179,63 @@ def nbytes(*tensors) -> int:
     return sum(x.numel() * x.element_size() for x in tensors if hasattr(x, "numel"))
 
 
+def same(torch, got, want) -> bool:
+    """Equal to the bit (floats as their int32 bits; None only to None)."""
+    if got is None or want is None:
+        return got is None and want is None
+    if got.dtype == torch.float32:
+        return torch.equal(got.view(torch.int32), want.view(torch.int32))
+    return torch.equal(got, want)
+
+
+def max_err(got, want) -> float:
+    return max((float((g.double() - w.double()).abs().max()) for g, w in zip(got, want)
+                if g is not None and g.numel()), default=0.0)
+
+
+def list_bound_ms(ml, name, args, kwargs, out) -> float:
+    """The least time of one list build: its spheres, rays and lane masks
+    read once and its lists written once over the memory rate, or 30
+    operations a cone test of a (128-lane sub-cone, chunk) pair and 40 a
+    (block, entry) of the sort over the fp32 rate, the larger (the
+    super-sphere cull of the XL lists tests (sub-cone, super) pairs and one
+    block cone per chunk)."""
+    spheres = args[0]
+    rays = args[2] if name == "live_chunk_lists_multi" else args[1]
+    n_pad, C = rays.shape[-1], spheres.shape[0]
+    order = out[0]
+    B = order.shape[0]
+    pairs = n_pad // 128 * C
+    if name == "large_live_lists" and C > ml.SUPER_CULL_C:
+        pairs = n_pad // 128 * order.shape[1] + B * C
+    moved = nbytes(*args, *kwargs.values(), *out)
+    return bound(30.0 * pairs + 40.0 * order.numel(), moved)[0]
+
+
+def compare_lists(torch, ml, path, calls, plains):
+    """Every list build of the first frame (its list function, captured
+    with its inputs) against the same function on K4's twins: equal to the
+    bit; K4's device ms a frame (each build replayed from a CUDA graph, as
+    kernel_ms times a kernel) against the twins' ms a frame (CUDA events
+    around a call), and the bound."""
+    builds, k_ms, p_ms, b_ms = {}, 0.0, 0.0, 0.0
+    for name, fn, args, kwargs in calls:
+        plain = plains[name]
+        got, want = fn(*args, **kwargs), plain(*args, **kwargs)
+        for part, g, w in zip(("order", "floors", "counts", "bits"), got, want):
+            check(same(torch, g, w), f"K4 on {path}: {name} {part} differ from the twin's")
+        keys = list(kwargs)
+        k_ms += kernel_ms(torch, lambda *a, _fn=fn, _n=len(args), _k=keys: _fn(
+            *a[:_n], **dict(zip(_k, a[_n:]))), [*args, *kwargs.values()])
+        p_ms += time_ms(torch, lambda: plain(*args, **kwargs))
+        b_ms += list_bound_ms(ml, name, args, kwargs, got)
+        builds[name] = builds.get(name, 0) + 1
+    check(builds, f"K4 on {path}: no list build captured")
+    log(f"  K4 on {path}: {sum(builds.values())} list builds a frame {builds}, equal to the "
+        f"twins' to the bit; kernels {k_ms:.4f} ms a frame (cone tables included), torch ops "
+        f"{p_ms:.4f} ms, bound {b_ms:.4f} ms, share {b_ms / k_ms:.1%}")
+
+
 def compare_kernels(torch, pt_mods, meta, captured, originals, names):
     """Each kernel of `names` against its plain twin on its captured
     first-frame inputs: checks, error, kernel/plain ms, bound."""
@@ -203,6 +268,16 @@ def compare_kernels(torch, pt_mods, meta, captured, originals, names):
             n = args[2].shape[1]
             record(name, err, fn, args, sc.shadow_chain_plain, 150.0 * n,
                    nbytes(*args[:6]) + 40 * n)
+        elif name in ("rpt_live_cull", "rpt_bucket_order"):
+            cull = name == "rpt_live_cull"
+            plain = mk.live_cull_plain if cull else mk.bucket_order_plain
+            got, want = fn(*args), plain(*args)
+            check(all(same(torch, g, w) for g, w in zip(got, want)),
+                  f"K4 {name} differs from its twin")
+            # the cull: 30 operations a (cone, chunk) test; the sort: 40 an entry
+            work = args[1].shape[-2] * args[0].shape[0] if cull else args[0].numel()
+            record(name, max_err(got, want), fn, args, plain, (30.0 if cull else 40.0) * work,
+                   nbytes(*args, *(g for g in got if g is not None)))
         elif name == "rpt_analytic_nearest":
             gt, gn, guv, go = fn(*args)
             wt, wn, wuv, wo = ak.analytic_nearest_plain(*args)
@@ -387,6 +462,7 @@ def parity(torch, pt, host, state, card_img, card_aux, size, msaa=1):
 
 
 def frame_time(torch, render, scene, state, card):
+    torch.cuda.reset_peak_memory_stats()  # the peak below is this path's frames'
     for _ in range(5):
         render(scene, state)
     times = []
@@ -444,6 +520,8 @@ def main() -> int:
     # them through; hooks record each one's first-frame inputs.
     hooks = {"rpt_shadow_chain": (prender, "shadow_chain"),
              "rpt_analytic_nearest": (prender, "analytic_nearest_shared"),
+             "rpt_live_cull": (mk, "live_cull"),
+             "rpt_bucket_order": (mk, "bucket_order"),
              "rpt_shared_walk": (mk, "shared_walk"),
              "rpt_general_walk": (mk, "general_walk"),
              "rpt_analytic_min_t": (prender, "analytic_min_t_general"),
@@ -453,6 +531,12 @@ def main() -> int:
              "rpt_large_shared_walk": (ml, "large_shared_walk"),
              "rpt_large_general_walk": (ml, "large_general_walk")}
     originals = {name: getattr(mod, attr) for name, (mod, attr) in hooks.items()}
+    # K4's list functions as the walks call them, with their twins
+    list_hooks = [(mk, "live_chunk_lists", mk.live_chunk_lists_plain),
+                  (mb, "live_chunk_lists_multi", mb.live_chunk_lists_multi_plain),
+                  (ml, "large_live_lists", ml.large_live_lists_plain)]
+    list_fns = {attr: getattr(mod, attr) for mod, attr, _ in list_hooks}
+    list_plains = {attr: plain for _, attr, plain in list_hooks}
     results, launches_by_path, hosts = {}, {}, {}
 
     for path, (kind, names, cpu_size) in PATHS.items():
@@ -477,7 +561,7 @@ def main() -> int:
                   and scene.mesh_static[0].spheres.shape[0] == 10240, "large: the large tier")
         render = pt.build_render_fn(meta, WIDTH, HEIGHT, -1, with_aux=True, device=dev)
 
-        captured, recording = {}, [True]
+        captured, list_calls, recording = {}, [], [True]
         for name, (mod, attr) in hooks.items():
             def rec(*args, _fn=originals[name], _name=name):
                 if _name == "rpt_footprint_sample":
@@ -487,6 +571,13 @@ def main() -> int:
                 return _fn(*args)
 
             setattr(mod, attr, rec)
+        for mod, attr, _ in list_hooks:
+            def rec_list(*args, _fn=list_fns[attr], _name=attr, **kwargs):
+                if recording[0]:
+                    list_calls.append((_name, _fn, args, kwargs))
+                return _fn(*args, **kwargs)
+
+            setattr(mod, attr, rec_list)
 
         # --- the path: three frames, counts from 0 ---------------------------
         torch.cuda.synchronize()
@@ -501,6 +592,8 @@ def main() -> int:
         launches = dict(_build.LAUNCHES)
         for name, (mod, attr) in hooks.items():
             setattr(mod, attr, originals[name])
+        for mod, attr, _ in list_hooks:
+            setattr(mod, attr, list_fns[attr])
         launches_by_path[path] = launches
         log(f"  launches: {launches}")
         for img, aux in frames:
@@ -518,7 +611,11 @@ def main() -> int:
         originals_by_key = {n: originals[n.split("/")[0]] for n in names}
         results[path] = compare_kernels(torch, (ak, mk, sc, tk, mb, ml), meta, captured,
                                         originals_by_key, names)
-        del captured
+        if "rpt_live_cull" in names:
+            compare_lists(torch, ml, path, list_calls, list_plains)
+        else:
+            check(not list_calls, f"{path}: list builds on a path without meshes")
+        del captured, list_calls
 
         img, aux = frames[2]
         if cpu_size != (WIDTH, HEIGHT):

@@ -11,9 +11,10 @@ object table, so each ray block walks one live list over all objects:
   s (object distance -> shared 4D ray parameter, t = dist * |M_R dh| /
   |d3|), so the nearest-hit reduce, the walk bound and early termination
   run in shared units;
-- the live lists (`live_chunk_lists_multi`) cull each object's chunks
-  against that object's cones and scale its floors by the block's minimum
-  per-lane s, a lower bound, so stopping on them stays sound.
+- the live lists (`live_chunk_lists_multi`, K4's kernels over one cone
+  table of every object) cull each chunk against its own object's cones
+  and scale its floors by the block's minimum per-lane s, a lower bound, so
+  stopping on them stays sound.
 
 `batched_shared_walk` and `batched_general_walk` launch the CUDA kernels
 (csrc/mesh_batch.cu: a cluster of 8 CTAs per ray block, a warp per ray,
@@ -28,12 +29,14 @@ changes object.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ._build import check_cuda, launch
 from .mesh_kernels import (
-    INF, N_ATTR, NB, TC, _box_bound, _box_of, _dot_rows, _mt, _pad_lanes, _round_up,
-    _sub_cone_cull, bucket_order, general_tri_rows, shared_tri_rows)
+    CONE_COLS, INF, N_ATTR, NB, SUB, TC, _box_bound, _box_of, _dot_rows, _list_ops, _mt,
+    _pad_lanes, _round_up, cone_table, general_tri_rows, shared_tri_rows)
 
 # The per-object transform table: one row of MAT_COLS floats per mesh object.
 MAT_COLS = 40
@@ -98,6 +101,23 @@ def object_rays(mats, origins4, dir4):
     return torch.stack(rays), s
 
 
+def _lists_multi(plain, spheres, chunk_counts, d_os, o_os, s_os, valid, enabled,
+                 lane_bound_shared):
+    cull, sort = _list_ops(plain)
+    O, _, n_pad = d_os.shape
+    lb = None
+    if lane_bound_shared is not None:  # shared units -> each object's (t_shared = t_obj * s)
+        lb = lane_bound_shared / torch.clamp(s_os, min=1e-12)
+    table = cone_table(d_os, o_os, valid, lb)  # (O, n_sub, CONE_COLS)
+    for g, on in enumerate(enabled or ()):
+        if not on:
+            table[g, :, CONE_COLS - 1] = 0.0
+    s = s_os if valid is None else torch.where(valid, s_os, INF)
+    smin = s.reshape(O, n_pad // NB, NB).amin(dim=2)  # (O, B) a lower bound per block
+    return sort(*cull(spheres, table, SUB, lane_bound_shared is not None,
+                      chunk_objects(chunk_counts, spheres.device), smin))
+
+
 def live_chunk_lists_multi(spheres, chunk_counts, d_os, o_os, s_os, valid=None, enabled=None,
                            lane_bound_shared=None):
     """Live lists over the concatenated pool. spheres (C, 4) object-space
@@ -106,37 +126,32 @@ def live_chunk_lists_multi(spheres, chunk_counts, d_os, o_os, s_os, valid=None, 
     valid (n_pad,) optional; enabled: per object, False keeps its chunks
     dead (the light's own mesh for its shadow rays); lane_bound_shared
     (n_pad,) optional bound in shared units, converted per object for the
-    segment cull. Floors come out in shared units: each object's scaled by
-    the block's minimum s over its valid lanes. Returns bucket_order's
-    (order, minds, counts)."""
-    O = d_os.shape[0]
-    B = d_os.shape[2] // NB
-    minds, overlaps = [], []
-    c0 = 0
-    for g in range(O):
-        nck = chunk_counts[g]
-        if enabled is not None and not enabled[g]:
-            minds.append(torch.full((B, nck), INF, device=spheres.device))
-            overlaps.append(torch.zeros((B, nck), dtype=torch.bool, device=spheres.device))
-            c0 += nck
-            continue
-        s = s_os[g].reshape(B, NB)
-        if valid is not None:
-            s = torch.where(valid.reshape(B, NB), s, INF)
-        lb = None
-        if lane_bound_shared is not None:
-            lb = lane_bound_shared / torch.clamp(s_os[g], min=1e-12)
-        mind_g, over_g = _sub_cone_cull(spheres[c0:c0 + nck], d_os[g], o_os[g], valid, lb)
-        c0 += nck
-        minds.append(mind_g * s.amin(dim=1, keepdim=True))
-        overlaps.append(over_g)
-    return bucket_order(torch.cat(minds, dim=1), torch.cat(overlaps, dim=1))
+    segment cull. Each chunk is culled against its own object's cones (one
+    cone table for all objects, the chunk's row picked by its slot).
+    Floors come out in shared units: each object's scaled by the block's
+    minimum s over its valid lanes. Returns bucket_order's (order, minds,
+    counts). K4's kernels on CUDA tensors, their twins on CPU tensors."""
+    return _lists_multi(False, spheres, chunk_counts, d_os, o_os, s_os, valid, enabled,
+                        lane_bound_shared)
+
+
+def live_chunk_lists_multi_plain(spheres, chunk_counts, d_os, o_os, s_os, valid=None,
+                                 enabled=None, lane_bound_shared=None):
+    """live_chunk_lists_multi with the kernels' plain twins, on any device."""
+    return _lists_multi(True, spheres, chunk_counts, d_os, o_os, s_os, valid, enabled,
+                        lane_bound_shared)
+
+
+@functools.lru_cache(maxsize=16)
+def _chunk_objects(chunk_counts: tuple, device: torch.device):
+    return torch.cat([torch.full((c,), g, dtype=torch.int32, device=device)
+                      for g, c in enumerate(chunk_counts)])
 
 
 def chunk_objects(chunk_counts, device):
-    """(C,) int32 object slot of every pool chunk."""
-    return torch.cat([torch.full((c,), g, dtype=torch.int32, device=device)
-                      for g, c in enumerate(chunk_counts)])
+    """(C,) int32 object slot of every pool chunk. Made once per pool layout
+    and device, then shared: callers only read it."""
+    return _chunk_objects(tuple(int(c) for c in chunk_counts), torch.device(device))
 
 
 def batched_shared_walk_plain(order, minds, counts, cobj, boxes, mats, tri, attrs, dir4_p,

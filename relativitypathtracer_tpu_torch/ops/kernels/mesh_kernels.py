@@ -1,14 +1,17 @@
-"""Mesh walks over per-block live-chunk lists: K5 (primary) and K6 (shadow).
+"""The live-chunk list build (K4) and the mesh walks over its lists: K5 (primary) and K6 (shadow).
 
 Torch counterpart of `relativitypathtracer_tpu.ops.pallas.mesh_kernels` at
 its default settings (NB=1024, SUB=8, TC=TC_GEN=32, shadow cull "boxfar", the
 16-bucket counting sort). Triangles sit in 32-triangle Morton-ordered chunks.
-Outside the kernels, torch ops cull every (ray block, chunk) pair with a
-cone-vs-sphere test at 128-lane sub-cone granularity and sort each block's
-live chunks front to back by bucket floor (`live_chunk_lists`, K4 in the
-roadmap, still torch ops here). The kernels walk that list per 1024-ray
-block and stop once the block's farthest useful bound is nearer than the next
-chunk's floor.
+Before the walks, K4 culls every (ray block, chunk) pair with a
+cone-vs-sphere test at 128-lane sub-cone granularity and sorts each block's
+live chunks front to back by bucket floor (`live_chunk_lists`): torch ops
+make the cones' table (`cone_table`), then two CUDA kernels
+(csrc/live_lists.cu) cull (`live_cull`) and sort (`bucket_order`) on CUDA
+tensors, their plain twins (`live_cull_plain`, `bucket_order_plain`) on CPU
+tensors; each list function has a `_plain` form that uses the twins on any
+device. The walks take that list per 1024-ray block and stop once the
+block's farthest useful bound is nearer than the next chunk's floor.
 
 `shared_walk` and `general_walk` launch the CUDA kernels
 (csrc/mesh_kernels.cu) on CUDA tensors; on CPU tensors they call their
@@ -19,8 +22,9 @@ tier's twins share).
 
 The two-level lists of the large-mesh tier live here too, as in the JAX
 package: `live_chunk_lists2` (superchunk order reduced from the chunk-level
-cull), `live_chunk_lists3` (super-sphere cull, block-cone chunk bits),
-`super_spheres_of` and `pack_bits`; `mesh_large` picks between them.
+cull, the cull kernel's superchunk variant), `live_chunk_lists3`
+(super-sphere cull, block-cone chunk bits), `super_spheres_of` and
+`pack_bits`; `mesh_large` picks between them.
 """
 
 from __future__ import annotations
@@ -75,101 +79,66 @@ def chunk_spheres(A, B, C, T_pad: int, tc: int = TC):
     return torch.cat([c, r[:, None]], dim=1)
 
 
+# --- K4: the live-chunk list build --------------------------------------------
+#
+# cone_table (torch) makes the culling cones' rows; rpt_live_cull culls every
+# (ray block, chunk) pair against them and rpt_bucket_order sorts each
+# block's live entries (csrc/live_lists.cu; twins live_cull_plain and
+# bucket_order_plain). The list functions below compose the three for each
+# kind of list, with the kernels (live_chunk_lists, ...) or with the twins
+# (live_chunk_lists_plain, ...).
+
+CONE_COLS = 12  # a cone's row: apex(3) axis(3) cos_a sin_a o_rad bound has_valid enabled
+
+
 def _cones_of(d, o):
-    """Bounding cone per ray group. d/o: (3, groups, lanes) dirs / origins.
-    Returns (apex (3, G), axis (3, G), cos_a (G,), o_rad (G,))."""
-    oc = o.mean(dim=2)
-    o_rad = torch.sqrt(((o - oc[:, :, None]) ** 2).sum(dim=0).amax(dim=1))
-    mean = d.mean(dim=2)
-    axis = mean / torch.clamp(torch.sqrt((mean * mean).sum(dim=0)), min=1e-12)
-    cos_a = (d * axis[:, :, None]).sum(dim=0).amin(dim=1)
+    """Bounding cone per ray group. d/o: (..., 3, groups, lanes) dirs /
+    origins. Returns (apex (..., 3, G), axis (..., 3, G), cos_a (..., G),
+    o_rad (..., G))."""
+    oc = o.mean(dim=-1)
+    o_rad = torch.sqrt(((o - oc[..., None]) ** 2).sum(dim=-3).amax(dim=-1))
+    mean = d.mean(dim=-1)
+    axis = mean / torch.clamp(torch.sqrt((mean * mean).sum(dim=-2)), min=1e-12)[..., None, :]
+    cos_a = (d * axis[..., None]).sum(dim=-3).amin(dim=-1)
     return oc, axis, cos_a, o_rad
 
 
 def _mask_invalid_lanes(d, o, valid):
     """Replace masked lanes' rays by their group's mean so that garbage rays
-    cannot widen the group's cone. d/o: (3, groups, lanes)."""
-    v = valid.reshape(1, d.shape[1], d.shape[2])
-    nv = torch.clamp(v.sum(dim=2, keepdim=True), min=1)
-    o_mean = torch.where(v, o, 0.0).sum(dim=2, keepdim=True) / nv
-    d_mean = torch.where(v, d, 0.0).sum(dim=2, keepdim=True) / nv
+    cannot widen the group's cone. d/o: (..., 3, groups, lanes)."""
+    v = valid.reshape(d.shape[-2], d.shape[-1])
+    nv = torch.clamp(v.sum(dim=-1, keepdim=True), min=1)
+    o_mean = torch.where(v, o, 0.0).sum(dim=-1, keepdim=True) / nv
+    d_mean = torch.where(v, d, 0.0).sum(dim=-1, keepdim=True) / nv
     return torch.where(v, d, d_mean), torch.where(v, o, o_mean)
 
 
-def _cone_cull(spheres, d, o):
-    """Cone-vs-sphere culling. spheres: (C, 4); d/o: (3, G, lanes).
-    Returns (mind (G, C) conservative min distances, overlap (G, C) bool)."""
-    apex, axis, cos_a, o_rad = _cones_of(d, o)
-    c = spheres[:, :3]
-    r = spheres[:, 3][None, :] + o_rad[:, None]
-    dc = c[None, :, :] - apex.T[:, None, :]
-    dlen = torch.sqrt((dc * dc).sum(dim=-1))
-    mind = torch.clamp(dlen - r, min=0.0)
-    cos_d = (dc * axis.T[:, None, :]).sum(dim=-1) / torch.clamp(dlen, min=1e-12)
-    sin_b = torch.clamp(r / torch.clamp(dlen, min=1e-12), max=1.0)
-    cos_b = torch.sqrt(torch.clamp(1.0 - sin_b * sin_b, min=0.0))
-    sin_a = torch.sqrt(torch.clamp(1.0 - cos_a * cos_a, min=0.0))
-    # a + b >= pi (cos_b <= -cos_a) would wrap cos(a + b): always overlap.
-    overlap = (dlen <= r) | (cos_b <= -cos_a[:, None]) | (
-        cos_d >= cos_a[:, None] * cos_b - sin_a[:, None] * sin_b)
-    return mind, overlap
-
-
-def bucket_order(mind, overlap):
-    """Front-to-back compaction of live chunks per block by a 16-bucket
-    counting sort. mind/overlap: (B, C). Returns (order (B, C) int32 chunk
-    ids, live ones first; minds (B, C) f32 bucket floors keyed by chunk id;
-    counts (B,) int32 live counts). Floors never exceed a chunk's true
-    distance and never decrease along `order`, so stopping on them is sound."""
-    n_chunks = mind.shape[1]
-    lo_k = mind.amin(dim=1, keepdim=True)
-    hi_k = torch.where(overlap, mind, -INF).amax(dim=1, keepdim=True)
-    span = torch.clamp(hi_k - lo_k, min=1e-6)
-    x = (mind - lo_k) / span * (NBKT - 1)
-    # Saturating float -> int (NaN -> 0), as XLA converts.
-    bucket = torch.clamp(torch.where(x > 0, x, 0.0), max=NBKT - 1).to(torch.int32)
-    key = lo_k + bucket.to(torch.float32) * (span / (NBKT - 1))
-    bucket = torch.where(overlap, bucket, NBKT).long()  # dead chunks go last
-    onehot = F.one_hot(bucket, NBKT + 1)  # (B, C, NBKT + 1)
-    per_bucket = onehot.sum(dim=1)
-    offsets = torch.cumsum(per_bucket, dim=1) - per_bucket
-    rank = torch.cumsum(onehot, dim=1).gather(2, bucket[:, :, None])[:, :, 0] - 1
-    pos = offsets.gather(1, bucket) + rank  # (B, C): a permutation per row
-    ids = torch.arange(n_chunks, dtype=torch.int32, device=mind.device)
-    order = torch.empty_like(pos, dtype=torch.int32).scatter_(
-        1, pos, ids.expand_as(pos).contiguous())
-    counts = overlap.sum(dim=1).to(torch.int32)
-    return order, key, counts
-
-
-def _sub_cone_cull(spheres, dh_p, o_p, valid=None, lane_bound=None):
-    """Cull at 128-lane sub-cones, then reduce to 1024-lane blocks: overlap =
-    any sub overlaps, mind = min over overlapping subs. valid drops masked
-    lanes from the cones and all-masked subs entirely; lane_bound culls rays
-    as segments. Returns (mind, overlap) shaped (B, C)."""
-    nb = NB // SUB
-    n_sub = dh_p.shape[1] // nb
-    d = dh_p.reshape(3, n_sub, nb)
-    o = o_p.reshape(3, n_sub, nb)
+def cone_table(d, o, valid=None, lane_bound=None, lanes=NB // SUB):
+    """The culling cones of rays d/o (..., 3, n_pad), one per `lanes`
+    consecutive lanes (128-lane sub-cones; 1024-lane block cones for
+    live_chunk_lists3's bits): (..., n_pad // lanes, CONE_COLS) rows [apex(3)
+    axis(3) cos_a sin_a o_rad bound has_valid enabled], which the kernel and
+    its twin both read. valid (n_pad,) keeps masked lanes out of the cones
+    (has_valid 0 for a group with none); lane_bound (..., n_pad) gives each
+    group's bound, its lanes' max (0 without one); enabled is 1."""
+    G = d.shape[-1] // lanes
+    d = d.reshape(*d.shape[:-1], G, lanes)
+    o = o.reshape(*o.shape[:-1], G, lanes)
     if valid is not None:
         d, o = _mask_invalid_lanes(d, o, valid)
-    mind_s, over_s = _cone_cull(spheres, d, o)
-    if valid is not None:
-        over_s = over_s & valid.reshape(n_sub, nb).any(dim=1)[:, None]
-    if lane_bound is not None:
-        sub_bound = lane_bound.reshape(n_sub, nb).amax(dim=1)
-        over_s = over_s & (mind_s <= sub_bound[:, None] + 1e-3)
-    C = mind_s.shape[1]
-    over_s = over_s.reshape(n_sub // SUB, SUB, C)
-    mind_s = torch.where(over_s, mind_s.reshape(n_sub // SUB, SUB, C), INF)
-    return mind_s.amin(dim=1), over_s.any(dim=1)
+    apex, axis, cos_a, o_rad = _cones_of(d, o)
+    sin_a = torch.sqrt(torch.clamp(1.0 - cos_a * cos_a, min=0.0))
+    zero = torch.zeros_like(cos_a)
+    bound = zero if lane_bound is None else lane_bound.reshape(
+        *lane_bound.shape[:-1], G, lanes).amax(dim=-1)
+    has_valid = zero + (1.0 if valid is None else valid.reshape(G, lanes).any(dim=1))
+    return torch.stack([*apex.unbind(-2), *axis.unbind(-2), cos_a, sin_a, o_rad, bound,
+                        has_valid, zero + 1.0], dim=-1).contiguous()
 
 
-def live_chunk_lists(spheres, dh_p, o_p, valid=None, lane_bound=None):
-    """Per-block live-chunk lists for rays dh_p/o_p (3, n_pad): the cull of
-    `_sub_cone_cull` followed by `bucket_order`."""
-    mind, overlap = _sub_cone_cull(spheres, dh_p, o_p, valid, lane_bound)
-    return bucket_order(mind, overlap)
+def _pad_cols(x, width: int, value):
+    return torch.cat([x, torch.full((x.shape[0], width - x.shape[1]), value, dtype=x.dtype,
+                                    device=x.device)], dim=1)
 
 
 def pack_bits(overlap):
@@ -184,9 +153,166 @@ def pack_bits(overlap):
     return torch.where(packed >= 2 ** 31, packed - 2 ** 32, packed).to(torch.int32)
 
 
-def _pad_cols(x, width: int, value):
-    return torch.cat([x, torch.full((x.shape[0], width - x.shape[1]), value, dtype=x.dtype,
-                                    device=x.device)], dim=1)
+def live_cull_plain(spheres, table, sub=SUB, use_bound=False, cobj=None, smin=None, s=0,
+                    n_words=0, floors=True):
+    """Plain twin of the rpt_live_cull kernel. Each of B blocks' `sub` cones
+    (table (B * sub, CONE_COLS), or (O, B * sub, CONE_COLS) per object for a
+    pool) against each chunk sphere (spheres (C, 4)), the sums written out
+    left to right as the kernel adds them; overlap needs has_valid and, with
+    use_bound, mind <= bound + 1e-3; then per (block, chunk) the min of the
+    overlapping cones' minds (INF if none) and any-overlap. A pool gives
+    cobj (C,), each chunk's object, and smin (O, B), the block's minimum
+    scale: floors are scaled by it, and a disabled object's chunks are INF
+    and dead. s = 0 returns (mind (B, C), overlap (B, C)); s > 0 returns the
+    overlap packed as bits (B, n_words) and, with `floors`, the supers' of s
+    chunks (B, ceil(C / s)) min floor and any-overlap, the pad past C INF
+    and dead (else None, None)."""
+    if cobj is None:
+        q = table[:, None, :].unbind(-1)  # (B * sub, 1) each
+    else:
+        q = table[cobj.long()].transpose(0, 1).unbind(-1)  # (B * sub, C) each
+    c = spheres.unbind(1)
+    r = c[3] + q[8]
+    dc = [c[k] - q[k] for k in range(3)]
+    dlen = torch.sqrt(dc[0] * dc[0] + dc[1] * dc[1] + dc[2] * dc[2])
+    mind = torch.clamp(dlen - r, min=0.0)
+    dl = torch.clamp(dlen, min=1e-12)
+    cos_d = (dc[0] * q[3] + dc[1] * q[4] + dc[2] * q[5]) / dl
+    sin_b = torch.clamp(r / dl, max=1.0)
+    cos_b = torch.sqrt(torch.clamp(1.0 - sin_b * sin_b, min=0.0))
+    # a + b >= pi (cos_b <= -cos_a) would wrap cos(a + b): always overlap.
+    over = (dlen <= r) | (cos_b <= -q[6]) | (cos_d >= q[6] * cos_b - q[7] * sin_b)
+    over = over & (q[10] != 0)
+    if use_bound:
+        over = over & (mind <= q[9] + 1e-3)
+    n, C = over.shape
+    over = over.reshape(n // sub, sub, C)
+    mind = torch.where(over, mind.reshape(n // sub, sub, C), INF).amin(dim=1)
+    over = over.any(dim=1)
+    if smin is not None:
+        on = q[11][0] != 0
+        mind = torch.where(on, mind * smin[cobj.long()].T, INF)
+        over = over & on
+    if not s:
+        return mind, over
+    bits = pack_bits(_pad_cols(over, n_words * 32, False))
+    if not floors:
+        return bits, None, None
+    B = mind.shape[0]
+    C_s = -(-C // s)
+    return (bits, _pad_cols(mind, C_s * s, INF).reshape(B, C_s, s).amin(dim=2),
+            _pad_cols(over, C_s * s, False).reshape(B, C_s, s).any(dim=2))
+
+
+def live_cull(spheres, table, sub=SUB, use_bound=False, cobj=None, smin=None, s=0, n_words=0,
+              floors=True):
+    """K4's cull: the rpt_live_cull kernel on CUDA tensors, the plain twin
+    on CPU tensors; arguments and results as `live_cull_plain`. s must
+    divide 32 or be a multiple of it."""
+    if spheres.device.type == "cpu":
+        return live_cull_plain(spheres, table, sub, use_bound, cobj, smin, s, n_words, floors)
+    if s and (32 % s if s < 32 else s % 32):
+        raise ValueError(f"live_cull: s must divide 32 or be a multiple of it, got {s}")
+    C = spheres.shape[0]
+    O = table.shape[0] if table.dim() == 3 else 1
+    B = table.shape[-2] // sub
+    f32, dev = torch.float32, spheres.device
+    specs = [(spheres, f32, (C, 4)), (table, f32, (*table.shape[:-2], B * sub, CONE_COLS))]
+    if cobj is not None:
+        specs += [(cobj, torch.int32, (C,)), (smin, f32, (O, B))]
+    check_cuda("live_cull", *specs)
+    if not s:
+        mind = torch.empty((B, C), dtype=f32, device=dev)
+        over = torch.empty((B, C), dtype=torch.bool, device=dev)
+        launch("rpt_live_cull", spheres, C, table, B, sub, cobj, smin, int(use_bound), 0, 0,
+               mind, over, None, None, None)
+        return mind, over
+    C_s = -(-C // s)
+    bits = torch.empty((B, n_words), dtype=torch.int32, device=dev)
+    mg = torch.empty((B, C_s), dtype=f32, device=dev) if floors else None
+    og = torch.empty((B, C_s), dtype=torch.bool, device=dev) if floors else None
+    launch("rpt_live_cull", spheres, C, table, B, sub, cobj, smin, int(use_bound), s, n_words,
+           None, None, bits, mg, og)
+    return bits, mg, og
+
+
+def bucket_order_plain(mind, overlap):
+    """Plain twin of the rpt_bucket_order kernel: front-to-back compaction
+    of live entries per block by a 16-bucket counting sort. mind/overlap:
+    (B, C). Returns (order (B, C) int32 entry ids, live ones first; minds
+    (B, C) f32 bucket floors keyed by entry id; counts (B,) int32 live
+    counts). Floors never exceed an entry's true distance and never decrease
+    along `order`, so stopping on them is sound."""
+    n_chunks = mind.shape[1]
+    lo_k = mind.amin(dim=1, keepdim=True)
+    hi_k = torch.where(overlap, mind, -INF).amax(dim=1, keepdim=True)
+    span = torch.clamp(hi_k - lo_k, min=1e-6)
+    x = (mind - lo_k) / span * (NBKT - 1)
+    # Saturating float -> int (NaN -> 0), as XLA converts.
+    bucket = torch.clamp(torch.where(x > 0, x, 0.0), max=NBKT - 1).to(torch.int32)
+    # a true division on every device (CUDA turns a division by a Python
+    # number into a product with its reciprocal)
+    key = lo_k + bucket.to(torch.float32) * (span / torch.full_like(span, NBKT - 1))
+    bucket = torch.where(overlap, bucket, NBKT).long()  # dead chunks go last
+    onehot = F.one_hot(bucket, NBKT + 1)  # (B, C, NBKT + 1)
+    per_bucket = onehot.sum(dim=1)
+    offsets = torch.cumsum(per_bucket, dim=1) - per_bucket
+    rank = torch.cumsum(onehot, dim=1).gather(2, bucket[:, :, None])[:, :, 0] - 1
+    pos = offsets.gather(1, bucket) + rank  # (B, C): a permutation per row
+    ids = torch.arange(n_chunks, dtype=torch.int32, device=mind.device)
+    order = torch.empty_like(pos, dtype=torch.int32).scatter_(
+        1, pos, ids.expand_as(pos).contiguous())
+    counts = overlap.sum(dim=1).to(torch.int32)
+    return order, key, counts
+
+
+def bucket_order(mind, overlap):
+    """K4's sort: the rpt_bucket_order kernel on CUDA tensors, the plain
+    twin on CPU tensors; arguments and results as `bucket_order_plain`."""
+    if mind.device.type == "cpu":
+        return bucket_order_plain(mind, overlap)
+    B, C = mind.shape
+    check_cuda("bucket_order", (mind, torch.float32, (B, C)), (overlap, torch.bool, (B, C)))
+    order = torch.empty((B, C), dtype=torch.int32, device=mind.device)
+    key = torch.empty((B, C), dtype=torch.float32, device=mind.device)
+    counts = torch.empty(B, dtype=torch.int32, device=mind.device)
+    launch("rpt_bucket_order", mind, overlap, B, C, order, key, counts)
+    return order, key, counts
+
+
+def _list_ops(plain: bool):
+    """(cull, sort): K4's kernels, or their twins."""
+    return (live_cull_plain, bucket_order_plain) if plain else (live_cull, bucket_order)
+
+
+def _lists(plain, spheres, dh_p, o_p, valid, lane_bound):
+    cull, sort = _list_ops(plain)
+    table = cone_table(dh_p, o_p, valid, lane_bound)
+    return sort(*cull(spheres, table, SUB, lane_bound is not None))
+
+
+def live_chunk_lists(spheres, dh_p, o_p, valid=None, lane_bound=None):
+    """Per-block live-chunk lists for rays dh_p/o_p (3, n_pad): each
+    128-lane sub-cone culled against every chunk sphere (valid drops masked
+    lanes from the cones and all-masked subs entirely; lane_bound culls rays
+    as segments), reduced to 1024-lane blocks (overlap = any sub overlaps,
+    mind = min over overlapping subs), then sorted front to back. Returns
+    (order (B, C), minds (B, C), counts (B,)). K4's kernels on CUDA tensors,
+    their twins on CPU tensors."""
+    return _lists(False, spheres, dh_p, o_p, valid, lane_bound)
+
+
+def live_chunk_lists_plain(spheres, dh_p, o_p, valid=None, lane_bound=None):
+    """live_chunk_lists with the kernels' plain twins, on any device."""
+    return _lists(True, spheres, dh_p, o_p, valid, lane_bound)
+
+
+def _lists2(plain, spheres, dh_p, o_p, valid, lane_bound, s):
+    cull, sort = _list_ops(plain)
+    table = cone_table(dh_p, o_p, valid, lane_bound)
+    bits, mind_g, over_g = cull(spheres, table, SUB, lane_bound is not None, None, None, s,
+                                -(-spheres.shape[0] // 32), True)
+    return (*sort(mind_g, over_g), bits)
 
 
 def live_chunk_lists2(spheres, dh_p, o_p, valid=None, lane_bound=None, s=8):
@@ -194,15 +320,14 @@ def live_chunk_lists2(spheres, dh_p, o_p, valid=None, lane_bound=None, s=8):
     consecutive chunks, their floors reduced from the chunk-level cull (min
     over the group's live chunks, any for overlap), and the chunk-level
     overlap packed as bits. Returns (order (B, C_s), minds (B, C_s), counts
-    (B,), bits (B, ceil(C / 32)))."""
-    mind_c, over_c = _sub_cone_cull(spheres, dh_p, o_p, valid, lane_bound)
-    B, C = mind_c.shape
-    C_s = -(-C // s)
-    mind_g = _pad_cols(mind_c, C_s * s, INF)  # already INF where over_c is False
-    over_g = _pad_cols(over_c, C_s * s, False)
-    order, minds, counts = bucket_order(mind_g.reshape(B, C_s, s).amin(dim=2),
-                                        over_g.reshape(B, C_s, s).any(dim=2))
-    return order, minds, counts, pack_bits(over_c)
+    (B,), bits (B, ceil(C / 32))). K4's kernels on CUDA tensors (s dividing
+    32 or a multiple of it), their twins on CPU tensors."""
+    return _lists2(False, spheres, dh_p, o_p, valid, lane_bound, s)
+
+
+def live_chunk_lists2_plain(spheres, dh_p, o_p, valid=None, lane_bound=None, s=8):
+    """live_chunk_lists2 with the kernels' plain twins, on any device."""
+    return _lists2(True, spheres, dh_p, o_p, valid, lane_bound, s)
 
 
 def super_spheres_of(spheres, s):
@@ -224,25 +349,34 @@ def super_spheres_of(spheres, s):
     return torch.cat([center, rad[:, None]], dim=1)
 
 
+def _lists3(plain, spheres, dh_p, o_p, valid, lane_bound, s):
+    cull, sort = _list_ops(plain)
+    table = cone_table(dh_p, o_p, valid, lane_bound)
+    order, minds, counts = sort(*cull(super_spheres_of(spheres, s), table, SUB,
+                                      lane_bound is not None))
+    # The chunk bits from one cone per block; an all-masked block's
+    # degenerate cone reads as overlapping all, so has_valid drops it. The
+    # bit columns cover C_s * s chunks: the walk's cursor reaches the pad
+    # positions of a ragged last super.
+    blocks = cone_table(dh_p, o_p, valid, lanes=NB)
+    width = -(-spheres.shape[0] // s) * s
+    bits, _, _ = cull(spheres, blocks, 1, False, None, None, s, -(-width // 32), False)
+    return order, minds, counts, bits
+
+
 def live_chunk_lists3(spheres, dh_p, o_p, valid=None, lane_bound=None, s=128):
     """live_chunk_lists2 for very large chunk counts: order, floors and
     segment culling against the super spheres (sub-cone work (n_sub, C / s)
-    instead of (n_sub, C)), and the chunk bits from one block-cone pass.
-    The bit columns are padded to C_s * s, since the walk's cursor reaches
-    the pad positions of a ragged last super. Same outputs as lists2."""
-    mind_s, over_s = _sub_cone_cull(super_spheres_of(spheres, s), dh_p, o_p, valid, lane_bound)
-    order, minds, counts = bucket_order(mind_s, over_s)
-    B = dh_p.shape[1] // NB
-    d = dh_p.reshape(3, B, NB)
-    o = o_p.reshape(3, B, NB)
-    if valid is not None:
-        d, o = _mask_invalid_lanes(d, o, valid)
-    _, over_c = _cone_cull(spheres, d, o)
-    if valid is not None:
-        # an all-masked block's degenerate cone reads as overlapping all
-        over_c = over_c & valid.reshape(B, NB).any(dim=1)[:, None]
-    C_s = -(-spheres.shape[0] // s)
-    return order, minds, counts, pack_bits(_pad_cols(over_c, C_s * s, False))
+    instead of (n_sub, C)), and the chunk bits from one block-cone pass,
+    padded to C_s * s columns. Same outputs as lists2. K4's kernels on CUDA
+    tensors (s dividing 32 or a multiple of it), their twins on CPU
+    tensors."""
+    return _lists3(False, spheres, dh_p, o_p, valid, lane_bound, s)
+
+
+def live_chunk_lists3_plain(spheres, dh_p, o_p, valid=None, lane_bound=None, s=128):
+    """live_chunk_lists3 with the kernels' plain twins, on any device."""
+    return _lists3(True, spheres, dh_p, o_p, valid, lane_bound, s)
 
 
 def _box_of(spheres):

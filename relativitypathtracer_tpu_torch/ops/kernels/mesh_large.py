@@ -32,7 +32,8 @@ import torch
 from ._build import check_cuda, launch
 from .mesh_kernels import (
     N_ATTR, NB, TC, _box_of, _general_lane_bound, _pad_lanes, _round_up, live_chunk_lists2,
-    live_chunk_lists3, shared_tri_rows, walk_general_lists, walk_shared_lists)
+    live_chunk_lists2_plain, live_chunk_lists3, live_chunk_lists3_plain, shared_tri_rows,
+    walk_general_lists, walk_shared_lists)
 
 S_SUPER = 32  # chunks per superchunk
 LARGE_T = 24576  # T_pad above which the JAX package's VMEM kernels stop fitting
@@ -55,6 +56,13 @@ def large_live_lists(spheres, dh_p, o_p, valid=None, lane_bound=None):
     if C <= SUPER_CULL_C:
         return live_chunk_lists2(spheres, dh_p, o_p, valid, lane_bound, s=S_SUPER)
     return live_chunk_lists3(spheres, dh_p, o_p, valid, lane_bound, s=S_SUPER_XL)
+
+
+def large_live_lists_plain(spheres, dh_p, o_p, valid=None, lane_bound=None):
+    """large_live_lists with K4's plain twins, on any device."""
+    if spheres.shape[0] <= SUPER_CULL_C:
+        return live_chunk_lists2_plain(spheres, dh_p, o_p, valid, lane_bound, s=S_SUPER)
+    return live_chunk_lists3_plain(spheres, dh_p, o_p, valid, lane_bound, s=S_SUPER_XL)
 
 
 def super_cursor_lists(order, minds, counts, bits, S: int, C: int):

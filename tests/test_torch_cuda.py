@@ -911,3 +911,207 @@ def test_xl_lists_on_the_large_fixture(cuda, tmp_path, monkeypatch):
     diff = (img - base).abs().amax(dim=-1)
     assert float((diff > 1e-3).float().mean()) <= 0.002
     assert {k: int(v) for k, v in aux.items()} == {k: int(v) for k, v in base_aux.items()}
+
+
+# --- K4: the live-chunk list build ----------------------------------------------
+
+K4_KEYS = ("rpt_live_cull", "rpt_bucket_order")
+
+
+def _same(got, want) -> bool:
+    """Equal to the bit: floats compared as their int32 bits."""
+    if got is None or want is None:
+        return got is None and want is None
+    if got.dtype == torch.float32:
+        return torch.equal(got.view(torch.int32), want.view(torch.int32))
+    return torch.equal(got, want)
+
+
+def _k4_equals_twin(fn, plain, *args, **kw):
+    """A list function on CUDA inputs: K4's two kernels launched, every
+    output equal to the twin's on the same inputs to the bit. Returns the
+    twin's outputs."""
+    before = [_launches(k) for k in K4_KEYS]
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert all(_launches(k) > b for k, b in zip(K4_KEYS, before))
+    want = plain(*args, **kw)
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert _same(g, w), i
+    return want
+
+
+def _captured(mod, attr, build):
+    """The (args, kwargs) of every call of mod.attr while build() runs."""
+    calls, real = [], getattr(mod, attr)
+
+    def rec(*a, **kw):
+        calls.append((a, kw))
+        return real(*a, **kw)
+
+    setattr(mod, attr, rec)
+    try:
+        build()
+    finally:
+        setattr(mod, attr, real)
+    return calls
+
+
+K4_CASES = ("flat_shared", "flat_shadow", "lists2_ragged", "lists3", "pool_shared",
+            "pool_shadow_one_disabled", "large_pool")
+
+
+@pytest.mark.parametrize("case", K4_CASES)
+def test_list_kernels_equal_twins(cuda, case):
+    """K4 (rpt_live_cull, rpt_bucket_order) equal to its twins to the bit
+    in order, floors, counts and bits: flat lists of 160 chunks over 8
+    blocks for shared rays and for shadow rays (masked lanes, two all-masked
+    sub-cones, a lane bound); lists2 at S = 32 on a ragged 333 chunks (a
+    last bit word and super of 13); lists3 at S = 128 on 1,000 chunks (the
+    super-sphere cull and the block-cone bits); the pool of 4 objects for
+    K9's lists, and for K10's with object 1 disabled; and the 25,344-chunk
+    pool of 33 objects (LARGE_POOL)."""
+    from torch_port_fixtures import list_rays, list_spheres
+
+    from relativitypathtracer_tpu_torch.ops.kernels import mesh_batch as mb
+    from relativitypathtracer_tpu_torch.ops.kernels import mesh_kernels as mk
+
+    if case.startswith("pool") or case == "large_pool":
+        shadow = case != "pool_shared"
+        kw = LARGE_POOL if case == "large_pool" else {}
+        O = 33 if case == "large_pool" else 4
+        calls = _captured(mb, "live_chunk_lists_multi",
+                          lambda: _batch_args(cuda, O, shadow=shadow, **kw))
+        assert len(calls) == 1
+        a, k = calls[0]
+        if shadow:
+            assert k["enabled"][1] is False and sum(k["enabled"]) == O - 1
+        order, minds, counts = _k4_equals_twin(mb.live_chunk_lists_multi,
+                                               mb.live_chunk_lists_multi_plain, *a, **k)
+        assert int(counts.sum()) > 0 and order.shape[1] == sum(a[1])
+        if shadow:  # the disabled object's chunks are never live
+            c0 = a[1][0]
+            live = torch.arange(order.shape[1], device=cuda)[None, :] < counts[:, None].long()
+            dead = (order >= c0) & (order < c0 + a[1][1])
+            assert not bool((dead & live).any())
+        return
+    rng = np.random.default_rng(300 + K4_CASES.index(case))
+    C = {"lists2_ragged": 333, "lists3": 1000}.get(case, 160)
+    d, o, valid, bound = list_rays(rng, n=8192, spread=0.05, shadow=case != "flat_shared")
+    args = [torch.as_tensor(x, device=cuda) for x in (list_spheres(rng, C), d, o)]
+    kw = {} if case == "flat_shared" else {
+        "valid": torch.as_tensor(valid, device=cuda), "lane_bound": torch.as_tensor(bound,
+                                                                                    device=cuda)}
+    if case.startswith("flat"):
+        out = _k4_equals_twin(mk.live_chunk_lists, mk.live_chunk_lists_plain, *args, **kw)
+    elif case == "lists2_ragged":
+        out = _k4_equals_twin(mk.live_chunk_lists2, mk.live_chunk_lists2_plain, *args, s=32, **kw)
+        assert out[3].shape == (8, 11) and out[0].shape == (8, 11)
+    else:
+        out = _k4_equals_twin(mk.live_chunk_lists3, mk.live_chunk_lists3_plain, *args, s=128,
+                              **kw)
+        assert out[3].shape == (8, 32) and out[0].shape == (8, 8)
+    counts = out[2]
+    assert int(counts.sum()) > 0
+    if case == "flat_shared":  # narrow cones: some chunks culled
+        assert int((counts < C).sum()) > 0
+
+
+def test_bucket_order_kernel_keeps_ties_and_empty_blocks(cuda):
+    """rpt_bucket_order equal to its twin to the bit on rows of 700 entries
+    (three tiles of the kernel): all ties (the stable order is by entry id),
+    nothing live (hi = -INF, the span clamped to 1e-6), every entry live,
+    floors drawn from four values (ties across tiles in every bucket), and
+    random floors with 40% live."""
+    from relativitypathtracer_tpu_torch.ops.kernels import mesh_kernels as mk
+
+    rng = np.random.default_rng(400)
+    n = 700
+    mind = rng.uniform(0.0, 5.0, (5, n)).astype(np.float32)
+    over = rng.uniform(size=(5, n)) < 0.4
+    mind[0] = 1.0
+    over[0] = True
+    over[1] = False
+    over[2] = True
+    mind[3] = rng.choice(np.array([0.5, 1.0, 2.5, 4.0], np.float32), n)
+    args = (torch.as_tensor(mind, device=cuda), torch.as_tensor(over, device=cuda))
+    before = _launches("rpt_bucket_order")
+    got = mk.bucket_order(*args)
+    torch.cuda.synchronize()
+    assert _launches("rpt_bucket_order") == before + 1
+    want = mk.bucket_order_plain(*args)
+    for g, w in zip(got, want):
+        assert _same(g, w)
+    assert got[0][0].tolist() == list(range(n)) and got[0][1].tolist() == list(range(n))
+    assert got[2].tolist()[:3] == [n, 0, n]
+
+
+def _large_walks_equal_twins(args, shadow):
+    """K11 (or K12) on args equal to its twin bit for bit; returns the
+    chunks each block walked (the twin's count)."""
+    from relativitypathtracer_tpu_torch.ops.kernels import mesh_kernels as mk
+    from relativitypathtracer_tpu_torch.ops.kernels import mesh_large as ml
+
+    S, C, T = args[-3:]
+    lists = ml.super_cursor_lists(*args[:4], S, C)
+    if shadow:
+        got = ml.large_general_walk(*args)
+        want, walked = mk.walk_general_lists(*lists, *args[4:8], T, walked=True)
+        assert torch.equal(got, want)
+        return walked
+    got = ml.large_shared_walk(*args)
+    *want, walked = mk.walk_shared_lists(*lists, *args[4:8], T, walked=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert bool((want[3] >= 0).any())
+    return walked
+
+
+@pytest.mark.parametrize("walk", ["K11", "K12"])
+def test_large_walks_read_lists_past_the_staged_head(cuda, monkeypatch, walk):
+    """K11 and K12 over lists longer than SuperList's staged head (512
+    supers and 512 bit words, csrc/mesh_kernels.cu): a soup of 543,990
+    triangles (17,000 chunks, 532 supers of 32, the last of 8 chunks), two
+    ray blocks, every super live and every lane walking to the end, so the
+    cursor reads supers, floors and bit words past the head from global
+    memory; the lists (lists2 at S = 32, forced past SUPER_CULL_C) equal
+    their twin's, the walks their twins' bit for bit."""
+    from relativitypathtracer_tpu_torch.ops.kernels import mesh_kernels as mk
+    from relativitypathtracer_tpu_torch.ops.kernels import mesh_large as ml
+
+    monkeypatch.setattr(ml, "SUPER_CULL_C", 20_000)
+    shadow = walk == "K12"
+    out = []
+    calls = _captured(ml, "live_chunk_lists2", lambda: out.append(_soup_lists(
+        cuda, shadow=shadow, T=543_990, n=2048, seed=11, large=True,
+        pattern="all_active" if shadow else None)))
+    args = out[0]
+    assert args[-3:] == (32, 17_000, 543_990) and args[0].shape == (2, 532)
+    a, k = calls[0]
+    _k4_equals_twin(ml.live_chunk_lists2, mk.live_chunk_lists2_plain, *a, **k)
+    assert args[2].tolist() == [532, 532]
+    walked = _large_walks_equal_twins(args, shadow)
+    assert int(walked.min()) > 512 * 32
+
+
+@pytest.mark.parametrize("walk", ["K11", "K12"])
+def test_large_walks_end_at_the_list_end(cuda, walk):
+    """The one-past-end read: every super of every block live, the ragged
+    last one (8 of 32 chunks below C = 72) last in the list, floors 0, so
+    each walk runs every chunk and its cursor ends exactly at the list's
+    end; K11 and K12 equal their twins bit for bit."""
+    from relativitypathtracer_tpu_torch.ops.kernels import mesh_kernels as mk
+
+    shadow = walk == "K12"
+    args = list(_soup_lists(cuda, shadow=shadow, T=2300, seed=12, large=True,
+                            pattern="all_active" if shadow else None))
+    S, C, T = args[-3:]
+    assert (S, C) == (32, 72)
+    B = args[0].shape[0]
+    args[0] = torch.arange(3, dtype=torch.int32, device=cuda).repeat(B, 1)
+    args[1] = torch.zeros((B, 3), device=cuda)
+    args[2] = torch.full((B,), 3, dtype=torch.int32, device=cuda)
+    args[3] = mk.pack_bits(torch.ones((B, C), dtype=torch.bool, device=cuda))
+    walked = _large_walks_equal_twins(args, shadow)
+    assert walked.tolist() == [C] * B

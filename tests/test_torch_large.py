@@ -191,6 +191,22 @@ def test_super_cursor_skips_dead_and_padded_chunks():
     assert floors[0, :4].tolist() == [1.0, 2.0, 2.0, 2.0]
 
 
+def test_super_cursor_ends_at_the_list_end_when_every_super_is_live():
+    """The one-past-end read that the JAX package's cursor guards against
+    (its clamp in mesh_large._walk_scaffold): every super of the block live
+    and the ragged last one (2 of 4 chunks below C) last in the list, so the
+    cursor ends exactly at the list's end. It yields every real chunk once,
+    in order, each with its super's floor, and nothing at or past C."""
+    order = torch.tensor([[0, 1, 2]], dtype=torch.int32)
+    minds = torch.tensor([[1.0, 2.0, 3.0]])
+    counts = torch.tensor([3], dtype=torch.int32)
+    bits = pmk.pack_bits(torch.ones((1, 10), dtype=torch.bool))
+    chunks, floors, n_live = pml.super_cursor_lists(order, minds, counts, bits, 4, 10)
+    assert chunks.shape == (1, 12) and int(n_live[0]) == 10
+    assert chunks[0, :10].tolist() == list(range(10))
+    assert floors[0, :10].tolist() == [1.0] * 4 + [2.0] * 4 + [3.0] * 2
+
+
 def test_large_fixture_is_the_large_tier():
     """The "large" fixture's mesh: 327,680 triangles, so T_pad 327,680 and
     10,240 chunks in 320 superchunks of 32 (the chunk-level cull, not the

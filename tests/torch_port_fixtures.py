@@ -71,6 +71,31 @@ def aim_at(rng, verts, tri_v, targets, ro):
     return (d / np.linalg.norm(d, axis=0)).astype(np.float32)
 
 
+def list_rays(rng, n: int = 2048, spread: float = 0.3, shadow: bool = False):
+    """Rays for the list builds: (d, o, valid, bound), numpy float32/bool.
+    Unit dirs around +z; one origin near (0, 0, 0), or for shadow rays
+    origins spread over [-1, 1]^3 and the first 256 lanes masked (two
+    all-masked 128-lane sub-cones); a lane bound of 3-9 on valid lanes."""
+    d = rng.normal(size=(3, n)) * spread
+    d[2] = 1.0
+    d /= np.linalg.norm(d, axis=0)
+    if shadow:
+        o = rng.uniform(-1.0, 1.0, (3, n))
+    else:
+        o = np.broadcast_to(rng.uniform(-0.2, 0.2, (3, 1)), (3, n))
+    valid = rng.uniform(size=n) > 0.3
+    if shadow:
+        valid[:256] = False
+    bound = np.where(valid, rng.uniform(3.0, 9.0, n), 0.0)
+    return d.astype(np.float32), np.array(o, np.float32), valid, bound.astype(np.float32)
+
+
+def list_spheres(rng, C: int):
+    """C chunk spheres (C, 4) around (0, 0, 6), radii 0.1-0.5; numpy."""
+    centres = rng.uniform(-1.5, 1.5, (C, 3)) + np.array([0.0, 0.0, 6.0])
+    return np.concatenate([centres, rng.uniform(0.1, 0.5, (C, 1))], axis=1).astype(np.float32)
+
+
 def t(x, dtype=None):
     """numpy -> CPU tensor."""
     return torch.as_tensor(np.array(x, order="C"), dtype=dtype)

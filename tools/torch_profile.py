@@ -11,14 +11,16 @@ with torch.profiler. It prints one JSON line per path: the card, the frame
 time, the kernels launched per frame, the device busy time per frame (the
 union of kernel and copy intervals) and its share of the frame, each of the
 port's CUDA kernels' device time per frame, and the five other kernels with
-the most device time. K4, the live-chunk list build, is torch operations and
-not one kernel: every list build of one frame is captured and replayed 10
-times under the profiler alone, which gives its device time per frame
-(`k4`: builds per frame, device ms, and the bound of the same work: the
-spheres and rays read once and the lists written once over the memory rate,
-or about 30 operations per cone test of a (128-lane sub-cone, chunk) pair
-and 40 per (block, entry) of the counting sort over the fp32 rate, the
-larger of the two). Needs a CUDA device and nvcc.
+the most device time. K4, the live-chunk list build, is two kernels (the
+cull "K4 cull" and the counting sort "K4 sort") after the torch ops of its
+cone table: every list build of one frame is captured and replayed 10
+times under the profiler alone, which gives its device time per frame with
+the table's ops (`k4`: builds per frame, device ms, and the bound of the
+same work: the spheres, rays and lane masks read once and the lists written
+once over the memory rate, or about 30 operations per cone test of a
+(128-lane sub-cone, chunk) pair and 40 per (block, entry) of the counting
+sort over the fp32 rate, the larger of the two). Needs a CUDA device and
+nvcc.
 """
 
 from __future__ import annotations
@@ -48,7 +50,8 @@ PORT_KERNELS = {"K1": ("shadow_chain_kernel",), "K2/K8": ("footprint_kernel",),
                 "K5": ("shared_walk_kernel", "FlatList"), "K6": ("general_walk_kernel", "FlatList"),
                 "K11": ("shared_walk_kernel", "SuperList"),
                 "K12": ("general_walk_kernel", "SuperList"),
-                "K9": ("batched_shared_walk_kernel",), "K10": ("batched_general_walk_kernel",)}
+                "K9": ("batched_shared_walk_kernel",), "K10": ("batched_general_walk_kernel",),
+                "K4 cull": ("live_cull",), "K4 sort": ("bucket_order_kernel",)}
 
 
 def _port_kernel(name: str):
@@ -83,7 +86,7 @@ def _device_ms(fn, reps: int) -> float:
                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / reps
 
 
-def _list_bound_ms(name, args, out) -> float:
+def _list_bound_ms(name, args, kw, out) -> float:
     """The least time of one list build (see the module docstring)."""
     spheres = args[0]
     rays = args[2] if name == "live_chunk_lists_multi" else args[1]
@@ -93,9 +96,8 @@ def _list_bound_ms(name, args, out) -> float:
     pairs = n_pad // (mk.NB // mk.SUB) * C
     if name == "large_live_lists" and C > ml.SUPER_CULL_C:  # super-sphere cull + block bits
         pairs = n_pad // (mk.NB // mk.SUB) * order.shape[1] + B * C
-    moved = (spheres.numel() * 4 + sum(a.numel() * a.element_size() for a in args[1:]
-                                       if torch.is_tensor(a))
-             + sum(o.numel() * o.element_size() for o in out))
+    moved = sum(a.numel() * a.element_size() for a in (*args, *kw.values(), *out)
+                if torch.is_tensor(a))
     return max(moved / PEAK_BYTES, (30.0 * pairs + 40.0 * entries) / PEAK_OPS) * 1e3
 
 
@@ -120,7 +122,7 @@ def list_build(render, scene, state, reps: int = 10) -> dict:
     ms = _device_ms(lambda: [fn(*a, **kw) for fn, _, a, kw, _ in calls], reps)
     return {"builds_per_frame": collections.Counter(c[1] for c in calls),
             "device_ms_per_frame": ms,
-            "bound_ms_per_frame": sum(_list_bound_ms(n, a, o) for _, n, a, _, o in calls)}
+            "bound_ms_per_frame": sum(_list_bound_ms(n, a, kw, o) for _, n, a, kw, o in calls)}
 
 
 def profile_path(kind: str, card: str, timed: int = 30, traced: int = 10) -> dict:
