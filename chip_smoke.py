@@ -45,7 +45,10 @@ For each path it:
      from those inputs; then holds every list build of the first frame (K4
      with its cone table, through the list function the walks call) to its
      twin on the same inputs, to the bit, and prints K4's builds, device ms
-     and the twin's ms per frame with their bound;
+     and the twin's ms per frame with their bound, and each cull launch's
+     ms with the share of (block, 32-chunk group) pairs whose cone tests
+     its group pre-test skipped (read through the kernel's counter in a run
+     of its own; on large, culls that skip none fail);
   3. renders the last frame with the port on the CPU (the plain twins) and
      holds the card's frame to it under the parity rule (at most 0.2% of
      pixels off by more than 1e-3); blob and instances at 512x384, large at
@@ -212,13 +215,39 @@ def list_bound_ms(ml, name, args, kwargs, out) -> float:
     return bound(30.0 * pairs + 40.0 * order.numel(), moved)[0]
 
 
-def compare_lists(torch, ml, path, calls, plains):
+def cull_launches(torch, mk, fn, args, kwargs):
+    """The cull launches of one list build, run again with the pre-test's
+    skip counter (outside the timed frames): [(device ms a launch, groups
+    skipped, (block, 32-chunk group) pairs)]."""
+    real, seen = mk.live_cull, []
+
+    def counted(*a):
+        skipped = torch.zeros(1, dtype=torch.int32, device=a[0].device)
+        seen.append((a, skipped))
+        return real(*a, skipped=skipped)
+
+    mk.live_cull = counted
+    try:
+        fn(*args, **kwargs)
+    finally:
+        mk.live_cull = real
+    out = []
+    for a, skipped in seen:
+        spheres, table, sub = a[:3]
+        pairs = table.shape[-2] // sub * -(-spheres.shape[0] // 32)
+        out.append((kernel_ms(torch, real, list(a)), int(skipped), pairs))
+    return out
+
+
+def compare_lists(torch, mk, ml, path, calls, plains):
     """Every list build of the first frame (its list function, captured
     with its inputs) against the same function on K4's twins: equal to the
     bit; K4's device ms a frame (each build replayed from a CUDA graph, as
     kernel_ms times a kernel) against the twins' ms a frame (CUDA events
-    around a call), and the bound."""
-    builds, k_ms, p_ms, b_ms = {}, 0.0, 0.0, 0.0
+    around a call), and the bound; each build's cull launches with their
+    ms and the share of groups the pre-test skipped (large fails if its
+    culls skip none)."""
+    builds, k_ms, p_ms, b_ms, culls = {}, 0.0, 0.0, 0.0, []
     for name, fn, args, kwargs in calls:
         plain = plains[name]
         got, want = fn(*args, **kwargs), plain(*args, **kwargs)
@@ -230,10 +259,15 @@ def compare_lists(torch, ml, path, calls, plains):
         p_ms += time_ms(torch, lambda: plain(*args, **kwargs))
         b_ms += list_bound_ms(ml, name, args, kwargs, got)
         builds[name] = builds.get(name, 0) + 1
+        culls += cull_launches(torch, mk, fn, args, kwargs)
     check(builds, f"K4 on {path}: no list build captured")
+    skipped = sum(c[1] for c in culls)
+    check(path != "large" or skipped > 0, f"K4 on {path}: the cull's pre-test skipped no group")
     log(f"  K4 on {path}: {sum(builds.values())} list builds a frame {builds}, equal to the "
         f"twins' to the bit; kernels {k_ms:.4f} ms a frame (cone tables included), torch ops "
-        f"{p_ms:.4f} ms, bound {b_ms:.4f} ms, share {b_ms / k_ms:.1%}")
+        f"{p_ms:.4f} ms, bound {b_ms:.4f} ms, share {b_ms / k_ms:.1%}; the cull a launch: "
+        + ", ".join(f"{ms:.4f} ms (pre-test skipped {n:,} of {pairs:,} groups, {n / pairs:.2%})"
+                    for ms, n, pairs in culls))
 
 
 def compare_kernels(torch, pt_mods, meta, captured, originals, names):
@@ -612,7 +646,7 @@ def main() -> int:
         results[path] = compare_kernels(torch, (ak, mk, sc, tk, mb, ml), meta, captured,
                                         originals_by_key, names)
         if "rpt_live_cull" in names:
-            compare_lists(torch, ml, path, list_calls, list_plains)
+            compare_lists(torch, mk, ml, path, list_calls, list_plains)
         else:
             check(not list_calls, f"{path}: list builds on a path without meshes")
         del captured, list_calls

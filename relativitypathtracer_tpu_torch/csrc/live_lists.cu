@@ -13,8 +13,9 @@
 // 755 MB in a dozen passes.
 //
 //   rpt_live_cull (live_cull_kernel): every (ray block, chunk) pair. A
-//     thread takes one chunk of one block, reads the chunk's sphere and runs
-//     the block's `sub` cone tests against it (operation for operation as
+//     thread takes one chunk, for each of its warp's blocks (up to
+//     kMaxBlocks) reads the chunk's sphere and runs the block's `sub` cone
+//     tests against it (operation for operation as
 //     live_cull_plain: the sums written out left to right, IEEE sqrtf and
 //     division, torch.clamp's and amin's NaN rules), then the all-masked
 //     drop, the segment cull against the cone's bound (+1e-3), the min over
@@ -26,12 +27,16 @@
 //     and twin agree bit for bit. No (cone, chunk) value leaves the
 //     registers. Two variants:
 //       flat:  writes the block-level floor and overlap (B, C);
-//       super: a warp holds 32 consecutive chunks of one block, so
+//       super: a warp holds 32 consecutive chunks, so for each block
 //              __ballot_sync of the overlap flags is the packed bit word
 //              (bit i = chunk 32w + i, bit 31 the sign bit, as pack_bits);
 //              supers of S chunks (S dividing 32, or a multiple of it, the
 //              warp then walking S / 32 words) reduce by shuffles to their
 //              floor (min, INF-padded past C) and liveness (any).
+//     Both variants first run a group pre-test (below): for a block whose
+//     cones cannot overlap any of the warp's 32 chunks the warp writes what
+//     the dense tests would (floor INF, not live, bit word 0) without
+//     running them.
 //   rpt_bucket_order (bucket_order_kernel): one CTA per block, any entry
 //     count, in three passes over tiles of 256 entries: lo = min over every
 //     entry, hi = max over the live ones, count; each entry's bucket and
@@ -51,6 +56,68 @@
 // writes 5 bytes a (block, chunk) pair (flat) or one bit and 5 bytes a
 // (block, super) pair. The sort moves 5 bytes in and 8 out an entry, a few
 // dozen operations each: bytes and latency bound, small beside the cull.
+// Most (block, 32-chunk group) pairs hold no live chunk (98.4% and 99.6%
+// on the large mesh's two builds), so the cull spends its issue slots on
+// the group pre-test instead. A first design built the group's sphere (two
+// shuffle reductions) for every (block, group) pair and tested one block's
+// 8 cones on 8 lanes: that cost half a dense group. So a warp takes its
+// group against up to kMaxBlocks blocks: one sphere for all of them, 4
+// blocks' cones a round on its 32 lanes, and the dense tests only for the
+// blocks that may overlap (fewer blocks a warp where the launch would
+// otherwise keep under kMinWarps warps).
+//
+// The group pre-test (group_verdicts; its plain form is
+// mesh_kernels.group_may_overlap_plain, in the same operations). The warp
+// builds one sphere (cg, R) around its group's real chunk spheres (lanes
+// past C take no part): cg the middle of their box (shuffle min/max of
+// c -/+ r), R the largest |c - cg| + r times (1 + M). Each lane tests one
+// cone of one block against it in the dense test's form with margins, and
+// a ballot gives each block's verdict. A (block, group) pair that no cone
+// of the block may overlap writes each chunk as the
+// dense test leaves a chunk whose every cone test is false: floor INF (the
+// pool: on ? INF * smin : INF, the dense expression, so a zero or NaN smin
+// gives what the twin gives), not live; its bit word 0. Every other pair
+// runs block_chunk unchanged, so the outputs equal the dense kernel's, and
+// the twin's, bit for bit by construction: the pre-test only has to be
+// sound, "group dead" implying that every dense cone test of its chunks is
+// false in float32. A pool group whose chunks belong to two objects is not
+// tested (__all_sync on cobj). Why it is sound, with u = 2^-24, K = kKappa
+// = 2^-7, T = kTau = 2^-16, M = kMu = 2^-18:
+//  1. Containment. The float |c - cg| + r is within 6u of the exact value
+//     and (1 + M) = 1 + 64u covers it, so every real chunk sphere lies in
+//     (cg, R), and with o_rad added to both radii the chunk's test sphere
+//     lies in the group's. The dense test is exact geometry on the table's
+//     numbers (cos_a^2 + sin_a^2 = 1 within 3u): a sphere overlaps the cone
+//     if the apex lies in it (dlen <= r), or if the angle between d and the
+//     axis is at most a + b (sin b = r / dlen), or if a + b >= pi (the wrap,
+//     cos_b <= -cos_a). A sphere inside another subtends a cap inside the
+//     other's, so in exact arithmetic each clause that holds for a chunk
+//     holds for the group, and the group's dlen - r is at most the chunk's.
+//  2. The dense test's rounding. cos_d is within 10u of its exact value,
+//     sin_b within 6u relative, cos_b within 7u / cos_b + u and the right
+//     side cos_a cos_b - sin_a sin_b within 7u / cos_b + 12u. A chunk whose
+//     exact r / dlen is at least 1 - K / 4 is caught by the group's
+//     containment clause (its margin 2K dl; dG - RG <= d - r <= (K / 4)(dG
+//     + RG)). Every other chunk has cos_b > 2^-4, so a float overlap by the
+//     angle clause means an exact cos(angle) >= cos(a + b) - e, e < 2^-16.9,
+//     an angle within eta <= 2 asin(sqrt(e / 2)) < 2^-7.9 of a + b (the
+//     worst case at a + b = 0; less elsewhere); and by the wrap clause, b
+//     within the same eta of pi - a.
+//  3. The group's margins. sin_b + K raises the group's angle b by at least
+//     K > eta, so with 1. its exact angle clause (or wrap) holds with room
+//     K - eta. Outside its own containment clause (dlen > r + 2K dl) its
+//     sin_b stays below 1 - K, cos_b above 2^-3, and its own rounding moves
+//     both sides of its comparisons by less than 80u < T, which the
+//     comparisons give away. The segment cull: the float dlen - r of chunk
+//     and group are within 8u (dlen + r) of the exact values, which M (dlen
+//     + r) covers, so a group whose mind exceeds bound + 1e-3 by that
+//     margin has every chunk's mind above it. A cone with has_valid 0 is
+//     dead for every chunk.
+//  Every "dead" comparison is false on a NaN, so a NaN anywhere (a NaN
+//  sphere, an infinite radius, a NaN cone row) reads as "may overlap" and
+//  the group runs dense. The stated bounds hold for radii 1e-4 to 1e2 and
+//  distances up to 1e3 with room; the CPU tests hold the implication on
+//  tangent, apex-inside, wrap, bound-edge, masked, NaN and ragged groups.
 #include <cstdint>
 
 #include "common.cuh"
@@ -61,6 +128,16 @@ constexpr int kCols = 12;   // a cone row: apex(3) axis(3) cos_a sin_a o_rad bou
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBuckets = 16;  // live buckets; dead entries go to bucket kBuckets
+// the group pre-test's margins (see above; mesh_kernels.GROUP_KAPPA, _TAU, _MU)
+constexpr float kKappa = 1.0f / 128.0f;
+constexpr float kTau = 1.0f / 65536.0f;
+constexpr float kMu = 1.0f / 262144.0f;
+constexpr unsigned kFull = 0xffffffffu;
+// Blocks a warp culls its group against, at most, and the warps a launch
+// keeps before a warp takes more than one (16 blocks, or keeping 2,048
+// warps, were slower on the large mesh and the pool: PERF.md).
+constexpr int kMaxBlocks = 8;
+constexpr int kMinWarps = 4096;
 
 inline cudaStream_t as_stream(void* stream) { return static_cast<cudaStream_t>(stream); }
 
@@ -136,57 +213,206 @@ __device__ __forceinline__ bool block_chunk(const Cull& p, int b, int k, float* 
   return any;
 }
 
-// Flat: one thread per (block, chunk); block b = blockIdx.y.
-__global__ void __launch_bounds__(kThreads)
-live_cull_kernel(Cull p, float* __restrict__ mind, bool* __restrict__ over) {
-  const int b = blockIdx.y;
-  const int k = blockIdx.x * kThreads + threadIdx.x;
-  if (k >= p.C) return;
-  float m;
-  const bool o = block_chunk(p, b, k, &m);
-  const size_t at = static_cast<size_t>(b) * p.C + k;
-  mind[at] = m;
-  over[at] = o;
+// The group pre-test for the warp's group of 32 chunks (lane i holds chunk
+// k, real where k < C) against blocks b_first .. b_first + nb - 1 (nb <=
+// kMaxBlocks): bit i of the result set where a cone of block b_first + i
+// may overlap a chunk of the group. The group's sphere is built once;
+// lanes then test 32 / sub blocks' cones a round (lane l: cone l % sub of
+// block l / sub; sub > 32: one block a round, a lane looping over its
+// cones). Every lane of the warp calls it and gets the same answer, and
+// *n_dead gains the blocks found dead.
+__device__ __forceinline__ unsigned group_verdicts(const Cull& p, int b_first, int nb, int k,
+                                                   bool real, int lane, int* n_dead) {
+  const float inf = __int_as_float(0x7f800000);
+  const unsigned every = (1u << nb) - 1u;
+  const float4 s = real ? __ldg(p.spheres + k) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  int g = p.cobj && real ? __ldg(p.cobj + k) : 0;
+  if (p.cobj) {  // a group across two objects runs dense
+    const int g0 = __shfl_sync(kFull, g, 0);
+    if (!__all_sync(kFull, !real || g == g0)) return every;
+    g = g0;
+  }
+  float lo0 = real ? s.x - s.w : inf, lo1 = real ? s.y - s.w : inf, lo2 = real ? s.z - s.w : inf;
+  float hi0 = real ? s.x + s.w : -inf, hi1 = real ? s.y + s.w : -inf;
+  float hi2 = real ? s.z + s.w : -inf;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    lo0 = nan_min(lo0, __shfl_xor_sync(kFull, lo0, off));
+    lo1 = nan_min(lo1, __shfl_xor_sync(kFull, lo1, off));
+    lo2 = nan_min(lo2, __shfl_xor_sync(kFull, lo2, off));
+    hi0 = nan_max(hi0, __shfl_xor_sync(kFull, hi0, off));
+    hi1 = nan_max(hi1, __shfl_xor_sync(kFull, hi1, off));
+    hi2 = nan_max(hi2, __shfl_xor_sync(kFull, hi2, off));
+  }
+  const float c0 = (lo0 + hi0) * 0.5f, c1 = (lo1 + hi1) * 0.5f, c2 = (lo2 + hi2) * 0.5f;
+  const float e0 = s.x - c0, e1 = s.y - c1, e2 = s.z - c2;
+  float rad = real ? sqrtf(e0 * e0 + e1 * e1 + e2 * e2) + s.w : -inf;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) rad = nan_max(rad, __shfl_xor_sync(kFull, rad, off));
+  rad = rad * (1.0f + kMu);
+  const int width = p.sub < 32 ? p.sub : 32;  // lanes a block takes in a round
+  const int per = 32 / width;                 // blocks a round
+  const unsigned lanes = width == 32 ? kFull : (1u << width) - 1u;
+  unsigned may = 0;
+  for (int i0 = 0; i0 < nb; i0 += per) {
+    const int i = i0 + lane / width;
+    bool dead = true;
+    if (lane < per * width && i < nb) {
+      const size_t first = (static_cast<size_t>(g) * p.B + b_first + i) * p.sub;
+      for (int j = lane % width; j < p.sub; j += width) {
+        const float* q = p.table + (first + j) * kCols;
+        const float r = rad + __ldg(q + 8);
+        const float d0 = c0 - __ldg(q), d1 = c1 - __ldg(q + 1), d2 = c2 - __ldg(q + 2);
+        const float dlen = sqrtf(d0 * d0 + d1 * d1 + d2 * d2);
+        const float dl = clamp_min(dlen, 1e-12f);
+        const float cos_d = (d0 * __ldg(q + 3) + d1 * __ldg(q + 4) + d2 * __ldg(q + 5)) / dl;
+        const float sin_b = clamp_max(r / dl + kKappa, 1.0f);
+        const float cos_b = sqrtf(clamp_min(1.0f - sin_b * sin_b, 0.0f));
+        const float cos_a = __ldg(q + 6), sin_a = __ldg(q + 7);
+        // every comparison false on a NaN: a NaN never makes a cone dead
+        bool cone_dead = (dlen > r + 2.0f * kKappa * dl) & (cos_b > -cos_a + kTau) &
+                         (cos_d < cos_a * cos_b - sin_a * sin_b - kTau);
+        cone_dead = cone_dead | (__ldg(q + 10) == 0.0f);
+        if (p.use_bound) {
+          cone_dead = cone_dead | ((dlen - r) - kMu * (dlen + r) > __ldg(q + 9) + 1e-3f);
+        }
+        dead = dead & cone_dead;
+      }
+    }
+    const unsigned alive = __ballot_sync(kFull, !dead);
+    for (int t = 0; t < per && i0 + t < nb; ++t) {
+      if ((alive >> (t * width)) & lanes) may |= 1u << (i0 + t);
+    }
+  }
+  *n_dead += nb - __popc(may);
+  return may;
 }
 
-// Super: one warp per group of G = max(S, 32) consecutive chunks of block
-// blockIdx.y: its bit words (those below W) and its supers' floors and
-// liveness (those below C_s), when the floor outputs are given.
+// The floor a chunk k of block b gets when every cone test is false, as
+// block_chunk computes it: INF, scaled for the pool as there.
+__device__ __forceinline__ float dead_floor(const Cull& p, int b, int k) {
+  float m = rpt::kInf;
+  if (p.smin) {
+    const int g = __ldg(p.cobj + k);
+    const size_t last = (static_cast<size_t>(g) * p.B + b) * p.sub + p.sub - 1;
+    const bool on = __ldg(p.table + last * kCols + 11) != 0.0f;
+    m = on ? m * __ldg(p.smin + static_cast<size_t>(g) * p.B + b) : rpt::kInf;
+  }
+  return m;
+}
+
+// Flat: one thread per chunk, a warp a group of 32 (kThreads is a multiple
+// of 32), against blocks blockIdx.y * nblk .. + nblk - 1.
 __global__ void __launch_bounds__(kThreads)
-live_cull_super_kernel(Cull p, int S, int W, int n_groups, int* __restrict__ bits,
-                       float* __restrict__ sfloor, bool* __restrict__ sover) {
-  const int b = blockIdx.y;
+live_cull_kernel(Cull p, int nblk, float* __restrict__ mind, bool* __restrict__ over,
+                 int* __restrict__ skipped) {
+  const int lane = threadIdx.x & 31;
+  const int k = blockIdx.x * kThreads + threadIdx.x;
+  if (k - lane >= p.C) return;  // the whole warp lies past C
+  const int b_first = blockIdx.y * nblk;
+  const int nb = min(nblk, p.B - b_first);
+  const bool real = k < p.C;
+  int n_dead = 0;
+  const unsigned may = group_verdicts(p, b_first, nb, k, real, lane, &n_dead);
+  if (skipped != nullptr && lane == 0 && n_dead > 0) atomicAdd(skipped, n_dead);
+  if (!real) return;
+#pragma unroll 1
+  for (int i = 0; i < nb; ++i) {
+    const int b = b_first + i;
+    float m;
+    bool o = false;
+    if ((may >> i) & 1u) {
+      o = block_chunk(p, b, k, &m);
+    } else {
+      m = dead_floor(p, b, k);
+    }
+    const size_t at = static_cast<size_t>(b) * p.C + k;
+    mind[at] = m;
+    over[at] = o;
+  }
+}
+
+// Super: one warp per group of G = max(S, 32) consecutive chunks against
+// blocks blockIdx.y * nblk .. + nblk - 1: their bit words (those below W)
+// and their supers' floors and liveness (those below C_s), when the floor
+// outputs are given. The pre-test decides per 32-chunk word. (Reducing a
+// block's supers as soon as its word is done, for S <= 32, took 64
+// registers and no spills where this takes 80 and spills 24 bytes, and
+// was 3-6% slower on the large mesh.)
+__global__ void __launch_bounds__(kThreads)
+live_cull_super_kernel(Cull p, int S, int W, int n_groups, int nblk, int* __restrict__ bits,
+                       float* __restrict__ sfloor, bool* __restrict__ sover,
+                       int* __restrict__ skipped) {
   const int lane = threadIdx.x & 31;
   const int group = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (group >= n_groups) return;  // the whole warp
+  const int b_first = blockIdx.y * nblk;
+  const int nb = min(nblk, p.B - b_first);
   const int G = S > 32 ? S : 32;
   const int words = G / 32;
-  float m = 0.0f;
-  bool any = false;
+  float m[kMaxBlocks];
+  bool any[kMaxBlocks];
+  unsigned dense = 0;  // blocks for which some word ran its cone tests
+  int n_dead = 0;
   for (int w = 0; w < words; ++w) {
     const int word = group * words + w;
     const int k = word * 32 + lane;
-    float f = rpt::kInf;  // past C: INF and dead, as _pad_cols pads
-    bool o = false;
-    if (k < p.C) o = block_chunk(p, b, k, &f);
-    const unsigned ballot = __ballot_sync(0xffffffffu, o);
-    if (lane == 0 && word < W) bits[static_cast<size_t>(b) * W + word] = static_cast<int>(ballot);
-    m = w == 0 ? f : nan_min(m, f);
-    any = any | o;
+    const bool real = k < p.C;  // past C: INF and dead, as _pad_cols pads
+    const bool tested = word * 32 < p.C;
+    const unsigned may = tested ? group_verdicts(p, b_first, nb, k, real, lane, &n_dead) : 0u;
+    dense |= may;
+#pragma unroll
+    for (int i = 0; i < kMaxBlocks; ++i) {
+      if (i >= nb) break;
+      const int b = b_first + i;
+      float f = rpt::kInf;
+      bool o = false;
+      if ((may >> i) & 1u) {
+        if (real) o = block_chunk(p, b, k, &f);
+      } else if (real) {
+        f = dead_floor(p, b, k);
+      }
+      const unsigned ballot = __ballot_sync(kFull, o);
+      if (lane == 0 && word < W) bits[static_cast<size_t>(b) * W + word] = static_cast<int>(ballot);
+      m[i] = w == 0 ? f : nan_min(m[i], f);
+      any[i] = (w == 0 ? false : any[i]) | o;
+    }
   }
+  if (skipped != nullptr && lane == 0 && n_dead > 0) atomicAdd(skipped, n_dead);
   if (sfloor == nullptr) return;
   const int width = S < 32 ? S : 32;  // lanes of one super
-  for (int off = 1; off < width; off <<= 1) {
-    m = nan_min(m, __shfl_xor_sync(0xffffffffu, m, off));
-    any = any | (__shfl_xor_sync(0xffffffffu, static_cast<int>(any), off) != 0);
-  }
   const int n_super = (p.C + S - 1) / S;
   const int sp = (group * G + lane) / S;
-  if (lane % width == 0 && sp < n_super) {
-    const size_t at = static_cast<size_t>(b) * n_super + sp;
-    sfloor[at] = m;
-    sover[at] = any;
+#pragma unroll
+  for (int i = 0; i < kMaxBlocks; ++i) {
+    if (i >= nb) break;
+    float mi = m[i];
+    bool ai = any[i];
+    // a block no word ran dense holds INF and dead on every lane (the pool
+    // aside): the reduction's result as it stands
+    if (((dense >> i) & 1u) || p.smin != nullptr) {
+      for (int off = 1; off < width; off <<= 1) {
+        mi = nan_min(mi, __shfl_xor_sync(kFull, mi, off));
+        ai = ai | (__shfl_xor_sync(kFull, static_cast<int>(ai), off) != 0);
+      }
+    }
+    if (lane % width == 0 && sp < n_super) {
+      const size_t at = static_cast<size_t>(b_first + i) * n_super + sp;
+      sfloor[at] = mi;
+      sover[at] = ai;
+    }
   }
+}
+
+// Blocks a warp takes: the most (up to kMaxBlocks) that leave at least
+// kMinWarps warps in the launch, so the group's sphere is built once for
+// several blocks where there is parallelism to spare.
+inline int blocks_per_warp(int groups, int B) {
+  int nblk = kMaxBlocks;
+  while (nblk > 1 && static_cast<long long>(groups) * ((B + nblk - 1) / nblk) < kMinWarps) {
+    nblk /= 2;
+  }
+  return nblk;
 }
 
 // An entry's bucket: ((m - lo) / span) * 15, negative and NaN to 0, capped
@@ -294,10 +520,12 @@ bucket_order_kernel(const float* __restrict__ mind, const bool* __restrict__ ove
 
 // S == 0: the flat variant, into mind/over (B, C). S > 0: the super variant,
 // into bits (B, W) and, where sfloor/sover are given, (B, ceil(C / S)).
+// skipped, where given (one int on the card), gains the (block, 32-chunk
+// group) pairs whose dense tests the pre-test skipped.
 extern "C" int rpt_live_cull(const void* spheres, int C, const void* table, int B, int sub,
                              const void* cobj, const void* smin, int use_bound, int S, int W,
                              void* mind, void* over, void* bits, void* sfloor, void* sover,
-                             void* stream) {
+                             void* skipped, void* stream) {
   if (B <= 0 || C <= 0) return static_cast<int>(cudaSuccess);
   if (B > 65535 || sub <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (reinterpret_cast<uintptr_t>(spheres) % 16 != 0 ||
@@ -307,9 +535,10 @@ extern "C" int rpt_live_cull(const void* spheres, int C, const void* table, int 
   const Cull p{static_cast<const float4*>(spheres), C, static_cast<const float*>(table), B, sub,
                static_cast<const int*>(cobj), static_cast<const float*>(smin), use_bound != 0};
   if (S == 0) {
-    const dim3 grid((C + kThreads - 1) / kThreads, B);
-    live_cull_kernel<<<grid, kThreads, 0, as_stream(stream)>>>(p, static_cast<float*>(mind),
-                                                                static_cast<bool*>(over));
+    const int nblk = blocks_per_warp((C + 31) / 32, B);
+    const dim3 grid((C + kThreads - 1) / kThreads, (B + nblk - 1) / nblk);
+    live_cull_kernel<<<grid, kThreads, 0, as_stream(stream)>>>(
+        p, nblk, static_cast<float*>(mind), static_cast<bool*>(over), static_cast<int*>(skipped));
     return static_cast<int>(cudaGetLastError());
   }
   if (S < 0 || (S < 32 ? 32 % S : S % 32) != 0 || W <= 0) {
@@ -318,10 +547,11 @@ extern "C" int rpt_live_cull(const void* spheres, int C, const void* table, int 
   const int G = S > 32 ? S : 32;
   const int by_c = (C + G - 1) / G, by_w = (W * 32 + G - 1) / G;
   const int n_groups = by_c > by_w ? by_c : by_w;
-  const dim3 grid((n_groups + kWarps - 1) / kWarps, B);
+  const int nblk = blocks_per_warp(n_groups, B);
+  const dim3 grid((n_groups + kWarps - 1) / kWarps, (B + nblk - 1) / nblk);
   live_cull_super_kernel<<<grid, kThreads, 0, as_stream(stream)>>>(
-      p, S, W, n_groups, static_cast<int*>(bits), static_cast<float*>(sfloor),
-      static_cast<bool*>(sover));
+      p, S, W, n_groups, nblk, static_cast<int*>(bits), static_cast<float*>(sfloor),
+      static_cast<bool*>(sover), static_cast<int*>(skipped));
   return static_cast<int>(cudaGetLastError());
 }
 

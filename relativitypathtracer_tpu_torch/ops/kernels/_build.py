@@ -46,7 +46,7 @@ _SIGNATURES = {
     "rpt_batched_general_walk": "ppppppppppiiipp",
     "rpt_footprint_sample": "pipippippp",
     "rpt_analytic_min_t": "piipppipp",
-    "rpt_live_cull": "pipiippiiipppppp",
+    "rpt_live_cull": "pipiippiiippppppp",
     "rpt_bucket_order": "ppiipppp",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}

@@ -204,12 +204,73 @@ def live_cull_plain(spheres, table, sub=SUB, use_bound=False, cobj=None, smin=No
             _pad_cols(over, C_s * s, False).reshape(B, C_s, s).any(dim=2))
 
 
+GROUP = 32  # chunks a warp of rpt_live_cull holds: the pre-test's group
+# The pre-test's margins (derived in csrc/live_lists.cu, "The group pre-test"):
+GROUP_KAPPA = 2.0 ** -7  # added to the group's sin_b: at least that much angle, in radians
+GROUP_TAU = 2.0 ** -16  # slack of the pre-test's two cosine comparisons
+GROUP_MU = 2.0 ** -18  # relative slack of the distances, the group radius and its mind
+_REAL_INF = float("inf")
+
+
+def group_may_overlap_plain(spheres, table, sub=SUB, use_bound=False, cobj=None):
+    """The pre-test of the rpt_live_cull kernel, in its operations: for each
+    block and each group of GROUP consecutive chunks, whether any of the
+    block's `sub` cones may overlap any chunk of the group (B, ceil(C /
+    GROUP)) bool. Where it is False, every cone test of the group is dead,
+    so the kernel writes the dead chunks' results without running them.
+    Arguments as `live_cull_plain`; a pool group whose chunks belong to two
+    objects is never tested (True). The group's sphere contains its real
+    chunks' spheres: centre of their box, radius the farthest surface, grown
+    by GROUP_MU; each cone is tested in the dense test's form with the
+    margins GROUP_KAPPA, GROUP_TAU and GROUP_MU, and a NaN reads as "may
+    overlap". Used by the tests, never on the frame path."""
+    C = spheres.shape[0]
+    G = -(-C // GROUP)
+    pad = G * GROUP - C
+    s = torch.cat([spheres, spheres.new_zeros((pad, 4))]).reshape(G, GROUP, 4)
+    real = (torch.arange(G * GROUP, device=spheres.device) < C).reshape(G, GROUP)
+    c, r = s[..., :3], s[..., 3:4]
+    lo = torch.where(real[..., None], c - r, _REAL_INF).amin(dim=1)
+    hi = torch.where(real[..., None], c + r, -_REAL_INF).amax(dim=1)
+    centre = (lo + hi) * 0.5
+    dc = (c - centre[:, None, :]).unbind(-1)
+    dist = torch.sqrt(dc[0] * dc[0] + dc[1] * dc[1] + dc[2] * dc[2])
+    rad = torch.where(real, dist + s[..., 3], -_REAL_INF).amax(dim=1) * (1.0 + GROUP_MU)
+    if cobj is None:
+        q = table[None].transpose(0, 1).unbind(-1)  # (B * sub, 1) each
+        tested = torch.ones(G, dtype=torch.bool, device=spheres.device)
+    else:
+        obj = torch.cat([cobj.long(), cobj.long()[-1:].expand(pad)]).reshape(G, GROUP)
+        tested = (obj == obj[:, :1]).all(dim=1)
+        q = table[obj[:, 0]].transpose(0, 1).unbind(-1)  # (B * sub, G) each
+    r = rad + q[8]
+    d = [centre[:, k] - q[k] for k in range(3)]
+    dlen = torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
+    dl = torch.clamp(dlen, min=1e-12)
+    cos_d = (d[0] * q[3] + d[1] * q[4] + d[2] * q[5]) / dl
+    sin_b = torch.clamp(r / dl + GROUP_KAPPA, max=1.0)
+    cos_b = torch.sqrt(torch.clamp(1.0 - sin_b * sin_b, min=0.0))
+    # every comparison False on a NaN: a NaN never makes a cone dead
+    dead = ((dlen > r + 2.0 * GROUP_KAPPA * dl) & (cos_b > -q[6] + GROUP_TAU)
+            & (cos_d < q[6] * cos_b - q[7] * sin_b - GROUP_TAU)) | (q[10] == 0)
+    if use_bound:
+        dead = dead | ((dlen - r) - GROUP_MU * (dlen + r) > q[9] + 1e-3)
+    n = dead.shape[0]
+    return ~(dead.reshape(n // sub, sub, -1).all(dim=1) & tested)
+
+
 def live_cull(spheres, table, sub=SUB, use_bound=False, cobj=None, smin=None, s=0, n_words=0,
-              floors=True):
+              floors=True, skipped=None):
     """K4's cull: the rpt_live_cull kernel on CUDA tensors, the plain twin
     on CPU tensors; arguments and results as `live_cull_plain`. s must
-    divide 32 or be a multiple of it."""
+    divide 32 or be a multiple of it. skipped, a (1,) int32 tensor on the
+    spheres' device, gains the (block, GROUP-chunk group) pairs whose cone
+    tests the kernel's pre-test skipped (on the CPU, those that
+    `group_may_overlap_plain` proves dead); the frame path passes none."""
     if spheres.device.type == "cpu":
+        if skipped is not None:
+            skipped += int((~group_may_overlap_plain(spheres, table, sub, use_bound,
+                                                      cobj)).sum())
         return live_cull_plain(spheres, table, sub, use_bound, cobj, smin, s, n_words, floors)
     if s and (32 % s if s < 32 else s % 32):
         raise ValueError(f"live_cull: s must divide 32 or be a multiple of it, got {s}")
@@ -220,19 +281,21 @@ def live_cull(spheres, table, sub=SUB, use_bound=False, cobj=None, smin=None, s=
     specs = [(spheres, f32, (C, 4)), (table, f32, (*table.shape[:-2], B * sub, CONE_COLS))]
     if cobj is not None:
         specs += [(cobj, torch.int32, (C,)), (smin, f32, (O, B))]
+    if skipped is not None:
+        specs.append((skipped, torch.int32, (1,)))
     check_cuda("live_cull", *specs)
     if not s:
         mind = torch.empty((B, C), dtype=f32, device=dev)
         over = torch.empty((B, C), dtype=torch.bool, device=dev)
         launch("rpt_live_cull", spheres, C, table, B, sub, cobj, smin, int(use_bound), 0, 0,
-               mind, over, None, None, None)
+               mind, over, None, None, None, skipped)
         return mind, over
     C_s = -(-C // s)
     bits = torch.empty((B, n_words), dtype=torch.int32, device=dev)
     mg = torch.empty((B, C_s), dtype=f32, device=dev) if floors else None
     og = torch.empty((B, C_s), dtype=torch.bool, device=dev) if floors else None
     launch("rpt_live_cull", spheres, C, table, B, sub, cobj, smin, int(use_bound), s, n_words,
-           None, None, bits, mg, og)
+           None, None, bits, mg, og, skipped)
     return bits, mg, og
 
 

@@ -959,7 +959,111 @@ def _captured(mod, attr, build):
 
 
 K4_CASES = ("flat_shared", "flat_shadow", "lists2_ragged", "lists3", "pool_shared",
-            "pool_shadow_one_disabled", "large_pool")
+            "pool_shadow_one_disabled", "large_pool", "grazing", "all_dead", "all_live",
+            "pool_straddling")
+PRETEST_CASES = K4_CASES[-4:]  # the cull's group pre-test, through live_cull itself
+
+
+def _grazing_spheres(rng, rows, C, kappa):
+    """C chunk spheres in groups of 32, each group placed against one cone
+    row of `rows` (numpy (n, CONE_COLS)): the base sphere tangent to the
+    cone within a few ulps of the angle or anywhere within three times the
+    pre-test's angular margin kappa, repeated, jittered by ulps, or holding
+    31 small spheres; numpy float32."""
+    G = -(-C // 32)
+    q = rows[rng.integers(0, rows.shape[0], G)].astype(np.float64)
+    apex, axis, o = q[:, 0:3], q[:, 3:6], q[:, 8]
+    a = np.arccos(np.clip(q[:, 6], -1.0, 1.0))
+    D, r = rng.uniform(3.0, 9.0, G), rng.uniform(0.05, 0.3, G)
+    delta = np.where(rng.uniform(size=G) < 0.5, rng.integers(-6, 7, G) * 2.0 ** -23,
+                     rng.uniform(-3 * kappa, 3 * kappa, G))
+    theta = a + np.arcsin(np.minimum((r + o) / D, 1.0)) + delta
+    perp = rng.normal(size=(G, 3))
+    perp -= (perp * axis).sum(1, keepdims=True) * axis
+    perp /= np.linalg.norm(perp, axis=1, keepdims=True)
+    centre = apex + D[:, None] * (np.cos(theta)[:, None] * axis + np.sin(theta)[:, None] * perp)
+    sph = np.repeat(np.concatenate([centre, r[:, None]], axis=1)[:, None], 32, axis=1)
+    jit, inner = np.arange(G) % 3 == 1, np.arange(G) % 3 == 2
+    sph[jit, :, :3] *= 1.0 + rng.integers(-4, 5, (int(jit.sum()), 32, 3)) * 2.0 ** -23
+    sph[inner, 1:, :3] += rng.uniform(-0.25, 0.25, (int(inner.sum()), 31, 3)) * r[inner, None, None]
+    sph[inner, 1:, 3] = 0.25 * r[inner, None]
+    return sph.reshape(-1, 4)[:C].astype(np.float32)
+
+
+def _pretest_inputs(dev, case):
+    """The inputs of a pre-test case: a list of (spheres, table, sub,
+    use_bound, cobj, smin) and the pre-test's dead count each must give
+    (None: unknown, above 0). grazing, all_dead, all_live: 10,227 chunks
+    (320 groups, the last of 19) against 124 blocks' sub-cones, so a warp
+    takes 8 blocks (the last warp 4) flat and at S = 32, 2 at S = 128;
+    grazing for shared rays and for shadow rays with a lane bound, every
+    group tangent to a sub-cone; all_dead: every chunk behind the rays;
+    all_live: every chunk sphere around the rays' origins. pool_straddling:
+    3 objects of 77 chunks, so groups 2 and 4 hold two objects; every chunk
+    dead but group 3's, object 2 disabled, smin with a zero and a NaN: only
+    groups 0, 1, 5, 6 and 7 may be skipped."""
+    from torch_port_fixtures import list_rays, list_spheres
+
+    from relativitypathtracer_tpu_torch.ops.kernels import mesh_kernels as mk
+
+    rng = np.random.default_rng(300 + K4_CASES.index(case))
+    dt = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    if case == "pool_straddling":
+        rays = [list_rays(rng, n=8192, spread=0.05) for _ in range(3)]
+        table = mk.cone_table(dt(np.stack([r[0] for r in rays])),
+                              dt(np.stack([r[1] for r in rays])))
+        table[2, :, mk.CONE_COLS - 1] = 0.0
+        sph = list_spheres(rng, 231)
+        sph[:, 2] *= -1.0  # behind the rays
+        sph[96:128, 2] *= -1.0  # group 3 (object 1 only) in front
+        smin = rng.uniform(0.5, 2.0, (3, 8)).astype(np.float32)
+        smin[0, 3], smin[1, 5] = 0.0, np.nan
+        cobj = np.repeat(np.arange(3, dtype=np.int32), 77)
+        return [((dt(sph), table, mk.SUB, False, dt(cobj), dt(smin)), 5 * 8)]
+    B, C = 124, 10227
+    out = []
+    for shadow in ((False, True) if case == "grazing" else (False,)):
+        d, o, valid, bound = list_rays(rng, n=B * 1024, spread=0.05, shadow=shadow)
+        table = mk.cone_table(dt(d), dt(o), dt(valid) if shadow else None,
+                              dt(bound) if shadow else None)
+        if case == "grazing":
+            sph, want = _grazing_spheres(rng, table.cpu().numpy(), C, mk.GROUP_KAPPA), None
+        elif case == "all_dead":
+            sph, want = list_spheres(rng, C) * np.float32([1, 1, -1, 1]), B * 320
+        else:
+            sph, want = list_spheres(rng, C) * np.float32([0, 0, 0, 100]), 0
+        out.append(((dt(sph), table, mk.SUB, shadow, None, None), want))
+    return out
+
+
+def _cull_pretest_equals_twin(dev, case):
+    """rpt_live_cull with its group pre-test equal to live_cull_plain to the
+    bit in the flat variant, at S = 32 and at S = 128 (floors, overlap, bit
+    words, super floors and liveness); its skip counter equal to the
+    pre-test's plain form in every variant."""
+    from relativitypathtracer_tpu_torch.ops.kernels import mesh_kernels as mk
+
+    for (spheres, table, sub, use_bound, cobj, smin), want in _pretest_inputs(dev, case):
+        C = spheres.shape[0]
+        dead = int((~mk.group_may_overlap_plain(spheres, table, sub, use_bound, cobj)).sum())
+        assert dead == want if want is not None else dead > 0
+        for s, n_words in ((0, 0), (32, -(-C // 32)), (128, -(-C // 128) * 4)):
+            skipped = torch.zeros(1, dtype=torch.int32, device=dev)
+            before = _launches("rpt_live_cull")
+            got = mk.live_cull(spheres, table, sub, use_bound, cobj, smin, s, n_words,
+                               skipped=skipped)
+            torch.cuda.synchronize()
+            assert _launches("rpt_live_cull") == before + 1
+            want_out = mk.live_cull_plain(spheres, table, sub, use_bound, cobj, smin, s, n_words)
+            for i, (g, w) in enumerate(zip(got, want_out)):
+                assert _same(g, w), (s, i)
+            assert int(skipped) == dead, (s, int(skipped), dead)
+            if not s:
+                mind, over = want_out
+        if case == "all_live":
+            assert bool(over.all())
+        if case == "pool_straddling":  # the zero and NaN smin reach the floors
+            assert bool(torch.isnan(mind[5, 77:154]).all()) and bool((mind[3, :77] == 0).all())
 
 
 @pytest.mark.parametrize("case", K4_CASES)
@@ -971,7 +1075,13 @@ def test_list_kernels_equal_twins(cuda, case):
     last bit word and super of 13); lists3 at S = 128 on 1,000 chunks (the
     super-sphere cull and the block-cone bits); the pool of 4 objects for
     K9's lists, and for K10's with object 1 disabled; and the 25,344-chunk
-    pool of 33 objects (LARGE_POOL)."""
+    pool of 33 objects (LARGE_POOL). The cull's group pre-test: the kernel
+    equal to the twin to the bit, flat and at S = 32 and 128, and its skip
+    counter equal to the pre-test's plain form, on grazing chunks (above
+    0), all-dead (every group skipped) and all-live chunks (none), and on
+    a pool whose groups straddle objects (never skipped)."""
+    if case in PRETEST_CASES:
+        return _cull_pretest_equals_twin(cuda, case)
     from torch_port_fixtures import list_rays, list_spheres
 
     from relativitypathtracer_tpu_torch.ops.kernels import mesh_batch as mb

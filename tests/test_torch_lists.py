@@ -221,3 +221,165 @@ def test_bucket_order_keeps_ties_and_empty_blocks():
     assert order[1].tolist() == [0, 1, 2, 3, 4, 5]
     assert order[2].tolist() == [2, 5, 3, 0, 1, 4]
     assert torch.equal(key[0], mind[0])
+
+
+# --- the cull kernel's group pre-test --------------------------------------------
+
+PRETEST_CASES = ("tangent", "apex_inside", "wrap", "bound_edge", "has_valid_0", "nan_sphere",
+                 "ragged", "scales")
+N_PAIRS = 100_000  # (cone, group) pairs a case
+
+
+def _unit(rng, n):
+    v = rng.normal(size=(n, 3))
+    return v / np.linalg.norm(v, axis=1, keepdims=True)
+
+
+def _ulps(x, k):
+    """float32 x moved by k (an int array) ulps."""
+    x = np.asarray(x, np.float32)
+    bits = x.view(np.int32) + np.where(x >= 0, k, -k).astype(np.int32)
+    return bits.view(np.float32)
+
+
+def _adversarial_pairs(rng, case, n):
+    """n cones and n groups of 32 chunk spheres, group i placed against cone
+    i: (spheres (32 n, 4), table (n, 1, CONE_COLS), use_bound), numpy
+    float32. Each group's base sphere (radius r, the cone's o_rad o) lies at
+    distance D from the apex at the angle a + asin((r + o) / D) + delta from
+    the axis: tangent to the cone, delta a few ulps of the angle either
+    side, or spread over three times the pre-test's angular margin. A third
+    of the groups repeat the base sphere 32 times, a third jitter it by ulps,
+    a third hold it and 31 small spheres inside it."""
+    big = case == "scales"
+    apex = rng.uniform(-5.0, 5.0, (n, 3))
+    axis = _unit(rng, n)
+    if case == "wrap":  # cos_a < 0: a + b reaches pi
+        a = rng.uniform(np.pi / 2 + 0.01, np.pi - 1e-3, n)
+    else:
+        a = np.exp(rng.uniform(np.log(1e-4), np.log(1.2), n))
+    D = np.exp(rng.uniform(np.log(1e-3 if big else 0.5), np.log(1e3 if big else 50.0), n))
+    r = np.exp(rng.uniform(np.log(1e-4 if big else 1e-3), np.log(1e2 if big else 1.0), n))
+    o = np.where(rng.uniform(size=n) < 0.5, 0.0, np.exp(rng.uniform(np.log(1e-4), 0.0, n)) * r)
+    kappa = pmk.GROUP_KAPPA
+    delta = np.where(rng.uniform(size=n) < 0.5,
+                     rng.integers(-6, 7, n) * 2.0 ** -23 * np.maximum(a, 1.0),
+                     rng.uniform(-3 * kappa, 3 * kappa, n))
+    theta = a + np.arcsin(np.minimum((r + o) / D, 1.0)) + delta
+    if case == "wrap":  # behind the apex, or tangent to the wrapped cap
+        theta = np.where(rng.uniform(size=n) < 0.5, np.pi, np.minimum(theta, np.pi))
+        sin_b = np.sin(np.pi - a + delta * rng.integers(0, 2, n))
+        D = np.where(sin_b > 1e-3, (r + o) / np.maximum(sin_b, 1e-3), D)
+    if case == "bound_edge":
+        theta = np.where(rng.uniform(size=n) < 0.5, 0.0, theta)
+    perp = _unit(rng, n)
+    perp -= (perp * axis).sum(1, keepdims=True) * axis
+    perp /= np.linalg.norm(perp, axis=1, keepdims=True)
+    centre = apex + D[:, None] * (np.cos(theta)[:, None] * axis + np.sin(theta)[:, None] * perp)
+    if case == "apex_inside":
+        centre = apex + _unit(rng, n) * (r * rng.uniform(0.0, 1.0 + 1e-6, n))[:, None]
+    sph = np.repeat(np.concatenate([centre, r[:, None]], axis=1)[:, None], 32, axis=1)
+    kind = np.arange(n) % 3
+    jit = kind == 1
+    sph[jit, :, :3] += rng.integers(-4, 5, (int(jit.sum()), 32, 3)) * 2.0 ** -23 * np.abs(
+        sph[jit, :, :3])
+    sph[jit, :, 3] *= 1.0 + rng.integers(-4, 5, (int(jit.sum()), 32)) * 2.0 ** -23
+    inner = kind == 2
+    sph[inner, 1:, :3] += (_unit(rng, int(inner.sum()) * 31).reshape(-1, 31, 3)
+                           * (0.5 * r[inner])[:, None, None])
+    sph[inner, 1:, 3] = 0.25 * r[inner][:, None]
+    spheres = sph.reshape(32 * n, 4).astype(np.float32)
+    if case == "nan_sphere":
+        spheres[32 * np.arange(0, n, 2) + rng.integers(0, 32, (n + 1) // 2), 0] = np.nan
+        spheres[32 * np.arange(1, n, 4) + 7, 3] = np.inf
+    axis32 = axis.astype(np.float32)
+    cos_a = np.cos(a).astype(np.float32)
+    sin_a = np.sqrt(np.maximum(np.float32(1.0) - cos_a * cos_a, np.float32(0.0)))
+    bound = np.zeros(n, np.float32)
+    if case == "bound_edge":  # mind at bound + 1e-3 within a few ulps, or the pre-test's margin
+        edge = (D - r - o - 1e-3).astype(np.float32)
+        bound = np.where(rng.uniform(size=n) < 0.5, _ulps(edge, rng.integers(-8, 9, n)),
+                         edge * (1.0 - rng.integers(-4, 5, n) * pmk.GROUP_MU)).astype(np.float32)
+    has_valid = np.ones(n, np.float32)
+    if case == "has_valid_0":
+        has_valid[rng.uniform(size=n) < 0.5] = 0.0
+    table = np.concatenate([apex.astype(np.float32), axis32, cos_a[:, None], sin_a[:, None],
+                            o.astype(np.float32)[:, None], bound[:, None], has_valid[:, None],
+                            np.ones((n, 1), np.float32)], axis=1)
+    return spheres, table[:, None, :], case == "bound_edge"
+
+
+def _pretest_against_dense(spheres, table, sub, use_bound, cobj=None):
+    """(may (B, G), live (B, G)): the pre-test's verdicts and whether the
+    twin's dense tests find any chunk of the group live."""
+    may = pmk.group_may_overlap_plain(spheres, table, sub, use_bound, cobj)
+    _, over = pmk.live_cull_plain(spheres, table, sub, use_bound, cobj)
+    B, C = over.shape
+    G = may.shape[1]
+    live = torch.cat([over, over.new_zeros((B, G * 32 - C))], dim=1).reshape(B, G, 32).any(2)
+    return may, live
+
+
+@pytest.mark.parametrize("case", PRETEST_CASES)
+def test_group_pretest_dead_implies_every_chunk_dead(case):
+    """The cull kernel's pre-test is sound: wherever it calls a (cone,
+    group) pair dead, every cone test of the group's chunks is false in
+    live_cull_plain's own float32 arithmetic. 10^5 pairs a case, each group
+    placed against its cone: tangent to the cone within a few ulps or
+    around the pre-test's margin; the apex inside a chunk; a + b at pi
+    (cos_a < 0); mind at bound + 1e-3 within a few ulps; has_valid 0 on
+    half the cones; a NaN sphere in every other group (and an infinite
+    radius in some), which never lets a group die; a ragged last group
+    against 3,125 cones; radii 1e-4 to 1e2 at distances 1e-3 to 1e3."""
+    rng = np.random.default_rng(500 + PRETEST_CASES.index(case))
+    if case == "ragged":  # 32 groups, the last of 19 chunks, against every cone
+        spheres, table, _ = _adversarial_pairs(rng, "tangent", 3125)
+        spheres = spheres[32 * rng.integers(0, 3125, 32)[:, None] + np.arange(32)].reshape(-1, 4)
+        may, live = _pretest_against_dense(t(spheres[:1011]), t(table[:, 0]), 1, False)
+        assert may.shape == (3125, 32)
+    else:
+        spheres, table, use_bound = _adversarial_pairs(rng, case, N_PAIRS)
+        cobj = t(np.repeat(np.arange(N_PAIRS, dtype=np.int32), 32))
+        may, live = _pretest_against_dense(t(spheres), t(table), 1, use_bound, cobj)
+        may, live = may[0], live[0]  # one "block" of one cone per object
+    assert may.numel() >= N_PAIRS
+    assert not bool((live & ~may).any()), f"{int((live & ~may).sum())} live groups called dead"
+    dead = int((~may).sum())
+    if case == "has_valid_0":
+        off = t(table[:, 0, 10]) == 0
+        assert bool((~may)[off].all()) and not bool(live[off].any()) and bool(live.any())
+    elif case == "apex_inside":
+        assert dead == 0 and bool(live.all())
+    elif case == "nan_sphere":
+        assert not bool((~may)[0::2].any())  # a NaN in the group: never dead
+        assert 0 < dead and bool(live.any())
+    else:  # the test bites: some pairs are dead, some live
+        assert 0 < dead < may.numel() and bool(live.any())
+
+
+def test_group_pretest_on_the_large_fixture(tmp_path_factory):
+    """On the `large` fixture's first frame at 64x64 (10,240 chunks, its
+    primary and shadow cull), the pre-test never calls a live group dead and
+    proves a share of the groups dead; live_cull's counter on CPU tensors
+    counts those."""
+    import relativitypathtracer_tpu_torch as pt
+    from torch_port_fixtures import write_fixture
+
+    host = pt.load_scene_file(write_fixture(tmp_path_factory, 3, "large"))
+    scene, meta = pt.build_scene(host, device="cpu")
+    calls, real = [], pmk.live_cull
+    pmk.live_cull = lambda *a, **kw: calls.append(a) or real(*a, **kw)
+    try:
+        pt.build_render_fn(meta, 64, 64, -1, device="cpu")(
+            scene, pt.FrameState(torch.zeros(3), torch.zeros(4)))
+    finally:
+        pmk.live_cull = real
+    assert [a[0].shape[0] for a in calls] == [10240, 10240]
+    for spheres, table, sub, use_bound, *_ in calls:
+        may, live = _pretest_against_dense(spheres, table, sub, use_bound)
+        assert not bool((live & ~may).any()) and bool(live.any())
+        dead = int((~may).sum())
+        assert dead >= 0.2 * may.numel()
+        skipped = torch.zeros(1, dtype=torch.int32)
+        pmk.live_cull(spheres, table, sub, use_bound, skipped=skipped)
+        assert int(skipped) == dead
