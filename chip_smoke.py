@@ -42,7 +42,8 @@ For each path it:
      of 20 runs; the kernel's launches replayed from a CUDA graph, each on
      its own copy of the inputs so that none is in L2 when its launch comes,
      so its time is the device's from memory); computes each kernel's bound
-     from those inputs; then holds every list build of the first frame (K4
+     from those inputs (the cull's from the cone tests it ran, read through
+     its skip counter); then holds every list build of the first frame (K4
      with its cone table, through the list function the walks call) to its
      twin on the same inputs, to the bit, and prints K4's builds, device ms
      and the twin's ms per frame with their bound, and each cull launch's
@@ -196,35 +197,40 @@ def max_err(got, want) -> float:
                 if g is not None and g.numel()), default=0.0)
 
 
-def list_bound_ms(ml, name, args, kwargs, out) -> float:
+def list_bound_ms(args, kwargs, out, tests) -> float:
     """The least time of one list build: its spheres, rays and lane masks
     read once and its lists written once over the memory rate, or 30
-    operations a cone test of a (128-lane sub-cone, chunk) pair and 40 a
-    (block, entry) of the sort over the fp32 rate, the larger (the
-    super-sphere cull of the XL lists tests (sub-cone, super) pairs and one
-    block cone per chunk)."""
-    spheres = args[0]
-    rays = args[2] if name == "live_chunk_lists_multi" else args[1]
-    n_pad, C = rays.shape[-1], spheres.shape[0]
-    order = out[0]
-    B = order.shape[0]
-    pairs = n_pad // 128 * C
-    if name == "large_live_lists" and C > ml.SUPER_CULL_C:
-        pairs = n_pad // 128 * order.shape[1] + B * C
+    operations a cone test its culls ran (`cull_work`) and 40 a (block,
+    entry) of the sort over the fp32 rate, the larger."""
     moved = nbytes(*args, *kwargs.values(), *out)
-    return bound(30.0 * pairs + 40.0 * order.numel(), moved)[0]
+    return bound(30.0 * tests + 40.0 * out[0].numel(), moved)[0]
+
+
+def cull_work(torch, fn, args):
+    """One more run of a cull (outside any timed run) with its group
+    pre-test's skip counter: (cone tests it ran, groups skipped, (block,
+    32-chunk group) pairs). Every pair runs the pre-test's `sub` cone tests
+    and every pair not skipped the dense 32 x `sub` (a ragged last group
+    counts as 32 chunks and a pool group across two objects as pre-tested:
+    exact where C is a multiple of 32 and no group straddles, as on every
+    path here). The dense work, every (cone, chunk) test, is 32 x `sub` a
+    pair."""
+    spheres, table, sub = args[:3]
+    skipped = torch.zeros(1, dtype=torch.int32, device=spheres.device)
+    fn(*args, skipped=skipped)
+    pairs = table.shape[-2] // sub * -(-spheres.shape[0] // 32)
+    n = int(skipped)
+    return sub * (pairs + 32 * (pairs - n)), n, pairs
 
 
 def cull_launches(torch, mk, fn, args, kwargs):
-    """The cull launches of one list build, run again with the pre-test's
-    skip counter (outside the timed frames): [(device ms a launch, groups
-    skipped, (block, 32-chunk group) pairs)]."""
+    """The cull launches of one list build: [(device ms a launch, groups
+    skipped, (block, 32-chunk group) pairs, cone tests run)]."""
     real, seen = mk.live_cull, []
 
     def counted(*a):
-        skipped = torch.zeros(1, dtype=torch.int32, device=a[0].device)
-        seen.append((a, skipped))
-        return real(*a, skipped=skipped)
+        seen.append(a)
+        return real(*a)
 
     mk.live_cull = counted
     try:
@@ -232,14 +238,13 @@ def cull_launches(torch, mk, fn, args, kwargs):
     finally:
         mk.live_cull = real
     out = []
-    for a, skipped in seen:
-        spheres, table, sub = a[:3]
-        pairs = table.shape[-2] // sub * -(-spheres.shape[0] // 32)
-        out.append((kernel_ms(torch, real, list(a)), int(skipped), pairs))
+    for a in seen:
+        tests, n, pairs = cull_work(torch, real, a)
+        out.append((kernel_ms(torch, real, list(a)), n, pairs, tests))
     return out
 
 
-def compare_lists(torch, mk, ml, path, calls, plains):
+def compare_lists(torch, mk, path, calls, plains):
     """Every list build of the first frame (its list function, captured
     with its inputs) against the same function on K4's twins: equal to the
     bit; K4's device ms a frame (each build replayed from a CUDA graph, as
@@ -257,9 +262,10 @@ def compare_lists(torch, mk, ml, path, calls, plains):
         k_ms += kernel_ms(torch, lambda *a, _fn=fn, _n=len(args), _k=keys: _fn(
             *a[:_n], **dict(zip(_k, a[_n:]))), [*args, *kwargs.values()])
         p_ms += time_ms(torch, lambda: plain(*args, **kwargs))
-        b_ms += list_bound_ms(ml, name, args, kwargs, got)
+        launches = cull_launches(torch, mk, fn, args, kwargs)
+        b_ms += list_bound_ms(args, kwargs, got, sum(c[3] for c in launches))
         builds[name] = builds.get(name, 0) + 1
-        culls += cull_launches(torch, mk, fn, args, kwargs)
+        culls += launches
     check(builds, f"K4 on {path}: no list build captured")
     skipped = sum(c[1] for c in culls)
     check(path != "large" or skipped > 0, f"K4 on {path}: the cull's pre-test skipped no group")
@@ -267,7 +273,7 @@ def compare_lists(torch, mk, ml, path, calls, plains):
         f"twins' to the bit; kernels {k_ms:.4f} ms a frame (cone tables included), torch ops "
         f"{p_ms:.4f} ms, bound {b_ms:.4f} ms, share {b_ms / k_ms:.1%}; the cull a launch: "
         + ", ".join(f"{ms:.4f} ms (pre-test skipped {n:,} of {pairs:,} groups, {n / pairs:.2%})"
-                    for ms, n, pairs in culls))
+                    for ms, n, pairs, _ in culls))
 
 
 def compare_kernels(torch, pt_mods, meta, captured, originals, names):
@@ -308,10 +314,15 @@ def compare_kernels(torch, pt_mods, meta, captured, originals, names):
             got, want = fn(*args), plain(*args)
             check(all(same(torch, g, w) for g, w in zip(got, want)),
                   f"K4 {name} differs from its twin")
-            # the cull: 30 operations a (cone, chunk) test; the sort: 40 an entry
-            work = args[1].shape[-2] * args[0].shape[0] if cull else args[0].numel()
+            # the cull: 30 operations a cone test it ran; the sort: 40 an entry
+            work = cull_work(torch, fn, args)[0] if cull else args[0].numel()
+            moved = nbytes(*args, *(g for g in got if g is not None))
             record(name, max_err(got, want), fn, args, plain, (30.0 if cull else 40.0) * work,
-                   nbytes(*args, *(g for g in got if g is not None)))
+                   moved)
+            if cull:
+                dense = args[1].shape[-2] * args[0].shape[0]
+                log(f"  rpt_live_cull: {work:,} cone tests run of {dense:,}; the bound of "
+                    f"every test {bound(30.0 * dense, moved)[0]:.4f} ms")
         elif name == "rpt_analytic_nearest":
             gt, gn, guv, go = fn(*args)
             wt, wn, wuv, wo = ak.analytic_nearest_plain(*args)
@@ -646,7 +657,7 @@ def main() -> int:
         results[path] = compare_kernels(torch, (ak, mk, sc, tk, mb, ml), meta, captured,
                                         originals_by_key, names)
         if "rpt_live_cull" in names:
-            compare_lists(torch, mk, ml, path, list_calls, list_plains)
+            compare_lists(torch, mk, path, list_calls, list_plains)
         else:
             check(not list_calls, f"{path}: list builds on a path without meshes")
         del captured, list_calls

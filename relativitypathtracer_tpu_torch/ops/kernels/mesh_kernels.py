@@ -264,13 +264,10 @@ def live_cull(spheres, table, sub=SUB, use_bound=False, cobj=None, smin=None, s=
     """K4's cull: the rpt_live_cull kernel on CUDA tensors, the plain twin
     on CPU tensors; arguments and results as `live_cull_plain`. s must
     divide 32 or be a multiple of it. skipped, a (1,) int32 tensor on the
-    spheres' device, gains the (block, GROUP-chunk group) pairs whose cone
-    tests the kernel's pre-test skipped (on the CPU, those that
-    `group_may_overlap_plain` proves dead); the frame path passes none."""
+    card, gains the (block, GROUP-chunk group) pairs whose cone tests the
+    kernel's pre-test skipped (the twin skips none and leaves it); the frame
+    path passes none."""
     if spheres.device.type == "cpu":
-        if skipped is not None:
-            skipped += int((~group_may_overlap_plain(spheres, table, sub, use_bound,
-                                                      cobj)).sum())
         return live_cull_plain(spheres, table, sub, use_bound, cobj, smin, s, n_words, floors)
     if s and (32 % s if s < 32 else s % 32):
         raise ValueError(f"live_cull: s must divide 32 or be a multiple of it, got {s}")

@@ -17,10 +17,10 @@ cone table: every list build of one frame is captured and replayed 10
 times under the profiler alone, which gives its device time per frame with
 the table's ops (`k4`: builds per frame, device ms, and the bound of the
 same work: the spheres, rays and lane masks read once and the lists written
-once over the memory rate, or about 30 operations per cone test of a
-(128-lane sub-cone, chunk) pair and 40 per (block, entry) of the counting
-sort over the fp32 rate, the larger of the two). Needs a CUDA device and
-nvcc.
+once over the memory rate, or about 30 operations per cone test that the
+cull ran, read through its group pre-test's skip counter in the captured
+frame, and 40 per (block, entry) of the counting sort over the fp32 rate,
+the larger of the two). Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -86,43 +86,55 @@ def _device_ms(fn, reps: int) -> float:
                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / reps
 
 
-def _list_bound_ms(name, args, kw, out) -> float:
+def _list_bound_ms(args, kw, out, tests) -> float:
     """The least time of one list build (see the module docstring)."""
-    spheres = args[0]
-    rays = args[2] if name == "live_chunk_lists_multi" else args[1]
-    n_pad, C = rays.shape[-1], spheres.shape[0]
-    order, entries = out[0], out[0].numel()
-    B = order.shape[0]
-    pairs = n_pad // (mk.NB // mk.SUB) * C
-    if name == "large_live_lists" and C > ml.SUPER_CULL_C:  # super-sphere cull + block bits
-        pairs = n_pad // (mk.NB // mk.SUB) * order.shape[1] + B * C
     moved = sum(a.numel() * a.element_size() for a in (*args, *kw.values(), *out)
                 if torch.is_tensor(a))
-    return max(moved / PEAK_BYTES, (30.0 * pairs + 40.0 * entries) / PEAK_OPS) * 1e3
+    return max(moved / PEAK_BYTES, (30.0 * tests + 40.0 * out[0].numel()) / PEAK_OPS) * 1e3
+
+
+def _cull_tests(args, skipped) -> int:
+    """The cone tests one cull ran: its group pre-test's `sub` a (block,
+    32-chunk group) pair, and the dense 32 x `sub` for each pair that the
+    pre-test did not skip."""
+    spheres, table, sub = args[:3]
+    pairs = table.shape[-2] // sub * -(-spheres.shape[0] // 32)
+    return sub * (pairs + 32 * (pairs - int(skipped)))
 
 
 def list_build(render, scene, state, reps: int = 10) -> dict:
     """K4 per frame: every list build of one frame captured, then replayed."""
-    calls, originals = [], {}
+    calls, culls, originals = [], [], {}
     for mod, attr in LIST_BUILDS:
         real = originals[(mod, attr)] = getattr(mod, attr)
 
         def rec(*a, _real=real, _name=attr, **kw):
+            first = len(culls)
             out = _real(*a, **kw)
-            calls.append((_real, _name, a, kw, out))
+            calls.append((_real, _name, a, kw, out, culls[first:]))
             return out
 
         setattr(mod, attr, rec)
+    real_cull = originals[(mk, "live_cull")] = mk.live_cull
+
+    def counted(*a):
+        skipped = torch.zeros(1, dtype=torch.int32, device=a[0].device)
+        culls.append((a, skipped))
+        return real_cull(*a, skipped=skipped)
+
+    mk.live_cull = counted
     try:
         render(scene, state)
     finally:
         for (mod, attr), real in originals.items():
             setattr(mod, attr, real)
     torch.cuda.synchronize()
-    ms = _device_ms(lambda: [fn(*a, **kw) for fn, _, a, kw, _ in calls], reps)
+    ms = _device_ms(lambda: [fn(*a, **kw) for fn, _, a, kw, _, _ in calls], reps)
     return {"builds_per_frame": collections.Counter(c[1] for c in calls),
             "device_ms_per_frame": ms,
-            "bound_ms_per_frame": sum(_list_bound_ms(n, a, kw, o) for _, n, a, kw, o in calls)}
+            "bound_ms_per_frame": sum(
+                _list_bound_ms(a, kw, o, sum(_cull_tests(*c) for c in cs))
+                for _, _, a, kw, o, cs in calls)}
 
 
 def profile_path(kind: str, card: str, timed: int = 30, traced: int = 10) -> dict:
