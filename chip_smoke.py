@@ -43,13 +43,18 @@ For each path it:
      its own copy of the inputs so that none is in L2 when its launch comes,
      so its time is the device's from memory); computes each kernel's bound
      from those inputs (the cull's from the cone tests it ran, read through
-     its skip counter); then holds every list build of the first frame (K4
+     its skip counter; K3's and K7's from the full tests their votes ran,
+     read through their `tested` counters); then holds every list build of the first frame (K4
      with its cone table, through the list function the walks call) to its
      twin on the same inputs, to the bit, and prints K4's builds, device ms
      and the twin's ms per frame with their bound, and each cull launch's
      ms with the share of (block, 32-chunk group) pairs whose cone tests
      its group pre-test skipped (read through the kernel's counter in a run
-     of its own; on large, culls that skip none fail);
+     of its own; on large, culls that skip none fail); K3 and K7 equal to
+     their twins to the bit (K3's uv within 1e-5), with the share of (warp,
+     object) pairs whose full test their vote skipped, read through their
+     `tested` counter in a run of its own and held equal to the count of the
+     pre-test's plain form (on cubes, a kernel that skips none fails);
   3. renders the last frame with the port on the CPU (the plain twins) and
      holds the card's frame to it under the parity rule (at most 0.2% of
      pixels off by more than 1e-3); blob and instances at 512x384, large at
@@ -77,6 +82,11 @@ INF = 1e20
 PEAK_OPS = 67e12  # H100 SXM fp32 outside the tensor cores, operations/s
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 L2_BYTES = 50 * 2**20  # H100 L2
+# fp32 operations of K3/K7 (csrc/analytic_kernels.cu): a lane's pre-test of
+# one object (the transform and may_hit; K7 also forms its origin and its
+# constants), and the rest of the full test on each lane of a tested warp
+K3_PRETEST_OPS, K3_TEST_OPS = 40.0, 60.0
+K7_PRETEST_OPS, K7_TEST_OPS = 70.0, 55.0
 PKG = "relativitypathtracer_tpu_torch/csrc/"
 TPU = "relativitypathtracer_tpu/ops/pallas/"
 K4_TPU = TPU + "mesh_kernels.py:389 (XLA)"
@@ -276,7 +286,7 @@ def compare_lists(torch, mk, path, calls, plains):
                     for ms, n, pairs, _ in culls))
 
 
-def compare_kernels(torch, pt_mods, meta, captured, originals, names):
+def compare_kernels(torch, pt_mods, meta, captured, originals, names, path):
     """Each kernel of `names` against its plain twin on its captured
     first-frame inputs: checks, error, kernel/plain ms, bound."""
     ak, mk, sc, tk, mb, ml = pt_mods
@@ -336,7 +346,11 @@ def compare_kernels(torch, pt_mods, meta, captured, originals, names):
             err = float((guv - wuv)[:, hit].abs().max())
             check(err <= 1e-5, f"K3 uv off its twin by {err}")
             n, G = args[1].shape[1], args[0].shape[0]
-            record(name, err, fn, args, ak.analytic_nearest_plain, 60.0 * G * n,
+            tested = analytic_votes(torch, ak, "K3", path, fn, args, None)
+            # every lane's pre-test, and the full test on the 32 lanes of
+            # each (warp, object) pair whose vote ran it
+            record(name, err, fn, args, ak.analytic_nearest_plain,
+                   K3_PRETEST_OPS * G * n + K3_TEST_OPS * 32 * tested,
                    nbytes(args[0], args[1]) + 28 * n)
         elif name in ("rpt_shared_walk", "rpt_large_shared_walk", "rpt_batched_shared_walk"):
             batched = name == "rpt_batched_shared_walk"
@@ -377,11 +391,19 @@ def compare_kernels(torch, pt_mods, meta, captured, originals, names):
             check(bool(torch.equal((got >= tmax)[rel], (want >= tmax)[rel])), "K7 lit masks")
             occ = rel & (want < tmax)
             check(int(occ.sum()) > 0, "K7: no occluded lanes")
-            err = float((got[occ] - want[occ]).abs().max())
-            check(torch.allclose(got[occ], want[occ], rtol=1e-5), f"K7 t off by {err}")
-            n, G = tmax.shape[0], args[0].shape[0]
-            record(name, err, fn, args, ak.analytic_min_t_plain, 100.0 * G * float(rel.sum()),
-                   nbytes(args[0], args[1], args[2], tmax) + 4 * n)
+            err = float((got - want).abs().max())
+            check(same(torch, got, want), f"K7 differs from its twin (max abs err {err})")
+            n, G, active = tmax.shape[0], args[0].shape[0], int((tmax != 0).sum())
+            tested = analytic_votes(torch, ak, "K7", path, fn, args, args[1])
+            # o4 and dir4 read only on lanes with tmax != 0; tmax read and t
+            # written on every lane; the pre-test on the active lanes
+            moved = nbytes(args[0]) + 32 * active + 8 * n
+            record(name, err, fn, args, ak.analytic_min_t_plain,
+                   K7_PRETEST_OPS * G * active + K7_TEST_OPS * 32 * tested, moved)
+            every = nbytes(args[0], args[1], args[2], tmax) + 4 * n
+            log(f"  rpt_analytic_min_t: the bound counting o4 and dir4 on every lane and 100 "
+                f"operations a lane and object with tmax > 0 (the earlier count) "
+                f"{bound(100.0 * G * float(rel.sum()), every)[0]:.4f} ms")
         elif name in ("rpt_general_walk", "rpt_batched_general_walk", "rpt_large_general_walk"):
             batched = name == "rpt_batched_general_walk"
             plain = {"rpt_general_walk": mk.general_walk_plain,
@@ -408,6 +430,29 @@ def compare_kernels(torch, pt_mods, meta, captured, originals, names):
             record(name, float((got - want).abs().max()), fn, args, plain,
                    (48.0 if batched else 47.0) * tests, nbytes(*args) + 4 * tmax.shape[0])
     return out
+
+
+def analytic_votes(torch, ak, kid, path, fn, args, origins4) -> int:
+    """K3/K7: one more run (outside any timed run) with the kernel's
+    `tested` counter: the (warp, object) pairs whose vote ran the full test.
+    It must equal the count of the pre-test's plain form
+    (object_may_hit_plain, lanes with tmax == 0 voting no); prints the share
+    of pairs skipped. Returns the pairs tested."""
+    tested = torch.zeros(1, dtype=torch.int32, device=args[0].device)
+    fn(*args, tested=tested)
+    tested = int(tested)
+    params, dir4 = args[0], args[2 if origins4 is not None else 1]
+    ns, nc = args[3 if origins4 is not None else 2], args[4 if origins4 is not None else 3]
+    may = ak.object_may_hit_plain(params, dir4, ns, nc, origins4)
+    if origins4 is not None:
+        may = may & (args[5] != 0)
+    want = ak.warp_votes_plain(may)
+    pairs = may.shape[0] * -(-may.shape[1] // ak.WARP)
+    check(tested == want, f"{kid} on {path}: {tested} pairs tested, the plain pre-test {want}")
+    check(path != "cubes" or tested < pairs, f"{kid} on {path}: the vote skipped no object")
+    log(f"  {kid} on {path}: the vote ran {tested:,} of {pairs:,} (warp, object) full tests, "
+        f"skipped {1 - tested / pairs:.2%}, as the plain pre-test counts")
+    return tested
 
 
 def switches_note(mb, name, args, walked) -> str:
@@ -655,7 +700,7 @@ def main() -> int:
 
         originals_by_key = {n: originals[n.split("/")[0]] for n in names}
         results[path] = compare_kernels(torch, (ak, mk, sc, tk, mb, ml), meta, captured,
-                                        originals_by_key, names)
+                                        originals_by_key, names, path)
         if "rpt_live_cull" in names:
             compare_lists(torch, mk, path, list_calls, list_plains)
         else:

@@ -37,7 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # the stream (a pointer) and returns the cudaError_t of its launch.
 _SIGNATURES = {
     "rpt_shadow_chain": "pipppppfipppppp",
-    "rpt_analytic_nearest": "piipippppp",
+    "rpt_analytic_nearest": "piipipppppp",
     "rpt_shared_walk": "pppppppiipppppp",
     "rpt_general_walk": "pppppppiipp",
     "rpt_large_shared_walk": "ppppppppiiiiiipppppp",
@@ -45,7 +45,7 @@ _SIGNATURES = {
     "rpt_batched_shared_walk": "pppppppppiiippppppp",
     "rpt_batched_general_walk": "ppppppppppiiipp",
     "rpt_footprint_sample": "pipippippp",
-    "rpt_analytic_min_t": "piipppipp",
+    "rpt_analytic_min_t": "piipppippp",
     "rpt_live_cull": "pipiippiiippppppp",
     "rpt_bucket_order": "ppiipppp",
 }

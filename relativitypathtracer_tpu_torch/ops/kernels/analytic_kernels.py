@@ -11,8 +11,11 @@ intersect_sphere / intersect_cube (opencl_kernel.cl:312-359).
 `analytic_nearest_shared` and `analytic_min_t_general` launch their CUDA
 kernels (csrc/analytic_kernels.cu) on CUDA tensors and call their plain twins
 `analytic_nearest_plain` and `analytic_min_t_plain` on CPU tensors. All walk
-every object, spheres before cubes (the JAX kernels walk per-block culled
-lists from 5 objects of a kind on); K3 computes the spherical UVs itself.
+every object in index order, spheres before cubes (the JAX kernels walk
+per-block culled lists from 5 objects of a kind on); K3 computes the
+spherical UVs itself. The kernels skip an object for a warp whose 32 lanes
+all fail a bounding-sphere pre-test (`object_may_hit_plain`), which never
+fails a lane the full test hits, so their results equal the twins'.
 """
 
 from __future__ import annotations
@@ -25,6 +28,12 @@ from ._build import check_cuda, launch
 
 EPSILON = 1e-7
 INF = 1e20
+# The kernels' per-lane pre-test (object_may_hit_plain), with the margins
+# that csrc/analytic_kernels.cu derives ("The pre-test's margins"):
+PRETEST_KAPPA = 2.0 ** -14  # slack of the discriminant, relative to |d|^2 (|ro|^2 + r^2)
+PRETEST_MU = 2.0 ** -14  # slack of "the origin lies outside", relative to |ro|^2
+PRETEST_DD_MIN = 2.0 ** -100  # below this |d|^2 a lane always may hit
+WARP = 32  # lanes that vote together in the kernels
 # params row: [0:12) A, the (3, 4) dir transform row-major | [12:15) the
 # object-space origin | [15:24) inv_m[:3, :3]^T row-major | [24] object id
 PARAM_COLS = 32
@@ -111,6 +120,56 @@ def _cube_hit(ro, dh):
     return dist, valid, nin
 
 
+def object_may_hit_plain(params, dir4, n_spheres: int, n_cubes: int, origins4=None):
+    """The per-lane pre-test of the K3 and K7 kernels, in their fp32
+    operations: (G, N) bool, whether lane j may hit object g. False only
+    where the object-space line ro + s d, s >= 0 (d = A @ w as the full test
+    forms it; ro the shared origin of the row, or A @ origins4 + b per lane
+    for K7) provably misses the object's bounding sphere |x|^2 <= r^2 (r^2 = 1
+    for a sphere, 3 for the cube [-1, 1]^3), so that the full test finds no
+    hit there. With rr = |ro|^2, c = rr - r^2, rd = ro . d, dd = |d|^2 and
+    disc = rd^2 - dd c, a lane is dead where disc is finite, dd >=
+    PRETEST_DD_MIN and either disc < -dd PRETEST_KAPPA (rr + r^2) (the line
+    misses the sphere) or rd > 0 and c > PRETEST_MU rr (it starts outside
+    and moves away). Any NaN or infinity reads as "may hit". The kernels do
+    not apply tmax; their masked lanes (K7's tmax == 0, lanes past N) vote
+    no. Used by the tests and chip_smoke.py, never on the frame path."""
+    w = [dir4[i] for i in range(4)]
+    o = None if origins4 is None else [origins4[i] for i in range(4)]
+    rows = []
+    for g in range(n_spheres + n_cubes):
+        p = params[g]
+        r2 = 1.0 if g < n_spheres else 3.0
+        d = _rows3(p, 0, 4, w)
+        if o is None:
+            ro = [p[12 + k] for k in range(3)]
+        else:
+            ro = [r + p[12 + k] for k, r in enumerate(_rows3(p, 0, 4, o))]
+        rr = ro[0] * ro[0] + ro[1] * ro[1] + ro[2] * ro[2]
+        c = rr - r2
+        kr = PRETEST_KAPPA * (rr + r2)
+        mr = PRETEST_MU * rr
+        rd = ro[0] * d[0] + ro[1] * d[1] + ro[2] * d[2]
+        dd = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+        disc = rd * rd - dd * c
+        dead = (torch.isfinite(disc) & (dd >= PRETEST_DD_MIN)
+                & ((disc < -(dd * kr)) | ((rd > 0.0) & (c > mr))))
+        rows.append(~dead)
+    if not rows:
+        return torch.zeros((0, dir4.shape[1]), dtype=torch.bool, device=dir4.device)
+    return torch.stack(rows)
+
+
+def warp_votes_plain(may):
+    """(warp, object) pairs whose vote runs the kernel's full test: the
+    groups of WARP consecutive lanes of `may` (G, N) with any lane True
+    (lanes past N vote no)."""
+    G, n = may.shape
+    pad = -n % WARP
+    may = torch.cat([may, may.new_zeros((G, pad))], dim=1)
+    return int(may.reshape(G, -1, WARP).any(dim=2).sum())
+
+
 def analytic_nearest_plain(params, dir4, n_spheres: int, n_cubes: int):
     """Plain twin of the K3 kernel: every object in order, strict <.
     Returns (t (N,), normal (3, N), uv (2, N), obj (N,) int32)."""
@@ -152,23 +211,28 @@ def analytic_nearest_plain(params, dir4, n_spheres: int, n_cubes: int):
     return best_t, torch.stack(best_n), uv, best_obj.to(torch.int32)
 
 
-def analytic_nearest_shared(params, dir4, n_spheres: int, n_cubes: int):
+def analytic_nearest_shared(params, dir4, n_spheres: int, n_cubes: int, tested=None):
     """Nearest sphere/cube hit of rays sharing the camera origin. params:
     (G, PARAM_COLS) from pack_analytic_params; dir4: (4, N) camera-frame
     4-directions. Returns (t, normal (3, N) rest frame, uv (2, N), obj (N,)
-    int32 global ids); t = INF and obj 0 where nothing was hit."""
+    int32 global ids); t = INF and obj 0 where nothing was hit. tested, a
+    (1,) int32 tensor on the card, gains the (warp, object) pairs that ran
+    the kernel's full test (warp_votes_plain of object_may_hit_plain); CPU
+    tensors leave it; the frame path passes none."""
     if dir4.device.type == "cpu":
         return analytic_nearest_plain(params, dir4, n_spheres, n_cubes)
     dir4 = dir4.contiguous()
     n = dir4.shape[1]
-    check_cuda("analytic_nearest_shared",
-               (params, torch.float32, (n_spheres + n_cubes, PARAM_COLS)),
-               (dir4, torch.float32, (4, n)))
+    specs = [(params, torch.float32, (n_spheres + n_cubes, PARAM_COLS)),
+             (dir4, torch.float32, (4, n))]
+    if tested is not None:
+        specs.append((tested, torch.int32, (1,)))
+    check_cuda("analytic_nearest_shared", *specs)
     t = torch.empty(n, dtype=torch.float32, device=dir4.device)
     obj = torch.empty(n, dtype=torch.int32, device=dir4.device)
     nrm = torch.empty((3, n), dtype=torch.float32, device=dir4.device)
     uv = torch.empty((2, n), dtype=torch.float32, device=dir4.device)
-    launch("rpt_analytic_nearest", params, n_spheres, n_cubes, dir4, n, t, obj, nrm, uv)
+    launch("rpt_analytic_nearest", params, n_spheres, n_cubes, dir4, n, t, obj, nrm, uv, tested)
     return t, nrm, uv, obj
 
 
@@ -189,20 +253,24 @@ def analytic_min_t_plain(params, origins4, dir4, n_spheres: int, n_cubes: int, t
     return torch.where(tmax == 0.0, INF, best)
 
 
-def analytic_min_t_general(params, origins4, dir4, n_spheres: int, n_cubes: int, tmax):
+def analytic_min_t_general(params, origins4, dir4, n_spheres: int, n_cubes: int, tmax,
+                           tested=None):
     """Min hit parameter over spheres and cubes for shadow rays with per-lane
     origins. params: (G, PARAM_COLS) from pack_analytic_params_general (the
     light left out by omitting its row); origins4, dir4: (4, N) camera frame;
     tmax: (N,) search bound, 0 on masked lanes. Returns (N,) f32: the nearest
-    hit, INF where none (and on masked lanes). Callers test t < tmax."""
+    hit, INF where none (and on masked lanes). Callers test t < tmax. tested
+    as for analytic_nearest_shared (masked lanes vote no)."""
     if dir4.device.type == "cpu":
         return analytic_min_t_plain(params, origins4, dir4, n_spheres, n_cubes, tmax)
     origins4, dir4, tmax = origins4.contiguous(), dir4.contiguous(), tmax.contiguous()
     n = dir4.shape[1]
-    check_cuda("analytic_min_t_general",
-               (params, torch.float32, (n_spheres + n_cubes, PARAM_COLS)),
-               (origins4, torch.float32, (4, n)), (dir4, torch.float32, (4, n)),
-               (tmax, torch.float32, (n,)))
+    specs = [(params, torch.float32, (n_spheres + n_cubes, PARAM_COLS)),
+             (origins4, torch.float32, (4, n)), (dir4, torch.float32, (4, n)),
+             (tmax, torch.float32, (n,))]
+    if tested is not None:
+        specs.append((tested, torch.int32, (1,)))
+    check_cuda("analytic_min_t_general", *specs)
     t = torch.empty(n, dtype=torch.float32, device=dir4.device)
-    launch("rpt_analytic_min_t", params, n_spheres, n_cubes, origins4, dir4, tmax, n, t)
+    launch("rpt_analytic_min_t", params, n_spheres, n_cubes, origins4, dir4, tmax, n, t, tested)
     return t

@@ -20,7 +20,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_port_fixtures import assert_mostly_close, t, tie_flip_frac
+from torch_port_fixtures import (PRETEST_CASES, assert_mostly_close, pretest_inputs, t,
+                                 tie_flip_frac)
 
 from relativitypathtracer_tpu.ops import relmath as jrel
 from relativitypathtracer_tpu.ops.pallas import analytic_kernels as jak
@@ -138,3 +139,78 @@ def test_analytic_min_t_matches_interpret_kernel(n_spheres, n_cubes, interval):
     err_port = np.percentile(np.abs(got[occ] - ref[occ]) / ref[occ], 99)
     err_jax = np.percentile(np.abs(want[occ] - ref[occ]) / ref[occ], 99)
     assert err_port <= 2.0 * err_jax + 1e-6, (err_port, err_jax)
+
+
+# --- The kernels' per-lane pre-test (object_may_hit_plain) -----------------
+#
+# The K3 and K7 kernels skip an object for a warp whose lanes all fail the
+# pre-test; that is exact only if "pre-test false" implies that the full
+# test (the twin) finds no hit on that lane and object. The cases
+# (torch_port_fixtures.pretest_inputs) hold 4 x 10^5 adversarial (lane,
+# object) pairs each, rays that cross the boundary of a hit within a few
+# ulps.
+
+
+def _per_object_t(params, dir4, origins4, n_spheres, n_cubes):
+    """The twin's t for each object alone: (G, N)."""
+    out = []
+    for g in range(n_spheres + n_cubes):
+        s = int(g < n_spheres)
+        if origins4 is None:
+            out.append(pak.analytic_nearest_plain(params[g:g + 1], dir4, s, 1 - s)[0])
+        else:
+            ones = torch.ones(dir4.shape[1])
+            out.append(pak.analytic_min_t_plain(params[g:g + 1], origins4, dir4, s, 1 - s, ones))
+    return torch.stack(out)
+
+
+@pytest.mark.parametrize("case", PRETEST_CASES)
+@pytest.mark.parametrize("form", ["K3", "K7"])
+def test_object_pretest_false_implies_no_hit(form, case):
+    """On 10^5 adversarial (lane, object) pairs, a lane the pre-test
+    rejects is never one the twin hits: its per-object t is INF. Both
+    verdicts occur. For `ragged` (N not a multiple of 32), lanes past N
+    vote no in warp_votes_plain."""
+    rng = np.random.default_rng(PRETEST_CASES.index(case) + (50 if form == "K7" else 0))
+    params, dir4, o4, ns, nc = pretest_inputs(rng, form, case)
+    may = pak.object_may_hit_plain(params, dir4, ns, nc, o4)
+    t_g = _per_object_t(params, dir4, o4, ns, nc)
+    assert may.shape == t_g.shape and may.numel() >= 100_000
+    hit = t_g != pak.INF
+    assert int((hit & ~may).sum()) == 0, int((hit & ~may).sum())
+    assert bool(hit.any()) and bool((~may).any())
+    if case == "ragged":
+        N = dir4.shape[1]
+        assert N % pak.WARP and pak.warp_votes_plain(may) == sum(
+            int(may[:, j:j + pak.WARP].any(dim=1).sum()) for j in range(0, N, pak.WARP))
+
+
+def test_object_pretest_on_the_cubes_fixture(tmp_path_factory):
+    """The `cubes` fixture's first frame at 64x64 (K3: 10 objects; K7: 9
+    occluders, lanes with tmax > 0): the pre-test rejects no lane the twin
+    hits, and proves at least 80% of the (warp, object) pairs dead."""
+    import relativitypathtracer_tpu_torch as pt
+    from relativitypathtracer_tpu_torch import render as prender
+    from torch_port_fixtures import write_fixture
+
+    host = pt.load_scene_file(write_fixture(tmp_path_factory, 3, "cubes"))
+    scene, meta = pt.build_scene(host, device="cpu")
+    calls = {}
+    real_n, real_m = prender.analytic_nearest_shared, prender.analytic_min_t_general
+    prender.analytic_nearest_shared = lambda *a: calls.setdefault("K3", a) and real_n(*a)
+    prender.analytic_min_t_general = lambda *a: calls.setdefault("K7", a) and real_m(*a)
+    try:
+        pt.build_render_fn(meta, 64, 64, -1, device="cpu")(
+            scene, pt.FrameState(torch.zeros(3), torch.zeros(4)))
+    finally:
+        prender.analytic_nearest_shared, prender.analytic_min_t_general = real_n, real_m
+    params, dir4, ns, nc = calls["K3"]
+    p7, o4, d7, ns7, nc7, tmax = calls["K7"]
+    assert (ns + nc, ns7 + nc7) == (10, 9)
+    for p, d, o, s, c, act in ((params, dir4, None, ns, nc, torch.ones(4096, dtype=torch.bool)),
+                               (p7, d7, o4, ns7, nc7, tmax > 0)):
+        may = pak.object_may_hit_plain(p, d, s, c, o) & act
+        hit = (_per_object_t(p, d, o, s, c) != pak.INF) & act
+        assert not bool((hit & ~may).any()) and bool(hit.any())
+        pairs = may.shape[0] * -(-may.shape[1] // pak.WARP)
+        assert pak.warp_votes_plain(may) <= 0.2 * pairs, (pak.warp_votes_plain(may), pairs)

@@ -189,36 +189,99 @@ def test_general_walk_kernel_matches_twin(cuda):
     assert int((want < tmax)[rel].sum()) > 50 and int((want >= tmax)[rel].sum()) > 50
 
 
-@pytest.mark.parametrize("n_spheres,n_cubes", [(1, 0), (6, 5)])
-def test_analytic_kernel_matches_twin(cuda, n_spheres, n_cubes):
+def _analytic_scene(dev, rng, case, G, general):
+    """Objects for the K3/K7 card cases, packed for K3 (camera at the origin)
+    or K7 (general): `mixed` and the others at z 3..7, boosted up to 0.2c;
+    `all_culled` behind the camera and the shadow rays (z -14..-9);
+    `all_live` around the camera (the
+    camera inside every bounding ball); `many` as cubes.txt: 34 cubes in two
+    rows and a light sphere, half of the cubes at 0.9c."""
     from relativitypathtracer_tpu_torch.ops import relmath
     from relativitypathtracer_tpu_torch.ops.kernels import analytic_kernels as ak
 
-    rng = np.random.default_rng(n_spheres + 10 * n_cubes)
-    G = n_spheres + n_cubes
-    pos = np.stack([rng.uniform(-2, 2, G), rng.uniform(-1.5, 1.5, G), rng.uniform(3, 7, G)], 1)
+    if case == "many":
+        pos = np.stack([np.r_[0.0, np.tile(np.linspace(-4, 4, 17), 2)],
+                        np.r_[3.0, np.repeat([-0.5, 0.8], 17)],
+                        np.r_[6.0, np.repeat([5.0, 8.0], 17)]], 1)
+        scale = np.full((G, 3), 0.2)
+        vel = np.zeros((G, 3))
+        vel[18:, 0] = 0.9
+    else:
+        z = {"all_culled": (-14, -9), "all_live": (-0.3, 0.3)}.get(case, (3, 7))
+        pos = np.stack([rng.uniform(-2, 2, G), rng.uniform(-1.5, 1.5, G), rng.uniform(*z, G)], 1)
+        if case == "all_live":
+            pos[:, :2] *= 0.1
+        scale = rng.uniform(0.5, 1.2, (G, 3)) * (8.0 if case == "all_live" else 1.0)
+        vel = rng.normal(size=(G, 3)) * 0.2
     m = torch.stack([relmath.trs(p.astype(np.float32), np.float32(rng.uniform(0, 3)),
                                  rng.normal(size=3).astype(np.float32),
-                                 rng.uniform(0.5, 1.2, 3).astype(np.float32)) for p in pos])
-    vel = torch.as_tensor(rng.normal(size=(G, 3)) * 0.2, dtype=torch.float32)
-    L, inv_m = relmath.lorentz(vel).to(cuda), relmath.inverse4(m).to(cuda)
-    params = ak.pack_analytic_params(L, inv_m, torch.zeros((G, 4), device=cuda), tuple(range(G)))
-    n = 65536
-    d = torch.as_tensor(rng.normal(size=(3, n)) * 0.35, dtype=torch.float32, device=cuda)
+                                 s.astype(np.float32)) for p, s in zip(pos, scale)])
+    L = relmath.lorentz(torch.as_tensor(vel, dtype=torch.float32)).to(dev)
+    inv_m = relmath.inverse4(m).to(dev)
+    if general:
+        return ak.pack_analytic_params_general(L, inv_m, tuple(range(G)))
+    return ak.pack_analytic_params(L, inv_m, torch.zeros((G, 4), device=dev), tuple(range(G)))
+
+
+# K3's card cases: objects (spheres, cubes) and rays
+K3_CASES = {"one_sphere": (1, 0), "mixed": (6, 5), "all_culled": (3, 4), "all_live": (3, 4),
+            "grazing": None, "ragged": (2, 3), "many": (1, 34)}
+
+
+def _k3_inputs(dev, case):
+    """[(params, dir4, n_spheres, n_cubes)] of a K3 card case; `grazing` is
+    every case of the CPU pre-test's adversarial rays, in the K3 form."""
+    from torch_port_fixtures import PRETEST_CASES, pretest_inputs
+
+    rng = np.random.default_rng(sum(map(ord, case)))
+    if case == "grazing":
+        return [(p.to(dev), d.to(dev), ns, nc) for p, d, _, ns, nc in
+                (pretest_inputs(rng, "K3", c) for c in PRETEST_CASES)]
+    ns, nc = K3_CASES[case]
+    params = _analytic_scene(dev, rng, case, ns + nc, general=False)
+    n = 65536 - 13 if case == "ragged" else 65536
+    d = torch.as_tensor(rng.normal(size=(3, n)) * 0.35, dtype=torch.float32, device=dev)
     d[2] = 1.0
-    dir4 = torch.cat([torch.full((1, n), -1.0, device=cuda), d / d.norm(dim=0)]).contiguous()
-    gt, gn, guv, go = ak.analytic_nearest_shared(params, dir4, n_spheres, n_cubes)
-    wt, wn, wuv, wo = ak.analytic_nearest_plain(params, dir4, n_spheres, n_cubes)
-    hit = wt < 1e19
-    assert hit.any() and torch.equal(gt < 1e19, hit)
-    assert float((go != wo).float().mean()) <= 1e-3
-    same = hit & (go == wo)
-    torch.testing.assert_close(gt[same], wt[same], rtol=1e-5, atol=0)
-    torch.testing.assert_close(gn[:, same], wn[:, same], rtol=0, atol=1e-5)
-    torch.testing.assert_close(guv[:, same], wuv[:, same], rtol=0, atol=1e-5)
-    # With its sphere and cube tests in __device__ functions shared with K7,
-    # K3 still runs its twin's fp32 operations in the same order.
-    assert torch.equal(gt, wt) and torch.equal(gn, wn) and torch.equal(go, wo)
+    dir4 = torch.cat([torch.full((1, n), -1.0, device=dev), d / d.norm(dim=0)]).contiguous()
+    return [(params, dir4, ns, nc)]
+
+
+@pytest.mark.parametrize("case", list(K3_CASES))
+def test_analytic_kernel_matches_twin(cuda, case):
+    """K3 against its twin: t, normal and object id equal to the bit, uv
+    within 1e-5 (CUDA's atan2f/asinf against PyTorch's); one launch a
+    call; its `tested` counter equal to the (warp, object) pairs that the
+    pre-test's plain form lets through (none for `all_culled`, every pair
+    for `all_live`)."""
+    from relativitypathtracer_tpu_torch.ops.kernels import analytic_kernels as ak
+
+    for params, dir4, n_spheres, n_cubes in _k3_inputs(cuda, case):
+        tested = torch.zeros(1, dtype=torch.int32, device=cuda)
+        before = _launches("rpt_analytic_nearest")
+        gt, gn, guv, go = ak.analytic_nearest_shared(params, dir4, n_spheres, n_cubes,
+                                                     tested=tested)
+        torch.cuda.synchronize()
+        assert _launches("rpt_analytic_nearest") == before + 1
+        wt, wn, wuv, wo = ak.analytic_nearest_plain(params, dir4, n_spheres, n_cubes)
+        hit = wt < 1e19
+        assert bool(hit.any()) == (case != "all_culled") and torch.equal(gt < 1e19, hit)
+        assert float((go != wo).float().mean()) <= 1e-3
+        same = hit & (go == wo)
+        torch.testing.assert_close(gt[same], wt[same], rtol=1e-5, atol=0)
+        torch.testing.assert_close(gn[:, same], wn[:, same], rtol=0, atol=1e-5)
+        torch.testing.assert_close(guv[:, same], wuv[:, same], rtol=0, atol=1e-5)
+        # With its sphere and cube tests in __device__ functions shared with
+        # K7, K3 still runs its twin's fp32 operations in the same order,
+        # and the objects its vote skips leave every lane as it was.
+        assert torch.equal(gt, wt) and torch.equal(gn, wn) and torch.equal(go, wo)
+        may = ak.object_may_hit_plain(params, dir4, n_spheres, n_cubes)
+        want = ak.warp_votes_plain(may)
+        assert int(tested) == want, (int(tested), want)
+        pairs = may.shape[0] * -(-dir4.shape[1] // ak.WARP)
+        if case == "all_culled":
+            assert want == 0
+        if case == "all_live":
+            assert want == pairs
 
 
 def test_shadow_chain_kernel_matches_twin(cuda):
@@ -301,42 +364,70 @@ def test_footprint_kernel_matches_twin(cuda, w, h):
     assert torch.equal(per_lane, got)
 
 
-def test_analytic_min_t_kernel_matches_twin(cuda):
-    """K7 with 2 spheres and 9 cubes: identical lit masks on the lanes with
-    tmax > 0, t within rtol 1e-5 where an occluder lies nearer than tmax,
-    INF on masked lanes."""
-    from relativitypathtracer_tpu_torch.ops import relmath
-    from relativitypathtracer_tpu_torch.ops.kernels import analytic_kernels as ak
+K7_CASES = ("mixed", "all_culled", "all_live", "grazing", "ragged", "many", "masked_garbage")
 
-    rng = np.random.default_rng(71)
-    G = 11
-    pos = np.stack([rng.uniform(-2, 2, G), rng.uniform(-1.5, 1.5, G), rng.uniform(3, 7, G)], 1)
-    m = torch.stack([relmath.trs(p.astype(np.float32), np.float32(rng.uniform(0, 3)),
-                                 rng.normal(size=3).astype(np.float32),
-                                 rng.uniform(0.5, 1.2, 3).astype(np.float32)) for p in pos])
-    vel = torch.as_tensor(rng.normal(size=(G, 3)) * 0.2, dtype=torch.float32)
-    L, inv_m = relmath.lorentz(vel).to(cuda), relmath.inverse4(m).to(cuda)
-    params = ak.pack_analytic_params_general(L, inv_m, tuple(range(G)))
-    n = 131072
+
+def _k7_inputs(dev, case):
+    """[(params, origins4, dir4, n_spheres, n_cubes, tmax)] of a K7 card
+    case: shadow rays from x 0..9 (time), y +-0.5, z +-2.5 towards +z;
+    tmax 1..12, 0 on a fifth of the lanes; `masked_garbage` puts NaN,
+    infinite and huge origins and directions on the masked lanes;
+    `grazing` is every case of the CPU pre-test's adversarial rays, in the
+    K7 form, with tmax 1."""
+    from torch_port_fixtures import PRETEST_CASES, pretest_inputs
+
+    rng = np.random.default_rng(71 + sum(map(ord, case)))
+    if case == "grazing":
+        return [(p.to(dev), o.to(dev), d.to(dev), ns, nc, torch.ones(d.shape[1], device=dev))
+                for p, d, o, ns, nc in (pretest_inputs(rng, "K7", c) for c in PRETEST_CASES)]
+    ns, nc = (1, 34) if case == "many" else (2, 9)
+    params = _analytic_scene(dev, rng, case, ns + nc, general=True)
+    n = 131072 - 29 if case == "ragged" else 131072
     o = torch.as_tensor(np.stack([rng.uniform(0, 9, n), rng.uniform(-0.5, 0.5, n),
                                   rng.uniform(-2.5, 2.5, n), rng.uniform(-2.5, 2.5, n)]),
-                        dtype=torch.float32, device=cuda)
-    d = torch.as_tensor(rng.normal(size=(3, n)) * 0.4, dtype=torch.float32, device=cuda)
+                        dtype=torch.float32, device=dev)
+    d = torch.as_tensor(rng.normal(size=(3, n)) * 0.4, dtype=torch.float32, device=dev)
     d[2] = 1.0
-    dir4 = torch.cat([torch.full((1, n), -1.0, device=cuda), d / d.norm(dim=0)]).contiguous()
-    tmax = torch.as_tensor(rng.uniform(1, 12, n), dtype=torch.float32, device=cuda)
-    tmax[torch.as_tensor(rng.uniform(size=n) < 0.2, device=cuda)] = 0.0
-    before = _launches("rpt_analytic_min_t")
-    got = ak.analytic_min_t_general(params, o, dir4, 2, 9, tmax)
-    torch.cuda.synchronize()
-    assert _launches("rpt_analytic_min_t") == before + 1
-    want = ak.analytic_min_t_plain(params, o, dir4, 2, 9, tmax)
-    rel = tmax > 0
-    assert torch.equal((got >= tmax)[rel], (want >= tmax)[rel])
-    occ = rel & (want < tmax)
-    assert int(occ.sum()) > 1000
-    torch.testing.assert_close(got[occ], want[occ], rtol=1e-5, atol=0)
-    assert bool((got[~rel] == 1e20).all())
+    dir4 = torch.cat([torch.full((1, n), -1.0, device=dev), d / d.norm(dim=0)]).contiguous()
+    tmax = torch.as_tensor(rng.uniform(1, 12, n), dtype=torch.float32, device=dev)
+    masked = torch.as_tensor(rng.uniform(size=n) < 0.2, device=dev)
+    tmax[masked] = 0.0
+    if case == "masked_garbage":
+        junk = torch.tensor([float("nan"), float("inf"), -float("inf"), 1e30], device=dev)
+        pick = torch.as_tensor(rng.integers(0, 4, (2, 4, n)), device=dev)
+        o = torch.where(masked, junk[pick[0]], o)
+        dir4 = torch.where(masked, junk[pick[1]], dir4)
+    return [(params, o.contiguous(), dir4.contiguous(), ns, nc, tmax)]
+
+
+@pytest.mark.parametrize("case", K7_CASES)
+def test_analytic_min_t_kernel_matches_twin(cuda, case):
+    """K7 against its twin: every lane equal to the bit (INF on masked
+    lanes, whatever their origins and directions hold), identical lit
+    masks on the lanes with tmax > 0; one launch a call; its `tested`
+    counter equal to the (warp, object) pairs that the pre-test's plain
+    form lets through on the lanes with tmax != 0."""
+    from relativitypathtracer_tpu_torch.ops.kernels import analytic_kernels as ak
+
+    for params, o, dir4, ns, nc, tmax in _k7_inputs(cuda, case):
+        tested = torch.zeros(1, dtype=torch.int32, device=cuda)
+        before = _launches("rpt_analytic_min_t")
+        got = ak.analytic_min_t_general(params, o, dir4, ns, nc, tmax, tested=tested)
+        torch.cuda.synchronize()
+        assert _launches("rpt_analytic_min_t") == before + 1
+        want = ak.analytic_min_t_plain(params, o, dir4, ns, nc, tmax)
+        rel = tmax > 0
+        assert torch.equal((got >= tmax)[rel], (want >= tmax)[rel])
+        occ = rel & (want < tmax)
+        if case in ("mixed", "ragged", "many", "masked_garbage", "all_live"):
+            assert int(occ.sum()) > 1000
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert bool((got[~rel] == 1e20).all())
+        may = ak.object_may_hit_plain(params, dir4, ns, nc, o) & (tmax != 0)
+        want_tested = ak.warp_votes_plain(may)
+        assert int(tested) == want_tested, (int(tested), want_tested)
+        if case == "all_culled":
+            assert want_tested == 0
 
 
 @pytest.mark.parametrize("kind", ["textured", "cubes"])

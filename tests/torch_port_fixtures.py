@@ -219,3 +219,181 @@ def box_plane_batch(dev, T: int = 200):
     out = (torch.cat(sum(factors, [])), torch.cat(attrs), torch.cat(spheres), torch.stack(boxes),
            mats, dir4, d_os, o_os, s_os)
     return (*(x.to(dev) for x in out), tuple(counts))
+
+
+# --- Adversarial inputs of the K3/K7 pre-test (object_may_hit_plain) ------
+
+PRETEST_CASES = ("tangent", "edges_corners", "inside", "floor", "boosted", "interval_0",
+                 "degenerate", "ragged")
+
+
+def _unit(rng, n):
+    v = rng.normal(size=(n, 3))
+    return v / np.linalg.norm(v, axis=1, keepdims=True)
+
+
+def _perp(rng, v):
+    """Random unit vectors perpendicular to the rows of v."""
+    e = rng.normal(size=v.shape)
+    e -= (e * v).sum(1, keepdims=True) / (v * v).sum(1, keepdims=True) * v
+    return e / np.linalg.norm(e, axis=1, keepdims=True)
+
+
+def _turn(rng, D):
+    """D turned by 2^-30..2^-8 radians, either way, about a random axis."""
+    ang = 2.0 ** rng.uniform(-30, -8, len(D)) * rng.choice([-1.0, 1.0], len(D))
+    n = np.linalg.norm(D, axis=1, keepdims=True)
+    return D + ang[:, None] * n * _perp(rng, D)
+
+
+def _tangent_targets(rng, Q):
+    """Points where lines from the rows of Q (|Q| > 1) touch the unit sphere."""
+    q2 = (Q * Q).sum(1, keepdims=True)
+    return Q / q2 + np.sqrt(1.0 - 1.0 / q2) * _perp(rng, Q)
+
+
+def _cube_targets(rng, n, corner_share=0.5):
+    """Cube corners and edge points, some moved by 2^-26..2^-12."""
+    X = rng.choice([-1.0, 1.0], size=(n, 3))
+    edge = rng.uniform(size=n) > corner_share
+    axis = rng.integers(0, 3, n)
+    X[edge, axis[edge]] = rng.uniform(-1, 1, int(edge.sum()))
+    jig = rng.uniform(size=n) < 0.5
+    k = int(jig.sum())
+    X[jig] += rng.normal(size=(k, 3)) * 2.0 ** rng.uniform(-26, -12, (k, 1))
+    return X
+
+
+def _objects(rng, kinds, speeds=None, scales=None):
+    """(L, inv_m, m) float32 for objects at z 3..7, random turn."""
+    from relativitypathtracer_tpu_torch.ops import relmath as prel
+
+    G = len(kinds)
+    pos = np.stack([rng.uniform(-2, 2, G), rng.uniform(-1.5, 1.5, G), rng.uniform(3, 7, G)], 1)
+    sc = scales if scales is not None else rng.uniform(0.5, 1.2, (G, 3))
+    m = torch.stack([prel.trs(pos[g].astype(np.float32), np.float32(rng.uniform(0, 3)),
+                              rng.normal(size=3).astype(np.float32),
+                              np.asarray(sc[g], np.float32)) for g in range(G)])
+    sp = np.zeros(G) if speeds is None else np.asarray(speeds, float)
+    vel = _unit(rng, G) * sp[:, None]
+    return prel.lorentz(torch.as_tensor(vel, dtype=torch.float32)), prel.inverse4(m), m
+
+
+def _solve_dirs(A, D, interval):
+    """Camera-frame unit 3-directions u with A @ (interval, u) along +D."""
+    a0, M = A[:, 0], A[:, 1:]
+    p = np.linalg.solve(M, D.T).T
+    q = np.linalg.solve(M, a0 * interval)
+    pq, pp = p @ q, (p * p).sum(1)
+    lam = (pq + np.sqrt(pq * pq - pp * (q @ q - 1.0))) / pp
+    return lam[:, None] * p - q
+
+
+def pretest_inputs(rng, form, case):
+    """Adversarial inputs of the K3/K7 pre-test: (params, dir4, origins4 or
+    None, n_spheres, n_cubes), CPU float32, for the K3 (shared origin) or K7
+    form. G objects (4; 20 for K3 `inside`) and G x 25,000 lanes, every
+    object seeing every lane: for each object, rays solved back to
+    camera-frame 4-directions (and K7's origins) from object-space targets
+    (sphere tangents, cube edges and corners, grazing a face), then turned
+    by 2^-30..2^-8 radians either way. Cases as PRETEST_CASES: `inside`
+    puts the origins inside, on or just outside the bounding ball (K7: on
+    the cube's top face, the floor's shadow origins), `floor` scales the
+    cubes 7 x 0.1 x 6, `boosted` moves the objects at 0.6c and 0.9c,
+    `interval_0` takes interval 0 (the others -1), `degenerate` makes
+    eighths of the lanes zero, huge, infinite, NaN and tiny directions (and
+    NaN and infinite K7 origins), `ragged` adds 3 lanes to each object's
+    (N not a multiple of 32)."""
+    from relativitypathtracer_tpu_torch.ops.kernels import analytic_kernels as ak
+
+    interval = 0.0 if case == "interval_0" else -1.0
+    if case == "inside" and form == "K3":
+        kinds = ["s"] * 10 + ["c"] * 10
+    elif case == "floor":
+        kinds = ["c"] * 4
+    else:
+        kinds = ["s", "s", "c", "c"]
+    G = len(kinds)
+    n = 100_000 // G + (3 if case == "ragged" else 0)
+    speeds = ([0.6, 0.9, 0.6, 0.9] if case == "boosted" else
+              [0.0, 0.5, 0.0, 0.3] * (G // 4))
+    scales = np.tile([7.0, 0.1, 6.0], (G, 1)) if case == "floor" else None
+    L, inv_m, m = _objects(rng, kinds, speeds, scales)
+    # object-space origins: K3 one per object (the camera), K7 one per lane
+    Qs = []
+    for g, kind in enumerate(kinds):
+        r2 = 1.0 if kind == "s" else 3.0
+        if case == "inside":
+            rad = np.sqrt(r2) * [0.3, 0.999, 1.0, 1.0 + 2.0 ** -22, 1.0 + 2.0 ** -12, 1.2][g % 6]
+            if kind == "c" and g % 2:  # on a face, or at a corner
+                Qs.append(np.array([rng.uniform(-1, 1), 1.0, rng.uniform(-1, 1)]) if g % 4 == 1
+                          else np.array([1.0, -1.0, 1.0]))
+                continue
+            Qs.append(_unit(rng, 1)[0] * rad)
+        elif case == "floor":
+            Qs.append(np.array([rng.uniform(-3, 3), rng.uniform(5, 40), rng.uniform(-3, 3)]))
+        else:
+            Qs.append(_unit(rng, 1)[0] * rng.uniform(1.5, 20.0))
+    ids = tuple(range(G))
+    if form == "K3":
+        stat = torch.zeros((G, 4))
+        stat[:, 1:] = torch.stack([m[g, :3, :3] @ torch.as_tensor(Qs[g], dtype=torch.float32)
+                                   + m[g, :3, 3] for g in range(G)])
+        params = ak.pack_analytic_params(L, inv_m, stat, ids)
+    else:
+        params = ak.pack_analytic_params_general(L, inv_m, ids)
+    P = params.double().numpy()
+    n_spheres = kinds.count("s")
+    dirs, origins = [], []
+    for g, kind in enumerate(kinds):
+        A = P[g, :12].reshape(3, 4)
+        if form == "K3":
+            Q = np.asarray(P[g, 12:15])
+        elif case == "inside" or case == "floor":  # shadow origins on a face, or inside
+            Q = np.stack([rng.uniform(-1, 1, n), np.ones(n), rng.uniform(-1, 1, n)], 1)
+            inner = rng.uniform(size=n) < 0.3
+            k = int(inner.sum())
+            Q[inner] = _unit(rng, k) * rng.uniform(0, 1.7, (k, 1))
+        else:
+            Q = _unit(rng, n) * rng.uniform(1.8, 20.0, (n, 1))
+        Qn = np.broadcast_to(Q, (n, 3)) if Q.ndim == 1 else Q
+        if kind == "s" and case != "inside":
+            X = _tangent_targets(rng, np.array(Qn))
+        else:
+            X = _cube_targets(rng, n) if kind == "c" else _unit(rng, n)
+        if case in ("inside", "floor") and kind == "c":
+            # grazing along the top face, and out of it
+            graze = rng.uniform(size=n) < 0.4
+            k = int(graze.sum())
+            step = _unit(rng, k)
+            step[:, 1] = rng.normal(size=k) * 2.0 ** rng.uniform(-30, -10, k)
+            X[graze] = Qn[graze] + step
+        D = _turn(rng, X - Qn)
+        if case == "inside":  # and any way at all
+            away = rng.uniform(size=n) < 0.3
+            D[away] = _unit(rng, int(away.sum()))
+        u = _solve_dirs(A, D, interval)
+        dirs.append(u)
+        if form == "K7":
+            t0 = rng.uniform(0.0, 5.0, n)
+            o = np.linalg.solve(A[:, 1:], (Qn - P[g, 12:15] - A[:, 0] * t0[:, None]).T).T
+            origins.append(np.concatenate([t0[:, None], o], 1))
+    # every object's lanes side by side: each object sees every lane
+    u = np.concatenate(dirs)
+    N = len(u)
+    dir4 = np.concatenate([np.full((1, N), interval), u.T]).astype(np.float32)
+    o4 = np.concatenate(origins).T.astype(np.float32) if form == "K7" else None
+    if case == "degenerate":
+        k = N // 8
+        dir4[1:, :k] = 0.0
+        dir4[1:, k:2 * k] *= np.float32(1e19)
+        dir4[1:, 2 * k:3 * k] *= np.float32(1e30)
+        dir4[1, 3 * k:4 * k] = np.inf
+        dir4[2, 4 * k:5 * k] = np.nan
+        dir4[1:, 5 * k:6 * k] *= np.float32(1e-20)
+        dir4[0, 6 * k:7 * k] = np.nan
+        if o4 is not None:
+            o4[1, 7 * k:7 * k + k // 2] = np.nan
+            o4[2, 7 * k + k // 2:8 * k] = np.inf
+    return (params, torch.as_tensor(dir4), None if o4 is None else torch.as_tensor(o4),
+            n_spheres, G - n_spheres)

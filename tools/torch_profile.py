@@ -20,7 +20,12 @@ same work: the spheres, rays and lane masks read once and the lists written
 once over the memory rate, or about 30 operations per cone test that the
 cull ran, read through its group pre-test's skip counter in the captured
 frame, and 40 per (block, entry) of the counting sort over the fp32 rate,
-the larger of the two). Needs a CUDA device and nvcc.
+the larger of the two). K3 and K7 (`analytic`): each call of the traced
+frame run once more with its `tested` counter, the (warp, object) pairs
+whose vote ran the full test and the share skipped, and the bound of the
+call as chip_smoke.py counts it: the bytes it must move (K7 reads origins
+and directions only on lanes with tmax != 0), or the operations of every
+pre-test and of the full tests that ran. Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -38,6 +43,8 @@ import torch
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 import relativitypathtracer_tpu_torch as pt  # noqa: E402
+from relativitypathtracer_tpu_torch import render as prender  # noqa: E402
+from relativitypathtracer_tpu_torch.ops.kernels import analytic_kernels as ak  # noqa: E402
 from relativitypathtracer_tpu_torch.ops.kernels import mesh_batch as mb  # noqa: E402
 from relativitypathtracer_tpu_torch.ops.kernels import mesh_kernels as mk  # noqa: E402
 from relativitypathtracer_tpu_torch.ops.kernels import mesh_large as ml  # noqa: E402
@@ -64,6 +71,9 @@ def _port_kernel(name: str):
 LIST_BUILDS = ((mk, "live_chunk_lists"), (mb, "live_chunk_lists_multi"),
                (ml, "large_live_lists"))
 PEAK_OPS, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM: fp32 outside the tensor cores, HBM3
+# K3/K7 fp32 operations, as chip_smoke.py counts them: a lane's pre-test of
+# one object, and the rest of the full test on each lane of a tested warp
+K3_OPS, K7_OPS = (40.0, 60.0), (70.0, 55.0)
 
 
 def _union_ms(intervals) -> float:
@@ -137,6 +147,47 @@ def list_build(render, scene, state, reps: int = 10) -> dict:
                 for _, _, a, kw, o, cs in calls)}
 
 
+def analytic_work(render, scene, state) -> dict:
+    """K3 and K7 of one frame: each call run again with its `tested`
+    counter; per kernel the pairs tested, the (warp, object) pairs, the share
+    skipped and the bound ms, summed over the frame's calls."""
+    calls, originals = [], {}
+    for attr in ("analytic_nearest_shared", "analytic_min_t_general"):
+        real = originals[attr] = getattr(prender, attr)
+
+        def rec(*a, _real=real, _attr=attr):
+            calls.append((_real, _attr, a))
+            return _real(*a)
+
+        setattr(prender, attr, rec)
+    try:
+        render(scene, state)
+    finally:
+        for attr, real in originals.items():
+            setattr(prender, attr, real)
+    out = {}
+    for real, attr, a in calls:
+        tested = torch.zeros(1, dtype=torch.int32, device=a[0].device)
+        real(*a, tested=tested)
+        G = a[0].shape[0]
+        if attr == "analytic_nearest_shared":
+            kid, (pre, full), n = "K3", K3_OPS, a[1].shape[1]
+            lanes, moved = n, a[0].nbytes + a[1].nbytes + 28 * n
+        else:
+            kid, (pre, full), n = "K7", K7_OPS, a[5].shape[0]
+            lanes = int((a[5] != 0).sum())
+            moved = a[0].nbytes + 32 * lanes + 8 * n
+        ops = pre * G * lanes + full * 32 * int(tested)
+        r = out.setdefault(kid, {"calls": 0, "tested": 0, "pairs": 0, "bound_ms": 0.0})
+        r["calls"] += 1
+        r["tested"] += int(tested)
+        r["pairs"] += G * -(-n // ak.WARP)
+        r["bound_ms"] += max(moved / PEAK_BYTES, ops / PEAK_OPS) * 1e3
+    for r in out.values():
+        r["skipped_share"] = 1.0 - r["tested"] / max(r["pairs"], 1)
+    return out
+
+
 def profile_path(kind: str, card: str, timed: int = 30, traced: int = 10) -> dict:
     dev = torch.device("cuda")
     with tempfile.TemporaryDirectory() as tmp:
@@ -175,7 +226,8 @@ def profile_path(kind: str, card: str, timed: int = 30, traced: int = 10) -> dic
     return {"path": kind, "card": card, "wall_ms_per_frame": wall_ms,
             "kernels_per_frame": launches / traced, "busy_ms_per_frame": busy,
             "busy_share": busy / wall_ms, "port_kernels_ms_per_frame": port,
-            "top_other_ms_per_frame": others, "k4": list_build(render, scene, state)}
+            "top_other_ms_per_frame": others, "k4": list_build(render, scene, state),
+            "analytic": analytic_work(render, scene, state)}
 
 
 def main() -> int:
