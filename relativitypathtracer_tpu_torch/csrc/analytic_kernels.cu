@@ -15,12 +15,18 @@
 // slabs, two square roots, the normal transform): with 10 objects that is
 // well above the bytes. But most (warp, object) pairs hit nothing: on the
 // cubes path 5% of K3's and 0.1% of K7's have any lane that the full test
-// finds valid (PERF.md).
+// finds valid (PERF.md). With the vote below, what remains is the
+// pre-test's issue slots over every lane and object (about 55 a K3 object
+// and 95 a K7 object per warp, by the SASS), the 5-6% of full tests the
+// votes run, and the bytes: on an NVIDIA H100 80GB HBM3 at 700 W, K3 on
+// the cubes path (10 objects) takes about 0.025 ms against 0.0103 ms of
+// bytes.
 //
 // Design: one thread per ray. Each object's fused constants (a 32-float row
 // from pack_analytic_params[_general]: the (3, 4) transform A, the
 // object-space origin or translation, the normal transform and the object
-// id) are staged in shared memory, and for K3 the pre-test's per-object
+// id) are staged in shared memory, 16-byte aligned so that a row's
+// transform is three 16-byte loads, and for K3 the pre-test's per-object
 // constants derived from the staged row. For each object in index order,
 // spheres before cubes, every lane runs a cheap pre-test (may_hit, below;
 // plain form analytic_kernels.object_may_hit_plain): whether the line from
@@ -28,11 +34,18 @@
 // r^2, r^2 = 1 for the unit sphere, 3 for the cube [-1, 1]^3. Then the warp
 // votes (__any_sync): if no lane may hit, the warp skips the object; else
 // every lane runs the full test, the twin's fp32 operations in the twin's
-// order, unchanged. Lanes past n and K7's masked lanes (tmax == 0) stay to
-// the end so that every vote has its 32 lanes; they vote no and store
-// nothing (K7's masked lanes store INF). A non-null `tested` counts the
+// order, unchanged. The pre-test's comparisons combine with bitwise & and |,
+// without branches (6% faster than short-circuit code on cubes). Lanes past
+// n and K7's masked lanes (tmax == 0) stay to the end so that every vote
+// has its 32 lanes; they vote no and store nothing (K7's masked lanes store
+// INF), and a K7 warp without an active lane skips the walk. K3 writes a
+// no-hit lane's uv as the (0.5, 0.5) that the twin's atan2(0, 0) and asin(0)
+// give, without the two transcendentals. A non-null `tested` counts the
 // (warp, object) pairs that ran the full test (one atomic a pair); the
-// frame path passes null.
+// frame path passes null. Measured and not kept (PERF.md): the votes of 32
+// objects first and then the full tests of the voted ones (K3 no faster,
+// K7 8% slower), and 4 chunks of 256 lanes a CTA with the next chunk's
+// inputs loaded ahead (one wave of CTAs: 13-60% slower).
 //
 // Why the output stays bit for bit with the twins. The pre-test is sound
 // lane by lane: "may_hit false" implies that the full test's `valid` is
@@ -152,18 +165,22 @@ __device__ __forceinline__ float cube_hit(const float* ro, const float* dh, bool
   return nin[0] != 0.0f ? dc[0] : (nin[1] != 0.0f ? dc[1] : dc[2]);
 }
 
-// Rows ax = 0..2 of the (3, 4) transform in p applied to w, left to right.
+// Rows ax = 0..2 of the (3, 4) transform in the row p applied to w, left to
+// right. The row is read as three 16-byte loads (p is a shared-memory row,
+// 16-byte aligned).
 __device__ __forceinline__ void apply34(const float* p, const float* w, float* out) {
+  const float4* a = reinterpret_cast<const float4*>(p);
 #pragma unroll
   for (int ax = 0; ax < 3; ++ax) {
-    out[ax] = p[4 * ax] * w[0] + p[4 * ax + 1] * w[1] + p[4 * ax + 2] * w[2] +
-              p[4 * ax + 3] * w[3];
+    const float4 r = a[ax];
+    out[ax] = r.x * w[0] + r.y * w[1] + r.z * w[2] + r.w * w[3];
   }
 }
 
 __device__ __forceinline__ float bound_r2(bool is_sphere) { return is_sphere ? 1.0f : 3.0f; }
 
-// The pre-test's constants of an origin: rr, c = rr - r^2, K (rr + r^2), M rr.
+// The pre-test's constants of an origin: rr, c = rr - r^2, K (rr + r^2), M rr
+// (may_hit reads the last three; rr makes them one 16-byte load for K3).
 __device__ __forceinline__ void origin_consts(const float* ro, float r2, float* k) {
   const float rr = ro[0] * ro[0] + ro[1] * ro[1] + ro[2] * ro[2];
   k[0] = rr;
@@ -179,8 +196,9 @@ __device__ __forceinline__ bool may_hit(const float* ro, const float* d, const f
   const float rd = ro[0] * d[0] + ro[1] * d[1] + ro[2] * d[2];
   const float dd = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
   const float disc = rd * rd - dd * k[1];
-  const bool dead = isfinite(disc) && dd >= kDdMin &&
-                    (disc < -(dd * k[2]) || (rd > 0.0f && k[1] > k[3]));
+  // bitwise & and |: no branches, every comparison evaluated
+  const bool dead = isfinite(disc) & (dd >= kDdMin) &
+                    ((disc < -(dd * k[2])) | ((rd > 0.0f) & (k[1] > k[3])));
   return !dead;
 }
 
@@ -202,7 +220,8 @@ analytic_nearest_kernel(const float* __restrict__ params, int n_spheres, int n_c
                         const float* __restrict__ dir4, int n, float* __restrict__ t_out,
                         int* __restrict__ obj_out, float* __restrict__ nrm_out,
                         float* __restrict__ uv_out, int* __restrict__ tested) {
-  extern __shared__ float s_p[];
+  extern __shared__ float4 s_p4[];  // 16-byte aligned rows
+  float* s_p = reinterpret_cast<float*>(s_p4);
   const int G = n_spheres + n_cubes;
   float* s_k = s_p + G * kCols;
   stage_params(params, G, n_spheres, s_p, s_k);
@@ -219,13 +238,15 @@ analytic_nearest_kernel(const float* __restrict__ params, int n_spheres, int n_c
   for (int g = 0; g < G; ++g) {
     const float* p = s_p + g * kCols;
     const bool is_sphere = g < n_spheres;
+    const float4 ro4 = *reinterpret_cast<const float4*>(p + 12);
+    const float4 k4 = *reinterpret_cast<const float4*>(s_k + g * kConsts);
+    const float ro[3] = {ro4.x, ro4.y, ro4.z}, kc[kConsts] = {k4.x, k4.y, k4.z, k4.w};
     float d[3];
     apply34(p, w, d);
-    if (!__any_sync(kFull, live && may_hit(p + 12, d, s_k + g * kConsts))) continue;
+    if (!__any_sync(kFull, live & may_hit(ro, d, kc))) continue;
     if (tested != nullptr && (threadIdx.x & 31) == 0) atomicAdd(tested, 1);
     const float scale = sqrtf(d[0] * d[0] + d[1] * d[1] + d[2] * d[2]);
     const float dh[3] = {d[0] / scale, d[1] / scale, d[2] / scale};
-    const float ro[3] = {p[12], p[13], p[14]};
     float dist, s3[3], nin[3];
     bool valid;
     if (is_sphere) {
@@ -271,7 +292,10 @@ analytic_nearest_kernel(const float* __restrict__ params, int n_spheres, int n_c
   obj_out[lane] = static_cast<int>(best_obj);
 #pragma unroll
   for (int k = 0; k < 3; ++k) nrm_out[static_cast<size_t>(k) * n + lane] = bn[k];
-  if (best_kind == 0.0f) {
+  if (best_t == rpt::kInf) {  // no hit: bs is 0, and atan2(0, 0) = asin(0) = 0
+    uv_out[lane] = 0.5f;
+    uv_out[n + lane] = 0.5f;
+  } else if (best_kind == 0.0f) {
     uv_out[lane] = 0.5f + atan2f(bs[2], bs[0]) / kTwoPi;
     uv_out[n + lane] = asinf(fminf(fmaxf(bs[1], -1.0f), 1.0f)) / kPi + 0.5f;
   } else {
@@ -285,7 +309,8 @@ analytic_min_t_kernel(const float* __restrict__ params, int n_spheres, int n_cub
                       const float* __restrict__ o4, const float* __restrict__ dir4,
                       const float* __restrict__ tmax, int n, float* __restrict__ t_out,
                       int* __restrict__ tested) {
-  extern __shared__ float s_p[];
+  extern __shared__ float4 s_p4[];  // 16-byte aligned rows
+  float* s_p = reinterpret_cast<float*>(s_p4);
   const int G = n_spheres + n_cubes;
   stage_params(params, G, n_spheres, s_p, nullptr);
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
@@ -310,7 +335,7 @@ analytic_min_t_kernel(const float* __restrict__ params, int n_spheres, int n_cub
 #pragma unroll
     for (int j = 0; j < 3; ++j) ro[j] = ro[j] + p[12 + j];
     origin_consts(ro, bound_r2(g < n_spheres), k);
-    if (!__any_sync(kFull, active && may_hit(ro, d, k))) continue;
+    if (!__any_sync(kFull, active & may_hit(ro, d, k))) continue;
     if (tested != nullptr && (threadIdx.x & 31) == 0) atomicAdd(tested, 1);
     const float scale = sqrtf(d[0] * d[0] + d[1] * d[1] + d[2] * d[2]);
     const float dh[3] = {d[0] / scale, d[1] / scale, d[2] / scale};
@@ -334,7 +359,8 @@ int set_smem(const void* kernel, size_t smem) {
 extern "C" int rpt_analytic_nearest(const void* params, int n_spheres, int n_cubes,
                                     const void* dir4, int n, void* t, void* obj, void* nrm,
                                     void* uv, void* tested, void* stream) {
-  const size_t smem = static_cast<size_t>(n_spheres + n_cubes) * (kCols + kConsts) * sizeof(float);
+  const size_t smem =
+      static_cast<size_t>(n_spheres + n_cubes) * (kCols + kConsts) * sizeof(float);
   if (const int e = set_smem(reinterpret_cast<const void*>(analytic_nearest_kernel), smem)) {
     return e;
   }
