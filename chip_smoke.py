@@ -11,8 +11,8 @@ build_scene -> build_render_fn at 1024x768, interval -1 (light propagation
 and shadows on):
   blob       one untextured 5,120-triangle mesh moving at 0.5c and a light
              sphere: K1 shadow chain, K3 analytic nearest hit, K4 live-chunk
-             list build (two kernels: the cull and the counting sort), K5
-             mesh primary walk, K6 mesh shadow walk;
+             list build (three kernels: the cone table, the cull and the
+             counting sort), K5 mesh primary walk, K6 mesh shadow walk;
   textured   the same mesh with a 32x32 texture (512-row footprint atlas),
              bench.py's main path: K1, K2 footprint fetch, K3, K4, K5, K6;
   cubes      nine cubes (eight sharing a 256x256 texture, a 32,768-row
@@ -41,11 +41,15 @@ For each path it:
      times both (CUDA events, median
      of 20 runs; the kernel's launches replayed from a CUDA graph, each on
      its own copy of the inputs so that none is in L2 when its launch comes,
-     so its time is the device's from memory); computes each kernel's bound
-     from those inputs (the cull's from the cone tests it ran, read through
-     its skip counter; K3's and K7's from the full tests their votes ran,
-     read through their `tested` counters); then holds every list build of the first frame (K4
-     with its cone table, through the list function the walks call) to its
+     so its time is the device's from memory; a broadcast input stays one);
+     computes each kernel's bound from those inputs (the cull's from the
+     cone tests it ran, read through its skip counter; K3's and K7's from
+     the full tests their votes ran, read through their `tested` counters;
+     the cone table's from the bytes it must move, a broadcast origin read
+     once); times the counting sort's library counterpart, torch.sort of
+     the bucket ids (stable), on the same rows; then holds every list build
+     of the first frame (K4's three kernels, through the list function the
+     walks call) to its
      twin on the same inputs, to the bit, and prints K4's builds, device ms
      and the twin's ms per frame with their bound, and each cull launch's
      ms with the share of (block, 32-chunk group) pairs whose cone tests
@@ -95,6 +99,7 @@ KERNELS = {
     "rpt_shadow_chain": ("K1", PKG + "shadow_chain.cu", TPU + "shadow_chain.py:50"),
     "rpt_footprint_sample/small": ("K2", PKG + "texture_kernels.cu", TPU + "texture_kernel.py:76"),
     "rpt_analytic_nearest": ("K3", PKG + "analytic_kernels.cu", TPU + "analytic_kernels.py:308"),
+    "rpt_cone_table": ("K4", PKG + "live_lists.cu", K4_TPU),
     "rpt_live_cull": ("K4", PKG + "live_lists.cu", K4_TPU),
     "rpt_bucket_order": ("K4", PKG + "live_lists.cu", K4_TPU),
     "rpt_shared_walk": ("K5", PKG + "mesh_kernels.cu", TPU + "mesh_kernels.py:514"),
@@ -107,7 +112,7 @@ KERNELS = {
     "rpt_large_shared_walk": ("K11", PKG + "mesh_kernels.cu", TPU + "mesh_large.py:147"),
     "rpt_large_general_walk": ("K12", PKG + "mesh_kernels.cu", TPU + "mesh_large.py:338"),
 }
-K4 = ("rpt_live_cull", "rpt_bucket_order")
+K4 = ("rpt_cone_table", "rpt_live_cull", "rpt_bucket_order")
 PATHS = {  # path -> (demo scene kind, kernels it runs, CPU parity size)
     "blob": ("blob", ("rpt_shadow_chain", "rpt_analytic_nearest", *K4, "rpt_shared_walk",
                       "rpt_general_walk"), (512, 384)),
@@ -156,19 +161,30 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 2) -> float:
     return times[len(times) // 2]
 
 
+def fresh(torch, a):
+    """A copy of a tensor in new memory, a broadcast (stride-0) axis kept one;
+    anything else as it is."""
+    if not torch.is_tensor(a):
+        return a
+    if 0 not in a.stride():
+        return a.clone()
+    return a[tuple(slice(0, 1) if st == 0 else slice(None) for st in a.stride())].clone().expand(
+        a.shape)
+
+
 def kernel_ms(torch, fn, args, reps: int = 20) -> float:
     """Median device milliseconds of one launch of fn(*args), its inputs read
     from memory: launches captured in one CUDA graph and replayed between
     two CUDA events, so that the wrapper's host work (argument checks,
     allocation, the ctypes call) stays out of the interval; each launch reads
-    its own copy of the tensor inputs, with copies enough (at least 10, and
-    together four times the L2) that none is left in L2 when its launch comes
-    round again. A single call bracketed by events measures the host work
-    too, which for a kernel of 10-30 us is as long as the kernel; replaying
-    one set of inputs reads them from L2 where they fit in it."""
+    its own copy of the tensor inputs (`fresh`), with copies enough (at least
+    10, and together four times the L2) that none is left in L2 when its
+    launch comes round again. A single call bracketed by events measures the
+    host work too, which for a kernel of 10-30 us is as long as the kernel;
+    replaying one set of inputs reads them from L2 where they fit in it."""
     size = nbytes(*(a for a in args if torch.is_tensor(a)))
     copies = max(10, math.ceil(4 * L2_BYTES / size))
-    sets = [[a.clone() if torch.is_tensor(a) else a for a in args] for _ in range(copies)]
+    sets = [[fresh(torch, a) for a in args] for _ in range(copies)]
     fn(*sets[0])
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
@@ -189,8 +205,10 @@ def bound(ops: float, nbytes: float) -> tuple[float, str]:
 
 
 def nbytes(*tensors) -> int:
-    """Bytes of the tensors among the arguments (the walks also take ints)."""
-    return sum(x.numel() * x.element_size() for x in tensors if hasattr(x, "numel"))
+    """Bytes of the tensors among the arguments (the walks also take ints),
+    each element once: a broadcast (stride-0) axis counts one element."""
+    return sum(math.prod(n for n, st in zip(x.shape, x.stride()) if st != 0) * x.element_size()
+               for x in tensors if hasattr(x, "stride"))
 
 
 def same(torch, got, want) -> bool:
@@ -280,7 +298,7 @@ def compare_lists(torch, mk, path, calls, plains):
     skipped = sum(c[1] for c in culls)
     check(path != "large" or skipped > 0, f"K4 on {path}: the cull's pre-test skipped no group")
     log(f"  K4 on {path}: {sum(builds.values())} list builds a frame {builds}, equal to the "
-        f"twins' to the bit; kernels {k_ms:.4f} ms a frame (cone tables included), torch ops "
+        f"twins' to the bit; kernels {k_ms:.4f} ms a frame (table, cull and sort), twins "
         f"{p_ms:.4f} ms, bound {b_ms:.4f} ms, share {b_ms / k_ms:.1%}; the cull a launch: "
         + ", ".join(f"{ms:.4f} ms (pre-test skipped {n:,} of {pairs:,} groups, {n / pairs:.2%})"
                     for ms, n, pairs, _ in culls))
@@ -292,15 +310,16 @@ def compare_kernels(torch, pt_mods, meta, captured, originals, names, path):
     ak, mk, sc, tk, mb, ml = pt_mods
     out = {}
 
-    def record(name, err, fn, args, plain, ops, moved):
+    def record(name, err, fn, args, plain, ops, moved, library=None):
         b_ms, b_by = bound(ops, moved)
         out[name] = {"max_abs_err": err, "ms": kernel_ms(torch, fn, args),
                      "plain_ms": time_ms(torch, lambda: plain(*args)), "bound_ms": b_ms,
-                     "bound_by": b_by}
+                     "bound_by": b_by, "library_ms": library}
         log(f"  {name}: max_abs_err {err:.3e}, kernel {out[name]['ms']:.4f} ms (one wrapper "
             f"call {time_ms(torch, lambda: fn(*args)):.4f} ms), plain "
             f"{out[name]['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), share "
-            f"{b_ms / out[name]['ms']:.1%}")
+            f"{b_ms / out[name]['ms']:.1%}" + ("" if library is None else
+                                               f", library {library:.4f} ms"))
 
     for name in names:
         args = captured[name]
@@ -327,12 +346,34 @@ def compare_kernels(torch, pt_mods, meta, captured, originals, names, path):
             # the cull: 30 operations a cone test it ran; the sort: 40 an entry
             work = cull_work(torch, fn, args)[0] if cull else args[0].numel()
             moved = nbytes(*args, *(g for g in got if g is not None))
+            library = None
+            if not cull:  # the one PyTorch call that gives the sort's permutation
+                bk, _, _ = mk.bucket_ids_plain(*args)
+                ids = torch.where(args[1], bk, mk.NBKT)
+                check(torch.equal(torch.sort(ids, dim=1, stable=True)[1].int(), want[0]),
+                      "K4 sort: torch.sort's permutation differs from the twin's")
+                library = kernel_ms(torch, lambda x: torch.sort(x, dim=1, stable=True), [ids])
             record(name, max_err(got, want), fn, args, plain, (30.0 if cull else 40.0) * work,
-                   moved)
+                   moved, library)
             if cull:
                 dense = args[1].shape[-2] * args[0].shape[0]
                 log(f"  rpt_live_cull: {work:,} cone tests run of {dense:,}; the bound of "
                     f"every test {bound(30.0 * dense, moved)[0]:.4f} ms")
+        elif name == "rpt_cone_table":
+            got, want = fn(*args), mk.cone_table_plain(*args)
+            got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+            check(all(same(torch, g, w) for g, w in zip(got, want)),
+                  "K4 rpt_cone_table differs from its twin")
+            d, lanes = args[0], args[4] if len(args) > 4 else mk.SUB_LANES
+            rows = got[0]
+            # about 30 operations a lane and object; the rays, the mask, the
+            # lane bound and the scales read once (a broadcast origin once),
+            # the rows and smin written once
+            record(name, max_err(got, want), fn, args, mk.cone_table_plain,
+                   30.0 * d.numel() / 3, nbytes(*args, *got))
+            log(f"  rpt_cone_table: {rows.shape[-2]:,} {lanes}-lane groups"
+                f"{'' if d.dim() == 2 else f' x {d.shape[0]} objects'}, origin "
+                f"{'broadcast' if 0 in args[1].stride() else 'per lane'}")
         elif name == "rpt_analytic_nearest":
             gt, gn, guv, go = fn(*args)
             wt, wn, wuv, wo = ak.analytic_nearest_plain(*args)
@@ -610,6 +651,7 @@ def main() -> int:
     # them through; hooks record each one's first-frame inputs.
     hooks = {"rpt_shadow_chain": (prender, "shadow_chain"),
              "rpt_analytic_nearest": (prender, "analytic_nearest_shared"),
+             "rpt_cone_table": (mk, "cone_table"),
              "rpt_live_cull": (mk, "live_cull"),
              "rpt_bucket_order": (mk, "bucket_order"),
              "rpt_shared_walk": (mk, "shared_walk"),
@@ -730,7 +772,7 @@ def main() -> int:
                         "replaces": replaces, "launches": launches_by_path[path][name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": None, "path": path})
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"], "path": path})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,17 +1,34 @@
-// K4: the live-chunk list build, in two kernels.
+// K4: the live-chunk list build, in three kernels.
 //
 // Replaces the XLA half of the TPU's hot path in
 // relativitypathtracer_tpu/ops/pallas/mesh_kernels.py: live_chunk_lists
-// (:389) with its cull _sub_cone_cull (:414) / _cone_cull (:145) and its
-// 16-bucket counting sort bucket_order (:174); the two-level
-// live_chunk_lists2 (:277) and live_chunk_lists3 (:332) with pack_bits
-// (:218); and mesh_batch.py:118 live_chunk_lists_multi and mesh_large.py:120
-// large_live_lists, which are built from them. The TPU runs them as dense
-// XLA passes over (sub-cone, chunk) arrays; the port's plain twins
-// (mesh_kernels.live_cull_plain, bucket_order_plain) do the same with torch
-// ops, which on the large path made (6,144 x 10,240) temporaries of up to
-// 755 MB in a dozen passes.
+// (:389) with its cones _cones_of (:94) and _mask_invalid_lanes (:134), its
+// cull _sub_cone_cull (:414) / _cone_cull (:145) and its 16-bucket counting
+// sort bucket_order (:174); the two-level live_chunk_lists2 (:277) and
+// live_chunk_lists3 (:332) with pack_bits (:218); and mesh_batch.py:118
+// live_chunk_lists_multi and mesh_large.py:120 large_live_lists, which are
+// built from them. The TPU runs them as dense XLA passes over (sub-cone,
+// chunk) arrays; the port's plain twins (mesh_kernels.cone_table_plain,
+// live_cull_plain, bucket_order_plain) do the same with torch ops, which on
+// the large path made (6,144 x 10,240) temporaries of up to 755 MB in a
+// dozen passes, and for the cone table alone some 20 passes over (O, 3,
+// n_pad) temporaries of up to 37.7 MB.
 //
+//   rpt_cone_table (cone_table_kernel): the cone rows [apex(3) axis(3)
+//     cos_a sin_a o_rad bound has_valid enabled] of every 128-lane group (a
+//     warp each, 8 a CTA) or 1024-lane group (the CTA's 8 warps), a CTA per
+//     (1024-lane block, object). A thread holds 4 consecutive lanes, read
+//     where they lie (any strides: a stride-0 origin, rows of a larger
+//     array; 16-byte loads where the lanes are consecutive), so no list
+//     build copies its rays. Masked lanes take their group's mean of the
+//     valid ones; the means are pairwise trees, exactly the twin's
+//     `_tree_sum`: a thread's four lanes ((l0 + l1) + (l2 + l3)), then
+//     shuffles at 1, 2, 4, 8 and 16, then a CTA group's 8 warps in the same
+//     tree through shared memory; sums over x, y, z left to right, true
+//     divisions, IEEE sqrtf, amin/amax's NaN rules. The pool's glue rides
+//     in the same launch: the lane bound divided by clamp(s, 1e-12), the
+//     enabled column from an int mask, and the block's minimum scale over
+//     its valid lanes (smin).
 //   rpt_live_cull (live_cull_kernel): every (ray block, chunk) pair. A
 //     thread takes one chunk, for each of its warp's blocks (up to
 //     kMaxBlocks) reads the chunk's sphere and runs the block's `sub` cone
@@ -21,11 +38,8 @@
 //     drop, the segment cull against the cone's bound (+1e-3), the min over
 //     the overlapping cones (INF elsewhere) and any-overlap; for the pool,
 //     the chunk's object row of the table (cobj), the block's minimum scale
-//     (smin) and the object's enabled flag. The cone rows (apex, axis,
-//     cos_a, sin_a, o_rad, bound, has_valid, enabled: 12 floats) come from
-//     mesh_kernels.cone_table, torch code that the twin reads too, so kernel
-//     and twin agree bit for bit. No (cone, chunk) value leaves the
-//     registers. Two variants:
+//     (smin) and the object's enabled flag. No (cone, chunk) value leaves
+//     the registers. Two variants:
 //       flat:  writes the block-level floor and overlap (B, C);
 //       super: a warp holds 32 consecutive chunks, so for each block
 //              __ballot_sync of the overlap flags is the packed bit word
@@ -37,25 +51,30 @@
 //     cones cannot overlap any of the warp's 32 chunks the warp writes what
 //     the dense tests would (floor INF, not live, bit word 0) without
 //     running them.
-//   rpt_bucket_order (bucket_order_kernel): one CTA per block, any entry
-//     count, in three passes over tiles of 256 entries: lo = min over every
-//     entry, hi = max over the live ones, count; each entry's bucket and
-//     floor in the twin's exact operations (a saturating float -> int, dead
-//     entries to bucket 16) and a shared-memory histogram; then a stable
-//     scatter: per tile, __match_any_sync ranks each entry among the lanes
-//     of its warp with the same bucket, the warps' per-bucket counts give
-//     the warp offsets, and running per-bucket bases carry across tiles, so
-//     the order is by bucket, then by entry id, as the twin's scatter_ of a
-//     one-hot cumsum gives it.
+//   rpt_bucket_order (bucket_order_kernel): a warp per block row, 4 rows a
+//     CTA, no barrier and no shared memory: the row read into registers in
+//     tiles of 32 x 24 entries, lo/hi/count by shuffles, each 32 entries'
+//     buckets as five ballots of their bits (from which every bucket's
+//     lanes and count follow), the 17-bucket scan by shuffles, then a
+//     stable scatter by bucket, then by entry id, as the twin's scatter_ of
+//     a one-hot cumsum gives it (details at the kernel).
 //
-// What bounds them: operations, for the cull. A cone test is about 30 fp32
-// operations, two of them IEEE square roots and two IEEE divisions, each a
-// short instruction sequence under -fmad=false, so 60-100 instructions a
-// (cone, chunk) pair; the spheres and the cone rows it reads are small and
-// stay in L1/L2 (a warp's lanes read one cone row: a broadcast), and it
-// writes 5 bytes a (block, chunk) pair (flat) or one bit and 5 bytes a
-// (block, super) pair. The sort moves 5 bytes in and 8 out an entry, a few
-// dozen operations each: bytes and latency bound, small beside the cull.
+// What bounds them: bytes, for the table: its rays (24 bytes a lane and
+// object, 12 where the origin is shared), the mask, the lane bound and the
+// scales read once, 48 bytes a row written. Operations, for the cull. A
+// cone test is about 30 fp32 operations, two of them IEEE square roots and
+// two IEEE divisions, each a short instruction sequence under -fmad=false,
+// so 60-100 instructions a (cone, chunk) pair; the spheres and the cone
+// rows it reads are small and stay in L1/L2 (a warp's lanes read one cone
+// row: a broadcast), and it writes 5 bytes a (block, chunk) pair (flat) or
+// one bit and 5 bytes a (block, super) pair. The sort moves 5 bytes in and
+// 8 out an entry, a few dozen operations each: bytes and latency bound,
+// small beside the cull. An earlier sort, one 256-thread CTA a row in three
+// passes over global memory with five CTA barriers a tile, ran at 15-24%
+// of its bound; a warp a row keeps the row in registers and needs none. (A
+// first warp-a-row form kept its histogram and bases in shared memory, a
+// read-modify-write and two __syncwarp per 32 entries: 1.1-1.9x slower
+// than the CTA form, PERF.md.)
 // Most (block, 32-chunk group) pairs hold no live chunk (98.4% and 99.6%
 // on the large mesh's two builds), so the cull spends its issue slots on
 // the group pre-test instead. A first design built the group's sphere (two
@@ -425,96 +444,329 @@ __device__ __forceinline__ int bucket_of(float m, float lo, float span) {
   return static_cast<int>(c);
 }
 
-__global__ void __launch_bounds__(kThreads)
-bucket_order_kernel(const float* __restrict__ mind, const bool* __restrict__ over, int n,
+// --- rpt_bucket_order ---------------------------------------------------------
+
+constexpr int kSortWarps = 4;     // block rows a CTA sorts, a warp each
+constexpr int kMaxTile = 24;      // entries a lane holds at most: a tile of 32 x 24
+constexpr int kPast = kBuckets + 1;  // the bucket of a tile's slots past the row's end
+
+// One tile of a row into registers: slot j of lane l is entry t0 + 32 j + l
+// (m, and bit j of *live its overlap; slots past n hold INF and dead).
+template <int K>
+__device__ __forceinline__ void load_tile(const float* m_row, const bool* o_row, int n, int t0,
+                                          int lane, float (&m)[K], unsigned* live) {
+  unsigned bits = 0;
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const int e = t0 + 32 * j + lane;
+    m[j] = e < n ? __ldg(m_row + e) : rpt::kInf;
+    if (e < n && __ldg(reinterpret_cast<const unsigned char*>(o_row) + e) != 0) bits |= 1u << j;
+  }
+  *live = bits;
+}
+
+// The five bit planes of the warp's 32 buckets (each below 32): plane i is
+// the ballot of bit i.
+__device__ __forceinline__ void bucket_planes(int bk, unsigned (&plane)[5]) {
+#pragma unroll
+  for (int i = 0; i < 5; ++i) plane[i] = __ballot_sync(kFull, (bk >> i) & 1);
+}
+
+// The lanes whose bucket is v: the AND of the planes, each taken as it is
+// where v has the bit and inverted where it has not.
+__device__ __forceinline__ unsigned lanes_of(const unsigned (&plane)[5], int v) {
+  unsigned m = kFull;
+#pragma unroll
+  for (int i = 0; i < 5; ++i) m &= ((v >> i) & 1) ? plane[i] : ~plane[i];
+  return m;
+}
+
+// A warp per block row (kSortWarps rows a CTA), no barrier and no shared
+// memory. The row is read in tiles of 32 x K entries, K the multiple of 4
+// (at most kMaxTile) that holds the row, so a row of up to 768 entries
+// (every list on the frame paths) stays in registers for all three passes
+// and each pass is one branch-free stretch that the compiler can overlap;
+// a longer row is read again, tile by tile (from L1/L2), in the second and
+// third pass:
+//   1. lo = min over every entry, hi = max over the live ones, the live
+//      count: per lane, then shuffles (order-free);
+//   2. each entry's bucket (dead: 16; a slot past the row 17) and floor, the
+//      floor written by entry id; per 32 entries, the five ballots of the
+//      buckets' bits, from which lane b counts the entries of bucket b (its
+//      histogram in a register);
+//   3. the 17-bucket exclusive scan by shuffles (lane b holds bucket b's
+//      base), then the scatter: per 32 entries, in entry-id order, an
+//      entry's place is its bucket's base (a shuffle from lane bucket)
+//      plus the lanes of its bucket below it, and lane b advances its base
+//      by its bucket's count. The order is by bucket, then by entry id, as
+//      the twin's one-hot cumsum gives it.
+template <int K>
+__global__ void __launch_bounds__(kSortWarps * 32)
+bucket_order_kernel(const float* __restrict__ mind, const bool* __restrict__ over, int B, int n,
                     int* __restrict__ order, float* __restrict__ key, int* __restrict__ counts) {
-  __shared__ float s_lo[kWarps], s_hi[kWarps];
-  __shared__ int s_cnt[kWarps];
-  __shared__ int s_base[kBuckets + 1];
-  __shared__ int s_wcount[kWarps][kBuckets + 1];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const size_t row = static_cast<size_t>(blockIdx.x) * n;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row_id = blockIdx.x * kSortWarps + warp;
+  if (row_id >= B) return;  // the whole warp
+  const size_t row = static_cast<size_t>(row_id) * n;
   const float* m_row = mind + row;
   const bool* o_row = over + row;
+  const int tiles = (n + 32 * K - 1) / (32 * K);
+  const unsigned below = (1u << lane) - 1u;
 
-  // --- lo over every entry, hi over the live ones, the live count ----------
+  // --- 1. lo, hi, the live count ---------------------------------------------
+  float m[K];
+  unsigned live;
   float lo = __int_as_float(0x7f800000), hi = -__int_as_float(0x7f800000);
   int cnt = 0;
-  for (int e = tid; e < n; e += kThreads) {
-    const float m = m_row[e];
-    const bool o = o_row[e];
-    lo = nan_min(lo, m);
-    hi = nan_max(hi, o ? m : -rpt::kInf);
-    cnt += o;
+  for (int t = 0; t < tiles; ++t) {
+    load_tile(m_row, o_row, n, t * 32 * K, lane, m, &live);
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const bool real = t * 32 * K + 32 * j + lane < n;
+      lo = real ? nan_min(lo, m[j]) : lo;
+      hi = real ? nan_max(hi, ((live >> j) & 1u) ? m[j] : -rpt::kInf) : hi;
+    }
+    cnt += __popc(live);
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    lo = nan_min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
-    hi = nan_max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
-    cnt += __shfl_xor_sync(0xffffffffu, cnt, off);
-  }
-  if (lane == 0) {
-    s_lo[warp] = lo;
-    s_hi[warp] = hi;
-    s_cnt[warp] = cnt;
-  }
-  if (tid <= kBuckets) s_base[tid] = 0;
-  for (int i = tid; i < kWarps * (kBuckets + 1); i += kThreads) (&s_wcount[0][0])[i] = 0;
-  __syncthreads();
-  lo = s_lo[0];
-  hi = s_hi[0];
-  cnt = s_cnt[0];
-  for (int w = 1; w < kWarps; ++w) {
-    lo = nan_min(lo, s_lo[w]);
-    hi = nan_max(hi, s_hi[w]);
-    cnt += s_cnt[w];
+    lo = nan_min(lo, __shfl_xor_sync(kFull, lo, off));
+    hi = nan_max(hi, __shfl_xor_sync(kFull, hi, off));
+    cnt += __shfl_xor_sync(kFull, cnt, off);
   }
   const float span = clamp_min(hi - lo, 1e-6f);
   const float step = span / static_cast<float>(kBuckets - 1);
-  if (tid == 0) counts[blockIdx.x] = cnt;
+  if (lane == 0) counts[row_id] = cnt;
 
-  // --- floors by entry id, and the bucket histogram -------------------------
-  for (int e = tid; e < n; e += kThreads) {
-    const int bk = bucket_of(m_row[e], lo, span);
-    key[row + e] = lo + static_cast<float>(bk) * step;
-    atomicAdd(&s_base[o_row[e] ? bk : kBuckets], 1);
-  }
-  __syncthreads();
-  if (tid == 0) {  // exclusive scan of the counts
-    int acc = 0;
-    for (int k = 0; k <= kBuckets; ++k) {
-      const int c = s_base[k];
-      s_base[k] = acc;
-      acc += c;
+  // --- 2. buckets, floors, the histogram -------------------------------------
+  int hist = 0;  // lane b: the entries of bucket b
+  int bk[K];
+  for (int t = 0; t < tiles; ++t) {
+    const int t0 = t * 32 * K;
+    if (tiles > 1) load_tile(m_row, o_row, n, t0, lane, m, &live);
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const int e = t0 + 32 * j + lane;
+      const int b = bucket_of(m[j], lo, span);
+      if (e < n) key[row + e] = lo + static_cast<float>(b) * step;
+      bk[j] = e >= n ? kPast : (((live >> j) & 1u) ? b : kBuckets);
+      unsigned plane[5];
+      bucket_planes(bk[j], plane);
+      hist += __popc(lanes_of(plane, lane));
     }
   }
-  __syncthreads();
+  // exclusive scan of the 17 counts, lane b holding bucket b's
+  const int c = lane <= kBuckets ? hist : 0;
+  int base = c;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int v = __shfl_up_sync(kFull, base, off);
+    if (lane >= off) base += v;
+  }
+  base -= c;
 
-  // --- stable scatter, a tile of kThreads entries at a time ------------------
-  for (int t0 = 0; t0 < n; t0 += kThreads) {
-    const int e = t0 + tid;
-    int bk = kBuckets + 1;  // past the end: a bucket of its own, never written
-    if (e < n) bk = o_row[e] ? bucket_of(m_row[e], lo, span) : kBuckets;
-    const unsigned peers = __match_any_sync(0xffffffffu, bk);
-    const int rank = __popc(peers & ((1u << lane) - 1u));
-    if (rank == 0 && e < n) s_wcount[warp][bk] = __popc(peers);
-    __syncthreads();
-    if (e < n) {
-      int pos = s_base[bk] + rank;
-      for (int w = 0; w < warp; ++w) pos += s_wcount[w][bk];
-      order[row + pos] = e;
-    }
-    __syncthreads();
-    if (tid <= kBuckets) {
-      int add = 0;
-      for (int w = 0; w < kWarps; ++w) {
-        add += s_wcount[w][tid];
-        s_wcount[w][tid] = 0;
+  // --- 3. the stable scatter -------------------------------------------------
+  for (int t = 0; t < tiles; ++t) {
+    const int t0 = t * 32 * K;
+    if (tiles > 1) {
+      load_tile(m_row, o_row, n, t0, lane, m, &live);
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        bk[j] = t0 + 32 * j + lane >= n ? kPast
+                : (((live >> j) & 1u) ? bucket_of(m[j], lo, span) : kBuckets);
       }
-      s_base[tid] += add;
     }
-    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      unsigned plane[5];
+      bucket_planes(bk[j], plane);
+      const int at = __shfl_sync(kFull, base, bk[j]) + __popc(lanes_of(plane, bk[j]) & below);
+      if (bk[j] != kPast) order[row + at] = t0 + 32 * j + lane;
+      base += __popc(lanes_of(plane, lane));
+    }
   }
+}
+
+// --- rpt_cone_table -------------------------------------------------------------
+
+// Where the table reads its rays and writes its rows: element strides of d
+// and o (object, component, lane), of the lane bound and the scales
+// (object, lane), each possibly 0 (a broadcast).
+struct ConeArgs {
+  const float* d;
+  int d_so, d_sc, d_sl;
+  const float* o;
+  int o_so, o_sc, o_sl;
+  const bool* valid;  // (n_pad,) or null
+  const float* lb;    // the lane bound, or null
+  int lb_so, lb_sl;
+  const float* s;     // the pool's scales (O, n_pad), or null
+  int s_so, s_sl;
+  const int* enabled;  // (O,) or null
+  int n_pad;
+  float* rows;  // (O, n_pad / lanes, kCols)
+  float* smin;  // (O, n_pad / 1024), with s
+};
+
+// Lanes l0 .. l0 + 3 of one component: a 16-byte load where they are
+// consecutive and aligned, else four loads (a stride-0 origin reads one
+// address four times).
+__device__ __forceinline__ void load4(const float* p, int sl, float (&x)[4]) {
+  if (sl == 1 && (reinterpret_cast<uintptr_t>(p) & 15u) == 0) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+    x[0] = v.x;
+    x[1] = v.y;
+    x[2] = v.z;
+    x[3] = v.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) x[k] = __ldg(p + static_cast<long long>(k) * sl);
+  }
+}
+
+struct Sum {
+  __device__ float operator()(float a, float b) const { return a + b; }
+};
+struct Max {
+  __device__ float operator()(float a, float b) const { return nan_max(a, b); }
+};
+struct Min {
+  __device__ float operator()(float a, float b) const { return nan_min(a, b); }
+};
+
+// The reduction of v[i] (a thread's partial of its four lanes) over the
+// group: shuffles at 1, 2, 4, 8 and 16 (a warp's 128 lanes), then, for a
+// CTA group, the 8 warps' partials in the tree's order through shared
+// memory. For Sum this is the twin's pairwise tree (mesh_kernels._tree_sum):
+// a thread's four lanes make its level-2 node, xor-partners are siblings at
+// each level, and a + b == b + a, so every thread ends with the same bits.
+template <bool kCta, int N, class Op>
+__device__ __forceinline__ void group_reduce(float (&v)[N], Op op, float (*red)[kWarps],
+                                             int lane, int warp) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) v[i] = op(v[i], __shfl_xor_sync(kFull, v[i], off));
+  }
+  if (!kCta) return;
+  __syncthreads();  // earlier readers of red are done
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) red[i][warp] = v[i];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float* r = red[i];
+    v[i] = op(op(op(r[0], r[1]), op(r[2], r[3])), op(op(r[4], r[5]), op(r[6], r[7])));
+  }
+}
+
+// A warp per 128-lane group (8 groups a CTA), or the CTA's 8 warps per
+// 1024-lane group (kCta); thread l of warp w holds lanes 4l .. 4l + 3 of
+// the CTA's w-th 128. The CTA covers one 1024-lane block of one object
+// (blockIdx.x, blockIdx.y), which also gives the block's smin. Operation
+// for operation as cone_table_plain.
+template <bool kCta>
+__global__ void __launch_bounds__(kThreads) cone_table_kernel(ConeArgs a) {
+  __shared__ float red[8][kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int obj = blockIdx.y;
+  const long long l0 = static_cast<long long>(blockIdx.x) * rpt::kNB + warp * 128 + lane * 4;
+  float d[3][4], o[3][4];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    load4(a.d + obj * static_cast<long long>(a.d_so) + c * static_cast<long long>(a.d_sc) +
+              l0 * a.d_sl, a.d_sl, d[c]);
+    load4(a.o + obj * static_cast<long long>(a.o_so) + c * static_cast<long long>(a.o_sc) +
+              l0 * a.o_sl, a.o_sl, o[c]);
+  }
+  bool v[4] = {true, true, true, true};
+  float has_valid = 1.0f;
+  if (a.valid != nullptr) {
+    const unsigned char* vp = reinterpret_cast<const unsigned char*>(a.valid) + l0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[k] = __ldg(vp + k) != 0;
+    // masked lanes take the mean of their group's valid ones
+    float r[7];
+    r[0] = static_cast<float>(v[0] + v[1] + v[2] + v[3]);  // counts: exact in float
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      r[1 + c] = ((v[0] ? o[c][0] : 0.0f) + (v[1] ? o[c][1] : 0.0f)) +
+                 ((v[2] ? o[c][2] : 0.0f) + (v[3] ? o[c][3] : 0.0f));
+      r[4 + c] = ((v[0] ? d[c][0] : 0.0f) + (v[1] ? d[c][1] : 0.0f)) +
+                 ((v[2] ? d[c][2] : 0.0f) + (v[3] ? d[c][3] : 0.0f));
+    }
+    group_reduce<kCta>(r, Sum(), red, lane, warp);
+    const float nv = r[0] < 1.0f ? 1.0f : r[0];
+    has_valid = r[0] > 0.0f ? 1.0f : 0.0f;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float om = r[1 + c] / nv, dm = r[4 + c] / nv;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        o[c][k] = v[k] ? o[c][k] : om;
+        d[c][k] = v[k] ? d[c][k] : dm;
+      }
+    }
+  }
+  // the apex (the origins' mean) and the directions' mean
+  float r[6];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    r[c] = (o[c][0] + o[c][1]) + (o[c][2] + o[c][3]);
+    r[3 + c] = (d[c][0] + d[c][1]) + (d[c][2] + d[c][3]);
+  }
+  group_reduce<kCta>(r, Sum(), red, lane, warp);
+  const float lanes = kCta ? 1024.0f : 128.0f;
+  const float oc[3] = {r[0] / lanes, r[1] / lanes, r[2] / lanes};
+  const float mean[3] = {r[3] / lanes, r[4] / lanes, r[5] / lanes};
+  const float den = clamp_min(sqrtf(mean[0] * mean[0] + mean[1] * mean[1] + mean[2] * mean[2]),
+                              1e-12f);
+  const float ax[3] = {mean[0] / den, mean[1] / den, mean[2] / den};
+  // o_rad^2 and the bound (max), cos_a (min)
+  float mx[2], mn[1];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float e0 = o[0][k] - oc[0], e1 = o[1][k] - oc[1], e2 = o[2][k] - oc[2];
+    const float r2 = e0 * e0 + e1 * e1 + e2 * e2;
+    const float cs = d[0][k] * ax[0] + d[1][k] * ax[1] + d[2][k] * ax[2];
+    float b = 0.0f;
+    if (a.lb != nullptr) {
+      b = __ldg(a.lb + obj * static_cast<long long>(a.lb_so) + (l0 + k) * a.lb_sl);
+      if (a.s != nullptr) {
+        b = b / clamp_min(__ldg(a.s + obj * static_cast<long long>(a.s_so) + (l0 + k) * a.s_sl),
+                          1e-12f);
+      }
+    }
+    mx[0] = k == 0 ? r2 : nan_max(mx[0], r2);
+    mx[1] = k == 0 ? b : nan_max(mx[1], b);
+    mn[0] = k == 0 ? cs : nan_min(mn[0], cs);
+  }
+  group_reduce<kCta>(mx, Max(), red, lane, warp);
+  group_reduce<kCta>(mn, Min(), red, lane, warp);
+  if (a.s != nullptr) {  // the block's minimum scale over its valid lanes: the CTA's
+    float sm[1];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float sk = __ldg(a.s + obj * static_cast<long long>(a.s_so) + (l0 + k) * a.s_sl);
+      const float x = v[k] ? sk : rpt::kInf;
+      sm[0] = k == 0 ? x : nan_min(sm[0], x);
+    }
+    group_reduce<true>(sm, Min(), red, lane, warp);
+    if (threadIdx.x == 0) {
+      a.smin[static_cast<size_t>(obj) * gridDim.x + blockIdx.x] = sm[0];
+    }
+  }
+  if (lane != 0 || (kCta && warp != 0)) return;
+  const float cos_a = mn[0];
+  const float on = a.enabled == nullptr || __ldg(a.enabled + obj) != 0 ? 1.0f : 0.0f;
+  const int G = a.n_pad / (kCta ? 1024 : 128);
+  const int g = kCta ? blockIdx.x : blockIdx.x * kWarps + warp;
+  float4* out = reinterpret_cast<float4*>(a.rows + (static_cast<size_t>(obj) * G + g) * kCols);
+  out[0] = make_float4(oc[0], oc[1], oc[2], ax[0]);
+  out[1] = make_float4(ax[1], ax[2], cos_a, sqrtf(clamp_min(1.0f - cos_a * cos_a, 0.0f)));
+  out[2] = make_float4(sqrtf(mx[0]), mx[1], has_valid, on);
 }
 
 }  // namespace
@@ -559,8 +811,57 @@ extern "C" int rpt_live_cull(const void* spheres, int C, const void* table, int 
 extern "C" int rpt_bucket_order(const void* mind, const void* over, int B, int n, void* order,
                                 void* key, void* counts, void* stream) {
   if (B <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
-  bucket_order_kernel<<<B, kThreads, 0, as_stream(stream)>>>(
-      static_cast<const float*>(mind), static_cast<const bool*>(over), n,
-      static_cast<int*>(order), static_cast<float*>(key), static_cast<int*>(counts));
+  const dim3 grid((B + kSortWarps - 1) / kSortWarps);
+  const auto* m = static_cast<const float*>(mind);
+  const auto* o = static_cast<const bool*>(over);
+  auto* ord = static_cast<int*>(order);
+  auto* k = static_cast<float*>(key);
+  auto* c = static_cast<int*>(counts);
+  const cudaStream_t st = as_stream(stream);
+  // the tile: the least multiple of 4 slots a lane that holds the row
+  const int slots = (n + 31) / 32;
+  if (slots <= 4) {
+    bucket_order_kernel<4><<<grid, kSortWarps * 32, 0, st>>>(m, o, B, n, ord, k, c);
+  } else if (slots <= 8) {
+    bucket_order_kernel<8><<<grid, kSortWarps * 32, 0, st>>>(m, o, B, n, ord, k, c);
+  } else if (slots <= 12) {
+    bucket_order_kernel<12><<<grid, kSortWarps * 32, 0, st>>>(m, o, B, n, ord, k, c);
+  } else if (slots <= 16) {
+    bucket_order_kernel<16><<<grid, kSortWarps * 32, 0, st>>>(m, o, B, n, ord, k, c);
+  } else if (slots <= 20) {
+    bucket_order_kernel<20><<<grid, kSortWarps * 32, 0, st>>>(m, o, B, n, ord, k, c);
+  } else {
+    bucket_order_kernel<kMaxTile><<<grid, kSortWarps * 32, 0, st>>>(m, o, B, n, ord, k, c);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The cone rows (O, n_pad / lanes, 12) of rays d / o (O, 3, n_pad) read
+// through their strides, lanes 128 or 1024, n_pad a multiple of 1024; with
+// s, also smin (O, n_pad / 1024).
+extern "C" int rpt_cone_table(const void* d, int d_so, int d_sc, int d_sl, const void* o,
+                              int o_so, int o_sc, int o_sl, const void* valid, const void* lb,
+                              int lb_so, int lb_sl, const void* s, int s_so, int s_sl,
+                              const void* enabled, int O, int n_pad, int lanes, void* rows,
+                              void* smin, void* stream) {
+  if (O <= 0 || n_pad <= 0) return static_cast<int>(cudaSuccess);
+  if (O > 65535 || n_pad % rpt::kNB != 0 || (lanes != 128 && lanes != rpt::kNB) ||
+      (s != nullptr && smin == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (reinterpret_cast<uintptr_t>(rows) % 16 != 0) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  const ConeArgs a{static_cast<const float*>(d), d_so, d_sc, d_sl,
+                   static_cast<const float*>(o), o_so, o_sc, o_sl,
+                   static_cast<const bool*>(valid), static_cast<const float*>(lb), lb_so, lb_sl,
+                   static_cast<const float*>(s), s_so, s_sl, static_cast<const int*>(enabled),
+                   n_pad, static_cast<float*>(rows), static_cast<float*>(smin)};
+  const dim3 grid(n_pad / rpt::kNB, O);
+  if (lanes == 128) {
+    cone_table_kernel<false><<<grid, kThreads, 0, as_stream(stream)>>>(a);
+  } else {
+    cone_table_kernel<true><<<grid, kThreads, 0, as_stream(stream)>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }

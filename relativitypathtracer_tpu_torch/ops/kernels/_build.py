@@ -48,6 +48,7 @@ _SIGNATURES = {
     "rpt_analytic_min_t": "piipppippp",
     "rpt_live_cull": "pipiippiiippppppp",
     "rpt_bucket_order": "ppiipppp",
+    "rpt_cone_table": "piiipiiippiipiipiiippp",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
@@ -128,9 +129,10 @@ def library():
     return _lib
 
 
-def check_cuda(name: str, *specs) -> None:
+def check_cuda(name: str, *specs, contiguous: bool = True) -> None:
     """specs: (tensor, dtype, shape) triples. Raise unless every tensor is a
-    contiguous CUDA tensor of that dtype and shape, all on one device."""
+    CUDA tensor of that dtype and shape, all on one device, and contiguous
+    unless the kernel takes strides (`contiguous=False`)."""
     dev = specs[0][0].device
     for x, dtype, shape in specs:
         if x.device != dev or x.device.type != "cuda":
@@ -139,7 +141,7 @@ def check_cuda(name: str, *specs) -> None:
             raise TypeError(f"{name}: expected {dtype}, got {x.dtype}")
         if tuple(x.shape) != tuple(shape):
             raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(x.shape)}")
-        if not x.is_contiguous():
+        if contiguous and not x.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
 
 

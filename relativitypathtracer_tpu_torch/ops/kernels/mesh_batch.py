@@ -12,7 +12,8 @@ object table, so each ray block walks one live list over all objects:
   |d3|), so the nearest-hit reduce, the walk bound and early termination
   run in shared units;
 - the live lists (`live_chunk_lists_multi`, K4's kernels over one cone
-  table of every object) cull each chunk against its own object's cones
+  table of every object, made in one launch with its per-object glue) cull
+  each chunk against its own object's cones
   and scale its floors by the block's minimum per-lane s, a lower bound, so
   stopping on them stays sound.
 
@@ -35,8 +36,8 @@ import torch
 
 from ._build import check_cuda, launch
 from .mesh_kernels import (
-    CONE_COLS, INF, N_ATTR, NB, SUB, TC, _box_bound, _box_of, _dot_rows, _list_ops, _mt,
-    _pad_lanes, _round_up, cone_table, general_tri_rows, shared_tri_rows)
+    INF, N_ATTR, NB, SUB, SUB_LANES, TC, _box_bound, _box_of, _dot_rows, _list_ops, _mt,
+    _pad_lanes, _round_up, general_tri_rows, shared_tri_rows)
 
 # The per-object transform table: one row of MAT_COLS floats per mesh object.
 MAT_COLS = 40
@@ -103,17 +104,12 @@ def object_rays(mats, origins4, dir4):
 
 def _lists_multi(plain, spheres, chunk_counts, d_os, o_os, s_os, valid, enabled,
                  lane_bound_shared):
-    cull, sort = _list_ops(plain)
-    O, _, n_pad = d_os.shape
-    lb = None
-    if lane_bound_shared is not None:  # shared units -> each object's (t_shared = t_obj * s)
-        lb = lane_bound_shared / torch.clamp(s_os, min=1e-12)
-    table = cone_table(d_os, o_os, valid, lb)  # (O, n_sub, CONE_COLS)
-    for g, on in enumerate(enabled or ()):
-        if not on:
-            table[g, :, CONE_COLS - 1] = 0.0
-    s = s_os if valid is None else torch.where(valid, s_os, INF)
-    smin = s.reshape(O, n_pad // NB, NB).amin(dim=2)  # (O, B) a lower bound per block
+    table_of, cull, sort = _list_ops(plain)
+    # one cone table of every object, its glue in the same pass: the lane
+    # bound in each object's units (t_shared = t_obj * s), a disabled
+    # object's cones off, and the block's minimum scale (a lower bound)
+    table, smin = table_of(d_os, o_os, valid, lane_bound_shared, SUB_LANES, s_os,
+                           None if enabled is None else enabled_mask(enabled, d_os.device))
     return sort(*cull(spheres, table, SUB, lane_bound_shared is not None,
                       chunk_objects(chunk_counts, spheres.device), smin))
 
@@ -152,6 +148,17 @@ def chunk_objects(chunk_counts, device):
     """(C,) int32 object slot of every pool chunk. Made once per pool layout
     and device, then shared: callers only read it."""
     return _chunk_objects(tuple(int(c) for c in chunk_counts), torch.device(device))
+
+
+@functools.lru_cache(maxsize=16)
+def _enabled_mask(enabled: tuple, device: torch.device):
+    return torch.tensor(enabled, dtype=torch.int32, device=device)
+
+
+def enabled_mask(enabled, device):
+    """(O,) int32: 1 for each enabled object, 0 for a disabled one. Made
+    once per pattern and device, then shared: callers only read it."""
+    return _enabled_mask(tuple(int(bool(e)) for e in enabled), torch.device(device))
 
 
 def batched_shared_walk_plain(order, minds, counts, cobj, boxes, mats, tri, attrs, dir4_p,

@@ -5,10 +5,10 @@ its default settings (NB=1024, SUB=8, TC=TC_GEN=32, shadow cull "boxfar", the
 16-bucket counting sort). Triangles sit in 32-triangle Morton-ordered chunks.
 Before the walks, K4 culls every (ray block, chunk) pair with a
 cone-vs-sphere test at 128-lane sub-cone granularity and sorts each block's
-live chunks front to back by bucket floor (`live_chunk_lists`): torch ops
-make the cones' table (`cone_table`), then two CUDA kernels
-(csrc/live_lists.cu) cull (`live_cull`) and sort (`bucket_order`) on CUDA
-tensors, their plain twins (`live_cull_plain`, `bucket_order_plain`) on CPU
+live chunks front to back by bucket floor (`live_chunk_lists`): three CUDA
+kernels (csrc/live_lists.cu) make the cones' table (`cone_table`), cull
+(`live_cull`) and sort (`bucket_order`) on CUDA tensors, their plain twins
+(`cone_table_plain`, `live_cull_plain`, `bucket_order_plain`) on CPU
 tensors; each list function has a `_plain` form that uses the twins on any
 device. The walks take that list per 1024-ray block and stop once the
 block's farthest useful bound is nearer than the next chunk's floor.
@@ -49,7 +49,10 @@ def _round_up(x: int, m: int) -> int:
 
 
 def _pad_lanes(x, n_pad: int, value=0):
-    """Pad the last (ray) axis of x to n_pad lanes with `value`."""
+    """Pad the last (ray) axis of x to n_pad lanes with `value`; x itself
+    where it has n_pad lanes already."""
+    if x.shape[-1] == n_pad:
+        return x
     fill = torch.full((*x.shape[:-1], n_pad - x.shape[-1]), value, dtype=x.dtype,
                       device=x.device)
     return torch.cat([x, fill], dim=-1)
@@ -81,59 +84,139 @@ def chunk_spheres(A, B, C, T_pad: int, tc: int = TC):
 
 # --- K4: the live-chunk list build --------------------------------------------
 #
-# cone_table (torch) makes the culling cones' rows; rpt_live_cull culls every
-# (ray block, chunk) pair against them and rpt_bucket_order sorts each
-# block's live entries (csrc/live_lists.cu; twins live_cull_plain and
-# bucket_order_plain). The list functions below compose the three for each
-# kind of list, with the kernels (live_chunk_lists, ...) or with the twins
-# (live_chunk_lists_plain, ...).
+# rpt_cone_table makes the culling cones' rows (its twin cone_table_plain);
+# rpt_live_cull culls every (ray block, chunk) pair against them and
+# rpt_bucket_order sorts each block's live entries (csrc/live_lists.cu; twins
+# live_cull_plain and bucket_order_plain). The list functions below compose
+# the three for each kind of list, with the kernels (live_chunk_lists, ...)
+# or with the twins (live_chunk_lists_plain, ...).
 
 CONE_COLS = 12  # a cone's row: apex(3) axis(3) cos_a sin_a o_rad bound has_valid enabled
+SUB_LANES = NB // SUB  # lanes of a culling sub-cone
 
 
-def _cones_of(d, o):
-    """Bounding cone per ray group. d/o: (..., 3, groups, lanes) dirs /
-    origins. Returns (apex (..., 3, G), axis (..., 3, G), cos_a (..., G),
-    o_rad (..., G))."""
-    oc = o.mean(dim=-1)
-    o_rad = torch.sqrt(((o - oc[..., None]) ** 2).sum(dim=-3).amax(dim=-1))
-    mean = d.mean(dim=-1)
-    axis = mean / torch.clamp(torch.sqrt((mean * mean).sum(dim=-2)), min=1e-12)[..., None, :]
-    cos_a = (d * axis[..., None]).sum(dim=-3).amin(dim=-1)
-    return oc, axis, cos_a, o_rad
+def _tree_sum(x):
+    """Sum over the last axis, of a power-of-two length, as a pairwise tree:
+    lanes 2i and 2i + 1 first, then neighbouring pairs of those, and so on,
+    each add the lower node plus the upper. rpt_cone_table adds in the same
+    tree (a thread's four lanes, then shuffles, then its warps in order), so
+    the sums agree to the bit on any device."""
+    while x.shape[-1] > 1:
+        x = x.reshape(*x.shape[:-1], x.shape[-1] // 2, 2)
+        x = x[..., 0] + x[..., 1]
+    return x[..., 0]
 
 
-def _mask_invalid_lanes(d, o, valid):
-    """Replace masked lanes' rays by their group's mean so that garbage rays
-    cannot widen the group's cone. d/o: (..., 3, groups, lanes)."""
-    v = valid.reshape(d.shape[-2], d.shape[-1])
-    nv = torch.clamp(v.sum(dim=-1, keepdim=True), min=1)
-    o_mean = torch.where(v, o, 0.0).sum(dim=-1, keepdim=True) / nv
-    d_mean = torch.where(v, d, 0.0).sum(dim=-1, keepdim=True) / nv
-    return torch.where(v, d, d_mean), torch.where(v, o, o_mean)
+def _divide(x, k: int):
+    """x / k as a true division on every device (CUDA turns a division by a
+    Python number into a product with its reciprocal)."""
+    return x / torch.full_like(x, k)
 
 
-def cone_table(d, o, valid=None, lane_bound=None, lanes=NB // SUB):
-    """The culling cones of rays d/o (..., 3, n_pad), one per `lanes`
-    consecutive lanes (128-lane sub-cones; 1024-lane block cones for
-    live_chunk_lists3's bits): (..., n_pad // lanes, CONE_COLS) rows [apex(3)
-    axis(3) cos_a sin_a o_rad bound has_valid enabled], which the kernel and
-    its twin both read. valid (n_pad,) keeps masked lanes out of the cones
-    (has_valid 0 for a group with none); lane_bound (..., n_pad) gives each
-    group's bound, its lanes' max (0 without one); enabled is 1."""
+def cone_table_plain(d, o, valid=None, lane_bound=None, lanes=SUB_LANES, s=None, enabled=None):
+    """Plain twin of the rpt_cone_table kernel: the culling cones of rays
+    d/o (..., 3, n_pad), `...` empty or (O,), one per `lanes` consecutive
+    lanes (128-lane sub-cones; 1024-lane block cones for live_chunk_lists3's
+    bits): (..., n_pad // lanes, CONE_COLS) rows [apex(3) axis(3) cos_a sin_a
+    o_rad bound has_valid enabled], which the cull and its twin read.
+
+    valid (n_pad,) replaces masked lanes' rays by the mean of their group's
+    valid ones, so that they cannot widen the cone (has_valid 0 for a group
+    with none); lane_bound (n_pad,) or (..., n_pad) gives each group's bound,
+    its lanes' max (0 without one). The pool (s given, (O, n_pad) scales):
+    the lane bound is in shared units and is divided by clamp(s, 1e-12)
+    first, enabled (O,) int zeroes a disabled object's enabled column (1
+    elsewhere), and the result is (rows, smin), smin (O, n_pad // NB) the
+    minimum of s over each block's valid lanes (INF where it has none).
+
+    The order is the kernel's: the means (and the masked lanes' sums) are
+    pairwise trees (`_tree_sum`) divided by a tensor, sums over x, y, z run
+    left to right, and amin / amax are order-free; a NaN in a max or min
+    wins, as torch's amin / amax give it (which NaN, where several differ in
+    their bits, and the sign of a zero max or min among +0 and -0, follow
+    the reduction order; the kernel's may differ there)."""
     G = d.shape[-1] // lanes
     d = d.reshape(*d.shape[:-1], G, lanes)
     o = o.reshape(*o.shape[:-1], G, lanes)
     if valid is not None:
-        d, o = _mask_invalid_lanes(d, o, valid)
-    apex, axis, cos_a, o_rad = _cones_of(d, o)
+        v = valid.reshape(G, lanes)
+        nv = torch.clamp(v.sum(dim=-1), min=1).to(torch.float32)
+        o = torch.where(v, o, (_tree_sum(torch.where(v, o, 0.0)) / nv)[..., None])
+        d = torch.where(v, d, (_tree_sum(torch.where(v, d, 0.0)) / nv)[..., None])
+    oc = _divide(_tree_sum(o), lanes)  # (..., 3, G)
+    e0, e1, e2 = (o - oc[..., None]).unbind(-3)
+    o_rad = torch.sqrt((e0 * e0 + e1 * e1 + e2 * e2).amax(dim=-1))
+    mean = _divide(_tree_sum(d), lanes)
+    m0, m1, m2 = mean.unbind(-2)
+    axis = mean / torch.clamp(torch.sqrt(m0 * m0 + m1 * m1 + m2 * m2), min=1e-12)[..., None, :]
+    a0, a1, a2 = (x[..., None] for x in axis.unbind(-2))
+    d0, d1, d2 = d.unbind(-3)
+    cos_a = (d0 * a0 + d1 * a1 + d2 * a2).amin(dim=-1)
     sin_a = torch.sqrt(torch.clamp(1.0 - cos_a * cos_a, min=0.0))
     zero = torch.zeros_like(cos_a)
-    bound = zero if lane_bound is None else lane_bound.reshape(
-        *lane_bound.shape[:-1], G, lanes).amax(dim=-1)
+    bound = zero
+    if lane_bound is not None:
+        lb = lane_bound if s is None else lane_bound / torch.clamp(s, min=1e-12)
+        bound = torch.broadcast_to(lb.reshape(*lb.shape[:-1], G, lanes).amax(dim=-1),
+                                   cos_a.shape)
     has_valid = zero + (1.0 if valid is None else valid.reshape(G, lanes).any(dim=1))
-    return torch.stack([*apex.unbind(-2), *axis.unbind(-2), cos_a, sin_a, o_rad, bound,
-                        has_valid, zero + 1.0], dim=-1).contiguous()
+    on = zero + (1.0 if enabled is None else (enabled != 0)[:, None])
+    rows = torch.stack([*oc.unbind(-2), *axis.unbind(-2), cos_a, sin_a, o_rad, bound,
+                        has_valid, on], dim=-1).contiguous()
+    if s is None:
+        return rows
+    sv = s if valid is None else torch.where(valid, s, INF)
+    return rows, sv.reshape(s.shape[0], -1, NB).amin(dim=-1)
+
+
+def _strides(x, dims: int):
+    """x's element strides, stride 0 in front for the axes it lacks of `dims`."""
+    return [0] * (dims - x.dim()) + list(x.stride())
+
+
+def cone_table(d, o, valid=None, lane_bound=None, lanes=SUB_LANES, s=None, enabled=None):
+    """K4's cone table: the rpt_cone_table kernel on CUDA tensors, the plain
+    twin on CPU tensors; arguments and results as `cone_table_plain`. The
+    kernel reads d, o, lane_bound and s where they lie (any strides: a
+    stride-0 origin, rows of a larger array); valid and enabled are
+    contiguous; n_pad is a multiple of NB and lanes is 128 or 1024."""
+    if d.device.type == "cpu":
+        return cone_table_plain(d, o, valid, lane_bound, lanes, s, enabled)
+    if lanes not in (SUB_LANES, NB):
+        raise ValueError(f"cone_table: lanes must be {SUB_LANES} or {NB}, got {lanes}")
+    n_pad = d.shape[-1]
+    if n_pad % NB or d.dim() not in (2, 3) or d.shape[-2] != 3:
+        raise ValueError(f"cone_table: d must be (3, n_pad) or (O, 3, n_pad) with n_pad a "
+                         f"multiple of {NB}, got {tuple(d.shape)}")
+    if s is not None and d.dim() != 3:
+        raise ValueError("cone_table: the pool's scales need (O, 3, n_pad) rays")
+    O = d.shape[0] if d.dim() == 3 else 1
+    f32, dev = torch.float32, d.device
+    specs = [(d, f32, d.shape), (o, f32, d.shape)]
+    if lane_bound is not None:
+        if lane_bound.shape not in ((n_pad,), d.shape[:-2] + (n_pad,)):
+            raise ValueError(f"cone_table: lane_bound of shape {tuple(lane_bound.shape)}")
+        specs.append((lane_bound, f32, lane_bound.shape))
+    if s is not None:
+        specs.append((s, f32, (O, n_pad)))
+    if valid is not None:
+        specs.append((valid, torch.bool, (n_pad,)))
+    if enabled is not None:
+        specs.append((enabled, torch.int32, (O,)))
+    check_cuda("cone_table", *specs, contiguous=False)
+    if any(x is not None and not x.is_contiguous() for x in (valid, enabled)):
+        raise ValueError("cone_table: valid and enabled must be contiguous")
+    if any(st >= 2 ** 31 for x, *_ in specs for st in x.stride()):
+        raise ValueError("cone_table: strides beyond 2^31 elements")
+    sd, so = _strides(d, 3), _strides(o, 3)
+    slb = _strides(lane_bound, 2) if lane_bound is not None else [0, 0]
+    ss = _strides(s, 2) if s is not None else [0, 0]
+    G = n_pad // lanes
+    rows = torch.empty((*d.shape[:-2], G, CONE_COLS), dtype=f32, device=dev)
+    smin = torch.empty((O, n_pad // NB), dtype=f32, device=dev) if s is not None else None
+    launch("rpt_cone_table", d, *sd, o, *so, valid, lane_bound, *slb, s, *ss, enabled, O,
+           n_pad, lanes, rows, smin)
+    return rows if s is None else (rows, smin)
 
 
 def _pad_cols(x, width: int, value):
@@ -296,23 +379,31 @@ def live_cull(spheres, table, sub=SUB, use_bound=False, cobj=None, smin=None, s=
     return bits, mg, og
 
 
-def bucket_order_plain(mind, overlap):
-    """Plain twin of the rpt_bucket_order kernel: front-to-back compaction
-    of live entries per block by a 16-bucket counting sort. mind/overlap:
-    (B, C). Returns (order (B, C) int32 entry ids, live ones first; minds
-    (B, C) f32 bucket floors keyed by entry id; counts (B,) int32 live
-    counts). Floors never exceed an entry's true distance and never decrease
-    along `order`, so stopping on them is sound."""
-    n_chunks = mind.shape[1]
+def bucket_ids_plain(mind, overlap):
+    """Each entry's counting-sort bucket (B, C) int32: its floor's bucket
+    0-15 between the block's min floor (lo, over every entry) and its live
+    entries' max (hi), a dead entry NBKT; and (lo, span) (B, 1) each, span =
+    clamp(hi - lo, 1e-6)."""
     lo_k = mind.amin(dim=1, keepdim=True)
     hi_k = torch.where(overlap, mind, -INF).amax(dim=1, keepdim=True)
     span = torch.clamp(hi_k - lo_k, min=1e-6)
     x = (mind - lo_k) / span * (NBKT - 1)
     # Saturating float -> int (NaN -> 0), as XLA converts.
     bucket = torch.clamp(torch.where(x > 0, x, 0.0), max=NBKT - 1).to(torch.int32)
-    # a true division on every device (CUDA turns a division by a Python
-    # number into a product with its reciprocal)
-    key = lo_k + bucket.to(torch.float32) * (span / torch.full_like(span, NBKT - 1))
+    return bucket, lo_k, span
+
+
+def bucket_order_plain(mind, overlap):
+    """Plain twin of the rpt_bucket_order kernel: front-to-back compaction
+    of live entries per block by a 16-bucket counting sort. mind/overlap:
+    (B, C). Returns (order (B, C) int32 entry ids, live ones first; minds
+    (B, C) f32 bucket floors keyed by entry id; counts (B,) int32 live
+    counts). Floors never exceed an entry's true distance and never decrease
+    along `order`, so stopping on them is sound. The order is by bucket,
+    then by entry id: a stable sort of the bucket ids."""
+    n_chunks = mind.shape[1]
+    bucket, lo_k, span = bucket_ids_plain(mind, overlap)
+    key = lo_k + bucket.to(torch.float32) * _divide(span, NBKT - 1)
     bucket = torch.where(overlap, bucket, NBKT).long()  # dead chunks go last
     onehot = F.one_hot(bucket, NBKT + 1)  # (B, C, NBKT + 1)
     per_bucket = onehot.sum(dim=1)
@@ -341,13 +432,15 @@ def bucket_order(mind, overlap):
 
 
 def _list_ops(plain: bool):
-    """(cull, sort): K4's kernels, or their twins."""
-    return (live_cull_plain, bucket_order_plain) if plain else (live_cull, bucket_order)
+    """(table, cull, sort): K4's kernels, or their twins."""
+    if plain:
+        return cone_table_plain, live_cull_plain, bucket_order_plain
+    return cone_table, live_cull, bucket_order
 
 
 def _lists(plain, spheres, dh_p, o_p, valid, lane_bound):
-    cull, sort = _list_ops(plain)
-    table = cone_table(dh_p, o_p, valid, lane_bound)
+    table_of, cull, sort = _list_ops(plain)
+    table = table_of(dh_p, o_p, valid, lane_bound)
     return sort(*cull(spheres, table, SUB, lane_bound is not None))
 
 
@@ -368,8 +461,8 @@ def live_chunk_lists_plain(spheres, dh_p, o_p, valid=None, lane_bound=None):
 
 
 def _lists2(plain, spheres, dh_p, o_p, valid, lane_bound, s):
-    cull, sort = _list_ops(plain)
-    table = cone_table(dh_p, o_p, valid, lane_bound)
+    table_of, cull, sort = _list_ops(plain)
+    table = table_of(dh_p, o_p, valid, lane_bound)
     bits, mind_g, over_g = cull(spheres, table, SUB, lane_bound is not None, None, None, s,
                                 -(-spheres.shape[0] // 32), True)
     return (*sort(mind_g, over_g), bits)
@@ -410,15 +503,15 @@ def super_spheres_of(spheres, s):
 
 
 def _lists3(plain, spheres, dh_p, o_p, valid, lane_bound, s):
-    cull, sort = _list_ops(plain)
-    table = cone_table(dh_p, o_p, valid, lane_bound)
+    table_of, cull, sort = _list_ops(plain)
+    table = table_of(dh_p, o_p, valid, lane_bound)
     order, minds, counts = sort(*cull(super_spheres_of(spheres, s), table, SUB,
                                       lane_bound is not None))
     # The chunk bits from one cone per block; an all-masked block's
     # degenerate cone reads as overlapping all, so has_valid drops it. The
     # bit columns cover C_s * s chunks: the walk's cursor reaches the pad
     # positions of a ragged last super.
-    blocks = cone_table(dh_p, o_p, valid, lanes=NB)
+    blocks = table_of(dh_p, o_p, valid, None, NB)
     width = -(-spheres.shape[0] // s) * s
     bits, _, _ = cull(spheres, blocks, 1, False, None, None, s, -(-width // 32), False)
     return order, minds, counts, bits

@@ -210,7 +210,7 @@ def mesh_intersect_shared_batched(mesh, meta, batch, L, inv_ms, m4s, stat_cams, 
         for f in range(4):
             consts[f].append(cst[f * T_pad:(f + 1) * T_pad])
         d_os.append(dh)
-        o_os.append(ro[:, None].expand(3, n))
+        o_os.append(ro)
         s_os.append(_object_scale(m4s[i], dh, d4[1:4]))
         mats.append(mat_row(L[i], inv_ms[i], m4s[i], ro))
         sph = batch.spheres[c0:c0 + meta.mesh_chunk_counts[k]]
@@ -218,7 +218,8 @@ def mesh_intersect_shared_batched(mesh, meta, batch, L, inv_ms, m4s, stat_cams, 
         boxes.append(torch.cat([*_box_of(sph), ro]))
     t, bu, bv, btri, slot, battr = batched_nearest_shared(
         torch.cat(sum(consts, [])), batch.attrs, batch.spheres, torch.stack(boxes),
-        torch.stack(mats), dir4, torch.stack(d_os), torch.stack(o_os), torch.stack(s_os),
+        torch.stack(mats), dir4, torch.stack(d_os),
+        torch.stack(o_os)[:, :, None].expand(len(o_os), 3, n), torch.stack(s_os),
         meta.mesh_chunk_counts)
     valid = btri >= 0
     interp = battr[0:5] + bu * battr[5:10] + bv * battr[10:15]

@@ -1006,7 +1006,7 @@ def test_xl_lists_on_the_large_fixture(cuda, tmp_path, monkeypatch):
 
 # --- K4: the live-chunk list build ----------------------------------------------
 
-K4_KEYS = ("rpt_live_cull", "rpt_bucket_order")
+K4_KEYS = ("rpt_cone_table", "rpt_live_cull", "rpt_bucket_order")
 
 
 def _same(got, want) -> bool:
@@ -1019,7 +1019,7 @@ def _same(got, want) -> bool:
 
 
 def _k4_equals_twin(fn, plain, *args, **kw):
-    """A list function on CUDA inputs: K4's two kernels launched, every
+    """A list function on CUDA inputs: K4's three kernels launched, every
     output equal to the twin's on the same inputs to the bit. Returns the
     twin's outputs."""
     before = [_launches(k) for k in K4_KEYS]
@@ -1049,7 +1049,7 @@ def _captured(mod, attr, build):
     return calls
 
 
-K4_CASES = ("flat_shared", "flat_shadow", "lists2_ragged", "lists3", "pool_shared",
+K4_CASES = ("flat_shared", "flat_shadow", "flat_rows", "lists2_ragged", "lists3", "pool_shared",
             "pool_shadow_one_disabled", "large_pool", "grazing", "all_dead", "all_live",
             "pool_straddling")
 PRETEST_CASES = K4_CASES[-4:]  # the cull's group pre-test, through live_cull itself
@@ -1159,10 +1159,11 @@ def _cull_pretest_equals_twin(dev, case):
 
 @pytest.mark.parametrize("case", K4_CASES)
 def test_list_kernels_equal_twins(cuda, case):
-    """K4 (rpt_live_cull, rpt_bucket_order) equal to its twins to the bit
-    in order, floors, counts and bits: flat lists of 160 chunks over 8
-    blocks for shared rays and for shadow rays (masked lanes, two all-masked
-    sub-cones, a lane bound); lists2 at S = 32 on a ragged 333 chunks (a
+    """K4 (rpt_cone_table, rpt_live_cull, rpt_bucket_order) equal to its
+    twins to the bit in order, floors, counts and bits: flat lists of 160
+    chunks over 8 blocks for shared rays (a stride-0 origin) and for shadow
+    rays (masked lanes, two all-masked sub-cones, a lane bound), those also
+    read as rows 0-2 and 6-8 of a (10, n) array; lists2 at S = 32 on a ragged 333 chunks (a
     last bit word and super of 13); lists3 at S = 128 on 1,000 chunks (the
     super-sphere cull and the block-cone bits); the pool of 4 objects for
     K9's lists, and for K10's with object 1 disabled; and the 25,344-chunk
@@ -1201,6 +1202,11 @@ def test_list_kernels_equal_twins(cuda, case):
     C = {"lists2_ragged": 333, "lists3": 1000}.get(case, 160)
     d, o, valid, bound = list_rays(rng, n=8192, spread=0.05, shadow=case != "flat_shared")
     args = [torch.as_tensor(x, device=cuda) for x in (list_spheres(rng, C), d, o)]
+    if case == "flat_shared":  # the primary walk's stride-0 origin
+        args[2] = args[2][:, :1].expand(3, 8192)
+    if case == "flat_rows":  # the shadow walk's rows of r10
+        r10 = torch.cat([args[1], torch.zeros_like(args[1]), args[2], torch.ones_like(args[1][:1])])
+        args[1:] = [r10[0:3], r10[6:9]]
     kw = {} if case == "flat_shared" else {
         "valid": torch.as_tensor(valid, device=cuda), "lane_bound": torch.as_tensor(bound,
                                                                                     device=cuda)}
@@ -1219,23 +1225,26 @@ def test_list_kernels_equal_twins(cuda, case):
         assert int((counts < C).sum()) > 0
 
 
-def test_bucket_order_kernel_keeps_ties_and_empty_blocks(cuda):
-    """rpt_bucket_order equal to its twin to the bit on rows of 700 entries
-    (three tiles of the kernel): all ties (the stable order is by entry id),
-    nothing live (hi = -INF, the span clamped to 1e-6), every entry live,
-    floors drawn from four values (ties across tiles in every bucket), and
-    random floors with 40% live."""
+@pytest.mark.parametrize("n", [1, 45, 256, 700, 2100])
+def test_bucket_order_kernel_keeps_ties_and_empty_blocks(cuda, n):
+    """rpt_bucket_order equal to its twin to the bit on rows of n entries:
+    one entry, a ragged tile, one full register tile (256), and rows of
+    several tiles that the warp reads again: all ties (the stable order is
+    by entry id), nothing live (hi = -INF, the span clamped to 1e-6), every
+    entry live, floors drawn from four values (ties across tiles in every
+    bucket), random floors with 40% live, and nothing live over random
+    floors."""
     from relativitypathtracer_tpu_torch.ops.kernels import mesh_kernels as mk
 
-    rng = np.random.default_rng(400)
-    n = 700
-    mind = rng.uniform(0.0, 5.0, (5, n)).astype(np.float32)
-    over = rng.uniform(size=(5, n)) < 0.4
+    rng = np.random.default_rng(400 + n)
+    mind = rng.uniform(0.0, 5.0, (6, n)).astype(np.float32)
+    over = rng.uniform(size=(6, n)) < 0.4
     mind[0] = 1.0
     over[0] = True
     over[1] = False
     over[2] = True
     mind[3] = rng.choice(np.array([0.5, 1.0, 2.5, 4.0], np.float32), n)
+    over[5] = False
     args = (torch.as_tensor(mind, device=cuda), torch.as_tensor(over, device=cuda))
     before = _launches("rpt_bucket_order")
     got = mk.bucket_order(*args)
@@ -1245,7 +1254,77 @@ def test_bucket_order_kernel_keeps_ties_and_empty_blocks(cuda):
     for g, w in zip(got, want):
         assert _same(g, w)
     assert got[0][0].tolist() == list(range(n)) and got[0][1].tolist() == list(range(n))
-    assert got[2].tolist()[:3] == [n, 0, n]
+    assert got[2].tolist()[:3] == [n, 0, n] and int(got[2][5]) == 0
+
+
+CONE_CASES = ("sub_shared_origin", "sub_masked_bounds", "block_masked", "block_shared_origin",
+              "lane_stride_2", "pool_shared", "pool_shadow_disabled")
+
+
+def _cone_inputs(dev, case):
+    """cone_table's arguments (d, o, valid, lane_bound, lanes, s, enabled)
+    for a card case, on 8 blocks of 1024 lanes: shadow-like rays with masked
+    lanes (the first 256, and all of block 2: all-masked sub-cones and an
+    all-masked block), a lane bound with a NaN and an INF; the shared
+    origin expanded with stride 0; every other lane of a wider array; the
+    pool as (3, 10, n) rays read through rows 0-2 and 6-8, a zero scale, and
+    object 1 disabled."""
+    from torch_port_fixtures import list_rays
+
+    rng = np.random.default_rng(600 + CONE_CASES.index(case))
+    n = 8192
+    dt = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    d, o, valid, bound = list_rays(rng, n=n, spread=0.3, shadow=True)
+    valid[2048:3072] = False
+    bound[5], bound[700] = np.nan, np.inf
+    lanes = 1024 if case.startswith("block") else 128
+    if case in ("sub_shared_origin", "block_shared_origin"):
+        return dt(d), dt(o[:, :1]).expand(3, n), None, None, lanes, None, None
+    if case in ("sub_masked_bounds", "block_masked"):
+        return dt(d), dt(o), dt(valid), dt(bound), lanes, None, None
+    if case == "lane_stride_2":
+        wide = dt(np.repeat(np.stack([d, o]), 2, axis=2))
+        return wide[0, :, ::2], wide[1, :, 1::2], dt(valid), dt(np.repeat(bound, 2))[::2], 128, \
+            None, None
+    O = 3
+    rays = [list_rays(rng, n=n, spread=0.3, shadow=True) for _ in range(O)]
+    r10 = np.zeros((O, 10, n), np.float32)
+    r10[:, 0:3] = np.stack([r[0] for r in rays])
+    r10[:, 6:9] = np.stack([r[1] for r in rays])
+    r10 = dt(r10)
+    s = rng.uniform(0.5, 2.0, (O, n)).astype(np.float32)
+    s[2, 5] = 0.0
+    if case == "pool_shared":
+        ro = dt(rng.uniform(-0.2, 0.2, (O, 3)).astype(np.float32))
+        return r10[:, 0:3], ro[:, :, None].expand(O, 3, n), None, None, 128, dt(s), None
+    return (r10[:, 0:3], r10[:, 6:9], dt(valid), dt(bound), 128, dt(s),
+            dt(np.array([1, 0, 1], np.int32)))
+
+
+@pytest.mark.parametrize("case", CONE_CASES)
+def test_cone_table_kernel_equals_twin(cuda, case):
+    """rpt_cone_table equal to cone_table_plain on the card, to the bit, in
+    every row (and the pool's smin): 128- and 1024-lane groups, masked lanes
+    with all-masked groups, NaN and INF lane bounds, a stride-0 origin,
+    strided views, and the pool's glue with a disabled object."""
+    from relativitypathtracer_tpu_torch.ops.kernels import mesh_kernels as mk
+
+    args = _cone_inputs(cuda, case)
+    before = _launches("rpt_cone_table")
+    got = mk.cone_table(*args)
+    torch.cuda.synchronize()
+    assert _launches("rpt_cone_table") == before + 1
+    want = mk.cone_table_plain(*args)
+    got, want = (got, want) if args[5] is not None else ((got,), (want,))
+    for g, w in zip(got, want):
+        assert _same(g, w)
+    rows = got[0]
+    if args[2] is not None:  # the all-masked groups
+        assert not bool(rows[..., 16 // (args[4] // 128):24 // (args[4] // 128), 10].any())
+        assert bool(torch.isnan(rows[..., 0, 9]).all())
+    if case == "pool_shadow_disabled":
+        assert bool((rows[1, :, 11] == 0).all()) and bool((rows[0, :, 11] == 1).all())
+        assert bool((got[1][:, 2] == mk.INF).all())
 
 
 def _large_walks_equal_twins(args, shadow):

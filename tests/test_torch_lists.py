@@ -1,13 +1,16 @@
 """K4, the live-chunk list build, against the JAX package on the CPU.
 
 The port builds every list from one table of culling cones
-(`mesh_kernels.cone_table`, torch code shared by the CUDA kernels and their
-twins), a cull (`live_cull`, twin `live_cull_plain`) and a counting sort
-(`bucket_order`, twin `bucket_order_plain`). Here, on CPU tensors, the
-wrappers take the twins:
+(`mesh_kernels.cone_table`, twin `cone_table_plain`), a cull (`live_cull`,
+twin `live_cull_plain`) and a counting sort (`bucket_order`, twin
+`bucket_order_plain`). Here, on CPU tensors, the wrappers take the twins:
 - the cone table against the JAX package's `_cones_of` after
   `_mask_invalid_lanes`, at 128-lane sub-cones and 1024-lane block cones:
-  within 1e-6 (the same reductions, in torch's and XLA's order);
+  within 1e-6 (the twin's means are pairwise trees, XLA's reductions run in
+  its own order); the twin's tree equal to a float32 recursive halving and
+  within its error bound of float64; the pool's glue (lane bound in each
+  object's units, enabled column, smin) equal to the per-op composition it
+  replaced; strided and stride-0 rays equal to their contiguous copies;
 - the lists against the JAX `live_chunk_lists`, `live_chunk_lists2` (S = 32,
   a ragged chunk count), `live_chunk_lists3` (S = 128) and
   `live_chunk_lists_multi` (a disabled object, a shared-unit lane bound,
@@ -51,9 +54,10 @@ def _assert_lists_close(po, pmn, pc, jo, jmn, jc):
 @pytest.mark.parametrize("lanes", [128, 1024])
 @pytest.mark.parametrize("masked", [False, True], ids=["all_lanes", "masked"])
 def test_cone_table_matches_jax(lanes, masked):
-    """apex, axis, cos_a, o_rad within 1e-6 of the JAX cones; sin_a from
-    cos_a; has_valid where a group keeps a lane; bound the group's max lane
-    bound; enabled 1."""
+    """The twin (cone_table on CPU tensors): apex, axis, cos_a, o_rad within
+    1e-6 of the JAX cones; sin_a from cos_a; has_valid where a group keeps a
+    lane; bound the group's max lane bound; enabled 1."""
+    torch.set_num_threads(1)
     d, o, valid, bound = _rays(np.random.default_rng(1), shadow=True)
     jd, jo_ = jnp.asarray(d).reshape(3, -1, lanes), jnp.asarray(o).reshape(3, -1, lanes)
     if masked:
@@ -70,6 +74,115 @@ def test_cone_table_matches_jax(lanes, masked):
     assert (masked and lanes == 128) == (not tab[:, 10].all())  # two all-masked sub-cones
     np.testing.assert_array_equal(tab[:, 9], bound.reshape(-1, lanes).max(axis=1))
     assert (tab[:, 11] == 1.0).all()
+
+
+def _halves_f32(x):
+    """float32 sum of a power-of-two run by recursive halving, in numpy."""
+    if x.shape[-1] == 1:
+        return x[..., 0]
+    h = x.shape[-1] // 2
+    return (_halves_f32(x[..., :h]) + _halves_f32(x[..., h:])).astype(np.float32)
+
+
+@pytest.mark.parametrize("lanes", [128, 1024])
+def test_tree_sum_is_pairwise_and_within_its_error_bound(lanes):
+    """The twin's means are pairwise trees: `_tree_sum` equals a float32
+    recursive halving to the bit, and is within log2(lanes) rounding units
+    of sum |x| of the float64 sum (the pairwise bound), on rows of mixed
+    signs and magnitudes 1e-3 to 1e3; the cone table's apex is that sum
+    over the lanes count."""
+    torch.set_num_threads(1)
+    rng = np.random.default_rng(11)
+    x = (rng.normal(size=(64, lanes)) * np.exp(rng.uniform(-7, 7, (64, lanes)))).astype(
+        np.float32)
+    got = pmk._tree_sum(t(x)).numpy()
+    assert np.array_equal(got.view(np.int32), _halves_f32(x).view(np.int32))
+    exact = x.astype(np.float64).sum(axis=1)
+    bound = np.log2(lanes) * 2.0 ** -24 * np.abs(x).astype(np.float64).sum(axis=1)
+    assert np.all(np.abs(got - exact) <= bound * (1 + 1e-6))
+    o = np.repeat(x[:3, None, :], 1, axis=1).reshape(3, lanes)
+    rows = pmk.cone_table_plain(t(o), t(o), lanes=lanes).numpy()
+    assert np.array_equal(rows[0, 0:3], (got[:3] / np.float32(lanes)).astype(np.float32))
+
+
+@pytest.mark.parametrize("shadow", [False, True], ids=["shared", "shadow"])
+def test_pool_glue_equals_the_composition_it_replaced(shadow):
+    """The pool's table in one call (cone_table_plain with s and enabled)
+    equal (torch.equal) to the ops it replaced: the table of the lane bound
+    divided by clamp(s, 1e-12), the enabled column zeroed for a disabled
+    object by a host loop, and smin the min of where(valid, s, INF) over
+    each block; the shadow case with object 1 disabled, two all-masked
+    sub-cones, an all-masked block (smin INF), a zero scale and a NaN and an
+    INF lane bound."""
+    torch.set_num_threads(1)
+    spheres, d_os, o_os, s_os, extra = _pool_inputs(12, shadow)
+    d_os, o_os, s_os = t(d_os), t(o_os), t(s_os)
+    valid = lbs = None
+    enabled = (True, True, True)
+    if shadow:
+        valid, lbs, enabled = t(extra["valid"]), t(extra["lane_bound_shared"]), extra["enabled"]
+        valid[1024:2048] = False
+        s_os[2, 5] = 0.0
+        lbs[7], lbs[300] = float("nan"), float("inf")
+    en = torch.tensor([int(e) for e in enabled], dtype=torch.int32)
+    rows, smin = pmk.cone_table_plain(d_os, o_os, valid, lbs, pmk.SUB_LANES, s_os, en)
+    lb = None if lbs is None else lbs / torch.clamp(s_os, min=1e-12)
+    want = pmk.cone_table_plain(d_os, o_os, valid, lb)
+    for g, on in enumerate(enabled):
+        if not on:
+            want[g, :, pmk.CONE_COLS - 1] = 0.0
+    s = s_os if valid is None else torch.where(valid, s_os, pmk.INF)
+    want_smin = s.reshape(len(COUNTS), N_PAD // pmk.NB, pmk.NB).amin(dim=2)
+    assert torch.equal(rows.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(smin, want_smin)
+    if shadow:
+        assert bool(torch.isnan(rows[:, 0, 9]).all()) and bool(torch.isinf(rows[:, 2, 9]).all())
+        assert rows[1, :, 11].tolist() == [0.0] * 16 and bool((rows[0, :, 11] == 1).all())
+        assert bool((smin[:, 1] == pmk.INF).all()) and not bool(rows[:, 8:16, 10].any())
+
+
+def test_cone_table_reads_strided_rays_as_their_copies():
+    """Rays as the list builds pass them: a stride-0 origin (the shared
+    origin expanded over the lanes), rows 0-2 and 6-8 of a (10, n) array,
+    every other lane of wider arrays (rays and lane bound), and a pool's stride-0 origins
+    (O, 3, 1) expanded: each table equal to the table of contiguous
+    copies, to the bit."""
+    torch.set_num_threads(1)
+    rng = np.random.default_rng(13)
+    d, o, valid, bound = _rays(rng, shadow=True)
+    ro = t(rng.uniform(-0.2, 0.2, 3).astype(np.float32))
+    r10 = t(rng.normal(size=(10, N_PAD)).astype(np.float32))
+    wide = t(rng.normal(size=(2, 3, 2 * N_PAD)).astype(np.float32))
+    cases = [(t(d), ro[:, None].expand(3, N_PAD), None, None),
+             (r10[0:3], r10[6:9], t(valid), t(bound)),
+             (wide[0, :, ::2], wide[1, :, 1::2], t(valid), t(np.repeat(bound, 2))[::2]),
+             (t(np.stack([d, d])), torch.stack([ro, -ro])[:, :, None].expand(2, 3, N_PAD),
+              None, None)]
+    for dd, oo, v, b in cases:
+        for lanes in (128, 1024):
+            got = pmk.cone_table(dd, oo, v, b, lanes)
+            want = pmk.cone_table(dd.contiguous(), oo.contiguous(), v,
+                                  None if b is None else b.contiguous(), lanes)
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_cone_table_wrapper_refuses_what_the_kernel_does_not_take():
+    """Off the CPU the wrapper launches rpt_cone_table or raises, before
+    any build or launch: meta tensors are not on a CUDA device; lanes other
+    than 128 and 1024, and n_pad not a multiple of 1024, raise too."""
+
+    def m(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    with pytest.raises(ValueError, match="CUDA device"):
+        pmk.cone_table(m(3, 2048), m(3, 2048))
+    with pytest.raises(ValueError, match="CUDA device"):
+        pmk.cone_table(m(2, 3, 2048), m(2, 3, 2048), m(2048, dtype=torch.bool), m(2048),
+                       128, m(2, 2048), m(2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="lanes"):
+        pmk.cone_table(m(3, 2048), m(3, 2048), lanes=256)
+    with pytest.raises(ValueError, match="multiple of 1024"):
+        pmk.cone_table(m(3, 1536), m(3, 1536))
 
 
 @pytest.mark.parametrize("shadow", [False, True], ids=["shared", "shadow"])

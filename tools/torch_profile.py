@@ -11,16 +11,17 @@ with torch.profiler. It prints one JSON line per path: the card, the frame
 time, the kernels launched per frame, the device busy time per frame (the
 union of kernel and copy intervals) and its share of the frame, each of the
 port's CUDA kernels' device time per frame, and the five other kernels with
-the most device time. K4, the live-chunk list build, is two kernels (the
-cull "K4 cull" and the counting sort "K4 sort") after the torch ops of its
-cone table: every list build of one frame is captured and replayed 10
-times under the profiler alone, which gives its device time per frame with
-the table's ops (`k4`: builds per frame, device ms, and the bound of the
-same work: the spheres, rays and lane masks read once and the lists written
-once over the memory rate, or about 30 operations per cone test that the
-cull ran, read through its group pre-test's skip counter in the captured
-frame, and 40 per (block, entry) of the counting sort over the fp32 rate,
-the larger of the two). K3 and K7 (`analytic`): each call of the traced
+the most device time. K4, the live-chunk list build, is three kernels (the
+cone table "K4 table", the cull "K4 cull" and the counting sort "K4
+sort"): every list build of one frame is captured and replayed 10 times
+under the profiler alone, which gives its device time per frame (`k4`:
+builds per frame, device ms, and the bound of the same work: the spheres,
+rays and lane masks read once (a broadcast origin once) and the lists
+written once over the memory rate, or about 30 operations per cone test
+that the cull ran, read through its group pre-test's skip counter in the
+captured frame, and 40 per (block, entry) of the counting sort over the
+fp32 rate, the larger of the two; and the cone tables' own bound, their
+inputs read once and their rows written once over the memory rate). K3 and K7 (`analytic`): each call of the traced
 frame run once more with its `tested` counter, the (warp, object) pairs
 whose vote ran the full test and the share skipped, and the bound of the
 call as chip_smoke.py counts it: the bytes it must move (K7 reads origins
@@ -32,6 +33,7 @@ from __future__ import annotations
 
 import collections
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -58,7 +60,8 @@ PORT_KERNELS = {"K1": ("shadow_chain_kernel",), "K2/K8": ("footprint_kernel",),
                 "K11": ("shared_walk_kernel", "SuperList"),
                 "K12": ("general_walk_kernel", "SuperList"),
                 "K9": ("batched_shared_walk_kernel",), "K10": ("batched_general_walk_kernel",),
-                "K4 cull": ("live_cull",), "K4 sort": ("bucket_order_kernel",)}
+                "K4 table": ("cone_table_kernel",), "K4 cull": ("live_cull",),
+                "K4 sort": ("bucket_order_kernel",)}
 
 
 def _port_kernel(name: str):
@@ -96,10 +99,16 @@ def _device_ms(fn, reps: int) -> float:
                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / reps
 
 
+def _bytes(*xs) -> int:
+    """Bytes of the tensors among xs, each element once: a broadcast
+    (stride-0) axis counts one element."""
+    return sum(math.prod(n for n, st in zip(x.shape, x.stride()) if st != 0) * x.element_size()
+               for x in xs if torch.is_tensor(x))
+
+
 def _list_bound_ms(args, kw, out, tests) -> float:
     """The least time of one list build (see the module docstring)."""
-    moved = sum(a.numel() * a.element_size() for a in (*args, *kw.values(), *out)
-                if torch.is_tensor(a))
+    moved = _bytes(*args, *kw.values(), *out)
     return max(moved / PEAK_BYTES, (30.0 * tests + 40.0 * out[0].numel()) / PEAK_OPS) * 1e3
 
 
@@ -133,6 +142,15 @@ def list_build(render, scene, state, reps: int = 10) -> dict:
         return real_cull(*a, skipped=skipped)
 
     mk.live_cull = counted
+    real_table = originals[(mk, "cone_table")] = mk.cone_table
+    table_bytes = []
+
+    def table(*a):
+        out = real_table(*a)
+        table_bytes.append(_bytes(*a, *(out if isinstance(out, tuple) else (out,))))
+        return out
+
+    mk.cone_table = table
     try:
         render(scene, state)
     finally:
@@ -144,7 +162,8 @@ def list_build(render, scene, state, reps: int = 10) -> dict:
             "device_ms_per_frame": ms,
             "bound_ms_per_frame": sum(
                 _list_bound_ms(a, kw, o, sum(_cull_tests(*c) for c in cs))
-                for _, _, a, kw, o, cs in calls)}
+                for _, _, a, kw, o, cs in calls),
+            "table_bound_ms_per_frame": sum(table_bytes) / PEAK_BYTES * 1e3}
 
 
 def analytic_work(render, scene, state) -> dict:
