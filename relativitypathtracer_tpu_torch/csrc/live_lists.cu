@@ -51,13 +51,16 @@
 //     cones cannot overlap any of the warp's 32 chunks the warp writes what
 //     the dense tests would (floor INF, not live, bit word 0) without
 //     running them.
-//   rpt_bucket_order (bucket_order_kernel): a warp per block row, 4 rows a
-//     CTA, no barrier and no shared memory: the row read into registers in
-//     tiles of 32 x 24 entries, lo/hi/count by shuffles, each 32 entries'
-//     buckets as five ballots of their bits (from which every bucket's
-//     lanes and count follow), the 17-bucket scan by shuffles, then a
-//     stable scatter by bucket, then by entry id, as the twin's scatter_ of
-//     a one-hot cumsum gives it (details at the kernel).
+//   rpt_bucket_order (bucket_order_kernel): one CTA per block, any entry
+//     count, in three passes over tiles of 256 entries: lo = min over every
+//     entry, hi = max over the live ones, count; each entry's bucket and
+//     floor in the twin's exact operations (a saturating float -> int, dead
+//     entries to bucket 16) and a shared-memory histogram; then a stable
+//     scatter: per tile, __match_any_sync ranks each entry among the lanes
+//     of its warp with the same bucket, the warps' per-bucket counts give
+//     the warp offsets, and running per-bucket bases carry across tiles, so
+//     the order is by bucket, then by entry id, as the twin's scatter_ of a
+//     one-hot cumsum gives it.
 //
 // What bounds them: bytes, for the table: its rays (24 bytes a lane and
 // object, 12 where the origin is shared), the mask, the lane bound and the
@@ -69,12 +72,13 @@
 // row: a broadcast), and it writes 5 bytes a (block, chunk) pair (flat) or
 // one bit and 5 bytes a (block, super) pair. The sort moves 5 bytes in and
 // 8 out an entry, a few dozen operations each: bytes and latency bound,
-// small beside the cull. An earlier sort, one 256-thread CTA a row in three
-// passes over global memory with five CTA barriers a tile, ran at 15-24%
-// of its bound; a warp a row keeps the row in registers and needs none. (A
-// first warp-a-row form kept its histogram and bases in shared memory, a
-// read-modify-write and two __syncwarp per 32 entries: 1.1-1.9x slower
-// than the CTA form, PERF.md.)
+// small beside the cull. The sort runs at 10-15% of that bound: latency,
+// its five CTA barriers a tile. Three forms with a warp per row, no CTA
+// barrier and the row in registers were each slower on every path (1.0-1.9x,
+// PERF.md): 768 rows give 768 warps, about 1.5 for each of the card's 528
+// schedulers, so a row's dependent chain (per 32 entries an IEEE division,
+// five ballots and a shuffle) runs exposed, where the CTA form spreads a
+// row over 8 warps.
 // Most (block, 32-chunk group) pairs hold no live chunk (98.4% and 99.6%
 // on the large mesh's two builds), so the cull spends its issue slots on
 // the group pre-test instead. A first design built the group's sphere (two
@@ -444,146 +448,95 @@ __device__ __forceinline__ int bucket_of(float m, float lo, float span) {
   return static_cast<int>(c);
 }
 
-// --- rpt_bucket_order ---------------------------------------------------------
-
-constexpr int kSortWarps = 4;     // block rows a CTA sorts, a warp each
-constexpr int kMaxTile = 24;      // entries a lane holds at most: a tile of 32 x 24
-constexpr int kPast = kBuckets + 1;  // the bucket of a tile's slots past the row's end
-
-// One tile of a row into registers: slot j of lane l is entry t0 + 32 j + l
-// (m, and bit j of *live its overlap; slots past n hold INF and dead).
-template <int K>
-__device__ __forceinline__ void load_tile(const float* m_row, const bool* o_row, int n, int t0,
-                                          int lane, float (&m)[K], unsigned* live) {
-  unsigned bits = 0;
-#pragma unroll
-  for (int j = 0; j < K; ++j) {
-    const int e = t0 + 32 * j + lane;
-    m[j] = e < n ? __ldg(m_row + e) : rpt::kInf;
-    if (e < n && __ldg(reinterpret_cast<const unsigned char*>(o_row) + e) != 0) bits |= 1u << j;
-  }
-  *live = bits;
-}
-
-// The five bit planes of the warp's 32 buckets (each below 32): plane i is
-// the ballot of bit i.
-__device__ __forceinline__ void bucket_planes(int bk, unsigned (&plane)[5]) {
-#pragma unroll
-  for (int i = 0; i < 5; ++i) plane[i] = __ballot_sync(kFull, (bk >> i) & 1);
-}
-
-// The lanes whose bucket is v: the AND of the planes, each taken as it is
-// where v has the bit and inverted where it has not.
-__device__ __forceinline__ unsigned lanes_of(const unsigned (&plane)[5], int v) {
-  unsigned m = kFull;
-#pragma unroll
-  for (int i = 0; i < 5; ++i) m &= ((v >> i) & 1) ? plane[i] : ~plane[i];
-  return m;
-}
-
-// A warp per block row (kSortWarps rows a CTA), no barrier and no shared
-// memory. The row is read in tiles of 32 x K entries, K the multiple of 4
-// (at most kMaxTile) that holds the row, so a row of up to 768 entries
-// (every list on the frame paths) stays in registers for all three passes
-// and each pass is one branch-free stretch that the compiler can overlap;
-// a longer row is read again, tile by tile (from L1/L2), in the second and
-// third pass:
-//   1. lo = min over every entry, hi = max over the live ones, the live
-//      count: per lane, then shuffles (order-free);
-//   2. each entry's bucket (dead: 16; a slot past the row 17) and floor, the
-//      floor written by entry id; per 32 entries, the five ballots of the
-//      buckets' bits, from which lane b counts the entries of bucket b (its
-//      histogram in a register);
-//   3. the 17-bucket exclusive scan by shuffles (lane b holds bucket b's
-//      base), then the scatter: per 32 entries, in entry-id order, an
-//      entry's place is its bucket's base (a shuffle from lane bucket)
-//      plus the lanes of its bucket below it, and lane b advances its base
-//      by its bucket's count. The order is by bucket, then by entry id, as
-//      the twin's one-hot cumsum gives it.
-template <int K>
-__global__ void __launch_bounds__(kSortWarps * 32)
-bucket_order_kernel(const float* __restrict__ mind, const bool* __restrict__ over, int B, int n,
+__global__ void __launch_bounds__(kThreads)
+bucket_order_kernel(const float* __restrict__ mind, const bool* __restrict__ over, int n,
                     int* __restrict__ order, float* __restrict__ key, int* __restrict__ counts) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int row_id = blockIdx.x * kSortWarps + warp;
-  if (row_id >= B) return;  // the whole warp
-  const size_t row = static_cast<size_t>(row_id) * n;
+  __shared__ float s_lo[kWarps], s_hi[kWarps];
+  __shared__ int s_cnt[kWarps];
+  __shared__ int s_base[kBuckets + 1];
+  __shared__ int s_wcount[kWarps][kBuckets + 1];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t row = static_cast<size_t>(blockIdx.x) * n;
   const float* m_row = mind + row;
   const bool* o_row = over + row;
-  const int tiles = (n + 32 * K - 1) / (32 * K);
-  const unsigned below = (1u << lane) - 1u;
 
-  // --- 1. lo, hi, the live count ---------------------------------------------
-  float m[K];
-  unsigned live;
+  // --- lo over every entry, hi over the live ones, the live count ----------
   float lo = __int_as_float(0x7f800000), hi = -__int_as_float(0x7f800000);
   int cnt = 0;
-  for (int t = 0; t < tiles; ++t) {
-    load_tile(m_row, o_row, n, t * 32 * K, lane, m, &live);
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      const bool real = t * 32 * K + 32 * j + lane < n;
-      lo = real ? nan_min(lo, m[j]) : lo;
-      hi = real ? nan_max(hi, ((live >> j) & 1u) ? m[j] : -rpt::kInf) : hi;
-    }
-    cnt += __popc(live);
+  for (int e = tid; e < n; e += kThreads) {
+    const float m = m_row[e];
+    const bool o = o_row[e];
+    lo = nan_min(lo, m);
+    hi = nan_max(hi, o ? m : -rpt::kInf);
+    cnt += o;
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    lo = nan_min(lo, __shfl_xor_sync(kFull, lo, off));
-    hi = nan_max(hi, __shfl_xor_sync(kFull, hi, off));
-    cnt += __shfl_xor_sync(kFull, cnt, off);
+    lo = nan_min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+    hi = nan_max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+    cnt += __shfl_xor_sync(0xffffffffu, cnt, off);
+  }
+  if (lane == 0) {
+    s_lo[warp] = lo;
+    s_hi[warp] = hi;
+    s_cnt[warp] = cnt;
+  }
+  if (tid <= kBuckets) s_base[tid] = 0;
+  for (int i = tid; i < kWarps * (kBuckets + 1); i += kThreads) (&s_wcount[0][0])[i] = 0;
+  __syncthreads();
+  lo = s_lo[0];
+  hi = s_hi[0];
+  cnt = s_cnt[0];
+  for (int w = 1; w < kWarps; ++w) {
+    lo = nan_min(lo, s_lo[w]);
+    hi = nan_max(hi, s_hi[w]);
+    cnt += s_cnt[w];
   }
   const float span = clamp_min(hi - lo, 1e-6f);
   const float step = span / static_cast<float>(kBuckets - 1);
-  if (lane == 0) counts[row_id] = cnt;
+  if (tid == 0) counts[blockIdx.x] = cnt;
 
-  // --- 2. buckets, floors, the histogram -------------------------------------
-  int hist = 0;  // lane b: the entries of bucket b
-  int bk[K];
-  for (int t = 0; t < tiles; ++t) {
-    const int t0 = t * 32 * K;
-    if (tiles > 1) load_tile(m_row, o_row, n, t0, lane, m, &live);
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      const int e = t0 + 32 * j + lane;
-      const int b = bucket_of(m[j], lo, span);
-      if (e < n) key[row + e] = lo + static_cast<float>(b) * step;
-      bk[j] = e >= n ? kPast : (((live >> j) & 1u) ? b : kBuckets);
-      unsigned plane[5];
-      bucket_planes(bk[j], plane);
-      hist += __popc(lanes_of(plane, lane));
+  // --- floors by entry id, and the bucket histogram -------------------------
+  for (int e = tid; e < n; e += kThreads) {
+    const int bk = bucket_of(m_row[e], lo, span);
+    key[row + e] = lo + static_cast<float>(bk) * step;
+    atomicAdd(&s_base[o_row[e] ? bk : kBuckets], 1);
+  }
+  __syncthreads();
+  if (tid == 0) {  // exclusive scan of the counts
+    int acc = 0;
+    for (int k = 0; k <= kBuckets; ++k) {
+      const int c = s_base[k];
+      s_base[k] = acc;
+      acc += c;
     }
   }
-  // exclusive scan of the 17 counts, lane b holding bucket b's
-  const int c = lane <= kBuckets ? hist : 0;
-  int base = c;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int v = __shfl_up_sync(kFull, base, off);
-    if (lane >= off) base += v;
-  }
-  base -= c;
+  __syncthreads();
 
-  // --- 3. the stable scatter -------------------------------------------------
-  for (int t = 0; t < tiles; ++t) {
-    const int t0 = t * 32 * K;
-    if (tiles > 1) {
-      load_tile(m_row, o_row, n, t0, lane, m, &live);
-#pragma unroll
-      for (int j = 0; j < K; ++j) {
-        bk[j] = t0 + 32 * j + lane >= n ? kPast
-                : (((live >> j) & 1u) ? bucket_of(m[j], lo, span) : kBuckets);
+  // --- stable scatter, a tile of kThreads entries at a time ------------------
+  for (int t0 = 0; t0 < n; t0 += kThreads) {
+    const int e = t0 + tid;
+    int bk = kBuckets + 1;  // past the end: a bucket of its own, never written
+    if (e < n) bk = o_row[e] ? bucket_of(m_row[e], lo, span) : kBuckets;
+    const unsigned peers = __match_any_sync(0xffffffffu, bk);
+    const int rank = __popc(peers & ((1u << lane) - 1u));
+    if (rank == 0 && e < n) s_wcount[warp][bk] = __popc(peers);
+    __syncthreads();
+    if (e < n) {
+      int pos = s_base[bk] + rank;
+      for (int w = 0; w < warp; ++w) pos += s_wcount[w][bk];
+      order[row + pos] = e;
+    }
+    __syncthreads();
+    if (tid <= kBuckets) {
+      int add = 0;
+      for (int w = 0; w < kWarps; ++w) {
+        add += s_wcount[w][tid];
+        s_wcount[w][tid] = 0;
       }
+      s_base[tid] += add;
     }
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      unsigned plane[5];
-      bucket_planes(bk[j], plane);
-      const int at = __shfl_sync(kFull, base, bk[j]) + __popc(lanes_of(plane, bk[j]) & below);
-      if (bk[j] != kPast) order[row + at] = t0 + 32 * j + lane;
-      base += __popc(lanes_of(plane, lane));
-    }
+    __syncthreads();
   }
 }
 
@@ -811,28 +764,9 @@ extern "C" int rpt_live_cull(const void* spheres, int C, const void* table, int 
 extern "C" int rpt_bucket_order(const void* mind, const void* over, int B, int n, void* order,
                                 void* key, void* counts, void* stream) {
   if (B <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
-  const dim3 grid((B + kSortWarps - 1) / kSortWarps);
-  const auto* m = static_cast<const float*>(mind);
-  const auto* o = static_cast<const bool*>(over);
-  auto* ord = static_cast<int*>(order);
-  auto* k = static_cast<float*>(key);
-  auto* c = static_cast<int*>(counts);
-  const cudaStream_t st = as_stream(stream);
-  // the tile: the least multiple of 4 slots a lane that holds the row
-  const int slots = (n + 31) / 32;
-  if (slots <= 4) {
-    bucket_order_kernel<4><<<grid, kSortWarps * 32, 0, st>>>(m, o, B, n, ord, k, c);
-  } else if (slots <= 8) {
-    bucket_order_kernel<8><<<grid, kSortWarps * 32, 0, st>>>(m, o, B, n, ord, k, c);
-  } else if (slots <= 12) {
-    bucket_order_kernel<12><<<grid, kSortWarps * 32, 0, st>>>(m, o, B, n, ord, k, c);
-  } else if (slots <= 16) {
-    bucket_order_kernel<16><<<grid, kSortWarps * 32, 0, st>>>(m, o, B, n, ord, k, c);
-  } else if (slots <= 20) {
-    bucket_order_kernel<20><<<grid, kSortWarps * 32, 0, st>>>(m, o, B, n, ord, k, c);
-  } else {
-    bucket_order_kernel<kMaxTile><<<grid, kSortWarps * 32, 0, st>>>(m, o, B, n, ord, k, c);
-  }
+  bucket_order_kernel<<<B, kThreads, 0, as_stream(stream)>>>(
+      static_cast<const float*>(mind), static_cast<const bool*>(over), n,
+      static_cast<int*>(order), static_cast<float*>(key), static_cast<int*>(counts));
   return static_cast<int>(cudaGetLastError());
 }
 

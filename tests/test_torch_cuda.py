@@ -1228,9 +1228,8 @@ def test_list_kernels_equal_twins(cuda, case):
 @pytest.mark.parametrize("n", [1, 45, 256, 700, 2100])
 def test_bucket_order_kernel_keeps_ties_and_empty_blocks(cuda, n):
     """rpt_bucket_order equal to its twin to the bit on rows of n entries:
-    one entry, a ragged tile, one full register tile (256), and rows of
-    several tiles that the warp reads again: all ties (the stable order is
-    by entry id), nothing live (hi = -INF, the span clamped to 1e-6), every
+    one entry, a ragged tile, one full tile of the kernel (256), and rows of
+    several tiles: all ties (the stable order is by entry id), nothing live (hi = -INF, the span clamped to 1e-6), every
     entry live, floors drawn from four values (ties across tiles in every
     bucket), random floors with 40% live, and nothing live over random
     floors."""

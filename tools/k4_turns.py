@@ -53,7 +53,7 @@ def _smoke():
 
 
 def _device_kernels(torch, fn, reps: int):
-    """CUDA kernels a rep of fn() launches (copies and fills by the driver
+    """CUDA kernels a rep of fn() launches (memory copies and fills
     left out), from torch.profiler."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
