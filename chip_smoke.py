@@ -58,7 +58,10 @@ For each path it:
      their twins to the bit (K3's uv within 1e-5), with the share of (warp,
      object) pairs whose full test their vote skipped, read through their
      `tested` counter in a run of its own and held equal to the count of the
-     pre-test's plain form (on cubes, a kernel that skips none fails);
+     pre-test's plain form (on cubes, a kernel that skips none fails); K2
+     and K8, the fetch with its flat-colour select as the frame calls it,
+     equal to their twin to the bit, hit colour and atlas quads alike, on a
+     frame with textured and untextured lanes;
   3. renders the last frame with the port on the CPU (the plain twins) and
      holds the card's frame to it under the parity rule (at most 0.2% of
      pixels off by more than 1e-3); blob and instances at 512x384, large at
@@ -417,12 +420,22 @@ def compare_kernels(torch, pt_mods, meta, captured, originals, names, path):
             record(name, err, fn, args, plain, (30.0 if batched else 29.0) * 32 * 1024 * chunks,
                    nbytes(*args) + (80 if batched else 76) * n)
         elif name.startswith("rpt_footprint_sample/"):
+            # the frame's form: the fetch with the flat-colour select
+            check(len(args) == 6, f"{name}: called without the flat colours")
             (got, gq), (want, wq) = fn(*args, with_quads=True), tk.footprint_fetch_plain(*args)
             check(bool(torch.equal(gq, wq)), f"{name}: the kernel read other atlas rows")
             err = float((got - want).abs().max())
-            check(err <= 1e-5, f"{name}: RGB off its twin by {err}")
+            check(same(torch, got, want), f"{name}: hit colour differs from its twin by {err}")
+            tex = args[5][args[2].long()]
+            check(bool(tex.any()) and bool((~tex).any()),
+                  f"{name}: no textured or no untextured lane")
             n = args[3].shape[1]
-            record(name, err, fn, args, tk.footprint_fetch_plain, 60.0 * n,
+            log(f"  {name}: {int(tex.sum()):,} textured and {int((~tex).sum()):,} untextured "
+                f"lanes, equal to the twin to the bit")
+            # about 150 integer and fp32 operations a lane (the address, 12
+            # channel values, the weights); the lanes' ids and uv read and
+            # RGB written once, the atlas and the object rows once
+            record(name, err, fn, args, tk.footprint_fetch_plain, 150.0 * n,
                    nbytes(*args) + 12 * n)
         elif name == "rpt_analytic_min_t":
             got, want = fn(*args), ak.analytic_min_t_plain(*args)

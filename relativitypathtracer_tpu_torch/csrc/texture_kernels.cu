@@ -1,10 +1,13 @@
-// K2 and K8: the bilinear texel fetch from the footprint atlas, one kernel.
+// K2 and K8: the bilinear texel fetch from the footprint atlas, one kernel,
+// with the renderer's flat-colour select.
 //
 // Replaces relativitypathtracer_tpu/ops/pallas/texture_kernel.py:
 // _tex_kernel (footprint_sample_small, atlases of at most 1024 rows) and
 // _tex_window_kernel (footprint_sample_windowed, larger atlases), together
-// with the XLA-side address math both take as input (_address_lanes) and the
-// renderer's per-object selection of the texture constants.
+// with the XLA-side address math both take as input (_address_lanes), the
+// renderer's per-object selection of the texture constants, and the select
+// that follows the fetch (the JAX package's render.py,
+// `jnp.where(textured, tex_rgb, flat_rgb)`).
 //
 // On the TPU both kernels fetch rows through one-hot MXU products, because
 // it has no fast gather; K8 exists only because a MID atlas does not fit in
@@ -14,27 +17,77 @@
 // atlas size, and neither the one-hot product nor the channel-split table is
 // copied.
 //
-// What bounds it on this card: per lane it reads the object id (4 B), the uv
-// (8 B) and one 16-byte footprint quad, and writes 12 bytes of RGB, with
-// about 60 integer and fp32 operations: memory-bound, about 40 B per lane.
+// What bounds it on this card: the lanes' bytes. A lane reads its object id
+// (4 B) and its uv (8 B) and writes 12 B of RGB; its 16-byte footprint quad
+// comes from an atlas that L1/L2 hold (a 512-row atlas is 16 KB, a
+// 32,768-row one 1 MB), and the per-object rows are a few hundred bytes. At
+// 786,432 lanes that is 18.9 MB, 0.0056 ms at 3.35 TB/s. The roughly 150
+// integer and fp32 operations a lane are a third of the issue rate at that
+// time, so the kernel is bound by how many bytes it keeps in flight.
 //
-// Design: one thread per lane. The per-object table (tex_w, tex_h, the six
-// footprint-region columns and the three tile_params columns; int32, O x 11)
-// is staged in dynamic shared memory sized to the table (44 B a row, so a
-// scene's few rows leave the SM's occupancy alone) when it has at most
-// kMaxStaged rows, and read from global memory otherwise (the per-lane form
-// the tests use, one row per lane). The address math is the JAX package's, in int32 with the same
+// Design. Four consecutive lanes a thread, so that every lane access is 16
+// bytes (one int4 of object ids, one float4 each of u and v, one float4 per
+// RGB channel and one int4 of quad indices) and 786,432 lanes make 768 CTAs
+// of 256 threads: one wave on 132 SMs. The lane loads are issued first; the
+// per-object rows are staged in dynamic shared memory behind them (16 ints a
+// row: tex_w, tex_h, the six footprint-region columns, the three
+// tile_params columns, the textured flag and the flat colour; sized to the
+// table, so a scene's few rows leave the occupancy alone) when the table has
+// at most kMaxStaged rows, and read from global memory otherwise (the
+// per-lane form the tests use, one row per lane). Then the four lanes'
+// addresses, and their four quad loads, which do not depend on each other.
+// A thread whose lanes pass the end of N, or a launch whose lane rows are
+// not 16-byte aligned (the v row of a (2, N) uv with N not a multiple of 4,
+// a column slice), takes the scalar form of the same code: four lanes, one
+// element at a time.
+//
+// Exactness. The address math is the JAX package's, in int32 with the same
 // clamps; the atlas's footprint quads already hold the reference's clamped
-// taps (models.scene._footprint_atlas), so no tap is re-derived. The four
-// taps are weighted as _tex_kernel weights them, with -fmad=false so each
-// product is rounded as in the plain PyTorch twin.
+// taps (models.scene._footprint_atlas), so no tap is re-derived. A channel
+// is k / 255 rounded to float32 (the twin reads the same values from a
+// table), computed as q = k * RN(1/255) corrected by one fma step: exact for
+// all 256 k, at three operations where an IEEE division takes about ten.
+// The four taps are weighted as _tex_kernel weights them, with -fmad=false
+// so each product is rounded as in the plain PyTorch twin. With the colour
+// arguments a lane whose object is untextured writes its object's flat
+// colour and loads no quad (its quad index is still written).
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kLanes = 4;         // consecutive lanes a thread
 constexpr int kCols = 11;         // TABLE_COLS
-constexpr int kMaxStaged = 1024;  // table rows staged in shared memory (at most 44 KB)
+constexpr int kRow = 16;          // ints a staged row (four int4)
+constexpr int kMaxStaged = 1024;  // table rows staged in shared memory (at most 64 KB)
+
+// A thread's kLanes consecutive elements as one access (16 bytes at 4 lanes).
+template <typename T>
+struct LaneVec {
+  alignas(sizeof(T) * kLanes) T x[kLanes];
+};
+
+template <typename T>
+__device__ __forceinline__ void load_lanes(T (&dst)[kLanes], const T* __restrict__ src) {
+  const LaneVec<T> v = *reinterpret_cast<const LaneVec<T>*>(src);
+#pragma unroll
+  for (int k = 0; k < kLanes; ++k) dst[k] = v.x[k];
+}
+
+template <typename T>
+__device__ __forceinline__ void store_lanes(T* __restrict__ dst, const T (&src)[kLanes]) {
+  LaneVec<T> v;
+#pragma unroll
+  for (int k = 0; k < kLanes; ++k) v.x[k] = src[k];
+  *reinterpret_cast<LaneVec<T>*>(dst) = v;
+}
+
+struct ObjRow {
+  int w, h, base, rx, ry, rw, rh, sm1, ss, r16;
+  bool textured;
+};
 
 __device__ __forceinline__ int interleave8(int x) {  // texture_layout._interleave8
   x = (x | (x << 4)) & 0x0F0F;
@@ -45,78 +98,211 @@ __device__ __forceinline__ int interleave8(int x) {  // texture_layout._interlea
 
 __device__ __forceinline__ int clip(int x, int lo, int hi) { return min(max(x, lo), hi); }
 
+// RN((texel >> shift & 0xFF) / 255): q = k * RN(1/255), then
+// q + (k - q * 255) * RN(1/255) with both steps fused; checked against
+// float32 k / 255 for every k (tests/test_torch_texture.py).
 __device__ __forceinline__ float channel(int texel, int shift) {
-  return static_cast<float>((texel >> shift) & 0xFF) / 255.0f;
+  constexpr float kInv255 = 1.0f / 255.0f;
+  const float k = static_cast<float>((texel >> shift) & 0xFF);
+  const float q = __fmul_rn(k, kInv255);
+  return __fmaf_rn(__fmaf_rn(-q, 255.0f, k), kInv255, q);
 }
 
-template <bool kStaged>
-__global__ void __launch_bounds__(kThreads)
-footprint_kernel(const int4* __restrict__ quads, int rq, const int* __restrict__ table,
-                 int n_table, const int* __restrict__ obj, const float* __restrict__ uv, int n,
-                 float* __restrict__ rgb, int* __restrict__ quad_out) {
-  extern __shared__ int s_tab[];  // n_table * kCols when staged, else unused
+// A lane's object row: staged (kRow ints) or from the global table.
+template <bool kStaged, bool kSelect>
+__device__ __forceinline__ ObjRow load_row(const int4* s_rows, const int* __restrict__ table,
+                                           const unsigned char* __restrict__ textured, int o) {
+  ObjRow r;
   if (kStaged) {
-    for (int e = threadIdx.x; e < n_table * kCols; e += blockDim.x) s_tab[e] = table[e];
-    __syncthreads();
+    const int4* p = s_rows + o * (kRow / 4);
+    const int4 a = p[0], b = p[1], c = p[2];
+    r.w = a.x; r.h = a.y; r.base = a.z; r.rx = a.w;
+    r.ry = b.x; r.rw = b.z; r.rh = b.w;
+    r.sm1 = c.x; r.ss = c.y; r.r16 = c.z;
+    r.textured = !kSelect || c.w != 0;
+  } else {
+    const int* c = table + static_cast<size_t>(o) * kCols;
+    r.w = c[0]; r.h = c[1]; r.base = c[2]; r.rx = c[3]; r.ry = c[4];
+    r.rw = c[6]; r.rh = c[7]; r.sm1 = c[8]; r.ss = c[9]; r.r16 = c[10];
+    r.textured = !kSelect || textured[o] != 0;
   }
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  const int* c = (kStaged ? s_tab : table) + static_cast<size_t>(obj[lane]) * kCols;
-  const int w = c[0], h = c[1];
+  return r;
+}
 
-  // _address_lanes
-  const float u = static_cast<float>(w) * uv[lane];
-  const float v = static_cast<float>(h) * (1.0f - uv[n + lane]);
-  const int x = min(static_cast<int>(floorf(u)), w - 1);
-  const int y = min(static_cast<int>(floorf(v)), h - 1);
-  const float u_ratio = u - static_cast<float>(x);
-  const float v_ratio = v - static_cast<float>(y);
-  const int x0 = clip(x, 0, w - 1);
-  const int y0 = clip(y, 0, h - 1);
-  const int lx = clip(x0 - c[3], 0, max(c[6] - 1, 0));
-  const int ly = clip(y0 - c[4], 0, max(c[7] - 1, 0));
-  // tile_slot_fast with the region constants [sm1 ss r16]
-  const int sm1 = c[8], ss = c[9], r16 = c[10];
+// Channel ch of an object's flat colour, staged or from the global table.
+template <bool kStaged>
+__device__ __forceinline__ float flat_color(const int4* s_rows, const float* __restrict__ color,
+                                            int o, int ch) {
+  if (!kStaged) return color[3 * o + ch];
+  return __int_as_float(reinterpret_cast<const int*>(s_rows)[o * kRow + kCols + 1 + ch]);
+}
+
+// _address_lanes and tile_slot_fast: the footprint quad (2 * row + hi_half)
+// of a lane, and its bilinear ratios.
+__device__ __forceinline__ int quad_index(const ObjRow& c, float uu, float vv, int rq,
+                                          float* u_ratio, float* v_ratio) {
+  const float u = static_cast<float>(c.w) * uu;
+  const float v = static_cast<float>(c.h) * (1.0f - vv);
+  const int x = min(static_cast<int>(floorf(u)), c.w - 1);
+  const int y = min(static_cast<int>(floorf(v)), c.h - 1);
+  *u_ratio = u - static_cast<float>(x);
+  *v_ratio = v - static_cast<float>(y);
+  const int x0 = clip(x, 0, c.w - 1);
+  const int y0 = clip(y, 0, c.h - 1);
+  const int lx = clip(x0 - c.rx, 0, max(c.rw - 1, 0));
+  const int ly = clip(y0 - c.ry, 0, max(c.rh - 1, 0));
   const int tx = lx >> 4, ty = ly >> 4;
-  const int m = interleave8(tx & sm1) | (interleave8(ty & sm1) << 1);
-  const int extra = ((tx * r16) >> 16) | ((ty * r16) >> 16);
-  const int slot = (extra * ss + m) * 256 + (ly & 15) * 16 + (lx & 15);
-  const int idx4 = clip((c[2] + slot) * 4, 0, rq * 8 - 4);
-  const int quad = idx4 >> 2;  // 2 * row + hi_half
+  const int m = interleave8(tx & c.sm1) | (interleave8(ty & c.sm1) << 1);
+  const int extra = ((tx * c.r16) >> 16) | ((ty * c.r16) >> 16);
+  const int slot = (extra * c.ss + m) * 256 + (ly & 15) * 16 + (lx & 15);
+  return clip((c.base + slot) * 4, 0, rq * 8 - 4) >> 2;
+}
 
-  // One 16-byte load: the lane's footprint quad (taps in reference order).
-  const int4 q = __ldg(quads + quad);
+// The reference's weighting of the four taps (taps in reference order).
+__device__ __forceinline__ float mix(int4 q, int shift, float u_ratio, float v_ratio) {
   const float u_opp = 1.0f - u_ratio;
   const float v_opp = 1.0f - v_ratio;
+  const float row1 = channel(q.x, shift) * u_opp + channel(q.y, shift) * u_ratio;
+  const float row2 = channel(q.z, shift) * u_ratio + channel(q.w, shift) * u_opp;
+  return row1 * v_opp + row2 * v_ratio;
+}
+
+template <bool kStaged, bool kSelect>
+__global__ void __launch_bounds__(kThreads)
+footprint_kernel(const int4* __restrict__ quads, int rq, const int* __restrict__ table,
+                 int n_table, const float* __restrict__ color,
+                 const unsigned char* __restrict__ textured, const int* __restrict__ obj,
+                 const float* __restrict__ u_row, const float* __restrict__ v_row, int n,
+                 bool vec, float* __restrict__ rgb, int* __restrict__ quad_out) {
+  extern __shared__ int4 s_rows[];  // n_table rows of kRow ints when staged, else unused
+  const int first = (blockIdx.x * kThreads + threadIdx.x) * kLanes;
+  const bool full = vec && first + kLanes <= n;
+
+  // The lane loads first: they do not wait for the table.
+  int o[kLanes];
+  float uu[kLanes], vv[kLanes];
+  if (full) {
+    load_lanes(o, obj + first);
+    load_lanes(uu, u_row + first);
+    load_lanes(vv, v_row + first);
+  } else {
 #pragma unroll
-  for (int ch = 0; ch < 3; ++ch) {
-    const int shift = 8 * ch;
-    const float row1 = channel(q.x, shift) * u_opp + channel(q.y, shift) * u_ratio;
-    const float row2 = channel(q.z, shift) * u_ratio + channel(q.w, shift) * u_opp;
-    rgb[static_cast<size_t>(ch) * n + lane] = row1 * v_opp + row2 * v_ratio;
+    for (int k = 0; k < kLanes; ++k) {
+      const bool in = first + k < n;
+      o[k] = in ? obj[first + k] : 0;
+      uu[k] = in ? u_row[first + k] : 0.0f;
+      vv[k] = in ? v_row[first + k] : 0.0f;
+    }
   }
-  if (quad_out != nullptr) quad_out[lane] = quad;
+
+  if (kStaged) {
+    int* s = reinterpret_cast<int*>(s_rows);
+    for (int e = threadIdx.x; e < n_table * kRow; e += kThreads) {
+      const int r = e / kRow, col = e % kRow;
+      int x = 0;
+      if (col < kCols) {
+        x = table[r * kCols + col];
+      } else if (col == kCols) {
+        x = kSelect ? static_cast<int>(textured[r] != 0) : 1;
+      } else if (kSelect && col < kCols + 4) {
+        x = __float_as_int(color[3 * r + col - kCols - 1]);
+      }
+      s[e] = x;
+    }
+    __syncthreads();
+  }
+  if (first >= n) return;
+
+  // Each lane's address, and its quad load: the four loads do not depend
+  // on each other. None for a lane past N or on an untextured object.
+  int qi[kLanes];
+  float ur[kLanes], vr[kLanes];
+  bool tex[kLanes];
+  int4 q[kLanes];
+#pragma unroll
+  for (int k = 0; k < kLanes; ++k) {
+    const ObjRow c = load_row<kStaged, kSelect>(s_rows, table, textured, o[k]);
+    qi[k] = quad_index(c, uu[k], vv[k], rq, &ur[k], &vr[k]);
+    tex[k] = c.textured;
+    q[k] = (tex[k] && first + k < n) ? __ldg(quads + qi[k]) : make_int4(0, 0, 0, 0);
+  }
+  float out[3][kLanes];
+#pragma unroll
+  for (int k = 0; k < kLanes; ++k) {
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      out[ch][k] = tex[k] ? mix(q[k], 8 * ch, ur[k], vr[k])
+                          : flat_color<kStaged>(s_rows, color, o[k], ch);
+    }
+  }
+
+  if (full) {
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) store_lanes(rgb + static_cast<size_t>(ch) * n + first, out[ch]);
+    if (quad_out != nullptr) store_lanes(quad_out + first, qi);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kLanes; ++k) {
+      if (first + k >= n) break;
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) rgb[static_cast<size_t>(ch) * n + first + k] = out[ch][k];
+      if (quad_out != nullptr) quad_out[first + k] = qi[k];
+    }
+  }
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<std::uintptr_t>(p) & 15) == 0; }
+
+template <bool kStaged, bool kSelect>
+int launch_fetch(const int4* quads, int rq, const int* table, int n_table, const float* color,
+                 const unsigned char* textured, const int* obj, const float* u,
+                 const float* v, int n, bool vec, float* rgb, int* quad_out, cudaStream_t s) {
+  const auto kernel = footprint_kernel<kStaged, kSelect>;
+  const size_t smem = kStaged ? static_cast<size_t>(n_table) * kRow * sizeof(int) : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int per_block = kThreads * kLanes;
+  kernel<<<(n + per_block - 1) / per_block, kThreads, smem, s>>>(
+      quads, rq, table, n_table, color, textured, obj, u, v, n, vec, rgb, quad_out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// color (n_table, 3) f32 and textured (n_table,) bool select each lane's
+// flat colour where its object is untextured; both null: the texel on every
+// lane. u and v are the two rows of the lanes' uv.
 extern "C" int rpt_footprint_sample(const void* quads, int rq, const void* table, int n_table,
-                                    const void* obj, const void* uv, int n, void* rgb,
+                                    const void* color, const void* textured, const void* obj,
+                                    const void* u, const void* v, int n, void* rgb,
                                     void* quad_out, void* stream) {
   if (n == 0) return 0;
-  const int blocks = (n + kThreads - 1) / kThreads;
-  const auto s = static_cast<cudaStream_t>(stream);
   const auto* q = static_cast<const int4*>(quads);
   const auto* tab = static_cast<const int*>(table);
-  if (n_table <= kMaxStaged) {
-    const size_t smem = static_cast<size_t>(n_table) * kCols * sizeof(int);
-    footprint_kernel<true><<<blocks, kThreads, smem, s>>>(
-        q, rq, tab, n_table, static_cast<const int*>(obj), static_cast<const float*>(uv), n,
-        static_cast<float*>(rgb), static_cast<int*>(quad_out));
-  } else {
-    footprint_kernel<false><<<blocks, kThreads, 0, s>>>(
-        q, rq, tab, n_table, static_cast<const int*>(obj), static_cast<const float*>(uv), n,
-        static_cast<float*>(rgb), static_cast<int*>(quad_out));
+  const auto* col = static_cast<const float*>(color);
+  const auto* tex = static_cast<const unsigned char*>(textured);
+  const auto* ob = static_cast<const int*>(obj);
+  const auto* ur = static_cast<const float*>(u);
+  const auto* vr = static_cast<const float*>(v);
+  auto* out = static_cast<float*>(rgb);
+  auto* qo = static_cast<int*>(quad_out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  // 16-byte accesses only where every lane row starts on 16 bytes (the rgb
+  // rows do when N is a multiple of 4)
+  const bool vec = aligned16(ob) && aligned16(ur) && aligned16(vr) && aligned16(out) &&
+                   aligned16(out + n) && (qo == nullptr || aligned16(qo));
+  const bool staged = n_table <= kMaxStaged;
+  if (color != nullptr) {
+    return staged ? launch_fetch<true, true>(q, rq, tab, n_table, col, tex, ob, ur, vr, n, vec,
+                                             out, qo, s)
+                  : launch_fetch<false, true>(q, rq, tab, n_table, col, tex, ob, ur, vr, n,
+                                              vec, out, qo, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return staged ? launch_fetch<true, false>(q, rq, tab, n_table, col, tex, ob, ur, vr, n, vec,
+                                            out, qo, s)
+                : launch_fetch<false, false>(q, rq, tab, n_table, col, tex, ob, ur, vr, n, vec,
+                                             out, qo, s);
 }

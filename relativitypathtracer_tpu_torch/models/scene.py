@@ -95,6 +95,7 @@ class Scene(NamedTuple):
     tex_quads: torch.Tensor  # (Rq, 8) int32 footprint atlas
     tex_fp: torch.Tensor  # (O, 6) int32 footprint regions [base rx ry wb rw rh]
     tex_table: torch.Tensor  # (O, 11) int32 footprint-fetch constants (texture_table)
+    tex_textured: torch.Tensor  # (O,) bool: tex_offset != -1, the fetch's flat-colour select
     mesh_static: tuple  # MeshStatic per mesh object (meta.mesh_ids order)
     white_point: torch.Tensor  # (3,) f32
     ambient: torch.Tensor  # () f32
@@ -387,6 +388,7 @@ def _to_device(src, device) -> Scene:
         tex_fp=tex_fp,
         # per scene, not per frame: the table is some 50 small ops
         tex_table=texture_table(objects.tex_w, objects.tex_h, tex_fp),
+        tex_textured=objects.tex_offset != -1,
         mesh_static=tuple(conv(MeshStatic, ms, {}) for ms in src.mesh_static),
         white_point=_tensor(src.white_point, device, f32),
         ambient=_tensor(src.ambient, device, f32),

@@ -44,7 +44,7 @@ _SIGNATURES = {
     "rpt_large_general_walk": "ppppppppiiiiiipp",
     "rpt_batched_shared_walk": "pppppppppiiippppppp",
     "rpt_batched_general_walk": "ppppppppppiiipp",
-    "rpt_footprint_sample": "pipippippp",
+    "rpt_footprint_sample": "pipipppppippp",
     "rpt_analytic_min_t": "piipppippp",
     "rpt_live_cull": "pipiippiiippppppp",
     "rpt_bucket_order": "ppiipppp",

@@ -19,19 +19,31 @@ launch stands for, in the launch counts.
 
 `footprint_fetch` is the renderer's form: a per-object table (O, TABLE_COLS)
 and each lane's object id, so the per-object selection happens inside the
-kernel. `footprint_sample_small` / `footprint_sample_windowed` keep the JAX
-package's per-lane signature. All launch the CUDA kernel on CUDA tensors and
-call the plain twin `footprint_fetch_plain` on CPU tensors.
+kernel; given each object's flat colour and textured flag, it also makes
+the select that follows the fetch in the renderer (the JAX package's
+`jnp.where(textured, tex_rgb, flat_rgb)`), so a lane on an untextured object
+gets its flat colour. `footprint_sample_small` / `footprint_sample_windowed`
+keep the JAX package's per-lane signature, the texel on every lane. All
+launch the CUDA kernel on CUDA tensors and call the plain twin
+`footprint_fetch_plain` on CPU tensors.
+
+A channel is k / 255 rounded to float32, which the twin reads from the
+256-entry table CHANNEL (numpy's float32 division) and the kernel computes
+exactly: a CUDA division by a Python scalar multiplies by the reciprocal,
+which is one bit off for 126 of the 256 values.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..texture_layout import TABLE_COLS, tile_params, tile_slot, tile_slot_fast
 from ._build import check_cuda, launch
 
 MAX_ROWS = 1024  # the JAX package's small-atlas (K2) limit
+# float32 k / 255 for every channel value k, correctly rounded
+CHANNEL = np.arange(256, dtype=np.float32) / np.float32(255.0)
 
 
 def texture_route(rq: int) -> str:
@@ -76,45 +88,60 @@ def _fetch_mix(quads, addr_i, addr_f):
     u_ratio, v_ratio = addr_f[0], addr_f[1]
     u_opp = 1.0 - u_ratio
     v_opp = 1.0 - v_ratio
+    channel = torch.as_tensor(CHANNEL, device=quads.device)
 
     def texel(k):
         q = quad[k]
-        rgb = torch.stack([q & 0xFF, (q >> 8) & 0xFF, (q >> 16) & 0xFF])
-        return rgb.to(torch.float32) / 255.0
+        return channel[torch.stack([q & 0xFF, (q >> 8) & 0xFF, (q >> 16) & 0xFF]).long()]
 
     row1 = texel(0) * u_opp + texel(1) * u_ratio
     row2 = texel(2) * u_ratio + texel(3) * u_opp
     return row1 * v_opp + row2 * v_ratio
 
 
-def footprint_fetch_plain(quads, table, obj, uv):
+def footprint_fetch_plain(quads, table, obj, uv, color=None, textured=None):
     """Plain twin of the kernel. Returns (rgb (3, N) f32, quad (N,) int32: the
-    footprint quad each lane read, 2 * row + hi_half)."""
-    sel = table[obj.long()].T  # (TABLE_COLS, N)
+    footprint quad each lane read, 2 * row + hi_half). With color and
+    textured, a lane whose object is untextured gets its flat colour."""
+    obj_l = obj.long()
+    sel = table[obj_l].T  # (TABLE_COLS, N)
     addr_i, addr_f = _address_lanes(quads.shape[0], sel[2:], sel[0], sel[1], uv)
-    return _fetch_mix(quads, addr_i, addr_f), addr_i[0] * 2 + addr_i[1]
+    rgb = _fetch_mix(quads, addr_i, addr_f)
+    if color is not None:
+        rgb = torch.where(textured[obj_l][None, :], rgb, color.T[:, obj_l])
+    return rgb, addr_i[0] * 2 + addr_i[1]
 
 
-def footprint_fetch(quads, table, obj, uv, with_quads: bool = False):
+def footprint_fetch(quads, table, obj, uv, color=None, textured=None, with_quads: bool = False):
     """Bilinear texel of every lane from the footprint atlas. quads: (Rq, 8)
     int32; table: (O, TABLE_COLS) int32 from texture_layout.texture_table (or
-    one row per lane); obj: (N,) int32 row of `table` per lane; uv: (2, N) f32. Returns
-    (3, N) f32 RGB, and with `with_quads` also the (N,) int32 quad index each
-    lane read. The launch counts under texture_route's route for Rq."""
+    one row per lane); obj: (N,) int32 row of `table` per lane; uv: (2, N)
+    f32, its rows may have any stride. color: (O, 3) f32 flat colours and
+    textured: (O,) bool, both or neither: with them a lane whose object is
+    untextured gets its flat colour instead of a texel. Returns (3, N) f32
+    RGB, and with `with_quads` also the (N,) int32 quad index each lane
+    read. The launch counts under texture_route's route for Rq."""
+    if (color is None) != (textured is None):
+        raise ValueError("footprint_fetch: give color and textured together")
     if uv.device.type == "cpu":
-        rgb, quad = footprint_fetch_plain(quads, table, obj, uv)
+        rgb, quad = footprint_fetch_plain(quads, table, obj, uv, color, textured)
         return (rgb, quad) if with_quads else rgb
-    uv = uv.contiguous()
-    n, rq = uv.shape[1], quads.shape[0]
-    check_cuda("footprint_fetch", (quads, torch.int32, (rq, 8)),
-               (table, torch.int32, (table.shape[0], TABLE_COLS)), (obj, torch.int32, (n,)),
-               (uv, torch.float32, (2, n)))
+    if uv.dim() != 2 or uv.stride(1) != 1:
+        uv = uv.contiguous()
+    n, rq, o = uv.shape[1], quads.shape[0], table.shape[0]
+    specs = [(quads, torch.int32, (rq, 8)), (table, torch.int32, (o, TABLE_COLS)),
+             (obj, torch.int32, (n,))]
+    if color is not None:
+        specs += [(color, torch.float32, (o, 3)), (textured, torch.bool, (o,))]
+    check_cuda("footprint_fetch", *specs, (uv, torch.float32, (2, n)), contiguous=False)
+    if not all(x.is_contiguous() for x, _, _ in specs):
+        raise ValueError("footprint_fetch: every input but uv must be contiguous")
     if quads.data_ptr() % 16:
         raise ValueError("footprint_fetch: the atlas must be 16-byte aligned")
     rgb = torch.empty((3, n), dtype=torch.float32, device=uv.device)
     quad = torch.empty(n, dtype=torch.int32, device=uv.device) if with_quads else None
-    launch("rpt_footprint_sample", quads, rq, table, table.shape[0], obj, uv, n, rgb, quad,
-           key=f"rpt_footprint_sample/{texture_route(rq)}")
+    launch("rpt_footprint_sample", quads, rq, table, o, color, textured, obj, uv[0], uv[1], n,
+           rgb, quad, key=f"rpt_footprint_sample/{texture_route(rq)}")
     return (rgb, quad) if with_quads else rgb
 
 

@@ -140,10 +140,12 @@ def scene_min_t(scene: Scene, meta: SceneMeta, L, origins4, dir3, interval: int,
     return best
 
 
-def shade(scene: Scene, meta: SceneMeta, L, inv_L, stat_cam, dirs, interval: int, perms):
+def shade(scene: Scene, meta: SceneMeta, L, inv_L, stat_cam, dirs, interval: int, perms,
+          miss):
     """Full trace of unit camera dirs (3, N): nearest hit, texel or flat
     colour and proper-time flash, ambient and emissive terms, and per light
-    the direct term behind a 4D shadow ray. Returns (color (3, N), aux) with
+    the direct term behind a 4D shadow ray; `miss` (3, 1) is the colour of a
+    lane that hits nothing. Returns (color (3, N), aux) with
     aux counts hits, shadow_rays (lanes a light's shadow ray was traced for)
     and lit_rays (those the light reached)."""
     objects = scene.objects
@@ -154,20 +156,22 @@ def shade(scene: Scene, meta: SceneMeta, L, inv_L, stat_cam, dirs, interval: int
     obj_l = obj.long()
 
     # Per-object attributes by integer gathers (the JAX package's f32
-    # one-hot select rounds tex_offset past 2^24; ROADMAP Queue 3).
-    hit_color = objects.color.T[:, obj_l]
-    if meta.textured_ids:
+    # one-hot select rounds tex_offset past 2^24; ROADMAP Queue 3). The
+    # footprint fetch (K2/K8) selects the texel or the flat colour itself.
+    if meta.textured_ids and meta.use_footprint_tex:
+        hit_color = footprint_fetch(scene.tex_quads, scene.tex_table, obj, uv, objects.color,
+                                    scene.tex_textured)
+    elif meta.textured_ids:
         tex_off = objects.tex_offset[obj_l]
-        if meta.use_footprint_tex:
-            tex_rgb = footprint_fetch(scene.tex_quads, scene.tex_table, obj, uv)
-        else:
-            tex_rgb = bilinear_sample_packed(
-                scene.textures_packed, torch.clamp(tex_off, min=0) // 3,
-                torch.clamp(objects.tex_w[obj_l], min=1),
-                torch.clamp(objects.tex_h[obj_l], min=1), uv)
-        hit_color = torch.where((tex_off != -1)[None, :], tex_rgb, hit_color)
-    # An untextured scene makes no fetch (the JAX package fetches a texel for
-    # every lane and then keeps the flat colour on every lane).
+        tex_rgb = bilinear_sample_packed(
+            scene.textures_packed, torch.clamp(tex_off, min=0) // 3,
+            torch.clamp(objects.tex_w[obj_l], min=1),
+            torch.clamp(objects.tex_h[obj_l], min=1), uv)
+        hit_color = torch.where((tex_off != -1)[None, :], tex_rgb, objects.color.T[:, obj_l])
+    else:
+        # An untextured scene makes no fetch (the JAX package fetches a texel
+        # for every lane and then keeps the flat colour on every lane).
+        hit_color = objects.color.T[:, obj_l]
     if meta.any_flash:
         period = objects.flash_period[obj_l]
         duration = objects.flash_duration[obj_l]
@@ -199,8 +203,7 @@ def shade(scene: Scene, meta: SceneMeta, L, inv_L, stat_cam, dirs, interval: int
             shadow_rays = shadow_rays + relevant.sum()
             lit_rays = lit_rays + mask.sum()
 
-    miss = torch.tensor(MISS_COLOR, device=dev)
-    color = torch.where(did_hit[None, :], color, miss[:, None])
+    color = torch.where(did_hit[None, :], color, miss)
     return color, {"hits": did_hit.sum(), "shadow_rays": shadow_rays, "lit_rays": lit_rays}
 
 
@@ -261,6 +264,7 @@ def build_render_fn(meta: SceneMeta, width: int, height: int, interval: int,
         msaa * msaa, -1, 3)
     dirs = [tile_swizzle(d.T, ph, pw).contiguous() for d in samples]
     perms = mesh_perm_tensors(meta, device)
+    miss = torch.tensor(MISS_COLOR, device=device)[:, None]  # once, not a copy a frame
 
     def render(scene: Scene, state: FrameState):
         with full_precision():
@@ -268,9 +272,9 @@ def build_render_fn(meta: SceneMeta, width: int, height: int, interval: int,
 
     def _render(scene: Scene, state: FrameState):
         L, inv_L, stat_cam = object_frames(scene.objects, state)
-        color, aux = shade(scene, meta, L, inv_L, stat_cam, dirs[0], interval, perms)
+        color, aux = shade(scene, meta, L, inv_L, stat_cam, dirs[0], interval, perms, miss)
         for d in dirs[1:]:
-            c, a = shade(scene, meta, L, inv_L, stat_cam, d, interval, perms)
+            c, a = shade(scene, meta, L, inv_L, stat_cam, d, interval, perms, miss)
             color = color + c
             aux = {k: aux[k] + a[k] for k in aux}
         if len(dirs) > 1:

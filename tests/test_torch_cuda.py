@@ -335,7 +335,7 @@ def test_card_frame_matches_cpu_frame(cuda, fixture_scene):
 def test_footprint_kernel_matches_twin(cuda, w, h):
     """K2/K8 on one region per atlas tier, the renderer's per-object form
     (three objects, one untextured): the same atlas quad on every lane, RGB
-    within 1e-5; the launch counts under the atlas's route."""
+    to the bit; the launch counts under the atlas's route."""
     from relativitypathtracer_tpu_torch.ops.kernels import texture_kernel as tk
     from relativitypathtracer_tpu_torch.ops.texture_layout import region_quads, texture_table
 
@@ -358,10 +358,98 @@ def test_footprint_kernel_matches_twin(cuda, w, h):
     assert _launches(key) == before + 1
     want, wq = tk.footprint_fetch_plain(quads, table, obj, uv)
     assert torch.equal(gq, wq)
-    assert float((got - want).abs().max()) <= 1e-5
+    assert torch.equal(got, want)
     per_lane = tk.footprint_sample_small(quads, table[obj.long(), 2:].T.contiguous(),
                                          table[obj.long(), 0], table[obj.long(), 1], uv)
     assert torch.equal(per_lane, got)
+
+
+FETCH_TIERS = {"small_K2": (32, 48), "mid_K8": (256, 256), "big": (1024, 640)}
+FETCH_N = (1, 3, 4, 1027, 200_003, 786_432)
+
+
+def _fetch_inputs(dev, w, h, n, cols=None):
+    """A random w x h footprint atlas, four objects on it (the second
+    untextured, as the renderer's scenes have them) with flat colours and
+    flags, and n lanes: (quads, table, color, textured, obj, uv), uv with
+    `cols` columns (default n), lanes at the clamp edges among them."""
+    from relativitypathtracer_tpu_torch.ops.texture_layout import region_quads, texture_table
+
+    rng = np.random.default_rng(w * 7 + n)
+    wb = -(-w // 16)
+    rows = int(region_quads(np.int64(wb), np.int64(h))) * 4 // 8
+    quads = torch.as_tensor(rng.integers(0, 2 ** 24, (rows, 8)), dtype=torch.int32, device=dev)
+    fp = torch.tensor([[0, 0, 0, wb, w, h], [0, 0, 0, 0, 0, 0], [0, 3, 2, wb, w - 5, h - 4],
+                       [0, w // 2, 0, wb, w - w // 2, h]], dtype=torch.int32, device=dev)
+    table = texture_table(torch.tensor([w, 0, w, w], dtype=torch.int32, device=dev),
+                          torch.tensor([h, 0, h, h], dtype=torch.int32, device=dev), fp)
+    color = torch.as_tensor(rng.random((4, 3)), dtype=torch.float32, device=dev)
+    textured = torch.tensor([True, False, True, True], device=dev)
+    obj = torch.as_tensor(rng.integers(0, 4, n), dtype=torch.int32, device=dev)
+    uv = torch.as_tensor(rng.random((2, cols or n)), dtype=torch.float32, device=dev)
+    uv[0, : n // 8], uv[1, n // 8: n // 4], uv[:, n // 4: n // 4 + 3] = 1.0, 0.0, 0.0
+    return quads, table, color, textured, obj, uv
+
+
+def _fetch_bit_for_bit(quads, table, color, textured, obj, uv, select):
+    """The kernel against its twin: RGB and quads to the bit, one launch
+    counted under the atlas's route, untextured lanes their flat colour."""
+    from relativitypathtracer_tpu_torch.ops.kernels import texture_kernel as tk
+
+    extra = (color, textured) if select else ()
+    key = "rpt_footprint_sample/" + tk.texture_route(quads.shape[0])
+    before = _launches(key)
+    got, gq = tk.footprint_fetch(quads, table, obj, uv, *extra, with_quads=True)
+    torch.cuda.synchronize()
+    assert _launches(key) == before + 1
+    want, wq = tk.footprint_fetch_plain(quads, table, obj, uv, *extra)
+    assert torch.equal(gq, wq)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(tk.footprint_fetch(quads, table, obj, uv, *extra), got)
+    flat = ~textured[obj.long()]
+    if select and bool(flat.any()):
+        assert torch.equal(got[:, flat], color.T[:, obj.long()[flat]])
+
+
+@pytest.mark.parametrize("select", [False, True], ids=["texel", "select"])
+@pytest.mark.parametrize("n", FETCH_N)
+@pytest.mark.parametrize("tier", list(FETCH_TIERS))
+def test_footprint_kernel_bit_for_bit(cuda, tier, n, select):
+    """K2/K8 at ragged and full-frame N on each atlas tier, with and without
+    the flat-colour select: equal to the twin to the bit, quads included
+    (N = 1, 3 and 1,027 take the scalar form, 4 and 786,432 the 16-byte
+    one, 200,003 both in one launch: aligned rows, a ragged last thread)."""
+    w, h = FETCH_TIERS[tier]
+    _fetch_bit_for_bit(*_fetch_inputs(cuda, w, h, n), select)
+
+
+@pytest.mark.parametrize("select", [False, True], ids=["texel", "select"])
+@pytest.mark.parametrize("n", (1027, 786_432))
+@pytest.mark.parametrize("tier", list(FETCH_TIERS))
+def test_footprint_kernel_misaligned_uv(cuda, tier, n, select):
+    """uv a column slice of a wider (2, N + 5) tensor, read in place: its
+    rows start 4 bytes past a 16-byte boundary, so the launch takes the
+    scalar form; equal to the twin to the bit."""
+    w, h = FETCH_TIERS[tier]
+    quads, table, color, textured, obj, wide = _fetch_inputs(cuda, w, h, n, cols=n + 5)
+    uv = wide[:, 1:n + 1]
+    assert uv.data_ptr() % 16 and not uv.is_contiguous()
+    _fetch_bit_for_bit(quads, table, color, textured, obj, uv, select)
+
+
+def test_cuda_scalar_division_is_not_exact(cuda):
+    """Why the twin reads its channel values from a table: on the card,
+    PyTorch's true division by a Python scalar multiplies by the reciprocal,
+    which misses float32 k / 255 for some k; a division by a tensor and the
+    table do not."""
+    from relativitypathtracer_tpu_torch.ops.kernels import texture_kernel as tk
+
+    k = torch.arange(256, dtype=torch.float32, device=cuda)
+    want = torch.as_tensor(tk.CHANNEL, device=cuda)
+    by_scalar = int((k / 255.0 != want).sum())
+    by_tensor = int((k / torch.full_like(k, 255.0) != want).sum())
+    print(f"k / 255.0 off on {by_scalar} of 256 values; k / tensor on {by_tensor}")
+    assert by_tensor == 0
 
 
 K7_CASES = ("mixed", "all_culled", "all_live", "grazing", "ragged", "many", "masked_garbage")

@@ -1,5 +1,6 @@
 """The port's texture path against the JAX package: PPM decoding, footprint
-addressing, the footprint fetch (K2/K8's plain twin) on every atlas tier, the
+addressing, the footprint fetch (K2/K8's plain twin) on every atlas tier,
+with and without the renderer's flat-colour select, its channel values, the
 packed-atlas route, and the routing divergence for BIG atlases.
 
 Tolerances. Addresses (atlas row and half) are integers and must be equal.
@@ -135,6 +136,118 @@ def test_per_object_table_equals_per_lane_fetch():
     assert torch.equal(got, want)
     ai, _ = ptk._address_lanes(quads.shape[0], sel[2:], sel[0], sel[1], t(uv))
     assert torch.equal(quad, ai[0] * 2 + ai[1])
+
+
+def _mixed_objects(rng, w, h, n):
+    """Four objects on one w x h atlas region, one of them untextured (as
+    the renderer's scenes have them: zero region, sizes 0), with random flat
+    colours, and n lanes on them. Returns numpy (tex_w, tex_h, tex_fp,
+    color, textured, obj)."""
+    wb = -(-w // 16)
+    tex_fp = np.array([[0, 0, 0, wb, w, h], [0, 0, 0, 0, 0, 0], [0, 3, 5, wb, w - 7, h - 9],
+                       [0, w // 2, 0, wb, w - w // 2, h]], np.int32)
+    tex_w = np.array([w, 0, w, w], np.int32)
+    tex_h = np.array([h, 0, h, h], np.int32)
+    color = rng.random((4, 3)).astype(np.float32)
+    textured = np.array([True, False, True, True])
+    obj = rng.integers(0, 4, n).astype(np.int32)
+    return tex_w, tex_h, tex_fp, color, textured, obj
+
+
+@pytest.mark.parametrize("tier", ["small", "windowed"])
+def test_footprint_select_matches_jax_frame_select(tier):
+    """The fetch with the flat-colour select (K2/K8's twin, the renderer's
+    form) against the JAX frame's `jnp.where(textured, tex_rgb, flat_rgb)`
+    over its per-lane kernel in interpret mode, on a scene that mixes
+    textured and untextured objects: texels within 1e-5, flat colours
+    exact."""
+    w, h = (32, 48) if tier == "small" else (224, 240)
+    quads, _, _, _, uv = _atlas_inputs(30 + w, w, h, 4096)
+    rng = np.random.default_rng(w)
+    tex_w, tex_h, tex_fp, color, textured, obj = _mixed_objects(rng, w, h, 4096)
+    fp, wa, ha = tex_fp[obj].T.copy(), tex_w[obj], tex_h[obj]
+    sample = jtk.footprint_sample_small if tier == "small" else jtk.footprint_sample_windowed
+    assert ptk.texture_route(quads.shape[0]) == tier
+    tex_rgb = sample(jnp.asarray(quads), jnp.asarray(fp), jnp.asarray(wa), jnp.asarray(ha),
+                     jnp.asarray(uv), interpret=True)
+    want = np.asarray(jnp.where(jnp.asarray(textured[obj])[None, :], tex_rgb,
+                                jnp.asarray(color[obj].T)))
+    table = ptl.texture_table(t(tex_w), t(tex_h), t(tex_fp))
+    got = ptk.footprint_fetch(t(quads.astype(np.int32)), table, t(obj), t(uv), t(color),
+                              t(textured)).numpy()
+    flat = ~textured[obj]
+    assert flat.any() and (~flat).any()
+    assert np.array_equal(got[:, flat], color[obj[flat]].T)
+    assert np.abs(got - want).max() < 1e-5
+    plain = ptk.footprint_fetch(t(quads.astype(np.int32)), table, t(obj), t(uv)).numpy()
+    assert np.array_equal(got[:, ~flat], plain[:, ~flat])
+
+
+def test_twin_channel_values_equal_numpy_division():
+    """Each of the 256 channel values the twin weights equals numpy's
+    float32 k / 255 (a texel read at ratios 0 is its first tap's channels)."""
+    k = np.arange(256, dtype=np.int64)
+    quads = np.zeros((128, 8), np.int64)
+    quads.reshape(-1, 4)[:, 0] = k | ((255 - k) << 8) | (((k * 7) % 256) << 16)
+    addr_i = t(np.stack([k // 2, k % 2]).astype(np.int32))
+    rgb = ptk._fetch_mix(t(quads.astype(np.int32)), addr_i, torch.zeros((2, 256))).numpy()
+    want = np.float32(255.0)
+    assert np.array_equal(ptk.CHANNEL, k.astype(np.float32) / want)
+    for ch, vals in enumerate((k, 255 - k, (k * 7) % 256)):
+        assert np.array_equal(rgb[ch], vals.astype(np.float32) / want)
+
+
+def _round_f32(x) -> np.float32:
+    """An exact rational rounded to the nearest float32, ties to even."""
+    from fractions import Fraction
+
+    if x == 0:
+        return np.float32(0.0)
+    f = np.float32(float(x))
+    cands = (np.nextafter(f, np.float32(-np.inf)), f, np.nextafter(f, np.float32(np.inf)))
+    return min(cands, key=lambda c: (abs(Fraction(float(c)) - x), int(c.view(np.uint32)) & 1))
+
+
+def test_kernel_channel_formula_is_exact():
+    """The CUDA kernel's channel (csrc/texture_kernels.cu `channel`):
+    q = k * RN(1/255), then fma(fma(-q, 255, k), RN(1/255), q), each step
+    rounded once, evaluated here in exact rationals, equals float32 k / 255
+    for every k; the product alone does not."""
+    from fractions import Fraction as F
+
+    inv = F(float(np.float32(1.0) / np.float32(255.0)))
+    off = 0
+    for k in range(256):
+        q = F(float(_round_f32(k * inv)))
+        r = F(float(_round_f32(k - q * 255)))
+        got = _round_f32(q + r * inv)
+        assert got == ptk.CHANNEL[k], k
+        off += float(q) != ptk.CHANNEL[k]
+    assert off > 0
+
+
+def test_scene_textured_flags_follow_tex_offset(tmp_path):
+    """The fetch's per-object textured flag, made once per scene, is
+    tex_offset != -1 through build_scene and scene_from_numpy alike."""
+    import jax
+    from PIL import Image
+
+    from relativitypathtracer_tpu import build_scene as jbuild
+    from relativitypathtracer_tpu.models.dsl import parse_scene as jparse
+    import relativitypathtracer_tpu_torch as pt
+
+    rng = np.random.default_rng(22)
+    Image.fromarray(rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)).save(tmp_path / "a.png")
+    text = ("Ta.png\nOs\n p0,0,5,0,0,1,0,1,1,1\n t0\nOc\n p2,0,6,0.3,0,1,0,1,1,1\n"
+            "Oc\n p-2,0,6,0,0,1,0,1,1,1\n t0\nR\n")
+    js, _ = jbuild(jparse(text, str(tmp_path)))
+    want = np.asarray(js.objects.tex_offset) != -1
+    assert want.tolist() == [True, False, True]
+    ps, _ = pt.build_scene(pt.parse_scene(text, str(tmp_path)), device="cpu")
+    carried = pt.scene_from_numpy(jax.tree.map(np.asarray, js), device="cpu")
+    for scene in (ps, carried):
+        assert scene.tex_textured.dtype == torch.bool
+        assert np.array_equal(scene.tex_textured.numpy(), want)
 
 
 def test_packed_sample_matches_jax():
