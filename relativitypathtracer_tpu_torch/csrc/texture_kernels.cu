@@ -21,25 +21,23 @@
 // (4 B) and its uv (8 B) and writes 12 B of RGB; its 16-byte footprint quad
 // comes from an atlas that L1/L2 hold (a 512-row atlas is 16 KB, a
 // 32,768-row one 1 MB), and the per-object rows are a few hundred bytes. At
-// 786,432 lanes that is 18.9 MB, 0.0056 ms at 3.35 TB/s. The roughly 150
-// integer and fp32 operations a lane are a third of the issue rate at that
-// time, so the kernel is bound by how many bytes it keeps in flight.
+// 786,432 lanes that is 18.9 MB: 0.0056 ms at 3.35 TB/s, and a PyTorch copy
+// of the same bytes takes about 0.0065 ms on an H100. About 150 integer and
+// fp32 operations a lane, 0.0018 ms at the fp32 rate; the twelve IEEE
+// divisions by 255 that the kernel made before added about 120, and with
+// them it ran at half its bound (PERF.md, section 6).
 //
-// Design. Four consecutive lanes a thread, so that every lane access is 16
-// bytes (one int4 of object ids, one float4 each of u and v, one float4 per
-// RGB channel and one int4 of quad indices) and 786,432 lanes make 768 CTAs
-// of 256 threads: one wave on 132 SMs. The lane loads are issued first; the
-// per-object rows are staged in dynamic shared memory behind them (16 ints a
-// row: tex_w, tex_h, the six footprint-region columns, the three
+// Design. One thread a lane, 256 a CTA. The lane loads are issued first;
+// the per-object rows are staged in dynamic shared memory behind them (16
+// ints a row: tex_w, tex_h, the six footprint-region columns, the three
 // tile_params columns, the textured flag and the flat colour; sized to the
-// table, so a scene's few rows leave the occupancy alone) when the table has
-// at most kMaxStaged rows, and read from global memory otherwise (the
-// per-lane form the tests use, one row per lane). Then the four lanes'
-// addresses, and their four quad loads, which do not depend on each other.
-// A thread whose lanes pass the end of N, or a launch whose lane rows are
-// not 16-byte aligned (the v row of a (2, N) uv with N not a multiple of 4,
-// a column slice), takes the scalar form of the same code: four lanes, one
-// element at a time.
+// table, so a scene's few rows leave the occupancy alone) when the table
+// has at most kMaxStaged rows, and read from global memory otherwise (the
+// per-lane form the tests use, one row per lane). A row is three 16-byte
+// shared loads. Then the address and one 16-byte quad load, which a lane
+// on an untextured object skips (most of the cubes' lanes hit the
+// untextured floor). Four and two lanes a thread, with 16- and 8-byte lane
+// accesses, were no faster than one (PERF.md, section 6).
 //
 // Exactness. The address math is the JAX package's, in int32 with the same
 // clamps; the atlas's footprint quads already hold the reference's clamped
@@ -50,39 +48,15 @@
 // The four taps are weighted as _tex_kernel weights them, with -fmad=false
 // so each product is rounded as in the plain PyTorch twin. With the colour
 // arguments a lane whose object is untextured writes its object's flat
-// colour and loads no quad (its quad index is still written).
-#include <cstdint>
-
+// colour (its quad index is still written).
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kLanes = 4;         // consecutive lanes a thread
 constexpr int kCols = 11;         // TABLE_COLS
 constexpr int kRow = 16;          // ints a staged row (four int4)
 constexpr int kMaxStaged = 1024;  // table rows staged in shared memory (at most 64 KB)
-
-// A thread's kLanes consecutive elements as one access (16 bytes at 4 lanes).
-template <typename T>
-struct LaneVec {
-  alignas(sizeof(T) * kLanes) T x[kLanes];
-};
-
-template <typename T>
-__device__ __forceinline__ void load_lanes(T (&dst)[kLanes], const T* __restrict__ src) {
-  const LaneVec<T> v = *reinterpret_cast<const LaneVec<T>*>(src);
-#pragma unroll
-  for (int k = 0; k < kLanes; ++k) dst[k] = v.x[k];
-}
-
-template <typename T>
-__device__ __forceinline__ void store_lanes(T* __restrict__ dst, const T (&src)[kLanes]) {
-  LaneVec<T> v;
-#pragma unroll
-  for (int k = 0; k < kLanes; ++k) v.x[k] = src[k];
-  *reinterpret_cast<LaneVec<T>*>(dst) = v;
-}
 
 struct ObjRow {
   int w, h, base, rx, ry, rw, rh, sm1, ss, r16;
@@ -173,28 +147,18 @@ footprint_kernel(const int4* __restrict__ quads, int rq, const int* __restrict__
                  int n_table, const float* __restrict__ color,
                  const unsigned char* __restrict__ textured, const int* __restrict__ obj,
                  const float* __restrict__ u_row, const float* __restrict__ v_row, int n,
-                 bool vec, float* __restrict__ rgb, int* __restrict__ quad_out) {
+                 float* __restrict__ rgb, int* __restrict__ quad_out) {
   extern __shared__ int4 s_rows[];  // n_table rows of kRow ints when staged, else unused
-  const int first = (blockIdx.x * kThreads + threadIdx.x) * kLanes;
-  const bool full = vec && first + kLanes <= n;
+  const int lane = blockIdx.x * kThreads + threadIdx.x;
 
   // The lane loads first: they do not wait for the table.
-  int o[kLanes];
-  float uu[kLanes], vv[kLanes];
-  if (full) {
-    load_lanes(o, obj + first);
-    load_lanes(uu, u_row + first);
-    load_lanes(vv, v_row + first);
-  } else {
-#pragma unroll
-    for (int k = 0; k < kLanes; ++k) {
-      const bool in = first + k < n;
-      o[k] = in ? obj[first + k] : 0;
-      uu[k] = in ? u_row[first + k] : 0.0f;
-      vv[k] = in ? v_row[first + k] : 0.0f;
-    }
+  int o = 0;
+  float uu = 0.0f, vv = 0.0f;
+  if (lane < n) {
+    o = obj[lane];
+    uu = u_row[lane];
+    vv = v_row[lane];
   }
-
   if (kStaged) {
     int* s = reinterpret_cast<int*>(s_rows);
     for (int e = threadIdx.x; e < n_table * kRow; e += kThreads) {
@@ -211,52 +175,29 @@ footprint_kernel(const int4* __restrict__ quads, int rq, const int* __restrict__
     }
     __syncthreads();
   }
-  if (first >= n) return;
+  if (lane >= n) return;
 
-  // Each lane's address, and its quad load: the four loads do not depend
-  // on each other. None for a lane past N or on an untextured object.
-  int qi[kLanes];
-  float ur[kLanes], vr[kLanes];
-  bool tex[kLanes];
-  int4 q[kLanes];
+  const ObjRow c = load_row<kStaged, kSelect>(s_rows, table, textured, o);
+  float ur, vr;
+  const int qi = quad_index(c, uu, vv, rq, &ur, &vr);
+  // One 16-byte load, none on an untextured object: the lane's footprint quad.
+  if (c.textured) {
+    const int4 q = __ldg(quads + qi);
 #pragma unroll
-  for (int k = 0; k < kLanes; ++k) {
-    const ObjRow c = load_row<kStaged, kSelect>(s_rows, table, textured, o[k]);
-    qi[k] = quad_index(c, uu[k], vv[k], rq, &ur[k], &vr[k]);
-    tex[k] = c.textured;
-    q[k] = (tex[k] && first + k < n) ? __ldg(quads + qi[k]) : make_int4(0, 0, 0, 0);
-  }
-  float out[3][kLanes];
-#pragma unroll
-  for (int k = 0; k < kLanes; ++k) {
-#pragma unroll
-    for (int ch = 0; ch < 3; ++ch) {
-      out[ch][k] = tex[k] ? mix(q[k], 8 * ch, ur[k], vr[k])
-                          : flat_color<kStaged>(s_rows, color, o[k], ch);
-    }
-  }
-
-  if (full) {
-#pragma unroll
-    for (int ch = 0; ch < 3; ++ch) store_lanes(rgb + static_cast<size_t>(ch) * n + first, out[ch]);
-    if (quad_out != nullptr) store_lanes(quad_out + first, qi);
+    for (int ch = 0; ch < 3; ++ch) rgb[static_cast<size_t>(ch) * n + lane] = mix(q, 8 * ch, ur, vr);
   } else {
 #pragma unroll
-    for (int k = 0; k < kLanes; ++k) {
-      if (first + k >= n) break;
-#pragma unroll
-      for (int ch = 0; ch < 3; ++ch) rgb[static_cast<size_t>(ch) * n + first + k] = out[ch][k];
-      if (quad_out != nullptr) quad_out[first + k] = qi[k];
+    for (int ch = 0; ch < 3; ++ch) {
+      rgb[static_cast<size_t>(ch) * n + lane] = flat_color<kStaged>(s_rows, color, o, ch);
     }
   }
+  if (quad_out != nullptr) quad_out[lane] = qi;
 }
-
-bool aligned16(const void* p) { return (reinterpret_cast<std::uintptr_t>(p) & 15) == 0; }
 
 template <bool kStaged, bool kSelect>
 int launch_fetch(const int4* quads, int rq, const int* table, int n_table, const float* color,
                  const unsigned char* textured, const int* obj, const float* u,
-                 const float* v, int n, bool vec, float* rgb, int* quad_out, cudaStream_t s) {
+                 const float* v, int n, float* rgb, int* quad_out, cudaStream_t s) {
   const auto kernel = footprint_kernel<kStaged, kSelect>;
   const size_t smem = kStaged ? static_cast<size_t>(n_table) * kRow * sizeof(int) : 0;
   if (smem > 48 * 1024) {
@@ -264,9 +205,8 @@ int launch_fetch(const int4* quads, int rq, const int* table, int n_table, const
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const int per_block = kThreads * kLanes;
-  kernel<<<(n + per_block - 1) / per_block, kThreads, smem, s>>>(
-      quads, rq, table, n_table, color, textured, obj, u, v, n, vec, rgb, quad_out);
+  kernel<<<(n + kThreads - 1) / kThreads, kThreads, smem, s>>>(
+      quads, rq, table, n_table, color, textured, obj, u, v, n, rgb, quad_out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -290,19 +230,15 @@ extern "C" int rpt_footprint_sample(const void* quads, int rq, const void* table
   auto* out = static_cast<float*>(rgb);
   auto* qo = static_cast<int*>(quad_out);
   const auto s = static_cast<cudaStream_t>(stream);
-  // 16-byte accesses only where every lane row starts on 16 bytes (the rgb
-  // rows do when N is a multiple of 4)
-  const bool vec = aligned16(ob) && aligned16(ur) && aligned16(vr) && aligned16(out) &&
-                   aligned16(out + n) && (qo == nullptr || aligned16(qo));
   const bool staged = n_table <= kMaxStaged;
   if (color != nullptr) {
-    return staged ? launch_fetch<true, true>(q, rq, tab, n_table, col, tex, ob, ur, vr, n, vec,
-                                             out, qo, s)
+    return staged ? launch_fetch<true, true>(q, rq, tab, n_table, col, tex, ob, ur, vr, n, out,
+                                             qo, s)
                   : launch_fetch<false, true>(q, rq, tab, n_table, col, tex, ob, ur, vr, n,
-                                              vec, out, qo, s);
+                                              out, qo, s);
   }
-  return staged ? launch_fetch<true, false>(q, rq, tab, n_table, col, tex, ob, ur, vr, n, vec,
-                                            out, qo, s)
-                : launch_fetch<false, false>(q, rq, tab, n_table, col, tex, ob, ur, vr, n, vec,
-                                             out, qo, s);
+  return staged ? launch_fetch<true, false>(q, rq, tab, n_table, col, tex, ob, ur, vr, n, out,
+                                            qo, s)
+                : launch_fetch<false, false>(q, rq, tab, n_table, col, tex, ob, ur, vr, n, out,
+                                             qo, s);
 }

@@ -417,8 +417,8 @@ def _fetch_bit_for_bit(quads, table, color, textured, obj, uv, select):
 def test_footprint_kernel_bit_for_bit(cuda, tier, n, select):
     """K2/K8 at ragged and full-frame N on each atlas tier, with and without
     the flat-colour select: equal to the twin to the bit, quads included
-    (N = 1, 3 and 1,027 take the scalar form, 4 and 786,432 the 16-byte
-    one, 200,003 both in one launch: aligned rows, a ragged last thread)."""
+    (N = 1, 3, 4 and 1,027 end inside a CTA, 786,432 fills 3,072 of them,
+    200,003 ends in a part-filled one)."""
     w, h = FETCH_TIERS[tier]
     _fetch_bit_for_bit(*_fetch_inputs(cuda, w, h, n), select)
 
@@ -427,9 +427,9 @@ def test_footprint_kernel_bit_for_bit(cuda, tier, n, select):
 @pytest.mark.parametrize("n", (1027, 786_432))
 @pytest.mark.parametrize("tier", list(FETCH_TIERS))
 def test_footprint_kernel_misaligned_uv(cuda, tier, n, select):
-    """uv a column slice of a wider (2, N + 5) tensor, read in place: its
-    rows start 4 bytes past a 16-byte boundary, so the launch takes the
-    scalar form; equal to the twin to the bit."""
+    """uv a column slice of a wider (2, N + 5) tensor, read in place through
+    its row stride, its rows 4 bytes past a 16-byte boundary: equal to the
+    twin to the bit."""
     w, h = FETCH_TIERS[tier]
     quads, table, color, textured, obj, wide = _fetch_inputs(cuda, w, h, n, cols=n + 5)
     uv = wide[:, 1:n + 1]

@@ -158,16 +158,18 @@ def test_packed_route_matches_jax(request, kind):
 
 def test_textured_objects_wait_for_k2(textured, monkeypatch):
     """Textured objects, once refused, now take the footprint fetch (K2's
-    route) with the per-object table, and the result reaches the frame."""
+    route) with the per-object table and, for its flat-colour select, the
+    objects' colours and textured flags, and the result reaches the frame."""
     from relativitypathtracer_tpu_torch.ops.kernels import texture_kernel as ptk
 
     _, (ps, pm) = textured
     calls = []
     real = prender.footprint_fetch
 
-    def spy(quads, table, obj, uv):
+    def spy(quads, table, obj, uv, color, textured):
         calls.append((ptk.texture_route(quads.shape[0]), tuple(table.shape)))
-        return real(quads, table, obj, uv)
+        assert color is ps.objects.color and textured is ps.tex_textured
+        return real(quads, table, obj, uv, color, textured)
 
     monkeypatch.setattr(prender, "footprint_fetch", spy)
     base, _ = port_frame(ps, pm, STATES["rest"], (32, 32))
