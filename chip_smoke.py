@@ -68,9 +68,31 @@ For each path it:
      256x192, the others at 1024x768;
   4. times the frame (p50/p95 over 60 frames after 5 warm-up frames, CUDA
      events) and reports Mrays/s counting primary plus shadow rays.
-Last, it renders the textured path at msaa 2, 512x384, and holds it to its
-CPU frame. It prints the kernels' JSON line, the card's name and power limit,
-and as its last line {"ok": true, "device": {...}}. Any failed check raises.
+  5. oracle: writes the scene blob (utils/scene_blob) of the card's scene at
+     the timed state, renders it with the C++ oracle, compiled from
+     native/cpu_reference.cpp into build/oracle/ (utils/parity), and holds
+     the card's 1024x768 frame to the oracle's image under the parity rule;
+     prints frac_bad, mean_diff and the oracle's p50 ms and threads on the
+     card host's CPU.
+Then it renders the textured path at msaa 2, 512x384, and holds it to its
+CPU frame, and runs two more phases on the textured fixture:
+  viewer  ViewerCore at 960x540 (the reference's window) through a scripted
+          timeline 15 ms apart (idle and paused; 'w' held 10 frames; space;
+          'i'; resizes to 1024x768, which grows the pad, and to 640x480,
+          which does not; 'r'): each frame's shape and dtype, the sim state
+          against a host replay of utils/framestate.step, five frames to the
+          bit against build_render_fn(out_uint8=True) of the current state,
+          one 256x192 frame against the CPU's ViewerCore on the same
+          timeline, a stream_scale 2 frame against host pooling, and the
+          launches of one frame (the textured path's kernels, no other);
+          prints the wall ms of frame() (p50, p95 over 60 frames, 'w' held)
+          and the host ms of step();
+  octree  the octree walk (ops/octree_traverse) of a 16,384-ray fan from the
+          camera over the mesh on the card: converged, against the K5 route
+          (mesh_intersect_shared) and against the same walk on the CPU;
+          prints its iterations and ms.
+It prints the kernels' JSON line, the card's name and power limit, and as its
+last line {"ok": true, "device": {...}}. Any failed check raises.
 """
 
 from __future__ import annotations
@@ -94,6 +116,8 @@ L2_BYTES = 50 * 2**20  # H100 L2
 # constants), and the rest of the full test on each lane of a tested warp
 K3_PRETEST_OPS, K3_TEST_OPS = 40.0, 60.0
 K7_PRETEST_OPS, K7_TEST_OPS = 70.0, 55.0
+VIEWER_SIZE = (960, 540)  # the reference's window and the viewer CLI's default
+VIEWER_GROW, VIEWER_SHRINK = (1024, 768), (640, 480)  # grows the pad; fits in it
 PKG = "relativitypathtracer_tpu_torch/csrc/"
 TPU = "relativitypathtracer_tpu/ops/pallas/"
 K4_TPU = TPU + "mesh_kernels.py:389 (XLA)"
@@ -606,23 +630,205 @@ def parity(torch, pt, host, state, card_img, card_aux, size, msaa=1):
 
 
 def frame_time(torch, render, scene, state, card):
+    from relativitypathtracer_tpu_torch.utils.timing import cuda_frame_times_ms
+
     torch.cuda.reset_peak_memory_stats()  # the peak below is this path's frames'
-    for _ in range(5):
-        render(scene, state)
-    times = []
-    for _ in range(60):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        _, aux = render(scene, state)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    times.sort()
+    times = cuda_frame_times_ms(render, scene, state, frames=60, warmup=5)
+    _, aux = render(scene, state)
     p50, p95 = times[len(times) // 2], times[int(0.95 * (len(times) - 1))]
     rays = WIDTH * HEIGHT + int(aux["shadow_rays"])
     log(f"  frame {WIDTH}x{HEIGHT} on {card}: p50 {p50:.3f} ms, p95 {p95:.3f} ms, "
         f"{rays / (p50 * 1e3):.2f} Mrays/s ({rays} rays: primary + {int(aux['shadow_rays'])}"
         f" shadow), peak memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+
+
+def oracle_check(torch, path, scene, meta, state, card_img, card):
+    """The card's 1024x768 frame of `state` against the C++ oracle's image of
+    the port's scene blob at that state (utils/parity: the oracle compiled
+    from native/cpu_reference.cpp into build/oracle/), under the parity
+    rule; the oracle's p50 over 3 frames, on the card host's CPU."""
+    from relativitypathtracer_tpu_torch.utils import parity as par
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ref, stats = par.run_oracle(scene, meta, state, WIDTH, HEIGHT, tmp, path, -1, frames=3)
+    res = par.compare(card_img.cpu().numpy(), ref)
+    log(f"  oracle on {path} at {WIDTH}x{HEIGHT}: frac_bad {res['frac_bad']:.6f}, mean_diff "
+        f"{res['mean_diff']:.3e} (card {card}); the oracle p50 {stats['p50_ms']:.1f} ms on the "
+        f"card host's CPU ({stats['threads']} threads), {time.perf_counter() - t0:.1f} s with "
+        f"the blob")
+    check(res["ok"], f"{path}: card frame off the oracle on {res['frac_bad']:.4%} of pixels")
+
+
+def viewer_phase(torch, pt, host, dev, card, static_launches, static_frames):
+    """ViewerCore on the textured fixture at 960x540 through a scripted
+    timeline with synthetic times 15 ms apart; see the module docstring.
+    One frame's launches must equal a static frame's on the same path:
+    static_launches over static_frames frames."""
+    import numpy as np
+
+    from relativitypathtracer_tpu_torch.ops.kernels import _build
+    from relativitypathtracer_tpu_torch.render import TILE, _round_up
+    from relativitypathtracer_tpu_torch.utils.framestate import SimState, step
+    from relativitypathtracer_tpu_torch.utils.timing import percentile
+    from relativitypathtracer_tpu_torch.viewer import KEY_CHARS, ViewerCore
+
+    (vw, vh), grow = VIEWER_SIZE, VIEWER_GROW
+    t0 = time.perf_counter()
+    core = ViewerCore(host, vw, vh, device=dev)
+    check(not core.stats()["compiling"] and len(core._renders) == 2,
+          f"viewer: renderers after start-up {list(core._renders)}")
+    log(f"  viewer: ViewerCore {vw}x{vh} built and warmed in {time.perf_counter() - t0:.1f} s, "
+        f"renderers {list(core._renders)}")
+
+    def static(c):
+        st = pt.FrameState(c.sim.frame.cam_velocity.to(dev), c.sim.frame.cam_pos.to(dev))
+        return pt.build_render_fn(c.meta, c.width, c.height, c.sim.interval, out_uint8=True,
+                                  device=dev)(c.scene, st).cpu().numpy()[::-1]
+
+    # (held keys, resize request, marked): marked frames are held to the
+    # static renderer of the current state to the bit
+    timeline = ([(set(), None, False), (set(), None, True)]
+                + [({"w"}, None, k == 9) for k in range(10)]
+                + [({" "}, None, False), (set(), None, False), (set(), None, False)]
+                + [({"i"}, None, True)]
+                + [(set(), VIEWER_GROW, True), (set(), VIEWER_SHRINK, True)]
+                + [({"r"}, None, False)])
+    replay = SimState.initial(core.meta.default_interval, device="cpu")
+    prev_t, speeds, marked = None, [], 0
+    for n, (keys, resize, mark) in enumerate(timeline):
+        now = n * 0.015
+        if resize is not None:
+            core.request_resize(*resize)
+        if n == 5:  # one frame's launches, 'w' held, interval -1
+            torch.cuda.synchronize()
+            _build.LAUNCHES.clear()
+        img = core.frame(keys, now_s=now)
+        if n == 5:
+            launches = dict(_build.LAUNCHES)
+            per_frame = {k: v / static_frames for k, v in static_launches.items()}
+            check(launches == per_frame,
+                  f"viewer frame launches {launches}, a static frame's {per_frame}")
+            log(f"  viewer: one frame's launches {launches}")
+        frame_ms = 0.0 if prev_t is None else max(0.0, (now - prev_t) * 1e3)
+        prev_t = now
+        replay = step(replay, [c in keys for c in KEY_CHARS], frame_ms)
+        for got, want in ((core.sim.frame.cam_velocity, replay.frame.cam_velocity),
+                          (core.sim.frame.cam_pos, replay.frame.cam_pos)):
+            check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                  f"viewer frame {n}: sim state off the host replay")
+        check((core.sim.paused, core.sim.interval) == (replay.paused, replay.interval),
+              f"viewer frame {n}: toggles off the host replay")
+        check(img.shape == (core.height, core.width, 3) and img.dtype == np.uint8,
+              f"viewer frame {n}: {img.shape} {img.dtype}")
+        speeds.append(float(np.linalg.norm(core.sim.frame.cam_velocity.numpy())))
+        if mark:
+            check(np.array_equal(img, static(core)),
+                  f"viewer frame {n}: not the static renderer's frame of its state")
+            marked += 1
+        if n == 12:
+            t_space = float(core.sim.frame.cam_pos[0])
+    pos = [float(x) for x in core.sim.frame.cam_pos]
+    check(marked == 5, "viewer: five marked frames")
+    check(pos[0] > t_space, f"viewer: time {pos[0]} did not advance after space")
+    check(all(b > a for a, b in zip(speeds[1:12], speeds[2:12])), f"speed {speeds[1:12]}")
+    check(core.sim.interval == 0 and not core.sim.paused and speeds[-1] == 0.0,
+          f"viewer end state {core.stats()}")
+    check(core._pad == (_round_up(grow[1], TILE), _round_up(grow[0], TILE))
+          and (core.width, core.height) == VIEWER_SHRINK
+          and len(core._renders) == 3, f"viewer pad {core._pad}, {list(core._renders)}")
+    log(f"  viewer: {len(timeline)} frames of the timeline, sim state equal to the host "
+        f"replay, 5 frames equal to the static renderer's to the bit; speed "
+        f"{speeds[2]:.4f} -> {speeds[11]:.4f}c, time {pos[0]:.3f} s, pad {core._pad}")
+
+    # one frame against the CPU's ViewerCore at 256x192 on the same timeline
+    short = [(set(), 0.0), ({"w"}, 0.015), ({"w", " "}, 0.030), ({"w"}, 0.045)]
+    small, cpu = ViewerCore(host, 256, 192, device=dev), ViewerCore(host, 256, 192, device="cpu")
+    for keys, now in short:
+        a, b = small.frame(keys, now_s=now), cpu.frame(keys, now_s=now)
+    off = float((np.abs(a.astype(np.int16) - b.astype(np.int16)).max(axis=-1) > 1).mean())
+    log(f"  viewer: 256x192 frame against the CPU's ViewerCore: {off:.4%} of pixels off by "
+        f"more than 1 lsb")
+    check(off <= 0.002, "viewer: card frame off the CPU's")
+
+    # stream_scale 2 against host pooling of the static frame
+    pooled = ViewerCore(host, vw, vh, stream_scale=2, device=dev)
+    b = pooled.frame(set(), now_s=0.0).astype(np.float32)
+    full = static(pooled).astype(np.float32).reshape(vh // 2, 2, vw // 2, 2, 3).mean((1, 3))
+    err = float(np.abs(full - b).max())
+    check(b.shape == (vh // 2, vw // 2, 3) and err <= 1.5, f"stream_scale 2: {b.shape}, {err} lsb")
+    log(f"  viewer: stream_scale 2 frame {b.shape}, within {err} lsb of host pooling")
+
+    # wall ms of frame() at the window's size, interval -1, 'w' held
+    core, walls = ViewerCore(host, vw, vh, device=dev), []
+    for n in range(65):
+        t0 = time.perf_counter()
+        core.frame({"w"}, now_s=n * 0.015)
+        if n >= 5:
+            walls.append((time.perf_counter() - t0) * 1e3)
+    walls.sort()
+    sim, steps = SimState.initial(-1, device="cpu"), []
+    for n in range(1000):
+        t0 = time.perf_counter()
+        sim = step(sim, [n % 3 == 0] + [False] * 8, 15.0)
+        steps.append((time.perf_counter() - t0) * 1e3)
+    steps.sort()
+    log(f"  viewer: frame() wall at {core.width}x{core.height} on {card}: p50 "
+        f"{percentile(walls, 50):.3f} ms, p95 {percentile(walls, 95):.3f} ms (60 frames, "
+        f"'w' held; render, fetch, crop); step() on the host p50 {percentile(steps, 50):.4f} ms")
+
+
+def octree_phase(torch, pt, host, dev, card):
+    """The octree walk of a 16,384-ray fan from the camera over the textured
+    fixture's mesh on the card: converged; against the K5 route, the same
+    hit/miss on at least 99.9% of rays and t within a relative 1e-4 where
+    both hit; against the same walk on the CPU, the same hit/miss and t
+    within a relative 1e-6."""
+    import numpy as np
+
+    from relativitypathtracer_tpu_torch.ops.kernels import _build
+    from relativitypathtracer_tpu_torch.ops.mesh_intersect import mesh_intersect_shared
+    from relativitypathtracer_tpu_torch.ops.octree_traverse import octree_intersect
+    from relativitypathtracer_tpu_torch.render import mesh_perm_tensors
+
+    rng = np.random.default_rng(11)
+    d = rng.uniform(-0.35, 0.35, (3, 16384)).astype(np.float32)
+    d[0] += 1.0 / 3.2  # around the mesh's rest-frame centre (1, -0.2, 3.2)
+    d[1] += -0.2 / 3.2
+    d[2] = 1.0
+    runs = []
+    for where in (torch.device(dev), torch.device("cpu")):
+        scene, meta = pt.build_scene(host, device=where)
+        i, root = meta.mesh_ids[0], meta.mesh_roots[0]
+        args = (scene.objects.m[i], scene.objects.inv_m[i], torch.zeros(3, device=where),
+                torch.as_tensor(d).to(where))
+        stats = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = octree_intersect(scene.mesh, root, *args, stats=stats)
+        torch.cuda.synchronize()
+        runs.append((out, stats["iterations"], (time.perf_counter() - t0) * 1e3))
+        if len(runs) == 1:  # on the card
+            _build.LAUNCHES.clear()
+            k5 = mesh_intersect_shared(scene.mesh, *args, mesh_perm_tensors(meta, where)[0],
+                                       scene.mesh_static[0])
+            torch.cuda.synchronize()
+            check(_build.LAUNCHES.get("rpt_shared_walk", 0) == 1, "octree: no K5 launch")
+    ((t, _, _, valid, conv), its, ms), ((ct, _, _, cvalid, cconv), cits, cms) = runs
+    check(conv and cconv, "octree: the walk did not converge")
+    kt, kvalid = k5[0], k5[3]
+    agree = float((valid == kvalid).float().mean())
+    both = valid & kvalid
+    rel = float(((t[both] - kt[both]).abs() / kt[both]).max())
+    check(agree >= 0.999 and int(both.sum()) > 1000 and rel <= 1e-4,
+          f"octree vs K5: hit/miss agree on {agree:.4%}, t rel {rel:.2e}")
+    check(torch.equal(valid.cpu(), cvalid), "octree: card and CPU walks differ in hit/miss")
+    crel = float(((t.cpu()[cvalid] - ct[cvalid]).abs() / ct[cvalid]).max())
+    check(crel <= 1e-6, f"octree: card and CPU t differ by {crel:.2e}")
+    log(f"  octree on {card}: 16,384 rays, {int(valid.sum())} hits, converged in {its} "
+        f"iterations ({ms:.1f} ms on the card; CPU {cits} iterations, {cms:.1f} ms); against "
+        f"K5 hit/miss agree on {agree:.4%}, t within {rel:.2e} relative; against the CPU walk "
+        f"t within {crel:.2e} (bitwise equal: {bool(torch.equal(t.cpu(), ct))})")
 
 
 def main() -> int:
@@ -769,6 +975,7 @@ def main() -> int:
             img, aux = small(scene, states[2])
         parity(torch, pt, host, states[2], img, aux, cpu_size)
         frame_time(torch, render, scene, states[2], card)
+        oracle_check(torch, path, scene, meta, states[2], frames[2][0], card)
 
     log("--- path textured, msaa 2, 512x384 ---")
     scene, meta = pt.build_scene(hosts["textured"], device=dev)
@@ -776,6 +983,16 @@ def main() -> int:
         scene, states[2])
     check(bool(torch.isfinite(img).all()) and int(aux["hits"]) > 0, f"msaa 2 frame {aux}")
     parity(torch, pt, hosts["textured"], states[2], img, aux, (512, 384), msaa=2)
+
+    log(f"--- viewer: textured, {VIEWER_SIZE[0]}x{VIEWER_SIZE[1]} ---")
+    t0 = time.perf_counter()
+    viewer_phase(torch, pt, hosts["textured"], dev, card, launches_by_path["textured"],
+                 len(states))
+    log(f"  viewer phase: {time.perf_counter() - t0:.1f} s")
+    log("--- octree: textured ---")
+    t0 = time.perf_counter()
+    octree_phase(torch, pt, hosts["textured"], dev, card)
+    log(f"  octree phase: {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for name, (kid, source, replaces) in KERNELS.items():

@@ -40,6 +40,18 @@ def lorentz(v):
     return torch.where(vsqr[..., None, None] == 0.0, eye4, m)
 
 
+def add_velocity(v1, v2):
+    """Relativistic velocity composition, v1 boosted by v2 (Vector.cpp:189-193):
+    w = (v1 + v2 + gamma / (1 + gamma) * v1 x (v1 x v2)) / (1 + v1 . v2),
+    gamma from v1. (..., 3) each."""
+    v1 = _f32(v1)
+    v2 = _f32(v2)
+    gamma = 1.0 / torch.sqrt(1.0 - torch.sum(v1 * v1, dim=-1))
+    coef = gamma / (1.0 + gamma)
+    num = v1 + v2 + coef[..., None] * torch.linalg.cross(v1, torch.linalg.cross(v1, v2))
+    return num / (1.0 + torch.sum(v2 * v1, dim=-1))[..., None]
+
+
 def matmul4(a, b):
     """Batched 4x4 matrix product a @ b."""
     return torch.einsum("...ij,...jk->...ik", a, b)

@@ -246,16 +246,24 @@ def full_precision():
         torch.backends.cudnn.allow_tf32 = cudnn
 
 
+def to_uint8(img):
+    """Pack a [0, 1] float image to uint8 on its device, truncating as the
+    JAX package's `astype(jnp.uint8)` does (multiplying by 255 is exact)."""
+    return (img.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
+
+
 def build_render_fn(meta: SceneMeta, width: int, height: int, interval: int,
-                    msaa: int = 1, with_aux: bool = False, device=DEFAULT_DEVICE):
+                    msaa: int = 1, with_aux: bool = False, out_uint8: bool = False,
+                    device=DEFAULT_DEVICE):
     """A frame renderer for (scene meta, resolution, interval, msaa) on
     `device`: render(scene, state) -> (H, W, 3) float image in bottom-up row
     order, and the aux counts when with_aux (summed over the msaa**2 sample
     sets). The pixel grid is padded to 32x32 tiles and traced in tile order;
     the padding is cropped after shading. With msaa > 1, one shade pass per
     sample set, colours averaged: the JAX package's default per-sample loop
-    (opencl_kernel.cl:642-648). Each frame runs under `full_precision()`;
-    building the renderer changes no process-wide setting."""
+    (opencl_kernel.cl:642-648). out_uint8 packs the frame to uint8 on the
+    device (`to_uint8`). Each frame runs under `full_precision()`; building
+    the renderer changes no process-wide setting."""
     if msaa < 1:
         raise ValueError(f"msaa must be >= 1, got {msaa}")
     ph = _round_up(height, TILE)
@@ -281,9 +289,66 @@ def build_render_fn(meta: SceneMeta, width: int, height: int, interval: int,
             color = color / float(len(dirs))
         img = tonemap(tile_unswizzle(color, ph, pw).T, scene.white_point)
         img = img.reshape(ph, pw, 3)[:height, :width]
+        if out_uint8:
+            img = to_uint8(img)
         return (img, aux) if with_aux else img
 
     return render
+
+
+def box_pool(img, pool: int):
+    """(H, W, 3) -> (H/pool, W/pool, 3) mean of each pool x pool box, as an
+    explicit sum in row-major order times 1/pool**2 (a power of two, so
+    exact): the same bits on any device, where a reduction's order is not
+    fixed."""
+    h, w = img.shape[0] // pool, img.shape[1] // pool
+    x = img.reshape(h, pool, w, pool, 3)
+    acc = x[:, 0, :, 0]
+    for dy in range(pool):
+        for dx in range(pool):
+            if dy or dx:
+                acc = acc + x[:, dy, :, dx]
+    return acc * (1.0 / (pool * pool))
+
+
+def build_viewer_render_fn(meta: SceneMeta, pad_height: int, pad_width: int, interval: int,
+                           pool: int = 1, device=DEFAULT_DEVICE):
+    """The live viewer's renderer (msaa 1) over a fixed padded grid: the
+    camera dirs are an argument (`viewer_dirs`), so any logical size whose
+    32-aligned pad fits (pad_height, pad_width) renders through it, and a
+    resize recomputes only the dirs (the JAX package's resolution-polymorphic
+    renderer, JAX render.py:696-739). pool > 1 box-filters the tonemapped
+    frame by pool x pool (`box_pool`) before the uint8 pack.
+
+    Returns render(scene, state, dirs_t) -> (pad_h/pool, pad_w/pool, 3)
+    uint8, bottom-up, on `device`; the caller crops to the logical size.
+    Each frame runs under `full_precision()`."""
+    ph, pw = int(pad_height), int(pad_width)
+    if ph % TILE or pw % TILE:
+        raise ValueError(f"pad {pw}x{ph} not {TILE}-aligned")
+    if pool not in (1, 2, 4):
+        raise ValueError(f"pool must be 1/2/4, got {pool}")
+    perms = mesh_perm_tensors(meta, device)
+    miss = torch.tensor(MISS_COLOR, device=device)[:, None]
+
+    def render(scene: Scene, state: FrameState, dirs_t):
+        with full_precision():
+            L, inv_L, stat_cam = object_frames(scene.objects, state)
+            color, _ = shade(scene, meta, L, inv_L, stat_cam, dirs_t, interval, perms, miss)
+            img = tonemap(tile_unswizzle(color, ph, pw).T, scene.white_point).reshape(ph, pw, 3)
+            if pool > 1:
+                img = box_pool(img, pool)
+            return to_uint8(img)
+
+    return render
+
+
+def viewer_dirs(width: int, height: int, pad_height: int, pad_width: int,
+                device=DEFAULT_DEVICE):
+    """Swizzled (3, pad_h * pad_w) camera dirs for `build_viewer_render_fn`:
+    the projection uses the logical size, the grid is the pad."""
+    dirs = camera_ray_dirs(width, height, 1, pad_width, pad_height, device=device)
+    return tile_swizzle(dirs.reshape(-1, 3).T, pad_height, pad_width).contiguous()
 
 
 def render_frame(scene: Scene, meta: SceneMeta, state: FrameState, width: int, height: int,

@@ -1482,3 +1482,57 @@ def test_large_walks_end_at_the_list_end(cuda, walk):
     args[3] = mk.pack_bits(torch.ones((B, C), dtype=torch.bool, device=cuda))
     walked = _large_walks_equal_twins(args, shadow)
     assert walked.tolist() == [C] * B
+
+
+@pytest.mark.parametrize("pool", [1, 2])
+@pytest.mark.parametrize("size", [(64, 48), (200, 120)])
+def test_viewer_renderer_matches_static_renderer_on_the_card(cuda, fixture_scene, size, pool):
+    """The viewer's renderer (dirs as an argument over the padded grid) on
+    the card against build_render_fn(out_uint8=True) on the card, byte for
+    byte; pooled (at the pad's own size), against the same box pool of the
+    static float frame, packed."""
+    from relativitypathtracer_tpu_torch import render as prender
+
+    _, (scene, meta) = fixture_scene
+    w, h = size
+    ph, pw = prender._round_up(h, prender.TILE), prender._round_up(w, prender.TILE)
+    if pool > 1:
+        w, h = pw, ph
+    state = prender.FrameState(torch.tensor([0.5, 0.0, 0.0], device=cuda),
+                               torch.tensor([0.5, 0.0, 0.0, 0.0], device=cuda))
+    got = prender.build_viewer_render_fn(meta, ph, pw, -1, pool, device=cuda)(
+        scene, state, prender.viewer_dirs(w, h, ph, pw, device=cuda))
+    assert got.device.type == "cuda" and got.shape == (ph // pool, pw // pool, 3)
+    if pool == 1:
+        want = prender.build_render_fn(meta, w, h, -1, out_uint8=True, device=cuda)(scene, state)
+        assert torch.equal(got[:h, :w], want)
+    else:
+        full = prender.build_render_fn(meta, w, h, -1, device=cuda)(scene, state)
+        assert torch.equal(got, prender.to_uint8(prender.box_pool(full, pool)))
+
+
+def test_octree_walk_on_the_card_matches_its_cpu_run(cuda, fixture_scene):
+    """The octree walk of a seeded 4,096-ray fan on the card against the
+    same walk on the CPU: converged on both, the same hit/miss on every
+    ray, t and uv within a relative 1e-6 (the same fp32 operations in the
+    same order; a gather's or a library's last bit may differ)."""
+    import relativitypathtracer_tpu_torch as pt
+    from relativitypathtracer_tpu_torch.ops.octree_traverse import octree_intersect
+
+    host, (scene, meta) = fixture_scene
+    cpu_scene, _ = pt.build_scene(host, device="cpu")
+    rng = np.random.default_rng(11)
+    d = rng.uniform(-0.35, 0.35, (3, 4096)).astype(np.float32)
+    d[0] += 1.0 / 3.2
+    d[1] += -0.2 / 3.2
+    d[2] = 1.0
+    i, root = meta.mesh_ids[0], meta.mesh_roots[0]
+    runs = []
+    for sc, dev in ((scene, cuda), (cpu_scene, torch.device("cpu"))):
+        runs.append(octree_intersect(sc.mesh, root, sc.objects.m[i], sc.objects.inv_m[i],
+                                     torch.zeros(3, device=dev), torch.as_tensor(d).to(dev)))
+    (t, _, uv, valid, conv), (ct, _, cuv, cvalid, cconv) = runs
+    assert conv and cconv
+    assert torch.equal(valid.cpu(), cvalid) and int(cvalid.sum()) > 1000
+    torch.testing.assert_close(t.cpu()[cvalid], ct[cvalid], rtol=1e-6, atol=0.0)
+    torch.testing.assert_close(uv.cpu()[:, cvalid], cuv[:, cvalid], rtol=1e-6, atol=1e-7)
