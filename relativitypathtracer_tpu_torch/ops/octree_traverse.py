@@ -31,6 +31,15 @@ def _dot(a, b):
     return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
 
 
+def _cross(a, b):
+    """Cross product over axis 0 of (3, N), each product rounded on its own
+    (torch.linalg.cross's CPU kernel may contract into FMAs; the card's
+    does not)."""
+    return torch.stack([a[1] * b[2] - a[2] * b[1],
+                        a[2] * b[0] - a[0] * b[2],
+                        a[0] * b[1] - a[1] * b[0]])
+
+
 def _cols(x, idx):
     """Rows `idx` of a (Q, k) table as (k, N) columns."""
     return x[idx].T
@@ -148,11 +157,11 @@ def _walk(mesh, root, m4, inv_m, o3, d3, iteration_cap, stats):
         A = _cols(mesh.vertices, tv[:, 0])
         e1 = _cols(mesh.vertices, tv[:, 1]) - A
         e2 = _cols(mesh.vertices, tv[:, 2]) - A
-        pvec = torch.linalg.cross(dh, e2, dim=0)
+        pvec = _cross(dh, e2)
         det = _dot(e1, pvec)
         tvec = o - A
         u = _dot(tvec, pvec) / det
-        qvec = torch.linalg.cross(tvec, e1, dim=0)
+        qvec = _cross(tvec, e1)
         v = _dot(dh, qvec) / det
         dist = _dot(e2, qvec) / det
         ok = (active & in_leaf & (det.abs() >= EPSILON) & (u >= 0) & (u <= 1) & (v >= 0)
