@@ -75,7 +75,7 @@ For each path it:
      prints frac_bad, mean_diff and the oracle's p50 ms and threads on the
      card host's CPU.
 Then it renders the textured path at msaa 2, 512x384, and holds it to its
-CPU frame, and runs two more phases on the textured fixture:
+CPU frame, runs two phases on the textured fixture:
   viewer  ViewerCore at 960x540 (the reference's window) through a scripted
           timeline 15 ms apart (idle and paused; 'w' held 10 frames; space;
           'i'; resizes to 1024x768, which grows the pad, and to 640x480,
@@ -91,6 +91,28 @@ CPU frame, and runs two more phases on the textured fixture:
           camera over the mesh on the card: converged, against the K5 route
           (mesh_intersect_shared) and against the same walk on the CPU;
           prints its iterations and ms.
+and two more on the textured and instances fixtures:
+  sharded the sharded renderer (parallel/tiles.py) at 1024x768 on 4 logical
+          shards of the card ([cuda:0] * 4), blocks dealt strided and
+          contiguous: each frame equal to build_render_fn's to the bit, the
+          aux counts equal, and its launches, counted from 0 around the frame,
+          exactly 4x a single frame's per kernel; the p50/p95 of the sharded
+          (strided) and single frames (20 frames each); textured at 512x384,
+          msaa 2 (the folded layout, render.msaa_swizzle), held under the
+          parity rule to the CPU's sharded frame and to the card's per-sample
+          loop frame; the mesh-hit rays per shard and their skew, strided
+          against contiguous; on a host with two or more cards the frames on
+          distinct cards (else a line that says this did not run); and
+          parallel.tiles.dryrun_multichip(4) on the card;
+  export  utils/aot.export_render of both fixtures at 1024x768 on the card,
+          saved to bytes and loaded: the loaded frames at the three states and
+          at a second scene of the same shapes (other velocities and colours)
+          equal to the live renderer's to the bit, with a frame's launches
+          equal to the live frame's; export_sharded_render on 2 logical shards
+          (textured, 512x384) equal to the live sharded frame; the export tool
+          tools/export_renderer_torch.py --fixture textured --device cuda
+          --selfcheck run once (exit 0); prints the export seconds, the bytes
+          and the loaded frame's p50/p95.
 It prints the kernels' JSON line, the card's name and power limit, and as its
 last line {"ok": true, "device": {...}}. Any failed check raises.
 """
@@ -99,6 +121,7 @@ from __future__ import annotations
 
 import json
 import math
+import pathlib
 import subprocess
 import sys
 import tempfile
@@ -118,6 +141,7 @@ K3_PRETEST_OPS, K3_TEST_OPS = 40.0, 60.0
 K7_PRETEST_OPS, K7_TEST_OPS = 70.0, 55.0
 VIEWER_SIZE = (960, 540)  # the reference's window and the viewer CLI's default
 VIEWER_GROW, VIEWER_SHRINK = (1024, 768), (640, 480)  # grows the pad; fits in it
+SHARDS = 4  # shards of the sharded phase
 PKG = "relativitypathtracer_tpu_torch/csrc/"
 TPU = "relativitypathtracer_tpu/ops/pallas/"
 K4_TPU = TPU + "mesh_kernels.py:389 (XLA)"
@@ -831,6 +855,160 @@ def octree_phase(torch, pt, host, dev, card):
         f"t within {crel:.2e} (bitwise equal: {bool(torch.equal(t.cpu(), ct))})")
 
 
+def counted_frame(torch, render, scene, state):
+    """One frame of render with every launch count set to 0 just before and
+    read just after: (output, launches)."""
+    from relativitypathtracer_tpu_torch.ops.kernels import _build
+
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    out = render(scene, state)
+    torch.cuda.synchronize()
+    return out, dict(_build.LAUNCHES)
+
+
+def p50_p95(torch, render, scene, state, frames: int = 20) -> tuple[float, float]:
+    from relativitypathtracer_tpu_torch.utils.timing import cuda_frame_times_ms, percentile
+
+    times = cuda_frame_times_ms(render, scene, state, frames=frames, warmup=3)
+    return percentile(times, 50), percentile(times, 95)
+
+
+def counts(aux) -> dict:
+    return {k: int(v) for k, v in aux.items()}
+
+
+def sharded_phase(torch, pt, scenes, hosts, states, card):
+    """The sharded renderer (parallel/tiles.py) on the card; see the module
+    docstring."""
+    from relativitypathtracer_tpu_torch.parallel import tiles
+
+    dev = torch.device(DEVICE)
+    st = states[2]
+    logical = [dev] * SHARDS
+    for path in ("textured", "instances"):
+        scene, meta = scenes[path]
+        single = pt.build_render_fn(meta, WIDTH, HEIGHT, -1, with_aux=True, device=dev)
+        (want, waux), one = counted_frame(torch, single, scene, st)
+        renders = {}
+        for assign in ("strided", "contiguous"):
+            render = renders[assign] = tiles.build_sharded_render_fn(
+                meta, WIDTH, HEIGHT, -1, logical, with_aux=True, band_assign=assign)
+            (img, aux), launches = counted_frame(torch, render, scene, st)
+            check(tuple(img.shape) == (HEIGHT, WIDTH, 3) and torch.equal(img, want),
+                  f"sharded {path} {assign}: frame differs from build_render_fn's")
+            check(counts(aux) == counts(waux), f"sharded {path} {assign}: counts {counts(aux)}"
+                  f" against {counts(waux)}")
+            check(launches == {k: SHARDS * n for k, n in one.items()},
+                  f"sharded {path} {assign}: launches {launches}, a single frame's {one}")
+            log(f"  sharded {path} {WIDTH}x{HEIGHT} on {SHARDS} logical shards ({assign}): "
+                f"equal to build_render_fn's frame and counts {counts(aux)}; launches a frame "
+                f"{launches} ({SHARDS}x a single frame's)")
+        (sp50, sp95), (p50, p95) = (p50_p95(torch, renders["strided"], scene, st),
+                                    p50_p95(torch, single, scene, st))
+        log(f"  sharded {path} frame on {card}: p50 {sp50:.3f} ms, p95 {sp95:.3f} ms on "
+            f"{SHARDS} logical shards (strided); single frame p50 {p50:.3f} ms, p95 "
+            f"{p95:.3f} ms (20 frames each)")
+
+    # folded msaa 2 against the CPU's sharded frame and the card's loop frame
+    scene, meta = scenes["textured"]
+    render = tiles.build_sharded_render_fn(meta, 512, 384, -1, logical, msaa=2, with_aux=True)
+    (img, aux), launches = counted_frame(torch, render, scene, st)
+    loop, laux = pt.build_render_fn(meta, 512, 384, -1, 2, with_aux=True, device=dev)(scene, st)
+    cpu_scene, cpu_meta = pt.build_scene(hosts["textured"], device="cpu")
+    cpu_img, cpu_aux = tiles.build_sharded_render_fn(cpu_meta, 512, 384, -1, ["cpu"] * SHARDS,
+                                                     msaa=2, with_aux=True)(
+        cpu_scene, pt.FrameState(st.cam_velocity.cpu(), st.cam_pos.cpu()))
+    for name, ref, raux in (("the CPU's sharded frame", cpu_img, cpu_aux),
+                            ("the card's per-sample loop", loop, laux)):
+        diff = (img.cpu() - ref.cpu()).abs()
+        frac_bad = float((diff.amax(dim=-1) > 1e-3).float().mean())
+        log(f"  sharded textured 512x384 msaa 2 (folded, {SHARDS} shards) against {name}: "
+            f"frac_bad {frac_bad:.6f}, mean diff {float(diff.mean()):.3e}, counts "
+            f"{counts(aux)} against {counts(raux)}")
+        check(frac_bad <= 0.002 and float(diff.mean()) < 1e-4,
+              f"folded sharded frame off {name}")
+        check(counts(aux)["hits"] == counts(raux)["hits"], f"folded hits against {name}")
+    check(set(launches) == set(PATHS["textured"][1]), f"folded launches {launches}")
+
+    # the deal's load: mesh-hit rays per shard, strided against contiguous
+    per_block, rows, cols = tiles.per_block_mesh_work(scene, meta, WIDTH, HEIGHT, SHARDS,
+                                                      state=st)
+    for assign in ("strided", "contiguous"):
+        work, skew = tiles.partition_work(per_block, rows, cols, SHARDS, assign)
+        log(f"  textured mesh work per shard ({assign}, {rows}x{cols} blocks): {work.tolist()}, "
+            f"skew (max / mean) {skew:.3f}")
+
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        cards = tiles.default_devices(min(n_cards, SHARDS))
+        for path in ("textured", "instances"):
+            scene, meta = scenes[path]
+            want, waux = pt.build_render_fn(meta, WIDTH, HEIGHT, -1, with_aux=True,
+                                            device=dev)(scene, st)
+            img, aux = tiles.build_sharded_render_fn(meta, WIDTH, HEIGHT, -1, cards,
+                                                     with_aux=True)(scene, st)
+            check(torch.equal(img, want) and counts(aux) == counts(waux),
+                  f"sharded {path} on {len(cards)} cards differs from build_render_fn's")
+            log(f"  sharded {path} on {len(cards)} distinct cards: equal to build_render_fn's")
+    else:
+        log("  sharded on distinct cards: not run (this host has one CUDA device)")
+    out = tiles.dryrun_multichip(SHARDS)
+    log(f"  dryrun_multichip({SHARDS}) on the card: {out}")
+
+
+def export_phase(torch, pt, scenes, states, card, live_launches, live_frames):
+    """The exported renderer (utils/aot.py) on the card; see the module
+    docstring. live_launches over live_frames frames are the live path's."""
+    from relativitypathtracer_tpu_torch.parallel import tiles
+    from relativitypathtracer_tpu_torch.utils import aot
+
+    dev = torch.device(DEVICE)
+    for path in ("textured", "instances"):
+        scene, meta = scenes[path]
+        t0 = time.perf_counter()
+        data = aot.export_render(scene, meta, WIDTH, HEIGHT, device=dev)
+        t_export = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        render = aot.load_render(data)
+        t_load = time.perf_counter() - t0
+        live = pt.build_render_fn(meta, WIDTH, HEIGHT, -1, device=dev)
+        other = scene._replace(objects=scene.objects._replace(
+            velocity=scene.objects.velocity.flip(0) * 0.8,
+            color=scene.objects.color.roll(1, dims=1)))
+        for i, (sc, st) in enumerate([(scene, s) for s in states] + [(other, states[2])]):
+            got, launches = counted_frame(torch, render, sc, st)
+            want = live(sc, st)
+            check(torch.equal(got, want), f"export {path}: loaded frame {i} differs from the "
+                  f"live frame")
+            per_frame = {k: n // live_frames for k, n in live_launches[path].items()}
+            check(launches == per_frame, f"export {path}: launches {launches}, live {per_frame}")
+        p50, p95 = p50_p95(torch, render, scene, states[2])
+        log(f"  export {path} {WIDTH}x{HEIGHT}: exported in {t_export:.1f} s, {len(data)} "
+            f"bytes, loaded in {t_load:.1f} s; the loaded frames at the three states and a "
+            f"second scene equal to the live frames, launches a frame as the live frame's; "
+            f"loaded frame on {card}: p50 {p50:.3f} ms, p95 {p95:.3f} ms (20 frames)")
+
+    scene, meta = scenes["textured"]
+    devices = [dev] * 2
+    t0 = time.perf_counter()
+    data = aot.export_sharded_render(scene, meta, 512, 384, devices)
+    got = aot.load_render(data)(scene, states[2])
+    want = tiles.build_sharded_render_fn(meta, 512, 384, -1, devices)(scene, states[2])
+    check(torch.equal(got, want), "export_sharded_render: loaded frame differs")
+    log(f"  export_sharded_render textured 512x384 on 2 logical shards: equal to the live "
+        f"sharded frame, {len(data)} bytes, {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "tools/export_renderer_torch.py", "--fixture",
+                           "textured", "--device", "cuda", "--selfcheck"],
+                          cwd=pathlib.Path(__file__).resolve().parent, capture_output=True,
+                          text=True, timeout=300)
+    log("  " + "\n  ".join(proc.stdout.strip().splitlines())
+        + f"\n  export tool: exit {proc.returncode}, {time.perf_counter() - t0:.1f} s")
+    check(proc.returncode == 0, f"export tool --selfcheck failed:\n{proc.stderr[-2000:]}")
+
+
 def main() -> int:
     import torch
 
@@ -888,7 +1066,7 @@ def main() -> int:
                   (ml, "large_live_lists", ml.large_live_lists_plain)]
     list_fns = {attr: getattr(mod, attr) for mod, attr, _ in list_hooks}
     list_plains = {attr: plain for _, attr, plain in list_hooks}
-    results, launches_by_path, hosts = {}, {}, {}
+    results, launches_by_path, hosts, scenes = {}, {}, {}, {}
 
     for path, (kind, names, cpu_size) in PATHS.items():
         log(f"--- path {path} ---")
@@ -897,6 +1075,7 @@ def main() -> int:
             host = pt.load_scene_file(write_demo_scene(tmp, LEVEL, kind))
             scene, meta = pt.build_scene(host, device=dev)
         hosts[path] = host
+        scenes[path] = (scene, meta)
         log(f"  scene: {meta.num_tris} triangles, spheres {meta.sphere_ids}, cubes "
             f"{meta.cube_ids}, textured {meta.textured_ids}, atlas "
             f"{tuple(scene.tex_quads.shape)}, lights {meta.light_ids}, built in "
@@ -993,6 +1172,14 @@ def main() -> int:
     t0 = time.perf_counter()
     octree_phase(torch, pt, hosts["textured"], dev, card)
     log(f"  octree phase: {time.perf_counter() - t0:.1f} s")
+    log(f"--- sharded: textured and instances, {SHARDS} shards ---")
+    t0 = time.perf_counter()
+    sharded_phase(torch, pt, scenes, hosts, states, card)
+    log(f"  sharded phase: {time.perf_counter() - t0:.1f} s")
+    log("--- export: textured and instances ---")
+    t0 = time.perf_counter()
+    export_phase(torch, pt, scenes, states, card, launches_by_path, len(states))
+    log(f"  export phase: {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for name, (kid, source, replaces) in KERNELS.items():

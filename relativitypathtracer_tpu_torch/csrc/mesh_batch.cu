@@ -639,8 +639,9 @@ extern "C" int rpt_batched_shared_walk(const void* order, const void* minds, con
                                        int n, int n_chunks, int n_obj, void* t, void* u, void* v,
                                        void* tri_out, void* obj_out, void* attr, void* stream) {
   if (n_obj < 1) return static_cast<int>(cudaErrorInvalidValue);
-  static int max_bytes = -1;
-  const cudaError_t err = opt_in_shared(batched_shared_walk_kernel, &max_bytes);
+  static SharedOptIn opt;
+  int max_bytes = 0;
+  const cudaError_t err = opt_in_shared(batched_shared_walk_kernel, opt, &max_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const FlatList list{static_cast<const int*>(order), static_cast<const float*>(minds),
                       static_cast<const int*>(counts), n_chunks};
@@ -665,8 +666,9 @@ extern "C" int rpt_batched_general_walk(const void* order, const void* minds,
                                         const void* tmax, int n, int n_chunks, int n_obj,
                                         void* t, void* stream) {
   if (n_obj < 1) return static_cast<int>(cudaErrorInvalidValue);
-  static int max_bytes = -1;
-  const cudaError_t err = opt_in_shared(batched_general_walk_kernel, &max_bytes);
+  static SharedOptIn opt;
+  int max_bytes = 0;
+  const cudaError_t err = opt_in_shared(batched_general_walk_kernel, opt, &max_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const FlatList list{static_cast<const int*>(order), static_cast<const float*>(minds),
                       static_cast<const int*>(counts), n_chunks};

@@ -623,8 +623,9 @@ template <class List>
 int launch_shared_walk(const List& list, const void* box, const void* tri, const void* attrs,
                        const void* dh, int n, int T, void* t, void* u, void* v, void* tri_out,
                        void* attr, void* stream) {
-  static int max_bytes = -1;
-  const cudaError_t err = opt_in_shared(shared_walk_kernel<List>, &max_bytes);
+  static SharedOptIn opt;
+  int max_bytes = 0;
+  const cudaError_t err = opt_in_shared(shared_walk_kernel<List>, opt, &max_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t bytes = 4 * list.stage_words();
   if (bytes > static_cast<size_t>(max_bytes)) return static_cast<int>(cudaErrorInvalidValue);
@@ -644,8 +645,9 @@ int launch_shared_walk(const List& list, const void* box, const void* tri, const
 template <class List>
 int launch_general_walk(const List& list, const void* box, const void* rows, const void* r10,
                         const void* tmax2, int n, int T, void* t, void* stream) {
-  static int max_bytes = -1;
-  const cudaError_t err = opt_in_shared(general_walk_kernel<List>, &max_bytes);
+  static SharedOptIn opt;
+  int max_bytes = 0;
+  const cudaError_t err = opt_in_shared(general_walk_kernel<List>, opt, &max_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t bytes = 4 * list.stage_words();
   if (bytes > static_cast<size_t>(max_bytes)) return static_cast<int>(cudaErrorInvalidValue);

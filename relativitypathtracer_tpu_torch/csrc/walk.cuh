@@ -175,24 +175,43 @@ __device__ __forceinline__ void load_row(const float4* __restrict__ rows4, int k
   }
 }
 
-// Opts `kernel` in to the most dynamic shared memory the card allows
-// (static and dynamic together, past the 48 KB default) on the first call;
-// *max_bytes keeps the dynamic bytes allowed.
-template <class Kernel>
-cudaError_t opt_in_shared(Kernel* kernel, int* max_bytes) {
-  if (*max_bytes >= 0) return cudaSuccess;
-  int dev = 0, optin = 0;
-  cudaFuncAttributes attr{};
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+constexpr int kMaxDevices = 64;  // device ordinals the opt-in keeps
+
+// The dynamic shared memory a kernel was opted in to on each device ordinal,
+// -1 until its first launch there: the opt-in is a property of the kernel on
+// one device.
+struct SharedOptIn {
+  int bytes[kMaxDevices];
+  SharedOptIn() {
+    for (int& b : bytes) b = -1;
   }
+};
+
+// Opts `kernel` in to the most dynamic shared memory the current device
+// allows (static and dynamic together, past the 48 KB default) on its first
+// call on that device; *max_bytes gets the dynamic bytes allowed there. A
+// device ordinal at or past kMaxDevices is an error.
+template <class Kernel>
+cudaError_t opt_in_shared(Kernel* kernel, SharedOptIn& opt, int* max_bytes) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (opt.bytes[dev] >= 0) {
+    *max_bytes = opt.bytes[dev];
+    return cudaSuccess;
+  }
+  cudaFuncAttributes attr{};
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
   const int dynamic = optin - static_cast<int>(attr.sharedSizeBytes);
   if (err == cudaSuccess) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dynamic);
   }
-  if (err == cudaSuccess) *max_bytes = dynamic;
+  if (err == cudaSuccess) {
+    opt.bytes[dev] = dynamic;
+    *max_bytes = dynamic;
+  }
   return err;
 }
 

@@ -11,9 +11,17 @@ is kept in BUILD_LOG.
 
 Every launch goes through `launch`, which counts it in LAUNCHES (one plain
 integer per kernel, or per route where one C entry stands for two TPU
-kernels, so a run can show which kernels its path went through),
-passes PyTorch's current stream, and raises if the C entry reports a CUDA
-error.
+kernels, so a run can show which kernels its path went through), runs on
+the device that holds its tensors with that device's current stream, and
+raises if the C entry reports a CUDA error.
+
+Each C entry is also a PyTorch operator, `torch.ops.rpt.<name>` (`define_op`):
+it allocates its outputs and returns them, its CUDA implementation launches
+the kernel, its CPU implementation is the kernel's plain twin, and its fake
+implementation gives the output shapes, so `torch.export` records the call as
+one node (utils/aot). The Python wrappers of the kernel modules call these
+operators; a wrapper routes a tensor that is on neither the CPU nor a CUDA
+device to an error (`on_cpu`), never to the twin.
 """
 
 from __future__ import annotations
@@ -54,6 +62,7 @@ _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
 LAUNCHES: collections.Counter = collections.Counter()
 BUILD_LOG = ""
+LIB = torch.library.Library("rpt", "DEF")  # the operators torch.ops.rpt.*
 
 _lib = None
 
@@ -145,14 +154,52 @@ def check_cuda(name: str, *specs, contiguous: bool = True) -> None:
             raise ValueError(f"{name}: inputs must be contiguous")
 
 
+def on_cpu(name: str, x) -> bool:
+    """Route of a wrapper by the device of its tensor x: True on the CPU (the
+    operator runs the plain twin), False on a CUDA device (it launches the
+    kernel); any other device raises."""
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: every input must be on one CUDA device, got {x.device}")
+    return False
+
+
+def counter(like, count: bool):
+    """The (1,) int32 zero a kernel adds its count into (a pre-test's tests
+    run or skipped) on like's device, or an empty tensor when no count is
+    asked for: an operator's counter result."""
+    return torch.zeros(1 if count else 0, dtype=torch.int32, device=like.device)
+
+
+def define_op(name: str, schema: str, cuda, cpu, fake):
+    """Register the operator torch.ops.rpt.<name> with `schema` (its
+    arguments and results): `cuda` launches the kernel, `cpu` is the plain
+    twin, `fake` gives the results' shapes and dtypes from the arguments'.
+    Every result is a new tensor; no argument is written. Returns the
+    operator."""
+    LIB.define(name + schema)
+    LIB.impl(name, cuda, "CUDA")
+    LIB.impl(name, cpu, "CPU")
+    torch.library.register_fake(f"rpt::{name}", fake, lib=LIB)
+    return getattr(torch.ops.rpt, name)
+
+
 def launch(name: str, *args, key: str | None = None) -> None:
     """Call C entry `name` with tensors as device pointers (None as a null
-    pointer), then the current stream; count the launch under `key` (default
-    `name`); raise on a CUDA error."""
+    pointer), then the current stream of the device that holds the tensors,
+    with that device current; count the launch under `key` (default `name`);
+    raise if the tensors lie on more than one device, or on a CUDA error."""
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    dev = tensors[0].device
+    if any(a.device != dev for a in tensors):
+        raise ValueError(f"{name}: tensors on more than one device: "
+                         f"{sorted({str(a.device) for a in tensors})}")
     lib = library()
     c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    stream = torch.cuda.current_stream().cuda_stream
-    LAUNCHES[key or name] += 1
-    rc = getattr(lib, name)(*c_args, stream)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        LAUNCHES[key or name] += 1
+        rc = getattr(lib, name)(*c_args, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc}: {lib.rpt_error_string(rc).decode()}")

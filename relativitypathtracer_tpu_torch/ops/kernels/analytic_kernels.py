@@ -8,9 +8,11 @@ chain (Lorentz boost, then inverse model matrix) is fused into one 32-float
 row per frame, so rays enter in the camera frame. Geometry as
 intersect_sphere / intersect_cube (opencl_kernel.cl:312-359).
 
-`analytic_nearest_shared` and `analytic_min_t_general` launch their CUDA
-kernels (csrc/analytic_kernels.cu) on CUDA tensors and call their plain twins
-`analytic_nearest_plain` and `analytic_min_t_plain` on CPU tensors. All walk
+`analytic_nearest_shared` and `analytic_min_t_general` call the operators
+torch.ops.rpt.analytic_nearest and torch.ops.rpt.analytic_min_t, which launch
+their CUDA kernels (csrc/analytic_kernels.cu) on CUDA tensors and run their
+plain twins `analytic_nearest_plain` and `analytic_min_t_plain` on CPU
+tensors. All walk
 every object in index order, spheres before cubes (the JAX kernels walk
 per-block culled lists from 5 objects of a kind on); K3 computes the
 spherical UVs itself. The kernels skip an object for a warp whose 32 lanes
@@ -24,7 +26,7 @@ import math
 
 import torch
 
-from ._build import check_cuda, launch
+from ._build import check_cuda, counter, define_op, launch, on_cpu
 
 EPSILON = 1e-7
 INF = 1e20
@@ -211,6 +213,35 @@ def analytic_nearest_plain(params, dir4, n_spheres: int, n_cubes: int):
     return best_t, torch.stack(best_n), uv, best_obj.to(torch.int32)
 
 
+def _nearest_cuda(params, dir4, n_spheres: int, n_cubes: int, count: bool):
+    n = dir4.shape[1]
+    check_cuda("analytic_nearest_shared",
+               (params, torch.float32, (n_spheres + n_cubes, PARAM_COLS)),
+               (dir4, torch.float32, (4, n)))
+    t, nrm, uv, obj, _ = _nearest_fake(params, dir4, n_spheres, n_cubes, count)
+    tested = counter(dir4, count)
+    launch("rpt_analytic_nearest", params, n_spheres, n_cubes, dir4, n, t, obj, nrm, uv,
+           tested if count else None)
+    return t, nrm, uv, obj, tested
+
+
+def _nearest_cpu(params, dir4, n_spheres: int, n_cubes: int, count: bool):
+    return (*analytic_nearest_plain(params, dir4, n_spheres, n_cubes), counter(dir4, count))
+
+
+def _nearest_fake(params, dir4, n_spheres: int, n_cubes: int, count: bool):
+    n = dir4.shape[1]
+    f32 = torch.float32
+    return (dir4.new_empty(n, dtype=f32), dir4.new_empty((3, n), dtype=f32),
+            dir4.new_empty((2, n), dtype=f32), dir4.new_empty(n, dtype=torch.int32),
+            dir4.new_empty(1 if count else 0, dtype=torch.int32))
+
+
+_nearest_op = define_op(
+    "analytic_nearest", "(Tensor params, Tensor dir4, int n_spheres, int n_cubes, bool count) "
+    "-> (Tensor, Tensor, Tensor, Tensor, Tensor)", _nearest_cuda, _nearest_cpu, _nearest_fake)
+
+
 def analytic_nearest_shared(params, dir4, n_spheres: int, n_cubes: int, tested=None):
     """Nearest sphere/cube hit of rays sharing the camera origin. params:
     (G, PARAM_COLS) from pack_analytic_params; dir4: (4, N) camera-frame
@@ -219,20 +250,11 @@ def analytic_nearest_shared(params, dir4, n_spheres: int, n_cubes: int, tested=N
     (1,) int32 tensor on the card, gains the (warp, object) pairs that ran
     the kernel's full test (warp_votes_plain of object_may_hit_plain); CPU
     tensors leave it; the frame path passes none."""
-    if dir4.device.type == "cpu":
-        return analytic_nearest_plain(params, dir4, n_spheres, n_cubes)
-    dir4 = dir4.contiguous()
-    n = dir4.shape[1]
-    specs = [(params, torch.float32, (n_spheres + n_cubes, PARAM_COLS)),
-             (dir4, torch.float32, (4, n))]
+    if not on_cpu("analytic_nearest_shared", dir4):
+        dir4 = dir4.contiguous()
+    t, nrm, uv, obj, count = _nearest_op(params, dir4, n_spheres, n_cubes, tested is not None)
     if tested is not None:
-        specs.append((tested, torch.int32, (1,)))
-    check_cuda("analytic_nearest_shared", *specs)
-    t = torch.empty(n, dtype=torch.float32, device=dir4.device)
-    obj = torch.empty(n, dtype=torch.int32, device=dir4.device)
-    nrm = torch.empty((3, n), dtype=torch.float32, device=dir4.device)
-    uv = torch.empty((2, n), dtype=torch.float32, device=dir4.device)
-    launch("rpt_analytic_nearest", params, n_spheres, n_cubes, dir4, n, t, obj, nrm, uv, tested)
+        tested += count
     return t, nrm, uv, obj
 
 
@@ -253,6 +275,35 @@ def analytic_min_t_plain(params, origins4, dir4, n_spheres: int, n_cubes: int, t
     return torch.where(tmax == 0.0, INF, best)
 
 
+def _min_t_cuda(params, origins4, dir4, n_spheres: int, n_cubes: int, tmax, count: bool):
+    n = dir4.shape[1]
+    check_cuda("analytic_min_t_general",
+               (params, torch.float32, (n_spheres + n_cubes, PARAM_COLS)),
+               (origins4, torch.float32, (4, n)), (dir4, torch.float32, (4, n)),
+               (tmax, torch.float32, (n,)))
+    t = dir4.new_empty(n, dtype=torch.float32)
+    tested = counter(dir4, count)
+    launch("rpt_analytic_min_t", params, n_spheres, n_cubes, origins4, dir4, tmax, n, t,
+           tested if count else None)
+    return t, tested
+
+
+def _min_t_cpu(params, origins4, dir4, n_spheres: int, n_cubes: int, tmax, count: bool):
+    return (analytic_min_t_plain(params, origins4, dir4, n_spheres, n_cubes, tmax),
+            counter(dir4, count))
+
+
+def _min_t_fake(params, origins4, dir4, n_spheres: int, n_cubes: int, tmax, count: bool):
+    return (dir4.new_empty(dir4.shape[1], dtype=torch.float32),
+            dir4.new_empty(1 if count else 0, dtype=torch.int32))
+
+
+_min_t_op = define_op(
+    "analytic_min_t", "(Tensor params, Tensor origins4, Tensor dir4, int n_spheres, "
+    "int n_cubes, Tensor tmax, bool count) -> (Tensor, Tensor)", _min_t_cuda, _min_t_cpu,
+    _min_t_fake)
+
+
 def analytic_min_t_general(params, origins4, dir4, n_spheres: int, n_cubes: int, tmax,
                            tested=None):
     """Min hit parameter over spheres and cubes for shadow rays with per-lane
@@ -261,16 +312,9 @@ def analytic_min_t_general(params, origins4, dir4, n_spheres: int, n_cubes: int,
     tmax: (N,) search bound, 0 on masked lanes. Returns (N,) f32: the nearest
     hit, INF where none (and on masked lanes). Callers test t < tmax. tested
     as for analytic_nearest_shared (masked lanes vote no)."""
-    if dir4.device.type == "cpu":
-        return analytic_min_t_plain(params, origins4, dir4, n_spheres, n_cubes, tmax)
-    origins4, dir4, tmax = origins4.contiguous(), dir4.contiguous(), tmax.contiguous()
-    n = dir4.shape[1]
-    specs = [(params, torch.float32, (n_spheres + n_cubes, PARAM_COLS)),
-             (origins4, torch.float32, (4, n)), (dir4, torch.float32, (4, n)),
-             (tmax, torch.float32, (n,))]
+    if not on_cpu("analytic_min_t_general", dir4):
+        origins4, dir4, tmax = origins4.contiguous(), dir4.contiguous(), tmax.contiguous()
+    t, count = _min_t_op(params, origins4, dir4, n_spheres, n_cubes, tmax, tested is not None)
     if tested is not None:
-        specs.append((tested, torch.int32, (1,)))
-    check_cuda("analytic_min_t_general", *specs)
-    t = torch.empty(n, dtype=torch.float32, device=dir4.device)
-    launch("rpt_analytic_min_t", params, n_spheres, n_cubes, origins4, dir4, tmax, n, t, tested)
+        tested += count
     return t

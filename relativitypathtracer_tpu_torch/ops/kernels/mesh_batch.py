@@ -17,7 +17,9 @@ object table, so each ray block walks one live list over all objects:
   and scale its floors by the block's minimum per-lane s, a lower bound, so
   stopping on them stays sound.
 
-`batched_shared_walk` and `batched_general_walk` launch the CUDA kernels
+`batched_shared_walk` and `batched_general_walk` (through their operators
+torch.ops.rpt.batched_shared_walk and torch.ops.rpt.batched_general_walk)
+launch the CUDA kernels
 (csrc/mesh_batch.cu: a cluster of 8 CTAs per ray block, a warp per ray,
 each CTA's per-object rays staged in shared memory) on CUDA tensors; on CPU
 tensors they call their plain twins `batched_shared_walk_plain` /
@@ -34,7 +36,7 @@ import functools
 
 import torch
 
-from ._build import check_cuda, launch
+from ._build import check_cuda, define_op, launch, on_cpu
 from .mesh_kernels import (
     INF, N_ATTR, NB, SUB, SUB_LANES, TC, _box_bound, _box_of, _dot_rows, _list_ops, _mt,
     _pad_lanes, _round_up, general_tri_rows, shared_tri_rows)
@@ -146,8 +148,13 @@ def _chunk_objects(chunk_counts: tuple, device: torch.device):
 
 def chunk_objects(chunk_counts, device):
     """(C,) int32 object slot of every pool chunk. Made once per pool layout
-    and device, then shared: callers only read it."""
-    return _chunk_objects(tuple(int(c) for c in chunk_counts), torch.device(device))
+    and device, then shared: callers only read it. A program being traced
+    (torch.export, utils/aot) makes its own, so that no traced tensor is
+    kept."""
+    key = (tuple(int(c) for c in chunk_counts), torch.device(device))
+    if torch.compiler.is_compiling():
+        return _chunk_objects.__wrapped__(*key)
+    return _chunk_objects(*key)
 
 
 @functools.lru_cache(maxsize=16)
@@ -157,8 +164,12 @@ def _enabled_mask(enabled: tuple, device: torch.device):
 
 def enabled_mask(enabled, device):
     """(O,) int32: 1 for each enabled object, 0 for a disabled one. Made
-    once per pattern and device, then shared: callers only read it."""
-    return _enabled_mask(tuple(int(bool(e)) for e in enabled), torch.device(device))
+    once per pattern and device, then shared (a traced program makes its
+    own, as chunk_objects): callers only read it."""
+    key = (tuple(int(bool(e)) for e in enabled), torch.device(device))
+    if torch.compiler.is_compiling():
+        return _enabled_mask.__wrapped__(*key)
+    return _enabled_mask(*key)
 
 
 def batched_shared_walk_plain(order, minds, counts, cobj, boxes, mats, tri, attrs, dir4_p,
@@ -216,14 +227,7 @@ def batched_shared_walk_plain(order, minds, counts, cobj, boxes, mats, tri, attr
     return (*out, n_walked) if walked else out
 
 
-def batched_shared_walk(order, minds, counts, cobj, boxes, mats, tri, attrs, dir4_p):
-    """K9 walk: the CUDA kernel on CUDA tensors, the plain twin on CPU
-    tensors. order/minds (B, C), counts (B,), cobj (C,) int32, boxes (O, 9)
-    [lo hi ro] per object, mats (O, MAT_COLS), tri (C * TC, 10), attrs
-    (C * TC, 15), dir4_p (4, B * NB) camera-frame 4-dirs."""
-    if dir4_p.device.type == "cpu":
-        return batched_shared_walk_plain(order, minds, counts, cobj, boxes, mats, tri, attrs,
-                                         dir4_p)
+def _shared_cuda(order, minds, counts, cobj, boxes, mats, tri, attrs, dir4_p):
     B, C = order.shape
     O = mats.shape[0]
     n_pad = B * NB
@@ -232,14 +236,34 @@ def batched_shared_walk(order, minds, counts, cobj, boxes, mats, tri, attrs, dir
                (counts, i32, (B,)), (cobj, i32, (C,)), (boxes, f32, (O, 9)),
                (mats, f32, (O, MAT_COLS)), (tri, f32, (C * TC, 10)),
                (attrs, f32, (C * TC, N_ATTR)), (dir4_p, f32, (4, n_pad)))
-    t = torch.empty(n_pad, dtype=f32, device=dir4_p.device)
-    u, v = torch.empty_like(t), torch.empty_like(t)
-    tri_out = torch.empty(n_pad, dtype=i32, device=dir4_p.device)
-    obj_out = torch.empty_like(tri_out)
-    attr = torch.empty((N_ATTR, n_pad), dtype=f32, device=dir4_p.device)
+    t, u, v, tri_out, obj_out, attr = _shared_fake(order, minds, counts, cobj, boxes, mats,
+                                                   tri, attrs, dir4_p)
     launch("rpt_batched_shared_walk", order, minds, counts, cobj, boxes, mats, tri, attrs,
            dir4_p, n_pad, C, O, t, u, v, tri_out, obj_out, attr)
     return t, u, v, tri_out, obj_out, attr
+
+
+def _shared_fake(order, minds, counts, cobj, boxes, mats, tri, attrs, dir4_p):
+    n_pad = order.shape[0] * NB
+    return (*(mats.new_empty(n_pad) for _ in range(3)),
+            *(mats.new_empty(n_pad, dtype=torch.int32) for _ in range(2)),
+            mats.new_empty((N_ATTR, n_pad)))
+
+
+_shared_op = define_op(
+    "batched_shared_walk", "(Tensor order, Tensor minds, Tensor counts, Tensor cobj, "
+    "Tensor boxes, Tensor mats, Tensor tri, Tensor attrs, Tensor dir4_p) "
+    "-> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)", _shared_cuda,
+    batched_shared_walk_plain, _shared_fake)
+
+
+def batched_shared_walk(order, minds, counts, cobj, boxes, mats, tri, attrs, dir4_p):
+    """K9 walk: the CUDA kernel on CUDA tensors, the plain twin on CPU
+    tensors. order/minds (B, C), counts (B,), cobj (C,) int32, boxes (O, 9)
+    [lo hi ro] per object, mats (O, MAT_COLS), tri (C * TC, 10), attrs
+    (C * TC, 15), dir4_p (4, B * NB) camera-frame 4-dirs."""
+    on_cpu("batched_shared_walk", dir4_p)
+    return _shared_op(order, minds, counts, cobj, boxes, mats, tri, attrs, dir4_p)
 
 
 def batched_general_walk_plain(order, minds, counts, cobj, boxes, mats, rows, o4_p, dir4_p,
@@ -298,14 +322,7 @@ def object_switches(order, cobj, n_walked):
     return (change & (pos[None, :] < n_walked[:, None])).sum(dim=1)
 
 
-def batched_general_walk(order, minds, counts, cobj, boxes, mats, rows, o4_p, dir4_p, tmax_p):
-    """K10 walk: the CUDA kernel on CUDA tensors, the plain twin on CPU
-    tensors. boxes (O, 6) [lo hi] per object, rows (C * TC, 20), o4_p and
-    dir4_p (4, B * NB) camera-frame 4-origins and 4-dirs, tmax_p (B * NB,)
-    in shared units (0 masks a lane); the rest as `batched_shared_walk`."""
-    if dir4_p.device.type == "cpu":
-        return batched_general_walk_plain(order, minds, counts, cobj, boxes, mats, rows, o4_p,
-                                          dir4_p, tmax_p)
+def _general_cuda(order, minds, counts, cobj, boxes, mats, rows, o4_p, dir4_p, tmax_p):
     B, C = order.shape
     O = mats.shape[0]
     n_pad = B * NB
@@ -314,10 +331,29 @@ def batched_general_walk(order, minds, counts, cobj, boxes, mats, rows, o4_p, di
                (counts, i32, (B,)), (cobj, i32, (C,)), (boxes, f32, (O, 6)),
                (mats, f32, (O, MAT_COLS)), (rows, f32, (C * TC, 20)),
                (o4_p, f32, (4, n_pad)), (dir4_p, f32, (4, n_pad)), (tmax_p, f32, (n_pad,)))
-    t = torch.empty(n_pad, dtype=f32, device=dir4_p.device)
+    t = _general_fake(order, minds, counts, cobj, boxes, mats, rows, o4_p, dir4_p, tmax_p)
     launch("rpt_batched_general_walk", order, minds, counts, cobj, boxes, mats, rows, o4_p,
            dir4_p, tmax_p, n_pad, C, O, t)
     return t
+
+
+def _general_fake(order, minds, counts, cobj, boxes, mats, rows, o4_p, dir4_p, tmax_p):
+    return mats.new_empty(order.shape[0] * NB)
+
+
+_general_op = define_op(
+    "batched_general_walk", "(Tensor order, Tensor minds, Tensor counts, Tensor cobj, "
+    "Tensor boxes, Tensor mats, Tensor rows, Tensor o4_p, Tensor dir4_p, Tensor tmax_p) "
+    "-> Tensor", _general_cuda, batched_general_walk_plain, _general_fake)
+
+
+def batched_general_walk(order, minds, counts, cobj, boxes, mats, rows, o4_p, dir4_p, tmax_p):
+    """K10 walk: the CUDA kernel on CUDA tensors, the plain twin on CPU
+    tensors. boxes (O, 6) [lo hi] per object, rows (C * TC, 20), o4_p and
+    dir4_p (4, B * NB) camera-frame 4-origins and 4-dirs, tmax_p (B * NB,)
+    in shared units (0 masks a lane); the rest as `batched_shared_walk`."""
+    on_cpu("batched_general_walk", dir4_p)
+    return _general_op(order, minds, counts, cobj, boxes, mats, rows, o4_p, dir4_p, tmax_p)
 
 
 def batched_nearest_shared(consts, attrs, spheres, boxes, mats, dir4, d_os, o_os, s_os,

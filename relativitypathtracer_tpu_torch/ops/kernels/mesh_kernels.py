@@ -25,6 +25,10 @@ package: `live_chunk_lists2` (superchunk order reduced from the chunk-level
 cull, the cull kernel's superchunk variant), `live_chunk_lists3`
 (super-sphere cull, block-cone chunk bits), `super_spheres_of` and
 `pack_bits`; `mesh_large` picks between them.
+
+Each kernel's wrapper calls its operator torch.ops.rpt.<kernel> (_build),
+whose CUDA implementation launches the kernel and whose CPU implementation
+is the twin.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ._build import check_cuda, launch
+from ._build import check_cuda, counter, define_op, launch, on_cpu
 
 EPSILON = 1e-7
 INF = 1e20
@@ -174,24 +178,10 @@ def _strides(x, dims: int):
     return [0] * (dims - x.dim()) + list(x.stride())
 
 
-def cone_table(d, o, valid=None, lane_bound=None, lanes=SUB_LANES, s=None, enabled=None):
-    """K4's cone table: the rpt_cone_table kernel on CUDA tensors, the plain
-    twin on CPU tensors; arguments and results as `cone_table_plain`. The
-    kernel reads d, o, lane_bound and s where they lie (any strides: a
-    stride-0 origin, rows of a larger array); valid and enabled are
-    contiguous; n_pad is a multiple of NB and lanes is 128 or 1024."""
-    if d.device.type == "cpu":
-        return cone_table_plain(d, o, valid, lane_bound, lanes, s, enabled)
-    if lanes not in (SUB_LANES, NB):
-        raise ValueError(f"cone_table: lanes must be {SUB_LANES} or {NB}, got {lanes}")
+def _cone_table_cuda(d, o, valid, lane_bound, lanes: int, s, enabled):
     n_pad = d.shape[-1]
-    if n_pad % NB or d.dim() not in (2, 3) or d.shape[-2] != 3:
-        raise ValueError(f"cone_table: d must be (3, n_pad) or (O, 3, n_pad) with n_pad a "
-                         f"multiple of {NB}, got {tuple(d.shape)}")
-    if s is not None and d.dim() != 3:
-        raise ValueError("cone_table: the pool's scales need (O, 3, n_pad) rays")
     O = d.shape[0] if d.dim() == 3 else 1
-    f32, dev = torch.float32, d.device
+    f32 = torch.float32
     specs = [(d, f32, d.shape), (o, f32, d.shape)]
     if lane_bound is not None:
         if lane_bound.shape not in ((n_pad,), d.shape[:-2] + (n_pad,)):
@@ -211,11 +201,47 @@ def cone_table(d, o, valid=None, lane_bound=None, lanes=SUB_LANES, s=None, enabl
     sd, so = _strides(d, 3), _strides(o, 3)
     slb = _strides(lane_bound, 2) if lane_bound is not None else [0, 0]
     ss = _strides(s, 2) if s is not None else [0, 0]
-    G = n_pad // lanes
-    rows = torch.empty((*d.shape[:-2], G, CONE_COLS), dtype=f32, device=dev)
-    smin = torch.empty((O, n_pad // NB), dtype=f32, device=dev) if s is not None else None
+    rows, smin = _cone_table_fake(d, o, valid, lane_bound, lanes, s, enabled)
     launch("rpt_cone_table", d, *sd, o, *so, valid, lane_bound, *slb, s, *ss, enabled, O,
-           n_pad, lanes, rows, smin)
+           n_pad, lanes, rows, smin if s is not None else None)
+    return rows, smin
+
+
+def _cone_table_cpu(d, o, valid, lane_bound, lanes: int, s, enabled):
+    out = cone_table_plain(d, o, valid, lane_bound, lanes, s, enabled)
+    return out if s is not None else (out, d.new_empty(0))
+
+
+def _cone_table_fake(d, o, valid, lane_bound, lanes: int, s, enabled):
+    n_pad = d.shape[-1]
+    rows = d.new_empty((*d.shape[:-2], n_pad // lanes, CONE_COLS), dtype=torch.float32)
+    smin = d.new_empty((d.shape[0], n_pad // NB) if s is not None else 0, dtype=torch.float32)
+    return rows, smin
+
+
+_cone_table_op = define_op(
+    "cone_table", "(Tensor d, Tensor o, Tensor? valid, Tensor? lane_bound, int lanes, "
+    "Tensor? s, Tensor? enabled) -> (Tensor, Tensor)", _cone_table_cuda, _cone_table_cpu,
+    _cone_table_fake)
+
+
+def cone_table(d, o, valid=None, lane_bound=None, lanes=SUB_LANES, s=None, enabled=None):
+    """K4's cone table: the rpt_cone_table kernel on CUDA tensors, the plain
+    twin on CPU tensors; arguments and results as `cone_table_plain`. The
+    kernel reads d, o, lane_bound and s where they lie (any strides: a
+    stride-0 origin, rows of a larger array); valid and enabled are
+    contiguous; n_pad is a multiple of NB and lanes is 128 or 1024."""
+    if d.device.type != "cpu":
+        if lanes not in (SUB_LANES, NB):
+            raise ValueError(f"cone_table: lanes must be {SUB_LANES} or {NB}, got {lanes}")
+        n_pad = d.shape[-1]
+        if n_pad % NB or d.dim() not in (2, 3) or d.shape[-2] != 3:
+            raise ValueError(f"cone_table: d must be (3, n_pad) or (O, 3, n_pad) with n_pad a "
+                             f"multiple of {NB}, got {tuple(d.shape)}")
+        if s is not None and d.dim() != 3:
+            raise ValueError("cone_table: the pool's scales need (O, 3, n_pad) rays")
+        on_cpu("cone_table", d)
+    rows, smin = _cone_table_op(d, o, valid, lane_bound, lanes, s, enabled)
     return rows if s is None else (rows, smin)
 
 
@@ -342,6 +368,60 @@ def group_may_overlap_plain(spheres, table, sub=SUB, use_bound=False, cobj=None)
     return ~(dead.reshape(n // sub, sub, -1).all(dim=1) & tested)
 
 
+def _cull_cuda(spheres, table, sub: int, use_bound: bool, cobj, smin, s: int, n_words: int,
+               floors: bool, count: bool):
+    C = spheres.shape[0]
+    O = table.shape[0] if table.dim() == 3 else 1
+    B = table.shape[-2] // sub
+    f32 = torch.float32
+    specs = [(spheres, f32, (C, 4)), (table, f32, (*table.shape[:-2], B * sub, CONE_COLS))]
+    if cobj is not None:
+        specs += [(cobj, torch.int32, (C,)), (smin, f32, (O, B))]
+    check_cuda("live_cull", *specs)
+    a, b, c, _ = _cull_fake(spheres, table, sub, use_bound, cobj, smin, s, n_words, floors,
+                            count)
+    skipped = counter(spheres, count)
+    skip = skipped if count else None
+    if not s:
+        launch("rpt_live_cull", spheres, C, table, B, sub, cobj, smin, int(use_bound), 0, 0,
+               a, b, None, None, None, skip)
+    else:
+        launch("rpt_live_cull", spheres, C, table, B, sub, cobj, smin, int(use_bound), s,
+               n_words, None, None, a, b if floors else None, c if floors else None, skip)
+    return a, b, c, skipped
+
+
+def _cull_cpu(spheres, table, sub: int, use_bound: bool, cobj, smin, s: int, n_words: int,
+              floors: bool, count: bool):
+    out = live_cull_plain(spheres, table, sub, use_bound, cobj, smin, s, n_words, floors)
+    if not s:
+        return *out, spheres.new_empty(0), counter(spheres, count)
+    bits, mg, og = out
+    if not floors:
+        mg, og = spheres.new_empty(0), spheres.new_empty(0, dtype=torch.bool)
+    return bits, mg, og, counter(spheres, count)
+
+
+def _cull_fake(spheres, table, sub: int, use_bound: bool, cobj, smin, s: int, n_words: int,
+               floors: bool, count: bool):
+    C = spheres.shape[0]
+    B = table.shape[-2] // sub
+    skipped = spheres.new_empty(1 if count else 0, dtype=torch.int32)
+    if not s:
+        return (spheres.new_empty((B, C)), spheres.new_empty((B, C), dtype=torch.bool),
+                spheres.new_empty(0), skipped)
+    C_s = -(-C // s) if floors else 0
+    return (spheres.new_empty((B, n_words), dtype=torch.int32),
+            spheres.new_empty((B, C_s) if floors else 0),
+            spheres.new_empty((B, C_s) if floors else 0, dtype=torch.bool), skipped)
+
+
+_cull_op = define_op(
+    "live_cull", "(Tensor spheres, Tensor table, int sub, bool use_bound, Tensor? cobj, "
+    "Tensor? smin, int s, int n_words, bool floors, bool count) "
+    "-> (Tensor, Tensor, Tensor, Tensor)", _cull_cuda, _cull_cpu, _cull_fake)
+
+
 def live_cull(spheres, table, sub=SUB, use_bound=False, cobj=None, smin=None, s=0, n_words=0,
               floors=True, skipped=None):
     """K4's cull: the rpt_live_cull kernel on CUDA tensors, the plain twin
@@ -350,33 +430,15 @@ def live_cull(spheres, table, sub=SUB, use_bound=False, cobj=None, smin=None, s=
     card, gains the (block, GROUP-chunk group) pairs whose cone tests the
     kernel's pre-test skipped (the twin skips none and leaves it); the frame
     path passes none."""
-    if spheres.device.type == "cpu":
-        return live_cull_plain(spheres, table, sub, use_bound, cobj, smin, s, n_words, floors)
-    if s and (32 % s if s < 32 else s % 32):
+    if not on_cpu("live_cull", spheres) and s and (32 % s if s < 32 else s % 32):
         raise ValueError(f"live_cull: s must divide 32 or be a multiple of it, got {s}")
-    C = spheres.shape[0]
-    O = table.shape[0] if table.dim() == 3 else 1
-    B = table.shape[-2] // sub
-    f32, dev = torch.float32, spheres.device
-    specs = [(spheres, f32, (C, 4)), (table, f32, (*table.shape[:-2], B * sub, CONE_COLS))]
-    if cobj is not None:
-        specs += [(cobj, torch.int32, (C,)), (smin, f32, (O, B))]
+    a, b, c, count = _cull_op(spheres, table, sub, bool(use_bound), cobj, smin, s, n_words,
+                              floors, skipped is not None)
     if skipped is not None:
-        specs.append((skipped, torch.int32, (1,)))
-    check_cuda("live_cull", *specs)
+        skipped += count
     if not s:
-        mind = torch.empty((B, C), dtype=f32, device=dev)
-        over = torch.empty((B, C), dtype=torch.bool, device=dev)
-        launch("rpt_live_cull", spheres, C, table, B, sub, cobj, smin, int(use_bound), 0, 0,
-               mind, over, None, None, None, skipped)
-        return mind, over
-    C_s = -(-C // s)
-    bits = torch.empty((B, n_words), dtype=torch.int32, device=dev)
-    mg = torch.empty((B, C_s), dtype=f32, device=dev) if floors else None
-    og = torch.empty((B, C_s), dtype=torch.bool, device=dev) if floors else None
-    launch("rpt_live_cull", spheres, C, table, B, sub, cobj, smin, int(use_bound), s, n_words,
-           None, None, bits, mg, og, skipped)
-    return bits, mg, og
+        return a, b
+    return (a, b, c) if floors else (a, None, None)
 
 
 def bucket_ids_plain(mind, overlap):
@@ -417,18 +479,29 @@ def bucket_order_plain(mind, overlap):
     return order, key, counts
 
 
+def _sort_cuda(mind, overlap):
+    B, C = mind.shape
+    check_cuda("bucket_order", (mind, torch.float32, (B, C)), (overlap, torch.bool, (B, C)))
+    order, key, counts = _sort_fake(mind, overlap)
+    launch("rpt_bucket_order", mind, overlap, B, C, order, key, counts)
+    return order, key, counts
+
+
+def _sort_fake(mind, overlap):
+    B, C = mind.shape
+    return (mind.new_empty((B, C), dtype=torch.int32), mind.new_empty((B, C)),
+            mind.new_empty(B, dtype=torch.int32))
+
+
+_sort_op = define_op("bucket_order", "(Tensor mind, Tensor overlap) -> (Tensor, Tensor, Tensor)",
+                     _sort_cuda, bucket_order_plain, _sort_fake)
+
+
 def bucket_order(mind, overlap):
     """K4's sort: the rpt_bucket_order kernel on CUDA tensors, the plain
     twin on CPU tensors; arguments and results as `bucket_order_plain`."""
-    if mind.device.type == "cpu":
-        return bucket_order_plain(mind, overlap)
-    B, C = mind.shape
-    check_cuda("bucket_order", (mind, torch.float32, (B, C)), (overlap, torch.bool, (B, C)))
-    order = torch.empty((B, C), dtype=torch.int32, device=mind.device)
-    key = torch.empty((B, C), dtype=torch.float32, device=mind.device)
-    counts = torch.empty(B, dtype=torch.int32, device=mind.device)
-    launch("rpt_bucket_order", mind, overlap, B, C, order, key, counts)
-    return order, key, counts
+    on_cpu("bucket_order", mind)
+    return _sort_op(mind, overlap)
 
 
 def _list_ops(plain: bool):
@@ -665,25 +738,38 @@ def shared_walk_plain(order, minds, counts, box, tri, attrs, dh_p):
                              dh_p)
 
 
-def shared_walk(order, minds, counts, box, tri, attrs, dh_p):
-    """K5 walk over live lists: the CUDA kernel on CUDA tensors, the plain
-    twin on CPU tensors. order/minds (B, C), counts (B,), box (9,)
-    [lo hi ro], tri (T_pad, 10), attrs (T_pad, 15), dh_p (3, B * NB)."""
-    if dh_p.device.type == "cpu":
-        return shared_walk_plain(order, minds, counts, box, tri, attrs, dh_p)
+def _shared_walk_cuda(order, minds, counts, box, tri, attrs, dh_p):
     B, C = order.shape
     n_pad = B * NB
     f32, i32 = torch.float32, torch.int32
     check_cuda("shared_walk", (order, i32, (B, C)), (minds, f32, (B, C)), (counts, i32, (B,)),
                (box, f32, (9,)), (tri, f32, (C * TC, 10)), (attrs, f32, (C * TC, N_ATTR)),
                (dh_p, f32, (3, n_pad)))
-    t = torch.empty(n_pad, dtype=torch.float32, device=dh_p.device)
-    u, v = torch.empty_like(t), torch.empty_like(t)
-    tri_out = torch.empty(n_pad, dtype=torch.int32, device=dh_p.device)
-    attr = torch.empty((N_ATTR, n_pad), dtype=torch.float32, device=dh_p.device)
+    t, u, v, tri_out, attr = _shared_walk_fake(order, minds, counts, box, tri, attrs, dh_p)
     launch("rpt_shared_walk", order, minds, counts, box, tri, attrs, dh_p, n_pad, C,
            t, u, v, tri_out, attr)
     return t, u, v, tri_out, attr
+
+
+def _shared_walk_fake(order, minds, counts, box, tri, attrs, *rest):
+    """Results of a shared-origin walk over B blocks: t, u, v, tri, attr."""
+    n_pad = order.shape[0] * NB
+    return (*(box.new_empty(n_pad) for _ in range(3)), box.new_empty(n_pad, dtype=torch.int32),
+            box.new_empty((N_ATTR, n_pad)))
+
+
+_shared_walk_op = define_op(
+    "shared_walk", "(Tensor order, Tensor minds, Tensor counts, Tensor box, Tensor tri, "
+    "Tensor attrs, Tensor dh_p) -> (Tensor, Tensor, Tensor, Tensor, Tensor)",
+    _shared_walk_cuda, shared_walk_plain, _shared_walk_fake)
+
+
+def shared_walk(order, minds, counts, box, tri, attrs, dh_p):
+    """K5 walk over live lists: the CUDA kernel on CUDA tensors, the plain
+    twin on CPU tensors. order/minds (B, C), counts (B,), box (9,)
+    [lo hi ro], tri (T_pad, 10), attrs (T_pad, 15), dh_p (3, B * NB)."""
+    on_cpu("shared_walk", dh_p)
+    return _shared_walk_op(order, minds, counts, box, tri, attrs, dh_p)
 
 
 def walk_general_lists(chunks, floors, n_live, box, rows, r10_p, tmax2, T=None, walked=False):
@@ -731,21 +817,35 @@ def general_walk_plain(order, minds, counts, box, rows, r10_p, tmax2):
                               tmax2)
 
 
-def general_walk(order, minds, counts, box, rows, r10_p, tmax2):
-    """K6 walk: the CUDA kernel on CUDA tensors, the plain twin on CPU
-    tensors. box (6,) [lo hi], rows (T_pad, 20), r10_p (10, B * NB),
-    tmax2 (2, B * NB) [tmax; tcut]."""
-    if r10_p.device.type == "cpu":
-        return general_walk_plain(order, minds, counts, box, rows, r10_p, tmax2)
+def _general_walk_cuda(order, minds, counts, box, rows, r10_p, tmax2):
     B, C = order.shape
     n_pad = B * NB
     f32, i32 = torch.float32, torch.int32
     check_cuda("general_walk", (order, i32, (B, C)), (minds, f32, (B, C)), (counts, i32, (B,)),
                (box, f32, (6,)), (rows, f32, (C * TC_GEN, 20)), (r10_p, f32, (10, n_pad)),
                (tmax2, f32, (2, n_pad)))
-    t = torch.empty(n_pad, dtype=torch.float32, device=r10_p.device)
+    t = _general_walk_fake(order)
     launch("rpt_general_walk", order, minds, counts, box, rows, r10_p, tmax2, n_pad, C, t)
     return t
+
+
+def _general_walk_fake(order, *rest):
+    """Result of a shadow walk over B blocks: t (B * NB,) f32."""
+    return order.new_empty(order.shape[0] * NB, dtype=torch.float32)
+
+
+_general_walk_op = define_op(
+    "general_walk", "(Tensor order, Tensor minds, Tensor counts, Tensor box, Tensor rows, "
+    "Tensor r10_p, Tensor tmax2) -> Tensor", _general_walk_cuda, general_walk_plain,
+    _general_walk_fake)
+
+
+def general_walk(order, minds, counts, box, rows, r10_p, tmax2):
+    """K6 walk: the CUDA kernel on CUDA tensors, the plain twin on CPU
+    tensors. box (6,) [lo hi], rows (T_pad, 20), r10_p (10, B * NB),
+    tmax2 (2, B * NB) [tmax; tcut]."""
+    on_cpu("general_walk", r10_p)
+    return _general_walk_op(order, minds, counts, box, rows, r10_p, tmax2)
 
 
 def shared_nearest_hit(consts, c_t, attrs, spheres, dh, ro):

@@ -18,7 +18,9 @@ needs 128-lane DMA regions; the port's kernels read the same (T_pad, 10),
 records of its own (`pack_*_records` and the bf16-split attributes are not
 ported).
 
-`large_shared_walk` and `large_general_walk` launch the CUDA kernels
+`large_shared_walk` and `large_general_walk` (through their operators
+torch.ops.rpt.large_shared_walk and torch.ops.rpt.large_general_walk)
+launch the CUDA kernels
 (csrc/mesh_kernels.cu, the K5/K6 walks fed the superchunk lists) on CUDA
 tensors; on CPU tensors they call their plain twins, which write the cursor
 out as a per-block list of live chunks with their floors
@@ -29,11 +31,11 @@ from __future__ import annotations
 
 import torch
 
-from ._build import check_cuda, launch
+from ._build import check_cuda, define_op, launch, on_cpu
 from .mesh_kernels import (
-    N_ATTR, NB, TC, _box_of, _general_lane_bound, _pad_lanes, _round_up, live_chunk_lists2,
-    live_chunk_lists2_plain, live_chunk_lists3, live_chunk_lists3_plain, shared_tri_rows,
-    walk_general_lists, walk_shared_lists)
+    N_ATTR, NB, TC, _box_of, _general_lane_bound, _general_walk_fake, _pad_lanes, _round_up,
+    _shared_walk_fake, live_chunk_lists2, live_chunk_lists2_plain, live_chunk_lists3,
+    live_chunk_lists3_plain, shared_tri_rows, walk_general_lists, walk_shared_lists)
 
 S_SUPER = 32  # chunks per superchunk
 LARGE_T = 24576  # T_pad above which the JAX package's VMEM kernels stop fitting
@@ -92,17 +94,7 @@ def large_shared_walk_plain(order, minds, counts, bits, box, tri, attrs, dh_p, S
     return walk_shared_lists(chunks, floors, n_live, box, tri, attrs, dh_p, T)
 
 
-def large_shared_walk(order, minds, counts, bits, box, tri, attrs, dh_p, S: int, C: int,
-                      T: int):
-    """K11 walk: the CUDA kernel on CUDA tensors, the plain twin on CPU
-    tensors. order/minds (B, C_s), counts (B,), bits (B, W), box (9,)
-    [lo hi ro], tri (C * TC, 10), attrs (C * TC, 15), dh_p (3, B * NB); S
-    chunks per super, C chunks, T real triangles."""
-    if dh_p.device.type == "cpu":
-        return large_shared_walk_plain(order, minds, counts, bits, box, tri, attrs, dh_p, S,
-                                       C, T)
-    if S % 32 != 0:
-        raise ValueError(f"large_shared_walk: S must be a multiple of 32, got {S}")
+def _shared_cuda(order, minds, counts, bits, box, tri, attrs, dh_p, S: int, C: int, T: int):
     B, C_s = order.shape
     W = bits.shape[1]
     n_pad = B * NB
@@ -111,13 +103,33 @@ def large_shared_walk(order, minds, counts, bits, box, tri, attrs, dh_p, S: int,
                (counts, i32, (B,)), (bits, i32, (B, W)), (box, f32, (9,)),
                (tri, f32, (C * TC, 10)), (attrs, f32, (C * TC, N_ATTR)),
                (dh_p, f32, (3, n_pad)))
-    t = torch.empty(n_pad, dtype=f32, device=dh_p.device)
-    u, v = torch.empty_like(t), torch.empty_like(t)
-    tri_out = torch.empty(n_pad, dtype=i32, device=dh_p.device)
-    attr = torch.empty((N_ATTR, n_pad), dtype=f32, device=dh_p.device)
+    t, u, v, tri_out, attr = _shared_walk_fake(order, minds, counts, box, tri, attrs)
     launch("rpt_large_shared_walk", order, minds, counts, bits, box, tri, attrs, dh_p, n_pad,
            C_s, W, S, C, T, t, u, v, tri_out, attr)
     return t, u, v, tri_out, attr
+
+
+def _shared_fake(order, minds, counts, bits, box, tri, attrs, dh_p, S: int, C: int, T: int):
+    return _shared_walk_fake(order, minds, counts, box, tri, attrs)
+
+
+_shared_op = define_op(
+    "large_shared_walk", "(Tensor order, Tensor minds, Tensor counts, Tensor bits, Tensor box, "
+    "Tensor tri, Tensor attrs, Tensor dh_p, int S, int C, int T) "
+    "-> (Tensor, Tensor, Tensor, Tensor, Tensor)", _shared_cuda, large_shared_walk_plain,
+    _shared_fake)
+
+
+def large_shared_walk(order, minds, counts, bits, box, tri, attrs, dh_p, S: int, C: int,
+                      T: int):
+    """K11 walk: the CUDA kernel on CUDA tensors, the plain twin on CPU
+    tensors. order/minds (B, C_s), counts (B,), bits (B, W), box (9,)
+    [lo hi ro], tri (C * TC, 10), attrs (C * TC, 15), dh_p (3, B * NB); S
+    chunks per super, C chunks, T real triangles."""
+    if dh_p.device.type != "cpu" and S % 32 != 0:
+        raise ValueError(f"large_shared_walk: S must be a multiple of 32, got {S}")
+    on_cpu("large_shared_walk", dh_p)
+    return _shared_op(order, minds, counts, bits, box, tri, attrs, dh_p, S, C, T)
 
 
 def large_general_walk_plain(order, minds, counts, bits, box, rows, r10_p, tmax2, S: int,
@@ -127,16 +139,8 @@ def large_general_walk_plain(order, minds, counts, bits, box, rows, r10_p, tmax2
     return walk_general_lists(chunks, floors, n_live, box, rows, r10_p, tmax2, T)
 
 
-def large_general_walk(order, minds, counts, bits, box, rows, r10_p, tmax2, S: int, C: int,
-                       T: int):
-    """K12 walk: the CUDA kernel on CUDA tensors, the plain twin on CPU
-    tensors. box (6,) [lo hi], rows (C * TC, 20), r10_p (10, B * NB), tmax2
-    (2, B * NB) [tmax; tcut]; the lists as for `large_shared_walk`."""
-    if r10_p.device.type == "cpu":
-        return large_general_walk_plain(order, minds, counts, bits, box, rows, r10_p, tmax2,
-                                        S, C, T)
-    if S % 32 != 0:
-        raise ValueError(f"large_general_walk: S must be a multiple of 32, got {S}")
+def _general_cuda(order, minds, counts, bits, box, rows, r10_p, tmax2, S: int, C: int,
+                  T: int):
     B, C_s = order.shape
     W = bits.shape[1]
     n_pad = B * NB
@@ -144,10 +148,27 @@ def large_general_walk(order, minds, counts, bits, box, rows, r10_p, tmax2, S: i
     check_cuda("large_general_walk", (order, i32, (B, C_s)), (minds, f32, (B, C_s)),
                (counts, i32, (B,)), (bits, i32, (B, W)), (box, f32, (6,)),
                (rows, f32, (C * TC, 20)), (r10_p, f32, (10, n_pad)), (tmax2, f32, (2, n_pad)))
-    t = torch.empty(n_pad, dtype=f32, device=r10_p.device)
+    t = _general_walk_fake(order)
     launch("rpt_large_general_walk", order, minds, counts, bits, box, rows, r10_p, tmax2,
            n_pad, C_s, W, S, C, T, t)
     return t
+
+
+_general_op = define_op(
+    "large_general_walk", "(Tensor order, Tensor minds, Tensor counts, Tensor bits, "
+    "Tensor box, Tensor rows, Tensor r10_p, Tensor tmax2, int S, int C, int T) -> Tensor",
+    _general_cuda, large_general_walk_plain, _general_walk_fake)
+
+
+def large_general_walk(order, minds, counts, bits, box, rows, r10_p, tmax2, S: int, C: int,
+                       T: int):
+    """K12 walk: the CUDA kernel on CUDA tensors, the plain twin on CPU
+    tensors. box (6,) [lo hi], rows (C * TC, 20), r10_p (10, B * NB), tmax2
+    (2, B * NB) [tmax; tcut]; the lists as for `large_shared_walk`."""
+    if r10_p.device.type != "cpu" and S % 32 != 0:
+        raise ValueError(f"large_general_walk: S must be a multiple of 32, got {S}")
+    on_cpu("large_general_walk", r10_p)
+    return _general_op(order, minds, counts, bits, box, rows, r10_p, tmax2, S, C, T)
 
 
 def large_shared_nearest_hit(consts, c_t, attrs, spheres, dh, ro, T: int):

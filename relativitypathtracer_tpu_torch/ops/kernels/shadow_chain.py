@@ -9,15 +9,16 @@ normal bias; it hops to the light's frame, where the retarded direction
 frame and to the hit object's frame for N.L. Lanes that missed compute with
 t = 1 stand-ins; every consumer masks them.
 
-`shadow_chain` launches the CUDA kernel (csrc/shadow_chain.cu) on CUDA
-tensors and calls its plain twin `shadow_chain_plain` on CPU tensors.
+`shadow_chain` calls the operator torch.ops.rpt.shadow_chain, which launches
+the CUDA kernel (csrc/shadow_chain.cu) on CUDA tensors and runs its plain twin
+`shadow_chain_plain` on CPU tensors.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ._build import check_cuda, launch
+from ._build import check_cuda, define_op, launch, on_cpu
 
 INF = 1e20
 MROWS = 40  # per-object table rows: L(16) | invL(16) | stat_cam(4) | pad
@@ -68,22 +69,35 @@ def shadow_chain_plain(mats, light_row, dir4, t, normal, obj, interval: int):
     return torch.stack(hp), torch.stack(ld[1:4]), ndotl, tmax, llen
 
 
-def shadow_chain(mats, light_row, dir4, t, normal, obj, interval: int):
-    """K1 for one light: the CUDA kernel on CUDA tensors, the plain twin on
-    CPU tensors. mats: (MROWS, O); light_row: (1, LIGHT_COLS); dir4: (4, N);
-    t: (N,); normal: (3, N) rest frame; obj: (N,) int32."""
-    if dir4.device.type == "cpu":
-        return shadow_chain_plain(mats, light_row, dir4, t, normal, obj, interval)
-    dir4, t, normal = dir4.contiguous(), t.contiguous(), normal.contiguous()
+def _shadow_chain_cuda(mats, light_row, dir4, t, normal, obj, interval: int):
     n = dir4.shape[1]
     f32 = torch.float32
     check_cuda("shadow_chain", (mats, f32, (MROWS, mats.shape[1])),
                (light_row, f32, (1, LIGHT_COLS)), (dir4, f32, (4, n)), (t, f32, (n,)),
                (normal, f32, (3, n)), (obj, torch.int32, (n,)))
-    dev = dir4.device
-    hit = torch.empty((4, n), dtype=torch.float32, device=dev)
-    ld = torch.empty((3, n), dtype=torch.float32, device=dev)
-    ndotl, tmax, llen = (torch.empty(n, dtype=torch.float32, device=dev) for _ in range(3))
+    hit, ld, ndotl, tmax, llen = _shadow_chain_fake(mats, light_row, dir4, t, normal, obj,
+                                                    interval)
     launch("rpt_shadow_chain", mats, mats.shape[1], light_row, dir4, t, normal, obj,
            float(interval), n, hit, ld, ndotl, tmax, llen)
     return hit, ld, ndotl, tmax, llen
+
+
+def _shadow_chain_fake(mats, light_row, dir4, t, normal, obj, interval: int):
+    n = dir4.shape[1]
+    return (dir4.new_empty((4, n)), dir4.new_empty((3, n)),
+            *(dir4.new_empty(n) for _ in range(3)))
+
+
+_shadow_chain_op = define_op(
+    "shadow_chain", "(Tensor mats, Tensor light_row, Tensor dir4, Tensor t, Tensor normal, "
+    "Tensor obj, int interval) -> (Tensor, Tensor, Tensor, Tensor, Tensor)",
+    _shadow_chain_cuda, shadow_chain_plain, _shadow_chain_fake)
+
+
+def shadow_chain(mats, light_row, dir4, t, normal, obj, interval: int):
+    """K1 for one light: the CUDA kernel on CUDA tensors, the plain twin on
+    CPU tensors. mats: (MROWS, O); light_row: (1, LIGHT_COLS); dir4: (4, N);
+    t: (N,); normal: (3, N) rest frame; obj: (N,) int32."""
+    if not on_cpu("shadow_chain", dir4):
+        dir4, t, normal = dir4.contiguous(), t.contiguous(), normal.contiguous()
+    return _shadow_chain_op(mats, light_row, dir4, t, normal, obj, int(interval))

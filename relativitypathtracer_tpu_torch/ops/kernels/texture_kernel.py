@@ -24,8 +24,9 @@ the select that follows the fetch in the renderer (the JAX package's
 `jnp.where(textured, tex_rgb, flat_rgb)`), so a lane on an untextured object
 gets its flat colour. `footprint_sample_small` / `footprint_sample_windowed`
 keep the JAX package's per-lane signature, the texel on every lane. All
-launch the CUDA kernel on CUDA tensors and call the plain twin
-`footprint_fetch_plain` on CPU tensors.
+call the operator torch.ops.rpt.footprint_sample, which launches the CUDA
+kernel on CUDA tensors and runs the plain twin `footprint_fetch_plain` on CPU
+tensors.
 
 A channel is k / 255 rounded to float32, which the twin reads from the
 256-entry table CHANNEL (numpy's float32 division) and the kernel computes
@@ -39,7 +40,7 @@ import numpy as np
 import torch
 
 from ..texture_layout import TABLE_COLS, tile_params, tile_slot, tile_slot_fast
-from ._build import check_cuda, launch
+from ._build import check_cuda, define_op, launch, on_cpu
 
 MAX_ROWS = 1024  # the JAX package's small-atlas (K2) limit
 # float32 k / 255 for every channel value k, correctly rounded
@@ -112,6 +113,42 @@ def footprint_fetch_plain(quads, table, obj, uv, color=None, textured=None):
     return rgb, addr_i[0] * 2 + addr_i[1]
 
 
+def _fetch_cuda(quads, table, obj, uv, color, textured, with_quads: bool):
+    n, rq, o = uv.shape[1], quads.shape[0], table.shape[0]
+    specs = [(quads, torch.int32, (rq, 8)), (table, torch.int32, (o, TABLE_COLS)),
+             (obj, torch.int32, (n,))]
+    if color is not None:
+        specs += [(color, torch.float32, (o, 3)), (textured, torch.bool, (o,))]
+    check_cuda("footprint_fetch", *specs, (uv, torch.float32, (2, n)), contiguous=False)
+    if not all(x.is_contiguous() for x, _, _ in specs):
+        raise ValueError("footprint_fetch: every input but uv must be contiguous")
+    if uv.stride(1) != 1:
+        raise ValueError("footprint_fetch: uv's rows must be contiguous")
+    if quads.data_ptr() % 16:
+        raise ValueError("footprint_fetch: the atlas must be 16-byte aligned")
+    rgb, quad = _fetch_fake(quads, table, obj, uv, color, textured, with_quads)
+    launch("rpt_footprint_sample", quads, rq, table, o, color, textured, obj, uv[0], uv[1], n,
+           rgb, quad if with_quads else None, key=f"rpt_footprint_sample/{texture_route(rq)}")
+    return rgb, quad
+
+
+def _fetch_cpu(quads, table, obj, uv, color, textured, with_quads: bool):
+    rgb, quad = footprint_fetch_plain(quads, table, obj, uv, color, textured)
+    return rgb, quad if with_quads else quad.new_empty(0)
+
+
+def _fetch_fake(quads, table, obj, uv, color, textured, with_quads: bool):
+    n = uv.shape[1]
+    return (uv.new_empty((3, n), dtype=torch.float32),
+            uv.new_empty(n if with_quads else 0, dtype=torch.int32))
+
+
+_fetch_op = define_op(
+    "footprint_sample", "(Tensor quads, Tensor table, Tensor obj, Tensor uv, Tensor? color, "
+    "Tensor? textured, bool with_quads) -> (Tensor, Tensor)", _fetch_cuda, _fetch_cpu,
+    _fetch_fake)
+
+
 def footprint_fetch(quads, table, obj, uv, color=None, textured=None, with_quads: bool = False):
     """Bilinear texel of every lane from the footprint atlas. quads: (Rq, 8)
     int32; table: (O, TABLE_COLS) int32 from texture_layout.texture_table (or
@@ -123,25 +160,9 @@ def footprint_fetch(quads, table, obj, uv, color=None, textured=None, with_quads
     read. The launch counts under texture_route's route for Rq."""
     if (color is None) != (textured is None):
         raise ValueError("footprint_fetch: give color and textured together")
-    if uv.device.type == "cpu":
-        rgb, quad = footprint_fetch_plain(quads, table, obj, uv, color, textured)
-        return (rgb, quad) if with_quads else rgb
-    if uv.dim() != 2 or uv.stride(1) != 1:
+    if not on_cpu("footprint_fetch", uv) and (uv.dim() != 2 or uv.stride(1) != 1):
         uv = uv.contiguous()
-    n, rq, o = uv.shape[1], quads.shape[0], table.shape[0]
-    specs = [(quads, torch.int32, (rq, 8)), (table, torch.int32, (o, TABLE_COLS)),
-             (obj, torch.int32, (n,))]
-    if color is not None:
-        specs += [(color, torch.float32, (o, 3)), (textured, torch.bool, (o,))]
-    check_cuda("footprint_fetch", *specs, (uv, torch.float32, (2, n)), contiguous=False)
-    if not all(x.is_contiguous() for x, _, _ in specs):
-        raise ValueError("footprint_fetch: every input but uv must be contiguous")
-    if quads.data_ptr() % 16:
-        raise ValueError("footprint_fetch: the atlas must be 16-byte aligned")
-    rgb = torch.empty((3, n), dtype=torch.float32, device=uv.device)
-    quad = torch.empty(n, dtype=torch.int32, device=uv.device) if with_quads else None
-    launch("rpt_footprint_sample", quads, rq, table, o, color, textured, obj, uv[0], uv[1], n,
-           rgb, quad, key=f"rpt_footprint_sample/{texture_route(rq)}")
+    rgb, quad = _fetch_op(quads, table, obj, uv, color, textured, with_quads)
     return (rgb, quad) if with_quads else rgb
 
 

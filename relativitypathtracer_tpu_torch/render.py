@@ -220,11 +220,40 @@ def tile_swizzle(img_vec, ph: int, pw: int):
     return x.permute(0, 1, 4, 2, 5, 3, 6).reshape(k, ph * pw)
 
 
-def tile_unswizzle(img_vec, ph: int, pw: int):
-    """Inverse of tile_swizzle."""
+def tile_unswizzle(img_vec, ph: int, pw: int, p: int = TILE):
+    """Inverse of tile_swizzle for p = TILE; the sharded renderer's folded
+    msaa (parallel/tiles) passes its patch edge p = TILE // m, its samples
+    already averaged away."""
     k = img_vec.shape[0]
-    h = TILE // 2
-    x = img_vec.reshape(k, ph // TILE, pw // TILE, 2, 2, h, h)
+    h = p // 2
+    x = img_vec.reshape(k, ph // p, pw // p, 2, 2, h, h)
+    return x.permute(0, 1, 3, 5, 2, 4, 6).reshape(k, ph * pw)
+
+
+def msaa_swizzle(dirs_samples, ph: int, pw: int, m: int):
+    """Fold the m*m sample sets into the ray axis, patch-major, as the JAX
+    package's msaa_swizzle (JAX render.py:561-584): each 1024-lane block
+    covers a (TILE // m)^2-pixel patch with all its samples (the sample index
+    minor), in four quadrants of 256 lanes. Only the sharded renderer uses
+    it (folding keeps every shard a whole number of blocks); the
+    single-device renderer takes one pass per sample set.
+    dirs_samples: (m*m, ph, pw, 3). Returns (3, ph*pw*m*m)."""
+    p = TILE // m  # pixel patch edge
+    h = p // 2
+    x = dirs_samples.permute(3, 1, 2, 0)  # (3, ph, pw, S)
+    x = x.reshape(3, ph // p, 2, h, pw // p, 2, h, m * m)
+    x = x.permute(0, 1, 4, 2, 5, 3, 6, 7)  # (3, pr, pc, qr, qc, r, c, S)
+    return x.reshape(3, ph * pw * m * m)
+
+
+def msaa_mean_unswizzle(vec, ph: int, pw: int, m: int):
+    """Average the folded samples and restore row-major pixel order (JAX
+    render.py:587-595). vec: (k, ph*pw*m*m) in msaa_swizzle order.
+    Returns (k, ph*pw)."""
+    k = vec.shape[0]
+    p = TILE // m
+    h = p // 2
+    x = vec.reshape(k, ph // p, pw // p, 2, 2, h, h, m * m).mean(dim=7)
     return x.permute(0, 1, 3, 5, 2, 4, 6).reshape(k, ph * pw)
 
 
@@ -252,6 +281,42 @@ def to_uint8(img):
     return (img.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
 
 
+def render_constants(meta: SceneMeta, width: int, height: int, msaa: int, device):
+    """The constants of build_render_fn's frame, made once per renderer:
+    dirs (msaa**2, 3, ph*pw), each sample set's camera dirs in tile order;
+    the meshes' Morton orders (mesh_perm_tensors); the miss colour (3, 1)."""
+    ph = _round_up(height, TILE)
+    pw = _round_up(width, TILE)
+    samples = camera_ray_dirs(width, height, msaa, pw, ph, device=device).reshape(
+        msaa * msaa, -1, 3)
+    dirs = torch.stack([tile_swizzle(d.T, ph, pw) for d in samples])
+    return dirs, mesh_perm_tensors(meta, device), torch.tensor(MISS_COLOR, device=device)[:, None]
+
+
+def trace_frame(scene: Scene, meta: SceneMeta, state: FrameState, dirs, perms, miss,
+                interval: int, width: int, height: int, with_aux: bool = False,
+                out_uint8: bool = False):
+    """One frame of build_render_fn's renderer from its constants
+    (render_constants): one shade pass per sample set of dirs, colours
+    averaged, tonemap, unswizzle and crop. The caller holds
+    `full_precision()`."""
+    ph = _round_up(height, TILE)
+    pw = _round_up(width, TILE)
+    L, inv_L, stat_cam = object_frames(scene.objects, state)
+    color, aux = shade(scene, meta, L, inv_L, stat_cam, dirs[0], interval, perms, miss)
+    for k in range(1, dirs.shape[0]):
+        c, a = shade(scene, meta, L, inv_L, stat_cam, dirs[k], interval, perms, miss)
+        color = color + c
+        aux = {key: aux[key] + a[key] for key in aux}
+    if dirs.shape[0] > 1:
+        color = color / float(dirs.shape[0])
+    img = tonemap(tile_unswizzle(color, ph, pw).T, scene.white_point)
+    img = img.reshape(ph, pw, 3)[:height, :width]
+    if out_uint8:
+        img = to_uint8(img)
+    return (img, aux) if with_aux else img
+
+
 def build_render_fn(meta: SceneMeta, width: int, height: int, interval: int,
                     msaa: int = 1, with_aux: bool = False, out_uint8: bool = False,
                     device=DEFAULT_DEVICE):
@@ -266,32 +331,12 @@ def build_render_fn(meta: SceneMeta, width: int, height: int, interval: int,
     the renderer changes no process-wide setting."""
     if msaa < 1:
         raise ValueError(f"msaa must be >= 1, got {msaa}")
-    ph = _round_up(height, TILE)
-    pw = _round_up(width, TILE)
-    samples = camera_ray_dirs(width, height, msaa, pw, ph, device=device).reshape(
-        msaa * msaa, -1, 3)
-    dirs = [tile_swizzle(d.T, ph, pw).contiguous() for d in samples]
-    perms = mesh_perm_tensors(meta, device)
-    miss = torch.tensor(MISS_COLOR, device=device)[:, None]  # once, not a copy a frame
+    dirs, perms, miss = render_constants(meta, width, height, msaa, device)
 
     def render(scene: Scene, state: FrameState):
         with full_precision():
-            return _render(scene, state)
-
-    def _render(scene: Scene, state: FrameState):
-        L, inv_L, stat_cam = object_frames(scene.objects, state)
-        color, aux = shade(scene, meta, L, inv_L, stat_cam, dirs[0], interval, perms, miss)
-        for d in dirs[1:]:
-            c, a = shade(scene, meta, L, inv_L, stat_cam, d, interval, perms, miss)
-            color = color + c
-            aux = {k: aux[k] + a[k] for k in aux}
-        if len(dirs) > 1:
-            color = color / float(len(dirs))
-        img = tonemap(tile_unswizzle(color, ph, pw).T, scene.white_point)
-        img = img.reshape(ph, pw, 3)[:height, :width]
-        if out_uint8:
-            img = to_uint8(img)
-        return (img, aux) if with_aux else img
+            return trace_frame(scene, meta, state, dirs, perms, miss, interval, width, height,
+                               with_aux, out_uint8)
 
     return render
 

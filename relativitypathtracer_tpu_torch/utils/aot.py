@@ -1,0 +1,133 @@
+"""Export of the frame renderer as a portable artifact (torch.export).
+
+Torch counterpart of `relativitypathtracer_tpu.utils.aot`. `export_render`
+traces the frame of `build_render_fn` into an ExportedProgram and serializes
+it (`torch.export.save`) to bytes; `load_render` deserializes it into
+render(scene, state). A serving host then renders without the Python scene
+pipeline or `build_render_fn`. The scene stays an argument, so one
+artifact serves any scene whose build gives the same tensor shapes (the same
+object counts, texture atlas and mesh pools): scene edits, camera motion and
+boosts with no re-export. The renderer's constants (the swizzled camera
+dirs, the meshes' Morton orders, the miss colour) are buffers of the
+exported module.
+
+Every kernel of the frame is an operator torch.ops.rpt.* (ops/kernels/
+_build.define_op): the program records each launch as one node, and the
+loaded program's CUDA nodes launch the same kernels, counted in
+_build.LAUNCHES as the live renderer's. The export traces the operators'
+shapes only (their fake implementations), never a plain twin's
+data-dependent loop.
+
+Not ported from the JAX package's aot.py:
+- the VMEM-budget lint of TPU exports (`_finish`, utils/mosaic_lint): it
+  bounds the TPU's on-core scratch memory, which the card does not have; a
+  CUDA kernel checks its own shared memory at launch;
+- lowering for other platforms than the host's (`platforms=("tpu",)` from a
+  CPU box): an export traces the port on `device`, so a CUDA artifact is
+  exported on the card, and a CPU artifact runs the plain twins.
+"""
+
+from __future__ import annotations
+
+import io
+
+import torch
+from torch.utils import _pytree as pytree
+
+from ..device import DEFAULT_DEVICE
+from ..models.scene import MeshArrays, MeshBatchStatic, MeshStatic, ObjectsSoA, Scene
+from ..parallel.tiles import ShardedFrame
+from ..render import FrameState, full_precision, render_constants, trace_frame
+
+# The artifact's input spec names every NamedTuple node of (Scene,
+# FrameState); the names are a compatibility contract, the JAX package's.
+for _t in (ObjectsSoA, MeshArrays, MeshStatic, MeshBatchStatic, Scene, FrameState):
+    if _t not in pytree.SUPPORTED_SERIALIZED_TYPES:
+        pytree._register_namedtuple(_t, serialized_type_name=f"rpt.{_t.__name__}")
+
+
+class RenderModule(torch.nn.Module):
+    """build_render_fn's frame as a module: the constants as buffers, the
+    scene and the FrameState as the arguments of forward."""
+
+    def __init__(self, meta, width: int, height: int, interval: int, msaa: int, device):
+        super().__init__()
+        if msaa < 1:
+            raise ValueError(f"msaa must be >= 1, got {msaa}")
+        self.meta, self.interval = meta, int(interval)
+        self.width, self.height = width, height
+        dirs, perms, miss = render_constants(meta, width, height, msaa, device)
+        self.register_buffer("dirs", dirs)
+        self.n_perms = len(perms)
+        for k, perm in enumerate(perms):
+            self.register_buffer(f"perm{k}", perm)
+        self.register_buffer("miss", miss)
+
+    def forward(self, scene: Scene, state: FrameState):
+        perms = tuple(getattr(self, f"perm{k}") for k in range(self.n_perms))
+        return trace_frame(scene, self.meta, state, self.dirs, perms, self.miss, self.interval,
+                           self.width, self.height)
+
+
+def _card(dev: torch.device) -> None:
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: export on the card, or pass device='cpu'")
+
+
+def _save(module: torch.nn.Module, scene, dev: torch.device) -> bytes:
+    """Export `module` with the scene (moved to dev) and a FrameState on dev
+    as its example inputs; return the serialized program."""
+    scene = pytree.tree_map(lambda x: x.to(dev) if isinstance(x, torch.Tensor) else x, scene)
+    with full_precision():
+        program = torch.export.export(module, (scene, FrameState.initial(dev)), strict=False)
+    buf = io.BytesIO()
+    torch.export.save(program, buf)
+    return buf.getvalue()
+
+
+def export_render(scene, meta, width: int, height: int, interval: int | None = None,
+                  msaa: int = 1, device=DEFAULT_DEVICE) -> bytes:
+    """Serialize the frame renderer of (meta, width, height, interval, msaa)
+    on `device`. `scene` gives only the input shapes (it is not baked in).
+    Returns the bytes of the ExportedProgram, whose forward is render(scene,
+    state) -> (H, W, 3) image."""
+    dev = torch.device(device)
+    _card(dev)
+    if interval is None:
+        interval = meta.default_interval
+    return _save(RenderModule(meta, width, height, int(interval), msaa, dev), scene, dev)
+
+
+def export_sharded_render(scene, meta, width: int, height: int, devices,
+                          interval: int | None = None, msaa: int = 1) -> bytes:
+    """Serialize the sharded renderer (parallel/tiles.py) over `devices`:
+    the artifact holds each shard's dirs on its device and so records the
+    devices; the caller passes the scene and state on devices[0]."""
+    devices = [torch.device(d) for d in devices]
+    for dev in devices:
+        _card(dev)
+    if interval is None:
+        interval = meta.default_interval
+    return _save(ShardedFrame(meta, width, height, int(interval), devices, msaa), scene,
+                 devices[0])
+
+
+def load_render(data: bytes):
+    """Deserialize an exported renderer; returns render(scene, state) ->
+    (H, W, 3) image on the artifact's device. Each call runs under
+    `full_precision()`: the TF32 switches are process state, not part of the
+    program, so the loaded program would otherwise follow the caller's.
+    Importing this module registers the operators the program calls.
+
+    The module checks each call's inputs against the exported ones (their
+    tree and shapes) in its pre-hook. It is built without torch's
+    generated guard function (check_guards=False), whose code names an input
+    by a textual replace that mangles a path with a sibling as its prefix
+    (`objects.m` inside `objects.mesh_root`)."""
+    module = torch.export.load(io.BytesIO(data)).module(check_guards=False)
+
+    def render(scene: Scene, state: FrameState):
+        with full_precision():
+            return module(scene, state)
+
+    return render

@@ -1536,3 +1536,42 @@ def test_octree_walk_on_the_card_matches_its_cpu_run(cuda, fixture_scene):
     assert torch.equal(valid.cpu(), cvalid) and int(cvalid.sum()) > 1000
     torch.testing.assert_close(t.cpu()[cvalid], ct[cvalid], rtol=1e-6, atol=0.0)
     torch.testing.assert_close(uv.cpu()[:, cvalid], cuv[:, cvalid], rtol=1e-6, atol=1e-7)
+
+
+def test_sharded_frame_on_logical_shards_equals_single(cuda, fixture_scene):
+    """The sharded renderer on four logical shards of the card: its frame
+    and counts equal build_render_fn's to the bit, its launches 4x a single
+    frame's per kernel."""
+    import relativitypathtracer_tpu_torch as pt
+    from relativitypathtracer_tpu_torch.ops.kernels import _build
+    from relativitypathtracer_tpu_torch.parallel.tiles import build_sharded_render_fn
+
+    _, (scene, meta) = fixture_scene
+    state = pt.FrameState(torch.tensor([0.5, 0.0, 0.0], device=cuda),
+                          torch.tensor([0.1, 0.0, 0.0, 0.0], device=cuda))
+    launches = []
+    outs = []
+    for render in (pt.build_render_fn(meta, 256, 192, -1, with_aux=True, device=cuda),
+                   build_sharded_render_fn(meta, 256, 192, -1, [cuda] * 4, with_aux=True)):
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        outs.append(render(scene, state))
+        torch.cuda.synchronize()
+        launches.append(dict(_build.LAUNCHES))
+    (want, waux), (img, aux) = outs
+    assert torch.equal(img, want)
+    assert {k: int(v) for k, v in aux.items()} == {k: int(v) for k, v in waux.items()}
+    assert launches[1] == {k: 4 * n for k, n in launches[0].items()}
+
+
+def test_exported_frame_equals_live_on_the_card(cuda, fixture_scene):
+    import relativitypathtracer_tpu_torch as pt
+    from relativitypathtracer_tpu_torch.utils import aot
+
+    _, (scene, meta) = fixture_scene
+    render = aot.load_render(aot.export_render(scene, meta, 256, 192, device=cuda))
+    live = pt.build_render_fn(meta, 256, 192, meta.default_interval, device=cuda)
+    for v in (0.0, 0.5):
+        state = pt.FrameState(torch.tensor([v, 0.0, 0.0], device=cuda),
+                              torch.tensor([0.1, 0.0, 0.0, 0.0], device=cuda))
+        assert torch.equal(render(scene, state), live(scene, state))

@@ -21,7 +21,8 @@ def _env(**extra):
 
 def test_port_imports_without_jax():
     code = ("import sys, relativitypathtracer_tpu_torch, relativitypathtracer_tpu_torch.cli, "
-            "relativitypathtracer_tpu_torch.utils.demo_scene; "
+            "relativitypathtracer_tpu_torch.utils.demo_scene, "
+            "relativitypathtracer_tpu_torch.parallel.tiles, relativitypathtracer_tpu_torch.utils.aot; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.startswith('relativitypathtracer_tpu.') or m == 'relativitypathtracer_tpu'); "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -139,3 +140,14 @@ def test_large_walks_refuse_partial_bit_words(walk):
     with pytest.raises(ValueError, match="multiple of 32"):
         getattr(mesh_large, walk)(m(1, 1, dtype=i32), m(1, 1), m(1, dtype=i32),
                                   m(1, 1, dtype=i32), *rest, 48, 8, 256)
+
+
+def test_launch_refuses_tensors_on_two_devices():
+    """A launch runs on the device that holds its tensors: tensors on two
+    devices raise before any build or launch."""
+    from relativitypathtracer_tpu_torch.ops.kernels import _build
+
+    with pytest.raises(ValueError, match="more than one device"):
+        _build.launch("rpt_bucket_order", torch.empty(4, 4), torch.empty(4, 4, device="meta"),
+                      4, 4, None, None, None)
+    assert not _build.LAUNCHES["rpt_bucket_order"]
