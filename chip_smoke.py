@@ -27,10 +27,19 @@ and shadows on):
              two-level lists), K11 large-tier primary walk, K12 large-tier
              shadow walk, and never K5/K6.
 For each path it:
-  1. renders 3 frames with advancing time, the last with the camera moving
-     at 0.5c, with every launch count set to 0 just before and read just
-     after, and checks the image, the counts, and that each of the path's
-     kernels was launched and no other;
+  1. calls the renderer once: its first call runs the frame eagerly (the
+     warm-up, whose inputs to each kernel step 2 uses), captures it into one
+     CUDA graph (utils/frame_graph) and replays it; then renders 3 frames
+     with advancing time, the last with the camera moving at 0.5c, each a
+     replay of that graph, with every launch count set to 0 just before and
+     read just after (a replay counts the graph's launches), and checks the
+     image, the counts, and that each of the path's kernels was launched and
+     no other; then holds the graphed frames, kept while the later ones
+     replayed, and a second scene's graphed frame to the eager frame
+     (render_constants, trace_frame) to the bit, counts and launches alike,
+     and prints eager and graph p50/p95 in turns (eager, graph, graph,
+     eager; 20 frames each), the capture seconds, the bytes a replay copies
+     in and the peak memory of both;
   2. runs each kernel against its plain PyTorch twin, both on the card, on
      the inputs the first frame gave it (the six mesh walks K5, K6, K9, K10,
      K11 and K12 equal to it bit for bit, with the chunks they walked
@@ -83,8 +92,9 @@ CPU frame, runs two phases on the textured fixture:
           against a host replay of utils/framestate.step, five frames to the
           bit against build_render_fn(out_uint8=True) of the current state,
           one 256x192 frame against the CPU's ViewerCore on the same
-          timeline, a stream_scale 2 frame against host pooling, and the
-          launches of one frame (the textured path's kernels, no other);
+          timeline, a stream_scale 2 frame against host pooling, the
+          launches of one frame (the textured path's kernels, no other), and
+          one capture a renderer (the resize within the pad replays);
           prints the wall ms of frame() (p50, p95 over 60 frames, 'w' held)
           and the host ms of step();
   octree  the octree walk (ops/octree_traverse) of a 16,384-ray fan from the
@@ -95,8 +105,9 @@ and two more on the textured and instances fixtures:
   sharded the sharded renderer (parallel/tiles.py) at 1024x768 on 4 logical
           shards of the card ([cuda:0] * 4), blocks dealt strided and
           contiguous: each frame equal to build_render_fn's to the bit, the
-          aux counts equal, and its launches, counted from 0 around the frame,
-          exactly 4x a single frame's per kernel; the p50/p95 of the sharded
+          aux counts equal, and its launches, counted from 0 around the frame
+          after the capture (one graph of the four shards), exactly 4x a
+          single frame's per kernel; the p50/p95 of the sharded
           (strided) and single frames (20 frames each); textured at 512x384,
           msaa 2 (the folded layout, render.msaa_swizzle), held under the
           parity rule to the CPU's sharded frame and to the card's per-sample
@@ -105,10 +116,11 @@ and two more on the textured and instances fixtures:
           distinct cards (else a line that says this did not run); and
           parallel.tiles.dryrun_multichip(4) on the card;
   export  utils/aot.export_render of both fixtures at 1024x768 on the card,
-          saved to bytes and loaded: the loaded frames at the three states and
-          at a second scene of the same shapes (other velocities and colours)
-          equal to the live renderer's to the bit, with a frame's launches
-          equal to the live frame's; export_sharded_render on 2 logical shards
+          saved to bytes and loaded: after the loaded program's capture, the
+          loaded frames at the three states and at a second scene of the same
+          shapes (other velocities and colours) replays of one graph, equal to
+          the live renderer's to the bit, with a frame's launches equal to the
+          live frame's; export_sharded_render on 2 logical shards
           (textured, 512x384) equal to the live sharded frame; the export tool
           tools/export_renderer_torch.py --fixture textured --device cuda
           --selfcheck run once (exit 0); prints the export seconds, the bytes
@@ -761,6 +773,10 @@ def viewer_phase(torch, pt, host, dev, card, static_launches, static_frames):
     check(core._pad == (_round_up(grow[1], TILE), _round_up(grow[0], TILE))
           and (core.width, core.height) == VIEWER_SHRINK
           and len(core._renders) == 3, f"viewer pad {core._pad}, {list(core._renders)}")
+    # one capture a renderer: the shrink within the grown pad copied new
+    # dirs into the same graph
+    check(all(r.captures == 1 for r in core._renders.values()),
+          f"viewer captures {[r.captures for r in core._renders.values()]}")
     log(f"  viewer: {len(timeline)} frames of the timeline, sim state equal to the host "
         f"replay, 5 frames equal to the static renderer's to the bit; speed "
         f"{speeds[2]:.4f} -> {speeds[11]:.4f}c, time {pos[0]:.3f} s, pad {core._pad}")
@@ -855,6 +871,64 @@ def octree_phase(torch, pt, host, dev, card):
         f"t within {crel:.2e} (bitwise equal: {bool(torch.equal(t.cpu(), ct))})")
 
 
+def other_scene(scene):
+    """The scene with other velocities and colours: the same shapes."""
+    return scene._replace(objects=scene.objects._replace(
+        velocity=scene.objects.velocity.flip(0) * 0.8,
+        color=scene.objects.color.roll(1, dims=1)))
+
+
+def graph_phase(torch, pt, path, scene, meta, states, render, frames, launches, capture_s,
+                graph_mib, card):
+    """The graphed frame (build_render_fn: one CUDA graph, utils/frame_graph)
+    against the eager frame (render_constants, then trace_frame under
+    full_precision): each of the three graphed frames, kept while the later
+    ones replayed, equal to the eager frame of its state to the bit with
+    equal counts, and an eager frame's launches equal to a replay's; a second
+    scene of the same shapes through the same graph, with no new capture,
+    equal to its own eager frame; then p50/p95 of both in turns (eager,
+    graph, graph, eager; 20 frames each), the capture seconds, the bytes a
+    replay copies into the graph's inputs, and the peak memory above what was
+    held before, of the capture and three frames and of eager frames."""
+    from relativitypathtracer_tpu_torch import render as prender
+
+    consts = prender.render_constants(meta, WIDTH, HEIGHT, 1, torch.device(DEVICE))
+
+    def eager(sc, st):
+        with prender.full_precision():
+            return prender.trace_frame(sc, meta, st, *consts, -1, WIDTH, HEIGHT, True)
+
+    per_frame = {k: n // len(states) for k, n in launches.items()}
+    check(all(n % len(states) == 0 for n in launches.values()), f"{path}: launches {launches}")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for i, ((img, aux), st) in enumerate(zip(frames, states)):
+        (want, waux), eager_launches = counted_frame(torch, eager, scene, st)
+        check(torch.equal(img, want) and aux == counts(waux),
+              f"{path}: graphed frame {i} differs from the eager frame")
+        check(eager_launches == per_frame,
+              f"{path}: eager launches {eager_launches}, a replay's {per_frame}")
+    eager_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
+    check(not torch.equal(frames[0][0], frames[2][0]), f"{path}: the states give one frame")
+    other = other_scene(scene)
+    (got, gaux), (want, waux) = render(other, states[2]), eager(other, states[2])
+    check(torch.equal(got, want) and counts(gaux) == counts(waux)
+          and not torch.equal(got, frames[2][0]) and render.captures == 1,
+          f"{path}: the second scene's graphed frame differs from its eager frame")
+    turns = {"eager": [], "graph": []}
+    for name in ("eager", "graph", "graph", "eager"):
+        turns[name].append(p50_p95(torch, eager if name == "eager" else render, scene,
+                                   states[2]))
+    log(f"  graph on {path}: the three graphed frames (kept) and a second scene's equal to the "
+        f"eager frames to the bit, launches a replay as an eager frame's; capture "
+        f"{capture_s:.3f} s (warm-up, capture, replay), {render.input_bytes:,} input bytes "
+        f"copied a call, peak memory {graph_mib:.0f} MiB (capture and 3 frames) against "
+        f"{eager_mib:.0f} MiB (eager frames); in turns on {card}, p50/p95 ms: eager "
+        + ", ".join(f"{a:.3f}/{b:.3f}" for a, b in turns["eager"]) + "; graph "
+        + ", ".join(f"{a:.3f}/{b:.3f}" for a, b in turns["graph"]))
+
+
 def counted_frame(torch, render, scene, state):
     """One frame of render with every launch count set to 0 just before and
     read just after: (output, launches)."""
@@ -894,7 +968,10 @@ def sharded_phase(torch, pt, scenes, hosts, states, card):
         for assign in ("strided", "contiguous"):
             render = renders[assign] = tiles.build_sharded_render_fn(
                 meta, WIDTH, HEIGHT, -1, logical, with_aux=True, band_assign=assign)
+            render(scene, st)  # the capture: one graph of the card's four shards
             (img, aux), launches = counted_frame(torch, render, scene, st)
+            check(len(render.parts) == 1 and render.parts[0].captures == 1,
+                  f"sharded {path} {assign}: graphs {[p.captures for p in render.parts]}")
             check(tuple(img.shape) == (HEIGHT, WIDTH, 3) and torch.equal(img, want),
                   f"sharded {path} {assign}: frame differs from build_render_fn's")
             check(counts(aux) == counts(waux), f"sharded {path} {assign}: counts {counts(aux)}"
@@ -973,21 +1050,25 @@ def export_phase(torch, pt, scenes, states, card, live_launches, live_frames):
         render = aot.load_render(data)
         t_load = time.perf_counter() - t0
         live = pt.build_render_fn(meta, WIDTH, HEIGHT, -1, device=dev)
-        other = scene._replace(objects=scene.objects._replace(
-            velocity=scene.objects.velocity.flip(0) * 0.8,
-            color=scene.objects.color.roll(1, dims=1)))
-        for i, (sc, st) in enumerate([(scene, s) for s in states] + [(other, states[2])]):
+        t0 = time.perf_counter()
+        render(scene, states[0])
+        torch.cuda.synchronize()
+        t_capture = time.perf_counter() - t0
+        for i, (sc, st) in enumerate([(scene, s) for s in states]
+                                     + [(other_scene(scene), states[2])]):
             got, launches = counted_frame(torch, render, sc, st)
             want = live(sc, st)
             check(torch.equal(got, want), f"export {path}: loaded frame {i} differs from the "
                   f"live frame")
             per_frame = {k: n // live_frames for k, n in live_launches[path].items()}
             check(launches == per_frame, f"export {path}: launches {launches}, live {per_frame}")
+        check(render.captures == 1, f"export {path}: {render.captures} captures")
         p50, p95 = p50_p95(torch, render, scene, states[2])
         log(f"  export {path} {WIDTH}x{HEIGHT}: exported in {t_export:.1f} s, {len(data)} "
-            f"bytes, loaded in {t_load:.1f} s; the loaded frames at the three states and a "
-            f"second scene equal to the live frames, launches a frame as the live frame's; "
-            f"loaded frame on {card}: p50 {p50:.3f} ms, p95 {p95:.3f} ms (20 frames)")
+            f"bytes, loaded in {t_load:.1f} s, captured in {t_capture:.3f} s; the loaded frames "
+            f"(replays of one graph) at the three states and a second scene equal to the live "
+            f"frames, launches a frame as the live frame's; loaded frame on {card}: p50 "
+            f"{p50:.3f} ms, p95 {p95:.3f} ms (20 frames)")
 
     scene, meta = scenes["textured"]
     devices = [dev] * 2
@@ -1027,6 +1108,7 @@ def main() -> int:
     from relativitypathtracer_tpu_torch.ops.kernels import texture_kernel as tk
     from relativitypathtracer_tpu_torch.utils.demo_scene import LARGE_LEVEL, write_demo_scene
 
+    t_start = time.perf_counter()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
@@ -1091,41 +1173,54 @@ def main() -> int:
                   and scene.mesh_static[0].spheres.shape[0] == 10240, "large: the large tier")
         render = pt.build_render_fn(meta, WIDTH, HEIGHT, -1, with_aux=True, device=dev)
 
+        # The hooks record each wrapper's inputs in the first call's eager
+        # warm-up, not in its capture (whose tensors live in the graph's pool).
         captured, list_calls, recording = {}, [], [True]
         for name, (mod, attr) in hooks.items():
             def rec(*args, _fn=originals[name], _name=name):
                 if _name == "rpt_footprint_sample":
                     _name += "/" + tk.texture_route(args[0].shape[0])
-                if recording[0] and _name not in captured:
+                if (recording[0] and _name not in captured
+                        and not torch.cuda.is_current_stream_capturing()):
                     captured[_name] = args
                 return _fn(*args)
 
             setattr(mod, attr, rec)
         for mod, attr, _ in list_hooks:
             def rec_list(*args, _fn=list_fns[attr], _name=attr, **kwargs):
-                if recording[0]:
+                if recording[0] and not torch.cuda.is_current_stream_capturing():
                     list_calls.append((_name, _fn, args, kwargs))
                 return _fn(*args, **kwargs)
 
             setattr(mod, attr, rec_list)
 
-        # --- the path: three frames, counts from 0 ---------------------------
+        # --- the capture: the first call warms up, captures and replays ------
         torch.cuda.synchronize()
-        _build.LAUNCHES.clear()
-        frames = []
-        for i, st in enumerate(states):
-            img, aux = render(scene, st)
-            if i == 0:
-                recording[0] = False
-            frames.append((img, {k: int(v) for k, v in aux.items()}))
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        render(scene, states[0])
         torch.cuda.synchronize()
-        launches = dict(_build.LAUNCHES)
+        capture_s = time.perf_counter() - t0
+        recording[0] = False
         for name, (mod, attr) in hooks.items():
             setattr(mod, attr, originals[name])
         for mod, attr, _ in list_hooks:
             setattr(mod, attr, list_fns[attr])
+        check(render.captures == 1, f"{path}: {render.captures} captures")
+
+        # --- the path: three graphed frames, counts from 0 -------------------
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        frames = []
+        for st in states:
+            img, aux = render(scene, st)
+            frames.append((img, {k: int(v) for k, v in aux.items()}))
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        graph_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
         launches_by_path[path] = launches
-        log(f"  launches: {launches}")
+        log(f"  launches: {launches} (three replays)")
         for img, aux in frames:
             check(tuple(img.shape) == (HEIGHT, WIDTH, 3), f"image shape {tuple(img.shape)}")
             check(bool(torch.isfinite(img).all()), "non-finite pixels")
@@ -1137,6 +1232,8 @@ def main() -> int:
             check(name in captured, f"{path}: {name}: no inputs captured")
         for name in launches:
             check(name in names, f"{path}: unexpected launches of {name}")
+        graph_phase(torch, pt, path, scene, meta, states, render, frames, launches, capture_s,
+                    graph_mib, card)
 
         originals_by_key = {n: originals[n.split("/")[0]] for n in names}
         results[path] = compare_kernels(torch, (ak, mk, sc, tk, mb, ml), meta, captured,
@@ -1190,6 +1287,7 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"], "path": path})
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -170,6 +171,40 @@ def counter(like, count: bool):
     run or skipped) on like's device, or an empty tensor when no count is
     asked for: an operator's counter result."""
     return torch.zeros(1 if count else 0, dtype=torch.int32, device=like.device)
+
+
+def cached_constant(make):
+    """Decorator for make(*key) -> a device tensor of host values (an index
+    table, a mask): made once per hashable key, then shared, so that a
+    frame after the first creates no tensor from host data (a CUDA graph's
+    capture refuses the host-to-device copy). Callers only read it. The
+    cache is never evicted: a captured graph reads the tensor by address. A
+    program being traced (torch.export) gets the real tensor, made or found
+    outside the trace, so that the artifact holds it as a constant."""
+    cached = functools.lru_cache(maxsize=None)(make)
+
+    @functools.wraps(make)
+    def get(*key):
+        if torch.compiler.is_compiling():
+            from torch._subclasses.fake_tensor import unset_fake_temporarily
+            from torch.fx.experimental.proxy_tensor import disable_proxy_modes_tracing
+
+            with unset_fake_temporarily(), disable_proxy_modes_tracing():
+                return cached(*key)
+        return cached(*key)
+
+    return get
+
+
+@cached_constant
+def _constant(values: tuple, dtype: torch.dtype, device: torch.device):
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+def constant(values, dtype: torch.dtype, device):
+    """The 1-D tensor of `values` (a sequence of Python numbers) on `device`,
+    made once per (values, dtype, device) (`cached_constant`)."""
+    return _constant(tuple(values), dtype, torch.device(device))
 
 
 def define_op(name: str, schema: str, cuda, cpu, fake):

@@ -26,7 +26,7 @@ import math
 
 import torch
 
-from ._build import check_cuda, counter, define_op, launch, on_cpu
+from ._build import check_cuda, constant, counter, define_op, launch, on_cpu
 
 EPSILON = 1e-7
 INF = 1e20
@@ -45,7 +45,7 @@ def pack_analytic_params(L, inv_m, stat_cam, ids):
     """(G, PARAM_COLS) kernel constants for the objects `ids` (spheres first,
     then cubes). L: (O, 4, 4) camera -> rest frame; inv_m: (O, 4, 4);
     stat_cam: (O, 4) camera event in each rest frame."""
-    idx = torch.as_tensor(ids, dtype=torch.long, device=L.device)
+    idx = constant(ids, torch.long, L.device)
     R = inv_m[idx][:, :3, :3]
     A = torch.einsum("gij,gjk->gik", R, L[idx][:, 1:4, :])
     ro = torch.einsum("gij,gj->gi", R, stat_cam[idx][:, 1:4]) + inv_m[idx][:, :3, 3]
@@ -57,7 +57,7 @@ def pack_analytic_params(L, inv_m, stat_cam, ids):
 def pack_analytic_params_general(L, inv_m, ids):
     """pack_analytic_params for rays with per-lane origins: columns [12:15)
     hold inv_m's translation, and the kernel forms ro = A @ o4 + b."""
-    idx = torch.as_tensor(ids, dtype=torch.long, device=L.device)
+    idx = constant(ids, torch.long, L.device)
     R = inv_m[idx][:, :3, :3]
     A = torch.einsum("gij,gjk->gik", R, L[idx][:, 1:4, :])
     nt = R.transpose(1, 2).reshape(-1, 9)

@@ -32,13 +32,11 @@ changes object.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
-from ._build import check_cuda, define_op, launch, on_cpu
+from ._build import cached_constant, check_cuda, constant, define_op, launch, on_cpu
 from .mesh_kernels import (
-    INF, N_ATTR, NB, SUB, SUB_LANES, TC, _box_bound, _box_of, _dot_rows, _list_ops, _mt,
+    INF, N_ATTR, NB, SUB, SUB_LANES, TC, _box_bound, _dot_rows, _list_ops, _mt,
     _pad_lanes, _round_up, general_tri_rows, shared_tri_rows)
 
 # The per-object transform table: one row of MAT_COLS floats per mesh object.
@@ -140,7 +138,7 @@ def live_chunk_lists_multi_plain(spheres, chunk_counts, d_os, o_os, s_os, valid=
                         lane_bound_shared)
 
 
-@functools.lru_cache(maxsize=16)
+@cached_constant
 def _chunk_objects(chunk_counts: tuple, device: torch.device):
     return torch.cat([torch.full((c,), g, dtype=torch.int32, device=device)
                       for g, c in enumerate(chunk_counts)])
@@ -148,28 +146,32 @@ def _chunk_objects(chunk_counts: tuple, device: torch.device):
 
 def chunk_objects(chunk_counts, device):
     """(C,) int32 object slot of every pool chunk. Made once per pool layout
-    and device, then shared: callers only read it. A program being traced
-    (torch.export, utils/aot) makes its own, so that no traced tensor is
-    kept."""
-    key = (tuple(int(c) for c in chunk_counts), torch.device(device))
-    if torch.compiler.is_compiling():
-        return _chunk_objects.__wrapped__(*key)
-    return _chunk_objects(*key)
-
-
-@functools.lru_cache(maxsize=16)
-def _enabled_mask(enabled: tuple, device: torch.device):
-    return torch.tensor(enabled, dtype=torch.int32, device=device)
+    and device, then shared (`_build.cached_constant`; an exported program
+    holds it as a constant): callers only read it."""
+    return _chunk_objects(tuple(int(c) for c in chunk_counts), torch.device(device))
 
 
 def enabled_mask(enabled, device):
     """(O,) int32: 1 for each enabled object, 0 for a disabled one. Made
-    once per pattern and device, then shared (a traced program makes its
-    own, as chunk_objects): callers only read it."""
-    key = (tuple(int(bool(e)) for e in enabled), torch.device(device))
-    if torch.compiler.is_compiling():
-        return _enabled_mask.__wrapped__(*key)
-    return _enabled_mask(*key)
+    once per pattern and device, then shared (`_build.constant`): callers
+    only read it."""
+    return constant([int(bool(e)) for e in enabled], torch.int32, device)
+
+
+# A disabled object's box in the shadow walk's bound (lo above hi: no lane's
+# ray enters it), as in the JAX package.
+STAND_IN_BOX = (1.0, 1.0, 1.0, 0.0, 0.0, 0.0)
+
+
+def pool_boxes(spheres, chunk_counts):
+    """(O, 6) [lo hi]: each pool object's union box of its chunk spheres,
+    over the whole pool at once (the per-object `_box_of`: a min and a max
+    are exact in any order, so the boxes are the same to the bit)."""
+    cobj = chunk_objects(chunk_counts, spheres.device).long()[:, None].expand(-1, 3)
+    c, r = spheres[:, :3], spheres[:, 3:4]
+    lo = spheres.new_full((len(chunk_counts), 3), INF).scatter_reduce(0, cobj, c - r, "amin")
+    hi = spheres.new_full((len(chunk_counts), 3), -INF).scatter_reduce(0, cobj, c + r, "amax")
+    return torch.cat([lo, hi], dim=1)
 
 
 def batched_shared_walk_plain(order, minds, counts, cobj, boxes, mats, tri, attrs, dir4_p,
@@ -382,8 +384,8 @@ def batched_min_t_general(cols, spheres, mats, origins4, dir4, d_os, o_os, s_os,
     """Min hit over all mesh objects of shadow rays, in shared units. cols
     (4 * Tsum_pad, 10) factor-grouped pool; origins4/dir4 (4, N) camera
     4-origins and 4-dirs; tmax (N,) shared-unit bound (0 masks a lane);
-    enabled: per object, False leaves it out (a disabled object gets the
-    stand-in box [1 1 1 0 0 0] in the walk bound, as in the JAX package);
+    enabled: per object, False leaves it out (a disabled object gets
+    STAND_IN_BOX in the walk bound, as in the JAX package);
     valid (N,) the lanes that shape the culling cones. Returns (N,)
     min(t, tmax)."""
     n = dir4.shape[1]
@@ -393,16 +395,12 @@ def batched_min_t_general(cols, spheres, mats, origins4, dir4, d_os, o_os, s_os,
         spheres, chunk_counts, _pad_lanes(d_os, n_pad, 1.0), _pad_lanes(o_os, n_pad),
         _pad_lanes(s_os, n_pad, 1.0), valid=None if valid is None else
         _pad_lanes(valid, n_pad, False), enabled=enabled, lane_bound_shared=tmax_p)
-    boxes, c0 = [], 0
-    for g, nck in enumerate(chunk_counts):
-        sph = spheres[c0:c0 + nck]
-        c0 += nck
-        if enabled is not None and not enabled[g]:
-            boxes.append(torch.tensor([1.0, 1.0, 1.0, 0.0, 0.0, 0.0], device=spheres.device))
-            continue
-        boxes.append(torch.cat(_box_of(sph)))
+    boxes = pool_boxes(spheres, chunk_counts)
+    if enabled is not None and not all(enabled):
+        boxes = torch.where(enabled_mask(enabled, spheres.device)[:, None] > 0, boxes,
+                            constant(STAND_IN_BOX, torch.float32, spheres.device))
     t = batched_general_walk(
-        order, minds, counts, chunk_objects(chunk_counts, dir4.device), torch.stack(boxes),
+        order, minds, counts, chunk_objects(chunk_counts, dir4.device), boxes,
         mats.contiguous(), general_tri_rows(cols), _pad_lanes(origins4, n_pad).contiguous(),
         _pad_lanes(dir4, n_pad, 1.0).contiguous(), tmax_p.contiguous())
     return t[:n]

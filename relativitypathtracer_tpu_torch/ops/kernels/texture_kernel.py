@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from ..texture_layout import TABLE_COLS, tile_params, tile_slot, tile_slot_fast
-from ._build import check_cuda, define_op, launch, on_cpu
+from ._build import check_cuda, constant, define_op, launch, on_cpu
 
 MAX_ROWS = 1024  # the JAX package's small-atlas (K2) limit
 # float32 k / 255 for every channel value k, correctly rounded
@@ -89,7 +89,7 @@ def _fetch_mix(quads, addr_i, addr_f):
     u_ratio, v_ratio = addr_f[0], addr_f[1]
     u_opp = 1.0 - u_ratio
     v_opp = 1.0 - v_ratio
-    channel = torch.as_tensor(CHANNEL, device=quads.device)
+    channel = constant(CHANNEL.tolist(), torch.float32, quads.device)
 
     def texel(k):
         q = quad[k]

@@ -27,8 +27,10 @@ from __future__ import annotations
 import torch
 
 from .intersect import INF, apply_affine3, apply_linear3, apply_normal3, norm3, normalize3
-from .kernels.mesh_batch import batched_min_t_general, batched_nearest_shared, mat_row
-from .kernels.mesh_kernels import _box_of, general_min_t, shared_nearest_hit
+from .kernels._build import constant
+from .kernels.mesh_batch import (
+    batched_min_t_general, batched_nearest_shared, mat_row, pool_boxes)
+from .kernels.mesh_kernels import general_min_t, shared_nearest_hit
 from .kernels.mesh_large import LARGE_T, large_general_min_t, large_shared_nearest_hit
 
 # Tier override, read when a scene is built (models.scene): None takes the
@@ -199,8 +201,7 @@ def mesh_intersect_shared_batched(mesh, meta, batch, L, inv_ms, m4s, stat_cams, 
     distance as in the one-mesh route."""
     n = dir4.shape[1]
     consts = ([], [], [], [])
-    boxes, mats, d_os, o_os, s_os = [], [], [], [], []
-    c0 = 0
+    mats, d_os, o_os, s_os = [], [], [], []
     for k, i in enumerate(meta.mesh_ids):
         d4 = L[i] @ dir4
         ro = apply_affine3(inv_ms[i], stat_cams[i, 1:4])
@@ -213,11 +214,9 @@ def mesh_intersect_shared_batched(mesh, meta, batch, L, inv_ms, m4s, stat_cams, 
         o_os.append(ro)
         s_os.append(_object_scale(m4s[i], dh, d4[1:4]))
         mats.append(mat_row(L[i], inv_ms[i], m4s[i], ro))
-        sph = batch.spheres[c0:c0 + meta.mesh_chunk_counts[k]]
-        c0 += meta.mesh_chunk_counts[k]
-        boxes.append(torch.cat([*_box_of(sph), ro]))
+    boxes = torch.cat([pool_boxes(batch.spheres, meta.mesh_chunk_counts), torch.stack(o_os)], 1)
     t, bu, bv, btri, slot, battr = batched_nearest_shared(
-        torch.cat(sum(consts, [])), batch.attrs, batch.spheres, torch.stack(boxes),
+        torch.cat(sum(consts, [])), batch.attrs, batch.spheres, boxes,
         torch.stack(mats), dir4, torch.stack(d_os),
         torch.stack(o_os)[:, :, None].expand(len(o_os), 3, n), torch.stack(s_os),
         meta.mesh_chunk_counts)
@@ -226,7 +225,7 @@ def mesh_intersect_shared_batched(mesh, meta, batch, L, inv_ms, m4s, stat_cams, 
     # The winner's normal transform and global id by integer gathers on its
     # slot (the JAX package selects them with f32 one-hot products).
     slot_l = slot.clamp(min=0).long()
-    ids = torch.as_tensor(meta.mesh_ids, dtype=torch.int32, device=dir4.device)
+    ids = constant(meta.mesh_ids, torch.int32, dir4.device)
     nt = torch.stack([inv_ms[i][:3, :3].T for i in meta.mesh_ids])[slot_l]  # (N, 3, 3)
     n3 = interp[0:3]
     normal = normalize3(torch.stack([nt[:, r, 0] * n3[0] + nt[:, r, 1] * n3[1]

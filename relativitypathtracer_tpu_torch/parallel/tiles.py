@@ -40,6 +40,7 @@ from ..render import (
     MISS_COLOR, TILE, FrameState, _round_up, build_render_fn, full_precision, intersect_scene,
     mesh_perm_tensors, msaa_swizzle, object_frames, shade, tile_swizzle, tile_unswizzle)
 from ..utils.demo_scene import write_demo_scene
+from ..utils.frame_graph import FrameGraph
 from ..utils.parity import compare
 
 LANES = TILE * TILE  # rays per kernel block
@@ -123,26 +124,37 @@ class ShardedFrame(torch.nn.Module):
                 self.register_buffer(f"perm{j}_{k}", perm)
             self.register_buffer(f"miss{j}", torch.tensor(MISS_COLOR, device=dev)[:, None])
 
-    def forward(self, scene: Scene, state: FrameState):
-        first = self.devices[0]
-        per_device = {}
+    def device_part(self, j: int, scene: Scene, state: FrameState):
+        """The shards dealt to device distinct[j], in deal order, with the
+        scene and state already there: the frame algebra once, then per shard
+        a shade of its blocks, the msaa average and the tonemap. Returns
+        (blocks, auxes), a (bpd, q, 3) image and an aux dict per shard."""
+        dev = self.distinct[j]
+        perms = tuple(getattr(self, f"perm{j}_{k}") for k in range(self.n_perms))
+        miss = getattr(self, f"miss{j}")
+        L, inv_L, stat_cam = object_frames(scene.objects, state)
         blocks, auxes = [], []
-        for b, dev in enumerate(self.devices):
-            if dev not in per_device:
-                j = self.distinct.index(dev)
-                per_device[dev] = (
-                    _tree_to(scene, dev), _tree_to(state, dev),
-                    tuple(getattr(self, f"perm{j}_{k}") for k in range(self.n_perms)),
-                    getattr(self, f"miss{j}"))
-            sc, st, perms, miss = per_device[dev]
-            L, inv_L, stat_cam = object_frames(sc.objects, st)
-            color, aux = shade(sc, self.meta, L, inv_L, stat_cam, getattr(self, f"band{b}"),
+        for b in (b for b, d in enumerate(self.devices) if d == dev):
+            color, aux = shade(scene, self.meta, L, inv_L, stat_cam, getattr(self, f"band{b}"),
                                self.interval, perms, miss)
             if self.msaa > 1:
                 # lanes run (quad_r, quad_c, r, c, sample): average the minor
                 # sample axis, pixels stay in block quadrant-major order
                 color = color.reshape(3, self.bpd * self.q, self.msaa ** 2).mean(dim=2)
-            img = tonemap(color.T, sc.white_point).reshape(self.bpd, self.q, 3)
+            blocks.append(tonemap(color.T, scene.white_point).reshape(self.bpd, self.q, 3))
+            auxes.append(aux)
+        return blocks, auxes
+
+    def gather(self, parts):
+        """The frame on the first device from every device_part's result
+        (parts[j] of distinct[j]): the blocks in shard order, de-interleaved,
+        unswizzled and cropped; with_aux also the aux summed over the
+        shards."""
+        first = self.devices[0]
+        shards = [iter(zip(*part)) for part in parts]
+        blocks, auxes = [], []
+        for dev in self.devices:
+            img, aux = next(shards[self.distinct.index(dev)])
             blocks.append(img.to(first))
             auxes.append(aux)
         out = torch.cat(blocks)
@@ -153,10 +165,14 @@ class ShardedFrame(torch.nn.Module):
         img = img.reshape(3, self.ph, self.pw).permute(1, 2, 0)[:self.height, :self.width]
         if not self.with_aux:
             return img
-        total = {k: v.to(first) for k, v in auxes[0].items()}
+        total = {k: v.to(first, copy=True) for k, v in auxes[0].items()}
         for aux in auxes[1:]:
             total = {k: total[k] + aux[k].to(first) for k in total}
         return img, total
+
+    def forward(self, scene: Scene, state: FrameState):
+        return self.gather([self.device_part(j, _tree_to(scene, dev), _tree_to(state, dev))
+                            for j, dev in enumerate(self.distinct)])
 
 
 def build_sharded_render_fn(meta: SceneMeta, width: int, height: int, interval: int, devices,
@@ -169,15 +185,32 @@ def build_sharded_render_fn(meta: SceneMeta, width: int, height: int, interval: 
     gets an equal number of blocks: band height round_up(ceil(H / n), 32),
     padded height n times that; the padding is cropped after the gather.
     msaa folds the sample sets into each block's rays (render.msaa_swizzle);
-    1, 2, 4, 8 and 16 are supported. The scene is copied to each device that
-    does not hold it yet, each frame; each frame runs under
-    `full_precision()`."""
+    1, 2, 4, 8 and 16 are supported. Each frame runs under
+    `full_precision()`.
+
+    Each distinct CUDA device runs its shards as one CUDA graph
+    (utils/frame_graph, `ShardedFrame.device_part`), whose static inputs are
+    that device's copy of the scene and state: the scene reaches a card by
+    one copy a frame into its graph's inputs. The gather on the first device
+    stays eager, a few ops: on distinct cards it needs every card's blocks,
+    and one code path for logical and distinct shards keeps a one-card run
+    on the path that distinct cards take. On the CPU every part runs
+    eagerly."""
     frame = ShardedFrame(meta, width, height, interval, devices, msaa, with_aux, band_assign)
 
-    def render(scene: Scene, state: FrameState):
-        with full_precision():
-            return frame(scene, state)
+    def part(j, dev):
+        def run(scene: Scene, state: FrameState):
+            with full_precision():
+                return frame.device_part(j, _tree_to(scene, dev), _tree_to(state, dev))
 
+        return FrameGraph(run, dev, fresh=False)
+
+    parts = [part(j, dev) for j, dev in enumerate(frame.distinct)]
+
+    def render(scene: Scene, state: FrameState):
+        return frame.gather([p(scene, state) for p in parts])
+
+    render.parts = parts
     return render
 
 

@@ -21,6 +21,7 @@ scene builds no pool).
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import NamedTuple
 
 import torch
@@ -40,6 +41,7 @@ from .ops.mesh_intersect import (
 from .ops.relmath import lorentz, matmul4, transform4
 from .ops.texture_sample import bilinear_sample_packed
 from .ops.tonemap import tonemap
+from .utils.frame_graph import FrameGraph
 
 MISS_COLOR = (0.15, 0.15, 0.25)
 TILE = 32  # pixel tile edge: one tile is one 1024-ray kernel block
@@ -328,9 +330,22 @@ def build_render_fn(meta: SceneMeta, width: int, height: int, interval: int,
     sample set, colours averaged: the JAX package's default per-sample loop
     (opencl_kernel.cl:642-648). out_uint8 packs the frame to uint8 on the
     device (`to_uint8`). Each frame runs under `full_precision()`; building
-    the renderer changes no process-wide setting."""
+    the renderer changes no process-wide setting.
+
+    On a CUDA device the frame is one CUDA graph (utils/frame_graph), captured
+    at the first call for each input layout and replayed after; on the CPU it
+    runs eagerly. `render_constants` and `trace_frame` give the same frame
+    eagerly. Renderers are cached per arguments (64 of them), as the JAX
+    package caches its jitted ones (JAX render.py:596)."""
     if msaa < 1:
         raise ValueError(f"msaa must be >= 1, got {msaa}")
+    return _cached_render_fn(meta, int(width), int(height), int(interval), int(msaa),
+                             bool(with_aux), bool(out_uint8), torch.device(device))
+
+
+@functools.lru_cache(maxsize=64)
+def _cached_render_fn(meta: SceneMeta, width: int, height: int, interval: int, msaa: int,
+                      with_aux: bool, out_uint8: bool, device: torch.device):
     dirs, perms, miss = render_constants(meta, width, height, msaa, device)
 
     def render(scene: Scene, state: FrameState):
@@ -338,7 +353,7 @@ def build_render_fn(meta: SceneMeta, width: int, height: int, interval: int,
             return trace_frame(scene, meta, state, dirs, perms, miss, interval, width, height,
                                with_aux, out_uint8)
 
-    return render
+    return FrameGraph(render, device)
 
 
 def box_pool(img, pool: int):
@@ -367,7 +382,9 @@ def build_viewer_render_fn(meta: SceneMeta, pad_height: int, pad_width: int, int
 
     Returns render(scene, state, dirs_t) -> (pad_h/pool, pad_w/pool, 3)
     uint8, bottom-up, on `device`; the caller crops to the logical size.
-    Each frame runs under `full_precision()`."""
+    Each frame runs under `full_precision()`. On a CUDA device the frame is
+    one CUDA graph (utils/frame_graph) with dirs_t among its inputs: new dirs
+    of the same pad replay the same graph."""
     ph, pw = int(pad_height), int(pad_width)
     if ph % TILE or pw % TILE:
         raise ValueError(f"pad {pw}x{ph} not {TILE}-aligned")
@@ -385,7 +402,7 @@ def build_viewer_render_fn(meta: SceneMeta, pad_height: int, pad_width: int, int
                 img = box_pool(img, pool)
             return to_uint8(img)
 
-    return render
+    return FrameGraph(render, device)
 
 
 def viewer_dirs(width: int, height: int, pad_height: int, pad_width: int,
@@ -398,7 +415,8 @@ def viewer_dirs(width: int, height: int, pad_height: int, pad_width: int,
 
 def render_frame(scene: Scene, meta: SceneMeta, state: FrameState, width: int, height: int,
                  interval: int | None = None, msaa: int = 1, device=DEFAULT_DEVICE):
-    """Convenience single-frame entry point."""
+    """Convenience single-frame entry point, through the cached renderer of
+    `build_render_fn`."""
     if interval is None:
         interval = meta.default_interval
     return build_render_fn(meta, width, height, int(interval), msaa, device=device)(scene, state)

@@ -38,6 +38,7 @@ from ..device import DEFAULT_DEVICE
 from ..models.scene import MeshArrays, MeshBatchStatic, MeshStatic, ObjectsSoA, Scene
 from ..parallel.tiles import ShardedFrame
 from ..render import FrameState, full_precision, render_constants, trace_frame
+from .frame_graph import FrameGraph
 
 # The artifact's input spec names every NamedTuple node of (Scene,
 # FrameState); the names are a compatibility contract, the JAX package's.
@@ -119,15 +120,28 @@ def load_render(data: bytes):
     program, so the loaded program would otherwise follow the caller's.
     Importing this module registers the operators the program calls.
 
+    On a CUDA device the loaded program runs as one CUDA graph
+    (utils/frame_graph), captured at its first call per input layout: the
+    replay runs the program's kernels with none of its Python. An artifact
+    whose tensors lie on more than one device (a sharded export over
+    distinct cards) is refused: one graph replays on one device.
+
     The module checks each call's inputs against the exported ones (their
-    tree and shapes) in its pre-hook. It is built without torch's
+    tree and shapes) in its pre-hook, when it runs: at a capture, where a
+    new layout starts one. It is built without torch's
     generated guard function (check_guards=False), whose code names an input
     by a textual replace that mangles a path with a sibling as its prefix
     (`objects.m` inside `objects.mesh_root`)."""
-    module = torch.export.load(io.BytesIO(data)).module(check_guards=False)
+    program = torch.export.load(io.BytesIO(data))
+    devices = {t.device for t in (*program.state_dict.values(), *program.constants.values())
+               if isinstance(t, torch.Tensor)}
+    if len(devices) != 1:
+        raise ValueError(f"load_render: the artifact's tensors lie on {sorted(map(str, devices))}"
+                         "; a loaded renderer runs on one device")
+    module = program.module(check_guards=False)
 
     def render(scene: Scene, state: FrameState):
         with full_precision():
             return module(scene, state)
 
-    return render
+    return FrameGraph(render, devices.pop())

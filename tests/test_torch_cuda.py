@@ -1069,8 +1069,11 @@ def test_xl_lists_on_the_large_fixture(cuda, tmp_path, monkeypatch):
     """The level-7 fixture with the super-sphere cull forced (SUPER_CULL_C =
     0): superchunks of 128, so 80 of them; its 512x384 frame against the
     frame of the default lists (superchunks of 32), parity rule, equal
-    counts."""
+    counts. The forced frame runs eagerly (`render_constants`,
+    `trace_frame`): the renderer's CUDA graph replays the lists it captured
+    and reads no module setting again, as a jitted frame would not."""
     import relativitypathtracer_tpu_torch as pt
+    from relativitypathtracer_tpu_torch import render as prender
     from relativitypathtracer_tpu_torch.ops.kernels import mesh_large as ml
     from relativitypathtracer_tpu_torch.utils.demo_scene import write_demo_scene
 
@@ -1085,7 +1088,9 @@ def test_xl_lists_on_the_large_fixture(cuda, tmp_path, monkeypatch):
     monkeypatch.setattr(ml, "SUPER_CULL_C", 0)
     monkeypatch.setattr(ml, "large_shared_walk",
                         lambda *a: seen.append((a[0].shape[1], a[-3])) or real(*a))
-    img, aux = render(scene, state)
+    consts = prender.render_constants(meta, 512, 384, 1, cuda)
+    with prender.full_precision():
+        img, aux = prender.trace_frame(scene, meta, state, *consts, -1, 512, 384, True)
     assert seen == [(80, 128)]
     diff = (img - base).abs().amax(dim=-1)
     assert float((diff > 1e-3).float().mean()) <= 0.002
@@ -1541,7 +1546,7 @@ def test_octree_walk_on_the_card_matches_its_cpu_run(cuda, fixture_scene):
 def test_sharded_frame_on_logical_shards_equals_single(cuda, fixture_scene):
     """The sharded renderer on four logical shards of the card: its frame
     and counts equal build_render_fn's to the bit, its launches 4x a single
-    frame's per kernel."""
+    frame's per kernel (each renderer's replay, after its capture)."""
     import relativitypathtracer_tpu_torch as pt
     from relativitypathtracer_tpu_torch.ops.kernels import _build
     from relativitypathtracer_tpu_torch.parallel.tiles import build_sharded_render_fn
@@ -1553,6 +1558,7 @@ def test_sharded_frame_on_logical_shards_equals_single(cuda, fixture_scene):
     outs = []
     for render in (pt.build_render_fn(meta, 256, 192, -1, with_aux=True, device=cuda),
                    build_sharded_render_fn(meta, 256, 192, -1, [cuda] * 4, with_aux=True)):
+        render(scene, state)  # the capture
         torch.cuda.synchronize()
         _build.LAUNCHES.clear()
         outs.append(render(scene, state))
@@ -1575,3 +1581,117 @@ def test_exported_frame_equals_live_on_the_card(cuda, fixture_scene):
         state = pt.FrameState(torch.tensor([v, 0.0, 0.0], device=cuda),
                               torch.tensor([0.1, 0.0, 0.0, 0.0], device=cuda))
         assert torch.equal(render(scene, state), live(scene, state))
+
+
+# --- the frame as one CUDA graph (utils/frame_graph) -----------------------
+
+GRAPH_STATES = [((0.0, 0.0, 0.0), (0.0, 0.0, 0.0, 0.0)), ((0.5, 0.0, 0.0), (2 / 30, 0.0, 0.0, 0.0)),
+                ((0.0, 0.3, 0.4), (0.1, 0.0, 0.0, 0.0))]
+
+
+@pytest.fixture(scope="module")
+def graph_scenes(cuda, tmp_path_factory):
+    import relativitypathtracer_tpu_torch as pt
+    from relativitypathtracer_tpu_torch.utils.demo_scene import write_demo_scene
+
+    return {kind: pt.build_scene(pt.load_scene_file(write_demo_scene(
+        str(tmp_path_factory.mktemp(f"graph_{kind}")), 3, kind)), device=cuda)
+        for kind in ("blob", "textured", "cubes", "instances")}
+
+
+def _graph_state(cuda, i):
+    import relativitypathtracer_tpu_torch as pt
+
+    v, p = GRAPH_STATES[i]
+    return pt.FrameState(torch.tensor(v, device=cuda), torch.tensor(p, device=cuda))
+
+
+def _eager_frame(meta, scene, state, w, h, dev, with_aux=True):
+    from relativitypathtracer_tpu_torch import render as prender
+
+    consts = prender.render_constants(meta, w, h, 1, dev)
+    with prender.full_precision():
+        return prender.trace_frame(scene, meta, state, *consts, -1, w, h, with_aux)
+
+
+def _counted_call(fn):
+    from relativitypathtracer_tpu_torch.ops.kernels import _build
+
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(_build.LAUNCHES)
+
+
+def _aux(aux):
+    return {k: int(v) for k, v in aux.items()}
+
+
+@pytest.mark.parametrize("kind", ["blob", "textured", "cubes", "instances"])
+def test_graphed_frame_equals_the_eager_frame(cuda, graph_scenes, kind):
+    """build_render_fn's graph on each fixture: one capture over three
+    states and a second scene of the same shapes; every frame equal to the
+    eager frame to the bit with equal counts; frames kept across later
+    calls unchanged; a replay counts an eager frame's launches, the first
+    call (warm-up and replay) twice that."""
+    import relativitypathtracer_tpu_torch as pt
+
+    scene, meta = graph_scenes[kind]
+    render = pt.build_render_fn(meta, 160, 96, -1, with_aux=True, device=cuda)
+    fresh = render.captures == 0  # a renderer is cached per arguments
+    other = scene._replace(objects=scene.objects._replace(
+        velocity=scene.objects.velocity.flip(0) * 0.8, color=scene.objects.color.roll(1, 1)))
+    inputs = [(scene, _graph_state(cuda, i)) for i in range(3)] + [(other, _graph_state(cuda, 1))]
+    kept = []
+    for i, (sc, st) in enumerate(inputs):
+        (img, aux), launches = _counted_call(lambda: render(sc, st))
+        (want, waux), eager_launches = _counted_call(
+            lambda: _eager_frame(meta, sc, st, 160, 96, cuda))
+        assert torch.equal(img, want) and _aux(aux) == _aux(waux)
+        first = i == 0 and fresh
+        assert launches == {k: (2 if first else 1) * n for k, n in eager_launches.items()}
+        kept.append((img, want))
+    assert render.captures == 1
+    for img, want in kept:
+        assert torch.equal(img, want)
+    assert not torch.equal(kept[0][0], kept[1][0])
+
+
+def test_viewer_graph_takes_new_dirs_within_the_pad(cuda, graph_scenes):
+    """The viewer's renderer: a resize within the pad copies new dirs into
+    the same graph (one capture), each frame equal to build_render_fn's
+    uint8 frame of its size."""
+    from relativitypathtracer_tpu_torch import render as prender
+
+    scene, meta = graph_scenes["textured"]
+    render = prender.build_viewer_render_fn(meta, 128, 192, -1, device=cuda)
+    state = _graph_state(cuda, 1)
+    for w, h in ((192, 128), (170, 100), (180, 120)):
+        got = render(scene, state, prender.viewer_dirs(w, h, 128, 192, device=cuda))
+        want = prender.build_render_fn(meta, w, h, -1, out_uint8=True, device=cuda)(scene, state)
+        assert torch.equal(got[:h, :w], want)
+    assert render.captures == 1
+
+
+def test_sharded_and_loaded_graphs_equal_the_eager_frame(cuda, graph_scenes):
+    """Two logical shards (one graph of the card's shards, the gather eager)
+    and the loaded artifact (one graph of the loaded program): frames at
+    two states equal the eager live frame to the bit; the shards' replay
+    counts 2x an eager frame's launches."""
+    from relativitypathtracer_tpu_torch.parallel.tiles import build_sharded_render_fn
+    from relativitypathtracer_tpu_torch.utils import aot
+
+    scene, meta = graph_scenes["instances"]
+    sharded = build_sharded_render_fn(meta, 160, 96, -1, [cuda] * 2, with_aux=True)
+    loaded = aot.load_render(aot.export_render(scene, meta, 160, 96, device=cuda))
+    for i in (1, 2):
+        st = _graph_state(cuda, i)
+        (want, waux), eager_launches = _counted_call(
+            lambda: _eager_frame(meta, scene, st, 160, 96, cuda))
+        (img, aux), launches = _counted_call(lambda: sharded(scene, st))
+        assert torch.equal(img, want) and _aux(aux) == _aux(waux)
+        if i == 2:
+            assert launches == {k: 2 * n for k, n in eager_launches.items()}
+        assert torch.equal(loaded(scene, st), want)
+    assert [p.captures for p in sharded.parts] == [1] and loaded.captures == 1

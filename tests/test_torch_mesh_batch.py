@@ -201,6 +201,37 @@ def test_batched_general_walk_matches_interpret_kernel(O):
     assert (every < tmax)[valid].sum() > (got < tmax)[valid].sum()
 
 
+def test_batched_min_t_general_makes_no_host_tensor_after_the_first_call(monkeypatch):
+    """The pool's tables and boxes, the stand-in box of the disabled object
+    among them, are made once (a CUDA graph's capture refuses a tensor made
+    from host data): a second call with torch.tensor raising gives the same
+    result."""
+    *arrays, counts, enabled = _general_inputs(60, 3)
+    args = [t(a) for a in arrays]
+    valid = args[-1] > 0
+    first = pmb.batched_min_t_general(*args, counts, enabled=enabled, valid=valid)
+
+    def refuse(*a, **k):
+        raise AssertionError("torch.tensor after the first call")
+
+    monkeypatch.setattr(torch, "tensor", refuse)
+    assert torch.equal(pmb.batched_min_t_general(*args, counts, enabled=enabled, valid=valid),
+                       first)
+
+
+def test_pool_boxes_equal_the_per_object_boxes():
+    """One pass over the pool gives each object's union box of its chunk
+    spheres to the bit (a min and a max are exact in any order)."""
+    from relativitypathtracer_tpu_torch.ops.kernels.mesh_kernels import _box_of
+
+    _, spheres, *_, counts, _ = _general_inputs(61, 4)
+    spheres = t(spheres)
+    got, c0 = pmb.pool_boxes(spheres, counts), 0
+    for g, c in enumerate(counts):
+        assert torch.equal(got[g], torch.cat(_box_of(spheres[c0:c0 + c])))
+        c0 += c
+
+
 @pytest.mark.parametrize("shadow", [False, True], ids=["shared", "shadow"])
 def test_live_chunk_lists_multi_matches_jax(shadow):
     """counts and the live sets exact; order and floors where the floors

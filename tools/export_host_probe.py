@@ -6,8 +6,9 @@
 For each path of chip_smoke.py (utils/demo_scene at level 4, 1024x768,
 interval -1, the camera at 0.5c) it exports build_render_fn's frame on the
 card (utils/aot), loads it back, and measures in turns, two rounds: the
-live frame, the loaded frame, and the loaded frame without its pre-hook's
-input check (`validate_inputs` off). For each it prints the host ms a frame
+live frame, the loaded frame (both replays of a CUDA graph since the frame
+graph, utils/frame_graph), and the loaded module called eagerly without
+its pre-hook's input check (`validate_inputs` off). For each it prints the host ms a frame
 of 20 frames issued back to back with one synchronize at the end
 (`issue_ms`), the collections of Python's garbage collector in those frames
 by generation and their ms (`gc`), and the issue ms again with the collector

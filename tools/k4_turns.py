@@ -73,6 +73,7 @@ def measure(checkout: str) -> dict:
     import torch
 
     import relativitypathtracer_tpu_torch as pt
+    from relativitypathtracer_tpu_torch import render as prender
     from relativitypathtracer_tpu_torch.ops.kernels import _build
     from relativitypathtracer_tpu_torch.ops.kernels import mesh_batch as mb
     from relativitypathtracer_tpu_torch.ops.kernels import mesh_kernels as mk
@@ -92,9 +93,15 @@ def measure(checkout: str) -> dict:
             scene, meta = pt.build_scene(pt.load_scene_file(write_demo_scene(tmp, 4, path)),
                                          device=dev)
         render = pt.build_render_fn(meta, 1024, 768, -1, device=dev)
+        consts = prender.render_constants(meta, 1024, 768, 1, dev)
+
+        def eager(sc, st, _m=meta, _c=consts):  # a graph's replay runs no Python to hook
+            with prender.full_precision():
+                return prender.trace_frame(sc, _m, st, *_c, -1, 1024, 768)
+
         state = pt.FrameState(torch.tensor([0.5, 0.0, 0.0], device=dev),
                               torch.tensor([2 / 30, 0.0, 0.0, 0.0], device=dev))
-        render(scene, state)
+        eager(scene, state)
         torch.cuda.synchronize()
         calls, parts, real = [], collections.defaultdict(list), {}
         for mod, attr in builds:
@@ -109,7 +116,7 @@ def measure(checkout: str) -> dict:
                             parts[_p].append((_f, a, kw)) or _f(*a, **kw))
         _build.LAUNCHES.clear()
         try:
-            render(scene, state)
+            eager(scene, state)
             torch.cuda.synchronize()
         finally:
             for (mod, attr), f in real.items():

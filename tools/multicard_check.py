@@ -11,9 +11,11 @@ every card (`default_devices()`), blocks dealt strided and contiguous, the
 scene built on cuda:0 and copied to the other cards by the renderer; each
 sharded frame and its aux counts must equal the single frame's to the bit,
 and the sharded frame must launch each kernel n-cards times a single
-frame's. This runs every kernel of the path, the walks' shared-memory
-opt-in included, on cards other than the current device (cuda:0) from
-one host thread. It then times, in turns (three rounds of 20 frames, CUDA
+frame's (each renderer's launches counted in a replay after its first
+call, which captures its CUDA graphs: one a card for the sharded one).
+This runs every kernel of the path, the walks' shared-memory opt-in
+included, on cards other than the current device (cuda:0) from one host
+thread. It then times, in turns (three rounds of 20 frames, CUDA
 events on cuda:0 with a synchronize per frame), the single frame, the
 sharded frame over the cards and the sharded frame over as many logical
 shards of cuda:0, and runs parallel.tiles.dryrun_multichip on each card.
@@ -56,6 +58,7 @@ def main(argv: list[str]) -> int:
     out = {"cards": cards, "devices": [str(d) for d in devices]}
 
     def counted(render, scene):
+        render(scene, state)  # the capture: a renderer's first call also warms up
         for d in devices:
             torch.cuda.synchronize(d)
         _build.LAUNCHES.clear()

@@ -4,10 +4,13 @@
     python tools/shard_turns.py [PATH ...]   (default: textured instances)
 
 For each path of chip_smoke.py (utils/demo_scene at level 4, 1024x768,
-interval -1, the camera moving at 0.5c) it builds five renderers of the same
-frame: the live `build_render_fn`; its torch.export artifact loaded back
-(utils/aot: `export_render`, `load_render`); and the sharded renderer
-(parallel/tiles) on 1, 2 and 4 logical shards of the one card. Each renderer
+interval -1, the camera moving at 0.5c) it builds six renderers of the same
+frame: the live `build_render_fn` (one CUDA graph, utils/frame_graph); the
+eager frame (`render_constants`, then `trace_frame` under
+`full_precision()` each call); the torch.export artifact loaded back
+(utils/aot: `export_render`, `load_render`, graphed too); and the sharded
+renderer (parallel/tiles, a graph for the card's shards) on 1, 2 and 4
+logical shards of the one card. Each renderer
 is checked equal to the live frame to the bit, then timed in turns (three
 rounds, the renderers in the same order each round): 20 frames between CUDA
 events with a synchronize per frame (p50 and p95 ms), and 20 frames issued
@@ -84,6 +87,7 @@ def main(argv: list[str]) -> int:
         print("shard_turns: needs a CUDA device", file=sys.stderr)
         return 1
     import relativitypathtracer_tpu_torch as pt
+    from relativitypathtracer_tpu_torch import render as prender
     from relativitypathtracer_tpu_torch.ops.kernels import _build
     from relativitypathtracer_tpu_torch.parallel.tiles import build_sharded_render_fn
     from relativitypathtracer_tpu_torch.utils import aot
@@ -105,7 +109,13 @@ def main(argv: list[str]) -> int:
         t0 = time.perf_counter()
         data = aot.export_render(scene, meta, 1024, 768, device=dev)
         t_export = time.perf_counter() - t0
-        renders = {"live": live, "exported": aot.load_render(data)}
+        consts = prender.render_constants(meta, 1024, 768, 1, dev)
+
+        def eager(sc, st, c=consts, m=meta):
+            with prender.full_precision():
+                return prender.trace_frame(sc, m, st, *c, -1, 1024, 768)
+
+        renders = {"live": live, "eager": eager, "exported": aot.load_render(data)}
         for n in SHARDS:
             renders[f"sharded_{n}"] = build_sharded_render_fn(meta, 1024, 768, -1, [dev] * n)
         want = live(scene, state)
@@ -129,7 +139,7 @@ def main(argv: list[str]) -> int:
                 r[name]["p95"].append(percentile(times, 95))
                 r[name]["issue_ms"].append(_issue_ms(torch, lambda f=render: f(scene, state)))
         out[path] = r
-        del scene, renders
+        del scene, renders, consts
         torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)
     return 0

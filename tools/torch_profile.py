@@ -4,7 +4,8 @@
     python tools/torch_profile.py [PATH ...]  (default: all five paths)
 
 For each path of chip_smoke.py (utils/demo_scene at 1024x768, interval -1,
-the camera moving at 0.5c) it renders 5 warm-up frames, then times 30 frames
+the camera moving at 0.5c) it renders 5 warm-up frames of `build_render_fn`'s
+renderer (one CUDA graph, utils/frame_graph), then times 30 frames
 back to back on the host clock with one synchronize at the end (the frame
 rate a caller that does not wait per frame sees), then traces 10 more frames
 with torch.profiler. It prints one JSON line per path: the card, the frame
@@ -13,7 +14,9 @@ union of kernel and copy intervals) and its share of the frame, each of the
 port's CUDA kernels' device time per frame, and the five other kernels with
 the most device time. K4, the live-chunk list build, is three kernels (the
 cone table "K4 table", the cull "K4 cull" and the counting sort "K4
-sort"): every list build of one frame is captured and replayed 10 times
+sort"): every list build of one eager frame (`render_constants`,
+`trace_frame`: a graph's replay runs no Python to hook) is captured and
+replayed 10 times
 under the profiler alone, which gives its device time per frame (`k4`:
 builds per frame, device ms, and the bound of the same work: the spheres,
 rays and lane masks read once (a broadcast origin once) and the lists
@@ -213,6 +216,12 @@ def profile_path(kind: str, card: str, timed: int = 30, traced: int = 10) -> dic
         scene, meta = pt.build_scene(pt.load_scene_file(write_demo_scene(tmp, 4, kind)),
                                      device=dev)
     render = pt.build_render_fn(meta, 1024, 768, -1, device=dev)
+    consts = prender.render_constants(meta, 1024, 768, 1, dev)
+
+    def eager(sc, st):  # the same frame a launch at a time, for the hooks below
+        with prender.full_precision():
+            return prender.trace_frame(sc, meta, st, *consts, -1, 1024, 768)
+
     state = pt.FrameState(torch.tensor([0.5, 0.0, 0.0], device=dev),
                           torch.tensor([2 / 30, 0.0, 0.0, 0.0], device=dev))
     for _ in range(5):
@@ -245,8 +254,8 @@ def profile_path(kind: str, card: str, timed: int = 30, traced: int = 10) -> dic
     return {"path": kind, "card": card, "wall_ms_per_frame": wall_ms,
             "kernels_per_frame": launches / traced, "busy_ms_per_frame": busy,
             "busy_share": busy / wall_ms, "port_kernels_ms_per_frame": port,
-            "top_other_ms_per_frame": others, "k4": list_build(render, scene, state),
-            "analytic": analytic_work(render, scene, state)}
+            "top_other_ms_per_frame": others, "k4": list_build(eager, scene, state),
+            "analytic": analytic_work(eager, scene, state)}
 
 
 def main() -> int:
