@@ -126,7 +126,9 @@ class FrameGraph:
         graph = torch.cuda.CUDAGraph()
         before = collections.Counter(_build.LAUNCHES)
         try:
-            with torch.cuda.graph(graph):
+            # a capture stream of this device: torch's default one is made
+            # once, on the device current at its first capture
+            with torch.cuda.graph(graph, stream=torch.cuda.Stream(self.device)):
                 outputs = self.fn(*inputs)
         finally:
             launches = _build.LAUNCHES - before  # captured, not launched
