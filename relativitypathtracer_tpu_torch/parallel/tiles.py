@@ -208,7 +208,12 @@ def build_sharded_render_fn(meta: SceneMeta, width: int, height: int, interval: 
     parts = [part(j, dev) for j, dev in enumerate(frame.distinct)]
 
     def render(scene: Scene, state: FrameState):
-        return frame.gather([p(scene, state) for p in parts])
+        # The first device's part is issued last, so that the copies of the
+        # scene to the other devices are not queued behind its replay.
+        out = [None] * len(parts)
+        for j in reversed(range(len(parts))):
+            out[j] = parts[j](scene, state)
+        return frame.gather(out)
 
     render.parts = parts
     return render
