@@ -39,7 +39,10 @@ For each path it:
      (render_constants, trace_frame) to the bit, counts and launches alike,
      and prints eager and graph p50/p95 in turns (eager, graph, graph,
      eager; 20 frames each), the capture seconds, the bytes a replay copies
-     in and the peak memory of both;
+     in and the peak memory of both; then traces one more replay with
+     torch.profiler (CUDA activity) and checks that each of the path's
+     kernels ran in it as many times as the replay added to its launch
+     count, and no other kernel of the port;
   2. runs each kernel against its plain PyTorch twin, both on the card, on
      the inputs the first frame gave it (the six mesh walks K5, K6, K9, K10,
      K11 and K12 equal to it bit for bit, with the chunks they walked
@@ -113,15 +116,17 @@ and two more on the textured and instances fixtures:
           parity rule to the CPU's sharded frame and to the card's per-sample
           loop frame; the mesh-hit rays per shard and their skew, strided
           against contiguous; on a host with two or more cards the frames on
-          distinct cards (else a line that says this did not run); and
+          distinct cards, live and through export_sharded_render (else a
+          line that says this did not run); and
           parallel.tiles.dryrun_multichip(4) on the card;
   export  utils/aot.export_render of both fixtures at 1024x768 on the card,
           saved to bytes and loaded: after the loaded program's capture, the
           loaded frames at the three states and at a second scene of the same
           shapes (other velocities and colours) replays of one graph, equal to
           the live renderer's to the bit, with a frame's launches equal to the
-          live frame's; export_sharded_render on 2 logical shards
-          (textured, 512x384) equal to the live sharded frame; the export tool
+          live frame's, and a traced replay running those kernels;
+          export_sharded_render on 2 logical shards (textured, 512x384)
+          equal to the live sharded frame; the export tool
           tools/export_renderer_torch.py --fixture textured --device cuda
           --selfcheck run once (exit 0); prints the export seconds, the bytes
           and the loaded frame's p50/p95.
@@ -131,6 +136,7 @@ last line {"ok": true, "device": {...}}. Any failed check raises.
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import pathlib
@@ -190,6 +196,22 @@ PATHS = {  # path -> (demo scene kind, kernels it runs, CPU parity size)
     "large": ("large", ("rpt_shadow_chain", "rpt_analytic_nearest", *K4,
                         "rpt_large_shared_walk", "rpt_large_general_walk"), (256, 192)),
 }
+# launch-count key (before any "/route") -> what its kernel's name in a
+# profiler trace holds; a walk of K5/K6 or K11/K12 is one template fed two
+# list kinds, and the batched walks' names hold the others'
+TRACE_NAMES = {"rpt_shadow_chain": ("shadow_chain_kernel",),
+               "rpt_footprint_sample": ("footprint_kernel",),
+               "rpt_analytic_nearest": ("analytic_nearest_kernel",),
+               "rpt_analytic_min_t": ("analytic_min_t_kernel",),
+               "rpt_cone_table": ("cone_table_kernel",),
+               "rpt_live_cull": ("live_cull",),
+               "rpt_bucket_order": ("bucket_order_kernel",),
+               "rpt_shared_walk": ("shared_walk_kernel", "FlatList"),
+               "rpt_general_walk": ("general_walk_kernel", "FlatList"),
+               "rpt_large_shared_walk": ("shared_walk_kernel", "SuperList"),
+               "rpt_large_general_walk": ("general_walk_kernel", "SuperList"),
+               "rpt_batched_shared_walk": ("batched_shared_walk_kernel",),
+               "rpt_batched_general_walk": ("batched_general_walk_kernel",)}
 # other kernels report the textured path
 REPORT_FROM = {"K4": "large", "K7": "cubes", "K8": "cubes", "K9": "instances",
                "K10": "instances", "K11": "large", "K12": "large"}
@@ -929,6 +951,42 @@ def graph_phase(torch, pt, path, scene, meta, states, render, frames, launches, 
         + ", ".join(f"{a:.3f}/{b:.3f}" for a, b in turns["graph"]))
 
 
+def trace_key(name: str):
+    """The launch-count key (before any "/route") of the port kernel whose
+    trace name is `name`, or None."""
+    for key, parts in TRACE_NAMES.items():
+        if all(p in name for p in parts) and ("batched" in name) == ("batched" in key):
+            return key
+    return None
+
+
+def replay_trace(torch, render, scene, state, per_frame, what):
+    """One call of a graphed renderer under torch.profiler: the port's
+    kernels in the trace, by launch key, must be those the call added to the
+    launch counts, each as many times, and those per_frame (an eager frame's
+    or the path's replays' counts a frame)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from relativitypathtracer_tpu_torch.ops.kernels import _build
+
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        render(scene, state)
+        torch.cuda.synchronize()
+    added = {k.split("/")[0]: n for k, n in _build.LAUNCHES.items()}
+    traced = collections.Counter(
+        trace_key(e.name) for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA)
+    kernels = sum(traced.values())
+    traced.pop(None, None)
+    check(added == {k.split("/")[0]: n for k, n in per_frame.items()},
+          f"{what}: the traced call counted {added}, a frame {per_frame}")
+    check(dict(traced) == added, f"{what}: the trace ran {dict(traced)}, the counts say {added}")
+    log(f"  {what}: a traced replay ran each of the path's kernels as often as it counted "
+        f"them ({sum(added.values())} of its {kernels} device kernels and copies)")
+
+
 def counted_frame(torch, render, scene, state):
     """One frame of render with every launch count set to 0 just before and
     read just after: (output, launches)."""
@@ -956,6 +1014,7 @@ def sharded_phase(torch, pt, scenes, hosts, states, card):
     """The sharded renderer (parallel/tiles.py) on the card; see the module
     docstring."""
     from relativitypathtracer_tpu_torch.parallel import tiles
+    from relativitypathtracer_tpu_torch.utils import aot
 
     dev = torch.device(DEVICE)
     st = states[2]
@@ -1027,7 +1086,11 @@ def sharded_phase(torch, pt, scenes, hosts, states, card):
                                                      with_aux=True)(scene, st)
             check(torch.equal(img, want) and counts(aux) == counts(waux),
                   f"sharded {path} on {len(cards)} cards differs from build_render_fn's")
-            log(f"  sharded {path} on {len(cards)} distinct cards: equal to build_render_fn's")
+            loaded = aot.load_render(aot.export_sharded_render(scene, meta, WIDTH, HEIGHT, cards))
+            check(len(loaded.parts) == len(cards) and torch.equal(loaded(scene, st), want),
+                  f"exported sharded {path} on {len(cards)} cards differs from build_render_fn's")
+            log(f"  sharded {path} on {len(cards)} distinct cards, live and exported: equal to "
+                f"build_render_fn's")
     else:
         log("  sharded on distinct cards: not run (this host has one CUDA device)")
     out = tiles.dryrun_multichip(SHARDS)
@@ -1063,6 +1126,7 @@ def export_phase(torch, pt, scenes, states, card, live_launches, live_frames):
             per_frame = {k: n // live_frames for k, n in live_launches[path].items()}
             check(launches == per_frame, f"export {path}: launches {launches}, live {per_frame}")
         check(render.captures == 1, f"export {path}: {render.captures} captures")
+        replay_trace(torch, render, scene, states[2], per_frame, f"export {path}")
         p50, p95 = p50_p95(torch, render, scene, states[2])
         log(f"  export {path} {WIDTH}x{HEIGHT}: exported in {t_export:.1f} s, {len(data)} "
             f"bytes, loaded in {t_load:.1f} s, captured in {t_capture:.3f} s; the loaded frames "
@@ -1234,6 +1298,8 @@ def main() -> int:
             check(name in names, f"{path}: unexpected launches of {name}")
         graph_phase(torch, pt, path, scene, meta, states, render, frames, launches, capture_s,
                     graph_mib, card)
+        replay_trace(torch, render, scene, states[2],
+                     {k: n // len(states) for k, n in launches.items()}, f"graph on {path}")
 
         originals_by_key = {n: originals[n.split("/")[0]] for n in names}
         results[path] = compare_kernels(torch, (ak, mk, sc, tk, mb, ml), meta, captured,

@@ -77,66 +77,31 @@ def _tree_to(tree, dev):
     return pytree.tree_map(lambda x: x.to(dev) if isinstance(x, torch.Tensor) else x, tree)
 
 
-class ShardedFrame(torch.nn.Module):
-    """The sharded frame as a module: its constants are buffers (each
-    shard's swizzled dirs on its device, each device's mesh orders and miss
-    colour, the de-interleave permutation on the first device), the scene
-    and the FrameState are the arguments of forward. build_sharded_render_fn
-    calls it; utils/aot exports it."""
+class ShardPart(torch.nn.Module):
+    """The shards dealt to one device, as a module: their swizzled dirs and
+    the device's mesh orders and miss colour are buffers. forward(scene,
+    state), both on the device: the frame algebra once, then per shard a
+    shade of its blocks, the msaa average and the tonemap. Returns (blocks,
+    auxes), a (bpd, q, 3) image and an aux dict per shard, in deal order."""
 
-    def __init__(self, meta: SceneMeta, width: int, height: int, interval: int, devices,
-                 msaa: int = 1, with_aux: bool = False, band_assign: str = "strided"):
+    def __init__(self, meta: SceneMeta, interval: int, msaa: int, bpd: int, q: int, bands,
+                 device: torch.device):
         super().__init__()
-        if msaa not in MSAA:
-            raise ValueError(f"sharded renderer supports msaa in 1/2/4/8/16, got {msaa}")
-        self.devices = [torch.device(d) for d in devices]
-        if not self.devices:
-            raise ValueError("sharded renderer needs at least one device")
-        n_dev = len(self.devices)
-        self.meta, self.interval, self.msaa = meta, int(interval), msaa
-        self.width, self.height, self.with_aux = width, height, with_aux
-        self.pw = _round_up(width, TILE)
-        self.ph = _round_up(-(-height // n_dev), TILE) * n_dev
-        self.p = TILE // msaa  # patch edge in pixels
-        self.q = self.p * self.p  # pixels per block
-        n_blocks = (self.ph // self.p) * (self.pw // self.p)
-        self.bpd = n_blocks // n_dev
-        dev_blocks, inv = deal_blocks(n_dev, self.ph // self.p, self.pw // self.p, band_assign)
-        self.deinterleave = band_assign != "contiguous"
+        self.meta, self.interval, self.msaa, self.bpd, self.q = meta, interval, msaa, bpd, q
+        self.n_bands, self.n_perms = len(bands), len(meta.mesh_perms)
+        for k, band in enumerate(bands):
+            self.register_buffer(f"band{k}", band.contiguous().to(device))
+        for k, perm in enumerate(mesh_perm_tensors(meta, device)):
+            self.register_buffer(f"perm{k}", perm)
+        self.register_buffer("miss", torch.tensor(MISS_COLOR, device=device)[:, None])
 
-        # The dirs as build_render_fn makes them, on the first device (a ray's
-        # dir is the same on every pad), then each shard's blocks on its own.
-        first = self.devices[0]
-        dirs = camera_ray_dirs(width, height, msaa, self.pw, self.ph, device=first)
-        if msaa == 1:
-            full = tile_swizzle(dirs.reshape(-1, 3).T, self.ph, self.pw)
-        else:
-            full = msaa_swizzle(dirs, self.ph, self.pw, msaa)
-        full = full.reshape(3, n_blocks, LANES)
-        for b, dev in enumerate(self.devices):
-            band = full[:, torch.as_tensor(dev_blocks[b], device=first)].reshape(3, -1)
-            self.register_buffer(f"band{b}", band.contiguous().to(dev))
-        self.register_buffer("inv", torch.as_tensor(inv, device=first))
-        self.distinct = list(dict.fromkeys(self.devices))
-        self.n_perms = len(meta.mesh_perms)
-        for j, dev in enumerate(self.distinct):
-            for k, perm in enumerate(mesh_perm_tensors(meta, dev)):
-                self.register_buffer(f"perm{j}_{k}", perm)
-            self.register_buffer(f"miss{j}", torch.tensor(MISS_COLOR, device=dev)[:, None])
-
-    def device_part(self, j: int, scene: Scene, state: FrameState):
-        """The shards dealt to device distinct[j], in deal order, with the
-        scene and state already there: the frame algebra once, then per shard
-        a shade of its blocks, the msaa average and the tonemap. Returns
-        (blocks, auxes), a (bpd, q, 3) image and an aux dict per shard."""
-        dev = self.distinct[j]
-        perms = tuple(getattr(self, f"perm{j}_{k}") for k in range(self.n_perms))
-        miss = getattr(self, f"miss{j}")
+    def forward(self, scene: Scene, state: FrameState):
+        perms = tuple(getattr(self, f"perm{k}") for k in range(self.n_perms))
         L, inv_L, stat_cam = object_frames(scene.objects, state)
         blocks, auxes = [], []
-        for b in (b for b, d in enumerate(self.devices) if d == dev):
-            color, aux = shade(scene, self.meta, L, inv_L, stat_cam, getattr(self, f"band{b}"),
-                               self.interval, perms, miss)
+        for k in range(self.n_bands):
+            color, aux = shade(scene, self.meta, L, inv_L, stat_cam, getattr(self, f"band{k}"),
+                               self.interval, perms, self.miss)
             if self.msaa > 1:
                 # lanes run (quad_r, quad_c, r, c, sample): average the minor
                 # sample axis, pixels stay in block quadrant-major order
@@ -145,11 +110,23 @@ class ShardedFrame(torch.nn.Module):
             auxes.append(aux)
         return blocks, auxes
 
-    def gather(self, parts):
-        """The frame on the first device from every device_part's result
-        (parts[j] of distinct[j]): the blocks in shard order, de-interleaved,
-        unswizzled and cropped; with_aux also the aux summed over the
-        shards."""
+
+class ShardGather(torch.nn.Module):
+    """The frame on the first device from every ShardPart's result, as a
+    module (the de-interleave permutation is a buffer): forward(parts),
+    parts[j] the result of the part of distinct device j, gathers the blocks
+    in shard order, de-interleaves, unswizzles and crops them; with_aux it
+    also sums the aux over the shards."""
+
+    def __init__(self, devices, distinct, inv, deinterleave: bool, ph: int, pw: int, p: int,
+                 width: int, height: int, with_aux: bool):
+        super().__init__()
+        self.devices, self.distinct, self.deinterleave = devices, distinct, deinterleave
+        self.ph, self.pw, self.p, self.width, self.height = ph, pw, p, width, height
+        self.with_aux = with_aux
+        self.register_buffer("inv", torch.as_tensor(inv, device=devices[0]))
+
+    def forward(self, parts):
         first = self.devices[0]
         shards = [iter(zip(*part)) for part in parts]
         blocks, auxes = [], []
@@ -165,14 +142,50 @@ class ShardedFrame(torch.nn.Module):
         img = img.reshape(3, self.ph, self.pw).permute(1, 2, 0)[:self.height, :self.width]
         if not self.with_aux:
             return img
-        total = {k: v.to(first, copy=True) for k, v in auxes[0].items()}
+        total = {k: v.to(first) for k, v in auxes[0].items()}
         for aux in auxes[1:]:
             total = {k: total[k] + aux[k].to(first) for k in total}
         return img, total
 
-    def forward(self, scene: Scene, state: FrameState):
-        return self.gather([self.device_part(j, _tree_to(scene, dev), _tree_to(state, dev))
-                            for j, dev in enumerate(self.distinct)])
+
+class ShardedFrame:
+    """The sharded frame's modules: a ShardPart a distinct device (`parts`,
+    in the order of `distinct`) and the ShardGather on the first device
+    (`gather`). build_sharded_render_fn graphs each part; utils/aot exports
+    each part and the gather."""
+
+    def __init__(self, meta: SceneMeta, width: int, height: int, interval: int, devices,
+                 msaa: int = 1, with_aux: bool = False, band_assign: str = "strided"):
+        if msaa not in MSAA:
+            raise ValueError(f"sharded renderer supports msaa in 1/2/4/8/16, got {msaa}")
+        self.devices = [torch.device(d) for d in devices]
+        if not self.devices:
+            raise ValueError("sharded renderer needs at least one device")
+        n_dev = len(self.devices)
+        pw = _round_up(width, TILE)
+        ph = _round_up(-(-height // n_dev), TILE) * n_dev
+        p = TILE // msaa  # patch edge in pixels
+        n_blocks = (ph // p) * (pw // p)
+        dev_blocks, inv = deal_blocks(n_dev, ph // p, pw // p, band_assign)
+
+        # The dirs as build_render_fn makes them, on the first device (a ray's
+        # dir is the same on every pad), then each shard's blocks on its own.
+        first = self.devices[0]
+        dirs = camera_ray_dirs(width, height, msaa, pw, ph, device=first)
+        if msaa == 1:
+            full = tile_swizzle(dirs.reshape(-1, 3).T, ph, pw)
+        else:
+            full = msaa_swizzle(dirs, ph, pw, msaa)
+        full = full.reshape(3, n_blocks, LANES)
+        self.distinct = list(dict.fromkeys(self.devices))
+        self.parts = [
+            ShardPart(meta, int(interval), msaa, n_blocks // n_dev, p * p,
+                      [full[:, torch.as_tensor(dev_blocks[b], device=first)].reshape(3, -1)
+                       for b, d in enumerate(self.devices) if d == dev], dev)
+            for dev in self.distinct]
+        self.gather = ShardGather(self.devices, self.distinct, inv,
+                                  band_assign != "contiguous", ph, pw, p, width, height,
+                                  with_aux)
 
 
 def build_sharded_render_fn(meta: SceneMeta, width: int, height: int, interval: int, devices,
@@ -189,33 +202,38 @@ def build_sharded_render_fn(meta: SceneMeta, width: int, height: int, interval: 
     `full_precision()`.
 
     Each distinct CUDA device runs its shards as one CUDA graph
-    (utils/frame_graph, `ShardedFrame.device_part`), whose static inputs are
-    that device's copy of the scene and state: the scene reaches a card by
-    one copy a frame into its graph's inputs. The gather on the first device
-    stays eager, a few ops: on distinct cards it needs every card's blocks,
-    and one code path for logical and distinct shards keeps a one-card run
-    on the path that distinct cards take. On the CPU every part runs
-    eagerly."""
+    (utils/frame_graph, `ShardPart`), whose static inputs are that device's
+    copy of the scene and state: the scene reaches a card by one copy a
+    frame into its graph's inputs. The gather on the first device stays
+    eager, a few ops: on distinct cards it needs every card's blocks, and
+    one code path for logical and distinct shards keeps a one-card run on
+    the path that distinct cards take. On the CPU every part runs eagerly."""
     frame = ShardedFrame(meta, width, height, interval, devices, msaa, with_aux, band_assign)
+    return _graphed(frame.parts, frame.distinct, frame.gather)
 
-    def part(j, dev):
+
+def _graphed(parts, distinct, gather):
+    """render(scene, state): each part (a module of its device's shards)
+    as a FrameGraph on its device, then the gather, eager. `render.parts`
+    are the FrameGraphs."""
+    def part(module, dev):
         def run(scene: Scene, state: FrameState):
             with full_precision():
-                return frame.device_part(j, _tree_to(scene, dev), _tree_to(state, dev))
+                return module(_tree_to(scene, dev), _tree_to(state, dev))
 
-        return FrameGraph(run, dev, fresh=False)
+        return FrameGraph(run, dev)
 
-    parts = [part(j, dev) for j, dev in enumerate(frame.distinct)]
+    graphs = [part(m, dev) for m, dev in zip(parts, distinct)]
 
     def render(scene: Scene, state: FrameState):
         # The first device's part is issued last, so that the copies of the
         # scene to the other devices are not queued behind its replay.
-        out = [None] * len(parts)
-        for j in reversed(range(len(parts))):
-            out[j] = parts[j](scene, state)
-        return frame.gather(out)
+        out = [None] * len(graphs)
+        for j in reversed(range(len(graphs))):
+            out[j] = graphs[j](scene, state)
+        return gather(out)
 
-    render.parts = parts
+    render.parts = graphs
     return render
 
 

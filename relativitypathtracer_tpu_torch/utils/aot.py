@@ -9,7 +9,8 @@ artifact serves any scene whose build gives the same tensor shapes (the same
 object counts, texture atlas and mesh pools): scene edits, camera motion and
 boosts with no re-export. The renderer's constants (the swizzled camera
 dirs, the meshes' Morton orders, the miss colour) are buffers of the
-exported module.
+exported module. A sharded renderer's artifact is a zip archive of one
+program per device and one of the gather (`export_sharded_render`).
 
 Every kernel of the frame is an operator torch.ops.rpt.* (ops/kernels/
 _build.define_op): the program records each launch as one node, and the
@@ -30,13 +31,15 @@ Not ported from the JAX package's aot.py:
 from __future__ import annotations
 
 import io
+import itertools
+import zipfile
 
 import torch
 from torch.utils import _pytree as pytree
 
 from ..device import DEFAULT_DEVICE
 from ..models.scene import MeshArrays, MeshBatchStatic, MeshStatic, ObjectsSoA, Scene
-from ..parallel.tiles import ShardedFrame
+from ..parallel.tiles import ShardedFrame, _graphed, _tree_to
 from ..render import FrameState, full_precision, render_constants, trace_frame
 from .frame_graph import FrameGraph
 
@@ -45,6 +48,10 @@ from .frame_graph import FrameGraph
 for _t in (ObjectsSoA, MeshArrays, MeshStatic, MeshBatchStatic, Scene, FrameState):
     if _t not in pytree.SUPPORTED_SERIALIZED_TYPES:
         pytree._register_namedtuple(_t, serialized_type_name=f"rpt.{_t.__name__}")
+
+# The members of a sharded artifact: a program per distinct device, then the
+# gather's.
+SHARD_PART, SHARD_GATHER = "sharded/part{}.pt2", "sharded/gather.pt2"
 
 
 class RenderModule(torch.nn.Module):
@@ -75,12 +82,11 @@ def _card(dev: torch.device) -> None:
         raise RuntimeError("no CUDA device: export on the card, or pass device='cpu'")
 
 
-def _save(module: torch.nn.Module, scene, dev: torch.device) -> bytes:
-    """Export `module` with the scene (moved to dev) and a FrameState on dev
-    as its example inputs; return the serialized program."""
-    scene = pytree.tree_map(lambda x: x.to(dev) if isinstance(x, torch.Tensor) else x, scene)
+def _save(module: torch.nn.Module, args) -> bytes:
+    """Export `module` with `args` as its example inputs; return the
+    serialized program."""
     with full_precision():
-        program = torch.export.export(module, (scene, FrameState.initial(dev)), strict=False)
+        program = torch.export.export(module, args, strict=False)
     buf = io.BytesIO()
     torch.export.save(program, buf)
     return buf.getvalue()
@@ -96,35 +102,60 @@ def export_render(scene, meta, width: int, height: int, interval: int | None = N
     _card(dev)
     if interval is None:
         interval = meta.default_interval
-    return _save(RenderModule(meta, width, height, int(interval), msaa, dev), scene, dev)
+    return _save(RenderModule(meta, width, height, int(interval), msaa, dev),
+                 (_tree_to(scene, dev), FrameState.initial(dev)))
 
 
 def export_sharded_render(scene, meta, width: int, height: int, devices,
                           interval: int | None = None, msaa: int = 1) -> bytes:
-    """Serialize the sharded renderer (parallel/tiles.py) over `devices`:
-    the artifact holds each shard's dirs on its device and so records the
-    devices; the caller passes the scene and state on devices[0]."""
+    """Serialize the sharded renderer (parallel/tiles.py) over `devices`: a
+    zip archive of one program per distinct device (`SHARD_PART`, its
+    ShardPart: its shards' dirs and its mesh orders, the scene and state on
+    that device as inputs) and the program of the gather (`SHARD_GATHER`,
+    ShardGather on devices[0], whose example inputs come from one eager run
+    of the parts). The caller passes the scene and state on devices[0];
+    load_render graphs each part on its device, as the live renderer does."""
     devices = [torch.device(d) for d in devices]
     for dev in devices:
         _card(dev)
     if interval is None:
         interval = meta.default_interval
-    return _save(ShardedFrame(meta, width, height, int(interval), devices, msaa), scene,
-                 devices[0])
+    frame = ShardedFrame(meta, width, height, int(interval), devices, msaa)
+    buf = io.BytesIO()
+    with zipfile.ZipFile(buf, "w") as archive:
+        outs = []
+        for j, (part, dev) in enumerate(zip(frame.parts, frame.distinct)):
+            args = (_tree_to(scene, dev), FrameState.initial(dev))
+            archive.writestr(SHARD_PART.format(j), _save(part, args))
+            with full_precision():
+                outs.append(part(*args))
+        archive.writestr(SHARD_GATHER, _save(frame.gather, (outs,)))
+    return buf.getvalue()
+
+
+def _program_device(program) -> torch.device:
+    """The one device of an exported program's tensors; raises on several."""
+    devices = {t.device for t in (*program.state_dict.values(), *program.constants.values())
+               if isinstance(t, torch.Tensor)}
+    if len(devices) != 1:
+        raise ValueError(f"load_render: a program's tensors lie on {sorted(map(str, devices))}"
+                         "; each program of an artifact runs on one device")
+    return devices.pop()
 
 
 def load_render(data: bytes):
     """Deserialize an exported renderer; returns render(scene, state) ->
-    (H, W, 3) image on the artifact's device. Each call runs under
+    (H, W, 3) image on the artifact's (first) device. Each call runs under
     `full_precision()`: the TF32 switches are process state, not part of the
     program, so the loaded program would otherwise follow the caller's.
     Importing this module registers the operators the program calls.
 
     On a CUDA device the loaded program runs as one CUDA graph
     (utils/frame_graph), captured at its first call per input layout: the
-    replay runs the program's kernels with none of its Python. An artifact
-    whose tensors lie on more than one device (a sharded export over
-    distinct cards) is refused: one graph replays on one device.
+    replay runs the program's kernels with none of its Python. A sharded
+    artifact (export_sharded_render) runs as the live sharded renderer:
+    each part's program a graph on its device, the gather's program eager
+    on the first; `render.parts` are the graphs.
 
     The module checks each call's inputs against the exported ones (their
     tree and shapes) in its pre-hook, when it runs: at a capture, where a
@@ -132,16 +163,20 @@ def load_render(data: bytes):
     generated guard function (check_guards=False), whose code names an input
     by a textual replace that mangles a path with a sibling as its prefix
     (`objects.m` inside `objects.mesh_root`)."""
-    program = torch.export.load(io.BytesIO(data))
-    devices = {t.device for t in (*program.state_dict.values(), *program.constants.values())
-               if isinstance(t, torch.Tensor)}
-    if len(devices) != 1:
-        raise ValueError(f"load_render: the artifact's tensors lie on {sorted(map(str, devices))}"
-                         "; a loaded renderer runs on one device")
-    module = program.module(check_guards=False)
+    with zipfile.ZipFile(io.BytesIO(data)) as archive:
+        names = set(archive.namelist())
+        if SHARD_GATHER not in names:
+            program = torch.export.load(io.BytesIO(data))
+            module = program.module(check_guards=False)
 
-    def render(scene: Scene, state: FrameState):
-        with full_precision():
-            return module(scene, state)
+            def render(scene: Scene, state: FrameState):
+                with full_precision():
+                    return module(scene, state)
 
-    return FrameGraph(render, devices.pop())
+            return FrameGraph(render, _program_device(program))
+        parts = [torch.export.load(io.BytesIO(archive.read(SHARD_PART.format(j))))
+                 for j in itertools.takewhile(lambda j: SHARD_PART.format(j) in names,
+                                              itertools.count())]
+        gather = torch.export.load(io.BytesIO(archive.read(SHARD_GATHER)))
+    return _graphed([p.module(check_guards=False) for p in parts],
+                    [_program_device(p) for p in parts], gather.module(check_guards=False))

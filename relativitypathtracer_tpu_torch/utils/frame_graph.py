@@ -7,12 +7,20 @@ compiled program. PyTorch runs eagerly, and the port's frame is some 220-730
 launches issued from Python. `FrameGraph(fn, device)` wraps such a frame:
 on a CUDA device its first call for an input layout (the tree structure,
 shapes, dtypes and devices of the inputs' tensors, the other leaves' values;
-`layout_key`) runs fn once eagerly on a side stream (the warm-up that builds
-the kernel library, makes the walks' shared-memory opt-in and fills the
-caches of `_build.cached_constant`), then captures one more call of fn into a
-`torch.cuda.CUDAGraph` with its own memory pool; every call replays the
-graph of its layout. A new layout is a new capture, as a new shape is a new
-trace under `jax.jit`; a small bounded cache keeps the latest layouts.
+`layout_key`) runs fn once eagerly on a side stream (the warm-up that
+builds the kernel library, makes the walks' shared-memory opt-in and fills
+the caches of `_build.cached_constant`), then captures one more call of fn
+into a `torch.cuda.CUDAGraph`; every call replays the graph of its layout.
+A new layout is a new capture, as a new shape is a new trace under
+`jax.jit`; a small bounded cache keeps the latest layouts.
+
+Every graph of a device draws its intermediates from one memory pool, and
+is warmed up and captured on one side stream, both the device's
+(`_device_pool`): a replay's intermediates are dead when it ends, and
+replays run one after another on the caller's stream, so one graph may
+reuse what another freed. What a graph keeps is its static inputs and its
+outputs; the pool holds the largest frame's intermediates once, however
+many renderers are cached.
 
 Semantics kept from `jax.jit`:
 - a call reads the values it is given: the graph owns static copies of
@@ -20,9 +28,7 @@ Semantics kept from `jax.jit`:
   them before the replay (so a second scene of the same shapes, or a
   caller's in-place edit, renders right with no new capture);
 - a call returns new tensors: the outputs are cloned after the replay, so a
-  frame the caller keeps is not overwritten by the next one (`fresh=False`
-  skips the clone for a caller that consumes the outputs before its next
-  call);
+  frame the caller keeps is not overwritten by the next replay of any graph;
 - `_build.LAUNCHES` keeps meaning "launches issued to the card": the counts
   made while capturing are taken out, and each replay adds them.
 
@@ -41,6 +47,7 @@ from torch.utils import _pytree as pytree
 from ..ops.kernels import _build
 
 MAX_LAYOUTS = 4  # graphs kept per FrameGraph, the latest layouts
+_POOLS: dict = {}  # device -> (memory pool handle, capture stream)
 
 
 def layout_key(leaves, spec):
@@ -51,8 +58,17 @@ def layout_key(leaves, spec):
                        else ("value", x) for x in leaves)
 
 
-def _fresh(out):
-    return pytree.tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x, out)
+def _device_pool(device: torch.device):
+    """The memory pool and the side stream (warm-up and capture) that every
+    graph of `device` shares. A stream of the device itself: torch's default
+    capture stream is made once, on the device current at its first capture.
+    One stream, because cuBLAS keeps a workspace (32 MiB on Hopper) for each
+    stream it has run on, for the life of the process."""
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device not in _POOLS:
+        _POOLS[device] = (torch.cuda.graph_pool_handle(), torch.cuda.Stream(device))
+    return _POOLS[device]
 
 
 class CapturedFrame:
@@ -65,15 +81,16 @@ class CapturedFrame:
         self.launches = collections.Counter(launches)
         self.input_bytes = sum(x.numel() * x.element_size() for x in statics)
 
-    def run(self, leaves, fresh: bool = True):
+    def run(self, leaves):
         """Copy the caller's tensors into the static inputs, replay, count
-        the graph's launches; the outputs, cloned when `fresh`."""
+        the graph's launches; a clone of the outputs."""
         tensors = [x for x in leaves if isinstance(x, torch.Tensor)]
         if tensors:
             torch._foreach_copy_(self.statics, tensors)
         self.graph.replay()
         _build.LAUNCHES.update(self.launches)
-        return _fresh(self.outputs) if fresh else self.outputs
+        return pytree.tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x,
+                               self.outputs)
 
 
 class FrameGraph:
@@ -82,10 +99,9 @@ class FrameGraph:
     a device value on the host (`.item()`, `bool(tensor)`) nor make a tensor
     from host data after its warm-up: capture refuses both."""
 
-    def __init__(self, fn, device, fresh: bool = True):
+    def __init__(self, fn, device):
         self.fn = fn
         self.device = torch.device(device)
-        self.fresh = fresh
         self.graphs: collections.OrderedDict = collections.OrderedDict()
         self.captures = 0  # graphs captured, over the renderer's life
 
@@ -103,7 +119,7 @@ class FrameGraph:
                     self.graphs.popitem(last=False)
             else:
                 self.graphs.move_to_end(key)
-            return frame.run(leaves, self.fresh)
+            return frame.run(leaves)
 
     @property
     def input_bytes(self) -> int:
@@ -118,17 +134,15 @@ class FrameGraph:
         it = iter(statics)
         inputs = pytree.tree_unflatten(
             [next(it) if isinstance(x, torch.Tensor) else x for x in leaves], spec)
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
+        pool, stream = _device_pool(self.device)
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
             self.fn(*inputs)  # warm-up: real launches, counted as such
-        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.current_stream().wait_stream(stream)
         graph = torch.cuda.CUDAGraph()
         before = collections.Counter(_build.LAUNCHES)
         try:
-            # a capture stream of this device: torch's default one is made
-            # once, on the device current at its first capture
-            with torch.cuda.graph(graph, stream=torch.cuda.Stream(self.device)):
+            with torch.cuda.graph(graph, pool=pool, stream=stream):
                 outputs = self.fn(*inputs)
         finally:
             launches = _build.LAUNCHES - before  # captured, not launched

@@ -10,10 +10,12 @@ fake implementation, which the export traces, gives the shapes and dtypes of
 its real results.
 """
 
+import io
 import os
 import pathlib
 import subprocess
 import sys
+import zipfile
 
 import pytest
 import torch
@@ -86,6 +88,31 @@ def test_exported_sharded_frame_equals_the_live_frame(scenes):
     want = build_sharded_render_fn(meta, W, H, meta.default_interval, ["cpu"] * 2)(
         scene, _state(1))
     assert torch.equal(got, want)
+
+
+def test_exported_sharded_frame_holds_a_program_per_device(scenes):
+    """A sharded artifact over two distinct devices ("cpu" and "cpu:0" are
+    two device names to the renderer) holds a program per device and the
+    gather's; loaded, it renders the live sharded frame and the single
+    frame to the bit, at two states and a second scene of the same shapes,
+    through one part a device."""
+    from relativitypathtracer_tpu_torch.parallel.tiles import build_sharded_render_fn
+
+    scene, meta = scenes["instances"]
+    devices = ["cpu", "cpu:0", "cpu", "cpu:0"]
+    data = aot.export_sharded_render(scene, meta, W, H, devices)
+    with zipfile.ZipFile(io.BytesIO(data)) as archive:
+        assert sorted(archive.namelist()) == [aot.SHARD_GATHER, aot.SHARD_PART.format(0),
+                                              aot.SHARD_PART.format(1)]
+    loaded = aot.load_render(data)
+    live = build_sharded_render_fn(meta, W, H, meta.default_interval, devices)
+    single = pt.build_render_fn(meta, W, H, meta.default_interval, device="cpu")
+    other = scene._replace(objects=scene.objects._replace(
+        velocity=scene.objects.velocity.flip(0) * 0.8))
+    assert len(loaded.parts) == 2
+    for sc, st in ((scene, _state(0)), (scene, _state(1)), (other, _state(1))):
+        got = loaded(sc, st)
+        assert torch.equal(got, live(sc, st)) and torch.equal(got, single(sc, st))
 
 
 class _Record(TorchDispatchMode):

@@ -1695,3 +1695,67 @@ def test_sharded_and_loaded_graphs_equal_the_eager_frame(cuda, graph_scenes):
             assert launches == {k: 2 * n for k, n in eager_launches.items()}
         assert torch.equal(loaded(scene, st), want)
     assert [p.captures for p in sharded.parts] == [1] and loaded.captures == 1
+
+
+def test_cached_renderers_share_one_graph_pool(cuda, graph_scenes):
+    """Nine cached renderers of one frame size (nine intervals) on one card:
+    their graphs draw their intermediates from the card's one pool, so each
+    of the eight after the first reserves on average less than half of one
+    eager frame's peak memory (a pool of its own would hold a frame's
+    intermediates, about that peak); every frame, rendered again after all
+    the others replayed, equals its first rendering and the eager frame."""
+    import relativitypathtracer_tpu_torch as pt
+    from relativitypathtracer_tpu_torch import render as prender
+
+    scene, meta = graph_scenes["textured"]
+    state = _graph_state(cuda, 1)
+    consts = prender.render_constants(meta, 1024, 768, 1, cuda)
+
+    def eager(interval):
+        with prender.full_precision():
+            return prender.trace_frame(scene, meta, state, *consts, interval, 1024, 768)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    eager(-1)
+    torch.cuda.synchronize()
+    eager_peak = torch.cuda.max_memory_allocated(cuda) - base
+    torch.cuda.empty_cache()
+    renders, frames, reserved = [], [], []
+    for interval in range(-1, 8):
+        render = pt.build_render_fn(meta, 1024, 768, interval, device=cuda)
+        render(scene, state)
+        frames.append(render(scene, state))
+        renders.append(render)
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.memory_reserved(cuda))
+    assert (reserved[-1] - reserved[0]) / 8 < eager_peak / 2, \
+        f"reserved MiB {[r / 2**20 for r in reserved]}, eager peak {eager_peak / 2**20} MiB"
+    for interval, render, kept in reversed(list(zip(range(-1, 8), renders, frames))):
+        assert torch.equal(render(scene, state), kept) and torch.equal(kept, eager(interval))
+    assert all(r.captures == 1 for r in renders)
+
+
+def test_sharded_export_on_distinct_cards(cuda, graph_scenes):
+    """The sharded renderer and its artifact over every card of a host with
+    two or more (a graph a card, the gather eager on the first): frames
+    equal to the single card's to the bit."""
+    import relativitypathtracer_tpu_torch as pt
+    from relativitypathtracer_tpu_torch.parallel.tiles import (build_sharded_render_fn,
+                                                               default_devices)
+    from relativitypathtracer_tpu_torch.utils import aot
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    cards = default_devices()
+    scene, meta = graph_scenes["instances"]
+    single = pt.build_render_fn(meta, 160, 96, -1, device=cuda)
+    live = build_sharded_render_fn(meta, 160, 96, -1, cards)
+    loaded = aot.load_render(aot.export_sharded_render(scene, meta, 160, 96, cards, -1))
+    assert len(loaded.parts) == len(cards)
+    for i in (1, 2):
+        st = _graph_state(cuda, i)
+        want = single(scene, st)
+        assert torch.equal(live(scene, st), want) and torch.equal(loaded(scene, st), want)
+    assert [p.captures for p in loaded.parts] == [1] * len(cards)

@@ -196,7 +196,6 @@ def test_replay_copies_inputs_counts_launches_and_returns_fresh_outputs():
         assert torch.equal(first["img"], torch.tensor([2.0, 4.0, 6.0]))  # kept, not overwritten
         assert torch.equal(second["img"], torch.tensor([8.0, 10.0, 12.0]))
         assert first["img"] is not out and second["img"] is not out
-        assert captured.run([torch.zeros(3)], fresh=False)["img"] is out
     finally:
         _build.LAUNCHES.clear()
         _build.LAUNCHES.update(saved)

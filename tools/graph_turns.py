@@ -12,14 +12,17 @@ records the graph's first call (warm-up, capture and the first replay:
 `capture_s`), the bytes a call copies into the graph's inputs, the peak
 memory of the eager frames and of the capture and replays (each above the
 memory held before, after `reset_peak_memory_stats`), and the memory the
-graph's pool keeps reserved; checks the graphed frame equal to the eager one
+graph keeps reserved; checks the graphed frame equal to the eager one
 to the bit with equal counts and launches; times the clone of the image a
 replay returns (`clone_ms`, CUDA events over 100 clones); then times both
 in turns, eager, graph, graph, eager, three rounds: FRAMES frames between
 CUDA events with a synchronize per frame (p50 and p95 ms) and FRAMES frames
-issued back to back with one synchronize (`issue_ms`, ms a frame). Prints
-one JSON line with the card's name and power limit. Needs a CUDA device and
-nvcc; about 2 minutes for the five paths.
+issued back to back with one synchronize (`issue_ms`, ms a frame). Last,
+the memory reserved as nine cached renderers of textured (intervals -1 to
+7) are built and called one after another (`cached_renderers`): every
+graph of a card shares one pool. Prints one JSON line with the card's name
+and power limit. Needs a CUDA device and nvcc; about 2 minutes for the five
+paths.
 """
 
 from __future__ import annotations
@@ -141,8 +144,31 @@ def main(argv: list[str]) -> int:
         print(json.dumps({path: r}), flush=True)
         del scene, consts, graphed, renders, img, want, first
         torch.cuda.empty_cache()
+    out["cached_renderers"] = _cached_renderers(torch, pt, write_demo_scene, dev, state)
     print(json.dumps(out), flush=True)
     return 0
+
+
+def _cached_renderers(torch, pt, write_demo_scene, dev, state) -> dict:
+    """The memory that cached renderers keep: nine graphed renderers of
+    textured at 1024x768 (intervals -1 to 7, each built, called twice and
+    kept), the memory reserved after each, above what was reserved before
+    the first."""
+    with tempfile.TemporaryDirectory() as tmp:
+        scene, meta = pt.build_scene(pt.load_scene_file(write_demo_scene(tmp, 4, "textured")),
+                                     device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    renders, reserved_mib = [], []
+    for interval in range(-1, 8):
+        renders.append(pt.build_render_fn(meta, 1024, 768, interval, device=dev))
+        renders[-1](scene, state)
+        renders[-1](scene, state)
+        torch.cuda.synchronize()
+        reserved_mib.append((torch.cuda.memory_reserved() - base) / 2**20)
+    return {"path": "textured", "reserved_mib": reserved_mib,
+            "input_bytes": renders[0].input_bytes}
 
 
 if __name__ == "__main__":

@@ -15,10 +15,13 @@ frame's (each renderer's launches counted in a replay after its first
 call, which captures its CUDA graphs: one a card for the sharded one).
 This runs every kernel of the path, the walks' shared-memory opt-in
 included, on cards other than the current device (cuda:0) from one host
-thread. It then times, in turns (three rounds of 20 frames, CUDA
+thread. The sharded artifact over the cards (utils/aot.export_sharded_render,
+a program a card, loaded and graphed a card) is held to the same frame and
+launches. It then times, in turns (three rounds of 20 frames, CUDA
 events on cuda:0 with a synchronize per frame), the single frame, the
-sharded frame over the cards and the sharded frame over as many logical
-shards of cuda:0, and runs parallel.tiles.dryrun_multichip on each card.
+sharded frame over the cards, the loaded artifact over the cards and the
+sharded frame over as many logical shards of cuda:0, and runs
+parallel.tiles.dryrun_multichip on each card.
 It prints one JSON line: the cards' names and power limits, and per path
 the checks' results and the p50/p95 ms of each round.
 """
@@ -44,6 +47,7 @@ def main(argv: list[str]) -> int:
     import relativitypathtracer_tpu_torch as pt
     from relativitypathtracer_tpu_torch.ops.kernels import _build
     from relativitypathtracer_tpu_torch.parallel import tiles
+    from relativitypathtracer_tpu_torch.utils import aot
     from relativitypathtracer_tpu_torch.utils.demo_scene import write_demo_scene
     from relativitypathtracer_tpu_torch.utils.timing import cuda_frame_times_ms, percentile
 
@@ -83,6 +87,12 @@ def main(argv: list[str]) -> int:
                 {k: int(v) for k, v in aux.items()} == {k: int(v) for k, v in waux.items()})
             r[f"{assign}_launches_x{n}"] = launches == {k: n * c for k, c in one.items()}
             renders[f"cards_{assign}"] = render
+        # the sharded artifact: a program a card, each graphed on its card
+        loaded = aot.load_render(aot.export_sharded_render(scene, meta, 1024, 768, devices, -1))
+        img, launches = counted(loaded, scene)
+        r["exported_equal"] = bool(torch.equal(img, want))
+        r[f"exported_launches_x{n}"] = launches == {k: n * c for k, c in one.items()}
+        renders["cards_exported"] = loaded
         renders["logical_strided"] = tiles.build_sharded_render_fn(
             meta, 1024, 768, -1, [dev] * n, with_aux=True)
         for name in renders:
