@@ -87,7 +87,7 @@ For each path it:
      prints frac_bad, mean_diff and the oracle's p50 ms and threads on the
      card host's CPU.
 Then it renders the textured path at msaa 2, 512x384, and holds it to its
-CPU frame, runs two phases on the textured fixture:
+CPU frame, runs three phases on the textured fixture:
   viewer  ViewerCore at 960x540 (the reference's window) through a scripted
           timeline 15 ms apart (idle and paused; 'w' held 10 frames; space;
           'i'; resizes to 1024x768, which grows the pad, and to 640x480,
@@ -100,6 +100,17 @@ CPU frame, runs two phases on the textured fixture:
           one capture a renderer (the resize within the pad replays);
           prints the wall ms of frame() (p50, p95 over 60 frames, 'w' held)
           and the host ms of step();
+  interact
+          tools/interact_bench_torch.py's main in this process at 960x540,
+          --window 1.0: ViewerCore's renderer timed alone (device_frame_ms)
+          and encode_jpeg on 20 frames, then viewer.run_web on port 0 on a
+          thread of its own, driven over HTTP (settle, idle fps, 5 space
+          presses, 'w', flying fps, a shrink within the pad and a grow past
+          it, each timed until /stats shows it); checks every key of its
+          JSON, platform "gpu", frames counted, each latency finite (each
+          awaited state reached) and the pulled frames JPEGs (FF D8 ... FF
+          D9) whose SOF0 header says 960x540; prints the JSON on a line of
+          its own before the kernels' line;
   octree  the octree walk (ops/octree_traverse) of a 16,384-ray fan from the
           camera over the mesh on the card: converged, against the K5 route
           (mesh_intersect_shared) and against the same walk on the CPU;
@@ -130,8 +141,9 @@ and two more on the textured and instances fixtures:
           tools/export_renderer_torch.py --fixture textured --device cuda
           --selfcheck run once (exit 0); prints the export seconds, the bytes
           and the loaded frame's p50/p95.
-It prints the kernels' JSON line, the card's name and power limit, and as its
-last line {"ok": true, "device": {...}}. Any failed check raises.
+It prints the interact phase's JSON line, the kernels' JSON line, the card's
+name and power limit, and as its last line {"ok": true, "device": {...}}.
+Any failed check raises.
 """
 
 from __future__ import annotations
@@ -160,6 +172,13 @@ K7_PRETEST_OPS, K7_TEST_OPS = 70.0, 55.0
 VIEWER_SIZE = (960, 540)  # the reference's window and the viewer CLI's default
 VIEWER_GROW, VIEWER_SHRINK = (1024, 768), (640, 480)  # grows the pad; fits in it
 SHARDS = 4  # shards of the sharded phase
+# the interactive bench's JSON: the JAX tool's keys (tools/interact_bench.py)
+# and the port's two
+INTERACT_KEYS = {"scene", "size", "platform", "idle_fps", "flying_fps", "device_frame_ms",
+                 "device_fps", "stream_scale", "key_latency_ms_space_p50",
+                 "key_latency_ms_space_all", "key_latency_ms_w", "resize_latency_ms_first",
+                 "resize_latency_ms_grow_pad", "frames_counted", "cadence_cap_fps", "device",
+                 "encode_ms_p50"}
 PKG = "relativitypathtracer_tpu_torch/csrc/"
 TPU = "relativitypathtracer_tpu/ops/pallas/"
 K4_TPU = TPU + "mesh_kernels.py:389 (XLA)"
@@ -840,6 +859,60 @@ def viewer_phase(torch, pt, host, dev, card, static_launches, static_frames):
         f"'w' held; render, fetch, crop); step() on the host p50 {percentile(steps, 50):.4f} ms")
 
 
+def jpeg_size(data: bytes):
+    """(width, height) from a baseline JPEG's SOF0 header."""
+    i = 2
+    while i + 4 <= len(data) and data[i] == 0xFF:
+        marker, length = data[i + 1], int.from_bytes(data[i + 2:i + 4], "big")
+        if marker == 0xC0:
+            return (int.from_bytes(data[i + 7:i + 9], "big"),
+                    int.from_bytes(data[i + 5:i + 7], "big"))
+        i += 2 + length
+    return None
+
+
+def interact_phase(card) -> dict:
+    """tools/interact_bench_torch.py's main in this process on the textured
+    fixture at 960x540, --window 1.0: the web viewer over HTTP on the card;
+    see the module docstring. Returns its JSON."""
+    import importlib.util
+
+    root = pathlib.Path(__file__).resolve().parent
+    spec = importlib.util.spec_from_file_location(
+        "interact_bench_torch", root / "tools" / "interact_bench_torch.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    (vw, vh), out = VIEWER_SIZE, root / "build" / "interact_smoke"
+    rc = tool.main(["--scene", "textured", "--size", f"{vw}x{vh}", "--window", "1.0",
+                    "--out", str(out)])
+    check(rc == 0, f"interact: the bench exited {rc}")
+    res = json.loads((out / "interact.json").read_text())
+    check(set(res) == INTERACT_KEYS, f"interact: keys {sorted(set(res) ^ INTERACT_KEYS)}")
+    check(res["platform"] == "gpu" and res["size"] == [vw, vh] and res["frames_counted"] > 0,
+          f"interact: {res}")
+    latencies = [res["key_latency_ms_space_p50"], *res["key_latency_ms_space_all"],
+                 res["key_latency_ms_w"], res["resize_latency_ms_first"],
+                 res["resize_latency_ms_grow_pad"]]
+    # the bench raises unless each awaited state (a pause flip, a speed, each
+    # resize's size) was reached, so a latency here is a reached one
+    check(len(latencies) == 9 and all(math.isfinite(x) and x >= 0 for x in latencies),
+          f"interact: latencies {latencies}")
+    check(all(math.isfinite(res[k]) and res[k] > 0 for k in
+              ("idle_fps", "flying_fps", "device_frame_ms", "encode_ms_p50")), f"interact: {res}")
+    jpegs = sorted(out.glob("frame_*.jpg"))
+    check(len(jpegs) > 0, "interact: no frames pulled")
+    for path in jpegs:
+        data = path.read_bytes()
+        check(data[:2] == b"\xff\xd8" and data[-2:] == b"\xff\xd9"
+              and jpeg_size(data) == (vw, vh), f"interact: {path.name} is not a {vw}x{vh} JPEG")
+    log(f"  interact: {len(jpegs)} JPEGs of {vw}x{vh} on {card}; idle {res['idle_fps']} fps, "
+        f"flying {res['flying_fps']} fps, device frame {res['device_frame_ms']} ms, encode "
+        f"{res['encode_ms_p50']} ms, space {res['key_latency_ms_space_p50']} ms, w "
+        f"{res['key_latency_ms_w']} ms, shrink {res['resize_latency_ms_first']} ms, grow past "
+        f"the pad {res['resize_latency_ms_grow_pad']} ms")
+    return res
+
+
 def octree_phase(torch, pt, host, dev, card):
     """The octree walk of a 16,384-ray fan from the camera over the textured
     fixture's mesh on the card: converged; against the K5 route, the same
@@ -1331,6 +1404,10 @@ def main() -> int:
     viewer_phase(torch, pt, hosts["textured"], dev, card, launches_by_path["textured"],
                  len(states))
     log(f"  viewer phase: {time.perf_counter() - t0:.1f} s")
+    log(f"--- interact: textured, {VIEWER_SIZE[0]}x{VIEWER_SIZE[1]}, the web viewer over HTTP ---")
+    t0 = time.perf_counter()
+    interact = interact_phase(card)
+    log(f"  interact phase: {time.perf_counter() - t0:.1f} s")
     log("--- octree: textured ---")
     t0 = time.perf_counter()
     octree_phase(torch, pt, hosts["textured"], dev, card)
@@ -1354,6 +1431,7 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"], "path": path})
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps(interact))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -158,8 +158,11 @@ def enabled_mask(enabled, device):
     return constant([int(bool(e)) for e in enabled], torch.int32, device)
 
 
-# A disabled object's box in the shadow walk's bound (lo above hi: no lane's
-# ray enters it), as in the JAX package.
+# A disabled object's box in the shadow walk's bound, as in the JAX package.
+# Its lo lies above its hi, but the slab test (csrc/common.cuh box_bound,
+# mesh_kernels._box_bound) takes the min and max of each axis's two planes,
+# so it reads the box as the unit cube [0, 1]^3: a lane whose ray crosses
+# that cube may get a wider bound, and no result changes.
 STAND_IN_BOX = (1.0, 1.0, 1.0, 0.0, 0.0, 0.0)
 
 

@@ -26,7 +26,7 @@ from typing import NamedTuple
 
 import torch
 
-from .device import DEFAULT_DEVICE
+from .device import DEFAULT_DEVICE, resolve
 from .models.scene import Scene, SceneMeta
 from .ops.camera import camera_ray_dirs
 from .ops.intersect import INF, normalize3
@@ -340,7 +340,7 @@ def build_render_fn(meta: SceneMeta, width: int, height: int, interval: int,
     if msaa < 1:
         raise ValueError(f"msaa must be >= 1, got {msaa}")
     return _cached_render_fn(meta, int(width), int(height), int(interval), int(msaa),
-                             bool(with_aux), bool(out_uint8), torch.device(device))
+                             bool(with_aux), bool(out_uint8), resolve(device))
 
 
 @functools.lru_cache(maxsize=64)
@@ -390,6 +390,7 @@ def build_viewer_render_fn(meta: SceneMeta, pad_height: int, pad_width: int, int
         raise ValueError(f"pad {pw}x{ph} not {TILE}-aligned")
     if pool not in (1, 2, 4):
         raise ValueError(f"pool must be 1/2/4, got {pool}")
+    device = resolve(device)
     perms = mesh_perm_tensors(meta, device)
     miss = torch.tensor(MISS_COLOR, device=device)[:, None]
 

@@ -44,6 +44,7 @@ import collections
 import torch
 from torch.utils import _pytree as pytree
 
+from ..device import resolve
 from ..ops.kernels import _build
 
 MAX_LAYOUTS = 4  # graphs kept per FrameGraph, the latest layouts
@@ -64,8 +65,7 @@ def _device_pool(device: torch.device):
     capture stream is made once, on the device current at its first capture.
     One stream, because cuBLAS keeps a workspace (32 MiB on Hopper) for each
     stream it has run on, for the life of the process."""
-    if device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
+    device = resolve(device)
     if device not in _POOLS:
         _POOLS[device] = (torch.cuda.graph_pool_handle(), torch.cuda.Stream(device))
     return _POOLS[device]
@@ -101,7 +101,7 @@ class FrameGraph:
 
     def __init__(self, fn, device):
         self.fn = fn
-        self.device = torch.device(device)
+        self.device = resolve(device)
         self.graphs: collections.OrderedDict = collections.OrderedDict()
         self.captures = 0  # graphs captured, over the renderer's life
 

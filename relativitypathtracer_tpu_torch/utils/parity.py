@@ -111,8 +111,9 @@ def compare(ours, ref) -> dict:
             "ok": bool(frac_bad <= MAX_FRAC_BAD)}
 
 
-def _scene_file(scene: str, workdir: str) -> str:
-    """A scene file path for a path, a fixture kind or a corpus name."""
+def scene_file(scene: str, workdir: str) -> str:
+    """A scene file path for a path, a fixture kind (written under
+    `workdir`) or a corpus name (under $REF_ASSETS/Scenes)."""
     if os.path.isfile(scene):
         return scene
     if scene in KINDS:
@@ -132,7 +133,7 @@ def fullres_parity(scene: str, width: int = 1024, height: int = 768,
     one), and compare. Returns {"scene", "frac_bad", "mean_diff", "ok"}."""
     with tempfile.TemporaryDirectory() as tmp:
         workdir = workdir or tmp
-        scene_obj, meta = build_scene(load_scene_file(_scene_file(scene, workdir)),
+        scene_obj, meta = build_scene(load_scene_file(scene_file(scene, workdir)),
                                       device=device)
         if state is None:
             state = FrameState.initial(device)

@@ -14,8 +14,8 @@ callbacks (wasdqe move, r reset, space pause, i interval toggle). Here:
   and warmed at start-up. stream_scale > 1 box-filters the frame on the
   device before it is fetched.
 - run_window(): a pygame window (pygame imported when it starts).
-- run_web(): a localhost MJPEG streamer (stdlib http.server, PIL for the
-  JPEG, imported when it starts) with key capture in the browser.
+- run_web(): a localhost MJPEG streamer (stdlib http.server, the JPEG from
+  utils/image.encode_jpeg, numpy only) with key capture in the browser.
 
 The JAX package keeps one frame in flight (its frame() returns the previous
 state's image, so a relay's fetch overlaps the next frame) and so serves one
@@ -29,7 +29,6 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import io
 import json
 import sys
 import threading
@@ -41,7 +40,7 @@ import numpy as np
 import torch
 
 from .cli import _parse_size
-from .device import DEFAULT_DEVICE
+from .device import DEFAULT_DEVICE, resolve
 from .models.dsl import SceneError, load_scene_file, parse_scene
 from .models.obj_loader import ObjError
 from .models.scene import build_scene
@@ -49,6 +48,7 @@ from .models.texture import TextureError
 from .render import (
     TILE, FrameState, _round_up, build_render_fn, build_viewer_render_fn, viewer_dirs)
 from .utils.framestate import SimState, step
+from .utils.image import encode_jpeg
 
 # Key order matches utils.framestate.KEY_* (w a s d q e r space i), which
 # matches the reference's downKeys[9] (Render.cpp:9,25-86).
@@ -66,7 +66,7 @@ class ViewerCore:
 
     def __init__(self, host_scene, width: int, height: int, msaa: int = 1,
                  stream_scale: int = 1, device=DEFAULT_DEVICE):
-        self.device = torch.device(device)
+        self.device = resolve(device)  # one card, whichever thread renders
         self.scene, self.meta = build_scene(host_scene, device=self.device)
         self.msaa = int(msaa)
         self.stream_scale = int(stream_scale)
@@ -341,18 +341,14 @@ class _WebViewer:
                 self.held.discard(c)
 
     def render_loop(self, max_frames: int | None = None) -> None:
-        from PIL import Image
-
         frames = 0
         while not self.stop.is_set() and (max_frames is None or frames < max_frames):
             t0 = time.perf_counter()
             with self.lock:
                 held = set(self.held)
-            img = self.core.frame(held)
-            buf = io.BytesIO()
-            Image.fromarray(np.ascontiguousarray(img)).save(buf, "JPEG", quality=self.quality)
+            jpeg = encode_jpeg(self.core.frame(held), self.quality)
             with self.cond:
-                self.jpeg = buf.getvalue()
+                self.jpeg = jpeg
                 self.seq += 1
                 self.cond.notify_all()
             frames += 1

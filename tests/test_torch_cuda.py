@@ -1759,3 +1759,60 @@ def test_sharded_export_on_distinct_cards(cuda, graph_scenes):
         want = single(scene, st)
         assert torch.equal(live(scene, st), want) and torch.equal(loaded(scene, st), want)
     assert [p.captures for p in loaded.parts] == [1] * len(cards)
+
+
+def test_two_cached_renderers_replay_in_turns_on_one_stream(cuda, graph_scenes):
+    """The one-pool rule's supported use: two cached renderers (textured and
+    cubes) of one card, whose graphs share the card's pool, replayed
+    alternately 10 times each from one thread on one stream; every frame
+    equals its renderer's eager frame to the bit, counts alike."""
+    import relativitypathtracer_tpu_torch as pt
+
+    state = _graph_state(cuda, 2)
+    pairs = []
+    for kind in ("textured", "cubes"):
+        scene, meta = graph_scenes[kind]
+        render = pt.build_render_fn(meta, 160, 96, -1, with_aux=True, device=cuda)
+        pairs.append((render, scene, _eager_frame(meta, scene, state, 160, 96, cuda)))
+    for _ in range(10):
+        for render, scene, (want, waux) in pairs:
+            img, aux = render(scene, state)
+            assert torch.equal(img, want) and _aux(aux) == _aux(waux)
+    assert all(render.captures == 1 for render, _, _ in pairs)
+
+
+def test_index_less_cuda_renderer_stays_on_its_card(cuda, tmp_path):
+    """A renderer built for "cuda" while card 1 is current stays on card 1:
+    its constants, its graph's static inputs and its frame, also when card 0
+    is current at a later call (device.resolve at build)."""
+    import relativitypathtracer_tpu_torch as pt
+    from relativitypathtracer_tpu_torch import render as prender
+    from relativitypathtracer_tpu_torch.utils.demo_scene import write_demo_scene
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    host = pt.load_scene_file(write_demo_scene(str(tmp_path), 3, "textured"))
+    card1 = torch.device("cuda", 1)
+    previous = torch.cuda.current_device()
+    try:
+        torch.cuda.set_device(1)
+        scene, meta = pt.build_scene(host, device="cuda")
+        state = pt.FrameState(torch.tensor([0.3, 0.0, 0.1], device="cuda"),
+                              torch.tensor([0.05, 0.0, 0.0, 0.0], device="cuda"))
+        render = pt.build_render_fn(meta, 160, 96, -1, with_aux=True, device="cuda")
+        assert render.device == card1
+        first = render(scene, state)
+        torch.cuda.set_device(0)
+        again = render(scene, state)
+        for img, aux in (first, again):
+            assert img.device == card1 and all(v.device == card1 for v in aux.values())
+        frame = next(iter(render.graphs.values()))
+        assert all(x.device == card1 for x in frame.statics)
+        assert torch.equal(first[0], again[0])
+        torch.cuda.set_device(1)
+        viewer = prender.build_viewer_render_fn(meta, 96, 160, -1, device="cuda")
+        dirs = prender.viewer_dirs(160, 96, 96, 160, device=card1)
+        torch.cuda.set_device(0)
+        assert viewer.device == card1 and viewer(scene, state, dirs).device == card1
+    finally:
+        torch.cuda.set_device(previous)

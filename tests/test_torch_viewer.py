@@ -17,10 +17,12 @@
   size's frame of the current state: no stale frame.
 - stream_scale pooling within 1.5 lsb of host pooling (the JAX package's
   rule), the size snap, and the ValueError with msaa > 1.
-- The web front end end to end over HTTP on port 0, and run_window under
-  SDL's dummy video driver.
+- The web front end end to end over HTTP on port 0 (its served frame, from
+  utils/image.encode_jpeg, decoded by PIL), and run_window with
+  SDL_VIDEODRIVER=dummy.
 """
 
+import io
 import json
 import os
 import pathlib
@@ -34,6 +36,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 from torch_port_fixtures import build_both, write_fixture
 
 import relativitypathtracer_tpu_torch as pt
@@ -290,7 +293,10 @@ def test_web_frontend_end_to_end():
 
     try:
         assert b"Relativistic Ray Tracer" in urllib.request.urlopen(f"{base}/", timeout=10).read()
-        assert urllib.request.urlopen(f"{base}/frame", timeout=30).read()[:2] == b"\xff\xd8"
+        jpeg = urllib.request.urlopen(f"{base}/frame", timeout=30).read()
+        assert jpeg[:2] == b"\xff\xd8"
+        served = Image.open(io.BytesIO(jpeg))
+        assert served.mode == "RGB" and served.size == (64, 48)
         post("/key?c=w&d=1")
         stats = stats_when(lambda s: s["speed_c"] > 0)
         post("/key?c=*&d=0")
