@@ -25,7 +25,21 @@ and shadows on):
   large      the blob at level 7 (327,680 triangles, 10,240 chunks in 320
              superchunks) moving at 0.5c and a light sphere: K1, K3, K4 (the
              two-level lists), K11 large-tier primary walk, K12 large-tier
-             shadow walk, and never K5/K6.
+             shadow walk, and never K5/K6;
+  xl         the JAX package's XL tier: utils/largedemo.load_large_scene at
+             levels 4 in a temporary workdir, the reference's bunny
+             ($REF_ASSETS/Models/bunny.obj) where it exists, else its
+             stand-in (utils/demo_scene.write_bunny_stand_in), subdivided 4
+             times: 1,271,808 triangles, 39,744 chunks, above SUPER_CULL_C,
+             so live_chunk_lists3 (the cull against super spheres, then the
+             chunk bits from one cone a block) and K11/K12 on 311 superchunks
+             of 128, the last of 64 chunks, with bit rows of 1,244 words: K1,
+             K3, K4, K11, K12, and never K5/K6. The route is checked (the
+             super size, lists3 taken and lists2 not, the bit rows' width)
+             and the fullest block's live supers and the furthest bit word a
+             walk reached are printed.
+On large and xl each twin of K11 and K12 runs once, timed once (K12's twin
+takes seconds).
 For each path it:
   1. calls the renderer once: its first call runs the frame eagerly (the
      warm-up, whose inputs to each kernel step 2 uses), captures it into one
@@ -39,7 +53,7 @@ For each path it:
      (render_constants, trace_frame) to the bit, counts and launches alike,
      and prints eager and graph p50/p95 in turns (eager, graph, graph,
      eager; 20 frames each), the capture seconds, the bytes a replay copies
-     in and the peak memory of both; then traces one more replay with
+     in and that copy's device ms, and the peak memory of both; then traces one more replay with
      torch.profiler (CUDA activity) and checks that each of the path's
      kernels ran in it as many times as the replay added to its launch
      count, and no other kernel of the port;
@@ -77,7 +91,7 @@ For each path it:
   3. renders the last frame with the port on the CPU (the plain twins) and
      holds the card's frame to it under the parity rule (at most 0.2% of
      pixels off by more than 1e-3); blob and instances at 512x384, large at
-     256x192, the others at 1024x768;
+     256x192, xl at 128x96, the others at 1024x768;
   4. times the frame (p50/p95 over 60 frames after 5 warm-up frames, CUDA
      events) and reports Mrays/s counting primary plus shadow rays.
   5. oracle: writes the scene blob (utils/scene_blob) of the card's scene at
@@ -85,9 +99,15 @@ For each path it:
      native/cpu_reference.cpp into build/oracle/ (utils/parity), and holds
      the card's 1024x768 frame to the oracle's image under the parity rule;
      prints frac_bad, mean_diff and the oracle's p50 ms and threads on the
-     card host's CPU.
-Then it renders the textured path at msaa 2, 512x384, and holds it to its
-CPU frame, runs three phases on the textured fixture:
+     card host's CPU;
+  6. on xl, the module's own entry: utils/largedemo.large_parity_and_time
+     at levels 4 (its scene from the pickle the path's build wrote) and at
+     levels 3 (317,952 triangles, superchunks of 32), each ok under the
+     parity rule, printed as bench.py prints its large_mesh lines, with the
+     pickle load's seconds.
+It prints each path's seconds. Then it renders the textured path at msaa 2,
+512x384, and holds it to its CPU frame, runs three phases on the textured
+fixture:
   viewer  ViewerCore at 960x540 (the reference's window) through a scripted
           timeline 15 ms apart (idle and paused; 'w' held 10 frames; space;
           'i'; resizes to 1024x768, which grows the pad, and to 640x480,
@@ -141,8 +161,10 @@ and two more on the textured and instances fixtures:
           tools/export_renderer_torch.py --fixture textured --device cuda
           --selfcheck run once (exit 0); prints the export seconds, the bytes
           and the loaded frame's p50/p95.
-It prints the interact phase's JSON line, the kernels' JSON line, the card's
-name and power limit, and as its last line {"ok": true, "device": {...}}.
+It prints the interact phase's JSON line, the xl path's K4, K11 and K12 as a
+JSON line {"xl_kernels": [...]} (the keys of the kernels' line), the
+kernels' JSON line, the card's name and power limit, and as its last line
+{"ok": true, "device": {...}}.
 Any failed check raises.
 """
 
@@ -151,6 +173,7 @@ from __future__ import annotations
 import collections
 import json
 import math
+import os
 import pathlib
 import subprocess
 import sys
@@ -172,6 +195,21 @@ K7_PRETEST_OPS, K7_TEST_OPS = 70.0, 55.0
 VIEWER_SIZE = (960, 540)  # the reference's window and the viewer CLI's default
 VIEWER_GROW, VIEWER_SHRINK = (1024, 768), (640, 480)  # grows the pad; fits in it
 SHARDS = 4  # shards of the sharded phase
+XL_LEVELS = 4  # utils/largedemo's XL tier: bunny's 4,968 faces x 4^4
+# its shapes (the JAX package's, tests/test_tpu_lowering.py): triangles,
+# chunks, supers of 128, chunks of the last super, bit words a block
+XL_SHAPE = (1_271_808, 39_744, 311, 64, 1_244)
+STAGED_WORDS = 512  # bit words K11/K12 stage (csrc/mesh_kernels.cu kStageWordsMax)
+# Paths whose frames need no occluded shadow ray. The xl mesh's triangles
+# come near the reference's determinant epsilon (1e-7 in object space, in
+# the kernels, the twins and native/cpu_reference.cpp alike): the stand-in's
+# 4,968 faces subdivided 4 times leave about 73% of them with twice their
+# area below it, so the Moller-Trumbore test rejects those at any incidence
+# and most others off normal incidence, and its frames show the mesh with
+# holes and no shadow on it, as the oracle's do (the bunny's share is not
+# measured). K12's occlusion past the staged bit words is held on the card
+# by tests/test_torch_cuda.py::test_large_walks_read_lists_past_the_staged_head.
+UNSHADOWED = {"xl"}
 # the interactive bench's JSON: the JAX tool's keys (tools/interact_bench.py)
 # and the port's two
 INTERACT_KEYS = {"scene", "size", "platform", "idle_fps", "flying_fps", "device_frame_ms",
@@ -214,7 +252,11 @@ PATHS = {  # path -> (demo scene kind, kernels it runs, CPU parity size)
                                 "rpt_batched_general_walk"), (512, 384)),
     "large": ("large", ("rpt_shadow_chain", "rpt_analytic_nearest", *K4,
                         "rpt_large_shared_walk", "rpt_large_general_walk"), (256, 192)),
+    "xl": ("xl", ("rpt_shadow_chain", "rpt_analytic_nearest", *K4,
+                  "rpt_large_shared_walk", "rpt_large_general_walk"), (128, 96)),
 }
+# the list function each large-tier path's large_live_lists must take
+LIST_ROUTE = {"large": "live_chunk_lists2", "xl": "live_chunk_lists3"}
 # launch-count key (before any "/route") -> what its kernel's name in a
 # profiler trace holds; a walk of K5/K6 or K11/K12 is one template fed two
 # list kinds, and the batched walks' names hold the others'
@@ -338,21 +380,26 @@ def list_bound_ms(args, kwargs, out, tests) -> float:
     return bound(30.0 * tests + 40.0 * out[0].numel(), moved)[0]
 
 
-def cull_work(torch, fn, args):
+def cull_work(torch, mk, fn, args):
     """One more run of a cull (outside any timed run) with its group
-    pre-test's skip counter: (cone tests it ran, groups skipped, (block,
-    32-chunk group) pairs). Every pair runs the pre-test's `sub` cone tests
-    and every pair not skipped the dense 32 x `sub` (a ragged last group
-    counts as 32 chunks and a pool group across two objects as pre-tested:
-    exact where C is a multiple of 32 and no group straddles, as on every
-    path here). The dense work, every (cone, chunk) test, is 32 x `sub` a
-    pair."""
+    pre-test's skip counter, held equal to the count of the pre-test's plain
+    form (group_may_overlap_plain): (cone tests it ran, groups skipped,
+    (block, 32-chunk group) pairs). Every pair runs the pre-test's `sub`
+    cone tests (a pool group across two objects counts as pre-tested) and
+    every pair not skipped the dense `sub` a real chunk of its group (a
+    ragged last group has fewer). The dense work, every (cone, chunk) test,
+    is `sub` a (block, chunk) pair."""
     spheres, table, sub = args[:3]
+    use_bound = args[3] if len(args) > 3 else False
+    cobj = args[4] if len(args) > 4 else None
     skipped = torch.zeros(1, dtype=torch.int32, device=spheres.device)
     fn(*args, skipped=skipped)
-    pairs = table.shape[-2] // sub * -(-spheres.shape[0] // 32)
-    n = int(skipped)
-    return sub * (pairs + 32 * (pairs - n)), n, pairs
+    may = mk.group_may_overlap_plain(spheres, table, sub, use_bound, cobj)
+    real = (spheres.shape[0] - 32 * torch.arange(may.shape[1], device=may.device)).clamp(max=32)
+    pairs, n = may.numel(), int(skipped)
+    check(n == pairs - int(may.sum()), f"the cull skipped {n} groups, its plain pre-test "
+          f"{pairs - int(may.sum())}")
+    return sub * (pairs + int((may * real).sum())), n, pairs
 
 
 def cull_launches(torch, mk, fn, args, kwargs):
@@ -371,7 +418,7 @@ def cull_launches(torch, mk, fn, args, kwargs):
         mk.live_cull = real
     out = []
     for a in seen:
-        tests, n, pairs = cull_work(torch, real, a)
+        tests, n, pairs = cull_work(torch, mk, real, a)
         out.append((kernel_ms(torch, real, list(a)), n, pairs, tests))
     return out
 
@@ -383,7 +430,8 @@ def compare_lists(torch, mk, path, calls, plains):
     kernel_ms times a kernel) against the twins' ms a frame (CUDA events
     around a call), and the bound; each build's cull launches with their
     ms and the share of groups the pre-test skipped (large fails if its
-    culls skip none)."""
+    culls skip none, xl if one of them does: the pre-test runs in the
+    super-sphere cull and in the bits pass of one cone a block alike)."""
     builds, k_ms, p_ms, b_ms, culls = {}, 0.0, 0.0, 0.0, []
     for name, fn, args, kwargs in calls:
         plain = plains[name]
@@ -401,6 +449,8 @@ def compare_lists(torch, mk, path, calls, plains):
     check(builds, f"K4 on {path}: no list build captured")
     skipped = sum(c[1] for c in culls)
     check(path != "large" or skipped > 0, f"K4 on {path}: the cull's pre-test skipped no group")
+    check(path != "xl" or all(c[1] > 0 for c in culls),
+          f"K4 on {path}: a cull's pre-test skipped no group")
     log(f"  K4 on {path}: {sum(builds.values())} list builds a frame {builds}, equal to the "
         f"twins' to the bit; kernels {k_ms:.4f} ms a frame (table, cull and sort), twins "
         f"{p_ms:.4f} ms, bound {b_ms:.4f} ms, share {b_ms / k_ms:.1%}; the cull a launch: "
@@ -410,14 +460,19 @@ def compare_lists(torch, mk, path, calls, plains):
 
 def compare_kernels(torch, pt_mods, meta, captured, originals, names, path):
     """Each kernel of `names` against its plain twin on its captured
-    first-frame inputs: checks, error, kernel/plain ms, bound."""
+    first-frame inputs: checks, error, kernel/plain ms, bound. A mesh
+    walk's twin runs once, its walk count on: the kernel is held to that
+    run's result, and its time is the plain ms (a median of 20 runs for the
+    other kernels)."""
     ak, mk, sc, tk, mb, ml = pt_mods
     out = {}
 
     def record(name, err, fn, args, plain, ops, moved, library=None):
+        """`plain`: the twin, timed here, or the ms of its run."""
         b_ms, b_by = bound(ops, moved)
+        plain_ms = plain if isinstance(plain, float) else time_ms(torch, lambda: plain(*args))
         out[name] = {"max_abs_err": err, "ms": kernel_ms(torch, fn, args),
-                     "plain_ms": time_ms(torch, lambda: plain(*args)), "bound_ms": b_ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": library}
         log(f"  {name}: max_abs_err {err:.3e}, kernel {out[name]['ms']:.4f} ms (one wrapper "
             f"call {time_ms(torch, lambda: fn(*args)):.4f} ms), plain "
@@ -448,7 +503,7 @@ def compare_kernels(torch, pt_mods, meta, captured, originals, names, path):
             check(all(same(torch, g, w) for g, w in zip(got, want)),
                   f"K4 {name} differs from its twin")
             # the cull: 30 operations a cone test it ran; the sort: 40 an entry
-            work = cull_work(torch, fn, args)[0] if cull else args[0].numel()
+            work = cull_work(torch, mk, fn, args)[0] if cull else args[0].numel()
             moved = nbytes(*args, *(g for g in got if g is not None))
             library = None
             if not cull:  # the one PyTorch call that gives the sort's permutation
@@ -499,11 +554,8 @@ def compare_kernels(torch, pt_mods, meta, captured, originals, names, path):
                    nbytes(args[0], args[1]) + 28 * n)
         elif name in ("rpt_shared_walk", "rpt_large_shared_walk", "rpt_batched_shared_walk"):
             batched = name == "rpt_batched_shared_walk"
-            plain = {"rpt_shared_walk": mk.shared_walk_plain,
-                     "rpt_large_shared_walk": ml.large_shared_walk_plain,
-                     "rpt_batched_shared_walk": mb.batched_shared_walk_plain}[name]
-            walked, live = shared_walk_counts(torch, mk, ml, mb, name, args)
-            got, want = fn(*args), plain(*args)
+            walked, live, twin, twin_ms = shared_walk_counts(torch, mk, ml, mb, name, args)
+            got, want = fn(*args), twin
             kid = KERNELS[name][0]
             check(int((want[3] >= 0).sum()) > 0, f"{kid}: no hits")
             parts = ("t", "u", "v", "triangle ids", *(("object slots",) if batched else ()),
@@ -518,7 +570,7 @@ def compare_kernels(torch, pt_mods, meta, captured, originals, names, path):
             chunks = float(walked.sum() if walked.sum() < 0.95 * live.sum() else live.sum())
             n = args[-1].shape[1] if batched else args[7 if name == "rpt_large_shared_walk"
                                                         else 6].shape[1]
-            record(name, err, fn, args, plain, (30.0 if batched else 29.0) * 32 * 1024 * chunks,
+            record(name, err, fn, args, twin_ms, (30.0 if batched else 29.0) * 32 * 1024 * chunks,
                    nbytes(*args) + (80 if batched else 76) * n)
         elif name.startswith("rpt_footprint_sample/"):
             # the frame's form: the fetch with the flat-colour select
@@ -561,28 +613,27 @@ def compare_kernels(torch, pt_mods, meta, captured, originals, names, path):
                 f"{bound(100.0 * G * float(rel.sum()), every)[0]:.4f} ms")
         elif name in ("rpt_general_walk", "rpt_batched_general_walk", "rpt_large_general_walk"):
             batched = name == "rpt_batched_general_walk"
-            plain = {"rpt_general_walk": mk.general_walk_plain,
-                     "rpt_batched_general_walk": mb.batched_general_walk_plain,
-                     "rpt_large_general_walk": ml.large_general_walk_plain}[name]
-            got, want = fn(*args), plain(*args)
             tmax = args[9] if batched else args[6 if name == "rpt_general_walk" else 7][0]
             masked = tmax > 0
+            walked, lanes, live, twin, twin_ms = walked_tests(torch, mk, ml, mb, name, args,
+                                                              masked)
+            got, want = fn(*args), twin
             kid = KERNELS[name][0]
             check(int(masked.sum()) > 0, f"{kid}: no shadow lanes")
             check(bool(torch.equal((got >= tmax)[masked], (want >= tmax)[masked])),
                    f"{kid} lit masks")
-            check(int((want < tmax)[masked].sum()) > 0, f"{kid}: no occluded lanes")
+            check(path in UNSHADOWED or int((want < tmax)[masked].sum()) > 0,
+                  f"{kid}: no occluded lanes")
             check(bool(torch.equal(got, want)), f"{kid} differs from its twin")
-            walked, lanes = walked_tests(torch, mk, ml, mb, name, args, masked)
             # 32 triangles a chunk x the block's lanes with tmax > 0 (a lane
             # with tmax == 0 needs no test: its result is min(bt, 0)), 47
             # operations a test (K10: one more, the scale); the live chunks,
             # or the walked ones where the walks stop short of the lists by
             # more than 5%
-            live = float((live_chunks(ml, name, args).double() * lanes).sum()) * 32
+            live = float((live.double() * lanes).sum()) * 32
             walked = float((walked.double() * lanes).sum()) * 32
             tests = walked if walked < 0.95 * live else live
-            record(name, float((got - want).abs().max()), fn, args, plain,
+            record(name, float((got - want).abs().max()), fn, args, twin_ms,
                    (48.0 if batched else 47.0) * tests, nbytes(*args) + 4 * tmax.shape[0])
     return out
 
@@ -621,53 +672,91 @@ def switches_note(mb, name, args, walked) -> str:
             f"{int(sw.max())} in one block, {int((sw > 0).sum())} blocks switch)")
 
 
+def timed_twin(torch, fn):
+    """fn() once between two CUDA events, synchronized: (its result, ms)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def twin_lists(ml, name, args):
+    """The lists a one-mesh walk's twin walks, the rest of its arguments and
+    T: the flat list with each chunk's floor (K5, K6), or the superchunk
+    cursor written out (K11, K12)."""
+    if name in ("rpt_shared_walk", "rpt_general_walk"):
+        order, minds, counts = args[:3]
+        return (order, minds.gather(1, order.long()), counts), args[3:7], None
+    return ml.super_cursor_lists(*args[:4], args[8], args[9]), args[4:8], args[10]
+
+
+def cursor_note(torch, name, args, lists, walked) -> str:
+    """K11/K12: the fullest block's live supers, the bit rows' width, and the
+    furthest bit word a walk reached (that of the last chunk a block
+    walked), against the words the kernels stage; empty for the others."""
+    if not name.startswith("rpt_large"):
+        return ""
+    chunks = lists[0]
+    last = chunks.gather(1, (walked.clamp(min=1) - 1)[:, None]).long()[:, 0]
+    word = int(torch.where(walked > 0, last // 32, -1).max())
+    return (f"; supers of {args[8]}, {int(args[2].max())} live in the fullest block's list, "
+            f"bit rows {args[3].shape[1]:,} words, the furthest bit word a walk reached {word:,} "
+            f"({'past' if word >= STAGED_WORDS else 'within'} the {STAGED_WORDS} staged)")
+
+
 def walked_tests(torch, mk, ml, mb, name, args, active):
     """K6/K12/K10: the chunks each block walks (the twin's walk with its
-    count on; the kernel walks the same ones), and the ray/triangle tests of
-    a walk that tests every lane of a walking block (the design before the
-    shadow walks' redesign) against those of one that tests only the lanes
-    with tmax > 0 (the kernel's). Returns ((B,) walked, (B,) active lanes)."""
+    count on, timed; the kernel walks the same ones), and the ray/triangle
+    tests of a walk that tests every lane of a walking block (the design
+    before the shadow walks' redesign) against those of one that tests only
+    the lanes with tmax > 0 (the kernel's). Returns ((B,) walked, (B,)
+    active lanes, (B,) live chunks of the lists, the twin's result, its
+    ms)."""
     if name == "rpt_batched_general_walk":
-        walked = mb.batched_general_walk_plain(*args, walked=True)[-1]
+        (twin, walked), ms = timed_twin(torch, lambda: mb.batched_general_walk_plain(
+            *args, walked=True))
+        live, lists = args[2], None
     else:
-        if name == "rpt_general_walk":
-            order, minds, counts = args[:3]
-            lists, rest, T = (order, minds.gather(1, order.long()), counts), args[3:], None
-        else:
-            lists = ml.super_cursor_lists(*args[:4], args[8], args[9])
-            rest, T = args[4:8], args[10]
-        _, walked = mk.walk_general_lists(*lists, *rest, T, walked=True)
+        def run():
+            lists, rest, T = twin_lists(ml, name, args)
+            return lists, mk.walk_general_lists(*lists, *rest, T, walked=True)
+
+        (lists, (twin, walked)), ms = timed_twin(torch, run)
+        live = lists[2]
     lanes = active.reshape(-1, 1024).sum(dim=1)
     per_block = walked * lanes
     every, only = 32 * 1024 * int(walked.sum()), 32 * int(per_block.sum())
     top = int(per_block.argmax())
     log(f"  {KERNELS[name][0]} walk: {int(walked.sum())} chunks walked of "
-        f"{int(live_chunks(ml, name, args).sum())} live by "
+        f"{int(live.sum())} live by "
         f"{int((walked > 0).sum())} of {walked.numel()} blocks (most {int(walked.max())}), "
         f"{int(active.sum())} active lanes, {int(lanes[walked > 0].sum())} of them in walking "
         f"blocks; tests: every lane of a walking block {every:,}, active lanes only {only:,} "
         f"({every / max(only, 1):.1f}x fewer); the block with most tests walks "
         f"{int(walked[top])} chunks with {int(lanes[top])} active lanes "
         f"({int(per_block[top]) / max(int(per_block.sum()), 1):.1%} of the tests)"
-        + switches_note(mb, name, args, walked))
-    return walked, lanes
+        + switches_note(mb, name, args, walked) + cursor_note(torch, name, args, lists, walked))
+    return walked, lanes, live, twin, ms
 
 
 def shared_walk_counts(torch, mk, ml, mb, name, args):
     """K5/K11/K9: the chunks each block walks (the twin's walk with its
-    count on; the kernel walks the same ones) against the live chunks of its
-    list. Every lane of a walking block is tested, so a block's tests are
-    its walked chunks x 32 x 1,024. Returns ((B,) walked, (B,) live)."""
+    count on, timed; the kernel walks the same ones) against the live chunks
+    of its list. Every lane of a walking block is tested, so a block's tests
+    are its walked chunks x 32 x 1,024. Returns ((B,) walked, (B,) live, the
+    twin's result, its ms)."""
     if name == "rpt_batched_shared_walk":
-        walked, live = mb.batched_shared_walk_plain(*args, walked=True)[-1], args[2].long()
+        (*twin, walked), ms = timed_twin(torch, lambda: mb.batched_shared_walk_plain(
+            *args, walked=True))
+        live, lists = args[2].long(), None
     else:
-        if name == "rpt_shared_walk":
-            order, minds, counts = args[:3]
-            lists, rest, T = (order, minds.gather(1, order.long()), counts), args[3:7], None
-        else:
-            lists = ml.super_cursor_lists(*args[:4], args[8], args[9])
-            rest, T = args[4:8], args[10]
-        walked = mk.walk_shared_lists(*lists, *rest, T, walked=True)[-1]
+        def run():
+            lists, rest, T = twin_lists(ml, name, args)
+            return lists, mk.walk_shared_lists(*lists, *rest, T, walked=True)
+
+        (lists, (*twin, walked)), ms = timed_twin(torch, run)
         live = lists[2].long()
     top = int(walked.argmax())
     log(f"  {KERNELS[name][0]} walk: {int(walked.sum())} chunks walked of {int(live.sum())} "
@@ -675,17 +764,8 @@ def shared_walk_counts(torch, mk, ml, mb, name, args):
         f"{int((walked > 0).sum())} of {walked.numel()} blocks (most {int(walked[top])}, of "
         f"{int(live[top])} live in that block's list); the heaviest block holds "
         f"{int(walked[top]) / max(int(walked.sum()), 1):.1%} of the tests"
-        + switches_note(mb, name, args, walked))
-    return walked, live
-
-
-def live_chunks(ml, name, args):
-    """(B,) live chunks in each block's list: the counts of the flat lists
-    (K5, K6, K9, K10); the set bits of the listed superchunks (K11, K12)."""
-    if not name.startswith("rpt_large"):
-        return args[2]
-    S, C = args[-3], args[-2]  # the walks end in (..., S, C, T)
-    return ml.super_cursor_lists(*args[:4], S, C)[2]
+        + switches_note(mb, name, args, walked) + cursor_note(torch, name, args, lists, walked))
+    return walked, live, tuple(twin), ms
 
 
 def parity(torch, pt, host, state, card_img, card_aux, size, msaa=1):
@@ -735,6 +815,42 @@ def oracle_check(torch, path, scene, meta, state, card_img, card):
         f"card host's CPU ({stats['threads']} threads), {time.perf_counter() - t0:.1f} s with "
         f"the blob")
     check(res["ok"], f"{path}: card frame off the oracle on {res['frac_bad']:.4%} of pixels")
+
+
+def xl_source(largedemo, workdir: str) -> tuple[str, str]:
+    """The OBJ the xl path subdivides: the reference's bunny where it exists
+    (largedemo.SRC_OBJ, under $REF_ASSETS), else its stand-in written under
+    `workdir` (named bunny_stand_in.obj, so that its scene and pickle are
+    never taken for the bunny's). Returns (path, what it is)."""
+    from relativitypathtracer_tpu_torch.utils.demo_scene import write_bunny_stand_in
+
+    if os.path.isfile(largedemo.SRC_OBJ):
+        return largedemo.SRC_OBJ, "the reference's bunny"
+    return (write_bunny_stand_in(os.path.join(workdir, "stand_in", "bunny_stand_in.obj")),
+            "bunny's stand-in (utils/demo_scene.write_bunny_stand_in)")
+
+
+def largedemo_phase(largedemo, workdir: str, src: str, card: str) -> None:
+    """utils/largedemo.large_parity_and_time at 1024x768 at levels 4 (its
+    scene read from the pickle the xl path's build wrote in `workdir`) and
+    at levels 3 (built afresh): each ok under the parity rule against the
+    oracle, on the card, with the triangle count of bunny's 4,968 faces x
+    4^levels; prints its JSON and bench.py's line for it."""
+    from relativitypathtracer_tpu_torch.utils.demo_scene import BUNNY_FACES
+
+    for levels, what in ((XL_LEVELS, "XL mesh"), (3, "large mesh")):
+        cached = os.path.exists(largedemo.xl_cache_path(levels, workdir, src))
+        t0 = time.perf_counter()
+        res = largedemo.large_parity_and_time(WIDTH, HEIGHT, workdir=workdir, levels=levels,
+                                              device=DEVICE, src_obj=src)
+        log(f"  {json.dumps(res)}")
+        log(f"  {what} ({res['tris']} tris): {res['frame_ms']:.1f} ms/frame, frac>1e-3 = "
+            f"{res['frac_bad']:.5f} (ok={res['ok']}) on {card}; large_parity_and_time "
+            f"{time.perf_counter() - t0:.1f} s, its scene from "
+            f"{'the pickle' if cached else 'a fresh build'}")
+        check(res["ok"] and res["tris"] == BUNNY_FACES * 4 ** levels
+              and math.isfinite(res["frame_ms"]) and res["frame_ms"] > 0,
+              f"largedemo at levels {levels}: {res}")
 
 
 def viewer_phase(torch, pt, host, dev, card, static_launches, static_frames):
@@ -983,8 +1099,11 @@ def graph_phase(torch, pt, path, scene, meta, states, render, frames, launches, 
     scene of the same shapes through the same graph, with no new capture,
     equal to its own eager frame; then p50/p95 of both in turns (eager,
     graph, graph, eager; 20 frames each), the capture seconds, the bytes a
-    replay copies into the graph's inputs, and the peak memory above what was
-    held before, of the capture and three frames and of eager frames."""
+    replay copies into the graph's inputs and that copy's device ms (the
+    renderer's latest graph, median of 20), and the peak memory above what
+    was held before, of the capture and three frames and of eager frames."""
+    from torch.utils import _pytree as pytree
+
     from relativitypathtracer_tpu_torch import render as prender
 
     consts = prender.render_constants(meta, WIDTH, HEIGHT, 1, torch.device(DEVICE))
@@ -1011,6 +1130,9 @@ def graph_phase(torch, pt, path, scene, meta, states, render, frames, launches, 
     check(torch.equal(got, want) and counts(gaux) == counts(waux)
           and not torch.equal(got, frames[2][0]) and render.captures == 1,
           f"{path}: the second scene's graphed frame differs from its eager frame")
+    statics = next(reversed(render.graphs.values())).statics
+    inputs = [x for x in pytree.tree_flatten((scene, states[2]))[0] if torch.is_tensor(x)]
+    copy_ms = time_ms(torch, lambda: torch._foreach_copy_(statics, inputs))
     turns = {"eager": [], "graph": []}
     for name in ("eager", "graph", "graph", "eager"):
         turns[name].append(p50_p95(torch, eager if name == "eager" else render, scene,
@@ -1018,7 +1140,7 @@ def graph_phase(torch, pt, path, scene, meta, states, render, frames, launches, 
     log(f"  graph on {path}: the three graphed frames (kept) and a second scene's equal to the "
         f"eager frames to the bit, launches a replay as an eager frame's; capture "
         f"{capture_s:.3f} s (warm-up, capture, replay), {render.input_bytes:,} input bytes "
-        f"copied a call, peak memory {graph_mib:.0f} MiB (capture and 3 frames) against "
+        f"copied a call ({copy_ms:.3f} ms), peak memory {graph_mib:.0f} MiB (capture and 3 frames) against "
         f"{eager_mib:.0f} MiB (eager frames); in turns on {card}, p50/p95 ms: eager "
         + ", ".join(f"{a:.3f}/{b:.3f}" for a, b in turns["eager"]) + "; graph "
         + ", ".join(f"{a:.3f}/{b:.3f}" for a, b in turns["graph"]))
@@ -1243,6 +1365,7 @@ def main() -> int:
     from relativitypathtracer_tpu_torch.ops.kernels import mesh_large as ml
     from relativitypathtracer_tpu_torch.ops.kernels import shadow_chain as sc
     from relativitypathtracer_tpu_torch.ops.kernels import texture_kernel as tk
+    from relativitypathtracer_tpu_torch.utils import largedemo
     from relativitypathtracer_tpu_torch.utils.demo_scene import LARGE_LEVEL, write_demo_scene
 
     t_start = time.perf_counter()
@@ -1286,13 +1409,24 @@ def main() -> int:
     list_fns = {attr: getattr(mod, attr) for mod, attr, _ in list_hooks}
     list_plains = {attr: plain for _, attr, plain in list_hooks}
     results, launches_by_path, hosts, scenes = {}, {}, {}, {}
+    # the xl scene, its pickle and the module entry's scenes, until the path ends
+    xl_dir = tempfile.TemporaryDirectory(prefix="rpt_xl_")
 
     for path, (kind, names, cpu_size) in PATHS.items():
         log(f"--- path {path} ---")
-        with tempfile.TemporaryDirectory() as tmp:
-            t0 = time.perf_counter()
-            host = pt.load_scene_file(write_demo_scene(tmp, LEVEL, kind))
-            scene, meta = pt.build_scene(host, device=dev)
+        t_path = t0 = time.perf_counter()
+        if kind == "xl":
+            src, what = xl_source(largedemo, xl_dir.name)
+            scene, meta = largedemo.load_large_scene(xl_dir.name, XL_LEVELS, dev, src)
+            build_s, t1 = time.perf_counter() - t0, time.perf_counter()
+            host = largedemo.load_large_host(xl_dir.name, XL_LEVELS, src)
+            log(f"  xl: {what} ({src}) subdivided {XL_LEVELS} times; load_large_scene "
+                f"{build_s:.1f} s (subdivision, parse, normals, octree, pickle, build_scene), the "
+                f"host scene again from its pickle {time.perf_counter() - t1:.1f} s")
+        else:
+            with tempfile.TemporaryDirectory() as tmp:
+                host = pt.load_scene_file(write_demo_scene(tmp, LEVEL, kind))
+                scene, meta = pt.build_scene(host, device=dev)
         hosts[path] = host
         scenes[path] = (scene, meta)
         log(f"  scene: {meta.num_tris} triangles, spheres {meta.sphere_ids}, cubes "
@@ -1300,7 +1434,7 @@ def main() -> int:
             f"{tuple(scene.tex_quads.shape)}, lights {meta.light_ids}, built in "
             f"{time.perf_counter() - t0:.1f} s")
         tris = {"blob": 20 * 4 ** LEVEL, "textured": 20 * 4 ** LEVEL,
-                "instances": 20 * 4 ** LEVEL, "large": 20 * 4 ** LARGE_LEVEL}
+                "instances": 20 * 4 ** LEVEL, "large": 20 * 4 ** LARGE_LEVEL, "xl": XL_SHAPE[0]}
         check(meta.light_ids and meta.num_tris == tris.get(kind, meta.num_tris), "fixture shape")
         if kind == "instances":  # four instances of one mesh in one pool of 640 chunks
             check(len(meta.mesh_ids) == 4 and sum(meta.mesh_chunk_counts) == 640
@@ -1308,6 +1442,14 @@ def main() -> int:
         if kind == "large":  # the large tier: 10,240 chunks, no pool
             check(scene.mesh_static[0].gen_rec is not None
                   and scene.mesh_static[0].spheres.shape[0] == 10240, "large: the large tier")
+        if kind == "xl":  # the XL tier: 39,744 chunks in 311 supers of 128
+            C = scene.mesh_static[0].spheres.shape[0]
+            S = ml._super_s(C)
+            n_super = -(-C // S)
+            shape = (meta.num_tris, C, n_super, C - (n_super - 1) * S, n_super * S // 32)
+            check(scene.mesh_static[0].gen_rec is not None and S == ml.S_SUPER_XL
+                  and shape == XL_SHAPE, f"xl: (triangles, chunks, supers, chunks of the last "
+                  f"super, bit words) {shape}, supers of {S}")
         render = pt.build_render_fn(meta, WIDTH, HEIGHT, -1, with_aux=True, device=dev)
 
         # The hooks record each wrapper's inputs in the first call's eager
@@ -1330,6 +1472,11 @@ def main() -> int:
                 return _fn(*args, **kwargs)
 
             setattr(mod, attr, rec_list)
+        # which two-level list function large_live_lists takes
+        route = collections.Counter()
+        route_fns = {attr: getattr(ml, attr) for attr in set(LIST_ROUTE.values())}
+        for attr, fn in route_fns.items():
+            setattr(ml, attr, lambda *a, _fn=fn, _n=attr, **k: route.update([_n]) or _fn(*a, **k))
 
         # --- the capture: the first call warms up, captures and replays ------
         torch.cuda.synchronize()
@@ -1344,7 +1491,12 @@ def main() -> int:
             setattr(mod, attr, originals[name])
         for mod, attr, _ in list_hooks:
             setattr(mod, attr, list_fns[attr])
+        for attr, fn in route_fns.items():
+            setattr(ml, attr, fn)
         check(render.captures == 1, f"{path}: {render.captures} captures")
+        if path in LIST_ROUTE:
+            check(set(route) == {LIST_ROUTE[path]},
+                  f"{path}: large_live_lists took {dict(route)}, not {LIST_ROUTE[path]}")
 
         # --- the path: three graphed frames, counts from 0 -------------------
         torch.cuda.synchronize()
@@ -1362,13 +1514,22 @@ def main() -> int:
             check(tuple(img.shape) == (HEIGHT, WIDTH, 3), f"image shape {tuple(img.shape)}")
             check(bool(torch.isfinite(img).all()), "non-finite pixels")
             check(aux["hits"] > 0 and aux["shadow_rays"] > 0, f"counts {aux}")
-            check(0 < aux["lit_rays"] < aux["shadow_rays"], f"no lit or no occluded lanes: {aux}")
+            lit, cast = aux["lit_rays"], aux["shadow_rays"]
+            check(0 < lit < cast or path in UNSHADOWED and 0 < lit <= cast,
+                  f"no lit or no occluded lanes: {aux}")
             log(f"  frame: {aux}, mean {float(img.mean()):.6f}")
         for name in names:
             check(launches.get(name, 0) > 0, f"{path}: {name} was not launched")
             check(name in captured, f"{path}: {name}: no inputs captured")
         for name in launches:
             check(name in names, f"{path}: unexpected launches of {name}")
+        if kind == "xl":
+            widths = [captured[n][3].shape[1] for n in ("rpt_large_shared_walk",
+                                                        "rpt_large_general_walk")]
+            check(widths == [XL_SHAPE[4]] * 2, f"xl: bit rows {widths} words")
+            log(f"  xl route: supers of {S}, {n_super} of them (the last {shape[3]} chunks), "
+                f"large_live_lists took {dict(route)} in the warm-up and capture, bit rows of "
+                f"K11 and K12 {widths[0]:,} words")
         graph_phase(torch, pt, path, scene, meta, states, render, frames, launches, capture_s,
                     graph_mib, card)
         replay_trace(torch, render, scene, states[2],
@@ -1391,6 +1552,10 @@ def main() -> int:
         parity(torch, pt, host, states[2], img, aux, cpu_size)
         frame_time(torch, render, scene, states[2], card)
         oracle_check(torch, path, scene, meta, states[2], frames[2][0], card)
+        if kind == "xl":
+            largedemo_phase(largedemo, xl_dir.name, src, card)
+            xl_dir.cleanup()
+        log(f"  path {path}: {time.perf_counter() - t_path:.1f} s")
 
     log("--- path textured, msaa 2, 512x384 ---")
     scene, meta = pt.build_scene(hosts["textured"], device=dev)
@@ -1430,8 +1595,13 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"], "path": path})
+    xl_kernels = [{"name": f"{KERNELS[n][0]} {n}", "route": "cuda", "source": KERNELS[n][1],
+                   "replaces": KERNELS[n][2], "launches": launches_by_path["xl"][n],
+                   **results["xl"][n], "path": "xl"}
+                  for n in (*K4, "rpt_large_shared_walk", "rpt_large_general_walk")]
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(interact))
+    print(json.dumps({"xl_kernels": xl_kernels}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -33,6 +33,10 @@ light propagation and shadows on (no I command, so interval -1).
   read. The size class of a scanned or subdivided model of 10^5 to 10^6
   triangles, as the JAX package's 317,952-triangle tier.
 
+`write_bunny_stand_in` writes an OBJ with the face count and the box of the
+reference's Models/bunny.obj, for utils/largedemo where the reference's
+assets are absent.
+
 Usage: python -m relativitypathtracer_tpu_torch.utils.demo_scene DIR [LEVEL] [KIND]
 """
 
@@ -57,6 +61,10 @@ _ICO_FACES = [(0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11),
               (4, 9, 5), (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1)]
 
 KINDS = ("blob", "textured", "cubes", "instances", "large")
+BUNNY_FACES = 4968  # Models/bunny.obj's triangles
+# Models/bunny.obj's box (the Stanford bunny's coordinates): about 0.16 x
+# 0.15 x 0.12, its base at y = 0.033
+BUNNY_BOX = ((-0.0947, 0.0330, -0.0619), (0.0611, 0.1873, 0.0588))
 SEED = 7  # the textures' numpy seed
 LARGE_LEVEL = 7  # the "large" blob's subdivision level
 
@@ -141,6 +149,28 @@ def demo_texture(size: int, seed: int = SEED) -> np.ndarray:
     square = (ij[:, None] * 3 + ij[None, :] * 5) % 8
     noise = rng.integers(-40, 40, (size, size, 3))
     return np.clip(palette[square] + noise, 0, 255).astype(np.uint8)
+
+
+def write_bunny_stand_in(path: str) -> str:
+    """Write a stand-in for the reference's Models/bunny.obj to `path`: the
+    level-4 blob without its last 152 faces (4,968, bunny's count, so a
+    scene subdivided from it has the JAX package's large-tier shapes), its
+    vertices scaled into bunny's box, where the subdivided scene's transform
+    (utils/subdiv.make_subdivided_scene) frames it as it frames the bunny.
+    Name it other than bunny.obj (e.g. bunny_stand_in.obj): the subdivided
+    scene and its pickle are keyed by the source's file name. Returns
+    `path`."""
+    verts, faces, _ = blob_mesh(4)
+    faces = faces[:BUNNY_FACES]
+    used = sorted({i for face in faces for i in face})
+    index = {v: n for n, v in enumerate(used)}
+    v = np.asarray([verts[i] for i in used])
+    lo, hi = v.min(axis=0), v.max(axis=0)
+    box_lo, box_hi = np.asarray(BUNNY_BOX)
+    v = box_lo + (v - lo) / (hi - lo) * (box_hi - box_lo)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    write_obj(path, v.tolist(), [tuple(index[i] for i in face) for face in faces])
+    return path
 
 
 def write_demo_scene(root: str, level: int = 4, kind: str = "blob") -> str:

@@ -1097,6 +1097,28 @@ def test_xl_lists_on_the_large_fixture(cuda, tmp_path, monkeypatch):
     assert {k: int(v) for k, v in aux.items()} == {k: int(v) for k, v in base_aux.items()}
 
 
+def test_largedemo_on_the_bunny_stand_in(cuda, tmp_path, monkeypatch):
+    """utils/largedemo.large_parity_and_time on bunny's stand-in subdivided
+    once (19,872 triangles) at 256x192, LARGE_MODE forced and SUPER_CULL_C
+    at 0, so the XL tier's route (live_chunk_lists3, supers of 128) on a
+    small mesh: ok against the C++ oracle, a positive frame time."""
+    from relativitypathtracer_tpu_torch.ops import mesh_intersect as mi
+    from relativitypathtracer_tpu_torch.ops.kernels import mesh_large as ml
+    from relativitypathtracer_tpu_torch.utils import largedemo
+    from relativitypathtracer_tpu_torch.utils.demo_scene import write_bunny_stand_in
+
+    src = write_bunny_stand_in(str(tmp_path / "Models" / "bunny_stand_in.obj"))
+    taken, real = [], ml.live_chunk_lists3
+    monkeypatch.setattr(mi, "LARGE_MODE", True)
+    monkeypatch.setattr(ml, "SUPER_CULL_C", 0)
+    monkeypatch.setattr(ml, "live_chunk_lists3",
+                        lambda *a, **k: taken.append(k["s"]) or real(*a, **k))
+    res = largedemo.large_parity_and_time(256, 192, frames=5, workdir=str(tmp_path), levels=1,
+                                          device=cuda, src_obj=src)
+    assert res["ok"] and res["tris"] == 19_872 and res["frame_ms"] > 0, res
+    assert taken and set(taken) == {128}
+
+
 # --- K4: the live-chunk list build ----------------------------------------------
 
 K4_KEYS = ("rpt_cone_table", "rpt_live_cull", "rpt_bucket_order")
@@ -1421,7 +1443,7 @@ def test_cone_table_kernel_equals_twin(cuda, case):
 
 def _large_walks_equal_twins(args, shadow):
     """K11 (or K12) on args equal to its twin bit for bit; returns the
-    chunks each block walked (the twin's count)."""
+    chunks each block walked (the twin's count) and the twin's result."""
     from relativitypathtracer_tpu_torch.ops.kernels import mesh_kernels as mk
     from relativitypathtracer_tpu_torch.ops.kernels import mesh_large as ml
 
@@ -1431,40 +1453,51 @@ def _large_walks_equal_twins(args, shadow):
         got = ml.large_general_walk(*args)
         want, walked = mk.walk_general_lists(*lists, *args[4:8], T, walked=True)
         assert torch.equal(got, want)
-        return walked
+        return walked, want
     got = ml.large_shared_walk(*args)
     *want, walked = mk.walk_shared_lists(*lists, *args[4:8], T, walked=True)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert bool((want[3] >= 0).any())
-    return walked
+    return walked, want
 
 
-@pytest.mark.parametrize("walk", ["K11", "K12"])
+@pytest.mark.parametrize("walk", ["K11", "K12", "K11_s128", "K12_s128"])
 def test_large_walks_read_lists_past_the_staged_head(cuda, monkeypatch, walk):
     """K11 and K12 over lists longer than SuperList's staged head (512
     supers and 512 bit words, csrc/mesh_kernels.cu): a soup of 543,990
-    triangles (17,000 chunks, 532 supers of 32, the last of 8 chunks), two
-    ray blocks, every super live and every lane walking to the end, so the
-    cursor reads supers, floors and bit words past the head from global
-    memory; the lists (lists2 at S = 32, forced past SUPER_CULL_C) equal
-    their twin's, the walks their twins' bit for bit."""
+    triangles (17,000 chunks), two ray blocks, every super live and every
+    lane walking past the head, so the cursor reads what lies past it from
+    global memory: at S = 32 (lists2, forced past SUPER_CULL_C) 532 supers
+    and their 532 bit words; at S = 128 (lists3, SUPER_CULL_C at 0, the XL
+    tier's route) 133 supers of four bit words each, 532 words, the last
+    super ragged (104 chunks). The lists equal their twin's, the walks their
+    twins' bit for bit; K12's lanes (every one active, tmax infinite) are
+    partly occluded, so its equality holds the triangle tests too."""
     from relativitypathtracer_tpu_torch.ops.kernels import mesh_kernels as mk
     from relativitypathtracer_tpu_torch.ops.kernels import mesh_large as ml
 
-    monkeypatch.setattr(ml, "SUPER_CULL_C", 20_000)
-    shadow = walk == "K12"
+    xl = walk.endswith("_s128")
+    monkeypatch.setattr(ml, "SUPER_CULL_C", 0 if xl else 20_000)
+    shadow = walk.startswith("K12")
+    build, plain = (("live_chunk_lists3", mk.live_chunk_lists3_plain) if xl
+                    else ("live_chunk_lists2", mk.live_chunk_lists2_plain))
     out = []
-    calls = _captured(ml, "live_chunk_lists2", lambda: out.append(_soup_lists(
+    calls = _captured(ml, build, lambda: out.append(_soup_lists(
         cuda, shadow=shadow, T=543_990, n=2048, seed=11, large=True,
         pattern="all_active" if shadow else None)))
     args = out[0]
-    assert args[-3:] == (32, 17_000, 543_990) and args[0].shape == (2, 532)
+    supers = 133 if xl else 532
+    assert args[-3:] == (128 if xl else 32, 17_000, 543_990)
+    assert args[0].shape == (2, supers) and args[3].shape == (2, 532)
     a, k = calls[0]
-    _k4_equals_twin(ml.live_chunk_lists2, mk.live_chunk_lists2_plain, *a, **k)
-    assert args[2].tolist() == [532, 532]
-    walked = _large_walks_equal_twins(args, shadow)
+    _k4_equals_twin(getattr(ml, build), plain, *a, **k)
+    assert args[2].tolist() == [supers, supers]
+    walked, want = _large_walks_equal_twins(args, shadow)
     assert int(walked.min()) > 512 * 32
+    if shadow:
+        tmax = args[7][0]
+        assert int((want < tmax).sum()) > 50 and int((want >= tmax).sum()) > 50
 
 
 @pytest.mark.parametrize("walk", ["K11", "K12"])
@@ -1485,7 +1518,7 @@ def test_large_walks_end_at_the_list_end(cuda, walk):
     args[1] = torch.zeros((B, 3), device=cuda)
     args[2] = torch.full((B,), 3, dtype=torch.int32, device=cuda)
     args[3] = mk.pack_bits(torch.ones((B, C), dtype=torch.bool, device=cuda))
-    walked = _large_walks_equal_twins(args, shadow)
+    walked, _ = _large_walks_equal_twins(args, shadow)
     assert walked.tolist() == [C] * B
 
 

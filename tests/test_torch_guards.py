@@ -22,6 +22,7 @@ def _env(**extra):
 def test_port_imports_without_jax():
     code = ("import sys, relativitypathtracer_tpu_torch, relativitypathtracer_tpu_torch.cli, "
             "relativitypathtracer_tpu_torch.utils.demo_scene, "
+            "relativitypathtracer_tpu_torch.utils.largedemo, "
             "relativitypathtracer_tpu_torch.parallel.tiles, relativitypathtracer_tpu_torch.utils.aot; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.startswith('relativitypathtracer_tpu.') or m == 'relativitypathtracer_tpu'); "

@@ -103,11 +103,17 @@ def _mesh(rng, T):
 @pytest.fixture
 def xl(request, monkeypatch):
     """Superchunks of 128 through the super-sphere cull, in both packages,
-    when the test's `xl` parameter says so."""
+    when the test's `xl` parameter says so. The JAX package reads
+    SUPER_CULL_C when it traces, so its jitted large-tier wrappers are
+    traced afresh before and after."""
     if request.param:
         monkeypatch.setattr(jml, "SUPER_CULL_C", 0)
         monkeypatch.setattr(pml, "SUPER_CULL_C", 0)
-    return request.param
+    for fn in (jml.large_shared_nearest_hit, jml.large_general_min_t):
+        fn.clear_cache()
+    yield request.param
+    for fn in (jml.large_shared_nearest_hit, jml.large_general_min_t):
+        fn.clear_cache()
 
 
 @pytest.mark.parametrize("xl", [False, True], ids=["s32", "s128"], indirect=True)
@@ -257,21 +263,26 @@ def large_instances(tmp_path_factory):
     return _build_large(write_fixture(tmp_path_factory, 2, "instances"))
 
 
+@pytest.mark.parametrize("xl", [False, True], ids=["s32", "s128"], indirect=True)
 @pytest.mark.parametrize("state", list(STATES))
-def test_forced_large_blob_frame_matches_jax(large_blob, state, monkeypatch):
-    """The blob at level 3 (1,280 triangles, 40 chunks in 2 supers) through
-    K11 and K12 on both sides, never through K5/K6."""
+def test_forced_large_blob_frame_matches_jax(large_blob, state, xl, monkeypatch):
+    """The blob at level 3 (1,280 triangles, 40 chunks) through K11 and K12
+    on both sides, never through K5/K6: in 2 supers of 32 (lists2), and
+    with the super-sphere cull forced (lists3, the XL tier's route) in one
+    ragged super of 128."""
     (js, jm), (ps, pm) = large_blob
     assert js.mesh_static[0].gen_rec is not None and ps.mesh_static[0].gen_rec is not None
     calls = []
     for name in ("large_shared_walk", "large_general_walk"):
         real = getattr(pml, name)
-        monkeypatch.setattr(pml, name, lambda *a, _r=real, _n=name: calls.append(_n) or _r(*a))
+        monkeypatch.setattr(pml, name, lambda *a, _r=real, _n=name: calls.append(
+            (_n, a[-3], a[0].shape[1])) or _r(*a))
     for name in ("shared_walk", "general_walk"):
         monkeypatch.setattr(pmk, name, lambda *a, _n=name: calls.append(_n))
     want, jaux = jax_frame(js, jm, STATES[state], large=True)
     got, paux = port_frame(ps, pm, STATES[state])
-    assert sorted(calls) == ["large_general_walk", "large_shared_walk"]
+    S, n_super = (128, 1) if xl else (32, 2)
+    assert sorted(calls) == [("large_general_walk", S, n_super), ("large_shared_walk", S, n_super)]
     assert_frame_parity(got, want, paux, jaux)
     assert paux["hits"] > 200 and 0 < paux["lit_rays"] < paux["shadow_rays"]
 
