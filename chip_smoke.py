@@ -106,8 +106,24 @@ For each path it:
      parity rule, printed as bench.py prints its large_mesh lines, with the
      pickle load's seconds.
 It prints each path's seconds. Then it renders the textured path at msaa 2,
-512x384, and holds it to its CPU frame, runs three phases on the textured
-fixture:
+512x384, and holds it to its CPU frame, runs the textures phase:
+  textures
+          with PIL blocked (sys.modules["PIL"] = None for the phase, restored
+          after; no PIL module may be imported meanwhile): every file of
+          tests/torch_textures decoded by models/texture.decode_texture
+          (utils/image_decode) to the SHA-256 PIL gave where they were made
+          (pil_rgb.json), with its ms; the textured fixture with its 32x32
+          texture as a baseline 4:2:0 JPEG (utils/image.encode_jpeg; a
+          512-row atlas, K2) and cubes with its 256x256 texture as a PNG (a
+          32,768-row atlas, K8), each written by utils/demo_scene,
+          load_scene_file -> build_scene -> build_render_fn at 1024x768: one
+          graphed frame with exactly that path's kernels launched, held to
+          the port's CPU frame (textured at 256x192, cubes at 1024x768) and
+          the 1024x768 frame to the C++ oracle under the parity rule; then a
+          2048x2048 seeded texture through encode_jpeg and decode_jpeg: its
+          bytes, entropy symbols and decode seconds (a corpus-sized
+          texture's start-up cost on the card host's CPU);
+and three phases on the textured fixture:
   viewer  ViewerCore at 960x540 (the reference's window) through a scripted
           timeline 15 ms apart (idle and paused; 'w' held 10 frames; space;
           'i'; resizes to 1024x768, which grows the pad, and to 640x480,
@@ -128,9 +144,12 @@ fixture:
           presses, 'w', flying fps, a shrink within the pad and a grow past
           it, each timed until /stats shows it); checks every key of its
           JSON, platform "gpu", frames counted, each latency finite (each
-          awaited state reached) and the pulled frames JPEGs (FF D8 ... FF
-          D9) whose SOF0 header says 960x540; prints the JSON on a line of
-          its own before the kernels' line;
+          awaited state reached), the pulled frames JPEGs (FF D8 ... FF
+          D9) whose SOF0 header says 960x540, and the session's GIF (their
+          decodes, utils/image.write_gif), whose first frame, LZW-decoded
+          here, is 960x540 and equals the first JPEG's decode quantised to
+          the GIF's palette; prints the JSON on a line of its own before the
+          kernels' line;
   octree  the octree walk (ops/octree_traverse) of a 16,384-ray fan from the
           camera over the mesh on the card: converged, against the K5 route
           (mesh_intersect_shared) and against the same walk on the CPU;
@@ -180,6 +199,8 @@ import sys
 import tempfile
 import time
 
+import numpy as np
+
 WIDTH, HEIGHT = 1024, 768
 LEVEL = 4
 DEVICE = "cuda"
@@ -217,6 +238,12 @@ INTERACT_KEYS = {"scene", "size", "platform", "idle_fps", "flying_fps", "device_
                  "key_latency_ms_space_all", "key_latency_ms_w", "resize_latency_ms_first",
                  "resize_latency_ms_grow_pad", "frames_counted", "cadence_cap_fps", "device",
                  "encode_ms_p50"}
+# the textures phase: the committed decode fixtures and PIL's hashes of them,
+# its scenes (fixture kind, texture format, CPU parity size), and the side
+# of the corpus-sized JPEG it times
+TEXTURE_FIXTURES = pathlib.Path(__file__).resolve().parent / "tests" / "torch_textures"
+TEXTURE_SCENES = (("textured", "jpg", (256, 192)), ("cubes", "png", (WIDTH, HEIGHT)))
+BIG_TEXTURE = 2048
 PKG = "relativitypathtracer_tpu_torch/csrc/"
 TPU = "relativitypathtracer_tpu/ops/pallas/"
 K4_TPU = TPU + "mesh_kernels.py:389 (XLA)"
@@ -858,8 +885,6 @@ def viewer_phase(torch, pt, host, dev, card, static_launches, static_frames):
     timeline with synthetic times 15 ms apart; see the module docstring.
     One frame's launches must equal a static frame's on the same path:
     static_launches over static_frames frames."""
-    import numpy as np
-
     from relativitypathtracer_tpu_torch.ops.kernels import _build
     from relativitypathtracer_tpu_torch.render import TILE, _round_up
     from relativitypathtracer_tpu_torch.utils.framestate import SimState, step
@@ -987,6 +1012,54 @@ def jpeg_size(data: bytes):
     return None
 
 
+def gif_first_frame(data: bytes):
+    """(width, height, palette indices) of a GIF's first image: its
+    descriptor's size and its LZW data decoded (extensions and colour
+    tables skipped)."""
+    flags = data[10]
+    pos = 13 + (3 << ((flags & 7) + 1) if flags & 0x80 else 0)
+    while data[pos] == 0x21:  # extension blocks
+        pos += 2
+        while data[pos]:
+            pos += data[pos] + 1
+        pos += 1
+    check(data[pos] == 0x2C, "GIF: no image descriptor")
+    width, height = int.from_bytes(data[pos + 5:pos + 7], "little"), int.from_bytes(
+        data[pos + 7:pos + 9], "little")
+    local = data[pos + 9]
+    pos += 10 + (3 << ((local & 7) + 1) if local & 0x80 else 0)
+    min_size, pos = data[pos], pos + 1
+    stream = bytearray()
+    while data[pos]:
+        stream += data[pos + 1:pos + 1 + data[pos]]
+        pos += data[pos] + 1
+    clear = 1 << min_size
+    table, out, prev = [], bytearray(), None
+    acc = nacc = 0
+    size = min_size + 1
+    for byte in stream:
+        acc |= byte << nacc
+        nacc += 8
+        while nacc >= size:
+            code = acc & ((1 << size) - 1)
+            acc >>= size
+            nacc -= size
+            if code == clear:
+                table = [bytes([i]) for i in range(clear)] + [b"", b""]
+                size, prev = min_size + 1, None
+                continue
+            if code == clear + 1:
+                return width, height, bytes(out)
+            entry = table[code] if code < len(table) else prev + prev[:1]
+            if prev is not None:
+                table.append(prev + entry[:1])
+            out += entry
+            prev = entry
+            if len(table) == 1 << size and size < 12:
+                size += 1
+    raise CheckFailed("GIF: the first image has no end code")
+
+
 def interact_phase(card) -> dict:
     """tools/interact_bench_torch.py's main in this process on the textured
     fixture at 960x540, --window 1.0: the web viewer over HTTP on the card;
@@ -1021,6 +1094,17 @@ def interact_phase(card) -> dict:
         data = path.read_bytes()
         check(data[:2] == b"\xff\xd8" and data[-2:] == b"\xff\xd9"
               and jpeg_size(data) == (vw, vh), f"interact: {path.name} is not a {vw}x{vh} JPEG")
+    from relativitypathtracer_tpu_torch.utils.image import quantize
+    from relativitypathtracer_tpu_torch.utils.image_decode import decode_jpeg
+
+    gif = out / "session.gif"
+    check(gif.is_file(), "interact: no session.gif")
+    gw, gh, first = gif_first_frame(gif.read_bytes())
+    check((gw, gh) == (vw, vh) and np.array_equal(
+        np.frombuffer(first, np.uint8), quantize(decode_jpeg(jpegs[0].read_bytes())).ravel()),
+        f"interact: session.gif's first frame ({gw}x{gh}) is not the first pulled frame's")
+    log(f"  interact: session.gif ({gif.stat().st_size} bytes), its first frame {gw}x{gh} equal "
+        "to the first JPEG's decode, quantised")
     log(f"  interact: {len(jpegs)} JPEGs of {vw}x{vh} on {card}; idle {res['idle_fps']} fps, "
         f"flying {res['flying_fps']} fps, device frame {res['device_frame_ms']} ms, encode "
         f"{res['encode_ms_p50']} ms, space {res['key_latency_ms_space_p50']} ms, w "
@@ -1029,14 +1113,121 @@ def interact_phase(card) -> dict:
     return res
 
 
+def entropy_symbols(zz) -> int:
+    """The Huffman symbols a baseline scan codes for (blocks, 64) zig-zag
+    coefficients: a block's DC, each nonzero AC, a ZRL for each 16 zeros
+    before one, and an EOB unless coefficient 63 is nonzero."""
+    blk, col = np.nonzero(zz[:, 1:])
+    col = col + 1
+    prev = np.where(np.r_[True, blk[1:] != blk[:-1]], 0, np.r_[0, col[:-1]])
+    return int(zz.shape[0] + col.size + ((col - prev - 1) >> 4).sum() + (zz[:, 63] == 0).sum())
+
+
+def textures_phase(torch, pt, dev, card, state) -> None:
+    """Textures decoded without PIL (utils/image_decode), with PIL blocked in
+    sys.modules for the phase: the committed fixtures against PIL's hashes,
+    the textured fixture with a JPEG texture and cubes with a PNG one
+    rendered on the card and held to the CPU and the oracle, and the decode
+    time of a corpus-sized JPEG; see the module docstring."""
+    import hashlib
+
+    from relativitypathtracer_tpu_torch.models.texture import decode_texture
+    from relativitypathtracer_tpu_torch.utils import image, image_decode
+    from relativitypathtracer_tpu_torch.utils.demo_scene import demo_texture, write_demo_scene
+
+    def pil_modules():
+        return {m for m, mod in sys.modules.items()
+                if mod is not None and (m == "PIL" or m.startswith("PIL."))}
+
+    before, had = pil_modules(), "PIL" in sys.modules
+    saved = sys.modules.get("PIL")
+    sys.modules["PIL"] = None  # an import of PIL now raises ImportError
+    try:
+        record = json.loads((TEXTURE_FIXTURES / "pil_rgb.json").read_text())
+        times = []
+        for name, want in record["files"].items():
+            data = (TEXTURE_FIXTURES / name).read_bytes()
+            t0 = time.perf_counter()
+            rgb = decode_texture(data)
+            times.append(f"{name} {(time.perf_counter() - t0) * 1e3:.2f}")
+            check(list(rgb.shape) == want["shape"]
+                  and hashlib.sha256(rgb.tobytes()).hexdigest() == want["sha256"],
+                  f"textures: {name} decodes to other bytes than PIL's")
+        log(f"  {len(times)} committed files equal to PIL's decodes (Pillow {record['pillow']}, "
+            f"libjpeg-turbo {record['libjpeg_turbo']}), PIL blocked; decode ms: "
+            + ", ".join(times))
+        for kind, fmt, size in TEXTURE_SCENES:
+            names = PATHS[kind][1]
+            with tempfile.TemporaryDirectory() as tmp:
+                scene_file = write_demo_scene(tmp, LEVEL, kind, texture_format=fmt)
+                tex = next(pathlib.Path(tmp, "Textures").iterdir())
+                tex_bytes = tex.read_bytes()
+                t0 = time.perf_counter()
+                decode_texture(tex_bytes)
+                tex_ms = (time.perf_counter() - t0) * 1e3
+                t0 = time.perf_counter()
+                host = pt.load_scene_file(scene_file)
+                load_s = time.perf_counter() - t0
+            scene, meta = pt.build_scene(host, device=dev)
+            render = pt.build_render_fn(meta, WIDTH, HEIGHT, -1, with_aux=True, device=dev)
+            render(scene, state)  # warm-up and capture
+            (img, aux), launches = counted_frame(torch, render, scene, state)
+            check(set(launches) == set(names) and all(launches.values()),
+                  f"textures: {kind} with a {fmt} texture launched {launches}, not {names}")
+            check(bool(torch.isfinite(img).all()) and int(aux["hits"]) > 0,
+                  f"textures: {kind} frame {counts(aux)}")
+            log(f"  {kind} with its {tex.name} ({len(tex_bytes)} bytes, decode "
+                f"{tex_ms:.2f} ms; load_scene_file {load_s:.2f} s): atlas "
+                f"{tuple(scene.tex_quads.shape)}, one graphed frame's launches {launches}")
+            small, small_aux = img, aux
+            if size != (WIDTH, HEIGHT):
+                small, small_aux = pt.build_render_fn(meta, size[0], size[1], -1, with_aux=True,
+                                                      device=dev)(scene, state)
+            parity(torch, pt, host, state, small, small_aux, size)
+            oracle_check(torch, f"{kind} ({fmt} texture)", scene, meta, state, img, card)
+        big = demo_texture(BIG_TEXTURE)
+        data = image.encode_jpeg(big)
+        coef, orig = {}, image_decode._decode_sequential
+
+        def keep(*args):
+            orig(*args)
+            coef["zz"] = np.frombuffer(args[5], np.int32).reshape(-1, 64)
+
+        image_decode._decode_sequential = keep
+        try:
+            t0 = time.perf_counter()
+            rgb = image_decode.decode_jpeg(data)
+            big_s = time.perf_counter() - t0
+        finally:
+            image_decode._decode_sequential = orig
+        # JPEG keeps each block's mean: 16x16 means (a 4:2:0 MCU) within 4
+        # levels (1.750 in the runs so far: the loss is the q85 encode's)
+        n = BIG_TEXTURE // 16
+        means = [a.astype(np.float64).reshape(n, 16, n, 16, 3).mean((1, 3)) for a in (rgb, big)]
+        err = float(np.abs(means[0] - means[1]).max())
+        check(rgb.shape == big.shape and err < 4.0,
+              f"textures: the {BIG_TEXTURE}x{BIG_TEXTURE} decode {rgb.shape}, block means {err} "
+              "levels off the image's")
+        log(f"  a {BIG_TEXTURE}x{BIG_TEXTURE} seeded texture (utils/demo_scene.demo_texture) "
+            f"through encode_jpeg: {len(data):,} bytes, {entropy_symbols(coef['zz']):,} entropy "
+            f"symbols in {coef['zz'].shape[0]:,} blocks, decode_jpeg {big_s:.3f} s on the card "
+            f"host's CPU (16x16 block means within {err:.3f} levels of the image's)")
+    finally:
+        if had:
+            sys.modules["PIL"] = saved
+        else:
+            del sys.modules["PIL"]
+    added = pil_modules() - before
+    check(not added, f"textures: PIL modules imported: {sorted(added)}")
+    log(f"  no PIL module imported (PIL {'was' if before else 'was not'} loaded before the phase)")
+
+
 def octree_phase(torch, pt, host, dev, card):
     """The octree walk of a 16,384-ray fan from the camera over the textured
     fixture's mesh on the card: converged; against the K5 route, the same
     hit/miss on at least 99.9% of rays and t within a relative 1e-4 where
     both hit; against the same walk on the CPU, the same hit/miss and t
     within a relative 1e-6."""
-    import numpy as np
-
     from relativitypathtracer_tpu_torch.ops.kernels import _build
     from relativitypathtracer_tpu_torch.ops.mesh_intersect import mesh_intersect_shared
     from relativitypathtracer_tpu_torch.ops.octree_traverse import octree_intersect
@@ -1170,14 +1361,18 @@ def replay_trace(torch, render, scene, state, per_frame, what):
         render(scene, state)
         torch.cuda.synchronize()
     added = {k.split("/")[0]: n for k, n in _build.LAUNCHES.items()}
-    traced = collections.Counter(
-        trace_key(e.name) for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA)
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    traced = collections.Counter(trace_key(n) for n in names)
     kernels = sum(traced.values())
     traced.pop(None, None)
     check(added == {k.split("/")[0]: n for k, n in per_frame.items()},
           f"{what}: the traced call counted {added}, a frame {per_frame}")
-    check(dict(traced) == added, f"{what}: the trace ran {dict(traced)}, the counts say {added}")
+    # on a mismatch, the port's own device events that mapped to no key
+    # (csrc/*.cu kernels live in anonymous namespaces)
+    unmapped = sorted({n[:60] for n in names
+                       if n.startswith("(anonymous namespace)::") and trace_key(n) is None})
+    check(dict(traced) == added, f"{what}: the trace ran {dict(traced)}, the counts say {added} "
+          f"({kernels} device events; the port's unmapped: {unmapped})")
     log(f"  {what}: a traced replay ran each of the path's kernels as often as it counted "
         f"them ({sum(added.values())} of its {kernels} device kernels and copies)")
 
@@ -1564,6 +1759,10 @@ def main() -> int:
     check(bool(torch.isfinite(img).all()) and int(aux["hits"]) > 0, f"msaa 2 frame {aux}")
     parity(torch, pt, hosts["textured"], states[2], img, aux, (512, 384), msaa=2)
 
+    log("--- textures: JPEG and PNG decoded without PIL ---")
+    t0 = time.perf_counter()
+    textures_phase(torch, pt, dev, card, states[2])
+    log(f"  textures phase: {time.perf_counter() - t0:.1f} s")
     log(f"--- viewer: textured, {VIEWER_SIZE[0]}x{VIEWER_SIZE[1]} ---")
     t0 = time.perf_counter()
     viewer_phase(torch, pt, hosts["textured"], dev, card, launches_by_path["textured"],

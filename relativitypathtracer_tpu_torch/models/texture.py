@@ -5,15 +5,26 @@ decoded to interleaved 8-bit RGB and appended to one flat atlas; per-texture
 (byte offset, width, height) triples are recorded in import order and later
 resolved into object fields by the DSL post-pass.
 
-Binary PPM (P6, maxval 255) is decoded here with numpy, as the reference's
-CImg decodes PNM by itself, so PPM textures load where PIL is not installed.
-Other formats go through PIL (the byte layout after CImg's
-permute_axes("cxyz") equals PIL's row-major interleaved RGB).
+Every format is decoded with numpy and the standard library, so textures
+load on a host without an image library: binary PPM (P6, maxval 255) here,
+as the reference's CImg decodes PNM by itself; JPEG and PNG by
+utils/image_decode, byte for byte as PIL's `convert("RGB")` decodes them
+(the JAX package's decoder; the reference's CImg reads them through libjpeg
+and libpng, and the byte layout after its permute_axes("cxyz") is the same
+row-major interleaved RGB). The format is told by the file's first bytes;
+any other format raises TextureError.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from ..utils.image_decode import decode_jpeg, decode_png
+
+_PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+# formats PIL opens and this loader does not, by their first bytes
+_OTHER_FORMATS = ((b"GIF8", "GIF"), (b"BM", "BMP"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"),
+                  (b"RIFF", "RIFF (WebP)"), (b"P", "PNM other than binary PPM (P6)"))
 
 
 class TextureError(ValueError):
@@ -53,15 +64,27 @@ def write_ppm(path: str, rgb: np.ndarray) -> None:
         f.write(np.ascontiguousarray(rgb, np.uint8).tobytes())
 
 
+def decode_texture(data: bytes) -> np.ndarray:
+    """(h, w, 3) uint8 pixels of a PPM, JPEG or PNG file's bytes, told
+    apart by their first bytes."""
+    if data[:2] == b"P6":
+        arr = read_ppm(data)
+        if arr is None:
+            raise ValueError("PPM with a maxval other than 255 is not supported")
+        return arr
+    if data[:2] == b"\xff\xd8":
+        return decode_jpeg(data)
+    if data[:8] == _PNG_MAGIC:
+        return decode_png(data)
+    kind = next((name for magic, name in _OTHER_FORMATS if data.startswith(magic)),
+                f"unknown format (first bytes {data[:8]!r})")
+    raise ValueError(f"{kind}: textures are binary PPM (P6), JPEG or PNG")
+
+
 def read_texture(path: str, atlas: bytearray, values: list) -> None:
     try:
         with open(path, "rb") as f:
-            arr = read_ppm(f.read())
-        if arr is None:
-            from PIL import Image
-
-            with Image.open(path) as im:
-                arr = np.asarray(im.convert("RGB"), np.uint8)  # (h, w, 3)
+            arr = decode_texture(f.read())
     except Exception as e:  # noqa: BLE001 - mirror the reference's single failure path
         raise TextureError(f"Failed to load texture {path}: {e}") from e
     h, w = arr.shape[:2]

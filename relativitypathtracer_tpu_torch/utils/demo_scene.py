@@ -33,6 +33,11 @@ light propagation and shadows on (no I command, so interval -1).
   read. The size class of a scanned or subdivided model of 10^5 to 10^6
   triangles, as the JAX package's 317,952-triangle tier.
 
+Textures are written as binary PPM, or with `texture_format` as a baseline
+4:2:0 JPEG (utils/image.encode_jpeg, quality 85; lossy, so its texels
+differ from the PPM's) or as a PNG (utils/image.write_png; the PPM's
+pixels exactly).
+
 `write_bunny_stand_in` writes an OBJ with the face count and the box of the
 reference's Models/bunny.obj, for utils/largedemo where the reference's
 assets are absent.
@@ -49,6 +54,7 @@ import sys
 import numpy as np
 
 from ..models.texture import write_ppm
+from .image import encode_jpeg, write_png
 from .subdiv import subdivide, write_obj
 
 _T = (1.0 + math.sqrt(5.0)) / 2.0
@@ -61,6 +67,7 @@ _ICO_FACES = [(0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11),
               (4, 9, 5), (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1)]
 
 KINDS = ("blob", "textured", "cubes", "instances", "large")
+TEXTURE_FORMATS = ("ppm", "jpg", "png")
 BUNNY_FACES = 4968  # Models/bunny.obj's triangles
 # Models/bunny.obj's box (the Stanford bunny's coordinates): about 0.16 x
 # 0.15 x 0.12, its base at y = 0.033
@@ -173,17 +180,33 @@ def write_bunny_stand_in(path: str) -> str:
     return path
 
 
-def write_demo_scene(root: str, level: int = 4, kind: str = "blob") -> str:
+def _write_texture(path_stem: str, rgb: np.ndarray, texture_format: str) -> None:
+    """Write (h, w, 3) uint8 `rgb`, top row first, as PATH_STEM.FORMAT."""
+    path = f"{path_stem}.{texture_format}"
+    if texture_format == "ppm":
+        write_ppm(path, rgb)
+    elif texture_format == "jpg":
+        with open(path, "wb") as f:
+            f.write(encode_jpeg(rgb))
+    else:
+        write_png(path, rgb[::-1])  # write_png takes bottom-up rows
+
+
+def write_demo_scene(root: str, level: int = 4, kind: str = "blob",
+                     texture_format: str = "ppm") -> str:
     """Write scene `kind` (one of KINDS) under `root`; return the scene file's
     path. `level` is the blob mesh's subdivision level (unused by cubes and
-    large)."""
+    large); `texture_format` (one of TEXTURE_FORMATS) the texture files'."""
     if kind not in KINDS:
         raise ValueError(f"unknown demo scene {kind!r}; expected one of {KINDS}")
+    if texture_format not in TEXTURE_FORMATS:
+        raise ValueError(f"unknown texture format {texture_format!r}; expected one of "
+                         f"{TEXTURE_FORMATS}")
     dirs = {d: os.path.join(root, d) for d in ("Scenes", "Models", "Textures")}
     for d in dirs.values():
         os.makedirs(d, exist_ok=True)
     if kind == "cubes":
-        write_ppm(os.path.join(dirs["Textures"], "cubes.ppm"), demo_texture(256))
+        _write_texture(os.path.join(dirs["Textures"], "cubes"), demo_texture(256), texture_format)
         text = _cubes_txt()
     else:
         verts, faces, uvs = blob_mesh(LARGE_LEVEL if kind == "large" else level)
@@ -191,8 +214,10 @@ def write_demo_scene(root: str, level: int = 4, kind: str = "blob") -> str:
         write_obj(os.path.join(dirs["Models"], "blob.obj"), verts, faces,
                   uvs if textured else None)
         if textured:
-            write_ppm(os.path.join(dirs["Textures"], "blob.ppm"), demo_texture(32))
+            _write_texture(os.path.join(dirs["Textures"], "blob"), demo_texture(32),
+                           texture_format)
         text = {"textured": TEXTURED_TXT, "instances": INSTANCES_TXT}.get(kind, SCENE_TXT)
+    text = text.replace(".ppm\n", f".{texture_format}\n")
     path = os.path.join(dirs["Scenes"], "scene.txt")
     with open(path, "w") as f:
         f.write(text)

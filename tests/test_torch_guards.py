@@ -41,6 +41,17 @@ def test_port_sources_name_no_jax_import():
                         or s.startswith("from relativitypathtracer_tpu import")), (path, line)
 
 
+def test_port_sources_import_no_pil():
+    """The port decodes every texture format itself: no module of it, nor
+    chip_smoke.py or the port's interactive bench, imports PIL."""
+    paths = [*(REPO / "relativitypathtracer_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py",
+             REPO / "tools" / "interact_bench_torch.py"]
+    for path in paths:
+        for line in path.read_text().splitlines():
+            s = line.strip()
+            assert not s.startswith(("import PIL", "from PIL")), (path, line)
+
+
 def test_chip_smoke_fails_without_a_card():
     proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
                           env=_env(CUDA_VISIBLE_DEVICES=""), capture_output=True, text=True,

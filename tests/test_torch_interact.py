@@ -3,7 +3,8 @@
 on port 0, under a time limit of its own. The JSON carries the JAX tool's
 keys (tools/interact_bench.py) plus `device` and `encode_ms_p50`; both
 resizes are reached (at 128x96 the shrink goes to 64x64 and the grow past
-the pad to 192x160); the pulled frames are JPEGs that PIL decodes."""
+the pad to 192x160); the pulled frames are JPEGs that PIL decodes, and
+session.gif, made from their decodes, holds one frame each."""
 
 import importlib.util
 import io
@@ -56,3 +57,6 @@ def test_interact_bench_on_the_cpu(tmp_path):
         img = Image.open(io.BytesIO(path.read_bytes()))
         img.load()
         assert img.format == "JPEG" and img.mode == "RGB" and img.size == (128, 96)
+    with Image.open(out / "session.gif") as gif:
+        assert gif.format == "GIF" and gif.size == (128, 96) and gif.n_frames == len(frames)
+        assert gif.info["duration"] == 120

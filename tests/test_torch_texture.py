@@ -291,14 +291,22 @@ def test_ppm_decoder_matches_pil(tmp_path, header):
     assert values == [3, w, h] and bytes(atlas[3:]) == rgb.tobytes()
 
 
-def test_ppm_writer_round_trip_and_other_formats_go_to_pil(tmp_path):
+def test_ppm_writer_round_trip_and_other_formats_go_to_their_decoders(tmp_path, monkeypatch):
+    """A PPM round trip, and a PNG told by its first bytes and decoded by
+    utils/image_decode.decode_png (not PIL) to PIL's pixels."""
     from PIL import Image
+
+    from relativitypathtracer_tpu_torch.models import texture
 
     rgb = np.random.default_rng(0).integers(0, 256, (7, 5, 3), dtype=np.uint8)
     write_ppm(str(tmp_path / "a.ppm"), rgb)
     assert np.array_equal(read_ppm((tmp_path / "a.ppm").read_bytes()), rgb)
     Image.fromarray(rgb).save(tmp_path / "a.png")
     assert read_ppm((tmp_path / "a.png").read_bytes()) is None
+    calls = []
+    real = texture.decode_png
+    monkeypatch.setattr(texture, "decode_png", lambda data: calls.append(data) or real(data))
     atlas, values = bytearray(), []
     read_texture(str(tmp_path / "a.png"), atlas, values)
     assert values == [0, 5, 7] and bytes(atlas) == rgb.tobytes()
+    assert calls == [(tmp_path / "a.png").read_bytes()]

@@ -32,8 +32,9 @@ device_frame_ms, device_fps, stream_scale, key_latency_ms_space_p50,
 key_latency_ms_space_all, key_latency_ms_w, resize_latency_ms_first,
 resize_latency_ms_grow_pad, frames_counted, cadence_cap_fps) plus device
 (the card's name) and encode_ms_p50. The JPEGs it pulled while counting
-frames are written as DIR/frame_NNN.jpg (the JAX tool makes a GIF of them
-with PIL; no JPEG decoder is promised here).
+frames are written as DIR/frame_NNN.jpg and, decoded by
+utils/image_decode.decode_jpeg, as the session's GIF, DIR/session.gif
+(utils/image.write_gif, 120 ms a frame, as the JAX tool's).
 
 Only the server's render loop touches the device while the server runs:
 every graph of a card shares one memory pool (utils/frame_graph), so
@@ -62,6 +63,7 @@ sys.path.insert(0, str(REPO))
 DEVICE_FRAMES = 60  # timed device frames, after 5 warm-up frames
 ENCODE_FRAMES = 20  # frames encode_jpeg is timed on
 GIF_SAMPLES = 12  # JPEGs pulled per fps window, as the JAX tool's GIF frames
+GIF_FPS = 8.0  # write_gif's delay int(1000 / fps) // 10 = 12 cs: the JAX tool's 120 ms
 
 
 def _post(port, path):
@@ -168,7 +170,8 @@ def main(argv=None) -> int:
         return 1
     from relativitypathtracer_tpu_torch.cli import _parse_size
     from relativitypathtracer_tpu_torch.models.dsl import load_scene_file
-    from relativitypathtracer_tpu_torch.utils.image import encode_jpeg
+    from relativitypathtracer_tpu_torch.utils.image import encode_jpeg, write_gif
+    from relativitypathtracer_tpu_torch.utils.image_decode import decode_jpeg
     from relativitypathtracer_tpu_torch.utils.parity import scene_file
     from relativitypathtracer_tpu_torch.utils.timing import percentile
     from relativitypathtracer_tpu_torch.viewer import MIN_FRAME_S, ViewerCore, run_web
@@ -280,9 +283,12 @@ def main(argv=None) -> int:
 
     for k, jpeg in enumerate(jpegs):
         (out / f"frame_{k:03d}.jpg").write_bytes(jpeg)
+    (out / "session.gif").unlink(missing_ok=True)
+    if jpegs:  # write_gif takes bottom-up frames; the decodes are top-down
+        write_gif(str(out / "session.gif"), [decode_jpeg(j)[::-1] for j in jpegs], GIF_FPS)
     (out / "interact.json").write_text(json.dumps(result, indent=1))
     print(json.dumps(result), flush=True)
-    print(f"wrote {out / 'interact.json'} and {len(jpegs)} frames", flush=True)
+    print(f"wrote {out / 'interact.json'}, {len(jpegs)} frames and their GIF", flush=True)
     return 0
 
 
