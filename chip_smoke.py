@@ -53,10 +53,13 @@ For each path it:
      (render_constants, trace_frame) to the bit, counts and launches alike,
      and prints eager and graph p50/p95 in turns (eager, graph, graph,
      eager; 20 frames each), the capture seconds, the bytes a replay copies
-     in and that copy's device ms, and the peak memory of both; then traces one more replay with
-     torch.profiler (CUDA activity) and checks that each of the path's
-     kernels ran in it as many times as the replay added to its launch
-     count, and no other kernel of the port;
+     in and that copy's device ms, and the peak memory of both; then
+     checks that the kernel nodes of the graph one more counted replay ran
+     (utils/frame_graph.kernel_names, read through libcuda: what a
+     replay launches) hold each of the path's kernels as many times as the
+     replay added to its launch count, and no other kernel of the port, and
+     prints how many of them a torch.profiler trace of one more replay
+     holds (no verdict: a trace has lacked a kernel that its replay ran);
   2. runs each kernel against its plain PyTorch twin, both on the card, on
      the inputs the first frame gave it (the six mesh walks K5, K6, K9, K10,
      K11 and K12 equal to it bit for bit, with the chunks they walked
@@ -110,13 +113,16 @@ It prints each path's seconds. Then it renders the textured path at msaa 2,
   textures
           with PIL blocked (sys.modules["PIL"] = None for the phase, restored
           after; no PIL module may be imported meanwhile): every file of
-          tests/torch_textures decoded by models/texture.decode_texture
-          (utils/image_decode) to the SHA-256 PIL gave where they were made
-          (pil_rgb.json), with its ms; the textured fixture with its 32x32
-          texture as a baseline 4:2:0 JPEG (utils/image.encode_jpeg; a
-          512-row atlas, K2) and cubes with its 256x256 texture as a PNG (a
-          32,768-row atlas, K8), each written by utils/demo_scene,
-          load_scene_file -> build_scene -> build_render_fn at 1024x768: one
+          tests/torch_textures (JPEG, PNG, the PNM family, BMP, TGA, GIF,
+          TIFF) decoded by models/texture.decode_texture to the SHA-256 PIL
+          gave where they were made (pil_rgb.json), with its ms; the
+          textured fixture with its 32x32 texture as a baseline 4:2:0 JPEG
+          (utils/image.encode_jpeg; a 512-row atlas, K2) and as an RLE TGA
+          (the committed blob_rle.tga), and cubes with its 256x256 texture as
+          a PNG (a 32,768-row atlas, K8) and with a 64x64 LZW TIFF (the
+          committed cubes_lzw.tif; a 2,048-row atlas, K8), each scene
+          written by utils/demo_scene, load_scene_file -> build_scene ->
+          build_render_fn at 1024x768: one
           graphed frame with exactly that path's kernels launched, held to
           the port's CPU frame (textured at 256x192, cubes at 1024x768) and
           the 1024x768 frame to the C++ oracle under the parity rule; then a
@@ -146,10 +152,10 @@ and three phases on the textured fixture:
           JSON, platform "gpu", frames counted, each latency finite (each
           awaited state reached), the pulled frames JPEGs (FF D8 ... FF
           D9) whose SOF0 header says 960x540, and the session's GIF (their
-          decodes, utils/image.write_gif), whose first frame, LZW-decoded
-          here, is 960x540 and equals the first JPEG's decode quantised to
-          the GIF's palette; prints the JSON on a line of its own before the
-          kernels' line;
+          decodes, utils/image.write_gif), whose first frame, decoded by
+          utils/raster_decode.decode_gif, is 960x540 and equals the first
+          JPEG's decode quantised to the GIF's palette; prints the JSON on a
+          line of its own before the kernels' line;
   octree  the octree walk (ops/octree_traverse) of a 16,384-ray fan from the
           camera over the mesh on the card: converged, against the K5 route
           (mesh_intersect_shared) and against the same walk on the CPU;
@@ -174,7 +180,7 @@ and two more on the textured and instances fixtures:
           loaded frames at the three states and at a second scene of the same
           shapes (other velocities and colours) replays of one graph, equal to
           the live renderer's to the bit, with a frame's launches equal to the
-          live frame's, and a traced replay running those kernels;
+          live frame's, and the replayed graph holding those kernels;
           export_sharded_render on 2 logical shards (textured, 512x384)
           equal to the live sharded frame; the export tool
           tools/export_renderer_torch.py --fixture textured --device cuda
@@ -242,9 +248,13 @@ INTERACT_KEYS = {"scene", "size", "platform", "idle_fps", "flying_fps", "device_
 # its scenes (fixture kind, texture format, CPU parity size), and the side
 # of the corpus-sized JPEG it times
 TEXTURE_FIXTURES = pathlib.Path(__file__).resolve().parent / "tests" / "torch_textures"
-TEXTURE_SCENES = (("textured", "jpg", (256, 192)), ("cubes", "png", (WIDTH, HEIGHT)))
+# (a texture format utils/demo_scene writes, or a committed fixture in its place)
+TEXTURE_SCENES = (("textured", "jpg", (256, 192)), ("cubes", "png", (WIDTH, HEIGHT)),
+                  ("textured", "blob_rle.tga", (256, 192)),
+                  ("cubes", "cubes_lzw.tif", (WIDTH, HEIGHT)))
 BIG_TEXTURE = 2048
 PKG = "relativitypathtracer_tpu_torch/csrc/"
+CSRC = pathlib.Path(__file__).resolve().parent / PKG
 TPU = "relativitypathtracer_tpu/ops/pallas/"
 K4_TPU = TPU + "mesh_kernels.py:389 (XLA)"
 # launch-count key -> (id, source, TPU kernel it replaces)
@@ -284,9 +294,10 @@ PATHS = {  # path -> (demo scene kind, kernels it runs, CPU parity size)
 }
 # the list function each large-tier path's large_live_lists must take
 LIST_ROUTE = {"large": "live_chunk_lists2", "xl": "live_chunk_lists3"}
-# launch-count key (before any "/route") -> what its kernel's name in a
-# profiler trace holds; a walk of K5/K6 or K11/K12 is one template fed two
-# list kinds, and the batched walks' names hold the others'
+# launch-count key (before any "/route") -> what its kernel's name holds, as a
+# graph names it (mangled) or a profiler trace does (demangled); a walk of
+# K5/K6 or K11/K12 is one template fed two list kinds, and the batched walks'
+# names hold the others'
 TRACE_NAMES = {"rpt_shadow_chain": ("shadow_chain_kernel",),
                "rpt_footprint_sample": ("footprint_kernel",),
                "rpt_analytic_nearest": ("analytic_nearest_kernel",),
@@ -1012,54 +1023,6 @@ def jpeg_size(data: bytes):
     return None
 
 
-def gif_first_frame(data: bytes):
-    """(width, height, palette indices) of a GIF's first image: its
-    descriptor's size and its LZW data decoded (extensions and colour
-    tables skipped)."""
-    flags = data[10]
-    pos = 13 + (3 << ((flags & 7) + 1) if flags & 0x80 else 0)
-    while data[pos] == 0x21:  # extension blocks
-        pos += 2
-        while data[pos]:
-            pos += data[pos] + 1
-        pos += 1
-    check(data[pos] == 0x2C, "GIF: no image descriptor")
-    width, height = int.from_bytes(data[pos + 5:pos + 7], "little"), int.from_bytes(
-        data[pos + 7:pos + 9], "little")
-    local = data[pos + 9]
-    pos += 10 + (3 << ((local & 7) + 1) if local & 0x80 else 0)
-    min_size, pos = data[pos], pos + 1
-    stream = bytearray()
-    while data[pos]:
-        stream += data[pos + 1:pos + 1 + data[pos]]
-        pos += data[pos] + 1
-    clear = 1 << min_size
-    table, out, prev = [], bytearray(), None
-    acc = nacc = 0
-    size = min_size + 1
-    for byte in stream:
-        acc |= byte << nacc
-        nacc += 8
-        while nacc >= size:
-            code = acc & ((1 << size) - 1)
-            acc >>= size
-            nacc -= size
-            if code == clear:
-                table = [bytes([i]) for i in range(clear)] + [b"", b""]
-                size, prev = min_size + 1, None
-                continue
-            if code == clear + 1:
-                return width, height, bytes(out)
-            entry = table[code] if code < len(table) else prev + prev[:1]
-            if prev is not None:
-                table.append(prev + entry[:1])
-            out += entry
-            prev = entry
-            if len(table) == 1 << size and size < 12:
-                size += 1
-    raise CheckFailed("GIF: the first image has no end code")
-
-
 def interact_phase(card) -> dict:
     """tools/interact_bench_torch.py's main in this process on the textured
     fixture at 960x540, --window 1.0: the web viewer over HTTP on the card;
@@ -1094,16 +1057,17 @@ def interact_phase(card) -> dict:
         data = path.read_bytes()
         check(data[:2] == b"\xff\xd8" and data[-2:] == b"\xff\xd9"
               and jpeg_size(data) == (vw, vh), f"interact: {path.name} is not a {vw}x{vh} JPEG")
-    from relativitypathtracer_tpu_torch.utils.image import quantize
+    from relativitypathtracer_tpu_torch.utils.image import PALETTE, quantize
     from relativitypathtracer_tpu_torch.utils.image_decode import decode_jpeg
+    from relativitypathtracer_tpu_torch.utils.raster_decode import decode_gif
 
     gif = out / "session.gif"
     check(gif.is_file(), "interact: no session.gif")
-    gw, gh, first = gif_first_frame(gif.read_bytes())
-    check((gw, gh) == (vw, vh) and np.array_equal(
-        np.frombuffer(first, np.uint8), quantize(decode_jpeg(jpegs[0].read_bytes())).ravel()),
-        f"interact: session.gif's first frame ({gw}x{gh}) is not the first pulled frame's")
-    log(f"  interact: session.gif ({gif.stat().st_size} bytes), its first frame {gw}x{gh} equal "
+    first = decode_gif(gif.read_bytes())
+    check(first.shape == (vh, vw, 3) and np.array_equal(
+        first, PALETTE[quantize(decode_jpeg(jpegs[0].read_bytes()))]),
+        f"interact: session.gif's first frame {first.shape} is not the first pulled frame's")
+    log(f"  interact: session.gif ({gif.stat().st_size} bytes), its first frame {vw}x{vh} equal "
         "to the first JPEG's decode, quantised")
     log(f"  interact: {len(jpegs)} JPEGs of {vw}x{vh} on {card}; idle {res['idle_fps']} fps, "
         f"flying {res['flying_fps']} fps, device frame {res['device_frame_ms']} ms, encode "
@@ -1123,12 +1087,24 @@ def entropy_symbols(zz) -> int:
     return int(zz.shape[0] + col.size + ((col - prev - 1) >> 4).sum() + (zz[:, 63] == 0).sum())
 
 
+def fixture_texture(scene_file: str, name: str) -> str:
+    """The demo scene at scene_file with its one texture file replaced by
+    the committed fixture tests/torch_textures/`name`."""
+    scene = pathlib.Path(scene_file)
+    old = next(scene.parents[1].joinpath("Textures").iterdir())
+    old.unlink()
+    old.with_name(name).write_bytes((TEXTURE_FIXTURES / name).read_bytes())
+    scene.write_text(scene.read_text().replace(f"Textures/{old.name}", f"Textures/{name}"))
+    return scene_file
+
+
 def textures_phase(torch, pt, dev, card, state) -> None:
-    """Textures decoded without PIL (utils/image_decode), with PIL blocked in
-    sys.modules for the phase: the committed fixtures against PIL's hashes,
-    the textured fixture with a JPEG texture and cubes with a PNG one
-    rendered on the card and held to the CPU and the oracle, and the decode
-    time of a corpus-sized JPEG; see the module docstring."""
+    """Textures decoded without PIL (models/texture.decode_texture), with PIL
+    blocked in sys.modules for the phase: the committed fixtures against
+    PIL's hashes, the textured fixture with a JPEG and a TGA texture and
+    cubes with a PNG and a TIFF one rendered on the card and held to the CPU
+    and the oracle, and the decode time of a corpus-sized JPEG; see the
+    module docstring."""
     import hashlib
 
     from relativitypathtracer_tpu_torch.models.texture import decode_texture
@@ -1159,7 +1135,10 @@ def textures_phase(torch, pt, dev, card, state) -> None:
         for kind, fmt, size in TEXTURE_SCENES:
             names = PATHS[kind][1]
             with tempfile.TemporaryDirectory() as tmp:
-                scene_file = write_demo_scene(tmp, LEVEL, kind, texture_format=fmt)
+                if fmt in ("jpg", "png"):
+                    scene_file = write_demo_scene(tmp, LEVEL, kind, texture_format=fmt)
+                else:
+                    scene_file = fixture_texture(write_demo_scene(tmp, LEVEL, kind), fmt)
                 tex = next(pathlib.Path(tmp, "Textures").iterdir())
                 tex_bytes = tex.read_bytes()
                 t0 = time.perf_counter()
@@ -1339,42 +1318,64 @@ def graph_phase(torch, pt, path, scene, meta, states, render, frames, launches, 
 
 def trace_key(name: str):
     """The launch-count key (before any "/route") of the port kernel whose
-    trace name is `name`, or None."""
+    name, in a graph or a profiler trace, is `name`, or None."""
     for key, parts in TRACE_NAMES.items():
         if all(p in name for p in parts) and ("batched" in name) == ("batched" in key):
             return key
     return None
 
 
-def replay_trace(torch, render, scene, state, per_frame, what):
-    """One call of a graphed renderer under torch.profiler: the port's
-    kernels in the trace, by launch key, must be those the call added to the
-    launch counts, each as many times, and those per_frame (an eager frame's
-    or the path's replays' counts a frame)."""
+def port_kernel(name: str) -> bool:
+    """Whether a mangled kernel name is one of csrc/*.cu's: they live in
+    anonymous namespaces, which the mangled name tags with the source's
+    name."""
+    return any(f"_{p.stem}_cu_" in name for p in CSRC.glob("*.cu"))
+
+
+def replay_verdict(names, added, per_frame, what) -> dict:
+    """The traced-replay check on `names`, the kernels a replayed graph
+    holds (utils/frame_graph.kernel_names): the port's among them, by launch
+    key, must be those the replay added to the launch counts (`added`), each
+    as many times, and those `per_frame` (an eager frame's or the path's
+    replays' counts a frame). Raises CheckFailed; returns the counts by key."""
+    added = {k.split("/")[0]: n for k, n in added.items()}
+    check(added == {k.split("/")[0]: n for k, n in per_frame.items()},
+          f"{what}: the replay counted {added}, a frame {per_frame}")
+    held = collections.Counter(trace_key(n) for n in names)
+    held.pop(None, None)
+    unmapped = sorted({n[:80] for n in names if port_kernel(n) and trace_key(n) is None})
+    check(dict(held) == added and not unmapped,
+          f"{what}: the replayed graph holds {dict(held)}, the counts say {added} ({len(names)} "
+          f"kernel nodes; the port's unmapped: {unmapped})")
+    return added
+
+
+def replay_check(torch, render, scene, state, per_frame, what):
+    """One counted call of a graphed renderer, held by replay_verdict to the
+    kernel nodes of the graph it replayed, which are exactly what a replay
+    launches. Then one more call under torch.profiler, printed beside it:
+    the port's kernels its trace holds against the graph's (no verdict: a
+    trace has been seen to lack a kernel that the replay ran); returns the
+    counts by key that trace lacked."""
     from torch.profiler import ProfilerActivity, profile
 
-    from relativitypathtracer_tpu_torch.ops.kernels import _build
+    from relativitypathtracer_tpu_torch.utils.frame_graph import kernel_names
 
-    torch.cuda.synchronize()
-    _build.LAUNCHES.clear()
+    _, added = counted_frame(torch, render, scene, state)
+    names = kernel_names(next(reversed(render.graphs.values())).graph)
+    counted = replay_verdict(names, added, per_frame, what)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         render(scene, state)
         torch.cuda.synchronize()
-    added = {k.split("/")[0]: n for k, n in _build.LAUNCHES.items()}
-    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    traced = collections.Counter(trace_key(n) for n in names)
-    kernels = sum(traced.values())
+    events = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    traced = collections.Counter(trace_key(n) for n in events)
     traced.pop(None, None)
-    check(added == {k.split("/")[0]: n for k, n in per_frame.items()},
-          f"{what}: the traced call counted {added}, a frame {per_frame}")
-    # on a mismatch, the port's own device events that mapped to no key
-    # (csrc/*.cu kernels live in anonymous namespaces)
-    unmapped = sorted({n[:60] for n in names
-                       if n.startswith("(anonymous namespace)::") and trace_key(n) is None})
-    check(dict(traced) == added, f"{what}: the trace ran {dict(traced)}, the counts say {added} "
-          f"({kernels} device events; the port's unmapped: {unmapped})")
-    log(f"  {what}: a traced replay ran each of the path's kernels as often as it counted "
-        f"them ({sum(added.values())} of its {kernels} device kernels and copies)")
+    lacking = {k: n - traced.get(k, 0) for k, n in counted.items() if traced.get(k, 0) < n}
+    log(f"  {what}: the replayed graph holds each of the path's kernels as often as the "
+        f"replay counted them ({sum(counted.values())} of its {len(names)} kernel nodes); a "
+        f"profiler trace of one more replay: {sum(traced.values())} of them in "
+        f"{len(events)} device events" + (f", lacking {lacking}" if lacking else ""))
+    return lacking
 
 
 def counted_frame(torch, render, scene, state):
@@ -1516,7 +1517,7 @@ def export_phase(torch, pt, scenes, states, card, live_launches, live_frames):
             per_frame = {k: n // live_frames for k, n in live_launches[path].items()}
             check(launches == per_frame, f"export {path}: launches {launches}, live {per_frame}")
         check(render.captures == 1, f"export {path}: {render.captures} captures")
-        replay_trace(torch, render, scene, states[2], per_frame, f"export {path}")
+        replay_check(torch, render, scene, states[2], per_frame, f"export {path}")
         p50, p95 = p50_p95(torch, render, scene, states[2])
         log(f"  export {path} {WIDTH}x{HEIGHT}: exported in {t_export:.1f} s, {len(data)} "
             f"bytes, loaded in {t_load:.1f} s, captured in {t_capture:.3f} s; the loaded frames "
@@ -1727,7 +1728,7 @@ def main() -> int:
                 f"K11 and K12 {widths[0]:,} words")
         graph_phase(torch, pt, path, scene, meta, states, render, frames, launches, capture_s,
                     graph_mib, card)
-        replay_trace(torch, render, scene, states[2],
+        replay_check(torch, render, scene, states[2],
                      {k: n // len(states) for k, n in launches.items()}, f"graph on {path}")
 
         originals_by_key = {n: originals[n.split("/")[0]] for n in names}
@@ -1759,7 +1760,7 @@ def main() -> int:
     check(bool(torch.isfinite(img).all()) and int(aux["hits"]) > 0, f"msaa 2 frame {aux}")
     parity(torch, pt, hosts["textured"], states[2], img, aux, (512, 384), msaa=2)
 
-    log("--- textures: JPEG and PNG decoded without PIL ---")
+    log("--- textures: every format decoded without PIL ---")
     t0 = time.perf_counter()
     textures_phase(torch, pt, dev, card, states[2])
     log(f"  textures phase: {time.perf_counter() - t0:.1f} s")

@@ -35,11 +35,16 @@ Semantics kept from `jax.jit`:
 On a CPU device fn runs eagerly on every call: the CPU path is the kernels'
 plain twins, and CUDA graphs do not exist there. There is no switch to turn
 the graph off on a card, and no eager fallback: a failed capture raises.
+
+Each graph keeps its template (`keep_graph=True`) beside the instantiated
+graph, so that `kernel_names` can list what a replay launches: exactly the
+graph's kernel nodes.
 """
 
 from __future__ import annotations
 
 import collections
+import ctypes
 
 import torch
 from torch.utils import _pytree as pytree
@@ -69,6 +74,62 @@ def _device_pool(device: torch.device):
     if device not in _POOLS:
         _POOLS[device] = (torch.cuda.graph_pool_handle(), torch.cuda.Stream(device))
     return _POOLS[device]
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """CUDA_KERNEL_NODE_PARAMS_v2 (cuda.h, CUDA 12)."""
+    _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                ("block", ctypes.c_uint * 3), ("shared_bytes", ctypes.c_uint),
+                ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+def _libcuda():
+    """libcuda.so.1, with the four calls kernel_names makes declared."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    node_p = ctypes.POINTER(ctypes.c_void_p)
+    for name, args in (("cuGraphGetNodes", (ctypes.c_void_p, node_p,
+                                            ctypes.POINTER(ctypes.c_size_t))),
+                       ("cuGraphNodeGetType", (ctypes.c_void_p, ctypes.POINTER(ctypes.c_int))),
+                       ("cuGraphKernelNodeGetParams_v2", (ctypes.c_void_p,
+                                                          ctypes.POINTER(_KernelNodeParams))),
+                       ("cuFuncGetName", (ctypes.POINTER(ctypes.c_char_p), ctypes.c_void_p))):
+        fn = getattr(cu, name)
+        fn.argtypes, fn.restype = args, ctypes.c_int
+    return cu
+
+
+def kernel_names(graph) -> list[str]:
+    """The function name (mangled) of each kernel node of a captured
+    `torch.cuda.CUDAGraph(keep_graph=True)`: the kernels each replay
+    launches, in node order. Read through libcuda (CUDA 12.3 or later for
+    cuFuncGetName), which names the port's kernels too: they are launched
+    by the kernel library's own CUDA runtime, whose functions torch's
+    runtime cannot name."""
+    cu = _libcuda()
+
+    def call(name, *args):
+        err = getattr(cu, name)(*args)
+        if err:
+            raise RuntimeError(f"{name} failed: CUresult {err}")
+
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    call("cuGraphGetNodes", handle, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * n.value)()
+    call("cuGraphGetNodes", handle, nodes, ctypes.byref(n))
+    names = []
+    for node in nodes[:n.value]:
+        kind = ctypes.c_int()
+        call("cuGraphNodeGetType", node, ctypes.byref(kind))
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        params = _KernelNodeParams()
+        call("cuGraphKernelNodeGetParams_v2", node, ctypes.byref(params))
+        name = ctypes.c_char_p()
+        call("cuFuncGetName", ctypes.byref(name), params.func)
+        names.append(name.value.decode())
+    return names
 
 
 class CapturedFrame:
@@ -139,7 +200,7 @@ class FrameGraph:
         with torch.cuda.stream(stream):
             self.fn(*inputs)  # warm-up: real launches, counted as such
         torch.cuda.current_stream().wait_stream(stream)
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         before = collections.Counter(_build.LAUNCHES)
         try:
             with torch.cuda.graph(graph, pool=pool, stream=stream):
@@ -148,5 +209,6 @@ class FrameGraph:
             launches = _build.LAUNCHES - before  # captured, not launched
             _build.LAUNCHES.clear()
             _build.LAUNCHES.update(before)
+        graph.instantiate()
         self.captures += 1
         return CapturedFrame(graph, statics, outputs, launches)

@@ -7,10 +7,14 @@ without one.
 
 JPEG follows libjpeg (the library behind PIL and the reference's CImg) with
 its default decompression settings: baseline, extended (8-bit) and
-progressive Huffman-coded frames of 1 or 3 components with sampling factors
-of 1 or 2; the accurate integer inverse DCT (jidctint.c `jpeg_idct_islow`);
-fancy (triangle-filter) chroma upsampling (jdsample.c); the fixed-point
-YCbCr to RGB tables (jdcolor.c). The inverse DCT saturates out-of-range
+progressive Huffman-coded frames of 1, 3 or 4 components with sampling
+factors of 1 to 4; the colour space libjpeg infers (greyscale, YCbCr, RGB
+under Adobe's transform 0 or components named 'R', 'G', 'B', CMYK, or YCCK
+under Adobe's transform 2, which PIL reads as Adobe's inverted CMYK and
+converts with utils/pil_modes); the accurate integer inverse DCT
+(jidctint.c `jpeg_idct_islow`); fancy (triangle-filter) upsampling by 2 and
+replication by 3 or 4 (jdsample.c); the fixed-point YCbCr to RGB tables
+(jdcolor.c). The inverse DCT saturates out-of-range
 values as libjpeg-turbo's SIMD code, which PIL runs, does. The entropy
 decode is the one sequential part, a Python loop over symbols (a 16-bit
 peek into a lookup table a symbol); every step after it is vectorised over
@@ -20,7 +24,7 @@ PNG: every colour type and bit depth, Adam7 interlace, the five filters
 (undone along the image's anti-diagonals, so Average and Paeth, which read
 the reconstructed pixel to the left, run vectorised too), every chunk's CRC
 checked. 16-bit samples keep their high byte, except 16-bit grey, which is
-clipped at 255 as PIL's `I;16` to RGB conversion clips it.
+clipped at 255 as PIL's `I;16` to RGB conversion clips it (utils/pil_modes).
 
 What neither decoder supports raises `DecodeError`, as does corrupt or
 truncated data; nothing returns a partial image.
@@ -35,6 +39,7 @@ import zlib
 import numpy as np
 
 from .image import ZIGZAG, _huffman_codes
+from .pil_modes import cmyk_to_rgb, palette256, scale_bits, to_rgb
 
 
 class DecodeError(ValueError):
@@ -107,18 +112,18 @@ class _Frame:
         if self.height == 0 or self.width == 0:
             raise DecodeError(f"empty image {self.width}x{self.height} (SOF; DNL not supported)")
         _check_size(self.width, self.height)
-        if nf not in (1, 3):
-            raise DecodeError(f"{nf} components (SOF): only greyscale (1) and YCbCr (3)"
-                              " are supported" + (", not CMYK/YCCK" if nf == 4 else ""))
+        if nf not in (1, 3, 4):  # PIL opens no other count
+            raise DecodeError(f"{nf} components (SOF): greyscale (1), YCbCr or RGB (3) and "
+                              "CMYK or YCCK (4) are supported")
         if len(body) < 6 + 3 * nf:
             raise DecodeError("short SOF segment")
         self.ids, self.h, self.v, self.tq = [], [], [], []
         for i in range(nf):
             cid, hv, tq = body[6 + 3 * i:9 + 3 * i]
             h, v = hv >> 4, hv & 15
-            if not (1 <= h <= 2 and 1 <= v <= 2):
+            if not (1 <= h <= 4 and 1 <= v <= 4):
                 raise DecodeError(f"sampling factor {h}x{v} of component {cid} (SOF): "
-                                  "only 1 and 2 are supported")
+                                  "1 to 4 are valid")
             if cid in self.ids:
                 raise DecodeError(f"component id {cid} twice (SOF)")
             self.ids.append(cid)
@@ -126,6 +131,9 @@ class _Frame:
             self.v.append(v)
             self.tq.append(tq)
         self.max_h, self.max_v = max(self.h), max(self.v)
+        if any(self.max_h % h or self.max_v % v for h, v in zip(self.h, self.v)):
+            raise DecodeError(f"sampling factors {list(zip(self.h, self.v))} (SOF): a "
+                              "fractional ratio (libjpeg does not upsample it)")
         self.mcus_x = -(-self.width // (8 * self.max_h))
         self.mcus_y = -(-self.height // (8 * self.max_v))
         # per component: size in samples, block grid padded to whole MCUs
@@ -439,10 +447,11 @@ def _interleave(even, odd, axis: int):
 def _upsample(p, rh: int, rv: int) -> np.ndarray:
     """libjpeg-turbo's upsampling of a component plane cropped to its own
     size (jdsample.c): h2v2 and h2v1 fancy (box below 3 columns), h1v2
-    fancy, each with the edge sample repeated past the plane."""
+    fancy, each with the edge sample repeated past the plane; any other
+    ratio (3 or 4 along an axis) by replication (int_upsample)."""
     p = p.astype(np.int32)
-    if rh == 2 and p.shape[1] <= 2:  # h2v1_upsample, h2v2_upsample
-        return np.repeat(np.repeat(p, 2, 1), rv, 0)
+    if rh > 2 or rv > 2 or rh == 2 and p.shape[1] <= 2:  # int_upsample, h2v1/h2v2_upsample
+        return np.repeat(np.repeat(p, rh, 1), rv, 0)
     if rv == 2:
         up, down = _edges(p, 0)
         if rh == 1:  # h1v2_fancy_upsample
@@ -474,19 +483,19 @@ def _ycc_to_rgb(y, cb, cr) -> np.ndarray:
     return np.clip(rgb, 0, 255).astype(np.uint8)
 
 
-def _color_space(frame, jfif: bool, adobe) -> None:
-    """Refuse what libjpeg would not decode as YCbCr or greyscale
-    (jdapimin.c default_decompression_parms)."""
+def _color_space(frame, jfif: bool, adobe) -> str:
+    """The components' colour space as libjpeg reads it
+    (jdapimin.c default_decompression_parms): "grey", "ycc", "rgb", "cmyk"
+    or "ycck"."""
     if len(frame.ids) == 1:
-        return
+        return "grey"
+    if len(frame.ids) == 4:  # JFIF does not count; Adobe transform 0 is CMYK, others YCCK
+        return "ycck" if adobe not in (None, 0) else "cmyk"
     if jfif:
-        return
+        return "ycc"
     if adobe is not None:
-        if adobe == 0:
-            raise DecodeError("Adobe APP14 transform 0: RGB components are not supported")
-        return
-    if frame.ids == [82, 71, 66]:
-        raise DecodeError("component ids 'R', 'G', 'B': RGB components are not supported")
+        return "rgb" if adobe == 0 else "ycc"
+    return "rgb" if frame.ids == [82, 71, 66] else "ycc"  # ids 'R', 'G', 'B'
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:
@@ -498,7 +507,7 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         raise DecodeError("not a JPEG file (no SOI)")
     qtabs, dc_tabs, ac_tabs = {}, {}, {}
     frame, coefs, latched = None, None, {}
-    restart, jfif, adobe = 0, False, None
+    restart, jfif, adobe, space = 0, False, None, None
     bits = None  # per component: each coefficient's Al after the last scan (-1: never sent)
     pos = 2
     while True:
@@ -571,7 +580,7 @@ def decode_jpeg(data: bytes) -> np.ndarray:
             if frame is None:
                 raise DecodeError("SOS before SOF")
             if not latched:  # libjpeg reads the colour space up to the first SOS
-                _color_space(frame, jfif, adobe)
+                space = _color_space(frame, jfif, adobe)
             pos = _decode_scan(data, pos, body, frame, coefs, bits, latched, qtabs, dc_tabs,
                                ac_tabs, restart)
         elif marker not in _SKIPPED:
@@ -594,9 +603,19 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         plane = _upsample(plane[:frame.ch[c], :frame.cw[c]], frame.max_h // frame.h[c],
                           frame.max_v // frame.v[c])
         planes.append(plane[:frame.height, :frame.width])
-    if len(planes) == 1:
+    if space == "grey":
         return np.repeat(planes[0].astype(np.uint8)[:, :, None], 3, 2)
-    return _ycc_to_rgb(*planes)
+    if space == "rgb":
+        return np.stack(planes, -1).astype(np.uint8)
+    if space == "ycc":
+        return _ycc_to_rgb(*planes)
+    # libjpeg's CMYK (jdcolor.c ycck_cmyk_convert: C, M, Y = 255 - the YCC
+    # conversion's R, G, B); PIL reads it as Adobe's inverted CMYK (CMYK;I)
+    if space == "ycck":
+        inverted = np.concatenate([_ycc_to_rgb(*planes[:3]), 255 - planes[3][..., None]], -1)
+    else:
+        inverted = 255 - np.stack(planes, -1)
+    return cmyk_to_rgb(inverted)
 
 
 def _decode_scan(data, pos, body, frame, coefs, bits, latched, qtabs, dc_tabs, ac_tabs,
@@ -643,7 +662,7 @@ def _decode_scan(data, pos, body, frame, coefs, bits, latched, qtabs, dc_tabs, a
         lut_dc.append(dc_tabs.get(td))
         lut_ac.append(ac_tabs.get(ta))
     blocks, slots, per_mcu = frame.scan_blocks(comps)
-    if not frame.progressive and per_mcu > 10:
+    if per_mcu > 10:
         raise DecodeError(f"{per_mcu} blocks an MCU (SOS): at most 10")
     d, intervals, end = _scan_data(data, pos)
     spans = _intervals(blocks.size, restart * per_mcu, intervals)
@@ -803,8 +822,7 @@ def decode_png(data: bytes) -> np.ndarray:
         elif kind == b"PLTE":
             if len(body) % 3 or len(body) > 768:
                 raise DecodeError("bad PLTE")
-            palette = np.zeros((256, 3), np.uint8)  # indices past it are black, as in PIL
-            palette[:len(body) // 3] = np.frombuffer(body, np.uint8).reshape(-1, 3)
+            palette = palette256(np.frombuffer(body, np.uint8))
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
@@ -833,10 +851,9 @@ def decode_png(data: bytes) -> np.ndarray:
     else:
         s, _ = _png_samples(raw, width, height, depth, channels)
     if ctype == 3:
-        return palette[s[..., 0]]
-    if depth == 16:  # PIL keeps the high byte, but clips 16-bit grey (I;16) at 255
-        s = np.minimum(s, 255) if ctype == 0 else s >> 8
-    elif depth < 8:  # 1, 2, 4 bits scaled to 0-255
-        s = s * (255 // ((1 << depth) - 1))
-    s = s.astype(np.uint8)
-    return np.repeat(s[..., :1], 3, 2) if ctype in (0, 4) else np.ascontiguousarray(s[..., :3])
+        return to_rgb("P", s[..., 0], palette)
+    if ctype == 0 and depth == 16:  # PIL opens 16-bit grey as I;16
+        return to_rgb("I;16", s[..., 0])
+    # PIL keeps a 16-bit sample's high byte and scales 1, 2 and 4 bits to 0-255
+    s = s >> 8 if depth == 16 else scale_bits(s, depth) if depth < 8 else s
+    return to_rgb({0: "L", 2: "RGB", 4: "LA", 6: "RGBA"}[ctype], s[..., 0] if ctype == 0 else s)

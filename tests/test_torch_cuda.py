@@ -1691,6 +1691,36 @@ def test_graphed_frame_equals_the_eager_frame(cuda, graph_scenes, kind):
     assert not torch.equal(kept[0][0], kept[1][0])
 
 
+def test_replay_check_holds_30_times_on_instances(cuda, graph_scenes):
+    """chip_smoke.py's traced-replay check (replay_check: the kernel nodes of
+    the replayed graph against the replay's launch counts) on instances at
+    1024x768, 30 times in one process after a textured frame: the same
+    verdict, a pass, every time. The profiler trace it prints is no part of
+    the verdict; how many of the 30 traces lacked a kernel is printed (-s)."""
+    import importlib.util
+    import pathlib
+
+    import relativitypathtracer_tpu_torch as pt
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    scene, meta = graph_scenes["textured"]
+    pt.build_render_fn(meta, 1024, 768, -1, with_aux=True, device=cuda)(
+        scene, _graph_state(cuda, 1))
+    scene, meta = graph_scenes["instances"]
+    render = pt.build_render_fn(meta, 1024, 768, -1, with_aux=True, device=cuda)
+    state = _graph_state(cuda, 1)
+    render(scene, state)
+    _, per_frame = _counted_call(lambda: render(scene, state))
+    assert per_frame["rpt_analytic_nearest"] == 1
+    lacking = [smoke.replay_check(torch, render, scene, state, per_frame, f"instances, run {i}")
+               for i in range(30)]
+    print(f"profiler traces lacking a counted kernel: {sum(map(bool, lacking))} of 30 "
+          f"{[x for x in lacking if x]}")
+
+
 def test_viewer_graph_takes_new_dirs_within_the_pad(cuda, graph_scenes):
     """The viewer's renderer: a resize within the pad copies new dirs into
     the same graph (one capture), each frame equal to build_render_fn's

@@ -1,6 +1,7 @@
 """Guards of the port: it imports without JAX, chip_smoke.py has no CPU
 fallback, and the CLI renders through the entry points a user calls."""
 
+import importlib.util
 import json
 import os
 import pathlib
@@ -58,6 +59,70 @@ def test_chip_smoke_fails_without_a_card():
                           timeout=120)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# The kernels of one instances replay, as its graph names them (mangled, the
+# form utils/frame_graph.kernel_names reads on the card), and two of PyTorch's.
+_INSTANCES_NODES = {
+    "rpt_shadow_chain": "_ZN48_GLOBAL__N__7732686f_15_shadow_chain_cu_438d4b41"
+                        "19shadow_chain_kernelEPKfi",
+    "rpt_footprint_sample/small": "_ZN51_GLOBAL__N__29919299_18_texture_kernels_cu_66391ad3"
+                                  "16footprint_kernelILb1ELb1EEEvPK4i",
+    "rpt_analytic_nearest": "_ZN52_GLOBAL__N__813ff364_19_analytic_kernels_cu_490d37a2"
+                            "23analytic_nearest_kernelEPKfiiS1",
+    "rpt_cone_table": "_ZN46_GLOBAL__N__4c289e6d_13_live_lists_cu_19a6e341"
+                      "17cone_table_kernelILb0EEEv",
+    "rpt_live_cull": "_ZN46_GLOBAL__N__4c289e6d_13_live_lists_cu_19a6e341"
+                     "16live_cull_kernelENS_4CullE",
+    "rpt_bucket_order": "_ZN46_GLOBAL__N__4c289e6d_13_live_lists_cu_19a6e341"
+                        "19bucket_order_kernelEPKf",
+    "rpt_batched_shared_walk": "_ZN48_GLOBAL__N__5d1c0e2a_13_mesh_batch_cu_7e21b9c4"
+                               "26batched_shared_walk_kernelEv",
+    "rpt_batched_general_walk": "_ZN48_GLOBAL__N__5d1c0e2a_13_mesh_batch_cu_7e21b9c4"
+                                "27batched_general_walk_kernelEv",
+}
+_TORCH_NODES = ["_ZN2at6native29vectorized_elementwise_kernelILi4ENS0_13BinaryFunctor",
+                "_ZN2at6native40_GLOBAL__N__0f1a8107_8_Shape_cu_49f7391c30CatArrayBatchedCopy"]
+_PER_FRAME = {"rpt_shadow_chain": 1, "rpt_footprint_sample/small": 1, "rpt_analytic_nearest": 1,
+              "rpt_cone_table": 2, "rpt_live_cull": 2, "rpt_bucket_order": 2,
+              "rpt_batched_shared_walk": 1, "rpt_batched_general_walk": 1}
+
+
+def _nodes(counts):
+    return _TORCH_NODES + [_INSTANCES_NODES[k] for k, n in counts.items() for _ in range(n)]
+
+
+@pytest.mark.parametrize("case", ["complete", "lacks_K3", "K3_twice", "no_K3_counted",
+                                  "unmapped_port_kernel"])
+def test_replay_verdict_reads_the_graph_nodes(case):
+    """chip_smoke.py's traced-replay check on the kernel names of a replayed
+    graph: a graph holding each counted kernel as often as the replay counted
+    it passes; one lacking K3, holding it twice, a replay that counted no K3,
+    and a port kernel no launch key names fail."""
+    smoke = _chip_smoke()
+    nodes, added = _nodes(_PER_FRAME), dict(_PER_FRAME)
+    if case == "lacks_K3":
+        nodes.remove(_INSTANCES_NODES["rpt_analytic_nearest"])
+    elif case == "K3_twice":
+        nodes.append(_INSTANCES_NODES["rpt_analytic_nearest"])
+    elif case == "no_K3_counted":
+        del added["rpt_analytic_nearest"]
+    elif case == "unmapped_port_kernel":
+        nodes.append("_ZN52_GLOBAL__N__813ff364_19_analytic_kernels_cu_490d37a212other_kernelEv")
+    if case == "complete":
+        got = smoke.replay_verdict(nodes, added, _PER_FRAME, "instances")
+        assert got == {k.split("/")[0]: n for k, n in _PER_FRAME.items()}
+        return
+    with pytest.raises(smoke.CheckFailed) as err:
+        smoke.replay_verdict(nodes, added, _PER_FRAME, "instances")
+    assert "instances" in str(err.value)
 
 
 @pytest.mark.parametrize("kind", ["blob", "instances"])

@@ -19,10 +19,12 @@ from torch_port_fixtures import t
 from relativitypathtracer_tpu.ops import texture_layout as jlayout
 from relativitypathtracer_tpu.ops import texture_sample as jts
 from relativitypathtracer_tpu.ops.pallas import texture_kernel as jtk
-from relativitypathtracer_tpu_torch.models.texture import read_ppm, read_texture, write_ppm
+from relativitypathtracer_tpu_torch.models.texture import read_texture, write_ppm
 from relativitypathtracer_tpu_torch.ops import texture_layout as ptl
 from relativitypathtracer_tpu_torch.ops import texture_sample as pts
 from relativitypathtracer_tpu_torch.ops.kernels import texture_kernel as ptk
+from relativitypathtracer_tpu_torch.utils.image_decode import DecodeError
+from relativitypathtracer_tpu_torch.utils.raster_decode import decode_pnm
 
 
 def _atlas_inputs(seed, w, h, n, edges=True):
@@ -284,7 +286,7 @@ def test_ppm_decoder_matches_pil(tmp_path, header):
                      + rgb.tobytes())
     with Image.open(path) as im:
         want = np.asarray(im.convert("RGB"))
-    got = read_ppm(path.read_bytes())
+    got = decode_pnm(path.read_bytes())
     assert np.array_equal(got, want) and np.array_equal(got, rgb)
     atlas, values = bytearray(b"xyz"), []
     read_texture(str(path), atlas, values)
@@ -300,9 +302,10 @@ def test_ppm_writer_round_trip_and_other_formats_go_to_their_decoders(tmp_path, 
 
     rgb = np.random.default_rng(0).integers(0, 256, (7, 5, 3), dtype=np.uint8)
     write_ppm(str(tmp_path / "a.ppm"), rgb)
-    assert np.array_equal(read_ppm((tmp_path / "a.ppm").read_bytes()), rgb)
+    assert np.array_equal(decode_pnm((tmp_path / "a.ppm").read_bytes()), rgb)
     Image.fromarray(rgb).save(tmp_path / "a.png")
-    assert read_ppm((tmp_path / "a.png").read_bytes()) is None
+    with pytest.raises(DecodeError):
+        decode_pnm((tmp_path / "a.png").read_bytes())
     calls = []
     real = texture.decode_png
     monkeypatch.setattr(texture, "decode_png", lambda data: calls.append(data) or real(data))

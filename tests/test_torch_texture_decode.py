@@ -9,8 +9,9 @@ write one); the port's own `encode_jpeg`; PNGs written by PIL in every mode
 it writes, and hand-built 16-bit and Adam7-interlaced ones (PIL writes
 neither); the committed fixtures of tests/torch_textures against the hashes
 PIL gave (pil_rgb.json). Each refused kind raises TextureError naming what
-it refused, with PIL blocked as without it. A DSL scene with JPEG,
-progressive-JPEG and PNG textures builds to the JAX package's texture
+it refused, with PIL blocked as without it; the kinds once refused that now
+decode (CMYK, Adobe RGB, 3x1 sampling, GIF) equal PIL. A DSL scene with
+JPEG, progressive-JPEG and PNG textures builds to the JAX package's texture
 arrays.
 """
 
@@ -28,7 +29,7 @@ import torch
 from PIL import Image
 
 import relativitypathtracer_tpu_torch as pt
-from relativitypathtracer_tpu_torch.models.texture import TextureError, read_texture
+from relativitypathtracer_tpu_torch.models.texture import TextureError, decode_texture, read_texture
 from relativitypathtracer_tpu_torch.utils import image
 from relativitypathtracer_tpu_torch.utils.demo_scene import demo_texture, write_demo_scene
 from relativitypathtracer_tpu_torch.utils.image_decode import decode_jpeg, decode_png
@@ -268,8 +269,7 @@ def test_committed_fixture_hashes(name):
     pil = _pil(data)
     assert list(pil.shape) == want["shape"]
     assert hashlib.sha256(pil.tobytes()).hexdigest() == want["sha256"]
-    dec = decode_jpeg if name.endswith(".jpg") else decode_png
-    assert hashlib.sha256(dec(data).tobytes()).hexdigest() == want["sha256"]
+    assert hashlib.sha256(decode_texture(data).tobytes()).hexdigest() == want["sha256"]
 
 
 # --- what the loader refuses --------------------------------------------------
@@ -352,12 +352,12 @@ REFUSED = {
     "bad_crc": (_bad_crc_png, "bad CRC in chunk b'IDAT'"),
     "arithmetic_sof9": (lambda: (lambda d: d.replace(b"\xff\xc0", b"\xff\xc9", 1))(_jpeg_bytes()),
                         "arithmetic-coded sequential JPEG (SOF9)"),
-    "cmyk": (lambda: _jpeg_bytes("CMYK"), "4 components"),
+    "cmyk": (lambda: _jpeg_bytes("CMYK"), None),
     "twelve_bit": (lambda: _patched_sof(_jpeg_bytes(), 0, 12), "12-bit precision"),
-    "sampling_3": (lambda: _patched_sof(_jpeg_bytes(), 7, 0x31), "sampling factor 3x1"),
-    "adobe_rgb": (_adobe_rgb, "Adobe APP14 transform 0"),
+    "sampling_3": (lambda: _patched_sof(_jpeg_bytes(), 7, 0x31), None),
+    "adobe_rgb": (_adobe_rgb, None),
     "unsent_progressive": (_unsent_progressive, "coefficient bits unsent"),
-    "gif": (_gif, "GIF"),
+    "gif": (_gif, None),
     "huge_jpeg": (_huge_jpeg, "65535x65535 is more pixels than 178,956,970"),
     "huge_png": (_huge_png, "20000x10000 is more pixels than 178,956,970"),
     "unknown": (lambda: b"\x00\x01 not an image", "unknown format"),
@@ -367,12 +367,21 @@ REFUSED = {
 @pytest.mark.parametrize("kind", sorted(REFUSED))
 def test_refused_kinds_raise_texture_error(tmp_path, kind, monkeypatch):
     """Each refused file raises TextureError naming its path and what was
-    refused, with PIL blocked (no fallback), though PIL opens most of them."""
+    refused, with PIL blocked (no fallback), though PIL opens most of them.
+    The kinds once refused that the port now decodes (words None: CMYK and
+    Adobe-RGB JPEG, a 3x1-sampled JPEG, GIF) read to PIL's pixels."""
     make, words = REFUSED[kind]
+    data = make()
     path = tmp_path / "t.bin"
-    path.write_bytes(make())
+    path.write_bytes(data)
+    want = _pil(data) if words is None else None
     monkeypatch.setitem(sys.modules, "PIL", None)
     atlas, values = bytearray(b"keep"), []
+    if words is None:
+        read_texture(str(path), atlas, values)
+        h, w, _ = want.shape
+        assert values == [4, w, h] and bytes(atlas[4:]) == want.tobytes()
+        return
     with pytest.raises(TextureError) as err:
         read_texture(str(path), atlas, values)
     assert str(path) in str(err.value) and words in str(err.value), str(err.value)
@@ -388,10 +397,10 @@ def test_pil_refuses_the_huge_images(kind):
 
 
 def test_pil_opens_the_refused_jpegs():
-    """CMYK, Adobe RGB and the progressive file with unsent bits are files
-    PIL decodes: refusing them is the port's choice, not a broken file."""
-    for kind, shape in (("cmyk", (24, 40, 3)), ("adobe_rgb", (16, 32, 3)),
-                        ("unsent_progressive", (24, 40, 3))):
+    """The arithmetic-coded file and the progressive file with unsent bits
+    are files PIL decodes: refusing them is the port's choice, not a broken
+    file (PIL refuses the 12-bit one too)."""
+    for kind, shape in (("arithmetic_sof9", (24, 40, 3)), ("unsent_progressive", (24, 40, 3))):
         assert _pil(REFUSED[kind][0]()).shape == shape
 
 

@@ -20,9 +20,15 @@ CUDA events with a synchronize per frame (p50 and p95 ms) and FRAMES frames
 issued back to back with one synchronize (`issue_ms`, ms a frame). Last,
 the memory reserved as nine cached renderers of textured (intervals -1 to
 7) are built and called one after another (`cached_renderers`): every
-graph of a card shares one pool. Prints one JSON line with the card's name
-and power limit. Needs a CUDA device and nvcc; about 2 minutes for the five
-paths.
+graph of a card shares one pool. For each path it also prices the template
+that FrameGraph keeps (`keep_graph`): the eager frame captured with
+`CUDAGraph(keep_graph=True)` then `instantiate()`, as FrameGraph does, and
+with `CUDAGraph()` (instantiated at the capture's end, the template
+dropped), in turns, kept, dropped, dropped, kept, twice: seconds from the
+warm-up to the first replay, replay p50, peak memory above what was
+allocated before, and the process's resident host memory gained. Prints one
+JSON line with the card's name and power limit. Needs a CUDA device and
+nvcc; about 3 minutes for the five paths.
 """
 
 from __future__ import annotations
@@ -36,6 +42,8 @@ import time
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
+
+from relativitypathtracer_tpu_torch.utils.timing import cuda_frame_times_ms, percentile  # noqa: E402
 
 PATHS = ("blob", "textured", "cubes", "instances", "large")
 FRAMES = 30
@@ -68,7 +76,6 @@ def main(argv: list[str]) -> int:
     from relativitypathtracer_tpu_torch import render as prender
     from relativitypathtracer_tpu_torch.ops.kernels import _build
     from relativitypathtracer_tpu_torch.utils.demo_scene import write_demo_scene
-    from relativitypathtracer_tpu_torch.utils.timing import cuda_frame_times_ms, percentile
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -140,6 +147,7 @@ def main(argv: list[str]) -> int:
                 r["p50"][name].append(percentile(times, 50))
                 r["p95"][name].append(percentile(times, 95))
                 r["issue_ms"][name].append(_issue_ms(torch, fn))
+        r["keep_graph"] = _keep_graph_turns(torch, eager, want)
         out[path] = r
         print(json.dumps({path: r}), flush=True)
         del scene, consts, graphed, renders, img, want, first
@@ -147,6 +155,53 @@ def main(argv: list[str]) -> int:
     out["cached_renderers"] = _cached_renderers(torch, pt, write_demo_scene, dev, state)
     print(json.dumps(out), flush=True)
     return 0
+
+
+def _rss_mib() -> float:
+    for line in pathlib.Path("/proc/self/status").read_text().splitlines():
+        if line.startswith("VmRSS:"):
+            return int(line.split()[1]) / 1024
+    return float("nan")
+
+
+def _capture_cost(torch, fn, want, keep: bool) -> dict:
+    """fn captured as FrameGraph captures it (a warm-up on a side stream,
+    then the capture), with its template kept or dropped."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rss = _rss_mib()
+    t0 = time.perf_counter()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=keep)
+    with torch.cuda.graph(graph, stream=side):
+        img, _ = fn()
+    if keep:
+        graph.instantiate()
+    graph.replay()
+    torch.cuda.synchronize()
+    r = {"capture_s": time.perf_counter() - t0, "host_rss_mib": _rss_mib() - rss}
+    if not torch.equal(img, want):
+        raise AssertionError(f"keep_graph={keep}: the replay differs from the eager frame")
+    times = cuda_frame_times_ms(lambda s, t: graph.replay(), None, None, frames=FRAMES,
+                                warmup=3)
+    r["p50"] = percentile(times, 50)
+    r["peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    del graph, img
+    return r
+
+
+def _keep_graph_turns(torch, fn, want) -> dict:
+    out = {"kept": [], "dropped": []}
+    for _ in range(2):
+        for name in ("kept", "dropped", "dropped", "kept"):
+            out[name].append(_capture_cost(torch, fn, want, name == "kept"))
+    return {name: {k: [r[k] for r in runs] for k in runs[0]} for name, runs in out.items()}
 
 
 def _cached_renderers(torch, pt, write_demo_scene, dev, state) -> dict:

@@ -1,0 +1,107 @@
+"""Time the port's texture decoders on this host's CPU: one 1024x1024 file
+of each format and kind, written by PIL (or, where PIL writes none, by
+tests/torch_textures/make_fixtures.py's builders) from
+utils/demo_scene.demo_texture(1024), decoded by
+models/texture.decode_texture and held to PIL's decode byte for byte.
+
+    python tools/texture_decode_times.py
+
+Needs PIL (to write the files and to check them). Prints one JSON line a
+file (format, bytes, seconds: the best of REPEAT decodes, equal to PIL) and a
+last line with the host's CPU model: these are host CPU times, not a card's.
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import pathlib
+import platform
+import sys
+import time
+
+import numpy as np
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "tests"))
+
+REPEAT = 3
+
+
+def _cpu_model() -> str:
+    try:
+        for line in pathlib.Path("/proc/cpuinfo").read_text().splitlines():
+            if line.startswith("model name"):
+                return line.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    return platform.processor() or "unknown"
+
+
+def files(Image) -> dict:
+    """name -> bytes, 1024x1024 each."""
+    from torch_textures.make_fixtures import bmp_file, bmp_rle, tiff_file
+
+    from relativitypathtracer_tpu_torch.utils.demo_scene import demo_texture
+
+    rgb = demo_texture(1024)
+    im = Image.fromarray(rgb)
+
+    def save(image, fmt, **kw):
+        buf = io.BytesIO()
+        image.save(buf, fmt, **kw)
+        return buf.getvalue()
+
+    pal = im.quantize(16)
+    idx = np.asarray(pal)
+    colours = np.asarray(pal.getpalette()[:48], np.uint8).reshape(16, 3)
+    out = {
+        "P6 (binary PPM)": save(im, "PPM"),
+        "P3 (plain PPM)": b"P3 1024 1024 255\n" + b"\n".join(
+            b" ".join(b"%d" % v for v in row) for row in rgb.reshape(1024, -1)) + b"\n",
+        "BMP 24-bit": save(im, "BMP"),
+        "BMP 8-bit palette": save(im.quantize(256), "BMP"),
+        "BMP RLE8": bmp_file(1024, 1024, 8, bmp_rle(idx, False),
+                             [tuple(c) for c in colours.tolist()], compression=1),
+        "BMP RLE4": bmp_file(1024, 1024, 4, bmp_rle(idx, True),
+                             [tuple(c) for c in colours.tolist()], compression=2),
+        "TGA": save(im, "TGA"),
+        "TGA RLE": save(im, "TGA", rle=True),
+        "GIF": save(im.quantize(256), "GIF"),
+        "TIFF": save(im, "TIFF"),
+        "TIFF LZW predictor 2": save(im, "TIFF", compression="tiff_lzw", tiffinfo={317: 2}),
+        "TIFF Deflate": save(im, "TIFF", compression="tiff_adobe_deflate"),
+        "TIFF PackBits": save(im, "TIFF", compression="packbits"),
+        "TIFF planar LZW tiles": tiff_file(rgb, 8, 2, comp=5, planar=2, tile=(256, 256)),
+        "JPEG": save(im, "JPEG", quality=90),
+        "JPEG CMYK": save(im.convert("CMYK"), "JPEG", quality=90),
+        "PNG": save(im, "PNG"),
+    }
+    return out
+
+
+def main() -> int:
+    from PIL import Image
+
+    from relativitypathtracer_tpu_torch.models.texture import decode_texture
+
+    ok = True
+    for name, data in files(Image).items():
+        best = float("inf")
+        for _ in range(REPEAT):
+            t0 = time.perf_counter()
+            got = decode_texture(data)
+            best = min(best, time.perf_counter() - t0)
+        with Image.open(io.BytesIO(data)) as im:
+            equal = bool(np.array_equal(got, np.asarray(im.convert("RGB"))))
+        ok = ok and equal
+        print(json.dumps({"format": name, "bytes": len(data), "seconds": round(best, 4),
+                          "equal_to_pil": equal}))
+    print(json.dumps({"host_cpu": _cpu_model(), "repeat": REPEAT,
+                      "note": "host CPU seconds, not a card's", "ok": ok}))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
