@@ -113,14 +113,17 @@ It prints each path's seconds. Then it renders the textured path at msaa 2,
   textures
           with PIL blocked (sys.modules["PIL"] = None for the phase, restored
           after; no PIL module may be imported meanwhile): every file of
-          tests/torch_textures (JPEG, PNG, the PNM family, BMP, TGA, GIF,
-          TIFF) decoded by models/texture.decode_texture to the SHA-256 PIL
-          gave where they were made (pil_rgb.json), with its ms; the
-          textured fixture with its 32x32 texture as a baseline 4:2:0 JPEG
-          (utils/image.encode_jpeg; a 512-row atlas, K2) and as an RLE TGA
-          (the committed blob_rle.tga), and cubes with its 256x256 texture as
-          a PNG (a 32,768-row atlas, K8) and with a 64x64 LZW TIFF (the
-          committed cubes_lzw.tif; a 2,048-row atlas, K8), each scene
+          tests/torch_textures (JPEG, progressive JPEGs with unsent bits,
+          PNG, the PNM family, BMP, TGA, GIF, TIFF, WebP) decoded by
+          models/texture.decode_texture to the SHA-256 PIL gave where they
+          were made (pil_rgb.json), with its ms (the WebP files' again on a
+          line of their own); the textured fixture with its 32x32 texture as
+          a baseline 4:2:0 JPEG (utils/image.encode_jpeg; a 512-row atlas,
+          K2), as an RLE TGA (the committed blob_rle.tga) and as a lossy
+          WebP (blob_lossy.webp), and cubes with its 256x256 texture as a
+          PNG (a 32,768-row atlas, K8), with a 64x64 LZW TIFF (the
+          committed cubes_lzw.tif; a 2,048-row atlas, K8) and with the same
+          squares as a lossless WebP (cubes_lossless.webp), each scene
           written by utils/demo_scene, load_scene_file -> build_scene ->
           build_render_fn at 1024x768: one
           graphed frame with exactly that path's kernels launched, held to
@@ -251,7 +254,9 @@ TEXTURE_FIXTURES = pathlib.Path(__file__).resolve().parent / "tests" / "torch_te
 # (a texture format utils/demo_scene writes, or a committed fixture in its place)
 TEXTURE_SCENES = (("textured", "jpg", (256, 192)), ("cubes", "png", (WIDTH, HEIGHT)),
                   ("textured", "blob_rle.tga", (256, 192)),
-                  ("cubes", "cubes_lzw.tif", (WIDTH, HEIGHT)))
+                  ("cubes", "cubes_lzw.tif", (WIDTH, HEIGHT)),
+                  ("textured", "blob_lossy.webp", (256, 192)),
+                  ("cubes", "cubes_lossless.webp", (WIDTH, HEIGHT)))
 BIG_TEXTURE = 2048
 PKG = "relativitypathtracer_tpu_torch/csrc/"
 CSRC = pathlib.Path(__file__).resolve().parent / PKG
@@ -1101,10 +1106,10 @@ def fixture_texture(scene_file: str, name: str) -> str:
 def textures_phase(torch, pt, dev, card, state) -> None:
     """Textures decoded without PIL (models/texture.decode_texture), with PIL
     blocked in sys.modules for the phase: the committed fixtures against
-    PIL's hashes, the textured fixture with a JPEG and a TGA texture and
-    cubes with a PNG and a TIFF one rendered on the card and held to the CPU
-    and the oracle, and the decode time of a corpus-sized JPEG; see the
-    module docstring."""
+    PIL's hashes, the textured fixture with a JPEG, a TGA and a lossy WebP
+    texture and cubes with a PNG, a TIFF and a lossless WebP one rendered
+    on the card and held to the CPU and the oracle, and the decode time of
+    a corpus-sized JPEG; see the module docstring."""
     import hashlib
 
     from relativitypathtracer_tpu_torch.models.texture import decode_texture
@@ -1130,8 +1135,9 @@ def textures_phase(torch, pt, dev, card, state) -> None:
                   and hashlib.sha256(rgb.tobytes()).hexdigest() == want["sha256"],
                   f"textures: {name} decodes to other bytes than PIL's")
         log(f"  {len(times)} committed files equal to PIL's decodes (Pillow {record['pillow']}, "
-            f"libjpeg-turbo {record['libjpeg_turbo']}), PIL blocked; decode ms: "
-            + ", ".join(times))
+            f"libjpeg-turbo {record['libjpeg_turbo']}, libwebp {record['libwebp']}), PIL "
+            "blocked; decode ms: " + ", ".join(times))
+        log("  WebP decode ms: " + ", ".join(t for t in times if ".webp " in t))
         for kind, fmt, size in TEXTURE_SCENES:
             names = PATHS[kind][1]
             with tempfile.TemporaryDirectory() as tmp:

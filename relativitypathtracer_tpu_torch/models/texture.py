@@ -11,7 +11,8 @@ load on a host without an image library, byte for byte as PIL's
 reference's CImg reads PNM and BMP itself and the rest through libraries,
 and the byte layout after its permute_axes("cxyz") is the same row-major
 interleaved RGB): JPEG and PNG by utils/image_decode, the PNM family, BMP,
-TGA and GIF by utils/raster_decode, TIFF by utils/tiff_decode. The format is
+TGA and GIF by utils/raster_decode, TIFF by utils/tiff_decode, WebP by
+utils/webp_decode (the first frame on its canvas). The format is
 told as `Image.open` tells it: by the file's first bytes, in the order PIL
 tries its plugins, TGA (which has no magic number) by its header's checks
 after the others. A format PIL opens and the port does not, and an unknown
@@ -25,6 +26,7 @@ import numpy as np
 from ..utils.image_decode import decode_jpeg, decode_png
 from ..utils.raster_decode import decode_bmp, decode_gif, decode_pnm, decode_tga, tga_header_ok
 from ..utils.tiff_decode import decode_tiff
+from ..utils.webp_decode import decode_webp, is_webp
 
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 _DIB_HEADERS = (12, 40, 52, 56, 64, 108, 124)  # BmpImagePlugin._dib_accept
@@ -42,8 +44,7 @@ def _entries(data: bytes) -> bool:
 
 # formats PIL opens and this loader does not, by their first bytes; the
 # other formats' plugins come before TGA's in PIL's order
-_OTHER_FORMATS = ((lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP", "WebP"),
-                  (lambda d: d[4:8] == b"ftyp", "AVIF/HEIF"),
+_OTHER_FORMATS = ((lambda d: d[4:8] == b"ftyp", "AVIF/HEIF"),
                   (lambda d: d[:4] in (b"BLP1", b"BLP2"), "BLP"),
                   (lambda d: d[:4] == b"\0\0\2\0" and _entries(d), "CUR"),
                   (lambda d: d[:1] == b"\x0a" and d[1:2] in (b"\0", b"\2", b"\3", b"\5"), "PCX"),
@@ -93,11 +94,13 @@ def decode_texture(data: bytes) -> np.ndarray:
         return decode_png(data)
     if data[:4] in _TIFF_MAGIC:
         return decode_tiff(data)
+    if is_webp(data):
+        return decode_webp(data)
     kind = next((name for test, name in _OTHER_FORMATS if test(data)), None)
     if kind is None and tga_header_ok(data):
         return decode_tga(data)
     raise ValueError(f"{kind or f'unknown format (first bytes {data[:8]!r})'}: textures are "
-                     "PNM, BMP, GIF, JPEG, PNG, TIFF or TGA")
+                     "PNM, BMP, GIF, JPEG, PNG, TIFF, WebP or TGA")
 
 
 def read_texture(path: str, atlas: bytearray, values: list) -> None:

@@ -14,8 +14,10 @@ under Adobe's transform 2, which PIL reads as Adobe's inverted CMYK and
 converts with utils/pil_modes); the accurate integer inverse DCT
 (jidctint.c `jpeg_idct_islow`); fancy (triangle-filter) upsampling by 2 and
 replication by 3 or 4 (jdsample.c); the fixed-point YCbCr to RGB tables
-(jdcolor.c). The inverse DCT saturates out-of-range
-values as libjpeg-turbo's SIMD code, which PIL runs, does. The entropy
+(jdcolor.c); the block smoothing of a progressive file whose scans leave
+coefficient bits unsent (jdcoefct.c `decompress_smooth_data`). The inverse
+DCT saturates out-of-range values as libjpeg-turbo's SIMD code, which PIL
+runs, does. The entropy
 decode is the one sequential part, a Python loop over symbols (a 16-bit
 peek into a lookup table a symbol); every step after it is vectorised over
 all blocks of a component.
@@ -590,14 +592,11 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     for c, cid in enumerate(frame.ids):
         if bits[c][0] < 0:
             raise DecodeError(f"component {cid} has no DC scan")
-        # libjpeg block-smooths a progressive image whose first AC
-        # coefficients are not all fully sent (jdcoefct.c smoothing_ok)
-        if frame.progressive and any(b != 0 for b in bits[c][1:10]):
-            raise DecodeError("progressive scans leave coefficient bits unsent (libjpeg "
-                              "block-smooths such a file; not supported)")
+    smooth = frame.progressive and _smoothing_ok(bits, latched)
     planes = []
     for c in range(len(frame.ids)):
-        blocks = _idct(coefs[c], latched[c])
+        coef = _block_smooth(frame, c, coefs[c], bits[c], latched[c]) if smooth else coefs[c]
+        blocks = _idct(coef, latched[c])
         bh, bw = frame.bh[c], frame.bw[c]
         plane = blocks.reshape(bh, bw, 8, 8).transpose(0, 2, 1, 3).reshape(bh * 8, bw * 8)
         plane = _upsample(plane[:frame.ch[c], :frame.cw[c]], frame.max_h // frame.h[c],
@@ -616,6 +615,108 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     else:
         inverted = 255 - np.stack(planes, -1)
     return cmyk_to_rgb(inverted)
+
+
+# Block smoothing (libjpeg-turbo's jdcoefct.c decompress_smooth_data): the
+# natural-order positions of zig-zag coefficients 1-9, and the estimates of
+# each from the 5x5 neighbourhood of DC values DC01-DC25 (row by row, the
+# block itself DC13): {DC number: weight}, with all of 1-9 unsent ("change
+# DC") and without; "change DC" also re-estimates the DC itself
+_SMOOTH_POS = (1, 8, 16, 9, 2, 3, 10, 17, 24)
+_SMOOTH_CHANGE_DC = (
+    {1: -1, 2: -1, 4: 1, 5: 1, 6: -3, 7: 13, 9: -13, 10: 3, 11: -3, 12: 38, 14: -38, 15: 3,
+     16: -3, 17: 13, 19: -13, 20: 3, 21: -1, 22: -1, 24: 1, 25: 1},
+    {1: -1, 2: -3, 3: -3, 4: -3, 5: -1, 6: -1, 7: 13, 8: 38, 9: 13, 10: -1, 16: 1, 17: -13,
+     18: -38, 19: -13, 20: 1, 21: 1, 22: 3, 23: 3, 24: 3, 25: 1},
+    {3: 1, 7: 2, 8: 7, 9: 2, 12: -5, 13: -14, 14: -5, 17: 2, 18: 7, 19: 2, 23: 1},
+    {1: -1, 5: 1, 7: 9, 9: -9, 17: -9, 19: 9, 21: 1, 25: -1},
+    {7: 2, 8: -5, 9: 2, 11: 1, 12: 7, 13: -14, 14: 7, 15: 1, 17: 2, 18: -5, 19: 2},
+    {7: 1, 9: -1, 12: 2, 14: -2, 17: 1, 19: -1},
+    {7: 1, 8: -3, 9: 1, 17: -1, 18: 3, 19: -1},
+    {7: 1, 9: -1, 12: -3, 14: 3, 17: 1, 19: -1},
+    {7: 1, 8: 2, 9: 1, 17: -1, 18: -2, 19: -1})
+_SMOOTH_KEEP_DC = (
+    {11: -7, 12: 50, 14: -50, 15: 7},
+    {3: -7, 8: 50, 18: -50, 23: 7},
+    {3: -1, 8: 13, 13: -24, 18: 13, 23: -1},
+    {10: 1, 16: 1, 17: -10, 19: 10, 2: -1, 20: -1, 22: 1, 24: -1, 4: 1, 6: -1, 7: 10, 9: -10},
+    {11: -1, 12: 13, 13: -24, 14: 13, 15: -1})
+_SMOOTH_DC = {1: -2, 2: -6, 3: -8, 4: -6, 5: -2, 6: -6, 7: 6, 8: 42, 9: 6, 10: -6, 11: -8,
+              12: 42, 13: 152, 14: 42, 15: -8, 16: -6, 17: 6, 18: 42, 19: 6, 20: -6, 21: -2,
+              22: -6, 23: -8, 24: -6, 25: -2}
+
+
+def _smoothing_ok(bits, latched) -> bool:
+    """jdcoefct.c smoothing_ok: every component's table nonzero at the DC
+    and the first nine ACs, and some component with one of zig-zag
+    coefficients 1-9 not fully sent (its last scan's Al above 0, or no
+    scan)."""
+    if not all(q[[0, *_SMOOTH_POS]].all() for q in latched.values()):
+        return False
+    return any(b != 0 for cbits in bits for b in cbits[1:10])
+
+
+def _smooth_rows(frame, c, rows: int) -> list:
+    """Each block row's five neighbour rows (two above, itself, two below)
+    as decompress_smooth_data picks them: an iMCU row (v block rows) at a
+    time, the rows past the image's top and bottom replaced by the nearest
+    one it reads. In the last iMCU row libjpeg counts its rows as
+    `height_in_blocks % v` a row in every iMCU row, so that with two iMCU
+    rows the last one's first row finds no row two above it."""
+    v, total = frame.v[c], frame.mcus_y
+    out = []
+    for r in range(rows):
+        m, k = divmod(r, v)
+        n = v if m < total - 1 else rows % v or v
+        at, count = m * n + k, n * total
+        prev = r - 1 if at > 0 else r
+        nxt = r + 1 if at < count - 1 else r
+        out.append((r - 2 if at > 1 else prev, prev, r, nxt, r + 2 if at < count - 2 else nxt))
+    return out
+
+
+def _smooth_estimate(num, q: int, al: int):
+    """A coefficient's estimate from `num` (Q00 times the DC sum), rounded
+    away from zero over q * 256, capped below 2**Al when Al > 0."""
+    pred = ((q << 7) + np.abs(num)) // (q << 8)
+    if al > 0:
+        pred = np.minimum(pred, (1 << al) - 1)
+    return np.where(num < 0, -pred, pred)
+
+
+def _block_smooth(frame, c, coef, cbits, q) -> np.ndarray:
+    """libjpeg-turbo's interblock smoothing of a progressive component
+    whose coefficients 1-9 are not all fully sent (jdcoefct.c
+    decompress_smooth_data): each of them still zero and not exact (its
+    Al not 0) is estimated from the 5x5 DC neighbourhood (the edge block
+    repeated past the image's right and left, rows as _smooth_rows picks
+    them) and the quantisation table; where none of 1-9 was sent the DC is
+    re-estimated too. `coef` (blocks, 64) zig-zag in; a new array out."""
+    rows, cols = -(-frame.ch[c] // 8), -(-frame.cw[c] // 8)
+    bw = frame.bw[c]
+    grid = coef.reshape(-1, bw, 64)
+    dc = grid[:, :, 0].astype(np.int64)
+    pick = np.array(_smooth_rows(frame, c, rows))
+    near = np.clip(np.arange(cols)[:, None] + np.arange(-2, 3), 0, cols - 1)
+    # DC[n]: (rows, cols) of DC value n (1-25) of each block's neighbourhood
+    nb = dc[pick[:, :, None, None], near[None, None, :, :]]  # (rows, 5, cols, 5)
+    dcs = {5 * i + j + 1: nb[:, i, :, j] for i in range(5) for j in range(5)}
+    change_dc = all(b == -1 for b in cbits[1:10])
+    forms = _SMOOTH_CHANGE_DC if change_dc else _SMOOTH_KEEP_DC
+    out = grid.copy()
+    work = out[:rows, :cols]
+    q00 = int(q[0])
+    for k, form in enumerate(forms, start=1):
+        al = cbits[k]
+        if al == 0:
+            continue
+        num = q00 * sum(w * dcs[n] for n, w in form.items())
+        est = _smooth_estimate(num, int(q[_SMOOTH_POS[k - 1]]), al)
+        work[:, :, k] = np.where(work[:, :, k] == 0, est, work[:, :, k])
+    if change_dc:
+        num = q00 * sum(w * dcs[n] for n, w in _SMOOTH_DC.items())
+        work[:, :, 0] = _smooth_estimate(num, q00, 0)
+    return out.reshape(coef.shape)
 
 
 def _decode_scan(data, pos, body, frame, coefs, bits, latched, qtabs, dc_tabs, ac_tabs,

@@ -27,11 +27,13 @@ import numpy as np
 import pytest
 import torch
 from PIL import Image
+from torch_textures.make_fixtures import jpeg_scans
 
 import relativitypathtracer_tpu_torch as pt
 from relativitypathtracer_tpu_torch.models.texture import TextureError, decode_texture, read_texture
 from relativitypathtracer_tpu_torch.utils import image
 from relativitypathtracer_tpu_torch.utils.demo_scene import demo_texture, write_demo_scene
+from relativitypathtracer_tpu_torch.utils import image_decode
 from relativitypathtracer_tpu_torch.utils.image_decode import decode_jpeg, decode_png
 
 FIXTURES = pathlib.Path(__file__).resolve().parent / "torch_textures"
@@ -171,6 +173,114 @@ def test_encode_jpeg_output_decodes_as_pil(quality):
     rgb = demo_texture(96)[:70, :90]
     data = image.encode_jpeg(rgb, quality)
     _equal_to_pil(decode_jpeg(data), data)
+
+
+# --- progressive JPEGs with unsent bits: libjpeg's block smoothing -------------
+
+def _progressive(sub: str, w: int, h: int, quality: int = 80) -> bytes:
+    im = Image.fromarray(_picture(w * 7 + h + quality, w, h))
+    kw = {"quality": quality, "progressive": True}
+    if sub == "L":
+        im = im.convert("L")
+    else:
+        kw["subsampling"] = sub
+    buf = io.BytesIO()
+    im.save(buf, "JPEG", **kw)
+    return buf.getvalue()
+
+
+def _scan_count(data: bytes) -> int:
+    return data.count(b"\xff\xda")
+
+
+SMOOTH_SIZES = ((8, 8), (40, 8), (33, 16), (20, 17), (16, 24), (9, 40), (64, 48))
+
+
+@pytest.mark.parametrize("sub", ["4:2:0", "4:2:2", "4:4:4", "L"])
+@pytest.mark.parametrize("size", SMOOTH_SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_dc_only_progressive_decodes_as_pil(size, sub):
+    """The DC scan alone (DC at Al 1, never refined, no AC sent): every
+    block's first nine ACs and its DC estimated from the 5x5 DC
+    neighbourhood; images one and two block rows high (and, at 4:2:0,
+    three: libjpeg's last-iMCU-row count), narrow and wide."""
+    data = jpeg_scans(_progressive(sub, *size), {0})
+    assert _scan_count(data) == 1
+    _equal_to_pil(decode_jpeg(data), data)
+
+
+@pytest.mark.parametrize("sub", ["4:2:0", "4:4:4", "L"])
+@pytest.mark.parametrize("size", [(40, 24), (17, 9), (23, 17), (64, 48)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_every_cut_of_a_progressive_file_decodes_as_pil(size, sub):
+    """libjpeg's default scan script cut after each of its scans (and an
+    EOI): coefficients sent to Al 1 or 2, some never; each cut smoothed as
+    libjpeg smooths it."""
+    data = _progressive(sub, *size)
+    for k in range(1, _scan_count(data)):
+        cut = jpeg_scans(data, set(range(k)))
+        _equal_to_pil(decode_jpeg(cut), cut)
+
+
+@pytest.mark.parametrize("sub", ["4:2:0", "4:4:4"])
+@pytest.mark.parametrize("size", [(8, 8), (35, 26), (64, 48)], ids=lambda s: f"{s[0]}x{s[1]}")
+def test_missing_chroma_ac_scans_decode_as_pil(size, sub):
+    """Luma complete and both chroma components' AC scans (first and
+    refinement) left out: chroma smoothed with its DC re-estimated, luma
+    untouched."""
+    data = jpeg_scans(_progressive(sub, *size, quality=90), {0, 1, 4, 5, 6, 9})
+    _equal_to_pil(decode_jpeg(data), data)
+
+
+@pytest.mark.parametrize("keep", [{0, 1}, {0, 1, 2}, {0, 1, 2, 3}, {0, 2}, {0, 1, 2, 4}],
+                         ids=lambda k: "+".join(map(str, sorted(k))))
+def test_grey_progressive_with_scans_left_out_decodes_as_pil(keep):
+    """Greyscale: ACs 1-5 at Al 2 without 6-63, the refinement to Al 1
+    without the last, the DC refined while the ACs are not."""
+    for size in ((8, 16), (31, 40)):
+        data = jpeg_scans(_progressive("L", *size), keep)
+        _equal_to_pil(decode_jpeg(data), data)
+
+
+def test_smoothing_changes_what_it_should():
+    """Without the smoothing a DC-only file decodes to other bytes than
+    PIL's (the cases above test it), and a complete progressive file is
+    never smoothed (smoothing_ok finds every coefficient sent)."""
+    data = jpeg_scans(_progressive("4:2:0", 40, 24), {0})
+    try:
+        keep = image_decode._smoothing_ok
+        image_decode._smoothing_ok = lambda bits, latched: False
+        assert not np.array_equal(decode_jpeg(data), _pil(data))
+    finally:
+        image_decode._smoothing_ok = keep
+
+
+@pytest.mark.parametrize("case", [c for c in _jpeg_cases() if "progressive" in c[0]],
+                         ids=lambda c: "x".join(map(str, c[1])) + f"-{c[0]}-{c[3]}")
+def test_complete_progressive_files_are_not_smoothed(case, monkeypatch):
+    """Every complete progressive case above (and the committed
+    progressive.jpg) keeps its bytes: smoothing_ok finds no unsent bit, so
+    the decode is the one without smoothing."""
+    frame, size, quality, sub = case
+    im = Image.fromarray(_picture(quality + size[0], *size))
+    kw = {"quality": quality, "progressive": True}
+    if "restart" in frame:
+        kw["restart_marker_blocks"] = 2
+    if "optimized" in frame:
+        kw["optimize"] = True
+    if sub == "L":
+        im = im.convert("L")
+    else:
+        kw["subsampling"] = sub
+    buf = io.BytesIO()
+    im.save(buf, "JPEG", **kw)
+    real, seen = image_decode._smoothing_ok, []
+    monkeypatch.setattr(image_decode, "_smoothing_ok",
+                        lambda bits, latched: seen.append(real(bits, latched)) or seen[-1])
+    for data in (buf.getvalue(), (FIXTURES / "progressive.jpg").read_bytes()):
+        seen.clear()
+        got = decode_jpeg(data)
+        assert seen == [False]
+        _equal_to_pil(got, data)
 
 
 # --- PNG ----------------------------------------------------------------------
@@ -356,7 +466,7 @@ REFUSED = {
     "twelve_bit": (lambda: _patched_sof(_jpeg_bytes(), 0, 12), "12-bit precision"),
     "sampling_3": (lambda: _patched_sof(_jpeg_bytes(), 7, 0x31), None),
     "adobe_rgb": (_adobe_rgb, None),
-    "unsent_progressive": (_unsent_progressive, "coefficient bits unsent"),
+    "unsent_progressive": (_unsent_progressive, None),
     "gif": (_gif, None),
     "huge_jpeg": (_huge_jpeg, "65535x65535 is more pixels than 178,956,970"),
     "huge_png": (_huge_png, "20000x10000 is more pixels than 178,956,970"),
@@ -369,7 +479,8 @@ def test_refused_kinds_raise_texture_error(tmp_path, kind, monkeypatch):
     """Each refused file raises TextureError naming its path and what was
     refused, with PIL blocked (no fallback), though PIL opens most of them.
     The kinds once refused that the port now decodes (words None: CMYK and
-    Adobe-RGB JPEG, a 3x1-sampled JPEG, GIF) read to PIL's pixels."""
+    Adobe-RGB JPEG, a 3x1-sampled JPEG, GIF, a progressive JPEG with
+    unsent bits, which libjpeg block-smooths) read to PIL's pixels."""
     make, words = REFUSED[kind]
     data = make()
     path = tmp_path / "t.bin"
@@ -397,10 +508,9 @@ def test_pil_refuses_the_huge_images(kind):
 
 
 def test_pil_opens_the_refused_jpegs():
-    """The arithmetic-coded file and the progressive file with unsent bits
-    are files PIL decodes: refusing them is the port's choice, not a broken
-    file (PIL refuses the 12-bit one too)."""
-    for kind, shape in (("arithmetic_sof9", (24, 40, 3)), ("unsent_progressive", (24, 40, 3))):
+    """The arithmetic-coded file is a file PIL decodes: refusing it is the
+    port's choice, not a broken file (PIL refuses the 12-bit one too)."""
+    for kind, shape in (("arithmetic_sof9", (24, 40, 3)),):
         assert _pil(REFUSED[kind][0]()).shape == shape
 
 

@@ -453,7 +453,7 @@ def test_jpeg_kinds_decode_as_pil(case):
 
 DECODERS = {"PPM": "decode_pnm", "BMP": "decode_bmp", "DIB": "decode_bmp", "TGA": "decode_tga",
             "GIF": "decode_gif", "TIFF": "decode_tiff", "JPEG": "decode_jpeg",
-            "PNG": "decode_png"}
+            "PNG": "decode_png", "WEBP": "decode_webp"}
 
 
 @pytest.mark.parametrize("name", sorted(json.loads((FIXTURES / "pil_rgb.json").read_text())
@@ -557,7 +557,7 @@ def _refused():
         "tga_32_bit_map": (tga_file(4, 2, 1, 8, bytes(8), cmap=(0, [bytes(4)] * 2, 32)),
                             "colour map of 32 bits"),
         "pnm_float": (b"Pf\n2 1\n-1.0\n" + bytes(8), "PNM kind b'Pf'"),
-        "webp": (b"RIFF\x10\0\0\0WEBPVP8L" + bytes(8), "WebP"),
+        "webp": (b"RIFF\x10\0\0\0WEBPVP8L" + bytes(8), "truncated WebP lossless data"),
         "cur": (CURSOR, "CUR"),
         "ico": (_save(pic.resize((16, 16)), "ICO"), "ICO"),
         "arithmetic_jpeg": (_save(pic, "JPEG").replace(b"\xff\xc0", b"\xff\xc9", 1),
@@ -677,28 +677,32 @@ def test_scene_with_every_new_format_matches_jax(tmp_path):
 def test_chip_smoke_texture_scenes_on_cpu(tmp_path):
     """chip_smoke.py's textures phase's fixture scenes, built on the CPU:
     textured with blob_rle.tga (the PPM scene's 32x32 texture, so the same
-    atlas; K2's small route) and cubes with cubes_lzw.tif (64x64, a
+    atlas; K2's small route) and with blob_lossy.webp (that texture lossy),
+    cubes with cubes_lzw.tif and with cubes_lossless.webp (64x64, a
     2,048-row atlas: K8's windowed route), through its fixture_texture."""
     from relativitypathtracer_tpu_torch.ops.kernels.texture_kernel import texture_route
 
     spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    fixtures = {kind: fmt for kind, fmt, _ in smoke.TEXTURE_SCENES if fmt.count(".")}
-    assert fixtures == {"textured": "blob_rle.tga", "cubes": "cubes_lzw.tif"}
-    for kind, name in fixtures.items():
-        scene_file = smoke.fixture_texture(write_demo_scene(str(tmp_path / kind), 1, kind), name)
-        assert [p.name for p in (tmp_path / kind / "Textures").iterdir()] == [name]
+    fixtures = [(kind, fmt) for kind, fmt, _ in smoke.TEXTURE_SCENES if fmt.count(".")]
+    assert fixtures == [("textured", "blob_rle.tga"), ("cubes", "cubes_lzw.tif"),
+                        ("textured", "blob_lossy.webp"), ("cubes", "cubes_lossless.webp")]
+    for kind, name in fixtures:
+        where = tmp_path / name
+        scene_file = smoke.fixture_texture(write_demo_scene(str(where), 1, kind), name)
+        assert [p.name for p in (where / "Textures").iterdir()] == [name]
         host = pt.load_scene_file(scene_file)
         scene, _ = pt.build_scene(host, device="cpu")
         route = texture_route(scene.tex_quads.shape[0])
+        assert bytes(host.textures) == _pil((FIXTURES / name).read_bytes()).tobytes()
         if kind == "textured":
-            ppm = pt.load_scene_file(write_demo_scene(str(tmp_path / "ppm"), 1, kind))
-            assert bytes(host.textures) == bytes(ppm.textures) == demo_texture(32).tobytes()
+            if name.endswith(".tga"):
+                ppm = pt.load_scene_file(write_demo_scene(str(tmp_path / "ppm"), 1, kind))
+                assert bytes(host.textures) == bytes(ppm.textures) == demo_texture(32).tobytes()
             assert route == "small"
         else:
             assert scene.tex_quads.shape[0] == 2048 and route == "windowed"
-            assert bytes(host.textures) == _pil((FIXTURES / name).read_bytes()).tobytes()
 
 
 def test_large_lzw_files_decode_equal_pil():

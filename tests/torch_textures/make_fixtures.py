@@ -13,11 +13,15 @@ luma sampled 3x1, plain PNM with comments and odd maxvals, RLE8, RLE4,
 565-bitfield, OS/2 and top-down BMPs, TGAs with a 16-bit colour map and
 with RLE packets across rows, a GIF with a local palette and a frame
 smaller than its screen, and TIFFs in planar tiles, big-endian 16-bit RGB
-and fill order 2. The builders (`bmp_file`, `tga_file`, `gif_file`,
-`tiff_file`, `jpeg_sampled` and their encoders) serve the tests too.
-pil_rgb.json holds each file's shape and the SHA-256 of
-`Image.open(f).convert("RGB")`'s bytes, with the Pillow and libjpeg-turbo
-versions that made them; the tests and chip_smoke.py's textures phase hold
+and fill order 2; WebP files PIL writes (lossless, lossy, with alpha) and
+built here (an animation whose first frame is smaller than its canvas,
+VP8 frames from a boolean encoder with the header features PIL's encoder
+leaves out, VP8L with simple codes and every palette bundling width). The
+builders (`bmp_file`, `tga_file`, `gif_file`, `tiff_file`, `jpeg_sampled`,
+`vp8_frame`, `vp8l_palette`, `riff_webp` and their encoders) serve the
+tests too. pil_rgb.json holds each file's shape and the SHA-256 of
+`Image.open(f).convert("RGB")`'s bytes, with the Pillow, libjpeg-turbo and
+libwebp versions that made them; the tests and chip_smoke.py's textures phase hold
 the port's decoders to those hashes.
 """
 
@@ -499,6 +503,597 @@ def new_formats(rng, Image) -> dict:
     return files
 
 
+# --- WebP --------------------------------------------------------------------
+
+def riff_webp(chunks) -> bytes:
+    """A RIFF WEBP file of (fourcc, payload) chunks, each padded to even."""
+    body = b"".join(fourcc + struct.pack("<I", len(p)) + p + b"\0" * (len(p) & 1)
+                    for fourcc, p in chunks)
+    return b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WEBP" + body
+
+
+def vp8x(flags: int, width: int, height: int) -> tuple:
+    """A VP8X chunk: flags (0x10 alpha, 0x02 animation) and the canvas."""
+    return b"VP8X", bytes([flags, 0, 0, 0]) + (width - 1).to_bytes(3, "little") + (
+        height - 1).to_bytes(3, "little")
+
+
+def anmf(x: int, y: int, width: int, height: int, chunks, duration: int = 100,
+         flags: int = 0) -> tuple:
+    """An ANMF chunk: a frame at (x, y) (even), its size, and its
+    sub-chunks (ALPH, VP8 or VP8L) as (fourcc, payload)."""
+    head = b"".join(v.to_bytes(3, "little") for v in (x // 2, y // 2, width - 1, height - 1,
+                                                      duration)) + bytes([flags])
+    return b"ANMF", head + b"".join(f + struct.pack("<I", len(p)) + p + b"\0" * (len(p) & 1)
+                                    for f, p in chunks)
+
+
+def webp_chunks(data: bytes) -> list:
+    """The (fourcc, payload) chunks of a RIFF WEBP file."""
+    out, pos = [], 12
+    while pos + 8 <= len(data):
+        size = int.from_bytes(data[pos + 4:pos + 8], "little")
+        out.append((data[pos:pos + 4], data[pos + 8:pos + 8 + size]))
+        pos += 8 + size + (size & 1)
+    return out
+
+
+def alph_raw(alpha: np.ndarray, filt: int) -> bytes:
+    """An ALPH chunk's payload, uncompressed (method 0), the (h, w) uint8
+    plane under filter `filt` (0 none, 1 horizontal, 2 vertical, 3
+    gradient; row 0 from the left, its first value from 0, a row's first
+    value from the one above)."""
+    a = alpha.astype(np.int64)
+    pred = np.zeros_like(a)
+    pred[0, 1:] = a[0, :-1]
+    if filt:
+        pred[1:, 0] = a[:-1, 0]
+        if filt == 1:
+            pred[1:, 1:] = a[1:, :-1]
+        elif filt == 2:
+            pred[1:, 1:] = a[:-1, 1:]
+        else:
+            pred[1:, 1:] = np.clip(a[1:, :-1] + a[:-1, 1:] - a[:-1, :-1], 0, 255)
+    else:
+        pred[:] = 0
+    return bytes([filt << 2]) + ((a - pred) & 255).astype(np.uint8).tobytes()
+
+
+class BoolWriter:
+    """VP8's boolean entropy encoder (RFC 6386 section 7.3)."""
+
+    def __init__(self):
+        self.out, self.range, self.bottom, self.count = bytearray(), 255, 0, 24
+
+    def _carry(self):
+        i = len(self.out) - 1
+        while self.out[i] == 255:
+            self.out[i] = 0
+            i -= 1
+        self.out[i] += 1
+
+    def put(self, bit: int, prob: int) -> None:
+        split = 1 + (((self.range - 1) * prob) >> 8)
+        if bit:
+            self.bottom += split
+            self.range -= split
+        else:
+            self.range = split
+        while self.range < 128:
+            self.range <<= 1
+            if self.bottom & (1 << 31):
+                self._carry()
+            self.bottom = (self.bottom << 1) & 0xFFFFFFFF
+            self.count -= 1
+            if self.count == 0:
+                self.out.append(self.bottom >> 24)
+                self.bottom &= 0xFFFFFF
+                self.count = 8
+
+    def literal(self, value: int, bits: int) -> None:
+        for k in range(bits - 1, -1, -1):
+            self.put((value >> k) & 1, 128)
+
+    def signed(self, value: int, bits: int) -> None:
+        self.literal(abs(value), bits)
+        self.put(int(value < 0), 128)
+
+    def flush(self) -> bytes:
+        c, v = self.count, self.bottom
+        if v & (1 << (32 - c)):
+            self._carry()
+        v = (v << (c & 7)) & 0xFFFFFFFF
+        for _ in range(c >> 3):
+            v = (v << 8) & 0xFFFFFFFF
+        for _ in range(4):
+            self.out.append(v >> 24)
+            v = (v << 8) & 0xFFFFFFFF
+        return bytes(self.out)
+
+
+def _tree_path(tree, leaf: int) -> list:
+    """(node, bit) pairs from the root to `leaf` in a VP8 tree array."""
+    def walk(i, path):
+        for bit in (0, 1):
+            nxt = tree[i + bit]
+            here = path + [(i // 2, bit)]
+            if nxt <= 0 and -nxt == leaf:
+                return here
+            if nxt > 0:
+                found = walk(2 * nxt, here)
+                if found:
+                    return found
+        return None
+    return walk(0, [])
+
+
+def vp8_frame(rng, width: int, height: int, *, simple: bool = False, level: int = 20,
+              sharpness: int = 0, partitions: int = 1, segments=None, deltas=None,
+              base_q: int = 30, qdeltas=(0, 0, 0, 0, 0), skip_prob=None, i4_share: float = 0.5,
+              density: float = 0.3, updates: int = 6) -> bytes:
+    """A VP8 key frame (a "VP8 " chunk's payload) of seeded macroblocks:
+    random segments, skip flags, 16x16 / 4x4 / chroma modes and sparse
+    coefficients (runs of zeros, every token size up to category 6, each
+    value times its quantiser within +-2047) under the given header: the
+    simple or normal loop filter, its level and sharpness, 1-8 token
+    partitions, segmentation (dict: absolute, quant, filter, probs) with
+    per-segment quantiser and filter levels, loop-filter deltas ((ref,
+    mode), 4 each), the base quantiser and its 5 deltas, the skip
+    probability, and `updates` coefficient probabilities updated."""
+    from relativitypathtracer_tpu_torch.utils import webp_lossy as wl
+
+    mb_w, mb_h = (width + 15) >> 4, (height + 15) >> 4
+    head = BoolWriter()
+    head.put(0, 128)  # colour space
+    head.put(0, 128)  # clamping type
+    head.put(segments is not None, 128)
+    if segments is not None:
+        head.put(1, 128)  # update the map
+        head.put(1, 128)  # update the data
+        head.put(segments["absolute"], 128)
+        for v, bits in [(q, 7) for q in segments["quant"]] + [(f, 6) for f in segments["filter"]]:
+            head.put(1, 128)
+            head.signed(v, bits)
+        for p in segments["probs"]:
+            head.put(1, 128)
+            head.literal(p, 8)
+    head.put(simple, 128)
+    head.literal(level, 6)
+    head.literal(sharpness, 3)
+    head.put(deltas is not None, 128)
+    if deltas is not None:
+        head.put(1, 128)
+        for d in list(deltas[0]) + list(deltas[1]):
+            head.put(d != 0, 128)
+            if d:
+                head.signed(d, 6)
+    head.literal(partitions.bit_length() - 1, 2)
+    head.literal(base_q, 7)
+    for d in qdeltas:
+        head.put(d != 0, 128)
+        if d:
+            head.signed(d, 4)
+    head.put(0, 128)  # refresh_entropy_probs
+    probs = bytearray(wl._COEF_PROBS)
+    changed = set(rng.choice(len(probs), updates, replace=False).tolist())
+    for i in range(len(probs)):
+        if i in changed:
+            head.put(1, wl._COEF_UPDATE[i])
+            probs[i] = int(rng.integers(1, 256))
+            head.literal(probs[i], 8)
+        else:
+            head.put(0, wl._COEF_UPDATE[i])
+    head.put(skip_prob is not None, 128)
+    if skip_prob is not None:
+        head.literal(skip_prob, 8)
+    def at(t, n, c):  # the 11 probabilities of type t, position n, context c
+        i = ((t * 8 + wl._BANDS[n]) * 3 + c) * 11
+        return probs[i:i + 11]
+    band = [[[at(t, n, c) for c in range(3)] for n in range(17)] for t in range(4)]
+    def quant(s):  # the segment's dequantisation factors, to bound the values
+        q = base_q if segments is None else segments["quant"][s] + (
+            0 if segments["absolute"] else base_q)
+        return wl.dequant(q, qdeltas)
+
+    def tokens(w, block, t, ctx, first):
+        """Code `block` (16 levels in zig-zag order) as GetCoeffs reads
+        them; returns the position it stops at."""
+        nz = [n for n in range(first, 16) if block[n]]
+        last = nz[-1] if nz else -1
+        n = first
+        p = band[t][n][ctx]
+        while n < 16:
+            if n > last:
+                w.put(0, p[0])
+                return n
+            w.put(1, p[0])
+            while block[n] == 0:
+                w.put(0, p[1])
+                n += 1
+                p = band[t][n][0]
+            w.put(1, p[1])
+            v = abs(block[n])
+            if v == 1:
+                w.put(0, p[2])
+                nxt = 1
+            else:
+                w.put(1, p[2])
+                nxt = 2
+                if v <= 4:
+                    w.put(0, p[3])
+                    w.put(v > 2, p[4])
+                    if v > 2:
+                        w.put(v - 3, p[5])
+                elif v <= 10:
+                    w.put(1, p[3])
+                    w.put(0, p[6])
+                    w.put(v > 6, p[7])
+                    if v <= 6:
+                        w.put(v - 5, 159)
+                    else:
+                        w.put((v - 7) >> 1, 165)
+                        w.put((v - 7) & 1, 145)
+                else:
+                    w.put(1, p[3])
+                    w.put(1, p[6])
+                    cat = 0 if v < 19 else 1 if v < 35 else 2 if v < 67 else 3
+                    w.put(cat >> 1, p[8])
+                    w.put(cat & 1, p[9 + (cat >> 1)])
+                    extra = v - 3 - (8 << cat)
+                    cats = wl._CATS[cat]
+                    for k, prob in enumerate(cats):
+                        w.put((extra >> (len(cats) - 1 - k)) & 1, prob)
+            w.put(int(block[n] < 0), 128)
+            n += 1
+            p = band[t][n][nxt]
+        return 16
+
+    def levels(first, dq_dc, dq_ac):
+        block = [0] * 16
+        for n in range(first, 16):
+            if rng.random() < density * (1.2 - n / 16):
+                dq = dq_ac if n else dq_dc
+                top = max(1, 2047 // dq)
+                size = (1, 2, 3, 5, 8, 15, 30, 60, 200, 2114)[int(rng.integers(0, 10))]
+                block[n] = int(rng.integers(1, min(size, top) + 1)) * int(rng.choice([-1, 1]))
+        return block
+
+    parts = [BoolWriter() for _ in range(partitions)]
+    seg_probs = segments["probs"] if segments else None
+    top_modes = [wl.DC] * (4 * mb_w)
+    nz_top, nz_dc_top = [0] * mb_w, [0] * mb_w
+    for my in range(mb_h):
+        left_modes = [wl.DC] * 4
+        nz_left = nz_dc_left = 0
+        tw = parts[my % partitions]
+        for mx in range(mb_w):
+            seg = int(rng.integers(0, 4)) if segments else 0
+            if segments:
+                head.put(seg >= 2, seg_probs[0])
+                head.put(seg & 1, seg_probs[1 + (seg >= 2)])
+            skip = skip_prob is not None and rng.random() < 0.2
+            if skip_prob is not None:
+                head.put(int(skip), skip_prob)
+            i4 = rng.random() < i4_share
+            head.put(int(not i4), 145)
+            if not i4:
+                mode = int(rng.choice([wl.DC, wl.VE, wl.HE, wl.TM]))
+                head.put(mode in (wl.TM, wl.HE), 156)
+                head.put(mode in (wl.TM, wl.VE), 128 if mode in (wl.TM, wl.HE) else 163)
+                top_modes[4 * mx:4 * mx + 4] = [mode] * 4
+                left_modes = [mode] * 4
+            else:
+                for y in range(4):
+                    for x in range(4):
+                        mode = int(rng.integers(0, 10))
+                        base = (top_modes[4 * mx + x] * 10 + left_modes[y]) * 9
+                        for node, bit in _tree_path(wl._BMODE_TREE, mode):
+                            head.put(bit, wl._BMODE_PROBS[base + node])
+                        top_modes[4 * mx + x] = left_modes[y] = mode
+            uv = int(rng.choice([wl.DC, wl.VE, wl.HE, wl.TM]))
+            head.put(uv != wl.DC, 142)
+            if uv != wl.DC:
+                head.put(uv != wl.VE, 114)
+                if uv != wl.VE:
+                    head.put(uv == wl.TM, 183)
+            if skip:
+                nz_top[mx] = nz_left = 0
+                if not i4:
+                    nz_dc_top[mx] = nz_dc_left = 0
+                continue
+            y1dc, y1ac, y2dc, y2ac, uvdc, uvac = quant(seg)
+            if not i4:
+                nz = tokens(tw, levels(0, y2dc, y2ac), 1, nz_dc_top[mx] + nz_dc_left, 0)
+                nz_dc_top[mx] = nz_dc_left = int(nz > 0)
+                first, t = 1, 0
+            else:
+                first, t = 0, 3
+            tnz, lnz = nz_top[mx] & 15, nz_left & 15
+            for y in range(4):
+                left = lnz & 1
+                for x in range(4):
+                    nz = tokens(tw, levels(first, y1dc, y1ac), t, left + (tnz & 1), first)
+                    left = int(nz > first)
+                    tnz = (tnz >> 1) | (left << 7)
+                tnz >>= 4
+                lnz = (lnz >> 1) | (left << 7)
+            out_t, out_l = tnz, lnz >> 4
+            for ch in (0, 2):
+                tnz, lnz = nz_top[mx] >> (4 + ch), nz_left >> (4 + ch)
+                for y in range(2):
+                    left = lnz & 1
+                    for x in range(2):
+                        nz = tokens(tw, levels(0, uvdc, uvac), 2, left + (tnz & 1), 0)
+                        left = int(nz > 0)
+                        tnz = (tnz >> 1) | (left << 3)
+                    tnz >>= 2
+                    lnz = (lnz >> 1) | (left << 5)
+                out_t |= (tnz << 4) << ch
+                out_l |= (lnz & 0xF0) << ch
+            nz_top[mx], nz_left = out_t, out_l
+    first_part = head.flush()
+    streams = [p.flush() for p in parts]
+    tag = (1 << 4) | (len(first_part) << 5)  # a key frame, version 0, shown
+    return (tag.to_bytes(3, "little") + b"\x9d\x01\x2a" + struct.pack("<HH", width, height)
+            + first_part + b"".join(len(s).to_bytes(3, "little") for s in streams[:-1])
+            + b"".join(streams))
+
+
+class LsbWriter:
+    """VP8L's bit writer: values least significant bit first, prefix
+    codes first bit first."""
+
+    def __init__(self):
+        self.acc, self.n = 0, 0
+
+    def bits(self, value: int, count: int) -> None:
+        self.acc |= value << self.n
+        self.n += count
+
+    def code(self, code: int, length: int) -> None:
+        for k in range(length - 1, -1, -1):
+            self.bits((code >> k) & 1, 1)
+
+    def done(self) -> bytes:
+        return self.acc.to_bytes((self.n + 7) // 8, "little")
+
+
+# a code-length code over 0, 8, 16 (repeat the last length 3-6 times), 17
+# (3-10 zeros) and 18 (11-138 zeros): their lengths, and canonical codes
+_CL_LENGTHS = {8: 2, 16: 2, 18: 2, 0: 3, 17: 3}
+_CL_CODES = {8: 0b00, 16: 0b01, 18: 0b10, 0: 0b110, 17: 0b111}
+_CL_ORDER = (17, 18, 0, 1, 2, 3, 4, 5, 16, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15)
+
+
+def vp8l_all_8(w: LsbWriter, alphabet: int, max_symbol: bool = False) -> None:
+    """A normal prefix code giving each of symbols 0-255 length 8 (so a
+    symbol's code is itself), the rest none: its code lengths through the
+    code-length code with repeat codes 16, 17 and 18; with `max_symbol`,
+    the count of code-length symbols read is given and the zeros past 255
+    are not coded."""
+    w.bits(0, 1)
+    w.bits(12 - 4, 4)  # code-length code lengths for the first 12 of the order
+    for s in _CL_ORDER[:12]:
+        w.bits(_CL_LENGTHS.get(s, 0), 3)
+    toks = [(8, None)]
+    left = 255
+    while left:
+        n = min(6, left) if left - min(6, left) not in (1, 2) else left - 3
+        toks.append((16, n - 3))
+        left -= n
+    zeros = alphabet - 256
+    if not max_symbol:
+        while zeros:
+            n = min(138, zeros)
+            toks.append((18, n - 11) if n >= 11 else (17, n - 3) if n >= 3 else (0, None))
+            zeros -= n if n >= 3 else 1
+    w.bits(int(max_symbol), 1)
+    if max_symbol:
+        w.bits(3, 3)  # length_nbits 2 + 2 * 3
+        w.bits(len(toks) - 2, 8)
+    for sym, extra in toks:
+        w.code(_CL_CODES[sym], _CL_LENGTHS[sym])
+        if extra is not None:
+            w.bits(extra, {16: 2, 17: 3, 18: 7}[sym])
+
+
+def vp8l_simple_code(w: LsbWriter, symbols) -> None:
+    """A simple prefix code of one or two symbols (the first in 1 bit when
+    it is 0 or 1, else 8)."""
+    w.bits(1, 1)
+    w.bits(len(symbols) - 1, 1)
+    short = symbols[0] < 2
+    w.bits(0 if short else 1, 1)
+    w.bits(symbols[0], 1 if short else 8)
+    if len(symbols) == 2:
+        w.bits(symbols[1], 8)
+
+
+def vp8l_palette(rng, width: int, height: int, colours: int) -> bytes:
+    """A VP8L bitstream of seeded indices into a seeded palette of
+    `colours` (1-256) ARGB entries, through the colour-indexing transform:
+    2, 4, 16 or 256 colours bundle 8, 4, 2 or 1 indices a pixel; the
+    palette coded as deltas with all-8-bit codes, the bundled image's
+    green the same, red, blue and alpha one-symbol simple codes."""
+    w = LsbWriter()
+    w.bits(0x2F, 8)
+    w.bits(width - 1, 14)
+    w.bits(height - 1, 14)
+    w.bits(1, 1)
+    w.bits(0, 3)
+    w.bits(1, 1)  # a transform:
+    w.bits(3, 2)  # colour indexing
+    w.bits(colours - 1, 8)
+    pal = rng.integers(0, 256, (colours, 4))
+    delta = (pal - np.concatenate([np.zeros((1, 4), np.int64), pal[:-1]])) & 255
+    w.bits(0, 1)  # no colour cache
+    for alphabet in (280, 256, 256, 256):
+        vp8l_all_8(w, alphabet, max_symbol=alphabet == 280)
+    vp8l_simple_code(w, [0])
+    for a, r, g, b in delta.tolist():
+        w.code(g, 8)
+        w.code(r, 8)
+        w.code(b, 8)
+        w.code(a, 8)
+    w.bits(0, 1)  # no more transforms
+    bits = 0 if colours > 16 else 1 if colours > 4 else 2 if colours > 2 else 3
+    idx = rng.integers(0, colours, (height, width))
+    per = 8 >> bits
+    packed_w = -(-width // (1 << bits))
+    padded = np.zeros((height, packed_w << bits), np.int64)
+    padded[:, :width] = idx
+    packed = (padded.reshape(height, packed_w, 1 << bits) << (np.arange(1 << bits) * per)).sum(2)
+    w.bits(0, 1)  # no colour cache
+    w.bits(0, 1)  # no meta prefix codes
+    vp8l_all_8(w, 280)
+    vp8l_simple_code(w, [0])
+    vp8l_simple_code(w, [0])
+    vp8l_simple_code(w, [255])
+    vp8l_simple_code(w, [0])
+    for g in packed.ravel().tolist():
+        w.code(g, 8)
+    return w.done()
+
+
+def vp8l_simple(rng, width: int, height: int) -> bytes:
+    """A VP8L bitstream of simple prefix codes only: green and blue of two
+    symbols (one bit a pixel), red and alpha of one (none), no transform,
+    no distance ever used."""
+    w = LsbWriter()
+    w.bits(0x2F, 8)
+    w.bits(width - 1, 14)
+    w.bits(height - 1, 14)
+    w.bits(0, 1)
+    w.bits(0, 3)
+    w.bits(0, 1)  # no transform
+    w.bits(0, 1)  # no colour cache
+    w.bits(0, 1)  # no meta prefix codes
+    greens, blues = sorted(rng.choice(256, 2, replace=False).tolist()), [1, 230]
+    vp8l_simple_code(w, greens)
+    vp8l_simple_code(w, [int(rng.integers(2, 256))])
+    vp8l_simple_code(w, blues)
+    vp8l_simple_code(w, [200])
+    vp8l_simple_code(w, [1])
+    for g, b in rng.integers(0, 2, (width * height, 2)).tolist():
+        w.bits(g, 1)
+        w.bits(b, 1)
+    return w.done()
+
+
+def webp_fixtures(rng, Image) -> dict:
+    """WebP files: PIL's lossless (with and without `exact`, with alpha),
+    lossy at several qualities and methods and odd sizes, lossy with alpha
+    at several alpha qualities; a two-frame animation whose first frame is
+    smaller than the canvas; and what PIL's encoder never writes: VP8
+    frames with the simple filter, sharpness, 4 and 8 partitions,
+    segmentation with per-segment quantiser and filter levels and
+    loop-filter deltas (one in VP8X with an uncompressed, gradient-filtered
+    ALPH chunk), VP8L with simple codes only and colour-indexed at every
+    bundling width. The textured and cubes scenes' textures of
+    chip_smoke.py's textures phase: the 32x32 demo texture lossy, the
+    cubes' 64x64 squares lossless."""
+    from relativitypathtracer_tpu_torch.utils.demo_scene import demo_texture
+
+    def save(im, **kw):
+        buf = io.BytesIO()
+        im.save(buf, "WEBP", **kw)
+        return buf.getvalue()
+
+    def rgba(h, w):
+        a = rng.integers(0, 256, (h, w, 1)).astype(np.uint8)
+        a[::3, ::2] = 0
+        return Image.fromarray(np.concatenate([_picture(rng, h, w), a], 2), "RGBA")
+
+    files = {}
+    files["lossless.webp"] = save(Image.fromarray(_picture(rng, 19, 23)), lossless=True)
+    files["lossless_alpha.webp"] = save(rgba(15, 17), lossless=True, quality=100, method=6)
+    files["lossless_exact.webp"] = save(rgba(13, 11), lossless=True, exact=True, quality=30,
+                                        method=1)
+    files["lossy_q80.webp"] = save(Image.fromarray(_picture(rng, 21, 37)), quality=80)
+    files["lossy_q20_m6.webp"] = save(Image.fromarray(_picture(rng, 33, 17)), quality=20,
+                                      method=6)
+    files["lossy_q95_m0.webp"] = save(Image.fromarray(_picture(rng, 9, 30)), quality=95,
+                                      method=0)
+    files["lossy_alpha.webp"] = save(rgba(18, 25), quality=70, alpha_quality=40)
+    files["lossy_alpha_q100.webp"] = save(rgba(11, 21), quality=60, alpha_quality=100,
+                                          method=5)
+    # an animation: frame 1 (lossy, 20x14) at (6, 4) on a 40x30 canvas, frame 2
+    # (lossless) at (0, 0)
+    first = webp_chunks(save(Image.fromarray(_picture(rng, 14, 20)), quality=75))
+    second = webp_chunks(save(Image.fromarray(_picture(rng, 30, 40)), lossless=True))
+    files["animated.webp"] = riff_webp([
+        vp8x(0x02, 40, 30), (b"ANIM", bytes([10, 20, 30, 255, 0, 0])),
+        anmf(6, 4, 20, 14, [c for c in first if c[0] == b"VP8 "]),
+        anmf(0, 0, 40, 30, [c for c in second if c[0] == b"VP8L"], flags=2)])
+    seg = {"absolute": 0, "quant": [-10, 0, 12, 25], "filter": [-8, 0, 9, 30],
+           "probs": [120, 60, 200]}
+    files["vp8_simple.webp"] = riff_webp([(b"VP8 ", vp8_frame(
+        rng, 37, 45, simple=True, level=24, sharpness=3, partitions=4, segments=seg,
+        deltas=((3, -2, 1, 0), (-4, 0, 2, 5)), base_q=20, qdeltas=(2, -3, 4, -2, 1),
+        skip_prob=180))])
+    seg = {"absolute": 1, "quant": [5, 40, 70, 110], "filter": [0, 12, 33, 63],
+           "probs": [90, 160, 30]}
+    alpha = rng.integers(0, 256, (120, 7)).astype(np.uint8)
+    files["vp8_normal8_alpha.webp"] = riff_webp([
+        vp8x(0x10, 7, 120), (b"ALPH", alph_raw(alpha, 3)),
+        (b"VP8 ", vp8_frame(rng, 7, 120, level=40, sharpness=6, partitions=8, segments=seg,
+                            deltas=((-6, 0, 0, 0), (9, 0, 0, 0)), base_q=12,
+                            density=0.15, i4_share=0.7))])
+    files["vp8l_simple.webp"] = riff_webp([(b"VP8L", vp8l_simple(rng, 23, 14))])
+    for colours in (2, 4, 16, 256):
+        files[f"vp8l_palette{colours}.webp"] = riff_webp([
+            (b"VP8L", vp8l_palette(rng, 17 if colours < 256 else 9, 7, colours))])
+    files["blob_lossy.webp"] = save(Image.fromarray(demo_texture(32)), quality=85)
+    square = (np.add.outer(np.arange(64) // 8 * 3, np.arange(64) // 8 * 5) % 6)
+    colours = rng.integers(30, 225, (6, 3)).astype(np.uint8)
+    files["cubes_lossless.webp"] = save(Image.fromarray(colours[square]), lossless=True)
+    return files
+
+
+def jpeg_scans(data: bytes, keep) -> bytes:
+    """A progressive JPEG with only the scans numbered in `keep` (from 0),
+    each with the DHT segments before it, then EOI: coefficient bits left
+    unsent, which libjpeg block-smooths."""
+    pos, head, units, pending = 2, None, [], b""
+    while data[pos + 1] != 0xD9:
+        marker = data[pos + 1]
+        end = pos + 2 + int.from_bytes(data[pos + 2:pos + 4], "big")
+        if marker == 0xDA:  # the scan's data runs to the next marker but RSTn
+            while not (data[end] == 0xFF and data[end + 1] != 0
+                       and not 0xD0 <= data[end + 1] <= 0xD7):
+                end += 1
+            if head is None:
+                head, pending = data[:pos], b""
+            units.append(pending + data[pos:end])
+            pending = b""
+        else:
+            pending += data[pos:end]
+        pos = end
+    return head + b"".join(u for k, u in enumerate(units) if k in keep) + b"\xff\xd9"
+
+
+def smoothed_jpegs(rng, Image) -> dict:
+    """Progressive JPEGs written by PIL (libjpeg's default scan script)
+    with scans left out: 4:2:0 with its DC scan only (DC at Al 1, never
+    refined), 4:4:4 after its first three scans, 4:2:0 with every chroma
+    AC scan gone, greyscale after its first two scans."""
+    def save(im, **kw):
+        buf = io.BytesIO()
+        im.save(buf, "JPEG", progressive=True, **kw)
+        return buf.getvalue()
+
+    files = {}
+    files["prog_dc_only.jpg"] = jpeg_scans(save(Image.fromarray(_picture(rng, 30, 44)),
+                                                quality=85), {0})
+    files["prog_first3.jpg"] = jpeg_scans(save(Image.fromarray(_picture(rng, 21, 27)),
+                                               quality=70, subsampling="4:4:4"), {0, 1, 2})
+    files["prog_no_chroma_ac.jpg"] = jpeg_scans(save(Image.fromarray(_picture(rng, 26, 35)),
+                                                     quality=90), {0, 1, 4, 5, 6, 9})
+    files["prog_grey_first2.jpg"] = jpeg_scans(save(Image.fromarray(_picture(rng, 17, 40))
+                                                    .convert("L"), quality=75), {0, 1})
+    return files
+
+
 def main() -> None:
     from PIL import Image, features
 
@@ -530,8 +1125,10 @@ def main() -> None:
         files[name] = buf.getvalue()
     files["interlaced.png"] = interlaced_png(_picture(rng, 27, 37), rng)
     files.update(new_formats(np.random.default_rng(SEED + 1), Image))
+    files.update(webp_fixtures(np.random.default_rng(SEED + 2), Image))
+    files.update(smoothed_jpegs(np.random.default_rng(SEED + 3), Image))
     record = {"pillow": features.version("pil"), "libjpeg_turbo": features.version("libjpeg_turbo"),
-              "files": {}}
+              "libwebp": features.version("webp"), "files": {}}
     for name, data in files.items():
         (HERE / name).write_bytes(data)
         with Image.open(io.BytesIO(data)) as im:

@@ -41,7 +41,7 @@ def _cpu_model() -> str:
 
 def files(Image) -> dict:
     """name -> bytes, 1024x1024 each."""
-    from torch_textures.make_fixtures import bmp_file, bmp_rle, tiff_file
+    from torch_textures.make_fixtures import bmp_file, bmp_rle, jpeg_scans, tiff_file
 
     from relativitypathtracer_tpu_torch.utils.demo_scene import demo_texture
 
@@ -76,7 +76,13 @@ def files(Image) -> dict:
         "TIFF planar LZW tiles": tiff_file(rgb, 8, 2, comp=5, planar=2, tile=(256, 256)),
         "JPEG": save(im, "JPEG", quality=90),
         "JPEG CMYK": save(im.convert("CMYK"), "JPEG", quality=90),
+        # libjpeg's default progression cut after its third scan: luma ACs
+        # 1-5 at Al 2, Cr's at Al 1, the rest unsent (block-smoothed)
+        "JPEG progressive, unsent bits": jpeg_scans(save(im, "JPEG", quality=90,
+                                                         progressive=True), {0, 1, 2}),
         "PNG": save(im, "PNG"),
+        "WebP lossless": save(im, "WEBP", lossless=True),
+        "WebP lossy": save(im, "WEBP", quality=90),
     }
     return out
 
