@@ -116,14 +116,17 @@ It prints each path's seconds. Then it renders the textured path at msaa 2,
           tests/torch_textures (JPEG, progressive JPEGs with unsent bits,
           PNG, the PNM family, BMP, TGA, GIF, TIFF, WebP) decoded by
           models/texture.decode_texture to the SHA-256 PIL gave where they
-          were made (pil_rgb.json), with its ms (the WebP files' again on a
-          line of their own); the textured fixture with its 32x32 texture as
+          were made (pil_rgb.json), with its ms (the WebP files', the
+          arithmetic-coded JPEGs' and the JPEG-in-TIFF files' again on a
+          line each); the textured fixture with its 32x32 texture as
           a baseline 4:2:0 JPEG (utils/image.encode_jpeg; a 512-row atlas,
-          K2), as an RLE TGA (the committed blob_rle.tga) and as a lossy
-          WebP (blob_lossy.webp), and cubes with its 256x256 texture as a
+          K2), as an RLE TGA (the committed blob_rle.tga), as a lossy
+          WebP (blob_lossy.webp) and as an arithmetic-coded progressive
+          JPEG (blob_arith_prog.jpg), and cubes with its 256x256 texture as a
           PNG (a 32,768-row atlas, K8), with a 64x64 LZW TIFF (the
-          committed cubes_lzw.tif; a 2,048-row atlas, K8) and with the same
-          squares as a lossless WebP (cubes_lossless.webp), each scene
+          committed cubes_lzw.tif; a 2,048-row atlas, K8), with the same
+          squares as a lossless WebP (cubes_lossless.webp) and in 4:2:0
+          JPEG-in-TIFF tiles (cubes_jpeg_tiles.tif), each scene
           written by utils/demo_scene, load_scene_file -> build_scene ->
           build_render_fn at 1024x768: one
           graphed frame with exactly that path's kernels launched, held to
@@ -187,8 +190,10 @@ and two more on the textured and instances fixtures:
           export_sharded_render on 2 logical shards (textured, 512x384)
           equal to the live sharded frame; the export tool
           tools/export_renderer_torch.py --fixture textured --device cuda
-          --selfcheck run once (exit 0); prints the export seconds, the bytes
-          and the loaded frame's p50/p95.
+          --selfcheck run once (exit 0); every load_render runs with no
+          torch.load(weights_only=False) and no fallback to one logged
+          (the tool's stderr free of both); prints the export seconds, the
+          bytes and the loaded frame's p50/p95.
 It prints the interact phase's JSON line, the xl path's K4, K11 and K12 as a
 JSON line {"xl_kernels": [...]} (the keys of the kernels' line), the
 kernels' JSON line, the card's name and power limit, and as its last line
@@ -199,6 +204,7 @@ Any failed check raises.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import math
 import os
@@ -256,7 +262,9 @@ TEXTURE_SCENES = (("textured", "jpg", (256, 192)), ("cubes", "png", (WIDTH, HEIG
                   ("textured", "blob_rle.tga", (256, 192)),
                   ("cubes", "cubes_lzw.tif", (WIDTH, HEIGHT)),
                   ("textured", "blob_lossy.webp", (256, 192)),
-                  ("cubes", "cubes_lossless.webp", (WIDTH, HEIGHT)))
+                  ("cubes", "cubes_lossless.webp", (WIDTH, HEIGHT)),
+                  ("textured", "blob_arith_prog.jpg", (256, 192)),
+                  ("cubes", "cubes_jpeg_tiles.tif", (WIDTH, HEIGHT)))
 BIG_TEXTURE = 2048
 PKG = "relativitypathtracer_tpu_torch/csrc/"
 CSRC = pathlib.Path(__file__).resolve().parent / PKG
@@ -1138,6 +1146,10 @@ def textures_phase(torch, pt, dev, card, state) -> None:
             f"libjpeg-turbo {record['libjpeg_turbo']}, libwebp {record['libwebp']}), PIL "
             "blocked; decode ms: " + ", ".join(times))
         log("  WebP decode ms: " + ", ".join(t for t in times if ".webp " in t))
+        log("  arithmetic-coded JPEG decode ms: " + ", ".join(
+            t for t in times if t.split()[0].endswith(".jpg") and "arith" in t))
+        log("  JPEG-in-TIFF decode ms: " + ", ".join(
+            t for t in times if t.split()[0].endswith(".tif") and "jpeg" in t))
         for kind, fmt, size in TEXTURE_SCENES:
             names = PATHS[kind][1]
             with tempfile.TemporaryDirectory() as tmp:
@@ -1494,6 +1506,37 @@ def sharded_phase(torch, pt, scenes, hosts, states, card):
     log(f"  dryrun_multichip({SHARDS}) on the card: {out}")
 
 
+@contextlib.contextmanager
+def no_full_unpickle(torch, what: str):
+    """Fails `what` if, while the block runs, torch.load is called with
+    weights_only=False (a full unpickle, which can run code from the
+    artifact) or torch's export loader logs its fallback to one."""
+    import logging
+
+    real, unsafe, fallbacks = torch.load, [], []
+
+    def load(*args, **kwargs):
+        if kwargs.get("weights_only") is False:
+            unsafe.append(args)
+        return real(*args, **kwargs)
+
+    class Fallbacks(logging.Handler):
+        def emit(self, record):
+            if "weights_only" in str(record.msg):
+                fallbacks.append(record.msg)
+
+    handler, logger = Fallbacks(), logging.getLogger("torch._export.serde.serialize")
+    torch.load = load
+    logger.addHandler(handler)
+    try:
+        yield
+    finally:
+        torch.load = real
+        logger.removeHandler(handler)
+    check(not unsafe and not fallbacks, f"{what}: torch.load(weights_only=False) ran "
+          f"{len(unsafe)} times, torch logged {len(fallbacks)} fallbacks to it")
+
+
 def export_phase(torch, pt, scenes, states, card, live_launches, live_frames):
     """The exported renderer (utils/aot.py) on the card; see the module
     docstring. live_launches over live_frames frames are the live path's."""
@@ -1507,7 +1550,8 @@ def export_phase(torch, pt, scenes, states, card, live_launches, live_frames):
         data = aot.export_render(scene, meta, WIDTH, HEIGHT, device=dev)
         t_export = time.perf_counter() - t0
         t0 = time.perf_counter()
-        render = aot.load_render(data)
+        with no_full_unpickle(torch, f"export {path}: load_render"):
+            render = aot.load_render(data)
         t_load = time.perf_counter() - t0
         live = pt.build_render_fn(meta, WIDTH, HEIGHT, -1, device=dev)
         t0 = time.perf_counter()
@@ -1535,7 +1579,9 @@ def export_phase(torch, pt, scenes, states, card, live_launches, live_frames):
     devices = [dev] * 2
     t0 = time.perf_counter()
     data = aot.export_sharded_render(scene, meta, 512, 384, devices)
-    got = aot.load_render(data)(scene, states[2])
+    with no_full_unpickle(torch, "export_sharded_render: load_render"):
+        loaded = aot.load_render(data)
+    got = loaded(scene, states[2])
     want = tiles.build_sharded_render_fn(meta, 512, 384, -1, devices)(scene, states[2])
     check(torch.equal(got, want), "export_sharded_render: loaded frame differs")
     log(f"  export_sharded_render textured 512x384 on 2 logical shards: equal to the live "
@@ -1549,6 +1595,10 @@ def export_phase(torch, pt, scenes, states, card, live_launches, live_frames):
     log("  " + "\n  ".join(proc.stdout.strip().splitlines())
         + f"\n  export tool: exit {proc.returncode}, {time.perf_counter() - t0:.1f} s")
     check(proc.returncode == 0, f"export tool --selfcheck failed:\n{proc.stderr[-2000:]}")
+    check("Logging error" not in proc.stderr and "weights_only" not in proc.stderr,
+          f"export tool: torch's loader fell back to a full unpickle:\n{proc.stderr[-2000:]}")
+    log("  load_render of each artifact (single, sharded, the tool's): no "
+        "torch.load(weights_only=False), no fallback logged")
 
 
 def main() -> int:

@@ -10,9 +10,11 @@ load on a host without an image library, byte for byte as PIL's
 `Image.open(f).convert("RGB")` decodes them (the JAX package's decoder; the
 reference's CImg reads PNM and BMP itself and the rest through libraries,
 and the byte layout after its permute_axes("cxyz") is the same row-major
-interleaved RGB): JPEG and PNG by utils/image_decode, the PNM family, BMP,
-TGA and GIF by utils/raster_decode, TIFF by utils/tiff_decode, WebP by
-utils/webp_decode (the first frame on its canvas). The format is
+interleaved RGB): JPEG (Huffman- and arithmetic-coded, utils/jpeg_arith)
+and PNG by utils/image_decode, the PNM family, BMP, TGA and GIF by
+utils/raster_decode, TIFF (JPEG-in-TIFF, new and old style, among its
+compressions) by utils/tiff_decode, WebP by utils/webp_decode (the first
+frame on its canvas). The format is
 told as `Image.open` tells it: by the file's first bytes, in the order PIL
 tries its plugins, TGA (which has no magic number) by its header's checks
 after the others. A format PIL opens and the port does not, and an unknown

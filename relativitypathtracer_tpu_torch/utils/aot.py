@@ -49,6 +49,11 @@ for _t in (ObjectsSoA, MeshArrays, MeshStatic, MeshBatchStatic, Scene, FrameStat
     if _t not in pytree.SUPPORTED_SERIALIZED_TYPES:
         pytree._register_namedtuple(_t, serialized_type_name=f"rpt.{_t.__name__}")
 
+# The types an artifact pickles (its example inputs): the only globals the
+# safe unpickler (torch.load with weights_only=True) is allowed beyond
+# tensors and containers when it loads one.
+_PICKLED = [ObjectsSoA, MeshArrays, MeshStatic, MeshBatchStatic, Scene, FrameState]
+
 # The members of a sharded artifact: a program per distinct device, then the
 # gather's.
 SHARD_PART, SHARD_GATHER = "sharded/part{}.pt2", "sharded/gather.pt2"
@@ -143,6 +148,14 @@ def _program_device(program) -> torch.device:
     return devices.pop()
 
 
+def load_program(data: bytes):
+    """torch.export.load with the port's pickled types allowed to the safe
+    unpickler, so that torch never retries with a full unpickle (which
+    could run code from the artifact); what the safe load refuses raises."""
+    with torch.serialization.safe_globals(_PICKLED):
+        return torch.export.load(io.BytesIO(data))
+
+
 def load_render(data: bytes):
     """Deserialize an exported renderer; returns render(scene, state) ->
     (H, W, 3) image on the artifact's (first) device. Each call runs under
@@ -162,11 +175,15 @@ def load_render(data: bytes):
     new layout starts one. It is built without torch's
     generated guard function (check_guards=False), whose code names an input
     by a textual replace that mangles a path with a sibling as its prefix
-    (`objects.m` inside `objects.mesh_root`)."""
+    (`objects.m` inside `objects.mesh_root`).
+
+    The artifact is unpickled only by torch's safe loader (weights_only),
+    allowed the port's NamedTuples and nothing else: an artifact that needs
+    more raises."""
     with zipfile.ZipFile(io.BytesIO(data)) as archive:
         names = set(archive.namelist())
         if SHARD_GATHER not in names:
-            program = torch.export.load(io.BytesIO(data))
+            program = load_program(data)
             module = program.module(check_guards=False)
 
             def render(scene: Scene, state: FrameState):
@@ -174,9 +191,9 @@ def load_render(data: bytes):
                     return module(scene, state)
 
             return FrameGraph(render, _program_device(program))
-        parts = [torch.export.load(io.BytesIO(archive.read(SHARD_PART.format(j))))
+        parts = [load_program(archive.read(SHARD_PART.format(j)))
                  for j in itertools.takewhile(lambda j: SHARD_PART.format(j) in names,
                                               itertools.count())]
-        gather = torch.export.load(io.BytesIO(archive.read(SHARD_GATHER)))
+        gather = load_program(archive.read(SHARD_GATHER))
     return _graphed([p.module(check_guards=False) for p in parts],
                     [_program_device(p) for p in parts], gather.module(check_guards=False))

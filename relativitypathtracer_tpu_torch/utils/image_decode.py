@@ -7,7 +7,8 @@ without one.
 
 JPEG follows libjpeg (the library behind PIL and the reference's CImg) with
 its default decompression settings: baseline, extended (8-bit) and
-progressive Huffman-coded frames of 1, 3 or 4 components with sampling
+progressive frames, Huffman- or arithmetic-coded (utils/jpeg_arith, with
+the DAC segment's conditioning), of 1, 3 or 4 components with sampling
 factors of 1 to 4; the colour space libjpeg infers (greyscale, YCbCr, RGB
 under Adobe's transform 0 or components named 'R', 'G', 'B', CMYK, or YCCK
 under Adobe's transform 2, which PIL reads as Adobe's inverted CMYK and
@@ -19,8 +20,17 @@ coefficient bits unsent (jdcoefct.c `decompress_smooth_data`). The inverse
 DCT saturates out-of-range values as libjpeg-turbo's SIMD code, which PIL
 runs, does. The entropy
 decode is the one sequential part, a Python loop over symbols (a 16-bit
-peek into a lookup table a symbol); every step after it is vectorised over
-all blocks of a component.
+peek into a lookup table a symbol) or over the arithmetic coder's binary
+decisions; every step after it is vectorised over all blocks of a
+component. `read_tables` and `decode_jpeg_samples` decode the abbreviated
+streams of JPEG-in-TIFF (tables in one stream, the image in others) with
+the colour space the caller sets, and `decode_jpeg_planes` gives
+libjpeg's raw (not upsampled) component planes.
+
+PIL reads a file 64 KB at a time and libjpeg's arithmetic decoder cannot
+wait for more, so PIL fails on an arithmetic-coded file whose scan runs
+past its first read; this module decodes it, to the pixels PIL gives when
+handed the whole file at once.
 
 PNG: every colour type and bit depth, Adam7 interlace, the five filters
 (undone along the image's anti-diagonals, so Average and Paeth, which read
@@ -40,6 +50,7 @@ import zlib
 
 import numpy as np
 
+from . import jpeg_arith
 from .image import ZIGZAG, _huffman_codes
 from .pil_modes import cmyk_to_rgb, palette256, scale_bits, to_rgb
 
@@ -61,15 +72,17 @@ def _check_size(width: int, height: int) -> None:
 # ---------------------------------------------------------------------------
 # JPEG
 
+# the frames decoded here: baseline, extended and progressive, Huffman- or
+# arithmetic-coded; and the others' names
+_SOF_DECODED = {0xC0, 0xC1, 0xC2, 0xC9, 0xCA}
 _SOF_KINDS = {0xC3: "lossless", 0xC5: "differential sequential", 0xC6: "differential progressive",
-              0xC7: "differential lossless", 0xC9: "arithmetic-coded sequential",
-              0xCA: "arithmetic-coded progressive", 0xCB: "arithmetic-coded lossless",
+              0xC7: "differential lossless", 0xCB: "arithmetic-coded lossless",
               0xCD: "arithmetic-coded differential sequential",
               0xCE: "arithmetic-coded differential progressive",
               0xCF: "arithmetic-coded differential lossless"}
 # markers with no segment after them, and those libjpeg skips
 _STANDALONE = {0x01} | set(range(0xD0, 0xD8))
-_SKIPPED = {0xCC, 0xDC, 0xFE} | set(range(0xE0, 0xF0))
+_SKIPPED = {0xDC, 0xFE} | set(range(0xE0, 0xF0))
 
 
 def _huffman_lut(counts: bytes, symbols: bytes, dc: bool) -> list:
@@ -102,12 +115,14 @@ def _huffman_lut(counts: bytes, symbols: bytes, dc: bool) -> list:
 
 class _Frame:
     """A SOF segment: size, precision, components (id, h, v, quantiser
-    table id) and, per component, its size in samples and in blocks."""
+    table id), progressive or not, arithmetic- or Huffman-coded and, per
+    component, its size in samples and in blocks."""
 
     def __init__(self, marker: int, body: bytes):
         if len(body) < 6:
             raise DecodeError("short SOF segment")
-        self.progressive = marker == 0xC2
+        self.progressive = marker in (0xC2, 0xCA)
+        self.arith = marker in (0xC9, 0xCA)
         precision, self.height, self.width, nf = struct.unpack(">BHHB", body[:6])
         if precision != 8:
             raise DecodeError(f"{precision}-bit precision is not supported (SOF)")
@@ -500,14 +515,118 @@ def _color_space(frame, jfif: bool, adobe) -> str:
     return "rgb" if frame.ids == [82, 71, 66] else "ycc"  # ids 'R', 'G', 'B'
 
 
+class Tables:
+    """The tables a JPEG decoder keeps from one stream to the next, as
+    libjpeg keeps them in its decompressor: quantisation tables and Huffman
+    tables by id. An abbreviated table-specification stream (read_tables)
+    fills them for the abbreviated image streams that follow (a JPEG-in-TIFF
+    file's strips and tiles); a table an image stream defines replaces the
+    one of its id for the streams after it too. Arithmetic conditioning
+    (DAC) and the restart interval are not kept: libjpeg resets them at
+    each SOI."""
+
+    def __init__(self):
+        self.q, self.dc, self.ac = {}, {}, {}
+
+
+def read_tables(data: bytes, tables: Tables | None = None) -> Tables:
+    """The tables of an abbreviated table-specification stream (SOI, DQT
+    and DHT segments, EOI), added to `tables` (new ones if None)."""
+    tables = Tables() if tables is None else tables
+    _read(bytes(data), tables, image=False)
+    return tables
+
+
+def read_frame(data: bytes) -> _Frame:
+    """The frame header (SOF) of a JPEG stream, found without decoding a
+    scan: its size, components and their sampling factors."""
+    data = bytes(data)
+    if data[:2] != b"\xff\xd8":
+        raise DecodeError("not a JPEG stream (no SOI)")
+    pos = 2
+    while pos + 4 <= len(data):
+        if data[pos] != 0xFF:
+            raise DecodeError("no marker where a marker segment should start")
+        marker = data[pos + 1]
+        if marker == 0xFF or marker in _STANDALONE:
+            pos += 1 if marker == 0xFF else 2
+            continue
+        end = pos + 2 + int.from_bytes(data[pos + 2:pos + 4], "big")
+        if marker in _SOF_KINDS:
+            raise DecodeError(f"{_SOF_KINDS[marker]} JPEG (SOF{marker - 0xC0}) is not supported")
+        if marker in _SOF_DECODED:
+            return _Frame(marker, data[pos + 4:end])
+        if marker in (0xDA, 0xD9):
+            break
+        pos = end
+    raise DecodeError("no SOF before the first scan")
+
+
 def decode_jpeg(data: bytes) -> np.ndarray:
     """(H, W, 3) uint8 pixels of a JPEG file, top row first, as PIL's
     `convert("RGB")` of it; raises DecodeError on what is not supported,
     corrupt or truncated."""
-    data = bytes(data)
+    samples, space = decode_jpeg_samples(data)
+    if space == "grey":
+        return np.repeat(samples, 3, 2)
+    if space in ("cmyk", "ycck"):  # PIL reads libjpeg's CMYK as Adobe's inverted CMYK (CMYK;I)
+        return cmyk_to_rgb(255 - samples)
+    return samples
+
+
+def decode_jpeg_samples(data: bytes, tables: Tables | None = None, space: str | None = None):
+    """(samples, space) of a JPEG stream: the (H, W, n) uint8 samples that
+    libjpeg's decompressor outputs, top row first, and the colour space it
+    read. `tables` holds the tables of streams read before (read_tables),
+    which the stream's own segments update. `space` overrides the colour
+    space libjpeg infers from the stream's markers, as a caller that sets
+    libjpeg's jpeg_color_space does: "ycc" (converted to RGB) or "raw"
+    (JCS_UNKNOWN: the components as decoded, each upsampled to the image's
+    size). The samples are, by space: "grey" one channel; "ycc" and "rgb"
+    RGB; "cmyk" and "ycck" libjpeg's CMYK (YCCK converted: C, M, Y = 255 -
+    the YCC conversion's R, G, B); "raw" one channel a component."""
+    frame, planes, inferred = decode_jpeg_planes(data, tables)
+    space = space or inferred
+    if space == "ycc" and len(frame.ids) != 3:
+        raise DecodeError(f"{len(frame.ids)} components where YCbCr has 3")
+    planes = [_upsample(p, frame.max_h // h, frame.max_v // v)[:frame.height, :frame.width]
+              .astype(np.uint8) for p, h, v in zip(planes, frame.h, frame.v)]
+    if space == "ycc":
+        return _ycc_to_rgb(*planes), space
+    if space == "ycck":  # jdcolor.c ycck_cmyk_convert
+        return np.concatenate([255 - _ycc_to_rgb(*planes[:3]), planes[3][..., None]], -1), space
+    return np.stack(planes, -1), space
+
+
+def decode_jpeg_planes(data: bytes, tables: Tables | None = None):
+    """(frame, planes, space) of a JPEG stream: each component's samples
+    at its own size (its share of the image's, rounded up), as libjpeg's
+    raw-data output gives them (block smoothing, inverse DCT, no
+    upsampling, no colour conversion), and the colour space libjpeg infers.
+    `tables` as for decode_jpeg_samples."""
+    frame, coefs, bits, latched, space = _read(bytes(data), Tables() if tables is None
+                                               else tables, image=True)
+    smooth = frame.progressive and _smoothing_ok(bits, latched)
+    planes = []
+    for c in range(len(frame.ids)):
+        coef = _block_smooth(frame, c, coefs[c], bits[c], latched[c]) if smooth else coefs[c]
+        blocks = _idct(coef, latched[c])
+        bh, bw = frame.bh[c], frame.bw[c]
+        plane = blocks.reshape(bh, bw, 8, 8).transpose(0, 2, 1, 3).reshape(bh * 8, bw * 8)
+        planes.append(plane[:frame.ch[c], :frame.cw[c]])
+    return frame, planes, space
+
+
+def _read(data: bytes, tables: Tables, image: bool):
+    """Parse a stream from SOI to EOI and entropy-decode its scans with
+    `tables` (updated by its DQT and DHT segments): (frame, coefficients,
+    bits, latched quantisation tables, colour space) of an image stream;
+    None of a table-specification stream (`image` False), which must hold
+    no frame."""
     if data[:2] != b"\xff\xd8":
         raise DecodeError("not a JPEG file (no SOI)")
-    qtabs, dc_tabs, ac_tabs = {}, {}, {}
+    qtabs, dc_tabs, ac_tabs = tables.q, tables.dc, tables.ac
+    cond = ({}, {})  # DAC: (L, U) of each DC table, Kx of each AC table; reset at SOI
     frame, coefs, latched = None, None, {}
     restart, jfif, adobe, space = 0, False, None, None
     bits = None  # per component: each coefficient's Al after the last scan (-1: never sent)
@@ -540,7 +659,9 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         pos += length
         if marker in _SOF_KINDS:
             raise DecodeError(f"{_SOF_KINDS[marker]} JPEG (SOF{marker - 0xC0}) is not supported")
-        if marker in (0xC0, 0xC1, 0xC2):
+        if marker in _SOF_DECODED:
+            if not image:
+                raise DecodeError("a frame (SOF) in a table-specification stream")
             if frame is not None:
                 raise DecodeError("two SOF markers")
             frame = _Frame(marker, body)
@@ -558,6 +679,18 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                     raise DecodeError(f"bad DHT table class {tc} or id {th}")
                 (ac_tabs if tc else dc_tabs)[th] = _huffman_lut(counts, symbols, tc == 0)
                 i += 17 + sum(counts)
+        elif marker == 0xCC:  # jdmarker.c get_dac
+            if len(body) % 2:
+                raise DecodeError("bad DAC segment length")
+            for index, value in zip(body[::2], body[1::2]):
+                if index >= 32:
+                    raise DecodeError(f"bad DAC table index {index}")
+                if index >= 16:
+                    cond[1][index - 16] = value
+                elif value & 15 > value >> 4:
+                    raise DecodeError(f"bad DAC value {value:#04x}: L above U")
+                else:
+                    cond[0][index] = (value & 15, value >> 4)
         elif marker == 0xDB:
             i = 0
             while i < len(body):
@@ -580,41 +713,22 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 adobe = body[11]
         elif marker == 0xDA:
             if frame is None:
-                raise DecodeError("SOS before SOF")
+                raise DecodeError("a scan (SOS) in a table-specification stream" if not image
+                                  else "SOS before SOF")
             if not latched:  # libjpeg reads the colour space up to the first SOS
                 space = _color_space(frame, jfif, adobe)
-            pos = _decode_scan(data, pos, body, frame, coefs, bits, latched, qtabs, dc_tabs,
-                               ac_tabs, restart)
+            pos = _decode_scan(data, pos, body, frame, coefs, bits, latched, tables, cond,
+                               restart)
         elif marker not in _SKIPPED:
             raise DecodeError(f"unknown marker FF{marker:02X}")
+    if not image:
+        return None
     if frame is None:
         raise DecodeError("no SOF before EOI")
     for c, cid in enumerate(frame.ids):
         if bits[c][0] < 0:
             raise DecodeError(f"component {cid} has no DC scan")
-    smooth = frame.progressive and _smoothing_ok(bits, latched)
-    planes = []
-    for c in range(len(frame.ids)):
-        coef = _block_smooth(frame, c, coefs[c], bits[c], latched[c]) if smooth else coefs[c]
-        blocks = _idct(coef, latched[c])
-        bh, bw = frame.bh[c], frame.bw[c]
-        plane = blocks.reshape(bh, bw, 8, 8).transpose(0, 2, 1, 3).reshape(bh * 8, bw * 8)
-        plane = _upsample(plane[:frame.ch[c], :frame.cw[c]], frame.max_h // frame.h[c],
-                          frame.max_v // frame.v[c])
-        planes.append(plane[:frame.height, :frame.width])
-    if space == "grey":
-        return np.repeat(planes[0].astype(np.uint8)[:, :, None], 3, 2)
-    if space == "rgb":
-        return np.stack(planes, -1).astype(np.uint8)
-    if space == "ycc":
-        return _ycc_to_rgb(*planes)
-    # libjpeg's CMYK (jdcolor.c ycck_cmyk_convert: C, M, Y = 255 - the YCC
-    # conversion's R, G, B); PIL reads it as Adobe's inverted CMYK (CMYK;I)
-    if space == "ycck":
-        inverted = np.concatenate([_ycc_to_rgb(*planes[:3]), 255 - planes[3][..., None]], -1)
-    else:
-        inverted = 255 - np.stack(planes, -1)
-    return cmyk_to_rgb(inverted)
+    return frame, coefs, bits, latched, space
 
 
 # Block smoothing (libjpeg-turbo's jdcoefct.c decompress_smooth_data): the
@@ -719,11 +833,10 @@ def _block_smooth(frame, c, coef, cbits, q) -> np.ndarray:
     return out.reshape(coef.shape)
 
 
-def _decode_scan(data, pos, body, frame, coefs, bits, latched, qtabs, dc_tabs, ac_tabs,
-                 restart) -> int:
+def _decode_scan(data, pos, body, frame, coefs, bits, latched, tables, cond, restart) -> int:
     """Decode one scan (its SOS header `body`, its data from `pos`) into
-    the components' coefficient arrays; returns the offset of the marker
-    after its data."""
+    the components' coefficient arrays, with the frame's entropy coding;
+    returns the offset of the marker after its data."""
     ns = body[0] if body else 0
     if not 1 <= ns <= 4 or len(body) < 4 + 2 * ns:
         raise DecodeError("bad SOS segment")
@@ -743,49 +856,64 @@ def _decode_scan(data, pos, body, frame, coefs, bits, latched, qtabs, dc_tabs, a
         raise DecodeError(f"bad progression parameters Ss {ss} Se {se} Ah {ah} Al {al} (SOS)")
     for c in comps:  # libjpeg latches a component's table at its first scan
         if c not in latched:
-            if frame.tq[c] not in qtabs:
+            if frame.tq[c] not in tables.q:
                 raise DecodeError(f"quantisation table {frame.tq[c]} is not defined (DQT)")
-            latched[c] = qtabs[frame.tq[c]]
-        for k in range(ss, se + 1):  # jdphuff.c start_pass_phuff_decoder
+            latched[c] = tables.q[frame.tq[c]]
+        for k in range(ss, se + 1):  # jdphuff.c / jdarith.c start_pass
             if ah != max(bits[c][k], 0):
                 raise DecodeError(f"bad progression: coefficient {k} of component "
                                   f"{frame.ids[c]} refined out of order (SOS)")
             bits[c][k] = al
         if ss and bits[c][0] < 0:
             raise DecodeError("bad progression: an AC scan before the DC scan (SOS)")
-    need_dc = ss == 0 and ah == 0
     lut_dc, lut_ac = [], []
-    for td, ta in tabs:
-        if need_dc and td not in dc_tabs:
-            raise DecodeError(f"DC Huffman table {td} is not defined (DHT)")
-        if se > 0 and ta not in ac_tabs:
-            raise DecodeError(f"AC Huffman table {ta} is not defined (DHT)")
-        lut_dc.append(dc_tabs.get(td))
-        lut_ac.append(ac_tabs.get(ta))
+    if not frame.arith:
+        need_dc = ss == 0 and ah == 0
+        for td, ta in tabs:
+            if need_dc and td not in tables.dc:
+                raise DecodeError(f"DC Huffman table {td} is not defined (DHT)")
+            if se > 0 and ta not in tables.ac:
+                raise DecodeError(f"AC Huffman table {ta} is not defined (DHT)")
+            lut_dc.append(tables.dc.get(td))
+            lut_ac.append(tables.ac.get(ta))
     blocks, slots, per_mcu = frame.scan_blocks(comps)
     if per_mcu > 10:
         raise DecodeError(f"{per_mcu} blocks an MCU (SOS): at most 10")
     d, intervals, end = _scan_data(data, pos)
     spans = _intervals(blocks.size, restart * per_mcu, intervals)
-    if ah and ss == 0:  # DC refinement: one bit a block, no Huffman code
+    if ah and ss == 0 and not frame.arith:  # Huffman DC refinement: one raw bit a block
         _dc_refine(d, spans, comps, coefs, blocks, slots, al)
         return end
-    w = _windows(d)
     width = se - ss + 1
-    # the scan's band of each of its components, one list, component after component
+    # the scan's band of each of its components, one list, component after
+    # component, holding the coefficients so far: as libjpeg's, a scan writes
+    # only the coefficients it decodes
     offsets = np.cumsum([0] + [coefs[c].shape[0] * width for c in comps])
     bases = (offsets[slots] + blocks * width - ss).tolist()
+    band = array.array("i", np.concatenate(
+        [coefs[c][:, ss:se + 1].ravel() for c in comps]).astype(np.int32).tobytes())
+    slots_l = slots.tolist()
+    if frame.arith:
+        jpeg_arith.decode_scan(d, spans, bases, slots_l, band, tabs, frame.progressive, ss, se,
+                               ah, al, *cond)
+    else:
+        _huffman_scan(d, spans, bases, slots_l, band, frame.progressive, ss, se, ah, al, lut_dc,
+                      lut_ac, ns)
+    band = np.frombuffer(band, np.int32)
+    for j, c in enumerate(comps):
+        coefs[c][:, ss:se + 1] = band[offsets[j]:offsets[j + 1]].reshape(-1, width)
+    return end
+
+
+def _huffman_scan(d, spans, bases, slots, band, progressive, ss, se, ah, al, lut_dc, lut_ac,
+                  ns) -> None:
+    """A Huffman-coded scan into `band`; corrupt data raises."""
+    w = _windows(d)
     try:
-        if ah:  # a refinement reads the band's coefficients so far
-            band = array.array("i", np.concatenate(
-                [coefs[c][:, ss:se + 1].ravel() for c in comps]).tobytes())
-        else:
-            band = array.array("i", bytes(4 * int(offsets[-1])))
-        slots_l = slots.tolist()
-        if not frame.progressive:
-            _decode_sequential(w, spans, bases, slots_l, list(zip(lut_dc, lut_ac)), band, ns)
+        if not progressive:
+            _decode_sequential(w, spans, bases, slots, list(zip(lut_dc, lut_ac)), band, ns)
         elif ss == 0:
-            _decode_dc_first(w, spans, bases, slots_l, lut_dc, band, ns, al)
+            _decode_dc_first(w, spans, bases, slots, lut_dc, band, ns, al)
         elif ah:
             _decode_ac_refine(w, spans, bases, lut_ac[0], band, ss, se, al)
         else:
@@ -794,13 +922,8 @@ def _decode_scan(data, pos, body, frame, coefs, bits, latched, qtabs, dc_tabs, a
         raise DecodeError("corrupt or truncated entropy-coded data") from e
     except OverflowError as e:
         raise DecodeError("corrupt data: a coefficient out of range") from e
-    band = np.frombuffer(band, np.int32)
-    for j, c in enumerate(comps):
-        part = band[offsets[j]:offsets[j + 1]].reshape(-1, width)
-        if np.abs(part).max(initial=0) > 32767:
-            raise DecodeError("corrupt data: a coefficient out of range")
-        coefs[c][:, ss:se + 1] = part
-    return end
+    if np.abs(np.frombuffer(band, np.int32)).max(initial=0) > 32767:
+        raise DecodeError("corrupt data: a coefficient out of range")
 
 
 def _dc_refine(d, spans, comps, coefs, blocks, slots, al) -> None:

@@ -12,15 +12,25 @@ orientation tag is applied as PIL's load does (ImageOps.exif_transpose).
 
   compression  none (1), LZW (5, libtiff's "new" codes: MSB first, the width
                growing a code early), Deflate (8 and 32946), PackBits
-               (32773); predictor 2 (horizontal differencing, 8 and 16 bits)
+               (32773); predictor 2 (horizontal differencing, 8 and 16 bits);
+               JPEG (7: each strip's or tile's stream by utils/image_decode,
+               with the JPEGTables tag's tables, YCbCr converted to RGB by
+               libjpeg as PIL asks; libtiff's checks of each stream's
+               components, sampling and size) and old-style JPEG (6: the
+               JPEGInterchangeFormat stream in one strip, or the tables in
+               tags 519-521 in any number of strips; libjpeg's raw planes,
+               then libtiff's YCbCr to RGB with chroma repeated)
   layout       strips and tiles, chunky and planar (PlanarConfiguration 2)
   photometric  bilevel and grey (0, 1) at 1, 2, 4, 8 and 16 bits, palette
                (3) at 1, 2, 4 and 8, RGB (2) and CMYK (5) at 8 and 16, with
-               their extra samples (alpha, premultiplied alpha, unspecified)
+               their extra samples (alpha, premultiplied alpha, unspecified);
+               YCbCr (6) under JPEG
 
-Anything else (JPEG-in-TIFF, CCITT, LZMA, ZSTD, WebP, old-style LZW,
-YCbCr, CIELab, floating point, BigTIFF) raises DecodeError naming it, as
-does corrupt or truncated data; nothing returns a partial image.
+Anything else (CCITT, LZMA, ZSTD, WebP, old-style LZW, YCbCr under another
+compression or planar, CIELab, floating point, BigTIFF, an old-style JPEG
+interchange format in several strips or with other YCbCr coefficients or
+reference values than the defaults) raises DecodeError naming it, as does
+corrupt or truncated data; nothing returns a partial image.
 """
 
 from __future__ import annotations
@@ -30,13 +40,16 @@ import zlib
 
 import numpy as np
 
-from .image_decode import MAX_PIXELS, DecodeError, _check_size
+from .image import _segment
+from .image_decode import (MAX_PIXELS, DecodeError, Tables, _check_size, decode_jpeg_planes,
+                           decode_jpeg_samples, read_frame, read_tables)
 from .pil_modes import cmyk_to_rgb, palette256, scale_bits, to_rgb, unpack_bits
 
 # TiffImagePlugin.COMPRESSION_INFO: the ones decoded here, and the others' names
-_COMPRESSIONS = {1: "none", 5: "LZW", 8: "Deflate", 32946: "Deflate", 32773: "PackBits"}
+_COMPRESSIONS = {1: "none", 5: "LZW", 6: "old-style JPEG", 7: "JPEG", 8: "Deflate",
+                 32946: "Deflate", 32773: "PackBits"}
 _OTHER_COMPRESSIONS = {2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4",
-                       6: "old-style JPEG", 7: "JPEG", 32771: "RAW_16", 32809: "ThunderScan",
+                       32771: "RAW_16", 32809: "ThunderScan",
                        34676: "SGILog", 34677: "SGILog24", 34925: "LZMA", 50000: "ZSTD",
                        50001: "WebP"}
 # tag -> (id, read as one value)
@@ -45,6 +58,16 @@ _FILL_ORDER, _STRIP_OFFSETS, _ORIENTATION, _SAMPLES, _ROWS_PER_STRIP = 266, 273,
 _STRIP_COUNTS, _PLANAR, _PREDICTOR, _COLORMAP = 279, 284, 317, 320
 _TILE_WIDTH, _TILE_LENGTH, _TILE_OFFSETS, _TILE_COUNTS = 322, 323, 324, 325
 _EXTRA, _SAMPLE_FORMAT = 338, 339
+_JPEG_TABLES, _YCBCR_SUBSAMPLING = 347, 530
+# old-style JPEG (TIFF 6.0 section 22): the interchange format's offset and
+# length, the restart interval, the tables' offsets (libtiff ignores the
+# process tag, 512); libtiff's YCbCr conversion (tif_getimage.c) reads the
+# coefficients and reference values
+_JIF, _JIF_LENGTH, _JPEG_RESTART = 513, 514, 515
+_JPEG_QTABLES, _JPEG_DCTABLES, _JPEG_ACTABLES = 519, 520, 521
+_YCBCR_COEFFICIENTS, _REFERENCE_BW = 529, 532
+_YCBCR_DEFAULTS = {_YCBCR_COEFFICIENTS: (0.299, 0.587, 0.114),
+                   _REFERENCE_BW: (0, 255, 128, 255, 128, 255)}
 _SCALARS = {_WIDTH, _LENGTH, _COMPRESSION, _PHOTOMETRIC, _FILL_ORDER, _ORIENTATION, _SAMPLES,
             _ROWS_PER_STRIP, _PLANAR, _PREDICTOR, _TILE_WIDTH, _TILE_LENGTH}
 # field type -> (struct code, bytes); the integer types (the others are skipped)
@@ -253,7 +276,8 @@ def decode_tiff(data: bytes) -> np.ndarray:
         raise DecodeError(f"TIFF compression {_OTHER_COMPRESSIONS.get(comp, comp)} is not "
                           "supported")
     planar = _get(tags, _PLANAR, 1)
-    photo = _get(tags, _PHOTOMETRIC, 0)
+    # PIL reads an old-style JPEG file as YCbCr, whatever its photometric tag
+    photo = 6 if comp == 6 else _get(tags, _PHOTOMETRIC, 0)
     fill = _get(tags, _FILL_ORDER, 1)
     if _WIDTH not in tags or _LENGTH not in tags:
         raise DecodeError("TIFF: missing dimensions")
@@ -263,7 +287,7 @@ def decode_tiff(data: bytes) -> np.ndarray:
         fmt = (1,)
     bits = _get(tags, _BITS, (1,))
     extra = _get(tags, _EXTRA, ())
-    spp = _get(tags, _SAMPLES, 1)
+    spp = _get(tags, _SAMPLES, 3 if comp == 6 else 1)
     if spp > 6:
         raise DecodeError(f"TIFF: {spp} samples a pixel")
     if spp < len(bits):
@@ -274,6 +298,10 @@ def decode_tiff(data: bytes) -> np.ndarray:
         raise DecodeError("TIFF: unknown data organisation")
     key = (photo, fmt, bits, extra)
     mode, how = _MODES.get(key, (None, None))
+    if comp in (6, 7) and key == (6, (1,), (8, 8, 8), ()) and planar == 1:
+        mode, how = "RGB", ""  # converted by libjpeg (JPEGCOLORMODE_RGB) or libtiff
+    elif comp == 6 and key == (6, (1,), (8,), ()):
+        mode, how = "L", ""
     # PIL has no P;1R, P;2R, P;4R or L;IR raw mode for an uncompressed file
     known = mode is not None and (fill == 1 or fill == 2 and key in _REVERSED and not (
         comp == 1 and (mode == "P" and bits[0] < 8 or photo == 0 and bits == (8,))))
@@ -311,6 +339,10 @@ def decode_tiff(data: bytes) -> np.ndarray:
                                fill)
         if planar == 2:
             bps = 8
+    elif comp == 7:
+        samples = _jpeg_samples(data, tags, photo, width, height, bps, nbands, planar)
+    elif comp == 6:
+        samples = _ojpeg_samples(data, tags, width, height, nbands, endian)
     else:
         samples = _libtiff_samples(data, tags, comp, width, height, bps, nbands, planar,
                                    endian, fill)
@@ -426,6 +458,208 @@ def _libtiff_samples(data, tags, comp, width, height, bps, nbands, planar, endia
                     out[y0:y1, x0:x1, plane] = s[:y1 - y0, :x1 - x0, 0]
                 else:
                     out[y0:y1, x0:x1] = s[:y1 - y0, :x1 - x0]
+    return out
+
+
+def _jpeg_samples(data, tags, photo, width, height, bps, nbands, planar):
+    """libtiff's JPEG codec (tif_jpeg.c) as PIL drives it: each strip's or
+    tile's stream decoded by utils/image_decode with the tables of the
+    JPEGTables tag (an abbreviated table-specification stream) and of the
+    streams before it, YCbCr (photometric 6) converted to RGB by libjpeg
+    (PIL sets JPEGCOLORMODE_RGB), the components of any other photometric
+    as decoded (JCS_UNKNOWN). As JPEGPreDecode, a stream of another
+    component count or precision, of sampling factors other than the
+    YCbCrSubsampling tag's (photometric 6; without the tag, the first
+    stream's, as libtiff's JPEGFixupTags reads them) or 1x1, or larger than
+    its strip or tile is refused; a last strip coded at the full strip
+    height is cut."""
+    if bps != 8:
+        raise DecodeError(f"TIFF: JPEG of {bps}-bit samples is not supported")
+    offsets, counts, tw, th = _layout(tags, width, height)
+    if counts is None or len(counts) < len(offsets):
+        raise DecodeError("TIFF: missing strip or tile byte counts")
+    tiled = _TILE_OFFSETS in tags and _STRIP_OFFSETS not in tags
+    across, down = -(-width // tw), -(-height // th)
+    planes = nbands if planar == 2 else 1
+    if len(offsets) < across * down * planes:
+        raise DecodeError("TIFF: fewer strips or tiles than the image needs")
+    tables = Tables()
+    if _JPEG_TABLES in tags:
+        try:
+            read_tables(bytes(tags[_JPEG_TABLES]), tables)
+        except DecodeError as e:
+            raise DecodeError(f"TIFF: bogus JPEGTables field: {e}") from e
+    streams = [data[offsets[k]:offsets[k] + counts[k]] for k in range(across * down * planes)]
+    sampling = (1, 1)
+    if photo == 6:
+        sampling = tuple(_get(tags, _YCBCR_SUBSAMPLING, ()))[:2]
+        if not sampling:  # JPEGFixupTagsSubsampling: the first stream's, else the default
+            first = read_frame(streams[0])
+            ok = len(first.ids) == 3 and first.h[0] in (1, 2, 4) and first.v[0] in (1, 2, 4)
+            sampling = (first.h[0], first.v[0]) if ok else (2, 2)
+    out = np.zeros((height, width, nbands), np.uint8)
+    for k, src in enumerate(streams):
+        plane, at = divmod(k, across * down)
+        band = out[..., plane:plane + 1] if planes > 1 else out
+        try:
+            _jpeg_place(band, at, src, tables, sampling, photo, tiled, across, tw, th)
+        except DecodeError as e:
+            raise DecodeError(f"TIFF: JPEG strip or tile {k}: {e}") from e
+    return out
+
+
+def _jpeg_place(out, k, src, tables, sampling, photo, tiled, across, tw, th) -> None:
+    """Decode strip or tile k's stream (of a plane, planar) and place it
+    in `out`, cropped."""
+    height, width, nbands = out.shape
+    ty, tx = divmod(k, across)
+    x0, y0 = tx * tw, ty * th
+    seg_w, seg_h = (tw, th) if tiled else (width, min(th, height - y0))
+    frame = read_frame(src)
+    if len(frame.ids) != nbands:
+        raise DecodeError(f"improper JPEG component count {len(frame.ids)} (expected {nbands})")
+    factors = list(zip(frame.h, frame.v))
+    if factors[0] != sampling or any(f != (1, 1) for f in factors[1:]):
+        raise DecodeError(f"improper JPEG sampling factors {factors} (expected {sampling} "
+                          "then 1x1)")
+    cut = not tiled and frame.width == seg_w and frame.height > seg_h and y0 + seg_h == height
+    if (frame.width, frame.height) != (seg_w, seg_h) and not cut:
+        raise DecodeError(f"{frame.width}x{frame.height} where {seg_w}x{seg_h} is expected")
+    s, _ = decode_jpeg_samples(src, tables, "ycc" if photo == 6 else "raw")
+    x1, y1 = min(x0 + tw, width), min(y0 + seg_h, height)
+    out[y0:y1, x0:x1] = s[:y1 - y0, :x1 - x0]
+
+
+def _ycbcr_constants():
+    """tif_getimage.c TIFFYCbCrToRGBInit's D1-D4 for the default luma
+    coefficients: float32 arithmetic, FIX(x) = (int)(x * 65536 + 0.5).
+    Its Cb-to-green constant is one less than libjpeg's FIX(0.34414)."""
+    red, green, blue = np.float32(0.299), np.float32(0.587), np.float32(0.114)
+    two = np.float32(2)
+
+    def fix(x) -> int:
+        return int(float(x * np.float32(65536)) + 0.5)
+
+    return (fix(two - two * red), -fix(red * (two - two * red) / green),
+            fix(two - two * blue), -fix(blue * (two - two * blue) / green))
+
+
+_D1, _D2, _D3, _D4 = _ycbcr_constants()
+
+
+def _ycbcr_to_rgb(y, cb, cr) -> np.ndarray:
+    """tif_getimage.c TIFFYCbCrtoRGB with the default coefficients and
+    reference values (the only ones decoded here)."""
+    y, cb, cr = (a.astype(np.int64) for a in (y, cb, cr))
+    cb, cr = cb - 128, cr - 128
+    rgb = np.stack([y + ((_D1 * cr + 32768) >> 16), y + ((_D4 * cb + 32768 + _D2 * cr) >> 16),
+                    y + ((_D3 * cb + 32768) >> 16)], -1)
+    return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+def _ojpeg_tables_stream(data, tags, width, height, nbands, strip) -> bytes:
+    """The JPEG stream libtiff's old-style codec makes of a strip of bare
+    entropy-coded data and the tables in the tags: a DQT, a DC and an AC
+    DHT a component (each its own table), the restart interval, a
+    baseline SOF (component 0 sampled as YCbCrSubsampling says, 2x2 by
+    default, the others 1x1) and an SOS of every component."""
+    qt, dc, ac = (_get(tags, t, ()) for t in (_JPEG_QTABLES, _JPEG_DCTABLES, _JPEG_ACTABLES))
+    if min(len(qt), len(dc), len(ac)) < nbands:
+        raise DecodeError("TIFF: old-style JPEG with fewer tables than components")
+
+    def table(at: int, size: int) -> bytes:
+        if at + size > len(data):
+            raise DecodeError("TIFF: an old-style JPEG table lies past the end of the file")
+        return data[at:at + size]
+
+    out = bytearray(b"\xff\xd8")
+    for c in range(nbands):
+        out += _segment(0xDB, bytes([c]) + table(qt[c], 64))
+    for c in range(nbands):
+        for kind, at in ((0x00, dc[c]), (0x10, ac[c])):
+            counts = table(at, 16)
+            out += _segment(0xC4, bytes([kind | c]) + counts + table(at + 16, sum(counts)))
+    restart = _get(tags, _JPEG_RESTART, (0,))[0]
+    if restart:
+        out += _segment(0xDD, struct.pack(">H", restart))
+    h, v = (tuple(_get(tags, _YCBCR_SUBSAMPLING, (2, 2)))[:2] if nbands == 3 else (1, 1))
+    out += _segment(0xC0, struct.pack(">BHHB", 8, height, width, nbands) + b"".join(
+        bytes([c + 1, (h << 4 | v) if c == 0 else 0x11, c]) for c in range(nbands)))
+    out += _segment(0xDA, bytes([nbands]) + b"".join(bytes([c + 1, c << 4 | c])
+                                                     for c in range(nbands)) + b"\x00\x3f\x00")
+    return bytes(out) + strip + b"\xff\xd9"
+
+
+def _ojpeg_samples(data, tags, width, height, nbands, endian):
+    """libtiff's old-style JPEG codec (tif_ojpeg.c) and YCbCr conversion
+    (tif_getimage.c) as PIL drives them. The JPEG stream is the
+    JPEGInterchangeFormat's (one strip: its header, then the strip's
+    entropy-coded data, unless the strip is a whole stream itself), or each
+    strip's is made from the tables in the tags; libjpeg's raw output (no
+    upsampling, no colour conversion), then for three components libtiff's
+    YCbCr to RGB with each chroma sample repeated over its block of luma
+    samples (the stream's own sampling, as OJPEGSubsamplingCorrect reads
+    it)."""
+    offsets, counts, _, rows = _layout(tags, width, height)
+    if _TILE_OFFSETS in tags and _STRIP_OFFSETS not in tags:
+        raise DecodeError("TIFF: tiled old-style JPEG is not supported")
+    if counts is None or len(counts) < len(offsets):
+        raise DecodeError("TIFF: missing strip byte counts")
+    if nbands not in (1, 3):
+        raise DecodeError(f"TIFF: old-style JPEG of {nbands} components is not supported")
+    for tag, default in _YCBCR_DEFAULTS.items():
+        raw = tags.get(tag)
+        if raw is not None:
+            v = np.frombuffer(raw, endian + "u4").reshape(-1, 2)
+            if not np.allclose(v[:, 0] / np.maximum(v[:, 1], 1), default[:len(v)]):
+                raise DecodeError(f"TIFF: old-style JPEG with tag {tag} other than the "
+                                  f"default {default} is not supported")
+    strips = -(-height // rows)
+    if len(offsets) < strips:
+        raise DecodeError("TIFF: fewer strips than the image needs")
+    if _JIF in tags:
+        if strips > 1:
+            raise DecodeError("TIFF: old-style JPEG interchange format in more than one strip "
+                              "is not supported")
+        strip = data[offsets[0]:offsets[0] + counts[0]]
+        at = _get(tags, _JIF)[0]
+        jif = data[at:at + _get(tags, _JIF_LENGTH, (len(data),))[0]]
+        if strip[:2] == b"\xff\xd8":
+            streams = [strip]
+        else:  # the interchange format's header up to its first scan, the strip's data
+            sos = jif.find(b"\xff\xda")
+            if sos < 0:
+                raise DecodeError("TIFF: old-style JPEG interchange format without a scan")
+            streams = [jif[:sos + 2 + int.from_bytes(jif[sos + 2:sos + 4], "big")] + strip +
+                       b"\xff\xd9"]
+    elif _JPEG_QTABLES in tags:
+        streams = [_ojpeg_tables_stream(data, tags, width, min(rows, height - k * rows), nbands,
+                                        data[offsets[k]:offsets[k] + counts[k]])
+                   for k in range(strips)]
+    else:
+        raise DecodeError("TIFF: old-style JPEG with neither JPEGInterchangeFormat nor tables")
+    out = np.zeros((height, width, nbands), np.uint8)
+    for k, stream in enumerate(streams):
+        y0 = k * rows
+        h = min(rows, height - y0) if len(streams) > 1 else height
+        frame = read_frame(stream)
+        if frame.progressive or frame.arith:
+            raise DecodeError("TIFF: old-style JPEG of a progressive or arithmetic-coded stream "
+                              "is not supported")
+        if len(frame.ids) != nbands or (frame.width, frame.height) != (width, h):
+            raise DecodeError(f"TIFF: old-style JPEG stream of {len(frame.ids)} components, "
+                              f"{frame.width}x{frame.height}, for {nbands} samples of "
+                              f"{width}x{h}")
+        frame, planes, _ = decode_jpeg_planes(stream)
+        if nbands == 1:
+            out[y0:y0 + h, :, 0] = planes[0][:h, :width]
+            continue
+        if any((fh, fv) != (1, 1) for fh, fv in zip(frame.h[1:], frame.v[1:])):
+            raise DecodeError("TIFF: old-style JPEG with subsampled chroma components is not "
+                              "supported")
+        ys, xs = np.arange(h), np.arange(width)
+        cb, cr = (p[(ys // frame.v[0])[:, None], xs // frame.h[0]] for p in planes[1:])
+        out[y0:y0 + h] = _ycbcr_to_rgb(planes[0][:h, :width], cb, cr)
     return out
 
 

@@ -11,6 +11,7 @@ its real results.
 """
 
 import io
+import logging
 import os
 import pathlib
 import subprocess
@@ -113,6 +114,62 @@ def test_exported_sharded_frame_holds_a_program_per_device(scenes):
     for sc, st in ((scene, _state(0)), (scene, _state(1)), (other, _state(1))):
         got = loaded(sc, st)
         assert torch.equal(got, live(sc, st)) and torch.equal(got, single(sc, st))
+
+
+class _SafeLoadsOnly(logging.Handler):
+    """torch.load refusing weights_only=False (the full unpickle torch's
+    export loader falls back to, which can run code from the artifact), and
+    the records torch's loader logs meanwhile."""
+
+    def __init__(self, monkeypatch):
+        super().__init__()
+        self.real, self.records = torch.load, []
+        self.logger = logging.getLogger("torch._export.serde.serialize")
+        monkeypatch.setattr(torch, "load", self.load)
+
+    def load(self, *args, **kwargs):
+        if kwargs.get("weights_only") is False:
+            raise AssertionError("torch.load(weights_only=False)")
+        return self.real(*args, **kwargs)
+
+    def emit(self, record):
+        self.records.append(record)
+
+    def __enter__(self):
+        self.logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self)
+
+
+def test_load_render_runs_no_full_unpickle(scenes, monkeypatch):
+    """load_render of a single and of a sharded artifact unpickles with
+    torch's safe loader only (the port's NamedTuples allowed): no
+    torch.load(weights_only=False), no fallback logged, and the loaded
+    frames torch.equal to the live ones."""
+    from relativitypathtracer_tpu_torch.parallel.tiles import build_sharded_render_fn
+
+    scene, meta = scenes["textured"]
+    single = aot.export_render(scene, meta, W, H, device="cpu")
+    sharded = aot.export_sharded_render(scene, meta, W, H, ["cpu", "cpu:0"])
+    with _SafeLoadsOnly(monkeypatch) as guard:
+        renders = [aot.load_render(single), aot.load_render(sharded)]
+    assert not [r for r in guard.records if "weights_only" in str(r.msg)]
+    lives = [pt.build_render_fn(meta, W, H, meta.default_interval, device="cpu"),
+             build_sharded_render_fn(meta, W, H, meta.default_interval, ["cpu", "cpu:0"])]
+    for render, live in zip(renders, lives):
+        for i in range(len(STATES)):
+            assert torch.equal(render(scene, _state(i)), live(scene, _state(i)))
+
+
+def test_the_guard_catches_torchs_fallback(scenes, monkeypatch):
+    """The guard of the test above is not vacuous: torch.export.load without
+    the port's types allowed falls back to a full unpickle, which it stops."""
+    scene, meta = scenes["cubes"]
+    data = aot.export_render(scene, meta, W, H, device="cpu")
+    with _SafeLoadsOnly(monkeypatch), pytest.raises(AssertionError, match="weights_only=False"):
+        torch.export.load(io.BytesIO(data))
 
 
 class _Record(TorchDispatchMode):

@@ -461,7 +461,7 @@ REFUSED = {
                       "truncated"),
     "bad_crc": (_bad_crc_png, "bad CRC in chunk b'IDAT'"),
     "arithmetic_sof9": (lambda: (lambda d: d.replace(b"\xff\xc0", b"\xff\xc9", 1))(_jpeg_bytes()),
-                        "arithmetic-coded sequential JPEG (SOF9)"),
+                        None),
     "cmyk": (lambda: _jpeg_bytes("CMYK"), None),
     "twelve_bit": (lambda: _patched_sof(_jpeg_bytes(), 0, 12), "12-bit precision"),
     "sampling_3": (lambda: _patched_sof(_jpeg_bytes(), 7, 0x31), None),
@@ -480,7 +480,9 @@ def test_refused_kinds_raise_texture_error(tmp_path, kind, monkeypatch):
     refused, with PIL blocked (no fallback), though PIL opens most of them.
     The kinds once refused that the port now decodes (words None: CMYK and
     Adobe-RGB JPEG, a 3x1-sampled JPEG, GIF, a progressive JPEG with
-    unsent bits, which libjpeg block-smooths) read to PIL's pixels."""
+    unsent bits, which libjpeg block-smooths, and a Huffman file labelled
+    arithmetic-coded (SOF9), which libjpeg decodes to garbage without an
+    error) read to PIL's pixels."""
     make, words = REFUSED[kind]
     data = make()
     path = tmp_path / "t.bin"
@@ -508,8 +510,8 @@ def test_pil_refuses_the_huge_images(kind):
 
 
 def test_pil_opens_the_refused_jpegs():
-    """The arithmetic-coded file is a file PIL decodes: refusing it is the
-    port's choice, not a broken file (PIL refuses the 12-bit one too)."""
+    """The file labelled arithmetic-coded is a file PIL decodes, so the
+    port decodes it too (PIL refuses the 12-bit one)."""
     for kind, shape in (("arithmetic_sof9", (24, 40, 3)),):
         assert _pil(REFUSED[kind][0]()).shape == shape
 

@@ -548,9 +548,12 @@ def _refused():
                                "truncated"),
         "png_in_bmp_clothes": (b"BM" + png[2:], "BMP"),
         # kinds still refused
-        "tiff_jpeg": (tiff_file(rng.integers(0, 256, (4, 4, 3)), 8, 2).replace(  # tag 259: 7
+        # an uncompressed strip labelled JPEG (tag 259: 7): libjpeg finds no
+        # SOI, in PIL as in the port
+        "tiff_jpeg": (tiff_file(rng.integers(0, 256, (4, 4, 3)), 8, 2).replace(
             b"\x03\x01\x03\x00\x01\x00\x00\x00\x01\x00",
-            b"\x03\x01\x03\x00\x01\x00\x00\x00\x07\x00"), "TIFF compression JPEG"),
+            b"\x03\x01\x03\x00\x01\x00\x00\x00\x07\x00"),
+                      "TIFF: JPEG strip or tile 0: not a JPEG stream (no SOI)"),
         "tiff_planar_palette": (tiff_file(rng.integers(0, 256, (6, 6, 2)), 8, 3, comp=5,
                                           planar=2, tile=(16, 16), extra=(0,),
                                           colormap=list(range(768))), "planar palette"),
@@ -560,8 +563,9 @@ def _refused():
         "webp": (b"RIFF\x10\0\0\0WEBPVP8L" + bytes(8), "truncated WebP lossless data"),
         "cur": (CURSOR, "CUR"),
         "ico": (_save(pic.resize((16, 16)), "ICO"), "ICO"),
-        "arithmetic_jpeg": (_save(pic, "JPEG").replace(b"\xff\xc0", b"\xff\xc9", 1),
-                            "arithmetic-coded"),
+        # once refused; now decoded (words None): Huffman data read as
+        # arithmetic-coded, the garbage libjpeg makes of it
+        "arithmetic_jpeg": (_save(pic, "JPEG").replace(b"\xff\xc0", b"\xff\xc9", 1), None),
         # PIL's decompression-bomb limit, for every format
         "pnm_huge": (b"P6 20000 10000 255\n" + bytes(30), "more pixels than 178,956,970"),
         "bmp_huge": (bmp_file(20000, 10000, 24, bytes(30)), "more pixels than 178,956,970"),
@@ -586,12 +590,20 @@ REFUSED = _refused()
 @pytest.mark.parametrize("kind", sorted(REFUSED))
 def test_refused_and_broken_files_raise_texture_error(tmp_path, kind, monkeypatch):
     """Each raises TextureError naming the file and what went wrong, with
-    PIL blocked, and leaves the atlas as it was."""
+    PIL blocked, and leaves the atlas as it was. The kind once refused that
+    the port now decodes (words None: an arithmetic-coded JPEG) reads to
+    PIL's pixels."""
     data, words = REFUSED[kind]
     path = tmp_path / "t.bin"
     path.write_bytes(data)
+    want = _pil(data) if words is None else None
     monkeypatch.setitem(sys.modules, "PIL", None)
     atlas, values = bytearray(b"keep"), []
+    if words is None:
+        read_texture(str(path), atlas, values)
+        h, w, _ = want.shape
+        assert values == [4, w, h] and bytes(atlas[4:]) == want.tobytes()
+        return
     with pytest.raises(TextureError) as err:
         read_texture(str(path), atlas, values)
     assert str(path) in str(err.value) and words in str(err.value), str(err.value)
@@ -677,8 +689,10 @@ def test_scene_with_every_new_format_matches_jax(tmp_path):
 def test_chip_smoke_texture_scenes_on_cpu(tmp_path):
     """chip_smoke.py's textures phase's fixture scenes, built on the CPU:
     textured with blob_rle.tga (the PPM scene's 32x32 texture, so the same
-    atlas; K2's small route) and with blob_lossy.webp (that texture lossy),
-    cubes with cubes_lzw.tif and with cubes_lossless.webp (64x64, a
+    atlas; K2's small route), with blob_lossy.webp (that texture lossy) and
+    with blob_arith_prog.jpg (that texture as an arithmetic-coded
+    progressive JPEG), cubes with cubes_lzw.tif, with cubes_lossless.webp
+    and with cubes_jpeg_tiles.tif (64x64 in 4:2:0 JPEG-in-TIFF tiles; a
     2,048-row atlas: K8's windowed route), through its fixture_texture."""
     from relativitypathtracer_tpu_torch.ops.kernels.texture_kernel import texture_route
 
@@ -687,7 +701,8 @@ def test_chip_smoke_texture_scenes_on_cpu(tmp_path):
     spec.loader.exec_module(smoke)
     fixtures = [(kind, fmt) for kind, fmt, _ in smoke.TEXTURE_SCENES if fmt.count(".")]
     assert fixtures == [("textured", "blob_rle.tga"), ("cubes", "cubes_lzw.tif"),
-                        ("textured", "blob_lossy.webp"), ("cubes", "cubes_lossless.webp")]
+                        ("textured", "blob_lossy.webp"), ("cubes", "cubes_lossless.webp"),
+                        ("textured", "blob_arith_prog.jpg"), ("cubes", "cubes_jpeg_tiles.tif")]
     for kind, name in fixtures:
         where = tmp_path / name
         scene_file = smoke.fixture_texture(write_demo_scene(str(where), 1, kind), name)

@@ -16,10 +16,14 @@ smaller than its screen, and TIFFs in planar tiles, big-endian 16-bit RGB
 and fill order 2; WebP files PIL writes (lossless, lossy, with alpha) and
 built here (an animation whose first frame is smaller than its canvas,
 VP8 frames from a boolean encoder with the header features PIL's encoder
-leaves out, VP8L with simple codes and every palette bundling width). The
-builders (`bmp_file`, `tga_file`, `gif_file`, `tiff_file`, `jpeg_sampled`,
-`vp8_frame`, `vp8l_palette`, `riff_webp` and their encoders) serve the
-tests too. pil_rgb.json holds each file's shape and the SHA-256 of
+leaves out, VP8L with simple codes and every palette bundling width);
+arithmetic-coded JPEGs, PIL's Huffman files transcoded by libjpeg's
+arithmetic encoder (jcarith.c, `QMEncoder`); JPEG-in-TIFF written by PIL
+(compression 7) and built here (tiles, strips, JPEGTables, planar;
+old-style compression 6 as the interchange format and with its tables in
+tags). The builders (`bmp_file`, `tga_file`, `gif_file`, `tiff_file`,
+`jpeg_sampled`, `vp8_frame`, `vp8l_palette`, `riff_webp`, `arith_jpeg`,
+`jpeg_tiff`, `ojpeg_tiff` and their encoders) serve the tests too. pil_rgb.json holds each file's shape and the SHA-256 of
 `Image.open(f).convert("RGB")`'s bytes, with the Pillow, libjpeg-turbo and
 libwebp versions that made them; the tests and chip_smoke.py's textures phase hold
 the port's decoders to those hashes.
@@ -344,10 +348,6 @@ def tiff_file(samples: np.ndarray, bits: int, photo: int, comp: int = 1, planar:
     stored = [TIFF_CODECS[comp](c) for c in chunks]
     if fill == 2:
         stored = [_REVERSE[np.frombuffer(c, np.uint8)].tobytes() for c in stored]
-    body, offsets = bytearray((b"II*\0" if endian == "<" else b"MM\0*") + bytes(4)), []
-    for c in stored:
-        offsets.append(len(body))
-        body += c + b"\0" * (len(c) % 2)
     tags = [(256, 4, [w]), (257, 4, [h]), (258, 3, [bits] * n), (259, 3, [comp]),
             (262, 3, [photo]), (277, 3, [n]), (284, 3, [planar])]
     for tag, value in ((266, fill), (317, predictor)):
@@ -358,13 +358,28 @@ def tiff_file(samples: np.ndarray, bits: int, photo: int, comp: int = 1, planar:
             tags.append((tag, 3, list(values)))
     if orientation:
         tags.append((274, 3, [orientation]))
+    return tiff_from_chunks(stored, h, tags, tile, rows_per_strip, endian)
+
+
+def tiff_from_chunks(stored, height: int, tags, tile=None, rows_per_strip=None,
+                     endian: str = "<") -> bytes:
+    """A one-page TIFF of the stored strips (of rows_per_strip rows, the
+    whole height if None) or tiles (tile=(w, h)) and the tags, each (tag,
+    type, values): 3 SHORT, 4 LONG, 7 UNDEFINED (values: bytes); the
+    layout tags are added."""
+    body, offsets = bytearray((b"II*\0" if endian == "<" else b"MM\0*") + bytes(4)), []
+    for c in stored:
+        offsets.append(len(body))
+        body += c + b"\0" * (len(c) % 2)
     counts = [len(c) for c in stored]
-    tags += ([(322, 3, [tile[0]]), (323, 3, [tile[1]]), (324, 4, offsets), (325, 4, counts)]
-             if tile else [(273, 4, offsets), (278, 4, [rows_per_strip or h]),
-                           (279, 4, counts)])
+    tags = list(tags) + ([(322, 3, [tile[0]]), (323, 3, [tile[1]]), (324, 4, offsets),
+                          (325, 4, counts)] if tile else
+                         [(273, 4, offsets), (278, 4, [rows_per_strip or height]),
+                          (279, 4, counts)])
     entries = []
     for tag, kind, values in sorted(tags):
-        raw = struct.pack(endian + {3: "H", 4: "L"}[kind] * len(values), *values)
+        raw = bytes(values) if kind == 7 else struct.pack(
+            endian + {3: "H", 4: "L"}[kind] * len(values), *values)
         if len(raw) > 4:
             at = len(body)
             body += raw + b"\0" * (len(raw) % 2)
@@ -1094,6 +1109,506 @@ def smoothed_jpegs(rng, Image) -> dict:
     return files
 
 
+# --- arithmetic-coded JPEG ------------------------------------------------------
+
+class QMEncoder:
+    """libjpeg's arithmetic (QM) encoder, jcarith.c arith_encode and
+    finish_pass: registers C and A, the bit counter CT, the byte held back
+    for a carry, the stacked 0xFF bytes (SC) and the pending zero bytes
+    (ZC) that the end of a segment may drop."""
+
+    def __init__(self):
+        from relativitypathtracer_tpu_torch.utils.jpeg_arith import QE
+
+        self.qe, self.out = QE, bytearray()
+        self.reset()
+
+    def reset(self) -> None:
+        self.c, self.a, self.sc, self.zc, self.ct, self.buffer = 0, 0x10000, 0, 0, 11, -1
+
+    def _zeros(self) -> None:
+        self.out += bytes(self.zc)
+        self.zc = 0
+
+    def _put(self, byte: int) -> None:
+        self.out.append(byte)
+        if byte == 0xFF:
+            self.out.append(0)
+
+    def _settle(self, temp: int) -> None:
+        """A byte that can no longer carry: write the held byte and the
+        stacked 0xFFs."""
+        if self.buffer == 0:
+            self.zc += 1
+        elif self.buffer >= 0:
+            self._zeros()
+            self.out.append(self.buffer)
+        if self.sc:
+            self._zeros()
+            self.out += b"\xff\x00" * self.sc
+            self.sc = 0
+        self.buffer = temp
+
+    def _carry(self) -> None:
+        if self.buffer >= 0:
+            self._zeros()
+            self._put(self.buffer + 1)
+        self.zc += self.sc  # the stacked 0xFFs carry over into 0x00s
+        self.sc = 0
+
+    def __call__(self, st: bytearray, i: int, val: int) -> None:
+        """Code decision `val` in statistics bin st[i]."""
+        sv = st[i]
+        qe, lps, mps = self.qe[sv & 0x7F]
+        self.a -= qe
+        if val != sv >> 7:  # the LPS
+            if self.a >= qe:
+                self.c += self.a
+                self.a = qe
+            st[i] = (sv & 0x80) ^ lps
+        else:
+            if self.a >= 0x8000:
+                return
+            if self.a < qe:
+                self.c += self.a
+                self.a = qe
+            st[i] = (sv & 0x80) ^ mps
+        while True:  # renormalise, a byte out each 8 bits
+            self.a <<= 1
+            self.c <<= 1
+            self.ct -= 1
+            if self.ct == 0:
+                temp = self.c >> 19
+                if temp > 0xFF:
+                    self._carry()
+                    self.buffer = temp & 0xFF
+                elif temp == 0xFF:
+                    self.sc += 1
+                else:
+                    self._settle(temp)
+                self.c &= 0x7FFFF
+                self.ct += 8
+            if self.a >= 0x8000:
+                return
+
+    def finish(self) -> None:
+        """The end of a segment: the value of the interval with the most
+        trailing zeros, its final bytes unless they are zeros."""
+        temp = (self.a - 1 + self.c) & 0xFFFF0000
+        self.c = temp + 0x8000 if temp < self.c else temp
+        self.c <<= self.ct
+        if self.c & 0xF8000000:
+            self._carry()
+        else:
+            self._settle(self.buffer)
+            self.buffer = -1
+        if self.c & 0x7FFF800:
+            self._zeros()
+            self._put((self.c >> 19) & 0xFF)
+            if self.c & 0x7F800:
+                self._put((self.c >> 11) & 0xFF)
+
+
+def _encode_dc(enc, st, s: int, v: int, lo: int, hi: int) -> int:
+    """jcarith.c's DC difference v from context bin s; returns the next
+    context."""
+    if v == 0:
+        enc(st, s, 0)
+        return 0
+    enc(st, s, 1)
+    sign = int(v < 0)
+    v = abs(v) - 1
+    enc(st, s + 1, sign)
+    i, ctx, m = s + 2 + sign, 4 + 4 * sign, 0
+    if v:
+        enc(st, i, 1)
+        m, v2, i = 1, v >> 1, 20
+        while v2:
+            enc(st, i, 1)
+            m, v2, i = m << 1, v2 >> 1, i + 1
+    enc(st, i, 0)
+    ctx = 0 if m < lo else ctx + 8 if m > hi else ctx
+    m >>= 1
+    while m:
+        enc(st, i + 14, int(bool(m & v)))
+        m >>= 1
+    return ctx
+
+
+def _encode_ac(enc, st, fixed, i: int, k: int, v: int, kx: int) -> None:
+    """jcarith.c's nonzero AC value v after its 'nonzero' decision at bin
+    i + 1: the sign at the fixed probability, then the magnitude."""
+    enc(fixed, 0, int(v < 0))
+    v = abs(v) - 1
+    i += 2
+    m = 0
+    if v:
+        enc(st, i, 1)
+        m = 1
+        v2 = v >> 1
+        if v2:
+            enc(st, i, 1)
+            m, i = 2, 189 if k <= kx else 217
+            v2 >>= 1
+            while v2:
+                enc(st, i, 1)
+                m, v2, i = m << 1, v2 >> 1, i + 1
+    enc(st, i, 0)
+    m >>= 1
+    while m:
+        enc(st, i + 14, int(bool(m & v)))
+        m >>= 1
+
+
+def _point(v: int, al: int) -> int:
+    """The point transform of an AC coefficient: |v| >> Al, signed."""
+    return -((-v) >> al) if v < 0 else v >> al
+
+
+def _encode_block(enc, kind: str, blk, st_dc, st_ac, fixed, state, lo, hi, kx, ss, se, ah, al):
+    """One block of a scan of `kind` (jcarith.c encode_mcu,
+    encode_mcu_DC_first, _AC_first, _DC_refine, _AC_refine); `blk` its 64
+    zig-zag coefficients, `state` the component's [prediction, context]."""
+    if kind in ("seq", "dc_first"):
+        m = int(blk[0]) >> al
+        state[1] = _encode_dc(enc, st_dc, state[1], m - state[0], lo, hi)
+        state[0] = m
+    if kind == "dc_refine":
+        enc(fixed, 0, (int(blk[0]) >> al) & 1)
+    if kind not in ("seq", "ac_first", "ac_refine"):
+        return
+    lo_k, hi_k = (1, 63) if kind == "seq" else (ss, se)
+    vals = [_point(int(x), al) for x in blk]
+    ke = max([k for k in range(1, hi_k + 1) if vals[k]], default=0)
+    kex = max([k for k in range(1, ke + 1) if _point(int(blk[k]), ah)], default=0) \
+        if kind == "ac_refine" else -1
+    k = lo_k
+    while k <= ke:
+        i = 3 * (k - 1)
+        if k > kex:
+            enc(st_ac, i, 0)  # not the end of the block
+        while True:
+            v = vals[k]
+            if v and kind == "ac_refine" and abs(v) >> 1:  # nonzero before: its bit
+                enc(st_ac, i + 2, abs(v) & 1)
+                break
+            if v:
+                enc(st_ac, i + 1, 1)
+                if kind == "ac_refine":
+                    enc(fixed, 0, int(v < 0))
+                else:
+                    _encode_ac(enc, st_ac, fixed, i, k, v, kx)
+                break
+            enc(st_ac, i + 1, 0)
+            i += 3
+            k += 1
+        k += 1
+    if k <= hi_k:
+        enc(st_ac, 3 * (k - 1), 1)
+
+
+def _arith_scan(frame, coefs, header: bytes, restart: int, cond) -> bytes:
+    """One scan (its SOS body `header`) of the frame's coefficients coded
+    as jcarith.c codes it, RSTn markers between restart intervals."""
+    ns = header[0]
+    comps = [frame.ids.index(header[1 + 2 * j]) for j in range(ns)]
+    tabs = [(header[2 + 2 * j] >> 4, header[2 + 2 * j] & 15) for j in range(ns)]
+    ss, se, a = header[1 + 2 * ns:4 + 2 * ns]
+    ah, al = a >> 4, a & 15
+    if not frame.progressive:
+        kind = "seq"
+    elif ss == 0:
+        kind = "dc_refine" if ah else "dc_first"
+    else:
+        kind = "ac_refine" if ah else "ac_first"
+    blocks, slots, per_mcu = frame.scan_blocks(comps)
+    step = restart * per_mcu or blocks.size
+    enc = QMEncoder()
+    for n, b0 in enumerate(range(0, blocks.size, step)):
+        if n:
+            enc.finish()
+            enc.out += bytes([0xFF, 0xD0 + (n - 1) % 8])
+            enc.reset()
+        st_dc = [bytearray(64) for _ in range(16)]
+        st_ac = [bytearray(256) for _ in range(16)]
+        fixed = bytearray([113])
+        states = [[0, 0] for _ in comps]
+        for b in range(b0, min(b0 + step, blocks.size)):
+            j = slots[b]
+            dt, at = tabs[j]
+            lo, hi = ((1 << x) >> 1 for x in cond[0].get(dt, (0, 1)))
+            _encode_block(enc, kind, coefs[comps[j]][blocks[b]], st_dc[dt], st_ac[at], fixed,
+                          states[j], lo, hi, cond[1].get(at, 5), ss, se, ah, al)
+    enc.finish()
+    return bytes(enc.out)
+
+
+def arith_jpeg(data: bytes, dac: bytes = b"") -> bytes:
+    """A Huffman-coded JPEG (as PIL writes it) transcoded to arithmetic
+    coding: SOF0/1 to SOF9, SOF2 to SOF10, the DHT segments dropped, `dac`
+    (a DAC segment's body of (index, value) pairs) before the frame, and
+    each scan's coefficients (utils/image_decode's Huffman decode of
+    `data`) coded by jcarith.c's encoder with the same scan script and
+    restart interval."""
+    from relativitypathtracer_tpu_torch.utils import image_decode
+
+    frame, coefs, _, _, _ = image_decode._read(data, image_decode.Tables(), image=True)
+    cond = ({}, {})
+    for index, value in zip(dac[::2], dac[1::2]):
+        if index >= 16:
+            cond[1][index - 16] = value
+        else:
+            cond[0][index] = (value & 15, value >> 4)
+    out, pos, restart = bytearray(data[:2]), 2, 0
+    while data[pos + 1] != 0xD9:
+        marker = data[pos + 1]
+        end = pos + 2 + int.from_bytes(data[pos + 2:pos + 4], "big")
+        body = data[pos + 4:end]
+        if marker == 0xDD:
+            restart = int.from_bytes(body[:2], "big")
+        if marker == 0xDA:
+            out += data[pos:end] + _arith_scan(frame, coefs, body, restart, cond)
+            while not (data[end] == 0xFF and data[end + 1] != 0
+                       and not 0xD0 <= data[end + 1] <= 0xD7):
+                end += 1
+        elif marker in (0xC0, 0xC1, 0xC2):
+            if dac:
+                out += b"\xff\xcc" + struct.pack(">H", 2 + len(dac)) + dac
+            out += bytes([0xFF, 0xCA if marker == 0xC2 else 0xC9]) + data[pos + 2:end]
+        elif marker != 0xC4:
+            out += data[pos:end]
+        pos = end
+    return bytes(out) + b"\xff\xd9"
+
+
+def arith_sources(rng, Image) -> dict:
+    """The arithmetic-coded fixtures and their Huffman-coded sources (PIL's
+    files): {name: (arithmetic file, source)}. Sequential 4:2:0, 4:4:4 and
+    grey; progressive (libjpeg's script, successive approximation);
+    restart intervals, sequential and progressive; non-default DAC
+    conditioning (DC L and U, AC Kx, both kinds of table); a progressive
+    file cut after three scans, which libjpeg block-smooths; CMYK; the
+    textured fixture's 32x32 texture, progressive (chip_smoke.py's K2
+    scene)."""
+    from relativitypathtracer_tpu_torch.utils.demo_scene import demo_texture
+
+    def save(im, **kw):
+        buf = io.BytesIO()
+        im.save(buf, "JPEG", **kw)
+        return buf.getvalue()
+
+    def pic(h, w):
+        return Image.fromarray(_picture(rng, h, w))
+
+    src = {
+        "arith_s420.jpg": save(pic(22, 35), quality=80),
+        "arith_s444.jpg": save(pic(17, 26), quality=90, subsampling="4:4:4"),
+        "arith_grey.jpg": save(pic(20, 31).convert("L"), quality=85),
+        "arith_progressive.jpg": save(pic(30, 41), quality=75, progressive=True),
+        "arith_restart.jpg": save(pic(26, 40), quality=70, restart_marker_blocks=1),
+        "arith_prog_restart.jpg": save(pic(19, 33), quality=85, progressive=True,
+                                       restart_marker_blocks=1),
+        "arith_dac.jpg": save(pic(24, 37), quality=95),
+        "arith_prog_first3.jpg": jpeg_scans(save(pic(21, 29), quality=70, progressive=True),
+                                            {0, 1, 2}),
+        "arith_cmyk.jpg": save(Image.fromarray(rng.integers(0, 256, (12, 18, 4))
+                                               .astype(np.uint8), "CMYK"), quality=80),
+        "blob_arith_prog.jpg": save(Image.fromarray(demo_texture(32)), quality=85,
+                                    progressive=True),
+    }
+    dac = {"arith_dac.jpg": bytes([0x00, 0x31, 0x01, 0x20, 0x10, 2, 0x11, 20])}
+    return {name: (arith_jpeg(data, dac.get(name, b"")), data) for name, data in src.items()}
+
+
+# --- JPEG in TIFF -----------------------------------------------------------------
+
+def jpeg_segments(data: bytes) -> list:
+    """(marker, bytes) of each segment of a JPEG from SOI to EOI, exclusive,
+    a scan's entropy-coded data with its SOS segment."""
+    pos, out = 2, []
+    while data[pos + 1] != 0xD9:
+        marker = data[pos + 1]
+        end = pos + 2 + int.from_bytes(data[pos + 2:pos + 4], "big")
+        if marker == 0xDA:
+            while not (data[end] == 0xFF and data[end + 1] != 0
+                       and not 0xD0 <= data[end + 1] <= 0xD7):
+                end += 1
+        out.append((marker, data[pos:end]))
+        pos = end
+    return out
+
+
+def jpeg_split(data: bytes) -> tuple:
+    """A JPEG as JPEG-in-TIFF stores it: (the abbreviated table-specification
+    stream of its DQT and DHT segments, the abbreviated image stream of the
+    rest without its APPn segments)."""
+    segs = jpeg_segments(data)
+    tables = b"\xff\xd8" + b"".join(b for m, b in segs if m in (0xDB, 0xC4)) + b"\xff\xd9"
+    image = b"\xff\xd8" + b"".join(b for m, b in segs if m not in (0xDB, 0xC4)
+                                    and not 0xE0 <= m <= 0xEF) + b"\xff\xd9"
+    return tables, image
+
+
+def jpeg_tiff(pic: np.ndarray, photo: int, chunk, Image, tile: bool = False,
+              subsampling=None, tag530="stream", inline: bool = False, planar: int = 1,
+              full_last: bool = False, quality: int = 80) -> bytes:
+    """A JPEG-in-TIFF file (compression 7) of `pic` (h, w, n) in strips of
+    chunk[1] rows or tiles of chunk, each coded by PIL's JPEG encoder:
+    abbreviated streams with the tables in JPEGTables (347), or whole
+    streams (`inline`); `tag530` the YCbCrSubsampling tag's value
+    ("stream": the streams' sampling, None: no tag); planar 2 a stream a
+    plane; `full_last` codes the last strip at the full strip height (its
+    rows past the image zeros)."""
+    h, w, n = pic.shape
+    tw, th = chunk
+
+    def code(part):
+        kw = {"quality": quality}
+        if subsampling and part.shape[2] == 3:
+            kw["subsampling"] = subsampling
+        im = Image.fromarray(part[..., 0] if part.shape[2] == 1 else part,
+                             "CMYK" if part.shape[2] == 4 else None)
+        buf = io.BytesIO()
+        im.save(buf, "JPEG", **kw)
+        return buf.getvalue()
+
+    streams = []
+    for plane in ([pic[..., c:c + 1] for c in range(n)] if planar == 2 else [pic]):
+        for y in range(0, h, th):
+            for x in (range(0, w, tw) if tile else [0]):
+                if tile or full_last:
+                    part = np.zeros((th, tw if tile else w, plane.shape[2]), np.uint8)
+                    got = plane[y:y + th, x:x + tw] if tile else plane[y:y + th]
+                    part[:got.shape[0], :got.shape[1]] = got
+                else:
+                    part = plane[y:y + th]
+                streams.append(code(part))
+    tables = jpeg_split(streams[0])[0]
+    stored = streams if inline else [jpeg_split(x)[1] for x in streams]
+    tags = [(256, 4, [w]), (257, 4, [h]), (258, 3, [8] * n), (259, 3, [7]), (262, 3, [photo]),
+            (277, 3, [n]), (284, 3, [planar])]
+    if not inline:
+        tags.append((347, 7, tables))
+    if tag530 == "stream":
+        tag530 = {"4:2:0": (2, 2), "4:2:2": (2, 1), None: (1, 1), "4:4:4": (1, 1)}[subsampling] \
+            if photo == 6 else None
+    if tag530:
+        tags.append((530, 3, list(tag530)))
+    return tiff_from_chunks(stored, h, tags, chunk if tile else None, None if tile else th)
+
+
+def ojpeg_tiff(stream: bytes, form: str, rows=None, sub=(2, 2), photo: int = 6) -> bytes:
+    """An old-style JPEG TIFF (compression 6) of the JPEG `stream`'s pixels:
+    form "jif" keeps the stream whole at JPEGInterchangeFormat (513/514)
+    with the strip the whole stream, "jif_sos" the same with the strip its
+    entropy-coded data only; "tables" puts the quantisation and Huffman
+    tables in tags 519-521 (a table a component; the stream's Y and chroma
+    ones) and the entropy-coded data in the strip (`rows`: strips of that
+    many rows, then `stream` is a list of one stream a strip)."""
+    streams = stream if isinstance(stream, list) else [stream]
+    frame = jpeg_segments(streams[0])
+    sofs = [next(b for m, b in jpeg_segments(x) if m in (0xC0, 0xC1, 0xC2)) for x in streams]
+    height = sum(int.from_bytes(sof[5:7], "big") for sof in sofs)
+    width, n = int.from_bytes(sofs[0][7:9], "big"), sofs[0][9]
+    body = bytearray(b"II*\0" + bytes(4))
+
+    def put(x: bytes) -> int:
+        at = len(body)
+        body.extend(x + b"\0" * (len(x) % 2))
+        return at
+
+    def entropy(x: bytes) -> bytes:
+        sos = next(b for m, b in jpeg_segments(x) if m == 0xDA)
+        return sos[2 + int.from_bytes(sos[2:4], "big"):]
+
+    tags = [(256, 4, [width]), (257, 4, [height]), (258, 3, [8] * n), (259, 3, [6]),
+            (262, 3, [photo]), (277, 3, [n])]
+    if sub:
+        tags.append((530, 3, list(sub)))
+    if form.startswith("jif"):
+        at = put(streams[0])
+        sos = streams[0].index(b"\xff\xda")
+        data_at = sos + 2 + int.from_bytes(streams[0][sos + 2:sos + 4], "big")
+        strip = (at + data_at, len(streams[0]) - data_at) if form == "jif_sos" else (
+            at, len(streams[0]))
+        tags += [(513, 4, [at]), (514, 4, [len(streams[0])]), (273, 4, [strip[0]]),
+                 (278, 4, [height]), (279, 4, [strip[1]])]
+    else:
+        data = [entropy(x) for x in streams]
+        offsets = [put(x) for x in data]
+        qt, dc, ac = [], {}, {}
+        for m, b in frame:
+            seg, i = b[4:], 0
+            while m == 0xDB and i < len(seg):
+                qt.append(seg[i + 1:i + 65])
+                i += 65
+            while m == 0xC4 and i < len(seg):
+                k = 17 + sum(seg[i + 1:i + 17])
+                (ac if seg[i] >> 4 else dc)[seg[i] & 15] = seg[i + 1:i + k]
+                i += k
+        tags += [(273, 4, offsets), (278, 4, [rows or height]), (279, 4, [len(x) for x in data]),
+                 (512, 3, [1]), (519, 4, [put(qt[min(c, len(qt) - 1)]) for c in range(n)]),
+                 (520, 4, [put(dc[min(c, 1)]) for c in range(n)]),
+                 (521, 4, [put(ac[min(c, 1)]) for c in range(n)])]
+    entries = []
+    for tag, kind, values in sorted(tags):
+        raw = struct.pack("<" + {3: "H", 4: "L"}[kind] * len(values), *values)
+        if len(raw) > 4:
+            raw = struct.pack("<L", put(raw))
+        entries.append(struct.pack("<HHL", tag, kind, len(values)) + raw.ljust(4, b"\0"))
+    at = len(body)
+    body += struct.pack("<H", len(entries)) + b"".join(entries) + bytes(4)
+    body[4:8] = struct.pack("<L", at)
+    return bytes(body)
+
+
+def tiff_jpegs(rng, Image) -> dict:
+    """JPEG-in-TIFF fixtures: PIL's compression 7 in RGB, YCbCr, L and CMYK;
+    built here, tiles of 4:2:0 YCbCr (the cubes fixture's 64x64 texture,
+    K8's windowed atlas), strips of 4:2:0 with the last coded at the full
+    strip height, whole streams with their own tables in tiles, 4:2:2
+    streams without a YCbCrSubsampling tag, planar RGB; old-style JPEG
+    (compression 6) as the interchange format with the strip the whole
+    stream (its 4:4:4 sampling over the tag's 2x2) and its entropy-coded
+    data only (4:2:0), and with the tables in tags, two strips of 4:2:0
+    and one of grey."""
+    def save(im, **kw):
+        buf = io.BytesIO()
+        im.save(buf, "TIFF", compression="jpeg", quality=80, **kw)
+        return buf.getvalue()
+
+    def jpeg(pic, **kw):
+        buf = io.BytesIO()
+        Image.fromarray(pic).save(buf, "JPEG", quality=80, **kw)
+        return buf.getvalue()
+
+    files = {}
+    pic = Image.fromarray(_picture(rng, 18, 27))
+    files["jpeg_rgb.tif"] = save(pic)
+    files["jpeg_ycbcr.tif"] = save(pic.convert("YCbCr"))
+    files["jpeg_grey.tif"] = save(pic.convert("L"))
+    files["jpeg_cmyk.tif"] = save(Image.fromarray(rng.integers(0, 256, (12, 17, 4))
+                                                  .astype(np.uint8), "CMYK"))
+    square = (np.add.outer(np.arange(64) // 8 * 3, np.arange(64) // 8 * 5) % 6)
+    colours = rng.integers(30, 225, (6, 3)).astype(np.uint8)
+    files["cubes_jpeg_tiles.tif"] = jpeg_tiff(colours[square], 6, (32, 32), Image, tile=True,
+                                              subsampling="4:2:0")
+    files["jpeg_strips420.tif"] = jpeg_tiff(_picture(rng, 37, 30), 6, (30, 16), Image,
+                                            subsampling="4:2:0", full_last=True)
+    files["jpeg_inline_tiles.tif"] = jpeg_tiff(_picture(rng, 17, 30), 6, (16, 16), Image,
+                                               tile=True, subsampling="4:4:4", inline=True)
+    files["jpeg_no530.tif"] = jpeg_tiff(_picture(rng, 19, 26), 6, (26, 8), Image,
+                                        subsampling="4:2:2", tag530=None)
+    files["jpeg_planar.tif"] = jpeg_tiff(_picture(rng, 14, 22), 2, (22, 8), Image, planar=2)
+    files["ojpeg_jif.tif"] = ojpeg_tiff(jpeg(_picture(rng, 20, 28), subsampling="4:4:4"), "jif")
+    files["ojpeg_jif_sos.tif"] = ojpeg_tiff(jpeg(_picture(rng, 22, 30)), "jif_sos", sub=None)
+    strips = [jpeg(_picture(rng, 16, 25)), jpeg(_picture(rng, 9, 25))]
+    files["ojpeg_tables.tif"] = ojpeg_tiff(strips, "tables", rows=16)
+    files["ojpeg_grey.tif"] = ojpeg_tiff(jpeg(_picture(rng, 15, 21)[..., 0]), "tables",
+                                         sub=None, photo=1)
+    return files
+
+
 def main() -> None:
     from PIL import Image, features
 
@@ -1127,6 +1642,9 @@ def main() -> None:
     files.update(new_formats(np.random.default_rng(SEED + 1), Image))
     files.update(webp_fixtures(np.random.default_rng(SEED + 2), Image))
     files.update(smoothed_jpegs(np.random.default_rng(SEED + 3), Image))
+    files.update({name: pair[0] for name, pair in arith_sources(np.random.default_rng(SEED + 4),
+                                                                Image).items()})
+    files.update(tiff_jpegs(np.random.default_rng(SEED + 5), Image))
     record = {"pillow": features.version("pil"), "libjpeg_turbo": features.version("libjpeg_turbo"),
               "libwebp": features.version("webp"), "files": {}}
     for name, data in files.items():

@@ -22,7 +22,6 @@ nvcc.
 from __future__ import annotations
 
 import gc
-import io
 import json
 import pathlib
 import subprocess
@@ -104,7 +103,7 @@ def main(argv: list[str]) -> int:
                                          device=dev)
         live = pt.build_render_fn(meta, 1024, 768, -1, device=dev)
         data = aot.export_render(scene, meta, 1024, 768, device=dev)
-        unchecked = torch.export.load(io.BytesIO(data)).module(check_guards=False)
+        unchecked = aot.load_program(data).module(check_guards=False)
         unchecked.validate_inputs = False
 
         def no_check(sc, st, _m=unchecked):

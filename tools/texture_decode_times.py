@@ -7,7 +7,8 @@ models/texture.decode_texture and held to PIL's decode byte for byte.
     python tools/texture_decode_times.py
 
 Needs PIL (to write the files and to check them). Prints one JSON line a
-file (format, bytes, seconds: the best of REPEAT decodes, equal to PIL) and a
+file (format, bytes, seconds: the best of REPEAT decodes, equal to PIL, the
+file handed to PIL in one read) and a
 last line with the host's CPU model: these are host CPU times, not a card's.
 """
 
@@ -41,7 +42,8 @@ def _cpu_model() -> str:
 
 def files(Image) -> dict:
     """name -> bytes, 1024x1024 each."""
-    from torch_textures.make_fixtures import bmp_file, bmp_rle, jpeg_scans, tiff_file
+    from torch_textures.make_fixtures import (arith_jpeg, bmp_file, bmp_rle, jpeg_scans,
+                                              jpeg_tiff, ojpeg_tiff, tiff_file)
 
     from relativitypathtracer_tpu_torch.utils.demo_scene import demo_texture
 
@@ -80,6 +82,12 @@ def files(Image) -> dict:
         # 1-5 at Al 2, Cr's at Al 1, the rest unsent (block-smoothed)
         "JPEG progressive, unsent bits": jpeg_scans(save(im, "JPEG", quality=90,
                                                          progressive=True), {0, 1, 2}),
+        "JPEG arithmetic": arith_jpeg(save(im, "JPEG", quality=90)),
+        "JPEG arithmetic progressive": arith_jpeg(save(im, "JPEG", quality=90,
+                                                       progressive=True)),
+        "TIFF JPEG 4:2:0 tiles": jpeg_tiff(rgb, 6, (256, 256), Image, tile=True,
+                                           subsampling="4:2:0", quality=90),
+        "TIFF old-style JPEG": ojpeg_tiff(save(im, "JPEG", quality=90), "jif_sos"),
         "PNG": save(im, "PNG"),
         "WebP lossless": save(im, "WEBP", lossless=True),
         "WebP lossy": save(im, "WEBP", quality=90),
@@ -100,6 +108,8 @@ def main() -> int:
             got = decode_texture(data)
             best = min(best, time.perf_counter() - t0)
         with Image.open(io.BytesIO(data)) as im:
+            # in one read: libjpeg's arithmetic decoder cannot wait for PIL's next
+            im.decodermaxblock = len(data) + 1
             equal = bool(np.array_equal(got, np.asarray(im.convert("RGB"))))
         ok = ok and equal
         print(json.dumps({"format": name, "bytes": len(data), "seconds": round(best, 4),
