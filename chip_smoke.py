@@ -114,19 +114,22 @@ It prints each path's seconds. Then it renders the textured path at msaa 2,
           with PIL blocked (sys.modules["PIL"] = None for the phase, restored
           after; no PIL module may be imported meanwhile): every file of
           tests/torch_textures (JPEG, progressive JPEGs with unsent bits,
-          PNG, the PNM family, BMP, TGA, GIF, TIFF, WebP) decoded by
-          models/texture.decode_texture to the SHA-256 PIL gave where they
-          were made (pil_rgb.json), with its ms (the WebP files', the
-          arithmetic-coded JPEGs' and the JPEG-in-TIFF files' again on a
-          line each); the textured fixture with its 32x32 texture as
+          PNG, the PNM family, BMP, TGA, GIF, TIFF, WebP, DDS with BC1-BC7,
+          FTEX, BLP) decoded by models/texture.decode_texture to the
+          SHA-256 PIL gave where they were made (pil_rgb.json), with its ms
+          (the WebP files', the arithmetic-coded JPEGs', the JPEG-in-TIFF
+          files' and the DDS/FTEX/BLP files' again on a line each); the
+          textured fixture with its 32x32 texture as
           a baseline 4:2:0 JPEG (utils/image.encode_jpeg; a 512-row atlas,
           K2), as an RLE TGA (the committed blob_rle.tga), as a lossy
-          WebP (blob_lossy.webp) and as an arithmetic-coded progressive
-          JPEG (blob_arith_prog.jpg), and cubes with its 256x256 texture as a
+          WebP (blob_lossy.webp), as an arithmetic-coded progressive
+          JPEG (blob_arith_prog.jpg) and as DXT1 (blob_bc1.dds), and cubes
+          with its 256x256 texture as a
           PNG (a 32,768-row atlas, K8), with a 64x64 LZW TIFF (the
           committed cubes_lzw.tif; a 2,048-row atlas, K8), with the same
-          squares as a lossless WebP (cubes_lossless.webp) and in 4:2:0
-          JPEG-in-TIFF tiles (cubes_jpeg_tiles.tif), each scene
+          squares as a lossless WebP (cubes_lossless.webp), in 4:2:0
+          JPEG-in-TIFF tiles (cubes_jpeg_tiles.tif) and as BC7
+          (cubes_bc7.dds), each scene
           written by utils/demo_scene, load_scene_file -> build_scene ->
           build_render_fn at 1024x768: one
           graphed frame with exactly that path's kernels launched, held to
@@ -264,7 +267,9 @@ TEXTURE_SCENES = (("textured", "jpg", (256, 192)), ("cubes", "png", (WIDTH, HEIG
                   ("textured", "blob_lossy.webp", (256, 192)),
                   ("cubes", "cubes_lossless.webp", (WIDTH, HEIGHT)),
                   ("textured", "blob_arith_prog.jpg", (256, 192)),
-                  ("cubes", "cubes_jpeg_tiles.tif", (WIDTH, HEIGHT)))
+                  ("cubes", "cubes_jpeg_tiles.tif", (WIDTH, HEIGHT)),
+                  ("textured", "blob_bc1.dds", (256, 192)),
+                  ("cubes", "cubes_bc7.dds", (WIDTH, HEIGHT)))
 BIG_TEXTURE = 2048
 PKG = "relativitypathtracer_tpu_torch/csrc/"
 CSRC = pathlib.Path(__file__).resolve().parent / PKG
@@ -1114,8 +1119,9 @@ def fixture_texture(scene_file: str, name: str) -> str:
 def textures_phase(torch, pt, dev, card, state) -> None:
     """Textures decoded without PIL (models/texture.decode_texture), with PIL
     blocked in sys.modules for the phase: the committed fixtures against
-    PIL's hashes, the textured fixture with a JPEG, a TGA and a lossy WebP
-    texture and cubes with a PNG, a TIFF and a lossless WebP one rendered
+    PIL's hashes, the textured fixture with a JPEG, a TGA, a lossy WebP,
+    an arithmetic-coded JPEG and a DXT1 DDS texture and cubes with a PNG,
+    two TIFFs, a lossless WebP and a BC7 DDS one rendered
     on the card and held to the CPU and the oracle, and the decode time of
     a corpus-sized JPEG; see the module docstring."""
     import hashlib
@@ -1150,6 +1156,8 @@ def textures_phase(torch, pt, dev, card, state) -> None:
             t for t in times if t.split()[0].endswith(".jpg") and "arith" in t))
         log("  JPEG-in-TIFF decode ms: " + ", ".join(
             t for t in times if t.split()[0].endswith(".tif") and "jpeg" in t))
+        log("  DDS/FTEX/BLP decode ms: " + ", ".join(
+            t for t in times if t.split()[0].endswith((".dds", ".ftc", ".ftu", ".blp"))))
         for kind, fmt, size in TEXTURE_SCENES:
             names = PATHS[kind][1]
             with tempfile.TemporaryDirectory() as tmp:

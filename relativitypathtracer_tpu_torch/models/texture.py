@@ -14,7 +14,8 @@ interleaved RGB): JPEG (Huffman- and arithmetic-coded, utils/jpeg_arith)
 and PNG by utils/image_decode, the PNM family, BMP, TGA and GIF by
 utils/raster_decode, TIFF (JPEG-in-TIFF, new and old style, among its
 compressions) by utils/tiff_decode, WebP by utils/webp_decode (the first
-frame on its canvas). The format is
+frame on its canvas), the block-compressed containers DDS (BC1-BC7 and the
+uncompressed kinds), FTEX and BLP by utils/dds_decode. The format is
 told as `Image.open` tells it: by the file's first bytes, in the order PIL
 tries its plugins, TGA (which has no magic number) by its header's checks
 after the others. A format PIL opens and the port does not, and an unknown
@@ -25,6 +26,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..utils.dds_decode import decode_blp, decode_dds, decode_ftex
 from ..utils.image_decode import decode_jpeg, decode_png
 from ..utils.raster_decode import decode_bmp, decode_gif, decode_pnm, decode_tga, tga_header_ok
 from ..utils.tiff_decode import decode_tiff
@@ -47,13 +49,10 @@ def _entries(data: bytes) -> bool:
 # formats PIL opens and this loader does not, by their first bytes; the
 # other formats' plugins come before TGA's in PIL's order
 _OTHER_FORMATS = ((lambda d: d[4:8] == b"ftyp", "AVIF/HEIF"),
-                  (lambda d: d[:4] in (b"BLP1", b"BLP2"), "BLP"),
                   (lambda d: d[:4] == b"\0\0\2\0" and _entries(d), "CUR"),
                   (lambda d: d[:1] == b"\x0a" and d[1:2] in (b"\0", b"\2", b"\3", b"\5"), "PCX"),
-                  (lambda d: d[:4] == b"DDS ", "DDS"),
                   (lambda d: d[:4] in (b"%!PS", b"\xc5\xd0\xd3\xc6"), "EPS"),
                   (lambda d: d[:6] == b"SIMPLE", "FITS"),
-                  (lambda d: d[:4] == b"FTEX", "FTEX"),
                   (lambda d: d[:4] == b"icns", "ICNS"),
                   (lambda d: d[:4] == b"\0\0\1\0" and _entries(d), "ICO"),
                   (lambda d: d[:4] == b"\xff\x4f\xff\x51" or d[:12] == b"\0\0\0\x0cjP  \r\n\x87\n",
@@ -98,11 +97,19 @@ def decode_texture(data: bytes) -> np.ndarray:
         return decode_tiff(data)
     if is_webp(data):
         return decode_webp(data)
+    # PIL's plugins in its order: BLP, DDS and FTEX among the others, each
+    # told by a magic number no plugin tried before it takes
+    if data[:4] in (b"BLP1", b"BLP2"):
+        return decode_blp(data)
+    if data[:4] == b"DDS ":
+        return decode_dds(data)
+    if data[:4] == b"FTEX":
+        return decode_ftex(data)
     kind = next((name for test, name in _OTHER_FORMATS if test(data)), None)
     if kind is None and tga_header_ok(data):
         return decode_tga(data)
     raise ValueError(f"{kind or f'unknown format (first bytes {data[:8]!r})'}: textures are "
-                     "PNM, BMP, GIF, JPEG, PNG, TIFF, WebP or TGA")
+                     "PNM, BMP, GIF, JPEG, PNG, TIFF, WebP, BLP, DDS, FTEX or TGA")
 
 
 def read_texture(path: str, atlas: bytearray, values: list) -> None:

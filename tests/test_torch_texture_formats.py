@@ -453,7 +453,8 @@ def test_jpeg_kinds_decode_as_pil(case):
 
 DECODERS = {"PPM": "decode_pnm", "BMP": "decode_bmp", "DIB": "decode_bmp", "TGA": "decode_tga",
             "GIF": "decode_gif", "TIFF": "decode_tiff", "JPEG": "decode_jpeg",
-            "PNG": "decode_png", "WEBP": "decode_webp"}
+            "PNG": "decode_png", "WEBP": "decode_webp", "DDS": "decode_dds", "BLP": "decode_blp",
+            "FTEX": "decode_ftex"}
 
 
 @pytest.mark.parametrize("name", sorted(json.loads((FIXTURES / "pil_rgb.json").read_text())
@@ -691,9 +692,11 @@ def test_chip_smoke_texture_scenes_on_cpu(tmp_path):
     textured with blob_rle.tga (the PPM scene's 32x32 texture, so the same
     atlas; K2's small route), with blob_lossy.webp (that texture lossy) and
     with blob_arith_prog.jpg (that texture as an arithmetic-coded
-    progressive JPEG), cubes with cubes_lzw.tif, with cubes_lossless.webp
-    and with cubes_jpeg_tiles.tif (64x64 in 4:2:0 JPEG-in-TIFF tiles; a
-    2,048-row atlas: K8's windowed route), through its fixture_texture."""
+    progressive JPEG) and with blob_bc1.dds (that texture as DXT1), cubes
+    with cubes_lzw.tif, with cubes_lossless.webp, with cubes_jpeg_tiles.tif
+    (64x64 in 4:2:0 JPEG-in-TIFF tiles; a 2,048-row atlas: K8's windowed
+    route) and with cubes_bc7.dds (the squares as BC7), through its
+    fixture_texture."""
     from relativitypathtracer_tpu_torch.ops.kernels.texture_kernel import texture_route
 
     spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
@@ -702,7 +705,8 @@ def test_chip_smoke_texture_scenes_on_cpu(tmp_path):
     fixtures = [(kind, fmt) for kind, fmt, _ in smoke.TEXTURE_SCENES if fmt.count(".")]
     assert fixtures == [("textured", "blob_rle.tga"), ("cubes", "cubes_lzw.tif"),
                         ("textured", "blob_lossy.webp"), ("cubes", "cubes_lossless.webp"),
-                        ("textured", "blob_arith_prog.jpg"), ("cubes", "cubes_jpeg_tiles.tif")]
+                        ("textured", "blob_arith_prog.jpg"), ("cubes", "cubes_jpeg_tiles.tif"),
+                        ("textured", "blob_bc1.dds"), ("cubes", "cubes_bc7.dds")]
     for kind, name in fixtures:
         where = tmp_path / name
         scene_file = smoke.fixture_texture(write_demo_scene(str(where), 1, kind), name)

@@ -21,9 +21,14 @@ arithmetic-coded JPEGs, PIL's Huffman files transcoded by libjpeg's
 arithmetic encoder (jcarith.c, `QMEncoder`); JPEG-in-TIFF written by PIL
 (compression 7) and built here (tiles, strips, JPEGTables, planar;
 old-style compression 6 as the interchange format and with its tables in
-tags). The builders (`bmp_file`, `tga_file`, `gif_file`, `tiff_file`,
+tags); DDS written by PIL (DXT1/3/5, BC5, RGB, RGBA, L, LA) and built here
+(seeded random blocks of every BCn kind, every BC6H and BC7 mode, masks,
+a palette, mipmaps, a cube map, BC7 mode 6 from `bc7_mode6`), FTEX, and
+BLP1/BLP2 (PIL's palette files; JPEG, palette and DXT built here). The
+builders (`bmp_file`, `tga_file`, `gif_file`, `tiff_file`,
 `jpeg_sampled`, `vp8_frame`, `vp8l_palette`, `riff_webp`, `arith_jpeg`,
-`jpeg_tiff`, `ojpeg_tiff` and their encoders) serve the tests too. pil_rgb.json holds each file's shape and the SHA-256 of
+`jpeg_tiff`, `ojpeg_tiff`, `dds_file`, `ftex_file`, `blp_file` and their
+encoders) serve the tests too. pil_rgb.json holds each file's shape and the SHA-256 of
 `Image.open(f).convert("RGB")`'s bytes, with the Pillow, libjpeg-turbo and
 libwebp versions that made them; the tests and chip_smoke.py's textures phase hold
 the port's decoders to those hashes.
@@ -1609,6 +1614,215 @@ def tiff_jpegs(rng, Image) -> dict:
     return files
 
 
+# --- DDS, FTEX, BLP -------------------------------------------------------------
+
+# DDS pixel-format flags
+DDPF_ALPHAPIXELS, DDPF_FOURCC, DDPF_PAL8, DDPF_RGB, DDPF_LUMINANCE = 0x1, 0x4, 0x20, 0x40, 0x20000
+
+
+def dds_file(width: int, height: int, body: bytes, *, pfflags: int = DDPF_FOURCC,
+             fourcc: bytes = bytes(4), bitcount: int = 0, masks=(0, 0, 0, 0), dxgi=None,
+             mipmaps: int = 0, cube: bool = False, header_size: int = 124) -> bytes:
+    """A DDS file: the 124-byte header (mipmap count, cube-map caps), a
+    DX10 header where `dxgi` is given, then `body` (every surface)."""
+    flags = 0x1007 | (0x20000 if mipmaps else 0)
+    caps = 0x1000 | (0x400008 if mipmaps else 0) | (0x8 if cube else 0)
+    head = struct.pack("<7I", header_size, flags, height, width, 0, 0, mipmaps) + bytes(44)
+    head += struct.pack("<2I", 32, pfflags) + fourcc + struct.pack("<5I", bitcount, *masks)
+    head += struct.pack("<4I", caps, 0xFE00 if cube else 0, 0, 0) + bytes(4)
+    dx10 = b"" if dxgi is None else struct.pack("<5I", dxgi, 3, 4 if cube else 0, 1, 0)
+    return b"DDS " + head + dx10 + body
+
+
+def bc7_mode6(rgb: np.ndarray) -> bytes:
+    """Opaque BC7 mode-6 blocks of (h, w, 3) uint8 pixels (h and w
+    multiples of 4): each block's endpoints its two texels farthest apart
+    (made odd: 7 bits and a p-bit of 1, alpha 255), each texel the nearest
+    of the 16 weights along them, texel 0's index below 8."""
+    h, w = rgb.shape[:2]
+    px = rgb.reshape(h // 4, 4, w // 4, 4, 3).transpose(0, 2, 1, 3, 4).reshape(-1, 16, 3)
+    px = px.astype(np.int64)
+    far = (((px[:, :, None] - px[:, None]) ** 2).sum(-1)).reshape(len(px), -1).argmax(1)
+    rows = np.arange(len(px))
+    e0, e1 = px[rows, far // 16] | 1, px[rows, far % 16] | 1
+    d = e1 - e0
+    t = ((px - e0[:, None]) * d[:, None]).sum(-1) / np.maximum((d * d).sum(-1), 1)[:, None]
+    weights = np.array([0, 4, 9, 13, 17, 21, 26, 30, 34, 38, 43, 47, 51, 55, 60, 64])
+    idx = np.abs(t[..., None] * 64 - weights).argmin(-1)
+    flip = idx[:, 0] >= 8
+    e0[flip], e1[flip] = e1[flip].copy(), e0[flip].copy()
+    idx[flip] = 15 - idx[flip]
+    fields = [(np.full(len(px), 1 << 6), 7)]
+    for c in range(3):
+        fields += [(e0[:, c] >> 1, 7), (e1[:, c] >> 1, 7)]
+    fields += [(np.full(len(px), 127), 7)] * 2 + [(np.ones(len(px), np.int64), 1)] * 2
+    fields += [(idx[:, 0], 3)] + [(idx[:, k], 4) for k in range(1, 16)]
+    bits = np.concatenate([(np.asarray(v)[:, None] >> np.arange(n)) & 1 for v, n in fields], 1)
+    return np.packbits(bits.astype(np.uint8), axis=1, bitorder="little").tobytes()
+
+
+def ftex_file(width: int, height: int, fmt: int, body: bytes, formats: int = 1) -> bytes:
+    """An FTEX file of one mipmap: its format (0 DXT1, 1 RGB) and data."""
+    return (b"FTEX" + struct.pack("<7i", 0x80, width, height, 1, formats, fmt, 32)
+            + struct.pack("<i", len(body)) + body)
+
+
+def blp_file(version: int, width: int, height: int, mip0: bytes, *, compression: int = 1,
+             encoding: int = 1, alpha: int = 0, alpha_encoding: int = 0, palette: bytes = b"",
+             jpeg_header: bytes = b"", gap: int = 0) -> bytes:
+    """A BLP1 or BLP2 file with one mipmap: for BLP1 JPEG (compression 0)
+    the shared JPEG header, `gap` bytes, then mip 0; otherwise the BGRA
+    palette (1,024 bytes, zero-padded), then mip 0."""
+    if version == 1:
+        head = b"BLP1" + struct.pack("<iIIIiI", compression, alpha, width, height, encoding, 0)
+    else:
+        head = b"BLP2" + struct.pack("<ibbbbII", compression, encoding, alpha, alpha_encoding, 1,
+                                     width, height)
+    if compression == 0:
+        table = struct.pack("<I", len(jpeg_header)) + jpeg_header + bytes(gap)
+    else:
+        table = palette.ljust(1024, b"\0")
+    at = len(head) + 128 + len(table)
+    return (head + struct.pack("<16I", at, *(0,) * 15) + struct.pack("<16I", len(mip0), *(0,) * 15)
+            + table + mip0)
+
+
+def block_fixtures(rng, Image) -> dict:
+    """DDS, FTEX and BLP fixtures: seeded random blocks of every BCn kind
+    under the legacy FourCCs and under DX10 at sizes that are not multiples
+    of 4, BC7 blocks in each mode and mode byte 0, BC6H (unsigned and
+    signed) in each mode and the reserved ones, BC1 in both colour forms;
+    DDS files PIL writes (DXT1, DXT3, DXT5, BC5, RGB, RGBA, L, LA);
+    hand-built DDS (565, 1555, 4444, BGR24 and odd 32-bit masks, an 8-bit
+    palette, mipmaps, a cube map); the textured fixture's 32x32 texture as
+    DXT1 (PIL) and the cubes fixture's 64x64 squares as BC7 mode 6; FTEX
+    in both formats; BLP1 JPEG (RGB with alpha, CMYK, YCCK) and palette,
+    BLP2 palette with and without alpha (PIL), and BLP2 DXT1/3/5 at alpha
+    flags 0 and 1 at an odd width."""
+    from relativitypathtracer_tpu_torch.utils.demo_scene import demo_texture
+
+    def save(im, fmt, **kw):
+        buf = io.BytesIO()
+        im.save(buf, fmt, **kw)
+        return buf.getvalue()
+
+    def blocks(w, h, size):
+        return rng.integers(0, 256, (-(-w // 4) * -(-h // 4), size), dtype=np.uint8)
+
+    files = {}
+    for fourcc, size, (w, h) in ((b"DXT1", 8, (13, 10)), (b"DXT3", 16, (9, 7)),
+                                 (b"DXT5", 16, (18, 11)), (b"ATI1", 8, (15, 6)),
+                                 (b"BC4U", 8, (6, 15)), (b"ATI2", 16, (11, 9)),
+                                 (b"BC5U", 16, (7, 13)), (b"BC5S", 16, (14, 5))):
+        files[f"rand_{fourcc.decode().lower()}.dds"] = dds_file(w, h, blocks(w, h, size).tobytes(),
+                                                                fourcc=fourcc)
+    for name, dxgi, size, (w, h) in (("bc1", 70, 8, (13, 10)), ("bc2", 74, 16, (10, 13)),
+                                     ("bc3", 76, 16, (17, 5)), ("bc4", 80, 8, (19, 9)),
+                                     ("bc5", 82, 16, (9, 17)), ("bc5s", 84, 16, (12, 7)),
+                                     ("bc6h", 95, 16, (13, 10)), ("bc6hs", 96, 16, (11, 14)),
+                                     ("bc7", 99, 16, (13, 10))):
+        files[f"dx10_{name}.dds"] = dds_file(w, h, blocks(w, h, size).tobytes(), fourcc=b"DX10",
+                                             dxgi=dxgi)
+    # a row of 8 blocks a mode (30 texels wide): BC7's 8 modes and mode byte 0
+    b = rng.integers(0, 256, (9, 8, 16), dtype=np.uint8)
+    for m in range(8):
+        b[m, :, 0] = (b[m, :, 0] & ((0xFF << (m + 1)) & 0xFF)) | (1 << m)
+    b[8, :, 0] = 0
+    files["bc7_modes.dds"] = dds_file(30, 36, b.tobytes(), fourcc=b"DX10", dxgi=98)
+    # BC6H's 14 modes (2- and 5-bit codes) and its 4 reserved codes, a row each
+    codes = [0, 1, 2, 6, 10, 14, 18, 22, 26, 30, 3, 7, 11, 15, 19, 23, 27, 31]
+    for name, dxgi in (("bc6h", 95), ("bc6hs", 96)):
+        b = rng.integers(0, 256, (len(codes), 4, 16), dtype=np.uint8)
+        for row, code in enumerate(codes):
+            keep = 0xFC if code < 2 else 0xE0
+            b[row, :, 0] = (b[row, :, 0] & keep) | code
+        files[f"{name}_modes.dds"] = dds_file(15, 4 * len(codes), b.tobytes(), fourcc=b"DX10",
+                                              dxgi=dxgi)
+    # BC1 with c0 <= c1 (three colours and transparent black; equal in a
+    # few) in the top half, c0 > c1 below
+    b = blocks(16, 16, 8)
+    c = np.sort(rng.integers(0, 65536, (16, 2)), 1)
+    c[:3, 1] = c[:3, 0]
+    c[8:] = c[8:, ::-1]
+    c[8:, 0] = np.maximum(c[8:, 0], c[8:, 1] + 1)
+    b[:, :4] = c.astype("<u2").view(np.uint8).reshape(16, 4)
+    files["bc1_both_forms.dds"] = dds_file(16, 16, b.tobytes(), fourcc=b"DXT1")
+    # written by PIL
+    pic = Image.fromarray(_picture(rng, 14, 19))
+    rgba = Image.fromarray(np.concatenate([_picture(rng, 14, 19),
+                                           rng.integers(0, 256, (14, 19, 1), dtype=np.uint8)], 2),
+                           "RGBA")
+    for fmt in ("DXT1", "DXT3", "DXT5"):
+        files[f"pil_{fmt.lower()}.dds"] = save(rgba, "DDS", pixel_format=fmt)
+    files["pil_bc5.dds"] = save(pic, "DDS", pixel_format="BC5")
+    files["pil_rgb.dds"] = save(pic, "DDS")
+    files["pil_rgba.dds"] = save(rgba, "DDS")
+    files["pil_l.dds"] = save(pic.convert("L"), "DDS")
+    files["pil_la.dds"] = save(rgba.convert("LA"), "DDS")
+    # hand-built uncompressed kinds
+    px = rng.integers(0, 65536, (9, 11)).astype("<u2").tobytes()
+    for name, flags, masks in (("r5g6b5", DDPF_RGB, (0xF800, 0x7E0, 0x1F, 0)),
+                               ("a1r5g5b5", DDPF_RGB | DDPF_ALPHAPIXELS,
+                                (0x7C00, 0x3E0, 0x1F, 0x8000)),
+                               ("a4r4g4b4", DDPF_RGB | DDPF_ALPHAPIXELS,
+                                (0xF00, 0xF0, 0xF, 0xF000))):
+        files[f"{name}.dds"] = dds_file(11, 9, px, pfflags=flags, bitcount=16, masks=masks)
+    files["bgr24.dds"] = dds_file(10, 7, rng.integers(0, 256, 210, dtype=np.uint8).tobytes(),
+                                  pfflags=DDPF_RGB, bitcount=24,
+                                  masks=(0xFF0000, 0xFF00, 0xFF, 0))
+    # 32-bit masks that are not bytes: 10-10-10-2, a gapped mask, an empty one
+    files["odd_masks32.dds"] = dds_file(9, 8, rng.integers(0, 256, 288, dtype=np.uint8).tobytes(),
+                                        pfflags=DDPF_RGB, bitcount=32,
+                                        masks=(0x3FF00000, 0xB0700, 0, 0xC0000000))
+    files["a2b10g10r10.dds"] = dds_file(7, 6, rng.integers(0, 256, 168, dtype=np.uint8).tobytes(),
+                                        pfflags=DDPF_RGB | DDPF_ALPHAPIXELS, bitcount=32,
+                                        masks=(0x3FF, 0xFFC00, 0x3FF00000, 0xC0000000))
+    files["p8.dds"] = dds_file(12, 9, rng.integers(0, 256, 1024 + 108, dtype=np.uint8).tobytes(),
+                               pfflags=DDPF_PAL8, bitcount=8)
+    files["mipmaps.dds"] = dds_file(12, 8, blocks(12, 8, 16).tobytes() + blocks(6, 4, 16).tobytes()
+                                    + blocks(3, 2, 16).tobytes() + blocks(1, 1, 16).tobytes(),
+                                    fourcc=b"DXT5", mipmaps=4)
+    files["cube_bc7.dds"] = dds_file(8, 8, blocks(8, 8, 16).tobytes() * 6, fourcc=b"DX10",
+                                     dxgi=98, cube=True)
+    # the scenes' textures: textured's 32x32 as DXT1 (PIL), cubes' 64x64
+    # squares as BC7 mode 6
+    files["blob_bc1.dds"] = save(Image.fromarray(demo_texture(32)), "DDS", pixel_format="DXT1")
+    square = (np.add.outer(np.arange(64) // 8 * 3, np.arange(64) // 8 * 5) % 6)
+    colours = rng.integers(30, 225, (6, 3)).astype(np.uint8)
+    files["cubes_bc7.dds"] = dds_file(64, 64, bc7_mode6(colours[square]), fourcc=b"DX10",
+                                      dxgi=98)
+    # FTEX
+    files["dxt1.ftc"] = ftex_file(13, 10, 0, blocks(13, 10, 8).tobytes())
+    files["rgb.ftu"] = ftex_file(11, 7, 1, _picture(rng, 7, 11).tobytes())
+    # BLP1 JPEG: RGB with the alpha flag (the JPEG header shared, a gap
+    # before mip 0), CMYK (Adobe), YCCK; BLP1 palette
+    for name, mode, adobe, alpha in (("blp1_jpeg_alpha.blp", "RGB", None, 8),
+                                     ("blp1_jpeg_cmyk.blp", "CMYK", None, 0),
+                                     ("blp1_jpeg_ycck.blp", "CMYK", 2, 0)):
+        im = Image.fromarray(rng.integers(0, 256, (12, 18, 4), dtype=np.uint8)[..., :len(mode)],
+                             mode) if mode == "CMYK" else Image.fromarray(_picture(rng, 12, 18))
+        jpeg = save(im, "JPEG", quality=85)
+        if adobe is not None:
+            jpeg = jpeg_adobe(jpeg, adobe)
+        sos = jpeg.index(b"\xff\xda")
+        files[name] = blp_file(1, 18, 12, jpeg[sos:], compression=0, alpha=alpha,
+                               jpeg_header=jpeg[:sos], gap=6)
+    pal = rng.integers(0, 256, 1024, dtype=np.uint8).tobytes()
+    files["blp1_palette.blp"] = blp_file(1, 11, 9, rng.integers(0, 256, 99 + 99, dtype=np.uint8)
+                                         .tobytes(), encoding=5, alpha=8, palette=pal)
+    # BLP2 palette, PIL's writer: without alpha and with it
+    quant = pic.quantize(24)
+    files["blp2_palette.blp"] = save(quant, "BLP")
+    files["blp2_palette_alpha.blp"] = save(rgba.quantize(24), "BLP")
+    # BLP2 DXT (PIL's Python decoders) at width 11: alpha flag 0 and 1
+    for kind, enc, size in (("dxt1", 0, 8), ("dxt3", 1, 16), ("dxt5", 7, 16)):
+        for alpha in (0, 1):
+            files[f"blp2_{kind}_a{alpha}.blp"] = blp_file(
+                2, 11, 7, blocks(11, 7, size).tobytes(), encoding=2, alpha=alpha,
+                alpha_encoding=enc, palette=bytes(1024))
+    return files
+
+
 def main() -> None:
     from PIL import Image, features
 
@@ -1645,6 +1859,7 @@ def main() -> None:
     files.update({name: pair[0] for name, pair in arith_sources(np.random.default_rng(SEED + 4),
                                                                 Image).items()})
     files.update(tiff_jpegs(np.random.default_rng(SEED + 5), Image))
+    files.update(block_fixtures(np.random.default_rng(SEED + 6), Image))
     record = {"pillow": features.version("pil"), "libjpeg_turbo": features.version("libjpeg_turbo"),
               "libwebp": features.version("webp"), "files": {}}
     for name, data in files.items():

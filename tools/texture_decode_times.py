@@ -42,8 +42,9 @@ def _cpu_model() -> str:
 
 def files(Image) -> dict:
     """name -> bytes, 1024x1024 each."""
-    from torch_textures.make_fixtures import (arith_jpeg, bmp_file, bmp_rle, jpeg_scans,
-                                              jpeg_tiff, ojpeg_tiff, tiff_file)
+    from torch_textures.make_fixtures import (arith_jpeg, bc7_mode6, blp_file, bmp_file, bmp_rle,
+                                              dds_file, jpeg_scans, jpeg_tiff, ojpeg_tiff,
+                                              tiff_file)
 
     from relativitypathtracer_tpu_torch.utils.demo_scene import demo_texture
 
@@ -54,6 +55,9 @@ def files(Image) -> dict:
         buf = io.BytesIO()
         image.save(buf, fmt, **kw)
         return buf.getvalue()
+
+    def noise(size):
+        return np.random.default_rng(size).integers(0, 256, 65536 * size, dtype=np.uint8).tobytes()
 
     pal = im.quantize(16)
     idx = np.asarray(pal)
@@ -91,6 +95,13 @@ def files(Image) -> dict:
         "PNG": save(im, "PNG"),
         "WebP lossless": save(im, "WEBP", lossless=True),
         "WebP lossy": save(im, "WEBP", quality=90),
+        "DDS BC1 (PIL's DXT1)": save(im, "DDS", pixel_format="DXT1"),
+        "DDS BC7 mode 6": dds_file(1024, 1024, bc7_mode6(rgb), fourcc=b"DX10", dxgi=98),
+        # seeded random blocks: every mode, in the share random bits give
+        "DDS BC6H random blocks": dds_file(1024, 1024, noise(16), fourcc=b"DX10", dxgi=95),
+        # PIL's DXT5 blocks in a BLP2 (its Python decoder)
+        "BLP2 DXT5": blp_file(2, 1024, 1024, save(im, "DDS", pixel_format="DXT5")[128:],
+                              encoding=2, alpha=1, alpha_encoding=7),
     }
     return out
 
