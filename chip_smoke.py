@@ -115,21 +115,24 @@ It prints each path's seconds. Then it renders the textured path at msaa 2,
           after; no PIL module may be imported meanwhile): every file of
           tests/torch_textures (JPEG, progressive JPEGs with unsent bits,
           PNG, the PNM family, BMP, TGA, GIF, TIFF, WebP, DDS with BC1-BC7,
-          FTEX, BLP) decoded by models/texture.decode_texture to the
+          FTEX, BLP, PSD, SGI, PCX, DCX, Sun raster, QOI, MSP, ICO, CUR,
+          ICNS, XBM, XPM) decoded by models/texture.decode_texture to the
           SHA-256 PIL gave where they were made (pil_rgb.json), with its ms
           (the WebP files', the arithmetic-coded JPEGs', the JPEG-in-TIFF
-          files' and the DDS/FTEX/BLP files' again on a line each); the
+          files', the DDS/FTEX/BLP files' and the small raster formats'
+          again on a line each); the
           textured fixture with its 32x32 texture as
           a baseline 4:2:0 JPEG (utils/image.encode_jpeg; a 512-row atlas,
           K2), as an RLE TGA (the committed blob_rle.tga), as a lossy
           WebP (blob_lossy.webp), as an arithmetic-coded progressive
-          JPEG (blob_arith_prog.jpg) and as DXT1 (blob_bc1.dds), and cubes
+          JPEG (blob_arith_prog.jpg), as DXT1 (blob_bc1.dds) and as a
+          PackBits RGB PSD (blob_packbits.psd), and cubes
           with its 256x256 texture as a
           PNG (a 32,768-row atlas, K8), with a 64x64 LZW TIFF (the
           committed cubes_lzw.tif; a 2,048-row atlas, K8), with the same
           squares as a lossless WebP (cubes_lossless.webp), in 4:2:0
-          JPEG-in-TIFF tiles (cubes_jpeg_tiles.tif) and as BC7
-          (cubes_bc7.dds), each scene
+          JPEG-in-TIFF tiles (cubes_jpeg_tiles.tif), as BC7
+          (cubes_bc7.dds) and as an RLE SGI (cubes_rle.sgi), each scene
           written by utils/demo_scene, load_scene_file -> build_scene ->
           build_render_fn at 1024x768: one
           graphed frame with exactly that path's kernels launched, held to
@@ -269,7 +272,12 @@ TEXTURE_SCENES = (("textured", "jpg", (256, 192)), ("cubes", "png", (WIDTH, HEIG
                   ("textured", "blob_arith_prog.jpg", (256, 192)),
                   ("cubes", "cubes_jpeg_tiles.tif", (WIDTH, HEIGHT)),
                   ("textured", "blob_bc1.dds", (256, 192)),
-                  ("cubes", "cubes_bc7.dds", (WIDTH, HEIGHT)))
+                  ("cubes", "cubes_bc7.dds", (WIDTH, HEIGHT)),
+                  ("textured", "blob_packbits.psd", (256, 192)),
+                  ("cubes", "cubes_rle.sgi", (WIDTH, HEIGHT)))
+# the small raster formats' fixtures, by suffix
+LEGACY_SUFFIXES = (".psd", ".sgi", ".bw", ".rgb", ".pcx", ".dcx", ".ras", ".qoi", ".msp", ".ico",
+                   ".cur", ".icns", ".xbm", ".xpm")
 BIG_TEXTURE = 2048
 PKG = "relativitypathtracer_tpu_torch/csrc/"
 CSRC = pathlib.Path(__file__).resolve().parent / PKG
@@ -1120,8 +1128,9 @@ def textures_phase(torch, pt, dev, card, state) -> None:
     """Textures decoded without PIL (models/texture.decode_texture), with PIL
     blocked in sys.modules for the phase: the committed fixtures against
     PIL's hashes, the textured fixture with a JPEG, a TGA, a lossy WebP,
-    an arithmetic-coded JPEG and a DXT1 DDS texture and cubes with a PNG,
-    two TIFFs, a lossless WebP and a BC7 DDS one rendered
+    an arithmetic-coded JPEG, a DXT1 DDS and a PackBits PSD texture and
+    cubes with a PNG, two TIFFs, a lossless WebP, a BC7 DDS and an RLE SGI
+    one rendered
     on the card and held to the CPU and the oracle, and the decode time of
     a corpus-sized JPEG; see the module docstring."""
     import hashlib
@@ -1158,6 +1167,8 @@ def textures_phase(torch, pt, dev, card, state) -> None:
             t for t in times if t.split()[0].endswith(".tif") and "jpeg" in t))
         log("  DDS/FTEX/BLP decode ms: " + ", ".join(
             t for t in times if t.split()[0].endswith((".dds", ".ftc", ".ftu", ".blp"))))
+        log("  PSD/SGI/PCX/DCX/Sun/QOI/MSP/ICO/CUR/ICNS/XBM/XPM decode ms: " + ", ".join(
+            t for t in times if t.split()[0].endswith(LEGACY_SUFFIXES)))
         for kind, fmt, size in TEXTURE_SCENES:
             names = PATHS[kind][1]
             with tempfile.TemporaryDirectory() as tmp:

@@ -15,20 +15,32 @@ and PNG by utils/image_decode, the PNM family, BMP, TGA and GIF by
 utils/raster_decode, TIFF (JPEG-in-TIFF, new and old style, among its
 compressions) by utils/tiff_decode, WebP by utils/webp_decode (the first
 frame on its canvas), the block-compressed containers DDS (BC1-BC7 and the
-uncompressed kinds), FTEX and BLP by utils/dds_decode. The format is
-told as `Image.open` tells it: by the file's first bytes, in the order PIL
-tries its plugins, TGA (which has no magic number) by its header's checks
-after the others. A format PIL opens and the port does not, and an unknown
-one, raise TextureError.
+uncompressed kinds), FTEX and BLP by utils/dds_decode, PSD (the merged
+image) by utils/psd_decode, SGI, PCX, DCX (its first page), Sun raster,
+QOI and MSP by utils/legacy_raster, ICO, CUR and ICNS (the entry PIL
+picks) by utils/icon_decode, XBM and XPM by utils/text_raster. The format
+is told as `Image.open` tells it: by the file's first bytes, PIL's first
+five plugins first, then its other plugins in its order (Image.ID), each
+by its accept test and the header checks on which PIL moves on to the
+next plugin (utils/pil_open), TGA (which has no magic number) by its
+header's checks after the others. A format PIL opens and the port does
+not, and an unknown one, raise TextureError; so does an image of more
+pixels than PIL's decompression-bomb limit (178,956,970) in any format.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ..utils import pil_open
 from ..utils.dds_decode import decode_blp, decode_dds, decode_ftex
+from ..utils.icon_decode import decode_cur, decode_icns, decode_ico
 from ..utils.image_decode import decode_jpeg, decode_png
+from ..utils.legacy_raster import (decode_dcx, decode_msp, decode_pcx, decode_qoi, decode_sgi,
+                                   decode_sun)
+from ..utils.psd_decode import decode_psd
 from ..utils.raster_decode import decode_bmp, decode_gif, decode_pnm, decode_tga, tga_header_ok
+from ..utils.text_raster import decode_xbm, decode_xpm
 from ..utils.tiff_decode import decode_tiff
 from ..utils.webp_decode import decode_webp, is_webp
 
@@ -36,34 +48,46 @@ _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 _DIB_HEADERS = (12, 40, 52, 56, 64, 108, 124)  # BmpImagePlugin._dib_accept
 _TIFF_MAGIC = (b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00", b"II\x00\x2a", b"MM\x00\x2b",
                b"II\x2b\x00")
+_JPEG2000 = (b"\xff\x4f\xff\x51", b"\0\0\0\x0cjP  \r\n\x87\n")
 
-
-def _entries(data: bytes) -> bool:
-    """A cursor's or icon's directory as CurImageFile and IcoFile read it:
-    at least one 16-byte entry, each present (else PIL tries the next
-    plugin)."""
-    count = int.from_bytes(data[4:6], "little")
-    return count > 0 and len(data) >= 6 + 16 * count
-
-
-# formats PIL opens and this loader does not, by their first bytes; the
-# other formats' plugins come before TGA's in PIL's order
-_OTHER_FORMATS = ((lambda d: d[4:8] == b"ftyp", "AVIF/HEIF"),
-                  (lambda d: d[:4] == b"\0\0\2\0" and _entries(d), "CUR"),
-                  (lambda d: d[:1] == b"\x0a" and d[1:2] in (b"\0", b"\2", b"\3", b"\5"), "PCX"),
-                  (lambda d: d[:4] in (b"%!PS", b"\xc5\xd0\xd3\xc6"), "EPS"),
-                  (lambda d: d[:6] == b"SIMPLE", "FITS"),
-                  (lambda d: d[:4] == b"icns", "ICNS"),
-                  (lambda d: d[:4] == b"\0\0\1\0" and _entries(d), "ICO"),
-                  (lambda d: d[:4] == b"\xff\x4f\xff\x51" or d[:12] == b"\0\0\0\x0cjP  \r\n\x87\n",
-                   "JPEG 2000"),
-                  (lambda d: d[:4] in (b"DanM", b"LinS"), "MSP"),
-                  (lambda d: d[:4] == b"8BPS", "PSD"),
-                  (lambda d: d[:4] == b"qoif", "QOI"),
-                  (lambda d: d[:2] == b"\x01\xda", "SGI"),
-                  (lambda d: d[:4] == b"\x59\xa6\x6a\x95", "Sun raster"),
-                  (lambda d: d[:7] == b"#define", "XBM"),
-                  (lambda d: d[:9] == b"/* XPM */", "XPM"))
+# PIL's plugins after its first five, in its order (Image.ID), each as
+# (name, the test on which PIL's Image.open takes the file, the name of
+# this module's decoder of it); the formats PIL opens and this loader does
+# not are _OTHER_FORMATS
+_PLUGINS = (
+    ("AVIF/HEIF", lambda d: d[4:8] == b"ftyp", None),
+    ("BLP", lambda d: d[:4] in (b"BLP1", b"BLP2"), "decode_blp"),
+    ("CUR", pil_open.cur, "decode_cur"),
+    ("PCX", pil_open.pcx, "decode_pcx"),
+    ("DCX", pil_open.dcx, "decode_dcx"),
+    ("DDS", lambda d: d[:4] == b"DDS ", "decode_dds"),
+    ("EPS", lambda d: d[:4] in (b"%!PS", b"\xc5\xd0\xd3\xc6"), None),
+    ("FITS", lambda d: d[:6] == b"SIMPLE", None),
+    ("FLI/FLC", pil_open.fli, None),
+    ("FTEX", lambda d: d[:4] == b"FTEX", "decode_ftex"),
+    ("GBR", pil_open.gbr, None),
+    ("JPEG 2000", lambda d: d.startswith(_JPEG2000), None),
+    ("ICNS", pil_open.icns, "decode_icns"),
+    ("ICO", lambda d: d[:4] == b"\0\0\1\0" and pil_open.entries(d), "decode_ico"),
+    ("IM", pil_open.im, None),
+    ("IMT", pil_open.imt, None),
+    ("IPTC", pil_open.iptc, None),
+    ("McIdas", lambda d: d[:8] == b"\0\0\0\0\0\0\0\4", None),
+    ("MSP", pil_open.msp, "decode_msp"),
+    ("PCD", pil_open.pcd, None),
+    ("PIXAR", lambda d: d[:4] == b"\x80\xe8\0\0", None),
+    ("PSD", lambda d: d[:4] == b"8BPS" and d[4:6] == b"\0\1", "decode_psd"),
+    ("QOI", lambda d: d[:4] == b"qoif", "decode_qoi"),
+    ("SGI", lambda d: d[:2] == b"\x01\xda" and len(d) >= 12, "decode_sgi"),
+    ("SPIDER", pil_open.spider, None),
+    ("Sun raster", lambda d: d[:4] == b"\x59\xa6\x6a\x95" and len(d) >= 32, "decode_sun"),
+    ("TGA", tga_header_ok, "decode_tga"),
+    ("XBM", lambda d: d[:16].lstrip().startswith(b"#define"), "decode_xbm"),
+    ("XPM", lambda d: d[:9] == b"/* XPM */", "decode_xpm"),
+    ("XVThumb", lambda d: d[:6] == b"P7 332", None))
+_OTHER_FORMATS = tuple(name for name, _, decoder in _PLUGINS if decoder is None)
+_DECODED = ("PNM, BMP, GIF, JPEG, PNG, TIFF, WebP, "
+            + ", ".join(name for name, _, decoder in _PLUGINS if decoder is not None))
 
 
 class TextureError(ValueError):
@@ -97,19 +121,13 @@ def decode_texture(data: bytes) -> np.ndarray:
         return decode_tiff(data)
     if is_webp(data):
         return decode_webp(data)
-    # PIL's plugins in its order: BLP, DDS and FTEX among the others, each
-    # told by a magic number no plugin tried before it takes
-    if data[:4] in (b"BLP1", b"BLP2"):
-        return decode_blp(data)
-    if data[:4] == b"DDS ":
-        return decode_dds(data)
-    if data[:4] == b"FTEX":
-        return decode_ftex(data)
-    kind = next((name for test, name in _OTHER_FORMATS if test(data)), None)
-    if kind is None and tga_header_ok(data):
-        return decode_tga(data)
-    raise ValueError(f"{kind or f'unknown format (first bytes {data[:8]!r})'}: textures are "
-                     "PNM, BMP, GIF, JPEG, PNG, TIFF, WebP, BLP, DDS, FTEX or TGA")
+    for name, test, decoder in _PLUGINS:
+        if test(data):
+            if decoder is None:
+                raise ValueError(f"{name}: a format PIL opens and the port does not decode yet; "
+                                 f"textures are {_DECODED}")
+            return globals()[decoder](data)
+    raise ValueError(f"unknown format (first bytes {data[:8]!r}): textures are {_DECODED}")
 
 
 def read_texture(path: str, atlas: bytearray, values: list) -> None:

@@ -13,10 +13,22 @@ orders, palettes), then converts to RGB as `Image.convert("RGB")` does
              the first three channels;
   I, I;16    integers clipped to 0-255 (not scaled: 4000 -> 255);
   CMYK       Convert.c cmyk2rgb: nk = 255 - K, each channel
-             nk - MULDIV255(C, nk) in integers.
+             nk - MULDIV255(C, nk) in integers;
+  LAB        not Convert.c: Image.convert hands LAB to littleCMS
+             (ImageCms: the built-in Lab profile, D50, to the built-in
+             sRGB, perceptual, 8 bits in and out), and PIL stores a and b
+             as signed bytes, so littleCMS reads each a, b byte with its top
+             bit flipped. littleCMS optimises an 8-bit transform from Lab
+             into a 33-point 16-bit grid (its float pipeline: Lab -> XYZ,
+             the sRGB profile's Bradford-adapted inverse matrix, the
+             inverse sRGB curve) read by its 16-bit tetrahedral
+             interpolation; `lab_to_rgb` does the same, and equals PIL on
+             all 2**24 inputs.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 
@@ -59,6 +71,86 @@ def cmyk_to_rgb(cmyk) -> np.ndarray:
     return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
 
 
+_LAB_GRID = 33
+
+
+def _srgb_from_xyz() -> np.ndarray:
+    """littleCMS's sRGB output matrix: its RGB -> XYZ matrix from the
+    Rec. 709 primaries and D65, adapted to D50 by Bradford, inverted and
+    scaled by MAX_ENCODEABLE_XYZ (the pipeline's XYZ is divided by it)."""
+    white = np.array([0.3127 / 0.3290, 1.0, (1 - 0.3127 - 0.3290) / 0.3290])
+    xy = np.array([(0.64, 0.33), (0.30, 0.60), (0.15, 0.06)])
+    prim = np.stack([xy[:, 0], xy[:, 1], 1 - xy[:, 0] - xy[:, 1]])
+    rgb_to_xyz = prim * (np.linalg.inv(prim) @ white)[None, :]
+    bradford = np.array([[0.8951, 0.2664, -0.1614], [-0.7502, 1.7135, 0.0367],
+                         [0.0389, -0.0685, 1.0296]])
+    cone = np.diag((bradford @ _D50) / (bradford @ white))
+    adapt = np.linalg.inv(bradford) @ (cone @ bradford)
+    return np.linalg.inv(adapt @ rgb_to_xyz) * _MAX_XYZ
+
+
+_D50 = np.array([0.9642, 1.0, 0.8249])
+_MAX_XYZ = 1.0 + 32767.0 / 32768.0
+
+
+def _lab_pipeline(words) -> np.ndarray:
+    """littleCMS's 16-bit evaluation of the Lab -> sRGB float pipeline:
+    (n, 3) 16-bit Lab (v4 encoding) -> (n, 3) 16-bit RGB; float32 between
+    stages, float64 within them."""
+    f = (np.asarray(words).astype(np.float32) / np.float32(65535.0)).astype(np.float64)
+    y = (f[:, 0] * 100.0 + 16.0) / 116.0
+    t = np.stack([y + 0.002 * (f[:, 1] * 255.0 - 128.0), y, y - 0.005 * (f[:, 2] * 255.0 - 128.0)],
+                 -1)
+    xyz = np.where(t <= 24.0 / 116.0, (108.0 / 841.0) * (t - 16.0 / 116.0), t * t * t) * _D50
+    xyz = (xyz / _MAX_XYZ).astype(np.float32).astype(np.float64)
+    lin = (xyz @ _srgb_from_xyz().T).astype(np.float32).astype(np.float64)
+    g, a, b, c, d = 2.4, 1 / 1.055, 0.055 / 1.055, 1 / 12.92, 0.04045  # sRGB, type 4
+    with np.errstate(invalid="ignore"):
+        hi = (np.power(np.maximum(lin, 0.0), 1.0 / g) - b) / a
+    out = np.where(lin >= (a * d + b) ** g, hi, lin / c).astype(np.float32).astype(np.float64)
+    return np.clip(np.floor(out * 65535.0 + 0.5), 0, 65535).astype(np.int64)
+
+
+@functools.cache
+def _lab_grid() -> np.ndarray:
+    """littleCMS's optimised transform: the pipeline at the 33^3 grid's
+    nodes, (33, 33, 33, 3) 16-bit values, read-only."""
+    n = _LAB_GRID
+    nodes = np.floor(np.arange(n) * 65535.0 / (n - 1) + 0.5).astype(np.int64)
+    grid = np.stack(np.meshgrid(nodes, nodes, nodes, indexing="ij"), -1).reshape(-1, 3)
+    table = _lab_pipeline(grid).reshape(n, n, n, 3)
+    table.flags.writeable = False
+    return table
+
+
+def lab_to_rgb(lab) -> np.ndarray:
+    """(..., 3) uint8 PIL LAB samples (a and b signed) -> (..., 3) uint8 RGB,
+    as PIL's convert("RGB") (littleCMS; module docstring)."""
+    n, table = _LAB_GRID, _lab_grid()
+    lab = np.asarray(lab, np.uint8)
+    shape = lab.shape
+    words = (lab.reshape(-1, 3).astype(np.int64) ^ [0, 0x80, 0x80]) * 257
+    # TetrahedralInterp16: fixed-point cell and fractions, the cell's
+    # corners visited from the largest fraction down
+    fixed = words * (n - 1)
+    fixed = fixed + (fixed + 0x7FFF) // 0xFFFF
+    lo, frac = fixed >> 16, fixed & 0xFFFF
+    hi = np.where(words == 0xFFFF, lo, lo + 1)
+    rows = np.arange(words.shape[0])
+    order = np.argsort(-frac, axis=1, kind="stable")
+    corner = lo.copy()
+    prev = first = table[lo[:, 0], lo[:, 1], lo[:, 2]]
+    rest = np.full(first.shape, 0x8001, np.int64)
+    for step in range(3):
+        k = order[:, step]
+        corner[rows, k] = hi[rows, k]
+        value = table[corner[:, 0], corner[:, 1], corner[:, 2]]
+        rest += (value - prev) * frac[rows, k][:, None]
+        prev = value
+    out = (first + ((rest + (rest >> 16)) >> 16)) & 0xFFFF
+    return (((out * 65281 + 8388608) >> 24) & 0xFF).astype(np.uint8).reshape(shape)
+
+
 def to_rgb(mode: str, a, palette=None) -> np.ndarray:
     """(h, w, 3) uint8: PIL's `convert("RGB")` of an image of `mode` whose
     samples are `a`, (h, w) for one band and (h, w, bands) for several;
@@ -76,6 +168,8 @@ def to_rgb(mode: str, a, palette=None) -> np.ndarray:
         return np.ascontiguousarray(a[..., :3], np.uint8)
     elif mode == "CMYK":
         return cmyk_to_rgb(a)
+    elif mode == "LAB":
+        return lab_to_rgb(a)
     else:
         raise ValueError(f"no conversion from mode {mode} to RGB")
     return np.repeat(grey[..., None], 3, -1)

@@ -279,10 +279,12 @@ _BMP_MASKS = {
 _RAW_BITS = {"1": 1, "P;1": 1, "P;4": 4, "P": 8, "L": 8, "BGR;15": 16, "BGR;16": 16, "BGR": 24}
 
 
-def decode_bmp(data: bytes, dib: bool = False) -> np.ndarray:
+def decode_bmp(data: bytes, dib: bool = False, halve: bool = False) -> np.ndarray:
     """(H, W, 3) uint8 pixels of a BMP file, or of a DIB (a BMP without its
     14-byte file header, as PIL's DibImageFile), as PIL's
-    `convert("RGB")` of it."""
+    `convert("RGB")` of it; `halve`: the first half of the rows in file
+    order only (an icon's or cursor's image, its header's height counting
+    the mask after it too)."""
     data = bytes(data)
     if dib:
         pos, offset = 0, 0
@@ -345,6 +347,8 @@ def decode_bmp(data: bytes, dib: bool = False) -> np.ndarray:
             mode = "P"
             table = np.frombuffer(pal[:len(pal) - len(pal) % padding], np.uint8)
             palette = palette256(table.reshape(-1, padding)[:, 2::-1])
+    if halve:
+        height //= 2
     if width <= 0 or height <= 0 or width >= 2 ** 31 or height >= 2 ** 31:
         raise DecodeError(f"BMP of {width}x{height} pixels")
     _check_size(width, height)

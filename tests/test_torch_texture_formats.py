@@ -454,7 +454,10 @@ def test_jpeg_kinds_decode_as_pil(case):
 DECODERS = {"PPM": "decode_pnm", "BMP": "decode_bmp", "DIB": "decode_bmp", "TGA": "decode_tga",
             "GIF": "decode_gif", "TIFF": "decode_tiff", "JPEG": "decode_jpeg",
             "PNG": "decode_png", "WEBP": "decode_webp", "DDS": "decode_dds", "BLP": "decode_blp",
-            "FTEX": "decode_ftex"}
+            "FTEX": "decode_ftex", "PSD": "decode_psd", "SGI": "decode_sgi", "PCX": "decode_pcx",
+            "DCX": "decode_dcx", "SUN": "decode_sun", "QOI": "decode_qoi", "MSP": "decode_msp",
+            "ICO": "decode_ico", "CUR": "decode_cur", "ICNS": "decode_icns", "XBM": "decode_xbm",
+            "XPM": "decode_xpm"}
 
 
 @pytest.mark.parametrize("name", sorted(json.loads((FIXTURES / "pil_rgb.json").read_text())
@@ -474,11 +477,11 @@ def test_formats_told_apart_as_pil_tells_them(name, monkeypatch):
     assert calls == [want]
 
 
-def test_tga_is_told_last_by_its_header():
+def test_tga_is_told_last_by_its_header(monkeypatch):
     """A TGA has no magic number: PIL tries it after its other plugins, so a
     truecolour TGA whose first bytes look like a cursor (00 00 02 00) with
     no cursor entries still opens as a TGA, and a file that passes no check
-    is unknown."""
+    is unknown; with a directory entry they are a cursor, decoded as one."""
     data = tga_file(5, 3, 2, 24, bytes(range(45)))
     assert data[:4] == b"\0\0\2\0"
     with Image.open(io.BytesIO(data)) as im:
@@ -489,13 +492,18 @@ def test_tga_is_told_last_by_its_header():
     # with a directory entry the same first bytes make a cursor, even where
     # the entry's bytes pass the TGA checks; an icon likewise
     assert tga_header_ok(CURSOR)
+    calls = []
+    for attr in ("decode_cur", "decode_ico", "decode_tga"):
+        real = getattr(texture, attr)
+        monkeypatch.setattr(texture, attr, lambda d, _r=real, _n=attr: calls.append(_n) or _r(d))
     for data, kind in ((CURSOR, "CUR"), (_save(Image.new("RGB", (16, 16), (9, 8, 7)), "ICO"),
                                          "ICO")):
         with Image.open(io.BytesIO(data)) as im:
             assert im.format == kind
             im.convert("RGB")
-        with pytest.raises(ValueError, match=f"^{kind}: "):
-            decode_texture(data)
+        calls.clear()
+        _equal_to_pil(data)
+        assert calls == [f"decode_{kind.lower()}"]
 
 
 def _cursor() -> bytes:
@@ -562,8 +570,9 @@ def _refused():
                             "colour map of 32 bits"),
         "pnm_float": (b"Pf\n2 1\n-1.0\n" + bytes(8), "PNM kind b'Pf'"),
         "webp": (b"RIFF\x10\0\0\0WEBPVP8L" + bytes(8), "truncated WebP lossless data"),
-        "cur": (CURSOR, "CUR"),
-        "ico": (_save(pic.resize((16, 16)), "ICO"), "ICO"),
+        # once refused; now decoded (words None)
+        "cur": (CURSOR, None),
+        "ico": (_save(pic.resize((16, 16)), "ICO"), None),
         # once refused; now decoded (words None): Huffman data read as
         # arithmetic-coded, the garbage libjpeg makes of it
         "arithmetic_jpeg": (_save(pic, "JPEG").replace(b"\xff\xc0", b"\xff\xc9", 1), None),
@@ -591,9 +600,9 @@ REFUSED = _refused()
 @pytest.mark.parametrize("kind", sorted(REFUSED))
 def test_refused_and_broken_files_raise_texture_error(tmp_path, kind, monkeypatch):
     """Each raises TextureError naming the file and what went wrong, with
-    PIL blocked, and leaves the atlas as it was. The kind once refused that
-    the port now decodes (words None: an arithmetic-coded JPEG) reads to
-    PIL's pixels."""
+    PIL blocked, and leaves the atlas as it was. The kinds once refused that
+    the port now decodes (words None: an arithmetic-coded JPEG, a cursor,
+    an icon) read to PIL's pixels."""
     data, words = REFUSED[kind]
     path = tmp_path / "t.bin"
     path.write_bytes(data)
@@ -692,11 +701,13 @@ def test_chip_smoke_texture_scenes_on_cpu(tmp_path):
     textured with blob_rle.tga (the PPM scene's 32x32 texture, so the same
     atlas; K2's small route), with blob_lossy.webp (that texture lossy) and
     with blob_arith_prog.jpg (that texture as an arithmetic-coded
-    progressive JPEG) and with blob_bc1.dds (that texture as DXT1), cubes
-    with cubes_lzw.tif, with cubes_lossless.webp, with cubes_jpeg_tiles.tif
-    (64x64 in 4:2:0 JPEG-in-TIFF tiles; a 2,048-row atlas: K8's windowed
-    route) and with cubes_bc7.dds (the squares as BC7), through its
-    fixture_texture."""
+    progressive JPEG), with blob_bc1.dds (that texture as DXT1) and with
+    blob_packbits.psd (that texture as a PackBits RGB PSD, lossless, so the
+    PPM scene's atlas again), cubes with cubes_lzw.tif, with
+    cubes_lossless.webp, with cubes_jpeg_tiles.tif (64x64 in 4:2:0
+    JPEG-in-TIFF tiles; a 2,048-row atlas: K8's windowed route), with
+    cubes_bc7.dds (the squares as BC7) and with cubes_rle.sgi (the squares
+    as RLE SGI), through its fixture_texture."""
     from relativitypathtracer_tpu_torch.ops.kernels.texture_kernel import texture_route
 
     spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
@@ -706,7 +717,8 @@ def test_chip_smoke_texture_scenes_on_cpu(tmp_path):
     assert fixtures == [("textured", "blob_rle.tga"), ("cubes", "cubes_lzw.tif"),
                         ("textured", "blob_lossy.webp"), ("cubes", "cubes_lossless.webp"),
                         ("textured", "blob_arith_prog.jpg"), ("cubes", "cubes_jpeg_tiles.tif"),
-                        ("textured", "blob_bc1.dds"), ("cubes", "cubes_bc7.dds")]
+                        ("textured", "blob_bc1.dds"), ("cubes", "cubes_bc7.dds"),
+                        ("textured", "blob_packbits.psd"), ("cubes", "cubes_rle.sgi")]
     for kind, name in fixtures:
         where = tmp_path / name
         scene_file = smoke.fixture_texture(write_demo_scene(str(where), 1, kind), name)
@@ -716,7 +728,7 @@ def test_chip_smoke_texture_scenes_on_cpu(tmp_path):
         route = texture_route(scene.tex_quads.shape[0])
         assert bytes(host.textures) == _pil((FIXTURES / name).read_bytes()).tobytes()
         if kind == "textured":
-            if name.endswith(".tga"):
+            if name.endswith((".tga", ".psd")):
                 ppm = pt.load_scene_file(write_demo_scene(str(tmp_path / "ppm"), 1, kind))
                 assert bytes(host.textures) == bytes(ppm.textures) == demo_texture(32).tobytes()
             assert route == "small"

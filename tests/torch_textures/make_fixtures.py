@@ -1823,6 +1823,407 @@ def block_fixtures(rng, Image) -> dict:
     return files
 
 
+# --- the small raster formats: PSD, SGI, PCX, DCX, Sun, QOI, MSP, icons, XBM, XPM
+
+def psd_file(mode: int, bits: int, planes, comp: int = 0, mode_data: bytes = b"",
+             resources: bytes = b"", layers: bytes = b"", channels=None) -> bytes:
+    """A PSD of the merged image `planes` ((channels, h, row bytes) uint8),
+    raw (comp 0) or PackBits rows (comp 1, a row count a channel and row)."""
+    planes = np.asarray(planes, np.uint8)
+    c, h, _ = planes.shape
+    width = planes.shape[2] * 8 if bits == 1 else planes.shape[2]
+    head = b"8BPS" + struct.pack(">H6xHIIHH", 1, channels or c, h, width, bits, mode)
+    body = b"".join(struct.pack(">I", len(x)) + x for x in (mode_data, resources, layers))
+    if comp == 0:
+        return head + body + struct.pack(">H", 0) + planes.tobytes()
+    rows = [packbits(bytes(r)) for plane in planes for r in plane]
+    return (head + body + struct.pack(">H", 1) + struct.pack(f">{len(rows)}H", *map(len, rows))
+            + b"".join(rows))
+
+
+def sgi_rle_row(samples, bpc: int = 1) -> bytes:
+    """SGI's RLE of one row of one channel: runs of 2-127 equal samples
+    (count, value), copies of up to 127 others (0x80 | count, values), a 0
+    atom at the end; each atom `bpc` bytes."""
+    v = [int(x) for x in samples]
+    atom = (lambda x: bytes([x])) if bpc == 1 else (lambda x: struct.pack(">H", x))
+    out, i, n = bytearray(), 0, len(v)
+    while i < n:
+        j = i
+        while j + 1 < n and v[j + 1] == v[i] and j - i < 126:
+            j += 1
+        if j > i:
+            out += atom(j - i + 1) + atom(v[i])
+            i = j + 1
+            continue
+        k = i
+        while k + 1 < n and v[k + 1] != v[k] and k - i < 126:
+            k += 1
+        out += atom(0x80 | (k - i + 1)) + b"".join(atom(x) for x in v[i:k + 1])
+        i = k + 1
+    return bytes(out + atom(0))
+
+
+def sgi_file(samples, bpc: int = 1, rle: bool = False, dimension=None, rows=None) -> bytes:
+    """An SGI image of (h, w, z) samples (top row first; stored bottom-up),
+    verbatim or RLE (`rows`: a (channel, file row) -> bytes override; equal
+    rows share their data, as SGI's tools write them)."""
+    samples = np.asarray(samples)
+    h, w, z = samples.shape
+    dimension = dimension or (3 if z > 1 else 2)
+    head = struct.pack(">HBBHHHH", 474, int(rle), bpc, dimension, w, h, z).ljust(512, b"\0")
+    up = samples[::-1]
+    if not rle:
+        dt = np.uint8 if bpc == 1 else ">u2"
+        return head + np.ascontiguousarray(up.transpose(2, 0, 1)).astype(dt).tobytes()
+    chunks = [(rows or {}).get((c, r)) or sgi_rle_row(up[r, :, c], bpc)
+              for c in range(z) for r in range(h)]
+    starts, pos, seen = [], 512 + 8 * h * z, {}
+    for chunk in chunks:
+        if chunk not in seen:
+            seen[chunk] = pos
+            pos += len(chunk)
+        starts.append(seen[chunk])
+    return (head + struct.pack(f">{h * z}I", *starts) + struct.pack(f">{h * z}I", *map(len, chunks))
+            + b"".join(seen))
+
+
+def pcx_rle(line: bytes) -> bytes:
+    """PCX's RLE of one line: runs of 2-63 (or a byte >= 0xC0) as 0xC0 | n
+    and the byte, other bytes themselves."""
+    out, i, n = bytearray(), 0, len(line)
+    while i < n:
+        j = i
+        while j + 1 < n and line[j + 1] == line[i] and j - i < 62:
+            j += 1
+        if j > i or line[i] >= 0xC0:
+            out += bytes([0xC0 | (j - i + 1), line[i]])
+        else:
+            out.append(line[i])
+        i = j + 1
+    return bytes(out)
+
+
+def pcx_file(lines, width: int, height: int, bits: int, planes: int, version: int = 5,
+             palette16: bytes = bytes(48), palette256=None, stride=None, box=(0, 0)) -> bytes:
+    """A PCX of `lines` (height rows of planes x stride bytes), RLE-coded
+    a line at a time, with the header's 16-colour palette and, for 8 bits,
+    the 769-byte one after the data."""
+    stride = stride if stride is not None else len(lines[0]) // planes
+    x0, y0 = box
+    head = (struct.pack("<BBBBHHHHHH", 10, version, 1, bits, x0, y0, x0 + width - 1,
+                        y0 + height - 1, 72, 72) + palette16[:48].ljust(48, b"\0") + b"\0"
+            + struct.pack("<BHH", planes, stride, 1)).ljust(128, b"\0")
+    body = b"".join(pcx_rle(bytes(line)) for line in lines)
+    return head + body + (b"\x0c" + bytes(palette256) if palette256 is not None else b"")
+
+
+def dcx_file(pages) -> bytes:
+    """A DCX of PCX pages: the magic, the page offsets, a 0 entry."""
+    table = 4 + 4 * (len(pages) + 1)
+    offsets, pos = [], table
+    for page in pages:
+        offsets.append(pos)
+        pos += len(page)
+    return (struct.pack(f"<I{len(pages) + 1}I", 0x3ADE68B1, *offsets, 0) + b"".join(pages))
+
+
+def sun_rle(data: bytes) -> bytes:
+    """Sun's RLE: runs of 3-256 (or of 0x80) as 80 n-1 v, a lone 0x80 as
+    80 00, other bytes themselves; runs go across rows."""
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        j = i
+        while j + 1 < n and data[j + 1] == data[i] and j - i < 255:
+            j += 1
+        count = j - i + 1
+        if count >= 3 or (data[i] == 0x80 and count > 1):
+            out += bytes([0x80, count - 1, data[i]])
+        elif data[i] == 0x80:
+            out += b"\x80\x00"
+        else:
+            out += data[i:i + count]
+        i = j + 1
+    return bytes(out)
+
+
+def sun_file(width: int, height: int, depth: int, body: bytes, kind: int = 1,
+             cmap: bytes = b"") -> bytes:
+    """A Sun raster file: the 32-byte header, an RGB colour map (planar),
+    then `body` as it is stored."""
+    return struct.pack(">8I", 0x59A66A95, width, height, depth, len(body), kind, 1 if cmap else 0,
+                       len(cmap)) + cmap + body
+
+
+def sun_rows(rows: np.ndarray, pad: bool = True) -> bytes:
+    """Rows of bytes, each padded to 16 bits where `pad`."""
+    rows = np.asarray(rows, np.uint8)
+    if pad and rows.shape[1] % 2:
+        rows = np.concatenate([rows, np.zeros((rows.shape[0], 1), np.uint8)], 1)
+    return rows.tobytes()
+
+
+def qoi_file(width: int, height: int, channels: int, ops: bytes) -> bytes:
+    """A QOI file of an op stream, with its 8-byte end marker."""
+    return (b"qoif" + struct.pack(">IIBB", width, height, channels, 0) + ops
+            + b"\0" * 7 + b"\1")
+
+
+def msp_file(width: int, height: int, rows, version: int = 2) -> bytes:
+    """An MSP file of (height, ceil(width / 8)) bytes of bits: version 1
+    raw, version 2 a row map and each row RLE-coded (runs of 3-255 as 00 n
+    v, literals of up to 255 bytes)."""
+    header = [0] * 16
+    header[0:2] = struct.unpack("<2H", b"DanM" if version == 1 else b"LinS")
+    header[2:4], header[4:8], header[8:10] = (width, height), (1, 1, 1, 1), (width, height)
+    check = 0
+    for word in header:
+        check ^= word
+    header[12] = check
+    head = struct.pack("<16H", *header)
+    rows = [bytes(r) for r in np.asarray(rows, np.uint8)]
+    if version == 1:
+        return head + b"".join(rows)
+    coded = []
+    for row in rows:
+        out, i = bytearray(), 0
+        while i < len(row):
+            j = i
+            while j + 1 < len(row) and row[j + 1] == row[i] and j - i < 254:
+                j += 1
+            if j - i >= 2:
+                out += bytes([0, j - i + 1, row[i]])
+                i = j + 1
+            else:
+                k = min(len(row), i + 255)
+                stop = next((m for m in range(i, k - 2) if row[m] == row[m + 1] == row[m + 2]), k)
+                stop = max(stop, i + 1)
+                out += bytes([stop - i]) + row[i:stop]
+                i = stop
+        coded.append(bytes(out))
+    return head + struct.pack(f"<{len(coded)}H", *map(len, coded)) + b"".join(coded)
+
+
+def dib(rgb_or_idx: np.ndarray, bits: int, palette=None, mask=None) -> bytes:
+    """An icon's or cursor's DIB: the 40-byte header at twice the height,
+    the palette, the bottom-up rows and the AND mask (1 bit, rows padded to
+    32 bits)."""
+    h, w = rgb_or_idx.shape[:2]
+    pal = b"".join(bytes([b, g, r, 0]) for r, g, b in (palette or []))
+    if bits == 32:
+        px = np.concatenate([rgb_or_idx[..., ::-1], np.full((h, w, 1), 255)], 2)
+        rows = bmp_rows(px.astype(np.uint8), 32)
+    elif bits == 24:
+        rows = bmp_rows(rgb_or_idx[..., ::-1].astype(np.uint8), 24)
+    else:
+        rows = bmp_rows(rgb_or_idx.astype(np.uint8), bits)
+    mask = np.zeros((h, w), np.uint8) if mask is None else mask
+    stride = (w + 31) // 32 * 4
+    packed = np.packbits(mask[::-1], axis=1)
+    and_rows = np.zeros((h, stride), np.uint8)
+    and_rows[:, :packed.shape[1]] = packed
+    head = struct.pack("<IiiHHIIiiII", 40, w, 2 * h, 1, bits, 0, 0, 0, 0, len(palette or []), 0)
+    return head + pal + rows + and_rows.tobytes()
+
+
+def icon_file(kind: int, entries) -> bytes:
+    """An ICO (kind 1) or CUR (kind 2): entries of (width byte, height byte,
+    colour count, bit count, data); a CUR's planes and bit count fields
+    hold its hotspot."""
+    out, pos = struct.pack("<HHH", 0, kind, len(entries)), 6 + 16 * len(entries)
+    for w, h, colors, bpp, data in entries:
+        out += struct.pack("<BBBBHHII", w, h, colors, 0, 1, bpp, len(data), pos)
+        pos += len(data)
+    return out + b"".join(e[4] for e in entries)
+
+
+def icns_rle(plane: bytes) -> bytes:
+    """ICNS's RLE of one channel plane: runs of 3-130 as (n + 125, v),
+    literals of up to 128 bytes as (n - 1, bytes)."""
+    out, i, n = bytearray(), 0, len(plane)
+    while i < n:
+        j = i
+        while j + 1 < n and plane[j + 1] == plane[i] and j - i < 129:
+            j += 1
+        if j - i >= 2:
+            out += bytes([j - i + 1 + 125, plane[i]])
+            i = j + 1
+            continue
+        k = i
+        while k + 1 < n and k - i < 127 and not (k + 2 < n and plane[k + 1] == plane[k + 2]
+                                                 == plane[min(k + 3, n - 1)]):
+            k += 1
+        out += bytes([k - i]) + plane[i:k + 1]
+        i = k + 1
+    return bytes(out)
+
+
+def icns_file(blocks) -> bytes:
+    """An ICNS file of (type, data) blocks."""
+    body = b"".join(kind + struct.pack(">I", 8 + len(data)) + data for kind, data in blocks)
+    return b"icns" + struct.pack(">I", 8 + len(body)) + body
+
+
+def icns_rgb(rgb: np.ndarray, it32: bool = False) -> bytes:
+    """An RGB resource: each channel plane RLE-coded (it32 behind 4 zero
+    bytes)."""
+    data = b"".join(icns_rle(np.ascontiguousarray(rgb[..., c]).tobytes()) for c in range(3))
+    return (b"\0\0\0\0" if it32 else b"") + data
+
+
+def xpm_file(idx: np.ndarray, colours, cpp: int, keys=None, pixels_comment: bool = True) -> bytes:
+    """An XPM of (h, w) indices into `colours` ("#rrggbb" or "None"), each
+    pixel `cpp` characters."""
+    h, w = idx.shape
+    alphabet = b".#abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789"
+    keys = keys or [bytes(alphabet[(k // len(alphabet) ** j) % len(alphabet)]
+                          for j in range(cpp)) for k in range(len(colours))]
+    lines = [b"/* XPM */", b"static char *x[] = {", f'"{w} {h} {len(colours)} {cpp}",'.encode()]
+    lines += [b'"' + k + b" c " + c.encode() + b'",' for k, c in zip(keys, colours)]
+    if pixels_comment:
+        lines.append(b"/* pixels */")
+    lines += [b'"' + b"".join(keys[i] for i in row) + b'",' for row in idx]
+    return b"\n".join(lines) + b"\n};\n"
+
+
+def legacy_fixtures(rng, Image) -> dict:
+    """The PSD, SGI, PCX, DCX, Sun raster, QOI, MSP, ICO, CUR, ICNS, XBM
+    and XPM fixtures, by file name: files PIL writes (PCX, SGI verbatim,
+    ICO, ICNS with PNG entries, MSP v1, XBM, QOI) and built here (PSD in
+    every mode, SGI RLE, Sun raster at every depth, DCX, CUR, ICO entries of
+    equal size, ICNS RLE resources, MSP v2, XPM); odd sizes and padded
+    rows throughout. Two are the chip-smoke scenes' textures: textured's
+    32x32 as a PackBits RGB PSD, cubes' 64x64 squares as an RLE SGI."""
+    from relativitypathtracer_tpu_torch.utils.demo_scene import demo_texture
+
+    def save(im, fmt, **kw):
+        buf = io.BytesIO()
+        im.save(buf, fmt, **kw)
+        return buf.getvalue()
+
+    files = {}
+    pic = Image.fromarray(_picture(rng, 11, 13))
+    # PCX written by PIL: 1, L (a grey palette), P, RGB (odd width: padded planes)
+    files["bits.pcx"] = save(Image.fromarray(_picture(rng, 9, 21)).convert("1"), "PCX")
+    files["grey.pcx"] = save(pic.convert("L"), "PCX")
+    files["palette.pcx"] = save(pic.quantize(23), "PCX")
+    files["rgb.pcx"] = save(pic, "PCX")
+    # PCX built here: 4 planes of 1 bit (16 colours), 2 planes, a window
+    idx = rng.integers(0, 16, (7, 19))
+    pal16 = rng.integers(0, 256, 48, dtype=np.uint8).tobytes()
+    for planes in (2, 4):
+        v = idx % (1 << planes)
+        lines = [b"".join(np.packbits((row >> k) & 1).tobytes() + b"\0" for k in range(planes))
+                 for row in v]
+        files[f"planes{planes}.pcx"] = pcx_file(lines, 19, 7, 1, planes, stride=4,
+                                                palette16=pal16, box=(3, 5))
+    # DCX of two 8-bit pages (the first page's palette is the file's last)
+    pages = [save(Image.fromarray(_picture(rng, 6 + k, 9 + k)).quantize(9 + k), "PCX")
+             for k in range(2)]
+    files["two_pages.dcx"] = dcx_file(pages)
+    # SGI written by PIL (verbatim): L as .bw, RGB as .rgb, RGBA, 16-bit RGB
+    files["grey.bw"] = save(pic.convert("L"), "SGI")
+    files["verbatim.rgb"] = save(pic, "SGI")
+    files["rgba.sgi"] = save(pic.convert("RGBA"), "SGI")
+    files["rgb16.sgi"] = save(Image.fromarray(_picture(rng, 7, 10)), "SGI", bpc=2)
+    # SGI RLE built here: 8-bit L and RGBA, 16-bit RGB
+    files["grey_rle.sgi"] = sgi_file(_picture(rng, 10, 15)[..., :1] // 16 * 16, rle=True)
+    rgba = np.concatenate([_picture(rng, 9, 12) // 32 * 32,
+                           rng.integers(0, 256, (9, 12, 1))], 2).astype(np.uint8)
+    files["rgba_rle.sgi"] = sgi_file(rgba, rle=True)
+    files["rgb16_rle.sgi"] = sgi_file(rng.integers(0, 4, (6, 11, 3)) * 20000, bpc=2, rle=True)
+    # the cubes scene's texture: 64x64 squares as RLE SGI
+    square = (np.add.outer(np.arange(64) // 8 * 3, np.arange(64) // 8 * 5) % 6)
+    colours = rng.integers(30, 225, (6, 3)).astype(np.uint8)
+    files["cubes_rle.sgi"] = sgi_file(colours[square], rle=True)
+    # PSD in every mode PIL reads, raw and PackBits
+    grey = _picture(rng, 9, 14)[..., 0]
+    files["bitmap.psd"] = psd_file(0, 1, np.packbits(grey > 128, axis=1)[None])
+    files["grey_packbits.psd"] = psd_file(1, 8, (grey // 8 * 8)[None], comp=1)
+    files["indexed.psd"] = psd_file(2, 8, rng.integers(0, 256, (1, 7, 10)),
+                                    mode_data=rng.integers(0, 256, 768, dtype=np.uint8).tobytes())
+    rgb = _picture(rng, 8, 11)
+    files["rgb_raw.psd"] = psd_file(3, 8, rgb.transpose(2, 0, 1),
+                                    resources=b"8BIM\x03\xed\0\0\0\0\0\x10" + bytes(16))
+    files["rgba_packbits.psd"] = psd_file(3, 8, np.concatenate(
+        [rgb // 16 * 16, rng.integers(0, 256, (8, 11, 1))], 2).transpose(2, 0, 1), comp=1,
+        layers=bytes(12))
+    files["cmyk.psd"] = psd_file(4, 8, rng.integers(0, 256, (4, 6, 9)), comp=1)
+    files["multichannel.psd"] = psd_file(7, 8, rng.integers(0, 256, (2, 5, 7)))
+    files["duotone.psd"] = psd_file(8, 8, rng.integers(0, 256, (1, 5, 9)), comp=1,
+                                    mode_data=bytes(range(40)))
+    files["lab.psd"] = psd_file(9, 8, rng.integers(0, 256, (3, 7, 9)))
+    files["blob_packbits.psd"] = psd_file(3, 8, demo_texture(32).transpose(2, 0, 1), comp=1)
+    # Sun raster at every depth, raw and RLE, with and without a colour map
+    bits = np.packbits(_picture(rng, 7, 13)[..., 0] > 128, axis=1)
+    files["sun1.ras"] = sun_file(13, 7, 1, sun_rows(bits))
+    nib = rng.integers(0, 16, (6, 9))
+    packed = (nib[:, 0::2] << 4 | np.pad(nib[:, 1::2], ((0, 0), (0, 1)))).astype(np.uint8)
+    files["sun4.ras"] = sun_file(9, 6, 4, sun_rows(packed))
+    cmap = rng.integers(0, 256, 48, dtype=np.uint8).tobytes()
+    files["sun4_map.ras"] = sun_file(9, 6, 4, sun_rows(packed), cmap=cmap)
+    files["sun8.ras"] = sun_file(11, 5, 8, sun_rows(grey[:5, :11]))
+    cmap = rng.integers(0, 256, 3 * 40, dtype=np.uint8).tobytes()
+    idx = rng.integers(0, 40, (8, 9)).astype(np.uint8)
+    idx[2:5] = 0x80
+    files["sun8_map_rle.ras"] = sun_file(9, 8, 8, sun_rle(idx.tobytes()), kind=2, cmap=cmap)
+    rgb = _picture(rng, 6, 7) // 64 * 64
+    files["sun24_bgr.ras"] = sun_file(7, 6, 24, sun_rows(rgb[..., ::-1].reshape(6, -1)))
+    files["sun24_rgb_type3.ras"] = sun_file(7, 6, 24, sun_rows(rgb.reshape(6, -1)), kind=3)
+    files["sun24_rle.ras"] = sun_file(7, 6, 24, sun_rle(rgb[..., ::-1].tobytes()), kind=2)
+    xrgb = np.concatenate([np.zeros((6, 7, 1), np.uint8), rgb[..., ::-1]], 2)[..., [1, 2, 3, 0]]
+    files["sun32.ras"] = sun_file(7, 6, 32, sun_rows(xrgb.reshape(6, -1)))
+    files["sun32_rle.ras"] = sun_file(7, 6, 32, sun_rle(xrgb.tobytes()), kind=2)
+    # QOI written by PIL
+    files["rgb.qoi"] = save(Image.fromarray(_picture(rng, 12, 17) // 4 * 4), "QOI")
+    files["rgba.qoi"] = save(Image.fromarray(np.concatenate(
+        [_picture(rng, 10, 9), rng.integers(250, 256, (10, 9, 1), dtype=np.uint8)], 2)), "QOI")
+    # MSP: v1 by PIL, v2 built here (runs, literals, an empty row)
+    files["v1.msp"] = save(Image.fromarray(_picture(rng, 9, 19)).convert("1"), "MSP")
+    rows = np.packbits(_picture(rng, 8, 29)[..., 0] > 100, axis=1)
+    rows[2:4, :2] = 0xFF
+    files["v2.msp"] = msp_file(29, 8, rows)
+    # ICO written by PIL (PNG entries; BMP entries), ICO entries of one size
+    # at 4, 8 and 24 bits (the 4-bit one opened), CUR with several entries
+    icon = Image.fromarray(_picture(rng, 32, 32))
+    files["png_entries.ico"] = save(icon, "ICO", sizes=[(16, 16), (32, 32)])
+    files["bmp_entries.ico"] = save(icon.resize((21, 21)), "ICO", sizes=[(16, 16), (21, 21)],
+                                    bitmap_format="bmp")
+    small = _picture(rng, 12, 12)
+    pal = [tuple(int(c) for c in rng.integers(0, 256, 3)) for _ in range(16)]
+    idx = rng.integers(0, 16, (12, 12))
+    pal256 = pal + [(0, 0, 0)] * 240
+    files["equal_sizes.ico"] = icon_file(1, [(12, 12, 0, 24, dib(small, 24)),
+                                             (12, 12, 0, 8, dib(idx, 8, pal256)),
+                                             (12, 12, 16, 4, dib(idx, 4, pal)),
+                                             (8, 8, 0, 32, dib(small[:8, :8], 32))])
+    files["cursor.cur"] = icon_file(2, [(7, 5, 0, 24, dib(small[:5, :7], 24)),
+                                        (11, 9, 0, 24, dib(small[:9, :11], 24)),
+                                        (13, 8, 0, 24, dib(small[:8, :12], 24)),
+                                        (10, 10, 0, 24, dib(small[:10, :10], 24))])
+    # ICNS: PNG entries (PIL's own ICNS files pass 4 KB; the tests write
+    # them); RLE it32, ih32 + h8mk, il32 + l8mk, is32 + s8mk
+    files["png.icns"] = icns_file(
+        [(b"icp4", save(Image.fromarray(_picture(rng, 16, 16)), "PNG")),
+         (b"icp5", save(Image.fromarray(_picture(rng, 32, 32) // 32 * 32), "PNG"))])
+    big = colours[(np.add.outer(np.arange(128) // 32, np.arange(128) // 32 * 2) % 6)]
+    files["it32.icns"] = icns_file([(b"it32", icns_rgb(big, it32=True))])
+    for kind, mask, side in ((b"ih32", b"h8mk", 48), (b"il32", b"l8mk", 32),
+                             (b"is32", b"s8mk", 16)):
+        rgb = _picture(rng, side, side) // 128 * 128
+        files[f"{kind.decode()}.icns"] = icns_file(
+            [(kind, icns_rgb(rgb)), (mask, rng.integers(0, 256, side * side,
+                                                        dtype=np.uint8).tobytes())])
+    # XBM written by PIL; XPM at 1 and 2 characters a pixel, with None
+    files["bitmap.xbm"] = save(Image.fromarray(_picture(rng, 7, 19)).convert("1"), "XBM")
+    cols = ["#%06x" % int(c) for c in rng.integers(0, 1 << 24, 5)]
+    files["one_char.xpm"] = xpm_file(rng.integers(0, 5, (6, 11)), cols, 1)
+    files["two_chars_none.xpm"] = xpm_file(rng.integers(1, 70, (9, 7)),
+                                           ["None"] + ["#%06x" % int(c) for c in
+                                                       rng.integers(0, 1 << 24, 69)], 2)
+    return files
+
+
 def main() -> None:
     from PIL import Image, features
 
@@ -1860,6 +2261,7 @@ def main() -> None:
                                                                 Image).items()})
     files.update(tiff_jpegs(np.random.default_rng(SEED + 5), Image))
     files.update(block_fixtures(np.random.default_rng(SEED + 6), Image))
+    files.update(legacy_fixtures(np.random.default_rng(SEED + 7), Image))
     record = {"pillow": features.version("pil"), "libjpeg_turbo": features.version("libjpeg_turbo"),
               "libwebp": features.version("webp"), "files": {}}
     for name, data in files.items():

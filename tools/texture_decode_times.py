@@ -1,5 +1,6 @@
 """Time the port's texture decoders on this host's CPU: one 1024x1024 file
-of each format and kind, written by PIL (or, where PIL writes none, by
+of each format and kind (ICNS: its largest RGB resource, it32, is
+128x128), written by PIL (or, where PIL writes none, by
 tests/torch_textures/make_fixtures.py's builders) from
 utils/demo_scene.demo_texture(1024), decoded by
 models/texture.decode_texture and held to PIL's decode byte for byte.
@@ -43,7 +44,8 @@ def _cpu_model() -> str:
 def files(Image) -> dict:
     """name -> bytes, 1024x1024 each."""
     from torch_textures.make_fixtures import (arith_jpeg, bc7_mode6, blp_file, bmp_file, bmp_rle,
-                                              dds_file, jpeg_scans, jpeg_tiff, ojpeg_tiff,
+                                              dds_file, icns_file, icns_rgb, jpeg_scans,
+                                              jpeg_tiff, ojpeg_tiff, psd_file, sgi_file,
                                               tiff_file)
 
     from relativitypathtracer_tpu_torch.utils.demo_scene import demo_texture
@@ -102,6 +104,12 @@ def files(Image) -> dict:
         # PIL's DXT5 blocks in a BLP2 (its Python decoder)
         "BLP2 DXT5": blp_file(2, 1024, 1024, save(im, "DDS", pixel_format="DXT5")[128:],
                               encoding=2, alpha=1, alpha_encoding=7),
+        # PIL writes no PSD and no ICNS it32: built here
+        "PSD PackBits": psd_file(3, 8, rgb.transpose(2, 0, 1), comp=1),
+        "SGI RLE": sgi_file(rgb, rle=True),
+        "PCX 8-bit": save(im.quantize(256), "PCX"),
+        "QOI": save(im, "QOI"),
+        "ICNS it32 (128x128)": icns_file([(b"it32", icns_rgb(rgb[::8, ::8], it32=True))]),
     }
     return out
 
