@@ -114,25 +114,29 @@ It prints each path's seconds. Then it renders the textured path at msaa 2,
           with PIL blocked (sys.modules["PIL"] = None for the phase, restored
           after; no PIL module may be imported meanwhile): every file of
           tests/torch_textures (JPEG, progressive JPEGs with unsent bits,
-          PNG, the PNM family, BMP, TGA, GIF, TIFF, WebP, DDS with BC1-BC7,
-          FTEX, BLP, PSD, SGI, PCX, DCX, Sun raster, QOI, MSP, ICO, CUR,
-          ICNS, XBM, XPM) decoded by models/texture.decode_texture to the
-          SHA-256 PIL gave where they were made (pil_rgb.json), with its ms
-          (the WebP files', the arithmetic-coded JPEGs', the JPEG-in-TIFF
-          files', the DDS/FTEX/BLP files' and the small raster formats'
-          again on a line each); the
+          PNG, PNGs PIL reads though a CRC is bad or IEND is missing, the
+          PNM family, BMP, TGA, GIF, TIFF, WebP, DDS with BC1-BC7, FTEX,
+          BLP, PSD, SGI, PCX, DCX, Sun raster, QOI, MSP, ICO, CUR, ICNS
+          (JPEG 2000 entries too), XBM, XPM, JPEG 2000, FITS) decoded by
+          models/texture.decode_texture to the SHA-256 PIL gave where they
+          were made (pil_rgb.json), with its ms (the WebP files', the
+          arithmetic-coded JPEGs', the JPEG-in-TIFF files', the
+          DDS/FTEX/BLP files', the small raster formats' and the JPEG 2000
+          and FITS files' again on a line each); the
           textured fixture with its 32x32 texture as
           a baseline 4:2:0 JPEG (utils/image.encode_jpeg; a 512-row atlas,
           K2), as an RLE TGA (the committed blob_rle.tga), as a lossy
           WebP (blob_lossy.webp), as an arithmetic-coded progressive
-          JPEG (blob_arith_prog.jpg), as DXT1 (blob_bc1.dds) and as a
-          PackBits RGB PSD (blob_packbits.psd), and cubes
+          JPEG (blob_arith_prog.jpg), as DXT1 (blob_bc1.dds), as a
+          PackBits RGB PSD (blob_packbits.psd) and as an irreversible
+          (9/7, ICT) JP2 (blob_irrev.jp2), and cubes
           with its 256x256 texture as a
           PNG (a 32,768-row atlas, K8), with a 64x64 LZW TIFF (the
           committed cubes_lzw.tif; a 2,048-row atlas, K8), with the same
           squares as a lossless WebP (cubes_lossless.webp), in 4:2:0
           JPEG-in-TIFF tiles (cubes_jpeg_tiles.tif), as BC7
-          (cubes_bc7.dds) and as an RLE SGI (cubes_rle.sgi), each scene
+          (cubes_bc7.dds), as an RLE SGI (cubes_rle.sgi) and as a
+          lossless J2K in 32x32 tiles (cubes_lossless.j2k), each scene
           written by utils/demo_scene, load_scene_file -> build_scene ->
           build_render_fn at 1024x768: one
           graphed frame with exactly that path's kernels launched, held to
@@ -274,7 +278,9 @@ TEXTURE_SCENES = (("textured", "jpg", (256, 192)), ("cubes", "png", (WIDTH, HEIG
                   ("textured", "blob_bc1.dds", (256, 192)),
                   ("cubes", "cubes_bc7.dds", (WIDTH, HEIGHT)),
                   ("textured", "blob_packbits.psd", (256, 192)),
-                  ("cubes", "cubes_rle.sgi", (WIDTH, HEIGHT)))
+                  ("cubes", "cubes_rle.sgi", (WIDTH, HEIGHT)),
+                  ("textured", "blob_irrev.jp2", (256, 192)),
+                  ("cubes", "cubes_lossless.j2k", (WIDTH, HEIGHT)))
 # the small raster formats' fixtures, by suffix
 LEGACY_SUFFIXES = (".psd", ".sgi", ".bw", ".rgb", ".pcx", ".dcx", ".ras", ".qoi", ".msp", ".ico",
                    ".cur", ".icns", ".xbm", ".xpm")
@@ -1128,9 +1134,9 @@ def textures_phase(torch, pt, dev, card, state) -> None:
     """Textures decoded without PIL (models/texture.decode_texture), with PIL
     blocked in sys.modules for the phase: the committed fixtures against
     PIL's hashes, the textured fixture with a JPEG, a TGA, a lossy WebP,
-    an arithmetic-coded JPEG, a DXT1 DDS and a PackBits PSD texture and
-    cubes with a PNG, two TIFFs, a lossless WebP, a BC7 DDS and an RLE SGI
-    one rendered
+    an arithmetic-coded JPEG, a DXT1 DDS, a PackBits PSD and an
+    irreversible JP2 texture and cubes with a PNG, two TIFFs, a lossless
+    WebP, a BC7 DDS, an RLE SGI and a lossless tiled J2K one rendered
     on the card and held to the CPU and the oracle, and the decode time of
     a corpus-sized JPEG; see the module docstring."""
     import hashlib
@@ -1169,6 +1175,9 @@ def textures_phase(torch, pt, dev, card, state) -> None:
             t for t in times if t.split()[0].endswith((".dds", ".ftc", ".ftu", ".blp"))))
         log("  PSD/SGI/PCX/DCX/Sun/QOI/MSP/ICO/CUR/ICNS/XBM/XPM decode ms: " + ", ".join(
             t for t in times if t.split()[0].endswith(LEGACY_SUFFIXES)))
+        log("  JPEG 2000 and FITS decode ms: " + ", ".join(
+            t for t in times if t.split()[0].endswith((".j2k", ".jp2", ".fits"))
+            or t.split()[0] in ("ic08.icns", "ic09.icns")))
         for kind, fmt, size in TEXTURE_SCENES:
             names = PATHS[kind][1]
             with tempfile.TemporaryDirectory() as tmp:

@@ -18,7 +18,10 @@ frame on its canvas), the block-compressed containers DDS (BC1-BC7 and the
 uncompressed kinds), FTEX and BLP by utils/dds_decode, PSD (the merged
 image) by utils/psd_decode, SGI, PCX, DCX (its first page), Sun raster,
 QOI and MSP by utils/legacy_raster, ICO, CUR and ICNS (the entry PIL
-picks) by utils/icon_decode, XBM and XPM by utils/text_raster. The format
+picks, PNG and JPEG 2000 entries among them) by utils/icon_decode, XBM
+and XPM by utils/text_raster, FITS (its first image, GZIP_1 tiles too)
+by utils/fits_decode, JPEG 2000 (J2K codestreams and JP2 files, OpenJPEG's
+arithmetic to the bit) by utils/j2k_decode. The format
 is told as `Image.open` tells it: by the file's first bytes, PIL's first
 five plugins first, then its other plugins in its order (Image.ID), each
 by its accept test and the header checks on which PIL moves on to the
@@ -34,8 +37,10 @@ import numpy as np
 
 from ..utils import pil_open
 from ..utils.dds_decode import decode_blp, decode_dds, decode_ftex
+from ..utils.fits_decode import decode_fits
 from ..utils.icon_decode import decode_cur, decode_icns, decode_ico
 from ..utils.image_decode import decode_jpeg, decode_png
+from ..utils.j2k_decode import decode_j2k
 from ..utils.legacy_raster import (decode_dcx, decode_msp, decode_pcx, decode_qoi, decode_sgi,
                                    decode_sun)
 from ..utils.psd_decode import decode_psd
@@ -62,11 +67,11 @@ _PLUGINS = (
     ("DCX", pil_open.dcx, "decode_dcx"),
     ("DDS", lambda d: d[:4] == b"DDS ", "decode_dds"),
     ("EPS", lambda d: d[:4] in (b"%!PS", b"\xc5\xd0\xd3\xc6"), None),
-    ("FITS", lambda d: d[:6] == b"SIMPLE", None),
+    ("FITS", lambda d: d[:6] == b"SIMPLE", "decode_fits"),
     ("FLI/FLC", pil_open.fli, None),
     ("FTEX", lambda d: d[:4] == b"FTEX", "decode_ftex"),
     ("GBR", pil_open.gbr, None),
-    ("JPEG 2000", lambda d: d.startswith(_JPEG2000), None),
+    ("JPEG 2000", lambda d: d.startswith(_JPEG2000), "decode_j2k"),
     ("ICNS", pil_open.icns, "decode_icns"),
     ("ICO", lambda d: d[:4] == b"\0\0\1\0" and pil_open.entries(d), "decode_ico"),
     ("IM", pil_open.im, None),

@@ -21,13 +21,13 @@ by utils/raster_decode.
         height bytes are both larger; a DIB at half height.
   ICNS  the resources read block by block; the best size the largest of
         PIL's SIZES present (by (width, height, scale)); every resource of
-        that size read as PIL reads it: PNG (JPEG 2000 refused, by name),
-        it32/ih32/il32/is32 (raw if exactly 3 bytes a pixel, else three
-        channel planes in an RLE where a byte >= 0x80 repeats the next
-        byte (byte - 125) times and a byte < 0x80 copies byte + 1 bytes;
-        it32 behind 4 zero bytes) and the 8-bit masks, each failing as
-        PIL's readers fail; a PNG resource is the image where present,
-        else the RGB one. PIL then checks the image's size against the
+        that size read as PIL reads it: PNG, JPEG 2000 (the resource's
+        bytes alone, by utils/j2k_decode), it32/ih32/il32/is32 (raw if
+        exactly 3 bytes a pixel, else three channel planes in an RLE where
+        a byte >= 0x80 repeats the next byte (byte - 125) times and a byte
+        < 0x80 copies byte + 1 bytes; it32 behind 4 zero bytes) and the
+        8-bit masks, each failing as PIL's readers fail; a PNG or JPEG 2000
+        resource is the image where present, else the RGB one. PIL then checks the image's size against the
         sizes present, as its size setter does.
 
 What PIL refuses raises DecodeError naming the cause.
@@ -40,6 +40,7 @@ import math
 import numpy as np
 
 from .image_decode import DecodeError, _check_size, decode_png
+from .j2k_decode import decode_j2k
 from .legacy_raster import expand
 from .raster_decode import decode_bmp
 
@@ -239,8 +240,8 @@ def decode_icns(data: bytes) -> np.ndarray:
             if sig[:8] == _PNG_MAGIC:
                 png = decode_png(data[start:])
             elif sig.startswith(_JPEG2000[:2]) or sig == _JPEG2000[2]:
-                raise DecodeError(f"JPEG 2000 in ICNS ({kind.decode('latin-1')}) is not decoded "
-                                  "yet")
+                # PIL opens the resource's bytes alone, converted to RGBA
+                png = decode_j2k(data[start:start + length])
             else:
                 raise DecodeError("ICNS: unsupported icon subimage format")
     if png is None and rgb is None:

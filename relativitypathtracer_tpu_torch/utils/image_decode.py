@@ -34,9 +34,11 @@ handed the whole file at once.
 
 PNG: every colour type and bit depth, Adam7 interlace, the five filters
 (undone along the image's anti-diagonals, so Average and Paeth, which read
-the reconstructed pixel to the left, run vectorised too), every chunk's CRC
-checked. 16-bit samples keep their high byte, except 16-bit grey, which is
-clipped at 255 as PIL's `I;16` to RGB conversion clips it (utils/pil_modes).
+the reconstructed pixel to the left, run vectorised too), the chunks read
+as PIL reads them (`decode_png`: CRCs checked before the image data only;
+the file may end, or IEND be missing, after the image data). 16-bit
+samples keep their high byte, except 16-bit grey, which is clipped at 255
+as PIL's `I;16` to RGB conversion clips it (utils/pil_modes).
 
 What neither decoder supports raises `DecodeError`, as does corrupt or
 truncated data; nothing returns a partial image.
@@ -45,6 +47,7 @@ truncated data; nothing returns a partial image.
 from __future__ import annotations
 
 import array
+import re
 import struct
 import zlib
 
@@ -1018,52 +1021,115 @@ def _png_samples(raw, width: int, height: int, depth: int, channels: int):
     return s, need
 
 
+_CHUNK_TYPE = re.compile(rb"\w\w\w\w")  # PngImagePlugin.is_cid
+
+
+def _png_chunk(data: bytes, pos: int):
+    """(length, type) of the chunk header at pos, or None where PIL's
+    ChunkStream.read fails (fewer than 8 bytes, a type not of 4 word
+    characters)."""
+    head = data[pos:pos + 8]
+    if len(head) < 8 or not _CHUNK_TYPE.match(head[4:]):
+        return None
+    return int.from_bytes(head[:4], "big"), head[4:]
+
+
+def _png_idat(data: bytes, pos: int, need: int) -> tuple:
+    """(the first `need` bytes of the image data, the end of the IDAT chunk
+    they end in) from the IDAT chunk at pos on, read as PIL reads them: consecutive IDAT chunks (their CRCs not
+    checked), the zlib stream inflated until the image is complete (its
+    checksum and anything after it not read). It fails where the data
+    runs out first: a file cut inside IDAT or a chunk of another type
+    before the image is complete."""
+    inflate, out = zlib.decompressobj(), []
+    got = 0
+    while True:
+        length, _ = _png_chunk(data, pos)
+        body = data[pos + 8:pos + 8 + length]
+        try:
+            piece = inflate.decompress(inflate.unconsumed_tail + body, need - got)
+        except zlib.error as e:
+            raise DecodeError(f"corrupt image data (IDAT): {e}") from e
+        out.append(piece)
+        got += len(piece)
+        if got >= need:
+            return np.frombuffer(b"".join(out), np.uint8), pos + 8 + length
+        if len(body) < length:
+            raise DecodeError("truncated file inside IDAT")
+        pos += 12 + length
+        chunk = _png_chunk(data, pos)
+        if chunk is None or chunk[1] != b"IDAT":
+            kind = "the end of the file" if chunk is None else f"chunk {chunk[1]!r}"
+            raise DecodeError(f"truncated image data (IDAT): {kind} before the image's end")
+
+
 def decode_png(data: bytes) -> np.ndarray:
     """(H, W, 3) uint8 pixels of a PNG file, top row first, as PIL's
-    `convert("RGB")` of it; raises DecodeError on a bad CRC, a bad header,
-    corrupt or truncated data."""
+    `convert("RGB")` of it. Chunks are read as PIL reads them: those
+    before the first IDAT must be whole and their CRCs right; the image
+    data is read to the image's end (`_png_idat`);
+    after it chunks are skipped up to IEND, the file may end anywhere
+    between two chunks, and a chunk cut short fails. Raises DecodeError
+    where PIL fails: a bad CRC before IDAT, a bad header, corrupt or
+    truncated image data."""
     data = bytes(data)
     if data[:8] != _PNG_SIGNATURE:
         raise DecodeError("not a PNG file")
-    pos, header, palette, idat = 8, None, None, []
-    while True:
-        if pos + 8 > len(data):
-            raise DecodeError("truncated file: no IEND")
-        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+    pos, header, palette, animated = 8, None, None, False
+    while True:  # PngImageFile._open: up to the first IDAT
+        chunk = _png_chunk(data, pos)
+        if chunk is None:
+            raise DecodeError("truncated file: no image data (IDAT)")
+        length, kind = chunk
+        if kind == b"IDAT":
+            break
+        if kind == b"IEND":
+            raise DecodeError("no image data (IEND before IDAT)")
         body = data[pos + 8:pos + 8 + length]
-        end = pos + 12 + length
-        if end > len(data):
+        crc = data[pos + 8 + length:pos + 12 + length]
+        if len(body) < length:
             raise DecodeError(f"truncated file inside chunk {kind!r}")
-        if zlib.crc32(kind + body) != int.from_bytes(data[end - 4:end], "big"):
-            raise DecodeError(f"bad CRC in chunk {kind!r}")
-        pos = end
-        if header is None and kind != b"IHDR":
-            raise DecodeError(f"chunk {kind!r} before IHDR")
         if kind == b"IHDR":
-            if len(body) != 13:
-                raise DecodeError("bad IHDR")
-            header = struct.unpack(">IIBBBBB", body)
-        elif kind == b"PLTE":
+            if length < 13:
+                raise DecodeError("truncated IHDR chunk")
+            header = struct.unpack(">IIBBBBB", body[:13])
+            if header[5]:
+                raise DecodeError("unknown filter category (IHDR)")
+        elif kind == b"PLTE" and header is not None and header[3] == 3:
             if len(body) % 3 or len(body) > 768:
                 raise DecodeError("bad PLTE")
             palette = palette256(np.frombuffer(body, np.uint8))
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"IEND":
-            break
-    width, height, depth, ctype, compression, filtering, interlace = header
+        elif kind == b"acTL" and length >= 8 and 0 < int.from_bytes(body[:4], "big") <= 1 << 31:
+            animated = True
+        if len(crc) < 4 or zlib.crc32(kind + body) != int.from_bytes(crc, "big"):
+            raise DecodeError(f"bad CRC in chunk {kind!r}")
+        pos += 12 + length
+    if header is None:
+        raise DecodeError("image data (IDAT) before IHDR")
+    width, height, depth, ctype, _, _, interlace = header  # PIL reads neither method byte
     if ctype not in _PNG_DEPTHS or depth not in _PNG_DEPTHS[ctype]:
         raise DecodeError(f"colour type {ctype} at bit depth {depth} is not valid (IHDR)")
-    if compression or filtering or interlace > 1 or not width or not height:
-        raise DecodeError("bad IHDR")
+    if not width or not height:
+        raise DecodeError("bad IHDR: an empty image")
     _check_size(width, height)
     if ctype == 3 and palette is None:
         raise DecodeError("palette image without PLTE")
-    try:
-        raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    except zlib.error as e:
-        raise DecodeError(f"corrupt image data (IDAT): {e}") from e
     channels = _PNG_CHANNELS[ctype]
+    rowbytes = lambda w: -(-w * channels * depth // 8) + 1  # noqa: E731
+    if interlace:  # any value but 0 is Adam7 to PIL
+        need = sum(rowbytes(-(-(width - x0) // dx)) * -(-(height - y0) // dy)
+                   for x0, y0, dx, dy in _ADAM7 if width > x0 and height > y0)
+    else:
+        need = rowbytes(width) * height
+    raw, pos = _png_idat(data, pos, need)
+    while True:  # PngImageFile.load_end: chunks after the image, up to IEND
+        chunk = _png_chunk(data, pos + 4)  # after the CRC, which it skips
+        if chunk is None or chunk[1] == b"IEND" or (chunk[1] == b"fcTL" and animated):
+            break
+        length = chunk[0]
+        if len(data) < pos + 12 + length:
+            raise DecodeError(f"truncated file inside chunk {chunk[1]!r} after the image data")
+        pos += 12 + length
     if interlace:
         s = np.zeros((height, width, channels), np.uint16)
         for x0, y0, dx, dy in _ADAM7:

@@ -12,6 +12,9 @@ orders, palettes), then converts to RGB as `Image.convert("RGB")` does
   RGB, RGBA, RGBX
              the first three channels;
   I, I;16    integers clipped to 0-255 (not scaled: 4000 -> 255);
+  F          floats through L as Convert.c's f2l: truncated toward 0,
+             clipped to 0-255, NaN to 0 (PIL converts F to RGB by way of
+             L, its base mode);
   CMYK       Convert.c cmyk2rgb: nk = 255 - K, each channel
              nk - MULDIV255(C, nk) in integers;
   LAB        not Convert.c: Image.convert hands LAB to littleCMS
@@ -151,6 +154,70 @@ def lab_to_rgb(lab) -> np.ndarray:
     return (((out * 65281 + 8388608) >> 24) & 0xFF).astype(np.uint8).reshape(shape)
 
 
+# ConvertYCbCr.c's tables (SCALE 6): per Cr the red offset and per Cb the
+# blue offset, both already shifted down, then the green tables per Cb and
+# per Cr, summed before the shift; int16 little-endian, in that order. The
+# green tables are one solution of the constraints PIL's output puts on
+# them (the pair's sum shifted, for every (Cb, Cr)); ycbcr_to_rgb equals
+# PIL's convert("RGB") from YCbCr on all 2**24 inputs.
+_YCBCR_TABLES = (
+    "TP9N/0//UP9S/1P/VP9W/1f/Wf9a/1v/Xf9e/2D/Yf9i/2T/Zf9n/2j/av9r/2z/bv9v/3H/cv9z"
+    "/3X/dv94/3n/ev98/33/f/+A/4H/g/+E/4b/h/+I/4r/i/+N/47/j/+R/5L/lP+V/5b/mP+Z/5v/"
+    "nP+d/5//oP+i/6P/pP+m/6f/qf+q/6v/rf+u/7D/sf+y/7T/tf+3/7j/uf+7/7z/vv+//8D/wv/D"
+    "/8X/xv/H/8n/yv/M/83/zv/Q/9H/0//U/9X/1//Y/9r/2//c/97/3//h/+L/4//l/+b/6P/p/+r/"
+    "7P/t/+//8P/y//P/9P/2//f/+f/6//v//f/+/wAAAQACAAQABQAHAAgACQALAAwADgAPABAAEgAT"
+    "ABUAFgAXABkAGgAcAB0AHgAgACEAIwAkACUAJwAoACoAKwAsAC4ALwAxADIAMwA1ADYAOAA5ADoA"
+    "PAA9AD8AQABBAEMARABGAEcASABKAEsATQBOAE8AUQBSAFQAVQBWAFgAWQBbAFwAXQBfAGAAYgBj"
+    "AGQAZgBnAGkAagBrAG0AbgBwAHEAcgB0AHUAdwB4AHkAewB8AH4AfwCAAIIAgwCFAIYAiACJAIoA"
+    "jACNAI8AkACRAJMAlACWAJcAmACaAJsAnQCeAJ8AoQCiAKQApQCmAKgAqQCrAKwArQCvALAAsgAd"
+    "/x7/IP8i/yT/Jv8n/yn/K/8t/y7/MP8y/zT/Nv83/zn/O/89/z7/QP9C/0T/Rf9H/0n/S/9N/07/"
+    "UP9S/1T/Vf9X/1n/W/9c/17/YP9i/2T/Zf9n/2n/a/9s/27/cP9y/3T/df93/3n/e/98/37/gP+C"
+    "/4P/hf+H/4n/i/+M/47/kP+S/5P/lf+X/5n/m/+c/57/oP+i/6P/pf+n/6n/qv+s/67/sP+y/7P/"
+    "tf+3/7n/uv+8/77/wP/C/8P/xf/H/8n/yv/M/87/0P/R/9P/1f/X/9n/2v/c/97/4P/h/+P/5f/n"
+    "/+j/6v/s/+7/8P/x//P/9f/3//j/+v/8//7/AAABAAMABQAHAAgACgAMAA4ADwARABMAFQAXABgA"
+    "GgAcAB4AHwAhACMAJQAmACgAKgAsAC4ALwAxADMANQA2ADgAOgA8AD4APwBBAEMARQBGAEgASgBM"
+    "AE0ATwBRAFMAVQBWAFgAWgBcAF0AXwBhAGMAZQBmAGgAagBsAG0AbwBxAHMAdAB2AHgAegB8AH0A"
+    "fwCBAIMAhACGAIgAigCLAI0AjwCRAJMAlACWAJgAmgCbAJ0AnwChAKMApACmAKgAqgCrAK0ArwCx"
+    "ALIAtAC2ALgAugC7AL0AvwDBAMIAxADGAMgAygDLAM0AzwDRANIA1ADWANgA2QDbAN0A3wDhAAEL"
+    "9wrJCsEKkwqJCn8KUwpJCj0KEwoHCv0J0gnFCb0JkAmFCXwJTglFCToJDgkECfkIzgjCCLkIiwiB"
+    "CHgISQhBCDYICQgACNMHyQe+B5MHiAd9B1MHRgc9BxEHBQf9Bs8GxQa7Bo4GhQZ5Bk4GQwY5Bg0G"
+    "AQb5BcsFwQW4BYkFgQV2BUkFQAUTBQkF/QTTBMcEvQSSBIUEfQRQBEUEPAQOBAUE+gPOA8QDuQOO"
+    "A4IDeQNMA0EDOQMKAwED9wLJAsECkwKJAn8CUwJJAj0CEwIHAv0B0gHFAb0BjwGFAXsBTgFFATkB"
+    "DgEDAfkAzQDBALkAiwCBAHgASQBBADYACQAAANP/yf+//5P/if99/1P/R/89/xL/Bf/9/tD+xf68"
+    "/o7+hf56/k7+RP45/g3+Af75/cv9wf24/Yn9gf12/Un9QP0T/Qn9/vzT/Mj8vfyT/Ib8ffxR/EX8"
+    "PfwP/AX8+/vO+8X7ufuO+4P7eftN+0H7OfsL+wH7+PrJ+sH6k/qJ+n/6U/pJ+j36E/oH+v350vnF"
+    "+b35kPmF+Xz5TvlF+Tr5DvkE+fn4zvjC+Ln4jPiB+Hn4SvhB+Df4CfgB+NP3yfe/95P3ifd991P3"
+    "Rvc99xH3Bff99s/2xfa79o72hfZ59k72Q/Y59g32Afb59cv1wfW49Yn1gfV29Un1QPUT9Qn17Ra3"
+    "Fn8WRxYyFvsVwxWtFXcVPxUHFfIUuxSDFG0UNxT/E8cTsxN7E0MTLRP3Er8ShxJzEjsSAxLtEbcR"
+    "fxFHETMR+xDDEK4QdxA/EAcQ8w+7D4MPbg83D/8OyA6zDnsOQw4uDvcNvw2IDXMNOw0DDe4Mtwx/"
+    "DEgMMwz7C8QLrgt3Cz8LCAvzCrsKhApuCjcK/wnICbMJewlECS4J9wjACIgIcwg7CAQI7ge3B4AH"
+    "SAczB/sGxAauBncGQAYIBvMFvAWEBW4FNwUABcgEswR8BEQELgT4A8ADiANzAzwDBAPuArgCgAJI"
+    "AjMC/AHEAa4BeAFAAQgB9AC8AIQAbgA4AAAAyf+1/33/Rf8v//n+wf6J/nX+Pf4F/vD9uf2B/Un9"
+    "Nf39/MX8sPx5/EH8Cfz1+737hftw+zn7AfvK+rX6ffpF+jD6+fnB+Yr5dfk9+Qb58Pi5+IH4Svg1"
+    "+P33xvew93n3QfcK9/X2vfaG9nD2OfYC9sr1tfV99Ub1MPX59ML0ivR19D30BvTw87nzgvNK8zXz"
+    "/vLG8rDyefJC8gry9fG+8YbxcPE58QLxyvC18H7wRvAw8Prvwu+K73XvPu8G7/Duuu6C7kruNu7+"
+    "7cbtsO167ULtCu327L7shuxw7DrsAuzK67brfutG6zHr+urC6orqduo+6gbq8em66YLpbOk=")
+
+
+@functools.cache
+def _ycbcr_tables() -> np.ndarray:
+    import base64
+
+    return np.frombuffer(base64.b64decode("".join(_YCBCR_TABLES)), "<i2").reshape(4, 256).astype(
+        np.int64)
+
+
+def ycbcr_to_rgb(ycc) -> np.ndarray:
+    """(..., 3) uint8 YCbCr -> (..., 3) uint8 RGB as PIL's
+    ImagingConvertYCbCr2RGB (convert("RGB") from YCbCr)."""
+    r_cr, b_cb, g_cb, g_cr = _ycbcr_tables()
+    ycc = np.asarray(ycc, np.uint8)
+    y = ycc[..., 0].astype(np.int64)
+    cb, cr = ycc[..., 1], ycc[..., 2]
+    rgb = np.stack([y + r_cr[cr], y + ((g_cb[cb] + g_cr[cr]) >> 6), y + b_cb[cb]], -1)
+    return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
 def to_rgb(mode: str, a, palette=None) -> np.ndarray:
     """(h, w, 3) uint8: PIL's `convert("RGB")` of an image of `mode` whose
     samples are `a`, (h, w) for one band and (h, w, bands) for several;
@@ -162,6 +229,9 @@ def to_rgb(mode: str, a, palette=None) -> np.ndarray:
         grey = a[..., 0].astype(np.uint8)
     elif mode in ("I", "I;16"):
         grey = np.clip(a, 0, 255).astype(np.uint8)
+    elif mode == "F":
+        v = a.astype(np.float32)
+        grey = np.where(v >= 255, 255, np.trunc(np.where(v > 0, v, 0))).astype(np.uint8)
     elif mode in ("P", "PA"):
         return palette[a if mode == "P" else a[..., 0]]
     elif mode in ("RGB", "RGBA", "RGBX"):

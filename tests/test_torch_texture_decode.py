@@ -27,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 from PIL import Image
-from torch_textures.make_fixtures import jpeg_scans
+from torch_textures.make_fixtures import jpeg_scans, png_bad_crc, png_chunks
 
 import relativitypathtracer_tpu_torch as pt
 from relativitypathtracer_tpu_torch.models.texture import TextureError, decode_texture, read_texture
@@ -455,11 +455,106 @@ def _gif() -> bytes:
     return buf.getvalue()
 
 
+
+def _pil_outcome(data: bytes):
+    try:
+        return _pil(data)
+    except Exception as e:  # noqa: BLE001 - any failure is PIL's refusal
+        return e
+
+
+def _png_with_text_and_idats() -> bytes:
+    """A palette PNG with a tEXt chunk before its image data and the data
+    split over IDAT chunks of 40 bytes."""
+    data = _pil_png("P16", 23, 19)
+    chunks = png_chunks(data)
+    idat = next(c for c in chunks if c[0] == b"IDAT")
+    body = data[idat[1] + 8:idat[2] - 4]
+    split = b"".join(_chunk(b"IDAT", body[i:i + 40]) for i in range(0, len(body), 40))
+    return data[:idat[1]] + _chunk(b"tEXt", b"key\0value") + split + data[idat[2]:]
+
+
+# PIL's PngImagePlugin: CRCs are checked before the image data (IHDR, PLTE,
+# ancillary chunks) and not after it; the image data may end the file
+_PNG_CASES = {
+    "bad_crc_ihdr": (lambda d: png_bad_crc(d, b"IHDR"), "bad CRC in chunk b'IHDR'"),
+    "bad_crc_plte": (lambda d: png_bad_crc(d, b"PLTE"), "bad CRC in chunk b'PLTE'"),
+    "bad_crc_text": (lambda d: png_bad_crc(d, b"tEXt"), "bad CRC in chunk b'tEXt'"),
+    "bad_crc_idat": (lambda d: png_bad_crc(d, b"IDAT"), None),
+    "bad_crc_iend": (lambda d: png_bad_crc(d, b"IEND"), None),
+    "cut_inside_idat": (lambda d: d[:png_chunks(d)[-3][1] + 30], "truncated"),
+    "cut_in_last_idat": (lambda d: d[:png_chunks(d)[-2][2] - 10], "truncated"),
+    "cut_in_zlib_checksum": (lambda d: d[:png_chunks(d)[-2][2] - 6], None),
+    "cut_after_idat": (lambda d: d[:png_chunks(d)[-2][2]], None),
+    "cut_in_idat_crc": (lambda d: d[:png_chunks(d)[-2][2] - 2], None),
+    "no_iend": (lambda d: d[:-12], None),
+    "chunk_after_iend": (lambda d: d + _chunk(b"zzZz", b"abc"), None),
+    "junk_after_iend": (lambda d: d + b"junk", None),
+    "truncated_chunk_after_idat": (lambda d: d[:-12] + _chunk(b"tEXt", b"k\0v")[:-6], "truncated"),
+    "idat_then_other_chunk": (lambda d: d[:png_chunks(d)[-3][2]] + _chunk(b"tEXt", b"k\0v")
+                              + d[png_chunks(d)[-2][1]:], "truncated"),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(_PNG_CASES))
+def test_png_read_as_pil_reads_it(kind, monkeypatch):
+    """A bad CRC, a missing IEND or a file cut short: the port gives PIL's
+    pixels where PIL gives pixels (words None) and raises naming the cause
+    where PIL fails."""
+    make, words = _PNG_CASES[kind]
+    data = make(_png_with_text_and_idats())
+    want = _pil_outcome(data)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    if words is None:
+        assert not isinstance(want, Exception), want
+        assert np.array_equal(decode_png(data), want)
+    else:
+        assert isinstance(want, Exception)
+        with pytest.raises(image_decode.DecodeError, match=words.replace("(", r"\(")):
+            decode_png(data)
+
+
+def test_icon_png_entries_follow(monkeypatch):
+    """ICO and ICNS PNG entries are read by decode_png, so an entry with a
+    bad IDAT CRC or without IEND decodes to PIL's pixels there too."""
+    from torch_textures.make_fixtures import icns_file, icon_file
+
+    png = _pil_png("RGB", 16, 16)
+    for entry in (png_bad_crc(png, b"IDAT"), png[:-12]):
+        for data in (icon_file(1, [(16, 16, 0, 32, entry)]), icns_file([(b"icp4", entry)])):
+            want = _pil(data)
+            monkeypatch.setitem(sys.modules, "PIL", None)
+            assert np.array_equal(decode_texture(data), want)
+            monkeypatch.undo()
+
+
+@pytest.mark.parametrize("mode", ["RGB", "P16", "L", "RGBA"])
+def test_png_every_cut_and_crc_agrees_with_pil(mode):
+    """Every cut of a PNG file, and each chunk's body and CRC with a byte
+    flipped: the port's pixels are PIL's, or both fail."""
+    data = _png_with_text_and_idats() if mode == "P16" else _pil_png(mode, 17, 13)
+    cases = [data[:cut] for cut in range(8, len(data) + 1)]
+    for _, start, end in png_chunks(data):
+        for at in (start + 9, end - 1):
+            if at < len(data):
+                cases.append(data[:at] + bytes([data[at] ^ 0x24]) + data[at + 1:])
+    for case in cases:
+        want = _pil_outcome(case)
+        try:
+            got = decode_png(case)
+        except image_decode.DecodeError as e:
+            got = e
+        if isinstance(want, Exception) or isinstance(got, Exception):
+            assert isinstance(want, Exception) and isinstance(got, Exception), (len(case), want,
+                                                                                got)
+        else:
+            assert np.array_equal(got, want), len(case)
+
 REFUSED = {
     "truncated_jpeg": (lambda: _jpeg_bytes()[:len(_jpeg_bytes()) // 2], "truncated"),
     "truncated_png": (lambda: _pil_png("RGB", 30, 20)[:len(_pil_png("RGB", 30, 20)) // 2],
                       "truncated"),
-    "bad_crc": (_bad_crc_png, "bad CRC in chunk b'IDAT'"),
+    "bad_crc": (_bad_crc_png, None),
     "arithmetic_sof9": (lambda: (lambda d: d.replace(b"\xff\xc0", b"\xff\xc9", 1))(_jpeg_bytes()),
                         None),
     "cmyk": (lambda: _jpeg_bytes("CMYK"), None),
@@ -480,9 +575,10 @@ def test_refused_kinds_raise_texture_error(tmp_path, kind, monkeypatch):
     refused, with PIL blocked (no fallback), though PIL opens most of them.
     The kinds once refused that the port now decodes (words None: CMYK and
     Adobe-RGB JPEG, a 3x1-sampled JPEG, GIF, a progressive JPEG with
-    unsent bits, which libjpeg block-smooths, and a Huffman file labelled
+    unsent bits, which libjpeg block-smooths, a Huffman file labelled
     arithmetic-coded (SOF9), which libjpeg decodes to garbage without an
-    error) read to PIL's pixels."""
+    error, and a PNG with a bad IDAT CRC, which PIL does not check) read to
+    PIL's pixels."""
     make, words = REFUSED[kind]
     data = make()
     path = tmp_path / "t.bin"

@@ -457,7 +457,7 @@ DECODERS = {"PPM": "decode_pnm", "BMP": "decode_bmp", "DIB": "decode_bmp", "TGA"
             "FTEX": "decode_ftex", "PSD": "decode_psd", "SGI": "decode_sgi", "PCX": "decode_pcx",
             "DCX": "decode_dcx", "SUN": "decode_sun", "QOI": "decode_qoi", "MSP": "decode_msp",
             "ICO": "decode_ico", "CUR": "decode_cur", "ICNS": "decode_icns", "XBM": "decode_xbm",
-            "XPM": "decode_xpm"}
+            "XPM": "decode_xpm", "JPEG2000": "decode_j2k", "FITS": "decode_fits"}
 
 
 @pytest.mark.parametrize("name", sorted(json.loads((FIXTURES / "pil_rgb.json").read_text())
@@ -707,7 +707,9 @@ def test_chip_smoke_texture_scenes_on_cpu(tmp_path):
     cubes_lossless.webp, with cubes_jpeg_tiles.tif (64x64 in 4:2:0
     JPEG-in-TIFF tiles; a 2,048-row atlas: K8's windowed route), with
     cubes_bc7.dds (the squares as BC7) and with cubes_rle.sgi (the squares
-    as RLE SGI), through its fixture_texture."""
+    as RLE SGI), textured with blob_irrev.jp2 (that texture as an
+    irreversible JP2) and cubes with cubes_lossless.j2k (the squares as a
+    lossless tiled J2K), through its fixture_texture."""
     from relativitypathtracer_tpu_torch.ops.kernels.texture_kernel import texture_route
 
     spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
@@ -718,7 +720,8 @@ def test_chip_smoke_texture_scenes_on_cpu(tmp_path):
                         ("textured", "blob_lossy.webp"), ("cubes", "cubes_lossless.webp"),
                         ("textured", "blob_arith_prog.jpg"), ("cubes", "cubes_jpeg_tiles.tif"),
                         ("textured", "blob_bc1.dds"), ("cubes", "cubes_bc7.dds"),
-                        ("textured", "blob_packbits.psd"), ("cubes", "cubes_rle.sgi")]
+                        ("textured", "blob_packbits.psd"), ("cubes", "cubes_rle.sgi"),
+                        ("textured", "blob_irrev.jp2"), ("cubes", "cubes_lossless.j2k")]
     for kind, name in fixtures:
         where = tmp_path / name
         scene_file = smoke.fixture_texture(write_demo_scene(str(where), 1, kind), name)

@@ -484,7 +484,10 @@ def _refused():
     rng = np.random.default_rng(21)
     planes = rng.integers(0, 256, (3, 4, 5))
     psd16 = psd_file(3, 16, np.repeat(planes, 2, 2))
-    j2k = icns_file([(b"ic07", b"\xff\x4f\xff\x51" + bytes(60)), (b"is32", bytes(768))])
+    gradient = np.add.outer(np.arange(128), np.arange(128)).astype(np.uint8)
+    j2k = icns_file([(b"ic07", _save(Image.fromarray(np.stack([gradient, gradient.T, 255 - gradient],
+                                                              -1)), "JPEG2000", no_jp2=True,
+                                     quality_layers=[150])), (b"is32", bytes(768))])
     unknown_colour = xpm_file(rng.integers(0, 2, (2, 3)), ["#ff0000", "red"], 1)
     huge = {
         "psd": psd_file(3, 8, planes).replace(struct.pack(">II", 4, 5), struct.pack(">II", 20000,
@@ -516,7 +519,7 @@ def _refused():
                     "compression 2"),
         "xpm_colour_name": (unknown_colour, "colour name 'red'"),
         "xpm_none_used": (xpm_file(np.array([[0, 1]]), ["None", "#ffffff"], 1), "no colour"),
-        "icns_jpeg2000": (j2k, "JPEG 2000 in ICNS"),
+        "icns_jpeg2000": (j2k, DECODED),
         "sgi_bad_mode": (sgi_file(_picture(2, 3, 3), dimension=2), "not a mode PIL reads"),
         "sun_map_on_rgb": (sun_file(2, 2, 24, bytes(12), cmap=bytes(6)), "colour map beside 24"),
         "pcx_planes_3_at_1_bit": (pcx_file([b"\0\0\0"] * 2, 8, 2, 1, 3), "not a mode PIL reads"),
@@ -528,18 +531,27 @@ def _refused():
     return cases
 
 
+DECODED = "decoded now"  # a kind once refused that the port decodes
 REFUSED = _refused()
 
 
 @pytest.mark.parametrize("kind", sorted(REFUSED))
 def test_broken_files_raise_texture_error(tmp_path, kind, monkeypatch):
     """Each raises TextureError naming the file and its cause (truncated
-    files: any cause), with PIL blocked, and leaves the atlas as it was."""
+    files: any cause), with PIL blocked, and leaves the atlas as it was.
+    A kind once refused and decoded now (JPEG 2000 in ICNS) reads to PIL's
+    pixels."""
     data, words = REFUSED[kind]
     path = tmp_path / "t.bin"
     path.write_bytes(data)
+    want = _pil(data) if words == DECODED else None
     monkeypatch.setitem(sys.modules, "PIL", None)
     atlas, values = bytearray(b"keep"), []
+    if words == DECODED:
+        read_texture(str(path), atlas, values)
+        h, w, _ = want.shape
+        assert values == [4, w, h] and bytes(atlas[4:]) == want.tobytes()
+        return
     with pytest.raises(TextureError) as err:
         read_texture(str(path), atlas, values)
     assert str(path) in str(err.value) and (words or "") in str(err.value), str(err.value)
@@ -550,9 +562,13 @@ def test_broken_files_raise_texture_error(tmp_path, kind, monkeypatch):
 def test_pil_fails_on_the_broken_files(tmp_path, kind):
     """The broken files are broken for PIL too (opened from a path, as the
     JAX package opens them), the huge ones past its decompression-bomb
-    limit."""
+    limit; the kinds decoded now open in PIL, to the port's pixels."""
     path = tmp_path / "t.bin"
     path.write_bytes(REFUSED[kind][0])
+    if REFUSED[kind][1] == DECODED:
+        with Image.open(path) as im:
+            assert np.array_equal(np.asarray(im.convert("RGB")), _port(REFUSED[kind][0]))
+        return
     with pytest.raises(Image.DecompressionBombError if kind.startswith("huge") else Exception):
         with Image.open(path) as im:
             im.convert("RGB")
@@ -579,10 +595,16 @@ def test_pil_formats_left_for_later_are_refused_by_name(fmt, mode, monkeypatch):
     ("AVIF/HEIF", b"\0\0\0\x1cftypavif" + bytes(20))])
 def test_other_formats_are_named(name, first):
     """Each format left for later is told by PIL's own checks and named;
-    a GIMP brush's header that fails GbrImageFile's checks is not one."""
+    a GIMP brush's header that fails GbrImageFile's checks is not one.
+    FITS and JPEG 2000 are decoded now: their stubs are broken files that
+    the port names by format and cause, and that PIL fails on too."""
     with pytest.raises(ValueError, match=f"^{name}: "):
         decode_texture(first)
-    assert name in texture._OTHER_FORMATS
+    if name in ("FITS", "JPEG 2000"):
+        assert name not in texture._OTHER_FORMATS
+        assert isinstance(_pil_outcome(first), Exception)
+    else:
+        assert name in texture._OTHER_FORMATS
 
 
 def test_a_tga_is_never_taken_for_a_brush():

@@ -2223,6 +2223,498 @@ def legacy_fixtures(rng, Image) -> dict:
                                                        rng.integers(0, 1 << 24, 69)], 2)
     return files
 
+# ---------------------------------------------------------------------------
+# JPEG 2000, FITS, and PNG as PIL reads a bad CRC or a missing IEND
+
+
+def _openjp2():
+    """PIL's own libopenjp2 (2.5.4), by ctypes: its encoder writes what PIL's
+    save does not (code-block styles, SOP/EPH, ROI, POC, subsampling,
+    precisions other than 8 and 16, tile-parts, TLM)."""
+    import ctypes
+    import glob
+    import os
+
+    import PIL
+
+    lib = ctypes.CDLL(glob.glob(os.path.join(os.path.dirname(PIL.__file__), os.pardir,
+                                             "pillow.libs", "libopenjp2-*.so*"))[0])
+    for name in ("opj_image_create", "opj_create_compress",
+                 "opj_stream_create_default_file_stream"):
+        getattr(lib, name).restype = ctypes.c_void_p
+    for name in ("opj_setup_encoder", "opj_start_compress", "opj_encode", "opj_end_compress",
+                 "opj_stream_destroy", "opj_destroy_codec", "opj_image_destroy",
+                 "opj_encoder_set_extra_options"):
+        getattr(lib, name).argtypes = [ctypes.c_void_p] * {"opj_setup_encoder": 3,
+                                                           "opj_start_compress": 3,
+                                                           "opj_encode": 2, "opj_end_compress": 2,
+                                                           "opj_encoder_set_extra_options": 2
+                                                           }.get(name, 1)
+    return lib
+
+
+# byte offsets in libopenjp2 2.5's opj_cparameters_t (x86-64); `openjpeg`
+# checks them against opj_set_default_encoder_parameters' defaults
+_CPARAMS = {"tile_size_on": 0, "cp_tx0": 4, "cp_ty0": 8, "cp_tdx": 12, "cp_tdy": 16,
+            "cp_disto_alloc": 20, "csty": 48, "prog_order": 52, "POC": 56, "numpocs": 4792,
+            "tcp_numlayers": 4796, "tcp_rates": 4800, "numresolution": 5600,
+            "cblockw_init": 5604, "cblockh_init": 5608, "mode": 5612, "irreversible": 5616,
+            "roi_compno": 5620, "roi_shift": 5624, "res_spec": 5628, "prcw_init": 5632,
+            "prch_init": 5764, "image_offset_x0": 18188, "image_offset_y0": 18192,
+            "subsampling_dx": 18196, "decod_format": 18204, "tp_on": 18696, "tcp_mct": 18698}
+_POC_SIZE = 148  # sizeof(opj_poc_t)
+
+
+def openjpeg(planes, *, dx=None, dy=None, prec=8, sgnd=False, offset=(0, 0), rates=None,
+             cblk=None, precincts=None, tiles=None, pocs=None, tile_parts=None, extra=(),
+             mct=False, **ints) -> bytes:
+    """A J2K codestream of the component planes ((h, w) integer arrays,
+    each at its subsampling) written by libopenjp2's encoder. `ints` sets
+    opj_cparameters_t's int fields by name (numresolution, irreversible,
+    mode: the code-block style, csty: 2 SOP, 4 EPH, prog_order, roi_compno,
+    roi_shift); rates are the layers' compression ratios (0 lossless); pocs
+    (RSpoc, CSpoc, LYEpoc, REpoc, CEpoc, order) for the first tile;
+    tile_parts 'R', 'L' or 'C'; extra the encoder's options ("TLM=YES")."""
+    import ctypes
+    import os
+    import tempfile
+
+    lib = _openjp2()
+    n = len(planes)
+    dx, dy = dx or [1] * n, dy or [1] * n
+    buf = ctypes.create_string_buffer(1 << 16)
+    lib.opj_set_default_encoder_parameters(buf)
+
+    def put(name, value, i=0, size=4, fmt="<i"):
+        ctypes.memmove(ctypes.addressof(buf) + _CPARAMS[name] + size * i,
+                       struct.pack(fmt, value), size)
+
+    def get(name):
+        return struct.unpack_from("<i", buf.raw, _CPARAMS[name])[0]
+
+    if (get("numresolution"), get("cblockw_init"), get("roi_compno"), get("subsampling_dx"),
+            get("decod_format")) != (6, 64, -1, 1, -1):
+        raise RuntimeError("libopenjp2's opj_cparameters_t is not laid out as _CPARAMS says")
+    rates = rates or [0]
+    put("tcp_numlayers", len(rates))
+    for i, r in enumerate(rates):
+        put("tcp_rates", r, i, fmt="<f")
+    put("cp_disto_alloc", 1)
+    for name, value in ints.items():
+        put(name, value)
+    if cblk:
+        put("cblockw_init", cblk[0])
+        put("cblockh_init", cblk[1])
+    if precincts:
+        put("csty", get("csty") | 1)
+        put("res_spec", len(precincts))
+        for i, (w, h) in enumerate(precincts):
+            put("prcw_init", w, i)
+            put("prch_init", h, i)
+    if tiles:
+        (tw, th), (tx0, ty0) = tiles
+        for name, value in (("tile_size_on", 1), ("cp_tdx", tw), ("cp_tdy", th), ("cp_tx0", tx0),
+                            ("cp_ty0", ty0)):
+            put(name, value)
+    put("image_offset_x0", offset[0])
+    put("image_offset_y0", offset[1])
+    for i, (rs, cs, ly, re_, ce, order) in enumerate(pocs or ()):
+        base = _CPARAMS["POC"] + _POC_SIZE * i
+        ctypes.memmove(ctypes.addressof(buf) + base, struct.pack("<5I", rs, cs, ly, re_, ce), 20)
+        ctypes.memmove(ctypes.addressof(buf) + base + 32, struct.pack("<I", order), 4)  # prg1
+        ctypes.memmove(ctypes.addressof(buf) + base + 48, struct.pack("<I", 1), 4)  # tile 1
+    put("numpocs", len(pocs or ()))
+    if tile_parts:
+        put("tp_on", 1, size=1, fmt="<B")
+        ctypes.memmove(ctypes.addressof(buf) + _CPARAMS["tp_on"] + 1, tile_parts.encode(), 1)
+    if mct:
+        put("tcp_mct", 1, size=1, fmt="<B")
+
+    class Component(ctypes.Structure):
+        _fields_ = [(f, ctypes.c_uint32) for f in ("dx", "dy", "w", "h", "x0", "y0", "prec",
+                                                   "bpp", "sgnd")]
+
+    comps = (Component * n)()
+    for i, p in enumerate(planes):
+        comps[i].dx, comps[i].dy = dx[i], dy[i]
+        comps[i].h, comps[i].w = p.shape
+        comps[i].x0, comps[i].y0 = -(-offset[0] // dx[i]), -(-offset[1] // dy[i])
+        comps[i].prec = comps[i].bpp = prec
+        comps[i].sgnd = int(sgnd)
+    image = lib.opj_image_create(n, comps, 1 if n >= 3 else 2)
+    rect = (ctypes.c_uint32 * 4).from_address(image)
+    rect[0], rect[1] = offset
+    rect[2] = offset[0] + max((p.shape[1] - 1) * dx[i] + 1 for i, p in enumerate(planes))
+    rect[3] = offset[1] + max((p.shape[0] - 1) * dy[i] + 1 for i, p in enumerate(planes))
+    comp_array = ctypes.c_void_p.from_address(image + 24).value  # opj_image_t.comps
+    for i, p in enumerate(planes):  # opj_image_comp_t is 64 bytes, its data at 48
+        samples = np.ascontiguousarray(p, np.int32)
+        ctypes.memmove(ctypes.c_void_p.from_address(comp_array + 64 * i + 48).value,
+                       samples.ctypes.data, samples.nbytes)
+    codec = lib.opj_create_compress(0)  # OPJ_CODEC_J2K
+    ok = lib.opj_setup_encoder(codec, buf, image)
+    if extra:
+        ok = ok and lib.opj_encoder_set_extra_options(
+            codec, (ctypes.c_char_p * (len(extra) + 1))(*[e.encode() for e in extra], None))
+    fd, path = tempfile.mkstemp(suffix=".j2k")
+    os.close(fd)
+    stream = lib.opj_stream_create_default_file_stream(path.encode(), 0)
+    ok = ok and lib.opj_start_compress(codec, image, stream) and lib.opj_encode(codec, stream) \
+        and lib.opj_end_compress(codec, stream)
+    lib.opj_stream_destroy(stream)
+    lib.opj_destroy_codec(codec)
+    lib.opj_image_destroy(image)
+    with open(path, "rb") as f:
+        data = f.read()
+    os.unlink(path)
+    if not ok:
+        raise RuntimeError("libopenjp2 refused the parameters")
+    return data
+
+
+def j2k_marker(marker: int, body: bytes) -> bytes:
+    return struct.pack(">HH", marker, len(body) + 2) + body
+
+
+def j2k_split(cs: bytes) -> tuple:
+    """A codestream as (main header marker segments, [(SOT body, tile-part
+    header segments, data)]): each segment its whole bytes."""
+    pos, main, parts = 2, [], []
+    while True:
+        marker, length = struct.unpack_from(">HH", cs, pos)
+        if marker == 0xFF90:
+            break
+        main.append(cs[pos:pos + 2 + length])
+        pos += 2 + length
+    while struct.unpack_from(">H", cs, pos)[0] == 0xFF90:
+        psot = struct.unpack_from(">I", cs, pos + 6)[0]
+        end = pos + psot
+        sot, p, headers = cs[pos + 4:pos + 12], pos + 12, []
+        while struct.unpack_from(">H", cs, p)[0] != 0xFF93:
+            length = struct.unpack_from(">H", cs, p + 2)[0]
+            headers.append(cs[p:p + 2 + length])
+            p += 2 + length
+        parts.append((sot, headers, cs[p + 2:end]))
+        pos = end
+    return main, parts
+
+
+def j2k_join(main: list, parts: list) -> bytes:
+    out = [b"\xff\x4f"] + main
+    for sot, headers, data in parts:
+        body = b"".join(headers)
+        psot = 12 + len(body) + 2 + len(data)
+        out.append(j2k_marker(0xFF90, sot[:2] + struct.pack(">I", psot) + sot[6:]) + body
+                   + b"\xff\x93" + data)
+    return b"".join(out) + b"\xff\xd9"
+
+
+def j2k_packets(data: bytes) -> list:
+    """(header, body) of each packet of a tile-part written with SOP and EPH:
+    the header from after SOP to EPH (EPH kept), the body up to the next
+    SOP (neither marker occurs inside a packet)."""
+    starts = [i for i in range(len(data) - 1) if data[i] == 0xFF and data[i + 1] == 0x91]
+    out = []
+    for a, b in zip(starts, starts[1:] + [len(data)]):
+        eph = data.index(b"\xff\x92", a + 6) + 2
+        out.append((data[a + 6:eph], data[eph:b]))
+    return out
+
+
+def j2k_headers_apart(cs: bytes, where: str) -> bytes:
+    """The codestream (written with SOP and EPH) with its packet headers moved
+    into PPT markers in each tile-part's header (where "ppt", split over
+    several markers), or into PPM markers in the main header ("ppm"); SOP
+    stays before each packet body."""
+    main, parts = j2k_split(cs)
+    new_parts, ppm = [], b""
+    for sot, headers, data in parts:
+        packets = j2k_packets(data)
+        heads = b"".join(h for h, _ in packets)
+        sop = [data[i:i + 6] for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\x91"]
+        bodies = b"".join(s + b for s, (_, b) in zip(sop, packets))
+        if where == "ppt":
+            half = len(heads) // 2
+            headers = headers + [j2k_marker(0xFF61, bytes([0]) + heads[:half]),
+                                 j2k_marker(0xFF61, bytes([1]) + heads[half:])]
+        else:
+            ppm += struct.pack(">I", len(heads)) + heads
+        new_parts.append((sot, headers, bodies))
+    if where == "ppm":
+        half = len(ppm) // 2  # two PPM markers, the split inside a header's bytes
+        main = main + [j2k_marker(0xFF60, bytes([0]) + ppm[:half]),
+                       j2k_marker(0xFF60, bytes([1]) + ppm[half:])]
+    return j2k_join(main, new_parts)
+
+
+def j2k_with_main(cs: bytes, *segments: bytes, replace=None) -> bytes:
+    """The codestream with marker segments added to its main header (after
+    SIZ, COD and QCD), or the segment of marker `replace` replaced by the
+    first of them."""
+    main, parts = j2k_split(cs)
+    if replace is not None:
+        main = [segments[0] if struct.unpack_from(">H", m)[0] == replace else m for m in main]
+    else:
+        main = main + list(segments)
+    return j2k_join(main, parts)
+
+
+def htj2k_stub(width: int = 16, height: int = 16) -> bytes:
+    """An HTJ2K (Part 15) codestream, Rsiz bit 14 and a CAP marker, whose one
+    packet is empty: OpenJPEG (and so PIL) decode it to mid-grey."""
+    siz = struct.pack(">H8IH", 0x4000, width, height, 0, 0, width, height, 0, 0, 1) + b"\x07\1\1"
+    cod = bytes([0, 0]) + struct.pack(">H", 1) + bytes([0, 0, 4, 4, 0x40, 1])
+    body = j2k_marker(0xFF51, siz) + j2k_marker(0xFF50, struct.pack(">IH", 0x00020000, 0)) \
+        + j2k_marker(0xFF52, cod) + j2k_marker(0xFF5C, bytes([0x20, 8 << 3]))
+    return b"\xff\x4f" + body + j2k_marker(0xFF90, struct.pack(">HIBB", 0, 15, 0, 1)) \
+        + b"\xff\x93\x00\xff\xd9"
+
+
+def jp2_box(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I4s", 8 + len(body), kind) + body
+
+
+def jp2_file(cs: bytes, width: int, height: int, nc: int, *, colr=None, extra: bytes = b"",
+             bpc: int = 7) -> bytes:
+    """A JP2 file around a codestream: signature, ftyp, jp2h (ihdr, colr:
+    an enumerated colour space by number or the box's bytes, then `extra`
+    boxes), jp2c."""
+    if colr is None or isinstance(colr, int):
+        colr = struct.pack(">BBBI", 1, 0, 0, colr or (16 if nc >= 3 else 17))
+    header = jp2_box(b"ihdr", struct.pack(">IIHBBBB", height, width, nc, bpc, 7, 0, 0)) \
+        + jp2_box(b"colr", colr) + extra
+    return (jp2_box(b"jP  ", b"\r\n\x87\n") + jp2_box(b"ftyp", b"jp2 \0\0\0\0jp2 ")
+            + jp2_box(b"jp2h", header) + jp2_box(b"jp2c", cs))
+
+
+def jp2_palette(entries, depth: int = 7) -> bytes:
+    """pclr (each entry one byte a column) and cmap boxes."""
+    npc = len(entries[0])
+    pclr = struct.pack(">HB", len(entries), npc) + bytes([depth] * npc) \
+        + b"".join(bytes(e) for e in entries)
+    cmap = b"".join(struct.pack(">HBB", 0, 1, i) for i in range(npc))
+    return jp2_box(b"pclr", pclr) + jp2_box(b"cmap", cmap)
+
+
+def fits_card(key: str, value=None) -> bytes:
+    text = key.ljust(8) + ("= " + str(value).rjust(20) if value is not None else "")
+    return text.ljust(80).encode()
+
+
+def fits_header(cards) -> bytes:
+    body = b"".join(cards) + fits_card("END")
+    return body + b" " * (-len(body) % 2880)
+
+
+def fits_file(samples: np.ndarray, bitpix: int, naxis: int = 2) -> bytes:
+    """A FITS primary HDU (big-endian samples, the data unit not padded:
+    PIL does not need it)."""
+    dtype = {8: ">u1", 16: ">i2", 32: ">i4", -32: ">f4", -64: ">f8"}[bitpix]
+    cards = [fits_card("SIMPLE", "T"), fits_card("BITPIX", bitpix), fits_card("NAXIS", naxis)]
+    cards += [fits_card(f"NAXIS{i + 1}", n) for i, n in enumerate(samples.shape[::-1][:naxis])]
+    return fits_header(cards) + np.asarray(samples).astype(dtype).tobytes()
+
+
+def fits_gzip(samples: np.ndarray, zbitpix: int, primary: bool = True) -> bytes:
+    """A tile-compressed FITS image as PIL's FitsGzipDecoder reads it: a
+    BINTABLE with ZIMAGE T and ZCMPTYPE 'GZIP_1  ' whose heap (after its one
+    8-byte row) is the gzipped samples, 4 big-endian bytes each; after an
+    empty primary HDU, or (primary False, under 4 KB) with the table's
+    keywords in the primary header, which PIL reads alike."""
+    import gzip
+
+    payload = gzip.compress(np.asarray(samples).astype(">i4").tobytes(), mtime=0)
+    cards = [fits_card("XTENSION", "'BINTABLE'"), fits_card("BITPIX", 8), fits_card("NAXIS", 2),
+             fits_card("NAXIS1", 8), fits_card("NAXIS2", 1), fits_card("PCOUNT", len(payload)),
+             fits_card("GCOUNT", 1), fits_card("TFIELDS", 1), fits_card("ZIMAGE", "T"),
+             fits_card("ZCMPTYPE", "'GZIP_1  '"), fits_card("ZBITPIX", zbitpix),
+             fits_card("ZNAXIS", 2), fits_card("ZNAXIS1", samples.shape[1]),
+             fits_card("ZNAXIS2", samples.shape[0])]
+    if primary:
+        head = fits_header([fits_card("SIMPLE", "T"), fits_card("BITPIX", 8),
+                            fits_card("NAXIS", 0)]) + fits_header(cards)
+    else:
+        head = fits_header([fits_card("SIMPLE", "T")] + cards)
+    return head + bytes(8) + payload
+
+
+def png_chunks(data: bytes) -> list:
+    """(type, start, end) of each chunk of a PNG file."""
+    out, pos = [], 8
+    while pos + 8 <= len(data):
+        length = int.from_bytes(data[pos:pos + 4], "big")
+        out.append((data[pos + 4:pos + 8], pos, pos + 12 + length))
+        pos += 12 + length
+    return out
+
+
+def png_bad_crc(data: bytes, kind: bytes) -> bytes:
+    """The PNG file with the CRC of its first `kind` chunk flipped."""
+    _, _, end = next(c for c in png_chunks(data) if c[0] == kind)
+    return data[:end - 1] + bytes([data[end - 1] ^ 0x5A]) + data[end:]
+
+
+def j2k_fixtures(rng, Image) -> dict:
+    """JPEG 2000, FITS and PNG-read-as-PIL fixtures, by file name. JPEG
+    2000: PIL's save (modes L, LA, RGB, RGBA, I;16, signed, reversible and
+    irreversible, the five progressions, layers, precincts, code-block
+    sizes, tiles with image and tile offsets, a comment, PLT),
+    libopenjp2's encoder by `openjpeg` (each code-block style, SOP/EPH, ROI,
+    POC, 4:2:0 and mixed subsampling, 12 and 4 bits, tile-parts, TLM),
+    marker surgery (PPT and PPM headers by `j2k_headers_apart`, COC and QCC,
+    derived quantisation with 3 guard bits, CRG, PLM, a COC that mixes the
+    MCT's transforms) and JP2 boxes by
+    `jp2_file` (sYCC, CMYK, ICC, palettes of P and PA with a repeated
+    colour, cdef, a 64-bit box length), and ICNS with ic08 and ic09 JPEG
+    2000 entries. Two are the chip-smoke scenes' textures: textured's 32x32
+    as an irreversible JP2, cubes' 64x64 squares as a lossless tiled J2K.
+    FITS at each BITPIX, NAXIS 1 and GZIP_1 (in one header; the tests
+    write the two-HDU form, over 4 KB). PNG files PIL reads though a
+    CRC is bad (IDAT, IEND), IEND is missing or the file ends after IDAT."""
+    from relativitypathtracer_tpu_torch.utils.demo_scene import demo_texture
+
+    def save(im, **kw):
+        buf = io.BytesIO()
+        im.save(buf, "JPEG2000", **kw)
+        return buf.getvalue()
+
+    files = {}
+    j2k = {"no_jp2": True}
+    pic = lambda h, w: Image.fromarray(_picture(rng, h, w))  # noqa: E731
+    # the chip-smoke scenes' textures
+    files["blob_irrev.jp2"] = save(Image.fromarray(demo_texture(32)), irreversible=True, mct=1,
+                                   quality_layers=[2.2])
+    square = (np.add.outer(np.arange(64) // 8 * 3, np.arange(64) // 8 * 5) % 6)
+    colours = rng.integers(30, 225, (6, 3)).astype(np.uint8)
+    files["cubes_lossless.j2k"] = save(Image.fromarray(colours[square]), tile_size=(32, 32), **j2k)
+    # PIL's save: modes, transforms, progressions, layers, precincts, blocks, tiles
+    files["grey_rev.j2k"] = save(pic(21, 30).convert("L"), **j2k)
+    files["grey_irrev.jp2"] = save(pic(17, 23).convert("L"), irreversible=True)
+    files["la.jp2"] = save(pic(13, 14).convert("LA"))
+    files["rgba_irrev.jp2"] = save(pic(11, 13).convert("RGBA"), irreversible=True, mct=1)
+    files["i16.jp2"] = save(Image.fromarray(rng.integers(0, 600, (12, 15)).astype(np.uint16)))
+    files["signed.j2k"] = save(pic(12, 16), signed=True, **j2k)
+    for order in ("RLCP", "RPCL", "PCRL", "CPRL"):
+        files[f"{order.lower()}.j2k"] = save(pic(19, 22), progression=order, mct=1,
+                                             precinct_size=(16, 16), num_resolutions=3,
+                                             quality_layers=[20, 5], **j2k)
+    files["layers_irrev.j2k"] = save(pic(30, 27), irreversible=True, mct=1,
+                                     quality_layers=[40, 12, 4], **j2k)
+    files["blocks.j2k"] = save(pic(20, 36), codeblock_size=(8, 16), precinct_size=(32, 32),
+                               num_resolutions=3, quality_layers=[8], **j2k)
+    files["offsets.j2k"] = save(pic(23, 29), offset=(7, 5), tile_offset=(3, 2), tile_size=(16, 12),
+                                num_resolutions=2, quality_layers=[6], **j2k)
+    files["comment_plt.j2k"] = save(pic(14, 17), comment="a texture", plt=True,
+                                    quality_layers=[5], **j2k)
+    # libopenjp2's encoder: code-block styles, SOP/EPH, ROI, POC, subsampling, precision
+
+    def planes(h, w, n=3, bits=8):
+        y, x = np.mgrid[0:h, 0:w]
+        return [(x * (5 + 2 * k) + y * (3 + k) + rng.integers(0, 1 << (bits - 3), (h, w)))
+                % (1 << bits) for k in range(n)]
+
+    rgb = planes(24, 26)
+    for name, mode in (("bypass", 1), ("reset", 2), ("termall", 4), ("vsc", 8), ("pterm", 16),
+                       ("segsym", 32)):
+        files[f"style_{name}.j2k"] = openjpeg(rgb, mode=mode, numresolution=3, rates=[3], mct=True)
+    files["styles_irrev.j2k"] = openjpeg(planes(16, 18), mode=63, irreversible=1, numresolution=3,
+                                         rates=[6, 2], mct=True)
+    files["sop_eph.j2k"] = openjpeg(planes(16, 20), csty=6, numresolution=3, rates=[8, 3],
+                                    precincts=[(16, 16), (8, 8)], mct=True)
+    files["roi.j2k"] = openjpeg(planes(18, 20), roi_compno=0, roi_shift=6, numresolution=3,
+                                rates=[5], mct=True)
+    files["poc.j2k"] = openjpeg(planes(18, 21), numresolution=3, rates=[12, 4, 2], mct=True,
+                                pocs=[(0, 0, 1, 2, 3, 1), (0, 0, 3, 3, 3, 4)])
+    y = planes(20, 22, 1)[0]
+    files["sub420.j2k"] = openjpeg([y, planes(10, 11, 1)[0], planes(10, 11, 1)[0]], dx=[1, 2, 2],
+                                   dy=[1, 2, 2], numresolution=2, rates=[4])
+    files["sub_mixed.jp2"] = jp2_file(openjpeg(
+        [planes(15, 17, 1)[0], planes(15, 9, 1)[0], planes(5, 17, 1)[0]], dx=[1, 2, 1],
+        dy=[1, 1, 3], offset=(3, 1), numresolution=2, rates=[4]), 17, 15, 3)
+    files["prec12.j2k"] = openjpeg(planes(13, 17, 1, 12), prec=12, numresolution=2)
+    files["prec4_signed.j2k"] = openjpeg([p - 8 for p in planes(12, 14, 3, 4)], prec=4, sgnd=True,
+                                         numresolution=2)
+    files["tile_parts.j2k"] = openjpeg(planes(20, 24), tiles=((16, 16), (0, 0)), tile_parts="R",
+                                       numresolution=2, rates=[6], mct=True)
+    files["tlm.j2k"] = openjpeg(planes(14, 15), extra=["TLM=YES", "PLT=YES"], numresolution=2,
+                                rates=[4], mct=True)
+    # marker surgery: PPT, PPM, COC, QCC, derived quantisation, CRG, PLM
+    sop_eph = openjpeg(planes(18, 20), csty=6, numresolution=3, rates=[10, 3], mct=True,
+                       tiles=((16, 16), (0, 0)))
+    files["ppt.j2k"] = j2k_headers_apart(sop_eph, "ppt")
+    files["ppm.j2k"] = j2k_headers_apart(sop_eph, "ppm")
+    irrev = openjpeg(planes(16, 17), irreversible=1, numresolution=2, rates=[5], mct=True)
+    main, _ = j2k_split(irrev)
+    cod = next(m for m in main if m[:2] == b"\xff\x52")
+    qcd = next(m for m in main if m[:2] == b"\xff\x5c")
+    spcod = cod[9:]  # after Scod, the progression, layers and MCT
+    coc = j2k_marker(0xFF53, bytes([1, 0]) + spcod[:3] + bytes([spcod[3] ^ 16]) + spcod[4:])
+    steps = bytearray(qcd[5:])
+    steps[1::2] = bytes((b + 37) & 0xFF for b in steps[1::2])  # other mantissas
+    qcc = j2k_marker(0xFF5D, bytes([2, qcd[4]]) + bytes(steps))
+    files["coc_qcc.j2k"] = j2k_with_main(irrev, coc, qcc)
+    derived = j2k_marker(0xFF5C, bytes([(3 << 5) | 1]) + qcd[5:7])
+    files["derived_guard3.j2k"] = j2k_with_main(irrev, derived, replace=0xFF5C)
+    crg = j2k_marker(0xFF63, struct.pack(">6H", 0, 0, 32768, 0, 0, 32768))
+    plm = j2k_marker(0xFF57, bytes([0, 2, 0x81, 0x05]))
+    files["crg_plm.j2k"] = j2k_with_main(irrev, crg, plm)
+    # JP2 boxes
+    cs3 = openjpeg(planes(12, 14), numresolution=2, rates=[3])
+    cs4 = openjpeg(planes(12, 14, 4), numresolution=2, rates=[3])
+    files["sycc.jp2"] = jp2_file(cs3, 14, 12, 3, colr=18)
+    files["cmyk.jp2"] = jp2_file(cs4, 14, 12, 4, colr=12)
+    files["icc.jp2"] = jp2_file(cs3, 14, 12, 3, colr=bytes([2, 0, 0]) + bytes(128))
+    entries = [tuple(int(v) for v in rng.integers(0, 256, 3)) for _ in range(7)]
+    entries[4] = entries[1]  # PIL keeps each colour once: later indices shift
+    index = openjpeg([rng.integers(0, 8, (10, 13))], numresolution=2)
+    files["palette.jp2"] = jp2_file(index, 13, 10, 1, colr=16, extra=jp2_palette(entries))
+    index_alpha = openjpeg([rng.integers(0, 8, (10, 13)), rng.integers(0, 256, (10, 13))],
+                           numresolution=2)
+    files["palette_alpha.jp2"] = jp2_file(index_alpha, 13, 10, 2, colr=16,
+                                          extra=jp2_palette([e + (200,) for e in entries]))
+    cdef = jp2_box(b"cdef", struct.pack(">H", 3) + b"".join(struct.pack(">3H", i, 0, 3 - i)
+                                                            for i in range(3)))
+    files["cdef.jp2"] = jp2_file(cs3, 14, 12, 3, extra=cdef)
+    xl = jp2_file(cs3, 14, 12, 3)
+    xl = xl[:xl.index(b"jp2c") - 4] + struct.pack(">I4sQ", 1, b"jp2c", 16 + len(cs3)) + cs3
+    files["xl_box.jp2"] = xl
+    # ICNS with JPEG 2000 entries (ic08: 256x256; ic09: 512x512, beside an ic08)
+    ramp = np.add.outer(np.arange(512), np.arange(512)) // 4
+
+    def smooth(side):
+        r = ramp[:side, :side].astype(np.uint8)
+        return Image.fromarray(np.stack([r, r.T, 255 - r], -1))
+
+    files["ic08.icns"] = icns_file([(b"ic08", save(smooth(256), quality_layers=[400], **j2k))])
+    files["ic09.icns"] = icns_file([(b"ic08", save(smooth(256), quality_layers=[400], **j2k)),
+                                    (b"ic09", save(smooth(512), quality_layers=[1500]))])
+    # FITS
+    files["u8.fits"] = fits_file(_picture(rng, 19, 23)[..., 0], 8)
+    files["i16.fits"] = fits_file(rng.integers(-200, 900, (14, 17)), 16)
+    files["i32.fits"] = fits_file(rng.integers(-70000, 70000, (13, 11)), 32)
+    floats = rng.normal(120, 90, (12, 15))
+    floats[0, :3] = (np.nan, np.inf, -np.inf)
+    files["f32.fits"] = fits_file(floats, -32)
+    files["f64.fits"] = fits_file(rng.normal(100, 80, (9, 14)), -64)
+    files["naxis1.fits"] = fits_file(rng.integers(0, 256, 37), 8, naxis=1)
+    files["gzip16.fits"] = fits_gzip(rng.integers(0, 700, (15, 18)), 16, primary=False)
+    # PNG: what PIL reads though a CRC is bad, IEND is missing, or the file ends
+    png = io.BytesIO()
+    Image.fromarray(_picture(rng, 17, 21)).save(png, "PNG")
+    png = png.getvalue()
+    files["bad_idat_crc.png"] = png_bad_crc(png, b"IDAT")
+    files["bad_iend_crc.png"] = png_bad_crc(png, b"IEND")
+    files["no_iend.png"] = png[:-12]
+    files["cut_after_idat.png"] = png[:-14]
+    files["after_iend.png"] = png + struct.pack(">I", 3) + b"tEXt" + b"abc" + bytes(2)
+    # a COC giving the MCT's second component the 5/3 transform in a 9/7
+    # file: OpenJPEG reads its integers as floats (PIL's pixels, not noise)
+    mixed = openjpeg(planes(13, 15), irreversible=1, numresolution=2, rates=[3], mct=True)
+    spcod = next(m for m in j2k_split(mixed)[0] if m[:2] == b"\xff\x52")[9:]
+    files["mixed_transforms.j2k"] = j2k_with_main(mixed, j2k_marker(
+        0xFF53, bytes([1, 0]) + spcod[:4] + bytes([1]) + spcod[5:]))
+    return files
+
 
 def main() -> None:
     from PIL import Image, features
@@ -2262,8 +2754,10 @@ def main() -> None:
     files.update(tiff_jpegs(np.random.default_rng(SEED + 5), Image))
     files.update(block_fixtures(np.random.default_rng(SEED + 6), Image))
     files.update(legacy_fixtures(np.random.default_rng(SEED + 7), Image))
+    files.update(j2k_fixtures(np.random.default_rng(SEED + 8), Image))
     record = {"pillow": features.version("pil"), "libjpeg_turbo": features.version("libjpeg_turbo"),
-              "libwebp": features.version("webp"), "files": {}}
+              "libwebp": features.version("webp"), "openjpeg": features.version("jpg_2000"),
+              "files": {}}
     for name, data in files.items():
         (HERE / name).write_bytes(data)
         with Image.open(io.BytesIO(data)) as im:

@@ -8,8 +8,9 @@ models/texture.decode_texture and held to PIL's decode byte for byte.
     python tools/texture_decode_times.py
 
 Needs PIL (to write the files and to check them). Prints one JSON line a
-file (format, bytes, seconds: the best of REPEAT decodes, equal to PIL, the
-file handed to PIL in one read) and a
+file (format, bytes, seconds: the best of REPEAT decodes, one for JPEG 2000,
+whose tier 1 takes 40-50 s; equal to PIL, the file handed to PIL in one
+read) and a
 last line with the host's CPU model: these are host CPU times, not a card's.
 """
 
@@ -44,9 +45,9 @@ def _cpu_model() -> str:
 def files(Image) -> dict:
     """name -> bytes, 1024x1024 each."""
     from torch_textures.make_fixtures import (arith_jpeg, bc7_mode6, blp_file, bmp_file, bmp_rle,
-                                              dds_file, icns_file, icns_rgb, jpeg_scans,
-                                              jpeg_tiff, ojpeg_tiff, psd_file, sgi_file,
-                                              tiff_file)
+                                              dds_file, fits_file, fits_gzip, icns_file,
+                                              icns_rgb, jpeg_scans, jpeg_tiff, ojpeg_tiff,
+                                              psd_file, sgi_file, tiff_file)
 
     from relativitypathtracer_tpu_torch.utils.demo_scene import demo_texture
 
@@ -110,8 +111,17 @@ def files(Image) -> dict:
         "PCX 8-bit": save(im.quantize(256), "PCX"),
         "QOI": save(im, "QOI"),
         "ICNS it32 (128x128)": icns_file([(b"it32", icns_rgb(rgb[::8, ::8], it32=True))]),
+        # tier 1 is a Python loop over the MQ decoder's decisions: timed once
+        "JPEG 2000 reversible (J2K, 5/3, RCT)": save(im, "JPEG2000", no_jp2=True, mct=1),
+        "JPEG 2000 irreversible (JP2, 9/7, ICT)": save(im, "JPEG2000", irreversible=True, mct=1),
+        "FITS 8-bit": fits_file(rgb[..., 1], 8),
+        "FITS float32": fits_file(rgb[..., 0] * 1.5 - 20.0, -32),
+        "FITS GZIP_1 16-bit": fits_gzip(rgb[..., 2].astype(np.int64) * 9, 16),
     }
     return out
+
+
+ONCE = ("JPEG 2000",)  # formats timed once, not REPEAT times
 
 
 def main() -> int:
@@ -122,7 +132,8 @@ def main() -> int:
     ok = True
     for name, data in files(Image).items():
         best = float("inf")
-        for _ in range(REPEAT):
+        repeat = 1 if name.startswith(ONCE) else REPEAT
+        for _ in range(repeat):
             t0 = time.perf_counter()
             got = decode_texture(data)
             best = min(best, time.perf_counter() - t0)
@@ -132,7 +143,7 @@ def main() -> int:
             equal = bool(np.array_equal(got, np.asarray(im.convert("RGB"))))
         ok = ok and equal
         print(json.dumps({"format": name, "bytes": len(data), "seconds": round(best, 4),
-                          "equal_to_pil": equal}))
+                          "repeat": repeat, "equal_to_pil": equal}), flush=True)
     print(json.dumps({"host_cpu": _cpu_model(), "repeat": REPEAT,
                       "note": "host CPU seconds, not a card's", "ok": ok}))
     return 0 if ok else 1
