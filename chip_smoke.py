@@ -117,26 +117,32 @@ It prints each path's seconds. Then it renders the textured path at msaa 2,
           PNG, PNGs PIL reads though a CRC is bad or IEND is missing, the
           PNM family, BMP, TGA, GIF, TIFF, WebP, DDS with BC1-BC7, FTEX,
           BLP, PSD, SGI, PCX, DCX, Sun raster, QOI, MSP, ICO, CUR, ICNS
-          (JPEG 2000 entries too), XBM, XPM, JPEG 2000, FITS) decoded by
+          (JPEG 2000 entries too), XBM, XPM, JPEG 2000, FITS, FLI/FLC, IM,
+          IMT, GBR, McIdas, PIXAR, SPIDER, XVThumb, IPTC, Photo CD, PIL's
+          own PNM kinds and TIFF's rare kinds: BigTIFF, float, CIELab,
+          LZMA, ZSTD, CCITT, old-style LZW, subsampled YCbCr) decoded by
           models/texture.decode_texture to the SHA-256 PIL gave where they
           were made (pil_rgb.json), with its ms (the WebP files', the
           arithmetic-coded JPEGs', the JPEG-in-TIFF files', the
-          DDS/FTEX/BLP files', the small raster formats' and the JPEG 2000
-          and FITS files' again on a line each); the
+          DDS/FTEX/BLP files', the small raster formats', the JPEG 2000
+          and FITS files', the last plugin formats' and the PNM and TIFF
+          rare kinds' again on a line each); the
           textured fixture with its 32x32 texture as
           a baseline 4:2:0 JPEG (utils/image.encode_jpeg; a 512-row atlas,
           K2), as an RLE TGA (the committed blob_rle.tga), as a lossy
           WebP (blob_lossy.webp), as an arithmetic-coded progressive
           JPEG (blob_arith_prog.jpg), as DXT1 (blob_bc1.dds), as a
-          PackBits RGB PSD (blob_packbits.psd) and as an irreversible
-          (9/7, ICT) JP2 (blob_irrev.jp2), and cubes
+          PackBits RGB PSD (blob_packbits.psd), as an irreversible
+          (9/7, ICT) JP2 (blob_irrev.jp2) and as a line-interleaved RGB
+          IM (blob_rgb.im), and cubes
           with its 256x256 texture as a
           PNG (a 32,768-row atlas, K8), with a 64x64 LZW TIFF (the
           committed cubes_lzw.tif; a 2,048-row atlas, K8), with the same
           squares as a lossless WebP (cubes_lossless.webp), in 4:2:0
           JPEG-in-TIFF tiles (cubes_jpeg_tiles.tif), as BC7
-          (cubes_bc7.dds), as an RLE SGI (cubes_rle.sgi) and as a
-          lossless J2K in 32x32 tiles (cubes_lossless.j2k), each scene
+          (cubes_bc7.dds), as an RLE SGI (cubes_rle.sgi), as a
+          lossless J2K in 32x32 tiles (cubes_lossless.j2k) and with 256x256
+          bilevel squares as a Group 4 TIFF (cubes_g4.tif), each scene
           written by utils/demo_scene, load_scene_file -> build_scene ->
           build_render_fn at 1024x768: one
           graphed frame with exactly that path's kernels launched, held to
@@ -280,10 +286,24 @@ TEXTURE_SCENES = (("textured", "jpg", (256, 192)), ("cubes", "png", (WIDTH, HEIG
                   ("textured", "blob_packbits.psd", (256, 192)),
                   ("cubes", "cubes_rle.sgi", (WIDTH, HEIGHT)),
                   ("textured", "blob_irrev.jp2", (256, 192)),
-                  ("cubes", "cubes_lossless.j2k", (WIDTH, HEIGHT)))
+                  ("cubes", "cubes_lossless.j2k", (WIDTH, HEIGHT)),
+                  ("textured", "blob_rgb.im", (256, 192)),
+                  ("cubes", "cubes_g4.tif", (WIDTH, HEIGHT)))
 # the small raster formats' fixtures, by suffix
 LEGACY_SUFFIXES = (".psd", ".sgi", ".bw", ".rgb", ".pcx", ".dcx", ".ras", ".qoi", ".msp", ".ico",
                    ".cur", ".icns", ".xbm", ".xpm")
+# the last plugin formats' fixtures (FLI/FLC, IM, IMT, GBR, McIdas, PIXAR,
+# SPIDER, XVThumb, IPTC, Photo CD), and PIL's PNM kinds and TIFF's rare
+# kinds (BigTIFF, float, CIELab, LZMA, ZSTD, CCITT, old-style LZW, YCbCr)
+PLUGIN_SUFFIXES = (".fli", ".flc", ".im", ".imt", ".gbr", ".area", ".pxr", ".spi", ".xv", ".iim",
+                   ".pcd")
+RARE_FIXTURES = ("p0cmyk.pnm", "pycmyk_16bit.pnm", "pyrgba.pnm", "pyp.pnm", "float_le.pfm",
+                 "float_be.pfm", "bigtiff_lzw.tif", "bigtiff_long8_tiles.tif", "float.tif",
+                 "float_pred3.tif", "float_be_lzw.tif", "lab.tif", "lab_lzma.tif",
+                 "lzma_pred2.tif", "ccitt_rle.tif", "g3_1d.tif", "g3_2d_fill.tif", "g4.tif",
+                 "g4_wide.tif", "old_lzw.tif", "ycbcr_22_lzw.tif", "ycbcr_21_tiles.tif",
+                 "ycbcr_raw.tif", "planar_palette.tif", "planar_rgba_deflate.tif",
+                 "cubes_g4.tif", "zstd.tif", "zstd_pred2_strips.tif", "zstd_float.tif")
 BIG_TEXTURE = 2048
 PKG = "relativitypathtracer_tpu_torch/csrc/"
 CSRC = pathlib.Path(__file__).resolve().parent / PKG
@@ -1134,9 +1154,10 @@ def textures_phase(torch, pt, dev, card, state) -> None:
     """Textures decoded without PIL (models/texture.decode_texture), with PIL
     blocked in sys.modules for the phase: the committed fixtures against
     PIL's hashes, the textured fixture with a JPEG, a TGA, a lossy WebP,
-    an arithmetic-coded JPEG, a DXT1 DDS, a PackBits PSD and an
-    irreversible JP2 texture and cubes with a PNG, two TIFFs, a lossless
-    WebP, a BC7 DDS, an RLE SGI and a lossless tiled J2K one rendered
+    an arithmetic-coded JPEG, a DXT1 DDS, a PackBits PSD, an
+    irreversible JP2 and an RGB IM texture and cubes with a PNG, two
+    TIFFs, a lossless WebP, a BC7 DDS, an RLE SGI, a lossless tiled J2K
+    and a Group 4 TIFF one rendered
     on the card and held to the CPU and the oracle, and the decode time of
     a corpus-sized JPEG; see the module docstring."""
     import hashlib
@@ -1178,6 +1199,10 @@ def textures_phase(torch, pt, dev, card, state) -> None:
         log("  JPEG 2000 and FITS decode ms: " + ", ".join(
             t for t in times if t.split()[0].endswith((".j2k", ".jp2", ".fits"))
             or t.split()[0] in ("ic08.icns", "ic09.icns")))
+        log("  FLI/FLC/IM/IMT/GBR/McIdas/PIXAR/SPIDER/XVThumb/IPTC/PCD decode ms: " + ", ".join(
+            t for t in times if t.split()[0].endswith(PLUGIN_SUFFIXES)))
+        log("  PNM extensions and TIFF rare kinds decode ms: " + ", ".join(
+            t for t in times if t.split()[0] in RARE_FIXTURES))
         for kind, fmt, size in TEXTURE_SCENES:
             names = PATHS[kind][1]
             with tempfile.TemporaryDirectory() as tmp:

@@ -11,9 +11,11 @@ load on a host without an image library, byte for byte as PIL's
 reference's CImg reads PNM and BMP itself and the rest through libraries,
 and the byte layout after its permute_axes("cxyz") is the same row-major
 interleaved RGB): JPEG (Huffman- and arithmetic-coded, utils/jpeg_arith)
-and PNG by utils/image_decode, the PNM family, BMP, TGA and GIF by
-utils/raster_decode, TIFF (JPEG-in-TIFF, new and old style, among its
-compressions) by utils/tiff_decode, WebP by utils/webp_decode (the first
+and PNG by utils/image_decode, the PNM family (PIL's own P0CMYK, PyCMYK,
+PyRGBA, PyP and Pf too), BMP, TGA and GIF by utils/raster_decode, TIFF
+(JPEG-in-TIFF, new and old style, LZMA, ZSTD and the CCITT compressions
+among its compressions; BigTIFF, float, CIELab and YCbCr among its kinds)
+by utils/tiff_decode, WebP by utils/webp_decode (the first
 frame on its canvas), the block-compressed containers DDS (BC1-BC7 and the
 uncompressed kinds), FTEX and BLP by utils/dds_decode, PSD (the merged
 image) by utils/psd_decode, SGI, PCX, DCX (its first page), Sun raster,
@@ -21,14 +23,18 @@ QOI and MSP by utils/legacy_raster, ICO, CUR and ICNS (the entry PIL
 picks, PNG and JPEG 2000 entries among them) by utils/icon_decode, XBM
 and XPM by utils/text_raster, FITS (its first image, GZIP_1 tiles too)
 by utils/fits_decode, JPEG 2000 (J2K codestreams and JP2 files, OpenJPEG's
-arithmetic to the bit) by utils/j2k_decode. The format
+arithmetic to the bit) by utils/j2k_decode, FLI/FLC (the first frame) by
+utils/fli_decode, IM and IMT by utils/im_decode, GBR, McIdas, PIXAR,
+SPIDER, XVThumb and IPTC by utils/misc_raster, Photo CD (its base image)
+by utils/pcd_decode. The format
 is told as `Image.open` tells it: by the file's first bytes, PIL's first
 five plugins first, then its other plugins in its order (Image.ID), each
 by its accept test and the header checks on which PIL moves on to the
 next plugin (utils/pil_open), TGA (which has no magic number) by its
 header's checks after the others. A format PIL opens and the port does
-not, and an unknown one, raise TextureError; so does an image of more
-pixels than PIL's decompression-bomb limit (178,956,970) in any format.
+not (AVIF/HEIF, EPS), and an unknown one, raise TextureError, as does a
+decoder's error, named by its format; so does an image of more pixels
+than PIL's decompression-bomb limit (178,956,970) in any format.
 """
 
 from __future__ import annotations
@@ -38,11 +44,16 @@ import numpy as np
 from ..utils import pil_open
 from ..utils.dds_decode import decode_blp, decode_dds, decode_ftex
 from ..utils.fits_decode import decode_fits
+from ..utils.fli_decode import decode_fli
 from ..utils.icon_decode import decode_cur, decode_icns, decode_ico
-from ..utils.image_decode import decode_jpeg, decode_png
+from ..utils.im_decode import decode_im, decode_imt
+from ..utils.image_decode import DecodeError, decode_jpeg, decode_png
 from ..utils.j2k_decode import decode_j2k
 from ..utils.legacy_raster import (decode_dcx, decode_msp, decode_pcx, decode_qoi, decode_sgi,
                                    decode_sun)
+from ..utils.misc_raster import (decode_gbr, decode_iptc, decode_mcidas, decode_pixar,
+                                 decode_spider, decode_xvthumb)
+from ..utils.pcd_decode import decode_pcd
 from ..utils.psd_decode import decode_psd
 from ..utils.raster_decode import decode_bmp, decode_gif, decode_pnm, decode_tga, tga_header_ok
 from ..utils.text_raster import decode_xbm, decode_xpm
@@ -58,7 +69,7 @@ _JPEG2000 = (b"\xff\x4f\xff\x51", b"\0\0\0\x0cjP  \r\n\x87\n")
 # PIL's plugins after its first five, in its order (Image.ID), each as
 # (name, the test on which PIL's Image.open takes the file, the name of
 # this module's decoder of it); the formats PIL opens and this loader does
-# not are _OTHER_FORMATS
+# not are _OTHER_FORMATS, each with why
 _PLUGINS = (
     ("AVIF/HEIF", lambda d: d[4:8] == b"ftyp", None),
     ("BLP", lambda d: d[:4] in (b"BLP1", b"BLP2"), "decode_blp"),
@@ -68,29 +79,31 @@ _PLUGINS = (
     ("DDS", lambda d: d[:4] == b"DDS ", "decode_dds"),
     ("EPS", lambda d: d[:4] in (b"%!PS", b"\xc5\xd0\xd3\xc6"), None),
     ("FITS", lambda d: d[:6] == b"SIMPLE", "decode_fits"),
-    ("FLI/FLC", pil_open.fli, None),
+    ("FLI/FLC", pil_open.fli, "decode_fli"),
     ("FTEX", lambda d: d[:4] == b"FTEX", "decode_ftex"),
-    ("GBR", pil_open.gbr, None),
+    ("GBR", pil_open.gbr, "decode_gbr"),
     ("JPEG 2000", lambda d: d.startswith(_JPEG2000), "decode_j2k"),
     ("ICNS", pil_open.icns, "decode_icns"),
     ("ICO", lambda d: d[:4] == b"\0\0\1\0" and pil_open.entries(d), "decode_ico"),
-    ("IM", pil_open.im, None),
-    ("IMT", pil_open.imt, None),
-    ("IPTC", pil_open.iptc, None),
-    ("McIdas", lambda d: d[:8] == b"\0\0\0\0\0\0\0\4", None),
+    ("IM", pil_open.im, "decode_im"),
+    ("IMT", pil_open.imt, "decode_imt"),
+    ("IPTC", pil_open.iptc, "decode_iptc"),
+    ("McIdas", pil_open.mcidas, "decode_mcidas"),
     ("MSP", pil_open.msp, "decode_msp"),
-    ("PCD", pil_open.pcd, None),
-    ("PIXAR", lambda d: d[:4] == b"\x80\xe8\0\0", None),
+    ("PCD", pil_open.pcd, "decode_pcd"),
+    ("PIXAR", pil_open.pixar, "decode_pixar"),
     ("PSD", lambda d: d[:4] == b"8BPS" and d[4:6] == b"\0\1", "decode_psd"),
     ("QOI", lambda d: d[:4] == b"qoif", "decode_qoi"),
     ("SGI", lambda d: d[:2] == b"\x01\xda" and len(d) >= 12, "decode_sgi"),
-    ("SPIDER", pil_open.spider, None),
+    ("SPIDER", pil_open.spider, "decode_spider"),
     ("Sun raster", lambda d: d[:4] == b"\x59\xa6\x6a\x95" and len(d) >= 32, "decode_sun"),
     ("TGA", tga_header_ok, "decode_tga"),
     ("XBM", lambda d: d[:16].lstrip().startswith(b"#define"), "decode_xbm"),
     ("XPM", lambda d: d[:9] == b"/* XPM */", "decode_xpm"),
-    ("XVThumb", lambda d: d[:6] == b"P7 332", None))
+    ("XVThumb", pil_open.xvthumb, "decode_xvthumb"))
 _OTHER_FORMATS = tuple(name for name, _, decoder in _PLUGINS if decoder is None)
+_WHY_NOT = {"AVIF/HEIF": "an AV1 or HEVC decoder is not ported",
+            "EPS": "PIL renders it with Ghostscript"}
 _DECODED = ("PNM, BMP, GIF, JPEG, PNG, TIFF, WebP, "
             + ", ".join(name for name, _, decoder in _PLUGINS if decoder is not None))
 
@@ -129,9 +142,14 @@ def decode_texture(data: bytes) -> np.ndarray:
     for name, test, decoder in _PLUGINS:
         if test(data):
             if decoder is None:
-                raise ValueError(f"{name}: a format PIL opens and the port does not decode yet; "
-                                 f"textures are {_DECODED}")
-            return globals()[decoder](data)
+                raise ValueError(f"{name}: a format PIL opens and the port does not decode "
+                                 f"({_WHY_NOT[name]}); textures are {_DECODED}")
+            try:
+                return globals()[decoder](data)
+            except DecodeError as e:  # named by its format
+                if str(e).startswith(name):
+                    raise
+                raise DecodeError(f"{name}: {e}") from e
     raise ValueError(f"unknown format (first bytes {data[:8]!r}): textures are {_DECODED}")
 
 

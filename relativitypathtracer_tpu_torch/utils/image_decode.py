@@ -62,6 +62,11 @@ class DecodeError(ValueError):
     pass
 
 
+class Unidentified(DecodeError):
+    """A file that the format's PIL plugin does not take: its `_open` fails
+    where PIL's Image.open goes on to its next plugin."""
+
+
 # PIL refuses images of more pixels (DecompressionBombError past twice
 # Image.MAX_IMAGE_PIXELS); so does this module, before allocating them
 MAX_PIXELS = 178_956_970

@@ -7,6 +7,10 @@ struct.error, which ImageFile turns into SyntaxError, or a mode or size
 left unset), the checks it makes before those points. A plugin that takes a file and then fails on it with
 another error ends PIL's search there, so such a file is that plugin's.
 
+For the formats decoded since the last plugin formats were ported (FLI/FLC,
+GBR, IM, IMT, IPTC, McIdas, PCD, PIXAR, SPIDER, XVThumb) the checks are
+their decoders' own `open_*` functions, which follow each plugin's `_open`.
+
 models/texture.decode_texture asks these in PIL's order (Image.ID). That
 matters for TGA, which has no magic number: PIL tries it after every
 plugin here, so a file that starts like a PCX, an icon, a cursor or a GIMP
@@ -15,10 +19,14 @@ brush but fails that plugin's checks may still be a TGA.
 
 from __future__ import annotations
 
-import re
 import struct
 
-from .icon_decode import DecodeError, icns_resources, icns_sizes
+from . import misc_raster
+from .fli_decode import open_fli
+from .icon_decode import icns_resources, icns_sizes
+from .im_decode import open_im, open_imt
+from .image_decode import DecodeError, Unidentified
+from .pcd_decode import open_pcd
 
 
 def _u16le(d: bytes, p: int) -> int:
@@ -93,168 +101,75 @@ def msp(d: bytes) -> bool:
     return checksum == 0
 
 
+def _takes(opener, d: bytes) -> bool:
+    """Whether the plugin whose `_open` the decoder's `opener` follows takes
+    the file: it opens, or fails with an error on which Image.open stops
+    (Unidentified: PIL tries its next plugin)."""
+    try:
+        opener(d)
+    except Unidentified:
+        return False
+    except DecodeError:  # the plugin takes the file, then fails on it
+        pass
+    return True
+
+
 def gbr(d: bytes) -> bool:
-    """GbrImageFile: the accept test and _open's checks (header size,
-    version, a size not 0, depth 1 or 4, v2's GIMP magic)."""
-    if len(d) < 20:
-        return False
-    size, version, width, height, depth = struct.unpack(">5I", d[:20])
-    if size < 20 or version not in (1, 2) or not width or not height or depth not in (1, 4):
-        return False
-    return version == 1 or d[20:24] == b"GIMP"
+    """GbrImageFile (utils/misc_raster.open_gbr)."""
+    return _takes(misc_raster.open_gbr, d)
 
 
 def fli(d: bytes) -> bool:
-    """FliImageFile's accept test."""
-    return len(d) >= 16 and _u16le(d, 4) in (0xAF11, 0xAF12) and _u16le(d, 14) in (0, 3)
-
-
-_IM_SPLIT = re.compile(rb"^([A-Za-z][^:]*):[ \t]*(.*)[ \t]*$")
-_IM_TAGS = {"Comment", "Date", "Digitalization equipment", "File size (no of images)", "Lut",
-            "Name", "Scale (x,y)", "Image size (x*y)", "Image type"}
+    """FliImageFile (utils/fli_decode.open_fli): the accept test, then
+    _open's header, prefix and palette reads."""
+    return _takes(open_fli, d)
 
 
 def im(d: bytes) -> bool:
-    """ImImageFile's header: a LF in the first 100 bytes, then "key: value"
-    lines (each under 101 bytes) up to a NUL, 0x1A or the end, at least one
-    of its keys among them, a 0x1A after them and an "Image size" of two
-    numbers. A value that is not a number fails in IM itself."""
-    if b"\n" not in d[:100]:
-        return False
-    pos, n, size = 0, 0, None
-    while True:
-        s = d[pos:pos + 1]
-        pos += len(s)
-        if s == b"\r":
-            continue
-        if not s or s in (b"\0", b"\x1a"):
-            break
-        end = d.find(b"\n", pos)
-        end = len(d) if end < 0 else end + 1
-        s, pos = s + d[pos:end], end
-        if len(s) > 100:
-            return False
-        s = s[:-2] if s.endswith(b"\r\n") else s[:-1] if s.endswith(b"\n") else s
-        m = _IM_SPLIT.match(s)
-        if not m:
-            return False
-        k = m.group(1).decode("latin-1")
-        if k == "Image size (x*y)":
-            size = m.group(2).decode("latin-1").replace("*", ",").split(",")
-        n += k in _IM_TAGS
-    if not n:
-        return False
-    while s and not s.startswith(b"\x1a"):
-        s = d[pos:pos + 1]
-        pos += len(s)
-    return bool(s) and (size is None or len(size) == 2)
-
-
-_IMT_FIELD = re.compile(rb"([a-z]*) ([^ \r\n]*)")
+    """ImImageFile (utils/im_decode.open_im): a LF in the first 100 bytes,
+    "key: value" lines up to a NUL, 0x1A or the end, one of PIL's keys among
+    them, a 0x1A after them, a Lut read, a size and a mode."""
+    return _takes(open_im, d)
 
 
 def imt(d: bytes) -> bool:
-    """ImtImageFile: a LF in the first 100 bytes and width, height (not 0)
-    and "pixel n8" fields before the data."""
-    if b"\n" not in d[:100]:
-        return False
-    width = height = 0
-    mode = False
-    for line in d.split(b"\n"):
-        if not line or line[:1] == b"\x0c":
-            break
-        if len(line) == 1 or len(line) > 100:
-            break
-        if line[:1] == b"*":
-            continue
-        m = _IMT_FIELD.match(line)
-        if not m:
-            break
-        k, v = m.groups()
-        try:
-            if k == b"width":
-                width = int(v)
-            elif k == b"height":
-                height = int(v)
-        except ValueError:
-            return True  # PIL fails in IMT
-        mode = mode or (k == b"pixel" and v == b"n8")
-    return mode and width > 0 and height > 0
+    """ImtImageFile (utils/im_decode.open_imt): width, height (not 0) and
+    "pixel n8" fields before the data."""
+    return _takes(open_imt, d)
 
 
 def iptc(d: bytes) -> bool:
-    """IptcImageFile: its fields read as PIL reads them (0x1C, a record it
-    lists, a size) up to an all-zero header or tag (8, 10); then a (3, 60)
-    field of two bytes or more and the size fields (3, 20) and (3, 30)
-    (PIL goes on where one is missing), and a known compression (else PIL
-    fails in IPTC) with a mode and a size not 0."""
-    pos, info, tag = 0, {}, None
-    while True:
-        s = d[pos:pos + 5]
-        pos += len(s)
-        if not s.strip(b"\0"):
-            break
-        if len(s) < 4 or s[0] != 0x1C or s[1] not in (1, 2, 3, 4, 5, 6, 7, 8, 9, 240):
-            return False
-        size = s[3]
-        if size > 132:
-            return True  # PIL fails in IPTC
-        if size == 128:
-            size = 0
-        elif size > 128:
-            c = d[pos:pos + size - 128]
-            pos += len(c)
-            size = int.from_bytes((b"\0\0\0\0" + c)[-4:], "big")
-        elif len(s) < 5:
-            return False
-        else:
-            size = int.from_bytes(s[3:5], "big")
-        tag = (s[1], s[2])
-        if tag == (8, 10):
-            break
-        info[tag] = d[pos:pos + size] if size else None
-        pos += size
+    """IptcImageFile (utils/misc_raster.open_iptc): its fields up to an
+    all-zero header or tag (8, 10), then the bands, size and compression
+    fields as PIL reads them."""
+    return _takes(misc_raster.open_iptc, d)
 
-    def number(key):
-        return int.from_bytes((b"\0\0\0\0" + info[key])[-4:], "big")
 
-    layers = info.get((3, 60))
-    if layers is None or len(layers) < 2 or info.get((3, 20)) is None \
-            or info.get((3, 30)) is None:
-        return False
-    if info.get((3, 120)) is None or number((3, 120)) not in (1, 5):
-        return True
-    known = (layers[0] == 1 and not layers[1]) or (layers[0] in (3, 4) and layers[1])
-    return known and number((3, 20)) > 0 and number((3, 30)) > 0
+def mcidas(d: bytes) -> bool:
+    """McIdasImageFile (utils/misc_raster.open_mcidas)."""
+    return d[:8] == b"\0\0\0\0\0\0\0\4" and _takes(misc_raster.open_mcidas, d)
 
 
 def pcd(d: bytes) -> bool:
-    """PcdImageFile: "PCD_" at byte 2048."""
-    return d[2048:2052] == b"PCD_"
+    """PcdImageFile (utils/pcd_decode.open_pcd): "PCD_" at byte 2048 and the
+    orientation byte."""
+    return _takes(open_pcd, d)
 
 
-def _spider_header(values) -> int:
-    h = (99,) + tuple(values)
-    for i in (1, 2, 5, 12, 13, 22, 23):
-        f = h[i]
-        if f != f or f in (float("inf"), float("-inf")) or f != int(f):
-            return 0
-    if int(h[5]) not in (1, 3, -11, -12, -21, -22):
-        return 0
-    return int(h[22]) if int(h[22]) == int(h[13]) * int(h[23]) else 0
+def pixar(d: bytes) -> bool:
+    """PixarImageFile (utils/misc_raster.open_pixar): the magic, then mode
+    (14, 2) (another leaves PIL's mode unset) and a size."""
+    return d[:4] == b"\x80\xe8\0\0" and _takes(misc_raster.open_pixar, d)
 
 
 def spider(d: bytes) -> bool:
-    """SpiderImageFile: 27 floats, big- or little-endian, that pass PIL's
-    header test, a 2D image (iform 1), stack values it accepts."""
-    if len(d) < 108:
-        return False
-    for order in ">", "<":
-        t = struct.unpack(order + "27f", d[:108])
-        if _spider_header(t):
-            h = (99,) + t
-            if int(h[5]) != 1:
-                return False
-            stack, number = int(h[24]), int(h[27])
-            return (stack >= 0 and number == 0) or (stack == 0 and number > 0)
-    return False
+    """SpiderImageFile (utils/misc_raster.open_spider): 27 floats, big- or
+    little-endian, that pass PIL's header test, a 2D image (iform 1), stack
+    values it accepts, a size."""
+    return _takes(misc_raster.open_spider, d)
+
+
+def xvthumb(d: bytes) -> bool:
+    """XVThumbImageFile (utils/misc_raster.open_xvthumb): "P7 332", the
+    header lines, a size."""
+    return d[:6] == b"P7 332" and _takes(misc_raster.open_xvthumb, d)

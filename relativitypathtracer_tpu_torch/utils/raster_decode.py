@@ -14,7 +14,11 @@ the transparent index.
 
   PNM   P1-P6, plain and binary, maxval 1-65535 (rescaled with Python's
         round, as PIL's decoders; 16-bit grey opens as PIL's mode I and so
-        clips at 255), '#' comments;
+        clips at 255), '#' comments; PIL's own kinds: P0CMYK and PyCMYK
+        (CMYK, converted as PIL converts it), PyRGBA, PyP (P without a
+        palette: black), and Pf (float32 rows bottom first, little-endian
+        where the scale is negative, then F -> RGB; the scale's size is
+        not applied, as in PIL);
   BMP   1/4/8/16/24/32 bits, RLE4, RLE8, BITFIELDS in PIL's layouts,
         bottom-up and top-down rows, the OS/2 (12-byte) and the
         40/52/56/64/108/124-byte headers;
@@ -80,16 +84,18 @@ def _fifteen(rows, width: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 # PNM
 
-_PNM_MODES = {b"P1": "1", b"P2": "L", b"P3": "RGB", b"P4": "1", b"P5": "L", b"P6": "RGB"}
+_PNM_MODES = {b"P1": "1", b"P2": "L", b"P3": "RGB", b"P4": "1", b"P5": "L", b"P6": "RGB",
+              b"P0CMYK": "CMYK", b"Pf": "F", b"PyP": "P", b"PyRGBA": "RGBA", b"PyCMYK": "CMYK"}
+_PNM_BANDS = {"RGB": 3, "RGBA": 4, "CMYK": 4}
 _WHITESPACE = b" \t\n\x0b\x0c\r"
 _SAFEBLOCK = 1 << 20  # PIL's ImageFile.SAFEBLOCK: the plain decoder reads blocks this size
 _DIGITS = re.compile(rb"[0-9]+\Z")
 
 
-def _pnm_token(data: bytes, pos: int):
-    """PpmImageFile._read_token: the next header field and the offset after
-    the whitespace byte that ends it. A '#' starts a comment up to CR or LF,
-    wherever it falls, even inside a field."""
+def _pnm_field(data: bytes, pos: int):
+    """PpmImageFile._read_token: the next header field's bytes and the
+    offset after the whitespace byte that ends it. A '#' starts a comment up
+    to CR or LF, wherever it falls, even inside a field."""
     token = b""
     while len(token) <= 10:
         c = data[pos:pos + 1]
@@ -112,6 +118,12 @@ def _pnm_token(data: bytes, pos: int):
         raise DecodeError("PNM: end of file inside the header")
     if len(token) > 10:
         raise DecodeError(f"PNM: header field too long: {token[:11]!r}")
+    return token, pos
+
+
+def _pnm_token(data: bytes, pos: int):
+    """The next header field as an integer (int() of it, as PIL reads it)."""
+    token, pos = _pnm_field(data, pos)
     try:
         return int(token), pos
     except ValueError as e:
@@ -211,7 +223,8 @@ def _pnm_plain_values(data: bytes, pos: int, count: int, maxval: int, out_max: i
 
 
 def decode_pnm(data: bytes) -> np.ndarray:
-    """(H, W, 3) uint8 pixels of a PBM, PGM or PPM file (P1-P6), as PIL's
+    """(H, W, 3) uint8 pixels of a PBM, PGM or PPM file (P1-P6) or of one
+    of PIL's own kinds (P0CMYK, Pf, PyP, PyRGBA, PyCMYK), as PIL's
     `convert("RGB")` of it."""
     data = bytes(data)
     magic, pos = b"", 0
@@ -222,12 +235,21 @@ def decode_pnm(data: bytes) -> np.ndarray:
             break
         magic += c
     if magic not in _PNM_MODES:
-        raise DecodeError(f"PNM kind {magic!r} is not supported (P1-P6 are)")
+        raise DecodeError(f"PNM kind {magic!r} is not one PIL reads (P1-P6, P0CMYK, Pf, PyP, "
+                          "PyRGBA, PyCMYK are)")
     mode = _PNM_MODES[magic]
     width, pos = _pnm_token(data, pos)
     height, pos = _pnm_token(data, pos)
     maxval = 1
-    if mode != "1":
+    if mode == "F":
+        token, pos = _pnm_field(data, pos)
+        try:
+            scale = float(token)
+        except ValueError as e:
+            raise DecodeError(f"PNM: scale {token!r} is not a number") from e
+        if scale == 0.0 or not np.isfinite(scale):
+            raise DecodeError("PNM: scale must be finite and non-zero")
+    elif mode != "1":
         maxval, pos = _pnm_token(data, pos)
         if not 0 < maxval < 65536:
             raise DecodeError(f"PNM: maxval {maxval} outside 1-65535")
@@ -236,10 +258,15 @@ def decode_pnm(data: bytes) -> np.ndarray:
     if width <= 0 or height <= 0:
         raise DecodeError(f"PNM: empty image {width}x{height}")
     _check_size(width, height)
-    bands = 3 if mode == "RGB" else 1
+    if mode == "F":  # float32 rows, bottom first, little-endian where the scale is negative
+        rows = _rows(data, pos, height, 4 * width, 4 * width, True)
+        dtype = "<f4" if scale < 0 else ">f4"
+        return to_rgb("F", np.ascontiguousarray(rows).view(dtype).reshape(height, width))
+    bands = _PNM_BANDS.get(mode, 1)
     count = width * height * bands
-    shape = (height, width, 3) if bands == 3 else (height, width)
+    shape = (height, width, bands) if bands > 1 else (height, width)
     out_max = 65535 if mode == "I" else 255
+    black = palette256([]) if mode == "P" else None  # PIL gives PyP no palette
     if magic == b"P1":
         return to_rgb("1", _pnm_plain_bits(data, pos, count).reshape(shape) * np.uint8(255))
     if magic in (b"P2", b"P3"):
@@ -248,13 +275,14 @@ def decode_pnm(data: bytes) -> np.ndarray:
         rows = _rows(data, pos, height, -(-width // 8), -(-width // 8), False)
         return to_rgb("1", (1 - unpack_bits(rows, 1, width)) * np.uint8(255))
     if maxval == 255:
-        return to_rgb(mode, _rows(data, pos, 1, count, count, False).reshape(shape))
+        return to_rgb(mode, _rows(data, pos, 1, count, count, False).reshape(shape), black)
     size = 1 if maxval < 256 else 2
     raw = _rows(data, pos, 1, count * size, count * size, False)[0]
     v = raw.astype(np.int64) if size == 1 else raw.view(">u2").astype(np.int64)
     if maxval == 65535 and mode == "I":  # PIL reads these raw (I;16B)
         return to_rgb(mode, v.reshape(shape))
-    return to_rgb(mode, np.minimum(out_max, np.round(v / maxval * out_max)).reshape(shape))
+    return to_rgb(mode, np.minimum(out_max, np.round(v / maxval * out_max)).astype(
+        np.int64).reshape(shape), black)
 
 
 # ---------------------------------------------------------------------------

@@ -11,47 +11,72 @@ TiffImagePlugin's OPEN_INFO table and converted (utils/pil_modes), and an
 orientation tag is applied as PIL's load does (ImageOps.exif_transpose).
 
   compression  none (1), LZW (5, libtiff's "new" codes: MSB first, the width
-               growing a code early), Deflate (8 and 32946), PackBits
-               (32773); predictor 2 (horizontal differencing, 8 and 16 bits);
-               JPEG (7: each strip's or tile's stream by utils/image_decode,
-               with the JPEGTables tag's tables, YCbCr converted to RGB by
-               libjpeg as PIL asks; libtiff's checks of each stream's
-               components, sampling and size) and old-style JPEG (6: the
-               JPEGInterchangeFormat stream in one strip, or the tables in
-               tags 519-521 in any number of strips; libjpeg's raw planes,
-               then libtiff's YCbCr to RGB with chroma repeated)
-  layout       strips and tiles, chunky and planar (PlanarConfiguration 2)
-  photometric  bilevel and grey (0, 1) at 1, 2, 4, 8 and 16 bits, palette
-               (3) at 1, 2, 4 and 8, RGB (2) and CMYK (5) at 8 and 16, with
-               their extra samples (alpha, premultiplied alpha, unspecified);
-               YCbCr (6) under JPEG
+               growing a code early; and the old-style codes, LSB first, the
+               width growing a code later, where the first strip starts as
+               they do), Deflate (8 and 32946), PackBits (32773), LZMA
+               (34925, an xz stream), ZSTD (50000, utils/zstd_decode);
+               predictor 2 (horizontal differencing, 8, 16 and 32 bits) and
+               3 (libtiff's floating-point byte planes); the CCITT
+               compressions RLE (2), Group 3 (3, 1D and 2D by T4Options) and
+               Group 4 (4), as libtiff's fax decoders read them
+               (utils/ccitt_decode); JPEG (7: each strip's or tile's stream
+               by utils/image_decode, with the JPEGTables tag's tables, YCbCr
+               converted to RGB by libjpeg as PIL asks; libtiff's checks of
+               each stream's components, sampling and size) and old-style
+               JPEG (6: the JPEGInterchangeFormat stream in one strip, or the
+               tables in tags 519-521 in any number of strips; libjpeg's raw
+               planes, then libtiff's YCbCr to RGB with chroma repeated)
+  layout       strips and tiles, chunky and planar (PlanarConfiguration 2);
+               BigTIFF (little-endian: PIL takes a big-endian BigTIFF header
+               for a classic one, and fails)
+  photometric  bilevel and grey (0, 1) at 1, 2, 4, 8 and 16 bits and 32-bit
+               floats (sample format 3; compressed big-endian floats come from
+               libtiff in the host's order, which PIL reads as big-endian
+               again), palette (3) at 1, 2, 4 and 8 (planar: one plane), RGB
+               (2) and CMYK (5) at 8 and 16, with their extra samples (alpha,
+               premultiplied alpha, unspecified; compressed planar RGBA
+               without ExtraSamples is libtiff's associated alpha), CIELab
+               (8, PIL's LAB); YCbCr (6) under JPEG, uncompressed as PIL's raw
+               mode RGBX reads it (4 bytes a pixel, unconverted), and under
+               the other compressions through libtiff's RGBA reader
+               (YCbCrSubsampling blocks, 2x2 by default, then libtiff's YCbCr
+               to RGB)
 
-Anything else (CCITT, LZMA, ZSTD, WebP, old-style LZW, YCbCr under another
-compression or planar, CIELab, floating point, BigTIFF, an old-style JPEG
-interchange format in several strips or with other YCbCr coefficients or
-reference values than the defaults) raises DecodeError naming it, as does
-corrupt or truncated data; nothing returns a partial image.
+Anything else (ThunderScan, CCITT RLEW, SGILog, WebP, YCbCr planar under a
+compression, 4x4 YCbCr where libtiff's reader misreads its own layout, a
+planar palette beside an extra plane, an old-style JPEG interchange format
+in several strips or with other YCbCr coefficients or reference values
+than the defaults) raises DecodeError naming it, as does corrupt or
+truncated data; so does a CCITT or subsampled-YCbCr strip whose data ends
+before its rows, where libtiff leaves the rest of its buffer as it was and
+PIL shows that memory. Nothing returns a partial image.
 """
 
 from __future__ import annotations
 
+import lzma
 import struct
 import zlib
 
 import numpy as np
 
+from .ccitt_decode import decode_ccitt
 from .image import _segment
 from .image_decode import (MAX_PIXELS, DecodeError, Tables, _check_size, decode_jpeg_planes,
                            decode_jpeg_samples, read_frame, read_tables)
 from .pil_modes import cmyk_to_rgb, palette256, scale_bits, to_rgb, unpack_bits
+from . import zstd_decode
 
 # TiffImagePlugin.COMPRESSION_INFO: the ones decoded here, and the others' names
-_COMPRESSIONS = {1: "none", 5: "LZW", 6: "old-style JPEG", 7: "JPEG", 8: "Deflate",
-                 32946: "Deflate", 32773: "PackBits"}
-_OTHER_COMPRESSIONS = {2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4",
-                       32771: "RAW_16", 32809: "ThunderScan",
-                       34676: "SGILog", 34677: "SGILog24", 34925: "LZMA", 50000: "ZSTD",
-                       50001: "WebP"}
+_COMPRESSIONS = {1: "none", 2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4", 5: "LZW",
+                 6: "old-style JPEG", 7: "JPEG", 8: "Deflate", 32946: "Deflate",
+                 32773: "PackBits", 34925: "LZMA", 50000: "ZSTD"}
+_OTHER_COMPRESSIONS = {32771: "CCITT RLEW", 32809: "ThunderScan", 34676: "SGILog",
+                       34677: "SGILog24", 50001: "WebP"}
+_CCITT = (2, 3, 4)
+_TIFF_HEADS = (b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00", b"II\x00\x2a", b"MM\x00\x2b",
+               b"II\x2b\x00")
+_T4_OPTIONS = 292
 # tag -> (id, read as one value)
 _WIDTH, _LENGTH, _BITS, _COMPRESSION, _PHOTOMETRIC = 256, 257, 258, 259, 262
 _FILL_ORDER, _STRIP_OFFSETS, _ORIENTATION, _SAMPLES, _ROWS_PER_STRIP = 266, 273, 274, 277, 278
@@ -105,6 +130,10 @@ for _b in (1, 2, 4, 8):
     _MODES[(3, (1,), (_b,), ())] = ("P", "")
 _MODES[(3, (1,), (8, 8), (0,))] = ("P", "")
 _MODES[(3, (1,), (8, 8), (2,))] = ("PA", "")
+for _photo in (0, 1):  # F;32F and F;32BF
+    _MODES[(_photo, (3,), (32,), ())] = ("F", "")
+_MODES[(8, (1,), (8, 8, 8), ())] = ("LAB", "")
+_MODES[(6, (1,), (8, 8, 8), ())] = ("RGB", "ycc")  # under other compressions than JPEG
 # the keys OPEN_INFO also holds at fill order 2 (PIL's ";R" raw modes; 16 bits
 # only little-endian); a file of another key at fill order 2 fails to open
 _REVERSED = {(p, (1,), (b,), ()) for p in (0, 1) for b in (1, 2, 4, 8)} | {
@@ -115,28 +144,33 @@ _PHOTO_NAMES = {0: "min-is-white", 1: "min-is-black", 2: "RGB", 3: "palette", 5:
                 6: "YCbCr", 8: "CIELab"}
 
 
-def _ifd(data: bytes, pos: int, endian: str) -> dict:
+def _ifd(data: bytes, pos: int, endian: str, big: bool = False) -> dict:
     """The first IFD's fields: tag -> tuple of values (integers; other
     types as raw bytes). As PIL's ImageFileDirectory_v2.load, a field of a
     type it does not know is skipped, and a truncated directory ends the
-    reading (keeping the fields read)."""
-    if pos + 2 > len(data):
+    reading (keeping the fields read). BigTIFF (`big`): an 8-byte count,
+    20-byte entries, values of up to 8 bytes in the entry, 8-byte
+    offsets."""
+    count_fmt, entry_fmt, inline, at_fmt = ("Q", "HHQ8s", 8, "Q") if big else ("H", "HHL4s", 4,
+                                                                                "L")
+    entry = struct.calcsize("<" + entry_fmt)
+    if pos + struct.calcsize(count_fmt) > len(data):
         raise DecodeError("TIFF: truncated file: no image directory")
-    (count,) = struct.unpack_from(endian + "H", data, pos)
-    tags, pos = {}, pos + 2
+    (count,) = struct.unpack_from(endian + count_fmt, data, pos)
+    tags, pos = {}, pos + struct.calcsize(count_fmt)
     for _ in range(count):
-        if pos + 12 > len(data):
+        if pos + entry > len(data):
             break
-        tag, kind, n, value = struct.unpack_from(endian + "HHL4s", data, pos)
-        pos += 12
+        tag, kind, n, value = struct.unpack_from(endian + entry_fmt, data, pos)
+        pos += entry
         if kind in _TYPES:
             code, size = _TYPES[kind]
         elif kind in _TYPE_SIZES:
             code, size = None, _TYPE_SIZES[kind]
         else:
             continue
-        if n * size > 4:
-            (at,) = struct.unpack(endian + "L", value)
+        if n * size > inline:
+            (at,) = struct.unpack(endian + at_fmt, value)
             if at + n * size > len(data):
                 break
             raw = data[at:at + n * size]
@@ -161,6 +195,7 @@ def _get(tags: dict, tag: int, default=None):
     return v
 
 
+_DTYPES = {1: np.uint8, 2: np.uint8, 4: np.uint8, 8: np.uint8, 16: np.uint16, 32: np.uint32}
 _BIT_REVERSED = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
 
 
@@ -176,8 +211,6 @@ def _lzw(src: bytes, size: int) -> bytes:
     """libtiff's LZWDecode (new-style codes): MSB first, 9 to 12 bits, the
     width growing when the next entry is 511, 1023 or 2047; 256 clears, 257
     ends. Decodes `size` bytes; fewer is an error."""
-    if len(src) >= 2 and src[0] == 0 and src[1] & 1:
-        raise DecodeError("TIFF: old-style LZW codes are not supported")
     nbits = 8 * len(src)
     buf = np.frombuffer(bytes(src) + bytes(4), np.uint8).astype(np.uint32)
     words = ((buf[:-3] << 16) | (buf[1:-2] << 8) | buf[2:-1]).tolist()  # 24 bits at each byte
@@ -213,6 +246,73 @@ def _lzw(src: bytes, size: int) -> bytes:
     return bytes(out[:size])
 
 
+def _old_lzw(src: bytes) -> bool:
+    """libtiff's test for old-style (bit-reversed) LZW codes."""
+    return len(src) >= 2 and src[0] == 0 and bool(src[1] & 1)
+
+
+def _lzw_compat(src: bytes, size: int) -> bytes:
+    """libtiff's LZWDecodeCompat (old-style codes): LSB first, 9 to 12 bits,
+    the width growing when the next entry is 512, 1024 or 2048; a code
+    before the first clear, or one past the table, is an error; the data's
+    end is an end code. Decodes `size` bytes; fewer is an error."""
+    nbits_total = 8 * len(src)
+    buf = np.frombuffer(bytes(src) + bytes(4), np.uint8).astype(np.uint32)
+    words = (buf[:-3] | (buf[1:-2] << 8) | (buf[2:-1] << 16)).tolist()  # 24 bits at each byte
+    table = [bytes([i]) for i in range(256)] + [b"", b""]
+    out, p, width, prev = bytearray(), 0, 9, None
+    while len(out) < size:
+        if nbits_total - p < width:
+            break
+        code = (words[p >> 3] >> (p & 7)) & ((1 << width) - 1)
+        p += width
+        if code == 257:
+            break
+        if code == 256:
+            while code == 256:
+                table, width = table[:258], 9
+                if nbits_total - p < width:
+                    code = 257
+                    break
+                code = (words[p >> 3] >> (p & 7)) & ((1 << width) - 1)
+                p += width
+            if code == 257:
+                break
+            if code > 256:
+                raise DecodeError("TIFF: corrupted LZW table (old-style codes)")
+            out.append(code)
+            prev = table[code]
+            continue
+        if prev is None or len(table) >= 5119:
+            raise DecodeError("TIFF: corrupted LZW table (old-style codes)")
+        if code < len(table):
+            entry = table[code]
+            table.append(prev + entry[:1])
+        elif code == len(table):
+            entry = prev + prev[:1]
+            table.append(entry)
+        else:
+            raise DecodeError("TIFF: corrupt old-style LZW data (a code past the table)")
+        if len(table) > (1 << width) - 1 and width < 12:
+            width += 1
+        out += entry
+        prev = entry
+    if len(out) < size:
+        raise DecodeError("TIFF: not enough LZW data for a strip")
+    return bytes(out[:size])
+
+
+def _lzma(src: bytes, size: int) -> bytes:
+    """libtiff's LZMA codec: an xz stream, `size` bytes of it."""
+    try:
+        out = lzma.LZMADecompressor(format=lzma.FORMAT_XZ).decompress(src, size)
+    except lzma.LZMAError as e:
+        raise DecodeError(f"TIFF: corrupt LZMA data: {e}") from e
+    if len(out) < size:
+        raise DecodeError("TIFF: not enough LZMA data for a strip")
+    return out
+
+
 def _packbits(src: bytes, size: int) -> bytes:
     """libtiff's PackBitsDecode: a header n < 128 copies n + 1 bytes, n > 128
     repeats the next byte 257 - n times, 128 is nothing."""
@@ -244,16 +344,28 @@ def _deflate(src: bytes, size: int) -> bytes:
     return out
 
 
-_CODECS = {5: _lzw, 8: _deflate, 32946: _deflate, 32773: _packbits}
+_CODECS = {5: _lzw, 8: _deflate, 32946: _deflate, 32773: _packbits, 34925: _lzma,
+           50000: zstd_decode.decompress}
 
 
 def _undo_predictor(block: np.ndarray, bits: int, spp: int, endian: str) -> np.ndarray:
     """Horizontal differencing undone on (rows, rowbytes) uint8: a running
     sum along each row, one per sample of a pixel, modulo the sample's
     range, as libtiff does on samples in the file's byte order."""
-    dtype = np.uint8 if bits == 8 else np.dtype(endian + "u2")
+    dtype = np.uint8 if bits == 8 else np.dtype(endian + ("u2" if bits == 16 else "u4"))
     s = block.view(dtype).reshape(block.shape[0], -1, spp)
     return np.cumsum(s, 1, dtype=dtype).astype(dtype).view(np.uint8).reshape(block.shape)
+
+
+def _undo_float_predictor(block: np.ndarray, spp: int, endian: str) -> np.ndarray:
+    """libtiff's fpAcc (predictor 3) on (rows, rowbytes) uint8 rows of
+    32-bit floats: a running byte sum along each row, one per sample of a
+    pixel, then each row's four byte planes (most significant first) put
+    back together; returned in the file's byte order."""
+    rows, n = block.shape
+    acc = np.cumsum(block.reshape(rows, -1, spp), 1, dtype=np.uint8).reshape(rows, 4, n // 4)
+    out = acc.transpose(0, 2, 1)  # big-endian bytes of each sample
+    return np.ascontiguousarray(out if endian == ">" else out[..., ::-1]).reshape(rows, n)
 
 
 # ---------------------------------------------------------------------------
@@ -263,12 +375,14 @@ def decode_tiff(data: bytes) -> np.ndarray:
     `convert("RGB")` of it."""
     data = bytes(data)
     head = data[:4]
-    if head in (b"MM\x00\x2b", b"II\x2b\x00"):
-        raise DecodeError("BigTIFF is not supported")
-    if head not in (b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00", b"II\x00\x2a") or len(data) < 8:
-        raise DecodeError("not a TIFF file")
+    # PIL takes a file for BigTIFF by its third byte, so a big-endian
+    # BigTIFF header (MM 0 43) is read as a classic one, as here
+    big = head == b"II\x2b\x00"
+    if head not in _TIFF_HEADS or len(data) < (16 if big else 8):
+        raise DecodeError("not a TIFF file" + (" (a truncated BigTIFF header)" if big else ""))
     endian = "<" if head[:2] == b"II" else ">"
-    tags = _ifd(data, struct.unpack_from(endian + "L", data, 4)[0], endian)
+    first = struct.unpack_from(endian + ("Q" if big else "L"), data, 8 if big else 4)[0]
+    tags = _ifd(data, first, endian, big)
     if 0xBC01 in tags:
         raise DecodeError("TIFF: Windows Media Photo data is not supported")
     comp = _get(tags, _COMPRESSION, 1)
@@ -307,20 +421,30 @@ def decode_tiff(data: bytes) -> np.ndarray:
         comp == 1 and (mode == "P" and bits[0] < 8 or photo == 0 and bits == (8,))))
     if endian == ">" and bits == (16,) and (photo == 0 or fill == 2):
         known = False  # OPEN_INFO holds these little-endian only
+    if how == "ycc" and comp != 1 and planar == 2:
+        known = False  # libtiff's RGBA reading has no planar YCbCr of PIL's
     if known and planar == 2 and len(bits) > 1:
         # the planar files PIL reads as stored: uncompressed, R, G, B, A and
         # C, M, Y, K planes (8-bit unpackers, whatever the depth); compressed,
         # a plane a band of the mode, or unused planes too in tiles
         if comp == 1:
             known = mode in ("RGB", "RGBA", "CMYK") and how != "pre" and len(bits) == len(mode)
+            how = "" if how == "ycc" else how  # the planes read as R, G and B
         else:
-            known = mode not in ("P", "PA") and not (mode == "RGBA" and extra == ()) and (
-                len(bits) == len(mode) or _TILE_OFFSETS in tags)
+            # (PIL unpacks a palette plane beside an extra one two bytes a
+            # pixel)
+            known = mode not in ("P", "PA", "LAB") and (len(bits) == len(mode) or
+                                                       _TILE_OFFSETS in tags)
+            if mode == "RGBA" and extra == ():  # libtiff's: an associated alpha
+                how = "pre"
     if not known:
         raise DecodeError(f"TIFF: {'planar ' if planar == 2 else ''}"
                           f"{_PHOTO_NAMES.get(photo, photo)} at {bits} bits (sample format "
                           f"{fmt}, extra samples {extra}, fill order {fill}, compression "
                           f"{_COMPRESSIONS[comp]}) is not supported")
+    if comp in _CCITT and bits != (1,):
+        raise DecodeError(f"TIFF: {_COMPRESSIONS[comp]} of {bits}-bit samples (libtiff reads "
+                          "1 bit)")
     if width <= 0 or height <= 0:
         raise DecodeError(f"TIFF: empty image {width}x{height}")
     _check_size(width, height)
@@ -334,11 +458,16 @@ def decode_tiff(data: bytes) -> np.ndarray:
         third = len(cmap) // 3
         palette = palette256(np.stack([cmap[:third], cmap[third:2 * third],
                                        cmap[2 * third:3 * third]], 1) if third else [])
-    if comp == 1:
+    if comp == 1 and how == "ycc":  # PIL's raw mode RGBX: 4 bytes a pixel
+        samples = _raw_samples(data, tags, width, height, (8,) * 4, photo, extra, planar,
+                               endian, fill, line_bits=24)
+    elif comp == 1:
         samples = _raw_samples(data, tags, width, height, bits, photo, extra, planar, endian,
                                fill)
         if planar == 2:
             bps = 8
+    elif how == "ycc":
+        samples = _ycbcr_rgba(data, tags, comp, width, height, endian, fill)
     elif comp == 7:
         samples = _jpeg_samples(data, tags, photo, width, height, bps, nbands, planar)
     elif comp == 6:
@@ -346,8 +475,8 @@ def decode_tiff(data: bytes) -> np.ndarray:
     else:
         samples = _libtiff_samples(data, tags, comp, width, height, bps, nbands, planar,
                                    endian, fill)
-        if how == "signed" and endian == ">":  # PIL reads libtiff's native order as I;16BS
-            samples = samples.byteswap()
+        if how == "signed" and endian == ">" or mode == "F" and endian == ">":
+            samples = samples.byteswap()  # PIL reads libtiff's native order as I;16BS, F;32BF
     rgb = _to_rgb(samples, mode, how, bps, palette)
     return _orient(rgb, _get(tags, _ORIENTATION, 1))
 
@@ -370,18 +499,23 @@ def _layout(tags, width: int, height: int):
 def _unpack(rows: np.ndarray, width: int, bps: int, nbands: int, endian: str) -> np.ndarray:
     """(h, rowbytes) uint8 rows -> (h, width, nbands) sample values."""
     h = rows.shape[0]
-    if bps == 16:
-        return rows[:, :2 * width * nbands].copy().view(endian + "u2").reshape(h, width, nbands)
+    if bps in (16, 32):
+        k = bps // 8
+        return rows[:, :k * width * nbands].copy().view(endian + f"u{k}").reshape(
+            h, width, nbands)
     if bps == 8:
         return rows[:, :width * nbands].reshape(h, width, nbands)
     return unpack_bits(rows, bps, width * nbands).reshape(h, width, nbands)
 
 
-def _raw_samples(data, tags, width, height, bits, photo, extra, planar, endian, fill):
+def _raw_samples(data, tags, width, height, bits, photo, extra, planar, endian, fill,
+                 line_bits=None):
     """PIL's own path for an uncompressed file: one raw tile a strip or
     tile at its offset, placed left to right and top to bottom (then the
     next band, planar: 8-bit samples, whatever the depth), the image's zeros
-    where no tile reaches, the predictor not undone."""
+    where no tile reaches, the predictor not undone. `line_bits`: the
+    pixel's bits PIL's stride of a tile past the right edge counts, where
+    its raw mode reads other than the file's samples."""
     offsets, _, tw, th = _layout(tags, width, height)
     nbands = len(bits)
     bps, per = (8, 1) if planar == 2 else (bits[0], nbands)
@@ -390,8 +524,8 @@ def _raw_samples(data, tags, width, height, bits, photo, extra, planar, endian, 
     # a tile past the right edge: PIL's row stride, a plane's share of the
     # pixel's bits (counting the bands the photometric names, plus extras)
     bands = {2: 3, 5: 4}.get(photo, 1) + len(extra)
-    partial = int(tw * sum(bits) / 8 / (bands if planar == 2 else 1))
-    out = np.zeros((height, width, nbands), np.uint16 if bps == 16 else np.uint8)
+    partial = int(tw * (line_bits or sum(bits)) / 8 / (bands if planar == 2 else 1))
+    out = np.zeros((height, width, nbands), _DTYPES[bps])
     x = y = layer = 0
     for off in offsets:
         x1, y1 = min(x + tw, width), min(y + th, height)
@@ -425,9 +559,12 @@ def _libtiff_samples(data, tags, comp, width, height, bps, nbands, planar, endia
     offsets, counts, tw, th = _layout(tags, width, height)
     if counts is None or len(counts) < len(offsets):
         raise DecodeError("TIFF: missing strip or tile byte counts")
-    # libtiff's LZW and Deflate codecs undo a predictor; PackBits leaves it
-    predictor = _get(tags, _PREDICTOR, 1) if comp != 32773 else 1
-    if predictor not in (1, 2) or predictor == 2 and bps not in (8, 16):
+    # libtiff's LZW, Deflate and LZMA codecs undo a predictor; the others
+    # leave it
+    predictor = _get(tags, _PREDICTOR, 1) if comp in (5, 8, 32946, 34925, 50000) else 1
+    floats = _get(tags, _SAMPLE_FORMAT, (1,))[0] == 3
+    if predictor not in (1, 2, 3) or predictor == 2 and bps not in (8, 16, 32) or (
+            predictor == 3 and not (floats and bps == 32)):
         raise DecodeError(f"TIFF: predictor {predictor} at {bps} bits is not supported")
     tiled = _TILE_OFFSETS in tags and _STRIP_OFFSETS not in tags
     per = 1 if planar == 2 else nbands
@@ -436,8 +573,17 @@ def _libtiff_samples(data, tags, comp, width, height, bps, nbands, planar, endia
     if len(offsets) < across * down * planes:
         raise DecodeError("TIFF: fewer strips or tiles than the image needs")
     row_bytes = (tw * bps * per + 7) // 8
-    out = np.zeros((height, width, nbands), np.uint16 if bps == 16 else np.uint8)
-    codec = _CODECS[comp]
+    out = np.zeros((height, width, nbands), _DTYPES[bps])
+    if comp in _CCITT:
+        options = _get(tags, _T4_OPTIONS, (0,))[0] if comp == 3 else 0
+
+        def codec(src, size):
+            bitrows = decode_ccitt(src, comp, tw, size // row_bytes, options)
+            return np.packbits(bitrows, 1).tobytes()
+    elif comp == 5 and _old_lzw(data[offsets[0]:offsets[0] + counts[0]]):
+        codec = _lzw_compat  # libtiff keeps the first strip's kind of LZW for all
+    else:
+        codec = _CODECS[comp]
     k = 0
     for plane in range(planes):
         for ty in range(down):
@@ -451,6 +597,8 @@ def _libtiff_samples(data, tags, comp, width, height, bps, nbands, planar, endia
                 block = block.reshape(rows, row_bytes)
                 if predictor == 2:
                     block = _undo_predictor(block, bps, per, endian)
+                elif predictor == 3:
+                    block = _undo_float_predictor(block, per, endian)
                 s = _unpack(block, tw, bps, per, endian)
                 x0, y0 = tx * tw, ty * th
                 x1, y1 = min(x0 + tw, width), min(y0 + rows, height)
@@ -555,6 +703,60 @@ def _ycbcr_to_rgb(y, cb, cr) -> np.ndarray:
     rgb = np.stack([y + ((_D1 * cr + 32768) >> 16), y + ((_D4 * cb + 32768 + _D2 * cr) >> 16),
                     y + ((_D3 * cb + 32768) >> 16)], -1)
     return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+_SUBSAMPLINGS = {(1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4)}
+
+
+def _ycbcr_rgba(data, tags, comp, width, height, endian, fill):
+    """libtiff's TIFFRGBAImage on a YCbCr file under a compression other
+    than JPEG, as PIL reads one (chunky): each strip or tile decoded to
+    its rows of sampling blocks (YCbCrSubsampling, 2x2 by default: the
+    block's luma in raster order, then its Cb and Cr), every pixel of a
+    block given the block's chroma, then libtiff's YCbCr to RGB."""
+    for tag, default in _YCBCR_DEFAULTS.items():
+        raw = tags.get(tag)
+        if raw is not None:
+            v = np.frombuffer(raw, endian + "u4").reshape(-1, 2)
+            if not np.allclose(v[:, 0] / np.maximum(v[:, 1], 1), default[:len(v)]):
+                raise DecodeError(f"TIFF: YCbCr with tag {tag} other than the default "
+                                  f"{default} is not supported")
+    hs, vs = (tuple(_get(tags, _YCBCR_SUBSAMPLING, (2, 2))) + (2, 2))[:2]
+    if (hs, vs) not in _SUBSAMPLINGS:
+        raise DecodeError(f"TIFF: YCbCr subsampling {hs}x{vs} (libtiff cannot handle it)")
+    if _get(tags, _PREDICTOR, 1) != 1:
+        raise DecodeError("TIFF: a predictor on subsampled YCbCr is not supported")
+    offsets, counts, tw, th = _layout(tags, width, height)
+    if counts is None or len(counts) < len(offsets):
+        raise DecodeError("TIFF: missing strip or tile byte counts")
+    tiled = _TILE_OFFSETS in tags and _STRIP_OFFSETS not in tags
+    across, down = -(-width // tw), -(-height // th)
+    if len(offsets) < across * down:
+        raise DecodeError("TIFF: fewer strips or tiles than the image needs")
+    block = hs * vs + 2
+    wide = -(-tw // hs)
+    if (hs, vs) == (4, 4) and (width % tw if tiled else wide % 2):
+        # libtiff reads a strip short of its last block's chroma, or skips
+        # 10 bytes a block past a tile's right edge (its 4x4 reader's count)
+        raise DecodeError("TIFF: YCbCr 4x4 subsampling of an odd count of blocks a row, or "
+                          "tiles past the right edge, is not supported (libtiff misreads it)")
+    out = np.zeros((height, width, 3), np.uint8)
+    for k in range(across * down):
+        ty, tx = divmod(k, across)
+        rows = th if tiled else min(th, height - ty * th)
+        tall = -(-rows // vs)
+        src = data[offsets[k]:offsets[k] + counts[k]]
+        if fill == 2:
+            src = _reverse_bits(np.frombuffer(src, np.uint8)).tobytes()
+        b = np.frombuffer(_CODECS[comp](src, tall * wide * block), np.uint8)
+        b = b.reshape(tall, wide, block)
+        y = b[..., :hs * vs].reshape(tall, wide, vs, hs).transpose(0, 2, 1, 3).reshape(
+            tall * vs, wide * hs)
+        cb, cr = (np.repeat(np.repeat(b[..., i], vs, 0), hs, 1) for i in (-2, -1))
+        x0, y0 = tx * tw, ty * th
+        x1, y1 = min(x0 + tw, width), min(y0 + rows, height)
+        out[y0:y1, x0:x1] = _ycbcr_to_rgb(y, cb, cr)[:y1 - y0, :x1 - x0]
+    return out
 
 
 def _ojpeg_tables_stream(data, tags, width, height, nbands, strip) -> bytes:
@@ -674,6 +876,10 @@ def _to_rgb(s: np.ndarray, mode: str, how: str, bps: int, palette) -> np.ndarray
     if mode in ("I;16", "I"):
         v = s[..., 0].astype(np.int64)
         return to_rgb(mode, v - 65536 * (v >= 32768) if how == "signed" else v)
+    if mode == "F":
+        return to_rgb("F", s[..., 0].view(np.float32))
+    if mode == "LAB":
+        return to_rgb("LAB", s)
     if mode in ("P", "PA"):
         return to_rgb("P", s[..., 0], palette)
     v = s.astype(np.int64) >> 8 if bps == 16 else s.astype(np.int64)

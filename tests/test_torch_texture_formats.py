@@ -457,7 +457,10 @@ DECODERS = {"PPM": "decode_pnm", "BMP": "decode_bmp", "DIB": "decode_bmp", "TGA"
             "FTEX": "decode_ftex", "PSD": "decode_psd", "SGI": "decode_sgi", "PCX": "decode_pcx",
             "DCX": "decode_dcx", "SUN": "decode_sun", "QOI": "decode_qoi", "MSP": "decode_msp",
             "ICO": "decode_ico", "CUR": "decode_cur", "ICNS": "decode_icns", "XBM": "decode_xbm",
-            "XPM": "decode_xpm", "JPEG2000": "decode_j2k", "FITS": "decode_fits"}
+            "XPM": "decode_xpm", "JPEG2000": "decode_j2k", "FITS": "decode_fits",
+            "FLI": "decode_fli", "IM": "decode_im", "IMT": "decode_imt", "GBR": "decode_gbr",
+            "MCIDAS": "decode_mcidas", "PIXAR": "decode_pixar", "SPIDER": "decode_spider",
+            "XVThumb": "decode_xvthumb", "IPTC": "decode_iptc", "PCD": "decode_pcd"}
 
 
 @pytest.mark.parametrize("name", sorted(json.loads((FIXTURES / "pil_rgb.json").read_text())
@@ -568,9 +571,9 @@ def _refused():
                                           colormap=list(range(768))), "planar palette"),
         "tga_32_bit_map": (tga_file(4, 2, 1, 8, bytes(8), cmap=(0, [bytes(4)] * 2, 32)),
                             "colour map of 32 bits"),
-        "pnm_float": (b"Pf\n2 1\n-1.0\n" + bytes(8), "PNM kind b'Pf'"),
         "webp": (b"RIFF\x10\0\0\0WEBPVP8L" + bytes(8), "truncated WebP lossless data"),
         # once refused; now decoded (words None)
+        "pnm_float": (b"Pf\n2 1\n-1.0\n" + bytes(8), None),
         "cur": (CURSOR, None),
         "ico": (_save(pic.resize((16, 16)), "ICO"), None),
         # once refused; now decoded (words None): Huffman data read as
@@ -602,7 +605,7 @@ def test_refused_and_broken_files_raise_texture_error(tmp_path, kind, monkeypatc
     """Each raises TextureError naming the file and what went wrong, with
     PIL blocked, and leaves the atlas as it was. The kinds once refused that
     the port now decodes (words None: an arithmetic-coded JPEG, a cursor,
-    an icon) read to PIL's pixels."""
+    an icon, PIL's float PNM) read to PIL's pixels."""
     data, words = REFUSED[kind]
     path = tmp_path / "t.bin"
     path.write_bytes(data)
@@ -709,7 +712,10 @@ def test_chip_smoke_texture_scenes_on_cpu(tmp_path):
     cubes_bc7.dds (the squares as BC7) and with cubes_rle.sgi (the squares
     as RLE SGI), textured with blob_irrev.jp2 (that texture as an
     irreversible JP2) and cubes with cubes_lossless.j2k (the squares as a
-    lossless tiled J2K), through its fixture_texture."""
+    lossless tiled J2K), textured with blob_rgb.im (that texture as a
+    line-interleaved RGB IM, lossless) and cubes with cubes_g4.tif (256x256
+    bilevel squares in Group 4, the PPM scene's 32,768-row atlas), through
+    its fixture_texture."""
     from relativitypathtracer_tpu_torch.ops.kernels.texture_kernel import texture_route
 
     spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
@@ -721,7 +727,8 @@ def test_chip_smoke_texture_scenes_on_cpu(tmp_path):
                         ("textured", "blob_arith_prog.jpg"), ("cubes", "cubes_jpeg_tiles.tif"),
                         ("textured", "blob_bc1.dds"), ("cubes", "cubes_bc7.dds"),
                         ("textured", "blob_packbits.psd"), ("cubes", "cubes_rle.sgi"),
-                        ("textured", "blob_irrev.jp2"), ("cubes", "cubes_lossless.j2k")]
+                        ("textured", "blob_irrev.jp2"), ("cubes", "cubes_lossless.j2k"),
+                        ("textured", "blob_rgb.im"), ("cubes", "cubes_g4.tif")]
     for kind, name in fixtures:
         where = tmp_path / name
         scene_file = smoke.fixture_texture(write_demo_scene(str(where), 1, kind), name)
@@ -731,12 +738,13 @@ def test_chip_smoke_texture_scenes_on_cpu(tmp_path):
         route = texture_route(scene.tex_quads.shape[0])
         assert bytes(host.textures) == _pil((FIXTURES / name).read_bytes()).tobytes()
         if kind == "textured":
-            if name.endswith((".tga", ".psd")):
+            if name.endswith((".tga", ".psd", ".im")):
                 ppm = pt.load_scene_file(write_demo_scene(str(tmp_path / "ppm"), 1, kind))
                 assert bytes(host.textures) == bytes(ppm.textures) == demo_texture(32).tobytes()
             assert route == "small"
         else:
-            assert scene.tex_quads.shape[0] == 2048 and route == "windowed"
+            rows = 32768 if name == "cubes_g4.tif" else 2048
+            assert scene.tex_quads.shape[0] == rows and route == "windowed"
 
 
 def test_large_lzw_files_decode_equal_pil():

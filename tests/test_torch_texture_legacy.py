@@ -576,14 +576,14 @@ def test_pil_fails_on_the_broken_files(tmp_path, kind):
 
 @pytest.mark.parametrize("fmt,mode", [("IM", "RGB"), ("IM", "L"), ("SPIDER", "F")])
 def test_pil_formats_left_for_later_are_refused_by_name(fmt, mode, monkeypatch):
-    """Files PIL writes in formats the port does not decode yet raise
-    TextureError naming the format, with PIL blocked."""
+    """Files PIL writes in formats once left for later (IM, SPIDER) now
+    decode, with PIL blocked, to PIL's pixels (utils/im_decode,
+    utils/misc_raster)."""
     data = _save(Image.fromarray(_picture(8, 9, 7)).convert(mode), fmt)
     with Image.open(io.BytesIO(data)) as im:
         assert im.format == fmt
-    monkeypatch.setitem(sys.modules, "PIL", None)
-    with pytest.raises(ValueError, match=f"^{fmt}: a format PIL opens"):
-        decode_texture(data)
+    assert fmt not in texture._OTHER_FORMATS
+    _equal_to_pil(data)
 
 
 @pytest.mark.parametrize("name,first", [
@@ -594,17 +594,30 @@ def test_pil_formats_left_for_later_are_refused_by_name(fmt, mode, monkeypatch):
     ("GBR", struct.pack(">5I", 28, 2, 1, 1, 1) + b"GIMP" + bytes(20)),
     ("AVIF/HEIF", b"\0\0\0\x1cftypavif" + bytes(20))])
 def test_other_formats_are_named(name, first):
-    """Each format left for later is told by PIL's own checks and named;
-    a GIMP brush's header that fails GbrImageFile's checks is not one.
-    FITS and JPEG 2000 are decoded now: their stubs are broken files that
-    the port names by format and cause, and that PIL fails on too."""
-    with pytest.raises(ValueError, match=f"^{name}: "):
-        decode_texture(first)
-    if name in ("FITS", "JPEG 2000"):
-        assert name not in texture._OTHER_FORMATS
-        assert isinstance(_pil_outcome(first), Exception)
-    else:
+    """Each format once left for later is told by PIL's own checks. AVIF/HEIF
+    is still refused by name. The stubs of formats decoded now: FITS's,
+    JPEG 2000's, XVThumb's (no size line) and PCD's (no base image) are
+    broken files that the port names by format and cause and that PIL
+    fails on too; FLI/FLC's (a header short of 128 bytes), McIdas's (0
+    bytes a sample) and PIXAR's (mode (0, 0)) fail their plugin's own
+    checks, so PIL identifies no format and the port names none; GBR's is
+    a whole 1x1 brush, decoded as PIL decodes it."""
+    if name == "AVIF/HEIF":
+        with pytest.raises(ValueError, match=f"^{name}: "):
+            decode_texture(first)
         assert name in texture._OTHER_FORMATS
+        return
+    assert name not in texture._OTHER_FORMATS
+    if name == "GBR":
+        _equal_to_pil(first)
+    elif name in ("FLI/FLC", "McIdas", "PIXAR"):
+        with pytest.raises(ValueError, match="^unknown format"):
+            decode_texture(first)
+        assert isinstance(_pil_outcome(first), Image.UnidentifiedImageError)
+    else:
+        with pytest.raises(ValueError, match=f"^{name}: "):
+            decode_texture(first)
+        assert isinstance(_pil_outcome(first), Exception)
 
 
 def test_a_tga_is_never_taken_for_a_brush():

@@ -39,6 +39,7 @@ from __future__ import annotations
 import hashlib
 import io
 import json
+import lzma
 import pathlib
 import struct
 import sys
@@ -313,17 +314,19 @@ def packbits(data: bytes) -> bytes:
 
 
 TIFF_CODECS = {1: lambda b: b, 5: lzw_tiff, 8: zlib.compress, 32946: zlib.compress,
-               32773: packbits}
+               32773: packbits, 34925: lambda b: lzma.compress(b, format=lzma.FORMAT_XZ)}
 _REVERSE = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
 
 
 def tiff_file(samples: np.ndarray, bits: int, photo: int, comp: int = 1, planar: int = 1,
               tile=None, rows_per_strip=None, endian: str = "<", extra=(), colormap=None,
-              predictor: int = 1, fill: int = 1, sample_format=None, orientation=None) -> bytes:
+              predictor: int = 1, fill: int = 1, sample_format=None, orientation=None,
+              codec=None, big: bool = False) -> bytes:
     """A one-page TIFF of (h, w, n) sample values at `bits` bits: strips of
     rows_per_strip rows or tiles of tile=(w, h), chunky or planar, any of
-    TIFF_CODECS, horizontal differencing (predictor 2), fill order 2 (every
-    stored byte's bits reversed)."""
+    TIFF_CODECS (or `codec`, compressing each strip or tile), horizontal
+    differencing (predictor 2), fill order 2 (every stored byte's bits
+    reversed), BigTIFF (`big`)."""
     h, w, n = samples.shape
 
     def rows_bytes(block):
@@ -332,7 +335,7 @@ def tiff_file(samples: np.ndarray, bits: int, photo: int, comp: int = 1, planar:
         if predictor == 2:
             v = np.concatenate([v[:, :1], np.diff(v, axis=1)], 1) % (1 << bits)
         if bits >= 8:
-            return v.astype(endian + ("u2" if bits == 16 else "u1")).tobytes()
+            return v.astype(endian + f"u{bits // 8}").tobytes()
         bitsarr = (v.reshape(r, c * k)[..., None] >> np.arange(bits - 1, -1, -1)) & 1
         return b"".join(np.packbits(row.astype(np.uint8).ravel()).tobytes() for row in bitsarr)
 
@@ -350,7 +353,7 @@ def tiff_file(samples: np.ndarray, bits: int, photo: int, comp: int = 1, planar:
         else:
             for y in range(0, h, rows_per_strip or h):
                 chunks.append(rows_bytes(plane[y:y + (rows_per_strip or h)]))
-    stored = [TIFF_CODECS[comp](c) for c in chunks]
+    stored = [(codec or TIFF_CODECS[comp])(c) for c in chunks]
     if fill == 2:
         stored = [_REVERSE[np.frombuffer(c, np.uint8)].tobytes() for c in stored]
     tags = [(256, 4, [w]), (257, 4, [h]), (258, 3, [bits] * n), (259, 3, [comp]),
@@ -363,37 +366,143 @@ def tiff_file(samples: np.ndarray, bits: int, photo: int, comp: int = 1, planar:
             tags.append((tag, 3, list(values)))
     if orientation:
         tags.append((274, 3, [orientation]))
-    return tiff_from_chunks(stored, h, tags, tile, rows_per_strip, endian)
+    return tiff_from_chunks(stored, h, tags, tile, rows_per_strip, endian, big)
 
 
 def tiff_from_chunks(stored, height: int, tags, tile=None, rows_per_strip=None,
-                     endian: str = "<") -> bytes:
+                     endian: str = "<", big: bool = False) -> bytes:
     """A one-page TIFF of the stored strips (of rows_per_strip rows, the
     whole height if None) or tiles (tile=(w, h)) and the tags, each (tag,
-    type, values): 3 SHORT, 4 LONG, 7 UNDEFINED (values: bytes); the
-    layout tags are added."""
-    body, offsets = bytearray((b"II*\0" if endian == "<" else b"MM\0*") + bytes(4)), []
+    type, values): 3 SHORT, 4 LONG, 7 UNDEFINED (values: bytes), 16 LONG8;
+    the layout tags are added. BigTIFF (`big`): the 16-byte header, 8-byte
+    counts and offsets, 20-byte entries, the layout's offsets as LONG8."""
+    magic = (b"II+\0" if endian == "<" else b"MM\0+") if big else (
+        b"II*\0" if endian == "<" else b"MM\0*")
+    head = magic + (struct.pack(endian + "HHQ", 8, 0, 0) if big else bytes(4))
+    body, offsets = bytearray(head), []
     for c in stored:
         offsets.append(len(body))
         body += c + b"\0" * (len(c) % 2)
     counts = [len(c) for c in stored]
-    tags = list(tags) + ([(322, 3, [tile[0]]), (323, 3, [tile[1]]), (324, 4, offsets),
+    where = 16 if big else 4
+    tags = list(tags) + ([(322, 3, [tile[0]]), (323, 3, [tile[1]]), (324, where, offsets),
                           (325, 4, counts)] if tile else
-                         [(273, 4, offsets), (278, 4, [rows_per_strip or height]),
+                         [(273, where, offsets), (278, 4, [rows_per_strip or height]),
                           (279, 4, counts)])
+    inline, entry, count, at_fmt = (8, "HHQ", "Q", "Q") if big else (4, "HHL", "H", "L")
     entries = []
     for tag, kind, values in sorted(tags):
         raw = bytes(values) if kind == 7 else struct.pack(
-            endian + {3: "H", 4: "L"}[kind] * len(values), *values)
-        if len(raw) > 4:
+            endian + {3: "H", 4: "L", 16: "Q"}[kind] * len(values), *values)
+        if len(raw) > inline:
             at = len(body)
             body += raw + b"\0" * (len(raw) % 2)
-            raw = struct.pack(endian + "L", at)
-        entries.append(struct.pack(endian + "HHL", tag, kind, len(values)) + raw.ljust(4, b"\0"))
+            raw = struct.pack(endian + at_fmt, at)
+        entries.append(struct.pack(endian + entry, tag, kind, len(values))
+                       + raw.ljust(inline, b"\0"))
     at = len(body)
-    body += struct.pack(endian + "H", len(entries)) + b"".join(entries) + bytes(4)
-    body[4:8] = struct.pack(endian + "L", at)
+    body += struct.pack(endian + count, len(entries)) + b"".join(entries) + bytes(inline)
+    if big:
+        body[8:16] = struct.pack(endian + "Q", at)
+    else:
+        body[4:8] = struct.pack(endian + "L", at)
     return bytes(body)
+
+
+def lzw_tiff_old(data: bytes) -> bytes:
+    """Old-style (pre-TIFF 5.0 libtiff) LZW: codes LSB first, a clear
+    first, the width growing as the reader's table reaches 512, 1024 and
+    2048 entries, a clear before the table passes 4093."""
+    out, acc, nbits = bytearray(), 0, 0
+
+    def put(code, width):
+        nonlocal acc, nbits
+        acc |= code << nbits
+        nbits += width
+        while nbits >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            nbits -= 8
+
+    def width(emitted):  # the reader's width for the next code
+        size = 258 + max(emitted - 1, 0)
+        return 9 if size < 512 else 10 if size < 1024 else 11 if size < 2048 else 12
+
+    table, emitted, w = {bytes([i]): i for i in range(256)}, 0, b""
+    put(256, 9)
+    for c in data:
+        wc = w + bytes([c])
+        if wc in table:
+            w = wc
+            continue
+        put(table[w], width(emitted))
+        emitted += 1
+        table[wc] = 258 + len(table) - 256
+        w = bytes([c])
+        if 258 + emitted - 1 >= 4093:
+            put(256, width(emitted))
+            table, emitted = {bytes([i]): i for i in range(256)}, 0
+    if w:
+        put(table[w], width(emitted))
+        emitted += 1
+    put(257, width(emitted))
+    if nbits:
+        out.append(acc & 255)
+    return bytes(out)
+
+
+def ccitt_tiff(bits: np.ndarray, comp: int, Image, t4: int = 0, fill: int = 1, photo: int = 0,
+               rows_per_strip=None) -> bytes:
+    """A bilevel TIFF of (h, w) bits (1 black) in CCITT RLE (2), Group 3
+    (3, T4Options `t4`) or Group 4 (4), coded by libtiff through PIL, its
+    strips put into a file of this module's with fill order `fill` (2:
+    their bits reversed) and PhotometricInterpretation `photo`."""
+    h, w = bits.shape
+    ones = np.asarray(bits, bool) if photo == 0 else ~np.asarray(bits, bool)  # 1: a black run
+    info = {278: rows_per_strip or h} | ({292: t4} if comp == 3 else {})
+    buf = io.BytesIO()
+    Image.fromarray(ones).convert("1").save(
+        buf, "TIFF", compression={2: "tiff_ccitt", 3: "group3", 4: "group4"}[comp],
+        tiffinfo=info)
+    with Image.open(buf) as im:
+        data = buf.getvalue()
+        strips = [data[o:o + n] for o, n in zip(im.tag_v2[273], im.tag_v2[279])]
+    if fill == 2:
+        strips = [_REVERSE[np.frombuffer(c, np.uint8)].tobytes() for c in strips]
+    tags = [(256, 4, [w]), (257, 4, [h]), (258, 3, [1]), (259, 3, [comp]), (262, 3, [photo]),
+            (277, 3, [1])] + ([(266, 3, [2])] if fill == 2 else []) + (
+        [(292, 4, [t4])] if comp == 3 and t4 else [])
+    return tiff_from_chunks(strips, h, tags, rows_per_strip=rows_per_strip)
+
+
+def ycbcr_tiff(ycc: np.ndarray, sub=(2, 2), comp: int = 5, tile=None, rows_per_strip=None,
+               tag: bool = True) -> bytes:
+    """A YCbCr TIFF (photometric 6) of (h, w, 3) samples in libtiff's
+    subsampled layout: blocks of sub[0] x sub[1] luma in raster order,
+    then the block's Cb and Cr (its first pixel's), each strip or tile
+    padded to whole blocks; `tag` False leaves YCbCrSubsampling out (2x2
+    for a reader)."""
+    hs, vs = sub
+
+    def blocks(part, rows, cols):
+        pad = np.zeros((-(-rows // vs) * vs, -(-cols // hs) * hs, 3), np.uint8)
+        pad[:part.shape[0], :part.shape[1]] = part
+        bh, bw = pad.shape[0] // vs, pad.shape[1] // hs
+        y = pad[..., 0].reshape(bh, vs, bw, hs).transpose(0, 2, 1, 3).reshape(bh, bw, vs * hs)
+        return np.concatenate([y, pad[::vs, ::hs, 1:]], 2).tobytes()
+
+    h, w = ycc.shape[:2]
+    if tile:
+        tw, th = tile
+        chunks = [blocks(ycc[y:y + th, x:x + tw], th, tw) for y in range(0, h, th)
+                  for x in range(0, w, tw)]
+    else:
+        step = rows_per_strip or h
+        chunks = [blocks(ycc[y:y + step], min(step, h - y), w) for y in range(0, h, step)]
+    tags = [(256, 4, [w]), (257, 4, [h]), (258, 3, [8, 8, 8]), (259, 3, [comp]),
+            (262, 3, [6]), (277, 3, [3])] + ([(530, 3, list(sub))] if tag else [])
+    return tiff_from_chunks([TIFF_CODECS[comp](c) for c in chunks], h, tags, tile,
+                            rows_per_strip)
 
 
 # --- JPEG --------------------------------------------------------------------
@@ -2716,6 +2825,411 @@ def j2k_fixtures(rng, Image) -> dict:
     return files
 
 
+# ---------------------------------------------------------------------------
+# FLI/FLC, IM, IMT, GBR, McIdas, PIXAR, SPIDER, XVThumb, IPTC and PCD
+
+
+def fli_chunk(kind: int, body: bytes) -> bytes:
+    """An FLI sub-chunk: its size (header included), its type, its body."""
+    return struct.pack("<IH", 6 + len(body), kind) + body
+
+
+def fli_file(width: int, height: int, chunks, *, magic: int = 0xAF12, flags: int = 0,
+             frames: int = 1, prefix: bytes = b"", frame_size=None, tail: bytes = b"") -> bytes:
+    """An FLI (magic 0xAF11) or FLC (0xAF12) file of one frame whose
+    sub-chunks are `chunks` (bytes from fli_chunk), after an optional
+    prefix chunk (0xF100) of body `prefix`; `frame_size` overrides the
+    frame's size field."""
+    frame = b"".join(chunks)
+    size = 16 + len(frame) if frame_size is None else frame_size
+    body = struct.pack("<IHH8x", size, 0xF1FA, len(chunks)) + frame
+    if prefix:
+        body = struct.pack("<IH", 6 + len(prefix), 0xF100) + prefix + body
+    head = struct.pack("<IHHHHHHI", 128 + len(body), magic, frames, width, height, 8, flags, 70)
+    # reserved 20-22 zero; the creator fields (22-42) are not read; 42-80
+    # zero; the frame offsets (80-88) are not read; 88-128 zero
+    head += bytes(2) + b"created-updated-aspect"[:20] + bytes(38) + b"frm1frm2"
+    return head + bytes(128 - len(head)) + body + tail
+
+
+def fli_palette(colours, shift: int = 0, skip: int = 0) -> bytes:
+    """A COLOR_256 (shift 0) or COLOR_64 (shift 2) body: one packet of
+    `skip` entries skipped, then the colours (a count of 256 written 0)."""
+    c = np.asarray(colours, np.uint8).reshape(-1, 3) >> shift
+    return struct.pack("<HBB", 1, skip, len(c) & 255) + c.tobytes()
+
+
+def fli_brun(idx: np.ndarray) -> bytes:
+    """A BRUN body: per row a packet count, then runs of 3 or more equal
+    pixels (count, value) and literal copies (256 - count, pixels)."""
+    out = bytearray()
+    for row in np.asarray(idx, np.uint8):
+        packets, x, w = bytearray(), 0, len(row)
+        n = 0
+        while x < w:
+            run = 1
+            while x + run < w and run < 127 and row[x + run] == row[x]:
+                run += 1
+            if run >= 3:
+                packets += bytes([run, row[x]])
+                x += run
+            else:
+                lit = 1
+                while x + lit < w and lit < 127 and not (
+                        x + lit + 2 < w and row[x + lit] == row[x + lit + 1] == row[x + lit + 2]):
+                    lit += 1
+                packets += bytes([256 - lit]) + row[x:x + lit].tobytes()
+                x += lit
+            n += 1
+        out += bytes([n & 255]) + packets
+    return bytes(out)
+
+
+def fli_lc(idx: np.ndarray, first: int = 0) -> bytes:
+    """An LC body over a black image: lines from `first`, each one packet a
+    run of its zeros' skip then copies of at most 127 pixels or runs."""
+    rows = np.asarray(idx, np.uint8)[first:]
+    out = bytearray(struct.pack("<HH", first, len(rows)))
+    for row in rows:
+        nz = np.nonzero(row)[0]
+        x = int(nz[0]) if len(nz) else len(row)
+        packets, n, skip = bytearray(), 0, x
+        while x < len(row):
+            step = min(255, skip)
+            if step < skip:
+                packets += bytes([step, 0])  # a zero-length copy to skip further
+                skip -= step
+                n += 1
+                continue
+            if x + 3 <= len(row) and row[x] == row[x + 1] == row[x + 2]:
+                run = 3
+                while x + run < len(row) and run < 128 and row[x + run] == row[x]:
+                    run += 1
+                packets += bytes([skip, 256 - run, row[x]])
+            else:
+                run = min(127, len(row) - x)
+                packets += bytes([skip, run]) + row[x:x + run].tobytes()
+            x, skip, n = x + run, 0, n + 1
+        out += bytes([n]) + packets
+    return bytes(out)
+
+
+def fli_ss2(idx: np.ndarray, skip_first: int = 0) -> bytes:
+    """An SS2 body over a black image: `skip_first` lines skipped by a
+    0xC000 word, then each line as word copies (of at most 127 pairs), an
+    odd width's last pixel by a 0x8000 word."""
+    rows = np.asarray(idx, np.uint8)
+    w = rows.shape[1]
+    out = bytearray(struct.pack("<H", rows.shape[0] - skip_first))
+    for y in range(skip_first, rows.shape[0]):
+        row = rows[y]
+        words = bytearray()
+        if y == skip_first and skip_first:
+            words += struct.pack("<H", 65536 - skip_first)
+        if w % 2:
+            words += struct.pack("<H", 0x8000 | int(row[-1]))
+        packets, x, n = bytearray(), 0, 0
+        even = w - w % 2
+        while x < even:
+            pairs = min(127, (even - x) // 2)
+            if pairs >= 2 and (row[x:x + 2 * pairs].reshape(-1, 2) == row[x:x + 2]).all():
+                packets += bytes([0, 256 - pairs]) + row[x:x + 2].tobytes()
+            else:
+                packets += bytes([0, pairs]) + row[x:x + 2 * pairs].tobytes()
+            x, n = x + 2 * pairs, n + 1
+        out += words + struct.pack("<H", n) + packets
+    return bytes(out)
+
+
+def im_file(image_type: str, width: int, height: int, body: bytes, lut: bytes = None,
+            lines=(), pad: bool = True, newline: bytes = b"\r\n") -> bytes:
+    """An IM file: "Image type" and "Image size" lines (and `lines`), a
+    "Lut" line with `lut` after the header, the header padded with NULs to
+    511 bytes and a 0x1A (as PIL writes it; `pad` False: the 0x1A at once),
+    then `body`."""
+    head = [b"Image type: " + image_type.encode(), b"Name: fixture",
+            b"Image size (x*y): %d*%d" % (width, height)] + [x.encode() for x in lines]
+    if lut is not None:
+        head.append(b"Lut: 1")
+    text = b"".join(x + newline for x in head)
+    text += (bytes(511 - len(text)) if pad else b"") + b"\x1a"
+    return text + (lut or b"") + body
+
+
+def imt_file(width: int, height: int, body: bytes, comments=()) -> bytes:
+    """An IM Tools file: comment lines, width, height and pixel n8, a form
+    feed, then the rows."""
+    head = b"".join(b"*" + c.encode() + b"\n" for c in comments)
+    return head + b"width %d\nheight %d\npixel n8\n\x0c" % (width, height) + body
+
+
+def gbr_file(pixels: np.ndarray, version: int = 2, comment: bytes = b"brush\0") -> bytes:
+    """A GIMP brush of (h, w) grey or (h, w, 4) RGBA pixels."""
+    h, w = pixels.shape[:2]
+    depth = 1 if pixels.ndim == 2 else 4
+    extra = b"GIMP" + struct.pack(">I", 25) if version == 2 else b""
+    size = 20 + len(extra) + len(comment)
+    return (struct.pack(">5I", size, version, w, h, depth) + extra + comment
+            + np.ascontiguousarray(pixels, np.uint8).tobytes())
+
+
+def mcidas_file(samples: np.ndarray, prefix: int = 0, bands: int = 1, offset: int = 256) -> bytes:
+    """A McIdas area file of (h, w) samples (uint8, >u2 or >i4), each row
+    after `prefix` bytes of line prefix, rows `bands` samples wide apart."""
+    h, w = samples.shape
+    size = samples.dtype.itemsize
+    words = [0] * 64
+    words[1] = 4  # the directory's word 2: the area format
+    words[8], words[9], words[10], words[13], words[14], words[33] = h, w, size, bands, prefix, \
+        offset
+    stride = prefix + w * size * bands
+    body = bytearray(stride * h)
+    raw = np.ascontiguousarray(samples).view(np.uint8).reshape(h, w * size)
+    for y in range(h):
+        body[y * stride + prefix:y * stride + prefix + w * size] = raw[y].tobytes()
+    head = struct.pack(">64i", *words)
+    return head + bytes(offset - len(head)) + bytes(body)
+
+
+def pixar_file(rgb: np.ndarray, mode=(14, 2)) -> bytes:
+    """A PIXAR file of (h, w, 3) pixels (raw RGB at 1024)."""
+    h, w = rgb.shape[:2]
+    head = bytearray(1024)
+    head[:4] = b"\x80\xe8\0\0"
+    struct.pack_into("<6H", head, 416, h, w, 0, 0, *mode)
+    return bytes(head) + np.ascontiguousarray(rgb, np.uint8).tobytes()
+
+
+def spider_file(samples: np.ndarray, order: str = "<", stack: int = 0) -> bytes:
+    """A SPIDER image of (h, w) float32 samples in byte order `order`; with
+    `stack`, a stack header of that many images, then the first image's own
+    header and samples."""
+    h, w = samples.shape
+    lenbyt = w * 4
+    labrec = -(-1024 // lenbyt)
+    labbyt = labrec * lenbyt
+    hdr = np.zeros(labbyt // 4, np.float64)
+    hdr[[0, 1, 2, 4, 11, 12, 21, 22]] = [1, h, h, 1, w, labrec, labbyt, lenbyt]
+    image = hdr.astype(order + "f4").tobytes() + np.asarray(samples, order + "f4").tobytes()
+    if not stack:
+        return image
+    top = hdr.copy()
+    top[[23, 25]] = [2, stack]  # istack, maxim
+    return top.astype(order + "f4").tobytes() + image
+
+
+def xv_file(idx: np.ndarray, comments=(b"#XVVERSION:Version 2.28",)) -> bytes:
+    """An XV thumbnail of (h, w) 3-3-2 indices."""
+    h, w = idx.shape
+    return (b"P7 332\n" + b"".join(c + b"\n" for c in comments) + b"#END_OF_COMMENTS\n"
+            + b"%d %d 255\n" % (w, h) + np.ascontiguousarray(idx, np.uint8).tobytes())
+
+
+def iptc_field(record: int, dataset: int, value: bytes, extended: bool = False) -> bytes:
+    """One IPTC/NAA field; `extended` writes the size in a 4-byte extended
+    length."""
+    if extended:
+        return bytes([0x1C, record, dataset, 0x84]) + struct.pack(">I", len(value)) + value
+    return bytes([0x1C, record, dataset]) + struct.pack(">H", len(value)) + value
+
+
+def iptc_file(width: int, height: int, layers: int, component: int, data: bytes,
+              compression: int = 1, band=None, chunk: int = 0) -> bytes:
+    """An IPTC/NAA image: the size, bands ((3, 60)), band ((3, 65)) and
+    compression ((3, 120)) fields, then the data as (8, 10) fields of
+    `chunk` bytes (one field if 0)."""
+    out = iptc_field(1, 90, b"\x1b%G") + iptc_field(2, 5, b"fixture")
+    out += iptc_field(3, 20, struct.pack(">H", width))
+    out += iptc_field(3, 30, struct.pack(">H", height))
+    out += iptc_field(3, 60, bytes([layers, component]))
+    if band is not None:
+        out += iptc_field(3, 65, bytes([band]))
+    out += iptc_field(3, 120, bytes([compression]))
+    step = chunk or max(len(data), 1)
+    for i in range(0, len(data), step):
+        out += iptc_field(8, 10, data[i:i + step], extended=len(data[i:i + step]) > 32767)
+    return out + bytes(5)
+
+
+def pcd_file(ycc_pairs: np.ndarray, orientation: int = 0) -> bytes:
+    """A Photo CD file whose base image is (256, 2304) bytes of row pairs
+    (two 768-byte luma rows, 384 Cb, 384 Cr); the rest zero."""
+    out = bytearray(96 * 2048)
+    out[2048:2052] = b"PCD_"
+    out[2048 + 1538] = orientation
+    return bytes(out) + np.ascontiguousarray(ycc_pairs, np.uint8).tobytes()
+
+
+def plugin_fixtures(rng, Image) -> dict:
+    """The FLI/FLC, IM, IMT, GBR, McIdas, PIXAR, SPIDER, XVThumb, IPTC and
+    PCD fixtures, by file name: IM and SPIDER files PIL writes (every IM
+    mode PIL saves), and built here: FLI/FLC frames of each chunk kind
+    (BRUN, LC, SS2 with skipped lines and an odd width, COPY behind a
+    PSTAMP, COLOR_256, COLOR_64 and PIL's grey default), IM of the image
+    types PIL does not write (B2 and B4, RGB3, X 24, L 32 F, L 8S, L*12
+    through PIL's bit decoder, grey and colour Luts), IMT, GIMP brushes v1
+    (L) and v2 (RGBA), McIdas at 1, 2 and 4 bytes a sample with line
+    prefixes, PIXAR (14, 2), big-endian and stacked SPIDER, XV thumbnails,
+    IPTC raw L, one band of RGB and CMYK, and JPEG, and a Photo CD base
+    image turned 90 degrees. One is the chip-smoke scene's texture:
+    textured's 32x32 as a line-interleaved RGB IM (`blob_rgb.im`)."""
+    from relativitypathtracer_tpu_torch.utils.demo_scene import demo_texture
+
+    def save(im, fmt, **kw):
+        buf = io.BytesIO()
+        im.save(buf, fmt, **kw)
+        return buf.getvalue()
+
+    files = {}
+    pic = _picture(rng, 11, 13)
+    rgb = Image.fromarray(pic)
+    # IM written by PIL, one file a mode it saves
+    files["blob_rgb.im"] = save(Image.fromarray(demo_texture(32)), "IM")
+    files["grey.im"] = save(rgb.convert("L"), "IM")
+    files["bits.im"] = save(rgb.convert("1"), "IM")
+    files["la.im"] = save(rgb.convert("LA"), "IM")
+    files["palette_lut.im"] = save(rgb.quantize(21), "IM")
+    files["pa_lut.im"] = save(rgb.quantize(9).convert("PA"), "IM")
+    files["rgba.im"] = save(rgb.convert("RGBA"), "IM")
+    files["rgbx.im"] = save(rgb.convert("RGBX"), "IM")
+    files["cmyk.im"] = save(rgb.convert("CMYK"), "IM")
+    files["ycc.im"] = save(rgb.convert("YCbCr"), "IM")
+    wide = (rng.integers(-400, 700, (7, 9))).astype(np.int32)
+    files["i32.im"] = save(Image.fromarray(wide, "I"), "IM")
+    files["i16.im"] = save(Image.fromarray(np.abs(wide).astype(np.uint16)), "IM")
+    files["i16b.im"] = save(Image.fromarray(np.abs(wide).astype(np.uint16)).convert("I;16B"),
+                            "IM")
+    files["f32.im"] = save(Image.fromarray(rng.normal(120, 90, (6, 10)).astype(np.float32)), "IM")
+    # IM built here: the image types PIL reads and does not write
+    idx = rng.integers(0, 256, (5, 12)).astype(np.uint8)
+    colour_lut = rng.integers(0, 256, 768, dtype=np.uint8).tobytes()
+    files["b2_lut.im"] = im_file("B2 image", 12, 5, idx.tobytes(), lut=colour_lut)
+    files["b4.im"] = im_file("B4 image", 12, 5, idx[:, :6].tobytes())
+    files["rgb3.im"] = im_file("RGB3 image", 13, 11, pic.transpose(2, 0, 1)[[1, 0, 2]].tobytes())
+    files["x24.im"] = im_file("X 24 image", 13, 11, pic[::-1].tobytes())
+    files["l32f.im"] = im_file("L 32 F image", 9, 7, wide.astype("<u4").tobytes())
+    files["l8s.im"] = im_file("L 8S image", 9, 7, (wide % 256).astype(np.uint8).tobytes())
+    files["l12_bits.im"] = im_file("L*12 image", 9, 7, rng.integers(0, 256, 7 * 14,
+                                                                    dtype=np.uint8).tobytes())
+    files["grey_lut.im"] = im_file("Greyscale image", 13, 11, pic[..., 0].tobytes(),
+                                   lut=bytes(255 - np.arange(256, dtype=np.uint8)) * 3,
+                                   pad=False, newline=b"\n")
+    files["rgb_lut.im"] = im_file("RGB image", 4, 3, pic[:3, :4].transpose(0, 2, 1).tobytes(),
+                                  lut=colour_lut)
+    files["grey.imt"] = imt_file(13, 11, pic[..., 1].tobytes(), comments=("IM Tools",))
+    # FLI/FLC: a frame of each chunk kind over few colours
+    pal = rng.integers(0, 256, (256, 3)).astype(np.uint8)
+    blocks = (np.add.outer(np.arange(13) // 3, np.arange(23) // 4) % 7).astype(np.uint8)
+    blocks[5] = rng.integers(0, 7, 23)
+    files["brun.flc"] = fli_file(23, 13, [fli_chunk(4, fli_palette(pal[:40])),
+                                          fli_chunk(15, fli_brun(blocks))])
+    files["color64_lc.fli"] = fli_file(23, 13, [fli_chunk(11, fli_palette(pal[:64], 2, 2)),
+                                                fli_chunk(13, b""),
+                                                fli_chunk(12, fli_lc(blocks, 4))],
+                                       magic=0xAF11)
+    files["ss2_odd.flc"] = fli_file(17, 9, [fli_chunk(4, fli_palette(pal)),
+                                            fli_chunk(7, fli_ss2(blocks[:9, :17], 2))])
+    files["copy_grey.flc"] = fli_file(12, 6, [fli_chunk(18, bytes(20)),
+                                              fli_chunk(16, rng.integers(0, 256, 72, dtype=np.uint8)
+                                                        .tobytes())], flags=3)
+    # GIMP brushes, McIdas, PIXAR, SPIDER, XVThumb
+    files["grey_v1.gbr"] = gbr_file(pic[..., 2], version=1)
+    files["rgba_v2.gbr"] = gbr_file(np.concatenate([pic, pic[..., :1]], 2), version=2)
+    files["l_prefix.area"] = mcidas_file(pic[..., 0], prefix=4)
+    files["i16_bands.area"] = mcidas_file(np.abs(wide).astype(">u2"), bands=2)
+    files["i32.area"] = mcidas_file(wide.astype(">i4"), offset=300)
+    files["rgb.pxr"] = pixar_file(pic)
+    f = rng.normal(120, 90, (9, 14)).astype(np.float32)
+    files["float.spi"] = save(Image.fromarray(f), "SPIDER")
+    files["big_endian.spi"] = spider_file(f[:7, :10], ">")
+    files["stack.spi"] = spider_file(f[:5, :8], "<", stack=3)
+    files["thumb.xv"] = xv_file(rng.integers(0, 256, (10, 14)))
+    # IPTC/NAA: raw L, one band of RGB and CMYK, greyscale and colour JPEG
+    files["raw_l.iim"] = iptc_file(13, 11, 1, 0, pic[..., 0].tobytes(), chunk=40)
+    files["raw_rgb_band2.iim"] = iptc_file(13, 11, 3, 1, pic[..., 1].tobytes(), band=2)
+    files["raw_cmyk_band4.iim"] = iptc_file(13, 11, 4, 1, pic[..., 2].tobytes(), band=4)
+    files["jpeg_l.iim"] = iptc_file(13, 11, 1, 0, save(rgb.convert("L"), "JPEG"), 5)
+    files["jpeg_rgb.iim"] = iptc_file(13, 11, 1, 0, save(rgb, "JPEG", quality=90), 5, chunk=300)
+    # a Photo CD base image, turned 90 degrees: flat, one patterned band
+    pairs = np.full((256, 3 * 768), 128, np.uint8)
+    pairs[100:120, :1536] = np.tile(np.arange(0, 256, 2, dtype=np.uint8), 12)[:1536]
+    pairs[100:120, 1536:] = (np.arange(768) * 3 % 256).astype(np.uint8)
+    files["rotated.pcd"] = pcd_file(pairs, orientation=1)
+    return files
+
+
+def rare_fixtures(rng, Image) -> dict:
+    """PIL's own PNM kinds (P0CMYK, PyCMYK at 16 bits, PyRGBA, PyP, Pf in
+    either byte order) and TIFF's rare kinds, by file name: written by PIL
+    (BigTIFF, float raw and with predictor 3, CIELab raw and LZMA, LZMA with
+    predictor 2, ZSTD with predictors 2 and 3, Group 4) and built here
+    (BigTIFF with LONG8 offsets in
+    tiles, big-endian float under LZW, CCITT RLE, Group 3 1D and 2D with
+    fill order 2 and min-is-white, a Group 4 row wider than the make-up
+    codes' 2560, old-style LZW, YCbCr 2x2 and 2x1 subsampled under LZW and
+    Deflate tiles, uncompressed YCbCr as PIL misreads it, a planar palette,
+    compressed planar RGBA without ExtraSamples). One is the chip-smoke
+    scene's texture: cubes' 256x256 squares as a Group 4 TIFF
+    (`cubes_g4.tif`)."""
+
+    def save(im, fmt, **kw):
+        buf = io.BytesIO()
+        im.save(buf, fmt, **kw)
+        return buf.getvalue()
+
+    files = {}
+    pic = _picture(rng, 9, 13)
+    cmyk = rng.integers(0, 256, (7, 10, 4)).astype(np.uint8)
+    files["p0cmyk.pnm"] = b"P0CMYK\n10 7\n255\n" + cmyk.tobytes()
+    files["pycmyk_16bit.pnm"] = b"PyCMYK 6 5 1000\n" + rng.integers(
+        0, 1001, (5, 6, 4)).astype(">u2").tobytes()
+    files["pyrgba.pnm"] = b"PyRGBA\n# alpha\n10 7 255\n" + cmyk.tobytes()
+    files["pyp.pnm"] = b"PyP 13 9 255\n" + pic[..., 0].tobytes()
+    floats = (rng.normal(120, 90, (9, 13)) * [[1.0] * 12 + [1e6]]).astype(np.float32)
+    files["float_le.pfm"] = save(Image.fromarray(floats), "PPM")
+    files["float_be.pfm"] = b"Pf\n13 9\n2.5\n" + floats[::-1].astype(">f4").tobytes()
+    rgb = Image.fromarray(pic)
+    f = Image.fromarray(floats)
+    files["bigtiff_lzw.tif"] = save(rgb, "TIFF", compression="tiff_lzw", big_tiff=True)
+    files["bigtiff_long8_tiles.tif"] = tiff_file(pic, 8, 2, comp=8, tile=(16, 16), big=True)
+    files["float.tif"] = save(f, "TIFF")
+    files["float_pred3.tif"] = save(f, "TIFF", compression="tiff_adobe_deflate",
+                                    tiffinfo={317: 3})
+    files["float_be_lzw.tif"] = tiff_file(floats.view(np.uint32)[..., None], 32, 1, comp=5,
+                                          endian=">", sample_format=(3,))
+    files["lab.tif"] = save(rgb.convert("LAB"), "TIFF")
+    files["lab_lzma.tif"] = save(rgb.convert("LAB"), "TIFF", compression="lzma")
+    files["lzma_pred2.tif"] = save(rgb, "TIFF", compression="lzma", tiffinfo={317: 2})
+    files["zstd.tif"] = save(rgb, "TIFF", compression="zstd")
+    files["zstd_pred2_strips.tif"] = save(Image.fromarray(_picture(rng, 40, 30)), "TIFF",
+                                          compression="zstd", tiffinfo={317: 2, 278: 16})
+    files["zstd_float.tif"] = save(f, "TIFF", compression="zstd", tiffinfo={317: 3})
+    ink = (_picture(rng, 20, 45)[..., 0] < 100)
+    files["ccitt_rle.tif"] = ccitt_tiff(ink, 2, Image, rows_per_strip=8)
+    files["g3_1d.tif"] = ccitt_tiff(ink, 3, Image, photo=1)
+    files["g3_2d_fill.tif"] = ccitt_tiff(ink, 3, Image, t4=5, fill=2, rows_per_strip=7)
+    files["g4.tif"] = save(Image.fromarray(~ink).convert("1"), "TIFF", compression="group4")
+    wide = np.zeros((3, 2700), bool)
+    wide[0, 5:2690] = True
+    wide[1, 2600:] = True
+    wide[2, ::977] = True
+    files["g4_wide.tif"] = ccitt_tiff(wide, 4, Image)
+    files["old_lzw.tif"] = tiff_file(pic // 32 * 32, 8, 2, comp=5, codec=lzw_tiff_old,
+                                     rows_per_strip=4)
+    ycc = np.asarray(rgb.convert("YCbCr"))
+    files["ycbcr_22_lzw.tif"] = ycbcr_tiff(ycc, (2, 2), 5, rows_per_strip=4)
+    files["ycbcr_21_tiles.tif"] = ycbcr_tiff(ycc, (2, 1), 8, tile=(16, 16))
+    files["ycbcr_raw.tif"] = tiff_file(ycc[:4, :5], 8, 6)
+    files["planar_palette.tif"] = tiff_file(
+        pic[..., :1], 8, 3, comp=8, planar=2, colormap=rng.integers(0, 65536, 768).tolist())
+    files["planar_rgba_deflate.tif"] = tiff_file(
+        np.concatenate([pic, 40 + pic[..., :1] // 2], 2), 8, 2, comp=8, planar=2)
+    # the cubes scene's texture: 256x256 squares, bilevel, Group 4
+    squares = (np.add.outer(np.arange(256) // 32, np.arange(256) // 32) % 2).astype(bool)
+    files["cubes_g4.tif"] = ccitt_tiff(squares, 4, Image)
+    return files
+
+
 def main() -> None:
     from PIL import Image, features
 
@@ -2755,6 +3269,8 @@ def main() -> None:
     files.update(block_fixtures(np.random.default_rng(SEED + 6), Image))
     files.update(legacy_fixtures(np.random.default_rng(SEED + 7), Image))
     files.update(j2k_fixtures(np.random.default_rng(SEED + 8), Image))
+    files.update(plugin_fixtures(np.random.default_rng(SEED + 9), Image))
+    files.update(rare_fixtures(np.random.default_rng(SEED + 10), Image))
     record = {"pillow": features.version("pil"), "libjpeg_turbo": features.version("libjpeg_turbo"),
               "libwebp": features.version("webp"), "openjpeg": features.version("jpg_2000"),
               "files": {}}
