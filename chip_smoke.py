@@ -122,7 +122,10 @@ It prints each path's seconds. Then it renders the textured path at msaa 2,
           own PNM kinds and TIFF's rare kinds: BigTIFF, float, CIELab,
           LZMA, ZSTD, CCITT, old-style LZW, subsampled YCbCr) decoded by
           models/texture.decode_texture to the SHA-256 PIL gave where they
-          were made (pil_rgb.json), with its ms (the WebP files', the
+          were made (pil_rgb.json), with its ms, then every case of the
+          damaged-data sweep (damaged.json: those files with bytes set,
+          markers put in and cuts) to PIL's hash or to a refusal where PIL
+          fails, with the counts and seconds (the WebP files', the
           arithmetic-coded JPEGs', the JPEG-in-TIFF files', the
           DDS/FTEX/BLP files', the small raster formats', the JPEG 2000
           and FITS files', the last plugin formats' and the PNM and TIFF
@@ -1150,6 +1153,54 @@ def fixture_texture(scene_file: str, name: str) -> str:
     return scene_file
 
 
+# the damaged-data sweep's cases left for later (ROADMAP Queue 3 item 2;
+# tests/test_torch_texture_damaged_tiff.py's LEFT): PIL reads them and the
+# port refuses them, naming the codec
+DAMAGED_LEFT = {("g3_1d.tif", 6): "CCITT", ("g3_2d_fill.tif", 0): "CCITT",
+                ("g3_2d_fill.tif", 1): "CCITT", ("g3_2d_fill.tif", 2): "CCITT",
+                ("g3_2d_fill.tif", 3): "CCITT", ("g3_2d_fill.tif", 4): "CCITT",
+                ("g3_2d_fill.tif", 5): "CCITT", ("lzma_pred2.tif", 3): "LZMA",
+                ("zstd_pred2_strips.tif", 6): "ZSTD", ("zstd_pred2_strips.tif", 7): "ZSTD"}
+
+
+def damaged_sweep(decode_texture) -> None:
+    """Every case of tests/torch_textures/damaged.json (the committed JPEG,
+    IPTC-JPEG and TIFF fixtures with bytes set, markers put in and cuts)
+    decoded with PIL blocked: PIL's SHA-256 where PIL read it, a refusal
+    where PIL failed or its pixels varied; the cases left for later
+    refused naming their codec. A mismatch fails the run."""
+    import hashlib
+
+    sweep = json.loads((TEXTURE_FIXTURES / "damaged.json").read_text())
+    counts = {"equal": 0, "refused as PIL refuses": 0, "left for later": 0}
+    t0 = time.perf_counter()
+    for name, rows in sweep["cases"].items():
+        src = (TEXTURE_FIXTURES / name).read_bytes()
+        for i, (at, drop, put, want) in enumerate(rows):
+            try:
+                got = decode_texture(src[:at] + bytes.fromhex(put) + src[at + drop:])
+            except Exception as e:  # noqa: BLE001 - a refusal, compared below
+                got = e
+            if (name, i) in DAMAGED_LEFT:
+                ok = isinstance(got, Exception) and DAMAGED_LEFT[name, i] in str(got)
+                kind = "left for later"
+            elif isinstance(want, dict):
+                ok = (not isinstance(got, Exception) and list(got.shape) == want["shape"]
+                      and hashlib.sha256(got.tobytes()).hexdigest() == want["sha256"])
+                kind = "equal"
+            else:
+                ok, kind = isinstance(got, Exception), "refused as PIL refuses"
+            check(ok, f"textures: damaged {name} case {i} ({at}, {drop}, {put!r}): PIL "
+                      f"{'read it' if isinstance(want, dict) else want}, the port "
+                      f"{'refused it' if isinstance(got, Exception) else 'read it'}")
+            counts[kind] += ok
+    seconds = time.perf_counter() - t0
+    log(f"  damaged-data sweep (damaged.json; Pillow {sweep['pillow']}, libjpeg-turbo "
+        f"{sweep['libjpeg_turbo']}, libtiff {sweep['libtiff']}), PIL blocked: "
+        f"{sum(len(r) for r in sweep['cases'].values())} cases, "
+        + ", ".join(f"{v} {k}" for k, v in counts.items()) + f", {seconds:.2f} s")
+
+
 def textures_phase(torch, pt, dev, card, state) -> None:
     """Textures decoded without PIL (models/texture.decode_texture), with PIL
     blocked in sys.modules for the phase: the committed fixtures against
@@ -1203,6 +1254,7 @@ def textures_phase(torch, pt, dev, card, state) -> None:
             t for t in times if t.split()[0].endswith(PLUGIN_SUFFIXES)))
         log("  PNM extensions and TIFF rare kinds decode ms: " + ", ".join(
             t for t in times if t.split()[0] in RARE_FIXTURES))
+        damaged_sweep(decode_texture)
         for kind, fmt, size in TEXTURE_SCENES:
             names = PATHS[kind][1]
             with tempfile.TemporaryDirectory() as tmp:
@@ -1237,19 +1289,20 @@ def textures_phase(torch, pt, dev, card, state) -> None:
             oracle_check(torch, f"{kind} ({fmt} texture)", scene, meta, state, img, card)
         big = demo_texture(BIG_TEXTURE)
         data = image.encode_jpeg(big)
-        coef, orig = {}, image_decode._decode_sequential
+        coef, orig = {}, image_decode._read
 
-        def keep(*args):
-            orig(*args)
-            coef["zz"] = np.frombuffer(args[5], np.int32).reshape(-1, 64)
+        def keep(*args, **kw):
+            out = orig(*args, **kw)
+            coef["zz"] = np.concatenate(out[1])
+            return out
 
-        image_decode._decode_sequential = keep
+        image_decode._read = keep
         try:
             t0 = time.perf_counter()
             rgb = image_decode.decode_jpeg(data)
             big_s = time.perf_counter() - t0
         finally:
-            image_decode._decode_sequential = orig
+            image_decode._read = orig
         # JPEG keeps each block's mean: 16x16 means (a 4:2:0 MCU) within 4
         # levels (1.750 in the runs so far: the loss is the q85 encode's)
         n = BIG_TEXTURE // 16

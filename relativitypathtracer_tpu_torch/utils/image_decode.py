@@ -32,6 +32,22 @@ wait for more, so PIL fails on an arithmetic-coded file whose scan runs
 past its first read; this module decodes it, to the pixels PIL gives when
 handed the whole file at once.
 
+Damaged data is read as libjpeg-turbo 3.1.3 under PIL reads it, warnings
+and all: the entropy-coded data cut into segments at any marker (the
+bits past one read as zeros, the rest of a restart interval's MCUs left
+as they were once an MCU ran out of data), restart markers resynchronised
+(jpeg_resync_to_restart's three actions), a code no table holds read as
+symbol 0 after 17 bits, runs past coefficient 63 or a progressive band's
+end written where libjpeg writes them, a refinement of any size read as
+one bit, a progression out of order only warned about, coefficients kept
+in 16 bits, Huffman tables 0 and 1 left undefined taken as the standard
+ones, libjpeg's marker parsers with their own checks, the SIMD inverse
+DCT's 16-bit arithmetic on coefficients far out of range, and the file's
+end where libjpeg would wait for more data (PIL then fails, unless every
+row of a one-scan image is out). JPEG-in-TIFF streams are read as
+libtiff hands them over (a fake EOI wherever a strip's data ends, and
+nothing after a one-scan strip's scan).
+
 PNG: every colour type and bit depth, Adam7 interlace, the five filters
 (undone along the image's anti-diagonals, so Average and Paeth, which read
 the reconstructed pixel to the left, run vectorised too), the chunks read
@@ -40,13 +56,15 @@ the file may end, or IEND be missing, after the image data). 16-bit
 samples keep their high byte, except 16-bit grey, which is clipped at 255
 as PIL's `I;16` to RGB conversion clips it (utils/pil_modes).
 
-What neither decoder supports raises `DecodeError`, as does corrupt or
-truncated data; nothing returns a partial image.
+What neither decoder supports raises `DecodeError`, as does data on
+which PIL fails; nothing returns a partial image that PIL would not.
 """
 
 from __future__ import annotations
 
 import array
+import bisect
+import functools
 import re
 import struct
 import zlib
@@ -54,7 +72,7 @@ import zlib
 import numpy as np
 
 from . import jpeg_arith
-from .image import ZIGZAG, _huffman_codes
+from .image import _AC_CHROMA, _AC_LUMA, _DC_CHROMA, _DC_LUMA, ZIGZAG
 from .pil_modes import cmyk_to_rgb, palette256, scale_bits, to_rgb
 
 
@@ -91,34 +109,56 @@ _SOF_KINDS = {0xC3: "lossless", 0xC5: "differential sequential", 0xC6: "differen
 # markers with no segment after them, and those libjpeg skips
 _STANDALONE = {0x01} | set(range(0xD0, 0xD8))
 _SKIPPED = {0xDC, 0xFE} | set(range(0xE0, 0xF0))
+# the standard tables libjpeg-turbo installs for Huffman tables 0 and 1
+# that a stream leaves undefined (jstdhuff.c std_huff_tables, as Motion
+# JPEG needs them): {(class, id): (counts, symbols)}
+_STD_TABLES = {(tc, th): (bytes(spec[0]), bytes(spec[1])) for (tc, th), spec in (
+    ((0, 0), _DC_LUMA), ((1, 0), _AC_LUMA), ((0, 1), _DC_CHROMA), ((1, 1), _AC_CHROMA))}
+# zero bytes after a segment's data: more than one MCU of ten blocks can
+# read (about 250 bytes a block at 17 bits a code and 15 a value)
+_PAD = 2600
 
 
-def _huffman_lut(counts: bytes, symbols: bytes, dc: bool) -> list:
-    """The decoding table of a DHT table: for each 16-bit peek, the tuple of
-    the code it starts with, or None where no code matches. The code's
-    symbol gives a run r (AC: the high nibble) and a size s (the low
-    nibble; a DC symbol is its size); s bits of value follow the code.
-    DC: (bits, mask, half); AC: (bits, run, mask, half), with bits the
-    code's length plus s, mask 2**s - 1 and half 2**(s - 1) (0 if s is
-    0). A ZRL (r 15, s 0) has run 16; an EOBr (s 0) has run r."""
-    n = sum(counts)
-    if n > 256 or len(symbols) != n:
-        raise DecodeError("bad Huffman table (DHT)")
-    if dc and any(x > 15 for x in symbols):
+class _Suspend(DecodeError):
+    """Where libjpeg suspends: the data ends where it reads on. PIL gives
+    it no more and fails, unless every row of a one-scan image is out."""
+
+
+@functools.lru_cache(maxsize=64)
+def _huffman_lut(counts: bytes, symbols: bytes, kind: str) -> list:
+    """The decoding table of a DHT table as libjpeg derives it when a scan
+    starts (jdhuff.c jpeg_make_d_derived_tbl): for each 16-bit peek, the
+    tuple of the code it starts with. Codes go to the table's positions in
+    order (a symbol listed twice has two codes). The code's symbol gives a
+    run r (AC: the high nibble) and a size s (the low nibble; a DC symbol
+    is its size); s bits of value follow the code. "dc": (bits, mask,
+    half); "ac": (bits, run, mask, half), with bits the code's length plus
+    s, mask 2**s - 1 and half 2**(s - 1) (0 if s is 0); "refine": as "ac"
+    with every size taken as 1 (jdphuff.c reads one bit, and warns, for a
+    refinement of another size). A ZRL (r 15, s 0) has run 16, an EOBr (s
+    0) run r. A peek that no code starts is libjpeg's bad code: symbol 0
+    after 17 bits (jpeg_huff_decode), a DC difference of 0 or an EOB."""
+    if kind == "dc" and any(x > 15 for x in symbols):
         raise DecodeError("bad Huffman table (DHT): DC symbol above 15")
-    code_of, len_of = _huffman_codes((list(counts), list(symbols)))
     lut = [None] * 65536
-    for x in set(symbols):
-        code, bits = int(code_of[x]), int(len_of[x])
-        if code >= 1 << bits:
+    code, p = 0, 0
+    for bits, count in enumerate(counts, start=1):
+        for x in symbols[p:p + count]:
+            size = x if kind == "dc" else x & 15
+            if kind == "refine" and size:
+                size = 1
+            entry = (bits + size, (1 << size) - 1, (1 << size) >> 1)
+            if kind != "dc":
+                entry = (entry[0], 16 if x == 0xF0 else x >> 4) + entry[1:]
+            lo = code << (16 - bits)
+            lut[lo:lo + (1 << (16 - bits))] = [entry] * (1 << (16 - bits))
+            code += 1
+        p += count
+        if count and code >= 1 << bits:  # no code may be all ones
             raise DecodeError("bad Huffman table (DHT): code lengths overflow")
-        size = x if dc else x & 15
-        entry = (bits + size, (1 << size) - 1, (1 << size) >> 1)
-        if not dc:
-            entry = (entry[0], 16 if x == 0xF0 else x >> 4) + entry[1:]
-        lo = code << (16 - bits)
-        lut[lo:lo + (1 << (16 - bits))] = [entry] * (1 << (16 - bits))
-    return lut
+        code <<= 1
+    bad = (17, 0, 0) if kind == "dc" else (17, 0, 0, 0)
+    return [bad if e is None else e for e in lut]
 
 
 class _Frame:
@@ -140,8 +180,8 @@ class _Frame:
         if nf not in (1, 3, 4):  # PIL opens no other count
             raise DecodeError(f"{nf} components (SOF): greyscale (1), YCbCr or RGB (3) and "
                               "CMYK or YCCK (4) are supported")
-        if len(body) < 6 + 3 * nf:
-            raise DecodeError("short SOF segment")
+        if len(body) != 6 + 3 * nf:
+            raise DecodeError("bad SOF segment length")
         self.ids, self.h, self.v, self.tq = [], [], [], []
         for i in range(nf):
             cid, hv, tq = body[6 + 3 * i:9 + 3 * i]
@@ -189,37 +229,94 @@ class _Frame:
         per_mcu = sum(b.shape[1] for b in blocks)
         return np.concatenate(blocks, 1).ravel(), np.concatenate(slots, 1).ravel(), per_mcu
 
+    def imcu_row(self, comps, mcu: int) -> int:
+        """The iMCU row (image band one MCU row high) of a scan's MCU."""
+        if len(comps) > 1:
+            return mcu // self.mcus_x
+        c = comps[0]
+        return mcu // -(-self.cw[c] // 8) // self.v[c]
 
-def _scan_data(data: bytes, pos: int):
-    """The entropy-coded data from `pos` to the next marker other than RSTn:
-    (bytes, intervals, end). Stuffed zeros, fill bytes and RSTn markers
-    are removed; `intervals` holds each restart interval's (first bit, bit
-    past its last) in the bytes left; `end` is the offset of the marker's
-    0xFF."""
-    if pos >= len(data):
-        raise DecodeError("truncated file: no data after SOS")
-    buf = np.frombuffer(data, np.uint8, offset=pos)
-    ff = np.flatnonzero(buf[:-1] == 0xFF)
-    nxt = buf[ff + 1]
-    marker = ff[(nxt != 0x00) & (nxt != 0xFF) & ((nxt < 0xD0) | (nxt > 0xD7))]
-    if marker.size == 0:
-        raise DecodeError("truncated file: no marker after the scan")
-    n = int(marker[0])
-    rst = ff[(ff < n) & (nxt >= 0xD0) & (nxt <= 0xD7)]
-    numbers = buf[rst + 1].astype(np.int64) - 0xD0  # RST0-7 in turn
-    if np.any(numbers != np.arange(numbers.size) % 8):
-        raise DecodeError("restart markers out of sequence")
-    keep = np.ones(n, bool)
-    inside = ff[ff < n]
-    keep[inside[buf[inside + 1] == 0x00] + 1] = False  # stuffed zeros
-    keep[inside[buf[inside + 1] == 0xFF]] = False  # fill bytes
-    keep[np.concatenate([rst, rst + 1])] = False
-    cuts = np.concatenate([[0], rst + 2, [n]])
-    # each interval's start and end in the unstuffed bytes
-    before = np.concatenate([[0], np.cumsum(keep)])
-    bounds = before[cuts]
-    intervals = [(int(a) * 8, int(b) * 8) for a, b in zip(bounds[:-1], bounds[1:])]
-    return buf[:n][keep], intervals, pos + n
+
+def _next_marker(data: bytes, pos: int):
+    """libjpeg's next_marker from `pos`: bytes up to an 0xFF skipped, the
+    0xFFs after it, and 0xFF 0x00 pairs; (the marker's code, the offset
+    past it). The data's end suspends."""
+    n = len(data)
+    while True:
+        i = data.find(b"\xff", pos)
+        if i < 0:
+            raise _Suspend("truncated file: no marker before the data's end")
+        pos = i + 1
+        while pos < n and data[pos] == 0xFF:
+            pos += 1
+        if pos >= n:
+            raise _Suspend("truncated file: no marker before the data's end")
+        if data[pos]:
+            return data[pos], pos + 1
+        pos += 1
+
+
+class _Entropy:
+    """The entropy-coded data of a scan from offset `pos`, cut into
+    segments at markers as libjpeg's decoders read it (jdhuff.c
+    jpeg_fill_bit_buffer, jdarith.c get_byte): any 0xFF followed by a byte
+    other than 0x00 and 0xFF ends a segment (fill 0xFFs before it, and an
+    0xFF 0x00 is a data byte 0xFF). The region held ends at the first
+    marker that a restart cannot step over (one from 0xC0 on, RSTn
+    aside), or at the data's end; `d` is its data bytes, segment after
+    segment, `w` their 64-bit windows (zeros past the region)."""
+
+    def __init__(self, data: bytes, pos: int):
+        self.pos = pos
+        buf = np.frombuffer(data, np.uint8)[pos:]
+        ff = np.flatnonzero(buf[:-1] == 0xFF)
+        nxt = buf[ff + 1]
+        mk = ff[(nxt != 0x00) & (nxt != 0xFF)]  # the 0xFF right before a marker's code
+        codes = buf[mk + 1]
+        last = np.flatnonzero((codes >= 0xC0) & ((codes < 0xD0) | (codes > 0xD7)))
+        if last.size:
+            n = int(mk[last[0]])
+            mk, codes = mk[:last[0] + 1], codes[:last[0] + 1]
+        else:  # a trailing 0xFF is no data: libjpeg waits for the byte after it
+            n = buf.size
+            while n and buf[n - 1] == 0xFF:
+                n -= 1
+        self.mk, self.codes, self.n = mk.tolist(), codes.tolist(), n
+        keep = np.ones(n, bool)
+        inside = ff[ff < n]
+        keep[inside[buf[inside + 1] == 0x00] + 1] = False  # stuffed zeros
+        keep[inside[buf[inside + 1] == 0xFF]] = False  # fill bytes
+        inner = mk[mk < n]
+        keep[inner] = False
+        keep[inner + 1] = False
+        self.raw = buf[:n]
+        self.before = np.concatenate([[0], np.cumsum(keep)])  # data bytes before each offset
+        self.d = buf[:n][keep]
+        self.start = 0  # the offset of the last segment asked for, from pos
+        self.w = _windows(np.concatenate([self.d, np.zeros(_PAD, np.uint8)]))
+
+    def marker(self, at: int):
+        """The marker that ends the segment from offset `at` (as libjpeg's
+        next_marker finds it): (code, offset past it), or None at the
+        data's end."""
+        i = bisect.bisect_left(self.mk, at - self.pos)
+        if i == len(self.mk):
+            return None
+        return self.codes[i], self.pos + self.mk[i] + 2
+
+    def segment(self, at: int):
+        """The data bits of the segment from offset `at`: (first bit, bit
+        past the last, whether the data's end ends it)."""
+        self.start = at - self.pos
+        i = bisect.bisect_left(self.mk, self.start)
+        end = self.mk[i] if i < len(self.mk) else self.n
+        return (int(self.before[at - self.pos]) * 8, int(self.before[end]) * 8,
+                i == len(self.mk))
+
+    def zeros_after(self, s: int, e: int) -> list:
+        """Windows of the segment's bits s..e with zeros after them, as
+        libjpeg reads past a marker: bit s at bit 0."""
+        return _windows(np.concatenate([self.d[s >> 3:e >> 3], np.zeros(_PAD, np.uint8)]))
 
 
 def _windows(d) -> list:
@@ -232,199 +329,244 @@ def _windows(d) -> list:
     return w.tolist()
 
 
-def _intervals(nblocks: int, per_interval: int, intervals):
-    """Each restart interval's (first block, block past its last, first
-    bit, bit past its last)."""
-    starts = list(range(0, nblocks, per_interval)) if per_interval else [0]
-    if len(starts) != len(intervals):
-        raise DecodeError(f"{len(intervals)} restart intervals where {len(starts)} were expected")
-    return [(b, min(b + per_interval, nblocks) if per_interval else nblocks, p, e)
-            for b, (p, e) in zip(starts, intervals)]
+def _resync(ent: _Entropy, marker, expected: int):
+    """jdmarker.c read_restart_marker with jpeg_resync_to_restart, the
+    default data source's: the marker where restart `expected` (0-7) is
+    due, as (code, offset past it). Returns None where decoding goes on
+    after the marker (the expected RSTn, or action 1: one too far away,
+    discarded), or the marker left unread (action 3: a marker from 0xC0
+    on, or one of the next two RSTns: the interval has no data); action 2
+    (a marker below 0xC0, or one of the two RSTns before) scans on to the
+    next marker and decides again."""
+    while True:
+        code, after = marker
+        if code == 0xD0 + expected:
+            return None, after
+        if code < 0xC0:
+            action = 2
+        elif not 0xD0 <= code <= 0xD7:
+            action = 3
+        elif code - 0xD0 in ((expected + 1) & 7, (expected + 2) & 7):
+            action = 3
+        elif code - 0xD0 in ((expected - 1) & 7, (expected - 2) & 7):
+            action = 2
+        else:
+            action = 1
+        if action == 1:
+            return None, after
+        if action == 3:
+            return marker, after
+        marker = ent.marker(after)
+        if marker is None:
+            raise _Suspend("truncated file: no marker where a restart is due")
 
 
-def _decode_sequential(w, spans, bases, slots, tables, coef, nslots):
-    """Huffman-decode a sequential scan: each block's DC difference and its
-    63 ACs into `coef` (zig-zag order) from `bases[i]` on."""
-    for b0, b1, p, end in spans:
-        pred = [0] * nslots
-        for i in range(b0, b1):
-            s = slots[i]
-            dc, ac = tables[s]
+def _decode_sequential(w, b0, b1, p, end, bases, slots, tables, coef, pred):
+    """Huffman-decode blocks b0..b1 of a sequential scan from bit p: each
+    block's DC difference and its 63 ACs into `coef` (zig-zag order, 80
+    places a block) from `bases[i]` on. A run past coefficient 63 puts its
+    value at 63, as libjpeg's natural-order table's extra entries do.
+    Returns (the block after the last decoded, p): it stops after the
+    first block that reads past bit `end`."""
+    for i in range(b0, b1):
+        s = slots[i]
+        dc, ac = tables[s]
+        x = w[p >> 3]
+        b = p & 7
+        n, m, h = dc[(x >> (48 - b)) & 65535]
+        v = (x >> (64 - b - n)) & m
+        if v < h:
+            v -= m
+        p += n
+        v = ((v + pred[s] + 32768) & 65535) - 32768  # the 16 bits a JCOEF keeps
+        pred[s] = v
+        j = bases[i]
+        coef[j] = v
+        j += 1
+        stop = j + 63
+        while j < stop:
             x = w[p >> 3]
             b = p & 7
-            n, m, h = dc[(x >> (48 - b)) & 65535]
-            v = (x >> (64 - b - n)) & m
-            if v < h:
-                v -= m
+            n, r, m, h = ac[(x >> (48 - b)) & 65535]
             p += n
-            v += pred[s]
-            pred[s] = v
-            j = bases[i]
-            coef[j] = v
-            j += 1
-            stop = j + 63
-            while j < stop:
-                x = w[p >> 3]
-                b = p & 7
-                n, r, m, h = ac[(x >> (48 - b)) & 65535]
-                p += n
-                if m:
-                    v = (x >> (64 - b - n)) & m
-                    if v < h:
-                        v -= m
-                    j += r
-                    coef[j] = v
-                    j += 1
-                elif r == 16:
-                    j += 16
-                else:
-                    break
-            if j > stop:
-                raise DecodeError("corrupt data: coefficients past the block's end")
+            if m:
+                v = (x >> (64 - b - n)) & m
+                if v < h:
+                    v -= m
+                j += r
+                coef[j] = v
+                j += 1
+            elif r == 16:
+                j += 16
+            else:
+                break
+        if j > stop and coef[j - 1]:
+            coef[stop - 1] = coef[j - 1]
+            coef[j - 1] = 0
         if p > end:
-            raise DecodeError("corrupt or truncated data: a scan runs past its data")
+            return i + 1, p
+    return b1, p
 
 
-def _decode_dc_first(w, spans, bases, slots, tables, coef, nslots, al):
-    """A progressive DC scan's first pass: each block's DC, shifted by Al."""
-    for b0, b1, p, end in spans:
-        pred = [0] * nslots
-        for i in range(b0, b1):
-            s = slots[i]
-            x = w[p >> 3]
-            b = p & 7
-            n, m, h = tables[s][(x >> (48 - b)) & 65535]
-            v = (x >> (64 - b - n)) & m
-            if v < h:
-                v -= m
-            p += n
-            v += pred[s]
-            pred[s] = v
-            coef[bases[i]] = v << al
+def _decode_dc_first(w, b0, b1, p, end, bases, slots, tables, coef, pred, al):
+    """A progressive DC scan's first pass: each block's DC, shifted by Al
+    (returns as _decode_sequential)."""
+    for i in range(b0, b1):
+        s = slots[i]
+        x = w[p >> 3]
+        b = p & 7
+        n, m, h = tables[s][(x >> (48 - b)) & 65535]
+        v = (x >> (64 - b - n)) & m
+        if v < h:
+            v -= m
+        p += n
+        v = ((v + pred[s] + 32768) & 65535) - 32768
+        pred[s] = v
+        coef[bases[i]] = v << al
         if p > end:
-            raise DecodeError("corrupt or truncated data: a scan runs past its data")
+            return i + 1, p
+    return b1, p
 
 
-def _decode_ac_first(w, spans, bases, ac, band, ss, se, al):
+def _decode_ac_first(w, b0, b1, p, end, bases, ac, band, ss, se, al, run):
     """A progressive AC scan's first pass over band Ss..Se of one
-    component, with end-of-band runs; `band[bases[i] + k]` is block i's
-    coefficient k."""
-    for b0, b1, p, end in spans:
-        eobrun = 0
-        for i in range(b0, b1):
-            if eobrun:
-                eobrun -= 1
-                continue
-            j = bases[i] + ss
-            stop = j + se - ss + 1
-            while j < stop:
+    component, with end-of-band runs (`run`, a one-item list, carries the
+    run across calls); `band[bases[i] + k]` is block i's coefficient k. A
+    run past Se writes coefficient k all the same, as libjpeg does (at 63
+    past 63). Returns as _decode_sequential."""
+    eobrun = run[0]
+    for i in range(b0, b1):
+        if eobrun:
+            eobrun -= 1
+            continue
+        base = bases[i]
+        j = base + ss
+        stop = base + se + 1
+        while j < stop:
+            x = w[p >> 3]
+            b = p & 7
+            n, r, m, h = ac[(x >> (48 - b)) & 65535]
+            p += n
+            if m:
+                v = (x >> (64 - b - n)) & m
+                if v < h:
+                    v -= m
+                j += r
+                band[j] = v << al
+                j += 1
+            elif r == 16:
+                j += 16
+            else:
+                eobrun = (1 << r) - 1
+                if r:
+                    eobrun += (w[p >> 3] >> (64 - (p & 7) - r)) & ((1 << r) - 1)
+                    p += r
+                break
+        if j > base + 64 and band[j - 1]:
+            band[base + 63] = band[j - 1]
+            band[j - 1] = 0
+        if p > end:
+            run[0] = eobrun
+            return i + 1, p
+    run[0] = eobrun
+    return b1, p
+
+
+def _decode_ac_refine(w, b0, b1, p, end, bases, ac, band, ss, se, al, run):
+    """A progressive AC scan's refinement pass (jdphuff.c
+    decode_mcu_AC_refine): newly nonzero coefficients of +-2**Al, and a
+    correction bit for each coefficient already nonzero that the scan
+    passes; a new coefficient past Se lands past it, as libjpeg writes it.
+    `ac` is a "refine" table. Returns as _decode_sequential."""
+    p1, m1 = 1 << al, -1 << al
+    eobrun = run[0]
+    for i in range(b0, b1):
+        base = bases[i]
+        k = ss
+        if not eobrun:
+            while k <= se:
                 x = w[p >> 3]
                 b = p & 7
                 n, r, m, h = ac[(x >> (48 - b)) & 65535]
                 p += n
                 if m:
-                    v = (x >> (64 - b - n)) & m
-                    if v < h:
-                        v -= m
-                    j += r
-                    band[j] = v << al
-                    j += 1
-                elif r == 16:
-                    j += 16
+                    new = p1 if (x >> (64 - b - n)) & 1 else m1
+                elif r == 16:  # ZRL: pass 16 zeros
+                    new, r = 0, 15
                 else:
-                    eobrun = (1 << r) - 1
+                    eobrun = 1 << r
                     if r:
                         eobrun += (w[p >> 3] >> (64 - (p & 7) - r)) & ((1 << r) - 1)
                         p += r
                     break
-            if j > stop:
-                raise DecodeError("corrupt data: coefficients past the band's end")
-        if p > end:
-            raise DecodeError("corrupt or truncated data: a scan runs past its data")
-
-
-def _decode_ac_refine(w, spans, bases, ac, band, ss, se, al):
-    """A progressive AC scan's refinement pass (jdphuff.c
-    decode_mcu_AC_refine): newly nonzero coefficients of +-2**Al, and a
-    correction bit for each coefficient already nonzero that the scan
-    passes."""
-    p1, m1 = 1 << al, -1 << al
-    for b0, b1, p, end in spans:
-        eobrun = 0
-        for i in range(b0, b1):
-            base = bases[i]
-            k = ss
-            if not eobrun:
-                while k <= se:
-                    x = w[p >> 3]
-                    b = p & 7
-                    n, r, m, h = ac[(x >> (48 - b)) & 65535]
-                    p += n
-                    if m:
-                        if m != 1:
-                            raise DecodeError("corrupt data: a refinement value of size > 1")
-                        new = p1 if (x >> (64 - b - n)) & 1 else m1
-                    elif r == 16:  # ZRL: pass 16 zeros
-                        new, r = 0, 15
-                    else:
-                        eobrun = 1 << r
-                        if r:
-                            eobrun += (w[p >> 3] >> (64 - (p & 7) - r)) & ((1 << r) - 1)
-                            p += r
-                        break
-                    while k <= se:  # pass the nonzero coefficients and r zeros
-                        c = band[base + k]
-                        if c:
-                            if (w[p >> 3] >> (63 - (p & 7))) & 1 and not c & p1:
-                                band[base + k] = c + p1 if c > 0 else c + m1
-                            p += 1
-                        else:
-                            r -= 1
-                            if r < 0:
-                                break
-                        k += 1
-                    if new:
-                        if k > se:
-                            raise DecodeError("corrupt data: coefficients past the band's end")
-                        band[base + k] = new
-                    k += 1
-            if eobrun:
-                while k <= se:
+                while k <= se:  # pass the nonzero coefficients and r zeros
                     c = band[base + k]
                     if c:
                         if (w[p >> 3] >> (63 - (p & 7))) & 1 and not c & p1:
                             band[base + k] = c + p1 if c > 0 else c + m1
                         p += 1
+                    else:
+                        r -= 1
+                        if r < 0:
+                            break
                     k += 1
-                eobrun -= 1
+                if new:
+                    band[base + min(k, 63)] = new
+                k += 1
+        if eobrun:
+            while k <= se:
+                c = band[base + k]
+                if c:
+                    if (w[p >> 3] >> (63 - (p & 7))) & 1 and not c & p1:
+                        band[base + k] = c + p1 if c > 0 else c + m1
+                    p += 1
+                k += 1
+            eobrun -= 1
         if p > end:
-            raise DecodeError("corrupt or truncated data: a scan runs past its data")
+            run[0] = eobrun
+            return i + 1, p
+    run[0] = eobrun
+    return b1, p
 
 
-def _idct_1d(d, shift: int):
-    """One pass of jpeg_idct_islow (jidctint.c, CONST_BITS 13) over eight
-    int64 arrays, descaled by `shift` with rounding."""
+def _wrap16(x):
+    return ((x + 0x8000) & 0xFFFF) - 0x8000
+
+
+def _wrap32(x):
+    return ((x + 0x80000000) & 0xFFFFFFFF) - 0x80000000
+
+
+def _idct_1d(d, shift: int, exact: bool):
+    """One pass of libjpeg-turbo's SIMD islow inverse DCT (jidctint-avx2.asm,
+    CONST_BITS 13) over eight int64 arrays of 16-bit inputs, descaled by
+    `shift` with rounding: jpeg_idct_islow's
+    arithmetic as the SIMD code orders it, whose sums in0 + in4, in0 - in4,
+    in7 + in3 and in5 + in1 wrap at 16 bits and whose 32-bit sums wrap
+    (the caller saturates). `exact` False leaves the wrapping out, for
+    inputs too small to wrap (_idct's bounds)."""
+    wrap16, wrap32 = (_wrap16, _wrap32) if exact else (_same, _same)
     d0, d1, d2, d3, d4, d5, d6, d7 = d
-    z1 = (d2 + d6) * 4433  # FIX_0_541196100
-    tmp2 = z1 - d6 * 15137  # FIX_1_847759065
-    tmp3 = z1 + d2 * 6270  # FIX_0_765366865
-    tmp0 = (d0 + d4) << 13
-    tmp1 = (d0 - d4) << 13
-    t10, t13, t11, t12 = tmp0 + tmp3, tmp0 - tmp3, tmp1 + tmp2, tmp1 - tmp2
-    z1, z2, z3, z4 = d7 + d1, d5 + d3, d7 + d3, d5 + d1
-    z5 = (z3 + z4) * 9633  # FIX_1_175875602
-    z1 = z1 * -7373  # FIX_0_899976223
-    z2 = z2 * -20995  # FIX_2_562915447
-    z3 = z3 * -16069 + z5  # FIX_1_961570560
-    z4 = z4 * -3196 + z5  # FIX_0_390180644
-    o0 = d7 * 2446 + z1 + z3  # FIX_0_298631336
-    o1 = d5 * 16819 + z2 + z4  # FIX_2_053119869
-    o2 = d3 * 25172 + z2 + z3  # FIX_3_072711026
-    o3 = d1 * 12299 + z1 + z4  # FIX_1_501321110
+    tmp3 = d2 * 10703 + d6 * 4433  # F_0_541 + F_0_765, F_0_541
+    tmp2 = d2 * 4433 - d6 * 10704  # F_0_541, F_0_541 - F_1_847
+    tmp0 = wrap16(d0 + d4) << 13
+    tmp1 = wrap16(d0 - d4) << 13
+    t10, t13 = wrap32(tmp0 + tmp3), wrap32(tmp0 - tmp3)
+    t11, t12 = wrap32(tmp1 + tmp2), wrap32(tmp1 - tmp2)
+    z3, z4 = wrap16(d7 + d3), wrap16(d5 + d1)
+    z3, z4 = z3 * -6436 + z4 * 9633, z3 * 9633 + z4 * 6437  # F_1_175 - F_1_961 ...
+    o0 = wrap32(d7 * -4927 + d1 * -7373 + z3)  # F_0_298 - F_0_899, -F_0_899
+    o3 = wrap32(d7 * -7373 + d1 * 4926 + z4)  # -F_0_899, F_1_501 - F_0_899
+    o1 = wrap32(d5 * -4176 + d3 * -20995 + z4)  # F_2_053 - F_2_562, -F_2_562
+    o2 = wrap32(d5 * -20995 + d3 * 4177 + z3)  # -F_2_562, F_3_072 - F_2_562
     r = 1 << (shift - 1)
-    return [(t10 + o3 + r) >> shift, (t11 + o2 + r) >> shift, (t12 + o1 + r) >> shift,
-            (t13 + o0 + r) >> shift, (t13 - o0 + r) >> shift, (t12 - o1 + r) >> shift,
-            (t11 - o2 + r) >> shift, (t10 - o3 + r) >> shift]
+    return [wrap32(wrap32(x) + r) >> shift
+            for x in (t10 + o3, t11 + o2, t12 + o1, t13 + o0, t13 - o0, t12 - o1, t11 - o2,
+                      t10 - o3)]
+
+
+def _same(x):
+    return x
 
 
 _IDCT_CHUNK = 8192  # blocks an IDCT step (bounds the int64 temporaries)
@@ -432,24 +574,35 @@ _IDCT_CHUNK = 8192  # blocks an IDCT step (bounds the int64 temporaries)
 
 def _idct(coef, q) -> np.ndarray:
     """(n, 64) quantised coefficients in zig-zag order and the (64,) table
-    in natural order -> (n, 8, 8) uint8 samples: dequantise, the column
-    pass (PASS1_BITS 2), the row pass, the +128 shift and the range limit.
-    Both passes saturate as libjpeg-turbo's SIMD form (PIL's) does: the
-    column pass's results to int16, the samples to 0-255. On every value
-    an 8-bit image gives this is the C code's result; past it the C
-    code's range-limit table wraps."""
+    in natural order -> (n, 8, 8) uint8 samples, as libjpeg-turbo's SIMD
+    islow code (PIL's) computes them: dequantised by a 16-bit multiply
+    (the low 16 bits of coefficient times table entry), the column pass
+    (PASS1_BITS 2) saturated to 16 bits, except that a block whose rows 1-7
+    are all zero takes each column's DC shifted left by 2 in 16 bits; the
+    row pass; the samples saturated to -128..127 and shifted by 128. On
+    the values a valid 8-bit image gives this is jidctint.c's result. A
+    pass whose inputs are small (dequantised values within 8191, column
+    results within 16383) cannot wrap, and runs without the wrapping."""
     out = np.empty((coef.shape[0], 8, 8), np.uint8)
-    q = q.reshape(8, 8)
+    q = _wrap16(np.asarray(q, np.int64).reshape(8, 8))
     for i in range(0, coef.shape[0], _IDCT_CHUNK):
         blk = np.empty((min(_IDCT_CHUNK, coef.shape[0] - i), 64), np.int64)
         blk[:, ZIGZAG] = coef[i:i + _IDCT_CHUNK]
-        blk = blk.reshape(-1, 8, 8) * q
+        blk = blk.reshape(-1, 8, 8)
+        dq = blk * q
+        exact = bool(dq.max(initial=0) > 8191 or dq.min(initial=0) < -8191)
+        if exact:
+            dq = _wrap16(dq)
         # columns: each input row k is vertical frequency k of every column
-        ws = np.clip(np.stack(_idct_1d([blk[:, k, :] for k in range(8)], 13 - 2), 1),
+        ws = np.clip(np.stack(_idct_1d([dq[:, k, :] for k in range(8)], 13 - 2, exact), 1),
                      -32768, 32767)
+        if exact:
+            flat = ~blk[:, 1:, :].any((1, 2))
+            ws[flat] = _wrap16(dq[flat, :1, :] << 2)
         # rows: input u is horizontal frequency u of every row; output x column x
-        cols = _idct_1d([ws[:, :, u] for u in range(8)], 13 + 2 + 3)
-        out[i:i + blk.shape[0]] = np.clip(np.stack(cols, 2) + 128, 0, 255)
+        cols = _idct_1d([ws[:, :, u] for u in range(8)], 13 + 2 + 3,
+                        bool(ws.max(initial=0) > 16383 or ws.min(initial=0) < -16383))
+        out[i:i + blk.shape[0]] = np.clip(np.stack(cols, 2), -128, 127) + 128
     return out
 
 
@@ -523,57 +676,57 @@ def _color_space(frame, jfif: bool, adobe) -> str:
     return "rgb" if frame.ids == [82, 71, 66] else "ycc"  # ids 'R', 'G', 'B'
 
 
+
 class Tables:
     """The tables a JPEG decoder keeps from one stream to the next, as
     libjpeg keeps them in its decompressor: quantisation tables and Huffman
-    tables by id. An abbreviated table-specification stream (read_tables)
-    fills them for the abbreviated image streams that follow (a JPEG-in-TIFF
-    file's strips and tiles); a table an image stream defines replaces the
-    one of its id for the streams after it too. Arithmetic conditioning
-    (DAC) and the restart interval are not kept: libjpeg resets them at
-    each SOI."""
+    tables (their counts and symbols) by id. An abbreviated
+    table-specification stream (read_tables) fills them for the
+    abbreviated image streams that follow (a JPEG-in-TIFF file's strips and
+    tiles); a table an image stream defines replaces the one of its id for
+    the streams after it too, as do the standard tables a Huffman-coded
+    image stream gets for tables 0 and 1 it leaves undefined. Arithmetic
+    conditioning (DAC) and the restart interval are not kept: libjpeg
+    resets them at each SOI."""
 
     def __init__(self):
         self.q, self.dc, self.ac = {}, {}, {}
+
+
+class _Progress:
+    """What libjpeg keeps of a stream's scans: per component each
+    coefficient's Al after the last scan (-1: never sent; coef_bits) and
+    before the last scan of the component (prev_coef_bits), the scans so
+    far, whether the image is one scan, and the last iMCU row that the
+    last scan began with its data not yet run out (last_good_iMCU_row)."""
+
+    def __init__(self, nf: int):
+        self.bits = [[-1] * 64 for _ in range(nf)]
+        self.prev = [[-1] * 64 for _ in range(nf)]
+        self.scans, self.onepass, self.done, self.last_good = 0, False, False, -1
 
 
 def read_tables(data: bytes, tables: Tables | None = None) -> Tables:
     """The tables of an abbreviated table-specification stream (SOI, DQT
     and DHT segments, EOI), added to `tables` (new ones if None)."""
     tables = Tables() if tables is None else tables
-    _read(bytes(data), tables, image=False)
+    _read(bytes(data), tables, image=False, tiff=True)
     return tables
 
 
-def read_frame(data: bytes) -> _Frame:
-    """The frame header (SOF) of a JPEG stream, found without decoding a
-    scan: its size, components and their sampling factors."""
-    data = bytes(data)
+def read_frame(data: bytes, tiff: bool = False) -> _Frame:
+    """The frame header (SOF) of a JPEG stream as jpeg_read_header finds
+    it, without decoding a scan: its size, components and their sampling
+    factors. `tiff` as for decode_jpeg_samples."""
     if data[:2] != b"\xff\xd8":
         raise DecodeError("not a JPEG stream (no SOI)")
-    pos = 2
-    while pos + 4 <= len(data):
-        if data[pos] != 0xFF:
-            raise DecodeError("no marker where a marker segment should start")
-        marker = data[pos + 1]
-        if marker == 0xFF or marker in _STANDALONE:
-            pos += 1 if marker == 0xFF else 2
-            continue
-        end = pos + 2 + int.from_bytes(data[pos + 2:pos + 4], "big")
-        if marker in _SOF_KINDS:
-            raise DecodeError(f"{_SOF_KINDS[marker]} JPEG (SOF{marker - 0xC0}) is not supported")
-        if marker in _SOF_DECODED:
-            return _Frame(marker, data[pos + 4:end])
-        if marker in (0xDA, 0xD9):
-            break
-        pos = end
-    raise DecodeError("no SOF before the first scan")
+    return _read(bytes(data), Tables(), image=True, tiff=tiff, header=True)
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:
     """(H, W, 3) uint8 pixels of a JPEG file, top row first, as PIL's
-    `convert("RGB")` of it; raises DecodeError on what is not supported,
-    corrupt or truncated."""
+    `convert("RGB")` of it; raises DecodeError on what is not supported
+    and where PIL fails."""
     samples, space = decode_jpeg_samples(data)
     if space == "grey":
         return np.repeat(samples, 3, 2)
@@ -582,7 +735,8 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     return samples
 
 
-def decode_jpeg_samples(data: bytes, tables: Tables | None = None, space: str | None = None):
+def decode_jpeg_samples(data: bytes, tables: Tables | None = None, space: str | None = None,
+                        tiff: bool = False):
     """(samples, space) of a JPEG stream: the (H, W, n) uint8 samples that
     libjpeg's decompressor outputs, top row first, and the colour space it
     read. `tables` holds the tables of streams read before (read_tables),
@@ -592,8 +746,12 @@ def decode_jpeg_samples(data: bytes, tables: Tables | None = None, space: str | 
     (JCS_UNKNOWN: the components as decoded, each upsampled to the image's
     size). The samples are, by space: "grey" one channel; "ycc" and "rgb"
     RGB; "cmyk" and "ycck" libjpeg's CMYK (YCCK converted: C, M, Y = 255 -
-    the YCC conversion's R, G, B); "raw" one channel a component."""
-    frame, planes, inferred = decode_jpeg_planes(data, tables)
+    the YCC conversion's R, G, B); "raw" one channel a component. `tiff`
+    reads the stream as libtiff's JPEG codecs hand it to libjpeg: a fake
+    EOI wherever the data runs out (tif_jpeg.c std_fill_input_buffer), and
+    of a one-scan image nothing after its scan (jpeg_finish_decompress's
+    errors are ignored)."""
+    frame, planes, inferred = decode_jpeg_planes(data, tables, tiff)
     space = space or inferred
     if space == "ycc" and len(frame.ids) != 3:
         raise DecodeError(f"{len(frame.ids)} components where YCbCr has 3")
@@ -606,137 +764,211 @@ def decode_jpeg_samples(data: bytes, tables: Tables | None = None, space: str | 
     return np.stack(planes, -1), space
 
 
-def decode_jpeg_planes(data: bytes, tables: Tables | None = None):
+def decode_jpeg_planes(data: bytes, tables: Tables | None = None, tiff: bool = False):
     """(frame, planes, space) of a JPEG stream: each component's samples
     at its own size (its share of the image's, rounded up), as libjpeg's
     raw-data output gives them (block smoothing, inverse DCT, no
     upsampling, no colour conversion), and the colour space libjpeg infers.
-    `tables` as for decode_jpeg_samples."""
-    frame, coefs, bits, latched, space = _read(bytes(data), Tables() if tables is None
-                                               else tables, image=True)
-    smooth = frame.progressive and _smoothing_ok(bits, latched)
+    A component no scan reached has no table latched, and libjpeg's
+    dequantiser, zeroed, makes it 128 throughout. `tables` and `tiff` as
+    for decode_jpeg_samples."""
+    frame, coefs, prog, latched, space = _read(bytes(data), Tables() if tables is None
+                                               else tables, image=True, tiff=tiff)
+    smooth = frame.progressive and _smoothing_ok(frame, prog, latched)
     planes = []
     for c in range(len(frame.ids)):
-        coef = _block_smooth(frame, c, coefs[c], bits[c], latched[c]) if smooth else coefs[c]
-        blocks = _idct(coef, latched[c])
+        q = latched.get(c, np.zeros(64, np.int64))
+        coef = _block_smooth(frame, c, coefs[c], prog, q) if smooth else coefs[c]
+        blocks = _idct(coef, q)
         bh, bw = frame.bh[c], frame.bw[c]
         plane = blocks.reshape(bh, bw, 8, 8).transpose(0, 2, 1, 3).reshape(bh * 8, bw * 8)
         planes.append(plane[:frame.ch[c], :frame.cw[c]])
     return frame, planes, space
 
 
-def _read(data: bytes, tables: Tables, image: bool):
-    """Parse a stream from SOI to EOI and entropy-decode its scans with
-    `tables` (updated by its DQT and DHT segments): (frame, coefficients,
-    bits, latched quantisation tables, colour space) of an image stream;
-    None of a table-specification stream (`image` False), which must hold
-    no frame."""
+class _Reader:
+    """libjpeg's marker reader's view of the stream: bytes read one after
+    another from `pos`, the data's end suspending (INPUT_BYTE)."""
+
+    def __init__(self, data: bytes, pos: int):
+        self.data, self.pos = data, pos
+
+    def byte(self) -> int:
+        if self.pos >= len(self.data):
+            raise _Suspend("truncated file inside a marker segment")
+        self.pos += 1
+        return self.data[self.pos - 1]
+
+    def two(self) -> int:
+        return self.byte() << 8 | self.byte()
+
+    def take(self, n: int) -> bytes:
+        if self.pos + n > len(self.data):
+            raise _Suspend("truncated file inside a marker segment")
+        self.pos += n
+        return self.data[self.pos - n:self.pos]
+
+
+def _get_dht(rd: _Reader, tables: Tables) -> None:
+    """jdmarker.c get_dht, its checks where it makes them."""
+    length = rd.two() - 2
+    while length > 16:
+        index = rd.byte()
+        counts = rd.take(16)
+        n = sum(counts)
+        length -= 17
+        if n > 256 or n > length:
+            raise DecodeError("bad Huffman table (DHT)")
+        symbols = rd.take(n)
+        length -= n
+        if index & 0x10:
+            if index - 0x10 >= 4:
+                raise DecodeError(f"bad DHT table index {index:#04x}")
+            tables.ac[index - 0x10] = (counts, symbols)
+        else:
+            if index >= 4:
+                raise DecodeError(f"bad DHT table index {index:#04x}")
+            tables.dc[index] = (counts, symbols)
+    if length:
+        raise DecodeError("bad DHT segment length")
+
+
+def _get_dqt(rd: _Reader, tables: Tables) -> None:
+    """jdmarker.c get_dqt: a table cut short is padded with ones."""
+    length = rd.two() - 2
+    while length > 0:
+        n = rd.byte()
+        length -= 1
+        pq, tq = n >> 4, n & 15
+        if tq >= 4:
+            raise DecodeError(f"bad DQT table index {tq}")
+        count = min(64, length // 2 if pq else length)
+        q = np.frombuffer(rd.take(count * (2 if pq else 1)), ">u2" if pq else np.uint8)
+        tables.q[tq] = np.ones(64, np.int64)
+        tables.q[tq][ZIGZAG[:count]] = q
+        length -= count * (2 if pq else 1)
+    if length:
+        raise DecodeError("bad DQT segment length")
+
+
+def _get_dac(rd: _Reader, cond) -> None:
+    """jdmarker.c get_dac."""
+    length = rd.two() - 2
+    while length > 0:
+        index, value = rd.byte(), rd.byte()
+        length -= 2
+        if index >= 32:
+            raise DecodeError(f"bad DAC table index {index}")
+        if index >= 16:
+            cond[1][index - 16] = value
+        elif value & 15 > value >> 4:
+            raise DecodeError(f"bad DAC value {value:#04x}: L above U")
+        else:
+            cond[0][index] = (value & 15, value >> 4)
+    if length:
+        raise DecodeError("bad DAC segment length")
+
+
+def _read(data: bytes, tables: Tables, image: bool, tiff: bool = False, header: bool = False):
+    """Parse a stream from SOI to EOI as libjpeg's marker reader does
+    (jdmarker.c read_markers, each segment's checks where it makes them)
+    and entropy-decode its scans with `tables` (updated by its DQT and DHT
+    segments): (frame, coefficients, progress, latched quantisation
+    tables, colour space) of an image stream; None of a
+    table-specification stream (`image` False), which must hold no frame.
+    What libjpeg only warns about is read on; its errors raise. A one-scan
+    image whose rows are all out is complete where the data ends (PIL's
+    JpegDecode.c takes jpeg_finish_decompress suspending so); any other
+    stream must reach EOI. `tiff` as for decode_jpeg_samples; `header`
+    returns the frame at the first SOS (jpeg_read_header)."""
     if data[:2] != b"\xff\xd8":
         raise DecodeError("not a JPEG file (no SOI)")
-    qtabs, dc_tabs, ac_tabs = tables.q, tables.dc, tables.ac
+    real = len(data)
+    if tiff:  # libtiff's source: a fake EOI each time the data runs out
+        data += b"\xff\xd9" * 64
     cond = ({}, {})  # DAC: (L, U) of each DC table, Kx of each AC table; reset at SOI
-    frame, coefs, latched = None, None, {}
+    frame, coefs, latched, prog = None, None, {}, None
     restart, jfif, adobe, space = 0, False, None, None
-    bits = None  # per component: each coefficient's Al after the last scan (-1: never sent)
-    pos = 2
-    while True:
-        # libjpeg's next_marker: skip other bytes, fill bytes, stuffed zeros
+    rd, unread = _Reader(data, 2), None
+    try:
         while True:
-            i = data.find(b"\xff", pos)
-            if i < 0:
-                raise DecodeError("truncated file: no EOI")
-            pos = i + 1
-            while pos < len(data) and data[pos] == 0xFF:
-                pos += 1
-            if pos >= len(data):
-                raise DecodeError("truncated file: no EOI")
-            if data[pos] != 0:
+            if unread is None:
+                marker, rd.pos = _next_marker(data, rd.pos)
+            else:
+                (marker, rd.pos), unread = unread, None
+            if marker == 0xD9:
                 break
-        marker = data[pos]
-        pos += 1
-        if marker == 0xD9:
-            break
-        if marker in _STANDALONE:
-            continue
-        if pos + 2 > len(data):
-            raise DecodeError("truncated file inside a marker segment")
-        length = int.from_bytes(data[pos:pos + 2], "big")
-        body = data[pos + 2:pos + length]
-        if length < 2 or pos + length > len(data):
-            raise DecodeError(f"truncated file inside marker FF{marker:02X}'s segment")
-        pos += length
-        if marker in _SOF_KINDS:
-            raise DecodeError(f"{_SOF_KINDS[marker]} JPEG (SOF{marker - 0xC0}) is not supported")
-        if marker in _SOF_DECODED:
-            if not image:
-                raise DecodeError("a frame (SOF) in a table-specification stream")
-            if frame is not None:
-                raise DecodeError("two SOF markers")
-            frame = _Frame(marker, body)
-            coefs = [np.zeros((bh * bw, 64), np.int32) for bh, bw in zip(frame.bh, frame.bw)]
-            bits = [[-1] * 64 for _ in frame.ids]
-        elif marker == 0xC4:
-            i = 0
-            while i < len(body):
-                if i + 17 > len(body):
-                    raise DecodeError("short DHT segment")
-                tc, th = body[i] >> 4, body[i] & 15
-                counts = body[i + 1:i + 17]
-                symbols = body[i + 17:i + 17 + sum(counts)]
-                if tc > 1 or th > 3:
-                    raise DecodeError(f"bad DHT table class {tc} or id {th}")
-                (ac_tabs if tc else dc_tabs)[th] = _huffman_lut(counts, symbols, tc == 0)
-                i += 17 + sum(counts)
-        elif marker == 0xCC:  # jdmarker.c get_dac
-            if len(body) % 2:
-                raise DecodeError("bad DAC segment length")
-            for index, value in zip(body[::2], body[1::2]):
-                if index >= 32:
-                    raise DecodeError(f"bad DAC table index {index}")
-                if index >= 16:
-                    cond[1][index - 16] = value
-                elif value & 15 > value >> 4:
-                    raise DecodeError(f"bad DAC value {value:#04x}: L above U")
-                else:
-                    cond[0][index] = (value & 15, value >> 4)
-        elif marker == 0xDB:
-            i = 0
-            while i < len(body):
-                pq, tq = body[i] >> 4, body[i] & 15
-                size = 128 if pq else 64
-                if pq > 1 or tq > 3 or i + 1 + size > len(body):
-                    raise DecodeError("bad DQT segment")
-                q = np.frombuffer(body, ">u2" if pq else np.uint8, 64, i + 1).astype(np.int64)
-                qtabs[tq] = np.empty(64, np.int64)
-                qtabs[tq][ZIGZAG] = q
-                i += 1 + size
-        elif marker == 0xDD:
-            if len(body) < 2:
-                raise DecodeError("short DRI segment")
-            restart = int.from_bytes(body[:2], "big")
-        elif marker == 0xE0:
-            jfif = jfif or (len(body) >= 14 and body[:5] == b"JFIF\x00")
-        elif marker == 0xEE:
-            if len(body) >= 12 and body[:5] == b"Adobe":
-                adobe = body[11]
-        elif marker == 0xDA:
-            if frame is None:
-                raise DecodeError("a scan (SOS) in a table-specification stream" if not image
-                                  else "SOS before SOF")
-            if not latched:  # libjpeg reads the colour space up to the first SOS
-                space = _color_space(frame, jfif, adobe)
-            pos = _decode_scan(data, pos, body, frame, coefs, bits, latched, tables, cond,
-                               restart)
-        elif marker not in _SKIPPED:
-            raise DecodeError(f"unknown marker FF{marker:02X}")
+            if marker in _STANDALONE:  # RSTn and TEM: no segment
+                continue
+            if marker == 0xD8:
+                raise DecodeError("SOI twice")
+            if marker in _SKIPPED:  # APPn, COM, DNL: skipped after their length
+                length = rd.two() - 2
+                if marker in (0xE0, 0xEE):  # get_interesting_appn reads the first bytes
+                    head = rd.take(max(0, min(length, 14 if marker == 0xE0 else 12)))
+                    jfif = jfif or (len(head) == 14 and head[:5] == b"JFIF\x00")
+                    if len(head) == 12 and head[:5] == b"Adobe":
+                        adobe = head[11]
+                    length -= len(head)
+                rd.pos += max(length, 0)
+                if tiff and rd.pos > real:  # std_skip_input_data past the end: the fake EOI
+                    rd.pos = real
+            elif marker in _SOF_DECODED:
+                if frame is not None:
+                    raise DecodeError("two SOF markers")
+                if not image:
+                    raise DecodeError("a frame (SOF) in a table-specification stream")
+                length = rd.two()
+                head = rd.take(6)
+                nf = head[5]
+                if length - 8 != 3 * nf:
+                    raise DecodeError("bad SOF segment length")
+                frame = _Frame(marker, head + rd.take(3 * nf))
+                coefs = [np.zeros((bh * bw, 64), np.int32) for bh, bw in zip(frame.bh, frame.bw)]
+                prog = _Progress(len(frame.ids))
+            elif marker in _SOF_KINDS:
+                raise DecodeError(f"{_SOF_KINDS[marker]} JPEG (SOF{marker - 0xC0}) is not "
+                                  "supported")
+            elif marker == 0xC4:
+                _get_dht(rd, tables)
+            elif marker == 0xDB:
+                _get_dqt(rd, tables)
+            elif marker == 0xCC:
+                _get_dac(rd, cond)
+            elif marker == 0xDD:
+                if rd.two() != 4:
+                    raise DecodeError("bad DRI segment length")
+                restart = rd.two()
+            elif marker == 0xDA:
+                if frame is None:
+                    raise DecodeError("a scan (SOS) in a table-specification stream" if not image
+                                      else "SOS before SOF")
+                length, ns = rd.two(), rd.byte()
+                if length != 2 * ns + 6 or not 1 <= ns <= 4:
+                    raise DecodeError("bad SOS segment")
+                body = bytes([ns]) + rd.take(2 * ns + 3)
+                if header:
+                    return frame
+                if not latched:  # libjpeg reads the colour space up to the first SOS
+                    space = _color_space(frame, jfif, adobe)
+                unread = _decode_scan(data, rd.pos, body, frame, coefs, prog, latched, tables,
+                                      cond, restart)
+                if tiff and prog.onepass:
+                    break
+                if unread is None:
+                    raise _Suspend("truncated file: no marker after the scan")
+            else:
+                raise DecodeError(f"unknown marker FF{marker:02X}")
+    except _Suspend:
+        if not (image and prog is not None and prog.onepass and prog.done):
+            raise
     if not image:
         return None
     if frame is None:
         raise DecodeError("no SOF before EOI")
-    for c, cid in enumerate(frame.ids):
-        if bits[c][0] < 0:
-            raise DecodeError(f"component {cid} has no DC scan")
-    return frame, coefs, bits, latched, space
+    if not prog.scans:
+        raise DecodeError("no scan (SOS) before EOI")
+    return frame, coefs, prog, latched, space
 
 
 # Block smoothing (libjpeg-turbo's jdcoefct.c decompress_smooth_data): the
@@ -768,14 +1000,16 @@ _SMOOTH_DC = {1: -2, 2: -6, 3: -8, 4: -6, 5: -2, 6: -6, 7: 6, 8: 42, 9: 6, 10: -
               22: -6, 23: -8, 24: -6, 25: -2}
 
 
-def _smoothing_ok(bits, latched) -> bool:
-    """jdcoefct.c smoothing_ok: every component's table nonzero at the DC
-    and the first nine ACs, and some component with one of zig-zag
-    coefficients 1-9 not fully sent (its last scan's Al above 0, or no
-    scan)."""
-    if not all(q[[0, *_SMOOTH_POS]].all() for q in latched.values()):
-        return False
-    return any(b != 0 for cbits in bits for b in cbits[1:10])
+def _smoothing_ok(frame, prog, latched) -> bool:
+    """jdcoefct.c smoothing_ok: every component's table latched and nonzero
+    at the DC and the first nine ACs, every component's DC sent at least
+    in part, and some component with one of zig-zag coefficients 1-9 not
+    fully sent (its last scan's Al above 0, or no scan)."""
+    for c in range(len(frame.ids)):
+        q = latched.get(c)
+        if q is None or not q[[0, *_SMOOTH_POS]].all() or prog.bits[c][0] < 0:
+            return False
+    return any(b != 0 for cbits in prog.bits for b in cbits[1:10])
 
 
 def _smooth_rows(frame, c, rows: int) -> list:
@@ -806,14 +1040,14 @@ def _smooth_estimate(num, q: int, al: int):
     return np.where(num < 0, -pred, pred)
 
 
-def _block_smooth(frame, c, coef, cbits, q) -> np.ndarray:
+def _smooth(frame, c, coef, cbits, q) -> np.ndarray:
     """libjpeg-turbo's interblock smoothing of a progressive component
-    whose coefficients 1-9 are not all fully sent (jdcoefct.c
-    decompress_smooth_data): each of them still zero and not exact (its
-    Al not 0) is estimated from the 5x5 DC neighbourhood (the edge block
-    repeated past the image's right and left, rows as _smooth_rows picks
-    them) and the quantisation table; where none of 1-9 was sent the DC is
-    re-estimated too. `coef` (blocks, 64) zig-zag in; a new array out."""
+    with the coefficient bits `cbits` (1-9 read): each of zig-zag
+    coefficients 1-9 still zero and not exact (its Al not 0) is estimated
+    from the 5x5 DC neighbourhood (the edge block repeated past the image's
+    right and left, rows as _smooth_rows picks them) and the quantisation
+    table; where none of 1-9 was sent the DC is re-estimated too. `coef`
+    (blocks, 64) zig-zag in; a new array out."""
     rows, cols = -(-frame.ch[c] // 8), -(-frame.cw[c] // 8)
     bw = frame.bw[c]
     grid = coef.reshape(-1, bw, 64)
@@ -841,110 +1075,323 @@ def _block_smooth(frame, c, coef, cbits, q) -> np.ndarray:
     return out.reshape(coef.shape)
 
 
-def _decode_scan(data, pos, body, frame, coefs, bits, latched, tables, cond, restart) -> int:
+def _block_smooth(frame, c, coef, prog, q) -> np.ndarray:
+    """decompress_smooth_data over a component: iMCU rows up to the last
+    scan's last good one with the coefficient bits after all scans, the
+    rows after it with those before the component's last scan (all unsent
+    after a single scan), as libjpeg-turbo smooths a scan that ran out of
+    data."""
+    out = _smooth(frame, c, coef, prog.bits[c], q)
+    rows = -(-frame.ch[c] // 8)
+    first_bad = (prog.last_good + 1) * frame.v[c]  # the first block row past it
+    if first_bad < rows:
+        before = prog.prev[c] if prog.scans > 1 else [-1] * 64
+        late = _smooth(frame, c, coef, before, q).reshape(-1, frame.bw[c], 64)
+        out.reshape(-1, frame.bw[c], 64)[first_bad:rows] = late[first_bad:rows]
+    return out
+
+
+def _decode_scan(data, pos, body, frame, coefs, prog, latched, tables, cond, restart):
     """Decode one scan (its SOS header `body`, its data from `pos`) into
-    the components' coefficient arrays, with the frame's entropy coding;
-    returns the offset of the marker after its data."""
+    the components' coefficient arrays, as libjpeg's entropy decoders read
+    it, restarts and damaged data included; returns the marker after its
+    data, as (code, offset past it), or None at the data's end."""
     ns = body[0] if body else 0
-    if not 1 <= ns <= 4 or len(body) < 4 + 2 * ns:
+    if not 1 <= ns <= 4 or len(body) != 4 + 2 * ns:
         raise DecodeError("bad SOS segment")
-    comps, tabs = [], []
-    for j in range(ns):
+    comps, tabs, slot = [], [], [None] * 4
+    for j in range(ns):  # jdmarker.c get_sos, its test of cur_comp_info[ci] as it is
         cid, t = body[1 + 2 * j:3 + 2 * j]
-        if cid not in frame.ids:
-            raise DecodeError(f"SOS names component {cid}, which the frame lacks")
-        comps.append(frame.ids.index(cid))
+        c = next((c for c in range(min(len(frame.ids), 4))
+                  if frame.ids[c] == cid and slot[c] is None), None)
+        if c is None or c in comps:
+            raise DecodeError(f"SOS names component {cid}, which the frame lacks or the scan "
+                              "names twice")
+        slot[j] = c
+        comps.append(c)
         tabs.append((t >> 4, t & 15))
     ss, se, a = body[1 + 2 * ns:4 + 2 * ns]
     ah, al = a >> 4, a & 15
+    prog.scans += 1
+    if prog.scans == 1:  # jdinput.c initial_setup, jinit_huff_decoder's standard tables
+        prog.onepass = not frame.progressive and ns == len(frame.ids)
+        if not frame.arith:
+            for (tc, th), spec in _STD_TABLES.items():
+                (tables.ac if tc else tables.dc).setdefault(th, spec)
+    elif prog.onepass:
+        raise DecodeError("a second scan in a one-scan image (libjpeg expects EOI)")
     if not frame.progressive:
         ss, se, ah, al = 0, 63, 0, 0
     elif ((ss == 0) != (se == 0)) or ss > se or se > 63 or (ss and ns != 1) or al > 13 or (
             ah and al != ah - 1):
         raise DecodeError(f"bad progression parameters Ss {ss} Se {se} Ah {ah} Al {al} (SOS)")
+    blocks, slots, per_mcu = frame.scan_blocks(comps)
+    if per_mcu > 10:
+        raise DecodeError(f"{per_mcu} blocks an MCU (SOS): at most 10")
     for c in comps:  # libjpeg latches a component's table at its first scan
         if c not in latched:
             if frame.tq[c] not in tables.q:
                 raise DecodeError(f"quantisation table {frame.tq[c]} is not defined (DQT)")
             latched[c] = tables.q[frame.tq[c]]
-        for k in range(ss, se + 1):  # jdphuff.c / jdarith.c start_pass
-            if ah != max(bits[c][k], 0):
-                raise DecodeError(f"bad progression: coefficient {k} of component "
-                                  f"{frame.ids[c]} refined out of order (SOS)")
-            bits[c][k] = al
-        if ss and bits[c][0] < 0:
-            raise DecodeError("bad progression: an AC scan before the DC scan (SOS)")
-    lut_dc, lut_ac = [], []
+        if frame.progressive:  # jdphuff.c / jdarith.c start_pass: a bad order only warns
+            for k in range(min(ss, 1), max(se, 9) + 1):
+                prog.prev[c][k] = prog.bits[c][k] if prog.scans > 1 else 0
+            for k in range(ss, se + 1):
+                prog.bits[c][k] = al
     if not frame.arith:
-        need_dc = ss == 0 and ah == 0
+        luts = []
         for td, ta in tabs:
-            if need_dc and td not in tables.dc:
-                raise DecodeError(f"DC Huffman table {td} is not defined (DHT)")
-            if se > 0 and ta not in tables.ac:
-                raise DecodeError(f"AC Huffman table {ta} is not defined (DHT)")
-            lut_dc.append(tables.dc.get(td))
-            lut_ac.append(tables.ac.get(ta))
-    blocks, slots, per_mcu = frame.scan_blocks(comps)
-    if per_mcu > 10:
-        raise DecodeError(f"{per_mcu} blocks an MCU (SOS): at most 10")
-    d, intervals, end = _scan_data(data, pos)
-    spans = _intervals(blocks.size, restart * per_mcu, intervals)
-    if ah and ss == 0 and not frame.arith:  # Huffman DC refinement: one raw bit a block
-        _dc_refine(d, spans, comps, coefs, blocks, slots, al)
-        return end
-    width = se - ss + 1
-    # the scan's band of each of its components, one list, component after
-    # component, holding the coefficients so far: as libjpeg's, a scan writes
-    # only the coefficients it decodes
-    offsets = np.cumsum([0] + [coefs[c].shape[0] * width for c in comps])
-    bases = (offsets[slots] + blocks * width - ss).tolist()
-    band = array.array("i", np.concatenate(
-        [coefs[c][:, ss:se + 1].ravel() for c in comps]).astype(np.int32).tobytes())
+            dc = ac = None
+            if not frame.progressive or (ss == 0 and ah == 0):
+                dc = _table(tables.dc, td, "dc")
+            if not frame.progressive or ss:
+                ac = _table(tables.ac, ta, "refine" if ah else "ac")
+            luts.append((dc, ac))
+    # the scan's components' coefficients so far, one list: a block's DC
+    # alone (DC scans) or its 64 coefficients and 16 places for a run past them
+    stride = 1 if frame.progressive and ss == 0 else 80
+    offsets = np.cumsum([0] + [coefs[c].shape[0] * stride for c in comps])
+    bases = (offsets[slots] + blocks * stride).tolist()
+    source = np.zeros(int(offsets[-1]), np.int32)
+    for j, c in enumerate(comps):
+        source[offsets[j]:offsets[j + 1]].reshape(-1, stride)[:, :64] = coefs[c][:, :stride]
+    band = array.array("i", source.tobytes())
     slots_l = slots.tolist()
     if frame.arith:
-        jpeg_arith.decode_scan(d, spans, bases, slots_l, band, tabs, frame.progressive, ss, se,
-                               ah, al, *cond)
+        coder = jpeg_arith.Scan(bases, slots_l, band, tabs, frame.progressive, ss, se, ah, al,
+                                *cond)
     else:
-        _huffman_scan(d, spans, bases, slots_l, band, frame.progressive, ss, se, ah, al, lut_dc,
-                      lut_ac, ns)
-    band = np.frombuffer(band, np.int32)
+        coder = _HuffmanScan(bases, slots_l, band, source, luts, frame.progressive, ss, se, ah,
+                             al, bool(restart))
+    ent = _Entropy(data, pos)
+    per_interval = restart * per_mcu
+    nblocks = blocks.size
+    at, unread, expected, flag, good = pos, None, 0, False, -1
+    for b0 in range(0, nblocks, per_interval or nblocks):
+        b1 = min(b0 + per_interval, nblocks) if per_interval else nblocks
+        if not flag:
+            good = b0 // per_mcu
+        if b0:  # a restart is due (jdhuff.c / jdarith.c process_restart)
+            if unread is None:
+                unread = ent.marker(at)
+                if unread is None:
+                    raise _Suspend("truncated file: no marker where a restart is due")
+            unread, at = _resync(ent, unread, expected)
+            expected = (expected + 1) & 7
+            if unread is None:
+                flag = False
+        if unread is None:
+            s, e, eof = ent.segment(at)
+        else:  # the marker left unread: no data for the interval
+            s, e, eof = 0, 0, False
+        if eof and not (prog.onepass and b1 == nblocks):
+            raise _Suspend("truncated file inside a scan")
+        got = coder.interval(ent, b0, b1, s, e, eof, flag, per_mcu)
+        if got is None:  # jdarith.c get_byte: no suspending
+            raise DecodeError("truncated file inside an arithmetic-coded scan")
+        end_block, flag = got
+        mcu = (end_block - 1) // per_mcu
+        if mcu > b0 // per_mcu:
+            good = mcu
+    prog.last_good = frame.imcu_row(comps, max(good, 0))
+    vals = np.frombuffer(band, np.int32).astype(np.int16)  # stored as libjpeg's 16-bit JCOEF
     for j, c in enumerate(comps):
-        coefs[c][:, ss:se + 1] = band[offsets[j]:offsets[j + 1]].reshape(-1, width)
-    return end
-
-
-def _huffman_scan(d, spans, bases, slots, band, progressive, ss, se, ah, al, lut_dc, lut_ac,
-                  ns) -> None:
-    """A Huffman-coded scan into `band`; corrupt data raises."""
-    w = _windows(d)
-    try:
-        if not progressive:
-            _decode_sequential(w, spans, bases, slots, list(zip(lut_dc, lut_ac)), band, ns)
-        elif ss == 0:
-            _decode_dc_first(w, spans, bases, slots, lut_dc, band, ns, al)
-        elif ah:
-            _decode_ac_refine(w, spans, bases, lut_ac[0], band, ss, se, al)
+        part = vals[offsets[j]:offsets[j + 1]].reshape(-1, stride)
+        if stride == 1:
+            coefs[c][:, 0] = part[:, 0]
         else:
-            _decode_ac_first(w, spans, bases, lut_ac[0], band, ss, se, al)
-    except (TypeError, IndexError) as e:  # a peek with no code, or data past the end
-        raise DecodeError("corrupt or truncated entropy-coded data") from e
-    except OverflowError as e:
-        raise DecodeError("corrupt data: a coefficient out of range") from e
-    if np.abs(np.frombuffer(band, np.int32)).max(initial=0) > 32767:
-        raise DecodeError("corrupt data: a coefficient out of range")
+            coefs[c][:] = part[:, :64]
+    prog.done = True
+    return unread if unread is not None else ent.marker(at)
 
 
-def _dc_refine(d, spans, comps, coefs, blocks, slots, al) -> None:
-    """A progressive DC refinement scan: bit Al of each block's DC, one
-    bit a block in coding order (each interval starts on a byte)."""
-    got = np.empty(blocks.size, np.int64)
-    for b0, b1, p, end in spans:
-        if p + (b1 - b0) > end:
-            raise DecodeError("corrupt or truncated data: a scan runs past its data")
-        got[b0:b1] = np.unpackbits(d[p >> 3:end >> 3])[:b1 - b0]
-    for j, c in enumerate(comps):
-        sel = slots == j
-        coefs[c][blocks[sel], 0] |= (got[sel] << al).astype(np.int32)
+def _table(specs: dict, th: int, kind: str) -> list:
+    if th not in specs:
+        raise DecodeError(f"{'DC' if kind == 'dc' else 'AC'} Huffman table {th} is not "
+                          "defined (DHT)")
+    counts, symbols = specs[th]
+    return _huffman_lut(bytes(counts), bytes(symbols), kind)
+
+
+class _HuffmanScan:
+    """The Huffman decoder of one scan over its restart intervals, as
+    libjpeg's (jdhuff.c, jdphuff.c): each MCU decoded until one reads past
+    its segment's data, which it completes with zero bits; after it the
+    interval's MCUs keep what they held (insufficient_data) until the
+    next restart."""
+
+    def __init__(self, bases, slots, band, source, luts, progressive, ss, se, ah, al,
+                 restart):
+        self.bases, self.slots, self.band, self.source = bases, slots, band, source
+        self.ss, self.se, self.al, self.restart, self.ncomps = ss, se, al, restart, len(luts)
+        dc = [t[0] for t in luts]
+        if not progressive:
+            self.kind, self.tables = "seq", luts
+        elif ss == 0:
+            self.kind, self.tables = ("dc_refine", None) if ah else ("dc", dc)
+        else:
+            self.kind, self.tables = ("ac_refine" if ah else "ac"), luts[0][1]
+
+    def _run(self, w, b0, b1, p, end):
+        """Decode blocks b0..b1 from bit p: (the block after the last
+        decoded, p), stopping after a block that reads past bit `end`."""
+        bases, slots, band, tables = self.bases, self.slots, self.band, self.tables
+        if self.kind == "seq":
+            return _decode_sequential(w, b0, b1, p, end, bases, slots, tables, band,
+                                      [0] * self.ncomps)
+        if self.kind == "dc":
+            return _decode_dc_first(w, b0, b1, p, end, bases, slots, tables, band,
+                                    [0] * self.ncomps, self.al)
+        fn = _decode_ac_refine if self.kind == "ac_refine" else _decode_ac_first
+        return fn(w, b0, b1, p, end, bases, tables, band, self.ss, self.se, self.al, [0])
+
+    def interval(self, ent, b0, b1, s, e, eof, flag, per_mcu) -> tuple:
+        """Decode restart interval b0..b1 from its segment's bits s..e
+        unless the data ran out before it (flag); returns (the block after
+        the last MCU decoded, whether the data ran out)."""
+        if flag:
+            return b0, True
+        if self.kind == "dc_refine":
+            return self._dc_refine(ent, b0, b1, s, e, per_mcu)
+        stop, p = self._run(ent.w, b0, b1, s, e)
+        if p <= e:
+            if eof and _suspends(ent, self, b0, b1, s, per_mcu):
+                raise _Suspend("truncated file inside a scan")
+            return b1, False
+        if eof:
+            raise _Suspend("truncated file inside a scan")
+        # an MCU read past its data: decode the interval again up to that
+        # MCU's end with zeros after the data, from the band as it was
+        stop = min(b1, b0 + ((stop - 1 - b0) // per_mcu + 1) * per_mcu)
+        self._restore(b0, stop)
+        self._run(ent.zeros_after(s, e), b0, stop, 0, 1 << 62)
+        return stop, True
+
+    def _restore(self, b0, b1):
+        """Blocks b0..b1 as the scan found them."""
+        width = 1 if self.kind in ("dc", "dc_refine") else 80
+        for i in range(b0, b1):
+            j = self.bases[i]
+            self.band[j:j + width] = array.array("i", self.source[j:j + width].tobytes())
+
+    def _dc_refine(self, ent, b0, b1, s, e, per_mcu) -> tuple:
+        """A progressive DC refinement's interval: bit Al of each block's
+        DC, one bit a block, zeros past the data (jdphuff.c
+        decode_mcu_DC_refine)."""
+        n = b1 - b0
+        got = np.unpackbits(ent.d[s >> 3:e >> 3])[:n]
+        p1, band, bases = 1 << self.al, self.band, self.bases
+        for i in np.flatnonzero(got).tolist():
+            band[bases[b0 + i]] |= p1
+        if n > e - s:
+            return min(b1, b0 + ((e - s) // per_mcu + 1) * per_mcu), True
+        return b1, False
+
+
+class _PastTheEnd(Exception):
+    pass
+
+
+def _suspends(ent, scan, b0, b1, s, per_mcu) -> bool:
+    """Whether libjpeg-turbo suspends in the last restart interval of a
+    one-scan image, blocks b0..b1 from bit s, whose data the file's end
+    ends: its bit reader (jdhuff.c, a 64-bit buffer) reads ahead of the
+    bits it needs, and at the file's end it suspends even where those bits
+    are all there. For an MCU, decode_mcu_fast (no restart interval set,
+    512 bytes a block left) reads six bytes whenever 16 bits or fewer are
+    left before a code or a value (an 0xFF 0xFF sends the MCU to the slow
+    path); decode_mcu_slow fills to 57 bits whenever fewer than it needs
+    are left (8 before a code, 9 and then 1 a bit for a code longer than
+    8, the value's size before a value)."""
+    w, slots, tables = ent.w, scan.slots, scan.tables
+    mcus, p = [], s
+    for m0 in range(b0, b1, per_mcu):  # the (code length, value size) of each symbol
+        syms = []
+        for i in range(m0, min(m0 + per_mcu, b1)):
+            dc, ac = tables[slots[i]]
+            x = w[p >> 3]
+            n, m, _ = dc[(x >> (48 - (p & 7))) & 65535]
+            syms.append((n - m.bit_length(), m.bit_length()))
+            p += n
+            k = 1
+            while k < 64:
+                x = w[p >> 3]
+                n, r, m, _ = ac[(x >> (48 - (p & 7))) & 65535]
+                p += n
+                syms.append((n - m.bit_length(), m.bit_length()))
+                if m:
+                    k += r + 1
+                elif r == 16:
+                    k += 16
+                else:
+                    break
+        mcus.append(syms)
+    raw = ent.raw[ent.start:].tolist()
+    end, at, left = len(raw), 0, 0
+
+    def slow_fill():
+        nonlocal at, left
+        while left < 57:
+            if at >= end:
+                raise _PastTheEnd
+            c = raw[at]
+            at += 1
+            while c == 0xFF:  # 0xFF 0x00 (after any fill 0xFFs) is a data byte
+                if at >= end:
+                    raise _PastTheEnd
+                c = raw[at]
+                at += 1
+                if c == 0:
+                    break
+            left += 8
+
+    def fast_fill():
+        nonlocal at, left
+        for _ in range(6):
+            c = raw[at]
+            at += 1
+            if c == 0xFF:
+                if raw[at]:
+                    return False
+                at += 1
+            left += 8
+        return True
+
+    try:
+        for syms in mcus:
+            if not scan.restart and end - at >= 512 * per_mcu:
+                saved = at, left
+                for code, size in syms:
+                    if left <= 16 and not fast_fill():
+                        break
+                    left -= code
+                    if size:
+                        if left <= 16 and not fast_fill():
+                            break
+                        left -= size
+                else:
+                    continue
+                at, left = saved
+            for code, size in syms:
+                if left < 8:
+                    slow_fill()
+                if code <= 8:
+                    left -= code
+                else:
+                    if left < 9:
+                        slow_fill()
+                    left -= 9
+                    for _ in range(code - 9):
+                        if left < 1:
+                            slow_fill()
+                        left -= 1
+                if size:
+                    if left < size:
+                        slow_fill()
+                    left -= size
+    except _PastTheEnd:
+        return True
+    return False
 
 
 # ---------------------------------------------------------------------------

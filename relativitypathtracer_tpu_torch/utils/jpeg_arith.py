@@ -2,17 +2,19 @@
 Annex D and sections F.2.4 and G.2, as libjpeg-turbo's jdarith.c and
 jaricom.c do it.
 
-`decode_scan` fills the same coefficient band that utils/image_decode's
-Huffman scans fill, so everything after entropy decoding (the inverse DCT,
+`Scan` fills the same coefficient band that utils/image_decode's Huffman
+scans fill, so everything after entropy decoding (the inverse DCT,
 upsampling, colour conversion, block smoothing) is shared. It covers a
 sequential scan (SOF9) and the four progressive kinds (SOF10): DC first, AC
 first, DC refinement and AC refinement.
 
 As libjpeg, the decoder never raises on bad data: past the end of a restart
-interval's bytes it reads zeros (libjpeg's get_byte after a marker), and a
-magnitude or spectral overflow stops the interval's decoding, leaving what
-was decoded before it, until the next restart marker. A coefficient is
-stored as libjpeg's 16-bit JCOEF stores it, wrapped to -32768..32767.
+interval's segment it reads zeros (libjpeg's get_byte after a marker), and
+a magnitude or spectral overflow stops the interval's decoding, leaving
+what was decoded before it, until the next restart marker. Only the
+file's end, which libjpeg's arithmetic decoder cannot wait past, fails. A
+coefficient is stored as libjpeg's 16-bit JCOEF stores it, wrapped to
+-32768..32767.
 
 The decoder is a Python loop over binary decisions: a few microseconds
 each, paid once when a texture is read.
@@ -175,34 +177,46 @@ def _ac_value(dec, st, fixed, i: int, k: int, kx: int) -> int:
     return -v if sign else v
 
 
-def decode_scan(d, spans, bases, slots, band, tables, progressive: bool, ss: int, se: int,
-                ah: int, al: int, dc_cond: dict, ac_k: dict) -> None:
-    """Decode one scan into `band` (block i's coefficient k, zig-zag, at
-    bases[i] + k; the band holds the coefficients so far, and a first pass
-    writes only what it decodes, as libjpeg does). `d` is the scan's bytes
-    with stuffing removed; `spans` each restart interval's (first block,
-    block past its last, first bit, bit past its last) in `d`; `slots` each
-    block's component in the scan, and `tables` each component's (DC
-    table, AC table). `dc_cond` and `ac_k` hold the DAC segments' values
-    by table (the defaults where absent). Statistics, predictions and
-    contexts start afresh each interval (jdarith.c process_restart)."""
-    lohi = {t: ((1 << l) >> 1, (1 << u) >> 1)
-            for t, (l, u) in ((t, dc_cond.get(t, DEFAULT_DC)) for t, _ in tables)}
-    if not progressive:
-        kind = _sequential
-    elif ss == 0:
-        kind = _dc_refine if ah else _dc_first
-    else:
-        kind = _ac_refine if ah else _ac_first
-    for b0, b1, p, end in spans:
-        dec = Decoder(d[p >> 3:end >> 3].tobytes())
+class Scan:
+    """The arithmetic decoder of one scan over its restart intervals. It
+    fills the coefficient band that utils/image_decode's Huffman scans fill
+    (block i's coefficient k, zig-zag, at bases[i] + k; the band holds the
+    coefficients so far, and a first pass writes only what it decodes, as
+    libjpeg does); `slots` gives each block's component in the scan and
+    `tables` each component's (DC table, AC table). `dc_cond` and `ac_k`
+    hold the DAC segments' values by table (the defaults where absent)."""
+
+    def __init__(self, bases, slots, band, tables, progressive: bool, ss: int, se: int, ah: int,
+                 al: int, dc_cond: dict, ac_k: dict):
+        self.bases, self.slots, self.band, self.tables = bases, slots, band, tables
+        self.ss, self.se, self.al, self.ac_k = ss, se, al, ac_k
+        self.lohi = {t: ((1 << lo) >> 1, (1 << up) >> 1)
+                     for t, (lo, up) in ((t, dc_cond.get(t, DEFAULT_DC)) for t, _ in tables)}
+        if not progressive:
+            self.kind = _sequential
+        elif ss == 0:
+            self.kind = _dc_refine if ah else _dc_first
+        else:
+            self.kind = _ac_refine if ah else _ac_first
+
+    def interval(self, ent, b0: int, b1: int, s: int, e: int, eof: bool, flag, per_mcu):
+        """Decode restart interval b0..b1 from the scan data's bits s..e
+        (ent.d, stuffing removed), zeros after them as after a marker:
+        statistics, predictions and contexts start afresh (jdarith.c
+        process_restart). Returns (b1, False), or None where the decoder
+        reads past the data's end (eof): libjpeg's arithmetic decoder cannot
+        suspend."""
+        data = ent.d[s >> 3:e >> 3].tobytes()
+        dec = Decoder(data)
         dc_stats = [bytearray(DC_BINS) for _ in range(16)]
         ac_stats = [bytearray(AC_BINS) for _ in range(16)]
         try:
-            kind(dec, range(b0, b1), bases, slots, band, tables, dc_stats, ac_stats,
-                 bytearray([FIXED]), lohi, ac_k, ss, se, al)
+            self.kind(dec, range(b0, b1), self.bases, self.slots, self.band, self.tables,
+                      dc_stats, ac_stats, bytearray([FIXED]), self.lohi, self.ac_k, self.ss,
+                      self.se, self.al)
         except _Stop:
             pass  # the rest of the interval keeps what it held
+        return None if eof and dec.pos > len(data) else (b1, False)
 
 
 def _sequential(dec, blocks, bases, slots, band, tables, dc_stats, ac_stats, fixed, lohi, ac_k,

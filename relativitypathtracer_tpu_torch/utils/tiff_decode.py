@@ -46,10 +46,18 @@ Anything else (ThunderScan, CCITT RLEW, SGILog, WebP, YCbCr planar under a
 compression, 4x4 YCbCr where libtiff's reader misreads its own layout, a
 planar palette beside an extra plane, an old-style JPEG interchange format
 in several strips or with other YCbCr coefficients or reference values
-than the defaults) raises DecodeError naming it, as does corrupt or
-truncated data; so does a CCITT or subsampled-YCbCr strip whose data ends
-before its rows, where libtiff leaves the rest of its buffer as it was and
-PIL shows that memory. Nothing returns a partial image.
+than the defaults) raises DecodeError naming it, as does data on which
+PIL fails; so does a CCITT strip whose data ends before its rows, where
+libtiff leaves the rest of its buffer as it was and PIL shows that
+memory. Damaged data is read as PIL and libtiff 4.7.1 read it: libtiff's
+own reading of the directory beside PIL's (its checks that fail a file
+PIL takes, the strips, byte counts and fill order where PIL's reading
+stops early, its estimate of missing byte counts, its read errors past
+the file's end); the YCbCr route (TIFFRGBAImage, which PIL runs without
+stopping on errors) taking what a failing Deflate, LZW or LZMA strip
+wrote over its buffer (zeros, or the row's tile before); LZMA data whose
+error comes after the strip is out taken whole; the JPEG codecs as
+utils/image_decode reads libtiff's streams.
 """
 
 from __future__ import annotations
@@ -195,6 +203,160 @@ def _get(tags: dict, tag: int, default=None):
     return v
 
 
+# libtiff's directory reading (tif_dirread.c TIFFReadDirectory): the tags
+# whose damage fails the directory (their reading is not recovered from),
+# and the field types its integer readers take
+_FATAL_SHORT = {277, 259, 284}  # SamplesPerPixel, Compression, PlanarConfiguration
+_FATAL_LONG = {_WIDTH, _LENGTH, _ROWS_PER_STRIP, _TILE_WIDTH, _TILE_LENGTH, 32997, 32998}
+_INTEGER_TYPES = {1, 3, 4, 6, 8, 9, 16, 17}
+_SIGNED_TYPES = {6, 8, 9, 17}
+_LIBTIFF_TYPES = {1: ("B", 1), 2: ("B", 1), 3: ("H", 2), 4: ("L", 4), 5: ("Q", 8), 6: ("b", 1),
+                  7: ("B", 1), 8: ("h", 2), 9: ("l", 4), 10: ("q", 8), 11: ("L", 4),
+                  12: ("Q", 8), 13: ("L", 4), 16: ("Q", 8), 17: ("q", 8), 18: ("Q", 8)}
+
+
+def _libtiff_directory(data: bytes, pos: int, endian: str, big: bool) -> dict:
+    """The checks with which libtiff's TIFFReadDirectory fails a directory
+    that PIL's own reading takes (PIL then fails in libtiff's decoder): a
+    count past 4096 or entries past the file's end (TIFFFetchDirectory);
+    SamplesPerPixel, Compression, the image's and tiles' sizes,
+    PlanarConfiguration, RowsPerStrip and ExtraSamples each of a type
+    other than an integer's, of another count than one, out of range or of
+    a bad value. Returns {tag: (type, count, offset of the values)} of the
+    entries, first of each tag."""
+    count_fmt, entry_fmt, inline = ("Q", "HHQ", 8) if big else ("H", "HHL", 4)
+    head = struct.calcsize("<" + count_fmt)
+    size = 20 if big else 12
+    if pos + head > len(data):
+        raise DecodeError("TIFF: libtiff cannot read the directory's count")
+    (n,) = struct.unpack_from(endian + count_fmt, data, pos)
+    if n > 4096:
+        raise DecodeError(f"TIFF: {n} directory entries (libtiff's sanity check: 4096)")
+    if pos + head + n * size > len(data):
+        raise DecodeError("TIFF: libtiff cannot read the directory: it runs past the file")
+    entries = {}
+    for k in range(n):
+        at = pos + head + k * size
+        tag, kind, count = struct.unpack_from(endian + entry_fmt, data, at)
+        entries.setdefault(tag, (kind, count, at + struct.calcsize("<" + entry_fmt)))
+
+    def values(tag):
+        kind, count, at = entries[tag]
+        code, width = _LIBTIFF_TYPES[kind]
+        if count * width > inline:
+            (at,) = struct.unpack_from(endian + ("Q" if big else "L"), data, at)
+            if at + count * width > len(data):
+                raise DecodeError(f"TIFF: tag {tag}'s values lie past the file's end (libtiff)")
+        return struct.unpack_from(endian + code * count, data, at)
+
+    def one(tag, top):
+        kind, count, _ = entries[tag]
+        if kind not in _INTEGER_TYPES:
+            raise DecodeError(f"TIFF: incompatible type {kind} for tag {tag} (libtiff)")
+        if count != 1:
+            raise DecodeError(f"TIFF: incorrect count {count} for tag {tag} (libtiff)")
+        (v,) = values(tag)
+        if v < 0 or v > top:
+            raise DecodeError(f"TIFF: tag {tag}'s value {v} is out of range (libtiff)")
+        return v
+
+    spp = one(277, 0xFFFF) if 277 in entries else 1
+    if spp == 0:
+        raise DecodeError("TIFF: SamplesPerPixel 0 (libtiff)")
+    for tag in _FATAL_SHORT & entries.keys() - {277}:
+        kind, count, _ = entries[tag]
+        if tag == 259 and count != 1 and kind in _INTEGER_TYPES and count >= spp:
+            got = values(tag)  # one value a sample, all the same (PersampleShort)
+            if len(set(got)) != 1 or min(got) < 0 or max(got) > 0xFFFF:
+                raise DecodeError("TIFF: a Compression value a sample, not all the same "
+                                  "(libtiff)")
+            continue
+        v = one(tag, 0xFFFF)
+        if tag == 284 and v not in (1, 2):
+            raise DecodeError(f"TIFF: PlanarConfiguration {v} (libtiff)")
+    for tag in _FATAL_LONG & entries.keys():
+        v = one(tag, 0xFFFFFFFF)
+        if tag == _ROWS_PER_STRIP and v == 0:
+            raise DecodeError("TIFF: RowsPerStrip 0 (libtiff)")
+    if _EXTRA in entries:
+        kind, count, _ = entries[_EXTRA]
+        if kind not in _INTEGER_TYPES:
+            raise DecodeError(f"TIFF: incompatible type {kind} for ExtraSamples (libtiff)")
+        got = values(_EXTRA)
+        if count > spp or any(v < 0 or v > 2 and not (v == 999 and i == count - 1)
+                              for i, v in enumerate(got)):
+            raise DecodeError("TIFF: bad ExtraSamples (libtiff)")
+    if _WIDTH not in entries and _LENGTH not in entries:
+        raise DecodeError("TIFF: missing ImageLength (libtiff)")
+    return entries
+
+
+# the tags libtiff alone reads (the strips' and tiles' layout, the codecs'
+# settings): where PIL's reading of the directory stops before them, libtiff
+# still decodes with them
+_LIBTIFF_SIDE = {_STRIP_OFFSETS, _STRIP_COUNTS, _ROWS_PER_STRIP, _TILE_WIDTH, _TILE_LENGTH,
+                 _TILE_OFFSETS, _TILE_COUNTS, _PREDICTOR, _T4_OPTIONS, _JPEG_TABLES}
+
+
+def _row_bytes(data: bytes, entries: dict, endian: str, big: bool, width: int) -> int:
+    """TIFFScanlineSize of a chunky image by libtiff's reading of the
+    directory: the samples and the first sample's bits."""
+    got = []
+    for tag in (_SAMPLES, _BITS):
+        try:
+            got.append(_libtiff_values(data, entries[tag], endian, big, 1)[0])
+        except (KeyError, DecodeError):
+            got.append(1)
+    return (width * got[0] * got[1] + 7) // 8
+
+
+def _libtiff_bytes(data: bytes, entry, endian: str, big: bool) -> bytes:
+    """A directory entry's bytes (an UNDEFINED field's), past the file's
+    end failing."""
+    kind, count, at = entry
+    width = _LIBTIFF_TYPES.get(kind, (None, 1))[1]
+    if count * width > (8 if big else 4):
+        (at,) = struct.unpack_from(endian + ("Q" if big else "L"), data, at)
+    if at + count * width > len(data):
+        raise DecodeError("TIFF: a field's bytes lie past the file's end")
+    return data[at:at + count * width]
+
+
+def _libtiff_values(data: bytes, entry, endian: str, big: bool, n: int) -> tuple:
+    """The first n values of a directory entry of an unsigned integer type
+    as libtiff reads them (the strip arrays: TIFFFetchStripThing); values
+    past the file's end fail."""
+    kind, count, at = entry
+    if kind not in (3, 4, 16):
+        raise DecodeError(f"TIFF: a field of type {kind} where libtiff reads integers")
+    code, width = _LIBTIFF_TYPES[kind]
+    if count * width > (8 if big else 4):
+        (at,) = struct.unpack_from(endian + ("Q" if big else "L"), data, at)
+    if count < n or at + n * width > len(data):
+        raise DecodeError("TIFF: libtiff cannot read the strip byte counts")
+    return struct.unpack_from(endian + code * n, data, at)
+
+
+def _estimated_counts(data: bytes, entries: dict, offsets, planes: int, big: bool):
+    """libtiff's EstimateStripByteCounts for a compressed file without
+    StripByteCounts: the file past the header, the directory and its
+    values, shared by every strip (a plane's share, planar), the last
+    strip cut at the file's end."""
+    space = (16 + 8 + len(entries) * 20 + 8) if big else (8 + 2 + len(entries) * 12 + 4)
+    for kind, count, _ in entries.values():
+        width = _LIBTIFF_TYPES.get(kind, (None, 0))[1]
+        if width == 0:
+            raise DecodeError(f"TIFF: cannot size unknown tag type {kind} (libtiff)")
+        if width * count > (8 if big else 4):
+            space += width * count
+    space = len(data) if len(data) < space else len(data) - space
+    counts = [space // planes] * len(offsets)
+    last = offsets[-1]
+    if last + counts[-1] > len(data):
+        counts[-1] = 0 if last >= len(data) else len(data) - last
+    return tuple(counts)
+
+
 _DTYPES = {1: np.uint8, 2: np.uint8, 4: np.uint8, 8: np.uint8, 16: np.uint16, 32: np.uint32}
 _BIT_REVERSED = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
 
@@ -206,6 +368,30 @@ def _reverse_bits(buf: np.ndarray) -> np.ndarray:
 
 # ---------------------------------------------------------------------------
 # the codecs: each turns one strip's or tile's bytes into `size` bytes
+
+
+class _Partial(DecodeError):
+    """A codec's error, with the bytes libtiff's codec wrote before it
+    (`out`): libtiff's RGBA reader, which PIL's YCbCr route uses without
+    stopping on errors, reads on with them."""
+
+    def __init__(self, message: str, out: bytes):
+        super().__init__(message)
+        self.out = out
+
+
+def _chunk(data: bytes, offsets, counts, k: int, size: int) -> bytes:
+    """Strip or tile k's bytes as libtiff's TIFFFillStrip and TIFFFillTile
+    read them: a count past 1 MiB is first limited to ten times the decoded
+    size and 4096; a count of 0, or bytes past the file's end, fail."""
+    off, n = offsets[k], counts[k]
+    if n > 1 << 20 and (n - 4096) // 10 > size:
+        n = size * 10 + 4096
+    if n == 0 or off + n > len(data):
+        raise DecodeError(f"TIFF: read error on strip or tile {k}: {n} bytes at {off} in a file "
+                          f"of {len(data)}")
+    return data[off:off + n]
+
 
 def _lzw(src: bytes, size: int) -> bytes:
     """libtiff's LZWDecode (new-style codes): MSB first, 9 to 12 bits, the
@@ -227,14 +413,15 @@ def _lzw(src: bytes, size: int) -> bytes:
             break
         if prev is None:
             if code > 255:
-                raise DecodeError(f"TIFF: corrupt LZW data (code {code} after a clear)")
+                raise _Partial(f"TIFF: corrupt LZW data (code {code} after a clear)",
+                               bytes(out[:size]))
             entry = table[code]
         elif code < len(table):
             entry = table[code]
         elif code == len(table):
             entry = prev + prev[:1]
         else:
-            raise DecodeError(f"TIFF: corrupt LZW data (code {code})")
+            raise _Partial(f"TIFF: corrupt LZW data (code {code})", bytes(out[:size]))
         out += entry
         if prev is not None and len(table) < 4096:
             table.append(prev + entry[:1])
@@ -242,7 +429,7 @@ def _lzw(src: bytes, size: int) -> bytes:
             width += 1
         prev = entry
     if len(out) < size:
-        raise DecodeError("TIFF: not enough LZW data for a strip")
+        raise _Partial("TIFF: not enough LZW data for a strip", bytes(out))
     return bytes(out[:size])
 
 
@@ -303,13 +490,26 @@ def _lzw_compat(src: bytes, size: int) -> bytes:
 
 
 def _lzma(src: bytes, size: int) -> bytes:
-    """libtiff's LZMA codec: an xz stream, `size` bytes of it."""
+    """libtiff's LZMA codec: an xz stream, `size` bytes of it. As
+    LZMADecode, an error after the `size` bytes are out (a bad check, a
+    damaged index) is no failure: liblzma's output up to it is taken from
+    the longest start of the data that decodes without one."""
     try:
         out = lzma.LZMADecompressor(format=lzma.FORMAT_XZ).decompress(src, size)
     except lzma.LZMAError as e:
-        raise DecodeError(f"TIFF: corrupt LZMA data: {e}") from e
+        lo, hi, out = 0, len(src), b""
+        while lo < hi:  # the longest start of the data that decodes cleanly
+            mid = (lo + hi + 1) // 2
+            try:
+                got = lzma.LZMADecompressor(format=lzma.FORMAT_XZ).decompress(src[:mid], size)
+            except lzma.LZMAError:
+                hi = mid - 1
+            else:
+                lo, out = mid, got
+        if len(out) < size:
+            raise _Partial(f"TIFF: corrupt LZMA data: {e}", out) from e
     if len(out) < size:
-        raise DecodeError("TIFF: not enough LZMA data for a strip")
+        raise _Partial("TIFF: not enough LZMA data for a strip", out)
     return out
 
 
@@ -335,13 +535,158 @@ def _packbits(src: bytes, size: int) -> bytes:
 
 
 def _deflate(src: bytes, size: int) -> bytes:
+    """libtiff's ZIPDecode: a zlib stream, `size` bytes of it; on an error
+    the bytes inflate wrote before it (inflate_prefix)."""
     try:
         out = zlib.decompressobj().decompress(src, size)
     except zlib.error as e:
-        raise DecodeError(f"TIFF: corrupt Deflate data: {e}") from e
+        raise _Partial(f"TIFF: corrupt Deflate data: {e}", inflate_prefix(src, size)) from e
     if len(out) < size:
-        raise DecodeError("TIFF: not enough Deflate data for a strip")
+        raise _Partial("TIFF: not enough Deflate data for a strip", out)
     return out
+
+
+# zlib's inflate as far as it writes before an error (RFC 1950/1951): the
+# lengths' and distances' bases and extra bits
+_LEN_BASE = (3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 15, 17, 19, 23, 27, 31, 35, 43, 51, 59, 67, 83, 99,
+             115, 131, 163, 195, 227, 258)
+_LEN_EXTRA = (0,) * 8 + tuple(n for n in range(1, 6) for _ in range(4)) + (0,)
+_DIST_BASE = (1, 2, 3, 4, 5, 7, 9, 13, 17, 25, 33, 49, 65, 97, 129, 193, 257, 385, 513, 769,
+              1025, 1537, 2049, 3073, 4097, 6145, 8193, 12289, 16385, 24577)
+_DIST_EXTRA = (0, 0) + tuple(n for n in range(14) for _ in range(2))
+_CL_ORDER = (16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3, 13, 2, 14, 1, 15)
+
+
+class _Stop(Exception):
+    """The stream ends, or zlib finds an error: inflate writes no more."""
+
+
+def _huffman(lengths, kind: str) -> dict:
+    """{(length, code): symbol} of canonical code lengths, with zlib's
+    inflate_table checks: an over-subscribed set is an error, and so is
+    an incomplete one, except one code of one bit (lengths and distances)
+    or no code at all (distances)."""
+    left, counts = 1, [0] * 16
+    for n in lengths:
+        counts[n] += 1
+    top = max(lengths, default=0)
+    if top == 0:
+        if kind == "codes":
+            raise _Stop
+        return {}
+    for n in range(1, 16):
+        left = (left << 1) - counts[n]
+        if left < 0:
+            raise _Stop
+    if left > 0 and (kind == "codes" or top != 1):
+        raise _Stop
+    code, start, table = 0, {}, {}
+    for n in range(1, 16):
+        code = (code + counts[n - 1]) << 1 if n > 1 else 0
+        start[n] = code
+    for sym, n in enumerate(lengths):
+        if n:
+            table[(n, start[n])] = sym
+            start[n] += 1
+    return table
+
+
+def inflate_prefix(src: bytes, size: int) -> bytes:
+    """The bytes zlib's inflate writes of a zlib stream, at most `size`,
+    before the stream's end, the data's end or an error stops it (what
+    libtiff's ZIPDecode leaves in its buffer when it fails)."""
+    bits, nbits = int.from_bytes(src, "little"), 8 * len(src)
+    out, pos = bytearray(), 0
+
+    def get(n: int) -> int:
+        nonlocal pos
+        if pos + n > nbits:
+            raise _Stop
+        pos += n
+        return (bits >> (pos - n)) & ((1 << n) - 1)
+
+    def decode(table: dict) -> int:
+        code = n = 0
+        while n < 15:
+            code = code << 1 | get(1)
+            n += 1
+            if (n, code) in table:
+                return table[(n, code)]
+        raise _Stop
+
+    try:
+        if len(src) < 2 or (src[0] << 8 | src[1]) % 31 or src[0] & 15 != 8 or src[0] >> 4 > 7 or (
+                src[1] & 0x20):
+            raise _Stop
+        pos = 16
+        final = False
+        while not final and len(out) < size:
+            final, kind = get(1), get(2)
+            if kind == 0:
+                pos = -(-pos // 8) * 8
+                n, inv = get(16), get(16)
+                if n != inv ^ 0xFFFF:
+                    raise _Stop
+                take = min(n, (nbits - pos) // 8)
+                out += src[pos // 8:pos // 8 + take]
+                pos += 8 * take
+                if take < n:
+                    raise _Stop
+                continue
+            if kind == 1:
+                lit = _huffman([8] * 144 + [9] * 112 + [7] * 24 + [8] * 8, "lens")
+                dist = _huffman([5] * 32, "dists")
+            elif kind == 2:
+                nlen, ndist, ncode = get(5) + 257, get(5) + 1, get(4) + 4
+                if nlen > 286 or ndist > 30:
+                    raise _Stop
+                cl = [0] * 19
+                for i in range(ncode):
+                    cl[_CL_ORDER[i]] = get(3)
+                codes = _huffman(cl, "codes")
+                lens = []
+                while len(lens) < nlen + ndist:
+                    sym = decode(codes)
+                    if sym < 16:
+                        lens.append(sym)
+                        continue
+                    if sym == 16:
+                        if not lens:
+                            raise _Stop
+                        rep, value = 3 + get(2), lens[-1]
+                    else:
+                        rep, value = (3 + get(3), 0) if sym == 17 else (11 + get(7), 0)
+                    if len(lens) + rep > nlen + ndist:
+                        raise _Stop
+                    lens += [value] * rep
+                if lens[256] == 0:
+                    raise _Stop
+                lit = _huffman(lens[:nlen], "lens")
+                dist = _huffman(lens[nlen:], "dists")
+            else:
+                raise _Stop
+            while len(out) < size:
+                sym = decode(lit)
+                if sym < 256:
+                    out.append(sym)
+                    continue
+                if sym == 256:
+                    break
+                if sym > 285:
+                    raise _Stop
+                length = _LEN_BASE[sym - 257] + get(_LEN_EXTRA[sym - 257])
+                d = decode(dist)
+                if d > 29:
+                    raise _Stop
+                d = _DIST_BASE[d] + get(_DIST_EXTRA[d])
+                if d > len(out):
+                    raise _Stop
+                for _ in range(min(length, size - len(out))):
+                    out.append(out[-d])
+    except _Stop:
+        pass
+    return bytes(out[:size])
+
 
 
 _CODECS = {5: _lzw, 8: _deflate, 32946: _deflate, 32773: _packbits, 34925: _lzma,
@@ -389,10 +734,35 @@ def decode_tiff(data: bytes) -> np.ndarray:
     if comp not in _COMPRESSIONS:
         raise DecodeError(f"TIFF compression {_OTHER_COMPRESSIONS.get(comp, comp)} is not "
                           "supported")
+    entries = {}
+    if comp != 1:  # libtiff opens the file too, and reads its directory its own way
+        entries = _libtiff_directory(data, first, endian, big)
+        for tag in _LIBTIFF_SIDE & entries.keys() - tags.keys():  # where PIL's reading stopped
+            try:
+                kind, count, _ = entries[tag]
+                tags[tag] = (_libtiff_values(data, entries[tag], endian, big, count)
+                             if tag != _JPEG_TABLES else _libtiff_bytes(data, entries[tag],
+                                                                        endian, big))
+            except DecodeError:
+                pass
+        if _STRIP_COUNTS not in tags and _STRIP_OFFSETS in tags and _TILE_OFFSETS not in tags:
+            offsets = _get(tags, _STRIP_OFFSETS)
+            if _STRIP_COUNTS in entries:  # PIL skipped it; libtiff reads it as it can
+                tags[_STRIP_COUNTS] = _libtiff_values(data, entries[_STRIP_COUNTS], endian, big,
+                                                      len(offsets))
+            else:
+                tags[_STRIP_COUNTS] = _estimated_counts(
+                    data, entries, offsets,
+                    _get(tags, _SAMPLES, 1) if _get(tags, _PLANAR, 1) == 2 else 1, big)
     planar = _get(tags, _PLANAR, 1)
     # PIL reads an old-style JPEG file as YCbCr, whatever its photometric tag
     photo = 6 if comp == 6 else _get(tags, _PHOTOMETRIC, 0)
-    fill = _get(tags, _FILL_ORDER, 1)
+    fill = lt_fill = _get(tags, _FILL_ORDER, 1)
+    if comp != 1 and _FILL_ORDER not in tags and entries.get(_FILL_ORDER, (0, 0))[1] == 1:
+        try:  # libtiff undoes the fill order PIL's reading stopped before
+            lt_fill = _libtiff_values(data, entries[_FILL_ORDER], endian, big, 1)[0]
+        except DecodeError:
+            pass
     if _WIDTH not in tags or _LENGTH not in tags:
         raise DecodeError("TIFF: missing dimensions")
     width, height = _get(tags, _WIDTH), _get(tags, _LENGTH)
@@ -467,14 +837,18 @@ def decode_tiff(data: bytes) -> np.ndarray:
         if planar == 2:
             bps = 8
     elif how == "ycc":
-        samples = _ycbcr_rgba(data, tags, comp, width, height, endian, fill)
+        samples = _ycbcr_rgba(data, tags, comp, width, height, endian, lt_fill)
+    elif {_SAMPLES, _BITS} & entries.keys() - tags.keys() and (
+            _row_bytes(data, entries, endian, big, width) != (width * sum(bits) + 7) // 8):
+        # PIL's reading stopped before them: libtiff's rows are not PIL's
+        raise DecodeError("TIFF: libtiff's scanline size differs from PIL's row size")
     elif comp == 7:
         samples = _jpeg_samples(data, tags, photo, width, height, bps, nbands, planar)
     elif comp == 6:
         samples = _ojpeg_samples(data, tags, width, height, nbands, endian)
     else:
         samples = _libtiff_samples(data, tags, comp, width, height, bps, nbands, planar,
-                                   endian, fill)
+                                   endian, lt_fill)
         if how == "signed" and endian == ">" or mode == "F" and endian == ">":
             samples = samples.byteswap()  # PIL reads libtiff's native order as I;16BS, F;32BF
     rgb = _to_rgb(samples, mode, how, bps, palette)
@@ -573,6 +947,9 @@ def _libtiff_samples(data, tags, comp, width, height, bps, nbands, planar, endia
     if len(offsets) < across * down * planes:
         raise DecodeError("TIFF: fewer strips or tiles than the image needs")
     row_bytes = (tw * bps * per + 7) // 8
+    if not tiled and _get(tags, _ROWS_PER_STRIP, 0xFFFFFFFF) != 0xFFFFFFFF and (
+            th * row_bytes > 0x7FFFFFFF):
+        raise DecodeError(f"TIFF: {th} rows a strip overflow PIL's strip buffer")
     out = np.zeros((height, width, nbands), _DTYPES[bps])
     if comp in _CCITT:
         options = _get(tags, _T4_OPTIONS, (0,))[0] if comp == 3 else 0
@@ -589,7 +966,7 @@ def _libtiff_samples(data, tags, comp, width, height, bps, nbands, planar, endia
         for ty in range(down):
             for tx in range(across):
                 rows = th if tiled else min(th, height - ty * th)
-                src = data[offsets[k]:offsets[k] + counts[k]]
+                src = _chunk(data, offsets, counts, k, th * row_bytes)
                 k += 1
                 if fill == 2:
                     src = _reverse_bits(np.frombuffer(src, np.uint8)).tobytes()
@@ -637,12 +1014,13 @@ def _jpeg_samples(data, tags, photo, width, height, bps, nbands, planar):
             read_tables(bytes(tags[_JPEG_TABLES]), tables)
         except DecodeError as e:
             raise DecodeError(f"TIFF: bogus JPEGTables field: {e}") from e
-    streams = [data[offsets[k]:offsets[k] + counts[k]] for k in range(across * down * planes)]
+    streams = [_chunk(data, offsets, counts, k, th * tw * nbands // planes)
+               for k in range(across * down * planes)]
     sampling = (1, 1)
     if photo == 6:
         sampling = tuple(_get(tags, _YCBCR_SUBSAMPLING, ()))[:2]
         if not sampling:  # JPEGFixupTagsSubsampling: the first stream's, else the default
-            first = read_frame(streams[0])
+            first = read_frame(streams[0], tiff=True)
             ok = len(first.ids) == 3 and first.h[0] in (1, 2, 4) and first.v[0] in (1, 2, 4)
             sampling = (first.h[0], first.v[0]) if ok else (2, 2)
     out = np.zeros((height, width, nbands), np.uint8)
@@ -663,7 +1041,7 @@ def _jpeg_place(out, k, src, tables, sampling, photo, tiled, across, tw, th) -> 
     ty, tx = divmod(k, across)
     x0, y0 = tx * tw, ty * th
     seg_w, seg_h = (tw, th) if tiled else (width, min(th, height - y0))
-    frame = read_frame(src)
+    frame = read_frame(src, tiff=True)
     if len(frame.ids) != nbands:
         raise DecodeError(f"improper JPEG component count {len(frame.ids)} (expected {nbands})")
     factors = list(zip(frame.h, frame.v))
@@ -673,7 +1051,7 @@ def _jpeg_place(out, k, src, tables, sampling, photo, tiled, across, tw, th) -> 
     cut = not tiled and frame.width == seg_w and frame.height > seg_h and y0 + seg_h == height
     if (frame.width, frame.height) != (seg_w, seg_h) and not cut:
         raise DecodeError(f"{frame.width}x{frame.height} where {seg_w}x{seg_h} is expected")
-    s, _ = decode_jpeg_samples(src, tables, "ycc" if photo == 6 else "raw")
+    s, _ = decode_jpeg_samples(src, tables, "ycc" if photo == 6 else "raw", tiff=True)
     x1, y1 = min(x0 + tw, width), min(y0 + seg_h, height)
     out[y0:y1, x0:x1] = s[:y1 - y0, :x1 - x0]
 
@@ -741,15 +1119,30 @@ def _ycbcr_rgba(data, tags, comp, width, height, endian, fill):
         raise DecodeError("TIFF: YCbCr 4x4 subsampling of an odd count of blocks a row, or "
                           "tiles past the right edge, is not supported (libtiff misreads it)")
     out = np.zeros((height, width, 3), np.uint8)
+    buf = None
     for k in range(across * down):
         ty, tx = divmod(k, across)
         rows = th if tiled else min(th, height - ty * th)
         tall = -(-rows // vs)
-        src = data[offsets[k]:offsets[k] + counts[k]]
-        if fill == 2:
-            src = _reverse_bits(np.frombuffer(src, np.uint8)).tobytes()
-        b = np.frombuffer(_CODECS[comp](src, tall * wide * block), np.uint8)
-        b = b.reshape(tall, wide, block)
+        size = tall * wide * block
+        if not tiled or tx == 0:  # PIL's TIFFRGBAImageGet: a new buffer a strip or row of tiles
+            buf = None
+        try:
+            src = _chunk(data, offsets, counts, k, size)
+        except DecodeError:
+            if buf is None:
+                raise
+        else:  # (a tile that cannot be read shows the buffer as the last one left it)
+            if fill == 2:
+                src = _reverse_bits(np.frombuffer(src, np.uint8)).tobytes()
+            if buf is None:
+                buf = bytearray(size)
+            try:
+                got = _CODECS[comp](src, size)
+            except _Partial as e:  # TIFFRGBAImageGet reads on
+                got = e.out
+            buf[:len(got)] = got
+        b = np.frombuffer(bytes(buf), np.uint8).reshape(tall, wide, block)
         y = b[..., :hs * vs].reshape(tall, wide, vs, hs).transpose(0, 2, 1, 3).reshape(
             tall * vs, wide * hs)
         cb, cr = (np.repeat(np.repeat(b[..., i], vs, 0), hs, 1) for i in (-2, -1))
@@ -844,7 +1237,7 @@ def _ojpeg_samples(data, tags, width, height, nbands, endian):
     for k, stream in enumerate(streams):
         y0 = k * rows
         h = min(rows, height - y0) if len(streams) > 1 else height
-        frame = read_frame(stream)
+        frame = read_frame(stream, tiff=True)
         if frame.progressive or frame.arith:
             raise DecodeError("TIFF: old-style JPEG of a progressive or arithmetic-coded stream "
                               "is not supported")
@@ -852,7 +1245,7 @@ def _ojpeg_samples(data, tags, width, height, nbands, endian):
             raise DecodeError(f"TIFF: old-style JPEG stream of {len(frame.ids)} components, "
                               f"{frame.width}x{frame.height}, for {nbands} samples of "
                               f"{width}x{h}")
-        frame, planes, _ = decode_jpeg_planes(stream)
+        frame, planes, _ = decode_jpeg_planes(stream, tiff=True)
         if nbands == 1:
             out[y0:y0 + h, :, 0] = planes[0][:h, :width]
             continue

@@ -248,7 +248,7 @@ def test_smoothing_changes_what_it_should():
     data = jpeg_scans(_progressive("4:2:0", 40, 24), {0})
     try:
         keep = image_decode._smoothing_ok
-        image_decode._smoothing_ok = lambda bits, latched: False
+        image_decode._smoothing_ok = lambda frame, prog, latched: False
         assert not np.array_equal(decode_jpeg(data), _pil(data))
     finally:
         image_decode._smoothing_ok = keep
@@ -275,7 +275,7 @@ def test_complete_progressive_files_are_not_smoothed(case, monkeypatch):
     im.save(buf, "JPEG", **kw)
     real, seen = image_decode._smoothing_ok, []
     monkeypatch.setattr(image_decode, "_smoothing_ok",
-                        lambda bits, latched: seen.append(real(bits, latched)) or seen[-1])
+                        lambda *args: seen.append(real(*args)) or seen[-1])
     for data in (buf.getvalue(), (FIXTURES / "progressive.jpg").read_bytes()):
         seen.clear()
         got = decode_jpeg(data)

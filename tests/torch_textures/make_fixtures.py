@@ -3230,6 +3230,137 @@ def rare_fixtures(rng, Image) -> dict:
     return files
 
 
+# --- damaged JPEG and TIFF data --------------------------------------------------------
+
+def damaged_names() -> list:
+    """The fixtures the damaged-data sweep edits: every JPEG, the IPTC files
+    holding a JPEG, every TIFF."""
+    names = json.loads((HERE / "pil_rgb.json").read_text())["files"]
+    return sorted(n for n in names if n.endswith((".jpg", ".tif"))
+                  or n.startswith("jpeg_") and n.endswith(".iim"))
+
+
+_OTHER_MARKERS = (0xD9, 0xDA, 0xC4, 0xDB, 0xDD, 0xE1, 0xFE, 0xC0, 0xCC, 0xDC, 0xF0, 0x01, 0x05)
+
+
+def _scan_start(data: bytes) -> int:
+    """The offset just past the first SOS segment of a JPEG stream in
+    `data` (its first FF D8 FF on), or the file's middle where none is."""
+    pos = data.find(b"\xff\xd8\xff")
+    sos = data.find(b"\xff\xda", max(pos, 0))
+    if pos < 0 or sos < 0 or sos + 4 > len(data):
+        return len(data) // 2
+    return min(len(data) - 1, sos + 2 + int.from_bytes(data[sos + 2:sos + 4], "big"))
+
+
+def damaged_cases(name: str, data: bytes) -> list:
+    """The edits of the damaged-data sweep to fixture `name`: each is (at,
+    drop, put), the file with data[at:at + drop] replaced by bytes put.
+    Seeded by the SHA-256 of the name. A JPEG (40 edits): 16 bytes set
+    past max(len / 4, 200), 16 markers (0xFF and an RSTn or another marker
+    byte) put into the entropy-coded data, half inserted and half over two
+    bytes, 6 cuts past max(len / 4, 200) and 2 in the last 12 bytes. A TIFF
+    (12): 7 bytes set, 2 markers over two bytes, 3 cuts."""
+    rng = np.random.default_rng(int.from_bytes(hashlib.sha256(name.encode()).digest()[:4], "big"))
+    n = len(data)
+    lo = min(max(n // 4, 200), n - 1)
+    tiff = name.endswith(".tif")
+    counts = (7, 2, 3, 0) if tiff else (16, 16, 6, 2)
+    scan = lo if tiff else _scan_start(data)
+    cases = []
+    for _ in range(counts[0]):
+        at = int(rng.integers(lo, n))
+        cases.append((at, 1, bytes([int(rng.integers(0, 256))])))
+    for _ in range(counts[1]):
+        at = int(rng.integers(min(scan, n - 2), n - 1))
+        rst = rng.random() < 0.5
+        marker = int(rng.integers(0xD0, 0xD8)) if rst else int(rng.choice(_OTHER_MARKERS))
+        cases.append((at, 2 if tiff or rng.random() < 0.5 else 0, bytes([0xFF, marker])))
+    for _ in range(counts[2]):
+        at = int(rng.integers(lo, n))
+        cases.append((at, n - at, b""))
+    for _ in range(counts[3]):
+        at = n - int(rng.integers(1, 13))
+        cases.append((at, n - at, b""))
+    return cases
+
+
+def damaged(data: bytes, case) -> bytes:
+    """The file of one damaged_cases edit."""
+    at, drop, put = case
+    return data[:at] + put + data[at + drop:]
+
+
+def _pil_hashes(order) -> None:
+    """In a fresh process: each damaged file of the sweep, in the given
+    order of (name, case index), opened from a path by PIL as the JAX
+    package opens textures; prints {"name/index": {shape, sha256} or
+    "fails"}."""
+    import tempfile
+
+    from PIL import Image
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "case"
+        sources = {}
+        for name, i in order:
+            if name not in sources:
+                sources[name] = (HERE / name).read_bytes()
+            path.write_bytes(damaged(sources[name], damaged_cases(name, sources[name])[i]))
+            try:
+                with Image.open(path) as im:
+                    rgb = np.asarray(im.convert("RGB"))
+                out[f"{name}/{i}"] = {"shape": list(rgb.shape),
+                                      "sha256": hashlib.sha256(rgb.tobytes()).hexdigest()}
+            except Exception:  # noqa: BLE001 - any failure is PIL's refusal
+                out[f"{name}/{i}"] = "fails"
+    print(json.dumps(out))
+
+
+def damaged_outcomes() -> dict:
+    """{name: [[at, drop, put (hex), outcome], ...]} of the sweep: PIL's
+    outcome of each case from three fresh processes, which open the cases
+    in three orders (forward, backward, shuffled), so that memory an
+    earlier decode left differs: {shape, sha256} where all three agree,
+    "fails" where all three fail, "varies" otherwise."""
+    import subprocess
+    names = damaged_names()
+    order = [(n, i) for n in names for i in range(len(damaged_cases(n, (HERE / n).read_bytes())))]
+    shuffled = [order[i] for i in np.random.default_rng(SEED).permutation(len(order))]
+    runs = []
+    for run in (order, order[::-1], shuffled):
+        code = ("import sys, json; sys.path.insert(0, %r); import make_fixtures as m; "
+                "m._pil_hashes([tuple(x) for x in json.loads(sys.stdin.read())])" % str(HERE))
+        res = subprocess.run([sys.executable, "-c", code], input=json.dumps(run), text=True,
+                             capture_output=True, check=True)
+        runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
+    table = {}
+    for name in names:
+        data = (HERE / name).read_bytes()
+        rows = []
+        for i, (at, drop, put) in enumerate(damaged_cases(name, data)):
+            got = [r[f"{name}/{i}"] for r in runs]
+            outcome = got[0] if all(g == got[0] for g in got) else "varies"
+            rows.append([at, drop, put.hex(), outcome])
+        table[name] = rows
+    return table
+
+
+def write_damaged() -> None:
+    """Write damaged.json: the sweep's cases and PIL's outcomes, with the
+    versions of Pillow, libjpeg-turbo, libtiff and zlib that made them."""
+    from PIL import features
+    record = {"pillow": features.version("pil"), "libjpeg_turbo": features.version("libjpeg_turbo"),
+              "libtiff": features.version("libtiff"), "zlib": features.version("zlib"),
+              "cases": damaged_outcomes()}
+    cases = record.pop("cases")
+    head = json.dumps(record)[:-1]
+    body = ",\n".join(f" {json.dumps(name)}: [\n" + ",\n".join(
+        "  " + json.dumps(row, separators=(",", ":")) for row in rows) + "]"
+                       for name, rows in cases.items())
+    (HERE / "damaged.json").write_text(head + ', "cases": {\n' + body + "}}\n")
+
+
 def main() -> None:
     from PIL import Image, features
 
@@ -3281,7 +3412,8 @@ def main() -> None:
         record["files"][name] = {"shape": list(rgb.shape),
                                  "sha256": hashlib.sha256(rgb.tobytes()).hexdigest()}
     (HERE / "pil_rgb.json").write_text(json.dumps(record, indent=1) + "\n")
+    write_damaged()
 
 
 if __name__ == "__main__":
-    main()
+    write_damaged() if sys.argv[1:] == ["damaged"] else main()
