@@ -118,9 +118,10 @@ It prints each path's seconds. Then it renders the textured path at msaa 2,
           PNM family, BMP, TGA, GIF, TIFF, WebP, DDS with BC1-BC7, FTEX,
           BLP, PSD, SGI, PCX, DCX, Sun raster, QOI, MSP, ICO, CUR, ICNS
           (JPEG 2000 entries too), XBM, XPM, JPEG 2000, FITS, FLI/FLC, IM,
-          IMT, GBR, McIdas, PIXAR, SPIDER, XVThumb, IPTC, Photo CD, PIL's
-          own PNM kinds and TIFF's rare kinds: BigTIFF, float, CIELab,
-          LZMA, ZSTD, CCITT, old-style LZW, subsampled YCbCr) decoded by
+          IMT, GBR, McIdas, PIXAR, SPIDER, XVThumb, IPTC (around a JPEG,
+          PNG, TIFF, BMP or GIF), Photo CD, PIL's own PNM kinds and TIFF's
+          rare kinds: BigTIFF, float, CIELab, LZMA, ZSTD, CCITT, old-style
+          LZW, subsampled YCbCr, ThunderScan, CCITT RLEW; APNGs) decoded by
           models/texture.decode_texture to the SHA-256 PIL gave where they
           were made (pil_rgb.json), with its ms, then every case of the
           damaged-data sweep (damaged.json: those files with bytes set,
@@ -128,16 +129,18 @@ It prints each path's seconds. Then it renders the textured path at msaa 2,
           fails, with the counts and seconds (the WebP files', the
           arithmetic-coded JPEGs', the JPEG-in-TIFF files', the
           DDS/FTEX/BLP files', the small raster formats', the JPEG 2000
-          and FITS files', the last plugin formats' and the PNM and TIFF
-          rare kinds' again on a line each); the
+          and FITS files', the last plugin formats', the PNM and TIFF
+          rare kinds' and the ThunderScan, RLEW, IPTC-around-another-format
+          and APNG files' again on a line each); the
           textured fixture with its 32x32 texture as
           a baseline 4:2:0 JPEG (utils/image.encode_jpeg; a 512-row atlas,
           K2), as an RLE TGA (the committed blob_rle.tga), as a lossy
           WebP (blob_lossy.webp), as an arithmetic-coded progressive
           JPEG (blob_arith_prog.jpg), as DXT1 (blob_bc1.dds), as a
           PackBits RGB PSD (blob_packbits.psd), as an irreversible
-          (9/7, ICT) JP2 (blob_irrev.jp2) and as a line-interleaved RGB
-          IM (blob_rgb.im), and cubes
+          (9/7, ICT) JP2 (blob_irrev.jp2), as a line-interleaved RGB
+          IM (blob_rgb.im) and as 4-bit grey ThunderScan
+          (blob_thunder.tif), and cubes
           with its 256x256 texture as a
           PNG (a 32,768-row atlas, K8), with a 64x64 LZW TIFF (the
           committed cubes_lzw.tif; a 2,048-row atlas, K8), with the same
@@ -145,7 +148,8 @@ It prints each path's seconds. Then it renders the textured path at msaa 2,
           JPEG-in-TIFF tiles (cubes_jpeg_tiles.tif), as BC7
           (cubes_bc7.dds), as an RLE SGI (cubes_rle.sgi), as a
           lossless J2K in 32x32 tiles (cubes_lossless.j2k) and with 256x256
-          bilevel squares as a Group 4 TIFF (cubes_g4.tif), each scene
+          bilevel squares as a Group 4 TIFF (cubes_g4.tif) and as CCITT
+          RLEW a row a strip (cubes_rlew.tif), each scene
           written by utils/demo_scene, load_scene_file -> build_scene ->
           build_render_fn at 1024x768: one
           graphed frame with exactly that path's kernels launched, held to
@@ -291,7 +295,9 @@ TEXTURE_SCENES = (("textured", "jpg", (256, 192)), ("cubes", "png", (WIDTH, HEIG
                   ("textured", "blob_irrev.jp2", (256, 192)),
                   ("cubes", "cubes_lossless.j2k", (WIDTH, HEIGHT)),
                   ("textured", "blob_rgb.im", (256, 192)),
-                  ("cubes", "cubes_g4.tif", (WIDTH, HEIGHT)))
+                  ("cubes", "cubes_g4.tif", (WIDTH, HEIGHT)),
+                  ("textured", "blob_thunder.tif", (256, 192)),
+                  ("cubes", "cubes_rlew.tif", (WIDTH, HEIGHT)))
 # the small raster formats' fixtures, by suffix
 LEGACY_SUFFIXES = (".psd", ".sgi", ".bw", ".rgb", ".pcx", ".dcx", ".ras", ".qoi", ".msp", ".ico",
                    ".cur", ".icns", ".xbm", ".xpm")
@@ -307,6 +313,8 @@ RARE_FIXTURES = ("p0cmyk.pnm", "pycmyk_16bit.pnm", "pyrgba.pnm", "pyp.pnm", "flo
                  "g4_wide.tif", "old_lzw.tif", "ycbcr_22_lzw.tif", "ycbcr_21_tiles.tif",
                  "ycbcr_raw.tif", "planar_palette.tif", "planar_rgba_deflate.tif",
                  "cubes_g4.tif", "zstd.tif", "zstd_pred2_strips.tif", "zstd_float.tif")
+# ThunderScan and CCITT RLEW TIFFs, IPTC around another format, APNGs
+CODEC_PREFIXES = ("thunder_", "blob_thunder", "rlew_", "cubes_rlew", "iptc_", "apng_")
 BIG_TEXTURE = 2048
 PKG = "relativitypathtracer_tpu_torch/csrc/"
 CSRC = pathlib.Path(__file__).resolve().parent / PKG
@@ -1153,14 +1161,10 @@ def fixture_texture(scene_file: str, name: str) -> str:
     return scene_file
 
 
-# the damaged-data sweep's cases left for later (ROADMAP Queue 3 item 2;
-# tests/test_torch_texture_damaged_tiff.py's LEFT): PIL reads them and the
-# port refuses them, naming the codec
-DAMAGED_LEFT = {("g3_1d.tif", 6): "CCITT", ("g3_2d_fill.tif", 0): "CCITT",
-                ("g3_2d_fill.tif", 1): "CCITT", ("g3_2d_fill.tif", 2): "CCITT",
-                ("g3_2d_fill.tif", 3): "CCITT", ("g3_2d_fill.tif", 4): "CCITT",
-                ("g3_2d_fill.tif", 5): "CCITT", ("lzma_pred2.tif", 3): "LZMA",
-                ("zstd_pred2_strips.tif", 6): "ZSTD", ("zstd_pred2_strips.tif", 7): "ZSTD"}
+# the damaged-data sweep's cases left for later (tests/
+# test_torch_texture_damaged_tiff.py's LEFT), by the codec the port names in
+# refusing them where PIL reads them: none
+DAMAGED_LEFT = {}
 
 
 def damaged_sweep(decode_texture) -> None:
@@ -1206,9 +1210,9 @@ def textures_phase(torch, pt, dev, card, state) -> None:
     blocked in sys.modules for the phase: the committed fixtures against
     PIL's hashes, the textured fixture with a JPEG, a TGA, a lossy WebP,
     an arithmetic-coded JPEG, a DXT1 DDS, a PackBits PSD, an
-    irreversible JP2 and an RGB IM texture and cubes with a PNG, two
-    TIFFs, a lossless WebP, a BC7 DDS, an RLE SGI, a lossless tiled J2K
-    and a Group 4 TIFF one rendered
+    irreversible JP2, an RGB IM and a ThunderScan texture and cubes with
+    a PNG, two TIFFs, a lossless WebP, a BC7 DDS, an RLE SGI, a lossless
+    tiled J2K, a Group 4 and a CCITT RLEW TIFF one rendered
     on the card and held to the CPU and the oracle, and the decode time of
     a corpus-sized JPEG; see the module docstring."""
     import hashlib
@@ -1254,6 +1258,8 @@ def textures_phase(torch, pt, dev, card, state) -> None:
             t for t in times if t.split()[0].endswith(PLUGIN_SUFFIXES)))
         log("  PNM extensions and TIFF rare kinds decode ms: " + ", ".join(
             t for t in times if t.split()[0] in RARE_FIXTURES))
+        log("  ThunderScan/RLEW/IPTC-around-another-format/APNG decode ms: " + ", ".join(
+            t for t in times if t.split()[0].startswith(CODEC_PREFIXES)))
         damaged_sweep(decode_texture)
         for kind, fmt, size in TEXTURE_SCENES:
             names = PATHS[kind][1]

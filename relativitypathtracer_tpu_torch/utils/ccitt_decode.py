@@ -1,32 +1,43 @@
-"""CCITT bilevel decoding (TIFF compressions 2, 3 and 4) as libtiff's
-tif_fax3.c decodes a strip or tile, for utils/tiff_decode.
+"""CCITT bilevel decoding (TIFF compressions 2, 3, 4 and 32771) as
+libtiff's tif_fax3.c decodes a strip or tile, for utils/tiff_decode.
 
 PIL hands these compressions to libtiff, so this follows libtiff's state
 machine step by step, its leniency included:
 
-  2  CCITT RLE (Fax3DecodeRLE): each row modified-Huffman runs, white
-     first, then the bits to the next byte boundary skipped; no EOLs
-  3  Group 3 (Fax3Decode1D, or Fax3Decode2D under T4Options bit 0): each
-     row after an EOL (any zero bits, then a 1), 2D rows tagged by a bit
-     after it (1: a 1D row, 0: coded against the row above)
-  4  Group 4 (Fax4Decode): 2D rows against the row above, the first
-     against a white row
+  2      CCITT RLE (Fax3DecodeRLE): each row modified-Huffman runs, white
+         first, then the bits libtiff holds past a multiple of 8 dropped;
+         no EOLs
+  32771  CCITT RLEW: the same, the bits held past a multiple of 16
+         dropped, and where none is left held a byte skipped if the next
+         one lies at an odd address (the strip's offset in the file PIL
+         maps), which is why libtiff misreads PIL's own RLEW files
+  3      Group 3 (Fax3Decode1D, or Fax3Decode2D under T4Options bit 0):
+         each row after an EOL (any zero bits, then a 1), 2D rows tagged
+         by a bit after it (1: a 1D row, 0: coded against the row above)
+  4      Group 4 (Fax4Decode): 2D rows against the row above, the first
+         against a white row
 
 The code tables are libtiff's (mkg3states.c: T.4's terminating, make-up
 and extended make-up codes up to 2560, an EOL as 11 zero bits, the 2D mode
 codes with 0000000 an EOL and 0000001 an extension), looked up 12 (white),
-13 (black) and 7 (2D mode) bits at a time, so a pattern no code starts
-is a lookup of width 0. A bad code is what libtiff only reports: the row
-is closed there (CLEANUP_RUNS: the runs cut or padded to the row's width)
-and decoding goes on. Past the data the bits read as 0 while any bit is
-left of the last lookup (NeedBits' padding); a lookup with none left is a
-premature end (as is Group 4's EOL before the strip's last row). There
-libtiff leaves the rest of the strip unwritten, and PIL then fails or
-returns what its strip buffer held, which differs from run to run: the
-port refuses such a strip. A run array past libtiff's size fails it, as
-in libtiff. Runs fill the row
-black (1 bits) and white (0 bits) as _TIFFFax3fillruns does, clamping the
-runs it is given (which the next row reads as its reference).
+13 (black) and 7 (2D mode) bits at a time after NeedBits16 (two bytes
+loaded) or NeedBits8 (one), so a pattern no code starts is a lookup of
+width 0. A bad code is what libtiff only reports: the row is closed there
+(CLEANUP_RUNS: the runs cut or padded to the row's width) and decoding
+goes on. Past the data the bits read as 0 while any bit is left of the
+last lookup (NeedBits' padding); a lookup with none left is a premature
+end: the row is closed and filled, and the strip fails (-1), but for
+Group 4 after its first row ("don't error on badly-terminated strips"),
+where the rows after it are left as PIL's strip buffer holds them (an
+EOFB, an EOL in Group 4, ends the strip so too). A Group 3 strip whose
+data ends while SYNC_EOL looks for an EOL's 1 sets FAXMODE_NOEOL: libtiff
+reads the strip again from its first byte, rows without EOLs from the
+row it was on, and keeps the mode for every later strip of the image
+(`CcittState`), as it keeps its run arrays (Fax3PreDecode resets only the
+reference row's first two runs). A run array past libtiff's size fails
+the strip, as in libtiff. Runs fill the row black (1 bits) and white (0
+bits) as _TIFFFax3fillruns does, clamping the runs it is given (which the
+next row reads as its reference).
 """
 
 from __future__ import annotations
@@ -114,37 +125,79 @@ class _Eof(Exception):
     """NeedBits found no bit left (libtiff's goto eoflab)."""
 
 
+class _NoEol(Exception):
+    """SYNC_EOL ran out of data before an EOL's 1 bit (libtiff's
+    noEOLFound)."""
+
+
+class CcittState:
+    """What libtiff's fax codec keeps from one strip or tile to the next:
+    FAXMODE_NOEOL, set once a Group 3 strip runs out of data looking for
+    an EOL and kept for the rest of the image."""
+
+    def __init__(self):
+        self.no_eol = False
+        self.runs = None
+
+
 class _Reader:
     """libtiff's bit accumulator over one strip's bytes (MSB first after
-    any fill-order reversal): `end` is where the bits held end, the data's
-    end until a lookup runs past it and is padded with zeros."""
+    any fill-order reversal): `cp` the bytes loaded, `end` the bit where
+    the bits held end (8 * cp until a lookup runs past the data and is
+    padded with zeros), `p` the next bit. `odd`: whether the strip's
+    first byte lies at an odd address (CCITT RLEW's word alignment)."""
 
-    def __init__(self, data: bytes):
-        self.n = 8 * len(data)
+    def __init__(self, data: bytes, odd: bool = False):
+        self.n = len(data)
         buf = np.frombuffer(bytes(data) + bytes(4), np.uint8).astype(np.uint32)
         # 24 bits, MSB first, at each byte: any 16 bits from a bit position
         self.words = ((buf[:-2] << 16) | (buf[1:-1] << 8) | buf[2:]).tolist()
-        self.p = 0
-        self.end = self.n
+        self.odd = odd
+        self.restart()
 
-    def need(self, n: int) -> None:
-        avail = self.end - self.p
-        if avail < n:
-            if avail <= 0:
+    def restart(self) -> None:
+        self.p = self.cp = self.end = 0
+
+    def need(self, n: int, wide: bool = False) -> None:
+        """NeedBits8 (one byte loaded) or, `wide`, NeedBits16 (two)."""
+        if self.end - self.p >= n:
+            return
+        if self.cp >= self.n:
+            if self.end <= self.p:
                 raise _Eof
-            self.end = self.p + n
+            self.end = self.p + n  # padded with zeros
+            return
+        self.cp += 1
+        self.end += 8
+        if wide and self.end - self.p < n:
+            if self.cp >= self.n:
+                self.end = self.p + n
+            else:
+                self.cp += 1
+                self.end += 8
 
     def get(self, n: int) -> int:
         p = self.p
-        if p >= self.n:
+        if p >= 8 * self.n:
             return 0
-        return (self.words[p >> 3] >> (24 - (p & 7) - n)) & ((1 << n) - 1)
+        v = (self.words[p >> 3] >> (24 - (p & 7) - n)) & ((1 << n) - 1)
+        short = p + n - self.end
+        return v >> short << short if short > 0 else v
 
-    def lookup(self, n: int, table):
-        self.need(n)
+    def lookup(self, n: int, table, wide: bool = True):
+        self.need(n, wide)
         ent = table[self.get(n)]
         self.p += ent[1]
         return ent
+
+    def align(self, bits: int) -> None:
+        """The end of a CCITT RLE (8) or RLEW (16) row: the bits held past
+        a multiple of `bits` dropped; RLEW then skips a byte where none is
+        held and the next one lies at an odd address."""
+        self.p += (self.end - self.p) % bits
+        if bits == 16 and self.end == self.p and (self.cp + self.odd) & 1:
+            self.cp += 1
+            self.p = self.end = 8 * self.cp
 
 
 class _Row:
@@ -204,41 +257,51 @@ def _fill_row(out: np.ndarray, cur, pa: int, lastx: int) -> None:
 
 def _expand1d(r: _Reader, row: _Row, white, black) -> bool:
     """EXPAND1D: a row of modified-Huffman runs; True if it ended on an
-    EOL. _Eof where the data ends (the caller cleans up)."""
-    while True:
-        for table, term, makeup in ((white, _TERMW, _MAKEUPW), (black, _TERMB, _MAKEUPB)):
-            while True:
-                state, _, param = r.lookup(12 if table is white else 13, table)
-                if state == _EOL:
+    EOL. Past the data, _Eof with the row cleaned up (eof1d)."""
+    try:
+        while True:
+            for table, term, makeup, size in ((white, _TERMW, _MAKEUPW, 12),
+                                              (black, _TERMB, _MAKEUPB, 13)):
+                while True:
+                    state, _, param = r.lookup(size, table)
+                    if state == _EOL:
+                        row.cleanup()
+                        return True
+                    if state == term:
+                        row.setvalue(param)
+                        break
+                    if state in (makeup, _MAKEUP):
+                        row.a0 += param
+                        row.run += param
+                        continue
+                    row.cleanup()  # libtiff's "unexpected": reported only
+                    return False
+                if row.a0 >= row.lastx:
                     row.cleanup()
-                    return True
-                if state == term:
-                    row.setvalue(param)
-                    break
-                if state in (makeup, _MAKEUP):
-                    row.a0 += param
-                    row.run += param
-                    continue
-                row.cleanup()  # libtiff's "unexpected": reported only
-                return False
-            if row.a0 >= row.lastx:
-                row.cleanup()
-                return False
-        if row.cur[row.pa - 1] == 0 and row.cur[row.pa - 2] == 0:
-            row.pa -= 2
+                    return False
+            if row.cur[row.pa - 1] == 0 and row.cur[row.pa - 2] == 0:
+                row.pa -= 2
+    except _Eof:
+        row.cleanup()
+        raise
 
 
 def _sync_eol(r: _Reader, eol: bool) -> None:
     """SYNC_EOL: (unless an EOL was just read) to 11 zero bits, then past
-    the zero bytes and bits to the EOL's 1, and past it."""
+    the zero bytes and bits to the EOL's 1, and past it. _Eof where the
+    data ends in the search for the zeros, _NoEol where it ends before
+    the 1."""
     if not eol:
         while True:
-            r.need(11)
+            r.need(11, True)
             if r.get(11) == 0:
                 break
             r.p += 1
     while True:
-        r.need(8)
+        try:
+            r.need(8)
+        except _Eof:
+            raise _NoEol from None
         if r.get(8):
             break
         r.p += 8
@@ -249,7 +312,8 @@ def _sync_eol(r: _Reader, eol: bool) -> None:
 
 def _expand2d(r: _Reader, row: _Row, ref, white, black, main) -> bool:
     """EXPAND2D: a row coded against the reference runs `ref`; True if it
-    ended on an EOL."""
+    ended on an EOL. Past the data, _Eof with the row cleaned up
+    (eof2d)."""
     lastx, nruns = row.lastx, row.nruns
     pb = 0
     b1 = ref[pb]
@@ -276,96 +340,121 @@ def _expand2d(r: _Reader, row: _Row, ref, white, black, main) -> bool:
                 continue
             return False
 
-    while row.a0 < lastx:
-        if row.pa >= nruns:
-            raise _Fail("run array overflow")
-        state, _, param = r.lookup(7, main)
-        if state == _PASS:
-            check_b1()
-            if pb + 1 >= nruns:
-                raise _Fail("reference run array overflow")
-            b1 += ref[pb]
-            pb += 1
-            row.run += b1 - row.a0
-            row.a0 = b1
-            b1 += ref[pb]
-            pb += 1
-        elif state == _HORIZ:
-            order = ((black, _TERMB, _MAKEUPB, 13), (white, _TERMW, _MAKEUPW, 12))
-            if not row.pa & 1:
-                order = order[::-1]
-            if not (runs_of(*order[0]) and runs_of(*order[1])):
-                break  # a bad code: reported only
-            check_b1()
-        elif state == _V0:
-            check_b1()
-            row.setvalue(b1 - row.a0)
-            if pb >= nruns:
-                raise _Fail("reference run array overflow")
-            b1 += ref[pb]
-            pb += 1
-        elif state == _VR:
-            check_b1()
-            row.setvalue(b1 - row.a0 + param)
-            if pb >= nruns:
-                raise _Fail("reference run array overflow")
-            b1 += ref[pb]
-            pb += 1
-        elif state == _VL:
-            check_b1()
-            if b1 < row.a0 + param:
+    try:
+        while row.a0 < lastx:
+            if row.pa >= nruns:
+                raise _Fail("run array overflow")
+            state, _, param = r.lookup(7, main, False)
+            if state == _PASS:
+                check_b1()
+                if pb + 1 >= nruns:
+                    raise _Fail("reference run array overflow")
+                b1 += ref[pb]
+                pb += 1
+                row.run += b1 - row.a0
+                row.a0 = b1
+                b1 += ref[pb]
+                pb += 1
+            elif state == _HORIZ:
+                order = ((black, _TERMB, _MAKEUPB, 13), (white, _TERMW, _MAKEUPW, 12))
+                if not row.pa & 1:
+                    order = order[::-1]
+                if not (runs_of(*order[0]) and runs_of(*order[1])):
+                    break  # a bad code: reported only
+                check_b1()
+            elif state == _V0:
+                check_b1()
+                row.setvalue(b1 - row.a0)
+                if pb >= nruns:
+                    raise _Fail("reference run array overflow")
+                b1 += ref[pb]
+                pb += 1
+            elif state == _VR:
+                check_b1()
+                row.setvalue(b1 - row.a0 + param)
+                if pb >= nruns:
+                    raise _Fail("reference run array overflow")
+                b1 += ref[pb]
+                pb += 1
+            elif state == _VL:
+                check_b1()
+                if b1 < row.a0 + param:
+                    break  # reported only
+                row.setvalue(b1 - row.a0 - param)
+                pb -= 1
+                b1 -= ref[pb]
+            elif state == _EXT:
+                row.cur[row.pa] = (lastx - row.a0) & 0xFFFFFFFF
+                row.pa += 1
+                break
+            elif state == _EOL:
+                row.cur[row.pa] = (lastx - row.a0) & 0xFFFFFFFF
+                row.pa += 1
+                r.need(4)
+                r.p += 4
+                row.cleanup()
+                return True
+            else:
                 break  # reported only
-            row.setvalue(b1 - row.a0 - param)
-            pb -= 1
-            b1 -= ref[pb]
-        elif state == _EXT:
-            row.cur[row.pa] = (lastx - row.a0) & 0xFFFFFFFF
-            row.pa += 1
-            break
-        elif state == _EOL:
-            row.cur[row.pa] = (lastx - row.a0) & 0xFFFFFFFF
-            row.pa += 1
-            r.need(4)
-            r.p += 4
-            row.cleanup()
-            return True
         else:
-            break  # reported only
-    else:
-        if row.run:
-            if row.run + row.a0 < lastx:  # a final V0 is expected
-                r.need(1)
-                if not r.get(1):
-                    row.cleanup()
-                    return False
-                r.p += 1
-            row.setvalue(0)
+            if row.run:
+                if row.run + row.a0 < lastx:  # a final V0 is expected
+                    r.need(1)
+                    if not r.get(1):
+                        row.cleanup()
+                        return False
+                    r.p += 1
+                row.setvalue(0)
+    except _Eof:
+        row.cleanup()
+        raise
     row.cleanup()
     return False
 
 
-def decode_ccitt(data: bytes, kind: int, width: int, rows: int, options: int = 0) -> np.ndarray:
-    """(rows, width) uint8 bits (1 where libtiff fills black runs) of one
-    strip or tile of compression `kind` (2: RLE, 3: Group 3 with
-    T4Options `options`, 4: Group 4)."""
+def decode_ccitt(data: bytes, kind: int, width: int, rows: int, options: int = 0,
+                 state: CcittState | None = None, odd: bool = False):
+    """One strip or tile of compression `kind` (2: RLE, 32771: RLEW, 3:
+    Group 3 with T4Options `options`, 4: Group 4) as libtiff decodes it:
+    ((rows, width) uint8 bits, 1 where libtiff fills black runs; the rows
+    libtiff wrote, all but a Group 4 strip's that ends early). Raises
+    DecodeError where libtiff's decoder returns -1. `state` carries
+    FAXMODE_NOEOL across an image's strips; `odd` is RLEW's address
+    parity of the strip's first byte."""
     white, black, main = _tables()
     two_d = kind == 4 or (kind == 3 and options & 1)
     nruns = -(-(width + 1) // 32) * 32 * (2 if two_d else 1)
-    cur, ref = [0] * (nruns + 2), [0] * (nruns + 2)
-    ref[0] = width
+    state = state or CcittState()
+    if state.runs is None:  # Fax3SetupState: the run arrays, zeroed once an image
+        state.runs = ([0] * (nruns + 2), [0] * (nruns + 2))
+    cur, ref = state.runs  # Fax3PreDecode: the reference row white, the rest as left
+    ref[0], ref[1] = width, 0
     out = np.zeros((rows, width), np.uint8)
-    r = _Reader(data)
+    r = _Reader(data, odd)
     eol = False
+    y = 0
     try:
-        for y in range(rows):
+        while y < rows:
             row = _Row(cur, nruns, width)
             try:
-                if kind == 2:
+                if kind in (2, 32771):
                     _expand1d(r, row, white, black)
                 elif kind == 3:
-                    _sync_eol(r, eol)
+                    if not state.no_eol:
+                        try:
+                            _sync_eol(r, eol)
+                        except _Eof:
+                            row.cleanup()
+                            raise
+                        except _NoEol:  # libtiff reads the strip again, without EOLs
+                            state.no_eol = True
+                            r.restart()
                     if two_d:
-                        r.need(1)
+                        try:
+                            r.need(1)
+                        except _Eof:
+                            row.cleanup()
+                            raise
                         coded_1d = r.get(1)
                         r.p += 1
                         eol = (_expand1d(r, row, white, black) if coded_1d else
@@ -374,15 +463,19 @@ def decode_ccitt(data: bytes, kind: int, width: int, rows: int, options: int = 0
                         eol = _expand1d(r, row, white, black)
                 elif _expand2d(r, row, ref, white, black, main):
                     raise _Eof  # Group 4: an EOL (EOFB) ends the strip
-            except _Eof:  # libtiff leaves the rest of the strip unwritten
+            except _Eof:
+                _fill_row(out[y], cur, row.pa, width)
+                if kind == 4 and y:  # Fax4Decode: "don't error on badly-terminated strips"
+                    return out, y + 1
                 raise DecodeError(f"CCITT: premature end of data in row {y}") from None
             _fill_row(out[y], cur, row.pa, width)
-            if kind == 2:  # the next row starts on a byte
-                r.p += (r.end - r.p) % 8
+            y += 1
+            if kind in (2, 32771):  # the next row starts on a byte (RLEW: a word)
+                r.align(8 if kind == 2 else 16)
             elif two_d:
                 if kind == 4 or row.pa < nruns:
                     row.setvalue(0)  # the reference row's imaginary last change
                 cur, ref = ref, cur
     except _Fail as e:
         raise DecodeError(f"CCITT: {e}") from None
-    return out
+    return out, rows

@@ -52,7 +52,10 @@ PNG: every colour type and bit depth, Adam7 interlace, the five filters
 (undone along the image's anti-diagonals, so Average and Paeth, which read
 the reconstructed pixel to the left, run vectorised too), the chunks read
 as PIL reads them (`decode_png`: CRCs checked before the image data only;
-the file may end, or IEND be missing, after the image data). 16-bit
+the file may end, or IEND be missing, after the image data; a zlib stream
+ending with a row ends the image, the rest zero), an APNG as PIL's frame
+0 (the image data in the box of an fcTL before it, on a zeroed image; the
+acTL, fcTL and fdAT checks on which PIL fails). 16-bit
 samples keep their high byte, except 16-bit grey, which is clipped at 255
 as PIL's `I;16` to RGB conversion clips it (utils/pil_modes).
 
@@ -1486,33 +1489,84 @@ def _png_chunk(data: bytes, pos: int):
     return int.from_bytes(head[:4], "big"), head[4:]
 
 
-def _png_idat(data: bytes, pos: int, need: int) -> tuple:
-    """(the first `need` bytes of the image data, the end of the IDAT chunk
-    they end in) from the IDAT chunk at pos on, read as PIL reads them: consecutive IDAT chunks (their CRCs not
-    checked), the zlib stream inflated until the image is complete (its
-    checksum and anything after it not read). It fails where the data
-    runs out first: a file cut inside IDAT or a chunk of another type
+def _png_idat(data: bytes, pos: int, need: int, apng) -> tuple:
+    """(the first `need` bytes of the image data, the end of the chunk
+    they end in) from the data chunk at pos on, read as PIL reads them:
+    consecutive IDAT, DDAT and fdAT chunks (an fdAT's sequence number
+    checked and skipped; their CRCs not checked), the zlib stream inflated
+    until the image is complete (its checksum and anything after it not
+    read) or the stream ends (fewer bytes). It fails where the data runs
+    out first: a file cut inside the data or a chunk of another type
     before the image is complete."""
     inflate, out = zlib.decompressobj(), []
     got = 0
     while True:
-        length, _ = _png_chunk(data, pos)
-        body = data[pos + 8:pos + 8 + length]
+        length, kind = _png_chunk(data, pos)
+        skip = 4 if kind == b"fdAT" else 0
+        if skip:
+            apng.fdat(data[pos + 8:pos + 12], length)
+        body = data[pos + 8 + skip:pos + 8 + length]
         try:
             piece = inflate.decompress(inflate.unconsumed_tail + body, need - got)
         except zlib.error as e:
             raise DecodeError(f"corrupt image data (IDAT): {e}") from e
         out.append(piece)
         got += len(piece)
-        if got >= need:
+        if got >= need or inflate.eof:  # the image, or the end of the zlib stream
             return np.frombuffer(b"".join(out), np.uint8), pos + 8 + length
-        if len(body) < length:
+        if len(body) < length - skip:
             raise DecodeError("truncated file inside IDAT")
         pos += 12 + length
         chunk = _png_chunk(data, pos)
-        if chunk is None or chunk[1] != b"IDAT":
+        if chunk is None or chunk[1] not in (b"IDAT", b"DDAT", b"fdAT"):
             kind = "the end of the file" if chunk is None else f"chunk {chunk[1]!r}"
             raise DecodeError(f"truncated image data (IDAT): {kind} before the image's end")
+
+
+class _Apng:
+    """PngStream's APNG state as PIL reads frame 0: acTL's frame count,
+    the fcTL sequence, the frame's box (the last fcTL before the image
+    data; without one an acTL makes the image data a default image that
+    is not a frame)."""
+
+    def __init__(self):
+        self.frames = self.seq = self.box = None
+        self.default_image = False
+
+    def actl(self, body: bytes) -> None:
+        if len(body) < 8:
+            raise DecodeError("APNG contains truncated acTL chunk")
+        n = int.from_bytes(body[:4], "big")
+        if self.frames is not None:
+            self.frames = None  # a second acTL: "Invalid APNG"
+        elif 0 < n <= 1 << 31:
+            self.frames = n
+
+    def fctl(self, body: bytes, size) -> None:
+        if len(body) < 26:
+            raise DecodeError("APNG contains truncated fcTL chunk")
+        self._next(body[:4])
+        w, h, x, y = struct.unpack(">IIII", body[4:20])
+        if x + w > size[0] or y + h > size[1]:
+            raise DecodeError("APNG contains invalid frames")
+        self.box = (x, y, w, h)
+
+    def fdat(self, head: bytes, length: int) -> None:
+        if length < 4:
+            raise DecodeError("APNG contains truncated fDAT chunk")
+        if self.seq is None:
+            raise DecodeError("APNG contains frame sequence errors")
+        self._next(head)
+
+    def _next(self, head: bytes) -> None:
+        seq = int.from_bytes(head, "big")
+        if seq != (0 if self.seq is None else self.seq + 1):
+            raise DecodeError("APNG contains frame sequence errors")
+        self.seq = seq
+
+    @property
+    def animated(self) -> bool:
+        return (self.frames or 1) + self.default_image > 1
 
 
 def decode_png(data: bytes) -> np.ndarray:
@@ -1520,15 +1574,20 @@ def decode_png(data: bytes) -> np.ndarray:
     `convert("RGB")` of it. Chunks are read as PIL reads them: those
     before the first IDAT must be whole and their CRCs right; the image
     data is read to the image's end (`_png_idat`);
-    after it chunks are skipped up to IEND, the file may end anywhere
-    between two chunks, and a chunk cut short fails. Raises DecodeError
-    where PIL fails: a bad CRC before IDAT, a bad header, corrupt or
-    truncated image data."""
+    after it chunks are skipped up to IEND (or, in an animation, the next
+    fcTL), the file may end anywhere between two chunks, and a chunk cut
+    short fails. An APNG gives PIL's frame 0: the image data placed in
+    the box of an fcTL before it, on a canvas of zeros (the palette's
+    first colour), whatever its dispose and blend operations; without
+    such an fcTL the image data whole. Raises DecodeError where PIL fails:
+    a bad CRC before IDAT, a bad header, corrupt or truncated image data,
+    a truncated acTL, fcTL or fdAT, an fcTL or fdAT out of sequence, a
+    frame outside the image."""
     data = bytes(data)
     if data[:8] != _PNG_SIGNATURE:
         raise DecodeError("not a PNG file")
-    pos, header, palette, animated = 8, None, None, False
-    while True:  # PngImageFile._open: up to the first IDAT
+    pos, header, palette, apng = 8, None, None, _Apng()
+    while True:  # PngImageFile._open: up to the first IDAT (or fdAT)
         chunk = _png_chunk(data, pos)
         if chunk is None:
             raise DecodeError("truncated file: no image data (IDAT)")
@@ -1539,6 +1598,10 @@ def decode_png(data: bytes) -> np.ndarray:
             raise DecodeError("no image data (IEND before IDAT)")
         body = data[pos + 8:pos + 8 + length]
         crc = data[pos + 8 + length:pos + 12 + length]
+        if kind == b"fdAT":  # the image data, after its sequence number
+            if len(body) < min(length, 4):
+                raise DecodeError("truncated file inside chunk b'fdAT'")
+            break
         if len(body) < length:
             raise DecodeError(f"truncated file inside chunk {kind!r}")
         if kind == b"IHDR":
@@ -1551,8 +1614,10 @@ def decode_png(data: bytes) -> np.ndarray:
             if len(body) % 3 or len(body) > 768:
                 raise DecodeError("bad PLTE")
             palette = palette256(np.frombuffer(body, np.uint8))
-        elif kind == b"acTL" and length >= 8 and 0 < int.from_bytes(body[:4], "big") <= 1 << 31:
-            animated = True
+        elif kind == b"acTL":
+            apng.actl(body)
+        elif kind == b"fcTL":
+            apng.fctl(body, header[:2] if header else (0, 0))
         if len(crc) < 4 or zlib.crc32(kind + body) != int.from_bytes(crc, "big"):
             raise DecodeError(f"bad CRC in chunk {kind!r}")
         pos += 12 + length
@@ -1566,32 +1631,59 @@ def decode_png(data: bytes) -> np.ndarray:
     _check_size(width, height)
     if ctype == 3 and palette is None:
         raise DecodeError("palette image without PLTE")
+    if apng.box is None and apng.frames is not None:
+        apng.default_image = True
+    x0, y0, bw, bh = apng.box or (0, 0, width, height)
+    if not bw or not bh:
+        raise DecodeError("APNG frame of no pixels (tile cannot extend outside image)")
     channels = _PNG_CHANNELS[ctype]
     rowbytes = lambda w: -(-w * channels * depth // 8) + 1  # noqa: E731
     if interlace:  # any value but 0 is Adam7 to PIL
-        need = sum(rowbytes(-(-(width - x0) // dx)) * -(-(height - y0) // dy)
-                   for x0, y0, dx, dy in _ADAM7 if width > x0 and height > y0)
+        passes = [(rowbytes(-(-(bw - x) // dx)), -(-(bh - y) // dy))
+                  for x, y, dx, dy in _ADAM7 if bw > x and bh > y]
     else:
-        need = rowbytes(width) * height
-    raw, pos = _png_idat(data, pos, need)
+        passes = [(rowbytes(bw), bh)]
+    need = sum(n * rows for n, rows in passes)
+    raw, pos = _png_idat(data, pos, need, apng)
+    if len(raw) < need:  # ZipDecode: a stream ending with a row ends the image
+        ends, at = set(), 0
+        for n, rows in passes:
+            ends.update(range(at + n, at + n * rows + 1, n))
+            at += n * rows
+        if len(raw) not in ends:
+            raise DecodeError("truncated image data (IDAT): the zlib stream ends inside a row")
+        raw = np.concatenate([raw, np.zeros(need - len(raw), np.uint8)])
+    animated = apng.animated  # is_animated, as _open left it
     while True:  # PngImageFile.load_end: chunks after the image, up to IEND
         chunk = _png_chunk(data, pos + 4)  # after the CRC, which it skips
         if chunk is None or chunk[1] == b"IEND" or (chunk[1] == b"fcTL" and animated):
             break
-        length = chunk[0]
+        length, kind = chunk
+        body = data[pos + 12:pos + 12 + length]
+        if kind in (b"acTL", b"fcTL", b"fdAT") and len(body) == length:
+            if kind == b"acTL":
+                apng.actl(body)
+            elif kind == b"fcTL":
+                apng.fctl(body, (width, height))
+            else:
+                apng.fdat(body[:4], length)
         if len(data) < pos + 12 + length:
-            raise DecodeError(f"truncated file inside chunk {chunk[1]!r} after the image data")
+            raise DecodeError(f"truncated file inside chunk {kind!r} after the image data")
         pos += 12 + length
     if interlace:
-        s = np.zeros((height, width, channels), np.uint16)
-        for x0, y0, dx, dy in _ADAM7:
-            pw, ph = -(-(width - x0) // dx), -(-(height - y0) // dy)
+        s = np.zeros((bh, bw, channels), np.uint16)
+        for x, y, dx, dy in _ADAM7:
+            pw, ph = -(-(bw - x) // dx), -(-(bh - y) // dy)
             if pw <= 0 or ph <= 0:
                 continue
-            s[y0::dy, x0::dx], used = _png_samples(raw, pw, ph, depth, channels)
+            s[y::dy, x::dx], used = _png_samples(raw, pw, ph, depth, channels)
             raw = raw[used:]
     else:
-        s, _ = _png_samples(raw, width, height, depth, channels)
+        s, _ = _png_samples(raw, bw, bh, depth, channels)
+    if (bw, bh) != (width, height):  # the frame on PIL's new (zeroed) image
+        canvas = np.zeros((height, width, channels), s.dtype)
+        canvas[y0:y0 + bh, x0:x0 + bw] = s
+        s = canvas
     if ctype == 3:
         return to_rgb("P", s[..., 0], palette)
     if ctype == 0 and depth == 16:  # PIL opens 16-bit grey as I;16

@@ -25,9 +25,13 @@ and IPTC/NAA.
            field; (3, 20) and (3, 30) the size, (3, 60) the bands, (3, 65)
            the band the data fills, (3, 120) the compression; the data,
            the concatenated (8, 10) fields, is a P5 PNM body (raw) or an
-           image file (JPEG, by utils/image_decode); one band (L) is the
-           image, or the image is that one band of RGB or CMYK, the other
-           bands 0, as PIL's Image.merge makes it
+           image file of any format PIL opens (compression 5: PIL opens
+           it from memory with Image.open, so here it goes through
+           models/texture.decode_texture, PIL's plugin order); one band
+           (L) is that image in its own mode, or the image is that one
+           band of RGB or CMYK, the other bands 0, as PIL's Image.merge
+           makes it (an L image; or, in band 1, which merge does not
+           check, a 1-bit one)
 
 Each `open_*` is its plugin's `_open`: Unidentified (image_decode) where
 PIL's Image.open goes on to its next plugin, DecodeError where it fails.
@@ -39,9 +43,9 @@ import struct
 
 import numpy as np
 
-from .image_decode import DecodeError, Unidentified, _check_size, decode_jpeg, read_frame
+from .image_decode import DecodeError, Unidentified, _check_size, read_frame
 from .pil_modes import cmyk_to_rgb, to_rgb
-from .raster_decode import _rows, decode_pnm
+from .raster_decode import _rows, bmp_grey_mode, decode_pnm
 
 
 def _sized(width, height, what: str) -> None:
@@ -312,9 +316,9 @@ def open_iptc(d: bytes):
     return mode, band, width, height, compression, (offset if tag == (8, 10) else None)
 
 
-def decode_iptc(data: bytes) -> np.ndarray:
-    """(H, W, 3) uint8 pixels of an IPTC/NAA file, as PIL's
-    `convert("RGB")` of it."""
+def iptc_body(data: bytes):
+    """(mode, band, width, height, compression, the image data: the
+    concatenated (8, 10) fields) of an IPTC/NAA file."""
     data = bytes(data)
     mode, band, w, h, compression, pos = open_iptc(data)
     if pos is None:
@@ -327,17 +331,24 @@ def decode_iptc(data: bytes) -> np.ndarray:
         chunk = data[pos:pos + size]
         body += chunk
         pos += len(chunk)
-    body = bytes(body)
+    return mode, band, w, h, compression, bytes(body)
+
+
+def decode_iptc(data: bytes) -> np.ndarray:
+    """(H, W, 3) uint8 pixels of an IPTC/NAA file, as PIL's
+    `convert("RGB")` of it."""
+    mode, band, w, h, compression, body = iptc_body(data)
     if compression == 1:
         grey = decode_pnm(b"P5\n%d %d\n255\n" % (w, h) + body)[..., 0]
     else:
-        if body[:3] != b"\xff\xd8\xff":
-            raise DecodeError("IPTC: compression 5 data that is not a JPEG is not decoded")
+        from ..models.texture import decode_texture  # PIL's Image.open of the body
         if band is None:
-            return decode_jpeg(body)
-        if len(read_frame(body).ids) != 1:
-            raise DecodeError("IPTC: a colour JPEG as one band (PIL's merge: mode mismatch)")
-        grey = decode_jpeg(body)[..., 0]
+            return decode_texture(body)
+        grey = decode_texture(body)[..., 0]
+        kind = _body_mode(body)
+        if kind not in ("L", "1") or kind == "1" and band:
+            raise DecodeError(f"IPTC: an image of mode {kind} as band {band + 1} of {mode} "
+                              "(PIL's merge takes an L image)")
     if band is None:
         return to_rgb("L", grey)
     bands = [np.zeros_like(grey)] * len(mode)
@@ -347,3 +358,26 @@ def decode_iptc(data: bytes) -> np.ndarray:
         raise DecodeError(f"IPTC: band {band + 1} of mode {mode}") from None
     s = np.stack(bands, -1)
     return cmyk_to_rgb(s) if mode == "CMYK" else s
+
+
+def _body_mode(body: bytes) -> str:
+    """The PIL mode an IPTC band's image opens in, for the formats whose
+    one-band modes are told here (JPEG, PNG, PNM, TIFF, BMP); "other"
+    else."""
+    if body[:3] == b"\xff\xd8\xff":
+        return "L" if len(read_frame(body).ids) == 1 else "other"
+    if body[:8] == b"\x89PNG\r\n\x1a\n" and body[12:16] == b"IHDR":
+        depth, ctype = body[24], body[25]
+        return {1: "1", 2: "L", 4: "L", 8: "L"}.get(depth, "other") if ctype == 0 else "other"
+    if body[:2] in (b"P1", b"P4"):
+        return "1"
+    if body[:2] in (b"P2", b"P5"):
+        fields = body[2:64].split()
+        return "L" if len(fields) >= 3 and fields[2].isdigit() and int(fields[2]) < 256 else \
+            "other"
+    if body[:4] in (b"II*\0", b"MM\0*"):
+        from .tiff_decode import tiff_grey_mode
+        return tiff_grey_mode(body)
+    if body[:2] == b"BM":
+        return bmp_grey_mode(body)
+    return "other"

@@ -307,6 +307,35 @@ _BMP_MASKS = {
 _RAW_BITS = {"1": 1, "P;1": 1, "P;4": 4, "P": 8, "L": 8, "BGR;15": 16, "BGR;16": 16, "BGR": 24}
 
 
+def bmp_grey_mode(data: bytes) -> str:
+    """"1" or "L" where BmpImagePlugin drops a BMP's grey palette (a
+    2-colour one of black and white, or one entry a level), "other"
+    else."""
+    header_size = _u32(data, 14) if len(data) >= 18 else 0
+    if header_size not in _BMP_HEADERS or len(data) < 14 + header_size:
+        return "other"
+    hd = data[18:14 + header_size]
+    if header_size == 12:
+        bits, colors, padding = _u16(hd, 6), 0, 3
+    else:
+        bits, colors, padding = _u16(hd, 10), _u32(hd, 28), 4
+    if bits > 8:
+        return "other"
+    colors = colors or 1 << bits
+    return _bmp_grey(data[14 + header_size:14 + header_size + padding * colors], colors,
+                     padding) or "other"
+
+
+def _bmp_grey(pal: bytes, colors: int, padding: int):
+    """BmpImagePlugin's test of a palette: "1" (black and white) or "L"
+    (each entry its level) where PIL drops it, else None."""
+    entries = [pal[i * padding:i * padding + 3] for i in range(colors)]
+    want = (0, 255) if colors == 2 else range(colors)
+    if all(e == bytes([v & 255]) * 3 for e, v in zip(entries, want)):
+        return "1" if colors == 2 else "L"
+    return None
+
+
 def decode_bmp(data: bytes, dib: bool = False, halve: bool = False) -> np.ndarray:
     """(H, W, 3) uint8 pixels of a BMP file, or of a DIB (a BMP without its
     14-byte file header, as PIL's DibImageFile), as PIL's
@@ -366,11 +395,9 @@ def decode_bmp(data: bytes, dib: bool = False, halve: bool = False) -> np.ndarra
             raise DecodeError(f"BMP palette of {colors} colours")
         pal = data[pos:pos + padding * colors]
         pos += len(pal)
-        entries = [pal[i * padding:i * padding + 3] for i in range(colors)]
-        want = (0, 255) if colors == 2 else range(colors)
-        if all(e == bytes([v & 255]) * 3 for e, v in zip(entries, want)):
-            mode = "1" if colors == 2 else "L"  # PIL drops a grey palette
-            raw = mode
+        grey = _bmp_grey(pal, colors, padding)
+        if grey:  # PIL drops a grey palette
+            mode = raw = grey
         else:
             mode = "P"
             table = np.frombuffer(pal[:len(pal) - len(pal) % padding], np.uint8)

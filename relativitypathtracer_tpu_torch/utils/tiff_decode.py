@@ -17,9 +17,10 @@ orientation tag is applied as PIL's load does (ImageOps.exif_transpose).
                (34925, an xz stream), ZSTD (50000, utils/zstd_decode);
                predictor 2 (horizontal differencing, 8, 16 and 32 bits) and
                3 (libtiff's floating-point byte planes); the CCITT
-               compressions RLE (2), Group 3 (3, 1D and 2D by T4Options) and
-               Group 4 (4), as libtiff's fax decoders read them
-               (utils/ccitt_decode); JPEG (7: each strip's or tile's stream
+               compressions RLE (2), RLEW (32771), Group 3 (3, 1D and 2D by
+               T4Options) and Group 4 (4), as libtiff's fax decoders read
+               them (utils/ccitt_decode); ThunderScan (32809: 4-bit samples
+               in strips, tif_thunder.c's codes); JPEG (7: each strip's or tile's stream
                by utils/image_decode, with the JPEGTables tag's tables, YCbCr
                converted to RGB by libjpeg as PIL asks; libtiff's checks of
                each stream's components, sampling and size) and old-style
@@ -42,22 +43,27 @@ orientation tag is applied as PIL's load does (ImageOps.exif_transpose).
                (YCbCrSubsampling blocks, 2x2 by default, then libtiff's YCbCr
                to RGB)
 
-Anything else (ThunderScan, CCITT RLEW, SGILog, WebP, YCbCr planar under a
-compression, 4x4 YCbCr where libtiff's reader misreads its own layout, a
-planar palette beside an extra plane, an old-style JPEG interchange format
-in several strips or with other YCbCr coefficients or reference values
-than the defaults) raises DecodeError naming it, as does data on which
-PIL fails; so does a CCITT strip whose data ends before its rows, where
-libtiff leaves the rest of its buffer as it was and PIL shows that
-memory. Damaged data is read as PIL and libtiff 4.7.1 read it: libtiff's
-own reading of the directory beside PIL's (its checks that fail a file
-PIL takes, the strips, byte counts and fill order where PIL's reading
-stops early, its estimate of missing byte counts, its read errors past
-the file's end); the YCbCr route (TIFFRGBAImage, which PIL runs without
-stopping on errors) taking what a failing Deflate, LZW or LZMA strip
-wrote over its buffer (zeros, or the row's tile before); LZMA data whose
-error comes after the strip is out taken whole; the JPEG codecs as
-utils/image_decode reads libtiff's streams.
+Anything else (SGILog, WebP, YCbCr planar under a compression, 4x4 YCbCr
+where libtiff's reader misreads its own layout, a planar palette beside
+an extra plane, an old-style JPEG interchange format in several strips or
+with other YCbCr coefficients or reference values than the defaults)
+raises DecodeError naming it, as does data on which PIL fails; so does a
+Group 4 first strip that ends before its rows, where libtiff leaves the
+rest of PIL's strip buffer unwritten and PIL shows that memory (in a
+later strip those rows are the strip before's, as PIL shows them).
+Damaged data is read as PIL and libtiff 4.7.1 read it: libtiff's own
+reading of the directory beside PIL's (its checks that fail a file PIL
+takes, a palette image's ColorMap, the strips, byte counts and fill order
+where PIL's reading stops early or libtiff ignores a tag of another
+count, its estimate of missing byte counts, its read errors past the
+file's end; PIL's first value of a one-value tag that holds several); the
+YCbCr route (TIFFRGBAImage, which PIL runs without stopping on errors)
+taking what a failing Deflate, LZW or LZMA strip wrote over its buffer
+(zeros, or the row's tile before); what liblzma writes before its error
+(the chunk written up to its uncompressed size before its own checks
+fail); the CCITT decoders' state carried from strip to strip
+(utils/ccitt_decode); libzstd's fast Huffman loop (utils/zstd_decode);
+the JPEG codecs as utils/image_decode reads libtiff's streams.
 """
 
 from __future__ import annotations
@@ -68,7 +74,7 @@ import zlib
 
 import numpy as np
 
-from .ccitt_decode import decode_ccitt
+from .ccitt_decode import CcittState, decode_ccitt
 from .image import _segment
 from .image_decode import (MAX_PIXELS, DecodeError, Tables, _check_size, decode_jpeg_planes,
                            decode_jpeg_samples, read_frame, read_tables)
@@ -78,10 +84,11 @@ from . import zstd_decode
 # TiffImagePlugin.COMPRESSION_INFO: the ones decoded here, and the others' names
 _COMPRESSIONS = {1: "none", 2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4", 5: "LZW",
                  6: "old-style JPEG", 7: "JPEG", 8: "Deflate", 32946: "Deflate",
-                 32773: "PackBits", 34925: "LZMA", 50000: "ZSTD"}
-_OTHER_COMPRESSIONS = {32771: "CCITT RLEW", 32809: "ThunderScan", 34676: "SGILog",
-                       34677: "SGILog24", 50001: "WebP"}
-_CCITT = (2, 3, 4)
+                 32771: "CCITT RLEW", 32773: "PackBits", 32809: "ThunderScan", 34925: "LZMA",
+                 50000: "ZSTD"}
+_OTHER_COMPRESSIONS = {34676: "SGILog", 34677: "SGILog24", 50001: "WebP"}
+_CCITT = (2, 3, 4, 32771)
+_THUNDERSCAN = 32809
 _TIFF_HEADS = (b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00", b"II\x00\x2a", b"MM\x00\x2b",
                b"II\x2b\x00")
 _T4_OPTIONS = 292
@@ -194,9 +201,9 @@ def _get(tags: dict, tag: int, default=None):
     v = tags.get(tag)
     if v is None:
         return default
-    if tag in _SCALARS:
-        if isinstance(v, bytes) or len(v) != 1:
-            raise DecodeError(f"TIFF: tag {tag} holds {len(v)} values where one is expected")
+    if tag in _SCALARS:  # PIL keeps the first of several values (with a warning)
+        if isinstance(v, bytes):
+            raise DecodeError(f"TIFF: tag {tag} holds bytes where a number is expected")
         return v[0]
     if isinstance(v, bytes):
         raise DecodeError(f"TIFF: tag {tag} is not integers")
@@ -288,6 +295,19 @@ def _libtiff_directory(data: bytes, pos: int, endian: str, big: bool) -> dict:
             raise DecodeError("TIFF: bad ExtraSamples (libtiff)")
     if _WIDTH not in entries and _LENGTH not in entries:
         raise DecodeError("TIFF: missing ImageLength (libtiff)")
+    if _PHOTOMETRIC in entries and _BITS in entries:
+        # a palette image's ColorMap: 3 << bits integers fitting 16 bits, or
+        # (below 8 bits) the directory fails as missing it
+        try:
+            photo, bits = one(_PHOTOMETRIC, 0xFFFF), values(_BITS)[0]
+        except DecodeError:
+            photo, bits = None, 8
+        if photo == 3 and bits < 8:
+            kind, count, _ = entries.get(_COLORMAP, (0, 0, 0))
+            if (kind not in _INTEGER_TYPES or count != 3 << bits
+                    or not all(0 <= v <= 0xFFFF for v in values(_COLORMAP))):
+                raise DecodeError("TIFF: a palette image without a ColorMap libtiff reads "
+                                  "(3 << bits 16-bit values)")
     return entries
 
 
@@ -490,27 +510,108 @@ def _lzw_compat(src: bytes, size: int) -> bytes:
 
 
 def _lzma(src: bytes, size: int) -> bytes:
-    """libtiff's LZMA codec: an xz stream, `size` bytes of it. As
+    """libtiff's LZMA codec: an xz stream, `size` bytes of it, in one call
+    of lzma_code, which writes what it decodes before an error. As
     LZMADecode, an error after the `size` bytes are out (a bad check, a
-    damaged index) is no failure: liblzma's output up to it is taken from
-    the longest start of the data that decodes without one."""
+    damaged index) is no failure."""
     try:
         out = lzma.LZMADecompressor(format=lzma.FORMAT_XZ).decompress(src, size)
     except lzma.LZMAError as e:
-        lo, hi, out = 0, len(src), b""
-        while lo < hi:  # the longest start of the data that decodes cleanly
-            mid = (lo + hi + 1) // 2
-            try:
-                got = lzma.LZMADecompressor(format=lzma.FORMAT_XZ).decompress(src[:mid], size)
-            except lzma.LZMAError:
-                hi = mid - 1
-            else:
-                lo, out = mid, got
+        out = _lzma_before_error(src, size)
         if len(out) < size:
             raise _Partial(f"TIFF: corrupt LZMA data: {e}", out) from e
     if len(out) < size:
         raise _Partial("TIFF: not enough LZMA data for a strip", out)
     return out
+
+
+def _lzma_before_error(src: bytes, size: int) -> bytes:
+    """The bytes liblzma writes before its error, for an xz stream as
+    libtiff writes it: one block of LZMA2 whose first chunk resets the
+    dictionary and sets the properties. A header whose CRC fails gives
+    nothing. In one call liblzma's LZMA decoder reads on past the chunk's
+    compressed size and writes every byte up to the chunk's uncompressed
+    size before the chunk's own checks fail (the compressed size, the
+    range coder's end), so the chunk's data go through a raw LZMA1
+    decoder of the same properties, which makes no such checks; its
+    output is pulled 4096 bytes a call, then a byte a call from the last
+    clean call, Python dropping the output of a call that fails. Other
+    streams: the output of the input a byte a call."""
+    if len(src) < 12 or src[:6] != b"\xfd7zXZ\x00" or zlib.crc32(src[6:8]) != int.from_bytes(
+            src[8:12], "little"):
+        return b""
+    head = 12
+    block = (src[head] + 1) * 4 if head < len(src) and src[head] else 0
+    if not block or head + block > len(src) or zlib.crc32(
+            src[head:head + block - 4]) != int.from_bytes(src[head + block - 4:head + block],
+                                                          "little"):
+        return b""
+    flags, at = src[head + 1], head + 2
+    for bit in (0x40, 0x80):  # compressed and uncompressed sizes (VLIs), skipped
+        if flags & bit:
+            while at < head + block and src[at] & 0x80:
+                at += 1
+            at += 1
+    filters = []  # libtiff's chain: a delta filter, then LZMA2
+    for _ in range((flags & 3) + 1):
+        if src[at:at + 2] == b"\x03\x01" and not filters:
+            filters.append({"id": lzma.FILTER_DELTA, "dist": src[at + 2] + 1})
+        elif src[at:at + 2] == b"\x21\x01" and src[at + 2] <= 40:
+            dict_byte = src[at + 2]
+        else:
+            return _lzma_fed(src, size)
+        at += 3
+    chunk = head + block
+    if (src[at - 3] != 0x21 or chunk + 6 > len(src) or src[chunk] < 0xE0
+            or src[chunk + 5] >= 225):
+        return _lzma_fed(src, size)
+    usize = ((src[chunk] & 0x1F) << 16 | src[chunk + 1] << 8 | src[chunk + 2]) + 1
+    props = src[chunk + 5]
+    lc, lp, pb = props % 9, props // 9 % 5, props // 45
+    dict_size = (2 | dict_byte & 1) << (dict_byte // 2 + 11) if dict_byte < 40 else 0xFFFFFFFF
+    if lc + lp > 4:
+        return b""
+    filters.append({"id": lzma.FILTER_LZMA1, "lc": lc, "lp": lp, "pb": pb,
+                    "dict_size": max(dict_size, 4096)})
+    out = _fed(lambda: lzma.LZMADecompressor(format=lzma.FORMAT_RAW, filters=filters),
+               src[chunk + 6:], min(size, usize))
+    if len(out) == usize < size:  # a second chunk: liblzma's own stream
+        return max(out, _lzma_fed(src, size), key=len)
+    return out
+
+
+def _lzma_fed(src: bytes, size: int) -> bytes:
+    """What liblzma writes of an xz stream before its error."""
+    return _fed(lambda: lzma.LZMADecompressor(format=lzma.FORMAT_XZ), src, size)
+
+
+def _fed(new, src: bytes, size: int) -> bytes:
+    """Up to `size` bytes a liblzma decoder (`new()`) writes of `src`
+    before its error. Python drops the output of a call that fails, and
+    the decoder reads the next symbol after the bytes asked for, so the
+    input goes in a byte a call; then again the input before the failing
+    byte at once, and that byte's output a byte a call."""
+    d, out, bad = new(), b"", len(src)
+    for i in range(len(src)):
+        try:
+            out += d.decompress(src[i:i + 1])
+        except lzma.LZMAError:
+            bad = i
+            break
+        if len(out) >= size or d.eof:
+            return out[:size]
+    d = new()
+    more, data = d.decompress(src[:bad]), src[bad:bad + 1]
+    try:
+        while len(more) < size:
+            got = d.decompress(data, 1)
+            data = b""
+            if not got:
+                break
+            more += got
+    except lzma.LZMAError:
+        pass
+    return max(out, more, key=len)[:size]
 
 
 def _packbits(src: bytes, size: int) -> bytes:
@@ -689,6 +790,73 @@ def inflate_prefix(src: bytes, size: int) -> bytes:
 
 
 
+_TWO_BIT_DELTAS = (0, 1, None, -1)  # 2: skip
+_THREE_BIT_DELTAS = (0, 1, 2, 3, None, -3, -2, -1)  # 4: skip
+
+
+def _thunderscan(src: bytes, width: int, rows: int, row_bytes: int) -> bytes:
+    """libtiff's ThunderDecodeRow (tif_thunder.c): 4-bit samples, each row
+    from the next byte, a byte a code in its top two bits and six bits of
+    data: a run of the last pixel (0), three 2-bit deltas (1), two 3-bit
+    deltas (2), a raw pixel (3: the data's low four bits). The last pixel
+    starts each row at 0; deltas wrap modulo 16; a pixel past the row is
+    dropped, and a run past it writes nothing. A row of fewer pixels
+    (the data ran out) or a run past its end fails the strip."""
+    buf = bytearray(rows * row_bytes)
+    pos, end = 0, len(src)
+    for y in range(rows):
+        op = y * row_bytes
+        last = npix = 0
+        while pos < end and npix < width:
+            n = src[pos]
+            pos += 1
+            code = n >> 6
+            if code == 0:  # as libtiff writes the run, a byte at a time
+                if npix & 1:
+                    buf[op] |= last
+                    last = buf[op]
+                    op += 1
+                    npix += 1
+                    n -= 1
+                else:
+                    last |= last << 4
+                npix += n
+                if npix <= width:
+                    while n > 0:
+                        buf[op] = last
+                        op += 1
+                        n -= 2
+                if n == -1:
+                    op -= 1
+                    buf[op] &= 0xF0
+                last &= 0xF
+                continue
+            if code == 3:
+                values = [n & 0xF]
+            else:
+                deltas = ([_TWO_BIT_DELTAS[n >> s & 3] for s in (4, 2, 0)] if code == 1 else
+                          [_THREE_BIT_DELTAS[n >> s & 7] for s in (3, 0)])
+                values = []
+                for d in deltas:
+                    if d is not None:
+                        last = (last + d) & 0xF
+                        values.append(last)
+            for v in values:
+                last = v
+                if npix < width:
+                    if npix & 1:
+                        buf[op] |= v
+                        op += 1
+                    else:
+                        buf[op] = v << 4
+                    npix += 1
+        if npix != width:
+            raise DecodeError(f"TIFF: {'not enough' if npix < width else 'too much'} "
+                              f"ThunderScan data in row {y} of a strip ({npix} pixels of "
+                              f"{width})")
+    return bytes(buf)
+
+
 _CODECS = {5: _lzw, 8: _deflate, 32946: _deflate, 32773: _packbits, 34925: _lzma,
            50000: zstd_decode.decompress}
 
@@ -714,6 +882,20 @@ def _undo_float_predictor(block: np.ndarray, spp: int, endian: str) -> np.ndarra
 
 
 # ---------------------------------------------------------------------------
+
+def tiff_grey_mode(data: bytes) -> str:
+    """The PIL mode of a one-band grey TIFF ("1" or "L" by OPEN_INFO),
+    "other" for any other file."""
+    try:
+        endian = "<" if data[:2] == b"II" else ">"
+        tags = _ifd(data, struct.unpack_from(endian + "L", data, 4)[0], endian)
+        key = (_get(tags, _PHOTOMETRIC, 0), _get(tags, _SAMPLE_FORMAT, (1,)),
+               _get(tags, _BITS, (1,)), _get(tags, _EXTRA, ()))
+    except (DecodeError, struct.error):
+        return "other"
+    mode = _MODES.get(key, ("other",))[0]
+    return mode if mode in ("1", "L") and _get(tags, _SAMPLES, 1) == 1 else "other"
+
 
 def decode_tiff(data: bytes) -> np.ndarray:
     """(H, W, 3) uint8 pixels of a TIFF file's first page, as PIL's
@@ -758,11 +940,14 @@ def decode_tiff(data: bytes) -> np.ndarray:
     # PIL reads an old-style JPEG file as YCbCr, whatever its photometric tag
     photo = 6 if comp == 6 else _get(tags, _PHOTOMETRIC, 0)
     fill = lt_fill = _get(tags, _FILL_ORDER, 1)
-    if comp != 1 and _FILL_ORDER not in tags and entries.get(_FILL_ORDER, (0, 0))[1] == 1:
-        try:  # libtiff undoes the fill order PIL's reading stopped before
-            lt_fill = _libtiff_values(data, entries[_FILL_ORDER], endian, big, 1)[0]
-        except DecodeError:
-            pass
+    if comp != 1:  # libtiff undoes the fill order as it reads the tag: one value, 1 or 2
+        lt_fill = 1
+        if entries.get(_FILL_ORDER, (0, 0))[1] == 1:
+            try:
+                got = _libtiff_values(data, entries[_FILL_ORDER], endian, big, 1)[0]
+                lt_fill = got if got in (1, 2) else 1
+            except DecodeError:
+                pass
     if _WIDTH not in tags or _LENGTH not in tags:
         raise DecodeError("TIFF: missing dimensions")
     width, height = _get(tags, _WIDTH), _get(tags, _LENGTH)
@@ -953,10 +1138,33 @@ def _libtiff_samples(data, tags, comp, width, height, bps, nbands, planar, endia
     out = np.zeros((height, width, nbands), _DTYPES[bps])
     if comp in _CCITT:
         options = _get(tags, _T4_OPTIONS, (0,))[0] if comp == 3 else 0
+        state = CcittState()
+        held = np.zeros((th, tw), np.uint8)  # PIL's strip or tile buffer
+        known = 0  # its rows a chunk wrote
 
         def codec(src, size):
-            bitrows = decode_ccitt(src, comp, tw, size // row_bytes, options)
-            return np.packbits(bitrows, 1).tobytes()
+            nonlocal known
+            rows = size // row_bytes
+            # RLEW's word alignment reads the address of the strip in the
+            # mapped file: its offset's parity
+            bits, written = decode_ccitt(src, comp, tw, rows, options, state,
+                                         bool(offsets[k - 1] & 1))
+            if written < rows:  # Group 4 ending early: the rows as the buffer held them
+                if known < rows:
+                    raise DecodeError(f"CCITT: Group 4 data ends in row {written - 1} of "
+                                      "the first chunk to reach it, where PIL shows its "
+                                      "strip buffer's unwritten memory")
+                bits[written:] = held[written:rows]
+            held[:written] = bits[:written]
+            known = max(known, written)
+            return np.packbits(bits, 1).tobytes()
+    elif comp == _THUNDERSCAN:
+        if bps != 4 or nbands != 1 or tiled:
+            raise DecodeError("TIFF: ThunderScan of other than 4-bit single-sample strips "
+                              "(libtiff decodes no other)")
+
+        def codec(src, size):
+            return _thunderscan(src, tw, size // row_bytes, row_bytes)
     elif comp == 5 and _old_lzw(data[offsets[0]:offsets[0] + counts[0]]):
         codec = _lzw_compat  # libtiff keeps the first strip's kind of LZW for all
     else:

@@ -4,16 +4,28 @@ compression (50000) in utils/tiff_decode.
 libtiff hands a strip to libzstd's streaming decoder and stops at the end
 of the first frame (or when the strip's bytes are decoded), so `decompress`
 decodes one frame: its header (a dictionary ID other than 0 is an error,
-as libzstd has no dictionary), raw, RLE and compressed blocks, and the
-content checksum (XXH64's low 32 bits) where the frame has one and is
-decoded whole. A compressed block is its literals (raw, RLE, Huffman-coded
-in one or four streams, or with the previous block's Huffman table) and
-its sequences (literal lengths, match lengths and offsets, each coded with
+as libzstd has no dictionary; a window past 2**27 + 1 fails; no block
+may hold or decode to more than the window or 128 KiB), raw blocks
+streamed as far as the data goes, RLE and compressed blocks, and the
+content checksum (XXH64's low 32 bits) where the frame has one, is
+decoded whole and the checksum's bytes are there (libzstd waits for them
+else). A compressed block is its literals (raw, RLE, Huffman-coded in one
+or four streams, or with the previous block's Huffman table) and its
+sequences (literal lengths, match lengths and offsets, each coded with
 the predefined FSE table, one symbol, the block's own table or the
 previous one; repeat offsets starting at 1, 4, 8), each bit stream read
-backwards from its end marker and required to end exactly where its
-symbols end. Corrupt data raises DecodeError; nothing returns a partial
-strip.
+backwards from its end marker. One Huffman stream, and four where one is
+under 8 bytes, must end exactly where its symbols end (libzstd's checked
+loops). Four streams of 8 bytes or more go through libzstd 1.5.7's fast
+loop (HUF_decompress4X1/X2_usingDTable_internal_fast), which PIL's
+libzstd takes on x86-64 with BMI2 (its assembly loop) and on any other
+64-bit little-endian host: a stream is read on past its start into the
+bytes before it, nothing checks where it ends, and the loop fails only
+where it leaves a stream's read pointer more than 8 bytes below the
+stream's start (`_fast_literals`); one or two symbols a lookup as
+HUF_selectDecoder chooses. An x86-64 CPU without BMI2 (before 2013)
+would take the checked loops, which this does not model. Corrupt data
+raises DecodeError; nothing returns a partial strip.
 """
 
 from __future__ import annotations
@@ -217,7 +229,7 @@ def _huffman_table(weights):
 
 
 def _huffman_stream(data: bytes, count: int, huff) -> bytes:
-    max_bits, table = huff
+    max_bits, table = huff[:2]
     r = _Backward(data)
     out = bytearray()
     for _ in range(count):
@@ -237,6 +249,7 @@ class _State:
         self.huff = None
         self.fse = {"ll": None, "ml": None, "of": None}
         self.rep = [1, 4, 8]
+        self.block_max = _BLOCK_MAX
 
 
 def _literals(data: bytes, pos: int, end: int, st: _State):
@@ -260,29 +273,130 @@ def _literals(data: bytes, pos: int, end: int, st: _State):
     streams = 1 if fmt == 0 else 4
     pos += head
     stop = pos + csize
-    if stop > end or size > _BLOCK_MAX:
+    if stop > end or size > st.block_max:
         raise DecodeError("ZSTD: corrupt literals section")
     if kind == 2:
         weights, pos = _huffman_weights(data[:stop], pos)
-        st.huff = _huffman_table(weights)
+        st.huff = _huffman_table(weights) + (streams == 4 and _double_symbols(size, csize),)
     elif st.huff is None:
         raise DecodeError("ZSTD: treeless literals without a previous Huffman table")
     if streams == 1:
         return _huffman_stream(data[pos:stop], size, st.huff), stop
-    if pos + 6 > stop:
-        raise DecodeError("ZSTD: truncated jump table")
+    if stop - pos < 10 or size < 6:
+        raise DecodeError("ZSTD: corrupt four-stream literals")
     sizes = [int.from_bytes(data[pos + 2 * i:pos + 2 * i + 2], "little") for i in range(3)]
-    pos += 6
-    sizes.append(stop - pos - sum(sizes))
+    sizes.append(stop - pos - 6 - sum(sizes))
     each = (size + 3) // 4
     counts = [each, each, each, size - 3 * each]
-    if sizes[3] < 0 or counts[3] < 0:
+    if sizes[3] < 0:
         raise DecodeError("ZSTD: corrupt jump table")
-    out = b""
+    if min(sizes) >= 8 and counts[3] > 0:
+        return _fast_literals(data[pos:stop], sizes, counts, st.huff), stop
+    out, pos = b"", pos + 6
     for n, c in zip(sizes, counts):
         out += _huffman_stream(data[pos:pos + n], c, st.huff)
         pos += n
     return out, stop
+
+
+# HUF_selectDecoder's timings (huf_decompress.c, algoTime): by the
+# compressed share Q, (table, a 256 bytes) for one and two symbols a lookup
+_ALGO_TIME = ((0, 0, 1, 1), (0, 0, 1, 1), (150, 216, 381, 119), (170, 205, 514, 112),
+              (177, 199, 539, 110), (197, 194, 644, 107), (221, 192, 735, 107),
+              (256, 189, 881, 106), (359, 188, 1167, 109), (582, 187, 1570, 114),
+              (688, 187, 1712, 122), (825, 186, 1965, 136), (976, 185, 2131, 150),
+              (1180, 186, 2070, 175), (1377, 185, 1731, 202), (1412, 185, 1695, 202))
+_FAST_LOG = 11  # HUF_DECODER_FAST_TABLELOG: every literals table is read 11 bits a lookup
+
+
+def _double_symbols(size: int, csize: int) -> bool:
+    """HUF_selectDecoder: whether four-stream literals with a new table
+    are decoded two symbols a lookup (HUF_decompress4X2), which a later
+    block reusing the table keeps."""
+    q = 15 if csize >= size else csize * 16 // size
+    t0, d0, t1, d1 = _ALGO_TIME[q]
+    single, double = t0 + d0 * (size >> 8), t1 + d1 * (size >> 8)
+    return double + (double >> 5) < single
+
+
+def _fast_literals(sec: bytes, sizes, counts, huff) -> bytes:
+    """Four Huffman streams as libzstd's fast decoder reads them
+    (HUF_decompress4X1/X2_usingDTable_internal_fast, the loop libzstd
+    takes where each stream has 8 bytes or more, on an x86-64 CPU with
+    BMI2 (its assembly loop) and on other 64-bit little-endian hosts).
+    `sec` is the streams with their jump table. A stream is read
+    backwards from its end marker (a last byte of 0 holds no marker: its
+    bits are read) on past its start into the bytes before it, down to the
+    jump table, and nothing checks where it ends; below the jump table's
+    first byte the bit container of its first eight bytes is read round
+    and round (BIT_lookBitsFast's shift modulo 64). The fast loop, 5
+    lookups a stream an iteration while each stream's input and output
+    allow, must leave each stream's read pointer no more than 8 bytes
+    below its start (HUF_initRemainingDStream); the rest of each stream
+    is decoded on from there."""
+    max_bits, table, double = huff
+    shortest = min(bits for _, bits in table)
+    ends, at = [], 6
+    for n in sizes:
+        at += n
+        ends.append(at)
+    total = 8 * len(sec)
+    word = int.from_bytes(sec[:8], "little")
+
+    def window(p: int) -> int:  # the 11 bits below bit p of sec (as the lookups see them)
+        if p >= _FAST_LOG:
+            lo = p - _FAST_LOG
+            return int.from_bytes(sec[lo >> 3:(p + 7) >> 3], "little") >> (lo & 7) & 0x7FF
+        if p <= 0:
+            p = (p - 1) % 64 + 1
+        return (word << (64 - p) & 0xFFFFFFFFFFFFFFFF) >> 53
+
+    out = bytearray()
+    looks = []  # each stream's lookups: (bits, symbols)
+    for end, count in zip(ends, counts):
+        last = sec[end - 1]
+        p = 8 * end - (8 - last.bit_length() + 1 if last else 0)
+        mine, n = [], 0
+        while n < count:
+            w = window(p) if p <= total else 0
+            s1, b1 = table[w >> (_FAST_LOG - max_bits)]
+            if double and count - n >= 2 and _FAST_LOG - b1 >= shortest:
+                s2, b2 = table[(w << b1 & 0x7FF) >> (_FAST_LOG - max_bits)]
+                if b2 <= _FAST_LOG - b1:
+                    out += bytes((s1, s2))
+                    mine.append((b1 + b2, 2))
+                    p, n = p - b1 - b2, n + 2
+                    continue
+            out.append(s1)
+            mine.append((b1, 1))
+            p, n = p - b1, n + 1
+        looks.append(mine)
+    # the fast loop: where each stream's read pointer stands when it ends
+    ip = [end - 8 for end in ends]
+    used = [8 - sec[end - 1].bit_length() + 1 if sec[end - 1] else 0 for end in ends]
+    k, op = [0] * 4, [sum(counts[:i]) for i in range(4)]
+    stops = [sum(counts[:i + 1]) for i in range(4)]
+    while True:
+        iters = ip[0] // 7
+        if double:
+            iters = min([iters] + [(stops[i] - op[i]) // 10 for i in range(4)])
+        else:
+            iters = min(iters, (stops[3] - op[3]) // 5)
+        limit = op[3] + 5 * iters
+        if op[3] == limit or any(ip[i] < ip[i - 1] for i in (1, 2, 3)):
+            break
+        while op[3] < limit:
+            for i in range(4):
+                for bits, n in looks[i][k[i]:k[i] + 5]:
+                    used[i] += bits
+                    op[i] += n
+                k[i] += 5
+                ip[i] -= used[i] >> 3
+                used[i] &= 7
+    for i in range(4):
+        if ip[i] < ends[i] - sizes[i] - 8:
+            raise DecodeError("ZSTD: corrupt Huffman stream (read past its start)")
+    return bytes(out)
 
 
 def _seq_table(data: bytes, pos: int, end: int, mode: int, kind: str, st: _State):
@@ -441,25 +555,37 @@ def decompress(data: bytes, size: int) -> bytes:
         raise DecodeError("ZSTD: reserved frame header bit set")
     single, dict_size = fhd >> 5 & 1, (0, 1, 2, 4)[fhd & 3]
     fcs_size = (1 if single else 0, 2, 4, 8)[fhd >> 6]
-    pos += 0 if single else 1
-    dict_id = int.from_bytes(data[pos:pos + dict_size], "little")
-    pos += dict_size + fcs_size
-    if pos > len(data):
+    if pos + (0 if single else 1) + dict_size + fcs_size > len(data):
         raise DecodeError("ZSTD: truncated frame header")
+    if not single:  # the window: libzstd's largest by default is 2**27 (+ 1)
+        log, mantissa = 10 + (data[pos] >> 3), data[pos] & 7
+        window = (1 << log) + ((1 << log) >> 3) * mantissa
+        pos += 1
+    dict_id = int.from_bytes(data[pos:pos + dict_size], "little")
+    pos += dict_size
+    fcs = int.from_bytes(data[pos:pos + fcs_size], "little") + (256 if fcs_size == 2 else 0)
+    pos += fcs_size
+    if single:
+        window = fcs
+    if window > (1 << 27) + 1:
+        raise DecodeError("ZSTD: frame window too large")
     if dict_id:
         raise DecodeError("ZSTD: a frame that needs a dictionary")
     st, out = _State(), bytearray()
+    st.block_max = min(window, _BLOCK_MAX)  # blockSizeMax: no block holds more
     while len(out) < size:
         if pos + 3 > len(data):
             raise DecodeError("ZSTD: truncated block header")
         head = int.from_bytes(data[pos:pos + 3], "little")
         pos += 3
         last, kind, bsize = head & 1, (head >> 1) & 3, head >> 3
-        if kind == 0:
-            if pos + bsize > len(data):
-                raise DecodeError("ZSTD: truncated raw block")
+        if bsize > st.block_max and kind != 3:
+            raise DecodeError("ZSTD: a block larger than the frame's window allows")
+        if kind == 0:  # streamed: as much as the data holds
             out += data[pos:pos + bsize]
             pos += bsize
+            if pos > len(data):
+                break
         elif kind == 1:
             if pos >= len(data):
                 raise DecodeError("ZSTD: truncated RLE block")
@@ -467,17 +593,19 @@ def decompress(data: bytes, size: int) -> bytes:
             pos += 1
         elif kind == 2:
             end = pos + bsize
-            if end > len(data) or bsize > _BLOCK_MAX:
-                raise DecodeError("ZSTD: truncated or oversized compressed block")
+            if end > len(data):
+                raise DecodeError("ZSTD: truncated compressed block")
             lits, at = _literals(data, pos, end, st)
+            before = len(out)
             _sequences(data, at, end, st, lits, out, 0)
+            if len(out) - before > st.block_max:
+                raise DecodeError("ZSTD: a block decodes to more than the frame's window allows")
             pos = end
         else:
             raise DecodeError("ZSTD: reserved block type")
         if last:
-            if fhd & 4 and len(out) <= size:
-                if pos + 4 > len(data):
-                    raise DecodeError("ZSTD: truncated content checksum")
+            # libzstd checks the checksum when it has it (and waits for it else)
+            if fhd & 4 and len(out) <= size and pos + 4 <= len(data):
                 if _xxh64(bytes(out)) & 0xFFFFFFFF != int.from_bytes(data[pos:pos + 4], "little"):
                     raise DecodeError("ZSTD: content checksum mismatch")
             break

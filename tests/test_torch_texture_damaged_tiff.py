@@ -7,9 +7,8 @@ committed TIFF fixture (make_fixtures.py's `damaged_cases`: bytes set,
 markers over two bytes, cuts) and PIL's outcome of each from three fresh
 processes: with PIL blocked, the port gives PIL's pixels where PIL reads
 the file, and raises TextureError through read_texture where PIL fails or
-its pixels vary, except the cases left for later (CCITT strips whose data
-ends early, LZMA and ZSTD data libtiff's libraries read further than the
-port), which the port refuses naming the codec. Hand-built files pin the
+its pixels vary; no case is left for later (`LEFT`: the cases PIL reads
+and the port refuses, naming the codec). Hand-built files pin the
 rules against the installed PIL: JPEG strips through libtiff's fake EOI
 and its ignored errors after a one-scan strip; a corrupt Deflate or LZW
 strip or tile in the YCbCr route, where libtiff's RGBA reader reads on
@@ -32,13 +31,9 @@ from relativitypathtracer_tpu_torch.models.texture import decode_texture
 from relativitypathtracer_tpu_torch.utils import tiff_decode
 
 TIFFS = sorted(n for n in SWEEP if n.endswith(".tif"))
-# the cases left for later (ROADMAP Queue 3 item 2), by the codec the port
-# names in refusing them: PIL reads each
-LEFT = {("g3_1d.tif", 6): "CCITT", ("g3_2d_fill.tif", 0): "CCITT",
-        ("g3_2d_fill.tif", 1): "CCITT", ("g3_2d_fill.tif", 2): "CCITT",
-        ("g3_2d_fill.tif", 3): "CCITT", ("g3_2d_fill.tif", 4): "CCITT",
-        ("g3_2d_fill.tif", 5): "CCITT", ("lzma_pred2.tif", 3): "LZMA",
-        ("zstd_pred2_strips.tif", 6): "ZSTD", ("zstd_pred2_strips.tif", 7): "ZSTD"}
+# the cases left for later, by the codec the port names in refusing them:
+# none (PIL reads each case of the sweep as the port does, or both refuse)
+LEFT = {}
 
 
 @pytest.mark.parametrize("name", TIFFS)

@@ -34,7 +34,7 @@ from torch_textures.make_fixtures import (bmp_file, bmp_rle, bmp_rows, gif_file,
 import relativitypathtracer_tpu_torch as pt
 from relativitypathtracer_tpu_torch.models import texture
 from relativitypathtracer_tpu_torch.models.texture import TextureError, decode_texture, read_texture
-from relativitypathtracer_tpu_torch.utils import pil_modes
+from relativitypathtracer_tpu_torch.utils import misc_raster, pil_modes
 from relativitypathtracer_tpu_torch.utils.demo_scene import demo_texture, write_demo_scene
 from relativitypathtracer_tpu_torch.utils.raster_decode import tga_header_ok
 
@@ -470,14 +470,18 @@ def test_formats_told_apart_as_pil_tells_them(name, monkeypatch):
     format Image.open finds, by the file's bytes alone."""
     data = (FIXTURES / name).read_bytes()
     with Image.open(io.BytesIO(data)) as im:
-        want = DECODERS[im.format]
+        want = [DECODERS[im.format]]
+    if want == ["decode_iptc"] and misc_raster.iptc_body(data)[4] == 5:
+        # PIL opens an IPTC image's compressed data as a file of its own
+        with Image.open(io.BytesIO(misc_raster.iptc_body(data)[5])) as body:
+            want.append(DECODERS[body.format])
     calls = []
     for attr in set(DECODERS.values()):
         real = getattr(texture, attr)
         monkeypatch.setattr(texture, attr, lambda d, *a, _r=real, _n=attr, **k: calls.append(_n)
                             or _r(d, *a, **k))
     decode_texture(data)
-    assert calls == [want]
+    assert calls == want
 
 
 def test_tga_is_told_last_by_its_header(monkeypatch):
@@ -714,8 +718,10 @@ def test_chip_smoke_texture_scenes_on_cpu(tmp_path):
     irreversible JP2) and cubes with cubes_lossless.j2k (the squares as a
     lossless tiled J2K), textured with blob_rgb.im (that texture as a
     line-interleaved RGB IM, lossless) and cubes with cubes_g4.tif (256x256
-    bilevel squares in Group 4, the PPM scene's 32,768-row atlas), through
-    its fixture_texture."""
+    bilevel squares in Group 4, the PPM scene's 32,768-row atlas), textured
+    with blob_thunder.tif (that texture as 4-bit grey ThunderScan) and cubes
+    with cubes_rlew.tif (the 256x256 squares in CCITT RLEW), through its
+    fixture_texture."""
     from relativitypathtracer_tpu_torch.ops.kernels.texture_kernel import texture_route
 
     spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
@@ -728,7 +734,8 @@ def test_chip_smoke_texture_scenes_on_cpu(tmp_path):
                         ("textured", "blob_bc1.dds"), ("cubes", "cubes_bc7.dds"),
                         ("textured", "blob_packbits.psd"), ("cubes", "cubes_rle.sgi"),
                         ("textured", "blob_irrev.jp2"), ("cubes", "cubes_lossless.j2k"),
-                        ("textured", "blob_rgb.im"), ("cubes", "cubes_g4.tif")]
+                        ("textured", "blob_rgb.im"), ("cubes", "cubes_g4.tif"),
+                        ("textured", "blob_thunder.tif"), ("cubes", "cubes_rlew.tif")]
     for kind, name in fixtures:
         where = tmp_path / name
         scene_file = smoke.fixture_texture(write_demo_scene(str(where), 1, kind), name)
@@ -743,7 +750,7 @@ def test_chip_smoke_texture_scenes_on_cpu(tmp_path):
                 assert bytes(host.textures) == bytes(ppm.textures) == demo_texture(32).tobytes()
             assert route == "small"
         else:
-            rows = 32768 if name == "cubes_g4.tif" else 2048
+            rows = 32768 if name in ("cubes_g4.tif", "cubes_rlew.tif") else 2048
             assert scene.tex_quads.shape[0] == rows and route == "windowed"
 
 

@@ -273,12 +273,14 @@ def test_ccitt_tables_are_prefix_codes():
 
 def test_mutated_ccitt_strips_agree_or_refuse_early_ends():
     """Bytes changed in CCITT strips: libtiff reads bad codes and goes on,
-    and the port equals PIL; where libtiff runs out of data before the
-    strip's last row, PIL returns its strip buffer's earlier contents
-    (which differ from run to run) or fails, and the port refuses by
-    name. The port never decodes what PIL refuses."""
+    Group 3 reads a strip again without EOLs where its data ends before
+    an EOL, and the port equals PIL or both refuse; where Group 4 data
+    ends before the strip's last row, libtiff leaves the rest of PIL's
+    strip buffer as it was (unwritten memory in a first strip, which
+    differs from run to run), and the port refuses by name. The port
+    never decodes what PIL refuses."""
     rng = np.random.default_rng(5)
-    seen = {"equal": 0, "refused early end": 0}
+    seen = {"equal": 0, "both refuse": 0, "refused early end": 0}
     for comp, info in (("group3", {}), ("group3", {292: 1}), ("group4", {}),
                        ("tiff_ccitt", {})):
         a = rng.random((12, 37)) < 0.3
@@ -291,12 +293,14 @@ def test_mutated_ccitt_strips_agree_or_refuse_early_ends():
                 e[at + int(rng.integers(0, n))] = int(rng.integers(0, 256))
             want, got = _pil_outcome(bytes(e)), _port(bytes(e))
             if isinstance(got, Exception):
-                assert isinstance(want, Exception) or "premature end of data" in str(got), got
-                seen["refused early end"] += not isinstance(want, Exception)
+                key = "both refuse" if isinstance(want, Exception) else "refused early end"
+                assert key == "both refuse" or (
+                    comp == "group4" and "unwritten memory" in str(got)), got
+                seen[key] += 1
             else:
                 assert not isinstance(want, Exception) and np.array_equal(got, want)
                 seen["equal"] += 1
-    assert seen["equal"] > 100 and seen["refused early end"] > 10, seen
+    assert seen["equal"] > 100 and seen["refused early end"], seen
 
 
 @pytest.mark.parametrize("size", [(3, 4), (40, 60), (120, 200)])
@@ -416,12 +420,11 @@ def test_zstd_float_and_checksum():
 
 
 def test_mutated_zstd_strips_agree_or_refuse():
-    """Bytes changed in ZSTD strips: the port equals PIL, or both refuse;
-    where libzstd's fast Huffman loop leaves a literal stream's end
-    unchecked, the port refuses it (it holds each stream to end exactly
-    where its symbols end, as libzstd's other loops do)."""
+    """Bytes changed in ZSTD strips: the port equals PIL, or both refuse,
+    libzstd's fast Huffman loop (which leaves a literal stream's end
+    unchecked) included."""
     rng = np.random.default_rng(9)
-    seen = {"equal": 0, "both refuse": 0, "refused stream end": 0}
+    seen = {"equal": 0, "both refuse": 0}
     for h, w in ((40, 50), (120, 90)):
         y, x = np.mgrid[0:h, 0:w]
         for name in ("noisy", "smooth"):
@@ -435,13 +438,12 @@ def test_mutated_zstd_strips_agree_or_refuse():
                     e[at + int(rng.integers(0, n))] = int(rng.integers(0, 256))
                 want, got = _pil_outcome(bytes(e)), _port(bytes(e))
                 if isinstance(got, Exception):
-                    key = "both refuse" if isinstance(want, Exception) else "refused stream end"
-                    assert key == "both refuse" or "corrupt Huffman stream" in str(got), got
-                    seen[key] += 1
+                    assert isinstance(want, Exception), got
+                    seen["both refuse"] += 1
                 else:
                     assert not isinstance(want, Exception) and np.array_equal(got, want)
                     seen["equal"] += 1
-    assert seen["equal"] > 50 and seen["both refuse"] + seen["refused stream end"] > 5, seen
+    assert seen["equal"] > 50 and seen["both refuse"] >= 2, seen
 
 
 def test_bigtiff_as_pil():
@@ -493,16 +495,13 @@ def _broken():
             b"\x03\x01\x03\x00\x01\x00\x00\x00\x50\xc3"), "ZSTD: unknown frame descriptor"),
         "zstd_truncated": (_cut_strip(_save(Image.fromarray(pic), "TIFF", compression="zstd")),
                            "ZSTD"),
-        "rlew": (tiff_file(pic[..., :1] > 100, 1, 0).replace(
-            b"\x03\x01\x03\x00\x01\x00\x00\x00\x01\x00",
-            b"\x03\x01\x03\x00\x01\x00\x00\x00\x03\x80"),
-                 "TIFF compression CCITT RLEW is not supported"),
+        "rlew": (strip(32771, bytes(g4[8:12])), "premature end of data"),
     }
 
 
 BROKEN = _broken()
-# PIL reads this on: CCITT RLEW decodes in its libtiff
-PIL_READS = {"rlew"}
+# the broken files PIL reads on (none)
+PIL_READS = set()
 
 
 @pytest.mark.parametrize("kind", sorted(BROKEN))

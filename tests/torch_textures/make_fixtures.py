@@ -24,7 +24,12 @@ old-style compression 6 as the interchange format and with its tables in
 tags); DDS written by PIL (DXT1/3/5, BC5, RGB, RGBA, L, LA) and built here
 (seeded random blocks of every BCn kind, every BC6H and BC7 mode, masks,
 a palette, mipmaps, a cube map, BC7 mode 6 from `bc7_mode6`), FTEX, and
-BLP1/BLP2 (PIL's palette files; JPEG, palette and DXT built here). The
+BLP1/BLP2 (PIL's palette files; JPEG, palette and DXT built here);
+ThunderScan TIFFs built here (`thunderscan_row`), CCITT RLEW TIFFs PIL
+writes and rows built here to end on a word (`rlew_tiff`, `rlew_words`,
+`mh_row`), IPTC files around PNG, TIFF, BMP and GIF data, and APNGs PIL
+writes and built here (`png_file`, `actl`, `fctl`, `fdat`;
+`codec_fixtures`). The
 builders (`bmp_file`, `tga_file`, `gif_file`, `tiff_file`,
 `jpeg_sampled`, `vp8_frame`, `vp8l_palette`, `riff_webp`, `arith_jpeg`,
 `jpeg_tiff`, `ojpeg_tiff`, `dds_file`, `ftex_file`, `blp_file` and their
@@ -370,19 +375,21 @@ def tiff_file(samples: np.ndarray, bits: int, photo: int, comp: int = 1, planar:
 
 
 def tiff_from_chunks(stored, height: int, tags, tile=None, rows_per_strip=None,
-                     endian: str = "<", big: bool = False) -> bytes:
+                     endian: str = "<", big: bool = False, lead: bytes = b"") -> bytes:
     """A one-page TIFF of the stored strips (of rows_per_strip rows, the
     whole height if None) or tiles (tile=(w, h)) and the tags, each (tag,
     type, values): 3 SHORT, 4 LONG, 7 UNDEFINED (values: bytes), 16 LONG8;
     the layout tags are added. BigTIFF (`big`): the 16-byte header, 8-byte
-    counts and offsets, 20-byte entries, the layout's offsets as LONG8."""
+    counts and offsets, 20-byte entries, the layout's offsets as LONG8.
+    `lead`: bytes put before each chunk (b"Z": each at an odd offset)."""
     magic = (b"II+\0" if endian == "<" else b"MM\0+") if big else (
         b"II*\0" if endian == "<" else b"MM\0*")
     head = magic + (struct.pack(endian + "HHQ", 8, 0, 0) if big else bytes(4))
     body, offsets = bytearray(head), []
     for c in stored:
+        body += lead
         offsets.append(len(body))
-        body += c + b"\0" * (len(c) % 2)
+        body += c + b"\0" * ((len(lead) + len(c)) % 2)
     counts = [len(c) for c in stored]
     where = 16 if big else 4
     tags = list(tags) + ([(322, 3, [tile[0]]), (323, 3, [tile[1]]), (324, where, offsets),
@@ -3230,14 +3237,242 @@ def rare_fixtures(rng, Image) -> dict:
     return files
 
 
+# --- ThunderScan, CCITT RLEW, IPTC around other formats, APNG's first frame ---------------
+
+def thunderscan_row(values) -> bytes:
+    """One row of 4-bit values in ThunderScan codes (tif_thunder.c's
+    input): a run of the last pixel (up to 63) where two or more repeat,
+    else three 2-bit deltas (0, +1, -1) where they reach, else two 3-bit
+    deltas (-3 to 3), else a raw pixel; the last pixel starts each row at
+    0, deltas wrap modulo 16."""
+    out, last, i, n = bytearray(), 0, 0, len(values)
+    while i < n:
+        run = 0
+        while i + run < n and values[i + run] == last and run < 63:
+            run += 1
+        if run >= 2:
+            out.append(run)
+            i += run
+            continue
+        for size, codes, base in ((3, {0: 0, 1: 1, -1: 3}, 0x40),
+                                  (2, {d: d & 7 for d in range(-3, 4)}, 0x80)):
+            steps, prev = [], last
+            for v in values[i:i + size]:
+                d = (int(v) - prev + 8) % 16 - 8
+                if d not in codes:
+                    break
+                steps.append(codes[d])
+                prev = int(v)
+            if len(steps) == size:
+                shifts = (4, 2, 0) if size == 3 else (3, 0)
+                out.append(base | sum(c << sh for c, sh in zip(steps, shifts)))
+                last, i = prev, i + size
+                break
+        else:
+            last = int(values[i])
+            out.append(0xC0 | last)
+            i += 1
+    return bytes(out)
+
+
+def thunderscan_tiff(strips, width: int, height: int, rows_per_strip: int, photo: int = 1,
+                     endian: str = "<", colormap=None) -> bytes:
+    """A 4-bit ThunderScan TIFF (compression 32809) of the coded strips."""
+    tags = [(256, 4, [width]), (257, 4, [height]), (258, 3, [4]), (259, 3, [32809]),
+            (262, 3, [photo]), (277, 3, [1])] + ([(320, 3, colormap)] if colormap else [])
+    return tiff_from_chunks(strips, height, tags, rows_per_strip=rows_per_strip, endian=endian)
+
+
+def thunderscan_coded(values: np.ndarray, rows_per_strip: int, **kw) -> bytes:
+    """thunderscan_tiff of (h, w) 4-bit values coded by thunderscan_row."""
+    h, w = values.shape
+    strips = [b"".join(thunderscan_row(row) for row in values[y:y + rows_per_strip])
+              for y in range(0, h, rows_per_strip)]
+    return thunderscan_tiff(strips, w, h, rows_per_strip, **kw)
+
+
+def mh_row(bits) -> str:
+    """One row of bits (1 black) in T.4's modified-Huffman codes, white
+    first: each run its make-up codes (2560 at a time past 2560) and its
+    terminating code, as a string of 0s and 1s."""
+    from relativitypathtracer_tpu_torch.utils import ccitt_decode as cc
+    runs, colour, x, n = [], 0, 0, len(bits)
+    while x < n or not runs:
+        end = x
+        while end < n and bits[end] == colour:
+            end += 1
+        runs.append(end - x)
+        x, colour = end, 1 - colour
+    out = []
+    for k, run in enumerate(runs):
+        term, makeup = ((cc._WHITE_TERM, cc._WHITE_MAKEUP) if k % 2 == 0 else
+                        (cc._BLACK_TERM, cc._BLACK_MAKEUP))
+        while run >= 2560:
+            out.append(cc._EXT_MAKEUP[12])
+            run -= 2560
+        if run >= 64:
+            m = run // 64
+            out.append(makeup[m - 1] if m <= 27 else cc._EXT_MAKEUP[m - 28])
+            run -= 64 * m
+        out.append(term[run])
+    return "".join(out)
+
+
+def rlew_words(rng, width: int, rows: int) -> tuple:
+    """(bits, strip): random rows whose modified-Huffman codes end on a
+    16-bit word each, and the strip of their codes."""
+    picked, code = [], ""
+    while len(picked) < rows:
+        row = (rng.random(width) < 0.3).astype(np.uint8)
+        c = mh_row(row)
+        if len(c) % 16 == 0:
+            picked.append(row)
+            code += c
+    return np.array(picked), int(code, 2).to_bytes(len(code) // 8, "big")
+
+
+def rlew_tiff(ink: np.ndarray, Image, rows_per_strip=None, lead: bytes = b"") -> bytes:
+    """A bilevel TIFF (1: black, photometric 0) in CCITT RLEW (32771),
+    coded by libtiff through PIL (compression "tiff_raw_16"), its strips
+    put into a file of this module's, after `lead` each."""
+    h, w = ink.shape
+    buf = io.BytesIO()
+    Image.fromarray(np.asarray(ink, bool)).convert("1").save(
+        buf, "TIFF", compression="tiff_raw_16", tiffinfo={278: rows_per_strip or h})
+    data = buf.getvalue()
+    with Image.open(buf) as im:
+        strips = [data[o:o + n] for o, n in zip(im.tag_v2[273], im.tag_v2[279])]
+    tags = [(256, 4, [w]), (257, 4, [h]), (258, 3, [1]), (259, 3, [32771]), (262, 3, [0]),
+            (277, 3, [1])]
+    return tiff_from_chunks(strips, h, tags, rows_per_strip=rows_per_strip, lead=lead)
+
+
+def png_chunk(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+
+def png_file(width: int, height: int, *chunks, depth: int = 8, ctype: int = 2) -> bytes:
+    """A PNG: the signature, IHDR and the chunks given, then IEND."""
+    return (b"\x89PNG\r\n\x1a\n"
+            + png_chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, depth, ctype, 0, 0, 0))
+            + b"".join(chunks) + png_chunk(b"IEND", b""))
+
+
+def png_data(pixels: np.ndarray) -> bytes:
+    """(h, w, c) or (h, w) 8-bit samples as a PNG's zlib data (filter 0)."""
+    rows = pixels.reshape(pixels.shape[0], -1)
+    return zlib.compress(b"".join(b"\0" + r.tobytes() for r in rows))
+
+
+def actl(frames: int, loops: int = 0) -> bytes:
+    return png_chunk(b"acTL", struct.pack(">II", frames, loops))
+
+
+def fctl(seq: int, width: int, height: int, x: int = 0, y: int = 0, dispose: int = 0,
+         blend: int = 0) -> bytes:
+    """An fcTL chunk (delay 1/10 s): dispose 0 none, 1 background, 2
+    previous; blend 0 source, 1 over."""
+    return png_chunk(b"fcTL", struct.pack(">IIIIIHHBB", seq, width, height, x, y, 1, 10,
+                                          dispose, blend))
+
+
+def fdat(seq: int, pixels: np.ndarray) -> bytes:
+    return png_chunk(b"fdAT", struct.pack(">I", seq) + png_data(pixels))
+
+
+def codec_fixtures(rng, Image) -> dict:
+    """ThunderScan and CCITT RLEW TIFFs, IPTC files around a PNG, a TIFF,
+    a BMP and a GIF, and APNGs, by file name. ThunderScan (built here):
+    every code (runs from even and odd pixels, 2-bit and 3-bit deltas with
+    their skip codes, raw pixels with data bits above the pixel's, runs of
+    0, deltas past a row's end, a run ending at it) in two strips, a coded
+    picture big-endian and min-is-white, a palette one, and textured's
+    32x32 as 4-bit grey (`blob_thunder.tif`). RLEW: PIL's own files (libtiff
+    misreads them: its bit reader's word alignment), in one strip and
+    several, at odd offsets, rows that end on a word (built here), and
+    cubes' 256x256 squares a row a strip, which libtiff reads as coded
+    (`cubes_rlew.tif`). IPTC: a PNG, an LZW TIFF, a
+    BMP and a GIF as the image, a grey PNG and a grey TIFF as one band.
+    APNG: PIL's (the first image a default image or frame 0), and built
+    here: frame 0 in a box of its own (dispose previous and background,
+    blend over; palette with transparency), an acTL without an fcTL before
+    the image, frame 0 in an fdAT."""
+    from relativitypathtracer_tpu_torch.utils.demo_scene import demo_texture
+
+    def save(im, fmt, **kw):
+        buf = io.BytesIO()
+        im.save(buf, fmt, **kw)
+        return buf.getvalue()
+
+    files = {}
+    # ThunderScan: every code, rows of 7 in two strips
+    rows = [bytes([0xC5, 0x5B, 0x9C, 0x03]),  # raw 5, +1 skip -1, +3 skip, a run of 3
+            bytes([0xC1, 0x05, 0x55]),  # a run of 5 from an odd pixel, deltas past the end
+            bytes([0xF3, 0x00, 0x05, 0x80 | 5 << 3 | 1])]  # raw 3 under data bits, -3 and +1 past
+    files["thunder_codes.tif"] = thunderscan_tiff([rows[0] + rows[1], rows[2]], 7, 3, 2)
+    picture = (_picture(rng, 21, 30)[..., 0] >> 4).astype(np.uint8)
+    picture[:, 20:] = picture[:, 20:21]  # runs to each row's end
+    files["thunder_be_minwhite.tif"] = thunderscan_coded(picture, 8, photo=0, endian=">")
+    files["thunder_palette.tif"] = thunderscan_coded(
+        picture[:9], 4, photo=3, colormap=rng.integers(0, 65536, 48).tolist())
+    grey = np.asarray(Image.fromarray(demo_texture(32)).convert("L")) >> 4
+    files["blob_thunder.tif"] = thunderscan_coded(grey, 16)
+    # CCITT RLEW
+    ink = _picture(rng, 20, 45)[..., 0] < 100
+    files["rlew_one_strip.tif"] = rlew_tiff(ink, Image)
+    files["rlew_strips.tif"] = rlew_tiff(ink, Image, rows_per_strip=6, lead=b"Z")
+    bits, strip = rlew_words(rng, 23, 10)
+    files["rlew_words.tif"] = tiff_from_chunks(
+        [strip], 10, [(256, 4, [23]), (257, 4, [10]), (258, 3, [1]), (259, 3, [32771]),
+                      (262, 3, [0]), (277, 3, [1])])
+    squares = (np.add.outer(np.arange(256) // 32, np.arange(256) // 32) % 2).astype(bool)
+    files["cubes_rlew.tif"] = rlew_tiff(squares, Image, rows_per_strip=1, lead=b"Z")  # read whole
+    # IPTC around other formats
+    pic = _picture(rng, 11, 13)
+    rgb = Image.fromarray(pic)
+    for name, body in (("png", save(rgb, "PNG")),
+                       ("tiff", save(rgb, "TIFF", compression="tiff_lzw")),
+                       ("bmp", save(rgb, "BMP")), ("gif", save(rgb, "GIF"))):
+        files[f"iptc_{name}.iim"] = iptc_file(13, 11, 1, 0, body, 5, chunk=100)
+    files["iptc_png_band2.iim"] = iptc_file(13, 11, 3, 1, save(rgb.convert("L"), "PNG"), 5,
+                                            band=2)
+    files["iptc_tiff_band4.iim"] = iptc_file(13, 11, 4, 1, save(rgb.convert("L"), "TIFF"), 5,
+                                             band=4)
+    # APNG
+    frames = [Image.fromarray(_picture(rng, 9, 12)) for _ in range(3)]
+    files["apng_default.png"] = save(frames[0], "PNG", save_all=True,
+                                     append_images=frames[1:], default_image=True)
+    files["apng_frames.png"] = save(frames[0], "PNG", save_all=True, append_images=frames[1:])
+    full, box = _picture(rng, 9, 12), _picture(rng, 4, 5)
+    files["apng_box_previous.png"] = png_file(
+        12, 9, actl(2), fctl(0, 5, 4, 3, 2, dispose=2, blend=1),
+        png_chunk(b"IDAT", png_data(box)), fctl(1, 12, 9), fdat(2, full))
+    rgba = np.concatenate([box, rng.integers(0, 256, (4, 5, 1), dtype=np.uint8)], 2)
+    files["apng_box_background.png"] = png_file(
+        12, 9, actl(1), fctl(0, 5, 4, 7, 5, dispose=1, blend=1),
+        png_chunk(b"IDAT", png_data(rgba)), ctype=6)
+    files["apng_palette_box.png"] = png_file(
+        12, 9, png_chunk(b"PLTE", rng.integers(0, 256, 48, dtype=np.uint8).tobytes()),
+        png_chunk(b"tRNS", bytes([0, 128])), actl(1), fctl(0, 5, 4, 0, 5),
+        png_chunk(b"IDAT", png_data(rng.integers(0, 16, (4, 5), dtype=np.uint8))), ctype=3)
+    files["apng_actl_only.png"] = png_file(
+        12, 9, actl(1), png_chunk(b"IDAT", png_data(full)), fctl(0, 5, 4, 1, 1),
+        fdat(1, box))
+    files["apng_fdat_first.png"] = png_file(12, 9, actl(1), fctl(0, 5, 4, 6, 4), fdat(1, box))
+    for name, data in files.items():  # each opens in PIL
+        with Image.open(io.BytesIO(data)) as im:
+            im.convert("RGB")
+    return files
+
+
 # --- damaged JPEG and TIFF data --------------------------------------------------------
 
 def damaged_names() -> list:
     """The fixtures the damaged-data sweep edits: every JPEG, the IPTC files
-    holding a JPEG, every TIFF."""
+    holding a JPEG or another image file, every TIFF."""
     names = json.loads((HERE / "pil_rgb.json").read_text())["files"]
     return sorted(n for n in names if n.endswith((".jpg", ".tif"))
-                  or n.startswith("jpeg_") and n.endswith(".iim"))
+                  or n.startswith(("jpeg_", "iptc_")) and n.endswith(".iim"))
 
 
 _OTHER_MARKERS = (0xD9, 0xDA, 0xC4, 0xDB, 0xDD, 0xE1, 0xFE, 0xC0, 0xCC, 0xDC, 0xF0, 0x01, 0x05)
@@ -3402,6 +3637,7 @@ def main() -> None:
     files.update(j2k_fixtures(np.random.default_rng(SEED + 8), Image))
     files.update(plugin_fixtures(np.random.default_rng(SEED + 9), Image))
     files.update(rare_fixtures(np.random.default_rng(SEED + 10), Image))
+    files.update(codec_fixtures(np.random.default_rng(SEED + 11), Image))
     record = {"pillow": features.version("pil"), "libjpeg_turbo": features.version("libjpeg_turbo"),
               "libwebp": features.version("webp"), "openjpeg": features.version("jpg_2000"),
               "files": {}}
