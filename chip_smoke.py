@@ -3,9 +3,13 @@
 
 Run from the repository root:  python3 chip_smoke.py
 
-It needs a CUDA device and nvcc, and fails (non-zero exit, no result line)
-without them. It builds the port's CUDA kernels from
-relativitypathtracer_tpu_torch/csrc, then drives five paths, each a
+It needs a CUDA device, nvcc and a C++ compiler ($CXX, else g++), and fails
+(non-zero exit, no result line) without them. It builds the port's CUDA
+kernels from relativitypathtracer_tpu_torch/csrc and its host octree builder
+(csrc/octree_builder.cpp, -ffp-contract=off, into build/host/), holds that
+builder to its numpy twin to the bit on textured's mesh (blob level 4, the
+case an FMA build gets wrong) and on bunny's stand-in, with both builders'
+seconds on the card host's CPU, then drives five paths, each a
 procedural fixture (utils/demo_scene) loaded through load_scene_file ->
 build_scene -> build_render_fn at 1024x768, interval -1 (light propagation
 and shadows on):
@@ -109,7 +113,22 @@ For each path it:
      parity rule, printed as bench.py prints its large_mesh lines, with the
      pickle load's seconds.
 It prints each path's seconds. Then it renders the textured path at msaa 2,
-512x384, and holds it to its CPU frame, runs the textures phase:
+512x384, and holds it to its CPU frame, runs the configurations phase:
+  interval 0
+          textured and cubes at 1024x768, graphed, at the last state: no
+          shadow ray cast or lit, a replay's launches (counted, and the
+          graph's kernel nodes) exactly the path's kernels less K1, K6 and
+          K7, with one K4 list build, the frame held to the CPU frame at
+          1024x768 and to the oracle at interval 0, p50/p95;
+  msaa    textured at msaa 2 and 4 at 1024x768, graphed: msaa^2 times a
+          msaa-1 frame's launches, p50/p95 and Mrays/s counting primary
+          rays as width * height * msaa^2 (the CLI's --metrics), held to the
+          CPU frame at 256x192 at the same msaa (the oracle has no msaa);
+  boosted bench.py's rulers_boosted camera (velocity (0.3, 0.1, -0.2),
+          position (2.5, 0, 0, 0)) on textured and cubes at 1024x768 through
+          the paths' renderers: held to the CPU frame and to the oracle,
+          p50/p95;
+then the textures phase:
   textures
           with PIL blocked (sys.modules["PIL"] = None for the phase, restored
           after; no PIL module may be imported meanwhile): every file of
@@ -374,6 +393,10 @@ TRACE_NAMES = {"rpt_shadow_chain": ("shadow_chain_kernel",),
                "rpt_large_general_walk": ("general_walk_kernel", "SuperList"),
                "rpt_batched_shared_walk": ("batched_shared_walk_kernel",),
                "rpt_batched_general_walk": ("batched_general_walk_kernel",)}
+# what a frame at interval 0 never launches: no shadow ray is cast
+SHADOW_KERNELS = ("rpt_shadow_chain", "rpt_general_walk", "rpt_analytic_min_t")
+MSAA_CPU_SIZE = (256, 192)  # the msaa frames' CPU parity size
+BENCH_BOOSTED = ((0.3, 0.1, -0.2), (2.5, 0.0, 0.0, 0.0))  # bench.py's rulers_boosted state
 # other kernels report the textured path
 REPORT_FROM = {"K4": "large", "K7": "cubes", "K8": "cubes", "K9": "instances",
                "K10": "instances", "K11": "large", "K12": "large"}
@@ -869,53 +892,169 @@ def shared_walk_counts(torch, mk, ml, mb, name, args):
     return walked, live, tuple(twin), ms
 
 
-def parity(torch, pt, host, state, card_img, card_aux, size, msaa=1):
-    """Render `state` with the port on the CPU at `size` and hold the card's
-    image to it under the parity rule."""
+def parity(torch, pt, host, state, card_img, card_aux, size, msaa=1, interval=-1):
+    """Render `state` with the port on the CPU at `size`, msaa and interval
+    and hold the card's image to it under the parity rule."""
     t0 = time.perf_counter()
     cpu_scene, cpu_meta = pt.build_scene(host, device="cpu")
-    cpu_render = pt.build_render_fn(cpu_meta, size[0], size[1], -1, msaa, with_aux=True,
+    cpu_render = pt.build_render_fn(cpu_meta, size[0], size[1], interval, msaa, with_aux=True,
                                     device="cpu")
     cpu_img, cpu_aux = cpu_render(cpu_scene, pt.FrameState(state.cam_velocity.cpu(),
                                                            state.cam_pos.cpu()))
     diff = (card_img.cpu() - cpu_img).abs().amax(dim=-1)
     frac_bad = float((diff > 1e-3).float().mean())
-    log(f"  card vs CPU frame at {size[0]}x{size[1]}, msaa {msaa}: frac_bad {frac_bad:.6f}, "
+    log(f"  card vs CPU frame at {size[0]}x{size[1]}, msaa {msaa}"
+        + (f", interval {interval}" if interval != -1 else "") + f": frac_bad {frac_bad:.6f}, "
         f"max diff {float(diff.max()):.3e}; CPU {time.perf_counter() - t0:.1f} s, card counts "
         f"{({k: int(v) for k, v in card_aux.items()})}, CPU counts "
         f"{({k: int(v) for k, v in cpu_aux.items()})}")
     check(frac_bad <= 0.002, f"card frame off the CPU frame on {frac_bad:.4%} of pixels")
 
 
-def frame_time(torch, render, scene, state, card):
+def frame_time(torch, render, scene, state, card, msaa=1, what="frame"):
+    """p50/p95 of 60 frames after 5 warm-up (CUDA events) and Mrays/s
+    counting primary plus shadow rays; at msaa > 1 also the primary rays
+    alone, width * height * msaa^2, as the CLI's --metrics counts them."""
     from relativitypathtracer_tpu_torch.utils.timing import cuda_frame_times_ms
 
     torch.cuda.reset_peak_memory_stats()  # the peak below is this path's frames'
     times = cuda_frame_times_ms(render, scene, state, frames=60, warmup=5)
     _, aux = render(scene, state)
     p50, p95 = times[len(times) // 2], times[int(0.95 * (len(times) - 1))]
-    rays = WIDTH * HEIGHT + int(aux["shadow_rays"])
-    log(f"  frame {WIDTH}x{HEIGHT} on {card}: p50 {p50:.3f} ms, p95 {p95:.3f} ms, "
-        f"{rays / (p50 * 1e3):.2f} Mrays/s ({rays} rays: primary + {int(aux['shadow_rays'])}"
+    primary = WIDTH * HEIGHT * msaa * msaa
+    rays = primary + int(aux["shadow_rays"])
+    log(f"  {what} {WIDTH}x{HEIGHT} on {card}: p50 {p50:.3f} ms, p95 {p95:.3f} ms, "
+        + (f"{primary / (p50 * 1e3):.2f} Mrays/s primary ({primary} rays at msaa {msaa}), "
+           if msaa > 1 else "")
+        + f"{rays / (p50 * 1e3):.2f} Mrays/s ({rays} rays: primary + {int(aux['shadow_rays'])}"
         f" shadow), peak memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    return p50, p95
 
 
-def oracle_check(torch, path, scene, meta, state, card_img, card):
-    """The card's 1024x768 frame of `state` against the C++ oracle's image of
-    the port's scene blob at that state (utils/parity: the oracle compiled
-    from native/cpu_reference.cpp into build/oracle/), under the parity
-    rule; the oracle's p50 over 3 frames, on the card host's CPU."""
+def oracle_check(torch, path, scene, meta, state, card_img, card, interval=-1):
+    """The card's 1024x768 frame of `state` at `interval` against the C++
+    oracle's image of the port's scene blob at that state (utils/parity: the
+    oracle compiled from native/cpu_reference.cpp into build/oracle/), under
+    the parity rule; the oracle's p50 over 3 frames, on the card host's CPU."""
     from relativitypathtracer_tpu_torch.utils import parity as par
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        ref, stats = par.run_oracle(scene, meta, state, WIDTH, HEIGHT, tmp, path, -1, frames=3)
+        ref, stats = par.run_oracle(scene, meta, state, WIDTH, HEIGHT, tmp, "oracle", interval,
+                                    frames=3)
     res = par.compare(card_img.cpu().numpy(), ref)
     log(f"  oracle on {path} at {WIDTH}x{HEIGHT}: frac_bad {res['frac_bad']:.6f}, mean_diff "
         f"{res['mean_diff']:.3e} (card {card}); the oracle p50 {stats['p50_ms']:.1f} ms on the "
         f"card host's CPU ({stats['threads']} threads), {time.perf_counter() - t0:.1f} s with "
         f"the blob")
     check(res["ok"], f"{path}: card frame off the oracle on {res['frac_bad']:.4%} of pixels")
+
+
+def builder_phase(card) -> None:
+    """The C++ octree builder (csrc/octree_builder.cpp, built by
+    _build.build_host) against its numpy twin (models/octree
+    .generate_octree_plain) on textured's mesh (blob level 4: the case an
+    FMA build gets wrong) and on bunny's stand-in, on the card host's CPU:
+    each OBJ parsed once, then both builders on the same pool, timed, their
+    seven arrays and depth equal to the bit."""
+    from relativitypathtracer_tpu_torch.models import obj_loader, octree
+    from relativitypathtracer_tpu_torch.models.mesh import HostMesh
+    from relativitypathtracer_tpu_torch.utils.demo_scene import (
+        write_bunny_stand_in,
+        write_demo_scene,
+    )
+
+    with tempfile.TemporaryDirectory() as tmp:
+        write_demo_scene(os.path.join(tmp, "textured"), LEVEL, "textured")
+        objs = {f"textured's mesh (blob level {LEVEL})":
+                os.path.join(tmp, "textured", "Models", "blob.obj"),
+                "bunny's stand-in": write_bunny_stand_in(os.path.join(tmp, "bunny_stand_in.obj"))}
+        for what, obj in objs.items():
+            parsed = HostMesh()
+            obj_loader.read_obj(obj, parsed)
+            built, seconds = [], []
+            for build in (octree.generate_octree, octree.generate_octree_plain):
+                mesh = HostMesh(vertices=parsed.vertices, triangles=parsed.triangles)
+                t0 = time.perf_counter()
+                build(mesh, 0)
+                seconds.append(time.perf_counter() - t0)
+                built.append(mesh.octree)
+            cpp, plain = built
+            for name in ("node_min", "node_max", "node_tris_index", "node_tris_count",
+                         "node_children", "node_neighbors", "oct_tris"):
+                a, b = np.asarray(getattr(cpp, name)), np.asarray(getattr(plain, name))
+                check(a.shape == b.shape and a.tobytes() == b.tobytes(),
+                      f"builder on {what}: {name} differs between C++ and numpy")
+            check(cpp.max_depth == plain.max_depth, f"builder on {what}: depth differs")
+            log(f"  builder on {what}: {len(parsed.triangles) // 9} triangles, {len(cpp)} nodes, "
+                f"{len(cpp.oct_tris)} pool entries, depth {cpp.max_depth}; C++ and numpy equal "
+                f"to the bit; C++ {seconds[0]:.3f} s, numpy {seconds[1]:.3f} s on the card "
+                f"host's CPU (card {card})")
+
+
+def configs_phase(torch, pt, scenes, hosts, states, per_frame, card) -> None:
+    """What the JAX package runs and the main paths do not: interval 0 on
+    textured and cubes (the shadow kernels never launched), textured at msaa
+    2 and 4 at 1024x768, timed, and bench.py's boosted camera on textured and
+    cubes; see the module docstring. `per_frame`: each path's launches a
+    frame at interval -1, msaa 1."""
+    dev = torch.device(DEVICE)
+    for path in ("textured", "cubes"):
+        scene, meta = scenes[path]
+        render = pt.build_render_fn(meta, WIDTH, HEIGHT, 0, with_aux=True, device=dev)
+        render(scene, states[2])  # warm-up and capture
+        want = {k: n // 2 if k in K4 else n for k, n in per_frame[path].items()
+                if k not in SHADOW_KERNELS}
+        replay_check(torch, render, scene, states[2], want, f"{path} at interval 0")
+        (img, aux), launches = counted_frame(torch, render, scene, states[2])
+        aux = counts(aux)
+        check(launches == want, f"{path} at interval 0: launches {launches}, not {want}")
+        check(tuple(img.shape) == (HEIGHT, WIDTH, 3) and bool(torch.isfinite(img).all())
+              and aux["hits"] > 0 and aux["shadow_rays"] == aux["lit_rays"] == 0,
+              f"{path} at interval 0: frame {aux}")
+        log(f"  {path} at interval 0: {aux}, launches a replay {launches} (no "
+            f"{', '.join(k for k in SHADOW_KERNELS if k in per_frame[path])}"
+            + ("; K4's primary list only)" if K4[0] in want else ")"))
+        parity(torch, pt, hosts[path], states[2], img, aux, PATHS[path][2], interval=0)
+        oracle_check(torch, f"{path} at interval 0", scene, meta, states[2], img, card, 0)
+        frame_time(torch, render, scene, states[2], card, what=f"{path} at interval 0")
+
+    scene, meta = scenes["textured"]
+    _, one = pt.build_render_fn(meta, WIDTH, HEIGHT, -1, with_aux=True, device=dev)(
+        scene, states[2])
+    for msaa in (2, 4):
+        render = pt.build_render_fn(meta, WIDTH, HEIGHT, -1, msaa, with_aux=True, device=dev)
+        render(scene, states[2])  # warm-up and capture
+        want = {k: n * msaa * msaa for k, n in per_frame["textured"].items()}
+        (img, aux), launches = counted_frame(torch, render, scene, states[2])
+        aux = counts(aux)
+        check(launches == want, f"textured at msaa {msaa}: launches {launches}, not {want}")
+        check(tuple(img.shape) == (HEIGHT, WIDTH, 3) and bool(torch.isfinite(img).all())
+              and aux["hits"] > msaa * msaa // 2 * int(one["hits"]),
+              f"textured at msaa {msaa}: frame {aux}")
+        log(f"  textured at msaa {msaa}: {aux}, launches a replay {msaa * msaa}x a msaa-1 "
+            "frame's")
+        frame_time(torch, render, scene, states[2], card, msaa, f"textured at msaa {msaa}")
+        small, small_aux = pt.build_render_fn(meta, *MSAA_CPU_SIZE, -1, msaa, with_aux=True,
+                                              device=dev)(scene, states[2])
+        parity(torch, pt, hosts["textured"], states[2], small, small_aux, MSAA_CPU_SIZE, msaa)
+
+    boosted = pt.FrameState(torch.tensor(BENCH_BOOSTED[0], device=dev),
+                            torch.tensor(BENCH_BOOSTED[1], device=dev))
+    for path in ("textured", "cubes"):
+        scene, meta = scenes[path]
+        render = pt.build_render_fn(meta, WIDTH, HEIGHT, -1, with_aux=True, device=dev)
+        (img, aux), launches = counted_frame(torch, render, scene, boosted)
+        aux = counts(aux)
+        check(launches == per_frame[path] and bool(torch.isfinite(img).all())
+              and aux["hits"] > 0 and aux["shadow_rays"] > 0,
+              f"{path} at bench.py's boosted camera: {aux}, launches {launches}")
+        p50, p95 = p50_p95(torch, render, scene, boosted)
+        log(f"  {path} at bench.py's boosted camera (velocity {BENCH_BOOSTED[0]}, position "
+            f"{BENCH_BOOSTED[1]}): {aux}; p50 {p50:.3f} ms, p95 {p95:.3f} ms on {card}")
+        parity(torch, pt, hosts[path], boosted, img, aux, PATHS[path][2])
+        oracle_check(torch, f"{path} at bench.py's boosted camera", scene, meta, boosted, img,
+                     card)
 
 
 def xl_source(largedemo, workdir: str) -> tuple[str, str]:
@@ -1722,6 +1861,7 @@ def main() -> int:
         return 1
     import relativitypathtracer_tpu_torch as pt
     from relativitypathtracer_tpu_torch import render as prender
+    from relativitypathtracer_tpu_torch.models import octree
     from relativitypathtracer_tpu_torch.ops.kernels import _build
     from relativitypathtracer_tpu_torch.ops.kernels import analytic_kernels as ak
     from relativitypathtracer_tpu_torch.ops.kernels import mesh_batch as mb
@@ -1742,6 +1882,15 @@ def main() -> int:
     lib_path = _build.build()
     _build.library()
     log(f"build: {time.perf_counter() - t0:.1f} s -> {lib_path.name}")
+    t0 = time.perf_counter()
+    host_lib = _build.build_host()
+    octree._library()
+    log(f"host build: {time.perf_counter() - t0:.1f} s -> {host_lib.name} "
+        f"({os.environ.get('CXX') or 'g++'} {' '.join(_build.HOST_FLAGS)})")
+    log("--- builder: the C++ octree builder against its numpy twin ---")
+    t0 = time.perf_counter()
+    builder_phase(card)
+    log(f"  builder phase: {time.perf_counter() - t0:.1f} s")
 
     dev = torch.device(DEVICE)
     states = [
@@ -1927,6 +2076,12 @@ def main() -> int:
         scene, states[2])
     check(bool(torch.isfinite(img).all()) and int(aux["hits"]) > 0, f"msaa 2 frame {aux}")
     parity(torch, pt, hosts["textured"], states[2], img, aux, (512, 384), msaa=2)
+    log("--- configurations: interval 0, msaa 2 and 4, bench.py's boosted camera ---")
+    t0 = time.perf_counter()
+    configs_phase(torch, pt, scenes, hosts, states,
+                  {p: {k: n // len(states) for k, n in launches_by_path[p].items()}
+                   for p in ("textured", "cubes")}, card)
+    log(f"  configurations phase: {time.perf_counter() - t0:.1f} s")
 
     log("--- textures: every format decoded without PIL ---")
     t0 = time.perf_counter()

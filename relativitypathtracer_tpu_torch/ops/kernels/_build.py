@@ -41,6 +41,9 @@ CSRC = pathlib.Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+HOST_SRC = CSRC / "octree_builder.cpp"
+HOST_DIR = BUILD_DIR.parent / "host"
+HOST_FLAGS = ("-O3", "-std=c++17", "-ffp-contract=off", "-fPIC", "-shared")
 
 # C entry -> argument kinds: p pointer, i int, f float. Every entry ends with
 # the stream (a pointer) and returns the cudaError_t of its launch.
@@ -63,6 +66,7 @@ _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
 LAUNCHES: collections.Counter = collections.Counter()
 BUILD_LOG = ""
+HOST_LOG = ""
 LIB = torch.library.Library("rpt", "DEF")  # the operators torch.ops.rpt.*
 
 _lib = None
@@ -121,6 +125,34 @@ def build() -> pathlib.Path:
     for old in BUILD_DIR.glob("librpt_kernels-*.so"):
         if old != so:
             old.unlink()
+    return so
+
+
+def build_host(flags=HOST_FLAGS) -> pathlib.Path:
+    """Compile csrc/octree_builder.cpp with $CXX (else g++) and `flags` into
+    HOST_DIR/librpt_octree-<hash of source and flags>.so unless that library
+    already exists; return its path. Raises, naming the compiler and its
+    output, when the compiler is missing or fails."""
+    global HOST_LOG
+    h = hashlib.sha256(" ".join(flags).encode() + HOST_SRC.read_bytes()).hexdigest()[:16]
+    so = HOST_DIR / f"librpt_octree-{h}.so"
+    if so.exists():
+        return so
+    HOST_DIR.mkdir(parents=True, exist_ok=True)
+    cxx = os.environ.get("CXX") or "g++"
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [cxx, *flags, "-o", str(tmp), str(HOST_SRC)]
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True)
+    except OSError as e:
+        raise RuntimeError(f"host build: the compiler {cxx!r} cannot run ({e}): the octree "
+                           "builder cannot be built") from e
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"host build: {cxx} failed ({res.returncode}): {' '.join(cmd)}\n"
+                           f"{res.stdout}{res.stderr}")
+    HOST_LOG = res.stdout + res.stderr
+    os.replace(tmp, so)
     return so
 
 

@@ -13,13 +13,26 @@ scaled 1.25), with the same inputs made with numpy from a seed:
   JAX package's own rule for its walk), t within a relative 1e-4 on rays
   both hit;
 - a cap of 4 iterations reports converged False.
+
+And the octree builder: the port's C++ builder (csrc/octree_builder.cpp)
+equal to its numpy twin (models/octree.generate_octree_plain) bit for bit
+on the cases of torch_port_fixtures.OCTREE_CASES (blob levels 2-5, bunny's
+stand-in, both two-mesh orders, one triangle, zero-area triangles);
+tests/test_torch_octree_builder.py holds it to the JAX package's builder.
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_port_fixtures import build_both, write_fixture
+from torch_port_fixtures import (
+    OCTREE_CASES,
+    assert_same_octree,
+    build_both,
+    octree_case,
+    octree_objs,
+    write_fixture,
+)
 
 from relativitypathtracer_tpu_torch.ops.octree_traverse import octree_intersect
 from relativitypathtracer_tpu_torch.render import mesh_perm_tensors
@@ -118,3 +131,13 @@ def test_tiny_cap_does_not_converge(blob):
     *_, conv = octree_intersect(ps.mesh, root, m4, inv_m, torch.zeros(3),
                                 torch.as_tensor(_fan(64)), iteration_cap=4, stats=stats)
     assert conv is False and stats["iterations"] == 4
+
+
+@pytest.fixture(scope="module")
+def objs(tmp_path_factory):
+    return octree_objs(tmp_path_factory.mktemp("octree_objs"))
+
+
+@pytest.mark.parametrize("case", list(OCTREE_CASES))
+def test_cpp_builder_equals_its_numpy_twin(objs, case):
+    assert_same_octree(octree_case(objs, case, "cpp"), octree_case(objs, case, "plain"))

@@ -1,8 +1,10 @@
 """The port's scene blob and oracle parity, and its timing helpers.
 
 - `utils/scene_blob.scene_blob` equals the JAX package's blob byte for byte
-  on the fixtures blob, textured, cubes and instances (level 3), at rest and
-  with the camera at 0.5c, for equal scene arrays: the JAX package's build
+  on the fixtures blob, textured, cubes and instances (level 3), at rest,
+  with the camera at 0.5c and at bench.py's boosted state (`rulers_boosted`:
+  velocity (0.3, 0.1, -0.2), position (2.5, 0, 0, 0)), at interval -1 and 0,
+  for equal scene arrays: the JAX package's build
   carried over with `scene_from_numpy` (the port's own build has rotation
   matrices within 1e-6 of the JAX package's, not to the bit:
   test_torch_scene.py), so both serialize the same arrays with host
@@ -10,7 +12,9 @@
 - The port's CPU frame against the C++ oracle (native/cpu_reference.cpp,
   compiled into build/oracle/ by `utils/parity.oracle_path`) at 128x96 on
   those fixtures and states: the parity rule, at most 0.2% of pixels off by
-  more than 1e-3 (`parity.MAX_FRAC_BAD`).
+  more than 1e-3 (`parity.MAX_FRAC_BAD`), and a mean difference under
+  1e-4; at interval -1 and at interval 0 (no light propagation, no shadow
+  ray), where the counts say no shadow ray was cast.
 - `utils/timing.percentile` equal to the JAX package's.
 """
 
@@ -32,6 +36,7 @@ KINDS = ("blob", "textured", "cubes", "instances")
 STATES = {
     "rest": ((0.0, 0.0, 0.0), (1.0, 0.0, 0.0, 0.0)),
     "0.5c": ((0.5, 0.0, 0.0), (1.0, 0.0, 0.0, 0.0)),
+    "bench_boosted": ((0.3, 0.1, -0.2), (2.5, 0.0, 0.0, 0.0)),  # bench.py's rulers_boosted
 }
 W, H = 128, 96
 
@@ -74,6 +79,37 @@ def test_cpu_frame_matches_oracle(fixtures, kind, state, tmp_path):
     res = parity.compare(ours.numpy(), ref)
     assert res["ok"] and res["frac_bad"] <= parity.MAX_FRAC_BAD, res
     assert res["mean_diff"] < 1e-4, res
+
+
+@pytest.mark.parametrize("state", list(STATES))
+@pytest.mark.parametrize("kind", KINDS)
+def test_scene_blob_bytes_equal_jax_at_interval0(fixtures, kind, state):
+    from relativitypathtracer_tpu.render import FrameState as JaxFrameState
+    from relativitypathtracer_tpu.utils.scene_blob import scene_blob as jax_blob
+
+    from relativitypathtracer_tpu_torch.utils.scene_blob import scene_blob
+
+    (js, jm), (_, pm) = fixtures[kind]
+    ps = pt.scene_from_numpy(jax.tree.map(np.asarray, js), device="cpu")
+    v, p = STATES[state]
+    want = jax_blob(js, jm, JaxFrameState(jnp.asarray(v, jnp.float32), jnp.asarray(p, jnp.float32)),
+                    W, H, 0)
+    got = scene_blob(ps, pm, _port_state(STATES[state]), W, H, 0)
+    assert got == want and got != scene_blob(ps, pm, _port_state(STATES[state]), W, H, -1)
+
+
+@pytest.mark.parametrize("state", list(STATES))
+@pytest.mark.parametrize("kind", KINDS)
+def test_cpu_frame_matches_oracle_at_interval0(fixtures, kind, state, tmp_path):
+    _, (ps, pm) = fixtures[kind]
+    st = _port_state(STATES[state])
+    ref, _ = parity.run_oracle(ps, pm, st, W, H, str(tmp_path), f"{kind}_{state}_i0", interval=0)
+    render = prender.build_render_fn(pm, W, H, 0, with_aux=True, device="cpu")
+    ours, aux = render(ps, st)
+    res = parity.compare(ours.numpy(), ref)
+    assert res["ok"] and res["frac_bad"] <= parity.MAX_FRAC_BAD, res
+    assert res["mean_diff"] < 1e-4, res
+    assert int(aux["hits"]) > 0 and int(aux["shadow_rays"]) == 0
 
 
 def test_oracle_builds_from_the_repository_source():

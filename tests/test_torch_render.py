@@ -5,7 +5,8 @@ camera states (at rest, and moving at 0.5c at a later time): "blob" (one
 untextured 1,280-triangle mesh at subdivision level 3, one light sphere),
 "textured" (the same mesh with a 32x32 texture, a small atlas: K2) and
 "cubes" (nine cubes, eight sharing a 256x256 texture, a MID atlas: K8, and
-analytic occluders: K7). Also msaa 2 and the packed-atlas route. The JAX
+analytic occluders: K7). Also interval 0 (no light propagation: ambient 1,
+no shadow rays) on the three, msaa 2 and 4, and the packed-atlas route. The JAX
 frame comes from its Pallas kernels in interpret mode and from its jnp path;
 the port's from its plain twins on the CPU. Parity rule of utils/parity.py:
 at most 0.2% of pixels off by more than 1e-3. The hits and shadow_rays
@@ -113,6 +114,24 @@ def test_textured_fixture_frame_matches_jax(request, kind, mode, state):
     assert paux["hits"] > 200 and 0 < paux["lit_rays"] < paux["shadow_rays"]
 
 
+@pytest.mark.parametrize("mode", ["interpret", False], ids=["pallas_interpret", "jnp"])
+@pytest.mark.parametrize("state", list(STATES))
+@pytest.mark.parametrize("kind", ["blob", "textured", "cubes"])
+def test_interval0_frame_matches_jax(request, kind, mode, state):
+    """Interval 0 (the DSL's `I`, the viewer's 'i'): no light propagation,
+    ambient 1 and no shadow ray, so no shadow chain (K1), no occlusion walk
+    (K6, K7) and no shadow list build. The parity rule, equal hits, and 0
+    shadow and lit rays on both sides."""
+    (js, jm), (ps, pm) = request.getfixturevalue("scenes" if kind == "blob" else kind)
+    want, jaux = jax_frame(js, jm, STATES[state], mode, interval=0)
+    got, paux = port_frame(ps, pm, STATES[state], interval=0)
+    _assert_parity(got, want, paux, jaux)
+    assert paux["hits"] > 200
+    assert paux["shadow_rays"] == paux["lit_rays"] == jaux["shadow_rays"] == 0
+    lit, _ = port_frame(ps, pm, STATES[state])
+    assert not np.array_equal(lit, got)
+
+
 def test_fixture_atlases_and_routes(textured, cubes):
     """textured: one 512-row atlas (K2's tier); cubes: 32,768 rows (K8's) and
     nine analytic occluders for the light, so both JAX walks are culled."""
@@ -133,14 +152,16 @@ def test_fixture_atlases_and_routes(textured, cubes):
     assert pm.mesh_ids == () and pm.use_footprint_tex
 
 
-def test_msaa2_frame_matches_jax(textured):
-    """msaa 2 at 32x32: four sample sets averaged, counts summed."""
+@pytest.mark.parametrize("msaa, size", [(2, (32, 32)), (4, (32, 24))], ids=["msaa2", "msaa4"])
+def test_msaa2_frame_matches_jax(textured, msaa, size):
+    """msaa 2 at 32x32 and msaa 4 at 32x24 (bench.py's bunny_msaa4): msaa^2
+    sample sets averaged, counts summed; the parity rule, equal counts."""
     (js, jm), (ps, pm) = textured
-    want, jaux = jax_frame(js, jm, STATES["boosted"], False, (32, 32), 2)
-    got, paux = port_frame(ps, pm, STATES["boosted"], (32, 32), 2)
-    _assert_parity(got, want, paux, jaux, (32, 32, 3))
-    one, oaux = port_frame(ps, pm, STATES["boosted"], (32, 32), 1)
-    assert paux["hits"] > 2 * oaux["hits"] and not np.array_equal(one, got)
+    want, jaux = jax_frame(js, jm, STATES["boosted"], False, size, msaa)
+    got, paux = port_frame(ps, pm, STATES["boosted"], size, msaa)
+    _assert_parity(got, want, paux, jaux, (size[1], size[0], 3))
+    one, oaux = port_frame(ps, pm, STATES["boosted"], size, 1)
+    assert paux["hits"] > msaa * msaa // 2 * oaux["hits"] and not np.array_equal(one, got)
 
 
 @pytest.mark.parametrize("kind", ["textured", "cubes"])

@@ -8,6 +8,8 @@ interpret=True, frames through conftest.render_with_mode.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -118,11 +120,12 @@ def assert_mostly_close(got, want, tol: float, frac: float, hard: float, rel: bo
     assert np.mean(err > tol) <= frac, f"{np.mean(err > tol):.4f} of entries > {tol}"
 
 
-def jax_frame(js, jm, state, mode="interpret", size=(64, 64), msaa=1, large=None):
-    """The JAX package's frame (H, W, 3) and aux counts at `size`, interval
-    -1, for state ((cam_velocity), (cam_pos)), its kernel routing forced to
-    `mode` and its LARGE_MODE to `large`, render caches cleared before and
-    after (as conftest.render_with_mode does)."""
+def jax_frame(js, jm, state, mode="interpret", size=(64, 64), msaa=1, large=None, interval=-1):
+    """The JAX package's frame (H, W, 3) and aux counts at `size` and
+    `interval` (-1: light propagation and shadows; 0: neither), for state
+    ((cam_velocity), (cam_pos)), its kernel routing forced to `mode` and its
+    LARGE_MODE to `large`, render caches cleared before and after (as
+    conftest.render_with_mode does)."""
     import jax.numpy as jnp
 
     from relativitypathtracer_tpu import render as jrender
@@ -131,7 +134,7 @@ def jax_frame(js, jm, state, mode="interpret", size=(64, 64), msaa=1, large=None
     jmi.PALLAS_MODE, jmi.LARGE_MODE = mode, large
     jrender.build_render_fn.cache_clear()
     try:
-        fn = jrender.build_render_fn(jm, size[0], size[1], -1, msaa, True)
+        fn = jrender.build_render_fn(jm, size[0], size[1], interval, msaa, True)
         img, aux = fn(js, jrender.FrameState(jnp.asarray(state[0], jnp.float32),
                                              jnp.asarray(state[1], jnp.float32)))
         return np.asarray(img), {k: int(v) for k, v in aux.items()}
@@ -140,11 +143,12 @@ def jax_frame(js, jm, state, mode="interpret", size=(64, 64), msaa=1, large=None
         jrender.build_render_fn.cache_clear()
 
 
-def port_frame(ps, pm, state, size=(64, 64), msaa=1):
+def port_frame(ps, pm, state, size=(64, 64), msaa=1, interval=-1):
     """The port's frame and aux counts on the CPU, as jax_frame's."""
     from relativitypathtracer_tpu_torch import render as prender
 
-    fn = prender.build_render_fn(pm, size[0], size[1], -1, msaa, with_aux=True, device="cpu")
+    fn = prender.build_render_fn(pm, size[0], size[1], interval, msaa, with_aux=True,
+                                 device="cpu")
     img, aux = fn(ps, prender.FrameState(torch.tensor(state[0]), torch.tensor(state[1])))
     return img.numpy(), {k: int(v) for k, v in aux.items()}
 
@@ -397,3 +401,107 @@ def pretest_inputs(rng, form, case):
             o4[2, 7 * k + k // 2:8 * k] = np.inf
     return (params, torch.as_tensor(dir4), None if o4 is None else torch.as_tensor(o4),
             n_spheres, G - n_spheres)
+
+
+# The octree builders (test_torch_octree_builder.py, test_torch_octree.py)
+ARRAYS = ("node_min", "node_max", "node_tris_index", "node_tris_count", "node_children",
+          "node_neighbors", "oct_tris")
+OCTREE_CASES = {  # case -> the OBJ files read into one pool, in order
+    "blob2": ("blob2",),
+    "blob3": ("blob3",),
+    "blob4_fma": ("blob4",),
+    "blob5": ("blob5",),
+    "stand_in": ("stand_in",),
+    "stand_in_then_blob2": ("stand_in", "blob2"),
+    "blob2_then_stand_in": ("blob2", "stand_in"),
+    "one_triangle": ("one_triangle",),
+    "degenerate": ("degenerate",),
+}
+ONE_TRIANGLE = "v 0.1 -0.2 0.3\nv 1.7 0.4 -0.5\nv -0.6 1.3 0.9\nvn 0 0 1\nf 1//1 2//1 3//1\n"
+# zero-area triangles: collinear points, a repeated vertex, a point; and one
+# proper triangle, so that the root box has an extent
+DEGENERATE = ("v 0 0 0\nv 1 1 1\nv 2 2 2\nv 0.5 -1 0.25\nv 1 0 -1\nvn 0 1 0\n"
+              "f 1//1 2//1 3//1\nf 4//1 4//1 5//1\nf 2//1 2//1 2//1\nf 3//1 1//1 2//1\n"
+              "f 1//1 4//1 5//1\n")
+
+
+def octree_objs(root):
+    """The OBJ files of OCTREE_CASES written under root (a pathlib.Path), by
+    name."""
+    from relativitypathtracer_tpu_torch.utils.demo_scene import (
+        write_bunny_stand_in,
+        write_demo_scene,
+    )
+
+    paths = {}
+    for level in (2, 3, 4, 5):
+        write_demo_scene(str(root / f"blob{level}"), level, "blob")
+        paths[f"blob{level}"] = str(root / f"blob{level}" / "Models" / "blob.obj")
+    paths["stand_in"] = write_bunny_stand_in(str(root / "stand_in" / "bunny_stand_in.obj"))
+    for name, text in (("one_triangle", ONE_TRIANGLE), ("degenerate", DEGENERATE)):
+        (root / f"{name}.obj").write_text(text)
+        paths[name] = str(root / f"{name}.obj")
+    return paths
+
+
+@contextlib.contextmanager
+def _attr(obj, name, value):
+    saved = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, saved)
+
+
+def port_mesh(paths, plain: bool = False):
+    """The port's HostMesh of the OBJ files, its octree built by the C++
+    builder or, with plain, by the numpy twin."""
+    from relativitypathtracer_tpu_torch.models import obj_loader, octree
+    from relativitypathtracer_tpu_torch.models.mesh import HostMesh
+
+    mesh = HostMesh()
+    build = octree.generate_octree_plain if plain else obj_loader.generate_octree
+    with _attr(obj_loader, "generate_octree", build):
+        for p in paths:
+            obj_loader.read_obj(p, mesh)
+    return mesh
+
+
+def jax_mesh(paths):
+    """The JAX package's HostMesh, its octree built by its numpy builder."""
+    from relativitypathtracer_tpu.models import obj_loader as jol
+    from relativitypathtracer_tpu.models import octree as jo
+    from relativitypathtracer_tpu.models.mesh import HostMesh as JaxHostMesh
+
+    mesh = JaxHostMesh()
+    with _attr(jo, "_NATIVE", None):
+        for p in paths:
+            jol.read_obj(p, mesh)
+    return mesh
+
+
+def octree_case(objs, case: str, side: str):
+    """The mesh of an OCTREE_CASES case by side: "cpp" (the port's C++
+    builder), "plain" (its numpy twin) or "jax" (the JAX package's numpy
+    builder)."""
+    paths = [objs[n] for n in OCTREE_CASES[case]]
+    return jax_mesh(paths) if side == "jax" else port_mesh(paths, plain=side == "plain")
+
+
+def assert_same_octree(got, want):
+    """Bit for bit: the seven arrays (float bounds as their bits), depth,
+    roots, each root's reachable triangles and seeded range."""
+    for name in ARRAYS:
+        a, b = np.asarray(getattr(got.octree, name)), np.asarray(getattr(want.octree, name))
+        assert a.shape == b.shape, (name, a.shape, b.shape)
+        if a.dtype.kind == "f":
+            assert a.dtype == b.dtype == np.float32, name
+            a, b = a.view(np.int32), b.view(np.int32)
+        assert np.array_equal(a, b), name
+    assert got.octree.max_depth == want.octree.max_depth
+    assert got.mesh_indices == want.mesh_indices
+    assert got.root_tri_ranges == want.root_tri_ranges
+    assert sorted(got.root_tri_lists) == sorted(want.root_tri_lists)
+    for root, tris in want.root_tri_lists.items():
+        assert np.array_equal(got.root_tri_lists[root], tris), root
