@@ -140,7 +140,8 @@ then the textures phase:
           IMT, GBR, McIdas, PIXAR, SPIDER, XVThumb, IPTC (around a JPEG,
           PNG, TIFF, BMP or GIF), Photo CD, PIL's own PNM kinds and TIFF's
           rare kinds: BigTIFF, float, CIELab, LZMA, ZSTD, CCITT, old-style
-          LZW, subsampled YCbCr, ThunderScan, CCITT RLEW; APNGs) decoded by
+          LZW, subsampled YCbCr, ThunderScan, CCITT RLEW; APNGs; AVIF)
+          decoded by
           models/texture.decode_texture to the SHA-256 PIL gave where they
           were made (pil_rgb.json), with its ms, then every case of the
           damaged-data sweep (damaged.json: those files with bytes set,
@@ -149,8 +150,9 @@ then the textures phase:
           arithmetic-coded JPEGs', the JPEG-in-TIFF files', the
           DDS/FTEX/BLP files', the small raster formats', the JPEG 2000
           and FITS files', the last plugin formats', the PNM and TIFF
-          rare kinds' and the ThunderScan, RLEW, IPTC-around-another-format
-          and APNG files' again on a line each); the
+          rare kinds', the ThunderScan, RLEW, IPTC-around-another-format
+          and APNG files' and the AVIF files' (beside the card's name and
+          power limit) again on a line each); the
           textured fixture with its 32x32 texture as
           a baseline 4:2:0 JPEG (utils/image.encode_jpeg; a 512-row atlas,
           K2), as an RLE TGA (the committed blob_rle.tga), as a lossy
@@ -158,8 +160,8 @@ then the textures phase:
           JPEG (blob_arith_prog.jpg), as DXT1 (blob_bc1.dds), as a
           PackBits RGB PSD (blob_packbits.psd), as an irreversible
           (9/7, ICT) JP2 (blob_irrev.jp2), as a line-interleaved RGB
-          IM (blob_rgb.im) and as 4-bit grey ThunderScan
-          (blob_thunder.tif), and cubes
+          IM (blob_rgb.im), as 4-bit grey ThunderScan
+          (blob_thunder.tif) and as PIL's default AVIF (blob.avif), and cubes
           with its 256x256 texture as a
           PNG (a 32,768-row atlas, K8), with a 64x64 LZW TIFF (the
           committed cubes_lzw.tif; a 2,048-row atlas, K8), with the same
@@ -176,7 +178,10 @@ then the textures phase:
           the 1024x768 frame to the C++ oracle under the parity rule; then a
           2048x2048 seeded texture through encode_jpeg and decode_jpeg: its
           bytes, entropy symbols and decode seconds (a corpus-sized
-          texture's start-up cost on the card host's CPU);
+          texture's start-up cost on the card host's CPU), and PIL's
+          default AVIF encode of demo_texture(1024)
+          (tools/avif_1024_q75.avif) decoded to PIL's hash, its seconds
+          beside the card's name and power limit;
 and three phases on the textured fixture:
   viewer  ViewerCore at 960x540 (the reference's window) through a scripted
           timeline 15 ms apart (idle and paused; 'w' held 10 frames; space;
@@ -316,7 +321,10 @@ TEXTURE_SCENES = (("textured", "jpg", (256, 192)), ("cubes", "png", (WIDTH, HEIG
                   ("textured", "blob_rgb.im", (256, 192)),
                   ("cubes", "cubes_g4.tif", (WIDTH, HEIGHT)),
                   ("textured", "blob_thunder.tif", (256, 192)),
-                  ("cubes", "cubes_rlew.tif", (WIDTH, HEIGHT)))
+                  ("cubes", "cubes_rlew.tif", (WIDTH, HEIGHT)),
+                  ("textured", "blob.avif", (256, 192)))
+# PIL's default AVIF encode of demo_texture(1024) and PIL's hash of it
+AVIF_1024 = pathlib.Path(__file__).resolve().parent / "tools" / "avif_1024_q75.avif"
 # the small raster formats' fixtures, by suffix
 LEGACY_SUFFIXES = (".psd", ".sgi", ".bw", ".rgb", ".pcx", ".dcx", ".ras", ".qoi", ".msp", ".ico",
                    ".cur", ".icns", ".xbm", ".xpm")
@@ -1349,11 +1357,11 @@ def textures_phase(torch, pt, dev, card, state) -> None:
     blocked in sys.modules for the phase: the committed fixtures against
     PIL's hashes, the textured fixture with a JPEG, a TGA, a lossy WebP,
     an arithmetic-coded JPEG, a DXT1 DDS, a PackBits PSD, an
-    irreversible JP2, an RGB IM and a ThunderScan texture and cubes with
+    irreversible JP2, an RGB IM, a ThunderScan and an AVIF texture and cubes with
     a PNG, two TIFFs, a lossless WebP, a BC7 DDS, an RLE SGI, a lossless
     tiled J2K, a Group 4 and a CCITT RLEW TIFF one rendered
-    on the card and held to the CPU and the oracle, and the decode time of
-    a corpus-sized JPEG; see the module docstring."""
+    on the card and held to the CPU and the oracle, and the decode times of
+    a corpus-sized JPEG and a 1024x1024 AVIF; see the module docstring."""
     import hashlib
 
     from relativitypathtracer_tpu_torch.models.texture import decode_texture
@@ -1399,6 +1407,9 @@ def textures_phase(torch, pt, dev, card, state) -> None:
             t for t in times if t.split()[0] in RARE_FIXTURES))
         log("  ThunderScan/RLEW/IPTC-around-another-format/APNG decode ms: " + ", ".join(
             t for t in times if t.split()[0].startswith(CODEC_PREFIXES)))
+        avif = [t for t in times if t.split()[0].endswith(".avif")]
+        check(len(avif) >= 30, f"textures: {len(avif)} AVIF fixtures in pil_rgb.json")
+        log(f"  AVIF decode ms (the host CPU of {card}): " + ", ".join(avif))
         damaged_sweep(decode_texture)
         for kind, fmt, size in TEXTURE_SCENES:
             names = PATHS[kind][1]
@@ -1460,6 +1471,16 @@ def textures_phase(torch, pt, dev, card, state) -> None:
             f"through encode_jpeg: {len(data):,} bytes, {entropy_symbols(coef['zz']):,} entropy "
             f"symbols in {coef['zz'].shape[0]:,} blocks, decode_jpeg {big_s:.3f} s on the card "
             f"host's CPU (16x16 block means within {err:.3f} levels of the image's)")
+        want = json.loads(AVIF_1024.with_suffix(".json").read_text())
+        data = AVIF_1024.read_bytes()
+        t0 = time.perf_counter()
+        rgb = decode_texture(data)
+        avif_s = time.perf_counter() - t0
+        check(list(rgb.shape) == want["shape"]
+              and hashlib.sha256(rgb.tobytes()).hexdigest() == want["sha256"],
+              f"textures: {AVIF_1024.name} decodes to other bytes than PIL's")
+        log(f"  a 1024x1024 quality-75 AVIF ({AVIF_1024.name}, {len(data):,} bytes, PIL's hash): "
+            f"decode_texture {avif_s:.3f} s on the host CPU of {card}")
     finally:
         if had:
             sys.modules["PIL"] = saved

@@ -26,13 +26,16 @@ by utils/fits_decode, JPEG 2000 (J2K codestreams and JP2 files, OpenJPEG's
 arithmetic to the bit) by utils/j2k_decode, FLI/FLC (the first frame) by
 utils/fli_decode, IM and IMT by utils/im_decode, GBR, McIdas, PIXAR,
 SPIDER, XVThumb and IPTC by utils/misc_raster, Photo CD (its base image)
-by utils/pcd_decode. The format
+by utils/pcd_decode, AVIF (its primary AV1 still picture: the tools PIL's
+own encodes of photographs use, the others refused by name) by
+utils/avif_decode. The format
 is told as `Image.open` tells it: by the file's first bytes, PIL's first
 five plugins first, then its other plugins in its order (Image.ID), each
 by its accept test and the header checks on which PIL moves on to the
 next plugin (utils/pil_open), TGA (which has no magic number) by its
-header's checks after the others. A format PIL opens and the port does
-not (AVIF/HEIF, EPS), and an unknown one, raise TextureError, as does a
+header's checks after the others; an AVIF file whose container libavif
+cannot parse is one PIL identifies as nothing. A format PIL opens and the
+port does not (EPS), and an unknown one, raise TextureError, as does a
 decoder's error, named by its format; so does an image of more pixels
 than PIL's decompression-bomb limit (178,956,970) in any format.
 """
@@ -42,6 +45,9 @@ from __future__ import annotations
 import numpy as np
 
 from ..utils import pil_open
+from ..utils.avif_decode import decode_avif
+from ..utils.avif_decode import identify as avif_identify
+from ..utils.avif_decode import parse_failure as avif_parse_failure
 from ..utils.dds_decode import decode_blp, decode_dds, decode_ftex
 from ..utils.fits_decode import decode_fits
 from ..utils.fli_decode import decode_fli
@@ -71,7 +77,7 @@ _JPEG2000 = (b"\xff\x4f\xff\x51", b"\0\0\0\x0cjP  \r\n\x87\n")
 # this module's decoder of it); the formats PIL opens and this loader does
 # not are _OTHER_FORMATS, each with why
 _PLUGINS = (
-    ("AVIF/HEIF", lambda d: d[4:8] == b"ftyp", None),
+    ("AVIF", avif_identify, "decode_avif"),
     ("BLP", lambda d: d[:4] in (b"BLP1", b"BLP2"), "decode_blp"),
     ("CUR", pil_open.cur, "decode_cur"),
     ("PCX", pil_open.pcx, "decode_pcx"),
@@ -102,8 +108,7 @@ _PLUGINS = (
     ("XPM", lambda d: d[:9] == b"/* XPM */", "decode_xpm"),
     ("XVThumb", pil_open.xvthumb, "decode_xvthumb"))
 _OTHER_FORMATS = tuple(name for name, _, decoder in _PLUGINS if decoder is None)
-_WHY_NOT = {"AVIF/HEIF": "an AV1 or HEVC decoder is not ported",
-            "EPS": "PIL renders it with Ghostscript"}
+_WHY_NOT = {"EPS": "PIL renders it with Ghostscript"}
 _DECODED = ("PNM, BMP, GIF, JPEG, PNG, TIFF, WebP, "
             + ", ".join(name for name, _, decoder in _PLUGINS if decoder is not None))
 
@@ -150,7 +155,10 @@ def decode_texture(data: bytes) -> np.ndarray:
                 if str(e).startswith(name):
                     raise
                 raise DecodeError(f"{name}: {e}") from e
-    raise ValueError(f"unknown format (first bytes {data[:8]!r}): textures are {_DECODED}")
+    why = avif_parse_failure(data)
+    if why:  # Pillow's AVIF plugin takes the file, libavif's parse fails, PIL moves on
+        why = f"; {why}, so libavif does not parse it"
+    raise ValueError(f"unknown format (first bytes {data[:8]!r}{why}): textures are {_DECODED}")
 
 
 def read_texture(path: str, atlas: bytearray, values: list) -> None:

@@ -1,0 +1,563 @@
+"""AVIF files as PIL opens them: the HEIF container, the AV1 still picture
+and libavif 1.3.0's YUV to RGB through libyuv, byte for byte with
+`Image.open(f).convert("RGB")` (Pillow 12.1.0 on libavif 1.3.0 with
+dav1d 1.5.1 and libyuv 1909).
+
+`accept(data)` is Pillow's AvifImagePlugin._accept: a file whose major
+brand is avif, avis, mif1 or msf1. The container (ISO/IEC 14496-12 and
+23008-12, as libavif reads a still image): ftyp and its compatible brands,
+meta with hdlr 'pict', pitm, iloc versions 0-2 (construction methods 0
+and 1, idat), iinf/infe versions 2 and 3, iref (auxl, prem), iprp with
+ipco and ipma (the essential bit checked), the properties ispe, pixi, av1C,
+colr (nclx and ICC), auxC, irot, imir, clap, and mdat. The primary item
+(av01) is decoded by av1_obu, av1_block and av1_loopfilter; an alpha
+auxiliary item is checked as libavif checks it and dropped, as
+convert("RGB") drops it. Pillow reports irot, imir and EXIF orientation as
+metadata and leaves the pixels as decoded.
+
+Colour: the nclx colr box, where there is one, before the sequence
+header's colour config; an unspecified matrix (2) taken as BT.601, as
+libavif takes it; BT.601, BT.709 and BT.2020 through libyuv's 6-bit fixed
+point (its YuvConstants, full and limited range), 4:2:0 and 4:2:2 chroma
+upsampled by libyuv's bilinear filter (I420ToRGBAMatrixFilter and
+I422ToRGBAMatrixFilter), 4:4:4 and grey (4:0:0) as they are; the identity
+matrix (MC 0) in full range by libavif's own path (G from Y, B from U, R
+from V). The matrices libavif cannot convert fail as in PIL.
+
+What the decoder here does not decode yet raises av1_obu.Unsupported,
+named in a DecodeError "AVIF: <tool> is not decoded yet": screen content
+tools (palette, intrabc), CDEF with a nonzero strength, loop restoration,
+film grain, superres, quantiser matrices, more than 8 bits, a grid item,
+an image sequence (avis) without a still primary item, premultiplied
+alpha, and libavif's float conversions (FCC, SMPTE 240M, YCgCo and
+chromaticity-derived matrices; the identity matrix in limited range).
+"""
+
+from __future__ import annotations
+
+import struct
+
+import numpy as np
+
+from .av1_block import FrameDecoder
+from .av1_loopfilter import loop_filter
+from .av1_obu import OBU_SEQUENCE_HEADER, Unsupported, obus, parse_still, sequence_header
+from .image_decode import DecodeError, _check_size
+
+_BRANDS = (b"avif", b"avis", b"mif1", b"msf1")
+
+
+def accept(data: bytes) -> bool:
+    """Pillow's AvifImagePlugin._accept."""
+    return data[4:8] == b"ftyp" and data[8:12] in _BRANDS
+
+
+class _Box:
+    __slots__ = ("type", "start", "end", "body")
+
+    def __init__(self, typ, start, end, body):
+        self.type, self.start, self.end, self.body = typ, start, end, body
+
+
+def _boxes(data: bytes, start: int, end: int, stop: bytes = b"") -> list:
+    """The boxes from start to end; with `stop`, up to and including the
+    first box of that type (libavif reads a still image's top level up to
+    its meta box and no further)."""
+    out = []
+    pos = start
+    while pos < end:
+        if end - pos < 8:
+            raise DecodeError("AVIF: truncated box header")
+        size, typ = struct.unpack(">I4s", data[pos:pos + 8])
+        hdr = 8
+        if size == 1:
+            if end - pos < 16:
+                raise DecodeError("AVIF: truncated box header")
+            size = struct.unpack(">Q", data[pos + 8:pos + 16])[0]
+            hdr = 16
+        elif size == 0:
+            size = end - pos
+        if size < hdr or pos + size > end:
+            raise DecodeError(f"AVIF: box '{typ.decode('latin-1')}' runs past its parent")
+        if typ == b"uuid":
+            hdr += 16
+        out.append(_Box(typ, pos, pos + size, pos + hdr))
+        pos += size
+        if typ == stop:
+            break
+    return out
+
+
+class _Reader:
+    def __init__(self, data: bytes, pos: int, end: int):
+        self.data, self.pos, self.end = data, pos, end
+
+    def u(self, n: int) -> int:
+        if self.pos + n > self.end:
+            raise DecodeError("AVIF: box too short")
+        v = int.from_bytes(self.data[self.pos:self.pos + n], "big")
+        self.pos += n
+        return v
+
+    def fourcc(self) -> bytes:
+        if self.pos + 4 > self.end:
+            raise DecodeError("AVIF: box too short")
+        self.pos += 4
+        return self.data[self.pos - 4:self.pos]
+
+    def string(self) -> bytes:
+        i = self.data.find(b"\0", self.pos, self.end)
+        if i < 0:
+            raise DecodeError("AVIF: unterminated string")
+        s = self.data[self.pos:i]
+        self.pos = i + 1
+        return s
+
+
+def _children(data: bytes, box: _Box, full: bool = False) -> dict:
+    start = box.body + (4 if full else 0)
+    out: dict = {}
+    for b in _boxes(data, start, box.end):
+        out.setdefault(b.type, []).append(b)
+    return out
+
+
+def _parse_meta(data: bytes, meta: _Box) -> dict:
+    if meta.end - meta.body < 4 or data[meta.body] != 0:
+        raise DecodeError("AVIF: meta version")
+    kids = _children(data, meta, full=True)
+    hdlr = kids.get(b"hdlr")
+    if not hdlr:
+        raise DecodeError("AVIF: meta without hdlr")
+    r = _Reader(data, hdlr[0].body, hdlr[0].end)
+    if r.u(1) != 0:
+        raise DecodeError("AVIF: hdlr version")
+    r.u(3)
+    if r.u(4) != 0:
+        raise DecodeError("AVIF: hdlr pre_defined is nonzero")
+    if r.fourcc() != b"pict":
+        raise DecodeError("AVIF: handler is not 'pict'")
+    r.u(12)
+    r.string()
+    info: dict = {"items": {}, "props": [], "assoc": {}, "refs": [], "idat": None}
+    if b"pitm" in kids:
+        b = kids[b"pitm"][0]
+        r = _Reader(data, b.body, b.end)
+        v = r.u(1)
+        r.u(3)
+        info["primary"] = r.u(2 if v == 0 else 4)
+    else:
+        raise DecodeError("AVIF: no primary item")
+    if b"idat" in kids:
+        b = kids[b"idat"][0]
+        info["idat"] = (b.body, b.end)
+    if b"iloc" not in kids:
+        raise DecodeError("AVIF: no iloc box")
+    b = kids[b"iloc"][0]
+    r = _Reader(data, b.body, b.end)
+    v = r.u(1)
+    r.u(3)
+    if v > 2:
+        raise DecodeError(f"AVIF: iloc version {v}")
+    sizes = r.u(2)
+    off_size, len_size = sizes >> 12, (sizes >> 8) & 15
+    base_size, idx_size = (sizes >> 4) & 15, (sizes & 15) if v in (1, 2) else 0
+    for s in (off_size, len_size, base_size):
+        if s not in (0, 4, 8):
+            raise DecodeError("AVIF: iloc field size")
+    count = r.u(2 if v < 2 else 4)
+    locs = {}
+    for _ in range(count):
+        item = r.u(2 if v < 2 else 4)
+        method = r.u(2) & 15 if v in (1, 2) else 0
+        r.u(2)  # data_reference_index
+        base = r.u(base_size)
+        extents = []
+        for _ in range(r.u(2)):
+            if idx_size:
+                r.u(idx_size)
+            extents.append((base + r.u(off_size), r.u(len_size)))
+        locs[item] = (method, extents)
+    info["locs"] = locs
+    if b"iinf" not in kids:
+        raise DecodeError("AVIF: no iinf box")
+    b = kids[b"iinf"][0]
+    r = _Reader(data, b.body, b.end)
+    v = r.u(1)
+    r.u(3)
+    count = r.u(2 if v == 0 else 4)
+    entries = _boxes(data, r.pos, b.end)
+    if count > len(entries):
+        raise DecodeError("AVIF: iinf counts more entries than it holds")
+    for e in entries[:count]:
+        if e.type != b"infe":
+            raise DecodeError("AVIF: iinf entry is not infe")
+        r = _Reader(data, e.body, e.end)
+        v = r.u(1)
+        r.u(3)
+        if v not in (2, 3):
+            raise DecodeError(f"AVIF: infe version {v}")
+        item = r.u(2 if v == 2 else 4)
+        r.u(2)
+        kind = r.fourcc()
+        r.string()  # item_name
+        if item in info["items"]:
+            raise DecodeError("AVIF: an item id twice")
+        info["items"][item] = kind
+    if b"iref" in kids:
+        b = kids[b"iref"][0]
+        r = _Reader(data, b.body, b.end)
+        v = r.u(1)
+        r.u(3)
+        for ref in _boxes(data, r.pos, b.end):
+            rr = _Reader(data, ref.body, ref.end)
+            src = rr.u(2 if v == 0 else 4)
+            for _ in range(rr.u(2)):
+                info["refs"].append((ref.type, src, rr.u(2 if v == 0 else 4)))
+    if b"iprp" in kids:
+        iprp = _children(data, kids[b"iprp"][0])
+        if b"ipco" in iprp:
+            info["props"] = _boxes(data, iprp[b"ipco"][0].body, iprp[b"ipco"][0].end)
+            for box in info["props"]:  # libavif parses every property up front
+                if box.type in (b"ispe", b"pixi", b"auxC") and (
+                        box.end - box.body < 4 or data[box.body] != 0):
+                    raise DecodeError(f"AVIF: {box.type.decode()} version")
+                if box.type == b"av1C" and (box.end - box.body < 4 or data[box.body] != 0x81):
+                    raise DecodeError("AVIF: bad av1C")
+        for ipma in iprp.get(b"ipma", []):
+            r = _Reader(data, ipma.body, ipma.end)
+            v = r.u(1)
+            flags = r.u(3)
+            for _ in range(r.u(4)):
+                item = r.u(2 if v < 1 else 4)
+                lst = info["assoc"].setdefault(item, [])
+                for _ in range(r.u(1)):
+                    x = r.u(2 if flags & 1 else 1)
+                    bits = 15 if flags & 1 else 7
+                    lst.append((x >> bits, x & ((1 << bits) - 1)))
+    return info
+
+
+def _item_data(data: bytes, info: dict, item: int) -> bytes:
+    if item not in info["locs"]:
+        raise DecodeError(f"AVIF: item {item} has no location")
+    method, extents = info["locs"][item]
+    out = bytearray()
+    for off, length in extents:
+        if method == 0:
+            lo, hi = 0, len(data)
+        elif method == 1:
+            if info["idat"] is None:
+                raise DecodeError("AVIF: construction method 1 without idat")
+            lo, hi = info["idat"]
+        else:
+            raise Unsupported(f"iloc construction method {method}")
+        s = lo + off
+        e = hi if length == 0 else s + length
+        if e > hi or s > hi:
+            raise DecodeError("AVIF: item data past the end of the file")
+        out += data[s:e]
+    return bytes(out)
+
+
+def _props(data: bytes, info: dict, item: int) -> dict:
+    out: dict = {}
+    for essential, idx in info["assoc"].get(item, []):
+        if idx == 0:
+            continue
+        if idx > len(info["props"]):
+            raise DecodeError("AVIF: property index past ipco")
+        box = info["props"][idx - 1]
+        out.setdefault(box.type, box)
+        if essential and box.type not in (b"av1C", b"ispe", b"pixi", b"colr", b"auxC",
+                                          b"irot", b"imir", b"clap", b"lsel", b"a1op"):
+            raise Unsupported(f"essential property '{box.type.decode('latin-1')}'")
+    return out
+
+
+def _colr(data: bytes, props: dict):
+    box = props.get(b"colr")
+    if box is None:
+        return None
+    r = _Reader(data, box.body, box.end)
+    if r.fourcc() != b"nclx":
+        return None
+    cp, tc, mc = r.u(2), r.u(2), r.u(2)
+    full = r.u(1)
+    if full & 0x7F:
+        raise DecodeError("AVIF: nclx reserved bits set")
+    return cp, tc, mc, full >> 7
+
+
+_ALPHA_URNS = (b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha",
+               b"urn:mpeg:hevc:2015:auxid:1")
+
+
+def _container(data: bytes) -> tuple:
+    """What libavif's avifDecoderParse reads: the boxes, the primary item,
+    its properties and its data, and an alpha item's. A DecodeError here is
+    a file PIL does not identify (Pillow's plugin raises SyntaxError)."""
+    top = _boxes(data, 0, len(data), stop=b"meta")
+    if not top or top[0].type != b"ftyp":
+        raise DecodeError("AVIF: no ftyp box")
+    r = _Reader(data, top[0].body, top[0].end)
+    major = r.fourcc()
+    r.u(4)
+    brands = {major}
+    while r.pos + 4 <= r.end:
+        brands.add(r.fourcc())
+    if not brands & {b"avif", b"avis"}:
+        raise DecodeError("AVIF: ftyp has neither avif nor avis among its brands")
+    metas = [b for b in top if b.type == b"meta"]
+    if not metas:
+        if b"avis" in brands:
+            raise Unsupported("an image sequence (avis) without a still item")
+        raise DecodeError("AVIF: no meta box")
+    info = _parse_meta(data, metas[0])
+    primary = info["primary"]
+    kind = info["items"].get(primary)
+    if kind == b"grid":
+        raise Unsupported("a grid item")
+    if kind != b"av01":
+        raise DecodeError("AVIF: primary item is not AV1")
+    props = _props(data, info, primary)
+    for need in (b"av1C", b"ispe"):
+        if need not in props:
+            raise DecodeError(f"AVIF: primary item has no {need.decode()}")
+    size = _ispe(data, props)
+    _colr(data, props)
+    _check_depth(data, props)
+    payload = _item_data(data, info, primary)
+    alpha = None
+    for typ, src, dst in info["refs"]:
+        if typ == b"auxl" and dst == primary and info["items"].get(src) == b"av01":
+            aprops = _props(data, info, src)
+            aux = aprops.get(b"auxC")
+            if aux is None:
+                continue
+            rr = _Reader(data, aux.body + 4, aux.end)
+            if rr.string() not in _ALPHA_URNS:
+                continue
+            if b"av1C" not in aprops or b"ispe" not in aprops:
+                raise DecodeError("AVIF: alpha item without av1C or ispe")
+            _check_depth(data, aprops)
+            if _ispe(data, aprops) != size:
+                raise DecodeError("AVIF: alpha item of another size")
+            alpha = _item_data(data, info, src)
+    for typ, src, dst in info["refs"]:
+        if typ == b"prem" and primary in (src, dst):
+            raise Unsupported("premultiplied alpha")
+    return info, props, size, payload, alpha
+
+
+def _check_depth(data: bytes, props: dict) -> None:
+    """libavif's parse: pixi's depths agree with av1C's bit depth."""
+    av1c, pixi = props[b"av1C"], props.get(b"pixi")
+    flags = data[av1c.body + 2]
+    depth = 12 if flags & 0x20 else 10 if flags & 0x40 else 8
+    if pixi is not None:
+        r = _Reader(data, pixi.body + 4, pixi.end)
+        if any(r.u(1) != depth for _ in range(r.u(1))):
+            raise DecodeError("AVIF: pixi disagrees with av1C's bit depth")
+    if depth != 8:
+        raise Unsupported("more than 8 bits")
+
+
+def _ispe(data: bytes, props: dict) -> tuple:
+    r = _Reader(data, props[b"ispe"].body + 4, props[b"ispe"].end)
+    return r.u(4), r.u(4)
+
+
+def identify(data: bytes) -> bool:
+    """Whether PIL's Image.open takes the file as AVIF: its accept, then
+    libavif's parse (on a parse failure Pillow's plugin raises SyntaxError
+    and PIL moves on to its next plugin)."""
+    if not accept(data):
+        return False
+    try:
+        _container(data)
+    except Unsupported:
+        return True
+    except DecodeError:
+        return False
+    return True
+
+
+def parse_failure(data: bytes) -> str:
+    """Why libavif's parse fails on an accepted file ("" when it does not)."""
+    if not accept(data):
+        return ""
+    try:
+        _container(data)
+    except Unsupported:
+        return ""
+    except DecodeError as e:
+        return str(e)
+    return ""
+
+
+def decode_avif(data: bytes) -> np.ndarray:
+    """(h, w, 3) uint8 RGB of an AVIF file's primary image."""
+    try:
+        return _decode(data)
+    except Unsupported as e:
+        raise DecodeError(f"AVIF: {e} is not decoded yet") from e
+    except (ValueError, IndexError) as e:
+        if isinstance(e, DecodeError):
+            raise
+        raise DecodeError(f"AVIF: {e}") from e
+
+
+def _decode(data: bytes) -> np.ndarray:
+    info, props, (iw, ih), payload, alpha = _container(data)
+    av1c = props[b"av1C"]
+    seq = None
+    if av1c.end - av1c.body > 4:
+        seq = _first_seq(data[av1c.body + 4:av1c.end])
+    seq, fh = parse_still(payload, seq)
+    if seq.bit_depth != 8:
+        raise Unsupported("more than 8 bits")
+    w, h = fh.width, fh.height
+    if (iw, ih) != (w, h):
+        raise DecodeError(f"AVIF: ispe {iw}x{ih} disagrees with the AV1 frame {w}x{h} "
+                          "(PIL shows memory the file never wrote)")
+    if alpha is not None:  # decoded as libavif decodes it, then dropped
+        aseq, afh = parse_still(alpha)
+        if aseq.bit_depth != 8:
+            raise Unsupported("more than 8 bits")
+        if (afh.width, afh.height) != (iw, ih):
+            raise DecodeError(f"AVIF: alpha frame {afh.width}x{afh.height} in a {iw}x{ih} "
+                              "image (PIL shows memory the file never wrote)")
+        FrameDecoder(aseq, afh).decode()
+    _check_size(w, h)
+    dec = FrameDecoder(seq, fh)
+    planes = dec.decode()
+    loop_filter(dec)
+    colr = _colr(data, props)
+    if colr is None:
+        mc, full = seq.mc, seq.color_range
+    else:
+        mc, full = colr[2], colr[3]
+    return yuv_to_rgb(planes, w, h, seq, mc, full)
+
+
+def census(data: bytes) -> set:
+    """The tools an AVIF file turns on (av1_obu's and av1_block's names), a
+    tool the port refuses as ("refused", its name)."""
+    try:
+        info, props, size, payload, alpha = _container(data)
+        av1c = props[b"av1C"]
+        seq = _first_seq(data[av1c.body + 4:av1c.end]) if av1c.end - av1c.body > 4 else None
+        seq, fh = parse_still(payload, seq)
+    except Unsupported as e:
+        return {("refused", str(e))}
+    tools = fh.tools
+    tools.add(("subsampling", "4:0:0" if seq.mono else
+               {(1, 1): "4:2:0", (1, 0): "4:2:2", (0, 0): "4:4:4"}[(seq.ssx, seq.ssy)]))
+    if seq.sb128:
+        tools.add("128x128 superblocks")
+    dec = FrameDecoder(seq, fh)
+    dec.decode()
+    return tools
+
+
+def _first_seq(config_obus: bytes):
+    """The sequence header among av1C's configOBUs, or None."""
+    for typ, _, _, payload in obus(config_obus):
+        if typ == OBU_SEQUENCE_HEADER:
+            return sequence_header(payload)
+    return None
+
+
+# libyuv's YuvConstants (row_common.cc), 6-bit fixed point, by matrix and
+# full range: (UB, UG, VG, VR, YG, YB); the limited forms cap UB at 128.
+# A grey (4:0:0) picture in limited range converts with YG 19003.
+_CONSTANTS = {("601", 1): (113, 22, 46, 90, 16320, 32),
+              ("601", 0): (128, 25, 52, 102, 18997, -1160),
+              ("709", 1): (119, 12, 30, 101, 16320, 32),
+              ("709", 0): (128, 14, 34, 115, 18997, -1160),
+              ("2020", 1): (120, 11, 37, 94, 16320, 32),
+              ("2020", 0): (128, 12, 42, 107, 19003, -1160)}
+_MATRIX = {1: "709", 2: "601", 5: "601", 6: "601", 9: "2020"}
+_LIBAVIF_FAILS = (3, 10, 11, 13, 14)  # avifImageYUVToRGB: "Reformat failed"
+
+
+def _up_linear(c: np.ndarray, n: int) -> np.ndarray:
+    """libyuv's ScaleRowUp2_Linear_Any along the last axis to n samples:
+    the ends copied, 3:1 and 1:3 between neighbours."""
+    out = np.empty(c.shape[:-1] + (n,), np.int64)
+    out[..., 0] = c[..., 0]
+    work = (n - 1) & ~1
+    if work > 0:
+        a, b = c[..., :work // 2], c[..., 1:work // 2 + 1]
+        out[..., 1:work + 1:2] = (3 * a + b + 2) >> 2
+        out[..., 2:work + 2:2] = (a + 3 * b + 2) >> 2
+    out[..., n - 1] = c[..., (n - 1) // 2]
+    return out
+
+
+def _up_bilinear(s: np.ndarray, t: np.ndarray, n: int) -> tuple:
+    """libyuv's ScaleRowUp2_Bilinear_Any of chroma rows s over t: the two
+    output rows (3:1 and 1:3 vertically)."""
+    d = np.empty(s.shape[:-1] + (n,), np.int64)
+    e = np.empty_like(d)
+    d[..., 0] = (3 * s[..., 0] + t[..., 0] + 2) >> 2
+    e[..., 0] = (s[..., 0] + 3 * t[..., 0] + 2) >> 2
+    work = (n - 1) & ~1
+    if work > 0:
+        k = work // 2
+        s0, s1, t0, t1 = s[..., :k], s[..., 1:k + 1], t[..., :k], t[..., 1:k + 1]
+        d[..., 1:work + 1:2] = (9 * s0 + 3 * s1 + 3 * t0 + t1 + 8) >> 4
+        d[..., 2:work + 2:2] = (3 * s0 + 9 * s1 + t0 + 3 * t1 + 8) >> 4
+        e[..., 1:work + 1:2] = (3 * s0 + s1 + 9 * t0 + 3 * t1 + 8) >> 4
+        e[..., 2:work + 2:2] = (s0 + 3 * s1 + 3 * t0 + 9 * t1 + 8) >> 4
+    m = (n - 1) // 2
+    d[..., n - 1] = (3 * s[..., m] + t[..., m] + 2) >> 2
+    e[..., n - 1] = (s[..., m] + 3 * t[..., m] + 2) >> 2
+    return d, e
+
+
+def _upsample(c: np.ndarray, w: int, h: int, ssx: int, ssy: int) -> np.ndarray:
+    """A chroma plane at full size as libyuv's I420/I422ToRGBAMatrixFilter
+    (kFilterBilinear) reads it."""
+    if not ssx:
+        return c
+    if not ssy:
+        return _up_linear(c, w)
+    out = np.empty((h, w), np.int64)
+    out[0] = _up_linear(c[0], w)
+    rows = (h - 1) // 2  # the row pairs after the first row
+    if rows:
+        d, e = _up_bilinear(c[:rows], c[1:rows + 1], w)
+        out[1:2 * rows + 1:2] = d
+        out[2:2 * rows + 2:2] = e
+    if not h & 1:
+        out[h - 1] = _up_linear(c[rows], w)
+    return out
+
+
+def yuv_to_rgb(planes, w, h, seq, mc, full) -> np.ndarray:
+    """RGB as libavif 1.3.0 converts with libyuv (module docstring)."""
+    y = planes[0][:h, :w].astype(np.int64)
+    if seq.mono:
+        u = v = np.full((h, w), 128, np.int64)
+    else:
+        cw, ch = (w + seq.ssx) >> seq.ssx, (h + seq.ssy) >> seq.ssy
+        u = _upsample(planes[1][:ch, :cw].astype(np.int64), w, h, seq.ssx, seq.ssy)
+        v = _upsample(planes[2][:ch, :cw].astype(np.int64), w, h, seq.ssx, seq.ssy)
+    if mc == 0 and not seq.mono:
+        if not full:
+            raise Unsupported("the identity matrix in limited range")
+        return np.stack([v, y, u], axis=-1).astype(np.uint8)
+    if mc in _LIBAVIF_FAILS:
+        raise DecodeError(f"AVIF: libavif does not convert matrix coefficients {mc}")
+    if mc not in _MATRIX:
+        raise Unsupported(f"matrix coefficients {mc}")
+    ub, ug, vg, vr, yg, yb = _CONSTANTS[(_MATRIX[mc], int(bool(full)))]
+    if seq.mono and not full:
+        yg = 19003
+    y1 = ((y * 0x0101 * yg) >> 16) + yb
+    ui, vi = u - 128, v - 128
+    rgb = np.stack([(y1 + vi * vr) >> 6, (y1 - (ui * ug + vi * vg)) >> 6, (y1 + ui * ub) >> 6],
+                   axis=-1)
+    return np.clip(rgb, 0, 255).astype(np.uint8)

@@ -460,7 +460,8 @@ DECODERS = {"PPM": "decode_pnm", "BMP": "decode_bmp", "DIB": "decode_bmp", "TGA"
             "XPM": "decode_xpm", "JPEG2000": "decode_j2k", "FITS": "decode_fits",
             "FLI": "decode_fli", "IM": "decode_im", "IMT": "decode_imt", "GBR": "decode_gbr",
             "MCIDAS": "decode_mcidas", "PIXAR": "decode_pixar", "SPIDER": "decode_spider",
-            "XVThumb": "decode_xvthumb", "IPTC": "decode_iptc", "PCD": "decode_pcd"}
+            "XVThumb": "decode_xvthumb", "IPTC": "decode_iptc", "PCD": "decode_pcd",
+            "AVIF": "decode_avif"}
 
 
 @pytest.mark.parametrize("name", sorted(json.loads((FIXTURES / "pil_rgb.json").read_text())
@@ -720,7 +721,8 @@ def test_chip_smoke_texture_scenes_on_cpu(tmp_path):
     line-interleaved RGB IM, lossless) and cubes with cubes_g4.tif (256x256
     bilevel squares in Group 4, the PPM scene's 32,768-row atlas), textured
     with blob_thunder.tif (that texture as 4-bit grey ThunderScan) and cubes
-    with cubes_rlew.tif (the 256x256 squares in CCITT RLEW), through its
+    with cubes_rlew.tif (the 256x256 squares in CCITT RLEW), and textured
+    with blob.avif (that texture as PIL's default AVIF), through its
     fixture_texture."""
     from relativitypathtracer_tpu_torch.ops.kernels.texture_kernel import texture_route
 
@@ -735,7 +737,8 @@ def test_chip_smoke_texture_scenes_on_cpu(tmp_path):
                         ("textured", "blob_packbits.psd"), ("cubes", "cubes_rle.sgi"),
                         ("textured", "blob_irrev.jp2"), ("cubes", "cubes_lossless.j2k"),
                         ("textured", "blob_rgb.im"), ("cubes", "cubes_g4.tif"),
-                        ("textured", "blob_thunder.tif"), ("cubes", "cubes_rlew.tif")]
+                        ("textured", "blob_thunder.tif"), ("cubes", "cubes_rlew.tif"),
+                        ("textured", "blob.avif")]
     for kind, name in fixtures:
         where = tmp_path / name
         scene_file = smoke.fixture_texture(write_demo_scene(str(where), 1, kind), name)

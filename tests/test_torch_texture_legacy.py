@@ -592,28 +592,28 @@ def test_pil_formats_left_for_later_are_refused_by_name(fmt, mode, monkeypatch):
     ("McIdas", b"\0\0\0\0\0\0\0\4" + bytes(300)), ("PIXAR", b"\x80\xe8\0\0" + bytes(600)),
     ("XVThumb", b"P7 332\n" + bytes(20)), ("PCD", b"\1" * 2048 + b"PCD_" + bytes(1600)),
     ("GBR", struct.pack(">5I", 28, 2, 1, 1, 1) + b"GIMP" + bytes(20)),
-    ("AVIF/HEIF", b"\0\0\0\x1cftypavif" + bytes(20))])
+    ("AVIF", b"\0\0\0\x1cftypavif" + bytes(20))])
 def test_other_formats_are_named(name, first):
-    """Each format once left for later is told by PIL's own checks. AVIF/HEIF
-    is still refused by name. The stubs of formats decoded now: FITS's,
-    JPEG 2000's, XVThumb's (no size line) and PCD's (no base image) are
-    broken files that the port names by format and cause and that PIL
-    fails on too; FLI/FLC's (a header short of 128 bytes), McIdas's (0
-    bytes a sample) and PIXAR's (mode (0, 0)) fail their plugin's own
-    checks, so PIL identifies no format and the port names none; GBR's is
-    a whole 1x1 brush, decoded as PIL decodes it."""
-    if name == "AVIF/HEIF":
-        with pytest.raises(ValueError, match=f"^{name}: "):
-            decode_texture(first)
-        assert name in texture._OTHER_FORMATS
-        return
+    """Each format once left for later is told by PIL's own checks. The
+    stubs of formats decoded now: FITS's, JPEG 2000's, XVThumb's (no size
+    line) and PCD's (no base image) are broken files that the port names
+    by format and cause and that PIL fails on too; FLI/FLC's (a header
+    short of 128 bytes), McIdas's (0 bytes a sample) and PIXAR's (mode (0,
+    0)) fail their plugin's own checks, so PIL identifies no format and the
+    port names none; AVIF's (an ftyp box and nothing after it) fails
+    libavif's parse, so Pillow's plugin raises SyntaxError, PIL moves on and
+    identifies no format, and the port names none, giving libavif's cause;
+    GBR's is a whole 1x1 brush, decoded as PIL decodes it."""
     assert name not in texture._OTHER_FORMATS
     if name == "GBR":
         _equal_to_pil(first)
-    elif name in ("FLI/FLC", "McIdas", "PIXAR"):
+    elif name in ("FLI/FLC", "McIdas", "PIXAR", "AVIF"):
         with pytest.raises(ValueError, match="^unknown format"):
             decode_texture(first)
         assert isinstance(_pil_outcome(first), Image.UnidentifiedImageError)
+        if name == "AVIF":
+            with pytest.raises(ValueError, match="AVIF: .*libavif does not parse it"):
+                decode_texture(first)
     else:
         with pytest.raises(ValueError, match=f"^{name}: "):
             decode_texture(first)

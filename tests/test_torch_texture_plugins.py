@@ -126,7 +126,7 @@ def test_every_format_of_the_slice_has_fixtures():
     assert set(with_format) == {"FLI", "IM", "IMT", "GBR", "MCIDAS", "PIXAR", "SPIDER",
                                 "XVThumb", "IPTC", "PCD"}
     assert all(len((FIXTURES / n).read_bytes()) < 4096 for n in PLUGINS if n != "rotated.pcd")
-    assert texture._OTHER_FORMATS == ("AVIF/HEIF", "EPS")
+    assert texture._OTHER_FORMATS == ("EPS",)
 
 
 # --- files PIL writes --------------------------------------------------------------

@@ -9,7 +9,8 @@ models/texture.decode_texture and held to PIL's decode byte for byte.
 
 Needs PIL (to write the files and to check them). Prints one JSON line a
 file (format, bytes, seconds: the best of REPEAT decodes, one for JPEG 2000,
-whose tier 1 takes 40-50 s; equal to PIL, the file handed to PIL in one
+whose tier 1 takes 40-50 s, and AVIF, whose symbol loop is Python too;
+equal to PIL, the file handed to PIL in one
 read) and a
 last line with the host's CPU model: these are host CPU times, not a card's.
 """
@@ -117,11 +118,14 @@ def files(Image) -> dict:
         "FITS 8-bit": fits_file(rgb[..., 1], 8),
         "FITS float32": fits_file(rgb[..., 0] * 1.5 - 20.0, -32),
         "FITS GZIP_1 16-bit": fits_gzip(rgb[..., 2].astype(np.int64) * 9, 16),
+        # PIL's default AVIF encode (quality 75, speed 6, 4:2:0) of this
+        # texture, as committed for chip_smoke.py: timed once
+        "AVIF q75 (PIL's default)": (ROOT / "tools" / "avif_1024_q75.avif").read_bytes(),
     }
     return out
 
 
-ONCE = ("JPEG 2000",)  # formats timed once, not REPEAT times
+ONCE = ("JPEG 2000", "AVIF")  # formats timed once, not REPEAT times
 
 
 def main() -> int:
