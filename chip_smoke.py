@@ -161,7 +161,8 @@ then the textures phase:
           PackBits RGB PSD (blob_packbits.psd), as an irreversible
           (9/7, ICT) JP2 (blob_irrev.jp2), as a line-interleaved RGB
           IM (blob_rgb.im), as 4-bit grey ThunderScan
-          (blob_thunder.tif) and as PIL's default AVIF (blob.avif), and cubes
+          (blob_thunder.tif), as PIL's default AVIF (blob.avif) and as a
+          loop-restored AVIF (blob_lr.avif: self-guided), and cubes
           with its 256x256 texture as a
           PNG (a 32,768-row atlas, K8), with a 64x64 LZW TIFF (the
           committed cubes_lzw.tif; a 2,048-row atlas, K8), with the same
@@ -169,8 +170,10 @@ then the textures phase:
           JPEG-in-TIFF tiles (cubes_jpeg_tiles.tif), as BC7
           (cubes_bc7.dds), as an RLE SGI (cubes_rle.sgi), as a
           lossless J2K in 32x32 tiles (cubes_lossless.j2k) and with 256x256
-          bilevel squares as a Group 4 TIFF (cubes_g4.tif) and as CCITT
-          RLEW a row a strip (cubes_rlew.tif), each scene
+          bilevel squares as a Group 4 TIFF (cubes_g4.tif), as CCITT
+          RLEW a row a strip (cubes_rlew.tif) and with 256x256 flat
+          squares as an AVIF in palette and intra block copy
+          (cubes_screen.avif), each scene
           written by utils/demo_scene, load_scene_file -> build_scene ->
           build_render_fn at 1024x768: one
           graphed frame with exactly that path's kernels launched, held to
@@ -181,7 +184,10 @@ then the textures phase:
           texture's start-up cost on the card host's CPU), and PIL's
           default AVIF encode of demo_texture(1024)
           (tools/avif_1024_q75.avif) decoded to PIL's hash, its seconds
-          beside the card's name and power limit;
+          beside the card's name and power limit, and a 512x512 AVIF
+          with CDEF and loop restoration (tools/avif_512_cdef_lr.avif) to
+          PIL's hash, its seconds and its CDEF and loop-restoration
+          passes' seconds beside them;
 and three phases on the textured fixture:
   viewer  ViewerCore at 960x540 (the reference's window) through a scripted
           timeline 15 ms apart (idle and paused; 'w' held 10 frames; space;
@@ -322,9 +328,13 @@ TEXTURE_SCENES = (("textured", "jpg", (256, 192)), ("cubes", "png", (WIDTH, HEIG
                   ("cubes", "cubes_g4.tif", (WIDTH, HEIGHT)),
                   ("textured", "blob_thunder.tif", (256, 192)),
                   ("cubes", "cubes_rlew.tif", (WIDTH, HEIGHT)),
-                  ("textured", "blob.avif", (256, 192)))
-# PIL's default AVIF encode of demo_texture(1024) and PIL's hash of it
+                  ("textured", "blob.avif", (256, 192)),
+                  ("cubes", "cubes_screen.avif", (WIDTH, HEIGHT)),
+                  ("textured", "blob_lr.avif", (256, 192)))
+# PIL's default AVIF encode of demo_texture(1024) and PIL's hash of it; a
+# 512x512 encode with CDEF and loop restoration and its hash
 AVIF_1024 = pathlib.Path(__file__).resolve().parent / "tools" / "avif_1024_q75.avif"
+AVIF_512 = pathlib.Path(__file__).resolve().parent / "tools" / "avif_512_cdef_lr.avif"
 # the small raster formats' fixtures, by suffix
 LEGACY_SUFFIXES = (".psd", ".sgi", ".bw", ".rgb", ".pcx", ".dcx", ".ras", ".qoi", ".msp", ".ico",
                    ".cur", ".icns", ".xbm", ".xpm")
@@ -1357,15 +1367,17 @@ def textures_phase(torch, pt, dev, card, state) -> None:
     blocked in sys.modules for the phase: the committed fixtures against
     PIL's hashes, the textured fixture with a JPEG, a TGA, a lossy WebP,
     an arithmetic-coded JPEG, a DXT1 DDS, a PackBits PSD, an
-    irreversible JP2, an RGB IM, a ThunderScan and an AVIF texture and cubes with
-    a PNG, two TIFFs, a lossless WebP, a BC7 DDS, an RLE SGI, a lossless
-    tiled J2K, a Group 4 and a CCITT RLEW TIFF one rendered
-    on the card and held to the CPU and the oracle, and the decode times of
-    a corpus-sized JPEG and a 1024x1024 AVIF; see the module docstring."""
+    irreversible JP2, an RGB IM, a ThunderScan and two AVIF textures and cubes
+    with a PNG, two TIFFs, a lossless WebP, a BC7 DDS, an RLE SGI, a lossless
+    tiled J2K, a Group 4 and a CCITT RLEW TIFF and a palette/intrabc AVIF
+    one rendered on the card and held to the CPU and the oracle, and the
+    decode times of a corpus-sized JPEG, a 1024x1024 AVIF and a 512x512
+    AVIF with CDEF and loop restoration; see the module docstring."""
     import hashlib
 
     from relativitypathtracer_tpu_torch.models.texture import decode_texture
     from relativitypathtracer_tpu_torch.utils import image, image_decode
+    from relativitypathtracer_tpu_torch.utils.avif_decode import decode_avif
     from relativitypathtracer_tpu_torch.utils.demo_scene import demo_texture, write_demo_scene
 
     def pil_modules():
@@ -1408,7 +1420,7 @@ def textures_phase(torch, pt, dev, card, state) -> None:
         log("  ThunderScan/RLEW/IPTC-around-another-format/APNG decode ms: " + ", ".join(
             t for t in times if t.split()[0].startswith(CODEC_PREFIXES)))
         avif = [t for t in times if t.split()[0].endswith(".avif")]
-        check(len(avif) >= 30, f"textures: {len(avif)} AVIF fixtures in pil_rgb.json")
+        check(len(avif) >= 45, f"textures: {len(avif)} AVIF fixtures in pil_rgb.json")
         log(f"  AVIF decode ms (the host CPU of {card}): " + ", ".join(avif))
         damaged_sweep(decode_texture)
         for kind, fmt, size in TEXTURE_SCENES:
@@ -1481,6 +1493,19 @@ def textures_phase(torch, pt, dev, card, state) -> None:
               f"textures: {AVIF_1024.name} decodes to other bytes than PIL's")
         log(f"  a 1024x1024 quality-75 AVIF ({AVIF_1024.name}, {len(data):,} bytes, PIL's hash): "
             f"decode_texture {avif_s:.3f} s on the host CPU of {card}")
+        want = json.loads(AVIF_512.with_suffix(".json").read_text())
+        data = AVIF_512.read_bytes()
+        passes: dict = {}
+        t0 = time.perf_counter()
+        rgb = decode_avif(data, passes)
+        avif_s = time.perf_counter() - t0
+        check(list(rgb.shape) == want["shape"]
+              and hashlib.sha256(rgb.tobytes()).hexdigest() == want["sha256"],
+              f"textures: {AVIF_512.name} decodes to other bytes than PIL's")
+        log(f"  a 512x512 AVIF with CDEF and loop restoration ({AVIF_512.name}, {len(data):,} "
+            f"bytes, PIL's hash): decode_avif {avif_s:.3f} s, of which tiles "
+            f"{passes['tiles']:.3f} s, CDEF {passes['CDEF']:.3f} s, loop restoration "
+            f"{passes['loop restoration']:.3f} s, on the host CPU of {card}")
     finally:
         if had:
             sys.modules["PIL"] = saved

@@ -1,15 +1,22 @@
 """AV1 tile decoding of an intra frame (AV1 specification sections 5.11 and
 7.11-7.13): the partition tree (all ten partition types, split_or_horz and
-split_or_vert at the frame's edges), intra_frame_mode_info (segment id,
-skip, cdef_idx, delta q and delta lf, the key frame's y mode, uv mode with
-CFL alphas, angle deltas, filter intra), the transform size and depth, the
-intra transform type, the coefficients (txb skip, eob, base and range
-levels and their contexts, Golomb, dc sign) and their dequantisation, then
-prediction and reconstruction through av1_recon, transform block by
-transform block in the specification's order.
+split_or_vert at the frame's edges), each superblock's loop-restoration
+units (av1_restoration.read_lr), intra_frame_mode_info (segment id, skip,
+cdef_idx, delta q and delta lf, use_intrabc and its vector (av1_intrabc),
+the key frame's y mode, uv mode with CFL alphas, angle deltas, palette
+mode info and tokens (av1_palette), filter intra), the transform size and
+depth (an intrabc block's transform tree: read_var_tx_size and
+InterTxSizes), the transform type (the intra sets, or an intrabc block's
+inter sets with chroma taking luma's type), the coefficients (txb skip,
+eob, base and range levels and their contexts, Golomb, dc sign) and their
+dequantisation, then prediction (intra, palette, or the block copy before
+its residual) and reconstruction through av1_recon, transform block by
+transform block in the specification's order (transform_tree for an
+intrabc block's luma).
 
 `FrameDecoder(seq, fh).decode()` returns the reconstructed planes before
-the loop filter, with the per-4x4 information av1_loopfilter reads.
+the loop filter, with the per-4x4 information av1_loopfilter, av1_cdef and
+av1_restoration read.
 """
 
 from __future__ import annotations
@@ -18,7 +25,10 @@ import functools
 
 import numpy as np
 
+from . import av1_intrabc as IBC
+from . import av1_palette as PAL
 from . import av1_recon as R
+from . import av1_restoration as LR
 from . import av1_tables as T
 from .av1_entropy import SymbolDecoder
 from .av1_obu import qindex
@@ -45,8 +55,16 @@ class FrameDecoder:
         self.skips = grid(0)
         self.mi_sizes = grid(0)
         self.seg_ids = grid(0)
-        self.tx_sizes = grid(0)
+        self.tx_sizes = grid(0)  # InterTxSizes
+        self.tx_types = grid(0)  # TxTypes, luma
         self.delta_lfs = grid((0, 0, 0, 0))
+        self.is_inters = grid(0)
+        self.mvs = grid((0, 0))
+        self.written = grid(0)
+        self.pal_sizes = [grid(0), grid(0)]
+        self.pal_colours = [grid(()), grid(())]
+        self.cdef_idx = {}  # a 64x64's (row, col) >> 4: its cdef_idx, where read
+        self.lr_units = [{}, {}, {}]  # (unit row, unit col): (type, coefficients)
         self.frame = []
         self.lf_tx = []
         for p in range(self.num_planes):
@@ -76,6 +94,7 @@ class FrameDecoder:
         wide = self.mi_cols + 40
         self.above_level = [[0] * wide for _ in range(3)]
         self.above_dc = [[0] * wide for _ in range(3)]
+        LR.reset_refs(self)
         sb4 = self.sb4
         bsize = T.BLOCK_128X128 if sb4 == 32 else T.BLOCK_64X64
         for r in range(r0, r1, sb4):
@@ -84,8 +103,8 @@ class FrameDecoder:
             self.left_dc = [[0] * tall for _ in range(3)]
             for c in range(c0, c1, sb4):
                 self.read_deltas = fh.delta_q_present
-                self.cdef_idx_sb = {}
                 self.clear_block_decoded(r, c)
+                LR.read_lr(self, r, c, bsize)
                 self.decode_partition(r, c, bsize)
         # dav1d's overread check (its symbol decoder's count at -15 or below)
         if self.sd.bitpos - 8 * len(data) >= 15:
@@ -220,19 +239,31 @@ class FrameDecoder:
                 self.avail_lc = self.inside(r, c - 2)
         else:
             self.avail_uc = self.avail_lc = False
+        self.pal_y, self.pal_uv = [], ()
         self.mode_info()
-        self.read_tx_size()
+        if self.pal_y or self.pal_uv:
+            PAL.tokens(self)
+        self.read_block_tx_size()
         if self.skip:
             self.reset_block_context(bw4, bh4)
         dl = tuple(self.delta_lf)
+        pal_u = self.pal_uv[0] if self.pal_uv else ()
         for y in range(r, r + bh4):
             self.y_modes[y][c:c + bw4] = [self.y_mode] * bw4
             self.uv_modes[y][c:c + bw4] = [self.uv_mode] * bw4
             self.skips[y][c:c + bw4] = [self.skip] * bw4
             self.mi_sizes[y][c:c + bw4] = [bsize] * bw4
             self.seg_ids[y][c:c + bw4] = [self.segment_id] * bw4
-            self.tx_sizes[y][c:c + bw4] = [self.tx_size] * bw4
             self.delta_lfs[y][c:c + bw4] = [dl] * bw4
+            self.is_inters[y][c:c + bw4] = [self.is_inter] * bw4
+            self.mvs[y][c:c + bw4] = [self.mv] * bw4
+            self.written[y][c:c + bw4] = [1] * bw4
+            self.pal_sizes[0][y][c:c + bw4] = [len(self.pal_y)] * bw4
+            self.pal_sizes[1][y][c:c + bw4] = [len(pal_u)] * bw4
+            self.pal_colours[0][y][c:c + bw4] = [self.pal_y] * bw4
+            self.pal_colours[1][y][c:c + bw4] = [pal_u] * bw4
+        if self.is_inter:
+            self.predict_intrabc()
         self.residual()
 
     def mode_info(self) -> None:
@@ -253,6 +284,15 @@ class FrameDecoder:
         self.read_delta_qindex()
         self.read_delta_lf()
         self.read_deltas = 0
+        self.is_inter, self.mv = 0, (0, 0)
+        self.use_filter_intra = 0
+        if fh.allow_intrabc and sd.read_symbol(cdf["intrabc"]):
+            self.is_inter = 1
+            self.y_mode = self.uv_mode = T.DC_PRED
+            self.angle_delta_y = self.angle_delta_uv = 0
+            self.mv = IBC.clip_vector(self, IBC.read_mv(self, IBC.predicted_vector(self)))
+            self.tools.add("intrabc")
+            return
         above = self.y_modes[r - 1][c] if self.avail_u else T.DC_PRED
         left = self.y_modes[r][c - 1] if self.avail_l else T.DC_PRED
         self.y_mode = sd.read_symbol(
@@ -284,8 +324,10 @@ class FrameDecoder:
                 self.angle_delta_uv = sd.read_symbol(cdf["angle_delta"][self.uv_mode - 1]) - 3
         if self.angle_delta_y or self.angle_delta_uv:
             self.tools.add("angle deltas")
-        self.use_filter_intra = 0
-        if (self.seq.enable_filter_intra and self.y_mode == T.DC_PRED
+        if (self.mi_size >= T.BLOCK_8X8 and bw <= 64 and bh <= 64
+                and fh.allow_screen_content_tools):
+            PAL.mode_info(self)
+        if (self.seq.enable_filter_intra and self.y_mode == T.DC_PRED and not self.pal_y
                 and max(bw, bh) <= 32):
             self.use_filter_intra = sd.read_symbol(cdf["filter_intra"][self.mi_size])
             if self.use_filter_intra:
@@ -331,12 +373,12 @@ class FrameDecoder:
         if self.skip or not fh.cdef_read:
             return
         r, c = self.mi_row & ~15, self.mi_col & ~15
-        if (r, c) not in self.cdef_idx_sb:
+        if (r >> 4, c >> 4) not in self.cdef_idx:
             v = self.sd.read_literal(fh.cdef_bits)
             bw, bh = T.BLOCK_SIZES[self.mi_size]
             for y in range(r, r + (bh >> 2), 16):
                 for x in range(c, c + (bw >> 2), 16):
-                    self.cdef_idx_sb[(y, x)] = v
+                    self.cdef_idx[(y >> 4, x >> 4)] = v
 
     def read_delta_qindex(self) -> None:
         sb = T.BLOCK_128X128 if self.sb4 == 32 else T.BLOCK_64X64
@@ -374,7 +416,66 @@ class FrameDecoder:
                     d = -a if sign else a
                     self.delta_lf[i] = max(-63, min(63, self.delta_lf[i] + (d << fh.delta_lf_res)))
 
-    def read_tx_size(self) -> None:
+    def read_block_tx_size(self) -> None:
+        """read_block_tx_size: an intrabc block's transform tree
+        (read_var_tx_size), else read_tx_size; InterTxSizes for the block."""
+        bsize = self.mi_size
+        bw, bh = T.BLOCK_SIZES[bsize]
+        r, c = self.mi_row, self.mi_col
+        if (self.fh.tx_mode_select and bsize > T.BLOCK_4X4 and self.is_inter and not self.skip
+                and not self.lossless):
+            max_tx = T.max_tx_rect(bsize)
+            tw, th = T.TX_SIZES[max_tx]
+            for row in range(r, r + (bh >> 2), th >> 2):
+                for col in range(c, c + (bw >> 2), tw >> 2):
+                    self.read_var_tx_size(row, col, max_tx, 0)
+        else:
+            self.read_tx_size(not self.skip or not self.is_inter)
+            for y in range(r, r + (bh >> 2)):
+                self.tx_sizes[y][c:c + (bw >> 2)] = [self.tx_size] * (bw >> 2)
+
+    def read_var_tx_size(self, row: int, col: int, tx: int, depth: int) -> None:
+        if row >= self.mi_rows or col >= self.mi_cols:
+            return
+        tw, th = T.TX_SIZES[tx]
+        split = 0
+        if tx != T.TX_4X4 and depth < 2:
+            above = self.above_tx_width(row, col) < tw
+            left = self.left_tx_height(row, col) < th
+            bw, bh = T.BLOCK_SIZES[self.mi_size]
+            size = min(64, max(bw, bh))
+            max_sq = T.TX_INDEX[(size, size)]
+            ctx = (T.tx_sqr_up(tx) != max_sq) * 3 + (4 - max_sq) * 6 + above + left
+            split = self.sd.read_symbol(self.cdf["txfm_split"][ctx])
+        if split:
+            self.tools.add("inter tx split")
+            sub = T.SPLIT_TX_SIZE[tx]
+            sw, sh = T.TX_SIZES[sub]
+            for i in range(0, th >> 2, sh >> 2):
+                for j in range(0, tw >> 2, sw >> 2):
+                    self.read_var_tx_size(row + i, col + j, sub, depth + 1)
+        else:
+            for i in range(th >> 2):
+                self.tx_sizes[row + i][col:col + (tw >> 2)] = [tx] * (tw >> 2)
+            self.tx_size = tx
+
+    def above_tx_width(self, row: int, col: int) -> int:
+        if row == self.mi_row:
+            if not self.avail_u:
+                return 64
+            if self.skips[row - 1][col] and self.is_inters[row - 1][col]:
+                return T.BLOCK_SIZES[self.mi_sizes[row - 1][col]][0]
+        return T.TX_SIZES[self.tx_sizes[row - 1][col]][0]
+
+    def left_tx_height(self, row: int, col: int) -> int:
+        if col == self.mi_col:
+            if not self.avail_l:
+                return 64
+            if self.skips[row][col - 1] and self.is_inters[row][col - 1]:
+                return T.BLOCK_SIZES[self.mi_sizes[row][col - 1]][1]
+        return T.TX_SIZES[self.tx_sizes[row][col - 1]][1]
+
+    def read_tx_size(self, allow_select: bool) -> None:
         fh = self.fh
         bsize = self.mi_size
         if self.lossless:
@@ -382,15 +483,21 @@ class FrameDecoder:
             return
         max_rect = T.max_tx_rect(bsize)
         self.tx_size = max_rect
-        if bsize > T.BLOCK_4X4 and fh.tx_mode_select:
+        if bsize > T.BLOCK_4X4 and allow_select and fh.tx_mode_select:
             tx, cat = max_rect, -1  # cat: the splits down to 4x4, less one
             while tx != T.TX_4X4:
                 cat += 1
                 tx = T.SPLIT_TX_SIZE[tx]
             mw, mh = T.TX_SIZES[max_rect]
             r, c = self.mi_row, self.mi_col
-            above = T.TX_SIZES[self.tx_sizes[r - 1][c]][0] >= mw if self.avail_u else 0
-            left = T.TX_SIZES[self.tx_sizes[r][c - 1]][1] >= mh if self.avail_l else 0
+            if self.avail_u and self.is_inters[r - 1][c]:
+                above = T.BLOCK_SIZES[self.mi_sizes[r - 1][c]][0] >= mw
+            else:
+                above = self.avail_u and self.above_tx_width(r, c) >= mw
+            if self.avail_l and self.is_inters[r][c - 1]:
+                left = T.BLOCK_SIZES[self.mi_sizes[r][c - 1]][1] >= mh
+            else:
+                left = self.avail_l and self.left_tx_height(r, c) >= mh
             depth = self.sd.read_symbol(self.cdf["tx_size"][cat][above + left])
             for _ in range(depth):
                 self.tx_size = T.SPLIT_TX_SIZE[self.tx_size]
@@ -428,11 +535,43 @@ class FrameDecoder:
                                   else T.TX_32X32)
                     tw, th = T.TX_SIZES[tx]
                     n4w, n4h = max(bw >> sx, 4) >> 2, max(bh >> sy, 4) >> 2
+                    if self.is_inter and not self.lossless and p == 0:
+                        self.transform_tree(self.mi_col * 4 + (cx << 6),
+                                            self.mi_row * 4 + (cy << 6), min(bw, 64), min(bh, 64))
+                        continue
                     bx, by = (self.mi_col >> sx) * 4, (self.mi_row >> sy) * 4
                     for y in range(0, min(n4h, 16 >> sy), th >> 2):
                         for x in range(0, min(n4w, 16 >> sx), tw >> 2):
                             self.transform_block(p, bx, by, tx, x + ((cx << 4) >> sx),
                                                  y + ((cy << 4) >> sy))
+
+    def transform_tree(self, x: int, y: int, w: int, h: int) -> None:
+        """An inter block's luma transform blocks in transform_tree's order,
+        their sizes from InterTxSizes."""
+        if x >= self.mi_cols * 4 or y >= self.mi_rows * 4:
+            return
+        lw, lh = T.TX_SIZES[self.tx_sizes[y >> 2][x >> 2]]
+        if w <= lw and h <= lh:
+            self.transform_block(0, x, y, T.TX_INDEX[(w, h)], 0, 0)
+        elif w > h:
+            self.transform_tree(x, y, w // 2, h)
+            self.transform_tree(x + w // 2, y, w // 2, h)
+        elif w < h:
+            self.transform_tree(x, y, w, h // 2)
+            self.transform_tree(x, y + h // 2, w, h // 2)
+        else:
+            for dy in (0, h // 2):
+                for dx in (0, w // 2):
+                    self.transform_tree(x + dx, y + dy, w // 2, h // 2)
+
+    def predict_intrabc(self) -> None:
+        """compute_prediction of an intrabc block: each plane's whole block
+        copied along the block's vector."""
+        bw, bh = T.BLOCK_SIZES[self.mi_size]
+        for p in range(1 + 2 * self.has_chroma):
+            sx, sy = (self.ssx, self.ssy) if p else (0, 0)
+            IBC.predict(self, p, (self.mi_col >> sx) * 4, (self.mi_row >> sy) * 4,
+                        max(bw >> sx, 4), max(bh >> sy, 4), self.mv)
 
     def transform_block(self, p: int, base_x: int, base_y: int, tx: int, x: int, y: int) -> None:
         sx, sy = (self.ssx, self.ssy) if p else (0, 0)
@@ -447,14 +586,19 @@ class FrameDecoder:
         is_cfl = p > 0 and self.uv_mode == T.UV_CFL_PRED
         mode = self.y_mode if p == 0 else (T.DC_PRED if is_cfl else self.uv_mode)
         dec = self.decoded[p]
-        have_left = (self.avail_l if p == 0 else self.avail_lc) or x > 0
-        have_above = (self.avail_u if p == 0 else self.avail_uc) or y > 0
-        have_ar = dec[(sbr >> sy) - 1 + 1][(sbc >> sx) + step_x + 1]
-        have_bl = dec[(sbr >> sy) + step_y + 1][(sbc >> sx) - 1 + 1]
-        self.predict_intra(p, start_x, start_y, have_left, have_above, have_ar, have_bl,
-                           mode, tw, th)
-        if is_cfl:
-            self.cfl(p, start_x, start_y, tw, th)
+        if self.is_inter:
+            pass
+        elif self.pal_y if p == 0 else self.pal_uv:
+            PAL.predict(self, p, start_x, start_y, x, y, tw, th)
+        else:
+            have_left = (self.avail_l if p == 0 else self.avail_lc) or x > 0
+            have_above = (self.avail_u if p == 0 else self.avail_uc) or y > 0
+            have_ar = dec[(sbr >> sy) - 1 + 1][(sbc >> sx) + step_x + 1]
+            have_bl = dec[(sbr >> sy) + step_y + 1][(sbc >> sx) - 1 + 1]
+            self.predict_intra(p, start_x, start_y, have_left, have_above, have_ar, have_bl,
+                               mode, tw, th)
+            if is_cfl:
+                self.cfl(p, start_x, start_y, tw, th)
         if p == 0:
             self.max_luma_w = start_x + step_x * 4
             self.max_luma_h = start_y + step_y * 4
@@ -594,7 +738,15 @@ class FrameDecoder:
     # --- coefficients --------------------------------------------------
 
     def tx_set(self, tx: int) -> int:
-        if T.tx_sqr_up(tx) >= T.TX_32X32:
+        """get_tx_set: the inter sets for an intrabc block."""
+        up = T.tx_sqr_up(tx)
+        if self.is_inter:
+            if up > T.TX_32X32:
+                return T.TX_SET_DCTONLY
+            if self.fh.reduced_tx_set or up == T.TX_32X32:
+                return T.TX_SET_INTER_3
+            return T.TX_SET_INTER_2 if T.tx_sqr(tx) == T.TX_16X16 else T.TX_SET_INTER_1
+        if up >= T.TX_32X32:
             return T.TX_SET_DCTONLY
         if self.fh.reduced_tx_set or T.tx_sqr(tx) == T.TX_16X16:
             return T.TX_SET_INTRA_2
@@ -640,13 +792,26 @@ class FrameDecoder:
             ad[x4:x4 + w4] = [0] * w4
             ll[y4:y4 + h4] = [0] * h4
             ld[y4:y4 + h4] = [0] * h4
+            if p == 0:
+                for k in range(h4):
+                    self.tx_types[y4 + k][x4:x4 + w4] = [T.DCT_DCT] * w4
             return None
         tx_set = self.tx_set(tx)
         lossless = self.lossless
         if p == 0:
             tx_type = T.DCT_DCT
             q_for_type = qindex(fh, self.segment_id, None)
-            if tx_set != T.TX_SET_DCTONLY and q_for_type > 0:
+            if tx_set != T.TX_SET_DCTONLY and q_for_type > 0 and self.is_inter:
+                if tx_set == T.TX_SET_INTER_1:
+                    s = sd.read_symbol(cdf["tx_inter1"][T.tx_sqr(tx)])
+                    tx_type = T.TX_TYPE_INTER_INV_SET1[s]
+                elif tx_set == T.TX_SET_INTER_2:
+                    s = sd.read_symbol(cdf["tx_inter2"])
+                    tx_type = T.TX_TYPE_INTER_INV_SET2[s]
+                else:
+                    s = sd.read_symbol(cdf["tx_inter3"][T.tx_sqr(tx)])
+                    tx_type = T.TX_TYPE_INTER_INV_SET3[s]
+            elif tx_set != T.TX_SET_DCTONLY and q_for_type > 0:
                 mode = (T.FILTER_INTRA_MODE_TO_DIR[self.filter_intra_mode]
                         if self.use_filter_intra else self.y_mode)
                 if tx_set == T.TX_SET_INTRA_1:
@@ -655,11 +820,17 @@ class FrameDecoder:
                 else:
                     s = sd.read_symbol(cdf["tx_set2"][T.tx_sqr(tx)][mode])
                     tx_type = T.TX_TYPE_INTRA_INV_SET2[s]
+            for k in range(h4):
+                self.tx_types[y4 + k][x4:x4 + w4] = [tx_type] * w4
             if lossless or T.tx_sqr_up(tx) > T.TX_32X32:
                 tx_type = T.DCT_DCT
         else:
             if lossless or T.tx_sqr_up(tx) > T.TX_32X32:
                 tx_type = T.DCT_DCT
+            elif self.is_inter:  # luma's type at the same place
+                tx_type = self.tx_types[max(self.mi_row, y4 << sy)][max(self.mi_col, x4 << sx)]
+                if tx_type not in T.TX_TYPES_IN_SET[tx_set]:
+                    tx_type = T.DCT_DCT
             else:
                 tx_type = T.MODE_TO_TXFM[self.uv_mode]
                 if tx_type not in T.TX_TYPES_IN_SET[tx_set]:

@@ -1,12 +1,12 @@
 """The AV1 symbol decoder (AV1 specification section 8.2).
 
-`SymbolDecoder` is init_symbol / read_symbol / read_bool / read_literal as
-the specification writes them, on CDF rows kept as 32768 minus the
-specification's values (av1_tables: [32768 - cdf[0], ..., 0, count]):
-SymbolValue, SymbolRange and the 15-bit renormalisation, the bits past a
-tile's end read as zeros (SymbolMaxBits), and each read adapting its row
-unless the frame sets disable_cdf_update. The default CDF rows are in
-av1_tables.
+`SymbolDecoder` is init_symbol / read_symbol / read_bool / read_literal
+(and NS(n) over literal bits) as the specification writes them, on CDF
+rows kept as 32768 minus the specification's values (av1_tables:
+[32768 - cdf[0], ..., 0, count]): SymbolValue, SymbolRange and the 15-bit
+renormalisation, the bits past a tile's end read as zeros
+(SymbolMaxBits), and each read adapting its row unless the frame sets
+disable_cdf_update. The default CDF rows are in av1_tables.
 """
 
 from __future__ import annotations
@@ -91,6 +91,13 @@ class SymbolDecoder:
         for _ in range(n):
             x = 2 * x + self.read_bool()
         return x
+
+    def read_ns(self, n: int) -> int:
+        """NS(n): a value below n in the fewest literal bits (4.10.10)."""
+        w = n.bit_length()
+        m = (1 << w) - n
+        v = self.read_literal(w - 1)
+        return v if v < m else (v << 1) - m + self.read_literal(1)
 
     def read_bool_cdf(self, p: int) -> int:
         """A symbol of a two-symbol row [p, 0] made for the one read (the

@@ -2,10 +2,11 @@
 5 and 6): the OBU header, the temporal delimiter, the sequence header
 (reduced still-picture headers among them, timing, decoder model and
 operating points, colour config), and a key frame's frame header (frame
-size, superres, tile info, quantiser, segmentation, delta q and delta lf,
-loop filter, CDEF and loop-restoration params, tx mode, reduced tx set,
-film grain) with its tile groups, in a frame OBU or a frame header OBU and
-tile group OBUs.
+size, superres, screen content tools and intra block copy, tile info,
+quantiser, segmentation, delta q and delta lf, loop filter, CDEF (damping
+and strengths) and loop-restoration params (each plane's type, the unit
+sizes), tx mode, reduced tx set, film grain) with its tile groups, in a
+frame OBU or a frame header OBU and tile group OBUs.
 
 `parse_still(data)` returns the sequence header, the frame header and the
 tiles' bytes. What a file turns on goes into the frame header's `tools`
@@ -16,6 +17,8 @@ does not decode raises `Unsupported` naming the tool, before any pixel.
 from __future__ import annotations
 
 from types import SimpleNamespace
+
+from . import av1_tables as T
 
 
 class Unsupported(ValueError):
@@ -217,6 +220,8 @@ def sequence_header(payload: bytes) -> SimpleNamespace:
     return s
 
 
+_LR_NAMES = {T.RESTORE_WIENER: "Wiener", T.RESTORE_SGRPROJ: "self-guided",
+             T.RESTORE_SWITCHABLE: "switchable"}
 _SEG_BITS = (8, 6, 6, 6, 6, 3, 0, 0)
 _SEG_SIGNED = (1, 1, 1, 1, 1, 0, 0, 0)
 _SEG_MAX = (255, 63, 63, 63, 63, 7, 0, 0)
@@ -361,27 +366,47 @@ def frame_header(r: BitReader, s: SimpleNamespace, tid: int, sid: int) -> Simple
                     fh.lf_mode_deltas[i] = r.su(7)
     if any(fh.lf_level):
         fh.tools.add("deblocking filter")
-    # cdef_params
+    # cdef_params (a secondary strength of 3 means 4)
+    fh.cdef_damping = 3
     fh.cdef_bits = 0
     fh.cdef_strengths = []
     if not (fh.coded_lossless or fh.allow_intrabc or not s.enable_cdef):
-        r.f(2)  # cdef_damping_minus_3
+        fh.cdef_damping = r.f(2) + 3
         fh.cdef_bits = r.f(2)
         for _ in range(1 << fh.cdef_bits):
             st = [r.f(4), r.f(2)]
             if s.num_planes > 1:
                 st += [r.f(4), r.f(2)]
-            fh.cdef_strengths.append(st)
+            fh.cdef_strengths.append([v + (v == 3) if k & 1 else v for k, v in enumerate(st)])
         fh.tools.add("CDEF syntax")
         if any(any(st) for st in fh.cdef_strengths):
-            raise Unsupported("CDEF with a nonzero strength")
+            fh.tools.add("CDEF")
     fh.cdef_read = bool(s.enable_cdef and not (fh.coded_lossless or fh.allow_intrabc))
-    # lr_params
-    all_lossless = fh.coded_lossless
-    if not (all_lossless or fh.allow_intrabc or not s.enable_restoration):
-        for _ in range(s.num_planes):
-            if r.f(2):
-                raise Unsupported("loop restoration")
+    # lr_params: each plane's FrameRestorationType, the unit sizes
+    fh.lr_type = [T.RESTORE_NONE] * 3
+    fh.lr_unit_size = [256, 256, 256]
+    fh.lr_unit_shift = fh.lr_uv_shift = 0
+    if not (fh.coded_lossless or fh.allow_intrabc or not s.enable_restoration):
+        for i in range(s.num_planes):
+            fh.lr_type[i] = T.REMAP_LR_TYPE[r.f(2)]
+        if any(fh.lr_type):
+            if s.sb128:
+                shift = r.f(1) + 1
+            else:
+                shift = r.f(1)
+                if shift:
+                    shift += r.f(1)
+            uv_shift = 0
+            if s.ssx and s.ssy and any(fh.lr_type[1:]):
+                uv_shift = r.f(1)
+            fh.lr_unit_shift, fh.lr_uv_shift = shift, uv_shift
+            size = 256 >> (2 - shift)
+            fh.lr_unit_size = [size, size >> uv_shift, size >> uv_shift]
+            for t in fh.lr_type:
+                if t:
+                    fh.tools.add(("loop restoration", _LR_NAMES[t]))
+            if uv_shift:
+                fh.tools.add("loop restoration chroma units halved")
     # read_tx_mode
     if fh.coded_lossless:
         fh.tx_mode_select = 0
@@ -393,7 +418,7 @@ def frame_header(r: BitReader, s: SimpleNamespace, tid: int, sid: int) -> Simple
     if s.film_grain_params_present and r.f(1):
         raise Unsupported("film grain")
     if fh.allow_screen_content_tools:
-        raise Unsupported("screen content tools (palette, intrabc)")
+        fh.tools.add("screen content tools")
     return fh
 
 

@@ -1,4 +1,5 @@
-"""The AV1 specification's constant tables that an intra frame reads.
+"""The AV1 specification's constant tables that an intra frame reads, intra
+block copy's, palette's, CDEF's and loop restoration's among them.
 
 Default CDFs (section 9.4's Default_*_Cdf arrays), stored packed: for each
 table, row after row, the N - 1 values 32768 - cdf[i] of an N-symbol
@@ -7,11 +8,20 @@ unpacks them into the rows the symbol decoder adapts: a list
 [32768 - cdf[0], ..., 32768 - cdf[N - 2], 0, count]. The coefficient
 tables keep their four quantiser contexts until `default_cdfs` picks one.
 
+The default CDFs past the skip flag's: palette (y and uv mode, sizes, the
+colour indices of sizes 2-8 in 5 contexts), intrabc, the motion vector
+CDFs (joint, class, class0 bit/fr/hp, sign, bits, fr, hp; one copy a
+component), txfm_split, the inter transform sets and use_wiener,
+use_sgrproj and restoration_type.
+
 The other tables: Dc_Qlookup and Ac_Qlookup at 8 bits, the smooth
 predictors' weights (Sm_Weights_Tx_4x4 ... 64x64, one after the other),
 Dr_Intra_Derivative indexed by angle (zero at angles no mode reaches), and
 Intra_Filter_Taps[5][8][7]. The scans, the block and transform size tables
-and the small lookups follow the specification's definitions.
+and the small lookups follow the specification's definitions, as do the
+inter transform sets, Palette_Color_Context, CDEF's directions, taps and
+Cdef_Uv_Dir, and loop restoration's Sgr_Params, Wiener and self-guided
+ranges and x/(x+1) and 1/n tables.
 """
 
 from __future__ import annotations
@@ -23,255 +33,258 @@ import zlib
 import numpy as np
 
 _CDF_BLOB = (
-    "eNrtvGdUYtm2Nrw3OYkSxQSCgiAIKEFQQVHAhGACQVQUxBwxx8q5K+ecQ1dVV87Ryl05duWcuyvnXP3at8+9o8/o"
-    "8+Md3xnnz3ffscde6JxzrzWftdea85kLh4FJPapWKSJSLhodsTdcyh7C/EKw47+jfLLqlAcl68UEUZxgYDiKMy4Y"
-    "7xOKMcF3WZ+ZH3O/cl6xleydzKcBZ/wqvHyx62HvUs4lHY4fKU+QLZPcjVzHszDqcURkFLgsU2TwShoTb4reGzmK"
-    "SwjcSTuOno9gg1esAyQThAmCbeG0sNNsHuta4Er8c5QUvrDiBtMn+BidSlcFHPE/SuOQRdgL8FPQp06SURSJEq2K"
-    "mMkv400OrQ5+RyzC30ctL5qv35akUQFxMCVNMT5qK4OBH4kQQkY5K1Pak3YneMeQRMHhccH1/hTcFwQCutP4a1qH"
-    "ABd+mXs6bHookz4gYB5uPnojhJfvTN8SfVdaI8mI5InO8TLYC0kPvHTIK+XTy6z+zX4Qvz00OVVNaPH5htqCXAlh"
-    "WcKzp+m2xblivyoHRD/j72Cdxa9HwyDUgl7bmPiJcShFkOwQf7p/PG0k5gUyEjxs3Jc8MEmiWCYfK30bZRYE0gFc"
-    "LLIcfOeApmmTRao7sRHKQMVbSVvQeVwaYiX4reibrVRHiV2iRCoGy27y7zES8YMxzyE3S1YUXMh/oDap56l+j1sv"
-    "H+Wbjj4Dewm0FF7Oo+XwtW/VvyoLZIlheQG/Yz4hAsCbxplpUzVqdY/MJJRwpgdO9fuMzkaEgEvzD6fRdE81S2IG"
-    "CTW8XOb1QD7OhngCFjhiC8Wx6xRV0tbIHWFL/efRpNhDqC/gT+YrWbsMFs1w1SjlNxkj7ArjNK4QSQfVzgWOHtsb"
-    "y8MkRvQozgxvGH4Y/DB0LdDdZq1pdKLCJlM/oKFttKr5hZrQRdTh6LjG97k9aWXSX9jH4AF1nNxftHjVlnASIboj"
-    "y5yT3C0JC6v0ntGSYI014WMX8O+gEtpW5C5OGiO+FYb1ftKozTOb3sbAIjSomWErmDcDDwT0+lfQsqjPiKsJUzEh"
-    "yDDopfzfqYup+VQi9SVpKSmTpCTsxc3AnoCOselsaJ/b3qu8p3i/9hqMdWIvIG9B70G2p21NXZriFfQ5YFDAfP+3"
-    "FIdPDWoYnARet021yW1028XAHOoxIo74E2EIAoBNBU9nPUmbnFaRptDd8xrj9Rz3CpuMEMGvAgtT9iUHx6erj8VM"
-    "jOnwQWGuoRdDV4JuYFUGMaNX5590JLE78UyCAv+TVwYqDCoBEVmL006lRmt7kyYlDtPUJzzwMaDPIovBKbKBUXNF"
-    "BqEzgi0YEq4J62QneZvRWRBVdLyEKAyKwAl+Dk/lrWf7heZQ7fAaSK/qoOxe5FjxNNHEiNmC2nAh97J/Dm0zdEmm"
-    "Jm2irkFXopPp/HX7tZXatkSbhhVvy1PkzskYYgDTFqac1F1OHKcZHfktIpVbwzTU7YpaHomOlIrXR0RGyAQ/8QqY"
-    "YxgV1Nu48upvVaLIc2KHmCfmCzX81+Hz2AnMQYyjvqvdYCnRuS1FkRyv1+tmq1WKl/xE3uLQ0cxhNajqyxWGCots"
-    "qXh+OInXwl1Pvx5o9v9IQ1T7ute7GK6H+cMjygRIfki4lHExsJp2mSKunV9z3eV0HSikF0b3R6Tdwhp2REhH8BS6"
-    "uGy1e23R8oJL9mb7J1uLfKysj1vALmWFMSZVwF2zSwIKr9g35j+ymfKEchZ3LlvL6PIvsNzM+Wx0ZbxP/zmNm1qq"
-    "y06iiu6F14beoz+0vM/+aCzM2JMekWZP6dHe1XRGWsNYIcSAsVaVZaERmbElfX7a+ZRD2qeJoRKEmBk6MmhbE7Mm"
-    "3LXOmed8XzKiZGDxZcdte63tkWUkXivLD0xBz0htjBrqQzUNCuH7WG0L5dAAUlK8EB68xvclqdrbgZuKckKxJTdy"
-    "69Ux3EJWBP2B7z3vVuzVKr7hk/ajaAXXEBwfGOw3BjKrhVOeXzRU+IYtZ+yipZNUiLvRKcLVbJC8mzACvx5Hx/wM"
-    "+1Ayp+BxZjH9YMAOv+3UNuJQ/KCK0wUbrMHBewNNNA21k3wWMq6zuI3cEuPThX+Ia8D6YtzQvMhf+FfZg3FN2OPo"
-    "g6hcJBm2yb3H+Sj/MnEZYa7PJXwirgJzpILgLHW8807CH8dOwCxDEyGzurVdkZ0sRBF8JQyEtUE3gXDSIcJ4n0Dw"
-    "ATAVGARElm0o3eQ4CGFD1oBjweNVT93C0geQIMgzYAeg7InprulKAB8C04EKAOycW4y1RxrNoSbSiZ5PHlL+aDNT"
-    "mUgs7slqWtIYlcWT/sguqT6QOihpqNIv9AJ6e52+4nRxZt7igHFeUZ319Th7vmVb/DlSau9vzWrPWnerUh6S39VW"
-    "j66tyj4iPhL8pItbryzKsgqiK73kA6oaW2p7XX4qMUvTy60vdBsKWzWnWE96X9R1VEcXro0HeWs9B6tmWghJfhIa"
-    "a0N7dpo6eVw8J+QUaUfvksLLej/dNukicmBvhfN2ydRknmxf2KwusvZXzSBVsXA7urEHUzug+lHFT7zvlGedh8vS"
-    "C7fYv+nKA4/2ZlVnVgW4KZqGsLHdw4o3OBC5bXHn+QE9pc5Z9ul5Z9Sj8ZMGEF2UEkpBnuZW6NTeq8VNdpPlTWJZ"
-    "cPkApjOzWGyTae9Hpnq05a5cP+0w6cWQsrKTBolklt//Xz5ndr3OwIUtJdcPmO6WZv3iO60XrHRmr1IP6J2sdUcH"
-    "oB4NmNe8iA2SDg4YXReQncq6NuCrJytZIXANyCwnZ9yJHTVgn3tahsDr7ABH1W0jXPCmV1uByN3M/mkAoYqRtSku"
-    "s91Qhc4aG813EkR5cAZYD2QCBiAF0AIJQBygAKSAGBAA95JPhvgRExA2SAvoBx4ApgAdQClQDBQAViAXeJs9hXvP"
-    "ZyB8MfgO2Aa0AQ7ADuQBOYAJSAeSgUlUC/wheOhf9MoFQoEFcXJ/mncDaiu8CzoYshdsBcXgV+AM0AesBSYBdfps"
-    "fkYAlLQAvwj9FTEX2gBxgR+BNf2aBqAGAKL6L6ZPZijmjxsbPRCpz9ik/eMmMr8HVFVG5PxxF6r9wt7U/uj+UqEv"
-    "+WQ02keaQlIExu3cflf+56IbB+Z9Eacr/+s34kiIHfh7O1ADZAyUD9QOzBgY93/z817V9rhY519HGSKDcvem/1Vi"
-    "Eg9Qnc/YmvE65b8l0aIQUZ02T7dO99+S+ayLcRcT7sR8T1Unfs38Q1LJ2ifcKNucwIrpS6Fm/SH5RFYmVCoHSrxF"
-    "gGKGJN86u3AOfb4QnnVXLY/6roXE8tJWe08KXRXeP/UJCtULozVuGHe44K+e/HntiwUjF+f8VTJRXMin6/8qiRKn"
-    "iT4lbVHt/R/pbN5bHifaonmj+W9JG/dpxM1Er7jJSaTIo5I/JKVMMXdrTKB8l5SsKJX/IenwXybeHcOShEW7466G"
-    "N8W+TgyjhQjE4u0x66Q92q1iJXcnnkS7nLNSnRnfKwwMzY9ypV9g/93nK7Lbomu6v0qGR+KknXF/lahkBMErWbaw"
-    "Xvbfkp9FKaJ6UYbs9f88OSIKItgY+4vYpLgV6v9fc/OI1xp6K3KLiCc0RcqT/pC8DJ3J98S/kY1TYuSpzEeqFFUE"
-    "bQNdEr0iqkBcYnuYiMHUM0ZT56uzY6jyQxJpdHpccWJv2N99FkUeF14V/1ViFYwSjgv9q+S1eG8ET7aXq4n8b4kr"
-    "cr1Ixn/MTf8fbAFRZ0UsAY87S7KGO/W/+gsOy6Yf4m3jb4rR899J/5CoBSu526N3i32jzgn0EQrpQcs2xhh6oGg+"
-    "64loZX6k3YU+LhX7r+G5JOdFulhq/AvReVl50t99ng79WrEuMyt8r3gt2Q/0d76Q3Mb42m6ix0AOwt501Flfqkui"
-    "4/weAQ+qMpUnMX8+8wXzqmqU8nVICZcVEAtRN9K0x/H/6C/mYfs4V3KQ2bwHNgFY2fk2EYKuG/C2Og9WUD5mwKyO"
-    "8W1Agtl8Bf1XDwrRdc65hldCX6GO+gYyquo35UjCn5qr0Avt8Za42NH8weRGcHddfkLyPzQu6Pa8QUp/Bor9nngZ"
-    "HFXfnJj+D80s3yddqdmTRMOjx/mroZFVewVRXgN6kLxQOJemHdBYqAwu44xCLQD+6kE2bkrB0Iw1kq0xvzCMqF/r"
-    "yzRHAv7U8KHOpvpcmTIr0krDQ6nN7/S7g/7UTAXjLHWya8HDgysIeZC+xi2JGt8/NRIUqrExO1q+I+pF6Dz41+o7"
-    "8hM+75swwm84l8/EptaYEf7HfVNIPeBfPfhE3eoekXczNlYXxW3Al7esyrom/FNTAoW1z3A+1B9LmME8gKC36HN1"
-    "/1g5EJDoyI9bxhweMsa7BTLBc8CQ/Y81mQr72EbPFqhl0S0MGPxMrVwzkPG6/bgeFXQS5u1YIAJIUtIWTPI/ebCt"
-    "+1WXtv1Ozbjekp6l7aPqsppW1nDzg5IntD/0/FRyVL+xDd16vhpf+HsPtGd3u6qc73yYn5FSIItvBRqKCuerMhtu"
-    "1ZgKR+qkPWu7VrZss/bkhhv2Kl6HjGyy1hzJ+yXqhBtSWKYfw4vpetiWVXsqaZTkc7jW/w12gOuVeav0JqGh92OP"
-    "qPtYm6dMOKC690YnpGm8c1OLqb7A+TzLJEZ0TG3CuBfnTJKFdDO6gtqP1t8yH+lN7t3cNbt5XJHcMSFvSqpN7vR/"
-    "3nK/Hls8K83CjGjVNc+poxfnafb3HO++0M6o2WYoTc9KaBO/CJrvFe4ZXJWVN1J9IeBD7cZKiONl2kJ2d1d+x9LG"
-    "w/ZDoh08DrOXugULwp6V1JvdwnPUZtjWXnzvxi5UR3zThpL1vZyejM7RVScLYzNMnpTqWVZM2tOYLaEPOppb3taU"
-    "mMfpxVxyV36npG1gI6zsSHp97+KeL13fWviVa4yOoh8st/UP5SvDFuB72o82USr98mNTQqk7WgUtfnVTXEAmQuLd"
-    "e7H7RmdK85LSR4lynb+qSHCMDiN+Rqob6srh1k4dK2KzT2H5GOf9TP+ER2FhpA+dL1t7GjAlW1OCmDXMKQFTCD9h"
-    "NsNPQ34rXGYSSdfQVmKiQPYAeu8PXb+0LWhsrrhoHNur6/HvYtV+yn9uXB47pPq2c10GOXFv5FAWl/y5rcFDqqxI"
-    "2aOYJBrom9Nj7xZ3lrU4a8cVHZOGDVjQO60HbGuq9rb1xU4uTshtS2qRNLNekjnIz6199Wed1bp3ytvC2+iVnfIO"
-    "ZmtFTYs9PXE3Y17vuZ7MbkXLKBc/9Vn4obTRCZLIycEXiJHoUdCecofNpB/KXk28h3oJNnie1Ox1xptWRXODVbjR"
-    "3aoOZdOTIlHSJB6TgGRG+TMIbow3ogy6HJQU0A3OiA3oKuih/gR4rHdbz8L2L42PywuLVuRcT/TvPtye1hxYlRSX"
-    "GTWWQwjktlqb+iryC28Zq2LxUTOY7rab9e+cXpZc0YCQDwFDKNbOA21H60eVj7dLDY+VX0Mbe+Hd/A5WszRPnxQR"
-    "5qR8LxMUrzcG6y7L93HW0+K9WjsMTbMqs6xDuIgQLCMU+aJpXUNVBc6uT8mLyg9A4Q92HWst9nyvZuekKm3+M7GI"
-    "HHrattjnwkvBeMoJ3Hm4uaw1vzRpT3gBfjJyHjQOCKyOLr2QdUKzjFfuOxj9BlrdOryusHxr4bJ4DWcb/hBsB/sJ"
-    "4yuF5c3DRCKL4Ysgr63Q2GVB8cRN8KuQWjAVGNDD6x7WeKwKYZ2kmyP/IVTiL2kqK5tlO2noj0iSMs4sv5M4v5pz"
-    "ZW+tF9PrNXuUqcIXfgL8322iuvzbzDULShZm4bWdko+Mjd5/t5nvgttkiaekT8OvsibRyITd0L/b9LUsaFhXFp7v"
-    "Tt0fE8RGEGYh/m5DyDLpuyXXeU6mIKCAcsNrHOTvNlcqBpSYzV/0BOl25mWffMTBf2EzO+Ib2xPwnpSHf4odgZmD"
-    "FPwLf9p67b2Enh87VjSJy2+lD1L+EuYfUNi8o8K3sDnrrE4U84PwV5bedzF2a3tc+7jmuvprlrL4aYJRlF6fy9B/"
-    "ZZfSY+je2rSjkprvMOhiFoQvCegl/iu7CS2fGsfZtarYsFBmCW0YMYxQivxXdsEt6MYBpY8soL5UPpZ92Pe8107E"
-    "v7Kbnm80bY55LTzPy2I/YrQEegX8DPlXdhfdHkdyVl0iJ/IY6yLZ4zUNcepf2i0XlXEZgRTfaqK39zncfexE7GHg"
-    "X9nlxAzCF+PC4UORndBF9Kf4MYItmDMoG2iBTQYScW3QVZWTaQ9QPNh+mBMixn2D9RlzSVwUA7IcuR7cDbeBiI5d"
-    "RiWqDfYTKABzEcuhefIjrDh4LgjAxoB3oK8BeEdg6wRkNmwd1AJ0QY4AqWls3nJIOSilviRO9VoDJHWM8AxGaKDR"
-    "4GygFGwDzOZV4X+9K2ITsH64A7A7iJ8hVZRjGDqNjKAhdgBLoUOAHlQUpENLxv4EXwjphRjBBiQMavNDIfMRBJAB"
-    "uw8kQ9cAq1smBV2FqMBBQCqQD/kM3Ih7SqLDrgIPwHxADz0JPO0Std1AZkDFkHQAB5kJ7BQs9JPga5CDvEBEGG4i"
-    "gtV7sf0ewgt6ABQA9cj2v/k3NPIY0g/1FOJGzIQgfKqQwymjEAehE4Fn0JdAFBwBDlA+QnFgd8FCSBi4H5YCIVOH"
-    "I4OgK4EVkD5gN6QCOJZhx78EzwFuIAw4BW4FugOd6DxIFsAETUAybDiAbJktlUAmAWtADnAROgMQhZnwy5DTwP2Y"
-    "sUAfaj9g6z7m2Ym0Q4UgDmhG/v43/xhcFiIIRgBHw9aCBjQGGkBaALNAuIAbkgmwIYmASLAbEQkNAsshpwBvOA+S"
-    "T85CPIUMBOZD9gF4SCTwNnIQig1ZBewE1MAh6B1wOu0XVBYYAcRB5gJzYC+B7QwQXdofpwSgGLgGfwfs8XkBq4Ak"
-    "ATjYSuBXqALYYaqnz4UPAIcDOECGvv43/9QN9MJUY5HyPLYLesL41u8eyt8+OGIItaD8mvaOoKSVX37UphOtQSVD"
-    "vTLe+aVheMU75XJGR/WVDEX01+arrvLc/sI2AQj+/9aOTHSQm1HyXHzIWO9DFadSsZJR9VPtu1NfNO8v22ytliSj"
-    "F8Ei0pv9LqMhjsTohGBq48y8WZrozif1ze4RYTvgiRCSHk31Ro9wXI35GBrVPNmBNwKdB+teutZwN2Cb4T36gYF3"
-    "vV64TWn+0U/bOiun2f86urP8YPzv4QDnFIwNLtFe9/kIu24t4szz6SpjqSWhQs8KW6BuaHAP9A3wQQPzroWpbcs5"
-    "p3wGle1QtYQ8r7+Ssyvu38HuG3kKKYIU6W3Eh3C9gxNZTbtfodJywnPr92WTYi4FP4LsBLyjyzFKqMAayEshj6p6"
-    "kxwv/qEF7aLmzGKEQ7cCsdFC7I/QGjtOJPO7VXvXlK2MaWG7DmUvD5wH5YNT5dO9MuChzszYyyHrPMcKlLq/jp5S"
-    "t8JqSh0bmAKPgoTENxDnIQHzVs520rfS5oRfuHtbSt2XLPHMC1Av0Ef9GtcBTcti0ddgySV35TD6Uc/Wws70hLCx"
-    "sDZwgi6EOBP+zabmPSYWl3MTv3AXNbeWdGZWigtRPZB1qTUUG7LCfoz/kXK6YrRuUMTUliOuozlFLCJ8OPgk7ir2"
-    "OQRunB/4BvOkIFhyzX9k7ZSczyom8zg0FdynDsOLYWvN30OOe+8qS4t/wZ7YWlR2NQ9PawFrAWf0TdQYSLepNACC"
-    "5TkPyzsZyc1VxYdMOHofZBfwUJmJuQ9BZZXT1V6LneEKH6a5aWPhs/Q/sVdX9Khjw2MYXJgFTFTn+KxDTLNc4Ewg"
-    "bXQnqe+wjU3CQlw6MTAUUgoERXeimZDvxmt+J1GBjiCxyfd+bbfJqkgiT+uPaL/IejBU6L6cFGYpfoHraMzPTHfD"
-    "S/OlhGv+P0L9wPh4s08tXGINDfuNkOmOUX0NGdo42OqvPeP/EGwAPkRtQz4Fn2X0+MnQQ4s6Re+ouGpKqpdYQEsD"
-    "7cAPQiRiNVhrmhPwCuNVtFy4gLqozpQ5Ji6ckgOmAEMFvyNeggOMaUEuLKogSfjSt6zmSvoFOY/CBKOBKoEvogfs"
-    "zeTR67Dckm9yv6D9tWsy4uV/Yp9YFZrXnLaY30gQou7lxodPoUUUX1RaOcOrvxjmRM9vX1GNKa7y7YJsAAwxQ3G/"
-    "Qi3Zo4O98KOdVxQtwabmccV3TKOI28D1ADs6GyOEdmceDqrGrSmZF61iFHiYBQtSleSPEAoIVaV7/wYLyVGxtN4v"
-    "SvKVdcxvTfuK9ZlTCHTQA2RJNiNqwOupQykXEF35k/ly8tua3kxczATKQbAPeCdDojdDzmQlsYZ5G11PFdsZmz13"
-    "7HdSXmEbASZgiiiCO8Cs9P0UEnJoYQafRc6u1+V4VNe99wBsoCLyA5wODk1zkpfD5XY891efjpogw2fJn9gvVbJS"
-    "QEmLHwm1DEo0+oW4SbYCk0gcEFy+LiFc4Gj94Nph/oA5CUQCHoUKK4HOz1EH53iFltRKPgUUNSyy6JNiccfAn4CR"
-    "ijDsXmix9R0f7UusxqdYxPBmi+NmOtknHCwAemNP9u/rOanfqXdRQN5xTghpl+tt/Bj+r8gsgAqwOFqYL+hMNpAa"
-    "EInWF5wEwrxyk/ZkRFiAF0QM6KM74DvBnFQnoRPKzMynVcKX56/m3/S5TxgGCIALvMkgF0hT0lEvgR9SErxBqH9m"
-    "QkA9cgJzMuQHYIbCG8eGhlgrQ4JxopIjkfdJuRUz1UWsP7E/qU4p3eU4RVmEX4x9635s3JM4tO1aeWLRrK6Tnow6"
-    "Xe/azqi2IH8TwgBmpz9g7PaZUobSx0Qd9iwo9DcgOun1nlIlbh3kOvBIU0xeg24uWh95JfBRzYP0ndKENp77u+UL"
-    "IRbyBQBFbPQ6GDZlIeMCCax5b2yKed6+t2qng4wQAGTg59DfoLeAjXoj+SfEhSKnsJ1ysFFonaP9d6Lo/03rap1d"
-    "6rbnMIpx7xEI+2JZPRfw9Nn7khmdyxuOVNl7QjszWzJYxP54gk+HB6/32l0emlwYsa8p1PwhsaeVV1qYswv+FLgK"
-    "2PUutBB6vG5J9ojoXT3X68tcJR3J1gspP2Me9u+IC9JSzFdobu4i5ljc88qhug/SPW3Ymo9FE6DSfuyBnEzYQWBw"
-    "2m3fXFRU8QkJyd9VLzOvVv+nsS/vr1/udF6TTwpNJa6qAorN5tjGp1qT4EHL2pLLmdMGyPtr4vfc19gq6MGiROFA"
-    "f09jnrFQubpDUdpkDuvRttk8ERgOmAsMVABoAJqR46RF4kZVaLUnBfq2s27fQirSBDkERMQNx81BhOcncJ+T/xjX"
-    "I2B3TCoGchMQrH7s4VwRnAfeyngQcBG7qzQobg37SlNqoS39P439f3NbXrEh66hmljgZCYesTon0/YK8bbOJwmgv"
-    "y6brgiKqmgmlLeZXIR44BNKre0ymIzn238Uev+9uVvJR0aaGgKKkjH9ndKtyOm4u7LPBK2AEhlyoU1N4/s4Cw3Hl"
-    "7MpNeSOTF3JK4eMgE7XLiRRkuh0rraOP86yy+WhXdC5o6C6rCrwFqQK71YeIEJTMjlWGsse0bHQ+ySJ3ouq/u7Q0"
-    "Fnw2hKZyU0sx3Q4f7SPxxPa+Sug/8bpPRYdkZ4LfhTyBLAEmJ3zGaaCBFg0r22une2TsguAfG7LMyepov9v9nPi3"
-    "2EbMQsiU3LsMAu6BS6xIDxpdeyJjrPTfwX6VUwwLAler43HJ0Cd5SM5x7zGlmTHi4G81+1MhAmFQDZQC1sfUeT2G"
-    "xeWvFUTQ8mtLM27LnreOLn2aPTAwE3oHuKaUeTXAyAXjRbdp22odxu/S2c0fi4amz6QdguwHHkb/iLVDxY6Pkjn+"
-    "gY0h5mP/xEKHubPSXsf4M473V3Ti2FH4ZvjR3A72XOKIMqLmBFfass7ZmW0MmggOASbJlqOyIFMzhwZNxDa68MqB"
-    "jJ0eaQEitdtfDHkPDEnw8b4K0xS0CMiUnyt361ACV4vMGZg1gz0RqgNjNJt9FsMhRV7iatqw6u7URvGBFpvrbPZb"
-    "39XgaOC3yC2IVaDOgPSf2p8p9kr2+0+u3ZtdEYcLuA7uAOpkZtR8iC6LHvwOv6Wcp1nDvd4qLtPneYh9QBqgj1gL"
-    "v9yfg7b5ZWNJpZEx5pAXzb8VB2XuJ70EsgG1aA7iLTjENIx+yOup+47qCLuquckx6h9rVVPUIp0cvDp4cT9jn63y"
-    "9roMxeZamCH4hW58XCiryDPL9qPW7McD5UCjJAGhB5cZtlBzkL85pojeU5fWPjLMkZ4gyEEXUBQ9BT0HEpG7IviU"
-    "l8iNil3FXNQ4PK9Twwhoh8wAHHEu7BNIUm5l8G3cjdIxMauCUxoLLF0JXAoOVAPjhGQ4H4xNPURyIb4W4PiJpANV"
-    "W/WqiAQ/MqgHksU1/bXYuLSVFCvqdQEu4oBva3199lWVw282qAQSRO/hyeCSlNGUNKTH1hreQrlQrU7fIZ3tK+vP"
-    "+6BQCH8FvDLsoS1FooqHR472VdUqDalRf2LvcS7S7YxeFixH3AEPJ4/zPY8OccyTTA1y1g7NmC8ntWdXogsqfKeA"
-    "lcAF+SuMDgo1U0MM3nvK3qjCQwObE4umpj/22tHf0ZzINqQYEpQFpbv70a2MGcLMaWosSE1lUkT9MxMirUJlQ1qy"
-    "jPQW3NXStzHvmZrmR0WXDVvwBf3cbCVvOrQP2JY8nZgD312QxX9AXFnbaTwo/5nwErAA44W34ftBgZEXcBTb5Bwv"
-    "X0pP9xzIb0pOx2QBQcCv7HzoNwCWXEssRQwpqOfvJdvrO7MnxG3AZfRnkAwuDzobeKk75S2AMfMNnAveu2rOpZ/7"
-    "B6/bW7ZflcKfGPQQNgNM07+hNKIu2RMFS6hLK9drh4dvaMoqLEybTP0MWgBcnDd2FWRYzk76CuwIV5dcGljVuNYS"
-    "rrmNxfbX0L/GfsGWQONtFznNhI8VW5JO8GZ5svPt+hgfEIwHCqTZqE/gVoPHT40+VfhVtI32sO7H7HDVanQJQAOe"
-    "ho+FYUFqSjrpELwl/yh3JuFhzR3DCNln/6NACHBYeApyFFga50BBIEEGMhkPj83/Gobx/oWc3I9uGb2zf01GC17C"
-    "HgMf429hV0Bzs0/Qa/ADmDdBJhAiH4g4CUgzw3zNcErxuvAy/M+ugXG6oD+xf25KdRfZ3qTSxSXBDys8KQOlDxse"
-    "5Fn0J1ouu27m/tKV1WytDQtwwl4AzWl0PxO62FUefZX+U+1jwybprfau6mKH3OsQOAH4GLcVPxDemz8r/Cv5QUVp"
-    "YjeP3jK35FXmfi91/5r5KPfFboG+tmwNbfBZVT42fhX7TMtjZ3L2LWRMv/+dfBCOBtsy/H2rkJjiH0TLqMcb7+W1"
-    "Jf2nc9zQ6tGZ71WfRVTfL9hNJU2K1JChnsv2ZYbA9pXV1xwf2gfUMEvM1HHQZ8APmhayGxVYQBYs9B1QfjMOFXK9"
-    "qcWeq5+D+AhYAaVyFWYa9GteMmcdeXUtNHWrdFKjK7smdgpmJyAGnkUcRY6EuLNwjOlekaWQ2OvByEahJTNBCGX3"
-    "Y5/OIvfz+eKkUuIxODQnmOP2OV2em1wt+k9jf9eFbjlYP83AUcqE7S2+ZScLF3furY91b+7St0ypXd0L7d7XcZET"
-    "ge6AuPO+h++njq4dZRLFNbZaS+dbZF1djcMqYMQEeCL0mWoayY7WFkCE+2j7K9xJpRHa1hLX5+xWVAjoBA5HfsOs"
-    "gwlyN4VEE2Flw1RJHFTziiKvjEfQP/h8OM+GHAPKM9H0G1ina6D8Q+DiBreZFv//2Nd/rk0onJtQJdoYchX6Ctip"
-    "nUpaDs+2ekdgKE/LPuiO8WOb2MWzjN/oHyA+4JD4Lz5LYRLze/5DcnTJYc063tsqsfmc5t8Z/YPwOHIxZIF2FaUJ"
-    "SctoE+4OgGb6RceE/pK9NdZbUONHhPaB15IyiEMRr20vpChGUpMr/3uSor9+3OyMJAMQKRimfkc6hlyfP04RF0Ju"
-    "Dij8NSWg/beKQ7aN+FeQdvBNzDlSIxJXII3LYM9tXeJ8/U8s9GfzZd5LakvAkf4quz0OjgmBLMw5R1dgr5XOjDlA"
-    "19Q/zapU0kgfgHhgkew+wgk+Nfr6nUFudFCi3L4XK/fqLfx/B7snYB9YAsyWaBEx4M70N7QbyDFWjmCeL7JALYn2"
-    "DaLmQDPBdmWIdxCCa9ULmn1P1I7POCfpa31eyjWtozohs4G46OOYOxCk1cLdRlhYdVX/ll/Y9MrMV50hpYAGoC9S"
-    "g0gDYUWLBQ997lYS9DfC/zo6Ld8T1xzR6vsbOAKIUhhwm6Et5ozQk97h5cr4N6GZTc6CAym7KAcAHTAtagZyKwjL"
-    "vh20HPNT6XhlJN3aKM+ja1ZSAMhZAKYlELzgYwrdIhO1o2pXMjpiVPNdBzzjF/pIyAtggHY6gQ93FS0TnaAerdqY"
-    "LI0wNlc7bIZLhCWAFjgdEQ5XgHbDbL93qH2OZGm6/56aS0aPfIF3AjgWQErmo55ATmRfCzlIKK3S62IEpa3E0oQc"
-    "I3Zqv1dj+AsR0RCmyczow7eVv4sPDctu2m93JD/DjgcUAEt4A/EAZOSOCun0HloBaFZz5nqG2Y79I4N8zF3Is/gu"
-    "858N2gF6DA4NgzizjwWNxPa5B8d+ZHT2M6jSGB/CRIAC5EYYYPuAr2kwShTiouO1kEWJrvFLdQiP42/0rwpk9HoU"
-    "AWIzv2PO8rpTdjbuDZPSGJxHjcf4RoDpwHzZRORS8HnWsKA+DM09V9lKf1632XRG1opz9uf3UexP/W8wQgv10cLW"
-    "2NeHTfIGKi5pUjhRRK9+XrSDH4Z8BeEZ8Yyj3vVlI9Tf2XsbZ1vi1d8IlwEusIpHgovBGYaBgRpMhwsWPTRwRHVl"
-    "KlvoQxjV3/MK3mnoUgCbLqMNRu4sqY466fuhJioVH/En9m22oNi1EZf8mvr3e6JOSrqLeF24WjSa9rEalnpTtKnF"
-    "46zOKiGjwCSgUzELMwcSZB0aWobfUE5WT2F1eui21qQrmBGACDBH3UFGQ7pyRzJnez0tu6BihfR5Htlea0/7zOif"
-    "/9YoIgoH8TNzWVe8qsp71XdDcpt223OSt2Mk/XG+lHMbMg6QpzwmesPHFa0XvCcSa9emR0bdw2wAUgFvsRcyH8LL"
-    "eRByg3C/4nbiER6v2VW0Mt2CyOjndXvYZJgW5KWN8/VD55a8lUQGPG34IZevvvpfJ0IbQ/44uXLrI4hm+PwiRMRK"
-    "MquOZBwm+xM7o4AomcBg+HtDJwONmm34X6DnLK0hv3ltcj9SzmZsariTu0bdRzjWP4elsiJEAOhjgtFKkAdKjou/"
-    "UMPrzmeck5Gwa4Eo4HPMELQbUp93JoTkPbd8SkIHt72hOq9eE0Y4DdCBfKkSQQdfpV+hjEbscdwSfqIsrPUYtksm"
-    "IdT9Hu7kOKHbAZv+IUEH32WfxNUSRFUrtFPCewjNABVoi5oKOQTg9Wrfu1578vaEAT68MlrcitBn+CWAL/Ao4BbY"
-    "CeyQAz5m+C1rZ+hUnyi3XTuWN4QFBYMAXtQn2ChgUJbN34UaVzo48gfKpAq9csw/9vuMuvc5OUlBEZX4gTB7Liuk"
-    "0meca4xCyXxY428wy+a1d1dFFD3wbYd0AFf1iwhM+NvCK4JvZEJVkBYVPrblacnozO+Y14ARgGiO4ethOwrGC7iU"
-    "G1XR+l8Fg5r9HVMNc3HLAQ4gUZrQ0ZC0vIfM+7hdZetjRweXNUuK2OkJSFk/dr2oCe4Nhphe+sYihxdXi8ooHfX+"
-    "Wd3K/3SO41jLRc2BCgofvgDsNvUFt/sEO1XKM6y7lV+SE6MeNK7Iu5vEQM7oN0dEX0JBIcgcVBAc88gJk173662D"
-    "Z8TIf4MY+6NBXfQ1VB3EO3dbKM/nTeV+lYdXX2PIgcYPgf/BWs/wP8NQ4O7Ue6Qp8KUFa3hvCTuq96bflUwBA/u1"
-    "n+iF0Cv9rHiqtxhWYNrKLMI9Kb+XJOH+p7G/ahnv2plrTO0VHg5Ulot1csnwujVZ9arTzVMdGFNf5+QGdHkD4xNc"
-    "Bl4yvg18iXnj2qEYGuyomZuWExXW2u5alS3AwiDbgDexgfgfYQ5bLq+ThKm8kziVB2kJK3qX7of5GYgGFkR7YU5D"
-    "/M13GWG486VYZWOQwdNpnZL0Ahrcj/10xAL4TeCxcYpvIuKHYh/RKpJPfXFmqOL/sa//XFtVuiL+LJcT/AUsAqam"
-    "tRFvQD1FahGBfLzyJz00fHujxTY2cQitCKwDUAlOr2WQeZYRYRfxPsXP4wjMgKoqo0r274y+juWE3gUM0WicF3RM"
-    "wlP6Xq/qxHVhNnJq1DDGaLI3QQCJBi1aE+krosYuVr4NprT97qDqpF3dDdElr3B8cApwQLmKUArPM/dGDvQraTye"
-    "xYje0Toif27iEoQQHAbMF3fjgqDPzHfEBCqlxZIn+qczqxn2lbwEkokqBgWALOEg+ji4Pm8Q6zH2fHlf/EXml8Zu"
-    "80j5PPyE/pX5UPoMthmoMV6iBiHaSjdJvMhnS44nCtj/DvYK4vj+nidyN0NcwJEkDvULNFI5hHaMsqoKSFgVvoG4"
-    "tH83zZblYgOhrjwE7z5xVsWANJgA6ADcgO4qAQtGAXf5t2BHgNm5A4L2Yq5UPtVe8dtay069Jn/pvQsIAM6ErYdU"
-    "Az2WITwDoc7OTk0l/nX0LSUnVIN5OwK2gBnA2cRLXgholQ3F9sc/K0tQvQx+1gA3N6os5J8APmCLHYpqBHebP9Nn"
-    "owWlkOiD/oPqGozNUgYhFHQAcu1GvBrqWziRX0RYVOGV9J1zvfFB3seEBooYdAPoJBr+K6SnYBRvl/eKclS8gBXZ"
-    "MD7nY8x1r9H9+VEtwSGiQESGwm8q8q29U7iJ/L38vDYiPAzDACcCB+MGee2Bpdr2Cb5TO+q+p9eI37csKVmeIUX2"
-    "M1rgpgSCmQoJzk1kLfEa776hlNHP1a03vpbWo8YCQsAiHY26A4bl7Q5heP1SFhD7nX6t1mBojfwTu7HorHiG30++"
-    "VaASmKkagb4LpufcCNqAflfWLP89oN5tMT0Ws7CW/reTJ4LDpgHrM4aQFsO4JWj+akJz9W+6upBdXmsBNpCpgqGv"
-    "gi7Lema6V3vZmtgs1t6acYYxkb7Ez4AMgCv7kJVgTs6SQDh6tWtWdJ/f3fpL6XihHhHe37MvhwVJAt4knvY6BzHb"
-    "F4ddxr0vFcca6fneH8BZALYfXSY0KreVe4+oqJ6fguAk16zNKIxZQuaBLGB1xFXYaaDQqPGjIHyLOfxDBFdFlLSI"
-    "Op10sD/7LxB2QpsAtSGUooddLfnKL8JecmUreIF/Yo8r+aIi8eNZZdDxQHzyUSIbvtaxRjic4qxeq//MtzW3FPJS"
-    "JxD3A6HAvth56POgjxVk3cbKy24qQ+lFDXuzF8YQMcP7+dXy2C3o1yDWagqZh1OUH4obGfyhIT1XoCrz2Q6EA+Nj"
-    "RRgiJM/6JkTtdbQsKW5Y8O6Gm7kDVQzUH/n9In8BdB5ASU8iB8HFhVB+NSG3iqa7y9uHvA/kAN2xK3AGWKY1VFDi"
-    "+0M/31sZ6WkhFp8zFMOyAX+AIxyNWNufnecFBGHaXSOl7X6v6wIyM+WLYRH9PQ8RzIO9ARTG333tyE/OeeId1NW1"
-    "79Ib//Hey0viFXeYD31fgImAV8IHjAZyNvc5MwlHdguifw701PxuuCxtxZb19zNCMhN+GAjJbKLVIY4WXxfuI52v"
-    "vKp5xnZhngJiYKo6HAODVFkxoQC+pPJMwteQ93XZed1xJ3Dj+p9Ni7LA3wCeDA21GlnmCI54Q84t06hOsm5AmP3a"
-    "HM4i6DSgW1/qcx86NE/DGo9bUvp79NGAdvITMA/Yp1IhFkAweZdCDv/XbjWzfQv/+Jut3aTvkJkAQ3cSp4UBuf17"
-    "2Oda6x/frY1z3Vd4Ant8+JB64IRwI5YAGeoOEVxA7ag4q/uV9UccMVP+EesqglOOR60O+9xfSTWkP6RMROwtXhTZ"
-    "TjtT/SjlvnBby9KS+aYy6gowFqAm+nlBob/lo8LyvD+VJ6odrC7PUeu0xDTMkf41/1si0SsamlgwPfww4VXlzMSa"
-    "sC2eC7YxSeN8tgBMwEu1DH0d5Fr9WFjcs7L3MUIG1+NtFSfOhv+x5ltFIPw2MDtjLQVAZBb5898RfGomprwV/qdz"
-    "XEzuvIh42o/ev/bX0UtTzhDXwl7ZhnH4eJ6bFXOdvqBmgWGsdDaiut9DhZSN+AaIjVTfPoTRsYaX5bO26k3SQ64I"
-    "9gcnj4uJR20EWSYyY6PX9XKDrI5hqiGnX1H2wf74prUm/BF0ItCZfImwEfYkP4aT4CN3r4jbyrwD+AA4gMWcDykD"
-    "VmpueT2GMK0W5mfMi9IBihMB/2nsl+oXmvckFseMoE7DhFrfcnoI2op9msm8tw3J5ky1tM1QXmv1CXgJqQK+aKcQ"
-    "foHl2Xn9+UJdcVudGoppirAv1/ei9vfH6jj1BNxY6Or812FxBEf5KjUu9IzHZlunVXpN7485MvlyZD1ozV7pz0Rd"
-    "cL6RPPDd2bAo5wfVJtgfvM4iHAZbAXQYAsinYX2Fb3hfvXk191Iswv/Hvv6DtUwKUTSJiTLVS0ghHwtlurOSh+X7"
-    "crYkddayChEmdmO165SluAPb9Knm52RCVGDYNI2RrfZ1Zz6XrGVxCx4n3hCXlk40dqseV8rz2pOftgys2eSakTlA"
-    "aRRw07xFjuDVZn5sc7jBMSW5RD6s7FvWQE1YtcWWkMZpDqx8XbRQM4KT7cdKzxZ9Y9zOD9UcFe0rfWz8pMJVT7XG"
-    "pX6pMzrWZslbd9SccqE4jd5c5GrJOt9fsce0yZwwakOOST4vJL1wRdJDcVzp8YyPsR3104u5OROjhtMC8XL5Vv+v"
-    "+AuJqtBL5LGZfVHWYCC/U13PJ5TEpgyX9VXprdNTdiQPFi4KPpPFlu9k73UcSR4rD6yEW/T6YXVXi8RZvzVeLD1k"
-    "VXSs8aTULEreEDmP45s0lrPKd0emVfqNNbcgOOmq+MfSQ8YK1YnK3y1hyZ+b91elleQlruVfCTYrmoKmEQbreNwn"
-    "tJIcZLQfu6QQo70c6V16ImNw3LDGoaUQ25ykBP6QwNbM09JK9rPCDF239H5ZSvZ3zeGaTXZYxi/1r0q+53q1ldbF"
-    "lDVEXaZ2Y78po4NGesekiMOT/ZxmrjKf4+dg6s2SsW54Zqea2rCjZGtucxTHv7+al0L8D+DbEvayXpHCjWXikfSJ"
-    "VrkqOvyw47oeLl1V/cJ2LG23ZXrCyag9tirNkqhF7rysxsS5NfQCsfFLwztnj4XSHFvRW3in83oLppGY+zTeV/LA"
-    "xJTLwg5YlKpLAkVxWupWhbRcmCNJ2lSdmr8i/Xxrdp2u7FH6Rfle/jQpz1/ovU6DCx1NGWFiRU0Kvm3bo24S7Cpu"
-    "TumVX6wfVyIyjzZfUPOFCfmDtahof/fGzDNJYbVxhS9M5xoRpVvyQpvvlZntHR3BTZtq4Gk8GZ4jziqQrWOrLYfj"
-    "SvhnirekuBQC92cTTFNWfbNgV0Zuc0slzfE46ldfPh4rD/f/GV+Y+JHdR1lkXBwpCI6ztMVKeb/ba7UrI8NrdtlP"
-    "GR+0bmgcWr25ubD293JMndL5uy3Bk+QmFCz3+FVMsV9quV4V5lrRU90l7kA5/Q0HYtvrJ5RcMs9tjq0OcL1u/Vr3"
-    "sXx9W3GDsepwe5XHXS3qbmp/0DxDsTt4FZGc2Bi21e9JKk/IZ5zNPacczzMW7E9aHnXXudxwJvaiB1l+vEBY+ca+"
-    "0vyhtdBjqE9r5lZsc/7Q+quz2cZpPltkNpMbfAuZ5v1de1qDmvD5s+JCxQuLetOCVMdqzhZ0Zt2qn+I8YjnY6qoa"
-    "XnyxnePRVcV3Lmm+Vn8+KTriWcDmxITweFpRBkI2m3k7TxMzntdclK8liqhFG/UXJJ9rCvKrDf+bY12tbrEghzHL"
-    "sFf8iEEqZGkLosrLn2RrEkW1OwtoxtrG6a4ey9H2W43U6vZkmWQ7N189j9lEnpNhELcxVHYfzQFhQ2m5EaayVs3N"
-    "G5rc2rytcpAj01SpnCYYngRwjf5XM3dKt4UgC88ltUaOLdUbd8WBlQ7zda2ocZIrMi8iicurDrAkb+ffDZRY41V7"
-    "+TUurAEeU1lZbF6prahVFdw2mJo3VOwoHBjq530YeUX4nLQGvSx+WXALIdUkiHTT1faZ8RrBBOe5tPnRKTXj8knp"
-    "8yLKKAexB4XvyVsw7pimwEv466nV4YtoCPP+aN9QZOERjUN4psyTtSN+kCaBNz0QkfE08jCzruilziitr9ie26mV"
-    "11GKDplWNAaVzs+b0q5rVFTlJi4RNLGS1WbmJNLWDKOYyhidT0mYFZHiKjfsjNlWQTKv0xY3LSs/W1CfSBalsEdL"
-    "u/x/9M5LOsY+TfVkn5ctD4EXipM84vGuU4YLMRX1w4ozc07qGBGpwZHph8QEFt++SNMkvuDebXqrDq6h5dek1dZz"
-    "iiOyPS246vSSsLBAAgb9TvyeQsc+1hSGYMl9WVXS3cyigoOaBmGf802aXoGoWZB/OH2yMJn2FY8Vkila7JgYdNB4"
-    "74Q0KT/Zj2kmKHaGrirISYwS4Ss0ufuSSOlvo0azd2VFKfx5hJKTaZNjJlWVWIen7qg/W3ww57pnWlmEfX/HiqY9"
-    "tSatlzAgZKluJm+B/9wcP8V9jqPog84iXeuuyFwQ31v1a15aSnZzWaXW8UhsD3pE3hAxmHwaE66uDrYQ+zI+i6x0"
-    "qm2N6nl4a/H35BkyT92dot6s9lSH5DzHk5sUR44glhZkXI2LqH5u/SV1e31fyencCk9AWXb+0nZF47HKPvnBAB/v"
-    "bar3jMFEcfq+CEYQP48T+5GrduQl58pWuk8aJ6hM9dJiSs4MXgbpEfonEYuixBpUuxhI4qn0KGFI0EXzeaUt7FjB"
-    "9cSF4k2VLy2O5K2VRvPkxPfFIUYvTb17aea8hJVVldaRKYvrNxd75YxqWlWeYL/Vtbytuemm1azyEghcV4074w0V"
-    "i83fkqk1xIJ3Rm79luKJuT80His9bnN1QJp+rdkpn0cfTPKJfcrII43VX+dZ/BXZBXIYu8m+TnNe1FuSnHZTcaXB"
-    "7lqRt9KhN5zSnLTAE/3kdQX0xAEikzsyY0+crNYnf25qfUOKa2RuRUevx1NdmTE73EM7aMvVnBDby8m5v+n2VXfZ"
-    "fzNeq7vmCMw53XirdKjlZaPGnWHD8X2JZ9FkKZ82EueX0MY8TWxLTeK/8n+cDYl+GFpq3xDPFSIq5Ll3k/43x7r3"
-    "CZE8e6CX1skN9fPkL1CvFijKvDLfqWS1YjslvaBxQElpTlQbpY7qXqI9KG5jNymGBN7wWZRay8cH7LJCVJTwzc79"
-    "ae7o1+XlOT2a7IbpJbhchW5zRF/wQ8X3wDYfVso3Hs7vRzNbOZj9rnBg4g7hBOfHtAnR16oW5hUl4+PSg9GkF5qh"
-    "oacpl7KTZPtZix2h+u6oBWXvMvPjC2tn5U9Oe9aY7S62VvB/JqEwmwTviGdRWXGooJ346eldApN/jfVF7B5ud5FV"
-    "Z5Lsr+TnPIg/wVyN5cDPs0DcTNiYSBY5FM3Svgou8bma9VJCZZCsGdEaxocSVvJ88cqEKVxLQFfKz4LIIGhBZKKf"
-    "GF5OzH6XYK4NKnhvIDVudEabsW28uha3V+INwVtWoOJ7wDFvbEpo+CK/HMsLZULYdMcpPVq6zD3bBFUH1h9yILJr"
-    "4gfx3cE60WtKIG6FOjH4FeFAhl2EC1piFcXVc2WOJTp41NxKnaVPNz+5MGIafY9ewI8OVNlS1Mf5O0phGUdifqn6"
-    "ZJHrcLXygvAMZRO83Jmv5iWTXJjXQhplCBaihjFcPhrDfYEr4Jh1fNyNsJaiubqZ4jeVU3NqtO94neTn2MNsDh6L"
-    "yI6SUPrQyCRViIcYljU/cirdnr9UMSok2umbppDNSt4vfMTcaPwmPcL2Lj6fQldcrPxiGZncXH/Wwc8e5Vnk3mBT"
-    "t09qoFWuS/iJN49eHh/GiieTjS7xDfoVW2C8VfC5xJLGUiSVL8peopndUOtcbb7BuUt+7iXmzfP5HQmLXR7o7f05"
-    "jSqo8++yHFGWcQqK1NpLYr8qeN5X/e9pK6Ly2dsMgqgDrDYHUi+T4iuCzSLdltqOQn/TtkZv1xLLixZKDc7l5r71"
-    "HoEyCWeRdJjgxPNMPemp6UAkMphmrVcLBWMcw1LyZO6K4lyZdjA7wPs3REs4lnAHSVJQ/L/hBmi3sLmUFiNKrAiK"
-    "svykGB+aVDww+aF0XYFan6KA22Yl8qS+JYtSOxRBlW392cq7LqCovxpvDHRdMas7Gj3bqh9kJSnSw9w5rUoRT253"
-    "Jj4Tj3W+SUfGLi8/nvM46UV1Sr5vuqPZU+ly8CImURS4pRIh7QjuUsI+1kXS0wyqWE/3sRriYngbihS63KicGrV9"
-    "v+GkyRSXGxmfnhqVzB5lO6M6yJ/gUhhyFTNqH1lHJ3+oo5YkmY41w6oOFS+OLA6c5NOjXcS55ZecgYlayjxm+13t"
-    "FvjYaQmPhUp3c8aQ6HuVuyxlup8DWlFV0IthGfgfEAHyo7TZuF2a+SHTSN8yZot6grbkfpKvC/1WfC35gOx/c6xr"
-    "UTCYJeRw9VemjlRq/aTsYu9xp2UsVRyvnWcbp0c1BhR/NlFahBX37EjV3dAzvlDRbdIcdLGmKbjXpyt7SCSSvsV+"
-    "Pn4H74eSz/rXkbPKlpluxZr4q0kT0GO4P+DvwX+STfXtwNTqZSFin0U5F4W2QC9zuXIwU17g0bWJTIIzRAPaoyQG"
-    "TMMbsvKiaIyrJRU6nHBHJSb3VcLNmoEFweqFjSPdPVkQthiTBdsYrMAugZ6XoqgDUHWG8VHXaYez50urWW3F3obh"
-    "glVVZvOtKD/KEVQidBs9EhUHvcG+4LMb3pc8LUSEPpC6hWUnlOnLOBLSH+f/Zso8BYmBJ5mSJrOHUX3tc9S7wy+4"
-    "habJcUNrWm2jU5rrI4oHZ53sr7WjigJVPWysf654FTkOkxR/nLHJR2KcJNwSgLSGx9zkbCwK1LaIW8onZA9KwIsb"
-    "abO8nrExeB7ikWQQ5RZ6XtL6EF/iQNNA0eKAJ3lLlSHsdcX79EKJOPY9Q0yMT/wW+ozyyiyXe4ecLclKMcm9K6qy"
-    "8OreOlr+G52k6b7ze3Yup8PnPTIu7APeG3kjWuDXjDMafEWnA3JyU2JF3LmONAUQ3OCcntWu+4G+FW9GbAlwoyoh"
-    "04V5voW4jfrrwQifHTmXQg4ROIUW/XLOZAct/agoTJUeEk09lOIUTAmcUVSm64siVE7IfZ40s85aFJLZ5IG46/Ii"
-    "26LrBrvPKH4OzqEuk670zcat0EVyzlD8cz/JhCFrCn9PnCKqduUaflKSai7np6dPDNtP+I7OZNd6bYb3yFp9ldh8"
-    "3Vb2XnJRVn1UJiPcNjDuPRcsXWFYESNNFIaNpHHSq4UDg2QOS1KgOLvslgmW4FudkUdL/lILcSw2TfBgSrNsqcxh"
-    "eBRiFq+M6ECPi09gBBBGZqRGPPKjWnTRHwNl1sqET5xF9iv6ibxW+iLUEQiDgcEKYcXcaz4dyEmydQHNuJ+TYRwJ"
-    "MdIUIXzoW2aaJZ7l15s5Xz4yTGL0lkBCuovitcPFj8oDskviA2uz7O3ppMY7JYuzDW3IOmepJqGaMZKwJpHEvk1J"
-    "MzaIefQU2ygVN1xc0pxCkY1wwzKHq5rrPEWhmSI2zTsIeTjiK/EM6nYsLOgJnpL6nZdDe5zDky9jqezhCQZBZ/mu"
-    "7G0aV+rcSD37oep+SIkv1LxQZgsOcbWmrIxiVXnnHIuTV0hyf0kkN8pcHdZlEeepFNxrQYRPBYKrWEkLQP+mG8zh"
-    "UjcZ70s29e+7vPjnnLduccr1yJ9J6xESaBfjIeYCtIC/zisPNkqxgjoc8yp+VvAAr3fJeI6CuMa0KMr1v/q8rrVz"
-    "c9v99ADFEmoq4SqILaQZD8WNxmGq+CUhmiMKB4lPeAKoU44p7oXNpN/H9CBXgB3k7T4nvTneTWAHYPun/4GUCuuJ"
-    "D677P/PILDM=")
+    "eNrsvGdUYtm2Nrw3OYkSxQSCgiAIKEFQQVHAhGACQVQUxBwx58qxK+eqrhy7qrpCV+yKVu7KOedc3ZVzrn7t2+fe0Wf0"
+    "+fGO74zz57vv2GMvdM6515rP2mvN+cyFw8CkHlWrFBEpF42J2B0uZQ9lfibY8d9QPll1yv2S9WKCKE4wKBzFGR+M9wnF"
+    "mOA7rE/Nj7hfOC/ZSvZ25pOAU34VXr7Y9bC3KWeSDsaPkifIlknuRK7jWRj1OCIyClyWKTJ4JY2NN0XvjhzNJQRupx1F"
+    "z0ewwcvWPslEYYJgazgt7CSbx7oauBL/DCWFL6y4zvQJPkKn0lUBh/wP0zhkEfYc/AT0iZNkFEWiRKsiZvHLeFNCq4Pf"
+    "Eovw91DLi+brtyZpVEAcTElTTIjawmDgRyGEkNHOypT2pJ0J3jEkUXB4XHC9PwX3GYGAbjf+mtYhwIVf4p4MmxHKpPcF"
+    "zMPNR2+A8PKd6Zuj70hrJBmRPNEZXgZ7Iem+lw55uXxGmdW/2Q/it4smp6oJLT5fUZuRKyEsS3j2dN3WOFfsF2Vf9FP+"
+    "NtZp/Ho0DEIt6LWNjZ8Uh1IEyQ7wZ/jH00ZhniMjwYPGPcmDkiSKZfJx0jdRZkEgHcDFIsvBtw5omjZZpLodG6EMVLyR"
+    "tAWdxaUhVoJfi77aSnWU2CVKpGKI7Ab/LiMRPwTzDHKjZEXBufz7apN6nur3uPXy0b7p6FOwF0BL4aU8Wg5f+0b9q7JA"
+    "lhiWF/A75iMiALxhnJU2TaNW98hMQglnRuA0v0/obEQIuDT/YBpN90SzJGawUMPLZV4L5ONsiMdggSO2UBy7TlElbY3c"
+    "FrbUfx5Nij2A+gz+aL6ctcNg0YxQjVZ+lTHCLjNO4gqRdFDtXODosb22PEhiRI/mzPSG4YfDD0LXAt1t1ppGJypsCvU9"
+    "GtpGq5pfqAldRB2Bjmt8l9uTViY9zz4CD6jj5J7X4lWbw0mE6I4sc05ytyQsrNJ7ZkuCNdaEj13Av41KaFuRuzhprPhm"
+    "GNb7caM2z2x6EwOL0KBmha1g3gjcF9DrX0HLoj4lriZMw4Qgw6AX83+nLqbmU4nUF6SlpEySkrAbNxN7DDrWprOhfW55"
+    "r/Ke6v3KawjWiT2HvAm9C/k5bUvq0hSvoE8BgwPm+7+hOHxqUMPhJPCabZpNbqPbLgTmUI8QccQfCUMRAGwaeDLrcdqU"
+    "tIo0he6u11ivZ7iX2GSECH4FWJiyJzk4Pl19JGZSTIcPCnMVvRi6EnQDqzKIGb06/6RDid2JpxIU+B+9MlBhUAmIyFqc"
+    "diI1WtubNDlxuKY+4b6PAX0aWQxOlQ2KmisyCJ0RbMHQcE1YJzvJ24zOgqii4yVEYVAETvBLeCpvPdsvNIdqh9dAelX7"
+    "ZXcjx4mniyZFzBHUhgu5l/xzaJugSzI1aZN0DboSnUznr9urrdS2Jdo0rHhbniL3+4yhBjBtYcpx3aXE8ZoxkV8jUrk1"
+    "TEPdjqjlkehIqXh9RGSETPAjr4A5llFBvYUrr/5aJYo8I3aIeWK+UMN/FT6PncAczDjsu9oNlhKdW1MUyfF6vW6OWqV4"
+    "wU/kLQ4dwxxeg6q+VGGosMiWiueHk3gt3PX0a4Fm/w80RLWve72L4XqQPyKiTIDkh4RLGRcCq2mXKOLa+TXXXE7XvkJ6"
+    "YfRARNoprGFHhHQET6WLy1a71xYtL7hob7Z/tLXIx8n6uQXsUlYYY3IF3DWnJKDwsn1D/kObKU8oZ3HnsrWMLv8Cy42c"
+    "T0ZXxrv0X9K4qaW67CSq6G54behd+gPLu+wPxsKMXekRafaUHu0dTWekNYwVQgwYZ1VZFhqRGZvT56edTTmgfZIYKkGI"
+    "maGjgrY2MWvCXeucec53JSNLBhVfctyy19oeWkbhtbL8wBT0zNTGqGE+VNPgEL6P1bZQDg0gJcUL4cFrfF+Qqr0duGko"
+    "JxRbcj23Xh3DLWRF0O/73vVuxV6p4hs+aj+IVnANwfGBwX5jIbNbOOX5RcOEr9lyxg5aOkmFuBOdIlzNBsk7CSPx63F0"
+    "zC+w9yXfFzzKLKbvD9jm9zO1jTgMP7jiZMFP1uDg3YEmmobaST4NGd9Z3EZuifHpwj/ANWB9MW5oXuR5/hX2EFwT9ih6"
+    "PyoXSYZtdO9yPsy/RFxGmOtzEZ+Iq8AcqiA4Sx1vvZPwR7ETMcvQRMjsbm1XZCcLUQRfCQNhbdCNIJx0gDDBJxC8D0wD"
+    "BgORZT+VbnTsh7Aha8Bx4NGqJ25h6X1IEOQpsA1Q9sR013QlgA+AGUAFAHbOLcbaI43mUBPpWM9HDyl/jJmpTCQW92Q1"
+    "LWmMyuJJf2CXVO9LHZw0TOkXeg79c52+4mRxZt7igPFeUZ319Th7vmVr/BlSau9vzWrPWnerUh6S39VWj66tyj4kPhT8"
+    "uItbryzKsgqiK73kfVWNLbW9Lj+VmKXp5dYXug2FrZoTrMe9z+s6qqML18aDvLWe/VWzLIQkPwmN9VN7dpo6eXw8J+QE"
+    "aVvvksJLej/dVukicmBvhfNWybRknmxP2OwusvZXzWBVsfBndGMPprav+mHFj7xvlKedB8vSCzfbv+rKAw/3ZlVnVgW4"
+    "KZqGsHHdw4t/ciBy2+LO8gN6Sp2z7TPyTqnH4Cf3EV2UEkpBnuZm6LTeK8VNdpPldWJZcHkf05lZLLbJtPciUz3acleu"
+    "n3a49EJIWdlxg0Qy2+//L5+zul5l4MKWkuv7ZrilWed9p/eClc7sVeq+3ilad3QA6mHfvOZFbJC0v29MXUB2Kutq3xdP"
+    "VrJC4OrLLCdn3I4d3bfHPT1D4HW6z1F1ywgXvO7VViByN7F/7CNUMbI2xmW2G6rQWeOi+U6CKA/OAOuBTMAApABaIAGI"
+    "AxSAFBADAuBu8vEQP2ICwgZpAf3AfcBUoAMoBYqBAsAK5AJvsqdy7/oMgi8G3wJbgTbAAdiBPCAHMAHpQDIwmWqBPwAP"
+    "/IteuUAosCBO7k/zbkBtgXdBh0B2g62gGPwCnAL6gbXAZKBOn83PCICSFuAXob8g5kIbIC7wA7BmQNMA1ABA1MDF9MkM"
+    "xfxxY6MHIfUZG7V/3ETmt4CqyoicP+5CtV/Y69of3J8r9CUfjUb7KFNIisD4M3fAlf+56MZBeZ/F6cr/+o04CmIH/t4O"
+    "0gAZg+SDtIMyBsX93/y8W/VzXKzzr6MMlUG5u9P/KjGJ+1RnM7ZkvEr5b0m0KERUp83TrdP9t2Q+60LchYTbMd9S1Ylf"
+    "Mv+QVLL2CDfINiWwYvpTqFl/SD6SlQmVykESbxGgmCnJt84p/J4+XwjPuqOWR33TQmJ5aau9J4euCh+Y+gSF6rnRGjec"
+    "O0LwV0/+vPbEgpGLc/4qmSQu5NP1f5VEidNEH5M2q3b/j3QO7w2PE23RvNb8t6SN+yTiRqJX3JQkUuRhyR+SUqaYuyUm"
+    "UL5DSlaUyv+QdPgvE++MYUnCot1xV8KbYl8lhtFCBGLxzzHrpD3aLWIldzueRLuUs1KdGd8rDAzNj3Kln2P/3efLslui"
+    "q7q/SkZE4qSdcX+VqGQEwUtZtrBe9t+SX0QponpRhuzV/zw5Mgoi2BB7XmxS3Az1/6+5echrDb0ZuVnEE5oi5Ul/SF6E"
+    "zuJ74l/Lxisx8lTmQ1WKKoL2E10SvSKqQFxie5CIwdQzxlDnq7NjqPIDEml0elxxYm/Y330WRR4VXhH/VWIVjBaOD/2r"
+    "5JV4dwRPtpurifxviStyvUjGf8RN/x9sAVGnRSwBjztbsoY77b/6Cw7Lph/gbeVvjNHz30r/kKgFK7k/R+8U+0adEegj"
+    "FNL9lq2MsfRA0XzWY9HK/Ei7C31UKvZfw3NJzop0sdT456KzsvKkv/s8A/qlYl1mVvhu8VqyH+jvfC65hfG13UCPheyH"
+    "ve6os75Ql0TH+T0E7ldlKo9j/nzmM+Zl1Wjlq5ASLisgFqJupGmP4v/RX8yD9vGu5CCzeRdsIrCy800iBF3X96Y6D1ZQ"
+    "PrZvdseENiDBbL6M/qsHheg651zDS6GvUEd9DRld9ZtyFOFPzRXoufZ4S1zsGP4QciO4sy4/IfkfGhf057zBSn8Giv2O"
+    "eAkcXd+cmP4PzWzfx12p2ZNFI6LH+6uhkVW7BVFefT1IXiicS9P2NRYqg8s4o1ELgL96kI2bWjAsY41kS8x5hhH1a32Z"
+    "5lDAnxo+1NlUnytTZkVaaXgotfmtfmfQn5ppYJylTnY1eERwBSEP0t+4OVHj+6dGgkI1NmZHy7dFPQ+dB/9SfVt+zOdd"
+    "E0b4FefymdTUGjPS/6hvCqkH/KsHH6lb3CPzbsTG6qK4DfjyllVZV4V/akqgsPaZzgf6IwkzmfsQ9BZ9ru4fKwcCEh35"
+    "ccuYI0LGerdAJnr2GbL/sSZTYR/a6NkCtSy6hQGDn6qVawYxXrUf1aOCjsO8HQtEAElK2oxJ/icPtna/7NK2364Z31vS"
+    "s7R9dF1W08oabn5Q8sT2B54fSw7rN7ShW89W4wt/74H27GxXlfOdD/IzUgpk8a1AQ1HhfFVmw80aU+EonbRnbdfKlq3W"
+    "ntxww27Fq5BRTdaaQ3nno465IYVl+rG8mK4HbVm1J5JGSz6Fa/1fY/tcL81bpDcIDb0fekTdR9o8ZcK+6t7rnZCmCc6N"
+    "Lab6AuezLJMY0TGtCeNenDNZFtLN6ApqP1x/03yoN7l3U9ec5vFFcsfEvKmpNrnT/1nLvXps8ew0CzOiVdf8fR29OE+z"
+    "t+do97l2Rs1WQ2l6VkKb+HnQfK9wz5CqrLxR6nMB72s3VEIcL9IWsru78juWNh60HxBt43GYvdTNWBD2tKTe7BaeoTbD"
+    "tvTiezd0oTrim34qWd/L6cnoHFN1vDA2w+RJqZ5txaQ9idkcer+jueVNTYl5vF7MJXfld0raBjXCyg6l1/cu7vnc9bWF"
+    "X7nG6Cj6znJL/0C+MmwBvqf9cBOl0i8/NiWUuq1V0OJXN9UFZCIk3r0Xuq93pjQvKX2YKNf5q4oER+gw4iekuqGuHG7t"
+    "1LEiNvkUlo913sv0T3gYFkZ63/mitacBU7IlJYhZw5waMJXwI2YT/CTkt8JlJpF0DW0lJgpk99F7v+s637agsbnignFc"
+    "r67Hv4tV+zH/mXF57NDqW851GeTE3ZHDWFzyp7YGD6myImWXYrJokG9Oj71b3FnW4qwdX3REGta3oHd6D9jWVO1t64+d"
+    "UpyQ25bUImlmvSBzkJ9a++tPO6t1b5W3hLfQKzvlHczWipoWe3riTsa83jM9md2KltEufurT8ANpYxIkkVOCzxEj0aOh"
+    "PeUOm0k/jL2aeBf1AmzwPK7Z7Yw3rYrmBqtwY7pVHcqmx0WipMk8JgHJjPJnENwYb0QZdDkoKaAbnBE/oaugBwYS4JHe"
+    "rT0L2z83PiovLFqRcy3Rv/tge1pzYFVSXGbUOA4hkNtqbeqvyC+8aayKxUfNZLrbbtS/dXpZckV9Ie8DhlKsnfvaDteP"
+    "Lp9glxoeKb+ENvbCu/kdrGZpnj4pIsxJ+VYmKF5vDNZdku/hrKfFe7V2GJpmV2ZZh3IRIVhGKPJ507qGqgqcXZ+SF5Uf"
+    "gMLv7zrSWuz5Vs3OSVXa/GdhETn0tK2xz4QXg/GUY7izcHNZa35p0q7wAvwU5DxoHBBYHV16LuuYZhmv3HcI+jW0unVE"
+    "XWH5lsJl8RrOVvwB2Db2Y8YXCsubh4lEFsMXQV5ZobHLguKJG+FXILVgKtDXw+se3nikCmGdrPte/l2oxF/SVFY223bc"
+    "MBCRJGWc2X7HcX41Z8reWC+k12t2KVOFz/0E+L/bRHX5t5lrFpQszMJrOyUfGBu8/24z3wW3yRJPSJ+EX2FNppEJO6F/"
+    "t+lvWdCwriw83526NyaIjSDMRvzdhpBl0ndLrvGcTEFAAeW613jI320uV/SVmM2f9QTpz8xLPvmI/f/CZk7EV7Yn4B0p"
+    "D/8EOxLzPVLwL/xp67X3Enp+6FjRJC6/mT5YeT7MP6CweVuFb2Fz1mmdKOY74a8sve9i7Jb2uPbxzXX1Vy1l8dMFoym9"
+    "Ppeg/8oupcfQvaVpWyU132HQxSwIXxLQS/xXdhNbPjaOt2tVsWGhzBLacGIYoRT5r+yCW9CNfaUPLaC+VD6OfdD3rNd2"
+    "xL+ym5FvNG2KeSU8y8tiP2S0BHoF/AL5V3YX3B5HclZdIifyCOsC2eM1HXHiX9otF5VxGYEU32qit/cZ3D3sJOxB4F/Z"
+    "5cQMxhfjwuHDkJ3QRfQn+LGCzZhTKBtogU0BEnFt0FWVU2j3UTzYXpgTIsZ9hfUbc0lcFAOyHLke3Am3gYiOHUYlqg32"
+    "IygAcxHLoXnyQ6w4eC4IwMaCt6GvAHhHYOtEZDZsHdQCdEEOAalpbN5ySDkopb4gTvNaAyR1jPQMQWig0eAcoBRsA8zm"
+    "VeF/vStiE7B+uH2w24hfIFWUIxg6jYygIbYBS6FDgR5UFKRDS8b+CF8I6YUYwQYkDGrzQyHzEQSQAbsHJEPXAKtbJgdd"
+    "gajAwUAqkA/5BFyPe0Kiw64A98F8QA89DjzpErVdR2ZAxZB0AAeZBWwXLPST4GuQg71ARBhuEoLVe6H9LsILug8UAPXI"
+    "9r/5NyzyCNIP9QTiRsyCIHyqkCMooxH7oZOAp9AXQBQcAfYpH6I4sDtgISQM3AtLgZCpI5BB0JXACkg/sBNSARzJsONf"
+    "gGcANxAGnAC3AN2BTnQeJAtggiYgGTYCQLbMkUogk4E1IAe4AJ0JiMJM+GXI6eBezDigH7UXsHUf8WxH2qFCEAc0I3//"
+    "m38MLgsRBCOAY2BrQQMaAw0gLYBZIFzADckE2JBEQCTYiYiEBoHlkBOAN5wHySdnIZ5ABgHzIXsAPCQSeBM5GMWGrAK2"
+    "A2rgAPQ2OIN2HpUFRgBxkLnA97AXwM8MEF06EKcEoBi4Cn8L7PJ5DquAJAE42ErgV6gC2Gaqp8+F94EjABwgQ1/7m3/q"
+    "BnphqrFIeRbbBT1mfON3F+VvHxIxlFpQflV7W1DSyi8/bNOJ1qCSoV4Zb/3SMLzi7XI5o6P6coYi+kvzFVd57kBhmwAE"
+    "/39rRyU6yM0oeS4+ZJz3gYoTqVjJ6Ppp9p2pz5v3lm2yVkuS0YtgEenNfpfQEEdidEIwtXFW3mxNdOfj+mb3yLBt8EQI"
+    "SY+meqNHOq7EfAiNap7iwBuBzv11L1xruD9hm+E9+kGBd7yeu01p/tFP2jorp9v/OrqzfH/87+EA5wSMDS7RXvP5ALtm"
+    "LeLM8+kqY6kloULPClugblhwD/Q18F4D866FqW3LOSd8BpdtU7WEPKu/nLMj7t/B7ht5AimCFOltxAdwvYMTWU27V6HS"
+    "csJz6/dkk2IuBj+EbAe8o8sxSqjAGshLIY+uep0cL/6uBe2i5sxmhEO3ALHRQuwP0Bo7TiTzu1l7x5StjGlhuw5kLw+c"
+    "B+WD0+QzvDLgoc7M2Esh6zxHCpS6v46eUrfCakodF5gCj4KExDcQ5yEB8xbOz6Svpc0J57m7W0rdFy3xzHNQL9BH/QrX"
+    "AU3LYtHXYMkld+Qw+mHPlsLO9ISwcbA2cKIuhDgL/tWm5j0iFpdzEz9zFzW3lnRmVooLUT2Qdak1FBuywn6E/4FysmKM"
+    "bnDEtJZDrsM5RSwifAT4OO4K9hkEbpwf+BrzuCBYctV/VO3UnE8qJvMoNBXcow7Di2Frzd9CjnrvKEuLf86e1FpUdiUP"
+    "T2sBawFn9A3UWEi3qTQAguU5D8o7GcnNVcUHTDh6P2QH8ECZibkHQWWV09Vei53hCh+muWlD4dP0P7FXV/SoY8NjGFyY"
+    "BUxU5/isQ0y3nONMJG1wJ6lvs41NwkJcOjEwFFIKBEV3opmQb8arfsdRgY4gscn3Xm23yapIIk8fiGjnZT0YKnRPTgqz"
+    "FL/AdTjmF6a74YX5YsJV/x+gfmB8vNmnFi6xhob9Rsh0x6i+hAxrHGL1157yfwA2AO+jtiKfgE8zevxk6GFFnaK3VFw1"
+    "JdVLLKClgXbgOyESsRqsNX0f8BLjVbRcuIC6qM6UOTYunJIDpgDDBL8jXoB9xrQgFxZVkCR84VtWczn9nJxHYYLRQJXA"
+    "F9ED9mby6HVYbslXuV/Q3to1GfHyP7FPqgrNa05bzG8kCFF3c+PDp9Iiii8orZwR1Z8N30fPb19RjSmu8u2C/AQYYobh"
+    "foVasscEe+HHOC8rWoJNzeOLb5tGE7eC6wF2dDZGCO3OPBhUjVtTMi9axSjwMAsWpCrJHyAUEKpK9/4NFpKjYmm9n5fk"
+    "K+uYX5v2FOszpxLooAfIkmxC1IDXUodRziG68qfw5eQ3Nb2ZuJiJlP1gP/BWhkRvgpzKSmIN9za6nih+Zmzy3LbfTnmJ"
+    "bQSYgCmiCO4As9L3UkjIYYUZfBY5u16X41Fd894FsIGKyPdwOjgszUleDpfb8dxffTpqggyfJH9iv1jJSgElLX4k1DIo"
+    "0egX4ibZCkwicUBw+bqEcIGj9b1rm/k95jgQCXgUKqwEOj9HHZzjFVpSK/kYUNSwyKJPisUdAX8ERinCsLuhxda3fLQv"
+    "sRqfYhHDmy2OG+lkn3CwAOiNPT6wr79P/Ua9gwLyjnJCSDtcb+LH8n9FZgFUgMXRwnxBZ7KB1IBItD7nJBDmlZu0xyPC"
+    "ArwgYkAf3QHfDuakOgmdUGZmPq0Svjx/Nf+Gzz3CcEAAnONNAblAmpKOegF8l5LgDUL9MxMC6pETmVMg3wEzFd44NjTE"
+    "WhkSjBOVHIq8R8qtmKUuYv2J/XF1SukOxwnKIvxi7Bv3I+OuxGFtV8sTi2Z3Hfdk1Ol613ZGtQX5mxAGMDv9PmOnz9Qy"
+    "lD4m6qBnQaG/AdFJr/eUKnHrINeAh5pi8hp0c9H6yMuBD2vup2+XJrTx3N8snwmxkM8AKGKj18GwKQsZ50hgzTtjU8yz"
+    "9t1V2x1khAAgA7+E/ga9CWzQG8k/Is4VOYXtlP2NQuv32n8niv7ftK7WOaVuew6jGPcOgbAvltVzAU+/vT+Z0bm84VCV"
+    "vSe0M7Mlg0UciCf4dHjweq+d5aHJhRF7mkLN7xN7WnmlhTk74E+AK4Bd70ILoUfrlmSPjN7Rc62+zFXSkWw9l/IL5sHA"
+    "jjgnLcV8gebmLmKOwz2rHKZ7L93Vhq35UDQRKh3AHsjJhO0HhqTd8s1FRRUfk5D8XfUy82r1fxr78oH65XbnVfnk0FTi"
+    "qiqg2GyObXyiNQnut6wtuZQ5vU8+UBO/477CVkH3FyUKB/l7GvOMhcrVHYrSJnNYj7bN5onAcMBcYJACQAPQjBwnLRI3"
+    "ukKrPS7Qt512+xZSkSbIASAibgTue0R4fgL3GfmPcT0CdsfkYiA3AcEawB7OFcF54M2M+wEXsDtKg+LWsC83pRba0v/T"
+    "2P83t+UVP2Ud1swWJyPhkNUpkb6fkbdsNlEY7UXZDF1QRFUzobTF/DLEA4dAenWPyHQkx/672OP3zc1KPiza2BBQlJTx"
+    "74xuVc7AzYV9MngFjMSQC3VqCs/fWWA4qpxTuTFvVPJCTil8PGSSdjmRgky3Y6V19PGeVTYf7YrOBQ3dZVWBNyFVYLf6"
+    "ABGCktmxylD22JYNzsdZ5E5U/TeXlsaCz4HQVG5qKabb4aN9KJ7U3l8J/Sde97HogOxU8NuQx5AlwJSETzgNNNCiYWV7"
+    "bXePil0Q/ENDljlZHe13a4AT/xbbiFkImZp7h0HA3XeJFelBY2qPZYyT/jvYr3CKYUHganU8Lhn6OA/JOeo9tjQzRhz8"
+    "tWZvKkQgDKqBUsD6mDqvR7C4/LWCCFp+bWnGLdmz1jGlT7IHBWZCbwNXlTKvBhi5YILoFm1rrcP4TTqn+UPRsPRZtAOQ"
+    "vcCD6B+wdqjY8UHyvX9gY4j5yD+x0OHurLRXMf6MowMVnTh2NL4Zfji3gz2XOLKMqDnGlbasc3ZmG4MmgUOBybLlqCzI"
+    "tMxhQZOwjS68chBju0dagEjt9hdD3gFDE3y8r8A0BS0CMuWXyp06lMDVInMGZs1kT4LqwBjNJp/FcEiRl7iaNry6O7VR"
+    "vK/F5jqd/cZ3NTgG+C1yM2IVqDMg/acNZIrdkr3+U2p3Z1fE4QKugduAOpkZNR+iy6IHv8VvLudp1nCvtYrL9HkeYj+Q"
+    "Bugj1sIvDeSgrX7ZWFJpZIw55Hnzb8VBmXtJL4BsQC36HvEGHGoaTj/g9cR9W3WIXdXc5Bj9j7WqKWqRTgleHbx4gLHP"
+    "UXl7XYJicy3MEPxCNz4ulFXkmW37QWv244FyoFGSgNCDywybqTnI3xxTRe+oS2sfGr6XHiPIQRdQFD0V/T0kIndF8Akv"
+    "kRsVu4q5qHFEXqeGEdAOmQk44lzYx5Ck3MrgW7jrpWNjVgWnNBZYuhK4FByoBsYLyXA+GJt6gORCfCnA8RNJ+6q26FUR"
+    "CX5kUA8ki2sGarHxaSspVtSrAlzEPt/W+vrsKyqH3xxQCSSI3sGTwSUpYyhpSI+tNbyFcq5anb5NOsdXNpD3QaEQ/hJ4"
+    "adhFW4pEFY+IHOOrqlUaUqP+xN7jXKTbHr0sWI64DR5MHu97Fh3imCeZFuSsHZYxX05qz65EF1T4TgUrgXPylxgdFGqm"
+    "hhi8d5W9VoWHBjYnFk1Lf+S1baCj7yPbkGJIUBaU7h5AtzJmKDOnqbEgNZVJEQ3MTIi0CpUNacky0ltwV0rfxLxjapof"
+    "Fl0ybMYXDHCzlbwZ0H5ga/IMYg58Z0EW/z5xZW2ncb/8F8ILwAJMEN6C7wUFRl7AYWyTc4J8KT3dsy+/KTkdkwUEAb+y"
+    "86FfAVhyLbEUMbSgnr+bbK/vzJ4Y9xMuYyCDZHB50DnAC90JbwGMmW/gnPPeUXMm/cw/eN3usr2qFP6koAewmWCa/jWl"
+    "EXXRnihYQl1auV47IvynpqzCwrQp1E+gBcDFeWNXQYbnbKevwI50dcmlgVWNay3hmltY7EAN/WvsZ2wJNN52gdNM+FCx"
+    "OekYb7YnO9+uj/EBwXigQJqN+ghuMXj81OgThV9EW2kP6n7IDletRpcANOBJ+DgYFqSmpJMOwFvyD3NnER7U3DaMlH3y"
+    "PwyEAAeFJyCHgaVxDhQEEmQgk/Hw2PwvYRjv8+TkAXTL6J0DazJa8AL2CPgQfxO7ApqbfYxeg+9j3gCZQIh8EOI4IM0M"
+    "8zXDKcXrwsvwv7gGxemC/sT+qSnVXWR7nUoXlwQ/qPCkDJI+aLifZ9Efa7nkupF7viur2VobFuCEPQea0+h+JnSxqzz6"
+    "Cv3H2keGjdKb7V3VxQ651wFwIvAhbgt+ELw3f3b4F/L9itLEbh69ZW7Jy8y9XuqBNfNB7ovdDH1l2RLa4LOqfFz8Kvap"
+    "lkfO5OybyJgB/zv5IBwNtmX4+1YhMcXfiZZRjzbezWtL+k/nuGHVYzLfqT6JqL6fsRtLmhSpIcM8l+zLDIHtK6uvOt63"
+    "99UwS8zU8dCnwHeaFrIbFVhAFiz07Su/EYcKudbUYs/Vf4/4AFgBpXIVZjr0S14yZx15dS00dYt0cqMruyZ2KmY7IAae"
+    "RhxGjoK4s3CMGV6RpZDYa8HIRqElM0EIZQ9gn8EiD/D54qRS4hE4NCeY4/Y5WZ6bXC36T2N/24Vu2V8/3cBRyoTtLb5l"
+    "xwsXd+6uj3Vv6tK3TK1d3Qvt3tNxgROB7oC4876F76WOqR1tEsU1tlpL51tkXV2NwytgxAR4IvSpajrJjtYWQIR7aHsr"
+    "3EmlEdrWEten7FZUCOgEDkZ+xayDCXI3hkQTYWXDVUkcVPOKIq+Mh9A/+Hw4z4YcC8oz0fTrWKdrkPx94OIGt5kW///Y"
+    "13+uTSicm1Al2hByBfoS2K6dRloOz7Z6R2AoT8re647wY5vYxbONX+nvIT7g0PjPPkthEvM7/gNydMlBzTremyqx+Yzm"
+    "3xn9vfAocjFkgXYVpQlJy2gT7gyAZvpFx4Sez94S6y2o8SNC+8GrSRnEYYhXtudSFCOpyZX/LUkxUD9uckaSAYgUDFO/"
+    "JR1Brs8fr4gLITcHFP6aEtD+W8UB2wb8S0g7+DrmDKkRiSuQxmWw57Yucb76Jxb6i/kS7wW1JeDQQJXdHgfHhEAW5pyh"
+    "K7BXS2fF7KNr6p9kVSpppPdAPLBIdg/hBJ8Yff1OITc4KFFu3wuVu/UW/r+D3ROwBywB5ki0iBhwe/pr2nXkWCtHMM8X"
+    "WaCWRPsGUXOgmWC7MsQ7CMG16gXNvsdqJ2SckfS3PivlmtZRnZA5QFz0UcxtCNJq4W4lLKy6on/DL2x6aearTpFSQAPQ"
+    "H6lBpIGwosWCBz53Kgn66+F/HZ2W74lrjmj1/Q0cCUQpDLhN0BZzRuhx7/ByZfzr0MwmZ8G+lB2UfYAOmB41E7kFhGXf"
+    "ClqO+bF0gjKSbm2U59E1KykA5DQA0xIIXvCxhW6RidpRtSMZHTG6+Y4DnnGePgryHOjTziDw4a6iZaJj1MNVG5KlEcbm"
+    "aofNcJGwBNACJyPC4QrQbpjj9xa1x5EsTfffVXPR6JEv8E4AxwFIyXzUY8ix7Ksh+wmlVXpdjKC0lViakGPEThvwaix/"
+    "ISIawjSZGf34tvK38aFh2U177Y7kp9gJgAJgCa8j7oOM3NEhnd7DKgDNas5cz3DbkX9kkA+5C3kW32X+c0A7QI/BoWEQ"
+    "Z/aRoFHYfveQ2A+MzgEGVRrjQ5gEUIDcCANsD/AlDUaJQlxwvBKyKNE1fqkO4VH89YFVgYxejyJAbOa3zNlet8tOx71m"
+    "UhqD86jxGN8IMB2YL5uEXAo+yxoe1I+huecqW+nP6jaZTslacc6B/D6a/XHgDUZooT5a2Br7+rDJ3kDFRU0KJ4roNcCL"
+    "tvHDkC8hPCOecdi7vmyk+ht7d+McS7z6K+ESwAVW8UhwMTjTMChQg+lwwaKHBY6srkxlC30Iowd6XsE7CV0KYNNltCHI"
+    "7SXVUcd939dEpeIj/sS+1RYUuzbiol/TwH5P1ElJdxCvCleLxtA+VMNSb4g2tnic1VklZBSYBHQqZmO+hwRZh4WW4X8q"
+    "J6unsjo9dFtr0mXMSEAEmKNuI6MhXbmjmHO8npSdU7FC+j0Pba+0J31mDsx/axQRhYP4mbmsy15V5b3qOyG5TTvtOck/"
+    "YyQDcb6UcwsyHpCnPCJ6w8cXrRe8IxJr16ZHRt3F/ASkAt5iL2Q+hJdzP+Q64V7FrcRDPF6zq2hlugWRMcDrdrHJMC3I"
+    "Sxvv64fOLXkjiQx40vBdLl995b9OhDaE/HFy5dZHEM3w+UWIiJVkVh3JOFz2J3ZGAVEykcHw94ZOARo1W/HnoWcsrSG/"
+    "eW10P1TOYWxsuJ27Rt1PODIwh6WyIkQA6GOC0UqQ+0qOij9Tw+vOZpyRkbBrgSjgU8xQtBtSn3cqhOQ9t3xqQge3vaE6"
+    "r14TRjgJ0IF8qRJBB1+mX6aMQexy3BR+pCys9Rh+lkxGqAc83M5xQn8GbPoHBB18h30yV0sQVa3QTg3vITQDVKAtahrk"
+    "AIDXq33veO3K2xUG+PDKaHErQp/ilwC+wMOAm2AnsE0O+JjhN62dodN8otx27TjeUBYUDAJ4UR9ho4HBWTZ/F2p86ZDI"
+    "7yiTK/TKsf/Y7zPr3uXkJAVFVOIHwey5rJBKn/GusQol80GNv8Esm9feXRVRdN+3HdIBXNEvIjDhbwovC76SCVVBWlT4"
+    "uJYnJWMyv2FeAUYAojmCr4dtK5gg4FKuV0XrfxUMbvZ3TDPMxS0HOIBEaUJHQ9LyHjDv4XaUrY8dE1zWLClipycgZQPY"
+    "9aImuDcYYnrhG4scUVwtKqN01PtndSv/0zmOYy0XNQcqKHz4ArDb1B/c7hPsVClPse5Ufk5OjLrfuCLvThIDOXPAHBF9"
+    "EQWFIHNQQXDMQydMes2vtw6eESP/DWIciAZ10VdRdRDv3K2hPJ/XlXtVHl59jSEHGj8U/gdrPcX/BEOBO1PvkqbClxas"
+    "4b0hbKvenX5HMhUMHNB+pBdCLw+w4mneYliBaQuzCPe4/G6ShPufxv6yZYJre64xtVd4MFBZLtbJJSPq1mTVq042T3Ng"
+    "TP2dUxrQ5Q2Mj3AZeNH4JvAF5rVrm2JYsKNmblpOVFhru2tVtgALg2wFXscG4n+AOWy5vE4SpvJ24jQepCWs6G26H+YX"
+    "IBpYEO2FOQnxN99hhOHOlmKVjUEGT6d1atJzaPAA9pMRC+A3gEfGqb6JiO+KfUSrSD71xZmhiv/Hvv5zbVXpivjTXE7w"
+    "Z7AImJbWRrwO9RSpRQTy0cof9dDwnxsttnGJQ2lFYB2ASnB6LYPMs4wMu4D3KX4WR2AGVFUZVbJ/Z/R1LCf0DmCIRuO8"
+    "oGMTntB3e1UnrguzkVOjhjPGkL0JAkg0aNGaSF8QNXax8k0wpe13B1Un7epuiC55ieODU4F9ylWEUnieuTdykF9J49Es"
+    "RvS21pH5cxOXIITgcGC+uBsXBH1qvi0mUCktljzRP51ZzbSv5CWQTFQxKABkCfvRR8H1eYNZj7Bny/vjLzA/N3abR8nn"
+    "4ScOrMwH0qewTUCN8SI1CNFWulHiRT5dcjRRwP53sFcQJwz0PIm7CeICDiVxqJ+hkcqhtCOUVVVAwqrwn4hLB3bTHFku"
+    "NhDqykPw7hFnV/SlwQRAB+AGdFcIWDAKuMO/CTsEzMntC9qNuVz5RHvZb0stO/Wq/IX3DiAAOBW2HlIN9FiG8gyEOjs7"
+    "NZX419E3lxxTDeFtC9gMZgCnEy96IaBVNhTbH/+0LEH1IvhpA9zcqLKQfwT4gC12GKoR3Gn+RJ+DFpRCovf7D65rMDZL"
+    "GYRQ0AHItRvwaqhv4SR+EWFRhVfSN861xvt5HxIaKGLQDaCTaPgvkJ6C0bwd3ivKUfECVmTDhJwPMde8xgzkR7UEh4gC"
+    "ERkKv2nIN/ZO4Ubyt/Kz2ojwMAwDnATsjxvstQuWatsj+EbtqPuWXiN+17KkZHmGFDnAaIEbEghmGiQ4N5G1xGuC+7pS"
+    "Rj9Tt974SlqPGgcIAYt0DOo2GJa3M4Thdb4sIPYb/WqtwdAa+Sd2Y9Fp8Uy/H32rQCUwSzUSfQdMz7ke9BP6bVmz/PeA"
+    "erfF9EjMwloG3k6eCA6bDqzPGEpaDOOWoPmrCc3Vv+nqQnZ4rQXYQKYKhr4Cuizrmele7WVrYrNYu2vGG8ZG+hI/ATIA"
+    "ruxHVoI5OUsC4ejVrtnR/X536i+m44V6RPhAz74cFiQJeJ140usMxGxfHHYJ965UHGuk53u/B2cD2AF0mdCo3FbuXaKi"
+    "en4KgpNcszajMGYJmQeygNURV2AngUKjxo+C8C3m8A8QXBVR0iLqDNL+gey/QNgJbQLUhlCKHnal5Au/CHvRla3gBf6J"
+    "Pa7ks4rEj2eVQScA8cmHiWz4Wsca4QiKs3qt/hPf1txSyEudSNwLhAJ7Yuehz4I+VpB1Cysvu6EMpRc17M5eGEPEjBjg"
+    "V8tjN6NfgVirKWQeTlF+IG5U8PuG9FyBqsznZyAcmBArwhAhedbXIWqvw2VJccODdzbcyB2kYqD+yO8X+Aug8wBKehI5"
+    "CC4uhPKrCblVNN0d3h7kPSAH6I5dgTPAMq2hghLf7wb43spITwux+IyhGJYN+AMc4RjE2oHsPC8gCNPuGiVt93tVF5CZ"
+    "KV8MixjoeahgHuw1oDD+7mtHfnTOE2+jrq59m974j/deXhKvuM184PscTAS8Et5jNJDTuc+YSTiyWxD9S6Cn5nfDJWkr"
+    "tmygn5GSWfCDQEhmE60Ocbj4mnAP6WzlFc1TtgvzBBAD09ThGBikyooJBfAllacSvoS8q8vO6447hhs/8GxalAX+GvBk"
+    "aKjVyDJHcMRrcm6ZRnWcdR3CHNDmcBZBpwPd+lKfe9BheRrWBNyS0t+jDwe0kx+DecAelQqxAILJuxhy8L92q5ntW/jH"
+    "32ztJH2DzAIYuuM4LQzIHdjDPldb//hubbzrnsIT2OPDh9QDx4QbsATIMHeI4BxqW8Vp3a+sP+KImfKPWFcRnHI0anXY"
+    "p4FKqiH9AWUSYnfxosh22qnqhyn3hFtblpbMN5VRV4CxADXRzwsK/S0fFZbn/bE8Ue1gdXkOW6cnpmEODaz53xKJXtHQ"
+    "xIIZ4QcJLytnJdaEbfacs41NGu+zGWACXqpl6Gsg1+rHwuKelr2LETK4Hm+rOHEO/I813yoC4beAORlrKQAis8if/5bg"
+    "UzMp5Y3wP53jYnLnRcTTfvD+daCOXppyirgW9tI2nMPH89ysmGv0BTULDOOkcxDVAx4qpGzEV0BspPr2I4yONbwsn7VV"
+    "r5MecEWwPzh5XEw8agPIMpEZG7yulRtkdQxTDTn9srIf9sc3rTXhD6GTgM7ki4QNsMf5MZwEH7l7RdwW5m3AB8ABLOZ8"
+    "SBmwUnPT6xGEabUwP2Gel/YpjgX8p7FfrF9o3pVYHDOSOh0Tan3D6SFoK/ZopvDeNCSbM9XSNkN5rdUn4AWkCvisnUo4"
+    "D8uz8wbyhbriljo1FNMUYV+u70XtHYjVceqJuHHQ1fmvwuIIjvJValzoKY/Ntk6r9JoxEHNk8uXIetCavdKfiTrnfC25"
+    "77u9YVHOd6qNsD94nUU4HLYC6DAEkE/C+gtf875482rupliE/499/QdrmRSiaDITZaqXkEI+FMp0pyUPyvfkbE7qrGUV"
+    "IkzsxmrXCUtxB7bpY80vyYSowLDpGiNb7evOfCZZy+IWPEq8Li4tnWTsVj2qlOe1Jz9pGVSz0TUzs09pFHDTvEWO4NVm"
+    "fmxzuMExNblEPrzsa9YgTVi1xZaQxmkOrHxVtFAzkpPtx0rPFn1l3MoP1RwW7Sl9ZPyowlVPs8alfq4zOtZmyVu31Zxw"
+    "oTiN3lzkask631+xR7TJnDBqQ45JPi8kvXBF0gNxXOnRjA+xHfUzirk5k6JG0ALxcvkW/y/4c4mq0IvkcZn9UdZgIL9T"
+    "Xc8nlMSmjJD1V+mtM1K2JQ8RLgo+lcWWb2fvdhxKHicPrIRb9PrhdVeKxFm/NV4oPWBVdKzxpNQsSv4pch7HN2kcZ5Xv"
+    "tkyr9CtrbkFw0hXxD6UHjBWqY5W/W8KSPzXvrUoryUtcy78cbFY0BU0nDNHxuI9pJTnIaD92SSFGeynSu/RYxpC44Y3D"
+    "SiG275MS+EMDWzNPSivZTwszdN3Se2Up2d80B2s22mEZ5+tflnzL9WorrYspa4i6RO3GflVGB43yjkkRhyf7Oc1cZT7H"
+    "z8HUmyXj3PDMTjW1YVvJltzmKI7/QDUvhfjvw7cl7Ga9JIUby8Sj6JOsclV0+EHHNT1cuqr6ue1I2k7LjITjUbtsVZol"
+    "UYvceVmNiXNr6AVi4+eGt84eC6U5tqK38HbntRZMIzH3Sbyv5L6JKZeF7bMoVRcFiuK01C0KabkwR5K0sTo1f0X62dbs"
+    "Ol3Zw/QL8t386VKev9B7nQYXOoYy0sSKmhx8y7ZL3STYUdyc0iu/UD++RGQeYz6n5gsT8odoUdH+7g2Zp5LCauMKn5vO"
+    "NCJKN+eFNt8tM9s7OoKbNtbA03gyPEecVSBbx1ZbDsaV8E8Vb05xKQTuTyaYpqz6RsGOjNzmlkqa41HUr758PFYe7v8L"
+    "vjDxA7ufssi4OFIQHGdpi5XyfrfXaldGhtfssJ8w3m/9qXFY9abmwtrfyzF1SufvtgRPkptQsNzjVzHVfrHlWlWYa0VP"
+    "dZe4A+X0N+yLba+fWHLRPLc5tjrA9ar1S92H8vVtxQ3GqoPtVR53tai7qf1+80zFzuBVRHJiY9gWv8epPCGfcTr3jHIC"
+    "z1iwN2l51B3ncsOp2AseZPnRAmHla/tK8/vWQo+hPq2ZW7HV+V3rr85mG6f5dJHZTG7wLWSa93btag1qwufPjgsVLyzq"
+    "TQtSHak5XdCZdbN+qvOQZX+rq2pE8YV2jkdXFd+5pPlq/dmk6IinAZsSE8LjaUUZCNkc5q08TcwEXnNRvpYoohZt0J+T"
+    "fKopyK82/G+OdbW6xYIcxmzDbvFDBqmQpS2IKi9/nK1JFNVuL6AZaxtnuHosh9tvNlKr25Nlkp+5+ep5zCby9xkGcRtD"
+    "ZffR7BM2lJYbYSpr1dy8YcmtzVsrBzsyTZXK6YIRSQDX6H8lc7t0awiy8ExSa+S4Ur1xRxxY6TBf04oaJ7si8yKSuLzq"
+    "AEvyz/w7gRJrvGo3v8aFNcBjKiuLzSu1FbWqglsGU/NPFdsKB4X6eR9EXhY+I61BL4tfFtxCSDUJIt10tX1WvEYw0Xkm"
+    "bX50Ss34fFL6vIgyyn7sfuE78maMO6Yp8CL+Wmp1+CIawrw32jcUWXhI4xCeKvNkbYsfrEngzQhEZDyJPMisK3qhM0rr"
+    "K37O7dTK6yhFB0wrGoNK5+dNbdc1KqpyE5cImljJajNzMmlLhlFMZYzJpyTMjkhxlRu2x2ytIJnXaYublpWfLqhPJItS"
+    "2GOkXf4/eOclHWGfpHqyz8qWh8ALxUke8QTXCcO5mIr64cWZOcd1jIjU4Mj0A2ICi29fpGkSn3PvNL1RB9fQ8mvSaus5"
+    "xRHZnhZcdXpJWFggAYN+K35HoWMfaQpDsOT+rCrpTmZRwX5Ng7Df+TpNr0DULMg/mD5FmEz7gscKyRQtdmwMOmiCd0Ka"
+    "lJ/sxzQTFNtDVxXkJEaJ8BWa3D1JpPQ3UWPYO7KiFP48QsnxtCkxk6tKrCNSt9WfLt6fc80zvSzCvrdjRdOuWpPWSxgQ"
+    "slQ3i7fAf26On+Iex1H0XmeRrnVXZC6I7636NS8tJbu5rFLreCi2Bz0k/xQxhHwSE66uDrYQ+zM+iax0qm2N6ll4a/G3"
+    "5JkyT93tot6s9lSH5CzHk5sUR44glhZkXImLqH5mPZ/6c31/ycncCk9AWXb+0nZF45HKfvn+AB/vrap3jCFEcfqeCEYQ"
+    "P48T+4GrduQl58pWuo8bJ6pM9dJiSs5MXgbpIfpHEYuixBpUOxhI4on0KGFI0AXzWaUt7EjBtcSF4o2VLyyO5C2VRvOU"
+    "xHfFIUYvTb17aea8hJVVldZRKYvrNxV75YxuWlWeYL/ZtbytuemG1azyEghcV4zb4w0Vi81fk6k1xIK3Rm795uJJud81"
+    "Hik9anN1QJp+rdkun0cfQvKJfcLII43TX+NZ/BXZBXIYu8m+TnNW1FuSnHZDcbnB7lqRt9KhN5zQHLfAE/3kdQX0xD6R"
+    "yR2ZsStOVuuTPze1viHFNSq3oqPX46muzJgT7qHtt+Vqjont5eTc33R7qrvsvxmv1l11BOacbLxZOszyolHjzrDh+L7E"
+    "02iylE8bhfNLaGOeJLalJvFf+j/KhkQ/CC21/xTPFSIq5Ll3kv43x7p3CZE8e6CX1skN9fPkL1CvFijKvDLfqmS1Yjsl"
+    "vaCxr6Q0J6qNUkd1L9HuF7exmxRDA6/7LEqt5eMDdlghKkr4JufeNHf0q/LynB5NdsOMElyuQrcpoj/4geJbYJsPK+Ur"
+    "D+f3g5mtHMJ+WzgocZtwovND2sToq1UL84qS8XHpwWjSc82w0JOUi9lJsr2sxY5QfXfUgrK3mfnxhbWz86ekPW3Mdhdb"
+    "K/i/kFCYjYK3xNOorDhU0Hb8jPQugcm/xvo8dhe3u8iqM0n2VvJz7scfY67GcuBnWSBuFmxsJIscimZpXwaX+FzJeiGh"
+    "MkjWjGgN430JK3m+eGXCVK4loCvlF0FkELQgMtFPDC8nZr9NMNcGFbwzkBo3OKPN2DZeXYvbK/G64A0rUPEt4Ig3NiU0"
+    "fJFfjuW5MiFshuOEHi1d5p5jgqoD6w84ENk18YP57mCd6BUlELdCnRj8krAvwy7CBS2xiuLquTLHEh08am6lztKvm59c"
+    "GDGdvksv4EcHqmwp6qP8baWwjEMx56s+WuQ6XK28IDxD2QQvd+areckkF+aVkEYZioWoYQyXj8ZwT+AKOGKdEHc9rKVo"
+    "rm6W+HXltJwa7VteJ/kZ9iCbg8cisqMklH40MkkV4iGGZc2PnEa35y9VjA6JdvqmKWSzk/cKHzI3GL9KD7G9i8+m0BUX"
+    "Kj9bRiU315928LNHexa5f7Kp2yc30CrXJfzIm0cvjw9jxZPJRpf4Ov2yLTDeKvhUYkljKZLKF2Uv0cxpqHWuNl/n3CE/"
+    "8xLz5vn8joTFLg/09v6URhXU+XdZDinLOAVFau1FsV8VPO+L/ve0FVH57K0GQdQ+VpsDqZdJ8RXBZpFuc21Hob9pa6O3"
+    "a4nleQulBudyc994j0SZhLNJOkxw4lmmnvTEtC8SGUyz1quFgrGO4Sl5MndFca5MO4Qd4P0boiUcS7iNJCko/l9xfdrN"
+    "bC6lxYgSK4KiLD8qJoQmFQ9KfiBdV6DWpyjgttmJPKlvyaLUDkVQZdtAtvKuCygaqMYbA12XzeqORs/W6vtZSYr0MHdO"
+    "q1LEk9udiU/F45yv05Gxy8uP5jxKel6dku+b7mj2VLocvIjJFAVuqURIO4S7mLCHdYH0JIMq1tN9rIa4GN5PRQpdblRO"
+    "jdq+13DcZIrLjYxPT41KZo+2nVLt5090KQy5ipm1D61jkt/XUUuSTEeaYVUHihdHFgdO9unRLuLc9EvOwEQtZR6x/a52"
+    "C3zstIRHQqW7OWNo9N3KHZYy3S8Bragq6IWwDPx3iAD5Ydoc3A7N/JDppK8Zc0Q9QZtzP8rXhX4tvpq8T/a/Oda1KBjM"
+    "EnK4+gtTRyq1flR2sXe50zKWKo7WzrON16MaA4o/mSgtwoq7dqTqTugpX6joFul7dLGmKbjXpyt7aCSSvtl+Nn4b77uS"
+    "T/pXkbPLlpluxpr4q0kT0WO53+Hvwn+UTfPtwNTqZSFin0U5F4S2QC9zuXIIU17g0bWJTIJTRAPaoyQGTMcbsvKiaIwr"
+    "JRU6nHBbJSb3ZcKNmkEFweqFjaPcPVkQthiTBdsQrMAugZ6Voqh9qDrDhKhrtIPZ86XVrLZib8MIwaoqs/lmlB/lECoR"
+    "upUeiYqDXmef89kJ70+eHiJC70vdzLITyvRlHAnpj/N/M2WegsTAk0xJU9jDqb7279U7w8+5haYpccNqWm1jUprrI4qH"
+    "ZB0fqLWjigJVPWysf654FTkOkxR/lLHRR2KcLNwcgLSGx9zgbCgK1LaIW8onZg9OwIsbabO9nrIxeB7ioWQw5SZ6XtL6"
+    "EF/iINMg0eKAx3lLlSHsdcV79EKJOPYdQ0yMT/wa+pTy0iyXe4ecLslKMcm9K6qy8OreOlr+a52k6Z7zW3Yup8PnHTIu"
+    "7D3eG3k9WuDXjDMafEUnA3JyU2JF3LmONAUQ3OCckdWu+46+BW9GbA5woyohM4R5voW4DfprwQifbTkXQw4QOIUW/XLO"
+    "FAct/bAoTJUeEk09kOIUTA2cWVSm648iVE7MfZY0q85aFJLZ5IG46/Ii26LrhrhPKX4JzqEuk670zcat0EVyTlH8cz/K"
+    "hCFrCn9PnCqqduUaflSSai7lp6dPCttL+IbOZNd6bYL3yFp9ldh83Rb2bnJRVn1UJiPcNijuHRcsXWFYESNNFIaNonHS"
+    "q4WDgmQOS1KgOLvspgmW4FudkUdL/lwLcSw2TfRgSrNsqczheBRiNq+M6ECPj09gBBBGZaRGPPSjWnTRHwJl1sqEj5xF"
+    "9sv6SbxW+iLUIQiDgcEKYcXcqz4dyMmydQHNuF+SYRwJMdIUIXzgW2aaLZ7t15s5Xz4qTGL0lkBCuovitSPED8sDskvi"
+    "A2uz7O3ppMbbJYuzDW3IOmepJqGaMYqwJpHEvkVJMzaIefQU22gVN1xc0pxCkY10wzJHqJrrPEWhmSI2zTsIeTDiC/EU"
+    "6lYsLOgxnpL6jZdDe5TDky9jqezhCQZBZ/mO7K0aV+rcSD37gepeSIkv1LxQZgsOcbWmrIxiVXnnHImTV0hyzyeSG2Wu"
+    "DuuyiLNUCu6VIMKnAsFVrKQFoH/TDeFwqRuN9yQbB/ZdXvwzzhu3OOVa5C+k9QgJtIvxAHMOWsBf55UHG61YQR2BeRk/"
+    "O7jP620ynqMgrjEtinL9rz6va+3c1HYvPUCxhJpKuAJiC2nGA3FjcJgqfkmI5pDCQeITHgPqlCOKu2Gz6PcwPcgVYAf5"
+    "Z5/j3hzvJrADsP3T/0BKhfXEB9dpYUs9pC4r9HyzoHs9dKvndfcdiK+nvfsomOdK63wPZjV4d6rBd8V9fRLQR/CiWJER"
+    "oPQXpAYe8goqdeXsTFghGR+SR5xaEmvMiXsigjPH+6x3+KRuU+znE+hjfdKNZNms8I/0/xN2A4n8cRRYChFa2EXlPcQt"
+    "wxsdE6RFwy5SK4YhZxa5Dvdd9TEIFlcMnQXwATFpK0PjI70WaAssBLZuBFSxORUs+RoKDWRzCFtvRVc5BSjkFEhxSl3d"
+    "TEQ6ISi5FWB2/V7DTYArSxx1EAt7xWo/V+01PCv3GtoPAEDHVmQWjQQbE+YI9FKfG3Bm5gkWJlgSVQN/ARwcchKjCvpa"
+    "qiuIFbBjKxeACyE1WiBDEVgFrwMGAjUftRZgELYJI150MPchQxJhb1MUPw2lBmgyhiOkF6YMYgRrA20CVgGkJcEcphbt"
+    "EIcK7WKmPBMvRh+yEmRn4h7AFpAPMQgcNpEmTR3VFCwM2gXCBMADxQKfAb8lkR2gGNwT/Q6SCdpkqUP4NWcnIRxtEHhi"
+    "TiRuHL0VBw8MCJA3myh3IK0ZKRKjCiIGJQVKBHYDhQJ5AUcrtSK1HRAZjhRlDw0KFGXnQ1A6mishIX8X7A3taXIlLh5q"
+    "GLISMA1MB2s0zieeIHYafBSZDhAJzAbaBfAEJwRJA2cCeAFfDgBA9123DYYEVx0nDgFQYxWHZMgSTzHDHHAIaQRuIdkV"
+    "MQtgWY4oshXzaDsakw1yOHgpUxEFCWAGSgM8JnkcexPeCiNfYCzlHjYPL3f3DH4IkgQLNS4txRo0EJwD1ALnAfoANykJ"
+    "IPMX9Q+sCHVj6j9MM8gf+BCnbhgeARfyDjkHxjzQL+kkghdyDC4IFwdcBQkEMQIJLYAlLB6uFt8P1ghvZlxFrDnHKmEc"
+    "4w+IckkZ0xTgD1IKLgXvQW04OCuGH6AWBgz0BhwGCQUKBBEDuwE+LAglSh96Gf8TzA6dCBlpq0VwO0QvfSPVGKcNqXIu"
+    "GwMXqhLZDUYJfgTTOYwxKClaIl4ZDhFKCSoGnwXkBEEErwPmAr4BvQhbENoikS4FIew4m1CZNnlVA1XVFdwx71NLGJQ0"
+    "cEiREtYrwEf7EX8oKEGWbkhq8WETWu5LO0Z/O9YwACzAJoIifhyxEw0PWQiTefN1Vm2xaYFhUl7mVgNE9jpIMAsoTh4U"
+    "FkgP4wf+fIt2l2uVTTVCETbHK+chHRiSEL8IAEC5bzJ4FH3OUik+O1vLJwBwAFSANAAQAAeOA8AB2QBwABwACwAGAAEA"
+    "AEAAIAAYAFAALcAhAGAAPAAtAEAAMABAABQAPAA6ADYAMAAoACAAEAALAAsACGmnXww=")
 
 _CDF_LAYOUT = (
     ('kf_y_mode', (5, 5)),
@@ -302,7 +315,42 @@ _CDF_LAYOUT = (
     ('segment_id', (3,)),
     ('delta_q', (1,)),
     ('delta_lf', (1,)),
-    ('skip', (3,)),)
+    ('skip', (3,)),
+    ('palette_y_mode', (7, 3)),
+    ('palette_uv_mode', (2,)),
+    ('palette_y_size', (7,)),
+    ('palette_uv_size', (7,)),
+    ('palette_2_y_color', (5,)),
+    ('palette_3_y_color', (5,)),
+    ('palette_4_y_color', (5,)),
+    ('palette_5_y_color', (5,)),
+    ('palette_6_y_color', (5,)),
+    ('palette_7_y_color', (5,)),
+    ('palette_8_y_color', (5,)),
+    ('palette_2_uv_color', (5,)),
+    ('palette_3_uv_color', (5,)),
+    ('palette_4_uv_color', (5,)),
+    ('palette_5_uv_color', (5,)),
+    ('palette_6_uv_color', (5,)),
+    ('palette_7_uv_color', (5,)),
+    ('palette_8_uv_color', (5,)),
+    ('intrabc', (1,)),
+    ('txfm_split', (21,)),
+    ('tx_inter1', (2,)),
+    ('tx_inter2', (1,)),
+    ('tx_inter3', (4,)),
+    ('use_wiener', (1,)),
+    ('use_sgrproj', (1,)),
+    ('restoration_type', (1,)),
+    ('mv_joint', (1,)),
+    ('mv_class', (1,)),
+    ('mv_class0_fr', (2,)),
+    ('mv_fr', (1,)),
+    ('mv_sign', (1,)),
+    ('mv_class0_hp', (1,)),
+    ('mv_hp', (1,)),
+    ('mv_class0_bit', (1,)),
+    ('mv_bit', (10,)),)
 
 DC_Q = (
     4, 8, 8, 9, 10, 11, 12, 12, 13, 14, 15, 16, 17, 18, 19, 19, 20, 21, 22, 23, 24, 25, 26, 26,
@@ -370,12 +418,19 @@ def _nsym(name: str, idx: tuple) -> int:
         return 4 if idx[0] < 4 else 8 if idx[0] >= 16 else 10
     if name == "tx_size":
         return 2 if idx[0] == 0 else 3
+    if name.startswith("palette_") and name.endswith("_color"):
+        return int(name.split("_")[1])
     return {"kf_y_mode": 13, "angle_delta": 7, "tx_set1": 7, "tx_set2": 5, "cfl_alpha": 16,
             "filter_intra": 2, "delta_lf_multi": 4, "dc_sign": 2, "eob_extra": 2, "txb_skip": 2,
             "eob_pt_16": 5, "eob_pt_32": 6, "eob_pt_64": 7, "eob_pt_128": 8, "eob_pt_256": 9,
             "eob_pt_512": 10, "eob_pt_1024": 11, "coeff_base_eob": 3, "coeff_base": 4,
             "coeff_br": 4, "cfl_sign": 8, "filter_intra_mode": 5, "segment_id": 8,
-            "delta_q": 4, "delta_lf": 4, "skip": 2}[name]
+            "delta_q": 4, "delta_lf": 4, "skip": 2, "palette_y_mode": 2,
+            "palette_uv_mode": 2, "palette_y_size": 7, "palette_uv_size": 7, "intrabc": 2,
+            "txfm_split": 2, "tx_inter1": 16, "tx_inter2": 12, "tx_inter3": 2, "use_wiener": 2,
+            "use_sgrproj": 2, "restoration_type": 3, "mv_joint": 4, "mv_class": 11,
+            "mv_class0_fr": 4, "mv_fr": 4, "mv_sign": 2, "mv_class0_hp": 2, "mv_hp": 2,
+            "mv_class0_bit": 2, "mv_bit": 2}[name]
 
 
 def _unpack() -> dict:
@@ -415,8 +470,15 @@ def default_cdfs(qctx: int) -> dict:
         out[name] = _nest(rows, shape)
     out["eob_pt_512"] = [p[0] for p in out["eob_pt_512"]]  # one context: 2D transforms only
     out["eob_pt_1024"] = [p[0] for p in out["eob_pt_1024"]]
-    for name in ("cfl_sign", "filter_intra_mode", "delta_q", "delta_lf"):
+    for name in ("cfl_sign", "filter_intra_mode", "delta_q", "delta_lf", "intrabc", "tx_inter2",
+                 "use_wiener", "use_sgrproj", "restoration_type", "mv_joint"):
         out[name] = out[name][0]
+    # the two motion vector components adapt apart
+    for name in ("mv_class", "mv_class0_fr", "mv_fr", "mv_sign", "mv_class0_hp", "mv_hp",
+                 "mv_class0_bit", "mv_bit"):
+        rows = out.pop(name)
+        one = rows[0] if len(rows) == 1 else rows
+        out[name] = [one, [list(r) for r in one] if isinstance(one[0], list) else list(one)]
     return out
 
 
@@ -554,3 +616,56 @@ def sm_weights(log2n: int) -> tuple:
 
 def qctx(base_q_idx: int) -> int:
     return 0 if base_q_idx <= 20 else 1 if base_q_idx <= 60 else 2 if base_q_idx <= 120 else 3
+
+
+# Inter transform sets (an intra block copy's residual), the symbol to the type
+TX_SET_INTER_1, TX_SET_INTER_2, TX_SET_INTER_3 = 4, 5, 6
+TX_TYPE_INTER_INV_SET1 = (IDTX, V_DCT, H_DCT, V_ADST, H_ADST, V_FLIPADST, H_FLIPADST, DCT_DCT,
+                          ADST_DCT, DCT_ADST, FLIPADST_DCT, DCT_FLIPADST, ADST_ADST,
+                          FLIPADST_FLIPADST, ADST_FLIPADST, FLIPADST_ADST)
+TX_TYPE_INTER_INV_SET2 = (IDTX, V_DCT, H_DCT, DCT_DCT, ADST_DCT, DCT_ADST, FLIPADST_DCT,
+                          DCT_FLIPADST, ADST_ADST, FLIPADST_FLIPADST, ADST_FLIPADST, FLIPADST_ADST)
+TX_TYPE_INTER_INV_SET3 = (IDTX, DCT_DCT)
+TX_TYPES_IN_SET.update({TX_SET_INTER_1: set(TX_TYPE_INTER_INV_SET1),
+                        TX_SET_INTER_2: set(TX_TYPE_INTER_INV_SET2),
+                        TX_SET_INTER_3: set(TX_TYPE_INTER_INV_SET3)})
+
+# Palette: Palette_Color_Context by ColorContextHash, Palette_Color_Hash_Multipliers
+PALETTE_COLOR_CONTEXT = (-1, -1, 0, -1, -1, 4, 3, 2, 1)
+PALETTE_COLOR_HASH_MULTIPLIERS = (1, 2, 2)
+
+# CDEF: Cdef_Uv_Dir[subsampling_x][subsampling_y], Cdef_Directions[dir][k] as
+# (row, column), the primary and secondary taps by (strength & 1), Div_Table
+CDEF_UV_DIR = (((0, 1, 2, 3, 4, 5, 6, 7), (1, 2, 2, 2, 3, 4, 6, 0)),
+               ((7, 0, 2, 4, 5, 6, 6, 6), (0, 1, 2, 3, 4, 5, 6, 7)))
+CDEF_DIRECTIONS = (((-1, 1), (-2, 2)), ((0, 1), (-1, 2)), ((0, 1), (0, 2)), ((0, 1), (1, 2)),
+                   ((1, 1), (2, 2)), ((1, 0), (2, 1)), ((1, 0), (2, 0)), ((1, 0), (2, -1)))
+CDEF_PRI_TAPS = ((4, 2), (3, 3))
+CDEF_SEC_TAPS = ((2, 1), (2, 1))
+CDEF_DIV_TABLE = (0, 840, 420, 280, 210, 168, 140, 120, 105)
+
+# Loop restoration: Remap_Lr_Type (RESTORE_NONE 0, WIENER 1, SGRPROJ 2,
+# SWITCHABLE 3), Sgr_Params[set] = (r0, s0, r1, s1), the Wiener taps' and
+# the self-guided projection's ranges and tile reference values
+RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE = range(4)
+REMAP_LR_TYPE = (RESTORE_NONE, RESTORE_SWITCHABLE, RESTORE_WIENER, RESTORE_SGRPROJ)
+SGR_PARAMS = ((2, 140, 1, 3236), (2, 112, 1, 2158), (2, 93, 1, 1618), (2, 80, 1, 1438),
+              (2, 70, 1, 1295), (2, 58, 1, 1177), (2, 47, 1, 1079), (2, 37, 1, 996),
+              (2, 30, 1, 925), (2, 25, 1, 863), (0, -1, 1, 2589), (0, -1, 1, 1618),
+              (0, -1, 1, 1177), (0, -1, 1, 925), (2, 56, 0, -1), (2, 22, 0, -1))
+WIENER_TAPS_MIN = (-5, -23, -17)
+WIENER_TAPS_MAX = (10, 8, 46)
+WIENER_TAPS_K = (1, 2, 3)
+WIENER_TAPS_MID = (3, -7, 15)
+SGRPROJ_XQD_MIN = (-96, -32)
+SGRPROJ_XQD_MAX = (31, 95)
+SGRPROJ_XQD_MID = (-32, 31)
+# the self-guided filter's 1/n at 12 bits (n = 9, 25: One_By_X) and its
+# z -> a2 table (x_by_xplus1: 256 at z >= 255, 1 at 0)
+SGR_ONE_BY_X = {n: ((1 << 12) + n // 2) // n for n in (9, 25)}
+SGR_X_BY_XPLUS1 = tuple(1 if z == 0 else 256 if z >= 255 else ((z << 8) + z // 2) // (z + 1)
+                        for z in range(256))
+
+# the border past the frame that a motion vector stack's vectors are
+# clamped to (1/8 sample)
+MV_BORDER = 128

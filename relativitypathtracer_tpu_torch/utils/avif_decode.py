@@ -10,9 +10,11 @@ meta with hdlr 'pict', pitm, iloc versions 0-2 (construction methods 0
 and 1, idat), iinf/infe versions 2 and 3, iref (auxl, prem), iprp with
 ipco and ipma (the essential bit checked), the properties ispe, pixi, av1C,
 colr (nclx and ICC), auxC, irot, imir, clap, and mdat. The primary item
-(av01) is decoded by av1_obu, av1_block and av1_loopfilter; an alpha
-auxiliary item is checked as libavif checks it and dropped, as
-convert("RGB") drops it. Pillow reports irot, imir and EXIF orientation as
+(av01) is decoded by av1_obu and av1_block (with av1_palette and
+av1_intrabc), then filtered as dav1d filters it: the deblocking filter
+(av1_loopfilter), CDEF (av1_cdef), loop restoration (av1_restoration); an
+alpha auxiliary item is decoded unfiltered as libavif checks it and
+dropped, as convert("RGB") drops it. Pillow reports irot, imir and EXIF orientation as
 metadata and leaves the pixels as decoded.
 
 Colour: the nclx colr box, where there is one, before the sequence
@@ -25,9 +27,8 @@ matrix (MC 0) in full range by libavif's own path (G from Y, B from U, R
 from V). The matrices libavif cannot convert fail as in PIL.
 
 What the decoder here does not decode yet raises av1_obu.Unsupported,
-named in a DecodeError "AVIF: <tool> is not decoded yet": screen content
-tools (palette, intrabc), CDEF with a nonzero strength, loop restoration,
-film grain, superres, quantiser matrices, more than 8 bits, a grid item,
+named in a DecodeError "AVIF: <tool> is not decoded yet": film grain,
+superres, quantiser matrices, more than 8 bits, a grid item,
 an image sequence (avis) without a still primary item, premultiplied
 alpha, and libavif's float conversions (FCC, SMPTE 240M, YCgCo and
 chromaticity-derived matrices; the identity matrix in limited range).
@@ -36,11 +37,14 @@ chromaticity-derived matrices; the identity matrix in limited range).
 from __future__ import annotations
 
 import struct
+import time
 
 import numpy as np
 
 from .av1_block import FrameDecoder
+from .av1_cdef import cdef
 from .av1_loopfilter import loop_filter
+from .av1_restoration import loop_restoration
 from .av1_obu import OBU_SEQUENCE_HEADER, Unsupported, obus, parse_still, sequence_header
 from .image_decode import DecodeError, _check_size
 
@@ -396,10 +400,12 @@ def parse_failure(data: bytes) -> str:
     return ""
 
 
-def decode_avif(data: bytes) -> np.ndarray:
-    """(h, w, 3) uint8 RGB of an AVIF file's primary image."""
+def decode_avif(data: bytes, times: dict | None = None) -> np.ndarray:
+    """(h, w, 3) uint8 RGB of an AVIF file's primary image; `times`, where
+    given, gets each pass's seconds (tiles, deblocking filter, CDEF, loop
+    restoration, YUV to RGB)."""
     try:
-        return _decode(data)
+        return _decode(data, {} if times is None else times)
     except Unsupported as e:
         raise DecodeError(f"AVIF: {e} is not decoded yet") from e
     except (ValueError, IndexError) as e:
@@ -408,7 +414,7 @@ def decode_avif(data: bytes) -> np.ndarray:
         raise DecodeError(f"AVIF: {e}") from e
 
 
-def _decode(data: bytes) -> np.ndarray:
+def _decode(data: bytes, times: dict) -> np.ndarray:
     info, props, (iw, ih), payload, alpha = _container(data)
     av1c = props[b"av1C"]
     seq = None
@@ -431,14 +437,24 @@ def _decode(data: bytes) -> np.ndarray:
         FrameDecoder(aseq, afh).decode()
     _check_size(w, h)
     dec = FrameDecoder(seq, fh)
-    planes = dec.decode()
+    t0 = time.perf_counter()
+    dec.decode()
+    t1 = time.perf_counter()
     loop_filter(dec)
+    t2 = time.perf_counter()
+    filtered = cdef(dec)
+    t3 = time.perf_counter()
+    planes = loop_restoration(dec, dec.frame, filtered)
+    t4 = time.perf_counter()
     colr = _colr(data, props)
     if colr is None:
         mc, full = seq.mc, seq.color_range
     else:
         mc, full = colr[2], colr[3]
-    return yuv_to_rgb(planes, w, h, seq, mc, full)
+    rgb = yuv_to_rgb(planes, w, h, seq, mc, full)
+    times.update({"tiles": t1 - t0, "deblocking filter": t2 - t1, "CDEF": t3 - t2,
+                  "loop restoration": t4 - t3, "YUV to RGB": time.perf_counter() - t4})
+    return rgb
 
 
 def census(data: bytes) -> set:

@@ -1,6 +1,6 @@
 """The port's AVIF decoder (utils/avif_decode, av1_obu, av1_entropy,
-av1_block, av1_recon, av1_loopfilter, av1_tables) against PIL, the JAX
-package's decoder.
+av1_block, av1_recon, av1_palette, av1_intrabc, av1_loopfilter, av1_cdef,
+av1_restoration, av1_tables) against PIL, the JAX package's decoder.
 
 Tolerance 0: every decode equals `np.asarray(Image.open(f).convert("RGB"))`
 byte for byte, with PIL blocked while the port decodes. The committed
@@ -37,16 +37,21 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 FIXTURES = REPO / "tests" / "torch_textures"
 RECORD = json.loads((FIXTURES / "pil_rgb.json").read_text())["files"]
 DECODED = sorted(n for n in RECORD if n.endswith(".avif"))
-REFUSED = {"avif_restoration.avif": "loop restoration",
-           "avif_squares.avif": "screen content tools (palette, intrabc)",
-           "avif_film_grain.avif": "film grain", "avif_qm.avif": "quantizer matrices",
-           "avif_cdef.avif": "CDEF with a nonzero strength"}
+REFUSED = {"avif_film_grain.avif": "film grain", "avif_qm.avif": "quantizer matrices"}
 # what the census (tools/avif_census.py) finds in speed-6 encodes of the
 # photographic picture and of textured's texture, and in speed 0-3 ones
 SPEED6_TOOLS = {"CFL", "angle deltas", "deblocking filter", "lossless", "tx split",
                 ("subsampling", "4:2:0"), ("subsampling", "4:2:2"), ("subsampling", "4:4:4"),
                 ("subsampling", "4:0:0")}
 SLOWER_TOOLS = {"128x128 superblocks", "AB and 4-way partitions", "filter intra"}
+# palette, intra block copy, CDEF and loop restoration (speed 0-3, screen
+# content, aom's enable-cdef and a one-bit lr_uv_shift edit)
+SCREEN_AND_FILTER_TOOLS = {"screen content tools", "palette", "chroma palette",
+                           "palette past the frame's edge", "intrabc", "inter tx split", "CDEF",
+                           ("loop restoration", "Wiener"), ("loop restoration", "self-guided"),
+                           ("loop restoration", "switchable"), ("restored unit", "Wiener"),
+                           ("restored unit", "self-guided"),
+                           "loop restoration chroma units halved"}
 
 
 def _pil(data: bytes) -> np.ndarray:
@@ -109,14 +114,17 @@ def test_census_tools_occur_in_decoded_fixtures():
     """Every tool the census finds in speed-6 encodes of photographic
     content, and the speed 0-3 tools the port decodes, occurs in at least
     one fixture the port decodes; so do all 13 luma modes, all 14 chroma
-    modes (CFL among them) and the seven intra transform types."""
+    modes (CFL among them), the seven intra transform types, palette and
+    intra block copy, CDEF and each kind of loop restoration."""
     tools = set()
     for name in DECODED:
         tools |= avif_decode.census((FIXTURES / name).read_bytes())
-    assert SPEED6_TOOLS | SLOWER_TOOLS | {"tiles"} <= tools
+    assert SPEED6_TOOLS | SLOWER_TOOLS | SCREEN_AND_FILTER_TOOLS | {"tiles"} <= tools
     assert {("y mode", m) for m in range(13)} <= tools
     assert {("uv mode", m) for m in range(14)} <= tools
     assert {("tx type", t) for t in (0, 1, 2, 3, 9, 10, 11)} <= tools
+    # an intrabc block's inter sets: V_ADST and the flipped ADSTs
+    assert {("tx type", t) for t in (12, 14, 15)} <= tools
     assert not any(isinstance(t, tuple) and t[0] == "refused" for t in tools)
 
 
@@ -257,7 +265,8 @@ def _mutants(data: bytes, seed: int) -> list:
     return out
 
 
-@pytest.mark.parametrize("name,seed", [("blob.avif", 1), ("avif_130x70.avif", 2)])
+@pytest.mark.parametrize("name,seed", [("blob.avif", 1), ("avif_130x70.avif", 2),
+                                       ("avif_squares_spots.avif", 6), ("avif_lr_tall.avif", 4)])
 def test_cuts_and_edits_agree_with_pil(name, seed, tmp_path):
     """40 cuts and one-byte edits of a fixture: PIL's outcome from a fresh
     process and the port's with PIL blocked give the same pixels, or both
@@ -284,7 +293,8 @@ def test_cuts_and_edits_agree_with_pil(name, seed, tmp_path):
 
 # --- read_texture, scenes, and the JAX package -----------------------------------------
 
-SCENE_FIXTURES = ("blob.avif", "avif_130x70.avif", "avif_444.avif", "avif_rgba.avif")
+SCENE_FIXTURES = ("blob.avif", "avif_130x70.avif", "avif_444.avif", "avif_rgba.avif",
+                  "avif_squares256.avif", "avif_lr_switchable.avif")
 
 
 def test_read_texture_without_pil_matches_the_jax_package(monkeypatch):

@@ -721,9 +721,11 @@ def test_chip_smoke_texture_scenes_on_cpu(tmp_path):
     line-interleaved RGB IM, lossless) and cubes with cubes_g4.tif (256x256
     bilevel squares in Group 4, the PPM scene's 32,768-row atlas), textured
     with blob_thunder.tif (that texture as 4-bit grey ThunderScan) and cubes
-    with cubes_rlew.tif (the 256x256 squares in CCITT RLEW), and textured
-    with blob.avif (that texture as PIL's default AVIF), through its
-    fixture_texture."""
+    with cubes_rlew.tif (the 256x256 squares in CCITT RLEW), textured
+    with blob.avif (that texture as PIL's default AVIF), cubes with
+    cubes_screen.avif (256x256 flat squares in palette and intra block
+    copy) and textured with blob_lr.avif (its texture loop-restored),
+    through its fixture_texture."""
     from relativitypathtracer_tpu_torch.ops.kernels.texture_kernel import texture_route
 
     spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
@@ -738,7 +740,8 @@ def test_chip_smoke_texture_scenes_on_cpu(tmp_path):
                         ("textured", "blob_irrev.jp2"), ("cubes", "cubes_lossless.j2k"),
                         ("textured", "blob_rgb.im"), ("cubes", "cubes_g4.tif"),
                         ("textured", "blob_thunder.tif"), ("cubes", "cubes_rlew.tif"),
-                        ("textured", "blob.avif")]
+                        ("textured", "blob.avif"), ("cubes", "cubes_screen.avif"),
+                        ("textured", "blob_lr.avif")]
     for kind, name in fixtures:
         where = tmp_path / name
         scene_file = smoke.fixture_texture(write_demo_scene(str(where), 1, kind), name)
@@ -753,7 +756,8 @@ def test_chip_smoke_texture_scenes_on_cpu(tmp_path):
                 assert bytes(host.textures) == bytes(ppm.textures) == demo_texture(32).tobytes()
             assert route == "small"
         else:
-            rows = 32768 if name in ("cubes_g4.tif", "cubes_rlew.tif") else 2048
+            big = ("cubes_g4.tif", "cubes_rlew.tif", "cubes_screen.avif")
+            rows = 32768 if name in big else 2048
             assert scene.tex_quads.shape[0] == rows and route == "windowed"
 
 

@@ -3603,8 +3603,34 @@ def stripes(rng, n: int, tile: int = 16) -> np.ndarray:
 # the AVIF fixtures with a tool the port does not decode yet: committed,
 # refused by name in tests/test_torch_texture_avif.py, and kept out of
 # pil_rgb.json (whose every file decodes)
-AVIF_LATER = ("avif_restoration.avif", "avif_squares.avif", "avif_film_grain.avif",
-              "avif_qm.avif", "avif_cdef.avif")
+AVIF_LATER = ("avif_film_grain.avif", "avif_qm.avif")
+
+
+def lr_uv_shift_edit(data: bytes) -> bytes:
+    """An AVIF file with lr_uv_shift set: the first one-bit edit of its
+    frame header that parses to the same header with chroma restoration
+    units half the luma ones (aom never writes lr_uv_shift 1)."""
+    from relativitypathtracer_tpu_torch.utils import av1_obu, avif_decode
+
+    def header(d):
+        return av1_obu.parse_still(avif_decode._container(d)[3])[1]
+
+    base = header(data)
+    assert base.lr_type[1] or base.lr_type[2]
+    at = data.find(b"mdat") + 8
+    for pos in range(at, at + 64):
+        for bit in range(8):
+            edit = bytearray(data)
+            edit[pos] ^= 1 << bit
+            try:
+                fh = header(bytes(edit))
+            except ValueError:
+                continue
+            if (fh.lr_uv_shift == 1 and fh.lr_type == base.lr_type
+                    and fh.lr_unit_size[0] == base.lr_unit_size[0]
+                    and fh.base_q_idx == base.base_q_idx):
+                return bytes(edit)
+    raise ValueError("no lr_uv_shift bit found")
 
 
 def avif_fixtures(rng, Image) -> dict:
@@ -3674,6 +3700,56 @@ def avif_fixtures(rng, Image) -> dict:
                                              speed=0, subsampling="4:4:4")
     files["avif_tiles.avif"] = save(Image.fromarray(_picture(rng, 70, 130)), quality=50,
                                     advanced={"tile-columns": "1", "tile-rows": "1"})
+    files.update(avif_screen_and_filters(np.random.default_rng(SEED + 13), Image, save))
+    return files
+
+
+def avif_screen_and_filters(rng, Image, save) -> dict:
+    """AVIF files with palette, intra block copy, CDEF and loop restoration:
+    cubes' flat squares tiled to 256x256 (palette and intrabc, 4:2:0 and
+    4:4:4), the 64x64 squares in 4:4:4 (a chroma palette), squares cut to
+    99x75 (palette blocks past the frame's edge), the tiled squares with 96
+    spots of their colours (intrabc blocks with a residual: the transform
+    tree, the inter transform types); CDEF in 4:2:2 and 4:0:0
+    and with 128x128 superblocks; loop restoration: self-guided units in
+    4:4:4 and in 4:0:0 (128x128 superblocks), switchable units (Wiener and
+    self-guided), chroma units of half the luma size (a one-bit edit), and
+    a 48x160 picture whose Wiener-restored rows cross stripe boundaries;
+    and the textures of chip_smoke.py's two AVIF scenes."""
+    square = np.add.outer(np.arange(64) // 8 * 3, np.arange(64) // 8 * 5) % 6
+    squares = rng.integers(30, 225, (6, 3)).astype(np.uint8)[square]
+    tiled = Image.fromarray(np.tile(squares, (4, 4, 1)))
+    files = {"avif_squares256.avif": save(tiled),
+             "avif_squares256_444.avif": save(tiled, subsampling="4:4:4"),
+             "avif_squares_444.avif": save(Image.fromarray(squares), subsampling="4:4:4"),
+             "avif_squares_edge.avif": save(Image.fromarray(
+                 np.ascontiguousarray(np.tile(squares, (2, 2, 1))[:75, :99])))}
+    pic = Image.fromarray(_picture(rng, 48, 48))
+    for ss in ("4:2:2", "4:0:0"):
+        files[f"avif_cdef{ss.replace(':', '')}.avif"] = save(
+            pic, quality=40, subsampling=ss, advanced={"enable-cdef": "1"})
+    pic128 = Image.fromarray(_picture(rng, 64, 64)).resize((128, 128), Image.BICUBIC)
+    files["avif_cdef_sb128.avif"] = save(pic128, quality=60, speed=0,
+                                         advanced={"enable-cdef": "1", "enable-restoration": "0"})
+    files["avif_lr_selfguided444.avif"] = save(pic128, quality=30, speed=3, subsampling="4:4:4")
+    files["avif_lr_selfguided.avif"] = save(pic128, quality=30, speed=0, subsampling="4:0:0")
+    pic256 = Image.fromarray(_picture(rng, 64, 64)).resize((256, 256), Image.BICUBIC)
+    switchable = save(pic256, quality=50, speed=0)
+    files["avif_lr_switchable.avif"] = switchable
+    files["avif_lr_uv_shift.avif"] = lr_uv_shift_edit(switchable)
+    tall = Image.fromarray(_picture(rng, 40, 16)).resize((48, 160), Image.BICUBIC)
+    files["avif_lr_tall.avif"] = save(tall, quality=50, speed=3)
+    spots = np.tile(squares, (4, 4, 1))
+    colours = np.unique(squares.reshape(-1, 3), axis=0)
+    for _ in range(96):
+        y, x = rng.integers(0, 251, 2)
+        spots[y:y + 5, x:x + 5] = colours[rng.integers(0, len(colours))]
+    files["avif_squares_spots.avif"] = save(Image.fromarray(spots), quality=40)
+    # chip_smoke's scenes: cubes with its 256x256 texture as flat squares in
+    # palette and intrabc, textured with its 32x32 texture loop-restored
+    from relativitypathtracer_tpu_torch.utils.demo_scene import demo_texture
+    files["cubes_screen.avif"] = save(tiled, speed=0)
+    files["blob_lr.avif"] = save(Image.fromarray(demo_texture(32)), quality=50, speed=0)
     return files
 
 

@@ -2,10 +2,11 @@
 encodes turn on, over a fixed sweep, and whether the port decodes each.
 
 The sweep: quality 10, 30, 50, 75, 90 and 100; speed 0, 3, 6, 8 and 10;
-subsampling 4:2:0, 4:2:2, 4:4:4 and 4:0:0; full and limited range; three
+subsampling 4:2:0, 4:2:2, 4:4:4 and 4:0:0; full and limited range; four
 contents: a seeded 128x128 photographic picture (the fixtures'
-`_picture`), the textured scene's 32x32 texture and the cubes scene's
-64x64 flat squares. Each file is encoded by PIL (Pillow with libavif and
+`_picture`), the textured scene's 32x32 texture, 64x64 flat squares and
+those squares tiled to 256x256 (the cubes scene's texture size, where aom
+turns on intra block copy). Each file is encoded by PIL (Pillow with libavif and
 aom) and read by `utils/avif_decode.census`; every file the port decodes
 is also held to PIL's pixels.
 
@@ -36,7 +37,7 @@ QUALITIES = (10, 30, 50, 75, 90, 100)
 SPEEDS = (0, 3, 6, 8, 10)
 SUBSAMPLINGS = ("4:2:0", "4:2:2", "4:4:4", "4:0:0")
 RANGES = ("full", "limited")
-CONTENTS = ("picture", "texture", "squares")
+CONTENTS = ("picture", "texture", "squares", "squares256")
 
 
 def content(name: str) -> np.ndarray:
@@ -49,6 +50,8 @@ def content(name: str) -> np.ndarray:
         return demo_texture(32)
     square = np.add.outer(np.arange(64) // 8 * 3, np.arange(64) // 8 * 5) % 6
     colours = np.random.default_rng(SEED).integers(30, 225, (6, 3)).astype(np.uint8)
+    if name == "squares256":
+        return np.tile(colours[square], (4, 4, 1))
     return colours[square]
 
 
@@ -94,8 +97,12 @@ def main() -> None:
         print(f"{tool:44s} {name:8s} files {len(rs):3d} speeds {speeds} qualities {quals} "
               f"subsamplings {sss}")
     bad = [r for r in rows if r["equal_to_pil"] is False]
+    refused = [r for r in rows if r["refused"]]
     print(f"files {len(rows)}, decoded {sum(r['equal_to_pil'] is not None for r in rows)}, "
-          f"unequal to PIL {len(bad)}")
+          f"unequal to PIL {len(bad)}, refused {len(refused)}"
+          + "".join(f"\n  refused: {r['content']} q{r['quality']} s{r['speed']} "
+                    f"{r['subsampling']} {r['range']}: {', '.join(r['refused'])}"
+                    for r in refused))
     if bad:
         sys.exit(1)
 

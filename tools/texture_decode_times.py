@@ -1,6 +1,7 @@
 """Time the port's texture decoders on this host's CPU: one 1024x1024 file
 of each format and kind (ICNS: its largest RGB resource, it32, is
-128x128), written by PIL (or, where PIL writes none, by
+128x128; the committed tools/avif_512_cdef_lr.avif is 512x512 and its
+row gives each pass's seconds), written by PIL (or, where PIL writes none, by
 tests/torch_textures/make_fixtures.py's builders) from
 utils/demo_scene.demo_texture(1024), decoded by
 models/texture.decode_texture and held to PIL's decode byte for byte.
@@ -121,6 +122,10 @@ def files(Image) -> dict:
         # PIL's default AVIF encode (quality 75, speed 6, 4:2:0) of this
         # texture, as committed for chip_smoke.py: timed once
         "AVIF q75 (PIL's default)": (ROOT / "tools" / "avif_1024_q75.avif").read_bytes(),
+        # 512x512: demo_texture(512) at quality 30, speed 0, with aom's CDEF
+        # on; its CDEF and loop-restoration passes timed apart
+        "AVIF 512x512 CDEF and loop restoration": (
+            ROOT / "tools" / "avif_512_cdef_lr.avif").read_bytes(),
     }
     return out
 
@@ -132,22 +137,29 @@ def main() -> int:
     from PIL import Image
 
     from relativitypathtracer_tpu_torch.models.texture import decode_texture
+    from relativitypathtracer_tpu_torch.utils.avif_decode import decode_avif
 
     ok = True
     for name, data in files(Image).items():
         best = float("inf")
         repeat = 1 if name.startswith(ONCE) else REPEAT
+        passes: dict = {}
         for _ in range(repeat):
             t0 = time.perf_counter()
-            got = decode_texture(data)
+            if name.startswith("AVIF 512"):
+                got = decode_avif(data, passes)
+            else:
+                got = decode_texture(data)
             best = min(best, time.perf_counter() - t0)
         with Image.open(io.BytesIO(data)) as im:
             # in one read: libjpeg's arithmetic decoder cannot wait for PIL's next
             im.decodermaxblock = len(data) + 1
             equal = bool(np.array_equal(got, np.asarray(im.convert("RGB"))))
         ok = ok and equal
-        print(json.dumps({"format": name, "bytes": len(data), "seconds": round(best, 4),
-                          "repeat": repeat, "equal_to_pil": equal}), flush=True)
+        row = {"format": name, "bytes": len(data), "seconds": round(best, 4), "repeat": repeat,
+               "equal_to_pil": equal}
+        row.update({f"{k} seconds": round(v, 4) for k, v in passes.items()})
+        print(json.dumps(row), flush=True)
     print(json.dumps({"host_cpu": _cpu_model(), "repeat": REPEAT,
                       "note": "host CPU seconds, not a card's", "ok": ok}))
     return 0 if ok else 1
