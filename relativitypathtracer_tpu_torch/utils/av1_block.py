@@ -9,10 +9,10 @@ depth (an intrabc block's transform tree: read_var_tx_size and
 InterTxSizes), the transform type (the intra sets, or an intrabc block's
 inter sets with chroma taking luma's type), the coefficients (txb skip,
 eob, base and range levels and their contexts, Golomb, dc sign) and their
-dequantisation, then prediction (intra, palette, or the block copy before
-its residual) and reconstruction through av1_recon, transform block by
-transform block in the specification's order (transform_tree for an
-intrabc block's luma).
+dequantisation (weighted by the segment's quantiser matrix), then
+prediction (intra, palette, or the block copy before its residual) and
+reconstruction through av1_recon, transform block by transform block in
+the specification's order (transform_tree for an intrabc block's luma).
 
 `FrameDecoder(seq, fh).decode()` returns the reconstructed planes before
 the loop filter, with the per-4x4 information av1_loopfilter, av1_cdef and
@@ -897,6 +897,16 @@ class FrameDecoder:
         acq = T.AC_Q[max(0, min(255, qi + dqu))]
         pels = tw * th
         dq_shift = (pels > 256) + (pels > 1024)
+        # the segment's matrix weights a 2D transform's quantisers (identity
+        # and 1D types, and a lossless segment's level 15, read none)
+        qm_level = fh.seg_qm_level[self.segment_id][p]
+        qm = None
+        if qm_level < 15:
+            if tx_type < T.IDTX:
+                qm = _qm_row(qm_level, p > 0, tx)
+                self.tools.add(("qm tx size", T.TX_SIZES[tx]))
+            else:
+                self.tools.add("qm flat for identity and 1D types")
         coef = np.zeros((th, tw), np.int64)
         cul = 0
         dc_cat = 0
@@ -923,7 +933,10 @@ class FrameDecoder:
                 dc_cat = 1 if sign else 2
             level &= 0xFFFFF
             cul += level
-            dq = ((level * (dcq if pos == 0 else acq)) & 0xFFFFFF) >> dq_shift
+            q = dcq if pos == 0 else acq
+            if qm is not None:
+                q = (q * qm[pos] + 16) >> 5
+            dq = ((level * q) & 0xFFFFFF) >> dq_shift
             dq = min(dq, (1 << 15) - 1) if not sign else -min(dq, 1 << 15)
             coef[row, col] = dq
         cul = min(63, cul)
@@ -942,6 +955,18 @@ _BR_MAG = tuple(min((m + 1) >> 1, 6) for m in range(46))
 _NEIGHBOURS = {T.TX_CLASS_2D: lambda s: ((1, s, s + 1, 2, 2 * s), (1, s, s + 1)),
                T.TX_CLASS_HORIZ: lambda s: ((1, s, 2, 3, 4), (1, s, 2)),
                T.TX_CLASS_VERT: lambda s: ((1, s, 2 * s, 3 * s, 4 * s), (1, s, 2 * s))}
+
+
+@functools.lru_cache(maxsize=None)
+def _qm_row(level: int, chroma: bool, tx: int) -> tuple:
+    """Quantizer_Matrix[level][chroma] from Qm_Offset[tx], one weight a
+    position of the (at most 32x32) coded region in this decoder's order
+    (row * width + column): the table holds a size's weights column by
+    column, which squares' symmetry hides and the rectangles show."""
+    ww, hh = (min(n, 32) for n in T.TX_SIZES[tx])
+    at = T.QM_OFFSET[tx]
+    weights = T.QUANTIZER_MATRIX[level, int(chroma), at:at + ww * hh].reshape(ww, hh)
+    return tuple(int(v) for v in weights.T.reshape(-1))
 
 
 @functools.lru_cache(maxsize=None)

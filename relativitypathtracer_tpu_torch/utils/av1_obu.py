@@ -3,10 +3,11 @@
 (reduced still-picture headers among them, timing, decoder model and
 operating points, colour config), and a key frame's frame header (frame
 size, superres, screen content tools and intra block copy, tile info,
-quantiser, segmentation, delta q and delta lf, loop filter, CDEF (damping
-and strengths) and loop-restoration params (each plane's type, the unit
-sizes), tx mode, reduced tx set, film grain) with its tile groups, in a
-frame OBU or a frame header OBU and tile group OBUs.
+quantiser and its matrix levels, segmentation, delta q and delta lf, loop
+filter, CDEF (damping and strengths) and loop-restoration params (each
+plane's type, the unit sizes), tx mode, reduced tx set, and the film
+grain params (av1_filmgrain synthesises the grain)) with its tile groups,
+in a frame OBU or a frame header OBU and tile group OBUs.
 
 `parse_still(data)` returns the sequence header, the frame header and the
 tiles' bytes. What a file turns on goes into the frame header's `tools`
@@ -302,8 +303,11 @@ def frame_header(r: BitReader, s: SimpleNamespace, tid: int, sid: int) -> Simple
         else:
             fh.dq_v_dc, fh.dq_v_ac = fh.dq_u_dc, fh.dq_u_ac
     fh.using_qmatrix = r.f(1)
+    fh.qm_y = fh.qm_u = fh.qm_v = 15
     if fh.using_qmatrix:
-        raise Unsupported("quantizer matrices")
+        fh.tools.add("quantizer matrices")
+        fh.qm_y, fh.qm_u = r.f(4), r.f(4)
+        fh.qm_v = r.f(4) if s.separate_uv_delta_q else fh.qm_u
     # segmentation_params
     fh.seg_enabled = r.f(1)
     fh.seg_feature = [[None] * 8 for _ in range(8)]
@@ -345,6 +349,12 @@ def frame_header(r: BitReader, s: SimpleNamespace, tid: int, sid: int) -> Simple
     fh.coded_lossless = all(fh.lossless)
     if any(fh.lossless):
         fh.tools.add("lossless")
+    # SegQMLevel: each segment's level for Y, U and V (15, a lossless
+    # segment's, reads no matrix)
+    fh.seg_qm_level = [(15, 15, 15) if fh.lossless[i] or not fh.using_qmatrix
+                       else (fh.qm_y, fh.qm_u, fh.qm_v) for i in range(8)]
+    if fh.using_qmatrix and not fh.coded_lossless:
+        fh.tools.update(("qm level", v) for v in (fh.qm_y, fh.qm_u, fh.qm_v)[:s.num_planes])
     # loop_filter_params
     fh.lf_level = [0, 0, 0, 0]
     fh.lf_sharpness = 0
@@ -415,11 +425,65 @@ def frame_header(r: BitReader, s: SimpleNamespace, tid: int, sid: int) -> Simple
     fh.reduced_tx_set = r.f(1)
     if fh.reduced_tx_set:
         fh.tools.add("reduced tx set")
-    if s.film_grain_params_present and r.f(1):
-        raise Unsupported("film grain")
+    fh.film_grain = None
+    if s.film_grain_params_present and r.f(1):  # apply_grain
+        g = fh.film_grain = _film_grain_params(r, s)
+        fh.tools.update({"film grain", ("film grain ar lag", g.ar_coeff_lag)})
+        flags = {"overlap": g.overlap_flag, "restricted range": g.clip_to_restricted_range,
+                 "chroma scaling from luma": g.chroma_scaling_from_luma,
+                 "no luma points": not g.y_points}
+        fh.tools.update(("film grain", name) for name, on in flags.items() if on)
     if fh.allow_screen_content_tools:
         fh.tools.add("screen content tools")
     return fh
+
+
+def _points(r: BitReader, count: int, most: int) -> list:
+    """A scaling function's points (x, y), x rising (dav1d refuses more than
+    `most` points or an x that does not rise)."""
+    if count > most:
+        raise ValueError(f"AV1: {count} film grain scaling points")
+    points = []
+    for _ in range(count):
+        x = r.f(8)
+        if points and x <= points[-1][0]:
+            raise ValueError("AV1: film grain scaling points out of order")
+        points.append((x, r.f(8)))
+    return points
+
+
+def _film_grain_params(r: BitReader, s: SimpleNamespace) -> SimpleNamespace:
+    """film_grain_params() of a shown key frame after apply_grain (update_grain
+    is 1); the multipliers and AR coefficients less their 128 (the offsets
+    less 256), as dav1d keeps them."""
+    g = SimpleNamespace()
+    g.grain_seed = r.f(16)
+    g.y_points = _points(r, r.f(4), 14)
+    g.chroma_scaling_from_luma = 0 if s.mono else r.f(1)
+    g.uv_points = [[], []]
+    if not (s.mono or g.chroma_scaling_from_luma or (s.ssx and s.ssy and not g.y_points)):
+        g.uv_points = [_points(r, r.f(4), 10) for _ in range(2)]
+        if s.ssx and s.ssy and bool(g.uv_points[0]) != bool(g.uv_points[1]):
+            raise ValueError("AV1: 4:2:0 film grain with points for one chroma plane")
+    g.num_y_points = len(g.y_points)
+    g.scaling_shift = r.f(2) + 8
+    g.ar_coeff_lag = r.f(2)
+    n = 2 * g.ar_coeff_lag * (g.ar_coeff_lag + 1)
+    g.ar_coeffs_y = [r.f(8) - 128 for _ in range(n)] if g.y_points else []
+    g.ar_coeffs_uv = [[], []]
+    for p in range(2):
+        if g.uv_points[p] or g.chroma_scaling_from_luma:
+            g.ar_coeffs_uv[p] = [r.f(8) - 128 for _ in range(n + bool(g.y_points))]
+    g.ar_coeff_shift = r.f(2) + 6
+    g.grain_scale_shift = r.f(2)
+    g.uv_mult, g.uv_luma_mult, g.uv_offset = [0, 0], [0, 0], [0, 0]
+    for p in range(2):
+        if g.uv_points[p]:
+            g.uv_mult[p], g.uv_luma_mult[p] = r.f(8) - 128, r.f(8) - 128
+            g.uv_offset[p] = r.f(9) - 256
+    g.overlap_flag = r.f(1)
+    g.clip_to_restricted_range = r.f(1)
+    return g
 
 
 def qindex(fh: SimpleNamespace, seg: int, current) -> int:

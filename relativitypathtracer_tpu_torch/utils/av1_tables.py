@@ -1,5 +1,6 @@
 """The AV1 specification's constant tables that an intra frame reads, intra
-block copy's, palette's, CDEF's and loop restoration's among them.
+block copy's, palette's, CDEF's, loop restoration's, the quantiser
+matrices' and film grain's among them.
 
 Default CDFs (section 9.4's Default_*_Cdf arrays), stored packed: for each
 table, row after row, the N - 1 values 32768 - cdf[i] of an N-symbol
@@ -21,7 +22,9 @@ Intra_Filter_Taps[5][8][7]. The scans, the block and transform size tables
 and the small lookups follow the specification's definitions, as do the
 inter transform sets, Palette_Color_Context, CDEF's directions, taps and
 Cdef_Uv_Dir, and loop restoration's Sgr_Params, Wiener and self-guided
-ranges and x/(x+1) and 1/n tables.
+ranges and x/(x+1) and 1/n tables. Quantizer_Matrix and Gaussian_Sequence
+are packed at the end (written by tools/av1_tables_extract.py), with
+Qm_Offset.
 """
 
 from __future__ import annotations
@@ -669,3 +672,626 @@ SGR_X_BY_XPLUS1 = tuple(1 if z == 0 else 256 if z >= 255 else ((z << 8) + z // 2
 # the border past the frame that a motion vector stack's vectors are
 # clamped to (1/8 sample)
 MV_BORDER = 128
+
+# Quantiser matrices and film grain: Quantizer_Matrix[15][2][3344] (level,
+# luma or chroma, then each size's weights one after the other, at
+# QM_OFFSET[tx]; a 64-point size reads its 32-point region) and
+# Gaussian_Sequence[2048], packed as uint8 and little-endian int16 in a
+# zlib stream each (written by tools/av1_tables_extract.py).
+_QM_BLOB = (
+    "eNqMvWdzHEe2JvxPhIYHGu2976521d577x2AbngPwpEwJAiCJAiQBCk6iSKlIeVmJM2Mxmh3Z2dmZ+LGxuwbG7Hx3rix"
+    "n3b38/sL3nOyukDy3pmLbVFqFbMrqyozz3PMc04WZ8xZHLPk2s7cwWmxffonDmdIao3kJzn9I2KjJ1kbGlFQvnSpJRVT"
+    "oWJnetlq9BXnd68fRTzpzu79J6/yydL09Sff/3Gy1lo+evXHf+b09PQN8ERaKhBOFxudxR4Op7dvlKfQOtzhVLEx1cPp"
+    "7R/g8hVa2hWMZSvjfb39w1yhVGN0eYKRVLE50DfAFSnUJqs/mEgXak3eKFeoMFrc/lQmX6lNTol4fKnaQgeihfL4RGd+"
+    "SatQaEzuQKbUnp6dW1nfprRao9UfLTUXlje2d/cOAw7a5U8V2gu7B4e3ju/cD7vhQpny9PLB4dn9848/TYeDwUR+fHbj"
+    "8OzJy9dvvi2mYpF0ZWJu+9b9l2+/+81PjWI2Vah1VnaPz19/97s//a3TqBRrk/Pre3c+fvObP/3tnxenxpvNqaXtw/uf"
+    "fvvT3/75f8Pz9/Rw+voHhnkCkUJroOhAMJxI54rVxnhndnEVxgM+fX39Q1yeQKrSGqwery8SS2by5VpzcnqOae/t6xsc"
+    "5fLECpWWcjjdgXAslYUeJqZIe29vX3//0OgYH9tNDqfLH4qyl+hhmgcGhrk8vgTbaYfLF4QrZAsVaCed9w8ODo3A9cVy"
+    "pcZoszs80AG0l2utyb4+bB4e5fKFYqlCozNaXW5PIBiKxPEOmu1+uPWBQbi2UCKTq/VGyu7x+kPQfToDF6iPD/RD+xCX"
+    "L5IolGqdyWx1+gPBaCKVxu7rzfHhocGh4RE4W6HR6ikb7fRForF0JpMvVar1VnuGxx0d5XKx2UhZaLfXH0mlM/l8sVKF"
+    "4elMzQh43DEeTyxTaimLzeULhOLZHJxbrzUn2p3p+WWRgMfnC6RwaxYb7QmEo6lCsVwfb050oHVxaUUhFYslYoVaR9Eu"
+    "TyiezBQbzVan3ZmZnltaWl7f1qoUCoVcozfZ3L5AHG6rDt3Ozi7OLa2srG9tbxu0KpVKqTOaaW8gnMyXquMzs/OLq8vr"
+    "V9a3dnb2DimDVquFe4fnDkUzpWqzs7C4fGVjc3t799re4eEhbaVMJqPVDs8dTxXr45359Subu1f3r12H9Xl0+zTgcTho"
+    "m8sDz50tNNozC+u7ewc3Dm/cOjq+c+fs/lnQ63Q67G5vIAoT3oQVdWXv4Prx3Tsn985OH50/fhH2uV0umNBgDFZUCwZk"
+    "8+D64d2zR/cfnz/7+PmnnyQiAb/PEwhF0/BoePrujeO79x9+/OLJpy9evXr9VToWDgX9wUgCxG28Pbu6cRXOfvjk2csv"
+    "Xr9589W3X+eSsWgkFIqlMsV6s7O4vLl/486jj5+9fPX2229+/v33vy1mUgn4RTIN0joxM7e+fe3Wyf0X0PzVd7/+zY8/"
+    "/a6az6aTyXg6i0MzvXRl+/rRvcdPvnj71fc//O4//vEPf22Ui7lsNpUpwOkdEOjdg+Oz809ff/vdD7/76U9//ds/jdeq"
+    "xUIhmy3DWpxeWtm6dnjn9NmLN9/8Gpr/y9/++790mo1qpVws1OqTgA7rO3u34PZevfn5b/4jNP8///w/ZycnGo1atVJv"
+    "daYXl7d2Do/Ozp+/+ur7H//4V2j+l/+1OD01Pt5q1pvtKTh9e+/w9v3HcPnvf/rD3/77P//L//4/q3Nznc5ke3x8ZmZ5"
+    "ZXv78PD07MUnX33929/99Z/+5X/+r//z/3F6B8VUIN3gcjV0pFiZctsi9fWj23fSsXR78/43v+Vw3eleri02qImkxXS9"
+    "TUXWNwPFo/vpyu1vGlN3fssB8AD81FD+ULpYby+AtA4OjQkUGrsjgHhJ8FGuMiI+5mAM5WKJQkd74plGqzU+M7/wHv5t"
+    "b+5c34/7QITytbm1m8cnj0+fPc7GQoFYrjm1snfv+Wdvv/+unE0mAHZn1/buPPniVz/9hcMZkFPxbLmnt0+s9cWycDcS"
+    "rTeU7BvkKoz+QGJgSKSzRmIp3pic9udzRZFA5YnWmk2NwhgvzU3NUhprprm2sua3+xsLN/f2Qo5ga/n43p10INHaPnn+"
+    "pBjLjW8+/uyLerY0s3P69lftSnX++rPvf1oYby7sP/7uL4ifHBY/QQ4p2h8MIbgBtoA0rPR04bFvkOAfyLHDBfjYxb+J"
+    "DgN/iG9jPAHgn8Zopx0gqiz+sfg2xhd9gG9RxLcP8EuuVIGYd/ELekeAao4z+CT6EJ+KFfggPM8uyt/hi/MCXyZazfHO"
+    "zPz8/MLi38GXqenZmYXV5aXF1Y2d/b+PH9s7m9B2/WB/3+920LTN6fEhPtQRH67t7R8dHRzePj66eefsUTzk83ndgMiA"
+    "TbXJuaW1qzePju+dPHh8//T82ZPHj1LRUDDg84XjyWylNj67sHp1//DswfnTZ598/urTz372TTYRA/EORGLpXKk5PrW4"
+    "AiJw78HzTz978/br73/53beFdCoei4UZAW93FlY3967fu//0szff/PzXP/72D38p57KpZDKBo1lujs/OrW3s3bhz/8nL"
+    "L7771e9++vNf/lorFrPZTCYFsFxvdKaWlrd3jm49PH/1+hff/+c//dN//R/M+pdrKT90ASqDLAauVGVwMzquB+d3VAz2"
+    "hC+ESrEH1Rke06Dk4BSydrgSOPYGQjDpYG4MDnHFcg2MNxxnYOEMg4GhMTr9vkA4kemHhcSXqPWUJxSOQAcDfUNjIoXO"
+    "ZAV8jiVTqeHBEb5EQ9mckWQyDUqMNzomkhtpsEfyoHiKRcEYT6yknL5QtlQpVcp1ESgflcUD9kmt1qw1G4x8huKZ+uT4"
+    "eHu8owF7xeiOg70yNzvVmZ3Sq1U6szeZr84sLSwuzC1ROg3Ibwbkd211ZXVtmaaMVmekWO+sX726vbmx7XfYwZ5ptBeu"
+    "3dzf29vbCbpodyDdnFrcOzo8vH7jKOR2gH3Tml7ePz67d+/OrUQAVEVxYvbK0b0HD+7ff5gOB4KJSmtm++jk/PnTJ+e5"
+    "aDiUrjQXdg4ePP30s5evioDeucr46ubh42efvfnidSWdjBcrneWN2/c/efPNd7+ow/yW4GZ3jk8/f/vzX30/XixkK435"
+    "xf2j81df//p3/7ldrRSrE/Or128++/T7H3/600yjUalPzW8c3Hny2S9/++d/WpgYrzdnF3b2zx7/7Ls//OW/rnQ64+OL"
+    "i/v7jx598+1f/vo/cL77RvkKHdiLiVx1Auw/Udf+AxGbmPU7wGRAe+7a/tHh8c2zQioGarjWWd279/TNz3/8Qw/PX+CM"
+    "OlIcLh3rEznDfQpfctSYyvMthZrC3e7o/AurjtS1PXdm/164cvQ0UTl8k6se/7w6cfPHidmzP1yGP5fhy2X4cRk+XCb/"
+    "l8n3ZfJ7mXxe4D+nX2oIJXKsHujp7YfvSIrVB5z+IbHG/U4v9A/y1RRYiax+GB6RUM5kOsvqCQFP6QyVSmVWX8glulAG"
+    "RILVG3qVOVldWpxj9QdtdBY7V7c3WD0SpAPNxaPDG6w+SXijE1fuPbjP6pVcON3cefDpS1a/VJLFzsb9N9+xema8UJnf"
+    "P//6d6y+mWnU5w+e/PLPrN5Z6Ywv7j/69q/9ArVZoLPRalsqZaZTkz1DQonaaKGHhAKhTG2wCAUKtd5ssUqEarPD63ar"
+    "ZXpHCMbcqDZ7E4V83mKwuGP5xjhtsboj+fFpzke9ozDjCjVMqd3h8nzE6ecK+AKxTK0xmCx2B7g/fCEcS1VqncFkto3i"
+    "0hGjba3R6vQmi1gglMjlClhLepOJMpvFfD6Amc5gtFgtNqvdLhHAKtTpQRfRLqfT5VKIwTYGr8Pp8/u8Pp9PLZOCtWBx"
+    "EniLhMJGNVzIQvtCgG2wDBKURq3RW2l/OJUGuyuTtRp0WpPFBTOdK5VLpZLdZNCZbE5vJJkF+73RcFhMelicvkgiW6q3"
+    "JiZddrPJbHf5AOFKoH6nPA6bBY/D0N6YnJrj9HzE6R0Y5YtFYolEpoCLG02UxWoDqXGC5vWBuPX2gbwI4SOCxwbJ0Ovh"
+    "J2bmN66P0GFEX4UPZj24JDKFWqPRG4wm+AG2gzj2E3cEBhXaJVKFWq3R4Q+YLoi2H4NT2Xa5Sq3Wdn8A7QNDI6NjeG3S"
+    "DjcpUyiVMPZ6A9MBKHvoHP5eLMYHkMmhUaPTasldmi02Pp/HJ/3CB1rB6SFtBiN+oAsxrBt4MKkcJlEB06jSkDNNZDLh"
+    "I4LJF8D04xSryJxDo9kM14YP3J9YCA/Oh3alhtw1WB3w1/DHCo3wkXTPB09PBwsIxtYGf0/T+C8N4yMRQbMAR14HXeMj"
+    "wV87XTD4uFpcLpkERx7a1dA5DojD7XbDuvYwf7wKGTy4CB4blitlhUlz+3x+v88Pa8sLS8ynkkslEjF0r4XhsEGzNxAI"
+    "BkPwrz8YAOhUK2RSKYOFlMXudIOrGQpHI2H4JxSKhEM6NZhDMhhUWMJWB9hToWg0lojFozH4BtfQqFOrVQqYMSP4c2Ay"
+    "gaMKKxchLAGrNxE36TVqNYwNiArbDgYZWBjpdCqdSmUovUYD7SA9sFzc/iB40ul0LlfI5rK5DCx4i1Gv08KaM5ptdqfX"
+    "j65qJlcoFEv5Yh7EuWA1GfQ67N5soV1gQgC0ZXMFALIKEY+ijTIa9FotMzhufwAMqwycDbqqVq1WKzUQD/iBDgfH7vR4"
+    "g5FoMpOFs2soTPVGjbaQHxhNsJyhf7g/0BV5OLsBemG8Oe6wWsBhhJmDiYOx90dAl2SLJTi71ZqYmBx32qxmijIaYSnS"
+    "2D9YSalcvlyFsyfBI55y2e0WM1zCbLHj/YNNFE9nCqVqA87udKam3TRttcI9mK3Y7vdHIolUFtza+jj609Oz4I7abHAP"
+    "cPuAXnB/UdJeaaA3Pj0363PBFWw2s9lud7m8PvAM4xkYgFptfBzs2tmFnhGBSAGDL+SrwN230jqFyR3NpOJmvckZytSa"
+    "PUKdeYSv0AtUJpNI73YqqGhIb8tkTNZUzUrHm4CfXAY/TQQ/B0fGQFYFYolSBYNusYnew0cQJ4tMJJTg9exut8sJfxD/"
+    "1CaCf7EwrDmzTqsz2JyBSAamMZNLW406rcHs8ATiMCvVepU2Gw0Gs93tjyRzpUZrkjMokqnNVvojeA4Z6PNeAAsprEau"
+    "UCKRw6liEUCWwWAQC+Rg05vNEoECruawK8RKqzPgcaslKrsHfG6jUucOZeIRk0rvDmezSavW5IrlSjm7wewMF8olh8ns"
+    "DmeqDZfF7Irk6i2PzeIMpauTBD8HuYifBJsQP03v8NOLwaYBtEUQvwBnEB8BvC7wb5DFN6EA8Q/6UCpVACWGLgxzuVwe"
+    "wTcJi28awDf4dCEUzwN8QPySv4df0ILoZbEgPgkQn6BTrZ7p1Wqj7QSf4B5lEpGIxRcTiy8exB+YIMAghUyC+KJQaj/E"
+    "l6Df5/H6AkEWP9Q66Jlm8SMGVivos3AoeIEPpvfwIZNOJFPJeCyeSJlhflG+DWaQD3AJIolMJpvP5Qug63LZdMpC5FuD"
+    "AgbLC+UjkcoXCiUQ4RLAQNkK8q3TwZOBtnA4Pf5ABDwnUI3lWrVWr1fLNjMCgA4F3Gp3YgdRRsBq9WazOT7ByLcBHx4k"
+    "EG4fQ3FoDdZAgCcnJxxWK4ov9E9ZAT693mAQJDRdKFZBgibb05yeQa4I8FVtxOmkHT09Q1wynjpmhj/ijIA9AZoTzAeA"
+    "dyunbxR0Jfi2amY2egdQN4LiJPrBSA2OwGKACQeJImqSC+LE2Bs6sir4PPitFOdDr9fDVIthUaF8Yffwj4HImwrHG2AH"
+    "1I0YbBcwk1EUcUVQYpBNOc4lrAEAFiuxT7Rk7hwOQApGPkGg3F6YfdqhkKC9AtjmC/g8LrdTKRXLVEabwx0IYaDKq5bB"
+    "5UwAnaFIKBDwe3UKmVJDAdJG0dANBo0I7hYA5mQmEY9GgiaNEuwZcowrIGbSqvAY7JssRp7iFj34/DaPP5rJF3KgJKwG"
+    "eBTa5QN7uVAq5NI2mG3K7oDu8wDwxYIdpt9scwbDSVgM1VKRNhn1FqvLH0plS7VareqgTAYzXC+czIB936g5YT2YbW5P"
+    "BPCkBgjusljQPvJGYrlCHY7dMN9muF44Du57c3LSA9hpcTgD4GMUqzDhXsBri9MZDKZS5fLExHQPZ2AMRBvmVwuzZ7Ex"
+    "443QZ6XB/nO8Z8+lk8lYwkYZAKXsrkA0XUB/o0dstHHANB8QqAxjYrVOINcZ+RqLWaCl7RKDzyUzhQJqSzKqtabSBjpd"
+    "MNqSVcqarFvssabNkRi/DH8uw5fL8OMyfLhM/i+T78vk9zL5ZPEf/QAFTACrBzijApEUpoHVB4NoRYGQsHqBL5TKlCBC"
+    "rH4QCUHCzJSJ1RPwDVa61cLqC5lQYaa9TprVG0qxyuYO+T2s/tDJNA5/IhK80CNKPXwnY6w+sWiMnmge9FlXr9h0lCOa"
+    "LxdZ/UIbLa5QtlZj9YyTMrsj2VqL1Tduq9kVztYnWb3jtVucwVR5gjNqy4waE3VbYuMwUz/8gcMZFBp8qRqnf1igcUQK"
+    "g8NSHR3JVoQCnTNeaU0bNKC0l7eu+hyRyvLhyXkqkm1tnbz+vlaoTF89//7P4F9zBoaFCj0diIHHQPiKvkGeREU5/dF0"
+    "qYnxnIFhvkRlor3gflbwcIQrlKop2gNrujQAhyKJSgc/B1MsXxoeHOaCA0TZfeARF2pNIWgzlc7mDibzlRo4IAqJRKqj"
+    "wFEtNibbM/PLerCyKXswWWxNL65cWd+mKRPl9MHh/PrO7u7+zYCTpv2RfGN6fffw6Pad+zG/1xNJViYXdw7vPnz89NNM"
+    "NBSI5Wvtld2jh89fvf2mlE5EU4XGzJXd249fffXDT41SLp1Hgmj/ztO3P/z0506zUio1p5a3b97/9Juf/vw3hh8CnT00"
+    "DEir0OrxucLI/5QwfDnD8j8YtYI1pNIYrA6PD606jIY1J7vtMCqDoyQAAY/u9BACCHrothMGaGiURwgiCsCUEEDkEj1M"
+    "+BSah7l8ASGIrLTL22WQKg3m4gNI0nD5DEEEZr2LCa7BHUDfcG30mrg8oUgKcgla2+lBvYd3UGPiq0PIPoHUkwAr7cL7"
+    "Q2UMHTDxkRGuSCJBZxB0vpPIXAzNSlC6Q4PQ+fAoDywZgArwcmk4ORKHi4NMV+othj/i8gExwAumwKjuPlsebg6MXiY+"
+    "yxNiZIZoGT8YtJl8sQjea701OS3k83h8uDXoHBADHIIInFusVGpNMPbAohUTR1EkBVGG5/IGwxijrQCQtianpqbnlxRS"
+    "0JbgboE7A52TAA7Y0pNT7ekZWF3Ly0x8V6kBfQidxzO5Un28PT03M78wv4wMkl6D/BGOmh06T+aK1RY0Ly6tLF9ZW9/e"
+    "3gb41mrJqMECj5MA0OzC8trm+tbmzrWrezdoMBdMGB7ywILPFOutzvzK+ubOzu7V3f39w5uHHgeYXmYctWAik6+Ot2dX"
+    "Nrav7e9fv3Hz8PatO2cBj9NB22hQYBGQnkZ7emF9e/fg8M7Rndv37pzePwv7PG5AXw8MaqYI8jy3vHnt4PD47v2Th2eP"
+    "zh89j4X8Pi/SU3EQsPrk3OLazj40nz588vjp0+efPk9GQ2C6+dANKFaaUzNLmzv7d+6enj969vLTz16//jKTiILaDkRB"
+    "dou18Tbc/O71o/sPHz1/8erN27fffJUn9BFYYdl8udmaXgAouXHn5MmzF68//+rn3//i1yVQ4qDo46lcAcR7Zv7K5u7N"
+    "2w8fv3z1+Vff/PDjTz9WC/lMOpXA0+utqZllvL17Z08/fQPNv/r9f/pLo1zKo17II0M0BZe/tn/7zqOnn739+Q+/+uk/"
+    "/PmvEzVQ8oV8FkSh1ZleXtm+enjr9Pz567ff//j7//Dn//K3TrNZrZRLhRIo76n55fXtvZt37j/69PU3v/jpP0Hzf5uZ"
+    "nGw0arVypdWanl5a3tq+cXh29vz5l1/9+se//PVv/+3/5fQOCHTuWInLVVn8mXzTZvJmp7b39xPhRHPl+LOvOVxbopdr"
+    "Cg+ovAmBJdvU+adW3Jnt41h+/7NSc/9rDggw4KdcT/sRP9sYq8QQNdhIHsTLgf53+JgER+19PKyCS0eB/2N1RjKVzsLa"
+    "8trWht9B075Ivj69fu3w5ObZ3VQk4AunqxNzW0cPHr/44nUhBYOdq7YXtq6fPnv7ix/h6kLKnyr0cPp5OgeJB/K1dCDO"
+    "6R8R6mhfdGBQpLKCdTM8ItE5I+kc+H22SL5alUt07kx9oq1XUcHK9NwCbXImO+tbW367P79w7eh6zBOprB0+OM2EktXl"
+    "k8fPSonsxNrNF28buXx76+yLX7Qrpc7G3dc/MvFZFj9JgBYAogtu4+0ZFv8YfBQjPn6Afwy+AcAhiAgZ/GMBlODfO3zj"
+    "d/ENpAU8EYZigvHtZ/BLjGawztjFL8ABBKhSpYs/IoI/lgv8wQ/I8kTnH+BPGdra7Xanw8SH/y2+zM1MT80url75AB9g"
+    "BVQYfFhbXlrb3Nrc2HCCGU6ZzDaA9GgqW8YQ8CoAwPbV/f1rV/dv3mb4IxpREySwTuT/2v7h7ZNbN++c3bt7Ox5Gs9sT"
+    "AOVaKNc7MwtXtndv3bl7/+z86ccPQYhTMbTDfSHMaajWJ2bm1rZ2j24/ePT4xYuXX7x5/TKbiEfCYXBiEuAENcen51e2"
+    "dm4enz1+8dnrL7/8+vvfIH8UBwlHAa4igQQCfv349NGzL95++4sff/xtOZdLpRLJWDybLZdbGKBe3wMJ/fjJ51/88le/"
+    "/+nPZP3zhHJY30Qhof3Qz+VLDTY3CZ2Q41GeWGdxBPAiyBfhsdZMox5JIb0wAOpDS9Ewp3DcS8L1Yo3Jhno4gccjPKFU"
+    "Z6Y9vmA0Cb8eQrrPaAMbHVbRQN/gCEyuzuryRcKxeHxoYHhUDHNNe+GRQYcND45wJRoifql0JpflwTqSG+HiYCXkCoUy"
+    "kUdwEGD0wZ2olsUCoUhtob2xbLFeb9ZacjHYKzSYdjD4E+PtcQ0YzUa3P15qtmdmpjuzxH7xBpOV8emFufmFOSLP/kim"
+    "ObVwZW1leY3YM5FksbO4vr21tbXusVltnkSmOru6vbu7c3XP77DT/lS+sbBx7dbRzev7IbfTFcwUW8vb+3duHx/fjoHP"
+    "FclXJteuHd59cHZ6JwloHs+Xp9a2b99/9PjRxxmY/mS+Ord89QQm9dmTPJjiAGMzS/u3zl989sXnpWQims1PTK/t33z6"
+    "4vXbL6rgi+dK7anNa3c+fvnlt79sgI2ar7Znt66ePfziy1/8arxUzBWa7cXN/XuP3nz94++RPypNdFY3bt599vr7H39C"
+    "/qjS6VzZuH375cvf/PbPXXtRrKIcaPFVYXx5Cg2YzjCg+Xx1wmmhzC5/qjy+uAHr/erNbDwcBDEZn9+6efbi9Zff9/Cc"
+    "Wc6oJc7hUuFenjnYp3DFBjX+DM+cKonp8rjKOz5PRRa3HKmNm778tbNI/uqLZH7/db569cvqxM3vL8Ofy/DlMvy4DB8u"
+    "k//L5Psy+b1MPt/Df77BHUuzeqCnt5+npUPxd/pgiK+xBWKsXgChkxidoQirH4aGxRo6mEixeoLHlZv9cE1WX4iFajpW"
+    "rNdYvaFRGP2l9kyH1R+U1hppggpj9YjH6snMbu9eZfVJyBksLu/fPmb1StIfL6/dfvSI1S/5aKa5dOvFF6yeqaZz7c07"
+    "L79l9c14sdDevPfmR1bvzDQqnY3bL3/by1eZ+BqzTWWOxU22eBP8QpFCb7YNCYUCiVJPCYVoMlNmkUBpAL/eqZBoLJ5w"
+    "JKRXGh3hdCZj1oN4Zqp1G2V2hjL1Sc5HvUNiEXjNyBXake/oHxWgAarU4OKw9/bDOhOQoAvauxaw6oVikRDpRQ3+BeCH"
+    "GD1rbAWf2ySCc+VgWWsxomW2YvwFbGE9YZ9o2uGQwbkYTAKl6HF7PB6lVCJBHwFj38FgIKBTymFRWx3eUDQej0aiRg1m"
+    "O9nd/mgynU4lU2adRmOgHJ5gPJ0rgMRZjTqNAfQcHBfKlUrFTuIPtCcYTYF92Gg6rJTBBC5MAIS10hifcNktFDnGdtCH"
+    "nJ6PenrBVxEjQSSVMYEmlv1xutwkmw7khfBDDEFEOBIkSPA3H0F7//AoV4ABUCRakEt4F36gES8GRkbHoJkliFQkQmpk"
+    "4mfo7AyPASiT8wlBpGR4GOY2QM5HuvENliDCaLOGia6ZzWAowIzA32MYA5sJk6PRkB7gB13+SMTEV0mAleleT0gik1jI"
+    "9Cp/RxCRa5PJhI+YxFWYGJwST2XILZOJgg/cH3NfIjETXGEIpG54xWKFD8MfwRpRXhBIOLgYnoWPnWb4IQAqpUrLBGbI"
+    "yNPkj8NBS+ECQqYdHwh6JRND6CP445ZJyHOjM4eEGAZwXMgbwdqC/3rcTHxXjLOC8R0M8Hp9/gDDTsL/KQl/JAFnTwt3"
+    "ZoMpx2ZcirAYgwE/E//B8LIOOQwnuB6BUDgSDYOVEQ6Fwjq1UiHHqLVOjwFUJJAi4GvG4tFoNAI4ZtCqVUoQCC1heNCQ"
+    "i6AnivxRPBGPJ2D5qlXMqsP4jw+AOp5MpbNIHyFFSum1GjVMKDxcl+CJYTJjLp/JZbKZdBbjTxqVhkQ8wW0KoJ+MzYUi"
+    "sfmyGF/WwqQhAQT+JJgUsSRJHCmVi8VioUTiU1oSQLUiAQMOZzINZ5dLIEzlSslmNhn1+ov4Fdw+KJJMsVSqIoVUrYE4"
+    "wVoh1B5DAIUZAqhSqSOFVKctFpMRekBikBBAYYxPg0apocfbYuLPJgMG322k/3AkAX4DtDca462JCSdyO+Bx4tSS8DR4"
+    "duhPl5GAmpxoI78EFifhr5Agwvh3Ch6gUm0iw9Qm/JLZbDJZrTTtdvv9pP9sqVSrT4BGm+4ZEQhlWqNZyFfqTFazTS3T"
+    "2/3xRJTSGx3BVLnWI1RTI3yZXqDUG4U6u0Nm8ge11njKaE6UzbZoDfBz+H387B8aFYhQ0HFJAF6KQHhYfESZ+QAPwRVW"
+    "w/JSg7GHDnEwGPITvDMxeJdLZpKIb6Dj4TiN4YmSnYLBpGxIeJMAK6dfJFEbrfaPhgQCGQB/76hQIFXpjMMCkRAwnIn/"
+    "gbSLBHKVzoTXB21hp20yocII4+FSgiXj8vt9OrnG6o9GQ0alzh5KpuNmjcERSefTVp2JDuaKBbuBcgaTpaqDohyhTKXu"
+    "slC0P1lqEvwcHOYC/rzDT9P7+MniH4uPqBwYdgeRoH9waGgUEUTI4B8gEYE3XZcAHxoZucA3EcIYg4/wA6YPJr4reh+/"
+    "ui3Mh+GHcDq6wMbwUlaCT/8Wf6h3+ON0AvzQTHz43+CLz+/1YPjZB/ggQ3xQazDZmEZ8CAI+hAE/QhiJ0KuVSgXS03oD"
+    "EjRMsnI8EYsl4tEwAMU7+Td9IP85kH5kEBh+WM3Krz8YjSeQOkQBz8K31YQ/QH6ZsgA++PyMfKEAgwyWCjYQLj0SxMjg"
+    "ooAhAwyOC6GAa/WmHWQHCSQiwHaXy4deCiw9EKA6MkgovyYUcJPJYiESFIhEkslcrlRuoARyevqHUCnB6DD6rgcZHqR3"
+    "GILoI87QCMysSKZECKMsPb0gIORYTWajd2CU2BckgQB+MTjCFwphJWBEHnnE4VFYNdChVMFkRXDHBMgXEeMVXA+dGHUP"
+    "zDwy9HoDrnOQN6QAYP0A8DD2iIpJboHlYBKDMpIzfLoNgMMC8ihSIDhb7YAUNosUrqVg2HokjGhir0AzDXoDXBVaARdX"
+    "Gkj8y4+EkVIqlqiMFPq7GHdyq2USqcpktqPFHQ76/ToF2DOU1YHzGgXT1wCTDZa1C3Aa+aKIEcBdZ7G70YRPJ+MRkxYW"
+    "mpV2g2uYhflPEnvH5vBEkJbPppMWQHMwvn3hWLZQKORyTL4M7Q/GANRLhZwNlgNldngDCbCHAL8xfwZMPbCXkpgBVgb/"
+    "TE9ZnK4Q2D+YUAPyDE/jcIfCmWwFjp1mMzyNA+0nOG62kD+i7LTXH0vmSvVmC/kjiqZ9vni8UGhivHeAsRcVOMSURQxz"
+    "J1cR688G9p9dr1QotAar0xvCrIpwzGbSaw0kgSeZLcEFe8R6G4evNA0ALo0KFVqBXGsQqAyUQGu1ivROp9To9SmoUERt"
+    "iSV1tkTWYImVTOZ4hbKGaxZ7rH4Z/lyGL5fhx2X4cJn8Xybfl8nvZfLJ4n/PIK5bk5nVAz34DULJ6oNBsDAlMBOsXuAK"
+    "QIZAhC70g5Ck2BhZPSHmy2FdWcysvpAKFbAsCU9E9IaCZJ36LvSHWqIye0JhP6tHDAqdLRiPR1h9YlLp6XAqk2T1ikVr"
+    "pMPZQo7VLzY95QikyxVWz9AmyhlKleusvnGaKdDHlSard9xWivbFC03OkDE2pPIVjb7p7Vhx+zWH0y9Qe6IFTt8gX2H3"
+    "p/rB3zP541kBX2UPFCpNtcIUyHaWVzx2f6Gze/046o9Xlq8/elVIZZsrx69+QH6ob5gn1lB0MJ4tEb6iDyBLoTO70ZFn"
+    "+CEuLFOT0xdO5Jj4JxfHnHYHYhkM/HHBW9JSdnBhkplhsN+FCg1IgC+aShVKPDDIJSDBLn8kXSjVGmJYXXJoDcYz5fr4"
+    "5JQGrEmt1RVMFWvtmYX5ZQoWB8aais3O0vr6lW0a7DG7L5KpdeY3ru3u3wy6nbQ3mi63lzYObt0+uR8P+tyhVKE+s37t"
+    "1umjpy+ysTC4OqXxhfXd249evP66lEnEkoXa5PyV/ZOnr7/6oVHKZTKlBiGIXnz9w+9YfggecpQnEis04JthCVGcZOU0"
+    "xhn+hxQQwSjAUlKDXgM9GGYYomq3vbevb2h4FAkesGbMTrcn2OWY3rUPEoJIrgC724GGJ8N7svVFAwOEAJJgu4nGxAYm"
+    "ANo9eWBgcIQhiGBsjXawDFGwwDDs3hwmyI5iu0wBeseGksWwXH19vb0YHcFGJIjUYPt1U/DDmIPf10c6J9FXAAUQerDU"
+    "4PmgNQESmx3oxxkmCbZSJpsQIyEBUMtJVKvl4aGhweERUmAEUgZIR3Llo7EUtoLRPTo8jCYNOtgqbdfmD4BBkIbWYrnW"
+    "ZOK3pAAJ7wxN8jBG8jDlCw1qkYDPA4cK9B8YFHYavBEYeOgYzHFAg8kphj/CAiSDkRBIIRgVgJJ6izBIUwx/ROLSFtrj"
+    "RZ6kgCnA7fbkNNYgacCdkctlMCxWuwu0SioNpvhkuzMzszA3v7y8pAV/Bz6gQG2w3sEIzcJtdaam55eXVtZW1reY+BBJ"
+    "IAabNZ4plpuTnYWl5fW19Y0r29tb6E8AniFDBOKTKkDn07Or61e2tnewQukGbUVrnxQoBSKpTBE6n51f39i8tr97Y//G"
+    "zUPCH9lJgVIMxKkBna+u7+4fHF2/dXh8fHwv6HW74BdYoBRPw8XbU0vrG/sHN26d3D45Ob1/j/BLTgfYQbFEplRBjuXK"
+    "5sGNw9v3Hjx4eH7+LA5K2+eFJ4um0L5uz8yvb107unX79OzRk6dPXzxLgVYP+H3oJoH+arVnlte296+f3Dt79Pj5y1cv"
+    "f4b5z+EQSQME8R6fXFha39m9RQJcn7z+2dc/y6eSsWg0HAYnpIgE09zKxvaNw5MHT55/8vrzr779ZSmbSSbiMTy9WGtO"
+    "zsyvXdndPz55+PQlNH/9w6+qhTzGQUj+dKM5hQzRtRvHp+dPX/0Mmn/5u0a5lAOJTmUQXCan5ghDdHz//MXLr7+F5t+P"
+    "V6tFcA0xut1sTk0tLW1t3Ti8d+/Zs5/97Je/+t3v/wjSw1MA4g6NSPW2SLJk0FijpYWtjVggWp3ff/wpZ8gQ44xoAn1S"
+    "a5Snj1YVttK8I7KwH0puPc6UNj7F+DjipxrxM1Oqc97hpcMLeDnQPzDEA81jtDph5SYzXTy0EDys1esf4N/88qLfSWOw"
+    "ujixsL53eO3mQSLo8wQTxUZnde/2yYOnH2cTkRDWbU6v7JAAK0bnNf5EtofTP6pwBhPgfXDltC8CIM6V2TyhvgGeROsO"
+    "RoaHJRprJJHiceVGV6pYFAvUliAIghoPJzrTlNbqLy6srtAmZ6S2vrcTBO3U3rt9M+6NFmYOT84y4URt/tqDF6VEsr58"
+    "8+nrei5TXzz4+Es2PgsPPYIBWjXip59IIfK4rYv6SoJ/iF86Bv9QrWcu8K0bwCX4ZzCBseF9h3+9LL6NYViO4B/tYFMj"
+    "B/r7CT7xRCTV+D18ShD8usAn6b/BJxJC7uKPiMEfyzv8Qf66Xm/I38cP93v4MdFqTnRmFv4hfkzPLy0vLS58iA+xTLHU"
+    "xYetzfW1jZ09v5vIt9MNN4UB5InOwgqWGB3uXTu4eeNgD+UbfvCefC+ubeyBfN85PTm+c/owQeTXg4m00AzwsLgKzbfv"
+    "njzAIqOPzzH+HAygmQWjXa1NTM0jfNw6efj4408++fTzL7OJBMnriWCFYQkEdHZlfWf/5t2zpy9evf7yy68K6XQ8HsUC"
+    "pGQ+X6u12wuLm1sH1+/de/L0zdtvf/5rhh/lgc3vD6JGxPnuH+JKlQa3Fwki5nhUotA5YRWS496+wVGxXOvAEEC8Ky9g"
+    "QNAOTHrApQT2hViusWPFZxSj+0NwLNPY7B5fKIZrAZSRQm2E8fQHw6ideEIMqbq9wXAkMgDrTIR0ntUXiEZjyWGYfZhb"
+    "GP4IKrTkCKwjqVILHgjanZk8yOOYHGwZlx9mLlfMC3l8gUpvhrnKY/5ZDewVodpg8QZjMLq1Zk0OvpiOokOxTL05OdFq"
+    "q2H2wbqJgcS2QS20taAsTDZ3PF3qTC3Ozy6gPWN1+jPF5sLi6urKos1oMNCecKEyubK2sb6+Cf6JEZyDYq2zvrG3u7Pl"
+    "h8n2R1KNyYVrewf7+wdBmP1ANN1sL8Gs3rp5PQTrBeyyVmd5/8bdk7v34uCYR1OF9sz6IUzq2b1UKOCLJ8sT01t7dx48"
+    "fvokA6Z5IlVrzW9eO33w8YuneXDDE3DvS+sHJ+efvHqD/FEyX59YXrt5/PST128rmXQiVap3ljZu3Hn26Zff1nO5VKZa"
+    "n1ncOTj9+PMvf97CerJGY2Fhb+/h+Zdf/bo7nwK5DsziSDL3of2Xr3btuRix5zbXdlKRoC+czNWmVndvPfz4k897hqkU"
+    "Z0gX4Qxrg70jGl+fkAoPKpzJUY0/JzDEanJrcUrnbK5Svs6uK7p0y59afxhJbX6czK99kqvufH4Z/lyGL5fhx2X4cJn8"
+    "Xybfl8nvZfL5Hv5zle5wgtUDYNWPyh3+yDt9MMiV273hC73QzxWpnf4gqx8GBkUKoy8aY/XEyIhUa4+mM6y+EPJVZn++"
+    "XGL1hlyio2P1yRarP7QKkzvdWZxl9YjNQIcrKxvrrD7x0/7U5LWDfVavhJzBTGf/7l1Wv6QC8fL03oOnrJ7JRxP1pYPz"
+    "V6y+qaRT9aUbz75k9U6rmG0s7J1/xeHLjXylwSI3BCJGS6TaMyAUyXQmy8CYUCBWao1CIfi/OoyLKPTg19My8ONoX9Cv"
+    "Az/Nl0wmTeCXBZPFsgWsbn+y3OB81DvAw1JVtY6EWD/q6R/mET5IiUEUa2//MHIbQjFYnOj1DwyPCdEExZCoGkxvHg/N"
+    "bKmUhMD1RgO601L0wNHjNWEeIp+PXJMBNAIyAlIh8VcNlMVGakQUEvBQNQbKjsUHfq9XDQoI0MyClCasg5BOKZdhZj8o"
+    "0BjYTXETGKhak5WpzsykMxa9Vg3NTn8kkc0XCgWrSY/Fry5/GBRXuVK1m40Ymcf4RLpQqTccGBAnx9BebbQ4PR99BA7D"
+    "KO9dgEGr62aZY4QB3SWk6HldgojEN9kUU4vV9hG09w8Oc3mERyGVOAqlhqWQSDsHHUimwAgJIqSYGJYFf4JkLlYLC1iC"
+    "CAb6/RIiEGQsPxIw7V2C6ILFMZkIf8QnBUZMO7lFLDFiKCQUZr7gosAIGjHZGlPwmToiHnwEbIGRFFphIlVarZbQR1h3"
+    "IHxXYEQCKEg+4fMbTeT+GX6IFBhdEERYYkRRTAHSe+1KeKwu8UVCw6QACf2ZbgES80zYSgYf6SObTUISfwXEGetyYlYM"
+    "5TEMEu1g+COmXWcgMR8buIOwtpgaJIY/IuFGDQnwwhonJUjIToJfiP4STD2pf0KSwm53utxen89PGCSvVykjP4Ax1+qQ"
+    "I7FjjjCsVEIfgUJWgz0rlQDMqrDGx2J3YuAwFGLoI8AxrQrwUgZ3xxhjDqRIghHQ1LFYJBqJRAm/JJcRBogQTBhfglak"
+    "j2JgiZD4kpKEPyl0JsFTjZAShGQatHsiaUL+SEUKlEiFEAagYiQAhSVKmRSl1/2r9nAUS5SyuXwul8vmSPxZo2biT+hm"
+    "ByLgOGWz+XyhWMgXchfxK3J5UqETSyRzDMNUxvoFtoDJZEUCCAmsboCrXKmw9QtMfNrmcHQJIDCES2VkmBp2i5nEv96v"
+    "MIL7yxW6DBOJTxvZ/GmMj4VJfCyP8e1Go8XwS0bCX9kwiItGFjwAFjhgAJvwSxjhNpttSEB5g8EoOF+5XJnEtycwjobl"
+    "2UKBXIVlBAqJ2uwKRUMmnYH2J4rlHqHCNCSQ6ATgcAtUZlqidfnVplBCT0WLlCVU5vT0DrL4iQRR38AI7328FIH0SEkB"
+    "EUwwfMC+4ksZsoiUsXyIfwGvUaNSYMAXg0vpeDJmMWihZ7vTG05mc4ViHvPv9UhwB6MkwMrpE4kVRoutZwCeA/rpHQE9"
+    "oNIawEhEq1HHEwA2g1xh3E+DfC8frmaxW6VCBZYIOxRipcHu9XrUUpXJGQoHdWDZuqPJqEmtt/qS2aRZa7T507msVW+k"
+    "/fFCyW402gPJYsVBGW3eWL4G9gjg5yD3Aj/JUjVdRGjRWhkYYgqI+N0CSIVac8EQYSQI0PF9/JO9j3+DF/jWBVjoQKZk"
+    "OG78CRPfFf4dfGI+XfyRdAsgmStjcSTF4DOJpxD86WIqsngM+NNYeMbwQ38HP9ykhuBD/KA+wI9AAAydC3xQYwEZCSAz"
+    "+IBpqvD1Tr5NH8h3GuQ/mYhF/q58p0C+s7lsCuw1C6F3yZib7XaGoE2msrkc6MJiMZ8l8osFSChANOYLhsIYjcKMZZDQ"
+    "qo2iDCB+pB7VanUwAojZQlhjWKtVQXqQ3tWigOIFXD5Sg5dO5wtVjFBzevoGRUwBEZZt2EAbDpH5UDAqELPxkT+QYFEJ"
+    "YMxHnIERGG8RFijj/PUOjIzhFGKBMqZV9GNaugCDc8SG0A+Clcsco9rS6THbAQl9jMhrNVot2h9EbymIPtOJCR9LCor0"
+    "mOSAXC3mq2h0JN3BKILVQFSNHhafmcJ6Z5QMwo/bLVazBG4Wi00ps52201Y72CtCBckjh8WM8XERHpMCI7fHDfYLzL4S"
+    "zH+QUNAWHhfIM5hhcOzCGjMv1kdLVDpSYITqwKdVyGQaPeVwgX0cRfsG1gcmvKCznIxHQ0Y18sMW8LyTqRQYPCaNWgny"
+    "jgVHKawvAvsHzCEsCMKC6kzarNNito3XH0FIz6YtAMZGyu72RRMYccxbAXzB1ANfJQ7wUSqAP4apn45ACNrRPjIZsZ7H"
+    "GQgmU0U4Rv7IaMGC60QKc9qRPzJabejc4gZZdeSPjDabxxOJZLPVahPmFwAP8I7ky5soxv7D8YYFBwuesedMVmLPRYJh"
+    "wncTfIunweOs9IjUVo5AbhwQSHUjgGA8qUIvgBP4KpNFqLbSYo3TK9N5QgqDP64xhdI6cyRvMEWKJnOwTFnDlcvw5zJ8"
+    "uQw/LsOHy+T/Mvm+TH4vk88L/O8HPQMzy+qBjwYEfDFYRKw+6OeCPlBq9Kxe4PIlWMOnZfWDWCiXg99gYPUEfmsBJVl9"
+    "IREotJT9nd6QIV/k9jhZ/UG+fUEvq0e0Mg3likRDrD4xqnQWbzIVZ/UK+U7lMqx+seiMdl+iUGT1jM1gpAOJQoXVNzTS"
+    "IolijdU7TrPR5olkq5xBTXBQ4UhrHLXlYHr5EQf8Qjn0jH6g1OSK9A8IZDpHIM7lyozOSKYkl+qcscrkjNXkiFTmN6/5"
+    "XIHM5ObheSoSL81cO39F+KEBZCopF7gIhK/o6x/mS5R6mycYz5B8X1jyYoXWggQRh2wAM4qbJlBIEGG8ZpgrwP177J5A"
+    "JIrxUK5IBhBgdQeiqfTo8MioADd6oMF5zeTBz+TxJSoD+DcR9KQbiB8KncUN16602pNTWjAPNeCqxTOl1tT8/DJF+GE3"
+    "PElzZmn9yrbLZgFpD6crrZnVnb2Dw5DHSXsCiWJramnnxvHJKfJFgWim0p5f3zs+PX+eiYcDkRRWEF05ODl//qqYScSi"
+    "6SISRIenz1+9JfxQd4eSUZ5QhAmmFO0KgNbAtJzKBb/Tj2Eq3AlNpTdgsJ8wRJn8O/4HCSQ+HzNn9BabC0vTYdletHcJ"
+    "Ih5ukqSlrF2GKJFi+CGWIOLxSTvgRZch6rb3sQQSX/JeO24Tx7koMOoSRKgojNQFQ0Q6xwR8OHuMh7YZGPZY+Qf4jR30"
+    "9fX19pMCoy6BpNIYMNTh8UArmO39/czZXOLKKdErMFsAzcHujSBBReIrmICLu00QVxEUi9NNIixgdmdIfBbvXIwEkk5P"
+    "rG5MGkOjHAZ4dITwR2MC9K8xacwGigaTwkDk0ebmcbno0vGEiLcYoMGwIAZLkEEqVRtCfjfBVwlOttlmB4VPNlMqFivl"
+    "WrPRYPglQuwhztMk44vki9RaGOEleIYFAmRU3B6wpnH/KTCV2xOTU1MdFZgz6O6Du4NeNG4tmM1Vai1onJ6dmVvUqpRM"
+    "gZIBCSR/AAsMSvVWe2oaK5SWF01YDQ14h6OGoaV0toiFMnMLiyvL66vrmxQ6C1pSmQVPFoligVOzM0MiyFe2trdosl8B"
+    "uEpk1EBnVZiN2DY2r23vXrt24KJt4FgC1OKuXbF0Fm5tamZpdXMHhOPg+uFBwOMiCcwwY1jfV2i02nML65vIMN08unXr"
+    "bsjnwbphrOQEP6hYak1MLSxt7OzfuHF89+Tu6UnY58UN8DATLwaPVm5NTi8ub+4gw3R6//z+Y8Iv+dwYbiObzLVJDdDe"
+    "0fHt07Pzj59/nIpGwHMEIyqCe9SVWxNYgrR9cPPu6dmjR88+eZ3B+oZQACcFy91ak7Pz61d2D45O7p8/ev781eeEX4Jf"
+    "YDS3WGo2p2aWV7euXb919/zjZ89fvXpbzGQSCfQt4XRmR8fl9e1rh7dO7z//BJq/rOTzuLtFLJaB0xuNTmcR49sHd08e"
+    "f/z687df/gIkf1RKuWP9A0K53hnMaNWULzMxvxj2hYqdrZOHnH5tmDOgxrhlaFTuK0r1mQ7lnNhyB+dPYpnFhyx+Ahx2"
+    "8ROlcYQn6eJlP+DjqEAsBxPKCdMfQ35IpNCZYa3EMqDx5O/hX7M902HwzoN4N720fnXzQ3w7vZuKBv3BeLY6Mbe2ixVF"
+    "nJ5+npwKpTAeKNF7oj29/Vyx1hnEeKBYQ/v7+kdFCqMnODAAVoY1EB8dEessnkRWyJOb3ZFiVS5R06FMa0Kj0Lvjpak5"
+    "Smv2Z5pLay4LqI3pnd2QEw9vHMV94UJ7/fhBJhwpzlw9fVxMxIqdzbsvuvz6BX6SbG3M/gsR+qd8UV+JG4WNMvimwwQd"
+    "ZIi6/ME7fOO9j29IAKUvwruIb2N8DHwAvpntxLWGVdHPbKCJ3LwIgy7ghFJmTCzzh8OYuPo+PqFNo9MzkhZEhhtusBv/"
+    "5YlYfEGXg8GXIn7+PXzBAgX5P8CPZqs9PTPVaRvA2FGrweAmVeqhMNl2daI9Oz+/tDBH6o/eyb/nQv6nUf43r25vXvG7"
+    "Gfkl0APyW2fk99r+/s0be/uHx/+O/IIE3j1OhEN+LEAKon8NEjDemV/c2No7vH1y8uDBwycvUjHcwI4QwIlsrlqdaM8t"
+    "rm3t3jg6ffD48YsXL0h8OhQOBGKxdJoI4DSzT+O902fPX372Btd/PxYQGSg/mNBZwgdhAZHWADZ7LMGsjVG+RKN3eULR"
+    "BOET+kZ5YjVDEDHywsVj2gkqkfBFWFCExzDDbOmuWKWx0R5/mNBJWFCk0ZEyWbQ/RjF8rzc6PcFgAGZ7iC8k25mi6xcb"
+    "gGMBFhiZkTCKx5AvEmFBEe0EKE8Q+0Qs1RksLg+sxmwa+SIpFhj5/KlMMVcUwuzLscAoFMkXS9WSCJSJQmWxe8LRQqlB"
+    "9ouUqLHAKJWpt8YnmkpQFlq9wxvJ5FoTnfaUBrSDHguO8iWAxrlpIygDyuIDA6YOOmCR5MOYseCo1oR5W1tBvojGgqOJ"
+    "zvrG1ta2y2oxO92xdKU9vbmzt7uN/JEXC45mF67tH944RL7IH8wUm/NL+zduH8Gxixy35pf3b5yc3ovD5MOtVtpL6zeP"
+    "Tx6cJsEnC8eL5emFzRu3Hzx+lomAfZQsVmfmru7BlD/PwXqIZsA+WtzeP3v44mUxkYjGcsXxzurm4d0nLz4rI19YLLbb"
+    "V64cH7948YaZz2GwD3VW0F8Jxv7DDC2rOxhN5gzgDujNrhCYYO35pbnVRMjvCUbTpfH5DSS8n/QMGBKcfk0IMNbfO6Ty"
+    "9HH1wT6ROTosdaV5qlBJrEuNK4z5eZ21tmF1t/cAd2/7o0snkeTcg0Ru9cn/Df78e/hyGX5chg+Xyf9l8n2Z/F4mn+/w"
+    "v58rNfhiF3oAvsVaV+hCH4B/INE6A6xewKQGcA18rH7oH+DLtBZ/mNUTw8MiDeWMJVh9weNKwVHJ5Fi9IeIrLJ5o6UJ/"
+    "KKVaRySHdUWMHjFqKF+6vrDI6hPaREeKnY0tVq/4aW+qsbB/g9UvIZc/01q+ccrqmWQwXJzevP2Y1Te5aLQ4tX32gtU7"
+    "5XS82L5y/ILDl+r54LxIte6gngoWe/rAilXrqb5h8PtA6wqEMkyZMgj5GHawWiUiBWZvetSgsJ2hWEwPfpk3ls5TYNV7"
+    "Ynnwr3sHRsnWHGq0ZO09PX3DXLLhi5zk3PbC+PGYAI4SA54D0IpcBKkggr8gZfyY0CvDEgu9TswkYypIviX46ZgfJ8Zf"
+    "YnjMYrFIMJivILnYNqwoksEJYDtg/i5m6LoVUrFIhqn8ZIn4/RhfABfEDK4zGOjhiF6txECuDQ7B30gkTDo1eL244RLm"
+    "MmWzJJ5qtDi8ASxfBn/TpMe9vcD8CJOACPJFOnIcSWTBISPxBSwgEpIdSpC9QaMeGaJuPjSMCBYQCboEERPfZBgiymwh"
+    "7f3D2E7ilxi5Ivvb6JhU9Y/Ibt7EVWEIIpGYkFCEIcL8aZJJAq7KOwJISlLkuxEM4oiRAqP32xWkHXtgHB3hO4KILTFS"
+    "MqFQ4mxgAr5ITIgSeEgpEyslNUa60e4GTqTAqEsgybt1Qnq9TtcNq4Czgx8SeSMRFB0maxuw/kjIXvMiwKJiSCJSgNSN"
+    "z4rE5J5UTOo/YbbMhCXq5rsJoR1uGe5Z2yXfcLFYLZYuf0Ta1V0CiZQgIYME/3b5I0ykQQKJ2f0Ot7ajHZjm+0G75t3W"
+    "gGQTO6fD6ZJJxMzWgQQKkaWw2u0OJ7uJnUsukYhEItzLnBBIJnKuE9xd3BzR4/UpZFIxU6CkZIP+zi6DFID161Mp5KAh"
+    "Cf2FWermLr8UDIXCwXAQ97eTdwuUugQTrHssUWJqlCIhnZoQTFithwSSFTe48uMONpiOHYvG9BosUMCH0+L2jzZS4BTG"
+    "EgWyxV3MqNOqVSSBuUsweXxBwiClcIe7ZBr9NbWa4XOR/cIAMpbopFGYMtk0xbbrSXibCTBjCROGI/PZPIlvaTEciASP"
+    "A71sQgARhqlQzFvY+DQhmOyEHoPLp5kaplKF4Ze0mm6FET5dmAlgMzVM/yo+5vBgiVQMIxHgD1eQ/2X4JR3ZTZEQREHM"
+    "jMkyAbQqW/+gw/oH3GOOxLfBtsvn4exqowfjaArk1XGM9ZRcosRa7IBRq7d7Y7l8j1BuHBBKtAKZUs+XG+1iJe1VaLwx"
+    "rT6YM1KBPPJDXCwgQvyEAQS8HHsfL8mukzLCyhKJQr4cszqY3Yqslg/xz+smeAfOEywDnMZwF98Qv+JI+iGeAb7RSIBj"
+    "RRGnly+WqU3Wnj5MptWZegcFfKFUrR8cE6IRrwVLUyyRawCXkZfWG0UC3NkL6yawagrwF9xA6N2lEKOeALyVKk1g7IX1"
+    "So3ZGYjHTWqwc8LptFmrt3kj2bxVj/ojV7Qb9RZ3OFNi8HMQtAIJ0L7DTyZCa0djpZ8tICKVhgzF3i0mNJFkuKGxD/FP"
+    "cVFCaRpk8U3UFWTmIgwVDT8BbOB1UZXZQZOFPlIhiXnxJP4r+rv41MUfpsBITnrUsyVGpMYR9NW/wReK4AtN8IXgh+g9"
+    "/DC9hx8+L+CHitBDYgkj/8g6OFywRskel/Df9+SfEEhgbzHyT6yxaDj0nvya/pX8pjCjx/R35ZOR31wuk7KQ7avUDAFs"
+    "xzXGyl+uUID1YzWZ9F0CmBQIEYY3ShjYIghgyYryp0OCF6PfjACSCiIUsHK5huufj/CvIgSRFbQh+CNkPIgWxWx8PoPv"
+    "WsTHjzj9yCcIRFKGIMLYvoAUDOEOtnA8MDQmIAXLhDDSDZLqWbJFKqZu6IdHx4RMRZeULBIM8olJQRGWcOi0QqxlwbnG"
+    "elOYTOSLZKSAD4eA5K8IEWwxYG+iTBTyRWDq4NSizqHE5O0PGi2zoybZf04gU3Snzk5fHBO2zUljPbRQjgVGMDVu8EXk"
+    "IAZyJVocDtARbg+J92LBkcPpA33gUcFkK1W4wxq4qMFAAPkjJRYcgSkdjoYDOoUCBgZ+7vUDxkcjepUS7sZsc4K9HE/G"
+    "I8gfabHgKMDs2GYCf0OHBUfBMFadJk1azbvjXC6L/JHeaHN4Q7hjZT6L/BEc28E5xIT2IvJHerC2vP5YAgkkm9GAKfNY"
+    "YJ3I5ctlu9GoA7hwQn8Y6Svbcb1YLC5XKJRKlUo1sMNHxph8IWS9jciHv2f/mVUgIGC/UXaHG5SeP2gx6NRISLkDUUJ4"
+    "94hUFo5AZugXSnQjQrF6TCLXCeQqIx9gSaCg7CKF3S1ROgIylTuq0vqTGn0wqzOGcgaTv2A0B4uX4c9l+HIZflyGD5fJ"
+    "/2XyfZn8Xiaf7+E/2biU1QMf9fP4IplGz+qD3iFc+GodqxeGx0RCcFs1rH4QCtBuxee90BO4vZaJ1RdivlQD6+RCb+A3"
+    "LPIL/SEXyfVgdbtZPaKSKo12TyjA6hOdQk05/LEoq1eMKq3FHUolWf1i0pDvHKtnLDq9zRfNFll9YzPorZ5orszqHbtJ"
+    "bwEvu8Tpk7v7xKag3JSecgenDjF7XWLwRHDXZ5EW44HDArnRFRweEagodywjEckpX6raMmiN7lRzYdVDu2LVhd2jiD+Y"
+    "aa0ePeCQgtdhnkihNbuCMSZe1z/EheEw2r3BGPH/+5EQUugsTm+IxG8GMd4v18I4BHD3H3w1D6bI4/tlBvoB4Eg5pcnm"
+    "DkSiw0NDGCzVYA0wiEAa/G2uQKEBje4OgFtWFMFyA3/OQnsCsWyp2sD3zch1FO0JxbOV5uQU5hupsat4ptyamlvC+nG4"
+    "EPy4PD67vL7lslvM0BrLVlqzq9t714NeJ42bOZI95A6OTmJBr5tsfDI5t753dPdBOhYKBAhBtLR1/eTBE5YfwqjU8ChP"
+    "gHEALcbyAlgBlM52+R2GIBrGB5WqVFiqgjU2ESb+9UE72EEqZCJAHoLvtzMEEZeHWw9odYQhQoKmu/8Sii2cT16zQdot"
+    "WNnfbSf8ERvgQMnD3VvBKAfTL3yxfd3AILg+2A6Si6mudoYh4lxssEIIJJ6g244MEnQA88ecjQQRj8AaKAekaZxwf6Cw"
+    "+8gGdQODw8PcMbKhuFyh0eDewi5m70eMv2LnXC5m6nWzDa02whAhv8S0D4HH13UEUQ+x7bFEGvkjMHlGSOSmmxZiQ/Ir"
+    "glo7ncb6I2geBS0lY0wKsGrdHtyXOZHO5ArIH6FPJxAqMMOXmAxY8xvD1yAVi0UBj7wACYZdqQSgB5Mdd13GaphcHgzq"
+    "OuhHrE+CaVUjgWSjXaDvozHCIFUbjTriHX5AnWtNFNnytstFYEH/eFshJRtQYV0EBohc5M4yWRIhmpyaamtAn+FHTQYN"
+    "rJEIibPWm+3O1OzM7IJWRTbAg3aTyWZ3YwwznSmVCcM0t7i02I0vIWmHYe1QlEkjJgzS2urqFfAGdJj7aDTZbC4PoYhK"
+    "5db41Ozi8sr65tYV5JewQMlidSLBFMcc5npnijBMO1ev7rlouxU3JIBru8kLQIqVZmtmdml1c3tnb+/6fsDjdpAEaBeh"
+    "5bKFagNrCAjDdHh0eBz0kn1pAacDeOsk+jW1tLyxvX9w4+j2yXHYR16w5HB7yB5X+XKjhRFmwjAdn5yex0JBH9gNSF9h"
+    "2L1UbU3iHlY7e4dHx3fvPThPRiLgWPqwkDyGDBGcPrO4unl1Dzq/9+Dhk3QsFsIAGtnnATcMgkdfWt26ev3w5BSanzD5"
+    "1+FAEH2gAjw73v2VK3v7x8fn50+efILVkiKdI9g/wJVqrf6YVKKwBDKNKa/DHa8v7h1z+qVezoDE0cdVuIeklrhIG6jr"
+    "rJlFh7+xF4xNHV/gp1zD4ud7eOkLfYCPML1Ih/KkCi3umR2MpVJSMdhrGkA0fyRVrLXqyA+hQolmSq3ppbVFv4u2OXyR"
+    "VKHeXtzcOzyIh/xewLNCvbNwZffW3TOwR0eklD8OdzEs1rtCuPuLEPQA7mIg0ti8vX1DPJnB4Rvo50o1Vl9keIinMDoj"
+    "Sd6oQGvzpwoivsTgihbqcrHc7M/UOxqF2h4ptRfMOtAXrcUrLostWJze3A063bHa0t6tmM+Xaq0d3k2HAqn64sEZG58l"
+    "+DmC+CnXaBA/wfrBgPt7/DjmFTD4hnuPOMju7dF/D/+QAGJf39YliABfsYSoi2+wKv4xfrlhtANBFp9GCT6hV6IzGt/h"
+    "T2oE8AUAZpTHl5KSfgMpW3bjcoun4HOBL6ILfHFd4EupUgPpR18NHxtB1UESOpOpXLFaq7ea9br8Q3xwfogPM/P/SL4x"
+    "gry2sjhvRn/mH8n3xvZulz9C0t1PiO9qfZLIJ9YoHB7sBr0erC+0fyCfiyCfeyCfxydnccIfgY4MREgNHwler1zZ2b15"
+    "6+7d+2f3U9EobnPk9WGUIputVMbHZ2dXV69ePTw8Ozs/f8qsf1jScsrsD8aZfIb+Ya5YajC6vcz8Msd6AxJEzPv2MPyo"
+    "1TlgkbDygsdIEDHZDsNgQsCxwxfAs9HeEIk1WhvtDZB0FZxNPAY8JfIFelsmNxhh8H2Eh+TyRXKF0YQvAhzANweKkJS0"
+    "2uAZw7AeyLEWjv0wIsODjH1ipJwuGIHECJYBS1VayuL2YH0tbxRceTmYHLQ/kEoXsgIwrUVKHeVwhsJZwBvkiyQqpJei"
+    "sUKpXpFh8qCWAn8jlSbvr0FzU4eb6WWyMLbjGtQFIO7hWLE02ZmeRf5IbbS7I/FSuT21MIt8kcHq8iczzdbC4sqqWY/2"
+    "jjuQyrbGF5evrNIUZbQ4/ZFcsTO1vrFzFfkjGyBJsTI9u4n7eTkcdkCPVLWxsHht7+Zh0OUkllatubS8d3CL8EfuYDxT"
+    "by2v7N+4ewbyDPZRKt+aXFs/PLp7lggGvIFYCsynlY3D4/vnaVgfgUSqUp9Z3D44OTvP4npIpWr1+fnd3bP7TxnZH0S8"
+    "01tdPhzfwVGwUVQ6vOtIQv6hPTcT9Hxon/UMyIOAsR5Ov9jJGRTTvaNyV59IFxiUUNFROZ3mqzwlsS7UVBjjU3pbdtnq"
+    "rmy7As0DX2TyKJyYOfm/wp9/B18uw4/L8OEy+b9Mvi+T38vk8wP8N7jD7/RAL+gBh/+dPugfBv/Ax+oFfMkMfLtZ/dDX"
+    "N8yXG50BVk/gN+jDKKsvRob54E9EU6zeEIyB1gxli6z+kIlk6Gc0L/SIXG0LFyenWX1CaQ2uZHNhhdUrNGXx5zrrO6x+"
+    "8Tuc0erCtZusngm5QP8u799l9U0iEEg1Vw7vs3onGw2m6vO79zkCsUYgVxrESrtPY/Cle/rAM1boTBiFEYIcczFYI1fr"
+    "sJoISXqxkLydzKWQyvU2TyisU6kpZyiZMWl1Zlc4U4D11D8iFonZACcsrsFRoVDApMQbTBjfGSMcAe7RpdX3Dw7zyMty"
+    "wLtEHgQjfyIJcitSZIG0+D4bCbOXO9kfBsNrYlI7wmywhPFREdmOiwRIbbh/h5gUX2B42OHAeKkYHVTMtcb3y0jFuNed"
+    "gcJtorvve5BjrRMN7gL42MgXKbVYEUQIo6RJp1apMeDh9mHGW85s0Kq1BtwxJRBJZnA/Hox1wbEX2dwCiW/2YEYg7jBH"
+    "AgzI/6gv6n+Y17WiPhUKGX4Ff6HsMkQmirSTF6IKhcxWbRh/eLeHEvJDvZhqxxUQooOksMpYhkhvYOoRQVDZACqT4qpQ"
+    "dlPd0RbA5ncEkVDMMkT4A6w0Rj8OG1iCCEuIuhFUPfJHWIjMJOATKoaQXIStgXsYAW2PwRP4S8JziLF3UmOE0RCtFm0B"
+    "dIS6BFJ3jzp2jyc9qS8i/BHZoQUDsAolu4OdoVt/hFe/2MFOQeqImEAL2R+KvKBIIBZ39/9XqzXdHV4wyR/3j+Lz2XZS"
+    "gdQN7iK7BBPU5Y8IzDEVSBcvNyEMkuSif2ZSyC6ImAGMr0Gy07RERDaQATOLhBB1pGcLwyA5wJCQiQl/RNrVGlL7ZGG2"
+    "uHO5wNB3d/kl4bt2Ut9EIkQYIOzyRyIpEkjMLk92O2GQMMfY53+vnakqwddWkTdfkW3u/GoF2eAO6Vc1IyRYouRlGKRw"
+    "KKxW4gY3UgyPqskmNXi219uNQEXDyC8p5LjgNFrmLUGYqsQwTPF4LN7ll9BQ1JIXPGH8KsAyTMk4xqdJAnT36sjg+EIY"
+    "ocb3KKW6/JIKawmJK4t7yPkwwkVes5RLU3p8wZJKSSoYKPISIWSAugxTrmBm8qfJ1clLhNz4DgYsEcqQELaFqV8itQVM"
+    "AYMXzWiyHyq+h4mNnxECyUKc/G4AHZvx/UvIL+k13fh2d4+5cBzfoYI7evTg+09kar2QMAA6owTwElwVr16NCXCpbI9Q"
+    "oh8QCtVjEomGL9dQQoXZJVPZQ2qdO6U3erOIn6Pv4SfqnTG2wBLu6gIfJcwrcMQMHhLZhAempCzekYJKt0OtkOK7WjDe"
+    "geGQoFGrVpJD8nrKdNJi1GGius0J+JXI5PIczohYqjZaenpH8XUBxp7+MRIH7B/GGLtSMzoGMi1Tw3VJDYtBJBCTcggx"
+    "X6TCd2JJBGJ8fZ1TJpJgArRXIZFiol9QLQN94Q1F9UqV0RGIJUwaDdEbZq3W7I6kc1a9lnIEk/kufg6Ocgl+dlP4LyK0"
+    "1h5iLwP+XeCbiGBsN0BrQFuFANyY8L0KSQYf8QfdPLn3CCKyiSayyQSC3sMvCYNfEqlU1sUn+Ig+wB+WIeriEyCB+H38"
+    "6eLLRXGTmSLtfAGDLyoVEyAm9UfdGgLpv8YHTCzACkbc/PL/b+9Lm9u4jrX/CbFvA2A27DvADVxAQiRF0qJoW5Jjy/L1"
+    "EjuJEldFb/whTiVVSVW+3P/79tN9ziwHAIcSpWw3qmKN201imTn99Dn99EJbHY6noECB61+4Q2YEH04j9q3sF/yytu/z"
+    "s2Uf9t1s4OFJgFnZ9xnZ9yX3pwvtUzGsJ4F9ot5kk33esH1+uoN4irIv2J+2r49ubz9BA9cdti8meJlhnWuG9eYGBDD5"
+    "z3ShDKfXRMRnZyeFBnKChx0sgkAm/EWobCudwUCiuuM2mSCitcPNVx0QRvQdMnnFrzqNJvCaNrE8nA8lHkDIQhmvhv2H"
+    "3NEKBhRxc1jcwUHfqvLAIo9Ltuj1PWmO2pJFOdYytic9eHDpBQlvOmTCCHwRNyOkL8z5C/T03VZXvv7u3o7ku/QAJ9tw"
+    "IeCLPHQp4uj94Rz1Rl67P+J5bpif52KgEadLEvScoL6I9jODMeJTSDFo07JVMt3Ys9Nes+mj2mBvf3GCiiOSMax8SmfB"
+    "EwLtc/BH2A7ND5ZL9DEFf9QdTLYPDh+doW/hpCd4cXh8fo4OZmS32AfSXvz8gmV0IyX56PgCBNKn4I+wfTpePL58SngC"
+    "/gjRhiOy/acfP3u2OybsnM7Q7OLqySefkjweDNBhbrm8vv700xd4vtjaaIII5bxeuP+bNj18/57UzpFXM/dnKbc5TTne"
+    "MGO7vaLjdC3P79mt9shu9ab11mjXbk/nbnv72O/snjZ784vu4PC6Pzq+GY4Xt+Pp6SdJ+JOEL0n4kYQPSfafZN9J9ptk"
+    "n3H8H060H9jKWPBrQ+0PMoUanw+0X6BNPidqaf+AeDXODdpPyBU8kfgLV58nlN/wyG9gvIr2Hw0HLfIPjwI/4sGPnJyG"
+    "/qQ5xPlD+5VhuzOeLy+vtX+hdTvlc4nyM7geXdx8ov3NznCwfXT+9Jn2O7vjwWy+vP40nfUO6Py8pDPzlwfLL/+E+Kbd"
+    "3T2FH663p0eo/aED3oJgpD3aO72y643R/NHNZ912f+/R7cvvd6e7p3Sw+un0aHH12fc//ZX7c2SFIJrNH13weTorBNF4"
+    "d3Gq5osXKqggmh0cp3QAp44xZvMj/u0C8sm8Vn+yd4ByFARonEYbXeUW+ZwaGNBDUd3yrIR2P3UhjA5PH1+BL7IcIYyW"
+    "j29uXZtO6Q0hjC5vnn1G5yHfa0uA4fb5l19hnkyrL4TRi5fffo/5wPRGHFB99d3rH+e7s+kE7Rxvnr/87jdvfnq0OJhz"
+    "8PXZl9++fvOnv1yc0ipdnF3dfvbV9z/+9Je/Cj8kHebypVKt5roE3GzxtCu8uNb8TpoDDEUcaxpgiMa7uwsUEd1bzwRR"
+    "oYISIk/eAXW5y3vpJbyBz2ehhMiHfjqdk286SdIHn62AnQUfy2Da/T6qIukdkvRZblBHWnltclN02oN2d/cIRUZJ+rwq"
+    "QBICyWesAkNE7mC5PDt7nKQHf4QCpLJ8L3FTe3uHh6enj1GElKTX8V06rsrnUl1jl48f3yAJOEkP/ggFSPRU4UChxXnh"
+    "Es0Tn3322RdJeuGPkDSBAPEM2vPz6+vb2+fPuV9tkl74IzRtBYG0d3z86BG0L16A6fj++18n6WfwX9zhaiL39PIS2lev"
+    "vvvu9esff/x9kn7O/QqmosU9vbl5Dobpu9/85s2bn376Y5L+0WJxwAGwoyO5p8+efQmG6fWbN3/601/+8rckPfglJpgW"
+    "IJiubm8/+wyThH788aef/vKXv/7170n664sLtGnBfZFX/+KLb7759a9///s//vFvf/v73/83zY05Z8e5vOV3J4dnDb89"
+    "W1w//+p4fvj42bdv/pzONY7TeX+etdqHBX/2uN5dPGtPrr+dHT5/c3z21Z/TMr2MCSIC6HM1T4wDpsMZ7IsLIMpVKbE8"
+    "0HiIACrwkPHPDfGvZeCdiW+YZwHgBGH0+s3P9P7pfK01A04ggfwY9RgVb3CAD2X5gzmT/V5/jz4SBscf5rNFtz3cPS0V"
+    "yuS4Dh/XKtXWZL68oX1gd2dx+azl+cP5+e3Lfrs9Ob5+8e1s2N9d3r56PZ9NDh8//+7N8mB/efPl65/Pjw/Obr/68c86"
+    "PhvBT6xF2THRSo7wQ4Jv9bpe61H826gP0E3wCWEjsfPJZB9FREl6A19ayEsd6rW+ij8r+gAf4Bfuwo8N+laCfSfpH2q/"
+    "y+NjsS9tnc+eMUdK9vUzipCS9Nfn56cgcPkbSY+5uP1ww4x8rdZqzWbLpTzvXM6yGo3x+Pj4fI2M51WpeN5gcHBwaspq"
+    "JVmW7w8G8/nJigxvg6flef0+4Z0p8yqSpzGZ0P0w5Xw2WyxCGg53d+kbm3KpUCiXfR8r+PCQvrEpgy+qtlqTCdY3nQlN"
+    "GXyR3e3u7CwWl5eENqYMvsgfDufz8/Pb25cvvzFl8EX0SY+Pr69fvPj221+b8gxn093d5fL29tWr169/b8rgjyb4pM+f"
+    "f/fdmzd/NGXwR/v4pOgR9/PPfzPlc6yHs7Pb26+++vHHP//576Z8vVyil8KzZ9988/vf/+1v/2vinYlvJp6Z+JXKt5aM"
+    "sbSvBc5mit4esJb2uKfA20prfgPMpf3uS+DucPf2NbCX9r4/K/x9EP48FD8eav8Ptd9V/I/7gRV/YPgF0z+YfsL0F6bf"
+    "MP2H6UdMf2L6FdO/mH7G9Df6er1cPH72ze//lrYdnJ+HDp2Ze8PjJ+CH3GZvxFm6XqvH/FCz03fAuvRHU9f20Y9k3vSa"
+    "OLcte63OaPf4/GrUQ9eCq6fp1BYKiCTAif4USAC2JOMaPXG2kCBq2ZIGTydg8u4lTJSW3KluD72DULvCwyXo2E1ro64C"
+    "NFzxAb5IBWi4SMF16iFhNEL9CbqLCWGE8DX3e/cVYbSL+Q8IrglhhNnA7Sa6fQlhhGID8EVsfDs8ZetiiIRNjogcgJ28"
+    "miBAjooiBFgvn9zMEBDvc4BieXF18xTxBRQQ5SsVFWDQDNGQmYKUKiAqWpogcsPfGI0mSfotTqDPlUOCSDNEbWZCkvRs"
+    "q6VStVoXgihkiJAE3Rsk6fNi5fLJtF5/xk6nl6RnW8drRwgiYYg6/PmS9Jo/0gSSZpCkBinklzbpXY7PhgRSyCBxgdJ2"
+    "kp7ju9zBzsNnUq86ViwQ+kvdrdf8EaMksHCkGSRanPP5QZK+6fuyLuSsBy1HiKVL1fEiSd9uNj0mkNBVq9/XLMch6HwU"
+    "KSXpEZ/iAJVGclTRHCKHGV2uLh4n6Ye9Hk5b8uo4a6KGgBmmczTJ+yhJPxnSb+DMJhYl3oIZJnTZublN0gu/1JNXj0wR"
+    "ukCE+unTj5P0El9DAcVQ9ZhTFRAfYVD4x5+m8lWeUM/8EAGD7/i9KWHHsNubzk8vb1KOP8w7TrfqI27ZmyJeiVhlu39w"
+    "ORgd3wA/UUCk8HOK8dblqgqYtnuDguCjI60lO13ET50IHhL+2YR/XUVw7XI/RBVQBd4JvglhBHxTeDbVeJZOFdCri3Co"
+    "iL8bbqXLdp0cQgYNR51GF9NgkFluVR1UsfQ8G+OQekMXY0Lodby63ULDJ9+2ua9d03XaSAhv+14HTXN7TRktO2yT/zhY"
+    "Xk56HXR/eDIddMmPXNwo/MSecxU/yf5Ssl+WnYYqIQoQcjAYJukLUXxyFEMk78K2nqTX/JCzHl8mSXrhh2zBB/zfgCGK"
+    "4Mcd+qYvDeoC+55Oo/Z9kqSP2KdEipiGWGu/a/Ux+9IzhDbZ3xr9tmk/h4cnJxH7oedfQIM58li9HmEXPc9iUX8fWgOm"
+    "vJVOl8u4X0AselVTJk8soXxE1rrdgSnT6QSvBo/Dd8yUwQ85MmyP74gpe1hfLU0YDcemDL7IEd+J+7FtyuCLbOy4hS/b"
+    "M2XwRbbEI/lJmDL4IqfdHo22hTAyZfBFXqeDeCp2wI9MGfyR3+1Op/v72Fk/NmXwR02cBw5AIF1+ZMrgjzrD4c7OMQik"
+    "J7emPB0Mut3RaHf3GATSzcemvI31gljpycnjx7e3n5p4Z+KbiWcmfqXc5gQYm7bdHnCWnmZbsLY9VBzRTowj6u6fA3ux"
+    "9xX8fRj+PBQ/Hmr/D7VfE/9NP2D6A9MvmP7B9BOmvzD9huk/TD9i+hPTr5j+xfQzpr/R1+1hb7J38vg2namPM6XGtN6Y"
+    "X4+n11/LeXCwx2Ogve4M572q153mckWUBB1alWp7Mj+5pFPqAI22aXVvnzx58fXebHp4+fzr3wo/hIR3IYgUP1SgNc4E"
+    "keKHkKPLBJHih9BrjQkixQ+VKlUhiBQ/VMOELhBEOY4XoN8mSOGD02IBk4RdHoSzM1+cVzAQwPbVkeXRVb1asaoubQBm"
+    "3FP2qfBFnQEqdkAYCV9Ef3sgAQfhi8agk5gwkngqBrRKQFX4Ip6/yoSR8EWn6L7NhFHAD4EkySP1jJAZtXFjzMd69CgV"
+    "I4AKkvjBpSzj6e7eYhGoY/rGGj33eStiEFDdE05ye/vwMMIP8RD3ojBEPMEPIKb7M6kghvp70U+1PqMJIhQf8+tDP5zO"
+    "5vMwOsI5+ChO1n8/BIgG3fE4QFIqV/D5PXQv6A8Ae+l4AKXCiX38+pjxub/P/FBWE0Q1zqNscMeJyRQUUZI+Jw1eOACj"
+    "u4l3eHO4Qxvr09O8agDDB07VzQLkMZItEU4pFgoonaJPXqvpaY/S3Hl+AAdRKnKBEn0xuS2yb2Zi+ggBl0q5LAVKFdoW"
+    "N6XvAM4Ec648vrri+A8nDTqO+tJS1sh1+zc39WoVEf5qtcrLpj+Usn9V9vz0Kc6YXKCERYGKSxzykROG6U9Pnz1L0nN8"
+    "if+hfmGMOt3j4zMpiQYR025Kgxvw9dyTG19bWnJ+goZq5O1a3AqDNhujMfehg1/kkYxffPH114pfaqMsjF59j9770SMe"
+    "efris5dffvstmRPBcbfbocOSGul6cfHkCYZzvfyfr3/4AdXWOsC1gxDF8uzyEuOjPn/1FUJc6GaAhBspGzs4woCo648/"
+    "QYXU199//7vfYVrqbCoEk5r3Cobpi5f/8933v3n95s3B3h7PUcRq4XGSl1x/9cWXX3/3PQqBHi0Wh1zgpGbVXeGmvfzy"
+    "629/eP27N//vT39K0gtu9raz2UIVgbCqVSPve3o1HvR3l08//y6drY7TWWuQKdT6uWp7t+JOl157/rQ3PP18e/fqO+GH"
+    "CD8VQaTipSDQOWCq+aGKIogkfor+HBJAFX4IGTJCELUMfBsjnQLFl8uLm0+/+PpXh3Q7psiWu3r62atf/vYPEh8cH2o/"
+    "IPHA3rbEAXszif91pxL3G+3lskWnOZgdFvNlr0sepVKqNIY7R2c1q9qeHiyvJL538VTiejefSTzv01cSx/vilxK/+/q3"
+    "Erf71R90/WWInxyh7fVHWIrLCP+dVb+wHv8kgCuD0hifeuhFeXAQKsnMeciaxh+sKMG3aID3TnyqokIgjj+YT8/4UgK+"
+    "8DjrbpeTM9fgCxKZu90YvoT4QBv6NfhQY3yooupE4QP0wIdHjA9k33fab5Kes02xY+qiIQD3kST7vPnkUx44/Ktfmfa5"
+    "MOzzcH9vB3k/IJe5IhUfiqzz1de//OG3v/3DH5bHGKBC9oODECpi2X5eiv28+flnxY8WQRCNZ4dLvX+wqo3GcLx/HJUH"
+    "4z2RMeDC8v3+cOdQ9f/icGRvsH0gfJHkP5E8V+1TixY2ybRBUeP2SPa87mC2r+yrxHJ/uid/XSpXa3RMIFkWlcVpH6PJ"
+    "3qEp57idkcP1obOdwxOyz0Kx6nI4f3v36LSI5oQ1dAMnbzg/QX5LuVz3+YgxP1w+rpRK5DoabRwpjhZnV7UK71+6E1qb"
+    "p8tL5CeQa2jTgYUOJGS0zBc1ugMQRheXT5+ZcouhfjCez8/Onjx98bKFXhHt4WR+cH5+c/vZyx7QvDeeHR1fXn7y7OXX"
+    "zB/Rhud4cX396YtX346wFobbeyenT568+PzrH2bItqLN0/LR7e0Xr375ege9Z6Z7B2fnn3zy8qsffjff5nyaxePL58+/"
+    "/u63bw54dvXh4vLqxQvISy4+W57fPP3yy1+9/sPPpqy5GU4YGm4fmvu/WpUs0uWADjZhT/X+bKH2Z6lsbcYYm6kM0rnq"
+    "IF2o9rMld5K1Wjv5Wm9esocLy52e1Rs7l3774LbdX7wYTh692t69/O7w6Onr++LPXfhyF34k4UOS/T/UfpPsM47/w/3Q"
+    "D6RzFb+/o/1BSvm5wC9wo7lu4B84z9sP/YTpL4Qn2j7SfkN4ovky8B/ME51emn4k9Cd8/nih/Qqd48dHl5+81P5l1JNz"
+    "ifYzO6Ph3tknL3/Q/uZgm84rL0K/o68py2kh/czxRzut9s5pKl106TzeS6PBOJ3zYNvoxuXyWPRun06vLXSm8h2c0/YO"
+    "yL7o6xzSuRTnsJNz4Yccz1MBTuGH7IAgEn6oHhBEmh/SBJHwQ5LRi79Q/FBAEEnqr/QmQ8DA494xunwFeYrgizifE0N7"
+    "ZsIXNbkhHcY9CF/E/BETRsIX8QRkDjgovgjUFhNGii/CkZUJI8UXYXo8E0YqPgF6iQMUHF/gHhEV3AVOIOXoAT4dbY3F"
+    "3LKSCucGDJAqsRkOWZ/hZtvSgo5buYX6Ldbn0AtBWtDV7eAVENTe4gT7XB4EUT3KEDUkhJGWBNgifCq3SNF6lSgrpkz4"
+    "rwgiO6KH6coxqVzhprEhg4SP2AAhkudDULUmn1zpbScopeJmB1a1FgRQ6pLDz9+x2ekwP1TVBFHAEKFTC+ilXpJe3xIp"
+    "K9BN7FpBCAbdW2xNu8UjNEwDeTqm47AeGs0RcbGQ/sg2SDdFIGktKpjw95pgUh+JM4S5vGCi6gcUgcQt8KT1zJiLn2bo"
+    "f6cKmOQQidOY+ltuRLXrq7IHEEhc4aQZpG0pUkrSq/41qMoLWlxNttV0hYOjI8SfNMEU0avpWejX2ODCMN4GouwNDFIw"
+    "vfvkpN1s+iHBxH3iwPGIenF62m0B0fHgmk0e24FX5/zo42MEilV8SxFMqg0Od9hZnCDE1ZfzWMNXRXUgQRABw5AGJKQO"
+    "exh4qwkm7oKF8yT34EIQTPRtreck6j15ddZPhlIfIdY2FlKZX/z8AiG0JH0qU3bqbqNj1RAXa3YIjnhcfbvh96b7x0vC"
+    "23amVm+UHdtHnLPuDaauP9pvNCfHnc72UvghtgeFnypeqgKmIT8kBJHET5tBAFXxQ1hXTBBJPLWFcArjWxcNXdH5brpN"
+    "0smjEQrGMMsIFZPL8yuJD3ZHEhdsqXhgoyNxQB3/85oq7td1UHFMr4c4H7oakb/iQUkc56P3lPje9p7E9fYPJZ53sJA4"
+    "3vFyqPyGxO0eXWn8RIAWLZ5UhJaHnCn85BENHKBdg3+Sq5wvhAFcjuAGCIpGMTxKkWFLl0Bq/Op2CxH80gFe1qsiI8CP"
+    "VQvwx4/jT78vf6Lwx8QXMmU3AV8UfrD967LKgdQwRvBBEdjtVXxoSv/KiP2OJYKs7DdJ35X+Vb68O/dFI/vkLnYLWFjM"
+    "PpGSIVVAgX2OeDwKvQjPVxmNJ9vKvk5Rgnh1ZdjP1LQf1M/RzokJom6P8yXynF/CAfH+MCrjELyVTmM+B1qOEuJ0+5DL"
+    "lhBEDfLjtJS4HJblBu03yDXyfsPmoUZdLDTU0tZZbnVwOnGkAx3sqy2ydBVEVz92m64miLo9U+aaX1+cjtqf6HwWxivm"
+    "h3x4SvijEc9X5FLDroTlkBmDfBcpiZ2gPx0afCGkx93GPNGjdhQPbhf9dTG1Had5NMQ0ZeaL/HYXhNHe/sFRVEaQroV6"
+    "NEyFH++iFFT4JLpvYxVP6gDv6b4ilomOTb2m7IcQ+zwmwOgDz9s9lATNFyePLoYd2R/hbIAZ70PCax7JsX14iFl1Ey7+"
+    "HI53dqXfjimnpMGcLbex07fi+7++7O9awX4usj9jwjtleT1gbNqqN3N1m3GWjqMt2vN1bb/Tt73eyCbMdfzhDuHu3G9O"
+    "Dput6QLY2+/vnt8Lf+7AlyT8SMKHJPt/qP0m2Wcc/9v90A+U6Hs2u9ofpLMVXNvaL2QxiIh+UfsHurqo/NJ+wvQXwhN1"
+    "B4HfYJ5oMI75D/JKph+J+5O9A+1XWp5LfkXzRgeLTgPnkqNT7Wf6rUZvOl880v5m2GnRqez0QvudwP9krE6maPcsm/xx"
+    "7/g2xQVEzQkOyIWaN0hj+mfd6+N85zS7syJ90fZwdmjX6s3h3vFjOj50Z8fntxOMDX58+yqtFgwCnCjqkfM0z4S20cdA"
+    "zxfH8ByP3HRKNuhMEEFW4VB2WbTsReaAqEXHnE4f8QIOyNgOGjRM8jIO2FXpebvSXqzG4nRn7wB8ESYWMWG0f3jM8VPL"
+    "Ef6Izsfgi1BgBJHM6bLN4fM2wqsLMs/bfofHBWOk2PLq5uPno3632+kMUYB8/uTj558jPoGACQag3T7//JXih3RYVyIM"
+    "mP7W5pFt+6lUNMKJVGU+2DD6DyaTnVSEAAr0aCeK6s/xeCdUpzXDw/llXA060vc7MqRDGCL2nt3BYHo/fSaje9AxQ0QO"
+    "Q+knqXSMQNIMklgn6SMvLVsPpWfvHeqFXpIICk8qEgqpP07SZ4yPhhCtrZuSj8fbWVWAxG9dEQbJkbNeH0xNlv/xR0PT"
+    "8rrUY6sgzWy2x/GbbF4IpLrqhy5nWWZqkvSgj4QZw8xIfmludc7VswcHC+aX6KNxCzy+a7xtR1oaOhucML9E37pcwQSD"
+    "pjBM2HYzxXSM+JFKMLYAQ/KtttWmYrm8SNIDbWs4zDK9xd+aHeXx8eny7PHjj9BvoiYEE2YUopB0J2jaTRsWHKeE8Hfo"
+    "pvZ5Kiw37T6l/cxHH90Kv8TTetFPAE19wU/x0MUnt7fPkvT9Lg/oxoFGDGJXiBjMl/r4+fPPBwznqoUec0Tc/w8NDW4/"
+    "efHiCx43Cf6JR1vRA90/PMHIuSdPPv7k+eefv5JprqpFj3z05fLx5UcYJ/T5q1ffJOn3d3h+02RCa40Hwp4sLy4+enL7"
+    "7NnnX7z65psfAHbFmj/iPXvd7xPc+P3t+bLbag52T6+ep9NWN52ptNI5q5kt+INiub9bq2+f+v78atRfPo/iZ6un7DnD"
+    "w3aAj0OxDUUQ0T5Aoo0VBJOAadslA/8E79wA71oGvnF8Ffi1AH79gvArnSvVWnjfXNFqjFNc7OkNOIZjwR8gduv1+ftZ"
+    "7BeA9JM8eQ2/PdyFf2j2pgeVUgUd8Ra1SrXRm8yX5OcgXrY8OhfOz297rdZw5+jq+aiL6OCTX8yG/e2D5e2rkF+P46eE"
+    "aGf7a/CP8GsN/mV0ij/rbb3cYvgVwbcofgX0t47w1lX0QOHTXXqGB40v1WCeQYctibagEfxAc1Ac5OTgj3RqWm6lBPwI"
+    "4scIp623/zv19PhdbmCFFlYA1Ilqqo9hVmQkrQfap7affmA/i8B+fhGxr016Wf+5fKlWa7T6M/U80cTNom3aZBKVG53x"
+    "WO8vCpUKhgaN9HwYDke2BoM1Mk+PQf0G5GCdWShSGYT7D9b3+9JNFXkaJDdXZd68SP932mKOx3j4hQI/Wnpyk4nI/Cg7"
+    "3cFsxnxukR8NPZndXVMugrQsO36z1xtPdw4OuD66jPGzfbpdh4cVpCZUPBBI2zv7iwXzR1VCatBNR8ulKTsM9rSx2t4m"
+    "kH782GVopycL+ml5eelzdLDTH+3u0kP+6CPmj3zCjvmcHurtrSn3+OkTmBwdXVzdPH/eZzQeTeg48/j66YsXI0bfyWzv"
+    "5OTqyce/+MUMzWn627sHy+WT2+evXpny/mxKULp/sLi4+PjZ5998EzxPwjukxZl4Z+KZuT9LpWv0jKwOY2zWkh/GWreX"
+    "K7YnhXJvp1QZ7leqk6O6vbME7rZbRze97snHGn/vhT8b8OWh+PBQ+0+y32T7i+J/cxL6AToPVPxR6A9W/ULR8lf8g75m"
+    "MCjZbo21v0D+hO13Z9pvmP6jVCgjQeLQ9CP66tTqLXRG0H7Ft53OaPf0I+1fTD/Tb2Pe6/UL09/o6/50vL+4ePZNqmI3"
+    "Kq7bsN3+uNEYz+k8iMffSaXL2Eo2i2VOePRpUaBRRpuO5xgXjDhHo0tP0Hfo40+29ztN0Jv7C8Q3s1xAxNlEPfBDKqCD"
+    "/qTtLXRX4wIingHQBFSVeSIRyw1pvq2m/9Kxmw9KHKARGVvcICBDJ26Px9WoZmN0yOZ6IgRc2nK25ngCFxhJJJ75Igmg"
+    "cjyf+SIUGEkseYf5IgRumTDa28f5CAGUPigg2hd2WhxAAZGJbJ8jjk8Iv0THraMF7AkJqFmAZE1SUPmTNrkFzSClCKC8"
+    "8oeqyZwEITp8v7iASPROyBBxAKLdVXpyGCXWx+MPrc6WmgZbAEFUsxXXwB2RuA9Kkl5ZOfC+VosyREwRNVqyj8CQ9yof"
+    "NUw9fW+YOgKwdTumly/J/BGS7NQXCxgk9SWT9GVGA/5o/D88dYtR4oSbXFEBXP0HAYPEIdxWp8b/As4r+MeTAuj+ejrB"
+    "V21VWmEbOzBB/SS9q+O3anRUO0IhgScK9AjwNlSAGGpFMXmmHgyTophUfrGtCCbMe2OGKaSYwIferQ/5I5wiUaIU9Obj"
+    "IU1y3onq+wG3BYpJ9lMcWRc9joJjkEAgmXb3m75qkCfh1XZPGKaZhLD2D5L06rwkBJQUYGGEN6dIzw8PjxCd9jzVQi+u"
+    "Rw+eY3KPTRW352SkPvoh0ydnCuroaNFD/JIjaPoUrIdE0YsvFqdJejmPtRCEa8vocVR37e6Dglqcnj5KpdEv020BNxE4"
+    "I7hpIBW16RG8T3cPU0WnmS7XPYx3qzmNlu10+449mLrOaLflTw/TMh7dE4IIeJDmZGMmiOgrwTJrmiCi35FxFx4Pu8Bi"
+    "WoN/Gu8QDZwyXyT4hhTR/R63K0JIjlvuE35h/EuT3hdjX/z2FvxA3W1mcgi6O41cocZXxAERELSqPK6l5XHcr91zEafq"
+    "9AYu/AS9qofs5P5o6tN+sTuY7jRdh8chtT23jUbgnYbXRnvwXtPvDKb7AX7KptLTEdoYfsp+CemyIf6hCSaWu+xl0FIZ"
+    "LHQQwdUEdFu2KmDZqmvxrVCMENjRCK/CryQ97natpqsGmEoBuDQVEvSC+LDCh7fED4UPPHxO7LurOlSpEHKSvuFH7FdC"
+    "OdIYj5tg7rH9Kq/kh/Y5jdpn4y771PbTiG7leL8Wt69Nenr+mQItQW4xR3rOLynW1efpdCIy4w+SLUolBkz+vlv08MuY"
+    "SISWc16zacoIrnJmBSg+8hkIxSqmkWVad+VaTenpKyJVwpGKIt52mHKFV6F4ISwwi5eGp/YnrVaNV5mvXEy7zXyRq4ZX"
+    "0YI2ZeaLnIbKdxkMApmXwHDI/JGNQZ/S09Dj1dLgeXKgCkyZ+SIb6aCDMaiCiMytyxr8rJuydQa/yA8frcBGM8yvMWXM"
+    "P3Lddgex2V3CRJ4/7oUy80koNUcX+vnRUY/nZdFREOMfDhcLUx7wepCzBvqbc/ddTKxkggj2GMc7E8/M/Vmq4LUJYxvA"
+    "2KxV9wq1ugusRUoxpqvStrlv272hbffHhLsz4K7vjvcb3mQu+JuIP3fiy/vAh4fYf5L9JttfDP872g+QX2NiTvsD0y9k"
+    "UDdrr/oHfa1YyJbym9pf6POE9hsr/gNXnDMMPxL3J5Nt7VcatIi7w9mu9i+mn6F1u9bf6Oug3eyNZui/UmwQYnjFcnva"
+    "8KZn7GwqTovPx+WaL7GXeiOLpv9Oo5NDHiC9U6VMvzSc7dM5rdGbzU9afqMz2j+5VP05UNlSQ6M+zQfxUGin0Q3mi+fp"
+    "nGjjPuuBN0VMG2+n9ADxYomORX5b5ftypQqIYz6Xc8YWBrc2OjzOBiQJYnyNdj+fk2ok9BZDnVaxIGd8Wqw4w+xI/NSq"
+    "+5gPPJ7tybzgmgMLJns/dtT4cPplOu8cL2W+p9voDce788OTM9g/xgcPJ+gCeH494HEvnf50Z+94eXZ9q/mhIAWV3p0+"
+    "HH1WIUhScYKIk9O4OzYahLaA/7EAKPtuJLeh+znmvm3QW6xvdrsRtQphcCSCQxjsPzbp6eYjJzUa/1BhDi7zqdVjeq2U"
+    "7yc8TPT1gz/W+rrSm3+O9t5a74V6HWBR8ILvb2PyQitRrwikLL81V/Lo41MDPaqzugAgp99Zkl98VAGQE0nS5yIEU6lS"
+    "4cw9hVw9bC3yuoCpIMweZ9Xw+D6BniQ9okP8yfHmAA1OI+R9/RipYyUOIBWZYBJeDpsappimSP1K0iO6xOyTcuRA1K5W"
+    "kj+rVcMAVA1AiD+WuXBzlBpx/YIkOFeRgsL6sUAqWmsr/okJKATF+DwllD0mTC35gFtTh/CGnlzIKTfHi5NHj7zIgZET"
+    "XHqou0Yux+HJyenZGU+jVf9QtzHAUNs9jo6dnV1cXfH2XjrwsB5jYzEbi1787Pzi+hrnJfIF4hBoO4exddv79MlRx3T5"
+    "0Uc8rVIRUNhTTMmw9w5RgIX2s7e3SXoObpbtJlPglt0o5Is1jxC3CVJmb3GRThdIl/fS2aKXLdTauaI3LFudPdseLJqN"
+    "6UVaFR8Kfrb6Qb9HxkuvHYz/AojR44ngIXoMd7C+GP+QnNAbThS+uYxvO6v41mp4MTxLo1y45rQ4K82qN/haqXkpNN6i"
+    "Kyf3E3wiJ5cQ3ePcXDrYZVXbz3y2UKY3GxbzpYpH71kqlC2/P5zV6PO1Jttz8hdOd3vvGH2KezvkN8h2hvPj8z5Z1+R4"
+    "eR2Jz67gJ254DL80/jGFDhaY9ssGukXxz4vgXybAt4LCtxj+aPqogOQ6wRcnxK9MFH/K2P6E+rX4g824nB9yEfuXE50r"
+    "uczc3H88zuekwCDEBzUUkicuTCYGPtj8xxF8iNmv62r7pWe/o+z3bn2EP15rvy11HtpkX0n6RPvRG84iPfNWS+8f6DGR"
+    "j6SNcyjTzWkE+wlTpjtYQTiyHdpPKGc4gUDkdIQgqnvKvrTsq/0HKJ5Az3/MDw817yuyEEaYMENW0ejICizqm9035Zxw"
+    "DLT86Gb3eiPsX+gM4KDiCGcUU6b9DK3ICu2Fuzhz8H6GFqCHCqQh3WlTtsoc+CTTIKSjO814UK03W90JxmAiXwYEBh2I"
+    "SD44WCh8oFVBz/z4eOlKy4AOKpL2F4tHnrQrImihBXNyctbi6FWjjwqlo7OzK8YTvzEYTujFz8+vO7zjb5FrOwAH9JHw"
+    "SZ3xZIde/Pr61pSN/WIn2P+Vkebot/V+zlP7ORO/UukiPZNCg1DMUzjrp3MlL5OvNDTeFsqNSbHcnFnV7rxe7x87zvCk"
+    "4U/OO+2dt8Cf9fiSiB8J+JBk/x/afmP4TxYX8wMxf4BCoqhfyMAvhP6Bi/zEPxSNa9Rf6CudK0p1sgDtPzb5EX216Jjc"
+    "pBWt/UqNtmJtWsHav9A5yu3Sig39jNcY0ArV/obO7a0RrUjtd/SVztJeEWvcxhmtt51K5SyXztKpdN5Ckw/CjbpDVzwa"
+    "Ogk0XFvGBTsyFh39VXyMV25gbzSc7qbRvp3ONtzCn85/XC1DT1YVyjTR/yxH20zJ/HZ93Fehm3mH5HHzbUzHkcxwDwkN"
+    "VUcRRPQH7LvgRPgQ7HqoPa+rZmSI6XoytEdPp+l4KtLAkfYO+nvw+cZTw2n6Em+gnQeq7mlfKHwRGR6GddI+sIEEfZF5"
+    "xJHEV10ctjh/td3kNvPNTg9ZjrtziS+kZJNSqdS9KEXUQjxLEUA5gVB1lnc8FU9S5sh62IMTUERSgRPo81G97Ugco9nc"
+    "En1OCCSLIxhCxnEM1d8Sa8+hwkjpFUUkLFNKF6gWmOld0atzTBEB1ioCaU4QIono84pAqq/o5YyEF5esLFWDFLw+e3ok"
+    "59acKENU12HgJL30MpD5SnJTXH2LWRIkqaoKgIBBCiikJL3Ed2ohKRfwS1Kq5IUJwq4XMkgSAqYlmKh3IhEl0belyECi"
+    "RK4TOS8ohkkiSBJCStJ7TlDAhCRGzUAFBFSEX1L6Tkgxjbi+wfj7jnTBUSwSolOKX7LlMNZRY1YItCfTKUevTH1YAjFr"
+    "iF5uUlSPdHnCdTY3FeDWyYo9af7HBBXHx7TNrNG3GpyAzYsCJ2R9WJygDmJ3bw/RM18RUJ5Qtn0ZA4EA23yepE+l8pZD"
+    "n6xIoE83wuXxafQdfIzNGE53CG/9VNl2yec4Fn1Bx221bbs9dO3O1MdsdeBnoWSpeHNbxlNWqhovOfxR5xdmfERChsZD"
+    "GLirxneF+KfGocswLRPfZk1uVxTiWTqVK4KaSqUQ2XP9rXSxDD+AsS+40r6Cx7kUylJ0UarQp6JftHgsEt18HtDcbrsg"
+    "yWjd4R6gm5ZHy6XVH4x8klFQ1aC/adMuCYWpbdRX0R93xrPdED8LBdliumvwU/BN4Z+sJRkW0lDTsKP4FYZwaUGo/XEe"
+    "9Z04xkTwifWS5ULIbenCRylS0vhVWMWfWAgYyvIa/OElR98iBof8pcIiR5iiejm9flfwwU3AB88V+7Sj9qlDyLDfBP0G"
+    "+x2K/c4Qf9YFDHH7mgb2d6ee7UfR+jy3BUMGeQyb2A+eP61xR7kz3j+QN9F0P/xjmjbHtn59U96iB0zPoC6EKq1fDJLE"
+    "+G0lY/8WlflkxASRzPLDYQZjenVnMGx3ucDIET0OI/WAIHJcU0YHIfG1suGxdIGR2p+YMnkTidWJD1H8kdeM7F9isrJv"
+    "brjK/cpk8fOOGTE1Uxa+yGEuAEy/J5sBzpVEXkCg57Tt0UT4I5djtyPOJ4jI4Bf50UIeMrPQ5I0Yyd0R8r12TbnFaIvD"
+    "3AiZ13ttrm3xO6hYQudSU2bjLmG/KLlkhWD/JyVcrrGfM/ErVXCbjLEl200TzmJcTon+nk6UrsZbx2l1bafds+3OyLE7"
+    "E9fpTD3aRTe83r3w5y58ScKPJHxIsv8Pbb8h/udL2EdrP2D6A7pWYn4hV6nCH2j/kKXDEGTtJzb5C32t19gdN7X/2ORH"
+    "Qn9iO8iY136FZVrB2r+o69T0M/rawqKkFan9TuB/0rlqOluo5gpuu1ptz5jcKVQdCVJWajLu2apLjoJlZ5ku8ppo64ZM"
+    "kCptIL3uZIfOZXZzsDPX/TlwrKE742q+AKUwYHhSYe43GKB6pJ87SopqKn6T5RgLAZHO/xW5Xk8HAQMOidqqjxrngcNH"
+    "Ibyvq2oQMlTt3kuWlB/j/M3hVIu7NXR7CKeXuFiJtgh0PysY+M7JqmiqMJ4gX5ND5eCT6BTu1FWAlc5HYzp1uxzttp1G"
+    "p4eMuXnAD2mGSIUYsP1HDCAVjT+oCCcoInhYVLpE+Z9Qz2cf5kDeXp/V4SuksLmGXrdJQRURfcSak6iPKSOvTwiA+xKL"
+    "v2YkSJKXKiLo3ZRJPykKqaw/X4I+qlYvziEYPhdH9Zp+UhuYityfZH0mE4SOVRxWlMwxOX42JJCE21JfzBYOqXUvfciN"
+    "YalJ+p4nYWKJH2c57ZCfWlUdvHjv3enlgwCziiDVpLC7yfW6vX6SXsWX+cVlVcqurM31nINRSQqchGAqC63HqNoXf5mk"
+    "B/nEE7jlWMrNTnjXM0QZ1GQb8a0gwMUMlTqS4MBC/jJJXxeCig+tzFAhsoFOGFOUZu/u82muFomQNTocIhsT2u/t7x8K"
+    "P1WrBwxVsyMpBTsYXDs/StI31HlMzlRwyz2Jz+3xvESe30W+wOYQZ7lqozyg6rW6GidTwNtMtoK2PMjMJqz1CmWva1Vb"
+    "E9vGeUgRRDH8lFI/NKuM42Gtrul0NWfUVu0TSxVOr2u1o3gHfln4IqvmbsAz9PfK5cXOczmrLp+lUpe6i0otxehr1WSC"
+    "O/kFFcqFWKIzIPsHi85t9L3rTrOTpyt5pm6JjNT1+8MKbRi9xnBco9NIozXZdujdW93tPfTFand39mP8ehw/a4KfCfi3"
+    "il6MXyY+Jelj+BPBrxV6G/hR5r1RiC936TfhCyd00X1T9q9iy9hXyWEPUXayhBX7rgaBFeyA+0n6Mhluidkl1KHAfn15"
+    "4QGOJeOpij9r+8NWfMU+79In2V9L+NuQwe0MOETN0e3FYqnXP4pywBClAgIoV6pKvDqQLYlXr5UxNaJSqfthv9QsCmW9"
+    "jTLtT7SsHg7oOy8dEEaQEfdeI3M2QQHHc0+SXXJ5lbWxKgufmwdrUOM4ubBPFckVaG+ScYyi+9Xh/Qw9Pukq1RnkRS7b"
+    "wtUPTRl8CrbuKOAFo1QqCmOB/BkwSKZM+x8sjCqtty49tR3hk6p1Wj8DMEorclVSBejN0AL8wBF2gk4cXXRwOHZVxwFa"
+    "fGMwTKaM+dEAUlpCoK+W5n7RxLckPEN7NLREQzu0AGcV1mZoSSG9KVd0mmiXXCz7/XKlMQT21uvd7QB/78KfD4wfD7X/"
+    "h9pnHP+rdtQPrPcHkWtujX8Ir7SMY/5ird+IXi1ahaYf0dcirWrH6/a1X9nkX4Ir3alGe7pj+ht9bdBt7Pb3DlMFx+HW"
+    "EE6r5dRbg1QKjWIdT9p81G1u/0bXAp/S6zZCaghsuJyl3ungsOrTQQJzlv3OcIT+HBkQRA6XEPlqnE5ZmqW5rlS/lMqW"
+    "Stnd4m5rfLRhQ2HHX7QkQsMyqlWqkupNshx8+LVYlh0lR4/40MvGoQkjicfJXlTH77m9GPdh5lO38EW2K83Aul1PdTyT"
+    "5l8870hC4Tz9aDD01VRz3XwrKmNDyPbEAQZEmghiq05Q4gKGQZtbRqxI1nNQReT5qYAAyqr1bjtRjujeejlliV7HC+hX"
+    "toL9Vq4YnAIUI4BfSdIH/gmgxFZsx/QKIlQWH+/15f21XgFBkbMEYZXOW+k1hOB4FnwrJ9RLL1tOYbGdCIWkOaQkfbCT"
+    "Z+6Lt70RislxFdAo7ksxSEIY8H8l6avqn6LsZH61H/xrRCsaOIKju+SpGLIXCSDpsrJoDOk++shy8H3Vm0xCzJhnoxKU"
+    "NcPk69Rm4ZiS9F5M7yh9h6ugND8VEFB1pVcUFBiqRL27Ts9VUExwRfknjpD5iglWAbRN+j6zY6NJkr4R8FOKoWpIsmNf"
+    "2gtOUykCTMd2pU0meHduJ9V2Cd8IJwepIp1xynY9R79UIkCtImbptDq23eq7dnsg+IkMemaIfKkuVwSR4CPZVjXAx4LG"
+    "Q/Wx61JQhFIjjjir7heuxjtP2hchUZIPwCaepVMZJJD7KNNA4BrlGViNW+QPavSGKG6yyQ8QxHPVhfYLZK3MlSAohQRx"
+    "3BwsPY+D1fT9cbik/YvL1Q098EV07Q98rmZg3oivUfxU+Mj258bxM45v8jAC/FvFJ91oE/h1tz4THrEqzIAb+KXCJ2Xh"
+    "lhTqOqFNJenvwhcIdSGgw4AyU0ghBa1fywnxIWbfSXptP3H75CXORYyBfdkqAu23dAi6DxNL0ifZH5JVI5R9YD9cwzid"
+    "zvD8M4TwdXninA+Rkf0/bhU//yw5PlVf6q/KaRQUlevq+4EvyoFDlSfomjLn+5QVYYQ4d5ZT79hrAqJ5oUiskl/QlIWv"
+    "lTwHXHC4qKoVuU7mw0awKhwXhwnmd9V+xZTZV8iDFP8grfTchvYHsvA9RTC2TVn4FLFBwXeR1f65tyrLOgfx0FP8Ul1k"
+    "pAGMVmSnrggmyEPFP9tuk3OZRxNDnppyQ6pJIWNXPovsD+mOua6Jb0l4hvZoaImWKtk2cDZrOQHWlh0XnDyXqqBdMngi"
+    "x271NPYq/E3Enw+JHw+1/4faZ4j/mSIq7gI/sMEf6GuKrKi+xj/oKybwwE9of7HJb+grbg8WvOlHov6E+/Vpv7LBv0Sv"
+    "zVZ/aPobfW1wFd1wjHZI6BVOa7BOqNNmNjBbqEicJF9SyZxl1ba/Iu34K7Us57XZXgEjbuxGG+eymtfuB/mXar5vbNxO"
+    "sWhtlJkhkvddkXU3s1LJMuVwVA+ncq/Iqt2YjKuhBWLKxrzgtimXpB1YuVyvc8NPUw7mCWMKWr8/ifBDQZeSrIoRIMiQ"
+    "iscfAgonx/pqNR7/jOqLfPz5YHoOVVYqq/qQIyq8D31METBM6vNVKrH6peCzCUeE7c9D9avsVl44Jg7SRPUhi6M5pPeh"
+    "z2Si31uiPFqHAFJWEUyZIHxU4sRHS2UXPlSfCwgq9b1LFa6CYo9OiM/xp1zkszExp8515LQeqsfd0ASVpqhQBeFxtki3"
+    "y8HrYiFgoLgxh6MJrn7/oXquniopXUWdqj15bxx6ND+lI2yckeXL3yLIlqQX3GS8RNOUMlZ+kd4ETQPRoBP+RDAXP/ky"
+    "XaxsvkJ+stYsl+2uOR/dnIduyuY8dFM256GbsjkPPS3zBuV9czkrcsXrVvRVfUIruAJV6VX1lT8dvaq+5jFjmt5DX0to"
+    "uuL7fX2toYyh1YrgZ2zOUAQ/3wbfMkEIdz0+vb0+fS98ieoi9k+boIfq19t3VUJHtH+82/5arYfq19tXgzNPYQOr9uFy"
+    "lcNm+4nrw/UPEkX5S2k5xgxRuH/IcZO5t5O1f1H3t3BPWWcjFNXz12uypJ73feS8MEiajNLrNUmWZZbn3TfutYo28lYd"
+    "9y5Jzum1WxEcBH8EAqlYdZlBSpKlWo2edc1DG6ku+CSc8cq0/QGjlCSDb2JyxCaM7RK+MvmP8Xq0T+9PJqZs7g/Txn4v"
+    "sn9DUNGN7MdQ4dsP8JV/MgX+of0t/wCX6Qd7Xfzk8tUGfrDvxQ/BVP/t8Odd8ePd7f+h9nsP+xP8l6qK6ho/EL1WTL8Q"
+    "u5J+xU9Er+QZTL+hrxnkNNNTNf2IvmLOV4H24KZf0dcCVovndU0/o68V7P+bzaH2O/qaogM0Tnx0X+io7bU5fbMOHieD"
+    "Al4b6wjcDe3XOdm6xHW7roO0VyQA4VzmNnBeq3NHCDXfN88D0TRfgc9ocQmRY8pbct9Rc8YnWlNmS5C1zwyRKeej84DX"
+    "yPzY9bgIT9WPRGRP8lJ5byDxlrjsyrxgHvcg/ZvicjBPhhu+d5Q9baGHPTNEeew366ojj+d5obnFcUv/S0UIJMalshWp"
+    "IlL3773o9RlM0pJ0zGAr6BYOvd6nhxzQQ/XBOSin9uKWBMB0DCU8H0X9vBP8wkP1OsUuOAfUdbBF9OH5pBpEcCSG8370"
+    "JRUfrljSeUiHiD0paXE0TFn6jOLGOaaH6lX8KYhAaYpK/1PTiTQ/JX8bZDErfuqhejuMcHGIK9Jny40TUExBeY1WwGE9"
+    "VO9pvf4FR+klHb0X6kMKKtD3+v0kPRlWHsFq0P7gcLD40RbJ5f4Q7Q7hrZvKWXamULPzFdsu11y3bnsNHKoIfzvmfHRz"
+    "Hropm/PQTdmch27K5jx0ev9CQd63WBS84OtWOk3HNbuur4TweBdbX8nUuYhCXy38X1p0+uohqo33U1eew0LvqK+I39m0"
+    "I4rjp8ZHZR9uBD9j+BYSuKnoflonoigmGY/tofokfClstH/5lYfqtXnr+EZo36oqxzHsy7C/B+tX7MsPqpgQZ47ZV8w+"
+    "uhykTtLz86fljxlEwfPOQpbvmlKEkLSs1fuJu2Ts2+hZWdq/pZkgKlu22m/cLafVuahS0/4FPj30WUkyxxkr9YBB4rhb"
+    "1QkYoyQZfBIKBBmnEUfX/lJNv0qSpdrV4d55gu+2KnXReHy37GosVzOU3GB8ljyzZFmtFa/FjJPUayu52++bcmR/yEvN"
+    "3O9Z0f2b1IrK6/tc1t5NZQhfaU/LP8jvoh/sb/FTrDr8g1J4/GDQJn4cG9hLP3Wvey/8eQB+PNT+H2q/97A/jf+FAvNC"
+    "cT8QXNPpUgn2ZPgFfaXtLUbSr/gJfaUzD55i3fQb+krbMxTVO6Yf0Vda1g7CMKZfMfxL2/QzwVX8TU/7ncD/kPVj84q5"
+    "snQws3W2lOI2cpqP0XmcEmnJF1VPuDLPAyqWLKR1oq2ROX/HnLdjztcx50mY83HWy+EQGnMejjn/xpxnY8rmPBtzfo05"
+    "r8acP2PKMX4o+PIhG7CqiwY5cwVTE4kGQ59fVb5vfXqTPnuHXsdBcv9IfSZGtqjPv16dU1Hcwoo+/NP3ol//qTUZUyiu"
+    "vetKDSRc/1R0kOh96ON3Tb13UaNwZu1dk3IDuKJsEKDOhC8NdUlqet6TPkZhYfqEpGfjPKszrLORuyaHbjiOfPgL4Tcr"
+    "C5EDh/ZQvZBb/Fvy0eSjcy0T57tGcBO3UFc7anxEvElhbhZOE7iL2QyY75bLFl1z/sVGfFTPz5ynY86/MGVz/oU5D0fP"
+    "f9FzXuLX8HtFrtov8OfV81v0nBZ91XNa9HwWPZdFz1/R1/RagIzh5/vFr4gV44T1YH16EwGeW8WHGHYUYvhgQMuKfb+r"
+    "Psm+o/YVfCzelFcl3ziXi0aglX1IUC1iP++sj65//EJkISDCFts/sJx+dzl7h5yJ2VeSHBTL5lLRBRnuRwI8eSu5wPuX"
+    "oFYW9yqodrqvrD4aMxwE8CoYyYwmnqpGWo4QWuF+J0HGqihX6ailql05hR3bd+afRbaQ15ckC5zyArRsz/M27g/V/Tbx"
+    "zMQvtN9IpTXGapxVWCs/4IuKCncrwF36qQF7I/h7B/48EF/uiQ/vat8Ptd8A/yWQkFvvB9b7hQ3+IfAT2Fdv8Bfr/Ecm"
+    "6j9Wrsyalsrr/Yp5rdakrA75YHF/o68FZgBRf1q0MWu2WOHAYZPOxhio5HJUpmw5W6odHL0s97TGpDJsPEqqrZHaKPg8"
+    "J93zW+b8HXPejjlfx5ynY87HMWVzPo45D8ecf2POszFlc56NOb/GnFdjzp8xZWVPW1uSg8rhIkGeGk7iQXyTIxAxpOH1"
+    "6EatMaORQ+33ECWI6gMkKgf7wfepz+hCnlJEv2Xog3ws1cpuaytyHuYwquKILGYkHqyP+p98sFWuBkGYKPYEX60qzxCR"
+    "kRBE5KODg64Gre54PT1In1XnIpWBV7Z0ab4K2GjoCu9qGMphvcoj42/NNZZOtD7swfpimCnGt0XbgWapWKP6FdSiFBZX"
+    "A/oh/yQ1UnXbiTTHCeun3llfi/wL7ppU33F8UxOZ9aDGypFse9Wqy3PNCJl+6Yaqv3qoPiATV94fesZNxs90vkQHDky6"
+    "sSX7ndu+pVIFFzO/U+mync1XnUIJPXfQb8fxXdttmfMvzHk75vwLc56OOf/ClM35F+Y8HD3/Rc95Ca8y50XPc9FXPc9F"
+    "z3HR81v0nBZ91XNa9HwWPZdFz1/RVxM/o/gYxc8YfoX46KZSBn6oPLY4vgU1kPlCYCmCHw/Va/jR+9GyYJPGHye6d1GN"
+    "MBXXIvZZMOy3FisPfbg+yb4V6xmYX9T+uH7BXV3+0fX/UH1aJS9gv10PnmdGMr4COZvX+28lF95C5o4n8Fp1yYfgEcrY"
+    "j9c0f5TOcXbafeQU+6J8SW84ZT9SKOsFJ0cRqSW5jyxRFj5q8IJRR4Wavl0FDluFzEGSXJJVpplEt1IJbIGfqvSlUbKP"
+    "+qW7ZYXMCi8aDf0oubiL8ddRopT43FPm12u2dH/dbHS/GMM7E89M/ArwlTG2ZANnGWtzlgO8zRdqDmbD4QczcYC76GsB"
+    "7NX4ex/8eVd8ScKHh9r3Q+03gv8b/MAGv8DX2op/0NcUDp9kcaa/MK/af3ALNNtZ8SP6Ssu6iq9s+hXzqv0Mc2tuo2n6"
+    "m+jVcZotTWDwGRpxTfWs9f83r3pckD7A6zbtGWnqXzT7q5nJmGZ/oLeUMyuykaxp9jcz+32YstmvzOw/tiIb/YHMfmIm"
+    "P2TWCm1SrdevhiFSawOkMX3631eP55u6S/0P0G/SyFNffSZxvuVudSweGdUHIPmh9WvVYc+7jfqcCmGt6MM/jfCzpl6r"
+    "C4X3pze+WKDPmI8kKPHIB3ywESMP1cWAnDLU+hSbpNe+UJ/bIzjJcTHoo5ilYpeMvfC+Zn+jFTw07s4mOYZvkX5GK7KB"
+    "Z7p+I/49NlwzmbXXjI7jmldeX8LGB1cVM9J9tNJ3AWQUH98Zf+6Cn436jfb/YL2xWlMbkUcW8t32G7W/TfbxgfWZtfaX"
+    "1waWZD+r6z+eZxF/vg/eTyTL6U37DfmC7yyr+2PsVyKy3DkTCN9Zjq8fRSHl8nF2K58PsSMX4EWCnInJ+sHLIy9movN2"
+    "aAGE3L+w66Zs8jImvhnwljfxTONr9EftWzOCx5ovYtzNAXc19jIvkYw/74Iv98eHe9v/h7HPEP/VOeA+fuAd/cSK31D2"
+    "sNF/rF5zUb+SifqVTVflbxRXUdB+R19xzEMvOfSRQ08knI3BxghrU6zgitavPDcoj/4EuRwd0Wo5Zqlqde4PTyexMie0"
+    "OK7ZX83sp2b2R9soq/5BZr8zUzb7nZn9zcx+ZaZs9isz+4+ZstkfyOwnlo4QQFtbqQhdnWcuIzQ0pQ/BoMD9AAxrzETB"
+    "YkXPDSF5eq2mPdf9Od8Njkd+IH3+Dr1i7kuKENlar5cKd+i3YkCk9EUhNawPrzf9rX5y/NRVvWMETvSTkZhrtVqN8FNZ"
+    "1SdUxa8tDgNFzx6RG1OtKprpQ+uj+3/OU5AvXtMtOHV5lcSh5ItVFDcn9iEKft1SWVFzIQul9UJDab3tvC+94tZi6qhe"
+    "/6FQYJUINSgRNK2o6EFTET3HT63oPykPqb+FPsTNdDpfKFtYICCrNU5iukoqlSfMLZTop5zNl6u5glVDhyyUZpr9jUw8"
+    "NPsbmbLZ38jsZ2TKJp7p/l66r5fu3xVepX+X7tOlr7pPl+7Ppftw6avuw6X7bemr7rel+2ptws8kfNRmloQ/ZiKzZnr1"
+    "ajL337mYmbwPfTydVvSlsgaQeHQi/GLKgGuB7RaUS2ASWi3Duqo/WLGfesx+PqT+TvvDDJi4/dRM+0kH5a38/axUTA7t"
+    "IZPjTxHaR14SW9+HLOUfvGKsLfXAsoWYnOHaWNmPvJWcksShTE5cSlUfVfLiQmr6oMIME+9fVLuOstzot5WDvYUlCB+s"
+    "KFU7q03DqkX5JbS2fje5pJayTsAp69mhSha+SUO2uyJH94v6+UbxTdX/cpUVvoCJZ4KvuSJjLONsnnGWfzLFMoGUBczF"
+    "DwFTHbiLn1Kl7qCr4Nvhz2Z8eVd8SLL/D22fMfynr7zZD2y6hv5hnZ/Y5DfSMjLZ2uQ/zCufJuiTa7/CY3MjfmXTVfub"
+    "shBLgd/RVzya6DlaPy0N20nXdCQOytfU5n9pde6MbjnN83aynP5gcjyek868i3zX9+d7fce9Ce/PRnX6bm1MvzYQkbqL"
+    "YPo30af/q3+I/i71Rv5MnwAT1JkE9b+9PkG9ET/170XxNvKTCWKYhl2/d/wz8crIgk/HcCr8+/v6g7uvmRhvJjFa45oA"
+    "kAnw+D7wI/2frU/fbd8PXP8b9WqXl74z/p3Nrln/a/YP4VM2n+c/cr/wAeTMB5WN55u5W85E+JiAhfnQ8urzvd/6jeZ/"
+    "bMDYO3ijDfi7CX/+le37Xe03bn8R/Df8wHv1Bw++Zky/kuhfEq441oECAv0D6oePxinl19NqfQbXXG5LNeKTqEc+L50J"
+    "SiV9NfMvzXoZM7Zn5oO/hcxnc7Oexaw/SZLNehSz/sSsF0mSY/a0pf6lUgEhGjeyJL36hZSq6Muu5tvpW6mZz3fShy//"
+    "76tXdYIbv77Sb92tz29trdVnQ/3WGpT899GvxXOdzmDUi0azyhRpVIjvfuLZDgjoxv53VK3CVhFlLviXV30JSqiP/NfW"
+    "x/+/ptl0oL5c1vnvsipVPxm6cti2wHqFtylgT55/MpkC6i3xswk/TfwL8MvIV0+Szfx1s55F12/oug1dr6HrMNZcOXqu"
+    "6zB0fYV51XUWur5C102Y1/Tb4eMKQGzCv7vxI7MJP9bbz0q5tU4Pyv/L61dy9HQ7oYj9Ri03NACx3+j6z69Z/7mQYNYc"
+    "s5o5K/HoyP/UHbs19c6R7HQ8+F5I3Snn43IuX4zZS1zmCZD/EFkvmnyhZMpbMblY2oosMvSnet9yShNSPCiF5PDp89jm"
+    "IJWOs0DQTyeSXFAqW5loNhX45/cshyL3s6qt3x9uxrNoL6NSOcDXEGNNrI380FcvZGjPq7E3gr9viz+b8OUfjh9J9ptk"
+    "nwb+G37gXv4g6cr+4r5+Y6M/4UcS+hV5AvArd/uXTVe5gYpvjp6bN5yMV86HG64J/Mjb/Ft7Hv8Qcvo9yu/x+/97/Xtr"
+    "/uoOfuiOGMx/9e9Hn/7n6tP/4frUZpyMxL7XxSzfwtbuFx9/O/ke/P5b+YO3vab/yQD2nuzngesn/X9Wn/7Huqt0Er/4"
+    "vvcH/wFy+gPLd8HdW/59+l480Vvj71ti9L+T/aff8atG9usf1D98+Ovaf1tve0+21iWEbZnR9pXo+9a/+jZ/5QOvfCMj"
+    "Hr/5lVSo4V31qSR9KkmfStL/999///2z7W0r9aAlfB8beXcjS6eT9OthI51OhAe89kpA6sH2ele+0Vr5H7Ifjew7tyLX"
+    "hPff+j+Pb3fdnofkW/8L6f/PxhP/RQKaSfEBU95KkrfiDzhJfqv9YQKe3R8jZT+8lXog/vzz7P+/9mf4lbv8TNTfmNf/"
+    "D/ypc/k=")
+_GAUSS_BLOB = (
+    "eNoVVy2UeV8X3vucO+8SBEEQBEEQBEEQBGGCIAgTBEEQBEEQBEEQBEEQBEEQBEEQBEEQJgiCIAiCIAiC4P9zzt7vM2vW"
+    "ums+7hz74/k6OcqZki6pS0s8d9p1McraK12Dm43wW5uuK0k/0W9N2Ba1/U4GMqRAH1zRND1cyWz8i+MapoWJcFIOdqpD"
+    "0+IV5zXjC3q3axmajp793DvdUVI7+N1B2zzTke/SXYccNy+daM8c+UUZXWqLnz7u35RzK1czHd7rRc5aV0cXedOV7jLi"
+    "sL5oryVa6Ymi5od7dNGcncle3zLTqZ9xwV8oi1Nrug8a0rdljtIKf7u7DGfopplP81OQxt+Z/kV5KjmivA9zk+p88Xde"
+    "CCpFFwkdmahOPnkKaEhRrvqBLGisRw5R1hToSVk+SUtyeD9HHWrIUNf85pgWuWSr6CdiK3qnhFZ5ID3Mu0bJz1WiXLYF"
+    "O5ER+u7JWqZyNl2ZUUFPnOIrPuvtphrjgPaURncdP7cRGn/FKWJSNrBRCnOF1nKTLvWkIEeK6+OzkbHpclNPUjJPips4"
+    "DWihJSGcGXOdL6KjJoKOhjDj5adj4rLyC4nbLtU9+T5HvmLYdU6v4jTLdaoocVgOFMgAW2zzUwYadWd/8T1JmrMseaxv"
+    "bbmtJHShI03qVG/25pKmwSld05JzmtYx1WhMcT5TXXbSoZP0ZO73fi1vLWlZN6aNKtumhE6dfwIF2DetfIUPkpe4Rmls"
+    "U/91dCkXN6QUETb+pg1FpWfrOrdDX+SyL8jER/xUMyZwa7q6HfBRMOlgyGOTMmO9aYGHPsdznWtKwhwhvGlq/gA0TzXg"
+    "Hsc5yRlMr0INfdlUENc5DeTHl01HptjDy+906GZU1q4ZmDG3pSQ1u+CUv9i5H9iVT3FCY6asDbfmo04CvM1v9+uGLmwu"
+    "/uC3WtWZrk2TSz7stvjUhDTt/LPntcyka3effVD1YaDyRU9u8xUI+KUWFYHcGHV9ERgry5XSLsJORlSSOde5iW2WaEkx"
+    "P5IxR3xNlqbsi9j/jKu05StvtPNvTs3PFqcsOMSRoEct9/JTKVDTvjTA/KNg8MsXOMqBLG2MWtj1y+Tpga3VqcNx8G6q"
+    "cT9WJ0V+oYqc1mRDc/T10BTnqWsHLk9z+qaQP9NZMBG56Zin8uszmvtHkuIiT6Sq9//erh/8yJxCMtIOpbQJ5mY5QQXa"
+    "aJHatIIaPeXAd/90d6mClxHf1bC5+bdr4+wfcOjoI0FK8K6bf9rUNRsT57K+7YFmruNDWueD3fgs0N6yEXPXorZpxy3N"
+    "27A5UVqzFKZf8CgmTRm5nK35sw5tSF98MDv/4J2P0BHI6XGXKhzjggmLowYdZE/fwP0rSHEo+PmsOY9dlSWnTb8zCf0x"
+    "qBS95KVtGxRxC97+u0tArU+LL7wxaShrjNZAeF77QNyLT9CpFzQ4wqRVKfCRWlC8KTV5z3HsMc8XbD8E1SlSAyd35ckV"
+    "f9QjDbUhmLnvgI8bF7FZKMrVd+UtQ3t1Qz/1vz5vkkBygp96wIxH2vchH+O6X/0hh/Ja/VNQ3lPZnDQsK95i0l2z1gHU"
+    "py5x47C1qVw0Av3eaUj3qL4AnY4EVSj443PVFKYyph119O1zdHQJvZgBkHmCQlckAn0omdS/gjnwEaqeo60HC/+NNCK/"
+    "6DFLbc1Amfb6Q0Xwu09TeclEb9jLxbz9nI5y8x0q8lqz8jJ9LpkHsL+BdjRlL009mLkfA+ULHYBVK1tBpQvZ2TMfoMQ7"
+    "06GCjYN3gfQpKSUb9WM5aTVYfa4fMIdTpuTzUP4atPQb/rHzV3TdtTUef95815l8c4kX/leS7ICgt97gInFwMAKFnMKh"
+    "snrSM2eBn2+NOWyRhkFHsqbOQ3ODahDfuKBvaEMHLMtDOao24U9w3jd888QlSslfFWU39jcT0RH3KYqJ5oHeOrRiD4bt"
+    "Ze9KVNc4E9Ru58b0pqFpmFOQ4A08qK8lc6GQKfpQQDaOGT/BuB1nZAodHvAGzxA3wN8CcHumAnC4A8pCLh+Mg5i5AcN9"
+    "avNBCZto00wyeGbgT1Oe2pNETNusaWDS0J+kpr4yVOKHCZuXZHzcPNDtQjKah//1sIEOzipT3l0lZ4AJhUPaEKVMHdNa"
+    "2wQ8O+svsgga2sScF97JyaWhFwO9YpbB15N3dOQcdu58H/4adsc/T9IkPfA8uy21//dNAx1qnmdAUI1TtiZlcCUhObhk"
+    "Vn99G9t/oqq7cfrNNVl4smEOASdd8KwsZbpCMfdS+Kx9CEyv0k5a+P8UPGLyv5OsydmyZu1W45jamjsuCnwGsuEEnKTE"
+    "B3qbIZy7Rg8d+Lc/+jJng50+fMgWzY6G8Ia3j/K3lukAXAV61AG0p+xv+NnBP+vyBMrXlIFrZmhCN15oSi92Y7b09AMz"
+    "hEOC/Rymg6/RhQMdI4N1JG1Idz7gGfz0iVTlJCpFSpux+QYiArvmBdxjK+HPjLey0omd0Y1OJgGHLVCPv6mnA6SXN1LS"
+    "Ftmq6gaakKFfIqX92KZcpasHqtOCttjo1B04F3R5BZUi1Dhw0GmqcQWMnlPV5OGt8FtT1Bs0tQ1urNwCDnGER9yw6QeU"
+    "LS0b12PiDCaSka1vYXd9MwViZv4J3cyYigw4b1P0A1VuKEEDiybGA8zu5LMuD9c+mTIqusKh4cKe8KxDed/uZno6NyF0"
+    "ENBYapQwd3p/thbehdx31jTHqOqXvk+1YAKn23xycPAtuNzlLTx+7o9fC7zzglIWoCYdmtiVWSCPZIHeOHeCQVAxC+7Y"
+    "ESreyYXycJq0/9YjNHaOjNKXl81LE7oxs2Mu+o2+pO96mNJCXq7BZR5xhZecNCPMPY4dH5zzP/Bn5Cokog4ybZ32SKM3"
+    "eSHLzuniS9rD3+pu78I8wsSaQNQM82//lw4W/KsT6EZdjwbK7rF5OABcFF40oY4f+x9/VyROGSONvD9k1/SWAHhwSMlp"
+    "jgBjJzOQnU9rAv+9o+9g7Eeug3MdqrvqN5gy5OwXEo6vUw5OMIejrqlt01CvJHeRxgp+41o8x50g7el/S9vmFg3Bk4S0"
+    "4I1XsKYP5ie1bkNQsMcng+Qwti9gJOHP0uATMvEYXIvaFj43YUZc81XwKQJtStNN+nJzdyjhgZZ+KH+5rO36SI4jD174"
+    "nP5qFHy5AeFrW7N3m5OiPlDbGXltbgrQhaFdahpZYYisNZSuv5iwn0HdKvz2VaTGJ1z3TI9PR6u+Lcl/8AxdAWOPrzmH"
+    "ZCFjmcgu+HF9SYMlTZ/3N/6Whs7sQCvBBQ6QwdQX0oRS36Amb86YjSw0wRFwJo40vwVyS9TnO0259cn6rn+ZH51K6C+5"
+    "cMRkwOoKOLBDtQ//lDiQ+kJGOdlfDpkGTeAwC+Txm47koC90f0LnZOtBRklWBKRTE75XNQt/lCQScRo3l4Je4EItpK2m"
+    "28iNIlqQlFTsCc6Xx42rjtOW8HqHXNVAtWG4/sqtfJPW4HiOs0i9Kyh5AxkgpDMKTNFc/pRf7nKRuq59HDefEXJil6bI"
+    "MgFct+6ce/sfGfk0p3XwSQAVCTv5pPX9b4VMjrQITd/5u1vr76eMbpF5tcsHOFkFiXROv7w1dTfCbaSHG8fOOTgzdFNb"
+    "/ki//mEWugCz0zilAT9oaACWRXjsGr6D20QHCSVMveCmJeTGArCURTqIGof+zxoPjqihQhE5+RqS8hLcq/OYG8h0yD56"
+    "8jH7l9ranMJ9ZQ2kdvB9153h62/ckza2RyPToomJ6RxTgddBhV/o6gpkEPixpaJ3cPNv3nxG5hfICHFHM9jrTre40Zah"
+    "fRkzh7Y+JI+k9WOv/u9umXB/mTZHWaratj3RSxfwHTJnP7V/2WaLySyhDEVt2YZWkKW7n5M8fUqauKPF/BUJLA6lHAE5"
+    "uDHoHbexGm6aa9zpx/hqUAKJ+QqWrTQBt4hxgld2iUT/f4qI69o=")
+
+
+def _blob(parts: tuple, dtype: str) -> np.ndarray:
+    return np.frombuffer(zlib.decompress(base64.b64decode("".join(parts))), dtype)
+
+
+QUANTIZER_MATRIX = _blob(_QM_BLOB, np.uint8).reshape(15, 2, 3344)
+GAUSSIAN_SEQUENCE = _blob(_GAUSS_BLOB, "<i2").astype(np.int64)
+_QM_SIZES = ((4, 4), (8, 8), (16, 16), (32, 32), (4, 8), (8, 4), (8, 16), (16, 8), (16, 32),
+             (32, 16), (4, 16), (16, 4), (8, 32), (32, 8))
+_QM_AT = {wh: sum(w * h for w, h in _QM_SIZES[:i]) for i, wh in enumerate(_QM_SIZES)}
+# Qm_Offset by transform size: where each size's weights start (64 taken as 32)
+QM_OFFSET = tuple(_QM_AT[(min(w, 32), min(h, 32))] for w, h in TX_SIZES)

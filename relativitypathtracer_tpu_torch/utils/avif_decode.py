@@ -12,10 +12,11 @@ ipco and ipma (the essential bit checked), the properties ispe, pixi, av1C,
 colr (nclx and ICC), auxC, irot, imir, clap, and mdat. The primary item
 (av01) is decoded by av1_obu and av1_block (with av1_palette and
 av1_intrabc), then filtered as dav1d filters it: the deblocking filter
-(av1_loopfilter), CDEF (av1_cdef), loop restoration (av1_restoration); an
-alpha auxiliary item is decoded unfiltered as libavif checks it and
-dropped, as convert("RGB") drops it. Pillow reports irot, imir and EXIF orientation as
-metadata and leaves the pixels as decoded.
+(av1_loopfilter), CDEF (av1_cdef), loop restoration (av1_restoration),
+then given its film grain (av1_filmgrain); an alpha auxiliary item is
+decoded unfiltered as libavif checks it, without its grain, and dropped,
+as convert("RGB") drops it. Pillow reports irot, imir and EXIF
+orientation as metadata and leaves the pixels as decoded.
 
 Colour: the nclx colr box, where there is one, before the sequence
 header's colour config; an unspecified matrix (2) taken as BT.601, as
@@ -27,8 +28,8 @@ matrix (MC 0) in full range by libavif's own path (G from Y, B from U, R
 from V). The matrices libavif cannot convert fail as in PIL.
 
 What the decoder here does not decode yet raises av1_obu.Unsupported,
-named in a DecodeError "AVIF: <tool> is not decoded yet": film grain,
-superres, quantiser matrices, more than 8 bits, a grid item,
+named in a DecodeError "AVIF: <tool> is not decoded yet": superres,
+more than 8 bits, a grid item,
 an image sequence (avis) without a still primary item, premultiplied
 alpha, and libavif's float conversions (FCC, SMPTE 240M, YCgCo and
 chromaticity-derived matrices; the identity matrix in limited range).
@@ -43,6 +44,7 @@ import numpy as np
 
 from .av1_block import FrameDecoder
 from .av1_cdef import cdef
+from .av1_filmgrain import apply_grain
 from .av1_loopfilter import loop_filter
 from .av1_restoration import loop_restoration
 from .av1_obu import OBU_SEQUENCE_HEADER, Unsupported, obus, parse_still, sequence_header
@@ -403,7 +405,7 @@ def parse_failure(data: bytes) -> str:
 def decode_avif(data: bytes, times: dict | None = None) -> np.ndarray:
     """(h, w, 3) uint8 RGB of an AVIF file's primary image; `times`, where
     given, gets each pass's seconds (tiles, deblocking filter, CDEF, loop
-    restoration, YUV to RGB)."""
+    restoration, film grain, YUV to RGB)."""
     try:
         return _decode(data, {} if times is None else times)
     except Unsupported as e:
@@ -446,6 +448,9 @@ def _decode(data: bytes, times: dict) -> np.ndarray:
     t3 = time.perf_counter()
     planes = loop_restoration(dec, dec.frame, filtered)
     t4 = time.perf_counter()
+    if fh.film_grain is not None:
+        planes = apply_grain(planes, w, h, seq, fh.film_grain)
+    t5 = time.perf_counter()
     colr = _colr(data, props)
     if colr is None:
         mc, full = seq.mc, seq.color_range
@@ -453,7 +458,8 @@ def _decode(data: bytes, times: dict) -> np.ndarray:
         mc, full = colr[2], colr[3]
     rgb = yuv_to_rgb(planes, w, h, seq, mc, full)
     times.update({"tiles": t1 - t0, "deblocking filter": t2 - t1, "CDEF": t3 - t2,
-                  "loop restoration": t4 - t3, "YUV to RGB": time.perf_counter() - t4})
+                  "loop restoration": t4 - t3, "film grain": t5 - t4,
+                  "YUV to RGB": time.perf_counter() - t5})
     return rgb
 
 

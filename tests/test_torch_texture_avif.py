@@ -1,6 +1,7 @@
 """The port's AVIF decoder (utils/avif_decode, av1_obu, av1_entropy,
 av1_block, av1_recon, av1_palette, av1_intrabc, av1_loopfilter, av1_cdef,
-av1_restoration, av1_tables) against PIL, the JAX package's decoder.
+av1_restoration, av1_filmgrain, av1_tables) against PIL, the JAX package's
+decoder.
 
 Tolerance 0: every decode equals `np.asarray(Image.open(f).convert("RGB"))`
 byte for byte, with PIL blocked while the port decodes. The committed
@@ -8,11 +9,13 @@ fixtures (tests/torch_textures/make_fixtures.py's `avif_fixtures`) against
 PIL now and against the hash PIL gave where they were made; the census
 (every tool a speed-6 encode of a photograph turns on occurs in a
 fixture the port decodes); each tool left for later refused by name, on a
-file PIL writes or a hand-edited header; cuts and byte edits of two
-fixtures against PIL's outcome in a fresh process (equal, or both
-refuse); PIL's accept (heic and MP4
-brands are no AVIF); a DSL scene with AVIF textures built to the JAX
-package's texture arrays.
+hand-edited header; film grain's random numbers, scaling functions and
+templates against a line-by-line transcription of the specification's
+pseudo-code, and the packed tables against the library they were taken
+from; cuts and byte edits of five fixtures against PIL's outcome in a
+fresh process (equal, or both refuse); PIL's accept (heic and MP4 brands
+are no AVIF); a DSL scene with AVIF textures built to the JAX package's
+texture arrays.
 """
 
 import hashlib
@@ -37,7 +40,12 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 FIXTURES = REPO / "tests" / "torch_textures"
 RECORD = json.loads((FIXTURES / "pil_rgb.json").read_text())["files"]
 DECODED = sorted(n for n in RECORD if n.endswith(".avif"))
-REFUSED = {"avif_film_grain.avif": "film grain", "avif_qm.avif": "quantizer matrices"}
+REFUSED = {}  # the committed fixtures with a tool left for later: none
+# header edits of fixtures with a tool left for later that PIL decodes (a
+# grid item without its tiles it does not)
+LATER_EDITS = {"prem": "premultiplied alpha", "pixi": "more than 8 bits",
+               "matrix4": "matrix coefficients 4",
+               "identity_limited": "the identity matrix in limited range"}
 # what the census (tools/avif_census.py) finds in speed-6 encodes of the
 # photographic picture and of textured's texture, and in speed 0-3 ones
 SPEED6_TOOLS = {"CFL", "angle deltas", "deblocking filter", "lossless", "tx split",
@@ -52,6 +60,20 @@ SCREEN_AND_FILTER_TOOLS = {"screen content tools", "palette", "chroma palette",
                            ("loop restoration", "switchable"), ("restored unit", "Wiener"),
                            ("restored unit", "self-guided"),
                            "loop restoration chroma units halved"}
+# film grain (aom's test vectors, tables and estimate) and quantiser
+# matrices (each level PIL was asked for, every transform size the matrix
+# weights, identity and 1D types read flat)
+GRAIN_AND_QM_TOOLS = ({"film grain", "quantizer matrices", ("film grain", "overlap"),
+                       ("film grain", "chroma scaling from luma"),
+                       ("film grain", "restricted range"), ("film grain", "no luma points"),
+                       "qm flat for identity and 1D types"}
+                      | {("film grain ar lag", lag) for lag in range(4)}
+                      | {("qm level", v) for v in (0, 2, 4, 5, 6, 8, 12, 15)}
+                      | {("qm tx size", wh) for wh in ((4, 4), (8, 8), (16, 16), (32, 32),
+                                                       (64, 64), (4, 8), (8, 4), (8, 16),
+                                                       (16, 8), (16, 32), (32, 16), (32, 64),
+                                                       (64, 32), (4, 16), (16, 4), (8, 32),
+                                                       (32, 8), (16, 64), (64, 16))})
 
 
 def _pil(data: bytes) -> np.ndarray:
@@ -93,16 +115,18 @@ def test_refused_fixtures_are_the_ones_kept_out_of_the_record():
     assert sorted(p.name for p in FIXTURES.glob("*.avif")) == sorted(DECODED + list(REFUSED))
 
 
-@pytest.mark.parametrize("name", sorted(REFUSED))
-def test_fixture_with_a_later_tool_is_refused_by_name(name, tmp_path):
-    """PIL decodes these; the port names the tool it does not decode yet,
-    before any pixel, through decode_texture and read_texture."""
-    data = (FIXTURES / name).read_bytes()
+@pytest.mark.parametrize("kind", sorted(LATER_EDITS))
+def test_fixture_with_a_later_tool_is_refused_by_name(kind, tmp_path):
+    """A fixture with a tool the port does not decode yet edited into its
+    header (no file PIL writes here needs one): PIL decodes it; the port
+    names the tool, before any pixel, through decode_texture and
+    read_texture, and leaves the atlas as it was."""
+    data = _later(kind)
     _pil(data)
     got = _port(data)
     assert isinstance(got, ValueError)
-    assert str(got) == f"AVIF: {REFUSED[name]} is not decoded yet"
-    path = tmp_path / name
+    assert str(got) == f"AVIF: {LATER_EDITS[kind]} is not decoded yet"
+    path = tmp_path / f"{kind}.avif"
     path.write_bytes(data)
     atlas, values = bytearray(b"x"), []
     with pytest.raises(TextureError, match="is not decoded yet"):
@@ -115,11 +139,14 @@ def test_census_tools_occur_in_decoded_fixtures():
     content, and the speed 0-3 tools the port decodes, occurs in at least
     one fixture the port decodes; so do all 13 luma modes, all 14 chroma
     modes (CFL among them), the seven intra transform types, palette and
-    intra block copy, CDEF and each kind of loop restoration."""
+    intra block copy, CDEF, each kind of loop restoration, film grain at
+    each AR lag and flag, and quantiser matrices over every transform
+    size."""
     tools = set()
     for name in DECODED:
         tools |= avif_decode.census((FIXTURES / name).read_bytes())
     assert SPEED6_TOOLS | SLOWER_TOOLS | SCREEN_AND_FILTER_TOOLS | {"tiles"} <= tools
+    assert GRAIN_AND_QM_TOOLS <= tools, GRAIN_AND_QM_TOOLS - tools
     assert {("y mode", m) for m in range(13)} <= tools
     assert {("uv mode", m) for m in range(14)} <= tools
     assert {("tx type", t) for t in (0, 1, 2, 3, 9, 10, 11)} <= tools
@@ -171,6 +198,23 @@ def _ten_bits(data: bytes) -> bytes:
     return bytes(out)
 
 
+def _later(kind: str) -> bytes:
+    """A fixture with a tool left for later edited into its header."""
+    blob = (FIXTURES / "blob.avif").read_bytes()
+    if kind == "grid":
+        return _edit(blob, b"av01Color", b"gridColor")
+    if kind == "prem":
+        return _edit((FIXTURES / "avif_rgba.avif").read_bytes(), b"auxl", b"prem")
+    if kind == "pixi":
+        return _ten_bits(blob)
+    if kind == "matrix4":
+        return (FIXTURES / "avif_matrix1.avif").read_bytes().replace(
+            b"colrnclx\0\x01\0\x0d\0\x01", b"colrnclx\0\x01\0\x0d\0\x04")
+    m0 = (FIXTURES / "avif_matrix0.avif").read_bytes()
+    i = m0.find(b"colrnclx")
+    return m0[:i + 14] + bytes([m0[i + 14] & 0x7F]) + m0[i + 15:]
+
+
 @pytest.mark.parametrize("kind,tool", [("grid", "a grid item"), ("prem", "premultiplied alpha"),
                                        ("pixi", "more than 8 bits"),
                                        ("matrix4", "matrix coefficients 4"),
@@ -179,21 +223,7 @@ def test_hand_edited_header_is_refused_by_name(kind, tool):
     """A grid primary item, a 'prem' reference, 10 bits, the FCC matrix
     and the identity matrix in limited range (libavif's own conversion
     paths) are named, never decoded wrongly."""
-    blob = (FIXTURES / "blob.avif").read_bytes()
-    if kind == "grid":
-        data = _edit(blob, b"av01Color", b"gridColor")
-    elif kind == "prem":
-        data = _edit((FIXTURES / "avif_rgba.avif").read_bytes(), b"auxl", b"prem")
-    elif kind == "pixi":
-        data = _ten_bits(blob)
-    elif kind == "matrix4":
-        data = (FIXTURES / "avif_matrix1.avif").read_bytes().replace(
-            b"colrnclx\0\x01\0\x0d\0\x01", b"colrnclx\0\x01\0\x0d\0\x04")
-    else:
-        m0 = (FIXTURES / "avif_matrix0.avif").read_bytes()
-        i = m0.find(b"colrnclx")
-        data = m0[:i + 14] + bytes([m0[i + 14] & 0x7F]) + m0[i + 15:]
-    got = _port(data)
+    got = _port(_later(kind))
     assert isinstance(got, ValueError) and str(got) == f"AVIF: {tool} is not decoded yet", got
 
 
@@ -237,6 +267,177 @@ def test_accept_is_pils_for_every_brand():
     assert texture._OTHER_FORMATS == ("EPS",)
 
 
+# --- film grain and quantiser matrices against the specification --------------------
+
+def _spec_random(state: list, bits: int) -> int:
+    """get_random_number() as the specification writes it (state: [r])."""
+    r = state[0]
+    bit = ((r >> 0) ^ (r >> 1) ^ (r >> 3) ^ (r >> 12)) & 1
+    r = (r >> 1) | (bit << 15)
+    state[0] = r
+    return (r >> (16 - bits)) & ((1 << bits) - 1)
+
+
+def _spec_round2(x: int, n: int) -> int:
+    return x if n == 0 else (x + (1 << (n - 1))) >> n
+
+
+def _spec_templates(g, ssx: int, ssy: int) -> tuple:
+    """generate_grain() of section 7.18.3.3 at 8 bits, a sample at a time:
+    LumaGrain, CbGrain, CrGrain (lists of rows)."""
+    from relativitypathtracer_tpu_torch.utils import av1_tables as T
+    shift = 12 - 8 + g.grain_scale_shift
+    state = [g.grain_seed]
+    luma = [[_spec_round2(int(T.GAUSSIAN_SEQUENCE[_spec_random(state, 11)]), shift)
+             if g.num_y_points else 0 for _ in range(82)] for _ in range(73)]
+    lag, ar_shift = g.ar_coeff_lag, g.ar_coeff_shift
+    for y in range(3, 73):
+        for x in range(3, 82 - 3):
+            total, pos = 0, 0
+            for dr in range(-lag, 1):
+                for dc in range(-lag, lag + 1):
+                    if dr == 0 and dc == 0:
+                        break
+                    total += luma[y + dr][x + dc] * g.ar_coeffs_y[pos] if g.num_y_points else 0
+                    pos += 1
+            if g.num_y_points:
+                luma[y][x] = max(-128, min(127, luma[y][x] + _spec_round2(total, ar_shift)))
+    ch, cw = (38 if ssy else 73), (44 if ssx else 82)
+    chroma = []
+    for p, xor in ((0, 0xB524), (1, 0x49D8)):
+        state = [g.grain_seed ^ xor]
+        on = bool(g.uv_points[p]) or g.chroma_scaling_from_luma
+        grain = [[_spec_round2(int(T.GAUSSIAN_SEQUENCE[_spec_random(state, 11)]), shift)
+                  if on else 0 for _ in range(cw)] for _ in range(ch)]
+        coeffs = g.ar_coeffs_uv[p]
+        for y in range(3, ch):
+            for x in range(3, cw - 3):
+                total, pos = 0, 0
+                for dr in range(-lag, 1):
+                    for dc in range(-lag, lag + 1):
+                        if dr == 0 and dc == 0:
+                            if g.num_y_points:
+                                ly, lx = ((y - 3) << ssy) + 3, ((x - 3) << ssx) + 3
+                                avg = sum(luma[ly + i][lx + j] for i in range(ssy + 1)
+                                          for j in range(ssx + 1))
+                                total += _spec_round2(avg, ssx + ssy) * coeffs[pos]
+                            break
+                        total += coeffs[pos] * grain[y + dr][x + dc]
+                        pos += 1
+                if on:
+                    grain[y][x] = max(-128, min(127, grain[y][x] + _spec_round2(total, ar_shift)))
+        chroma.append(grain)
+    return luma, chroma[0], chroma[1]
+
+
+def test_film_grain_random_numbers_are_the_specifications():
+    """The LFSR from seed 1 worked by hand: 0x8000, 0x4000, 0x2000, 0x1000,
+    then bit 12 feeds back (0x8800), 11 bits from the top; and 10,000 draws
+    of 1-11 bits from other seeds equal to the specification's function."""
+    from relativitypathtracer_tpu_torch.utils.av1_filmgrain import Lfsr
+    rng = Lfsr(1)
+    assert [rng.take(11) for _ in range(5)] == [1024, 512, 256, 128, 1088]
+    for seed in (0x1234, 0xB524 ^ 77, 0xFFFF):
+        mine, state = Lfsr(seed), [seed]
+        for k in range(10_000):
+            bits = 1 + k % 11
+            assert mine.take(bits) == _spec_random(state, bits)
+
+
+def test_film_grain_scaling_lookup_is_the_specifications():
+    """dav1d's 256-entry table equals the specification's scale_lut at each
+    index, and the values worked by hand from points (0, 20), (100, 70),
+    (255, 40): 20 at 0 and 1, 21 at 2, 45 at 50, 69 at 99, 70 at 100, 51 at
+    200, 40 at 255; flat before a first point past 0; zero without
+    points."""
+    from relativitypathtracer_tpu_torch.utils.av1_filmgrain import scaling
+
+    def scale_lut(points, index):
+        if not points or index < points[0][0]:
+            return points[0][1] if points else 0
+        for (x0, y0), (x1, y1) in zip(points, points[1:]):
+            if index < x1:
+                delta = (y1 - y0) * ((65536 + ((x1 - x0) >> 1)) // (x1 - x0))
+                return y0 + _spec_round2((index - x0) * delta, 16)
+        return points[-1][1]
+
+    lut = scaling([(0, 20), (100, 70), (255, 40)])
+    assert [int(lut[i]) for i in (0, 1, 2, 50, 99, 100, 200, 255)] == [20, 20, 21, 45, 69, 70,
+                                                                        51, 40]
+    rng = np.random.default_rng(5)
+    for k in range(40):
+        xs = sorted(set(int(v) for v in rng.integers(0, 256, 1 + k % 14)))
+        points = [(x, int(rng.integers(0, 256))) for x in xs]
+        lut = scaling(points)
+        assert [int(v) for v in lut] == [scale_lut(points, i) for i in range(256)], points
+    assert not scaling([]).any()
+
+
+@pytest.mark.parametrize("name", ["avif_grain_test1.avif", "avif_grain_test15.avif",
+                                  "avif_grain_table_lag0.avif", "avif_grain_table_lag1.avif",
+                                  "avif_grain422.avif", "avif_grain444.avif",
+                                  "avif_grain_table_cfl_no_luma.avif"])
+def test_film_grain_templates_are_the_specifications(name):
+    """The grain templates (luma's and each chroma plane's, after the AR
+    filter) of a fixture's film grain params, vectorised by row, equal the
+    specification's generate_grain() run a sample at a time."""
+    from relativitypathtracer_tpu_torch.utils import av1_filmgrain, av1_obu
+    data = (FIXTURES / name).read_bytes()
+    seq, fh = av1_obu.parse_still(avif_decode._container(data)[3])
+    g = fh.film_grain
+    want = _spec_templates(g, seq.ssx, seq.ssy)
+    got = av1_filmgrain.templates(g, seq.mono, seq.ssx, seq.ssy)
+    for plane, (mine, spec) in enumerate(zip(got, want)):
+        if mine is None:
+            assert not (g.uv_points[plane - 1] if plane else g.num_y_points)
+            continue
+        assert mine.tolist() == spec, (name, plane)
+
+
+def test_film_grain_clip_ranges_follow_the_matrix():
+    """clip_to_restricted_range: luma to [16, 235], chroma to [16, 240], or
+    to 235 under the identity matrix (MC 0); otherwise [0, 255]. Flat grain
+    of the template's extreme (127) at the strongest scaling pushes every
+    sample to the top of its range."""
+    from types import SimpleNamespace
+
+    from relativitypathtracer_tpu_torch.utils import av1_filmgrain
+    g = SimpleNamespace(grain_seed=7, y_points=[(0, 255)], num_y_points=1,
+                        uv_points=[[(0, 255)], [(0, 255)]], chroma_scaling_from_luma=0,
+                        scaling_shift=8, ar_coeff_lag=0, ar_coeffs_y=[],
+                        ar_coeffs_uv=[[0], [0]], ar_coeff_shift=6, grain_scale_shift=0,
+                        uv_mult=[0, 0], uv_luma_mult=[0, 0], uv_offset=[0, 0],
+                        overlap_flag=0, clip_to_restricted_range=1)
+    planes = [np.full((8, 8), 250), np.full((8, 8), 250), np.full((8, 8), 250)]
+    for mc, top_uv in ((1, 240), (0, 235)):
+        seq = SimpleNamespace(ssx=0, ssy=0, mono=0, num_planes=3, mc=mc)
+        out = av1_filmgrain.apply_grain(planes, 8, 8, seq, g)
+        assert out[0].max() <= 235 and out[1].max() <= top_uv and out[2].max() <= top_uv
+        assert out[1].max() == top_uv or out[1].max() < 240 - 1
+        assert min(o.min() for o in out) >= 16
+    g.clip_to_restricted_range = 0
+    out = av1_filmgrain.apply_grain(planes, 8, 8, SimpleNamespace(
+        ssx=0, ssy=0, mono=0, num_planes=3, mc=1), g)
+    assert max(o.max() for o in out) <= 255 and max(o.max() for o in out) > 240
+
+
+def test_packed_tables_equal_the_library_they_came_from():
+    """Quantizer_Matrix and Gaussian_Sequence as av1_tables packs them equal
+    the bytes tools/av1_tables_extract.py reads from Pillow's libavif, where
+    that very library is installed (its anchors checked first)."""
+    sys.path.insert(0, str(REPO / "tools"))
+    import av1_tables_extract as X
+
+    from relativitypathtracer_tpu_torch.utils import av1_tables as T
+    lib = X.find_library()
+    if lib is None:
+        pytest.skip(f"no {X.LIBRARY} beside PIL")
+    qm, gauss = X.extract(lib)
+    assert np.array_equal(T.QUANTIZER_MATRIX, qm)
+    assert np.array_equal(T.GAUSSIAN_SEQUENCE, gauss.astype(np.int64))
+    assert T.QUANTIZER_MATRIX.shape == (15, 2, 3344) and T.QM_OFFSET[4] == T.QM_OFFSET[3] == 336
+
+
 # --- cuts and byte edits against PIL in a fresh process -----------------------------
 
 _PIL_SCRIPT = """
@@ -266,7 +467,8 @@ def _mutants(data: bytes, seed: int) -> list:
 
 
 @pytest.mark.parametrize("name,seed", [("blob.avif", 1), ("avif_130x70.avif", 2),
-                                       ("avif_squares_spots.avif", 6), ("avif_lr_tall.avif", 4)])
+                                       ("avif_squares_spots.avif", 6), ("avif_lr_tall.avif", 4),
+                                       ("avif_grain_qm.avif", 7)])
 def test_cuts_and_edits_agree_with_pil(name, seed, tmp_path):
     """40 cuts and one-byte edits of a fixture: PIL's outcome from a fresh
     process and the port's with PIL blocked give the same pixels, or both
@@ -294,7 +496,8 @@ def test_cuts_and_edits_agree_with_pil(name, seed, tmp_path):
 # --- read_texture, scenes, and the JAX package -----------------------------------------
 
 SCENE_FIXTURES = ("blob.avif", "avif_130x70.avif", "avif_444.avif", "avif_rgba.avif",
-                  "avif_squares256.avif", "avif_lr_switchable.avif")
+                  "avif_squares256.avif", "avif_lr_switchable.avif", "avif_grain_99x75.avif",
+                  "avif_qm_bands4.avif")
 
 
 def test_read_texture_without_pil_matches_the_jax_package(monkeypatch):

@@ -724,8 +724,10 @@ def test_chip_smoke_texture_scenes_on_cpu(tmp_path):
     with cubes_rlew.tif (the 256x256 squares in CCITT RLEW), textured
     with blob.avif (that texture as PIL's default AVIF), cubes with
     cubes_screen.avif (256x256 flat squares in palette and intra block
-    copy) and textured with blob_lr.avif (its texture loop-restored),
-    through its fixture_texture."""
+    copy), textured with blob_lr.avif (its texture loop-restored) and
+    blob_grain.avif (with film grain) and cubes with cubes_qm.avif (its
+    256x256 texture with quantiser matrices), through its
+    fixture_texture."""
     from relativitypathtracer_tpu_torch.ops.kernels.texture_kernel import texture_route
 
     spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
@@ -741,7 +743,8 @@ def test_chip_smoke_texture_scenes_on_cpu(tmp_path):
                         ("textured", "blob_rgb.im"), ("cubes", "cubes_g4.tif"),
                         ("textured", "blob_thunder.tif"), ("cubes", "cubes_rlew.tif"),
                         ("textured", "blob.avif"), ("cubes", "cubes_screen.avif"),
-                        ("textured", "blob_lr.avif")]
+                        ("textured", "blob_lr.avif"), ("textured", "blob_grain.avif"),
+                        ("cubes", "cubes_qm.avif")]
     for kind, name in fixtures:
         where = tmp_path / name
         scene_file = smoke.fixture_texture(write_demo_scene(str(where), 1, kind), name)
@@ -756,7 +759,7 @@ def test_chip_smoke_texture_scenes_on_cpu(tmp_path):
                 assert bytes(host.textures) == bytes(ppm.textures) == demo_texture(32).tobytes()
             assert route == "small"
         else:
-            big = ("cubes_g4.tif", "cubes_rlew.tif", "cubes_screen.avif")
+            big = ("cubes_g4.tif", "cubes_rlew.tif", "cubes_screen.avif", "cubes_qm.avif")
             rows = 32768 if name in big else 2048
             assert scene.tex_quads.shape[0] == rows and route == "windowed"
 

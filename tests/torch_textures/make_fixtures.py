@@ -3602,8 +3602,9 @@ def stripes(rng, n: int, tile: int = 16) -> np.ndarray:
 
 # the AVIF fixtures with a tool the port does not decode yet: committed,
 # refused by name in tests/test_torch_texture_avif.py, and kept out of
-# pil_rgb.json (whose every file decodes)
-AVIF_LATER = ("avif_film_grain.avif", "avif_qm.avif")
+# pil_rgb.json (whose every file decodes); none since film grain and
+# quantiser matrices are decoded
+AVIF_LATER = ()
 
 
 def lr_uv_shift_edit(data: bytes) -> bytes:
@@ -3645,7 +3646,7 @@ def avif_fixtures(rng, Image) -> dict:
     4-way partitions, filter intra); and files with a tool the port does
     not decode yet: loop restoration (at speed 0), cubes' flat squares (screen
     content tools), aom's film grain test vector, quantiser matrices and
-    CDEF (its advanced options); a loop filter of sharpness 3, a picture
+    CDEF (its advanced options; all decoded now); a loop filter of sharpness 3, a picture
     in four tiles, and `stripes` at speeds 6 and 3 (loop restoration off),
     for the directional, smooth and Paeth modes."""
     from relativitypathtracer_tpu_torch.utils.demo_scene import demo_texture
@@ -3701,6 +3702,7 @@ def avif_fixtures(rng, Image) -> dict:
     files["avif_tiles.avif"] = save(Image.fromarray(_picture(rng, 70, 130)), quality=50,
                                     advanced={"tile-columns": "1", "tile-rows": "1"})
     files.update(avif_screen_and_filters(np.random.default_rng(SEED + 13), Image, save))
+    files.update(avif_grain_and_qm(np.random.default_rng(SEED + 14), Image, save))
     return files
 
 
@@ -3750,6 +3752,128 @@ def avif_screen_and_filters(rng, Image, save) -> dict:
     from relativitypathtracer_tpu_torch.utils.demo_scene import demo_texture
     files["cubes_screen.avif"] = save(tiled, speed=0)
     files["blob_lr.avif"] = save(Image.fromarray(demo_texture(32)), quality=50, speed=0)
+    return files
+
+
+def grain_table(rng, lag: int, cfl: int = 0, overlap: int = 1, seed: int = 1234,
+                y_points=((0, 20), (96, 64), (255, 40)), cb_points=((0, 30), (255, 50)),
+                cr_points=((64, 40), (200, 20)), mults=(128, 192, 256, 140, 160, 300)) -> str:
+    """A film grain table in aom's text format (its `film-grain-table`
+    option): one entry over every time stamp, the given lag, flags, points
+    and Cb/Cr multipliers and offsets (raw, 128 and 256 meaning 0), seeded
+    AR coefficients in [-30, 30), AR shift 7, scaling shift 8."""
+    n = 2 * lag * (lag + 1)
+
+    def pts(p):
+        return " ".join([str(len(p))] + [f"{x} {y}" for x, y in p])
+
+    def coeffs(k):
+        return " ".join(str(int(c)) for c in rng.integers(-30, 30, k))
+
+    return ("filmgrn1\n"
+            f"E 0 9223372036854775807 1 {seed} 1\n"
+            f"\tp {lag} 7 0 8 {cfl} {overlap} {' '.join(map(str, mults))}\n"
+            f"\tsY {pts(y_points)}\n\tsCb {pts(cb_points)}\n\tsCr {pts(cr_points)}\n"
+            f"\tcY {coeffs(n)}\n\tcCb {coeffs(n + 1)}\n\tcCr {coeffs(n + 1)}\n")
+
+
+def bands(rng, n: int, period: int) -> np.ndarray:
+    """(n, n, 3) uint8: the left half in horizontal bands `period` rows
+    tall, the right half in vertical ones, each band a seeded colour with a
+    gentle ramp along it (content for 1:4 and 64-point transforms)."""
+    y, x = np.mgrid[0:n, 0:n]
+    colours = rng.integers(30, 225, (n // period + 1, 3))
+    across = colours[y // period] + x[..., None] * 0.2
+    down = colours[x // period] + y[..., None] * 0.2
+    return np.clip(np.where((x < n // 2)[..., None], across, down), 0, 255).astype(np.uint8)
+
+
+def avif_grain_and_qm(rng, Image, save) -> dict:
+    """AVIF files with film grain and quantiser matrices. Grain: aom's
+    `film-grain-test` vectors 1-16 on one 64x64 4:2:0 picture (overlap off
+    in 1 and 12, chroma scaling from luma in 15, no chroma points in 6, 13
+    and 14, grain_scale_shift 1 and 2 in 3 and 16), one vector in 4:4:4,
+    4:2:2 and 4:0:0, a 99x75 picture (partial stripes and blocks, an odd
+    width) in 4:2:0 and 4:4:4, an RGBA file whose alpha carries grain too,
+    limited range in 4:2:0 and 4:4:4 (aom then sets
+    clip_to_restricted_range), `film-grain-table` files (AR lags 0-3,
+    overlap 0, chroma scaling from luma with and without luma points; aom's
+    table has no field for the restricted clip), and grain aom estimates
+    (`denoise-noise-level`) on a demo texture. Matrices: qm-min = qm-max =
+    L for L in 0, 4, 8, 12 and 15 in 4:2:0 and 4:4:4, one level in 4:2:2
+    and 4:0:0, `bands` at periods 4, 8, 16 and 32 (1:4 and 64-point
+    transforms), a smooth ramp (64x64 transforms), screen content with
+    spots (identity and 1D transform types), quality 100 (lossless: no
+    matrix applies). Both tools in one file, and the textures of
+    chip_smoke.py's two scenes: textured's 32x32 with grain, cubes' 256x256
+    with matrices."""
+    import os
+    import tempfile
+
+    from relativitypathtracer_tpu_torch.utils.demo_scene import demo_texture
+    pic = Image.fromarray(_picture(rng, 64, 64))
+    files = {}
+    for t in range(1, 17):
+        files[f"avif_grain_test{t}.avif"] = save(pic, quality=40,
+                                                 advanced={"film-grain-test": str(t)})
+    for ss in ("4:4:4", "4:2:2", "4:0:0"):
+        files[f"avif_grain{ss.replace(':', '')}.avif"] = save(
+            pic, quality=40, subsampling=ss, advanced={"film-grain-test": "4"})
+    odd = Image.fromarray(_picture(rng, 75, 99))
+    files["avif_grain_99x75.avif"] = save(odd, quality=40, advanced={"film-grain-test": "2"})
+    files["avif_grain_99x75_444.avif"] = save(odd, quality=40, subsampling="4:4:4",
+                                              advanced={"film-grain-test": "5"})
+    rgba = np.concatenate([_picture(rng, 40, 36), rng.integers(0, 256, (40, 36, 1), np.uint8)], 2)
+    files["avif_grain_rgba.avif"] = save(Image.fromarray(rgba, "RGBA"), quality=40,
+                                         advanced={"film-grain-test": "3"})
+    files["avif_grain_limited.avif"] = save(pic, quality=40, range="limited",
+                                            advanced={"film-grain-test": "5"})
+    files["avif_grain_limited444.avif"] = save(pic, quality=40, range="limited",
+                                               subsampling="4:4:4",
+                                               advanced={"film-grain-test": "7"})
+    tables = {"lag0": dict(lag=0), "lag1": dict(lag=1), "lag2_no_overlap": dict(lag=2, overlap=0),
+              "lag3_cfl": dict(lag=3, cfl=1), "cfl_no_luma": dict(lag=1, cfl=1, y_points=())}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, kw in tables.items():
+            path = os.path.join(tmp, f"{name}.tbl")
+            with open(path, "w") as f:
+                f.write(grain_table(rng, **kw))
+            files[f"avif_grain_table_{name}.avif"] = save(
+                pic, quality=40, advanced={"film-grain-table": path})
+    files["avif_grain_estimated.avif"] = save(Image.fromarray(demo_texture(64)), quality=50,
+                                              advanced={"denoise-noise-level": "25"})
+    qpic = Image.fromarray(_picture(rng, 64, 64))
+    for level in (0, 4, 8, 12, 15):
+        for ss in ("4:2:0", "4:4:4"):
+            suffix = "" if ss == "4:2:0" else "_444"
+            files[f"avif_qm{level}{suffix}.avif"] = save(
+                qpic, quality=50, subsampling=ss,
+                advanced={"enable-qm": "1", "qm-min": str(level), "qm-max": str(level)})
+    for ss in ("4:2:2", "4:0:0"):
+        files[f"avif_qm6_{ss.replace(':', '')}.avif"] = save(
+            qpic, quality=50, subsampling=ss, advanced={"enable-qm": "1", "qm-min": "6",
+                                                         "qm-max": "6"})
+    qm6 = {"enable-qm": "1", "qm-min": "6", "qm-max": "6"}
+    for period, quality in ((4, 60), (8, 40), (16, 60), (32, 40)):
+        files[f"avif_qm_bands{period}.avif"] = save(Image.fromarray(bands(rng, 256, period)),
+                                                    quality=quality, speed=0, advanced=qm6)
+    y, x = np.mgrid[0:256, 0:256].astype(float)
+    ramp = np.stack([x, y, 255 - (x + y) / 2], -1).astype(np.uint8)
+    files["avif_qm_smooth.avif"] = save(Image.fromarray(ramp), quality=60, speed=0, advanced=qm6)
+    square = np.add.outer(np.arange(64) // 8 * 3, np.arange(64) // 8 * 5) % 6
+    spots = np.tile(rng.integers(30, 225, (6, 3)).astype(np.uint8)[square], (4, 4, 1))
+    for _ in range(96):
+        sy, sx = rng.integers(0, 251, 2)
+        spots[sy:sy + 5, sx:sx + 5] = rng.integers(0, 256, 3)
+    files["avif_qm_screen.avif"] = save(Image.fromarray(spots), quality=40,
+                                        advanced={"enable-qm": "1", "qm-min": "2", "qm-max": "2"})
+    files["avif_qm_lossless.avif"] = save(qpic, quality=100, advanced={"enable-qm": "1"})
+    files["avif_grain_qm.avif"] = save(qpic, quality=40, advanced={
+        "enable-qm": "1", "qm-min": "5", "qm-max": "5", "film-grain-test": "7"})
+    files["blob_grain.avif"] = save(Image.fromarray(demo_texture(32)), quality=60,
+                                    advanced={"film-grain-test": "2"})
+    files["cubes_qm.avif"] = save(Image.fromarray(demo_texture(256)), quality=30,
+                                  advanced={"enable-qm": "1", "qm-min": "4", "qm-max": "4"})
     return files
 
 
