@@ -162,8 +162,10 @@ then the textures phase:
           (9/7, ICT) JP2 (blob_irrev.jp2), as a line-interleaved RGB
           IM (blob_rgb.im), as 4-bit grey ThunderScan
           (blob_thunder.tif), as PIL's default AVIF (blob.avif), as a
-          loop-restored AVIF (blob_lr.avif: self-guided) and as an AVIF
-          with film grain (blob_grain.avif: aom's test vector 2), and cubes
+          loop-restored AVIF (blob_lr.avif: self-guided), as an AVIF
+          with film grain (blob_grain.avif: aom's test vector 2) and as a
+          10-bit 4:2:0 AVIF (avif10_blob.avif: blob.avif's 10-bit edit),
+          and cubes
           with its 256x256 texture as a
           PNG (a 32,768-row atlas, K8), with a 64x64 LZW TIFF (the
           committed cubes_lzw.tif; a 2,048-row atlas, K8), with the same
@@ -175,7 +177,9 @@ then the textures phase:
           RLEW a row a strip (cubes_rlew.tif) and with 256x256 flat
           squares as an AVIF in palette and intra block copy
           (cubes_screen.avif) and with its own 256x256 texture as an AVIF
-          with quantiser matrices (cubes_qm.avif: level 4), each scene
+          with quantiser matrices (cubes_qm.avif: level 4) and as a 12-bit
+          4:4:4 AVIF premultiplied by a seeded alpha (cubes_prem12.avif),
+          each scene
           written by utils/demo_scene, load_scene_file -> build_scene ->
           build_render_fn at 1024x768: one
           graphed frame with exactly that path's kernels launched, held to
@@ -192,7 +196,10 @@ then the textures phase:
           passes' seconds beside them, and a 512x512 AVIF with film grain
           and quantiser matrices (tools/avif_512_grain_qm.avif) to PIL's
           hash, with the seconds of its tiles, its filters and its film
-          grain beside the card's name and power limit;
+          grain beside the card's name and power limit, and a 512x512
+          10-bit AVIF (tools/avif_512_10bit.avif, a 10-bit edit of PIL's
+          default encode) to PIL's hash, with its passes' seconds beside
+          the card's name and power limit;
 and three phases on the textured fixture:
   viewer  ViewerCore at 960x540 (the reference's window) through a scripted
           timeline 15 ms apart (idle and paused; 'w' held 10 frames; space;
@@ -337,15 +344,19 @@ TEXTURE_SCENES = (("textured", "jpg", (256, 192)), ("cubes", "png", (WIDTH, HEIG
                   ("cubes", "cubes_screen.avif", (WIDTH, HEIGHT)),
                   ("textured", "blob_lr.avif", (256, 192)),
                   ("textured", "blob_grain.avif", (256, 192)),
-                  ("cubes", "cubes_qm.avif", (WIDTH, HEIGHT)))
+                  ("cubes", "cubes_qm.avif", (WIDTH, HEIGHT)),
+                  ("textured", "avif10_blob.avif", (256, 192)),
+                  ("cubes", "cubes_prem12.avif", (WIDTH, HEIGHT)))
 # PIL's default AVIF encode of demo_texture(1024) and PIL's hash of it; a
 # 512x512 encode with CDEF and loop restoration and its hash; one with film
 # grain and quantiser matrices and its hash
 AVIF_1024 = pathlib.Path(__file__).resolve().parent / "tools" / "avif_1024_q75.avif"
 AVIF_512 = pathlib.Path(__file__).resolve().parent / "tools" / "avif_512_cdef_lr.avif"
 AVIF_512_GRAIN = pathlib.Path(__file__).resolve().parent / "tools" / "avif_512_grain_qm.avif"
+# a 10-bit edit of PIL's default encode of demo_texture(512) and PIL's hash
+AVIF_512_10BIT = pathlib.Path(__file__).resolve().parent / "tools" / "avif_512_10bit.avif"
 # the AVIF fixtures in pil_rgb.json
-AVIF_FIXTURES = 104
+AVIF_FIXTURES = 252
 # the small raster formats' fixtures, by suffix
 LEGACY_SUFFIXES = (".psd", ".sgi", ".bw", ".rgb", ".pcx", ".dcx", ".ras", ".qoi", ".msp", ".ico",
                    ".cur", ".icns", ".xbm", ".xpm")
@@ -1378,13 +1389,14 @@ def textures_phase(torch, pt, dev, card, state) -> None:
     blocked in sys.modules for the phase: the committed fixtures against
     PIL's hashes, the textured fixture with a JPEG, a TGA, a lossy WebP,
     an arithmetic-coded JPEG, a DXT1 DDS, a PackBits PSD, an
-    irreversible JP2, an RGB IM, a ThunderScan and three AVIF textures and
-    cubes with a PNG, two TIFFs, a lossless WebP, a BC7 DDS, an RLE SGI, a
-    lossless tiled J2K, a Group 4 and a CCITT RLEW TIFF, a palette/intrabc
-    AVIF and a quantiser-matrix AVIF one rendered on the card and held to
-    the CPU and the oracle, and the decode times of a corpus-sized JPEG, a
-    1024x1024 AVIF and two 512x512 AVIFs (CDEF and loop restoration; film
-    grain and quantiser matrices); see the module docstring."""
+    irreversible JP2, an RGB IM, a ThunderScan and four AVIF textures (one
+    of 10 bits) and cubes with a PNG, two TIFFs, a lossless WebP, a BC7
+    DDS, an RLE SGI, a lossless tiled J2K, a Group 4 and a CCITT RLEW TIFF,
+    a palette/intrabc AVIF, a quantiser-matrix AVIF and a premultiplied
+    12-bit 4:4:4 AVIF one rendered on the card and held to the CPU and the
+    oracle, and the decode times of a corpus-sized JPEG, a 1024x1024 AVIF
+    and three 512x512 AVIFs (CDEF and loop restoration; film grain and
+    quantiser matrices; 10 bits); see the module docstring."""
     import hashlib
 
     from relativitypathtracer_tpu_torch.models.texture import decode_texture
@@ -1532,6 +1544,18 @@ def textures_phase(torch, pt, dev, card, state) -> None:
             f"{len(data):,} bytes, PIL's hash): decode_avif {avif_s:.3f} s, of which tiles "
             f"{passes['tiles']:.3f} s, filters {filters:.3f} s, film grain "
             f"{passes['film grain']:.3f} s, on the host CPU of {card}")
+        want = json.loads(AVIF_512_10BIT.with_suffix(".json").read_text())
+        data = AVIF_512_10BIT.read_bytes()
+        passes = {}
+        t0 = time.perf_counter()
+        rgb = decode_avif(data, passes)
+        avif_s = time.perf_counter() - t0
+        check(list(rgb.shape) == want["shape"]
+              and hashlib.sha256(rgb.tobytes()).hexdigest() == want["sha256"],
+              f"textures: {AVIF_512_10BIT.name} decodes to other bytes than PIL's")
+        log(f"  a 512x512 10-bit AVIF ({AVIF_512_10BIT.name}, {len(data):,} bytes, PIL's hash): "
+            f"decode_avif {avif_s:.3f} s, of which " + ", ".join(
+                f"{k} {v:.3f} s" for k, v in passes.items()) + f", on the host CPU of {card}")
     finally:
         if had:
             sys.modules["PIL"] = saved

@@ -1,6 +1,7 @@
 """AV1 tile decoding of an intra frame (AV1 specification sections 5.11 and
 7.11-7.13): the partition tree (all ten partition types, split_or_horz and
-split_or_vert at the frame's edges), each superblock's loop-restoration
+split_or_vert at the frame's edges; in 4:2:2 the vertical ones refused, as
+dav1d refuses them), each superblock's loop-restoration
 units (av1_restoration.read_lr), intra_frame_mode_info (segment id, skip,
 cdef_idx, delta q and delta lf, use_intrabc and its vector (av1_intrabc),
 the key frame's y mode, uv mode with CFL alphas, angle deltas, palette
@@ -16,7 +17,10 @@ the specification's order (transform_tree for an intrabc block's luma).
 
 `FrameDecoder(seq, fh).decode()` returns the reconstructed planes before
 the loop filter, with the per-4x4 information av1_loopfilter, av1_cdef and
-av1_restoration read.
+av1_restoration read. Samples have the sequence's BitDepth (8, 10 or 12):
+reconstruction and prediction clip to (1 << BitDepth) - 1, the edges
+without neighbours start from 1 << (BitDepth - 1), and the dequantisers
+and their clamp are the depth's.
 """
 
 from __future__ import annotations
@@ -45,6 +49,9 @@ class FrameDecoder:
         self.seq, self.fh = seq, fh
         self.ssx, self.ssy = seq.ssx, seq.ssy
         self.num_planes = seq.num_planes
+        self.bit_depth = seq.bit_depth
+        self.pixel_max = (1 << seq.bit_depth) - 1
+        self.mid = 1 << (seq.bit_depth - 1)
         mr, mc = fh.mi_rows, fh.mi_cols
         self.mi_rows, self.mi_cols = mr, mc
         self.sb4 = 32 if seq.sb128 else 16
@@ -171,6 +178,9 @@ class FrameDecoder:
                     T.PARTITION_HORZ if has_cols else T.PARTITION_VERT)
             else:
                 partition = T.PARTITION_SPLIT
+        if self.ssx and not self.ssy and self.num_planes > 1 and partition in _TALL:
+            # 4:2:2 has no chroma block taller than wide: dav1d refuses these
+            raise ValueError("AV1: a vertical partition in 4:2:2")
         if partition > T.PARTITION_SPLIT:
             self.tools.add("AB and 4-way partitions")
         sub = T.partition_subsize(partition, bsize)
@@ -606,7 +616,7 @@ class FrameDecoder:
             res = self.coeffs(p, start_x >> 2, start_y >> 2, tx)
             if res is not None:
                 coef, tx_type = res
-                resid = R.inverse_transform(coef, tx, tx_type, self.lossless)
+                resid = R.inverse_transform(coef, tx, tx_type, self.lossless, self.bit_depth)
                 vk, hk = T.TX_1D[tx_type]
                 if vk == 2:
                     resid = resid[::-1]
@@ -614,7 +624,8 @@ class FrameDecoder:
                     resid = resid[:, ::-1]
                 f = self.frame[p]
                 blk = f[start_y:start_y + th, start_x:start_x + tw]
-                f[start_y:start_y + th, start_x:start_x + tw] = np.clip(blk + resid, 0, 255)
+                f[start_y:start_y + th, start_x:start_x + tw] = np.clip(blk + resid, 0,
+                                                                        self.pixel_max)
         lf = self.lf_tx[p]
         for i in range(step_y):
             lf[(row >> sy) + i][(col >> sx):(col >> sx) + step_x] = [tx] * step_x
@@ -633,7 +644,7 @@ class FrameDecoder:
         if not have_above and have_left:
             above = [int(f[y, x - 1])] * size
         elif not have_above:
-            above = [127] * size
+            above = [self.mid - 1] * size
         else:
             lim = min(max_x, x + (2 * w if have_ar else w) - 1)
             row = f[y - 1, x:lim + 1].tolist()
@@ -642,7 +653,7 @@ class FrameDecoder:
         if not have_left and have_above:
             left = [int(f[y - 1, x])] * size
         elif not have_left:
-            left = [129] * size
+            left = [self.mid + 1] * size
         else:
             lim = min(max_y, y + (2 * h if have_bl else h) - 1)
             col = f[y:lim + 1, x - 1].tolist()
@@ -655,10 +666,10 @@ class FrameDecoder:
         elif have_left:
             corner = int(f[y, x - 1])
         else:
-            corner = 128
+            corner = self.mid
         above[_EDGE - 1] = left[_EDGE - 1] = corner
         if p == 0 and self.use_filter_intra:
-            pred = R.filter_intra(above, left, w, h, self.filter_intra_mode)
+            pred = R.filter_intra(above, left, w, h, self.filter_intra_mode, self.pixel_max)
         elif T.V_PRED <= mode <= T.D67_PRED:
             delta = self.angle_delta_y if p == 0 else self.angle_delta_uv
             angle = T.MODE_TO_ANGLE[mode] + delta * 3
@@ -680,15 +691,15 @@ class FrameDecoder:
                         R.edge_filter(left, num, st)
                 up_a = int(R.use_upsample(w, h, ftype, angle - 90))
                 if up_a:
-                    R.upsample(above, w + (h if angle < 90 else 0))
+                    R.upsample(above, w + (h if angle < 90 else 0), self.pixel_max)
                 up_l = int(R.use_upsample(w, h, ftype, angle - 180))
                 if up_l:
-                    R.upsample(left, h + (w if angle > 180 else 0))
+                    R.upsample(left, h + (w if angle > 180 else 0), self.pixel_max)
             pred = R.directional(above, left, w, h, angle, up_a, up_l)
         elif mode in (T.SMOOTH_PRED, T.SMOOTH_V_PRED, T.SMOOTH_H_PRED):
             pred = R.smooth(above, left, w, h, mode)
         elif mode == T.DC_PRED:
-            pred = R.dc(above, left, w, h, have_above, have_left)
+            pred = R.dc(above, left, w, h, have_above, have_left, self.mid)
         else:
             pred = R.paeth(above, left, w, h)
         f[y:y + h, x:x + w] = pred
@@ -733,7 +744,7 @@ class FrameDecoder:
         dcv = f[y:y + h, x:x + w].astype(np.int64)
         d = alpha * (lv - avg)
         scaled = np.where(d >= 0, (d + 32) >> 6, -((-d + 32) >> 6))
-        f[y:y + h, x:x + w] = np.clip(dcv + scaled, 0, 255)
+        f[y:y + h, x:x + w] = np.clip(dcv + scaled, 0, self.pixel_max)
 
     # --- coefficients --------------------------------------------------
 
@@ -893,8 +904,10 @@ class FrameDecoder:
         q = self.current_q if fh.delta_q_present else None
         qi = qindex(fh, self.segment_id, q)
         dqy, dqu = ((fh.dq_y_dc, 0), (fh.dq_u_dc, fh.dq_u_ac), (fh.dq_v_dc, fh.dq_v_ac))[p]
-        dcq = T.DC_Q[max(0, min(255, qi + dqy))]
-        acq = T.AC_Q[max(0, min(255, qi + dqu))]
+        depth_row = (self.bit_depth - 8) >> 1
+        dcq = int(T.DEQUANT[depth_row, max(0, min(255, qi + dqy)), 0])
+        acq = int(T.DEQUANT[depth_row, max(0, min(255, qi + dqu)), 1])
+        cf_max = (1 << (7 + self.bit_depth)) - 1
         pels = tw * th
         dq_shift = (pels > 256) + (pels > 1024)
         # the segment's matrix weights a 2D transform's quantisers (identity
@@ -937,7 +950,7 @@ class FrameDecoder:
             if qm is not None:
                 q = (q * qm[pos] + 16) >> 5
             dq = ((level * q) & 0xFFFFFF) >> dq_shift
-            dq = min(dq, (1 << 15) - 1) if not sign else -min(dq, 1 << 15)
+            dq = min(dq, cf_max) if not sign else -min(dq, cf_max + 1)
             coef[row, col] = dq
         cul = min(63, cul)
         al[x4:x4 + w4] = [cul] * w4
@@ -947,6 +960,7 @@ class FrameDecoder:
         return coef, tx_type
 
 
+_TALL = (T.PARTITION_VERT, T.PARTITION_VERT_A, T.PARTITION_VERT_B, T.PARTITION_VERT_4)
 _BASE_MAG = tuple(min((m + 1) >> 1, 4) for m in range(16))
 _BR_MAG = tuple(min((m + 1) >> 1, 6) for m in range(46))
 # a class's neighbours on a grid of the given stride: the five of the base

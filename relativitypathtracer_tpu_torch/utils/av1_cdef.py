@@ -2,14 +2,17 @@
 section 7.15), to the bit, on the deblocked frame.
 
 Each 8x8 luma block of a 64x64 whose cdef_idx was read: the direction
-search (the eight partial sums of the block's samples less 128 along each
+search (the eight partial sums of the block's samples, shifted down to 8
+bits, less 128 along each
 direction, their costs weighted by Div_Table, the best direction and the
 variance from its cost less the orthogonal one's), then the filter of the
 block in each plane: luma's primary strength scaled by the variance,
 chroma's damping one less than luma's and its direction through
 Cdef_Uv_Dir, each tap's difference constrained by the strength and
 damping, taps outside the frame's 4x4-aligned area left out, and the sum
-clamped to the taps' range. A 64x64 whose blocks all skipped
+clamped to the taps' range. Above 8 bits the strengths are shifted up and
+the damping raised by BitDepth - 8, and the primary taps are chosen by the
+strength shifted back. A 64x64 whose blocks all skipped
 (cdef_idx -1) and an 8x8 whose four 4x4s all skip are left as they are.
 Every filter reads only the deblocked frame, so each plane is one pass:
 the direction search on every 8x8 block at once (partial sums as matrix
@@ -39,12 +42,12 @@ def _partial_matrices() -> np.ndarray:
 _PARTIAL = _partial_matrices()
 
 
-def _directions(luma: np.ndarray) -> tuple:
+def _directions(luma: np.ndarray, shift: int = 0) -> tuple:
     """cdef_direction of every 8x8 block of luma (rows, cols multiples of
-    8): (direction, variance), each (rows / 8, cols / 8)."""
+    8; samples >> shift): (direction, variance), each (rows / 8, cols / 8)."""
     h, w = luma.shape
-    blocks = (luma.reshape(h // 8, 8, w // 8, 8).transpose(0, 2, 1, 3).reshape(-1, 64)
-              .astype(np.int64) - 128)
+    blocks = ((luma.reshape(h // 8, 8, w // 8, 8).transpose(0, 2, 1, 3).reshape(-1, 64)
+               .astype(np.int64) >> shift) - 128)
     part = np.einsum("nk,dkl->ndl", blocks, _PARTIAL)  # (n, 8, 15)
     sq = part * part
     div = T.CDEF_DIV_TABLE
@@ -90,7 +93,8 @@ def cdef(dec) -> list:
         return list(frame)
     rows8, cols8 = dec.mi_rows // 2, dec.mi_cols // 2
     luma = frame[0][:rows8 * 8, :cols8 * 8]
-    direction, var = _directions(luma)
+    shift = dec.bit_depth - 8
+    direction, var = _directions(luma, shift)
     # each 8x8's strengths index, -1 where its 64x64 read none or its 4x4s all skip
     idx = np.full((rows8, cols8), -1, np.int64)
     for (r, c), v in dec.cdef_idx.items():
@@ -100,7 +104,7 @@ def cdef(dec) -> list:
     idx = np.where(skip8, -1, idx)
     on = idx >= 0
     table = [(st + [0, 0])[:4] for st in fh.cdef_strengths] + [[0, 0, 0, 0]]
-    strengths = np.array(table, np.int64)[np.where(on, idx, -1)]
+    strengths = np.array(table, np.int64)[np.where(on, idx, -1)] << shift
     out = [f.copy() for f in frame]
     for plane in range(dec.num_planes):
         sx, sy = (dec.ssx, dec.ssy) if plane else (0, 0)
@@ -108,19 +112,21 @@ def cdef(dec) -> list:
             pri, sec = strengths[..., 0], strengths[..., 1]
             var_str = np.where(var >> 6, np.minimum(_floor_log2(np.maximum(var >> 6, 1)), 12), 0)
             pri = np.where(var > 0, (pri * (4 + var_str) + 8) >> 4, 0)
-            damping = fh.cdef_damping
+            damping = fh.cdef_damping + shift
             dirs = np.where(strengths[..., 0] == 0, 0, direction)
         else:
             pri, sec = strengths[..., 2], strengths[..., 3]
-            damping = fh.cdef_damping - 1
+            damping = fh.cdef_damping - 1 + shift
             dirs = np.where(pri == 0, 0, np.array(T.CDEF_UV_DIR[sx][sy])[direction])
         bw, bh = 8 >> sx, 8 >> sy
         _filter_plane(frame[plane], out[plane], on & ((pri > 0) | (sec > 0)), pri, sec,
-                      damping, dirs, bw, bh, (dec.mi_rows * 4) >> sy, (dec.mi_cols * 4) >> sx)
+                      damping, dirs, bw, bh, (dec.mi_rows * 4) >> sy, (dec.mi_cols * 4) >> sx,
+                      shift)
     return out
 
 
-def _filter_plane(src, dst, on, pri, sec, damping, dirs, bw, bh, height, width) -> None:
+def _filter_plane(src, dst, on, pri, sec, damping, dirs, bw, bh, height, width,
+                  shift=0) -> None:
     by, bx = np.nonzero(on)
     if not len(by):
         return
@@ -132,8 +138,8 @@ def _filter_plane(src, dst, on, pri, sec, damping, dirs, bw, bh, height, width) 
     p = pri[by, bx][:, None, None]
     s = sec[by, bx][:, None, None]
     d = dirs[by, bx]
-    pri_taps = np.array(T.CDEF_PRI_TAPS, np.int64)[p[:, 0, 0] & 1]  # (n, 2)
-    sec_taps = np.array(T.CDEF_SEC_TAPS, np.int64)[p[:, 0, 0] & 1]
+    pri_taps = np.array(T.CDEF_PRI_TAPS, np.int64)[(p[:, 0, 0] >> shift) & 1]  # (n, 2)
+    sec_taps = np.array(T.CDEF_SEC_TAPS, np.int64)[(p[:, 0, 0] >> shift) & 1]
     dir_tab = np.array(T.CDEF_DIRECTIONS, np.int64)  # (8, 2, 2)
     total = np.zeros_like(x)
     lo, hi = x.copy(), x.copy()

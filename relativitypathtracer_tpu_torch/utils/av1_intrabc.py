@@ -17,7 +17,8 @@ The copy: block inter prediction from the current frame before any
 filter, with the BILINEAR filter at 1/16 sample (luma vectors are whole
 samples; subsampled chroma lands on half samples), the reference clamped
 to the frame's 4x4-aligned size (RefUpscaledWidth[-1] = MiCols * MI_SIZE),
-rounded at InterRound0 = 3 and InterRound1 = 11. Every block of an intra
+rounded at InterRound0 = 3 and InterRound1 = 11 (5 and 9 at 12 bits),
+clipped to (1 << BitDepth) - 1. Every block of an intra
 frame has RefFrame[0] = INTRA_FRAME, so compute_prediction's someUseIntra
 holds and a chroma block always takes its own block's vector.
 """
@@ -227,10 +228,13 @@ def predict(dec, plane: int, x: int, y: int, w: int, h: int, mv: tuple) -> None:
     rows = (py >> 4) + np.arange(h)
     ca, cb = np.clip(cols, 0, last_x), np.clip(cols + 1, 0, last_x)
 
+    round0 = 5 if dec.bit_depth == 12 else 3
+    round1 = 14 - round0
+
     def horizontal(rr):
         rr = np.clip(rr, 0, last_y)[:, None]
         s = f[rr, ca[None, :]].astype(np.int64) * (128 - 8 * fx) + f[rr, cb[None, :]] * (8 * fx)
-        return (s + 4) >> 3
+        return (s + (1 << (round0 - 1))) >> round0
 
     s = horizontal(rows) * (128 - 8 * fy) + horizontal(rows + 1) * (8 * fy)
-    f[y:y + h, x:x + w] = np.clip((s + 1024) >> 11, 0, 255)
+    f[y:y + h, x:x + w] = np.clip((s + (1 << (round1 - 1))) >> round1, 0, dec.pixel_max)

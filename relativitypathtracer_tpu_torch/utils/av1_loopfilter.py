@@ -11,7 +11,9 @@ level comes from the frame's level of that plane and direction, delta lf,
 the segment's feature and the intra reference delta, or from the
 previous block's when it is 0; sharpness gives limit, blimit and thresh.
 Then the masks (hev, filter, flat, flat2) and the narrow filter or the 6-,
-8- or 14-tap wide one.
+8- or 14-tap wide one; above 8 bits the limits and the flatness threshold
+are shifted up by BitDepth - 8 and the narrow filter works on BitDepth-bit
+signed samples.
 
 Within one pass no filter reads a sample that another one writes (edges
 with long filters lie at least as far apart as the filters reach), so
@@ -80,12 +82,14 @@ def loop_filter(dec) -> None:
                     edges[length].append((xp, yp, limit, 2 * (lvl + 2) + limit, lvl >> 4))
             for length, lst in edges.items():
                 if lst:
-                    _filter(dec.frame[plane], np.array(lst, np.int64), length, pss)
+                    _filter(dec.frame[plane], np.array(lst, np.int64), length, pss,
+                            seq.bit_depth)
 
 
-def _filter(f: np.ndarray, e: np.ndarray, length: int, pss: int) -> None:
+def _filter(f: np.ndarray, e: np.ndarray, length: int, pss: int, depth: int = 8) -> None:
     """Filter every edge segment of `e` (rows x, y, limit, blimit, thresh):
     four lines each, across the edge."""
+    shift = depth - 8
     i = np.arange(4)
     if pss == 0:  # vertical edge: lines are rows, taps run along x
         ys = (e[:, 1][:, None] + i[None, :]).ravel()
@@ -102,9 +106,10 @@ def _filter(f: np.ndarray, e: np.ndarray, length: int, pss: int) -> None:
     rr = np.maximum(rr, 0)
     cc = np.maximum(cc, 0)
     px = f[rr, cc].astype(np.int64)  # px[:, 7 + j]: j = 0 is q0, j = -1 is p0
-    limit = np.repeat(e[:, 2], 4)
-    blimit = np.repeat(e[:, 3], 4)
-    thresh = np.repeat(e[:, 4], 4)
+    limit = np.repeat(e[:, 2], 4) << shift
+    blimit = np.repeat(e[:, 3], 4) << shift
+    thresh = np.repeat(e[:, 4], 4) << shift
+    one = 1 << shift
 
     def s(j):
         return px[:, 7 + j]
@@ -122,30 +127,31 @@ def _filter(f: np.ndarray, e: np.ndarray, length: int, pss: int) -> None:
     flat = np.zeros(len(px), bool)
     flat2 = np.zeros(len(px), bool)
     if length == 6:
-        flat = ((ad(p1 - p0) <= 1) & (ad(q1 - q0) <= 1) & (ad(p2 - p0) <= 1)
-                & (ad(q2 - q0) <= 1))
+        flat = ((ad(p1 - p0) <= one) & (ad(q1 - q0) <= one) & (ad(p2 - p0) <= one)
+                & (ad(q2 - q0) <= one))
     elif length >= 8:
-        flat = ((ad(p1 - p0) <= 1) & (ad(q1 - q0) <= 1) & (ad(p2 - p0) <= 1)
-                & (ad(q2 - q0) <= 1) & (ad(p3 - p0) <= 1) & (ad(q3 - q0) <= 1))
+        flat = ((ad(p1 - p0) <= one) & (ad(q1 - q0) <= one) & (ad(p2 - p0) <= one)
+                & (ad(q2 - q0) <= one) & (ad(p3 - p0) <= one) & (ad(q3 - q0) <= one))
     if length == 16:
-        flat2 = ((ad(s(-7) - p0) <= 1) & (ad(s(6) - q0) <= 1) & (ad(s(-6) - p0) <= 1)
-                 & (ad(s(5) - q0) <= 1) & (ad(s(-5) - p0) <= 1) & (ad(s(4) - q0) <= 1))
+        flat2 = ((ad(s(-7) - p0) <= one) & (ad(s(6) - q0) <= one) & (ad(s(-6) - p0) <= one)
+                 & (ad(s(5) - q0) <= one) & (ad(s(-5) - p0) <= one) & (ad(s(4) - q0) <= one))
     out = px.copy()
     narrow = mask & ~flat
     if narrow.any():
-        c = lambda v: np.clip(v, -128, 127)  # noqa: E731
-        ps1, ps0, qs0, qs1 = p1 - 128, p0 - 128, q0 - 128, q1 - 128
+        half = 1 << (depth - 1)
+        c = lambda v: np.clip(v, -half, half - 1)  # noqa: E731
+        ps1, ps0, qs0, qs1 = p1 - half, p0 - half, q0 - half, q1 - half
         filt = np.where(hev, c(ps1 - qs1), 0)
         filt = c(filt + 3 * (qs0 - ps0))
         f1 = c(filt + 4) >> 3
         f2 = c(filt + 3) >> 3
         n = narrow
-        out[n, 7] = (c(qs0 - f1) + 128)[n]
-        out[n, 6] = (c(ps0 + f2) + 128)[n]
+        out[n, 7] = (c(qs0 - f1) + half)[n]
+        out[n, 6] = (c(ps0 + f2) + half)[n]
         keep = n & ~hev
         fo = (f1 + 1) >> 1
-        out[keep, 8] = (c(qs1 - fo) + 128)[keep]
-        out[keep, 5] = (c(ps1 + fo) + 128)[keep]
+        out[keep, 8] = (c(qs1 - fo) + half)[keep]
+        out[keep, 5] = (c(ps1 + fo) + half)[keep]
     wide = mask & flat & ~flat2 if length == 16 else mask & flat
     if length >= 6 and wide.any():
         _wide(px, out, wide, 3, 2 if length == 6 else 3, 1 if length == 6 else 0)

@@ -181,6 +181,7 @@ def sequence_header(payload: bytes) -> SimpleNamespace:
     s.enable_superres = r.f(1)
     s.enable_cdef = r.f(1)
     s.enable_restoration = r.f(1)
+    s.color_config_bits = [r.pos, 0]  # where color_config() starts and ends
     high_bitdepth = r.f(1)
     if s.profile == 2 and high_bitdepth:
         s.bit_depth = 12 if r.f(1) else 10
@@ -188,7 +189,8 @@ def sequence_header(payload: bytes) -> SimpleNamespace:
         s.bit_depth = 10 if high_bitdepth else 8
     s.mono = 0 if s.profile == 1 else r.f(1)
     s.num_planes = 1 if s.mono else 3
-    if r.f(1):
+    s.color_description = r.f(1)
+    if s.color_description:
         s.cp, s.tc, s.mc = r.f(8), r.f(8), r.f(8)
     else:
         s.cp = s.tc = s.mc = 2
@@ -214,6 +216,7 @@ def sequence_header(payload: bytes) -> SimpleNamespace:
             if s.ssx and s.ssy:
                 s.chroma_sample_position = r.f(2)
         s.separate_uv_delta_q = r.f(1)
+    s.color_config_bits[1] = r.pos
     s.film_grain_params_present = r.f(1)
     if s.mc == 0 and (s.mono or s.ssx or s.ssy):
         raise ValueError("AV1: the identity matrix on subsampled chroma")

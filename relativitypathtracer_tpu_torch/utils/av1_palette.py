@@ -6,9 +6,11 @@ blocks above and to the left have a luma palette) and has_palette_uv
 (context: whether this block has one); the size; the colours, first those
 taken from the palette cache (the above and left blocks' colours merged in
 ascending order without repeats; the row above only inside the same
-64-row superblock row), then a literal, then ascending deltas (luma's at
-least 1), the bit count narrowing to what the remaining range needs; V's
-colours coded as signed deltas (wrapping) or as literals.
+64-row superblock row), then a literal of BitDepth bits, then ascending
+deltas (luma's at least 1; BitDepth - 3 bits and more), the bit count
+narrowing to what the remaining range needs; V's colours coded as signed
+deltas (BitDepth - 4 bits and more, wrapping at 1 << BitDepth) or as
+literals.
 
 palette_tokens: the first index as NS(n), the rest in wavefront order
 (anti-diagonals, each from its top-right end), each symbol an index into
@@ -65,14 +67,15 @@ def _colours(dec, plane: int, n: int, delta_min: int) -> list:
             break
         if sd.read_literal(1):
             out.append(v)
+    depth = dec.bit_depth
     if len(out) < n:
-        out.append(sd.read_literal(8))
+        out.append(sd.read_literal(depth))
     if len(out) < n:
-        bits = 5 + sd.read_literal(2)
+        bits = depth - 3 + sd.read_literal(2)
         while len(out) < n:
-            v = min(255, out[-1] + sd.read_literal(bits) + delta_min)
+            v = min(dec.pixel_max, out[-1] + sd.read_literal(bits) + delta_min)
             out.append(v)
-            bits = min(bits, _ceil_log2(256 - v - delta_min))
+            bits = min(bits, _ceil_log2((1 << depth) - v - delta_min))
     return sorted(out)
 
 
@@ -94,16 +97,17 @@ def mode_info(dec) -> None:
         if sd.read_symbol(cdf["palette_uv_mode"][int(bool(dec.pal_y))]):
             n = sd.read_symbol(cdf["palette_uv_size"][bsize_ctx]) + 2
             u = _colours(dec, 1, n, 0)
+            depth = dec.bit_depth
             if sd.read_literal(1):  # delta_encode_palette_colors_v
-                bits = 4 + sd.read_literal(2)
-                v = [sd.read_literal(8)]
+                bits = depth - 4 + sd.read_literal(2)
+                v = [sd.read_literal(depth)]
                 for _ in range(1, n):
                     d = sd.read_literal(bits)
                     if d and sd.read_literal(1):
                         d = -d
-                    v.append((v[-1] + d) % 256)
+                    v.append((v[-1] + d) % (1 << depth))
             else:
-                v = [sd.read_literal(8) for _ in range(n)]
+                v = [sd.read_literal(depth) for _ in range(n)]
             dec.pal_uv = (u, v)
             dec.tools.add("chroma palette")
 

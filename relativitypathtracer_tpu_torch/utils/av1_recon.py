@@ -12,7 +12,8 @@ butterfly steps (B rotations rounded at 12 bits, H additions), the inverse
 ADST of 4, 8 and 16 points, the identity of 4 to 32 points and the Walsh-
 Hadamard transform of lossless blocks; a 2D transform runs its rows, then
 its columns, with the 1:2 rectangles' 2896/4096 scale, the row shift of
-each size and the clamp to 16 bits between the passes. A 1D transform runs
+each size and, between the passes, dav1d's clamp to Max(BitDepth + 6, 16)
+bits. A 1D transform runs
 down the columns of an (N, m) array: the butterfly steps are recorded once
 (`_Program`) and run a stage of independent steps as one numpy operation.
 """
@@ -48,10 +49,11 @@ def _r12(x):
 class _Program:
     """A 1D transform's butterfly steps, recorded once: an input
     permutation, then B rotations (rounded at 12 bits) and H additions
-    (clipped to 16 bits, as dav1d clips every butterfly sum; a conforming
-    stream never reaches the clip), then an output order with signs. `run`
-    applies it to every column of an (N, m) array at once, a stage of
-    independent steps a numpy operation."""
+    (clipped as dav1d clips every butterfly sum: to 16 bits at 8 bits, else
+    to BitDepth + 8 bits in the row pass and BitDepth + 6 in the column
+    pass; a conforming stream never reaches the clip), then an output order
+    with signs. `run` applies it to every column of an (N, m) array at
+    once, a stage of independent steps a numpy operation."""
 
     def __init__(self, perm: list):
         self.perm = perm
@@ -80,7 +82,7 @@ class _Program:
                 used |= {op[1], op[2]}
         return self
 
-    def run(self, x: np.ndarray) -> np.ndarray:
+    def run(self, x: np.ndarray, lo: int = -32768, hi: int = 32767) -> np.ndarray:
         x = x[self.perm]
         for rotate, a, b, c, s, flip in self.stages:
             xa, xb = x[a], x[b]
@@ -88,7 +90,7 @@ class _Program:
                 u, v = xa * c - xb * s, xa * s + xb * c
                 x[a], x[b] = _r12(np.where(flip, v, u)), _r12(np.where(flip, u, v))
             else:
-                x[a], x[b] = np.clip(xa + xb, -32768, 32767), np.clip(xa - xb, -32768, 32767)
+                x[a], x[b] = np.clip(xa + xb, lo, hi), np.clip(xa - xb, lo, hi)
         if self.out is not None:
             x = x[self.out[0]] * self.out[1][:, None]
         return x
@@ -285,19 +287,21 @@ def _iwht(t, shift: int) -> np.ndarray:
     return np.stack([a, b, c, d])
 
 
-def _1d(x: np.ndarray, kind: int, n: int) -> np.ndarray:
+def _1d(x: np.ndarray, kind: int, n: int, bits: int) -> np.ndarray:
     """The 1D transform of kind (0 DCT, 1 and 2 ADST, 3 identity) of 2^n
-    points down each column of x (2^n, m)."""
+    points down each column of x (2^n, m), its sums clipped to `bits`."""
     if kind == 3:
         return _identity(x, n)
     if kind != 0 and n == 2:
         return _iadst4(x)
-    return _PROGRAMS[("dct" if kind == 0 else "adst", n)].run(x)
+    return _PROGRAMS[("dct" if kind == 0 else "adst", n)].run(x, -(1 << (bits - 1)),
+                                                              (1 << (bits - 1)) - 1)
 
 
-def inverse_transform(coef: np.ndarray, tx: int, tx_type: int, lossless: bool) -> np.ndarray:
+def inverse_transform(coef: np.ndarray, tx: int, tx_type: int, lossless: bool,
+                      bit_depth: int = 8) -> np.ndarray:
     """Residual (h, w) int64 of dequantised coefficients (h, w), row-major
-    (7.13.3): rows, the 16-bit clamp, columns; flips are the caller's."""
+    (7.13.3): rows, the clamp, columns; flips are the caller's."""
     h, w = coef.shape
     log2w, log2h = w.bit_length() - 1, h.bit_length() - 1
     if lossless:
@@ -308,13 +312,14 @@ def inverse_transform(coef: np.ndarray, tx: int, tx_type: int, lossless: bool) -
     x = coef[:nrows].astype(np.int64)
     if abs(log2w - log2h) == 1:
         x = _r12(x * 2896)
-    rowout = _1d(x.T, hk, log2w).T
+    row_bits, col_bits = max(bit_depth + 8, 16), max(bit_depth + 6, 16)
+    rowout = _1d(x.T, hk, log2w, row_bits).T
     shift = T.TX_ROW_SHIFT[tx]
     if shift:
         rowout = (rowout + (1 << (shift - 1))) >> shift
     res = np.zeros((h, w), np.int64)
-    res[:nrows] = np.clip(rowout, -(1 << 15), (1 << 15) - 1)
-    return (_1d(res, vk, log2h) + 8) >> 4
+    res[:nrows] = np.clip(rowout, -(1 << (col_bits - 1)), (1 << (col_bits - 1)) - 1)
+    return (_1d(res, vk, log2h, col_bits) + 8) >> 4
 
 
 # --- prediction ---------------------------------------------------------
@@ -369,7 +374,7 @@ def use_upsample(w: int, h: int, filter_type: int, delta: int) -> bool:
     return w + h <= (8 if filter_type else 16)
 
 
-def upsample(edge: list, num_px: int) -> None:
+def upsample(edge: list, num_px: int, top: int = 255) -> None:
     """Double edge[EDGE - 1 ..] in place (7.11.2.11); the result runs from
     index EDGE - 2."""
     dup = [0] * (num_px + 3)
@@ -380,7 +385,7 @@ def upsample(edge: list, num_px: int) -> None:
     edge[EDGE - 2] = dup[0]
     for i in range(num_px):
         s = -dup[i] + 9 * dup[i + 1] + 9 * dup[i + 2] - dup[i + 3]
-        edge[EDGE + 2 * i - 1] = min(max((s + 8) >> 4, 0), 255)
+        edge[EDGE + 2 * i - 1] = min(max((s + 8) >> 4, 0), top)
         edge[EDGE + 2 * i] = dup[i + 2]
 
 
@@ -456,7 +461,7 @@ def paeth(above: list, left: list, w: int, h: int) -> np.ndarray:
 
 
 def dc(above: list, left: list, w: int, h: int, have_above: bool,
-       have_left: bool) -> np.ndarray:
+       have_left: bool, mid: int = 128) -> np.ndarray:
     if have_above and have_left:
         s = sum(above[EDGE:EDGE + w]) + sum(left[EDGE:EDGE + h])
         v = (s + ((w + h) >> 1)) // (w + h)
@@ -465,11 +470,12 @@ def dc(above: list, left: list, w: int, h: int, have_above: bool,
     elif have_above:
         v = (sum(above[EDGE:EDGE + w]) + (w >> 1)) >> (w.bit_length() - 1)
     else:
-        v = 128
+        v = mid
     return np.full((h, w), v, np.int64)
 
 
-def filter_intra(above: list, left: list, w: int, h: int, mode: int) -> np.ndarray:
+def filter_intra(above: list, left: list, w: int, h: int, mode: int,
+                 top: int = 255) -> np.ndarray:
     pred = [[0] * w for _ in range(h)]
     taps = T.FILTER_INTRA_TAPS[mode * 56:(mode + 1) * 56]
     for i2 in range(h >> 1):
@@ -492,5 +498,5 @@ def filter_intra(above: list, left: list, w: int, h: int, mode: int) -> np.ndarr
                 pr = (k[0] * p[0] + k[1] * p[1] + k[2] * p[2] + k[3] * p[3] + k[4] * p[4]
                       + k[5] * p[5] + k[6] * p[6])
                 v = (pr + 8) >> 4 if pr >= 0 else -((-pr + 8) >> 4)
-                pred[(i2 << 1) + (i >> 2)][(j4 << 2) + (i & 3)] = min(max(v, 0), 255)
+                pred[(i2 << 1) + (i >> 2)][(j4 << 2) + (i & 3)] = min(max(v, 0), top)
     return np.array(pred, np.int64)

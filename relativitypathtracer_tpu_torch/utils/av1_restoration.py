@@ -19,11 +19,14 @@ at most 2 rows past the stripe; rows and columns are clamped to the
 plane's edges. Within one (stripe, unit) rectangle every pixel sees the
 same rules, so each rectangle is one numpy pass:
 - Wiener: the 7-tap separable filter (chroma's outer taps 0), horizontal
-  then vertical, rounded at 3 and 11 bits, the intermediate clamped to
-  13 bits;
+  then vertical, rounded at InterRound0 and InterRound1 (3 and 11; 5 and 9
+  at 12 bits), the intermediate clamped to BitDepth + 8 - InterRound0 bits
+  about its offset;
 - self-guided: box sums of radius 2 (used on every other row) and 1, the
-  variance through x/(x+1) and 1/n at 12 bits, the 3x3 weighted sums of A
-  and B, and the two projections' weights.
+  variance (the sums rounded down to 8-bit scale) through x/(x+1) and 1/n
+  at 12 bits, the 3x3 weighted sums of A and B, and the two projections'
+  weights.
+Both clip their output to (1 << BitDepth) - 1.
 """
 
 from __future__ import annotations
@@ -165,9 +168,9 @@ def loop_restoration(dec, deblocked: list, cdef: list) -> list:
                     continue
                 block = src[:, x0:x1 + 6]
                 if unit[0] == T.RESTORE_WIENER:
-                    res[y0:y1, x0:x1] = _wiener(block, unit[1])
+                    res[y0:y1, x0:x1] = _wiener(block, unit[1], dec.bit_depth)
                 else:
-                    res[y0:y1, x0:x1] = _self_guided(block, unit[1], y0)
+                    res[y0:y1, x0:x1] = _self_guided(block, unit[1], y0, dec.bit_depth)
         out[plane] = res
     return out
 
@@ -183,18 +186,22 @@ def _source(pre: np.ndarray, post: np.ndarray, y0: int, y1: int, pw: int, ph: in
     return rows.astype(np.int64)
 
 
-def _wiener(src: np.ndarray, taps: list) -> np.ndarray:
+def _wiener(src: np.ndarray, taps: list, depth: int = 8) -> np.ndarray:
     """src: the rectangle's rows and columns with 3 more on each side."""
     def kernel(c):
         return (c[0], c[1], c[2], 128 - 2 * (c[0] + c[1] + c[2]), c[2], c[1], c[0])
 
+    round0 = 5 if depth == 12 else 3
+    round1 = 14 - round0
+    offset = 1 << (depth + 6 - round0)
+    limit = (1 << (depth + 8 - round0)) - 1
     vk, hk = kernel(taps[0]), kernel(taps[1])
     w = src.shape[1] - 6
     s = sum(hk[t] * src[:, t:t + w] for t in range(7))
-    inter = np.clip((s + 4) >> 3, -2048, 6143)
+    inter = np.clip((s + (1 << (round0 - 1))) >> round0, -offset, limit - offset)
     h = src.shape[0] - 6
     s = sum(vk[t] * inter[t:t + h] for t in range(7))
-    return np.clip((s + 1024) >> 11, 0, 255)
+    return np.clip((s + (1 << (round1 - 1))) >> round1, 0, (1 << depth) - 1)
 
 
 def _box(src: np.ndarray, r: int) -> tuple:
@@ -211,17 +218,23 @@ def _box(src: np.ndarray, r: int) -> tuple:
     return out[0], out[1]
 
 
-def _ab(src: np.ndarray, r: int, s: int) -> tuple:
+def _ab(src: np.ndarray, r: int, s: int, depth: int = 8) -> tuple:
     b, a = _box(src, r)
     n = (2 * r + 1) ** 2
-    p = np.maximum(0, a * n - b * b)
+    if depth > 8:
+        sh = depth - 8
+        a = (a + (1 << (2 * sh - 1))) >> (2 * sh)
+        d = (b + (1 << (sh - 1))) >> sh
+        p = np.maximum(0, a * n - d * d)
+    else:
+        p = np.maximum(0, a * n - b * b)
     z = (p * s + (1 << 19)) >> 20
     a2 = np.array(T.SGR_X_BY_XPLUS1, np.int64)[np.minimum(z, 255)]
     b2 = (256 - a2) * b * T.SGR_ONE_BY_X[n]
     return a2, (b2 + 2048) >> 12
 
 
-def _self_guided(src: np.ndarray, params: tuple, y0: int) -> np.ndarray:
+def _self_guided(src: np.ndarray, params: tuple, y0: int, depth: int = 8) -> np.ndarray:
     sgr_set, (w0, w1) = params
     r0, s0, r1, s1 = T.SGR_PARAMS[sgr_set]
     h, w = src.shape[0] - 6, src.shape[1] - 6
@@ -230,7 +243,7 @@ def _self_guided(src: np.ndarray, params: tuple, y0: int) -> np.ndarray:
     v = w1 * u
     w2 = (1 << 7) - w0 - w1
     if r0:
-        a, b = _ab(src, 2, s0)  # (h + 2, w + 2): one ring around the rectangle
+        a, b = _ab(src, 2, s0, depth)  # (h + 2, w + 2): one ring around the rectangle
 
         def odd_rows(m, i0, i1):  # rows i0 .. i1 - 1 of the ring's frame
             return 6 * m[i0:i1, 1:1 + w] + 5 * (m[i0:i1, 0:w] + m[i0:i1, 2:2 + w])
@@ -244,7 +257,7 @@ def _self_guided(src: np.ndarray, params: tuple, y0: int) -> np.ndarray:
     else:
         v = v + w0 * u
     if r1:
-        a, b = _ab(src, 1, s1)
+        a, b = _ab(src, 1, s1, depth)
 
         def cross(m):
             return (4 * (m[1:1 + h, 1:1 + w] + m[0:h, 1:1 + w] + m[2:2 + h, 1:1 + w]
@@ -255,4 +268,4 @@ def _self_guided(src: np.ndarray, params: tuple, y0: int) -> np.ndarray:
         v = v + w2 * flt
     else:
         v = v + w2 * u
-    return np.clip((v + (1 << 10)) >> 11, 0, 255)
+    return np.clip((v + (1 << 10)) >> 11, 0, (1 << depth) - 1)

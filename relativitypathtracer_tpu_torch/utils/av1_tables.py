@@ -677,7 +677,9 @@ MV_BORDER = 128
 # luma or chroma, then each size's weights one after the other, at
 # QM_OFFSET[tx]; a 64-point size reads its 32-point region) and
 # Gaussian_Sequence[2048], packed as uint8 and little-endian int16 in a
-# zlib stream each (written by tools/av1_tables_extract.py).
+# zlib stream each, and the dequantisers of every bit depth (Dc_Qlookup and
+# Ac_Qlookup, the 8-bit rows equal to DC_Q and AC_Q) as little-endian
+# uint16 (written by tools/av1_tables_extract.py).
 _QM_BLOB = (
     "eNqMvWdzHEe2JvxPhIYHGu2976521d577x2AbngPwpEwJAiCJAiQBCk6iSKlIeVmJM2Mxmh3Z2dmZ+LGxuwbG7Hx3rix"
     "n3b38/sL3nOyukDy3pmLbVFqFbMrqyozz3PMc04WZ8xZHLPk2s7cwWmxffonDmdIao3kJzn9I2KjJ1kbGlFQvnSpJRVT"
@@ -1282,6 +1284,45 @@ _GAUSS_BLOB = (
     "8jH7l9ranMJ9ZQ2kdvB9153h62/ckza2RyPToomJ6RxTgddBhV/o6gpkEPixpaJ3cPNv3nxG5hfICHFHM9jrTre40Zah"
     "fRkzh7Y+JI+k9WOv/u9umXB/mTZHWaratj3RSxfwHTJnP7V/2WaLySyhDEVt2YZWkKW7n5M8fUqauKPF/BUJLA6lHAE5"
     "uDHoHbexGm6aa9zpx/hqUAKJ+QqWrTQBt4hxgld2iUT/f4qI69o=")
+_DQ_BLOB = (
+    "eNollXlY11UWxu85997v8ts3fuwgCAKCgKICIqBioKCCiiOuiRvhEuLCjGiDW465YqYSWJnhUplLZo64kGJqCmlSluKj"
+    "qVij5pY2jIoxx5nnPuc+957zfv5733sFE0z739JpGWgZaZlomakstFtpt9Fup91Bu5N2F+0eVG46edLJi07edPKhky+d"
+    "/OjkTxVAt0C6taNbEN2C6daebiFUodTpQJ0w6oRTJ4I6HakTSRVF3U7UjaZuDHVjqduZqgtN4mjSlSbdaNKdJvFUCTRN"
+    "pGkPmibRtCdNk6lSSJFKil6k6E2KPlRppOpLqldIlU6qDFL1o+pPykxSZpFyACkHUg0idTapc0g9mNRDqIYSkUvEMCL+"
+    "QsRwqjyiRhA1kqhRRI2mGkPkWCJfJXIcVT7R44meQPREoidRTSb6NaKnEDmNqNeJmkHETCJmk7qE1H8jZSkp55Py76yQ"
+    "LWBT2SJSLyH1UlbElrFitpyIlUSsZnNYOVFvE/UOm8s2sHmsgr3BqlgZe58tZB+yxayaqO1EfULUZ0TtIWofUV8SdZCo"
+    "w0TVEnWcVbKv2SZ2msizRJ4jspFtYz+yj1kT28musV3sJtvLfmVfsLtEPyD6MTvEWthR9px9xdpYHRNwiulwhlmggTnh"
+    "PPOCRuYPF1kwXGJhcIVFwTXWGW6wePiFJcNtlgb3WH94yLLhMRsGLWwUPGP58IIVAMDrIGEO6DAfzLAYbLAcXLAWvKAC"
+    "/GAztIMdEAJ7IBz+CVHwFcTCaegG30EiXIZkuAl94DdIhz8gE/6EbNAwFxyYB344BjrgeIjFAkjCaZCOxTAYS2A0zoMC"
+    "XACz8E0owxWwAsthI26AaqyCvfghHMXtcBY/g0u4D37Fg/AH1gLnJ8HBGyCIN0Isb4Je/Abk8Nswjj+CYv4UFnHAddyA"
+    "W7kDD3Bf/IaH4hUegw94IqJIQ7cYhB3FSEwVkzFXzMRCsQDLxGpcLzbhTrET68RhbBIN+Fj8jCb5GEOlylOlHx8h4/hs"
+    "mcXXyEn8U7mAn5Lv8WZ5iINyhQcqf/JkJViMVjLFfGWW2KRsFkeU8+KaghLUBBmiCsr//5NvpKy/TLuNMv4y4R6UaS/K"
+    "si/lN4ByG0RZDaUVTiuKshhL+YujzMVTzpIoV6mUpzTKTwblJYv2bNqHUg7yyPejKSnjyOMTyd+FlITp5OmZdCqhUyn5"
+    "t4y8u5g8u4xcvpIcvpbcvZ5ulXR7n61hH7F1bAfbSK6rIsd9wPZTp4a8eJRcXEc+PMU+Z/XkwfPkwR/YEXaJHWNXyb03"
+    "yL2/0uQuTR6y79kTcu9Tcu8Lci+S7xTynZF8ZyXfOeER+fMJ84P/sCB4zkKhjUUAh2hQoAsYIJ58lwR2SCXf9SXf9QNf"
+    "GACBMBiCYRiEwgiIgDHkPXITTIY4mALdoQh6wCzy31+hN8wjagFkwBLIgmUwCFYSuRaGw7swFj6EifAxEXuhGA6S+hi8"
+    "AWfI5RfI5ZehHG7ABrgDm+B32ALPyOmIu8CIX4ATa8AXv4L2eBIisR7i8AL5+CdIw6swAJshF++Qlx/Da/gcZqPABWjG"
+    "leiBFRiA1dgB92AMHsZ4/AZ74Q/YD69jDt7DEfgU81HyQrTzYvTnpRjBl2AiX4P9eSWO4NVYyHfjXF6Db/ETWMm/xU/4"
+    "JazhN/EMv4eXeQve4cifcQu3CF8eLMJ4dxHHM0UqHysG8Jkijy8VE3mlmMF3iXn8uFjOL4sK/rvYyg1yHw+Wx3gPeY4P"
+    "kVf4FHmbL5YtvEoq4oD0EI0yVDyQXYVR6SPClMEiTRknXlWKRZmyUHygvC1qlS3k7c9Fm3JcBKrfizT1lihQW8QKVZO7"
+    "VR/ZqEbKFjVFBmqDZYY2QRZpJXKjtkzWapvkXW2P9NRPyDT9J1mk/yardFDO6p7Kcz1KiTT0VkYZ8pQ1hiKlzrBUaTFs"
+    "UiKN+5UJxgalyviL0mhsU4wmbzXD1FVdbMpWa03T1DbTW2qqeZtaZj6p1plvqapF0bIs4do6S5bWZCnSQqzrtRnWw9ph"
+    "a7Om2ax6ni1J32GborfaKvUce71ebQdDqz3BkOuYZdjj2GswOX83THPGG+udC4yxrnrjO64AU6trtmmix3nTeY8Yc0/3"
+    "BvNON1r8PEss5Z4PLMKr2Drf66n1iddK2wzvjvaH3ufsM3wWOp749HbO9zW4hN9NV7nfy/y//Osd9Ju/zHoQ/cYRlO8u"
+    "9HP2pDSnU4pz6JcaRT9RAf1Ns+gPKmMrKJeV7F3K5DZ2gN7/U/RbXKSM/UKpa2H3mEr58aLMRIA3JSCcHJ9A2cigN3w4"
+    "ZWAyvA0lUA1L4UtYT+/0VmiC/XAPvoY2+IHe5WYIwScQT37NRBeOxhAswq64CPviO5iL23EC1uAsrMfFeA3X4SPcgoJ/"
+    "jp78OPn0O+zJr+Mg/hDzOeOzuZUv5QG8gkfzT3kyP8IH8PN8FL/Bp/AnfC5XxDLuLTbySLGNJ4v9PFuc4PniAp8lrvM3"
+    "xUO+UfzJPxZmcUj4igYRIa6KBPFQpAuUucIpx4tQOUPEyzLRT64SI2WVmCp3iDfkl2K1PCE2ywtir/xZHJf3yLfPxS2p"
+    "yX9Lt1SV9tJL6SwjlBSZpOTJUUqxnK+skO8p1fKIckReVS7KNuWBbKdqSi81SMlXeyiL1CHKFnWqUqcuUZrVTYrQ9iuh"
+    "WoOSrt1SJmsvlH9obnWHFq2e1tLV29oYVdfnqB31VWqmvlWdqp9Wq/S7ar1u1lr1WK2TYYg2xjBHW2XYqB01HNTuG5q0"
+    "QGOrlm0M0MuMqfoe4zj9Z+Mi3Wb6SO9tqtOLTc36FpPVcMPUwxBsnmQYby43fGSuMdw0NxvaWyzGiZYEY7Ul39hsWW4M"
+    "se4zTrJeMW61CtMta7ypm63QtNRWabpoO2vqYG81ldg7mU/ax5g9HavMBY4j5gOOe2bVGWopcI6xnHaut4S76i3LXNz6"
+    "L1eitZ9HkXWHx1ar7r5sLXR72i65h9n6e661HfRssEV46fZ3vfraDd5l9lLv4/Zn3sJR6vOK45nPUkep7ynHM1/VWeo3"
+    "yGn0X++s8m9yRgYEuQ4FTHZlBX7qagpscc1r18fDN2iVx6GgHz1GBQe5W4OL3TvbH3OPDrF7mkLHeR4O3e05rYP0igob"
+    "6fVb2G6vneHCe1rEq949Ox7yNkW6fa5EFvt8FtXos6pTd9/p0RW+A2Oe+3aKneTn3/m8n7lLkv+LLrv9X8S1D3jRtSLg"
+    "RTd3oDl+faB/grtdp8TN7Qb2iAqannQoaHXP3OCjyY+C76eUtw/olRQytvedkPf7bA+9n/Zah5RXYsJWp8vw+xnXwwf1"
+    "/zbiaObxjtEDzkTuGng5KjqbRR/N6RwzaMjc2PtDv+28elhKXMrwI13v543ovmukmvD66B8TU8bWJFnGnUi+n9+cem5C"
+    "TJ/aSdv71hYkZ9QWysxzU5WBD6ZH5FhnrBiaOvO/J93kXw==")
 
 
 def _blob(parts: tuple, dtype: str) -> np.ndarray:
@@ -1290,6 +1331,8 @@ def _blob(parts: tuple, dtype: str) -> np.ndarray:
 
 QUANTIZER_MATRIX = _blob(_QM_BLOB, np.uint8).reshape(15, 2, 3344)
 GAUSSIAN_SEQUENCE = _blob(_GAUSS_BLOB, "<i2").astype(np.int64)
+# Dc_Qlookup and Ac_Qlookup by bit depth (8, 10, 12), q index, then DC and AC
+DEQUANT = _blob(_DQ_BLOB, "<u2").reshape(3, 256, 2).astype(np.int64)
 _QM_SIZES = ((4, 4), (8, 8), (16, 16), (32, 32), (4, 8), (8, 4), (8, 16), (16, 8), (16, 32),
              (32, 16), (4, 16), (16, 4), (8, 32), (32, 8))
 _QM_AT = {wh: sum(w * h for w, h in _QM_SIZES[:i]) for i, wh in enumerate(_QM_SIZES)}

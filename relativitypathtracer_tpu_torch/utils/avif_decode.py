@@ -1,5 +1,6 @@
 """AVIF files as PIL opens them: the HEIF container, the AV1 still picture
-and libavif 1.3.0's YUV to RGB through libyuv, byte for byte with
+at 8, 10 and 12 bits, and libavif 1.3.0's conversion to 8-bit RGB through
+libyuv or its own float path, byte for byte with
 `Image.open(f).convert("RGB")` (Pillow 12.1.0 on libavif 1.3.0 with
 dav1d 1.5.1 and libyuv 1909).
 
@@ -13,26 +14,29 @@ colr (nclx and ICC), auxC, irot, imir, clap, and mdat. The primary item
 (av01) is decoded by av1_obu and av1_block (with av1_palette and
 av1_intrabc), then filtered as dav1d filters it: the deblocking filter
 (av1_loopfilter), CDEF (av1_cdef), loop restoration (av1_restoration),
-then given its film grain (av1_filmgrain); an alpha auxiliary item is
-decoded unfiltered as libavif checks it, without its grain, and dropped,
-as convert("RGB") drops it. Pillow reports irot, imir and EXIF
-orientation as metadata and leaves the pixels as decoded.
+then given its film grain (av1_filmgrain). An alpha auxiliary item must
+have the colour's bit depth; where the primary item's 'prem' reference
+names it, it is decoded and filtered the same way (widened to full range
+where it is coded in limited range) and the colour divided by it, else
+only decoded (as libavif decodes it) and dropped, as
+convert("RGB") drops it. Pillow reports irot, imir and EXIF orientation as
+metadata and leaves the pixels as decoded.
 
-Colour: the nclx colr box, where there is one, before the sequence
-header's colour config; an unspecified matrix (2) taken as BT.601, as
-libavif takes it; BT.601, BT.709 and BT.2020 through libyuv's 6-bit fixed
-point (its YuvConstants, full and limited range), 4:2:0 and 4:2:2 chroma
-upsampled by libyuv's bilinear filter (I420ToRGBAMatrixFilter and
-I422ToRGBAMatrixFilter), 4:4:4 and grey (4:0:0) as they are; the identity
-matrix (MC 0) in full range by libavif's own path (G from Y, B from U, R
-from V). The matrices libavif cannot convert fail as in PIL.
+Colour (`yuv_to_rgb`, whose docstring gives each route): the nclx colr
+box, where there is one, before the sequence header's colour config; an
+unspecified matrix (2) taken as BT.601, as libavif takes it; BT.601,
+BT.709 and BT.2020 (and the chromaticity-derived matrix under their
+primaries) through libyuv's 6-bit fixed point (its YuvConstants, full and
+limited range), 4:2:0 and 4:2:2 chroma upsampled by libyuv's bilinear
+filter; FCC, SMPTE 240M, YCgCo, the identity matrix and the
+chromaticity-derived matrix under other primaries through libavif's own
+float32 path. The matrices libavif cannot convert (3, 10, 11, 13, 14, YCgCo
+in limited range, the identity matrix on subsampled chroma) fail as in
+PIL.
 
 What the decoder here does not decode yet raises av1_obu.Unsupported,
-named in a DecodeError "AVIF: <tool> is not decoded yet": superres,
-more than 8 bits, a grid item,
-an image sequence (avis) without a still primary item, premultiplied
-alpha, and libavif's float conversions (FCC, SMPTE 240M, YCgCo and
-chromaticity-derived matrices; the identity matrix in limited range).
+named in a DecodeError "AVIF: <tool> is not decoded yet": superres, a grid
+item, and an image sequence (avis) without a still primary item.
 """
 
 from __future__ import annotations
@@ -349,15 +353,14 @@ def _container(data: bytes) -> tuple:
             _check_depth(data, aprops)
             if _ispe(data, aprops) != size:
                 raise DecodeError("AVIF: alpha item of another size")
-            alpha = _item_data(data, info, src)
-    for typ, src, dst in info["refs"]:
-        if typ == b"prem" and primary in (src, dst):
-            raise Unsupported("premultiplied alpha")
+            prem = (b"prem", primary, src) in info["refs"]  # libavif's premByID
+            alpha = (_item_data(data, info, src), prem)
     return info, props, size, payload, alpha
 
 
-def _check_depth(data: bytes, props: dict) -> None:
-    """libavif's parse: pixi's depths agree with av1C's bit depth."""
+def _check_depth(data: bytes, props: dict) -> int:
+    """libavif's parse: pixi's depths agree with av1C's bit depth (8, 10 or
+    12), which it returns."""
     av1c, pixi = props[b"av1C"], props.get(b"pixi")
     flags = data[av1c.body + 2]
     depth = 12 if flags & 0x20 else 10 if flags & 0x40 else 8
@@ -365,8 +368,7 @@ def _check_depth(data: bytes, props: dict) -> None:
         r = _Reader(data, pixi.body + 4, pixi.end)
         if any(r.u(1) != depth for _ in range(r.u(1))):
             raise DecodeError("AVIF: pixi disagrees with av1C's bit depth")
-    if depth != 8:
-        raise Unsupported("more than 8 bits")
+    return depth
 
 
 def _ispe(data: bytes, props: dict) -> tuple:
@@ -416,28 +418,9 @@ def decode_avif(data: bytes, times: dict | None = None) -> np.ndarray:
         raise DecodeError(f"AVIF: {e}") from e
 
 
-def _decode(data: bytes, times: dict) -> np.ndarray:
-    info, props, (iw, ih), payload, alpha = _container(data)
-    av1c = props[b"av1C"]
-    seq = None
-    if av1c.end - av1c.body > 4:
-        seq = _first_seq(data[av1c.body + 4:av1c.end])
-    seq, fh = parse_still(payload, seq)
-    if seq.bit_depth != 8:
-        raise Unsupported("more than 8 bits")
-    w, h = fh.width, fh.height
-    if (iw, ih) != (w, h):
-        raise DecodeError(f"AVIF: ispe {iw}x{ih} disagrees with the AV1 frame {w}x{h} "
-                          "(PIL shows memory the file never wrote)")
-    if alpha is not None:  # decoded as libavif decodes it, then dropped
-        aseq, afh = parse_still(alpha)
-        if aseq.bit_depth != 8:
-            raise Unsupported("more than 8 bits")
-        if (afh.width, afh.height) != (iw, ih):
-            raise DecodeError(f"AVIF: alpha frame {afh.width}x{afh.height} in a {iw}x{ih} "
-                              "image (PIL shows memory the file never wrote)")
-        FrameDecoder(aseq, afh).decode()
-    _check_size(w, h)
+def _picture(seq, fh, times: dict) -> list:
+    """The planes dav1d hands libavif: the tiles, then the deblocking
+    filter, CDEF, loop restoration and film grain."""
     dec = FrameDecoder(seq, fh)
     t0 = time.perf_counter()
     dec.decode()
@@ -449,17 +432,49 @@ def _decode(data: bytes, times: dict) -> np.ndarray:
     planes = loop_restoration(dec, dec.frame, filtered)
     t4 = time.perf_counter()
     if fh.film_grain is not None:
-        planes = apply_grain(planes, w, h, seq, fh.film_grain)
-    t5 = time.perf_counter()
+        planes = apply_grain(planes, fh.width, fh.height, seq, fh.film_grain)
+    times.update({"tiles": t1 - t0, "deblocking filter": t2 - t1, "CDEF": t3 - t2,
+                  "loop restoration": t4 - t3, "film grain": time.perf_counter() - t4})
+    return planes
+
+
+def _decode(data: bytes, times: dict) -> np.ndarray:
+    info, props, (iw, ih), payload, alpha = _container(data)
+    av1c = props[b"av1C"]
+    seq = None
+    if av1c.end - av1c.body > 4:
+        seq = _first_seq(data[av1c.body + 4:av1c.end])
+    seq, fh = parse_still(payload, seq)
+    w, h = fh.width, fh.height
+    if (iw, ih) != (w, h):
+        raise DecodeError(f"AVIF: ispe {iw}x{ih} disagrees with the AV1 frame {w}x{h} "
+                          "(PIL shows memory the file never wrote)")
+    alpha_plane, prem = None, False
+    if alpha is not None:
+        aseq, afh = parse_still(alpha[0])
+        if (afh.width, afh.height) != (iw, ih):
+            raise DecodeError(f"AVIF: alpha frame {afh.width}x{afh.height} in a {iw}x{ih} "
+                              "image (PIL shows memory the file never wrote)")
+        if aseq.bit_depth != seq.bit_depth:
+            raise DecodeError("AVIF: the alpha item's bit depth is not the colour's")
+        prem = alpha[1]
+        if prem:  # divided by: decoded and filtered as the colour is
+            alpha_plane = _picture(aseq, afh, {})[0][:h, :w].astype(np.int64)
+            if not aseq.color_range:
+                alpha_plane = limited_to_full(alpha_plane, aseq.bit_depth)
+        else:  # only libavif's decode; its samples are dropped with the alpha
+            FrameDecoder(aseq, afh).decode()
+            alpha_plane = np.zeros((h, w), np.int64)
+    _check_size(w, h)
+    planes = _picture(seq, fh, times)
+    t0 = time.perf_counter()
     colr = _colr(data, props)
     if colr is None:
-        mc, full = seq.mc, seq.color_range
+        cp, mc, full = seq.cp, seq.mc, seq.color_range
     else:
-        mc, full = colr[2], colr[3]
-    rgb = yuv_to_rgb(planes, w, h, seq, mc, full)
-    times.update({"tiles": t1 - t0, "deblocking filter": t2 - t1, "CDEF": t3 - t2,
-                  "loop restoration": t4 - t3, "film grain": t5 - t4,
-                  "YUV to RGB": time.perf_counter() - t5})
+        cp, mc, full = colr[0], colr[2], colr[3]
+    rgb = yuv_to_rgb(planes, w, h, seq, seq.bit_depth, mc, cp, full, alpha_plane, prem)
+    times["YUV to RGB"] = time.perf_counter() - t0
     return rgb
 
 
@@ -476,6 +491,10 @@ def census(data: bytes) -> set:
     tools = fh.tools
     tools.add(("subsampling", "4:0:0" if seq.mono else
                {(1, 1): "4:2:0", (1, 0): "4:2:2", (0, 0): "4:4:4"}[(seq.ssx, seq.ssy)]))
+    if seq.bit_depth > 8:
+        tools.add(("bit depth", seq.bit_depth))
+    if alpha is not None and alpha[1]:
+        tools.add("premultiplied alpha")
     if seq.sb128:
         tools.add("128x128 superblocks")
     dec = FrameDecoder(seq, fh)
@@ -493,15 +512,38 @@ def _first_seq(config_obus: bytes):
 
 # libyuv's YuvConstants (row_common.cc), 6-bit fixed point, by matrix and
 # full range: (UB, UG, VG, VR, YG, YB); the limited forms cap UB at 128.
-# A grey (4:0:0) picture in limited range converts with YG 19003.
+# A grey (4:0:0) picture in limited range without alpha converts with YG
+# 19003 (I400ToARGBMatrix); with alpha it takes the matrix's own YG.
 _CONSTANTS = {("601", 1): (113, 22, 46, 90, 16320, 32),
               ("601", 0): (128, 25, 52, 102, 18997, -1160),
               ("709", 1): (119, 12, 30, 101, 16320, 32),
               ("709", 0): (128, 14, 34, 115, 18997, -1160),
               ("2020", 1): (120, 11, 37, 94, 16320, 32),
               ("2020", 0): (128, 12, 42, 107, 19003, -1160)}
+# the matrices libavif hands to libyuv; chromaticity-derived (12) only
+# under these colour primaries (an unspecified 2 taken as BT.709)
 _MATRIX = {1: "709", 2: "601", 5: "601", 6: "601", 9: "2020"}
+_DERIVED_MATRIX = {1: "709", 2: "709", 5: "601", 6: "601", 9: "2020"}
 _LIBAVIF_FAILS = (3, 10, 11, 13, 14)  # avifImageYUVToRGB: "Reformat failed"
+# libavif's own (kr, kb) for the matrices it converts in float
+# (avifCalcYUVCoefficients; BT.601 where it has none)
+_KRKB = {1: ("0.2126", "0.0722"), 4: ("0.30", "0.11"), 5: ("0.299", "0.114"),
+         6: ("0.299", "0.114"), 7: ("0.212", "0.087"), 9: ("0.2627", "0.0593")}
+# libavif's colour primaries (rX, rY, gX, gY, bX, bY, wX, wY), BT.709's for
+# any it does not know; matrix 12 derives kr and kb from them
+_BT709 = ("0.64", "0.33", "0.3", "0.6", "0.15", "0.06", "0.3127", "0.329")
+_PRIMARIES = {
+    4: ("0.67", "0.33", "0.21", "0.71", "0.14", "0.08", "0.310", "0.316"),
+    5: ("0.64", "0.33", "0.29", "0.60", "0.15", "0.06", "0.3127", "0.3290"),
+    6: ("0.630", "0.340", "0.310", "0.595", "0.155", "0.070", "0.3127", "0.3290"),
+    7: ("0.630", "0.340", "0.310", "0.595", "0.155", "0.070", "0.3127", "0.3290"),
+    8: ("0.681", "0.319", "0.243", "0.692", "0.145", "0.049", "0.310", "0.316"),
+    9: ("0.708", "0.292", "0.170", "0.797", "0.131", "0.046", "0.3127", "0.3290"),
+    10: ("1.0", "0.0", "0.0", "1.0", "0.0", "0.0", "0.3333", "0.3333"),
+    11: ("0.680", "0.320", "0.265", "0.690", "0.150", "0.060", "0.314", "0.351"),
+    12: ("0.680", "0.320", "0.265", "0.690", "0.150", "0.060", "0.3127", "0.3290"),
+    22: ("0.630", "0.340", "0.295", "0.605", "0.155", "0.077", "0.3127", "0.3290")}
+_F = np.float32
 
 
 def _up_linear(c: np.ndarray, n: int) -> np.ndarray:
@@ -558,28 +600,186 @@ def _upsample(c: np.ndarray, w: int, h: int, ssx: int, ssy: int) -> np.ndarray:
     return out
 
 
-def yuv_to_rgb(planes, w, h, seq, mc, full) -> np.ndarray:
-    """RGB as libavif 1.3.0 converts with libyuv (module docstring)."""
-    y = planes[0][:h, :w].astype(np.int64)
-    if seq.mono:
-        u = v = np.full((h, w), 128, np.int64)
-    else:
-        cw, ch = (w + seq.ssx) >> seq.ssx, (h + seq.ssy) >> seq.ssy
-        u = _upsample(planes[1][:ch, :cw].astype(np.int64), w, h, seq.ssx, seq.ssy)
-        v = _upsample(planes[2][:ch, :cw].astype(np.int64), w, h, seq.ssx, seq.ssy)
-    if mc == 0 and not seq.mono:
-        if not full:
-            raise Unsupported("the identity matrix in limited range")
-        return np.stack([v, y, u], axis=-1).astype(np.uint8)
-    if mc in _LIBAVIF_FAILS:
-        raise DecodeError(f"AVIF: libavif does not convert matrix coefficients {mc}")
-    if mc not in _MATRIX:
-        raise Unsupported(f"matrix coefficients {mc}")
-    ub, ug, vg, vr, yg, yb = _CONSTANTS[(_MATRIX[mc], int(bool(full)))]
-    if seq.mono and not full:
-        yg = 19003
-    y1 = ((y * 0x0101 * yg) >> 16) + yb
-    ui, vi = u - 128, v - 128
+def _derived_krkb(cp: int) -> tuple:
+    """avifColorPrimariesComputeYCoeffs: kr and kb from the primaries, in
+    float32 as libavif computes them."""
+    rx, ry, gx, gy, bx, by, wx, wy = (_F(v) for v in _PRIMARIES.get(cp, _BT709))
+    one = _F(1)
+    rz, gz, bz, wz = one - (rx + ry), one - (gx + gy), one - (bx + by), one - (wx + wy)
+    den = wy * (rx * (gy * bz - by * gz) + gx * (by * rz - ry * bz) + bx * (ry * gz - gy * rz))
+    kr = ry * (wx * (gy * bz - by * gz) + wy * (bx * gz - gx * bz) + wz * (gx * by - bx * gy)) / den
+    kb = by * (wx * (ry * gz - gy * rz) + wy * (gx * rz - rx * gz) + wz * (rx * gy - gx * ry)) / den
+    return kr, kb
+
+
+def _nearest(c: np.ndarray, w: int, h: int, ssx: int, ssy: int) -> np.ndarray:
+    return c[(np.arange(h) >> ssy)[:, None], (np.arange(w) >> ssx)[None, :]]
+
+
+def _libyuv(y, u, v, depth: int, consts: tuple) -> np.ndarray:
+    """libyuv's YuvPixel (8 bits), YuvPixel10 or YuvPixel12 on full-size
+    planes of `depth` bits: Y widened to 16 bits, U and V cut to 8."""
+    ub, ug, vg, vr, yg, yb = consts
+    shift = depth - 8
+    y32 = (y << (16 - depth)) | (y >> (2 * depth - 16))
+    y1 = ((y32 * yg) >> 16) + yb
+    ui = np.minimum(u >> shift, 255) - 128
+    vi = np.minimum(v >> shift, 255) - 128
     rgb = np.stack([(y1 + vi * vr) >> 6, (y1 - (ui * ug + vi * vg)) >> 6, (y1 + ui * ub) >> 6],
                    axis=-1)
     return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+def _float_tables(depth: int, full: int, identity: bool) -> tuple:
+    """libavif's unormFloatTableY and unormFloatTableUV (float32); the
+    identity matrix reads chroma through luma's table."""
+    top = (1 << depth) - 1
+    cp = np.arange(1 << depth).astype(_F)
+    y = (cp - _F(0 if full else 16 << (depth - 8))) / _F(top if full else 219 << (depth - 8))
+    if identity:
+        return y, y
+    uv = (cp - _F(1 << (depth - 1))) / _F(top if full else 224 << (depth - 8))
+    return y, uv
+
+
+def _float_chroma(c, table, w: int, h: int, ssx: int, ssy: int) -> np.ndarray:
+    """A chroma plane at full size as libavif's own path reads it: 4:4:4 as
+    it is, else its closest sample 9/16, the adjacent column's and row's 3/16
+    each and the diagonal's 1/16 (edges repeat; 4:2:2 rows stand alone)."""
+    if not ssx:
+        return table[c]
+    i, j = np.arange(w), np.arange(h)
+    ci, cj = i >> ssx, j >> ssy
+    ai = ci + np.where((i == 0) | ((i == w - 1) & (i % 2 == 1)), 0, np.where(i % 2 == 1, 1, -1))
+    if ssy:
+        aj = cj + np.where((j == 0) | ((j == h - 1) & (j % 2 == 1)), 0,
+                           np.where(j % 2 == 1, 1, -1))
+    else:
+        aj = cj
+    t = table[c]
+    return (t[cj[:, None], ci[None, :]] * _F(9 / 16) + t[cj[:, None], ai[None, :]] * _F(3 / 16)
+            + t[aj[:, None], ci[None, :]] * _F(3 / 16) + t[aj[:, None], ai[None, :]] * _F(1 / 16))
+
+
+def _float_rgb(y, u, v, w, h, seq, depth, mc, cp, full, alpha) -> np.ndarray:
+    """libavif's own conversion (reformat.c, in float32): the YUV
+    coefficients of the matrix, YCgCo, or the identity matrix; with
+    `alpha` (its full-depth plane) the colour divided by it as the slow
+    path divides it. The result is clamped to [0, 1] and stored as
+    (uint8)(0.5 + c * 255)."""
+    top = (1 << depth) - 1
+    ty, tuv = _float_tables(depth, full, mc == 0)
+    yf = ty[np.minimum(y, top)]
+    if seq.mono:
+        r = g = b = yf
+    else:
+        cb = _float_chroma(np.minimum(u, top), tuv, w, h, seq.ssx, seq.ssy)
+        cr = _float_chroma(np.minimum(v, top), tuv, w, h, seq.ssx, seq.ssy)
+        if mc == 0:
+            r, g, b = cr, yf, cb
+        elif mc == 8:
+            t = yf - cb
+            r, g, b = t + cr, yf + cb, t - cr
+        else:
+            kr, kb = _derived_krkb(cp) if mc == 12 else (_F(k) for k in _KRKB.get(mc, _KRKB[6]))
+            kg = _F(1) - kr - kb
+            two = _F(2)
+            r = yf + (two * (_F(1) - kr)) * cr
+            b = yf + (two * (_F(1) - kb)) * cb
+            g = yf - ((two * ((kr * (_F(1) - kr) * cr) + (kb * (_F(1) - kb) * cb))) / kg)
+    out = [np.clip(c, _F(0), _F(1)).astype(_F) for c in (r, g, b)]
+    if alpha is not None:
+        a = np.clip(np.minimum(alpha, top).astype(_F) / _F(top), _F(0), _F(1))
+        safe = np.where(a == 0, _F(1), a)
+        out = [np.where(a == 0, _F(0), np.where(a < 1, np.minimum(c / safe, _F(1)), c))
+               for c in out]
+    return np.stack([(_F(0.5) + c * _F(255)).astype(np.uint8) for c in out], axis=-1)
+
+
+def limited_to_full(v: np.ndarray, depth: int) -> np.ndarray:
+    """libavif's avifLimitedToFullY, which it applies to an alpha item coded
+    in limited range: (v - 16) * max / 219 at 8 bits (scaled to the
+    depth), rounded half up, divided toward zero, clamped."""
+    lo, span, top = 16 << (depth - 8), 219 << (depth - 8), (1 << depth) - 1
+    num = (v - lo) * top + span // 2
+    return np.clip(np.where(num < 0, -(-num // span), num // span), 0, top)
+
+
+def alpha_to_8(alpha: np.ndarray, depth: int) -> np.ndarray:
+    """libavif's avifReformatAlpha to 8 bits: (uint8)(0.5 + a / max * 255)
+    in float32 (the samples as they are at 8 bits)."""
+    if depth == 8:
+        return alpha.astype(np.int64)
+    top = _F((1 << depth) - 1)
+    return (_F(0.5) + (np.minimum(alpha, top).astype(_F) / top) * _F(255)).astype(np.int64)
+
+
+def unattenuate(rgb: np.ndarray, a8: np.ndarray) -> np.ndarray:
+    """libyuv's ARGBUnattenuate as Pillow's libavif runs it (SIMD): each
+    colour times its 16-bit copy and the 8.8 reciprocal of alpha, the top
+    16 bits packed to 8 with signed saturation (a sum past 32767 packs to 0:
+    alpha 1 under colour 128 and up)."""
+    inv = np.r_[0, 0xFFFF, 0x10000 // np.arange(2, 255), 0x100]
+    v = (rgb.astype(np.int64) * 257 * inv[a8][..., None]) >> 16
+    return np.where(v >= 32768, 0, np.minimum(v, 255)).astype(np.uint8)
+
+
+def yuv_to_rgb(planes, w, h, seq, depth, mc, cp, full, alpha=None, prem=False) -> np.ndarray:
+    """RGB as Pillow's libavif 1.3.0 converts to 8 bits (RGB, or RGBA where
+    the file has alpha, its colour then un-premultiplied where the file says
+    prem) and convert("RGB") keeps it. The route, as PIL's bytes settle it:
+    - a matrix libyuv has (BT.601, BT.709, BT.2020): planes of more than 8
+      bits cut to 8 (>> (depth - 8)) and libyuv's 8-bit bilinear path; with
+      alpha, 10 bits through libyuv's I010/I210/I410 alpha functions at 10
+      bits (its bilinear filter on 10-bit chroma) and 12-bit 4:2:0 through
+      I012ToARGBMatrix (nearest chroma); grey through I400ToARGBMatrix at
+      8 bits, with alpha at any depth (cut to 8 bits, the matrix's own YG;
+      the identity matrix as BT.601), above 8 bits without alpha in float;
+    - else libavif's own path in float32 (`_float_rgb`); its fast forms
+      (4:4:4 and grey under YUV coefficients, 8-bit full-range identity)
+      leave alpha to libyuv's ARGBUnattenuate, its slow form divides in
+      float.
+    The alpha libyuv divides by is the 8-bit alpha of the route: cut to 8
+    bits through libyuv's functions, else avifReformatAlpha's."""
+    ssx, ssy, mono = seq.ssx, seq.ssy, seq.mono
+    if mc in _LIBAVIF_FAILS:
+        raise DecodeError(f"AVIF: libavif does not convert matrix coefficients {mc}")
+    if mc == 0 and not mono and (ssx or ssy):
+        raise DecodeError("AVIF: libavif does not convert the identity matrix on subsampled chroma")
+    if mc == 8 and not full:
+        raise DecodeError("AVIF: libavif does not convert YCgCo in limited range")
+    if mc not in _MATRIX and mc not in (0, 4, 7, 8, 12):
+        raise Unsupported(f"matrix coefficients {mc}")
+    y = planes[0][:h, :w].astype(np.int64)
+    u = v = None
+    if not mono:
+        cw, ch = (w + ssx) >> ssx, (h + ssy) >> ssy
+        u = planes[1][:ch, :cw].astype(np.int64)
+        v = planes[2][:ch, :cw].astype(np.int64)
+    shift = depth - 8
+    name = _DERIVED_MATRIX.get(cp) if mc == 12 else _MATRIX.get(mc)
+    if mono and alpha is not None and mc == 0:
+        name = "601"
+    a8 = None if alpha is None else alpha_to_8(alpha, depth)
+    if name is None or (mono and alpha is None and depth > 8):
+        fast = mc != 8 and (mono or not ssx) and (mc != 0 or (depth == 8 and full))
+        rgb = _float_rgb(y, u, v, w, h, seq, depth, mc, cp, full,
+                         alpha if prem and not fast else None)
+        return unattenuate(rgb, a8) if prem and fast else rgb
+    consts = _CONSTANTS[(name, int(bool(full)))]
+    if mono:
+        if alpha is None and not full:
+            consts = consts[:4] + (19003,) + consts[5:]
+        grey = np.full_like(y, 128)
+        rgb = _libyuv(y >> shift, grey, grey, 8, consts)
+    elif alpha is not None and depth == 10:
+        a8 = alpha >> 2
+        rgb = _libyuv(y, _upsample(u, w, h, ssx, ssy), _upsample(v, w, h, ssx, ssy), 10, consts)
+    elif alpha is not None and depth == 12 and ssy:
+        rgb = _libyuv(y, _nearest(u, w, h, ssx, ssy), _nearest(v, w, h, ssx, ssy), 12, consts)
+    else:
+        if alpha is not None:
+            a8 = alpha >> shift
+        rgb = _libyuv(y >> shift, _upsample(u >> shift, w, h, ssx, ssy),
+                      _upsample(v >> shift, w, h, ssx, ssy), 8, consts)
+    return unattenuate(rgb, a8) if prem else rgb

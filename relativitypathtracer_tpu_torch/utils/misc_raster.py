@@ -31,7 +31,7 @@ and IPTC/NAA.
            (L) is that image in its own mode, or the image is that one
            band of RGB or CMYK, the other bands 0, as PIL's Image.merge
            makes it (an L image; or, in band 1, which merge does not
-           check, a 1-bit one)
+           check, any one-band image: a 1-bit one, or a P one's indices)
 
 Each `open_*` is its plugin's `_open`: Unidentified (image_decode) where
 PIL's Image.open goes on to its next plugin, DecodeError where it fails.
@@ -44,8 +44,8 @@ import struct
 import numpy as np
 
 from .image_decode import DecodeError, Unidentified, _check_size, read_frame
-from .pil_modes import cmyk_to_rgb, to_rgb
-from .raster_decode import _rows, bmp_grey_mode, decode_pnm
+from .pil_modes import band_reads, cmyk_to_rgb, to_rgb
+from .raster_decode import _rows, bmp_grey_mode, decode_pnm, tga_header_ok
 
 
 def _sized(width, height, what: str) -> None:
@@ -344,11 +344,18 @@ def decode_iptc(data: bytes) -> np.ndarray:
         from ..models.texture import decode_texture  # PIL's Image.open of the body
         if band is None:
             return decode_texture(body)
-        grey = decode_texture(body)[..., 0]
-        kind = _body_mode(body)
-        if kind not in ("L", "1") or kind == "1" and band:
+        with band_reads() as seen:
+            grey = decode_texture(body)[..., 0]
+        kind = _body_mode(body, [m for m, _ in seen])
+        if kind != "L" and (band or kind not in ("1", "P") + tuple(_STORAGE)):
             raise DecodeError(f"IPTC: an image of mode {kind} as band {band + 1} of {mode} "
-                              "(PIL's merge takes an L image)")
+                              "(PIL's merge takes an L image, and any one-band image as "
+                              "band 1)")
+        if kind in _STORAGE:  # merge copies a row's first bytes of PIL's storage
+            samples = np.ascontiguousarray(seen[-1][1].astype(_STORAGE[kind]))
+            grey = samples.view(np.uint8)[:, :samples.shape[1]]
+        elif kind == "P":  # the indices
+            grey = seen[-1][1].astype(np.uint8)
     if band is None:
         return to_rgb("L", grey)
     bands = [np.zeros_like(grey)] * len(mode)
@@ -360,15 +367,22 @@ def decode_iptc(data: bytes) -> np.ndarray:
     return cmyk_to_rgb(s) if mode == "CMYK" else s
 
 
-def _body_mode(body: bytes) -> str:
-    """The PIL mode an IPTC band's image opens in, for the formats whose
-    one-band modes are told here (JPEG, PNG, PNM, TIFF, BMP); "other"
-    else."""
+# PIL's storage of the one-band modes of more than 8 bits
+_STORAGE = {"I;16": "<u2", "I;16B": ">u2", "I": "<i4", "F": "<f4"}
+
+
+def _body_mode(body: bytes, modes: list) -> str:
+    """The PIL mode an IPTC band's image opens in: told from the header for
+    JPEG, PNG, PNM, TIFF and BMP (a BMP's P from `modes`, those its decoder
+    converted from), from `modes` for GIF and TGA; "other" else."""
     if body[:3] == b"\xff\xd8\xff":
         return "L" if len(read_frame(body).ids) == 1 else "other"
     if body[:8] == b"\x89PNG\r\n\x1a\n" and body[12:16] == b"IHDR":
         depth, ctype = body[24], body[25]
-        return {1: "1", 2: "L", 4: "L", 8: "L"}.get(depth, "other") if ctype == 0 else "other"
+        if ctype == 3:
+            return "P"
+        return {1: "1", 2: "L", 4: "L", 8: "L", 16: "I;16"}.get(depth, "other") if ctype == 0 \
+            else "other"
     if body[:2] in (b"P1", b"P4"):
         return "1"
     if body[:2] in (b"P2", b"P5"):
@@ -377,7 +391,10 @@ def _body_mode(body: bytes) -> str:
             "other"
     if body[:4] in (b"II*\0", b"MM\0*"):
         from .tiff_decode import tiff_grey_mode
-        return tiff_grey_mode(body)
+        return tiff_grey_mode(body, ("1", "L", "P") + tuple(_STORAGE))
     if body[:2] == b"BM":
-        return bmp_grey_mode(body)
+        grey = bmp_grey_mode(body)
+        return "P" if grey == "other" and modes[-1:] == ["P"] else grey
+    if body[:4] == b"GIF8" or tga_header_ok(body):
+        return modes[-1] if modes and modes[-1] in ("1", "L", "P") else "other"
     return "other"

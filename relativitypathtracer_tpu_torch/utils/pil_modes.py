@@ -27,10 +27,16 @@ orders, palettes), then converts to RGB as `Image.convert("RGB")` does
              inverse sRGB curve) read by its 16-bit tetrahedral
              interpolation; `lab_to_rgb` does the same, and equals PIL on
              all 2**24 inputs.
+
+Within `band_reads()` (an IPTC band's image, which PIL's Image.merge reads
+as its one band's raw samples) `to_rgb` records each mode it converts from
+with its samples.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
 
 import numpy as np
@@ -218,11 +224,29 @@ def ycbcr_to_rgb(ycc) -> np.ndarray:
     return np.clip(rgb, 0, 255).astype(np.uint8)
 
 
+_BAND_READS = contextvars.ContextVar("band_reads", default=None)
+
+
+@contextlib.contextmanager
+def band_reads():
+    """Record each (mode, samples) `to_rgb` converts from in the list it
+    yields."""
+    modes: list = []
+    token = _BAND_READS.set(modes)
+    try:
+        yield modes
+    finally:
+        _BAND_READS.reset(token)
+
+
 def to_rgb(mode: str, a, palette=None) -> np.ndarray:
     """(h, w, 3) uint8: PIL's `convert("RGB")` of an image of `mode` whose
     samples are `a`, (h, w) for one band and (h, w, bands) for several;
     `palette` (256, 3) for P and PA."""
     a = np.asarray(a)
+    seen = _BAND_READS.get()
+    if seen is not None:
+        seen.append((mode, a))
     if mode in ("1", "L"):
         grey = a.astype(np.uint8)
     elif mode == "LA":

@@ -883,9 +883,9 @@ def _undo_float_predictor(block: np.ndarray, spp: int, endian: str) -> np.ndarra
 
 # ---------------------------------------------------------------------------
 
-def tiff_grey_mode(data: bytes) -> str:
-    """The PIL mode of a one-band grey TIFF ("1" or "L" by OPEN_INFO),
-    "other" for any other file."""
+def tiff_grey_mode(data: bytes, modes: tuple = ("1", "L")) -> str:
+    """The PIL mode of a one-band TIFF by OPEN_INFO where it is one of
+    `modes` (a big-endian I;16 as I;16B), "other" for any other file."""
     try:
         endian = "<" if data[:2] == b"II" else ">"
         tags = _ifd(data, struct.unpack_from(endian + "L", data, 4)[0], endian)
@@ -894,7 +894,9 @@ def tiff_grey_mode(data: bytes) -> str:
     except (DecodeError, struct.error):
         return "other"
     mode = _MODES.get(key, ("other",))[0]
-    return mode if mode in ("1", "L") and _get(tags, _SAMPLES, 1) == 1 else "other"
+    if mode == "I;16" and endian == ">":
+        mode = "I;16B"
+    return mode if mode in modes and _get(tags, _SAMPLES, 1) == 1 else "other"
 
 
 def decode_tiff(data: bytes) -> np.ndarray:

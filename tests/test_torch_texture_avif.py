@@ -9,7 +9,9 @@ fixtures (tests/torch_textures/make_fixtures.py's `avif_fixtures`) against
 PIL now and against the hash PIL gave where they were made; the census
 (every tool a speed-6 encode of a photograph turns on occurs in a
 fixture the port decodes); each tool left for later refused by name, on a
-hand-edited header; film grain's random numbers, scaling functions and
+hand-edited header, and the tools once left for later (premultiplied
+alpha, more than 8 bits, libavif's own colour conversions) equal to PIL on
+such headers; film grain's random numbers, scaling functions and
 templates against a line-by-line transcription of the specification's
 pseudo-code, and the packed tables against the library they were taken
 from; cuts and byte edits of five fixtures against PIL's outcome in a
@@ -41,8 +43,9 @@ FIXTURES = REPO / "tests" / "torch_textures"
 RECORD = json.loads((FIXTURES / "pil_rgb.json").read_text())["files"]
 DECODED = sorted(n for n in RECORD if n.endswith(".avif"))
 REFUSED = {}  # the committed fixtures with a tool left for later: none
-# header edits of fixtures with a tool left for later that PIL decodes (a
-# grid item without its tiles it does not)
+# header edits of fixtures with a tool once left for later, which PIL
+# decodes and the port now decodes as PIL does (a grid item without its
+# tiles PIL does not decode, and the port refuses it by name)
 LATER_EDITS = {"prem": "premultiplied alpha", "pixi": "more than 8 bits",
                "matrix4": "matrix coefficients 4",
                "identity_limited": "the identity matrix in limited range"}
@@ -81,6 +84,13 @@ def _pil(data: bytes) -> np.ndarray:
         return np.asarray(im.convert("RGB"))
 
 
+def _pil_outcome(data: bytes):
+    try:
+        return _pil(data)
+    except Exception as e:  # noqa: BLE001 - PIL's refusal
+        return e
+
+
 def _port(data: bytes):
     """decode_texture's pixels, or the exception it raises, with PIL
     blocked."""
@@ -117,21 +127,30 @@ def test_refused_fixtures_are_the_ones_kept_out_of_the_record():
 
 @pytest.mark.parametrize("kind", sorted(LATER_EDITS))
 def test_fixture_with_a_later_tool_is_refused_by_name(kind, tmp_path):
-    """A fixture with a tool the port does not decode yet edited into its
-    header (no file PIL writes here needs one): PIL decodes it; the port
-    names the tool, before any pixel, through decode_texture and
-    read_texture, and leaves the atlas as it was."""
+    """A fixture with a tool once left for later edited into its header (a
+    'prem' reference in place of 'auxl', 10 bits in pixi and av1C over an
+    8-bit AV1 stream, the FCC matrix, the identity matrix in limited
+    range): PIL decodes it, and so does the port with PIL blocked, byte for
+    byte through decode_texture, and read_texture fills the atlas with the
+    JAX package's (PIL's) bytes and values."""
+    from relativitypathtracer_tpu.models.texture import read_texture as jax_read
     data = _later(kind)
-    _pil(data)
+    want = _pil(data)
     got = _port(data)
-    assert isinstance(got, ValueError)
-    assert str(got) == f"AVIF: {LATER_EDITS[kind]} is not decoded yet"
+    assert not isinstance(got, Exception), got
+    assert np.array_equal(got, want)
     path = tmp_path / f"{kind}.avif"
     path.write_bytes(data)
+    want_atlas, want_values = bytearray(b"x"), []
+    jax_read(str(path), want_atlas, want_values)
     atlas, values = bytearray(b"x"), []
-    with pytest.raises(TextureError, match="is not decoded yet"):
+    saved = sys.modules.get("PIL")
+    sys.modules["PIL"] = None
+    try:
         read_texture(str(path), atlas, values)
-    assert atlas == bytearray(b"x") and values == []
+    finally:
+        sys.modules["PIL"] = saved
+    assert atlas == want_atlas and values == want_values
 
 
 def test_census_tools_occur_in_decoded_fixtures():
@@ -220,10 +239,60 @@ def _later(kind: str) -> bytes:
                                        ("matrix4", "matrix coefficients 4"),
                                        ("identity_limited", "the identity matrix in limited range")])
 def test_hand_edited_header_is_refused_by_name(kind, tool):
-    """A grid primary item, a 'prem' reference, 10 bits, the FCC matrix
-    and the identity matrix in limited range (libavif's own conversion
-    paths) are named, never decoded wrongly."""
-    got = _port(_later(kind))
+    """A grid primary item is named, never decoded wrongly; a 'prem'
+    reference, 10 bits in the boxes, the FCC matrix and the identity
+    matrix in limited range (libavif's own conversion paths), once named
+    as `tool`, now give PIL's pixels."""
+    data = _later(kind)
+    got = _port(data)
+    if kind == "grid":
+        assert isinstance(got, ValueError) and str(got) == f"AVIF: {tool} is not decoded yet", got
+        return
+    assert not isinstance(got, Exception), got
+    assert np.array_equal(got, _pil(data))
+
+
+def _superres(data: bytes) -> bytes:
+    """A fixture with enable_superres set in its sequence header and the
+    first one-bit edit of its frame header that turns use_superres on."""
+    from relativitypathtracer_tpu_torch.utils import av1_obu
+    payload = avif_decode._container(data)[3]
+    at, pos = data.find(payload), 0
+    while True:  # the sequence header OBU, then the frame OBU after it
+        head = payload[pos]
+        size, body = av1_obu.leb128(payload, pos + 1 + ((head >> 2) & 1))
+        pos = body + size
+        if (head >> 3) & 15 == av1_obu.OBU_SEQUENCE_HEADER:
+            break
+    bit = av1_obu.sequence_header(payload[body:pos]).color_config_bits[0] - 3
+    out = bytearray(data)
+    out[at + body + bit // 8] ^= 0x80 >> (bit % 8)  # enable_superres
+    frame = at + av1_obu.leb128(payload, pos + 1)[1]
+    for i in range(frame, frame + 16):
+        for b in range(8):
+            edit = bytearray(out)
+            edit[i] ^= 1 << b
+            got = _port(bytes(edit))
+            if isinstance(got, ValueError) and "superres" in str(got):
+                return bytes(edit)
+    raise ValueError("no use_superres bit found")
+
+
+@pytest.mark.parametrize("kind,tool", [("grid", "a grid item"), ("superres", "superres"),
+                                       ("avis", "an image sequence (avis) without a still item")])
+def test_tools_left_for_later_stay_refused_by_name(kind, tool):
+    """A grid primary item, a frame with superres (enable_superres and
+    use_superres set by bit edits) and an avis file without a still item
+    (an ftyp and an empty moov): the port names the tool, never decoding
+    wrongly."""
+    if kind == "avis":
+        data = b"\0\0\0\x1cftypavis\0\0\0\0avisavifmif1" + b"\0\0\0\x08moov"
+        assert isinstance(_pil_outcome(data), Exception)
+    elif kind == "superres":
+        data = _superres((FIXTURES / "blob.avif").read_bytes())
+    else:
+        data = _later(kind)
+    got = _port(data)
     assert isinstance(got, ValueError) and str(got) == f"AVIF: {tool} is not decoded yet", got
 
 
@@ -410,14 +479,14 @@ def test_film_grain_clip_ranges_follow_the_matrix():
                         overlap_flag=0, clip_to_restricted_range=1)
     planes = [np.full((8, 8), 250), np.full((8, 8), 250), np.full((8, 8), 250)]
     for mc, top_uv in ((1, 240), (0, 235)):
-        seq = SimpleNamespace(ssx=0, ssy=0, mono=0, num_planes=3, mc=mc)
+        seq = SimpleNamespace(ssx=0, ssy=0, mono=0, num_planes=3, mc=mc, bit_depth=8)
         out = av1_filmgrain.apply_grain(planes, 8, 8, seq, g)
         assert out[0].max() <= 235 and out[1].max() <= top_uv and out[2].max() <= top_uv
         assert out[1].max() == top_uv or out[1].max() < 240 - 1
         assert min(o.min() for o in out) >= 16
     g.clip_to_restricted_range = 0
     out = av1_filmgrain.apply_grain(planes, 8, 8, SimpleNamespace(
-        ssx=0, ssy=0, mono=0, num_planes=3, mc=1), g)
+        ssx=0, ssy=0, mono=0, num_planes=3, mc=1, bit_depth=8), g)
     assert max(o.max() for o in out) <= 255 and max(o.max() for o in out) > 240
 
 
@@ -432,7 +501,7 @@ def test_packed_tables_equal_the_library_they_came_from():
     lib = X.find_library()
     if lib is None:
         pytest.skip(f"no {X.LIBRARY} beside PIL")
-    qm, gauss = X.extract(lib)
+    qm, gauss, _ = X.extract(lib)
     assert np.array_equal(T.QUANTIZER_MATRIX, qm)
     assert np.array_equal(T.GAUSSIAN_SEQUENCE, gauss.astype(np.int64))
     assert T.QUANTIZER_MATRIX.shape == (15, 2, 3344) and T.QM_OFFSET[4] == T.QM_OFFSET[3] == 336
@@ -468,7 +537,8 @@ def _mutants(data: bytes, seed: int) -> list:
 
 @pytest.mark.parametrize("name,seed", [("blob.avif", 1), ("avif_130x70.avif", 2),
                                        ("avif_squares_spots.avif", 6), ("avif_lr_tall.avif", 4),
-                                       ("avif_grain_qm.avif", 7)])
+                                       ("avif_grain_qm.avif", 7), ("avif10_blob.avif", 100),
+                                       ("avif_prem420_q75.avif", 102)])
 def test_cuts_and_edits_agree_with_pil(name, seed, tmp_path):
     """40 cuts and one-byte edits of a fixture: PIL's outcome from a fresh
     process and the port's with PIL blocked give the same pixels, or both
@@ -497,11 +567,13 @@ def test_cuts_and_edits_agree_with_pil(name, seed, tmp_path):
 
 SCENE_FIXTURES = ("blob.avif", "avif_130x70.avif", "avif_444.avif", "avif_rgba.avif",
                   "avif_squares256.avif", "avif_lr_switchable.avif", "avif_grain_99x75.avif",
-                  "avif_qm_bands4.avif")
+                  "avif_qm_bands4.avif", "avif10_blob.avif", "avif12_444.avif",
+                  "avif_prem420_q75.avif", "avif_matrix8_444.avif")
 
 
 def test_read_texture_without_pil_matches_the_jax_package(monkeypatch):
-    """read_texture of AVIF files, with PIL blocked, gives the JAX package's
+    """read_texture of AVIF files (a 10-bit, a 12-bit, a premultiplied and a
+    YCgCo one among them), with PIL blocked, gives the JAX package's
     read_texture's atlas bytes and (offset, w, h) values."""
     from relativitypathtracer_tpu.models.texture import read_texture as jax_read
 
@@ -526,7 +598,8 @@ def _leaf(scene, path):
 
 
 def test_scene_with_avif_textures_matches_jax(tmp_path):
-    """A DSL scene with AVIF textures, each shared by two objects, through
+    """A DSL scene with AVIF textures (10 and 12 bits, premultiplied alpha
+    and YCgCo among them), each shared by two objects, through
     the JAX package's build_scene (PIL) and the port's: every texture array
     exact, and the JAX scene carried over by scene_from_numpy equal to the
     port's own build."""

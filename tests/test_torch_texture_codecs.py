@@ -395,10 +395,9 @@ def test_iptc_data_of_another_format(fmt, band, tmp_path):
     """PIL opens an IPTC image's compressed data with Image.open: any
     format, in its own mode where the image is one band L; where a band is
     named, merged as that band of RGB (an L image; in band 1, which
-    Image.merge does not check, any one-band image; merge fails on more
-    bands). The port names the modes it tells for JPEG, PNG, PNM, TIFF and
-    BMP data, and refuses a band from data of another mode or format by
-    name."""
+    Image.merge does not check, any one-band image, a P one as its
+    indices; merge fails on more bands). The port equals PIL or refuses
+    where PIL does, the GIF and TGA bodies in mode P or L among them."""
     rgb = Image.fromarray(np.add.outer(np.arange(9), np.arange(11))[..., None].repeat(3, 2)
                           .astype(np.uint8) * 7)
     for im in (rgb, rgb.convert("L")):
@@ -410,10 +409,8 @@ def test_iptc_data_of_another_format(fmt, band, tmp_path):
                          buf.getvalue(), 5, band=band, chunk=64)
         got = _outcome(data, tmp_path)
         if band is not None and (mode == "P" and band == 1 or mode == "L" and fmt in (
-                "GIF", "TGA", "WEBP")):
-            assert got.startswith("PIL pixels"), got
-            assert "IPTC: an image of mode other as band" in got, got
-            continue
+                "GIF", "TGA")):
+            assert got == "equal", (fmt, band, mode, got)
         assert got in ("equal", "both refuse"), (fmt, band, mode, got)
 
 
@@ -421,6 +418,44 @@ def test_iptc_data_pil_fails_on(tmp_path):
     """IPTC data PIL cannot open (no format, a cut PNG): both fail."""
     for body in (b"not an image", (FIXTURES / "apng_frames.png").read_bytes()[:70]):
         _agree(iptc_file(4, 3, 1, 0, body, 5), tmp_path, reads=False)
+
+
+def _band_body(fmt: str, mode: str) -> bytes:
+    rgb = Image.fromarray(np.add.outer(np.arange(9), np.arange(11))[..., None].repeat(3, 2)
+                          .astype(np.uint8) * 7)
+    im = {"P": rgb.quantize(5), "PA": rgb.quantize(5).convert("PA"),
+          "I;16": Image.fromarray((np.add.outer(np.arange(9), np.arange(11)) * 999)
+                                  .astype(np.uint16))}.get(mode) or rgb.convert(mode)
+    buf = io.BytesIO()
+    im.save(buf, fmt)
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize("fmt,mode,band", [
+    ("PNG", "P", 2), ("GIF", "P", 3), ("TGA", "P", 4), ("BMP", "P", 2), ("TIFF", "P", 3),
+    ("PNG", "1", 2), ("PNG", "I;16", 3), ("TIFF", "I;16", 2), ("PNG", "LA", 1),
+    ("TIFF", "LA", 2), ("TIFF", "PA", 1), ("PNG", "RGB", 1), ("TGA", "RGBA", 1),
+    ("WEBP", "L", 1), ("WEBP", "RGB", 2)])
+def test_iptc_band_kinds_pil_refuses_are_refused(fmt, mode, band, tmp_path):
+    """The band images Image.merge refuses: a mode other than L past band 1
+    ("mode mismatch"), and an image of more than one band in band 1 (the
+    C merge's mode error; WebP opens as RGB whatever was saved). PIL
+    fails, and the port refuses by name."""
+    data = iptc_file(11, 9, 4 if band == 4 else 3, 1, _band_body(fmt, mode), 5, band=band)
+    assert _outcome(data, tmp_path) == "both refuse"
+    got = _port(data)
+    assert isinstance(got, ValueError) and f"as band {band} of" in str(got), got
+
+
+@pytest.mark.parametrize("fmt,mode", [("PCX", "L"), ("SGI", "L"), ("IM", "P")])
+def test_iptc_band_of_a_format_left_for_later_is_refused_by_name(fmt, mode, tmp_path):
+    """A band image in a format whose mode the port does not tell from the
+    file (PCX, SGI, IM: their decoders convert some modes through others):
+    PIL merges it; the port names it and leaves the atlas as it was."""
+    data = iptc_file(11, 9, 3, 1, _band_body(fmt, mode), 5, band=1)
+    assert _outcome(data, tmp_path).startswith("PIL pixels")
+    got = _port(data)
+    assert isinstance(got, ValueError) and "IPTC: an image of mode other as band 1" in str(got)
 
 
 # --- APNG's first frame, and a PNG zlib stream ending on a row ---------------------------

@@ -726,8 +726,10 @@ def test_chip_smoke_texture_scenes_on_cpu(tmp_path):
     cubes_screen.avif (256x256 flat squares in palette and intra block
     copy), textured with blob_lr.avif (its texture loop-restored) and
     blob_grain.avif (with film grain) and cubes with cubes_qm.avif (its
-    256x256 texture with quantiser matrices), through its
-    fixture_texture."""
+    256x256 texture with quantiser matrices), textured with
+    avif10_blob.avif (blob.avif at 10 bits) and cubes with
+    cubes_prem12.avif (its texture premultiplied, 12-bit 4:4:4), through
+    its fixture_texture."""
     from relativitypathtracer_tpu_torch.ops.kernels.texture_kernel import texture_route
 
     spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
@@ -744,7 +746,8 @@ def test_chip_smoke_texture_scenes_on_cpu(tmp_path):
                         ("textured", "blob_thunder.tif"), ("cubes", "cubes_rlew.tif"),
                         ("textured", "blob.avif"), ("cubes", "cubes_screen.avif"),
                         ("textured", "blob_lr.avif"), ("textured", "blob_grain.avif"),
-                        ("cubes", "cubes_qm.avif")]
+                        ("cubes", "cubes_qm.avif"), ("textured", "avif10_blob.avif"),
+                        ("cubes", "cubes_prem12.avif")]
     for kind, name in fixtures:
         where = tmp_path / name
         scene_file = smoke.fixture_texture(write_demo_scene(str(where), 1, kind), name)
@@ -759,7 +762,8 @@ def test_chip_smoke_texture_scenes_on_cpu(tmp_path):
                 assert bytes(host.textures) == bytes(ppm.textures) == demo_texture(32).tobytes()
             assert route == "small"
         else:
-            big = ("cubes_g4.tif", "cubes_rlew.tif", "cubes_screen.avif", "cubes_qm.avif")
+            big = ("cubes_g4.tif", "cubes_rlew.tif", "cubes_screen.avif", "cubes_qm.avif",
+                   "cubes_prem12.avif")
             rows = 32768 if name in big else 2048
             assert scene.tex_quads.shape[0] == rows and route == "windowed"
 

@@ -1,7 +1,7 @@
 """Write the texture decoders' fixtures into this directory, and their
 PIL decodes' hashes into pil_rgb.json.
 
-    python tests/torch_textures/make_fixtures.py
+    python tests/torch_textures/make_fixtures.py [avif | iptc | damaged]
 
 Each file is small (under 4 KB) and made from a seed: JPEGs written by PIL
 (baseline, optimised Huffman tables, progressive, restart markers, 4:4:4,
@@ -29,7 +29,10 @@ ThunderScan TIFFs built here (`thunderscan_row`), CCITT RLEW TIFFs PIL
 writes and rows built here to end on a word (`rlew_tiff`, `rlew_words`,
 `mh_row`), IPTC files around PNG, TIFF, BMP and GIF data, and APNGs PIL
 writes and built here (`png_file`, `actl`, `fctl`, `fdat`;
-`codec_fixtures`). The
+`codec_fixtures`); IPTC bands of P, L and 16-bit images
+(`iptc_band_fixtures`); AVIF files PIL writes (`avif_fixtures`), with
+their 10- and 12-bit edits (`high_bitdepth_edit`), premultiplied alpha
+and nclx edits (`nclx_edit`; `avif_depths_and_alpha`). The
 builders (`bmp_file`, `tga_file`, `gif_file`, `tiff_file`,
 `jpeg_sampled`, `vp8_frame`, `vp8l_palette`, `riff_webp`, `arith_jpeg`,
 `jpeg_tiff`, `ojpeg_tiff`, `dds_file`, `ftex_file`, `blp_file` and their
@@ -3634,6 +3637,298 @@ def lr_uv_shift_edit(data: bytes) -> bytes:
     raise ValueError("no lr_uv_shift bit found")
 
 
+def _bits(data: bytes) -> str:
+    return "".join(format(b, "08b") for b in data)
+
+
+def _leb128(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        out.append((n & 0x7F) | (0x80 if n > 0x7F else 0))
+        n >>= 7
+        if not n:
+            return bytes(out)
+
+
+def _color_config(seq, depth: int) -> tuple:
+    """(seq_profile, color_config() as bits) of a sequence header at
+    `depth` bits: profile 0 for 4:2:0 and grey, 1 for 4:4:4, 2 for 4:2:2
+    and for anything at 12 bits; every other field as `seq` has it."""
+    mono, ssx, ssy = seq.mono, seq.ssx, seq.ssy
+    profile = 2 if depth == 12 or (ssx and not ssy and not mono) else 0 if mono or ssy else 1
+    bits = "1" if depth > 8 else "0"
+    if profile == 2 and depth > 8:
+        bits += "1" if depth == 12 else "0"
+    if profile != 1:
+        bits += str(mono)
+    bits += str(seq.color_description)
+    if seq.color_description:
+        bits += format(seq.cp, "08b") + format(seq.tc, "08b") + format(seq.mc, "08b")
+    if mono:
+        return profile, bits + str(seq.color_range)
+    if not (seq.cp == 1 and seq.tc == 13 and seq.mc == 0):
+        bits += str(seq.color_range)
+        if profile == 2 and depth == 12:
+            bits += str(ssx) + (str(ssy) if ssx else "")
+        if ssx and ssy:
+            bits += format(seq.chroma_sample_position, "02b")
+    return profile, bits + str(seq.separate_uv_delta_q)
+
+
+def sequence_header_at_depth(payload: bytes, depth: int, color_range=None) -> bytes:
+    """A sequence header OBU's payload re-serialised at `depth` bits (and
+    `color_range`, where given): the profile and color_config() written
+    anew, every other bit kept, then film_grain_params_present and the
+    trailing bits."""
+    from relativitypathtracer_tpu_torch.utils import av1_obu
+    seq = av1_obu.sequence_header(payload)
+    if color_range is not None:
+        seq.color_range = color_range
+    start, end = seq.color_config_bits
+    bits = _bits(payload)
+    profile, config = _color_config(seq, depth)
+    out = format(profile, "03b") + bits[3:start] + config + bits[end] + "1"
+    out += "0" * (-len(out) % 8)
+    return bytes(int(out[i:i + 8], 2) for i in range(0, len(out), 8))
+
+
+def _obus_at_depth(data: bytes, depth: int, color_range=None) -> bytes:
+    """An OBU stream with each sequence header at `depth` bits (its size
+    field written again)."""
+    from relativitypathtracer_tpu_torch.utils import av1_obu
+    out, pos = bytearray(), 0
+    while pos < len(data):
+        head = data[pos]
+        ext = (head >> 2) & 1
+        size, body = av1_obu.leb128(data, pos + 1 + ext)
+        payload = data[body:body + size]
+        if (head >> 3) & 15 == av1_obu.OBU_SEQUENCE_HEADER:
+            payload = sequence_header_at_depth(payload, depth, color_range)
+        out += data[pos:pos + 1 + ext] + _leb128(len(payload)) + payload
+        pos = body + size
+    return bytes(out)
+
+
+def _isobox(kind: bytes, body: bytes) -> bytes:
+    return (8 + len(body)).to_bytes(4, "big") + kind + body
+
+
+def _isoboxes(data: bytes, start: int, end: int) -> list:
+    out = []
+    while start < end:
+        size = int.from_bytes(data[start:start + 4], "big")
+        out.append((data[start + 4:start + 8], data[start + 8:start + size]))
+        start += size
+    return out
+
+
+def high_bitdepth_edit(data: bytes, depth: int, alpha: bool = True,
+                       alpha_range=None) -> bytes:
+    """An AVIF file PIL wrote (ftyp, meta, mdat; iloc version 0, 4-byte
+    offsets and lengths, one extent an item) made a `depth`-bit picture:
+    each AV1 item's sequence header re-serialised by
+    `sequence_header_at_depth` (the colour item's, and with `alpha` the
+    alpha item's, its color_range set to `alpha_range` where given), their
+    av1C profile and bit-depth flags and pixi depths to match, and every
+    item's extent and mdat laid out again."""
+    from relativitypathtracer_tpu_torch.utils import av1_obu, avif_decode
+    info = avif_decode._container(data)[0]
+    alpha_ids = {src for typ, src, _ in info["refs"] if typ == b"auxl"}
+    edited = {i for i, kind in info["items"].items()
+              if kind == b"av01" and (alpha or i not in alpha_ids)}
+    top = _isoboxes(data, 0, len(data))
+    assert [k for k, _ in top] == [b"ftyp", b"meta", b"mdat"], [k for k, _ in top]
+    meta = top[1][1]
+    kids = _isoboxes(meta, 4, len(meta))
+    parts = _isoboxes(dict(kids)[b"iprp"], 0, len(dict(kids)[b"iprp"]))
+    ipco = dict(parts)[b"ipco"]
+    owners = {}  # property index: the items it is associated with
+    for item, assoc in info["assoc"].items():
+        for _, idx in assoc:
+            owners.setdefault(idx - 1, set()).add(item)
+    profiles = {}
+    for item in edited:
+        off, length = info["locs"][item][1][0]
+        profiles[item] = _color_config(av1_obu.parse_still(data[off:off + length])[0], depth)[0]
+    props = []
+    for k, (kind, body) in enumerate(_isoboxes(ipco, 0, len(ipco))):
+        mine = owners.get(k, set()) & edited
+        if mine and kind == b"av1C":
+            (profile,) = {profiles[i] for i in mine}
+            flags = (body[2] & 0x9F) | (0x40 if depth > 8 else 0) | (0x20 if depth == 12 else 0)
+            body = (bytes([body[0], (body[1] & 0x1F) | profile << 5, flags, body[3]])
+                    + _obus_at_depth(body[4:], depth))
+        elif mine and kind == b"pixi":
+            body = body[:5] + bytes([depth] * body[4])
+        props.append(_isobox(kind, body))
+    iprp = b"".join(_isobox(k, b"".join(props) if k == b"ipco" else b) for k, b in parts)
+    order = sorted(info["locs"], key=lambda i: info["locs"][i][1][0][0])
+    payloads = {}
+    for item in order:
+        method, extents = info["locs"][item]
+        assert method == 0 and len(extents) == 1
+        off, length = extents[0]
+        chunk = data[off:off + length]
+        ranged = alpha_range if item in alpha_ids else None
+        payloads[item] = _obus_at_depth(chunk, depth, ranged) if item in edited else chunk
+    assert sum(info["locs"][i][1][0][1] for i in order) == len(top[2][1])  # mdat is the items
+    iloc = dict(kids)[b"iloc"]
+    assert iloc[0] == 0 and iloc[4:6] == b"\x44\x00", iloc[:6]
+
+    def meta_box(first: int) -> bytes:
+        at, offsets = first, {}
+        for item in order:
+            offsets[item] = at
+            at += len(payloads[item])
+        body, pos = bytearray(iloc[:8]), 8
+        for _ in range(int.from_bytes(iloc[6:8], "big")):
+            item = int.from_bytes(iloc[pos:pos + 2], "big")
+            body += (iloc[pos:pos + 6] + offsets[item].to_bytes(4, "big")
+                     + len(payloads[item]).to_bytes(4, "big"))
+            pos += 14
+        return _isobox(b"meta", meta[:4] + b"".join(
+            _isobox(k, bytes(body) if k == b"iloc" else iprp if k == b"iprp" else b)
+            for k, b in kids))
+
+    head = _isobox(b"ftyp", top[0][1])
+    first = len(head) + len(meta_box(0)) + 8
+    return head + meta_box(first) + _isobox(b"mdat", b"".join(payloads[i] for i in order))
+
+
+def nclx_edit(data: bytes, primaries: int | None = None, matrix: int | None = None,
+              full: int | None = None) -> bytes:
+    """An AVIF file with its nclx colr box's colour primaries, matrix
+    coefficients or full-range flag rewritten."""
+    i = data.find(b"colrnclx")
+    out = bytearray(data)
+    if primaries is not None:
+        out[i + 8:i + 10] = primaries.to_bytes(2, "big")
+    if matrix is not None:
+        out[i + 12:i + 14] = matrix.to_bytes(2, "big")
+    if full is not None:
+        out[i + 14] = (out[i + 14] & 0x7F) | (full << 7)
+    return bytes(out)
+
+
+def flat_screen(seed: int) -> tuple:
+    """A picture of flat 4x4 or 8x8 cells in 2-5 seeded colours (16-64
+    samples wide), with the subsampling, quality and speed to save it at:
+    screen content aom codes in palette mode."""
+    rng = np.random.default_rng(seed)
+    n = int(rng.choice([16, 24, 32, 40, 48, 64]))
+    tile = int(rng.choice([4, 8, 16]))
+    k = int(rng.integers(2, 6))
+    idx = rng.integers(0, k, (n // tile + 1, n // tile + 1)).repeat(tile, 0).repeat(tile, 1)
+    colours = rng.integers(0, 256, (k, 3)).astype(np.uint8)
+    ss = str(rng.choice(["4:2:0", "4:4:4"]))
+    kw = {"subsampling": ss, "quality": int(rng.choice([60, 80, 100])),
+          "speed": int(rng.choice([3, 6]))}
+    return np.ascontiguousarray(colours[idx[:n, :n]]), kw
+
+
+def tiled_screen(seed: int) -> tuple:
+    """Flat 8x8 or 16x16 cells of a 32x32 or 64x64 tile repeated (128x192
+    for the seeds used): screen content aom codes with intra block copy."""
+    rng = np.random.default_rng(seed)
+    tile = int(rng.choice([8, 16]))
+    base = int(rng.choice([32, 64]))
+    reps = (int(rng.integers(1, 3)), int(rng.integers(2, 5)))
+    k = int(rng.integers(2, 7))
+    idx = rng.integers(0, k, (base // tile, base // tile)).repeat(tile, 0).repeat(tile, 1)
+    colours = rng.integers(0, 256, (k, 3)).astype(np.uint8)
+    ss = str(rng.choice(["4:2:0", "4:4:4"]))
+    kw = {"subsampling": ss, "quality": int(rng.choice([60, 75, 100])),
+          "speed": int(rng.choice([0, 6]))}
+    return np.tile(colours[idx], reps + (1,)), kw
+
+
+# the screen-content seeds whose 10- or 12-bit edit PIL decodes (the edit
+# reads a palette's literals with more bits; most such streams desync and
+# both decoders refuse them), by bit depth
+PALETTE_SEEDS = {10: (1247, 1304, 1360, 1398), 12: (1256, 1360, 1398, 1193)}
+INTRABC_SEEDS = {12: (5053, 5393)}
+
+
+def avif_depths_and_alpha(rng, Image, save, files: dict) -> dict:
+    """10- and 12-bit AVIF files (`high_bitdepth_edit` of PIL's 8-bit files
+    above: 4:2:0, 4:2:2, 4:4:4 and 4:0:0, limited range, RGBA, odd sizes,
+    lossless, CDEF, loop restoration, film grain, quantiser matrices, and
+    of screen content whose edit PIL decodes: palette, chroma palette and
+    intra block copy); premultiplied alpha as PIL writes it
+    (alpha_premultiplied=True: 4:2:0, 4:2:2, 4:4:4 and 4:0:0 at quality 75
+    and 100, a 256x256 (colour, alpha) grid at quality 100, and their 10-
+    and 12-bit edits); libavif's own colour conversions by nclx edits: FCC
+    (4), SMPTE 240M (7), YCgCo (8) and chromaticity-derived (12) under
+    several primaries, on 4:4:4 and 4:2:0, and the identity matrix in
+    limited range, at 8, 10 and 12 bits; and cubes' 256x256 texture
+    premultiplied, in 12-bit 4:4:4 (chip_smoke.py's scene)."""
+    lr = Image.fromarray(_picture(rng, 32, 32)).resize((64, 64), Image.BICUBIC)
+    out = {"avif_lr64.avif": save(lr, quality=50, speed=0),  # self-guided units
+           "avif_lr64_wiener.avif": save(lr, quality=40, speed=3)}
+    files = dict(files, **out)
+    sources = ("blob.avif", "avif_1x1.avif", "avif_7x5.avif", "avif_33x17.avif",
+               "avif_444.avif", "avif_422.avif", "avif_400.avif", "avif_limited.avif",
+               "avif_limited444.avif", "avif_q100.avif", "avif_rgba.avif", "avif_matrix0.avif",
+               "avif_matrix9.avif", "avif_cdef.avif", "avif_cdef422.avif", "avif_cdef400.avif",
+               "avif_lr64.avif", "avif_lr64_wiener.avif", "blob_lr.avif",
+               "avif_film_grain.avif", "avif_grain444.avif",
+               "avif_grain422.avif", "avif_grain400.avif", "avif_grain_rgba.avif",
+               "avif_grain_limited.avif", "avif_grain_table_cfl_no_luma.avif",
+               "avif_grain_table_lag0.avif", "avif_qm.avif", "avif_qm4_444.avif",
+               "avif_qm_lossless.avif", "avif_speed0.avif")
+    for name in sources:
+        for depth in (10, 12):
+            out[f"avif{depth}_{name[5:] if name.startswith('avif_') else name}"] = (
+                high_bitdepth_edit(files[name], depth))
+    for depth, seeds in PALETTE_SEEDS.items():
+        for seed in seeds:
+            pic, kw = flat_screen(seed)
+            out[f"avif{depth}_palette{seed}.avif"] = high_bitdepth_edit(
+                save(Image.fromarray(pic), **kw), depth)
+    for depth, seeds in INTRABC_SEEDS.items():
+        for seed in seeds:
+            pic, kw = tiled_screen(seed)
+            out[f"avif{depth}_intrabc{seed}.avif"] = high_bitdepth_edit(
+                save(Image.fromarray(pic), **kw), depth)
+    rgba = np.concatenate([_picture(rng, 30, 26), rng.integers(0, 256, (30, 26, 1), np.uint8)], 2)
+    for ss in ("4:2:0", "4:2:2", "4:4:4", "4:0:0"):
+        for quality in (75, 100):
+            name = f"avif_prem{ss.replace(':', '')}_q{quality}"
+            prem = save(Image.fromarray(rgba, "RGBA"), alpha_premultiplied=True, subsampling=ss,
+                        quality=quality)
+            out[f"{name}.avif"] = prem
+            for depth in (10, 12):
+                out[f"avif{depth}_{name[5:]}.avif"] = high_bitdepth_edit(prem, depth)
+    c, a = np.meshgrid(np.arange(256), np.arange(256), indexing="ij")
+    grid = np.stack([c, 255 - c, c // 2 + 64, a], -1).astype(np.uint8)
+    out["avif_prem_grid.avif"] = save(Image.fromarray(grid, "RGBA"), alpha_premultiplied=True,
+                                      quality=100)
+    s444, s420 = files["avif_matrix1.avif"], files["avif_limited.avif"]
+    for depth in (8, 10, 12):
+        pre = f"avif{depth}_" if depth > 8 else "avif_"
+        at = (lambda d: d) if depth == 8 else (lambda d: high_bitdepth_edit(d, depth))  # noqa: E731
+        for matrix in (4, 7, 8, 12):
+            out[f"{pre}matrix{matrix}_444.avif"] = at(nclx_edit(s444, matrix=matrix))
+            out[f"{pre}matrix{matrix}_420.avif"] = at(nclx_edit(s420, matrix=matrix, full=1))
+        for primaries in (1, 4, 9, 11, 22):
+            out[f"{pre}derived_cp{primaries}.avif"] = at(nclx_edit(s444, primaries, 12))
+        out[f"{pre}identity_limited.avif"] = at(nclx_edit(files["avif_matrix0.avif"], full=0))
+        out[f"{pre}prem_fcc.avif"] = at(nclx_edit(out["avif_prem420_q75.avif"], matrix=4))
+        # an alpha item coded in limited range (libavif widens it)
+        out[f"{pre}prem_alpha_limited.avif"] = high_bitdepth_edit(
+            out["avif_prem444_q100.avif"], depth, alpha_range=0)
+    # chip_smoke's scenes: textured with a 10-bit blob.avif (above), cubes
+    # with its 256x256 texture premultiplied by a seeded alpha in 12-bit 4:4:4
+    from relativitypathtracer_tpu_torch.utils.demo_scene import demo_texture
+    tex = demo_texture(256)
+    ramp = np.add.outer(np.arange(256), np.arange(256)) // 2
+    alpha = np.clip(ramp + rng.integers(-30, 30, (256, 256)), 0, 255).astype(np.uint8)
+    out["cubes_prem12.avif"] = high_bitdepth_edit(save(
+        Image.fromarray(np.dstack([tex, alpha]), "RGBA"), alpha_premultiplied=True,
+        subsampling="4:4:4", quality=30), 12)
+    return out
+
+
 def avif_fixtures(rng, Image) -> dict:
     """AVIF files PIL writes (libavif with aom): PIL's default encode (quality
     75, speed 6, 4:2:0) of the textured fixture's 32x32 texture
@@ -3703,6 +3998,7 @@ def avif_fixtures(rng, Image) -> dict:
                                     advanced={"tile-columns": "1", "tile-rows": "1"})
     files.update(avif_screen_and_filters(np.random.default_rng(SEED + 13), Image, save))
     files.update(avif_grain_and_qm(np.random.default_rng(SEED + 14), Image, save))
+    files.update(avif_depths_and_alpha(np.random.default_rng(SEED + 15), Image, save, files))
     return files
 
 
@@ -3877,13 +4173,41 @@ def avif_grain_and_qm(rng, Image, save) -> dict:
     return files
 
 
-def write_avif() -> None:
-    """Write the AVIF fixtures and add their hashes to pil_rgb.json, leaving
-    every other fixture and entry as it is."""
+def iptc_band_fixtures(rng, Image) -> dict:
+    """IPTC files whose band (3, 65) holds an image of another one-band
+    mode than L, as PIL's Image.merge takes it: P images (PNG, TIFF, BMP,
+    GIF, TGA) and 16-bit ones (PNG, TIFF) in band 1 of RGB or CMYK, their
+    indices or their storage's first bytes as they are; GIF and TGA images
+    in mode L in bands 2 and 4."""
+    pic = Image.fromarray(_picture(rng, 11, 13))
+    pal = pic.quantize(7)
+    grey16 = Image.fromarray(rng.integers(0, 65536, (11, 13)).astype(np.uint16))
+
+    def save(im, fmt) -> bytes:
+        buf = io.BytesIO()
+        im.save(buf, fmt)
+        return buf.getvalue()
+
+    files = {}
+    for fmt in ("PNG", "TIFF", "BMP", "GIF", "TGA"):
+        files[f"band_{fmt.lower()}_p.iim"] = iptc_file(13, 11, 3, 1, save(pal, fmt), 5, band=1)
+    files["band_tga_p_cmyk.iim"] = iptc_file(13, 11, 4, 1, save(pal, "TGA"), 5, band=1,
+                                             chunk=90)
+    for fmt in ("PNG", "TIFF"):
+        files[f"band_{fmt.lower()}_i16.iim"] = iptc_file(13, 11, 3, 1, save(grey16, fmt), 5,
+                                                         band=1)
+    files["band_gif_l2.iim"] = iptc_file(13, 11, 3, 1, save(pic.convert("1"), "GIF"), 5,
+                                         band=2)
+    files["band_tga_l4.iim"] = iptc_file(13, 11, 4, 1, save(pic.convert("L"), "TGA"), 5,
+                                         band=4)
+    return files
+
+
+def _add_to_record(files: dict) -> None:
+    """Write `files` and add their hashes to pil_rgb.json, leaving every
+    other fixture and entry as it is."""
     from PIL import Image
 
-    sys.path.insert(0, str(HERE.parents[1]))
-    files = avif_fixtures(np.random.default_rng(SEED + 12), Image)
     record = json.loads((HERE / "pil_rgb.json").read_text())
     for name, data in files.items():
         (HERE / name).write_bytes(data)
@@ -3894,6 +4218,21 @@ def write_avif() -> None:
         record["files"][name] = {"shape": list(rgb.shape),
                                  "sha256": hashlib.sha256(rgb.tobytes()).hexdigest()}
     (HERE / "pil_rgb.json").write_text(json.dumps(record, indent=1) + "\n")
+
+
+def write_avif() -> None:
+    """Write the AVIF fixtures and add their hashes to pil_rgb.json."""
+    from PIL import Image
+
+    sys.path.insert(0, str(HERE.parents[1]))
+    _add_to_record(avif_fixtures(np.random.default_rng(SEED + 12), Image))
+
+
+def write_iptc_bands() -> None:
+    """Write the IPTC band fixtures and add their hashes to pil_rgb.json."""
+    from PIL import Image
+
+    _add_to_record(iptc_band_fixtures(np.random.default_rng(SEED + 16), Image))
 
 
 def write_damaged() -> None:
@@ -3954,6 +4293,7 @@ def main() -> None:
     files.update(rare_fixtures(np.random.default_rng(SEED + 10), Image))
     files.update(codec_fixtures(np.random.default_rng(SEED + 11), Image))
     files.update(avif_fixtures(np.random.default_rng(SEED + 12), Image))
+    files.update(iptc_band_fixtures(np.random.default_rng(SEED + 16), Image))
     record = {"pillow": features.version("pil"), "libjpeg_turbo": features.version("libjpeg_turbo"),
               "libwebp": features.version("webp"), "openjpeg": features.version("jpg_2000"),
               "files": {}}
@@ -3974,5 +4314,7 @@ if __name__ == "__main__":
         write_damaged()
     elif sys.argv[1:] == ["avif"]:
         write_avif()
+    elif sys.argv[1:] == ["iptc"]:
+        write_iptc_bands()
     else:
         main()

@@ -1,8 +1,8 @@
 """Time the port's texture decoders on this host's CPU: one 1024x1024 file
 of each format and kind (ICNS: its largest RGB resource, it32, is
-128x128; the committed tools/avif_512_cdef_lr.avif and
-tools/avif_512_grain_qm.avif are 512x512 and their rows give each pass's
-seconds), written by PIL (or, where PIL writes none, by
+128x128; the committed tools/avif_512_cdef_lr.avif,
+tools/avif_512_grain_qm.avif and tools/avif_512_10bit.avif are 512x512 and
+their rows give each pass's seconds), written by PIL (or, where PIL writes none, by
 tests/torch_textures/make_fixtures.py's builders) from
 utils/demo_scene.demo_texture(1024), decoded by
 models/texture.decode_texture and held to PIL's decode byte for byte.
@@ -131,6 +131,9 @@ def files(Image) -> dict:
         # level 5 and aom's film grain test vector 4; its passes timed apart
         "AVIF 512x512 film grain and quantiser matrices": (
             ROOT / "tools" / "avif_512_grain_qm.avif").read_bytes(),
+        # 512x512: PIL's default encode of demo_texture(512) edited to 10
+        # bits (make_fixtures.high_bitdepth_edit); its passes timed apart
+        "AVIF 512x512 10-bit": (ROOT / "tools" / "avif_512_10bit.avif").read_bytes(),
     }
     return out
 
